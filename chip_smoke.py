@@ -22,7 +22,21 @@ Phases:
      server started through ``server.main``, greedy (JSON and binary) and
      beam-5 requests answered, launch counters read;
   6. timings: kernel and plain ms (CUDA events): the x-gate table, greedy
-     at N = 1024 and beam at N = 127 and 1024.
+     at N = 1024 and beam at N = 127 and 1024;
+  7. LSTM chain kernels (forward and backward) vs plain: N = 512,
+     E = H = 512, V = 1004, T = 16 and 17, bf16 and f32 weights: hs and
+     every gradient (wi, wh, b, embedding, h0, c0) for a fixed upstream
+     gradient, as max abs error and relative Frobenius error;
+  8. GRU chain kernels vs plain, the same at T = 17;
+  9. training main path: a synthetic COCO-width bundle in memory (4096
+     captions over 2048 images), then train_reward_network,
+     train_policy_network and train_value_network on the card, one epoch at
+     batch 512 each (the value trainer loads the two .pt files the others
+     wrote); every logged loss finite, the policy XE loss falling, each .pt
+     reloading through the port's converters, and every kernel of the path
+     launched; then one minibatch of each step, fused vs plain;
+ 10. timings (CUDA events): each chain's forward and backward, kernel and
+     plain, and one training step per trainer, fused and plain.
 
 Tolerances. Tokens must be equal. A row may differ only where the plain
 version came within 1e-4 of a tie, and in at most 1% of rows: the kernel
@@ -38,6 +52,29 @@ h and linear1's output to bf16 after a float32 sum: where the two sum
 orders straddle a bf16 rounding boundary, the value moves by about 1e-4,
 and such moves add up over the 16 steps (a score is a sum of 16 terms of
 size ~3).
+
+The chains (phases 7-8) are held by relative Frobenius error,
+||kernel - plain|| / ||plain||, of hs and of each gradient. With float32
+weights the two differ only in the order of float32 sums (the kernels add
+x @ wi + h @ wh + b from the x-gate table, and sum the backward products
+over other tiles than cuBLAS): about 1e-7 relative per product, compounded
+over 17 steps (measured at most 2e-6); bound 1e-4. With bf16 weights both
+round x, h and the gate gradients to bf16 before each product at the same
+points, so only where two float32 sums of another order straddle a bf16
+rounding boundary does an operand move, by one bf16 step, and carry
+through the rest of the chain (measured at most 2.4e-4, on dh0); bound
+2e-3, under the ~1e-3 to 4e-3 relative error that one rounding point more
+or less (an operand left in float32, or rounded twice) puts on every
+element of a product.
+
+The steps (phase 9) hold the fused step (chain kernels, bf16 weights)
+against the plain step (eager float32 autograd) on one minibatch: the loss
+within 1e-2 relative (bf16 weights against float32 weights, up to 2^-9
+relative per weight; measured at most 4e-4) and every parameter gradient
+at cosine >= 0.999 with the plain one (measured at least 0.99992). The
+value step's rollout comes from the greedy kernel once and feeds both (a
+bf16 greedy rollout may part from the float32 one at near ties, which
+phase 3 covers).
 """
 
 from __future__ import annotations
@@ -60,6 +97,11 @@ NEAR_TIE = 1e-4
 MAX_DIFF_SHARE = 0.01
 SCORE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
 TABLE_TOL = 1e-4
+CHAIN_N = 512
+CHAIN_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
+STEP_LOSS_TOL = 1e-2
+GRAD_COS = 0.999
+N_CAPTIONS, N_IMAGES, BATCH = 4096, 2048, 512
 
 
 def phase(name: str, msg: str) -> None:
@@ -112,6 +154,246 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def chain_case(kind: str, steps: int, dev):
+    """Random COCO-width chain inputs from the seed: parameters (leaves that
+    need gradients), embedding, tokens, initial state and an upstream
+    gradient of hs."""
+    from image_captioning_through_rl_tpu_torch.models.initializers import (
+        embedding_init, gru_init, lstm_init)
+
+    gen = torch.Generator().manual_seed(SEED + steps)
+    params = (lstm_init if kind == "lstm" else gru_init)(gen, E, H)
+    params = {k: v.to(dev).requires_grad_() for k, v in params.items()}
+    emb = embedding_init(gen, V, E).to(dev).requires_grad_()
+    tok = torch.randint(0, V, (CHAIN_N, steps), generator=gen).to(dev)
+    states = [(0.5 * torch.randn((CHAIN_N, H), generator=gen)).to(dev).requires_grad_()
+              for _ in range(2 if kind == "lstm" else 1)]
+    dhs = torch.randn((CHAIN_N, steps, H), generator=gen).to(dev)
+    return params, emb, tok, states, dhs
+
+
+def chain_run(kind: str, case, wd, use_fused_kernel):
+    """hs and the gradients of <hs, dhs> with respect to every input."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain
+    from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
+
+    params, emb, tok, states, dhs = case
+    chain = fused_lstm_chain if kind == "lstm" else fused_gru_chain
+    hs = chain(params, emb, tok, *states, weight_dtype=wd, use_fused_kernel=use_fused_kernel)
+    return [hs.detach(), *torch.autograd.grad(hs, [*params.values(), emb, *states], dhs)]
+
+
+def compare_chains(dev) -> dict:
+    """Phases 7-8. Returns the largest max-abs errors in bf16 (the weight
+    type of the training path) of hs ("fwd") and of the gradients ("bwd")
+    per chain."""
+    worst = {}
+    for kind, lengths in (("lstm", (16, 17)), ("gru", (17,))):
+        for steps in lengths:
+            case = chain_case(kind, steps, dev)
+            names = ["hs", *case[0], "embedding", "h0", "c0"]
+            for wd in (torch.bfloat16, torch.float32):
+                got = chain_run(kind, case, wd, None)
+                torch.cuda.synchronize()
+                want = chain_run(kind, case, wd, False)
+                report = []
+                for name, a, b in zip(names, got, want):
+                    if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+                        raise AssertionError(f"{kind} chain {name}: shape {tuple(a.shape)} or "
+                                             f"non-finite values")
+                    err = float((a - b).abs().max())
+                    rel = float((a - b).norm() / b.norm())
+                    if not rel <= CHAIN_TOL[wd]:
+                        raise AssertionError(f"{kind} chain T={steps} {wd} {name}: relative "
+                                             f"error {rel:.3g} > {CHAIN_TOL[wd]}")
+                    report.append(f"{name} {err:.3g}/{rel:.3g}")
+                    if wd == torch.bfloat16:
+                        key = (kind, "fwd" if name == "hs" else "bwd")
+                        worst[key] = max(worst.get(key, 0.0), err)
+                phase(f"{kind}_chain", f"T={steps} {str(wd)[6:]}: max abs/relative error "
+                                       f"(bound {CHAIN_TOL[wd]}): " + ", ".join(report))
+    return worst
+
+
+def synthetic_coco(seed: int):
+    """A COCO-width bundle in memory: vocab 1004 (the four specials, then
+    1000 words drawn Zipf-like, so a unigram is there to learn), features
+    512, captions <START> body <END> <NULL>* of length 17, two captions per
+    image."""
+    from image_captioning_through_rl_tpu_torch import END_ID, START_ID
+    from image_captioning_through_rl_tpu_torch.data.coco import CocoData, caption_lengths
+
+    rng = np.random.default_rng(seed)
+    words = ["<NULL>", "<START>", "<END>", "<UNK>"] + [f"w{i}" for i in range(4, V)]
+    p = 1.0 / np.arange(1, V - 3)
+    body = 4 + rng.choice(V - 4, size=(N_CAPTIONS, T), p=p / p.sum())
+    lens = rng.integers(6, T + 1, size=N_CAPTIONS)  # with <START> and <END>
+    pos = np.arange(T)[None, :]
+    caps = np.where(pos < lens[:, None] - 1, body, 0)
+    caps[np.arange(N_CAPTIONS), lens - 1] = END_ID
+    caps[:, 0] = START_ID
+    caps = caps.astype(np.int32)
+    idxs = rng.permutation(np.repeat(np.arange(N_IMAGES), N_CAPTIONS // N_IMAGES))
+    feats = rng.standard_normal((N_IMAGES, F)).astype(np.float32)
+    urls = np.array([f"img{i}.jpg" for i in range(N_IMAGES)])
+    n_val = 64
+    return CocoData(
+        train_captions=caps, train_image_idxs=idxs.astype(np.int32),
+        val_captions=caps[:n_val], val_image_idxs=idxs[:n_val].astype(np.int32),
+        train_features=feats, val_features=feats, word_to_idx={w: i for i, w in enumerate(words)},
+        idx_to_word=dict(enumerate(words)), train_urls=urls, val_urls=urls,
+        train_captions_lens=caption_lengths(caps), val_captions_lens=caption_lengths(caps[:n_val]))
+
+
+def leaves(tree: dict, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from leaves(v, path + (k,))
+        else:
+            yield "/".join(path + (k,)), v
+
+
+def compare_steps(data, rparams, pparams, vparams, dev) -> None:
+    """Phase 9, second half: one minibatch of each step, fused vs plain."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import prepare_greedy_weights
+    from image_captioning_through_rl_tpu_torch.train import loops, steps
+
+    cfg = loops._cfg_for(data, False)
+    feats = torch.from_numpy(data.train_features[data.train_image_idxs[:BATCH]]).to(dev)
+    caps = torch.from_numpy(data.train_captions[:BATCH]).to(dev).long()
+    caplens = steps.batch_caption_lens(caps)
+    gen, rewards = steps.value_rollout_rewards(cfg, pparams, rparams, feats, caps, fused=True,
+                                               greedy_weights=prepare_greedy_weights(pparams))
+    prefix = 9
+    cases = {
+        "reward": (rparams, lambda p, fused: (steps.reward_loss_fused if fused else
+                                              steps.reward_loss)(p, cfg, feats, caps)),
+        "policy": (pparams, lambda p, fused: (steps.policy_loss_fused if fused else
+                                              steps.policy_loss)(p, cfg, feats, caps, caplens)),
+        "value": (vparams, lambda p, fused: steps.value_regression_loss(
+            p, cfg, feats, gen, rewards, prefix, fused=fused)),
+    }
+    for kind, (params, loss_fn) in cases.items():
+        out = {}
+        for fused in (True, False):
+            p = {k: ({kk: vv.detach().clone().requires_grad_() for kk, vv in v.items()}
+                     if isinstance(v, dict) else v.detach().clone().requires_grad_())
+                 for k, v in params.items()}
+            loss = loss_fn(p, fused)
+            names, ts = zip(*leaves(p))
+            out[fused] = (float(loss.detach()), torch.autograd.grad(loss, ts), names)
+        (lf, gf, names), (lp, gp, _) = out[True], out[False]
+        rel = abs(lf - lp) / abs(lp)
+        cos = {n: float(torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0))
+               for n, a, b in zip(names, gf, gp)}
+        if not (np.isfinite(lf) and rel <= STEP_LOSS_TOL and min(cos.values()) >= GRAD_COS):
+            raise AssertionError(f"{kind} step: fused loss {lf} vs plain {lp} (relative "
+                                 f"{rel:.3g}), gradient cosines {cos}")
+        phase("step", f"{kind}: fused loss {lf:.6f}, plain {lp:.6f} (relative {rel:.2e}, bound "
+                      f"{STEP_LOSS_TOL}); smallest gradient cosine {min(cos.values()):.6f} "
+                      f"({min(cos, key=cos.get)}; bound {GRAD_COS})")
+
+
+def train_main_path(dev) -> tuple:
+    """Phase 9. Returns the kernels' launch counts during the three
+    trainers' run, the data and the trained networks."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
+        fused_greedy_decode, token_gate_table)
+    from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain
+    from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
+    from image_captioning_through_rl_tpu_torch.train import checkpoint as ckpt
+    from image_captioning_through_rl_tpu_torch.train import loops
+
+    data = synthetic_coco(SEED)
+    counters = {"lstm_chain_fwd": (fused_lstm_chain, "fwd_launches"),
+                "lstm_chain_bwd": (fused_lstm_chain, "bwd_launches"),
+                "gru_chain_fwd": (fused_gru_chain, "fwd_launches"),
+                "gru_chain_bwd": (fused_gru_chain, "bwd_launches"),
+                "greedy_decode": (fused_greedy_decode, "launches"),
+                "token_gates": (token_gate_table, "launches")}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {f"{k}_network": os.path.join(tmp, f"{k}Network.pt")
+                 for k in ("reward", "policy", "value")}
+        kw = dict(epochs=1, batch_size=BATCH, seed=SEED, device=dev)
+        for fn, attr in counters.values():
+            setattr(fn, attr, 0)
+        t0 = time.perf_counter()
+        nets = {"reward": loops.train_reward_network(data, paths, tmp, False, **kw),
+                "policy": loops.train_policy_network(data, paths, tmp, False, **kw),
+                "value": loops.train_value_network(data, paths, tmp, False, **kw)}
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+        with open(os.path.join(tmp, "metrics.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        for kind, params in nets.items():
+            back = ckpt.load_network(kind, paths[f"{kind}_network"], dev)
+            if [(n, tuple(t.shape)) for n, t in leaves(back)] != [
+                    (n, tuple(t.shape)) for n, t in leaves(params)]:
+                raise AssertionError(f"{kind} checkpoint does not reload to the network's "
+                                     f"parameters")
+    losses = {}
+    for rec in log:
+        losses.setdefault(rec["tag"].split()[0].lower(), []).append(rec["value"])
+    per_epoch = -(-N_CAPTIONS // BATCH)
+    if sorted(losses) != ["policy", "reward", "value"] or any(
+            len(v) != per_epoch or not np.isfinite(v).all() for v in losses.values()):
+        raise AssertionError(f"logged losses are missing or not finite: {losses}")
+    xe = losses["policy"]
+    if not np.mean(xe[-2:]) < np.mean(xe[:2]):
+        raise AssertionError(f"the policy XE loss did not fall over the epoch: {xe}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the training path skipped a kernel: launches {launches}")
+    phase("train", f"3 trainers x 1 epoch x {per_epoch} minibatches of {BATCH} in "
+                   f"{seconds:.1f} s; losses first -> last: " + "; ".join(
+                       f"{k} {v[0]:.4f} -> {v[-1]:.4f}" for k, v in sorted(losses.items()))
+          + f"; checkpoints reload; launches during the run {launches}")
+    return launches, data, nets
+
+
+def time_training(data, nets, dev) -> dict:
+    """Phase 10: chain forward and backward, kernel and plain (bf16, N =
+    512), and one step per trainer, fused and plain (batch 512)."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain
+    from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
+    from image_captioning_through_rl_tpu_torch.train import loops, steps
+    from image_captioning_through_rl_tpu_torch.train.optim import adam
+
+    times = {}
+    for kind, length in (("lstm", 16), ("gru", 17)):
+        params, emb, tok, states, dhs = chain_case(kind, length, dev)
+        inputs = [*params.values(), emb, *states]
+        chain = fused_lstm_chain if kind == "lstm" else fused_gru_chain
+        for label, flag in (("ms", None), ("plain_ms", False)):
+
+            def fwd():
+                with torch.no_grad():
+                    chain(params, emb, tok, *states, use_fused_kernel=flag)
+
+            hs = chain(params, emb, tok, *states, use_fused_kernel=flag)
+            times[(kind, "fwd", label)] = cuda_ms(fwd, 10)
+            times[(kind, "bwd", label)] = cuda_ms(
+                lambda: torch.autograd.grad(hs, inputs, dhs, retain_graph=True), 10)
+    cfg = loops._cfg_for(data, False)
+    feats = torch.from_numpy(data.train_features[data.train_image_idxs[:BATCH]]).to(dev)
+    caps = torch.from_numpy(data.train_captions[:BATCH]).to(dev).long()
+    for kind in ("reward", "policy", "value"):
+        for label, fused in (("ms", True), ("plain_ms", False)):
+            params = {k: ({kk: vv.detach().clone() for kk, vv in v.items()}
+                          if isinstance(v, dict) else v.detach().clone())
+                      for k, v in nets[kind].items()}
+            opt = adam(1e-4, params)
+            if kind == "value":
+                step = steps.make_value_step(cfg, opt, nets["policy"], nets["reward"], fused=fused)
+                fn = lambda: step(params, feats, caps, 9)  # noqa: E731
+            else:
+                make = steps.make_reward_step if kind == "reward" else steps.make_policy_step
+                step = make(cfg, opt, fused=fused)
+                fn = lambda: step(params, feats, caps)  # noqa: E731
+            times[(kind, "step", label)] = cuda_ms(fn, 5)
+    return times
+
+
 def main() -> int:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -119,7 +401,7 @@ def main() -> int:
               "device", file=sys.stderr)
         return 1
     card = card_line()
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     phase("device", f"{card} | torch {torch.__version__} cuda {torch.version.cuda} | "
                     f"{torch.cuda.device_count()} device(s)")
     sys.path.insert(0, ROOT)
@@ -294,6 +576,35 @@ def main() -> int:
                     f"{times[127][1]:.3f} ms | beam-5 N=1024: kernel {times[1024][0]:.3f} ms, "
                     f"plain {times[1024][1]:.3f} ms")
 
+    # phases 7-8: the LSTM and GRU chains vs their plain versions
+    chain_err = compare_chains(dev)
+
+    # phase 9: the training main path, through the three trainers
+    train_launches, data, nets = train_main_path(dev)
+    compare_steps(data, nets["reward"], nets["policy"], nets["value"], dev)
+
+    # phase 10: timings of the chains and of one step per trainer
+    tt = time_training(data, nets, dev)
+    phase("timing", f"{card} | bf16 weights, N = {CHAIN_N} | " + " | ".join(
+        f"{net} chain {d}: kernel {tt[(net, d, 'ms')]:.3f} ms, plain "
+        f"{tt[(net, d, 'plain_ms')]:.3f} ms" for net in ("lstm", "gru")
+        for d in ("fwd", "bwd")) + " | " + " | ".join(
+        f"{net} step: fused {tt[(net, 'step', 'ms')]:.3f} ms, plain "
+        f"{tt[(net, 'step', 'plain_ms')]:.3f} ms" for net in ("reward", "policy", "value")))
+
+    chain_entries = []
+    for net, line, (fwd_at, bwd_at), length in (
+            ("lstm", "pallas_lstm.py", (158, 184), 16), ("gru", "pallas_gru.py", (139, 167), 17)):
+        for d, at in (("fwd", fwd_at), ("bwd", bwd_at)):
+            chain_entries.append({
+                "name": f"{net}_chain_{d}", "route": "cuda",
+                "source": f"image_captioning_through_rl_tpu_torch/csrc/{net}_chain.cu",
+                "replaces": f"image_captioning_through_rl_tpu/ops/{line}:{at}",
+                "launches": train_launches[f"{net}_chain_{d}"],
+                "max_abs_err": chain_err[(net, d)], "ms": tt[(net, d, "ms")],
+                "plain_ms": tt[(net, d, "plain_ms")],
+                "shape": f"N={CHAIN_N} T={length} E=H={H} V={V} bf16"})
+
     print(json.dumps({"kernels": [
         {"name": "greedy_decode", "route": "cuda",
          "source": "image_captioning_through_rl_tpu_torch/csrc/greedy_decode.cu",
@@ -310,9 +621,10 @@ def main() -> int:
          "replaces": "image_captioning_through_rl_tpu/ops/pallas_decode.py:99",
          "launches": launches["token_gate_table"], "max_abs_err": table_err,
          "ms": tab_ms, "plain_ms": tab_plain, "shape": "V=1004 E=512 4H=2048 bf16"},
+        *chain_entries,
     ]}), flush=True)
     print(card, flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

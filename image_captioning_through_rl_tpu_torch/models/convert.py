@@ -9,10 +9,13 @@ Counterpart of the JAX ``models/convert.py``. Layout facts:
     transpose too.
   * torch keeps two LSTM bias vectors; the port fuses them on load as
     ``b = b_ih + b_hh`` and exports ``(b_ih=b, b_hh=0)``, so a load of an
-    export restores ``b`` bit for bit.
+    export restores ``b`` bit for bit. The GRU keeps both (the candidate
+    gate applies ``r`` between them), gate order r, z, n as torch's.
 
 The reference a2c checkpoint carries both networks under
-``value_network.*`` and ``policy_network.*``; it is the port's checkpoint
+``value_network.*`` and ``policy_network.*``; the reward network's keys are
+``rewrnn.caption_embedding.weight``, ``rewrnn.gru.*_l0``, ``visual_embed``
+and ``semantic_embed``. These ``.pt`` files are the port's checkpoint
 format (native ``.ckpt`` files are not ported yet).
 """
 
@@ -52,6 +55,15 @@ def _lstm(sd: Mapping, prefix: str) -> dict:
     }
 
 
+def _gru(sd: Mapping, prefix: str) -> dict:
+    return {
+        "wi": _t(sd[f"{prefix}.weight_ih_l0"]).T.contiguous(),
+        "wh": _t(sd[f"{prefix}.weight_hh_l0"]).T.contiguous(),
+        "bi": _t(sd[f"{prefix}.bias_ih_l0"]),
+        "bh": _t(sd[f"{prefix}.bias_hh_l0"]),
+    }
+
+
 def _check_unidirectional(sd: Mapping) -> None:
     if any(k.endswith("_reverse") for k in sd):
         raise NotImplementedError(
@@ -85,6 +97,16 @@ def value_from_state_dict(sd: Mapping) -> dict:
     }
 
 
+def reward_from_state_dict(sd: Mapping) -> dict:
+    _check_unidirectional(sd)
+    return {
+        "embedding": _t(sd["rewrnn.caption_embedding.weight"]),
+        "visual_embed": _linear(sd, "visual_embed"),
+        "semantic_embed": _linear(sd, "semantic_embed"),
+        "gru": _gru(sd, "rewrnn.gru"),
+    }
+
+
 def a2c_from_state_dict(sd: Mapping) -> dict:
     return {
         "value": value_from_state_dict(_strip_prefix(sd, "value_network.")),
@@ -108,6 +130,13 @@ def _lstm_to(p: Mapping, prefix: str, out: dict) -> None:
     out[f"{prefix}.bias_hh_l0"] = torch.zeros_like(_host(p["b"]))
 
 
+def _gru_to(p: Mapping, prefix: str, out: dict) -> None:
+    out[f"{prefix}.weight_ih_l0"] = _host(p["wi"]).T.contiguous()
+    out[f"{prefix}.weight_hh_l0"] = _host(p["wh"]).T.contiguous()
+    out[f"{prefix}.bias_ih_l0"] = _host(p["bi"]).clone()
+    out[f"{prefix}.bias_hh_l0"] = _host(p["bh"]).clone()
+
+
 def policy_to_state_dict(params: Mapping) -> dict:
     sd = {"caption_embedding.weight": _host(params["embedding"]).clone()}
     _linear_to(params["cnn2linear"], "cnn2linear", sd)
@@ -124,6 +153,14 @@ def value_to_state_dict(params: Mapping) -> dict:
     return sd
 
 
+def reward_to_state_dict(params: Mapping) -> dict:
+    sd = {"rewrnn.caption_embedding.weight": _host(params["embedding"]).clone()}
+    _linear_to(params["visual_embed"], "visual_embed", sd)
+    _linear_to(params["semantic_embed"], "semantic_embed", sd)
+    _gru_to(params["gru"], "rewrnn.gru", sd)
+    return sd
+
+
 def a2c_to_state_dict(params: Mapping) -> dict:
     sd = {f"value_network.{k}": v for k, v in value_to_state_dict(params["value"]).items()}
     sd.update({f"policy_network.{k}": v
@@ -134,3 +171,27 @@ def a2c_to_state_dict(params: Mapping) -> dict:
 def load_state_dict(path: str) -> dict:
     """Read a reference ``.pt`` state dict (tensors only) onto the CPU."""
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+_FROM = {"policy": policy_from_state_dict, "value": value_from_state_dict,
+         "reward": reward_from_state_dict, "a2c": a2c_from_state_dict}
+_TO = {"policy": policy_to_state_dict, "value": value_to_state_dict,
+       "reward": reward_to_state_dict, "a2c": a2c_to_state_dict}
+
+
+def _converter(table: dict, kind: str):
+    if kind not in table:
+        raise ValueError(f"unknown network kind {kind!r} (expected one of {sorted(table)})")
+    return table[kind]
+
+
+def network_from_state_dict(kind: str, sd: Mapping) -> dict:
+    """A reference state dict of ``kind`` (policy, value, reward or a2c)
+    -> the port's parameter tree (float32, CPU)."""
+    return _converter(_FROM, kind)(sd)
+
+
+def network_to_state_dict(kind: str, params: Mapping) -> dict:
+    """The port's parameter tree of ``kind`` -> a reference state dict of
+    float32 CPU tensors (``torch.save`` writes it as the reference does)."""
+    return _converter(_TO, kind)(params)

@@ -5,6 +5,8 @@ explicit ``torch.Generator`` (counterpart of the JAX ``initializers.py``):
   * ``nn.Linear``:    U(-1/sqrt(fan_in), +1/sqrt(fan_in)) for both w and b
   * ``nn.LSTM``:      U(-1/sqrt(H), +1/sqrt(H)) for every tensor; the fused
     bias is the sum of torch's two bias vectors
+  * ``nn.GRU``:       U(-1/sqrt(H), +1/sqrt(H)) for every tensor, both
+    biases kept
 
 The two frameworks draw different numbers from the same seed; tests that
 compare them carry weights across with :func:`.convert.from_jax_params`.
@@ -36,4 +38,14 @@ def lstm_init(gen: torch.Generator, in_dim: int, hidden: int) -> dict:
         "wi": _uniform(gen, (in_dim, 4 * hidden), k),
         "wh": _uniform(gen, (hidden, 4 * hidden), k),
         "b": _uniform(gen, (4 * hidden,), k) + _uniform(gen, (4 * hidden,), k),
+    }
+
+
+def gru_init(gen: torch.Generator, in_dim: int, hidden: int) -> dict:
+    k = 1.0 / math.sqrt(hidden)
+    return {
+        "wi": _uniform(gen, (in_dim, 3 * hidden), k),
+        "wh": _uniform(gen, (hidden, 3 * hidden), k),
+        "bi": _uniform(gen, (3 * hidden,), k),
+        "bh": _uniform(gen, (3 * hidden,), k),
     }

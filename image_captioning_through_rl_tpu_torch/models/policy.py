@@ -29,14 +29,24 @@ def check_unidirectional(cfg: NetConfig) -> None:
             "bidirectional networks are not ported yet (ROADMAP §1, modules 2-3)")
 
 
-def init(gen: torch.Generator, cfg: NetConfig) -> dict:
+def embedding_table(gen: torch.Generator, cfg: NetConfig, pretrained_embeddings=None
+                    ) -> torch.Tensor:
+    """A fresh N(0, 1) table, or the pretrained word vectors (which then fix
+    the word-vector width)."""
+    if pretrained_embeddings is not None:
+        return torch.as_tensor(pretrained_embeddings, dtype=torch.float32).clone()
+    return embedding_init(gen, cfg.vocab_size, cfg.wordvec_dim)
+
+
+def init(gen: torch.Generator, cfg: NetConfig, pretrained_embeddings=None) -> dict:
     check_unidirectional(cfg)
     h = cfg.hidden_dim
+    embedding = embedding_table(gen, cfg, pretrained_embeddings)
     return {
-        "embedding": embedding_init(gen, cfg.vocab_size, cfg.wordvec_dim),
+        "embedding": embedding,
         "cnn2linear": linear_init(gen, cfg.input_dim, h),
         "head": linear_init(gen, h, cfg.vocab_size),
-        "lstm": lstm_init(gen, cfg.wordvec_dim, h),
+        "lstm": lstm_init(gen, embedding.shape[1], h),
     }
 
 

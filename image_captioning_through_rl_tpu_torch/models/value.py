@@ -14,18 +14,19 @@ import torch
 from ..config import NetConfig
 from ..ops.linalg import dense
 from ..ops.rnn import LSTMState, lstm_cell, lstm_scan
-from .initializers import embedding_init, linear_init, lstm_init
-from .policy import check_unidirectional
+from .initializers import linear_init, lstm_init
+from .policy import check_unidirectional, embedding_table
 
 
-def init(gen: torch.Generator, cfg: NetConfig) -> dict:
+def init(gen: torch.Generator, cfg: NetConfig, pretrained_embeddings=None) -> dict:
     check_unidirectional(cfg)
     h = cfg.hidden_dim
+    embedding = embedding_table(gen, cfg, pretrained_embeddings)
     return {
-        "embedding": embedding_init(gen, cfg.vocab_size, cfg.wordvec_dim),
+        "embedding": embedding,
         "linear1": linear_init(gen, cfg.input_dim + h, h),
         "linear2": linear_init(gen, h, 1),
-        "lstm": lstm_init(gen, cfg.wordvec_dim, h),
+        "lstm": lstm_init(gen, embedding.shape[1], h),
     }
 
 

@@ -73,54 +73,66 @@ def prepare_greedy_weights(params: dict, weight_dtype: torch.dtype = torch.bfloa
     )
 
 
-def token_gate_table_plain(emb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``emb @ wi`` in eager torch: f32 ``[V, 4H]`` from ``emb [V, E]`` and
-    ``w = [wi; wh]`` (products of working-type values, f32 sums)."""
-    return wmatmul(emb.to(torch.float32), w[: emb.shape[1]])
+def token_gate_table_plain(emb: torch.Tensor, w: torch.Tensor,
+                           bias: torch.Tensor | None = None) -> torch.Tensor:
+    """``emb @ wi (+ bias)`` in eager torch: f32 ``[V, G]`` from ``emb [V, E]``
+    and ``w`` whose first E rows are ``wi`` (``[wi; wh]`` or ``wi`` alone),
+    products of working-type values, f32 sums, the bias added after them."""
+    out = wmatmul(emb.to(torch.float32), w[: emb.shape[1]])
+    return out if bias is None else out + bias
 
 
 def check_tile_widths(dtype: torch.dtype, **widths: int) -> None:
     """The bf16 kernels stage their tensor-core operands in 16-byte chunks
     (``csrc/common.cuh``, ``gemm_tile_tc``): every reduction width must be a
-    multiple of 8 and the vocabulary even. The float32 kernels take any
-    width."""
+    multiple of 8, and an output width read in bf16 pairs (the vocabulary, a
+    gate table's columns) even. The float32 kernels take any width."""
     if dtype != torch.bfloat16:
         return
-    bad = {k: v for k, v in widths.items() if v % (2 if k == "vocab" else 8)}
+    bad = {k: v for k, v in widths.items() if v % (2 if k in ("vocab", "columns") else 8)}
     if bad:
         raise ValueError(f"the bf16 kernels need widths that are multiples of 8 and an even "
                          f"vocabulary, got {bad}")
 
 
-def _launch_token_gates(emb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def _launch_token_gates(emb: torch.Tensor, w: torch.Tensor,
+                        bias: torch.Tensor | None) -> torch.Tensor:
     vocab, emb_dim = emb.shape
-    hidden = w.shape[1] // 4
+    width = w.shape[1]
     if (w.device != emb.device or w.dtype != emb.dtype
             or emb.dtype not in (torch.bfloat16, torch.float32)
-            or w.shape != (emb_dim + hidden, 4 * hidden)
+            or w.dim() != 2 or w.shape[0] < emb_dim
             or not (emb.is_contiguous() and w.is_contiguous())):
-        raise ValueError("token_gate_table needs contiguous emb [V, E] and w [E + H, 4H] "
+        raise ValueError("token_gate_table needs contiguous emb [V, E] and w [>= E, G] "
                          "of one type (bf16 or f32) on one device")
-    check_tile_widths(emb.dtype, emb_dim=emb_dim, hidden=hidden)
-    out = torch.empty((vocab, 4 * hidden), dtype=torch.float32, device=emb.device)
+    if bias is not None and (bias.dtype != torch.float32 or bias.shape != (width,)
+                             or bias.device != emb.device or not bias.is_contiguous()):
+        raise ValueError("token_gate_table's bias must be a contiguous float32 [G] tensor "
+                         "on the embedding's device")
+    check_tile_widths(emb.dtype, emb_dim=emb_dim, columns=width)
+    out = torch.empty((vocab, width), dtype=torch.float32, device=emb.device)
     lib = load_library()
     with torch.cuda.device(emb.device):
-        err = lib.icrl_token_gates(vocab, emb_dim, hidden, int(emb.dtype == torch.bfloat16),
-                                   emb.data_ptr(), w.data_ptr(), out.data_ptr(),
+        err = lib.icrl_token_gates(vocab, emb_dim, width, int(emb.dtype == torch.bfloat16),
+                                   emb.data_ptr(), w.data_ptr(),
+                                   None if bias is None else bias.data_ptr(), out.data_ptr(),
                                    torch.cuda.current_stream(emb.device).cuda_stream)
     check_error(lib, "icrl_token_gates", err)
     token_gate_table.launches += 1
     return out
 
 
-def token_gate_table(emb: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The x-gate table ``emb @ wi``, f32 ``[V, 4H]``: the input half of
-    every LSTM gate product, one row per token. CUDA tensors run the kernel
-    (``csrc/token_gates.cu``), CPU tensors :func:`token_gate_table_plain`.
-    ``token_gate_table.launches`` counts kernel launches."""
+def token_gate_table(emb: torch.Tensor, w: torch.Tensor,
+                     bias: torch.Tensor | None = None) -> torch.Tensor:
+    """The x-gate table ``emb @ wi (+ bias)``, f32 ``[V, G]``: the input
+    half of every gate product of a recurrent cell, one row per token
+    (``w``'s first E rows are ``wi``: pass ``[wi; wh]`` or ``wi``). CUDA
+    tensors run the kernel (``csrc/token_gates.cu``), CPU tensors
+    :func:`token_gate_table_plain`. ``token_gate_table.launches`` counts
+    kernel launches."""
     if emb.is_cuda:
-        return _launch_token_gates(emb, w)
-    return token_gate_table_plain(emb, w)
+        return _launch_token_gates(emb, w, bias)
+    return token_gate_table_plain(emb, w, bias)
 
 
 token_gate_table.launches = 0

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes`` — no PyTorch headers, so
-a build takes seconds. The library lands in the package's ``_build/``
+The sources compile with ``nvcc`` for ``sm_90a``, one process per source,
+all started together, and link into one shared library with a plain C
+interface, loaded with ``ctypes`` — no PyTorch headers, so a build takes
+seconds. The library lands in the package's ``_build/``
 directory under a name keyed by a hash of the sources and flags: a fresh
 checkout builds on first use, an edited source rebuilds, and concurrent
 processes share one build behind a file lock. A failed build raises with
@@ -25,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,7 +37,11 @@ _SIGNATURES = {
     "icrl_beam_max_beam": (_I, []),
     "icrl_beam_workspace_floats": (ctypes.c_size_t, [_I] * 6),
     "icrl_beam_search": (_I, [_I] * 7 + [_F, _F, _I] + [_P] * 20),
-    "icrl_token_gates": (_I, [_I] * 4 + [_P] * 4),
+    "icrl_token_gates": (_I, [_I] * 4 + [_P] * 5),
+    "icrl_lstm_chain_fwd": (_I, [_I] * 4 + [_P] * 8),
+    "icrl_lstm_chain_bwd": (_I, [_I] * 5 + [_P] * 15),
+    "icrl_gru_chain_fwd": (_I, [_I] * 4 + [_P] * 8),
+    "icrl_gru_chain_bwd": (_I, [_I] * 5 + [_P] * 18),
     "icrl_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -78,13 +83,32 @@ def build() -> Path:
             return lib
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cu, _ = _sources()
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed with code {proc.returncode}:\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)
+        nvcc = nvcc_path()
+        objs = [lib.with_suffix(f".{os.getpid()}.{src.stem}.o") for src in cu]
+        try:
+            procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True))
+                     for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                                 for src, obj in zip(cu, objs))]
+            failed = []
+            for cmd, p in procs:
+                out = p.communicate()[0]
+                if p.returncode != 0:
+                    failed.append((cmd, p.returncode, out))
+            if not failed:
+                link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+                proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True)
+                if proc.returncode != 0:
+                    failed = [(link, proc.returncode, proc.stdout)]
+            if failed:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError("nvcc failed:\n" + "\n".join(
+                    f"{' '.join(cmd)} (code {code})\n{out}" for cmd, code, out in failed))
+            os.replace(tmp, lib)
+        finally:
+            for obj in objs:
+                obj.unlink(missing_ok=True)
     return lib
 
 

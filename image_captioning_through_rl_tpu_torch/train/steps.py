@@ -1,0 +1,192 @@
+"""Training steps of the three pretrainers (counterpart of the JAX
+``train/steps.py``, unidirectional and non-compat forms only).
+
+  * reward — VSE ranking loss (reference trainers.py:260-309);
+  * policy — caption-length-weighted XE (trainers.py:202-257);
+  * value — MSE against the embedding reward of a greedy rollout of the
+    frozen policy, on a random-length prefix (trainers.py:125-199).
+
+Each ``*_loss`` is the plain form: eager autograd over the port's models
+(the JAX package's XLA step). Each ``*_loss_fused`` puts the recurrent
+chain through :func:`..ops.fused_lstm.fused_lstm_chain` or
+:func:`..ops.fused_gru.fused_gru_chain` (the kernels on CUDA tensors, their
+plain versions on CPU tensors); what the JAX package left to XLA stays
+plain torch: the vocab head, the XE loss, the ``cnn2linear`` ``h0``
+product, the embedding-pair projections and the VSE loss.
+
+A step built by ``make_*_step`` runs one minibatch — loss, backward, one
+optimiser step that updates the parameter tensors in place — and returns
+the loss as a detached 0-d tensor (no device sync).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import END_ID
+from ..config import NetConfig
+from ..decode.greedy import greedy_decode
+from ..models import policy as policy_mod
+from ..models import reward as reward_mod
+from ..models import value as value_mod
+from ..ops.fused_decode import fused_greedy_decode, prepare_greedy_weights
+from ..ops.fused_gru import fused_gru_chain
+from ..ops.fused_lstm import fused_lstm_chain
+from ..ops.linalg import dense
+from ..ops.losses import visual_semantic_embedding_loss, weighted_caption_xe_loss
+from ..ops.reward_ops import cosine_embedding_reward
+from ..ops.rnn import lstm_scan
+
+
+def batch_caption_lens(captions: torch.Tensor) -> torch.Tensor:
+    """END position + 1 per row (cf. trainers.py:241)."""
+    return torch.argmax((captions == END_ID).to(torch.int32), dim=1) + 1
+
+
+def _train_step(optimizer: torch.optim.Optimizer, loss_fn):
+    """One minibatch: zero the gradients, loss, backward, optimiser step."""
+    optimizer.zero_grad(set_to_none=True)
+    loss = loss_fn()
+    loss.backward()
+    optimizer.step()
+    return loss.detach()
+
+
+# --------------------------------------------------------------------------
+# Reward network (VSE loss)
+# --------------------------------------------------------------------------
+
+def reward_loss(params, cfg: NetConfig, features, captions, beta=0.2):
+    ve, se = reward_mod.forward(params, cfg, features, captions)
+    return visual_semantic_embedding_loss(ve, se, beta=beta)
+
+
+def reward_loss_fused(params, cfg: NetConfig, features, captions, beta=0.2,
+                      weight_dtype=torch.bfloat16):
+    """:func:`reward_loss` with the GRU chain through the chain kernels."""
+    h0 = torch.zeros((captions.shape[0], cfg.hidden_dim), dtype=torch.float32,
+                     device=features.device)
+    hs = fused_gru_chain(params["gru"], params["embedding"], captions, h0,
+                         weight_dtype=weight_dtype)
+    ve, se = reward_mod.embed_pair(params, cfg, features, hs[:, -1])
+    return visual_semantic_embedding_loss(ve, se, beta=beta)
+
+
+def make_reward_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, beta=0.2,
+                     fused: bool = False):
+    """``step(params, features, captions) -> loss``; ``fused=True`` runs the
+    GRU chain through its kernels."""
+    loss_fn = reward_loss_fused if fused else reward_loss
+
+    def step(params, features, captions):
+        return _train_step(optimizer, lambda: loss_fn(params, cfg, features, captions, beta=beta))
+
+    return step
+
+
+# --------------------------------------------------------------------------
+# Policy network (teacher-forced XE)
+# --------------------------------------------------------------------------
+
+def policy_loss(params, cfg: NetConfig, features, captions, caplens):
+    logits = policy_mod.forward(params, cfg, features, captions[:, :-1])
+    return weighted_caption_xe_loss(logits, captions[:, 1:], caplens)
+
+
+def policy_loss_fused(params, cfg: NetConfig, features, captions, caplens,
+                      weight_dtype=torch.bfloat16):
+    """:func:`policy_loss` with the LSTM chain through the chain kernels;
+    the vocab head and the XE loss stay single large products over the
+    N T rows."""
+    h0 = dense(features, params["cnn2linear"])
+    hs = fused_lstm_chain(params["lstm"], params["embedding"], captions[:, :-1], h0,
+                          torch.zeros_like(h0), weight_dtype=weight_dtype)
+    logits = dense(hs, params["head"])
+    return weighted_caption_xe_loss(logits, captions[:, 1:], caplens)
+
+
+def make_policy_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, fused: bool = False):
+    """``step(params, features, captions) -> loss``; ``fused=True`` runs the
+    LSTM chain through its kernels."""
+    loss_fn = policy_loss_fused if fused else policy_loss
+
+    def step(params, features, captions):
+        caplens = batch_caption_lens(captions)
+        return _train_step(optimizer,
+                           lambda: loss_fn(params, cfg, features, captions, caplens))
+
+    return step
+
+
+# --------------------------------------------------------------------------
+# Value network (MSE vs the embedding reward of greedy rollouts)
+# --------------------------------------------------------------------------
+
+def value_rollout_rewards(cfg: NetConfig, pparams, rparams, features, captions,
+                          fused: bool = False, greedy_weights=None):
+    """The value trainer's targets, with no gradient: the greedy rollout of
+    the frozen policy from ``captions[:, 0]`` (``[N, T]`` int64) and its
+    embedding reward under the frozen reward network (``[N, 1]``).
+    ``fused=True`` decodes with the greedy kernel on ``greedy_weights``
+    (:func:`..ops.fused_decode.prepare_greedy_weights`, bf16 by default);
+    the reward forward stays eager float32, as in the JAX package
+    (``steps.py:300``)."""
+    with torch.no_grad():
+        start = captions[:, 0]
+        if fused:
+            gen_caps = fused_greedy_decode(greedy_weights, features.contiguous(),
+                                           start.to(torch.int32).contiguous(),
+                                           cfg.max_seq_len).long()
+        else:
+            gen_caps = greedy_decode(pparams, cfg, features, start).long()
+        ve, se = reward_mod.forward(rparams, cfg, features, gen_caps)
+        return gen_caps, cosine_embedding_reward(ve, se)[:, None]
+
+
+def value_regression_loss(vparams, cfg: NetConfig, features, gen_caps, rewards,
+                          prefix_len: int, fused: bool = False, weight_dtype=torch.bfloat16):
+    """MSE of the value of the rollout's prefix of length ``prefix_len``
+    (shared by the batch, trainers.py:177) against ``rewards``. The encoder
+    runs over the whole rollout and the value reads its state at
+    ``prefix_len - 1``; ``fused=True`` runs it through the LSTM chain
+    kernels."""
+    n = gen_caps.shape[0]
+    zeros = torch.zeros((n, cfg.hidden_dim), dtype=torch.float32, device=features.device)
+    if fused:
+        hs = fused_lstm_chain(vparams["lstm"], vparams["embedding"], gen_caps, zeros, zeros,
+                              weight_dtype=weight_dtype)
+        h = hs[:, prefix_len - 1]
+    else:
+        xs = vparams["embedding"][gen_caps].transpose(0, 1)  # [T, N, E]
+        hs, _ = lstm_scan(vparams["lstm"], xs, (zeros, zeros))
+        h = hs[prefix_len - 1]
+    values = value_mod.value_head(vparams, cfg, features, h)  # [N, 1]
+    return torch.mean(torch.square(values - rewards))
+
+
+def value_episode_loss(vparams, cfg: NetConfig, pparams, rparams, features, captions,
+                       prefix_len: int, fused: bool = False, greedy_weights=None,
+                       weight_dtype=torch.bfloat16):
+    """The value trainer's per-minibatch loss (trainers.py:125-199):
+    :func:`value_rollout_rewards` then :func:`value_regression_loss`."""
+    gen_caps, rewards = value_rollout_rewards(cfg, pparams, rparams, features, captions,
+                                              fused=fused, greedy_weights=greedy_weights)
+    return value_regression_loss(vparams, cfg, features, gen_caps, rewards, prefix_len,
+                                 fused=fused, weight_dtype=weight_dtype)
+
+
+def make_value_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, pparams: dict,
+                    rparams: dict, fused: bool = False):
+    """``step(vparams, features, captions, prefix_len) -> loss`` against the
+    frozen policy ``pparams`` and reward network ``rparams`` (loaded, not
+    trained: trainers.py:140-150). ``fused=True`` prepares the policy's
+    bf16 greedy-kernel weights once, here, and runs the rollout and the
+    value encoder through their kernels."""
+    greedy_weights = prepare_greedy_weights(pparams) if fused else None
+
+    def step(vparams, features, captions, prefix_len):
+        return _train_step(optimizer, lambda: value_episode_loss(
+            vparams, cfg, pparams, rparams, features, captions, prefix_len, fused=fused,
+            greedy_weights=greedy_weights))
+
+    return step

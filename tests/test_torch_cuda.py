@@ -14,6 +14,13 @@ be equal except where the plain version came within ``NEAR_TIE`` of a tie
 agree to 1e-4 with float32 weights and 1e-3 with bf16 weights (bf16
 rounding of h and of linear1's output after float32 sums of another
 order). The COCO-width comparison is ``chip_smoke.py``'s.
+
+The LSTM and GRU chains (forward and backward) are held against their
+plain versions at a small shape and at the COCO shape (N = 512, T = 17,
+E = H = 512, V = 1004): ``hs`` and every gradient for a fixed upstream
+gradient, by relative Frobenius error, within 1e-4 with float32 weights
+(sum order alone) and 2e-2 with bf16 weights (sum order ahead of a bf16
+rounding of h or of a gate gradient moves it by one bf16 step, 2^-8).
 """
 
 import numpy as np
@@ -23,6 +30,11 @@ import torch
 from image_captioning_through_rl_tpu_torch import START_ID
 from image_captioning_through_rl_tpu_torch.config import NetConfig
 from image_captioning_through_rl_tpu_torch.models import a2c
+from image_captioning_through_rl_tpu_torch.models.initializers import (
+    embedding_init,
+    gru_init,
+    lstm_init,
+)
 from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
     beam_search_plain,
     fused_beam_search,
@@ -35,6 +47,8 @@ from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
     token_gate_table,
     token_gate_table_plain,
 )
+from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain
+from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
 
 CFG = NetConfig(vocab_size=60, input_dim=16, wordvec_dim=16, hidden_dim=16, max_seq_len=7)
 T = CFG.max_seq_len
@@ -119,3 +133,79 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
         fused_beam_search(bw, f.double(), s, T, BEAM)
     with pytest.raises(ValueError, match="start tokens"):
         fused_greedy_decode(gw, f, torch.full_like(s, CFG.vocab_size), T)
+
+
+CHAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+CHAIN_SHAPES = {"small": (20, 7, 16, 16, 60), "coco": (512, 17, 512, 512, 1004)}
+
+
+def _chain_setup(dev, kind, shape):
+    n, t, e, h, v = CHAIN_SHAPES[shape]
+    gen = torch.Generator().manual_seed(3)
+    params = (lstm_init if kind == "lstm" else gru_init)(gen, e, h)
+    emb = embedding_init(gen, v, e)
+    rng = np.random.default_rng(4)
+    tok = torch.from_numpy(rng.integers(0, v, size=(n, t))).to(dev)
+    states = [torch.from_numpy(rng.standard_normal((n, h)).astype(np.float32)).to(dev)
+              for _ in range(2 if kind == "lstm" else 1)]
+    dhs = torch.from_numpy(rng.standard_normal((n, t, h)).astype(np.float32)).to(dev)
+    leaves = [p.to(dev).requires_grad_() for p in params.values()]
+    params = dict(zip(params, leaves))
+    inputs = leaves + [emb.to(dev).requires_grad_()] + [s.requires_grad_() for s in states]
+    return params, inputs, tok, dhs
+
+
+def _chain_run(kind, params, inputs, tok, dhs, wd, use_fused_kernel):
+    chain = fused_lstm_chain if kind == "lstm" else fused_gru_chain
+    emb, *states = inputs[len(params):]
+    hs = chain(params, emb, tok, *states, weight_dtype=wd, use_fused_kernel=use_fused_kernel)
+    grads = torch.autograd.grad(hs, inputs, dhs)
+    return [hs.detach(), *grads]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", list(CHAIN_SHAPES))
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_chain_kernels_match_plain(dev, kind, wd, shape):
+    chain = fused_lstm_chain if kind == "lstm" else fused_gru_chain
+    params, inputs, tok, dhs = _chain_setup(dev, kind, shape)
+    before = (chain.fwd_launches, chain.bwd_launches)
+    got = _chain_run(kind, params, inputs, tok, dhs, wd, None)
+    torch.cuda.synchronize()
+    assert (chain.fwd_launches, chain.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = _chain_run(kind, params, inputs, tok, dhs, wd, False)
+    names = ["hs", *params, "embedding", "h0", "c0"]
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        rel = float((a - b).norm() / b.norm())
+        assert rel <= CHAIN_TOL[wd], f"{kind} {name}: relative error {rel:.3g}"
+
+
+@pytest.mark.cuda
+def test_chain_wrappers_reject_bad_inputs(dev):
+    params, inputs, tok, _ = _chain_setup(dev, "lstm", "small")
+    emb, h0, c0 = inputs[3:]
+    with pytest.raises(ValueError, match="one device"):
+        fused_lstm_chain(params, emb, tok, h0, c0.cpu())
+    with pytest.raises(ValueError, match="float32"):
+        fused_lstm_chain(params, emb.double(), tok, h0, c0)
+    with pytest.raises(ValueError, match="tokens must lie"):
+        fused_lstm_chain(params, emb, tok + 1000, h0, c0)
+    odd = {k: v[:, :4 * 12] if v.dim() == 2 else v[:4 * 12] for k, v in params.items()}
+    odd["wh"] = odd["wh"][:12]
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fused_lstm_chain(odd, emb, tok, h0[:, :12], c0[:, :12])
+    gparams, ginputs, gtok, _ = _chain_setup(dev, "gru", "small")
+    with pytest.raises(ValueError, match="integers"):
+        fused_gru_chain(gparams, ginputs[4], gtok.float(), ginputs[5])
+
+
+@pytest.mark.cuda
+def test_chain_kernel_forced_on_cpu_raises(dev):
+    params, inputs, tok, _ = _chain_setup(torch.device("cpu"), "gru", "small")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused_gru_chain(params, inputs[4], tok, inputs[5], use_fused_kernel=True)
+    lparams, linputs, ltok, _ = _chain_setup(torch.device("cpu"), "lstm", "small")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fused_lstm_chain(lparams, linputs[3], ltok, *linputs[4:], use_fused_kernel=True)

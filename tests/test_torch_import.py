@@ -14,6 +14,7 @@ def test_port_imports_without_jax():
         "import image_captioning_through_rl_tpu_torch.api\n"
         "import image_captioning_through_rl_tpu_torch.server\n"
         "import image_captioning_through_rl_tpu_torch.decode\n"
+        "import image_captioning_through_rl_tpu_torch.train.loops\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'image_captioning_through_rl_tpu'\n"
         "             or m.startswith('image_captioning_through_rl_tpu.'))\n"

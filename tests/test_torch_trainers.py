@@ -1,0 +1,115 @@
+"""The port's pretrainers vs the JAX package's, end to end on a tiny bundle.
+
+Each port trainer runs with its network's ``init`` replaced by the JAX
+initialiser's weights (carried across as numpy); the JAX trainer runs its
+plain XLA step (``fused_chain=False``, ``chunk_steps=1``,
+``device_data=False``). Both walk the same minibatches (the same numpy
+seeds) and, for the value trainer, the same prefix lengths and the same
+frozen reward and policy ``.pt`` files. Compared: every per-minibatch loss
+in the JSONL metric logs (tag, step and value, rtol 1e-4: a few Adam steps
+of float32 noise, see ``test_torch_steps.py``), and the Q12 checkpoint —
+the port's ``.pt`` read by the JAX package's own ``load_network`` against
+the JAX trainer's ``.ckpt``, atol 2e-5.
+"""
+
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from image_captioning_through_rl_tpu.data.coco import CocoData as JCocoData
+from image_captioning_through_rl_tpu.models import policy as jpolicy
+from image_captioning_through_rl_tpu.models import reward as jreward
+from image_captioning_through_rl_tpu.models import value as jvalue
+from image_captioning_through_rl_tpu.train import checkpoint as jckpt
+from image_captioning_through_rl_tpu.train import loops as jloops
+from image_captioning_through_rl_tpu_torch.data.coco import CocoData, caption_lengths
+from image_captioning_through_rl_tpu_torch.models import policy as tpolicy
+from image_captioning_through_rl_tpu_torch.models import reward as treward
+from image_captioning_through_rl_tpu_torch.models import value as tvalue
+from image_captioning_through_rl_tpu_torch.models.convert import from_jax_params
+from image_captioning_through_rl_tpu_torch.train import loops as tloops
+
+torch.set_num_threads(1)
+
+V, F, T = 40, 16, 9
+DIMS = {"wordvec_dim": 16, "hidden_dim": 16}
+SEED = 3
+KW = dict(epochs=2, batch_size=8, seed=SEED, net_dims=DIMS)
+
+
+def _fields(seed=0, n_img=12, n_cap=24):
+    rng = np.random.default_rng(seed)
+    words = ["<NULL>", "<START>", "<END>", "<UNK>"] + [f"w{i}" for i in range(4, V)]
+    caps = rng.integers(4, V, size=(n_cap, T)).astype(np.int32)
+    caps[:, 0] = 1
+    lens = rng.integers(3, T + 1, size=n_cap)
+    caps[np.arange(n_cap), lens - 1] = 2
+    caps[np.arange(T)[None, :] >= lens[:, None]] = 0
+    urls = np.array([f"img{i}.jpg" for i in range(n_img)])
+    feats = rng.standard_normal((n_img, F)).astype(np.float32)
+    idxs = rng.integers(0, n_img, size=n_cap).astype(np.int32)
+    return dict(train_captions=caps, train_image_idxs=idxs, val_captions=caps[:4],
+                val_image_idxs=idxs[:4], train_features=feats, val_features=feats,
+                word_to_idx={w: i for i, w in enumerate(words)},
+                idx_to_word=dict(enumerate(words)), train_urls=urls, val_urls=urls,
+                train_captions_lens=caption_lengths(caps),
+                val_captions_lens=caption_lengths(caps[:4]))
+
+
+INITS = {"reward": (jreward, treward, 0), "policy": (jpolicy, tpolicy, 1),
+         "value": (jvalue, tvalue, 2)}
+
+
+def _log(path):
+    return [json.loads(line) for line in path.read_text().splitlines()]
+
+
+@pytest.mark.parametrize("kind", ["reward", "policy", "value"])
+def test_trainer_matches_jax_trainer(kind, tmp_path, monkeypatch):
+    fields = _fields()
+    jdata, tdata = JCocoData(**fields), CocoData(**fields)
+    jcfg = jloops._cfg_for(jdata, False, DIMS)
+    jmod, tmod, offset = INITS[kind]
+    jinit = jmod.init(jax.random.PRNGKey(SEED + offset), jcfg)
+    monkeypatch.setattr(tmod, "init", lambda gen, cfg, emb=None: from_jax_params(
+        jax.tree.map(np.asarray, jinit)))
+
+    (tmp_path / "j").mkdir()
+    (tmp_path / "t").mkdir()
+    jpaths = {f"{kind}_network": str(tmp_path / "j" / f"{kind}Network.ckpt")}
+    tpaths = {f"{kind}_network": str(tmp_path / "t" / f"{kind}Network.pt")}
+    if kind == "value":  # frozen reward and policy networks, one .pt each, read by both
+        for other, key in (("reward", 5), ("policy", 6)):
+            path = str(tmp_path / f"{other}Network.pt")
+            jckpt.save_network_pt(other, INITS[other][0].init(jax.random.PRNGKey(key), jcfg), path)
+            jpaths[f"{other}_network"] = tpaths[f"{other}_network"] = path
+
+    jtrain = getattr(jloops, f"train_{kind}_network")
+    extra = {} if kind == "value" else {"fused_chain": False}
+    jparams = jtrain(jdata, jpaths, str(tmp_path / "j"), False, device_data=False, chunk_steps=1,
+                     **extra, **KW)
+    getattr(tloops, f"train_{kind}_network")(tdata, tpaths, str(tmp_path / "t"), False,
+                                             device="cpu", fused_chain=False, **KW)
+
+    want = _log(tmp_path / "j" / "metrics.jsonl")
+    got = _log(tmp_path / "t" / "metrics.jsonl")
+    assert [(r["tag"], r["step"]) for r in got] == [(r["tag"], r["step"]) for r in want]
+    assert len(got) == 2 * 3
+    np.testing.assert_allclose([r["value"] for r in got], [r["value"] for r in want], rtol=1e-4)
+
+    saved_j = jckpt.load_network(kind, jpaths[f"{kind}_network"], template=jparams)
+    saved_t = jckpt.load_network(kind, tpaths[f"{kind}_network"])
+    for (path, a), b in zip(jax.tree_util.tree_leaves_with_path(saved_j),
+                            jax.tree.leaves(saved_t)):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=0, atol=2e-5,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def test_trainer_rejects_native_checkpoint_path(tmp_path):
+    data = CocoData(**_fields())
+    with pytest.raises(NotImplementedError, match=r"\.pt"):
+        tloops.train_policy_network(data, {"policy_network": str(tmp_path / "p.ckpt")}, None,
+                                    False, device="cpu", **KW)
