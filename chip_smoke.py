@@ -36,7 +36,32 @@ Phases:
      reloading through the port's converters, and every kernel of the path
      launched; then one minibatch of each step, fused vs plain;
  10. timings (CUDA events): each chain's forward and backward, kernel and
-     plain, and one training step per trainer, fused and plain.
+     plain, and one training step per trainer, fused and plain;
+ 11. the threefry noise kernel vs plain, [16, 512, 1004] for three keys;
+ 12. the reward stream kernel vs plain, bf16 and f32 weights, N = 512, on
+     the actions and tokens of a kernel rollout, and against the rewards of
+     the stream fused into that rollout;
+ 13. the rollout kernels vs plain, bf16 and f32, N = 512, curr_seq_len 1
+     and 8: the forward, then the backward on the kernel forward's tape;
+ 14. A2C main path: train_a2c_network on the card from phase 9's three .pt
+     files, plain A2C one epoch at batch 512 (reward stream fused into the
+     rollout), then curriculum [8] (levels 8 and 16, one epoch each) with
+     the reward stream as its own kernel; every logged value finite, each
+     a2c .pt reloading to the trained weights, the rollout (forward and
+     backward) and noise kernels launched once per minibatch; then one
+     minibatch fused (bf16 kernels) vs plain (float32 eager);
+ 15. timings (CUDA events): the noise kernel, the reward stream, the
+     rollout forward and backward, kernel and plain, one A2C step fused and
+     plain, and a torch.profiler window over three fused A2C steps.
+
+The last JSON line but two lists every kernel with its launches on its main
+path (serving for greedy, beam and the x-gate table; the pretrainers for
+the chains; A2C for the rest), its largest error against plain, its time and
+its plain version's, and its bound: the least time an H100 SXM could take
+(bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16, 67 TFLOP/s for
+the noise kernel's integer and float32 work), counted in ``bounds()``. The
+x-gate table is the one kernel whose function one PyTorch call computes
+(``torch.mm`` with a float32 output), timed as ``library_ms``.
 
 Tolerances. Tokens must be equal. A row may differ only where the plain
 version came within 1e-4 of a tie, and in at most 1% of rows: the kernel
@@ -75,12 +100,40 @@ at cosine >= 0.999 with the plain one (measured at least 0.99992). The
 value step's rollout comes from the greedy kernel once and feeds both (a
 bf16 greedy rollout may part from the float32 one at near ties, which
 phase 3 covers).
+
+The A2C kernels (phases 11-14). Threefry bits must be equal (integer
+arithmetic); the Gumbel noise within 4 ulps of max(|g|, 1) of the plain
+version, since the two logf calls may each round one ulp apart and the
+inner one's error is divided by its result (at most ulp(g) more). The
+rollout's actions follow the near-tie rule above, with the gap between the
+two largest noisy logits at the step where the two part. On the rows whose
+actions agree, values, log-probs and rewards agree to 1e-4 with f32 weights
+(sum order over 16 steps) and 2e-3 with bf16 weights (a bf16 rounding of h
+or v1 that two sum orders straddle moves a product by ~1e-3 of its size;
+values are sums of 512 such terms); the reward stream's kernel against its
+plain version the same, and against the rollout's fused-in stream to 1e-6
+(the same kernels on the same operands). The rollout backward, kernel and
+plain fed one tape, is held as the chains are (its recurrences are the LSTM
+chain's backward): relative Frobenius error per gradient within 1e-4 (f32)
+and 2e-3 (bf16). One A2C minibatch fused (bf16 kernels) vs plain (float32
+eager), on the noise of one key, is held as the pretraining steps are, over
+the rows whose sampled actions agree: bf16 weights move a logit by ~1e-3,
+so a row whose top two noisy logits come that close samples another action
+and rolls out differently from then on, which no gradient bound can
+absorb (one run with all rows kept: 3 of 512 parted and the policy's
+gradient cosines fell to 0.992). Such rows are dropped with their noise, at
+most 5% of the batch (measured 6 of 512, then loss 1e-5 relative and every
+cosine >= 0.99998).
+
+The whole run takes 35-40 s of command time on the H100, build (7-10 s)
+included.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -102,6 +155,11 @@ CHAIN_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
 STEP_LOSS_TOL = 1e-2
 GRAD_COS = 0.999
 N_CAPTIONS, N_IMAGES, BATCH = 4096, 2048, 512
+S, ROLLOUT_N = T - 1, 512
+ROLLOUT_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
+GUMBEL_ULPS = 4
+A2C_DIFF_SHARE = 0.05
+H100_BF16, H100_F32, H100_BYTES = 989e12, 67e12, 3.35e12
 
 
 def phase(name: str, msg: str) -> None:
@@ -294,9 +352,10 @@ def compare_steps(data, rparams, pparams, vparams, dev) -> None:
                       f"({min(cos, key=cos.get)}; bound {GRAD_COS})")
 
 
-def train_main_path(dev) -> tuple:
-    """Phase 9. Returns the kernels' launch counts during the three
-    trainers' run, the data and the trained networks."""
+def train_main_path(dev, tmp: str) -> tuple:
+    """Phase 9. Writes the three networks' .pt files into ``tmp``. Returns
+    the kernels' launch counts during the three trainers' run, the data, the
+    trained networks and their paths."""
     from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
         fused_greedy_decode, token_gate_table)
     from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain
@@ -311,27 +370,26 @@ def train_main_path(dev) -> tuple:
                 "gru_chain_bwd": (fused_gru_chain, "bwd_launches"),
                 "greedy_decode": (fused_greedy_decode, "launches"),
                 "token_gates": (token_gate_table, "launches")}
-    with tempfile.TemporaryDirectory() as tmp:
-        paths = {f"{k}_network": os.path.join(tmp, f"{k}Network.pt")
-                 for k in ("reward", "policy", "value")}
-        kw = dict(epochs=1, batch_size=BATCH, seed=SEED, device=dev)
-        for fn, attr in counters.values():
-            setattr(fn, attr, 0)
-        t0 = time.perf_counter()
-        nets = {"reward": loops.train_reward_network(data, paths, tmp, False, **kw),
-                "policy": loops.train_policy_network(data, paths, tmp, False, **kw),
-                "value": loops.train_value_network(data, paths, tmp, False, **kw)}
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
-        with open(os.path.join(tmp, "metrics.jsonl")) as f:
-            log = [json.loads(line) for line in f]
-        for kind, params in nets.items():
-            back = ckpt.load_network(kind, paths[f"{kind}_network"], dev)
-            if [(n, tuple(t.shape)) for n, t in leaves(back)] != [
-                    (n, tuple(t.shape)) for n, t in leaves(params)]:
-                raise AssertionError(f"{kind} checkpoint does not reload to the network's "
-                                     f"parameters")
+    paths = {f"{k}_network": os.path.join(tmp, f"{k}Network.pt")
+             for k in ("reward", "policy", "value")}
+    kw = dict(epochs=1, batch_size=BATCH, seed=SEED, device=dev)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    nets = {"reward": loops.train_reward_network(data, paths, tmp, False, **kw),
+            "policy": loops.train_policy_network(data, paths, tmp, False, **kw),
+            "value": loops.train_value_network(data, paths, tmp, False, **kw)}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    with open(os.path.join(tmp, "metrics.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    for kind, params in nets.items():
+        back = ckpt.load_network(kind, paths[f"{kind}_network"], dev)
+        if [(n, tuple(t.shape)) for n, t in leaves(back)] != [
+                (n, tuple(t.shape)) for n, t in leaves(params)]:
+            raise AssertionError(f"{kind} checkpoint does not reload to the network's "
+                                 f"parameters")
     losses = {}
     for rec in log:
         losses.setdefault(rec["tag"].split()[0].lower(), []).append(rec["value"])
@@ -348,7 +406,7 @@ def train_main_path(dev) -> tuple:
                    f"{seconds:.1f} s; losses first -> last: " + "; ".join(
                        f"{k} {v[0]:.4f} -> {v[-1]:.4f}" for k, v in sorted(losses.items()))
           + f"; checkpoints reload; launches during the run {launches}")
-    return launches, data, nets
+    return launches, data, nets, paths
 
 
 def time_training(data, nets, dev) -> dict:
@@ -392,6 +450,433 @@ def time_training(data, nets, dev) -> dict:
                 fn = lambda: step(params, feats, caps)  # noqa: E731
             times[(kind, "step", label)] = cuda_ms(fn, 5)
     return times
+
+
+# --------------------------------------------------------------------------
+# Phases 11-15: the A2C slice (threefry noise, reward stream, rollout, the
+# A2C trainers)
+# --------------------------------------------------------------------------
+
+def net_cfg():
+    from image_captioning_through_rl_tpu_torch.config import NetConfig
+
+    return NetConfig(vocab_size=V, input_dim=F, wordvec_dim=E, hidden_dim=H, max_seq_len=T)
+
+
+def to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def compare_threefry(dev) -> float:
+    """Phase 11: the noise kernel's bits and Gumbel noise against the plain
+    version on the card, [S, N, V] for three keys. Returns the largest
+    Gumbel error in ulps."""
+    from image_captioning_through_rl_tpu_torch.ops import prng
+
+    worst = 0.0
+    shape = (ROLLOUT_N, V)
+    for seed in range(3):
+        keys = prng.split(prng.PRNGKey(SEED + seed), S)
+        bits = prng.threefry_bits_kernel(keys, shape, dev).to(torch.int64) & 0xFFFFFFFF
+        want = torch.stack([prng.random_bits(k, shape, dev) for k in keys])
+        noise = prng.gumbel_noise(keys, shape, dev)
+        plain = prng.gumbel_noise_plain(keys, shape, dev)
+        torch.cuda.synchronize()
+        if not torch.equal(bits, want):
+            raise AssertionError(f"threefry bits differ from the plain version ({seed=})")
+        ulp = torch.from_numpy(np.spacing(np.maximum(plain.abs().cpu().numpy(),
+                                                     np.float32(1.0)))).to(dev)
+        ulps = float(((noise - plain).abs() / ulp).max())
+        if not ulps <= GUMBEL_ULPS:
+            raise AssertionError(f"Gumbel noise {ulps:.3g} ulps from plain (> {GUMBEL_ULPS})")
+        worst = max(worst, ulps)
+    phase("threefry", f"[{S}, {ROLLOUT_N}, {V}] x 3 keys: bits equal; Gumbel within "
+                      f"{worst:.3g} ulps of plain (bound {GUMBEL_ULPS})")
+    return worst
+
+
+def rollout_case(dev, wd, curr: int, seed: int):
+    """Random COCO-width rollout operands: ``(args of the forward, a2c
+    params, reward params, features, captions)``; the start states come from
+    the start-token cells, as on the training path."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.models import a2c, reward
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+    from image_captioning_through_rl_tpu_torch.ops import prng
+
+    cfg = net_cfg()
+    gen = torch.Generator().manual_seed(seed)
+    nets, rparams = to_device(a2c.init(gen, cfg), dev), to_device(reward.init(gen, cfg), dev)
+    feats = torch.randn((ROLLOUT_N, F), generator=gen).to(dev)
+    caps = torch.randint(4, V, (ROLLOUT_N, T), generator=gen).to(dev)
+    caps[:, 0] = START_ID
+    with torch.no_grad():
+        states = fr.start_states(nets, cfg, feats, caps[:, 0])
+    rw = fr.prepare_reward_weights(rparams, feats, caps[:, 0], wd)
+    noise = prng.gumbel_noise(prng.split(prng.PRNGKey(seed), S), (ROLLOUT_N, V), dev)
+    teach = caps[:, 1:].t().to(torch.int32).contiguous()
+    args = (curr, teach, noise, rw, feats, *states, fr.prepare_rollout_weights(nets, wd))
+    return args, nets, rparams, feats, caps
+
+
+def compare_reward_stream(dev) -> float:
+    """Phase 12: the reward stream kernel against plain on the actions and
+    tokens of a kernel rollout, and against the stream fused into that
+    rollout. Returns the largest bf16 max-abs error against plain."""
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+
+    worst = 0.0
+    for wd in (torch.bfloat16, torch.float32):
+        args, *_ = rollout_case(dev, wd, 1, SEED + 20)
+        _, _, fused_in, tape = fr.rollout_forward_kernel(*args)
+        rw = args[3]
+        got = fr.reward_stream(rw, tape.act, tape.tok)
+        torch.cuda.synchronize()
+        want = fr.reward_stream(rw, tape.act, tape.tok, use_fused_kernel=False)
+        err = float((got - want).abs().max())
+        same = float((got - fused_in).abs().max())
+        if got.shape != (S, ROLLOUT_N) or not err <= ROLLOUT_TOL[wd] or not same <= 1e-6:
+            raise AssertionError(f"reward stream {wd}: max abs error {err:.3g} vs plain "
+                                 f"(bound {ROLLOUT_TOL[wd]}), {same:.3g} vs the fused-in stream")
+        if wd == torch.bfloat16:
+            worst = err
+        phase("reward_stream", f"{str(wd)[6:]} N={ROLLOUT_N}: max abs error vs plain {err:.3g} "
+                               f"(bound {ROLLOUT_TOL[wd]}); vs the rollout's fused-in stream "
+                               f"{same:.3g} (bound 1e-6)")
+    return worst
+
+
+GRAD_NAMES = ("features", "ph1", "pc1", "vh1", "vc1", "p_emb", "p_wi", "p_wh", "p_b", "head_w",
+              "head_b", "v_emb", "v_wi", "v_wh", "v_b", "w1", "b1", "w2", "b2")
+
+
+def compare_rollout(dev) -> dict:
+    """Phase 13: the rollout forward against plain (near-tie rule on the
+    actions, bounds on values, log-probs and rewards of agreeing rows), and
+    the backward against plain on the kernel forward's tape. Returns the
+    largest bf16 max-abs errors ("fwd", "bwd")."""
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+
+    worst = {"fwd": 0.0, "bwd": 0.0}
+    for wd in (torch.bfloat16, torch.float32):
+        for curr in (1, 8):
+            args, _, _, feats, _ = rollout_case(dev, wd, curr, SEED + 30 + curr)
+            k_val, k_logp, k_rew, tape = fr.rollout_forward_kernel(*args)
+            torch.cuda.synchronize()
+            p_val, p_logp, p_rew, p_tape, gaps = fr.rollout_forward_plain(*args, margins=True)
+            if not torch.equal(tape.tok[:curr - 1], args[1][:curr - 1]):
+                raise AssertionError("the teacher-forced tokens were not placed")
+            differ = tape.act != p_tape.act  # [S, N]
+            first = differ.int().argmax(dim=0)
+            n_bad, gap, _ = check_rows(f"rollout {wd} curr={curr}", tape.act.t(), p_tape.act.t(),
+                                       lambda bad: gaps.gather(0, first[None])[0][bad])
+            ok = ~differ.any(dim=0)
+            errs = {name: float((a - b)[:, ok].abs().max()) for name, a, b in (
+                ("values", k_val, p_val), ("log_probs", k_logp, p_logp),
+                ("rewards", k_rew, p_rew))}
+            if not all(np.isfinite(e) and e <= ROLLOUT_TOL[wd] for e in errs.values()):
+                raise AssertionError(f"rollout forward {wd} curr={curr}: max abs errors {errs} "
+                                     f"(bound {ROLLOUT_TOL[wd]})")
+            gen = torch.Generator().manual_seed(SEED + 40)
+            dval, dlogp = (torch.randn((S, ROLLOUT_N), generator=gen).to(dev) for _ in range(2))
+            w = args[-1]
+            got = fr.rollout_backward_kernel(tape, feats, w, dval, dlogp)
+            torch.cuda.synchronize()
+            want = fr.rollout_backward_plain(tape, feats, w, dval, dlogp)
+            rels, abs_err = {}, 0.0
+            for name, a, b in zip(GRAD_NAMES, got, want):
+                if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+                    raise AssertionError(f"rollout gradient {name}: shape or non-finite values")
+                rels[name] = float((a - b).norm() / max(float(b.norm()), 1e-30))
+                abs_err = max(abs_err, float((a - b).abs().max()))
+            if max(rels.values()) > CHAIN_TOL[wd]:
+                raise AssertionError(f"rollout backward {wd} curr={curr}: relative errors {rels} "
+                                     f"(bound {CHAIN_TOL[wd]})")
+            if wd == torch.bfloat16:
+                worst["fwd"] = max(worst["fwd"], *errs.values())
+                worst["bwd"] = max(worst["bwd"], abs_err)
+            top = max(rels, key=rels.get)
+            phase("rollout", f"{str(wd)[6:]} N={ROLLOUT_N} curr={curr}: {n_bad} row(s) differ "
+                             f"(smallest gap there {gap:.3g}; smallest gap overall "
+                             f"{float(gaps.min()):.3g}); max abs errors "
+                             + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+                             + f" (bound {ROLLOUT_TOL[wd]}); backward largest relative error "
+                               f"{rels[top]:.3g} ({top}; bound {CHAIN_TOL[wd]})")
+    return worst
+
+
+def a2c_main_path(data, paths: dict, tmp: str, dev) -> tuple:
+    """Phase 14: train_a2c_network on the card from phase 9's three .pt
+    files: plain A2C one epoch (reward stream fused into the rollout, the
+    default), then curriculum [8] (levels 8 and 16, one epoch each) with the
+    reward stream as its own kernel. Returns the launch counts during the
+    two runs and the plain run's networks."""
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+    from image_captioning_through_rl_tpu_torch.ops import prng
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import token_gate_table
+    from image_captioning_through_rl_tpu_torch.train import checkpoint as ckpt
+    from image_captioning_through_rl_tpu_torch.train import loops
+
+    counters = {"rollout_fwd": (fr.fused_rollout, "fwd_launches"),
+                "rollout_bwd": (fr.fused_rollout, "bwd_launches"),
+                "reward_stream": (fr.fused_reward_stream, "launches"),
+                "threefry_gumbel": (prng.gumbel_noise, "launches"),
+                "token_gates": (token_gate_table, "launches")}
+    runs = {"plain": dict(curriculum=None), "curriculum": dict(curriculum=[8], fuse_reward=False)}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    t0 = time.perf_counter()
+    out = {}
+    for name, kw in runs.items():
+        d = os.path.join(tmp, f"a2c_{name}")
+        os.makedirs(d)
+        saves = {"model_path": os.path.join(d, "model.pt"),
+                 "results_path": os.path.join(d, "results.txt")}
+        nets = dict(paths, a2c_network=os.path.join(d, "a2cNetwork.pt"))
+        params, rparams, _ = loops.train_a2c_network(data, saves, nets, d, False, epochs=1,
+                                                     batch_size=BATCH, seed=SEED, device=dev, **kw)
+        out[name] = (params, rparams, [saves["model_path"], nets["a2c_network"]], d)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    per_epoch = -(-N_CAPTIONS // BATCH)
+    logs = {}
+    for name, (params, _, saved, d) in out.items():
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            log = [json.loads(line) for line in f]
+        levels = 1 if name == "plain" else 2
+        values = [r["value"] for r in log]
+        if len(log) != 3 * per_epoch * levels or not np.isfinite(values).all():
+            raise AssertionError(f"A2C {name}: {len(log)} logged values, finite "
+                                 f"{np.isfinite(values).all()}")
+        logs[name] = [r["value"] for r in log if r["tag"].endswith("loss")]
+        for path in saved:
+            back = ckpt.load_network("a2c", path, dev)
+            if any(not torch.equal(a, b.detach()) for (_, a), (_, b) in
+                   zip(leaves(back), leaves(params))):
+                raise AssertionError(f"{path} does not reload to the trained parameters")
+    steps_run = per_epoch * 3
+    want = {"rollout_fwd": steps_run, "rollout_bwd": steps_run, "threefry_gumbel": steps_run,
+            "reward_stream": 2 * per_epoch}
+    if any(launches[k] != v for k, v in want.items()) or launches["token_gates"] < 1:
+        raise AssertionError(f"A2C launches {launches}, expected {want} (the rollout and the "
+                             f"noise once per minibatch)")
+    phase("a2c", f"train_a2c_network: plain 1 epoch + curriculum [8, 16] 1 epoch each, "
+                 f"{steps_run} minibatches of {BATCH} in {seconds:.1f} s; losses first -> last: "
+                 + "; ".join(f"{k} {v[0]:.4f} -> {v[-1]:.4f}" for k, v in logs.items())
+                 + f"; a2c .pt files reload; launches during the run {launches}")
+    return launches, out["plain"][0], out["plain"][1]
+
+
+def compare_a2c_step(data, a2c_params, rparams, dev) -> None:
+    """Phase 14, second half: one A2C minibatch, fused (bf16 kernels, reward
+    stream fused in) against plain (the float32 rollout ``Function`` in
+    eager torch), on the same Gumbel noise from one key: loss and gradient
+    cosines over the rows whose sampled actions agree. Rows that sample
+    another action in bf16 are dropped, with their noise, until none do."""
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+    from image_captioning_through_rl_tpu_torch.ops import prng
+    from image_captioning_through_rl_tpu_torch.train import loops, steps
+
+    cfg = loops._cfg_for(data, False)
+    feats = torch.from_numpy(data.train_features[data.train_image_idxs[:BATCH]]).to(dev)
+    caps = torch.from_numpy(data.train_captions[:BATCH]).to(dev).long()
+    caplen = torch.max(steps.batch_caption_lens(caps))
+    noise = prng.gumbel_noise(prng.split(prng.PRNGKey(SEED + 50), S), (BATCH, V), dev)
+    versions = {True: (torch.bfloat16, None), False: (torch.float32, False)}
+
+    def rollout(params, keep, fused, reward_params=None):
+        wd, flag = versions[fused]
+        return fr.rollout_from_noise(params, cfg, feats[keep], caps[keep], 1,
+                                     noise[:, keep].contiguous(), weight_dtype=wd,
+                                     reward_params=reward_params, use_fused_kernel=flag)
+
+    keep = torch.arange(BATCH, device=dev)
+    for _ in range(3):
+        with torch.no_grad():
+            same = ~(rollout(a2c_params, keep, True)[2]
+                     != rollout(a2c_params, keep, False)[2]).any(dim=1)
+        if bool(same.all()):
+            break
+        keep = keep[same]
+    else:
+        raise AssertionError("a2c step: the bf16 and float32 rollouts still part after dropping "
+                             "the rows that sampled other actions three times")
+    dropped = BATCH - keep.numel()
+    if dropped > A2C_DIFF_SHARE * BATCH:
+        raise AssertionError(f"a2c step: {dropped}/{BATCH} rows sample other actions in bf16 "
+                             f"(more than {A2C_DIFF_SHARE:.0%})")
+    out = {}
+    for fused in versions:
+        p = {net: {k: ({kk: vv.detach().clone().requires_grad_() for kk, vv in v.items()}
+                       if isinstance(v, dict) else v.detach().clone().requires_grad_())
+                   for k, v in tree.items()} for net, tree in a2c_params.items()}
+        values, logp, _, _, rewards = rollout(p, keep, fused, rparams)
+        loss, _ = steps._a2c_loss(values, rewards, logp, 1, caplen, False)
+        names, ts = zip(*leaves(p))
+        out[fused] = (float(loss.detach()), torch.autograd.grad(loss, ts), names)
+    (lf, gf, names), (lp, gp, _) = out[True], out[False]
+    rel = abs(lf - lp) / abs(lp)
+    cos = {n: float(torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0))
+           for n, a, b in zip(names, gf, gp)}
+    if not (np.isfinite(lf) and rel <= STEP_LOSS_TOL and min(cos.values()) >= GRAD_COS):
+        raise AssertionError(f"a2c step: fused loss {lf} vs plain {lp} (relative {rel:.3g}), "
+                             f"gradient cosines {cos}")
+    phase("step", f"a2c: {dropped}/{BATCH} rows sample other actions in bf16 than in float32 "
+                  f"(bound {A2C_DIFF_SHARE:.0%}), dropped; fused loss {lf:.6f}, plain {lp:.6f} "
+                  f"(relative {rel:.2e}, bound {STEP_LOSS_TOL}); smallest gradient cosine "
+                  f"{min(cos.values()):.6f} ({min(cos, key=cos.get)}; bound {GRAD_COS})")
+
+
+def short_kernel_name(name: str) -> str:
+    found = re.findall(r"[A-Za-z_]\w*_kernel", name)
+    return found[0] if found else name[:48]
+
+
+def profile_a2c_step(step_fn, iters: int) -> str:
+    """torch.profiler over ``iters`` steps: device ms per step, its busy
+    share of the wall time, and the kernels that take the most device
+    time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step_fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step_fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    by_name, launches = {}, 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        us = evt.self_cuda_time_total if us is None else us
+        key = short_kernel_name(evt.key)
+        by_name[key] = by_name.get(key, 0.0) + us / 1e3 / iters
+        launches += evt.count
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return (f"wall {wall:.3f} ms/step, device {busy:.3f} ms/step (busy {busy / wall:.0%}), "
+            f"{launches / iters:.0f} device ops/step; top: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in top))
+
+
+def time_a2c(a2c_params, rparams, data, dev) -> dict:
+    """Phase 15: CUDA-event timings at the main path's shapes (bf16, N =
+    512): the noise kernel, the reward stream, the rollout forward and
+    backward, each beside its plain version, one A2C step fused and plain,
+    and a profile of the fused step."""
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+    from image_captioning_through_rl_tpu_torch.ops import prng
+    from image_captioning_through_rl_tpu_torch.train import loops, steps
+    from image_captioning_through_rl_tpu_torch.train.optim import adam
+
+    times = {}
+    keys = prng.split(prng.PRNGKey(SEED), S)
+    times[("threefry_gumbel", "ms")] = cuda_ms(
+        lambda: prng.gumbel_noise(keys, (ROLLOUT_N, V), dev), 20)
+    times[("threefry_gumbel", "plain_ms")] = cuda_ms(
+        lambda: prng.gumbel_noise_plain(keys, (ROLLOUT_N, V), dev), 3)
+    args, *_, feats, _ = rollout_case(dev, torch.bfloat16, 1, SEED + 60)
+    _, _, _, tape = fr.rollout_forward_kernel(*args)
+    rw, w = args[3], args[-1]
+    times[("reward_stream", "ms")] = cuda_ms(lambda: fr.reward_stream(rw, tape.act, tape.tok), 20)
+    times[("reward_stream", "plain_ms")] = cuda_ms(
+        lambda: fr.reward_stream(rw, tape.act, tape.tok, use_fused_kernel=False), 3)
+    times[("rollout_fwd", "ms")] = cuda_ms(lambda: fr.rollout_forward_kernel(*args), 10)
+    times[("rollout_fwd", "plain_ms")] = cuda_ms(lambda: fr.rollout_forward_plain(*args), 3)
+    gen = torch.Generator().manual_seed(SEED + 61)
+    dval, dlogp = (torch.randn((S, ROLLOUT_N), generator=gen).to(dev) for _ in range(2))
+    times[("rollout_bwd", "ms")] = cuda_ms(
+        lambda: fr.rollout_backward_kernel(tape, feats, w, dval, dlogp), 10)
+    times[("rollout_bwd", "plain_ms")] = cuda_ms(
+        lambda: fr.rollout_backward_plain(tape, feats, w, dval, dlogp), 3)
+    cfg = loops._cfg_for(data, False)
+    feats = torch.from_numpy(data.train_features[data.train_image_idxs[:BATCH]]).to(dev)
+    caps = torch.from_numpy(data.train_captions[:BATCH]).to(dev).long()
+    key = prng.PRNGKey(SEED + 62)
+    for label, fused in (("ms", True), ("plain_ms", False)):
+        params = {net: {k: ({kk: vv.detach().clone() for kk, vv in v.items()}
+                            if isinstance(v, dict) else v.detach().clone())
+                        for k, v in tree.items()} for net, tree in a2c_params.items()}
+        step = steps.make_a2c_step(cfg, adam(1e-6, params), fused=fused)
+
+        def one_step():
+            return step(params, rparams, feats, caps, 1, key)
+
+        times[("a2c", "step", label)] = cuda_ms(one_step, 5 if fused else 3)
+        if fused:
+            times[("a2c", "profile")] = profile_a2c_step(one_step, 3)
+    return times
+
+
+def work(nbytes: float, flops: float, peak: float = H100_BF16) -> tuple[float, str]:
+    """The least time the card could take, in ms, and what bounds it: the
+    bytes that must move (each input read once, each output written once)
+    over the memory rate, or the operations over ``peak`` (NVIDIA's H100 SXM
+    data sheet, dense)."""
+    t_bytes, t_ops = nbytes / H100_BYTES, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def bounds() -> dict:
+    """Each kernel's bound at the shapes its time was taken at (bf16 weights,
+    float32 activations), counted from the shapes and the code: the products
+    each kernel must do (the x-gate tables counted once, the cells' input
+    products as table rows), and its inputs, outputs and tape."""
+    bw, fw = 2, 4  # bytes of a bf16 weight, of a float32 value
+    g4, g3 = 4 * H, 3 * H
+    lstm_w = (V * E + (E + H) * g4) * bw + g4 * fw
+    head_w = H * V * bw + V * fw
+    out = {}
+    n, steps = 1024, T - 1  # greedy, N = 1024
+    out["greedy_decode"] = work(
+        n * F * fw + F * H * bw + lstm_w + head_w + n * T * 4,
+        2 * n * F * H + 2 * V * E * g4 + steps * (2 * n * H * g4 + 2 * n * H * V))
+    n = 127  # beam-5, N = 127: policy cells and heads of N B beams, the critic's
+    # h @ wh once per parent and its MLP for every one of the B^2 candidates
+    nb = n * BEAM
+    out["beam_search"] = work(
+        n * F * fw + F * H * bw + 2 * lstm_w + head_w + ((F + H) * H + H) * bw
+        + nb * (T + 1) * 4,
+        2 * n * F * H * 2 + 2 * 2 * V * E * g4
+        + steps * (2 * nb * H * g4 * 2 + 2 * nb * H * V + 2 * nb * BEAM * H * H))
+    out["token_gates"] = work((V * E + E * g4) * bw + V * g4 * fw, 2 * V * E * g4)
+    n = CHAIN_N
+    for kind, g, steps, tape in (("lstm", g4, 16, 2 * H + g4), ("gru", g3, 17, 2 * H + g3)):
+        wts = (V * E + (E + H) * g) * bw + 2 * g * fw
+        out[f"{kind}_chain_fwd"] = work(wts + n * steps * 4 + 2 * n * H * fw
+                                        + steps * n * tape * fw,
+                                        2 * V * E * g + steps * 2 * n * H * g)
+        out[f"{kind}_chain_bwd"] = work(
+            wts + n * steps * 4 + steps * n * (tape + H) * fw + (V * E + (E + H) * g + g) * fw
+            + 2 * n * H * fw,
+            steps * 2 * n * (g * H + (E + H) * g + g * E))
+    n, el = ROLLOUT_N, S * ROLLOUT_N * V
+    # the hash and the Gumbel map: 118 integer operations (20 rounds of add,
+    # rotate and xor, five key injections) and 8 more (each logf counted as
+    # one), at the non-tensor float32 rate
+    out["threefry_gumbel"] = work(el * fw, el * 126, H100_F32)
+    reward_w = (H * g3 + H * H) * bw + (V * g3 + g3 + H) * fw
+    reward_step = 2 * n * H * g3 + 2 * n * H * H + 4 * n * H
+    out["reward_stream"] = work(reward_w + 2 * n * H * fw + 3 * S * n * 4, S * reward_step)
+    policy_value_w = 2 * lstm_w + head_w + ((F + H) * H + H) * bw
+    tape = (5 * S * n * H + 2 * (S - 1) * n * g4) * fw
+    out["rollout_fwd"] = work(
+        el * fw + n * F * fw + S * n * 4 + policy_value_w + reward_w + 5 * S * n * 4 + tape,
+        2 * 2 * V * E * g4 + 2 * n * F * H
+        + S * (2 * n * H * V + 2 * n * H * H + 2 * n * H + reward_step)
+        + (S - 1) * 2 * 2 * n * H * g4)
+    grads = (2 * (V * E + (E + H) * g4 + g4) + H * V + V + (F + H) * H + 2 * H + 1) * fw
+    out["rollout_bwd"] = work(
+        tape + 4 * S * n * 4 + n * F * fw + policy_value_w + grads + (n * F + 4 * n * H) * fw,
+        3 * 2 * S * n * H * V + 2 * 2 * S * n * (F + H) * H
+        + 2 * (S - 1) * 2 * n * (g4 * H + (E + H) * g4 + g4 * E))
+    return out
 
 
 def main() -> int:
@@ -580,49 +1065,78 @@ def main() -> int:
     chain_err = compare_chains(dev)
 
     # phase 9: the training main path, through the three trainers
-    train_launches, data, nets = train_main_path(dev)
-    compare_steps(data, nets["reward"], nets["policy"], nets["value"], dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_launches, data, nets, paths = train_main_path(dev, tmp)
+        compare_steps(data, nets["reward"], nets["policy"], nets["value"], dev)
 
-    # phase 10: timings of the chains and of one step per trainer
-    tt = time_training(data, nets, dev)
-    phase("timing", f"{card} | bf16 weights, N = {CHAIN_N} | " + " | ".join(
-        f"{net} chain {d}: kernel {tt[(net, d, 'ms')]:.3f} ms, plain "
-        f"{tt[(net, d, 'plain_ms')]:.3f} ms" for net in ("lstm", "gru")
-        for d in ("fwd", "bwd")) + " | " + " | ".join(
-        f"{net} step: fused {tt[(net, 'step', 'ms')]:.3f} ms, plain "
-        f"{tt[(net, 'step', 'plain_ms')]:.3f} ms" for net in ("reward", "policy", "value")))
+        # phase 10: timings of the chains and of one step per trainer
+        tt = time_training(data, nets, dev)
+        phase("timing", f"{card} | bf16 weights, N = {CHAIN_N} | " + " | ".join(
+            f"{net} chain {d}: kernel {tt[(net, d, 'ms')]:.3f} ms, plain "
+            f"{tt[(net, d, 'plain_ms')]:.3f} ms" for net in ("lstm", "gru")
+            for d in ("fwd", "bwd")) + " | " + " | ".join(
+            f"{net} step: fused {tt[(net, 'step', 'ms')]:.3f} ms, plain "
+            f"{tt[(net, 'step', 'plain_ms')]:.3f} ms" for net in ("reward", "policy", "value")))
 
-    chain_entries = []
+        # phases 11-13: the noise, reward stream and rollout kernels vs plain
+        gumbel_ulps = compare_threefry(dev)
+        stream_err = compare_reward_stream(dev)
+        rollout_err = compare_rollout(dev)
+
+        # phase 14: the A2C main path, through train_a2c_network
+        a2c_launches, a2c_params, rparams = a2c_main_path(data, paths, tmp, dev)
+        compare_a2c_step(data, a2c_params, rparams, dev)
+
+    # phase 15: timings of the A2C kernels and of one A2C step, and a profile
+    ta = time_a2c(a2c_params, rparams, data, dev)
+    phase("timing", f"{card} | bf16 weights, N = {ROLLOUT_N}, S = {S} | " + " | ".join(
+        f"{k}: kernel {ta[(k, 'ms')]:.3f} ms, plain {ta[(k, 'plain_ms')]:.3f} ms"
+        for k in ("threefry_gumbel", "reward_stream", "rollout_fwd", "rollout_bwd"))
+        + f" | a2c step: fused {ta[('a2c', 'step', 'ms')]:.3f} ms, plain "
+          f"{ta[('a2c', 'step', 'plain_ms')]:.3f} ms")
+    phase("profile", f"{card} | fused A2C step, batch {BATCH}: {ta[('a2c', 'profile')]}")
+
+    # the library call that computes the x-gate table's function
+    emb, wi = gw.emb, gw.w[:E]
+    tab_library = cuda_ms(lambda: torch.mm(emb, wi, out_dtype=torch.float32), 20)
+    bound = bounds()
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, shape, library_ms=None):
+        return {"name": name, "route": "cuda",
+                "source": f"image_captioning_through_rl_tpu_torch/csrc/{source}",
+                "replaces": f"image_captioning_through_rl_tpu/ops/{replaces}",
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[name][0], "bound_by": bound[name][1],
+                "library_ms": library_ms, "shape": shape}
+
+    kernels = [
+        entry("greedy_decode", "greedy_decode.cu", "pallas_decode.py:176",
+              launches["fused_greedy_decode"], greedy_err, g_ms, g_plain, "N=1024 bf16"),
+        entry("beam_search", "beam_search.cu", "pallas_beam.py:362",
+              launches["fused_beam_search"], beam_err, times[127][0], times[127][1],
+              "N=127 B=5 bf16"),
+        entry("token_gates", "token_gates.cu", "pallas_decode.py:99",
+              launches["token_gate_table"], table_err, tab_ms, tab_plain,
+              "V=1004 E=512 4H=2048 bf16", tab_library),
+    ]
     for net, line, (fwd_at, bwd_at), length in (
             ("lstm", "pallas_lstm.py", (158, 184), 16), ("gru", "pallas_gru.py", (139, 167), 17)):
         for d, at in (("fwd", fwd_at), ("bwd", bwd_at)):
-            chain_entries.append({
-                "name": f"{net}_chain_{d}", "route": "cuda",
-                "source": f"image_captioning_through_rl_tpu_torch/csrc/{net}_chain.cu",
-                "replaces": f"image_captioning_through_rl_tpu/ops/{line}:{at}",
-                "launches": train_launches[f"{net}_chain_{d}"],
-                "max_abs_err": chain_err[(net, d)], "ms": tt[(net, d, "ms")],
-                "plain_ms": tt[(net, d, "plain_ms")],
-                "shape": f"N={CHAIN_N} T={length} E=H={H} V={V} bf16"})
-
-    print(json.dumps({"kernels": [
-        {"name": "greedy_decode", "route": "cuda",
-         "source": "image_captioning_through_rl_tpu_torch/csrc/greedy_decode.cu",
-         "replaces": "image_captioning_through_rl_tpu/ops/pallas_decode.py:117",
-         "launches": launches["fused_greedy_decode"], "max_abs_err": greedy_err,
-         "ms": g_ms, "plain_ms": g_plain, "shape": "N=1024 bf16"},
-        {"name": "beam_search", "route": "cuda",
-         "source": "image_captioning_through_rl_tpu_torch/csrc/beam_search.cu",
-         "replaces": "image_captioning_through_rl_tpu/ops/pallas_beam.py:294",
-         "launches": launches["fused_beam_search"], "max_abs_err": beam_err,
-         "ms": times[127][0], "plain_ms": times[127][1], "shape": "N=127 B=5 bf16"},
-        {"name": "token_gates", "route": "cuda",
-         "source": "image_captioning_through_rl_tpu_torch/csrc/token_gates.cu",
-         "replaces": "image_captioning_through_rl_tpu/ops/pallas_decode.py:99",
-         "launches": launches["token_gate_table"], "max_abs_err": table_err,
-         "ms": tab_ms, "plain_ms": tab_plain, "shape": "V=1004 E=512 4H=2048 bf16"},
-        *chain_entries,
-    ]}), flush=True)
+            kernels.append(entry(
+                f"{net}_chain_{d}", f"{net}_chain.cu", f"{line}:{at}",
+                train_launches[f"{net}_chain_{d}"], chain_err[(net, d)], tt[(net, d, "ms")],
+                tt[(net, d, "plain_ms")], f"N={CHAIN_N} T={length} E=H={H} V={V} bf16"))
+    shape = f"N={ROLLOUT_N} S={S} E=H=F={H} V={V} bf16"
+    for name, source, replaces, err in (
+            ("threefry_gumbel", "threefry.cu", "pallas_sample.py:90", gumbel_ulps),
+            ("reward_stream", "reward_stream.cu", "pallas_rollout.py:1066", stream_err),
+            ("rollout_fwd", "rollout.cu", "pallas_rollout.py:308", rollout_err["fwd"]),
+            ("rollout_bwd", "rollout.cu", "pallas_rollout.py:575", rollout_err["bwd"])):
+        kernels.append(entry(name, source, replaces, a2c_launches[name], err, ta[(name, "ms")],
+                             ta[(name, "plain_ms")],
+                             f"[{S}, {ROLLOUT_N}, {V}] f32" if name == "threefry_gumbel"
+                             else shape))
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

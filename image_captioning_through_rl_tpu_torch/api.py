@@ -46,10 +46,12 @@ class Captioner:
     the JAX layout. ``weight_dtype``: the kernels' weight type; the default
     is bf16 on CUDA (the TPU kernels' type) and f32 on the CPU, where the
     plain versions then equal the JAX package's float32 decode. The
-    weights are cast and laid out for the kernels once, here.
+    weights are cast and laid out for the kernels once, here. ``device``
+    is the card unless the caller asks for ``"cpu"``; a missing CUDA
+    device raises.
     """
 
-    def __init__(self, params: dict, cfg: NetConfig, idx_to_word: dict, device="cpu",
+    def __init__(self, params: dict, cfg: NetConfig, idx_to_word: dict, device="cuda",
                  weight_dtype: torch.dtype | None = None):
         check_unidirectional(cfg)
         self.device = resolve_device(device)
@@ -102,7 +104,7 @@ class Captioner:
         return decode_captions(self.caption_tokens(features, **kw), self._idx_to_word)
 
 
-def load_captioner(model_pt: str, vocab_json: str, device="cpu",
+def load_captioner(model_pt: str, vocab_json: str, device="cuda",
                    weight_dtype: torch.dtype | None = None) -> Captioner:
     """A :class:`Captioner` from a reference-layout a2c ``.pt`` checkpoint
     (``value_network.* / policy_network.*``) and ``coco2014_vocab.json``.

@@ -660,10 +660,12 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
+// Return the CUDA error code (a cudaError_t, or the int a host loop
+// returns) of expr from the enclosing function unless it is 0.
 #define ICRL_CHECK(expr)                          \
   do {                                            \
-    const cudaError_t err_ = (expr);              \
-    if (err_ != cudaSuccess) return (int)err_;    \
+    const int err_ = (int)(expr);                 \
+    if (err_ != 0) return err_;                   \
   } while (0)
 
 }  // namespace

@@ -74,35 +74,52 @@ class _LstmChainPlain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dhs):
         tok_sm, xs, h0, c0, hs, cs, gs, wi_w, wh_w = ctx.saved_tensors
-        wd = wi_w.dtype
-        steps, n, hidden = hs.shape
-        dhs = dhs.transpose(0, 1).to(torch.float32)  # [T, N, H]
-        h_prev = torch.cat([h0[None].to(torch.float32), hs[:-1]])
-        c_prev = torch.cat([c0[None].to(torch.float32), cs[:-1]])
-        dh = torch.zeros_like(h_prev[0])
-        dc = torch.zeros_like(dh)
-        dgs = [None] * steps
-        for t in reversed(range(steps)):
-            i, f, g, o = torch.chunk(gs[t], 4, dim=-1)
-            tc = torch.tanh(cs[t])
-            dhv = dh + dhs[t]
-            d_o = dhv * tc
-            dct = dhv * o * (1.0 - tc * tc) + dc
-            di, dg, df = dct * g, dct * i, dct * c_prev[t]
-            dc = dct * f
-            dgs[t] = torch.cat([di * i * (1.0 - i), df * f * (1.0 - f), dg * (1.0 - g * g),
-                                d_o * o * (1.0 - o)], dim=-1)
-            dh = wmatmul(round_to(dgs[t], wd), wh_w.t())
-        dg_all = torch.stack(dgs).reshape(steps * n, -1)
-        dg_w = dg_all.to(wd)
-        dwi = wmatmul(xs.reshape(steps * n, -1).t(), dg_w)
-        dwh = wmatmul(round_to(h_prev.reshape(steps * n, hidden), wd).t(), dg_w)
-        db = dg_all.sum(dim=0)
-        demb = None
-        if ctx.needs_input_grad[3]:
-            dx = wmatmul(round_to(dg_all, wd), wi_w.t())
-            demb = embedding_grad(dx, tok_sm, ctx.vocab)
+        dhs_sm = dhs.transpose(0, 1).to(torch.float32)  # [T, N, H]
+        dwi, dwh, db, demb, dh, dc = lstm_chain_backward_plain(
+            dhs_sm, tok_sm, xs, h0, c0, hs, cs, gs, wi_w, wh_w, ctx.vocab,
+            ctx.needs_input_grad[3])
         return dwi, dwh, db, demb, dh, dc, None, None
+
+
+def lstm_chain_backward_plain(dhs: torch.Tensor, tok_sm: torch.Tensor, xs: torch.Tensor,
+                              h0: torch.Tensor, c0: torch.Tensor, hs: torch.Tensor,
+                              cs: torch.Tensor, gs: torch.Tensor, wi_w: torch.Tensor,
+                              wh_w: torch.Tensor, vocab: int, embedding_grad_needed: bool = True):
+    """The chain's backward in eager torch (the plain twin of
+    ``lstm_bwd`` in ``csrc/lstm_chain.cuh``), from step-major ``dhs [T, N,
+    H]``, the tokens ``tok_sm [T, N]``, their embedding rows ``xs [T, N, E]``
+    (f32 values of the weight type), ``(h0, c0)``, the taped ``hs``, ``cs``
+    ``[T, N, H]`` and post-activation gates ``gs [T, N, 4H]``, and ``wi``,
+    ``wh`` in the weight type -> ``(dwi, dwh, db, demb or None, dh0, dc0)``.
+    Shared with the A2C rollout's plain backward (:mod:`.fused_rollout`)."""
+    wd = wi_w.dtype
+    steps, n, hidden = hs.shape
+    h_prev = torch.cat([h0[None].to(torch.float32), hs[:-1]])
+    c_prev = torch.cat([c0[None].to(torch.float32), cs[:-1]])
+    dh = torch.zeros_like(h_prev[0])
+    dc = torch.zeros_like(dh)
+    dgs = [None] * steps
+    for t in reversed(range(steps)):
+        i, f, g, o = torch.chunk(gs[t], 4, dim=-1)
+        tc = torch.tanh(cs[t])
+        dhv = dh + dhs[t]
+        d_o = dhv * tc
+        dct = dhv * o * (1.0 - tc * tc) + dc
+        di, dg, df = dct * g, dct * i, dct * c_prev[t]
+        dc = dct * f
+        dgs[t] = torch.cat([di * i * (1.0 - i), df * f * (1.0 - f), dg * (1.0 - g * g),
+                            d_o * o * (1.0 - o)], dim=-1)
+        dh = wmatmul(round_to(dgs[t], wd), wh_w.t())
+    dg_all = torch.stack(dgs).reshape(steps * n, -1)
+    dg_w = dg_all.to(wd)
+    dwi = wmatmul(xs.reshape(steps * n, -1).t(), dg_w)
+    dwh = wmatmul(round_to(h_prev.reshape(steps * n, hidden), wd).t(), dg_w)
+    db = dg_all.sum(dim=0)
+    demb = None
+    if embedding_grad_needed:
+        dx = wmatmul(round_to(dg_all, wd), wi_w.t())
+        demb = embedding_grad(dx, tok_sm, vocab)
+    return dwi, dwh, db, demb, dh, dc
 
 
 def _check_chain_inputs(name: str, params: dict, embedding: torch.Tensor, tokens: torch.Tensor,

@@ -42,6 +42,13 @@ _SIGNATURES = {
     "icrl_lstm_chain_bwd": (_I, [_I] * 5 + [_P] * 15),
     "icrl_gru_chain_fwd": (_I, [_I] * 4 + [_P] * 8),
     "icrl_gru_chain_bwd": (_I, [_I] * 5 + [_P] * 18),
+    "icrl_threefry": (_I, [_I, _P, ctypes.c_longlong, _I, _P, _P]),
+    "icrl_reward_stream_workspace_floats": (ctypes.c_size_t, [_I] * 2),
+    "icrl_reward_stream": (_I, [_I] * 4 + [_P] * 12),
+    "icrl_rollout_workspace_floats": (ctypes.c_size_t, [_I] * 3),
+    "icrl_rollout_fwd": (_I, [_I] * 9 + [_P] * 36),
+    "icrl_rollout_policy_bwd": (_I, [_I] * 7 + [_P] * 22),
+    "icrl_rollout_value_bwd": (_I, [_I] * 6 + [_P] * 29),
     "icrl_error_string": (ctypes.c_char_p, [_I]),
 }
 

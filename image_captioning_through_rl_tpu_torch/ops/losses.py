@@ -1,6 +1,5 @@
-"""Loss functions of the pretrainers (counterpart of the JAX
-``ops/losses.py``), vectorised, with the reference's quirks kept.
-``a2c_losses`` is not ported yet (ROADMAP §1)."""
+"""Loss functions of the trainers (counterpart of the JAX
+``ops/losses.py``), vectorised, with the reference's quirks kept."""
 
 from __future__ import annotations
 
@@ -43,3 +42,30 @@ def weighted_caption_xe_loss(logits: torch.Tensor, targets: torch.Tensor,
     pos = torch.arange(t, device=logits.device)[None, :]
     mask = (pos < caption_lens[:, None]).to(tok_ce.dtype)
     return torch.sum(tok_ce * mask) / n
+
+
+def a2c_losses(values: torch.Tensor, rewards: torch.Tensor, log_probs: torch.Tensor,
+               step_mask: torch.Tensor | None = None, per_step_mean: bool = False):
+    """Actor and critic losses of the A2C update, ``values, rewards,
+    log_probs: [N, S]`` -> ``(actor, critic)`` scalars.
+
+    Quirk Q7: the advantage is ``values - rewards`` (the negative of the
+    usual ``r - V``), with no stop-gradient inside the actor term, so the
+    actor loss reaches the value network too. ``step_mask`` (0/1, [N, S])
+    selects the valid steps. The curriculum (``per_step_mean``) first
+    means each row over its valid steps (trainers.py:581-584); plain A2C
+    means over every valid step at once (trainers.py:472-473)."""
+    advantage = values - rewards
+    actor_terms = -log_probs * advantage
+    critic_terms = 0.5 * torch.square(advantage)
+    if step_mask is None:
+        step_mask = torch.ones_like(values)
+    if per_step_mean:
+        row = torch.clamp_min(torch.sum(step_mask, dim=1), 1.0)
+        actor = torch.mean(torch.sum(actor_terms * step_mask, dim=1) / row)
+        critic = torch.mean(torch.sum(critic_terms * step_mask, dim=1) / row)
+    else:
+        denom = torch.clamp_min(torch.sum(step_mask), 1.0)
+        actor = torch.sum(actor_terms * step_mask) / denom
+        critic = torch.sum(critic_terms * step_mask) / denom
+    return actor, critic

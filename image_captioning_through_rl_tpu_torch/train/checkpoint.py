@@ -32,6 +32,15 @@ def save_network_pt(kind: str, params: dict, path: str) -> None:
         torch.save(sd, f)
 
 
+def save_to_paths(params: dict, save_paths) -> None:
+    """The a2c ``{"policy", "value"}`` parameters to one ``.pt`` path or a
+    list of them (reference save_a2c_model, utilities.py:286-296: A2C saves
+    go to both the log directory and the pretrained-models directory,
+    trainers.py:384,498), each published atomically."""
+    for path in [save_paths] if isinstance(save_paths, str) else save_paths:
+        save_network_pt("a2c", params, path)
+
+
 def load_network(kind: str, path: str, device=None) -> dict:
     """A reference-layout ``.pt`` checkpoint of ``kind`` -> the port's
     parameter tree (float32, on ``device``)."""

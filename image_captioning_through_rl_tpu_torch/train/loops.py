@@ -1,43 +1,52 @@
-"""Training loops of the three pretrainers (counterpart of the JAX
-``train/loops.py``): ``train_reward_network``, ``train_policy_network``
-and ``train_value_network``, with the reference's control flow, metric
-tags and checkpoint cadence, one minibatch per step on an explicit torch
-device.
+"""Training loops (counterpart of the JAX ``train/loops.py``): the three
+pretrainers ``train_reward_network``, ``train_policy_network`` and
+``train_value_network``, and A2C, ``train_a2c_network`` with
+``a2c_training`` and ``a2c_curriculum_training``, with the reference's
+control flow, metric tags and checkpoint cadence, one minibatch per step on
+an explicit torch device (the card unless the caller asks for the CPU).
 
 Reproduced reference behaviours:
   * best-loss checkpointing saves the weights *entering* the best
     minibatch (the reference saves before the optimiser step,
     trainers.py:182-186,244-248,293-297 — quirk Q12);
   * the metric step is ``epoch * batch_size + minibatch_id`` (quirk Q10);
-  * the same numpy seeds (``seed``, ``seed + 1``, ``seed + 2``) and the value
-    trainer's stdlib ``random.Random(seed + 2)`` prefix lengths, so both
-    packages walk the same minibatches and prefixes.
+  * the same numpy seeds (``seed`` .. ``seed + 4``), the value trainer's
+    stdlib ``random.Random(seed + 2)`` prefix lengths and A2C's threefry
+    keys (``PRNGKey(seed + 3)``, ``seed + 4`` for the curriculum, one
+    ``split`` per minibatch, drawn before the skip rule), so both packages
+    walk the same minibatches, prefixes and sampled actions;
+  * A2C saves to every save path after every epoch (trainers.py:498); the
+    curriculum appends level 16 (trainers.py:389-390) and skips
+    minibatches whose ``curr_seq_len < 1`` (trainers.py:550);
+  * the divergence guard and the one-step-late loss read.
 
-``fused_chain=None`` runs the chain kernels on a CUDA device and the plain
-steps on the CPU; ``True`` forces the fused steps (on the CPU their
-wrappers run the kernels' plain versions), ``False`` the plain ones.
-Not ported yet (ROADMAP §1): chunked steps, device-resident tables, the
-mesh, resume snapshots, the compat (Q1) and bidirectional networks, and
-native ``.ckpt`` checkpoints — network paths must be reference ``.pt``
-files.
+``fused_chain=None`` (``fused_rollout=None`` for A2C) runs the kernels on a
+CUDA device and the plain steps on the CPU; ``True`` forces the fused
+steps (on the CPU their wrappers run the kernels' plain versions),
+``False`` the plain ones. Not ported yet (ROADMAP §1): chunked steps,
+device-resident tables, the mesh, resume snapshots, the compat (Q1) and
+bidirectional networks, and native ``.ckpt`` checkpoints — network and
+save paths must be reference ``.pt`` files.
 """
 
 from __future__ import annotations
 
 import random as pyrandom
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
-from .. import MAX_SEQ_LEN
+from .. import END_ID, MAX_SEQ_LEN
+from ..api import resolve_device
 from ..config import NetConfig, TrainConfig
 from ..data.coco import CocoData, get_coco_minibatches
 from ..models import policy as policy_mod
 from ..models import reward as reward_mod
 from ..models import value as value_mod
-from ..utils.io import global_minibatch_number
+from ..ops.prng import PRNGKey, split
+from ..utils.io import append_results, global_minibatch_number
 from ..utils.logging import make_metrics_writer, print_green
 from . import checkpoint as ckpt
 from . import steps
@@ -63,12 +72,31 @@ def _cfg_for(data: CocoData, bidirectional: bool,
 
 
 def _device(device) -> torch.device:
-    return torch.device(device if device is not None else
-                        ("cuda" if torch.cuda.is_available() else "cpu"))
+    """The trainers' device: the card unless the caller asks for the CPU;
+    a CUDA device that is missing raises (no quiet CPU fallback)."""
+    return resolve_device("cuda" if device is None else device)
 
 
 def _use_fused(fused_chain: Optional[bool], device: torch.device) -> bool:
     return device.type == "cuda" if fused_chain is None else bool(fused_chain)
+
+
+def describe_params(name: str, params: dict) -> str:
+    """One line per parameter leaf, ``  path: shape dtype``, in the JAX
+    package's order (sorted keys) and format."""
+    lines = [f"{name}:"]
+
+    def walk(tree, path):
+        for k in sorted(tree):
+            if isinstance(tree[k], dict):
+                walk(tree[k], path + (k,))
+            else:
+                leaf = tree[k]
+                lines.append(f"  {'/'.join(path + (k,))}: {tuple(leaf.shape)} "
+                             f"{str(leaf.dtype).replace('torch.', '')}")
+
+    walk(params, ())
+    return "\n".join(lines)
 
 
 def _clone(tree: dict) -> dict:
@@ -224,3 +252,182 @@ def train_value_network(train_data: CocoData, network_paths: Dict[str, str],
         batch_size, rng, train_data, params, single_step, dev)
     writer.close()
     return params
+
+
+def _drive_a2c_epoch(*, epoch: int, level: Optional[int], train_data: CocoData,
+                     batch_size: int, step, a2c_params: dict, reward_params: dict,
+                     rng: np.random.Generator, key: np.ndarray, keeper, device: torch.device
+                     ) -> np.ndarray:
+    """One epoch of (curriculum) A2C minibatch updates, the JAX package's
+    walk without chunks (``loops.py:1128-1150``): plain A2C (``level``
+    None) rolls out from position 1; a curriculum level teacher-forces
+    ``curr_seq_len = caplen - level`` positions and skips a minibatch where
+    that is below 1. The minibatch's key is split off before the skip
+    rule. Returns the carried key."""
+    for minibatch_id, (captions, features, _) in enumerate(
+            get_coco_minibatches(train_data, batch_size=batch_size, split="train", rng=rng)):
+        key, sub = split(key)
+        if level is None:
+            curr = 1
+        else:
+            # the batch's largest END position + 1 (trainers.py:547), on the host
+            curr = int(np.max(np.argmax(captions == END_ID, axis=1)) + 1) - level
+            if curr < 1:  # trainers.py:550
+                continue
+        stats = step(a2c_params, reward_params, torch.from_numpy(features).to(device),
+                     torch.from_numpy(captions).to(device).long(), curr, sub)
+        keeper.push(stats, epoch, minibatch_id)
+    keeper.flush()
+    return key
+
+
+def _a2c_resolver(desc: str, tags: tuple, writer, state: dict, a2c_params: dict, save_paths,
+                  batch_size: int):
+    """The per-minibatch bookkeeping of A2C: the divergence guard (dumping
+    the current weights next to the first save path), the best loss, and
+    the three metric tags (loss, mean reward, mean advantage)."""
+
+    def resolve(stats, epoch, minibatch_id):
+        loss = float(stats.loss)
+        check_finite(loss, desc, f"epoch {epoch + 1}, minibatch {minibatch_id}",
+                     dump=lambda path: ckpt.save_network_pt("a2c", a2c_params, path),
+                     dump_path=str(save_paths[0]) + ".diverged.pt" if save_paths else None)
+        state["best"] = min(state["best"], loss)
+        n = global_minibatch_number(epoch, minibatch_id, batch_size)
+        writer.add_scalar(tags[0], loss, n)
+        writer.add_scalar(tags[1], float(stats.mean_reward), n)
+        writer.add_scalar(tags[2], float(stats.mean_advantage), n)
+
+    return resolve
+
+
+def _a2c_epochs(desc: str, tags: tuple, level: Optional[int], writer, train_data: CocoData,
+                a2c_params: dict, reward_params: dict, step, save_paths, batch_size: int,
+                epochs: int, rng: np.random.Generator, key: np.ndarray) -> np.ndarray:
+    device = a2c_params["policy"]["embedding"].device
+    state = {"best": float("inf")}
+    keeper = _DeferredBookkeeper(_a2c_resolver(desc, tags, writer, state, a2c_params,
+                                               save_paths, batch_size))
+    for epoch in range(epochs):
+        t0 = time.perf_counter()
+        key = _drive_a2c_epoch(epoch=epoch, level=level, train_data=train_data,
+                               batch_size=batch_size, step=step, a2c_params=a2c_params,
+                               reward_params=reward_params, rng=rng, key=key, keeper=keeper,
+                               device=device)
+        ckpt.save_to_paths(a2c_params, save_paths)  # every epoch (trainers.py:498)
+        print(f"{desc} ({epoch + 1}/{epochs}): {time.perf_counter() - t0:.1f} s, best loss "
+              f"{state['best']}", flush=True)
+    return key
+
+
+def a2c_training(train_data: CocoData, a2c_params: dict, reward_params: dict,
+                 optimizer: torch.optim.Optimizer, cfg: NetConfig, plot_dir: Optional[str],
+                 save_paths, batch_size: int, epochs: int, seed: int = 0,
+                 fused_rollout: Optional[bool] = None, fuse_reward: bool = True) -> dict:
+    """The A2C loop (trainers.py:402-500): per minibatch one rollout from
+    the start column, the A2C loss and one optimiser step of ``a2c_params``
+    (updated in place); the weights go to every path of ``save_paths``
+    after every epoch. Numpy seed and threefry key ``seed + 3``."""
+    writer = make_metrics_writer(plot_dir)
+    device = a2c_params["policy"]["embedding"].device
+    step = steps.make_a2c_step(cfg, optimizer, per_step_mean=False,
+                               fused=_use_fused(fused_rollout, device), fuse_reward=fuse_reward)
+    print_green("[Training] Training Advantage Actor-Critic Network")
+    _a2c_epochs("Training A2C Network",
+                ("A2C Network-episodic-loss", "A2C Network-episodic-mean-rewards",
+                 "A2C Network-episodic-mean-advantage"),
+                None, writer, train_data, a2c_params, reward_params, step, save_paths,
+                batch_size, epochs, np.random.default_rng(seed + 3), PRNGKey(seed + 3))
+    writer.close()
+    return a2c_params
+
+
+def a2c_curriculum_training(train_data: CocoData, a2c_params: dict, reward_params: dict,
+                            optimizer: torch.optim.Optimizer, cfg: NetConfig,
+                            plot_dir: Optional[str], save_paths, batch_size: int, epochs: int,
+                            curriculum: Sequence[int], seed: int = 0,
+                            fused_rollout: Optional[bool] = None,
+                            fuse_reward: bool = True) -> dict:
+    """Curriculum A2C (trainers.py:503-616): per level, ``epochs`` epochs
+    that teacher-force the ground-truth prefix of length ``caplen - level``
+    and roll out the last ``level`` tokens, with the per-step-mean loss. One
+    numpy generator and one key (``seed + 4``) run through all levels."""
+    writer = make_metrics_writer(plot_dir)
+    device = a2c_params["policy"]["embedding"].device
+    step = steps.make_a2c_step(cfg, optimizer, per_step_mean=True,
+                               fused=_use_fused(fused_rollout, device), fuse_reward=fuse_reward)
+    rng, key = np.random.default_rng(seed + 4), PRNGKey(seed + 4)
+    print_green("[Training] Training Advantage Actor-Critic Network")
+    print_green(f"[Training] mode set to curriculum training using levels: {list(curriculum)}")
+    for level in curriculum:
+        print_green(f"[Training] Training curriculum level: {level}")
+        tag = f"A2C Curriculum Level-{level}"
+        key = _a2c_epochs(f"Training A2C Curriculum Level {level}",
+                          (f"{tag}-loss", f"{tag}-mean-rewards", f"{tag}-mean-advantage"),
+                          level, writer, train_data, a2c_params, reward_params, step,
+                          save_paths, batch_size, epochs, rng, key)
+    writer.close()
+    return a2c_params
+
+
+def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
+                      network_paths: Dict[str, str], plot_dir: Optional[str],
+                      bidirectional: bool, epochs: int, batch_size: int,
+                      retrain_all: bool = False, curriculum: Optional[Sequence[int]] = None,
+                      seed: int = 0, fused_rollout: Optional[bool] = None,
+                      a2c_lr: float = _T.a2c_lr, device=None,
+                      net_dims: Optional[Dict[str, int]] = None, fuse_reward: bool = True):
+    """The A2C orchestrator (trainers.py:312-399): load each sub-network
+    from ``network_paths`` (training it when its file is missing, or all
+    three with ``retrain_all``), freeze the reward network, then run plain
+    or curriculum A2C with Adam at ``a2c_lr`` over ``{"value", "policy"}``
+    (frozen embeddings stay out of it), saving to
+    ``save_paths["model_path"]`` and ``network_paths["a2c_network"]`` every
+    epoch, and append the parameter summary to
+    ``save_paths["results_path"]``. ``fuse_reward=False`` runs the frozen
+    reward stream as its own kernel after each fused rollout instead of
+    inside it. Returns ``(a2c_params, reward_params, cfg)``."""
+    cfg = _cfg_for(train_data, bidirectional, net_dims)
+    dev = _device(device)
+    all_save_paths = [save_paths["model_path"], network_paths["a2c_network"]]
+    for path in all_save_paths + [network_paths[f"{k}_network"]
+                                  for k in ("reward", "policy", "value")]:
+        ckpt.check_pt_path(path)
+    kw = dict(batch_size=batch_size, seed=seed, device=dev, net_dims=net_dims)
+    trainers = {"reward": train_reward_network, "policy": train_policy_network,
+                "value": train_value_network}
+    nets = {}
+    if retrain_all:
+        print_green("[Training] Training all the networks")
+    for kind, train_fn in trainers.items():
+        if retrain_all:
+            nets[kind] = train_fn(train_data, network_paths, plot_dir, bidirectional, **kw)
+            continue
+        try:
+            nets[kind] = ckpt.load_network(kind, network_paths[f"{kind}_network"], dev)
+            print(f"[Training] loaded {kind} network")
+        except FileNotFoundError:
+            print(f"[Training] {kind} network not found")
+            nets[kind] = train_fn(train_data, network_paths, plot_dir, bidirectional, **kw)
+    if retrain_all:
+        print_green("[Training] All networks trained")
+    reward_params = _clone(nets["reward"])  # frozen: detached, no gradient
+    a2c_params = {"value": nets["value"], "policy": nets["policy"]}
+    optimizer = adam(a2c_lr, a2c_params, cfg.freeze_embeddings)  # trainers.py:378
+
+    print(f"[Training] train_data len = {len(train_data.train_captions)}")
+    print(f"[Training] episodes = {batch_size}")
+    print(f"[Training] epochs = {epochs}")
+    args = (train_data, a2c_params, reward_params, optimizer, cfg, plot_dir, all_save_paths,
+            batch_size, epochs)
+    if curriculum is None:
+        a2c_training(*args, seed=seed, fused_rollout=fused_rollout, fuse_reward=fuse_reward)
+    else:
+        curriculum = list(curriculum)
+        if 16 not in curriculum:
+            curriculum.append(16)  # the last level is full training (trainers.py:389-390)
+        a2c_curriculum_training(*args, curriculum, seed=seed, fused_rollout=fused_rollout,
+                                fuse_reward=fuse_reward)
+    append_results(save_paths["results_path"],
+                   describe_params("AdvantageActorCriticNetwork", a2c_params), header="network")
+    return a2c_params, reward_params, cfg

@@ -1,10 +1,12 @@
-"""Training steps of the three pretrainers (counterpart of the JAX
-``train/steps.py``, unidirectional and non-compat forms only).
+"""Training steps (counterpart of the JAX ``train/steps.py``,
+unidirectional and non-compat forms only).
 
   * reward — VSE ranking loss (reference trainers.py:260-309);
   * policy — caption-length-weighted XE (trainers.py:202-257);
   * value — MSE against the embedding reward of a greedy rollout of the
-    frozen policy, on a random-length prefix (trainers.py:125-199).
+    frozen policy, on a random-length prefix (trainers.py:125-199);
+  * A2C — the actor-critic update on sampled rollouts, plain and
+    curriculum (trainers.py:402-616).
 
 Each ``*_loss`` is the plain form: eager autograd over the port's models
 (the JAX package's XLA step). Each ``*_loss_fused`` puts the recurrent
@@ -14,12 +16,20 @@ plain versions on CPU tensors); what the JAX package left to XLA stays
 plain torch: the vocab head, the XE loss, the ``cnn2linear`` ``h0``
 product, the embedding-pair projections and the VSE loss.
 
+The A2C rollout's fused form, :func:`a2c_rollout_loss_fused`, runs through
+:func:`..ops.fused_rollout.fused_rollout` (the rollout kernels on CUDA
+tensors, their plain versions on CPU tensors), with the reward stream fused
+in by default.
+
 A step built by ``make_*_step`` runs one minibatch — loss, backward, one
 optimiser step that updates the parameter tensors in place — and returns
-the loss as a detached 0-d tensor (no device sync).
+the loss (the A2C step: its :class:`RolloutStats`) as detached 0-d tensors
+(no device sync).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -32,10 +42,13 @@ from ..models import value as value_mod
 from ..ops.fused_decode import fused_greedy_decode, prepare_greedy_weights
 from ..ops.fused_gru import fused_gru_chain
 from ..ops.fused_lstm import fused_lstm_chain
+from ..ops.fused_rollout import fused_reward_stream, fused_rollout
 from ..ops.linalg import dense
-from ..ops.losses import visual_semantic_embedding_loss, weighted_caption_xe_loss
+from ..ops.losses import a2c_losses, visual_semantic_embedding_loss, weighted_caption_xe_loss
+from ..ops.prng import split
 from ..ops.reward_ops import cosine_embedding_reward
-from ..ops.rnn import lstm_scan
+from ..ops.rnn import lstm_cell, lstm_scan
+from ..ops.sampling import log_prob_of, sample_categorical
 
 
 def batch_caption_lens(captions: torch.Tensor) -> torch.Tensor:
@@ -188,5 +201,122 @@ def make_value_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, pparams: d
         return _train_step(optimizer, lambda: value_episode_loss(
             vparams, cfg, pparams, rparams, features, captions, prefix_len, fused=fused,
             greedy_weights=greedy_weights))
+
+    return step
+
+
+# --------------------------------------------------------------------------
+# A2C (joint actor-critic on sampled rollouts)
+# --------------------------------------------------------------------------
+
+class RolloutStats(NamedTuple):
+    loss: torch.Tensor
+    actor_loss: torch.Tensor
+    critic_loss: torch.Tensor
+    mean_reward: torch.Tensor
+    mean_advantage: torch.Tensor
+
+
+def _a2c_loss(values, rewards, log_probs, curr_seq_len, caplen, per_step_mean):
+    """The A2C loss of ``[N, S]`` rollout stacks over the valid placed
+    positions ``curr_seq_len <= p <= caplen - 1`` (p = 1 .. S), and its
+    stats."""
+    p_idx = torch.arange(1, values.shape[1] + 1, device=values.device)[None, :]
+    mask = ((p_idx >= curr_seq_len) & (p_idx <= caplen - 1)).to(values.dtype).expand_as(values)
+    actor, critic = a2c_losses(values, rewards, log_probs, step_mask=mask,
+                               per_step_mean=per_step_mean)
+    loss = actor + critic
+    denom = torch.clamp_min(torch.sum(mask), 1.0)
+    return loss, RolloutStats(loss=loss, actor_loss=actor, critic_loss=critic,
+                              mean_reward=torch.sum(rewards * mask) / denom,
+                              mean_advantage=torch.sum((values - rewards) * mask) / denom)
+
+
+def a2c_rollout_loss(a2c_params: dict, cfg: NetConfig, reward_params: dict, features,
+                     captions, curr_seq_len: int, caplen, rng, per_step_mean: bool = False):
+    """Loss of one A2C episode batch as an eager scan (the JAX package's XLA
+    rollout, ``steps.py:509-610``) -> ``(loss, RolloutStats)``.
+
+    Plain A2C is ``curr_seq_len = 1``: roll out from the start column;
+    the curriculum teacher-forces positions ``p < curr_seq_len``. Per step:
+    the critic's value of the current prefix, an action drawn from the
+    policy's last-step logits under the step's key (``split(rng, S)``,
+    :func:`..ops.sampling.sample_categorical`, JAX's draws), its log-prob,
+    the frozen reward of the prefix plus the action (no gradient, Q7), then
+    every encoder advances with the placed token. ``caplen``: the batch's
+    largest END position + 1."""
+    pparams, vparams = a2c_params["policy"], a2c_params["value"]
+    n, t_max = captions.shape
+    dev = features.device
+    start = captions[:, 0]
+    pol_state = policy_mod.init_decode_state(pparams, cfg, features)
+    pol_state = lstm_cell(pparams["lstm"], pparams["embedding"][start], pol_state)
+    val_state = value_mod.rnn_step(vparams, cfg, start, value_mod.zero_rnn_state(cfg, n, dev))
+    with torch.no_grad():
+        rew_state = reward_mod.rnn_step(reward_params, cfg, start,
+                                        reward_mod.zero_rnn_state(cfg, n, dev))
+        ve = dense(features, reward_params["visual_embed"])
+    step_keys = split(rng, t_max - 1)
+    values, rewards, log_probs = [], [], []
+    for p in range(1, t_max):
+        logits = dense(pol_state[0], pparams["head"])
+        action = sample_categorical(step_keys[p - 1], logits.detach())
+        log_probs.append(log_prob_of(logits, action))
+        values.append(value_mod.value_from_state(vparams, cfg, features, val_state)[:, 0])
+        token_in = captions[:, p] if p < curr_seq_len else action
+        with torch.no_grad():
+            rew_after = reward_mod.rnn_step(reward_params, cfg, action, rew_state)
+            se = dense(rew_after, reward_params["semantic_embed"])
+            rewards.append(cosine_embedding_reward(ve, se))
+            rew_state = reward_mod.rnn_step(reward_params, cfg, token_in, rew_state)
+        pol_state = lstm_cell(pparams["lstm"], pparams["embedding"][token_in], pol_state)
+        val_state = value_mod.rnn_step(vparams, cfg, token_in, val_state)
+    return _a2c_loss(torch.stack(values, dim=1), torch.stack(rewards, dim=1),
+                     torch.stack(log_probs, dim=1), curr_seq_len, caplen, per_step_mean)
+
+
+def a2c_rollout_loss_fused(a2c_params: dict, cfg: NetConfig, reward_params: dict, features,
+                           captions, curr_seq_len: int, caplen, rng,
+                           per_step_mean: bool = False,
+                           weight_dtype: torch.dtype = torch.bfloat16,
+                           fuse_reward: bool = True):
+    """:func:`a2c_rollout_loss` with the rollout through
+    :func:`..ops.fused_rollout.fused_rollout` (the JAX package's
+    ``steps.py:749-818``): the same keys, so the same actions up to the
+    kernels' near-ties; the same loss and mask. The frozen reward stream
+    runs inside the rollout (``fuse_reward=True``, the default) or as its
+    own kernel (:func:`..ops.fused_rollout.fused_reward_stream`)."""
+    if fuse_reward:
+        values, log_probs, _, _, rewards = fused_rollout(
+            a2c_params, cfg, features, captions, curr_seq_len, rng, weight_dtype=weight_dtype,
+            reward_params=reward_params)
+    else:
+        values, log_probs, actions, tokens = fused_rollout(
+            a2c_params, cfg, features, captions, curr_seq_len, rng, weight_dtype=weight_dtype)
+        rewards = fused_reward_stream(reward_params, cfg, features, captions[:, 0], actions,
+                                      tokens, weight_dtype=weight_dtype)
+    return _a2c_loss(values, rewards, log_probs, curr_seq_len, caplen, per_step_mean)
+
+
+def make_a2c_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, per_step_mean: bool = False,
+                  fused: bool = False, fuse_reward: bool = True):
+    """``step(a2c_params, reward_params, features, captions, curr_seq_len,
+    rng) -> RolloutStats`` (detached): one A2C update of ``{"policy",
+    "value"}`` against the frozen reward network, plain
+    (``per_step_mean=False``) or curriculum (``True``). ``rng`` is the
+    minibatch's host key. ``fused=True`` runs the rollout through the
+    rollout kernels (:func:`a2c_rollout_loss_fused`), with the reward
+    stream fused in or, ``fuse_reward=False``, as its own kernel."""
+    fused_kw = {"fuse_reward": fuse_reward} if fused else {}
+    rollout = a2c_rollout_loss_fused if fused else a2c_rollout_loss
+
+    def step(a2c_params, reward_params, features, captions, curr_seq_len, rng):
+        caplen = torch.max(batch_caption_lens(captions))
+        optimizer.zero_grad(set_to_none=True)
+        loss, stats = rollout(a2c_params, cfg, reward_params, features, captions, curr_seq_len,
+                              caplen, rng, per_step_mean=per_step_mean, **fused_kw)
+        loss.backward()
+        optimizer.step()
+        return RolloutStats(*(x.detach() for x in stats))
 
     return step

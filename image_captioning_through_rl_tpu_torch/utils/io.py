@@ -32,6 +32,16 @@ def atomic_write(path: str):
         raise
 
 
+def append_results(results_path: str, text: str, header: str = "results") -> None:
+    """Append a banner-delimited block to the results file (reference
+    trainers.py:394-397, utilities.py:354-358)."""
+    os.makedirs(os.path.dirname(results_path) or ".", exist_ok=True)
+    with open(results_path, "a") as f:
+        f.write("\n" + "-" * 10 + f" {header} " + "-" * 10 + "\n")
+        f.write(text)
+        f.write("\n" + "-" * 10 + f" {header} " + "-" * 10 + "\n")
+
+
 def global_minibatch_number(epoch: int, batch_id: int, batch_size: int) -> int:
     """The metric-log x-axis, the reference's ``epoch * batch_size +
     batch_id`` (quirk Q10: it scales by the batch size, not by the batches

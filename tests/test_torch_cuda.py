@@ -21,6 +21,15 @@ E = H = 512, V = 1004): ``hs`` and every gradient for a fixed upstream
 gradient, by relative Frobenius error, within 1e-4 with float32 weights
 (sum order alone) and 2e-2 with bf16 weights (sum order ahead of a bf16
 rounding of h or of a gate gradient moves it by one bf16 step, 2^-8).
+
+The A2C kernels at the small widths: the threefry kernel's bits equal the
+plain version's and its Gumbel noise lies within 4 ulps of it (two
+``logf``s, see ``test_torch_prng.py``); the reward stream and the rollout
+forward within ``ROLLOUT_TOL`` (max abs error, on the rows whose actions
+agree; a row may part only at a near-tie of the noisy logits); the rollout
+backward, run by kernel and plain on one shared forward tape, within
+``CHAIN_TOL`` by relative Frobenius error (its recurrences are the LSTM
+chain's backward).
 """
 
 import numpy as np
@@ -29,7 +38,7 @@ import torch
 
 from image_captioning_through_rl_tpu_torch import START_ID
 from image_captioning_through_rl_tpu_torch.config import NetConfig
-from image_captioning_through_rl_tpu_torch.models import a2c
+from image_captioning_through_rl_tpu_torch.models import a2c, reward
 from image_captioning_through_rl_tpu_torch.models.initializers import (
     embedding_init,
     gru_init,
@@ -48,7 +57,10 @@ from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
     token_gate_table_plain,
 )
 from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain
+from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+from image_captioning_through_rl_tpu_torch.ops import prng
 from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
+from image_captioning_through_rl_tpu_torch.train.steps import a2c_rollout_loss_fused
 
 CFG = NetConfig(vocab_size=60, input_dim=16, wordvec_dim=16, hidden_dim=16, max_seq_len=7)
 T = CFG.max_seq_len
@@ -209,3 +221,114 @@ def test_chain_kernel_forced_on_cpu_raises(dev):
     lparams, linputs, ltok, _ = _chain_setup(torch.device("cpu"), "lstm", "small")
     with pytest.raises(RuntimeError, match="CUDA"):
         fused_lstm_chain(lparams, linputs[3], ltok, *linputs[4:], use_fused_kernel=True)
+
+
+ROLLOUT_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-3}
+
+
+@pytest.mark.cuda
+def test_threefry_kernel_matches_plain(dev):
+    keys = prng.split(prng.PRNGKey(11), 3)
+    shape = (N, CFG.vocab_size)
+    before = prng.gumbel_noise.launches
+    bits = prng.threefry_bits_kernel(keys, shape, dev).cpu().numpy().view(np.uint32)
+    want_bits = torch.stack([prng.random_bits(k, shape) for k in keys]).numpy()
+    np.testing.assert_array_equal(bits.astype(np.int64), want_bits)
+    noise = prng.gumbel_noise(keys, shape, dev).cpu()
+    assert prng.gumbel_noise.launches == before + 2
+    want = prng.gumbel_noise(keys, shape, "cpu")
+    ulp = torch.from_numpy(np.spacing(np.maximum(want.abs().numpy(), np.float32(1.0))))
+    assert bool(((noise - want).abs() <= 4 * ulp).all())
+
+
+def _rollout_case(dev, wd, curr):
+    gen = torch.Generator().manual_seed(7)
+    nets = a2c.init(gen, CFG)
+    rparams = reward.init(gen, CFG)
+
+    def to_dev(tree):
+        return {k: to_dev(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    nets, rparams = to_dev(nets), to_dev(rparams)
+    rng = np.random.default_rng(8)
+    feats = torch.from_numpy(rng.standard_normal((N, CFG.input_dim)).astype(np.float32)).to(dev)
+    caps = torch.from_numpy(rng.integers(4, CFG.vocab_size, size=(N, T))).to(dev)
+    caps[:, 0] = START_ID
+    w = fr.prepare_rollout_weights(nets, wd)
+    rw = fr.prepare_reward_weights(rparams, feats, caps[:, 0], wd)
+    teach = caps[:, 1:].t().to(torch.int32).contiguous()
+    noise = prng.gumbel_noise(prng.split(prng.PRNGKey(curr), T - 1), (N, CFG.vocab_size), dev)
+    with torch.no_grad():
+        states = fr.start_states(nets, CFG, feats, caps[:, 0])
+    return (curr, teach, noise, rw, feats, *states, w), nets, rparams, feats, caps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curr", [1, 4])
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+def test_rollout_kernels_match_plain(dev, wd, curr):
+    args, _, _, feats, caps = _rollout_case(dev, wd, curr)
+    before = fr.fused_rollout.fwd_launches
+    k_val, k_logp, k_rew, tape = fr.rollout_forward_kernel(*args)
+    torch.cuda.synchronize()
+    assert fr.fused_rollout.fwd_launches == before + 1
+    p_val, p_logp, p_rew, p_tape, gaps = fr.rollout_forward_plain(*args, margins=True)
+    differ = tape.act != p_tape.act  # [S, N]
+    bad = differ.any(dim=0)
+    if bool(bad.any()):
+        first = differ.int().argmax(dim=0)
+        assert bool((gaps.gather(0, first[None])[0][bad] < NEAR_TIE).all()), "a non-tie differs"
+    for name, a, b in (("values", k_val, p_val), ("log_probs", k_logp, p_logp),
+                       ("rewards", k_rew, p_rew)):
+        err = float((a - b)[:, ~bad].abs().max())
+        assert err <= ROLLOUT_TOL[wd], f"{name}: max abs error {err:.3g}"
+    # the reward stream on its own, on the kernel's actions and tokens,
+    # equals the stream fused into the rollout
+    rw = args[3]
+    before = fr.fused_reward_stream.launches
+    stream = fr.reward_stream(rw, tape.act, tape.tok)
+    torch.cuda.synchronize()
+    assert fr.fused_reward_stream.launches == before + 1
+    torch.testing.assert_close(stream, k_rew, rtol=0, atol=1e-6)
+    plain = fr.reward_stream(rw, tape.act, tape.tok, use_fused_kernel=False)
+    assert float((stream - plain).abs().max()) <= ROLLOUT_TOL[wd]
+    # backward, kernel and plain on one shared tape
+    gen = torch.Generator().manual_seed(9)
+    dval, dlogp = (torch.randn(tape.act.shape, generator=gen).to(dev) for _ in range(2))
+    w = args[-1]
+    before = fr.fused_rollout.bwd_launches
+    got = fr.rollout_backward_kernel(tape, feats, w, dval, dlogp)
+    torch.cuda.synchronize()
+    assert fr.fused_rollout.bwd_launches == before + 1
+    want = fr.rollout_backward_plain(tape, feats, w, dval, dlogp)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), i
+        rel = float((a - b).norm() / max(float(b.norm()), 1e-30))
+        assert rel <= CHAIN_TOL[wd], f"gradient {i}: relative error {rel:.3g}"
+
+
+@pytest.mark.cuda
+def test_a2c_loss_runs_each_rollout_kernel_once(dev):
+    _, nets, rparams, feats, caps = _rollout_case(dev, torch.bfloat16, 1)
+    params = {net: {k: ({kk: vv.requires_grad_() for kk, vv in v.items()} if isinstance(v, dict)
+                        else v.requires_grad_()) for k, v in p.items()} for net, p in nets.items()}
+    counts = (fr.fused_rollout.fwd_launches, fr.fused_rollout.bwd_launches,
+              prng.gumbel_noise.launches)
+    loss, _ = a2c_rollout_loss_fused(params, CFG, rparams, feats, caps, 1, T, prng.PRNGKey(0))
+    loss.backward()
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(loss))
+    assert (fr.fused_rollout.fwd_launches, fr.fused_rollout.bwd_launches,
+            prng.gumbel_noise.launches) == (counts[0] + 1, counts[1] + 1, counts[2] + 1)
+
+
+@pytest.mark.cuda
+def test_rollout_wrappers_reject_bad_inputs(dev):
+    args, _, _, _, _ = _rollout_case(dev, torch.float32, 1)
+    curr, teach, noise, rw, feats, *states, w = args
+    with pytest.raises(ValueError, match="noise"):
+        fr.rollout_forward_kernel(curr, teach, noise[:, :, :-2], rw, feats, *states, w)
+    with pytest.raises(ValueError, match="tokens must lie"):
+        fr.rollout_forward_kernel(curr, teach + 1000, noise, rw, feats, *states, w)
+    with pytest.raises(ValueError, match="actions and tokens"):
+        fr.reward_stream(rw, teach + 1000, teach)

@@ -37,7 +37,7 @@ def models():
     jp = ja2c.init(jax.random.PRNGKey(0), JNetConfig(precision="highest", **KW))
     jcap = JCaptioner(jp, JNetConfig(precision="highest", **KW), IDX_TO_WORD)
     tcap = Captioner(from_jax_params(jax.tree.map(np.asarray, jp)), NetConfig(**KW),
-                     IDX_TO_WORD)
+                     IDX_TO_WORD, device="cpu")
     return jp, jcap, tcap
 
 
@@ -146,7 +146,7 @@ def test_main_serves_from_pt_and_vocab(models, tmp_path):
     vocab = tmp_path / "coco2014_vocab.json"
     vocab.write_text(json.dumps({"word_to_idx": {w: i for i, w in enumerate(WORDS)},
                                  "idx_to_word": WORDS}))
-    cap = load_captioner(str(model_pt), str(vocab))
+    cap = load_captioner(str(model_pt), str(vocab), device="cpu")
     assert cap.cfg.vocab_size == KW["vocab_size"] and cap.cfg.hidden_dim == KW["hidden_dim"]
     # the checkpoint carries no caption length: the loaded model decodes
     # the default 17 tokens
