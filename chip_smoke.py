@@ -52,14 +52,30 @@ Phases:
      minibatch fused (bf16 kernels) vs plain (float32 eager);
  15. timings (CUDA events): the noise kernel, the reward stream, the
      rollout forward and backward, kernel and plain, one A2C step fused and
-     plain, and a torch.profiler window over three fused A2C steps.
+     plain, and a torch.profiler window over three fused A2C steps;
+ 16. the sampling kernel vs plain: bf16 and f32 weights, N in {1, 1000,
+     1024}, four variants (unfiltered at t = 1.0, top-k 40 at t = 0.7,
+     nucleus 0.9, top-k 40 with nucleus 0.9), one key each; column 0 the
+     start token; with f32 weights, temperature-0 requests equal greedy;
+ 17. sampling main path: the server started through ``server.main`` with
+     ``--warmup_samples``, sampled requests posted through the port's
+     ``CaptionClient`` over JSON and binary headers (num_samples 1 and 3, two
+     seeds, one request larger than ``--max_batch``, answered in chunks under
+     ``seed + row offset``), each equal to ``Captioner.sample_captions`` at the
+     same seeds; beam + sample and num_samples above ``--max_samples``
+     answered 400; ``/stats`` with the sampling kernel launched, 0 errors;
+ 18. timings (CUDA events): the sampling kernel and plain at N = 1024,
+     unfiltered and top-k 40 + nucleus 0.9, and at the served shape N = 64,
+     R = 4.
 
 The last JSON line but two lists every kernel with its launches on its main
 path (serving for greedy, beam and the x-gate table; the pretrainers for
 the chains; A2C for the rest), its largest error against plain, its time and
 its plain version's, and its bound: the least time an H100 SXM could take
 (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16, 67 TFLOP/s for
-the noise kernel's integer and float32 work), counted in ``bounds()``. The
+the noise kernel's integer and float32 work; the sampling kernel's products
+at the first rate plus its hash, Gumbel map and bisection passes at the
+second), counted in ``bounds()``. The
 x-gate table is the one kernel whose function one PyTorch call computes
 (``torch.mm`` with a float32 output), timed as ``library_ms``.
 
@@ -125,7 +141,26 @@ gradient cosines fell to 0.992). Such rows are dropped with their noise, at
 most 5% of the batch (measured 6 of 512, then loss 1e-5 relative and every
 cosine >= 0.99998).
 
-The whole run takes 35-40 s of command time on the H100, build (7-10 s)
+The sampling kernel (phase 16) is held by the near-tie rule above, with
+the plain version's distance to a tie at the first step where the two
+part: the smallest of the gap between the two largest noisy filtered
+logits; the gap between the k-th and (k+1)-th scaled logits (top-k); for
+the nucleus, the gap between the smallest kept and the largest dropped
+scaled logit (two tokens that swap places there swap the boundary token,
+which a mass margin alone does not see: measured, one row in ~1000 parted
+that way) and the distance of p * z from the mass strictly above the
+boundary value and from the mass at or above it, over z. The kernel's expf
+and warp sums are not torch's exp and sum, and its products sum in another
+order than cuBLAS, so a row whose boundary lies within float error of the
+budget may keep one token more or fewer and a near-tie may break either
+way; such a row may part only where that distance is < 1e-4 with f32
+weights and < 5e-4 with bf16 weights, in at most 1% of rows. The bf16 bound
+is wider because the kernel's and cuBLAS's bf16 logits differ by up to
+1.7e-4 in a row (a bf16 rounding of h that the two sum orders straddle,
+measured at COCO width), 2.5e-4 once divided by t = 0.7, so a top-k
+boundary 1.7e-4 apart was seen to swap.
+
+The whole run takes 45-55 s of command time on the H100, build (7-10 s)
 included.
 """
 
@@ -138,6 +173,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -147,6 +183,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 V, F, E, H, T, BEAM = 1004, 512, 512, 512, 17, 5
 NEAR_TIE = 1e-4
+SAMPLE_NEAR_TIE = {torch.bfloat16: 5e-4, torch.float32: 1e-4}
 MAX_DIFF_SHARE = 0.01
 SCORE_TOL = {torch.bfloat16: 1e-3, torch.float32: 1e-4}
 TABLE_TOL = 1e-4
@@ -159,6 +196,10 @@ S, ROLLOUT_N = T - 1, 512
 ROLLOUT_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
 GUMBEL_ULPS = 4
 A2C_DIFF_SHARE = 0.05
+# phases 16-18: name, temperature, top_k, top_p
+SAMPLE_VARIANTS = (("unfiltered", 1.0, 0, None), ("top-k 40", 0.7, 40, None),
+                   ("nucleus 0.9", 1.0, 0, 0.9), ("top-k 40 + nucleus 0.9", 1.0, 40, 0.9))
+SERVE_BATCH, SERVE_MAX_SAMPLES = 64, 4
 H100_BF16, H100_F32, H100_BYTES = 989e12, 67e12, 3.35e12
 
 
@@ -179,7 +220,8 @@ def first_divergent_step(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a != b).int().argmax(dim=1) - 1
 
 
-def check_rows(kind: str, k_tok, p_tok, gap_of_row) -> tuple[int, float, float]:
+def check_rows(kind: str, k_tok, p_tok, gap_of_row, near_tie: float = NEAR_TIE
+               ) -> tuple[int, float, float]:
     """Apply the near-tie rule. ``gap_of_row(bad)`` gives the plain
     version's tie gap for the rows that differ. Returns (rows that differ,
     smallest such gap, largest token difference outside them)."""
@@ -191,9 +233,9 @@ def check_rows(kind: str, k_tok, p_tok, gap_of_row) -> tuple[int, float, float]:
         return 0, float("nan"), err
     gaps = gap_of_row(bad)
     worst = float(gaps.max())
-    if worst >= NEAR_TIE:
+    if worst >= near_tie:
         raise AssertionError(f"{kind}: a row differs where the plain version's gap "
-                             f"{worst:.3g} is not a near-tie (< {NEAR_TIE})")
+                             f"{worst:.3g} is not a near-tie (< {near_tie})")
     if n_bad > MAX_DIFF_SHARE * n:
         raise AssertionError(f"{kind}: {n_bad}/{n} rows differ (more than "
                              f"{MAX_DIFF_SHARE:.0%})")
@@ -735,10 +777,10 @@ def short_kernel_name(name: str) -> str:
     return found[0] if found else name[:48]
 
 
-def profile_a2c_step(step_fn, iters: int) -> str:
-    """torch.profiler over ``iters`` steps: device ms per step, its busy
-    share of the wall time, and the kernels that take the most device
-    time."""
+def profile_window(step_fn, iters: int) -> str:
+    """torch.profiler over ``iters`` calls of ``step_fn``: device ms per
+    call, its busy share of the wall time, and the kernels that take the
+    most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     step_fn()
@@ -760,8 +802,8 @@ def profile_a2c_step(step_fn, iters: int) -> str:
         launches += evt.count
     busy = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return (f"wall {wall:.3f} ms/step, device {busy:.3f} ms/step (busy {busy / wall:.0%}), "
-            f"{launches / iters:.0f} device ops/step; top: "
+    return (f"wall {wall:.3f} ms/call, device {busy:.3f} ms/call (busy {busy / wall:.0%}), "
+            f"{launches / iters:.0f} device ops/call; top: "
             + ", ".join(f"{k} {v:.3f}" for k, v in top))
 
 
@@ -810,16 +852,179 @@ def time_a2c(a2c_params, rparams, data, dev) -> dict:
 
         times[("a2c", "step", label)] = cuda_ms(one_step, 5 if fused else 3)
         if fused:
-            times[("a2c", "profile")] = profile_a2c_step(one_step, 3)
+            times[("a2c", "profile")] = profile_window(one_step, 3)
     return times
 
 
-def work(nbytes: float, flops: float, peak: float = H100_BF16) -> tuple[float, str]:
+# ------------------------------------------------------------------------
+# Phases 16-18: the sampling slice (the sampling kernel, sampled serving)
+# ------------------------------------------------------------------------
+
+def compare_sampling(weights: dict, inputs, params, dev) -> float:
+    """Phase 16: the sampling kernel against its plain version under the
+    near-tie rule, and temperature-0 requests against greedy (f32 weights).
+    Returns the largest token difference outside the rows that part."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.api import Captioner
+    from image_captioning_through_rl_tpu_torch.ops import prng
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import fused_greedy_decode
+    from image_captioning_through_rl_tpu_torch.ops.fused_sample import (
+        fused_sample_decode, sample_decode_plain)
+
+    worst = 0.0
+    for wd, (gw, _) in weights.items():
+        for n in (1, 1000, 1024):
+            feats, start = inputs(n)
+            report = []
+            for i, (name, t, k, p) in enumerate(SAMPLE_VARIANTS):
+                key = prng.PRNGKey(SEED + 70 + i)
+                k_tok = fused_sample_decode(gw, feats, start, key, T, t, k, p)
+                torch.cuda.synchronize()
+                p_tok, margins = sample_decode_plain(gw, feats, start, key, T, t, k, p,
+                                                     margins=True)
+                if k_tok.shape != (n, T) or not bool((k_tok[:, 0] == START_ID).all()):
+                    raise AssertionError("sampling kernel output has the wrong shape or start "
+                                         "column")
+                n_bad, gap, err = check_rows(
+                    f"sample {name} {wd} N={n}", k_tok, p_tok,
+                    lambda bad: margins[bad].gather(
+                        1, first_divergent_step(k_tok[bad], p_tok[bad])[:, None].long())[:, 0],
+                    SAMPLE_NEAR_TIE[wd])
+                worst = max(worst, err)
+                report.append(f"{name}: {n_bad} differ (margin there {gap:.3g}, smallest "
+                              f"{float(margins.min()):.3g})")
+            phase("sample", f"{str(wd)[6:]} N={n}: " + "; ".join(report))
+    feats, start = inputs(1000)
+    cap = Captioner(params, net_cfg(), {i: f"w{i}" for i in range(V)}, device=dev,
+                    weight_dtype=torch.float32)
+    greedy = fused_greedy_decode(weights[torch.float32][0], feats, start, T).cpu().numpy()
+    got = cap.sample_tokens(feats, temperature=0.0, num_samples=2)
+    if not (np.array_equal(got[:, 0], greedy) and np.array_equal(got[:, 1], greedy)
+            and np.array_equal(cap.sample_tokens(feats, temperature=0.0), greedy)):
+        raise AssertionError("temperature-0 sampling differs from greedy")
+    phase("sample", "f32 N=1000: temperature 0 (num_samples 1 and 2) equals the greedy kernel")
+    return worst
+
+
+def write_model_files(tmp: str, params: dict) -> tuple[str, str]:
+    """A reference-layout a2c .pt and a vocab JSON in ``tmp``."""
+    from image_captioning_through_rl_tpu_torch.models import a2c_to_state_dict
+
+    model_pt = os.path.join(tmp, "a2cNetwork.pt")
+    vocab_json = os.path.join(tmp, "coco2014_vocab.json")
+    torch.save(a2c_to_state_dict(params), model_pt)
+    words = ["<NULL>", "<START>", "<END>", "<UNK>"] + [f"w{i}" for i in range(4, V)]
+    with open(vocab_json, "w") as f:
+        json.dump({"word_to_idx": {w: i for i, w in enumerate(words)}, "idx_to_word": words}, f)
+    return model_pt, vocab_json
+
+
+def sampling_main_path(params: dict) -> dict:
+    """Phase 17: sampled requests through ``server.main`` and the port's
+    client, each held to ``Captioner.sample_captions`` at the same seeds
+    (chunk by chunk under ``seed + row offset`` past ``--max_batch``).
+    Returns the kernels' launch counts during the run."""
+    from image_captioning_through_rl_tpu_torch import server
+    from image_captioning_through_rl_tpu_torch.client import CaptionClient
+    from image_captioning_through_rl_tpu_torch.ops.fused_beam import fused_beam_search
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
+        fused_greedy_decode, token_gate_table)
+    from image_captioning_through_rl_tpu_torch.ops.fused_sample import fused_sample_decode
+
+    rng = np.random.default_rng(SEED + 80)
+    cases = (  # rows, sample config, binary
+        (4, {"temperature": 0.7, "top_k": 40, "seed": 1}, False),
+        (4, {"top_p": 0.9, "num_samples": 3, "seed": 2}, False),
+        (16, {"seed": 1}, True),
+        (8, {"top_k": 40, "top_p": 0.9, "num_samples": 3, "seed": 2}, True),
+        (100, {"temperature": 0.8, "top_k": 40, "seed": 3}, True),  # > --max_batch
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        model_pt, vocab_json = write_model_files(tmp, params)
+        for fn in (fused_greedy_decode, fused_beam_search, fused_sample_decode, token_gate_table):
+            fn.launches = 0
+        t0 = time.perf_counter()
+        srv = server.main(["--model", model_pt, "--vocab", vocab_json, "--device", "cuda",
+                           "--port", "0", "--max_batch", str(SERVE_BATCH), "--max_samples",
+                           str(SERVE_MAX_SAMPLES), "--warmup_samples",
+                           '{"top_k": 40, "num_samples": 3}'], block=False)
+        try:
+            client = CaptionClient(f"http://{srv.host}:{srv.port}", timeout=120)
+            served = []
+            for rows, sample, binary in cases:
+                feats = rng.standard_normal((rows, F)).astype(np.float32)
+                served.append((client.caption(feats, sample=sample, binary=binary), feats,
+                               sample))
+            launches = server.kernel_launches()
+            seconds = time.perf_counter() - t0
+            stats = client.stats()
+            for bad in (dict(beam_size=BEAM, sample={"temperature": 1.0}),
+                        dict(sample={"num_samples": SERVE_MAX_SAMPLES + 1})):
+                for binary in (True, False):
+                    try:
+                        client.caption(served[0][1], binary=binary, **bad)
+                    except urllib.error.HTTPError as e:
+                        if e.code != 400:
+                            raise
+                    else:
+                        raise AssertionError(f"request {bad} was answered, not refused with 400")
+            cap = srv._cap
+            for got, feats, sample in served:
+                want = []
+                for lo in range(0, len(feats), SERVE_BATCH):
+                    want += cap.sample_captions(feats[lo:lo + SERVE_BATCH],
+                                                **dict(sample, seed=sample["seed"] + lo))
+                if got != want:
+                    raise AssertionError(f"served sampled captions ({sample}) differ from "
+                                         f"Captioner.sample_captions")
+        finally:
+            srv.stop()
+    if (launches["fused_sample_decode"] < 1 or stats["errors"] != 0
+            or stats["kernel_launches"] != launches):
+        raise AssertionError(f"sampling main path: launches {launches}, stats {stats}")
+    phase("serve_sample", f"server.main with --warmup_samples, {len(cases)} sampled requests "
+                          f"(JSON and headers, num_samples 1 and 3, one of 100 rows past "
+                          f"--max_batch {SERVE_BATCH}) in {seconds:.2f} s, each equal to "
+                          f"Captioner.sample_captions; beam + sample and num_samples > "
+                          f"{SERVE_MAX_SAMPLES} answered 400; {stats['requests']} requests, "
+                          f"0 errors; launches during the run {launches}; e.g. "
+                          f"{served[1][0][0]!r}")
+    return launches
+
+
+def time_sampling(gw, inputs) -> dict:
+    """Phase 18: the sampling kernel and its plain version (bf16 weights) at
+    N = 1024, unfiltered and top-k 40 + nucleus 0.9, and at the served shape
+    N = 64, R = 4 (256 rows, top-k 40 + nucleus 0.9)."""
+    from image_captioning_through_rl_tpu_torch.ops import prng
+    from image_captioning_through_rl_tpu_torch.ops.fused_sample import (
+        fused_sample_decode, sample_decode_plain)
+
+    feats, start = inputs(1024)
+    served = feats[:64].repeat_interleave(4, dim=0).contiguous()
+    key = prng.PRNGKey(SEED + 90)
+    times = {}
+    for label, f, (_, t, k, p) in (("N=1024 unfiltered", feats, SAMPLE_VARIANTS[0]),
+                                   ("N=1024 top-k 40 + nucleus 0.9", feats, SAMPLE_VARIANTS[3]),
+                                   ("N=64 R=4 top-k 40 + nucleus 0.9", served, SAMPLE_VARIANTS[3])):
+        s = start[:f.shape[0]].contiguous()
+        times[(label, "ms")] = cuda_ms(lambda: fused_sample_decode(gw, f, s, key, T, t, k, p), 20)
+        times[(label, "plain_ms")] = cuda_ms(
+            lambda: sample_decode_plain(gw, f, s, key, T, t, k, p), 3)
+    _, t, k, p = SAMPLE_VARIANTS[3]
+    times["profile"] = profile_window(
+        lambda: fused_sample_decode(gw, feats, start, key, T, t, k, p), 5)
+    return times
+
+
+def work(nbytes: float, flops: float, peak: float = H100_BF16,
+         scalar_ops: float = 0.0) -> tuple[float, str]:
     """The least time the card could take, in ms, and what bounds it: the
     bytes that must move (each input read once, each output written once)
-    over the memory rate, or the operations over ``peak`` (NVIDIA's H100 SXM
-    data sheet, dense)."""
-    t_bytes, t_ops = nbytes / H100_BYTES, flops / peak
+    over the memory rate, or the operations: ``flops`` over ``peak`` plus
+    ``scalar_ops`` over the float32 rate outside the tensor cores (NVIDIA's
+    H100 SXM data sheet, dense)."""
+    t_bytes, t_ops = nbytes / H100_BYTES, flops / peak + scalar_ops / H100_F32
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -845,6 +1050,18 @@ def bounds() -> dict:
         + nb * (T + 1) * 4,
         2 * n * F * H * 2 + 2 * 2 * V * E * g4
         + steps * (2 * nb * H * g4 * 2 + 2 * nb * H * V + 2 * nb * BEAM * H * H))
+    # sampling, N = 1024, top-k 40 + nucleus 0.9: greedy's bytes and products,
+    # and per element and step the scalar work of the row kernel: the hash and
+    # Gumbel map (126, as threefry_gumbel), the division by t, the noise add
+    # and the argmax compare (3); per filter a key (3), 32 bisection passes of
+    # a compare and an add (64) and the mask (1), and for the nucleus the
+    # subtract, exp and max (3) and the sum z (1)
+    n = 1024
+    per_element = 126 + 3 + (3 + 64 + 1) + (3 + 64 + 1 + 3 + 1)
+    out["sample_decode"] = work(
+        n * F * fw + F * H * bw + lstm_w + head_w + n * T * 4,
+        2 * n * F * H + 2 * V * E * g4 + steps * (2 * n * H * g4 + 2 * n * H * V),
+        scalar_ops=steps * n * V * per_element)
     out["token_gates"] = work((V * E + E * g4) * bw + V * g4 * fw, 2 * V * E * g4)
     n = CHAIN_N
     for kind, g, steps, tape in (("lstm", g4, 16, 2 * H + g4), ("gru", g3, 17, 2 * H + g3)):
@@ -892,13 +1109,14 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from image_captioning_through_rl_tpu_torch import START_ID, server
     from image_captioning_through_rl_tpu_torch.config import NetConfig
-    from image_captioning_through_rl_tpu_torch.models import a2c, a2c_to_state_dict
+    from image_captioning_through_rl_tpu_torch.models import a2c
     from image_captioning_through_rl_tpu_torch.ops import kernel_build
     from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
         beam_search_plain, fused_beam_search, prepare_beam_weights)
     from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
         fused_greedy_decode, greedy_decode_plain, prepare_greedy_weights, token_gate_table,
         token_gate_table_plain)
+    from image_captioning_through_rl_tpu_torch.ops.fused_sample import fused_sample_decode
 
     # phase 2: build
     t0 = time.perf_counter()
@@ -983,16 +1201,9 @@ def main() -> int:
     # phase 5: the main path, through the server's entry point
     rng = np.random.default_rng(SEED)
     with tempfile.TemporaryDirectory() as tmp:
-        model_pt = os.path.join(tmp, "a2cNetwork.pt")
-        vocab_json = os.path.join(tmp, "coco2014_vocab.json")
-        torch.save(a2c_to_state_dict(params), model_pt)
-        words = ["<NULL>", "<START>", "<END>", "<UNK>"] + [f"w{i}" for i in range(4, V)]
-        with open(vocab_json, "w") as f:
-            json.dump({"word_to_idx": {w: i for i, w in enumerate(words)},
-                       "idx_to_word": words}, f)
-        fused_greedy_decode.launches = 0
-        fused_beam_search.launches = 0
-        token_gate_table.launches = 0
+        model_pt, vocab_json = write_model_files(tmp, params)
+        for fn in (fused_greedy_decode, fused_beam_search, fused_sample_decode, token_gate_table):
+            fn.launches = 0
         srv = server.main(["--model", model_pt, "--vocab", vocab_json, "--device", "cuda",
                            "--port", "0", "--warmup_beams", "0", str(BEAM)], block=False)
         try:
@@ -1033,7 +1244,7 @@ def main() -> int:
                     raise AssertionError("a served caption does not start with <START>")
         finally:
             srv.stop()
-    if min(launches.values()) < 1:
+    if min(v for k, v in launches.items() if k != "fused_sample_decode") < 1:
         raise AssertionError(f"the main path skipped a kernel: launches {launches}")
     if (health.get("platform") != "cuda" or stats["errors"] != 0
             or stats["kernel_launches"] != launches):
@@ -1096,6 +1307,16 @@ def main() -> int:
           f"{ta[('a2c', 'step', 'plain_ms')]:.3f} ms")
     phase("profile", f"{card} | fused A2C step, batch {BATCH}: {ta[('a2c', 'profile')]}")
 
+    # phases 16-18: the sampling kernel vs plain, sampled serving, timings
+    sample_err = compare_sampling(weights, inputs, params_dev, dev)
+    sample_launches = sampling_main_path(params)
+    ts = time_sampling(gw, inputs)
+    phase("timing", f"{card} | bf16 weights | sampling: " + " | ".join(
+        f"{label}: kernel {ts[(label, 'ms')]:.3f} ms, plain {ts[(label, 'plain_ms')]:.3f} ms"
+        for label in dict.fromkeys(key[0] for key in ts if key != "profile")))
+    phase("profile", f"{card} | sampling kernel, N = 1024, top-k 40 + nucleus 0.9: "
+                     f"{ts['profile']}")
+
     # the library call that computes the x-gate table's function
     emb, wi = gw.emb, gw.w[:E]
     tab_library = cuda_ms(lambda: torch.mm(emb, wi, out_dtype=torch.float32), 20)
@@ -1136,6 +1357,10 @@ def main() -> int:
                              ta[(name, "plain_ms")],
                              f"[{S}, {ROLLOUT_N}, {V}] f32" if name == "threefry_gumbel"
                              else shape))
+    label = "N=1024 top-k 40 + nucleus 0.9"
+    kernels.append(entry("sample_decode", "sample_decode.cu", "pallas_sample.py:350",
+                         sample_launches["fused_sample_decode"], sample_err, ts[(label, "ms")],
+                         ts[(label, "plain_ms")], "N=1024 T=17 top-k 40 + top-p 0.9 bf16"))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

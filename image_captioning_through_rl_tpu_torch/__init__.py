@@ -12,9 +12,10 @@ weights ``wi [E, 4H]``, ``wh [H, 4H]`` with one fused bias ``b [4H]``, and
 the packages as plain numpy (:func:`.models.convert.from_jax_params`) and
 through the reference ``.pt`` layout (:mod:`.models.convert`).
 
-The serving path (greedy and value-guided beam decoding) runs through
-hand-written CUDA kernels for Hopper (``csrc/``) on a CUDA device, and
-through their plain PyTorch versions on the CPU; see :mod:`.ops`.
+Decoding (greedy, value-guided beam, sampled), the training chains and the
+A2C rollout run through hand-written CUDA kernels for Hopper (``csrc/``) on
+a CUDA device, and through their plain PyTorch versions on the CPU; see
+:mod:`.ops`.
 """
 
 __version__ = "0.1.0"

@@ -4,13 +4,15 @@
 >>> cap = load_captioner("a2cNetwork.pt", "coco2014_vocab.json", device="cuda")
 >>> cap.caption(features)                 # greedy
 >>> cap.caption(features, beam_size=5)    # value-guided beam search
+>>> cap.sample_captions(features, temperature=0.8, top_p=0.9, num_samples=3, seed=7)
 
 On a CUDA device the captioner decodes through the hand-written kernels
-(:mod:`.ops.fused_decode`, :mod:`.ops.fused_beam`); on the CPU through
-their plain PyTorch versions. Nothing falls back from the kernels at
-serving time: ``chip_smoke.py`` holds each kernel against its plain
-version. The mesh, sampling, faithful-beam and image paths of the JAX
-``Captioner`` are not ported yet.
+(:mod:`.ops.fused_decode`, :mod:`.ops.fused_beam`, :mod:`.ops.fused_sample`);
+on the CPU through their plain PyTorch versions. Nothing falls back from
+the kernels at serving time: ``chip_smoke.py`` holds each kernel against its
+plain version. The mesh, faithful-beam and image paths of the JAX
+``Captioner``, and its verified dispatch with fresh-key canary retries, are
+not ported.
 """
 
 from __future__ import annotations
@@ -25,8 +27,10 @@ from .config import DecodeConfig, NetConfig
 from .data.coco import decode_captions, load_vocab
 from .models.convert import a2c_from_state_dict, load_state_dict
 from .models.policy import check_unidirectional
+from .ops import prng
 from .ops.fused_beam import fused_beam_search, prepare_beam_weights
 from .ops.fused_decode import fused_greedy_decode, prepare_greedy_weights
+from .ops.fused_sample import check_counter_space, fused_sample_decode
 
 
 def resolve_device(device) -> torch.device:
@@ -76,15 +80,21 @@ class Captioner:
     def cfg(self) -> NetConfig:
         return self._cfg
 
+    def _features(self, features) -> torch.Tensor:
+        if not isinstance(features, torch.Tensor):
+            features = torch.from_numpy(np.asarray(features, np.float32))
+        return features.to(self.device, torch.float32).contiguous()
+
+    def _start(self, rows: int) -> torch.Tensor:
+        return torch.full((rows,), START_ID, dtype=torch.int32, device=self.device)
+
     def caption_tokens(self, features, beam_size: int = 0, use_fused_kernel=None
                        ) -> np.ndarray:
         """Token ids ``[N, T]`` for a feature batch ``[N, F]``
         (beam 0 of the beam search when ``beam_size > 0``).
         ``use_fused_kernel`` as in :func:`.ops.fused_decode.fused_greedy_decode`."""
-        if not isinstance(features, torch.Tensor):
-            features = torch.from_numpy(np.asarray(features, np.float32))
-        feats = features.to(self.device, torch.float32).contiguous()
-        start = torch.full((feats.shape[0],), START_ID, dtype=torch.int32, device=self.device)
+        feats = self._features(features)
+        start = self._start(feats.shape[0])
         max_len = self._cfg.max_seq_len
         if beam_size > 0:
             if self._beam_w is None:
@@ -98,6 +108,47 @@ class Captioner:
         toks = fused_greedy_decode(self._greedy_w, feats, start, max_len=max_len,
                                    use_fused_kernel=use_fused_kernel)
         return toks.cpu().numpy()
+
+    def sample_tokens(self, features, temperature: float = 1.0, top_k: int = 0,
+                      top_p: float = 1.0, num_samples: int = 1, seed: int = 0,
+                      use_fused_kernel=None) -> np.ndarray:
+        """Stochastic decode: token ids ``[N, T]``, or ``[N, R, T]`` for
+        ``num_samples = R > 1``, drawn from the filtered softmax as the JAX
+        ``Captioner.sample_tokens`` draws them under ``PRNGKey(seed)``.
+        ``temperature = 0`` is exact greedy (repeated R times); ``top_p =
+        1.0`` leaves the nucleus off; ``top_k`` in ``(0, V)`` turns top-k on.
+        The R samples of a row are rows ``i * R .. i * R + R - 1`` of one
+        batch (samples-minor), decoded by :func:`.ops.fused_sample.fused_sample_decode`
+        with the greedy weights: on the card every request with ``temperature
+        > 0`` runs the kernel, filtered or not. ``use_fused_kernel`` as
+        there. A batch of ``N * R * V >= 2**32`` raises."""
+        if num_samples < 1:
+            raise ValueError(f"num_samples must be >= 1, got {num_samples}")
+        if temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if temperature == 0:
+            toks = self.caption_tokens(features, use_fused_kernel=use_fused_kernel)
+            return np.repeat(toks[:, None, :], num_samples, axis=1) if num_samples > 1 else toks
+        feats = self._features(features)
+        n = feats.shape[0]
+        check_counter_space(n * num_samples, self._cfg.vocab_size)  # before the R-fold copy
+        tiled = feats.repeat_interleave(num_samples, dim=0)
+        toks = fused_sample_decode(
+            self._greedy_w, tiled, self._start(tiled.shape[0]), prng.PRNGKey(seed),
+            max_len=self._cfg.max_seq_len, temperature=float(temperature), top_k=top_k,
+            top_p=float(top_p) if top_p < 1.0 else None, use_fused_kernel=use_fused_kernel)
+        toks = toks.cpu().numpy().reshape(n, num_samples, -1)
+        return toks[:, 0] if num_samples == 1 else toks
+
+    def sample_captions(self, features, num_samples: int = 1, **kw) -> List:
+        """Sampled caption strings: a flat list for ``num_samples = 1``, else
+        one list of R captions per image."""
+        toks = self.sample_tokens(features, num_samples=num_samples, **kw)
+        if num_samples == 1:
+            return decode_captions(toks, self._idx_to_word)
+        return [decode_captions(row, self._idx_to_word) for row in toks]
 
     def caption(self, features, **kw) -> List[str]:
         """Caption strings for a feature batch."""

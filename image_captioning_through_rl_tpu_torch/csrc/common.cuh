@@ -1,5 +1,6 @@
 // Building blocks shared by the decode kernels (greedy_decode.cu,
-// beam_search.cu) and the training chains (lstm_chain.cu, gru_chain.cu).
+// beam_search.cu, sample_decode.cu) and the training chains (lstm_chain.cu,
+// gru_chain.cu).
 //
 // Every product the TPU kernels compute in their own bodies (the h0 projection,
 // the LSTM and GRU gates, the vocab head, the critic cell, the value MLP and
@@ -658,6 +659,36 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
       i = i2;
     }
   }
+}
+
+// ---- The decode loops' shared pieces (greedy_decode.cu, sample_decode.cu) ----
+
+// out[r, 0] = start[r] for the [n, T] token output.
+__global__ void fill_start_kernel(int n, int T, const int* __restrict__ start,
+                                  int* __restrict__ out) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r < n) out[(size_t)r * T] = start[r];
+}
+
+// The decode loops' workspace: h in the weight type (only ever read as a
+// product's rounded operand), c and the logits in float32.
+template <typename W>
+struct GreedyLayout {
+  W* h[2];
+  float *c[2], *logits;
+};
+
+template <typename W>
+GreedyLayout<W> greedy_layout(float* ws, int n, int H, int V, size_t* used = nullptr) {
+  Carver cv{ws};
+  GreedyLayout<W> l;
+  for (int i = 0; i < 2; ++i) {
+    l.h[i] = cv.take<W>((size_t)n * H);
+    l.c[i] = cv.take((size_t)n * H);
+  }
+  l.logits = cv.take((size_t)n * V);
+  if (used) *used = cv.used;
+  return l;
 }
 
 // Return the CUDA error code (a cudaError_t, or the int a host loop

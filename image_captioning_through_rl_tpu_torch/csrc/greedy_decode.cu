@@ -26,12 +26,6 @@
 namespace icrl {
 namespace {
 
-__global__ void fill_start_kernel(int n, int T, const int* __restrict__ start,
-                                  int* __restrict__ out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < n) out[(size_t)r * T] = start[r];
-}
-
 // out[r * out_stride] = first index of the row maximum of logits[r, :V].
 __global__ void __launch_bounds__(NT) argmax_rows_kernel(int M, int V,
                                                          const float* __restrict__ logits,
@@ -50,27 +44,6 @@ __global__ void __launch_bounds__(NT) argmax_rows_kernel(int M, int V,
   }
   warp_argmax(v, idx);
   if (lane == 0) out[(size_t)r * out_stride] = idx;
-}
-
-// h in the weight type (only ever read as a product's rounded operand), c
-// and the logits in float32.
-template <typename W>
-struct GreedyLayout {
-  W* h[2];
-  float *c[2], *logits;
-};
-
-template <typename W>
-GreedyLayout<W> greedy_layout(float* ws, int n, int H, int V, size_t* used = nullptr) {
-  Carver cv{ws};
-  GreedyLayout<W> l;
-  for (int i = 0; i < 2; ++i) {
-    l.h[i] = cv.take<W>((size_t)n * H);
-    l.c[i] = cv.take((size_t)n * H);
-  }
-  l.logits = cv.take((size_t)n * V);
-  if (used) *used = cv.used;
-  return l;
 }
 
 template <typename W>

@@ -228,19 +228,28 @@ def check_kernel_inputs(features: torch.Tensor, start_tokens: torch.Tensor, voca
         raise ValueError(f"start tokens must lie in [0, {vocab})")
 
 
-def _launch_greedy(weights: GreedyWeights, features: torch.Tensor,
-                   start_tokens: torch.Tensor, max_len: int) -> torch.Tensor:
+def check_decode_inputs(weights: GreedyWeights, features: torch.Tensor,
+                        start_tokens: torch.Tensor, max_len: int) -> None:
+    """The checks of a decode kernel's call (greedy, sampling): inputs,
+    weights, tile widths, the feature width and ``max_len``."""
     vocab, emb_dim = weights.emb.shape
     feat_dim, hidden = weights.wc.shape
     check_kernel_inputs(features, start_tokens, vocab)
     check_weights(weights, features.device)
     check_tile_widths(weights.dtype, feat_dim=feat_dim, emb_dim=emb_dim, hidden=hidden,
                       vocab=vocab)
-    n = features.shape[0]
     if features.shape[1] != feat_dim:
         raise ValueError(f"features have {features.shape[1]} columns, the policy {feat_dim}")
     if max_len < 2:
         raise ValueError("max_len must be at least 2")
+
+
+def _launch_greedy(weights: GreedyWeights, features: torch.Tensor,
+                   start_tokens: torch.Tensor, max_len: int) -> torch.Tensor:
+    check_decode_inputs(weights, features, start_tokens, max_len)
+    vocab, emb_dim = weights.emb.shape
+    feat_dim, hidden = weights.wc.shape
+    n = features.shape[0]
     dev = features.device
     out = torch.empty((n, max_len), dtype=torch.int32, device=dev)
     if n == 0:

@@ -34,6 +34,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "icrl_greedy_workspace_floats": (ctypes.c_size_t, [_I] * 4),
     "icrl_greedy_decode": (_I, [_I] * 7 + [_P] * 12),
+    "icrl_sample_decode": (_I, [_I] * 10 + [_F, _F] + [_P] * 13),
     "icrl_beam_max_beam": (_I, []),
     "icrl_beam_workspace_floats": (ctypes.c_size_t, [_I] * 6),
     "icrl_beam_search": (_I, [_I] * 7 + [_F, _F, _I] + [_P] * 20),

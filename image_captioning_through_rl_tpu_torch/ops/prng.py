@@ -9,6 +9,9 @@ and of its helpers ``threefry2x32_bits`` and ``gumbel_from_bits``
   * :func:`split` — ``jax.random.split`` (jax's ``_threefry_split_foldlike``):
     threefry2x32 of the 64-bit counters ``0 .. num - 1`` under the key, both
     output words stacked as the new keys;
+  * :func:`sample_step_keys` — the sampling decode's per-step subkeys
+    (``pallas_sample.py:282-292``): carry the key, each step
+    ``key, sub = split(key)``;
   * :func:`random_bits` — ``jax.random.bits(key, shape)``: ``y0 ^ y1`` of the
     hash of the flat counter ``(hi 0, lo row * V + col)``;
   * :func:`gumbel` — ``jax.random.gumbel`` in its default mode "low": the
@@ -21,7 +24,8 @@ numpy ``uint32[2]`` and are split there (no device sync per minibatch). The
 bits and the noise are made on the tensor's device: on a CUDA device by the
 kernel ``csrc/threefry.cu`` (:func:`gumbel_noise`, one launch for a stack of
 keys), elsewhere by the plain version, which emulates uint32 arithmetic in
-int64 tensors (torch has no full uint32 arithmetic on the CPU).
+int64 tensors (torch has no full uint32 arithmetic on the CPU). The noise
+functions run on the card unless the caller asks for ``device="cpu"``.
 
 Counters are 32-bit: one key's draw must hold fewer than 2**32 elements
 (JAX's high counter word is then 0).
@@ -44,8 +48,8 @@ _TINY = float(np.finfo(np.float32).tiny)
 
 def _threefry2x32(k0: int, k1: int, x0, x1):
     """The 20-round threefry-2x32 hash of the counter words ``(x0, x1)``
-    (int64 numpy arrays or torch tensors holding uint32 values) under the
-    key ``(k0, k1)`` -> ``(y0, y1)``, uint32 values in int64."""
+    (Python ints, or int64 numpy arrays or torch tensors holding uint32
+    values) under the key ``(k0, k1)`` -> ``(y0, y1)`` of the same kind."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -79,6 +83,19 @@ def split(key, num: int = 2) -> np.ndarray:
     lo = np.arange(num, dtype=np.int64)
     y0, y1 = _threefry2x32(k0, k1, np.zeros_like(lo), lo)
     return np.stack([y0, y1], axis=1).astype(np.uint32)
+
+
+def sample_step_keys(key, steps: int) -> np.ndarray:
+    """The ``[steps, 2]`` uint32 subkeys a sampling decode draws from
+    ``key``: carry the key, each step ``key, sub = split(key)``. On the host
+    in Python ints: a chain of single hashes, where numpy's per-call cost
+    would take ten times as long (~3 ms for 16 steps)."""
+    k0, k1 = _key_words(key)
+    subs = np.empty((steps, 2), dtype=np.uint32)
+    for s in range(steps):
+        subs[s] = _threefry2x32(k0, k1, 0, 1)  # split(key)[1]
+        k0, k1 = _threefry2x32(k0, k1, 0, 0)   # split(key)[0]
+    return subs
 
 
 def _draw_size(shape) -> int:
@@ -129,17 +146,19 @@ def _launch_threefry(keys: np.ndarray, shape, device: torch.device, gumbel_out: 
     return out
 
 
-def gumbel_noise(keys, shape, device="cpu") -> torch.Tensor:
+def gumbel_noise(keys, shape, device="cuda") -> torch.Tensor:
     """One Gumbel draw of ``shape`` per key: ``keys uint32 [S, 2]`` ->
     float32 ``[S, *shape]`` on ``device``; row ``s`` is
     ``jax.random.gumbel(keys[s], shape)``. On a CUDA device the kernel
     (``csrc/threefry.cu``) makes all of them in one launch
-    (``gumbel_noise.launches`` counts them); elsewhere the plain version
-    runs."""
+    (``gumbel_noise.launches`` counts them); on ``device="cpu"`` the plain
+    version runs. A missing CUDA device raises."""
+    from ..api import resolve_device  # api imports the ops: resolve at call time
+
     keys = np.asarray(keys)
     if keys.ndim != 2 or keys.shape[1] != 2 or keys.dtype != np.uint32:
         raise ValueError(f"keys must be a uint32 array [S, 2], got {keys.dtype} {keys.shape}")
-    device = torch.device(device)
+    device = resolve_device(device)
     shape = tuple(shape)
     if device.type == "cuda":
         return _launch_threefry(keys, shape, device, True)
@@ -160,8 +179,9 @@ def threefry_bits_kernel(keys, shape, device) -> torch.Tensor:
     return _launch_threefry(keys, tuple(shape), device, False)
 
 
-def gumbel(key, shape, device="cpu") -> torch.Tensor:
-    """``jax.random.gumbel(key, shape)`` float32 on ``device``."""
+def gumbel(key, shape, device="cuda") -> torch.Tensor:
+    """``jax.random.gumbel(key, shape)`` float32 on ``device`` (the card
+    unless the caller asks for the CPU)."""
     return gumbel_noise(np.asarray(key)[None], shape, device)[0]
 
 

@@ -3,21 +3,27 @@ JAX ``server.py``).
 
 A stdlib-only HTTP front end over :class:`.api.Captioner`. One background
 batcher thread owns all device work: it drains the request queue, groups
-requests by beam size, concatenates up to ``max_batch`` rows, pads them
-to a power-of-two bucket (repeating the last row), decodes once and
-scatters the rows back. Requests wait at most ``max_wait_ms`` for
-co-batching.
+requests by decode config (beam size, sampling config), concatenates up to
+``max_batch`` rows, pads them to a power-of-two bucket (repeating the last
+row), decodes once and scatters the rows back. Requests wait at most
+``max_wait_ms`` for co-batching.
 
 Endpoints:
   * ``POST /caption`` — JSON ``{"features": [[...]], "beam_size": 0}``, or
     raw little-endian float32 rows as ``application/octet-stream`` with
-    the beam size in ``X-Beam-Size`` -> ``{"captions": [...]}``;
+    the beam size in ``X-Beam-Size`` -> ``{"captions": [...]}``. Sampling
+    rides the same endpoint: JSON ``"sample": {"temperature": 0.8,
+    "top_k": 0, "top_p": 0.9, "num_samples": 1, "seed": 0}``, or the
+    ``X-Temperature`` / ``X-Top-K`` / ``X-Top-P`` / ``X-Num-Samples`` /
+    ``X-Sample-Seed`` headers on the binary path; ``num_samples > 1``
+    answers one list of captions per row. Beam search and sampling in one
+    request answer 400;
   * ``GET /healthz`` — the torch device serving;
   * ``GET /stats`` — request counters, latency percentiles and each
     kernel's launch count.
 
-Sampling (``"sample"`` / ``X-Temperature``...) and raw-image
-(``images_b64``) requests answer 400: they are not ported yet.
+Raw-image (``images_b64``) requests answer 400: they are not ported yet.
+:mod:`.client` wraps the wire formats.
 
     python -m image_captioning_through_rl_tpu_torch.server \\
         --model a2cNetwork.pt --vocab coco2014_vocab.json [--device cuda]
@@ -27,6 +33,7 @@ from __future__ import annotations
 
 import collections
 import json
+import math
 import queue
 import threading
 import time
@@ -39,14 +46,18 @@ import torch
 from .api import Captioner
 from .ops.fused_beam import MAX_BEAM, fused_beam_search
 from .ops.fused_decode import fused_greedy_decode, token_gate_table
+from .ops.fused_sample import fused_sample_decode
 
-_SAMPLE_HEADERS = ("X-Temperature", "X-Top-K", "X-Top-P", "X-Num-Samples", "X-Sample-Seed")
+_SAMPLE_HEADERS = {"temperature": "X-Temperature", "top_k": "X-Top-K", "top_p": "X-Top-P",
+                   "num_samples": "X-Num-Samples", "seed": "X-Sample-Seed"}
+_SAMPLE_KEYS = tuple(_SAMPLE_HEADERS)
 
 
 def kernel_launches() -> dict:
     """Launch counts of the port's kernels in this process."""
     return {"fused_greedy_decode": fused_greedy_decode.launches,
             "fused_beam_search": fused_beam_search.launches,
+            "fused_sample_decode": fused_sample_decode.launches,
             "token_gate_table": token_gate_table.launches}
 
 
@@ -57,12 +68,39 @@ def _parse_beam(value) -> int:
     return beam
 
 
-class _Pending:
-    __slots__ = ("features", "beam_size", "event", "result", "error", "t_enq")
+def _parse_sample(src: dict, max_samples: int) -> tuple:
+    """A sampling config (the JSON ``"sample"`` object or the header strings)
+    -> the ``(temperature, top_k, top_p, num_samples, seed)`` tuple the
+    batcher groups on. ``max_samples`` bounds ``num_samples``: a batch of
+    ``bucket * R`` rows must not outgrow ``max_batch`` unchecked."""
+    unknown = set(src) - set(_SAMPLE_KEYS)
+    if unknown:
+        raise ValueError(f"unknown sample keys: {sorted(unknown)} (allowed: {list(_SAMPLE_KEYS)})")
+    t = float(src.get("temperature", 1.0))
+    k = int(src.get("top_k", 0))
+    p = float(src.get("top_p", 1.0))
+    r = int(src.get("num_samples", 1))
+    seed = int(src.get("seed", 0))
+    # isfinite, not only the ranges: NaN passes `t < 0`, and inf samples uniformly
+    if not math.isfinite(t) or t < 0:
+        raise ValueError(f"temperature must be finite and >= 0, got {t}")
+    if not math.isfinite(p) or not 0.0 < p <= 1.0:
+        raise ValueError(f"top_p must be in (0, 1], got {p}")
+    if r < 1:
+        raise ValueError(f"num_samples must be >= 1, got {r}")
+    if r > max_samples:
+        raise ValueError(f"num_samples {r} exceeds the server limit of {max_samples} "
+                         "(--max_samples)")
+    return (t, k, p, r, seed)
 
-    def __init__(self, features: np.ndarray, beam_size: int):
+
+class _Pending:
+    __slots__ = ("features", "beam_size", "sample", "event", "result", "error", "t_enq")
+
+    def __init__(self, features: np.ndarray, beam_size: int, sample: Optional[tuple] = None):
         self.features = features
         self.beam_size = beam_size
+        self.sample = sample  # (temperature, top_k, top_p, num_samples, seed) or None
         self.event = threading.Event()
         self.result: Optional[List[str]] = None
         self.error: Optional[str] = None
@@ -84,9 +122,12 @@ class CaptionServer:
 
     def __init__(self, captioner: Captioner, host: str = "127.0.0.1", port: int = 8000,
                  max_batch: int = 1024, max_wait_ms: float = 5.0, min_bucket: int = 8,
-                 max_body_mb: float = 256.0):
+                 max_body_mb: float = 256.0, max_samples: int = 64):
         if max_body_mb <= 0:
             raise ValueError("max_body_mb must be positive")
+        if max_samples < 1:
+            raise ValueError("max_samples must be >= 1")
+        self._max_samples = max_samples
         self._cap = captioner
         self._max_body = int(max_body_mb * 2**20)
         self._queue: "queue.Queue[_Pending]" = queue.Queue()
@@ -158,9 +199,13 @@ class CaptionServer:
                 want = server._cap.cfg.input_dim
                 try:
                     if ctype == "application/octet-stream":
-                        if any(h in self.headers for h in _SAMPLE_HEADERS):
-                            raise ValueError("sampling is not yet ported")
                         beam = _parse_beam(self.headers.get("X-Beam-Size", 0))
+                        src = {k: self.headers[h] for k, h in _SAMPLE_HEADERS.items()
+                               if h in self.headers}
+                        sample = _parse_sample(src, server._max_samples) if src else None
+                        if sample is not None and beam:
+                            raise ValueError("beam search and sampling are mutually exclusive "
+                                             "(drop X-Beam-Size or the X-Temperature/... headers)")
                         if not raw or len(raw) % (4 * want):
                             raise ValueError(
                                 f"binary body must be [N, {want}] little-endian float32 rows "
@@ -168,11 +213,17 @@ class CaptionServer:
                         feats = np.frombuffer(raw, "<f4").reshape(-1, want)
                     else:
                         req = json.loads(raw)
-                        if "sample" in req:
-                            raise ValueError("sampling is not yet ported")
                         if "images_b64" in req:
                             raise ValueError("raw-image requests (images_b64) are not yet ported")
                         beam = _parse_beam(req.get("beam_size", 0))
+                        sample = None
+                        if "sample" in req:
+                            if not isinstance(req["sample"], dict):
+                                raise ValueError("'sample' must be an object, e.g. "
+                                                 '{"temperature": 0.8, "top_p": 0.9}')
+                            sample = _parse_sample(req["sample"], server._max_samples)
+                            if beam:
+                                raise ValueError("beam_size and 'sample' are mutually exclusive")
                         feats = np.asarray(req["features"], np.float32)
                         if feats.ndim == 1:
                             feats = feats[None, :]
@@ -183,13 +234,13 @@ class CaptionServer:
                 except Exception as e:  # malformed request
                     self._reply(400, {"error": f"{type(e).__name__}: {e}"})
                     return
-                self._dispatch_and_reply(feats, beam)
+                self._dispatch_and_reply(feats, beam, sample)
 
-            def _dispatch_and_reply(self, feats, beam):
+            def _dispatch_and_reply(self, feats, beam, sample):
                 if server._stop.is_set():
                     self._reply(503, {"error": "server stopping"})
                     return
-                pending = _Pending(feats, beam)
+                pending = _Pending(feats, beam, sample)
                 server._queue.put(pending)
                 server._await(pending)
                 if pending.error == "server stopped":
@@ -263,10 +314,14 @@ class CaptionServer:
     def _batcher(self):
         while not self._stop.is_set():
             group = self._drain()
-            by_beam = {}
+            # one decode per config; sampled requests co-batch only with equal
+            # (temperature, top_k, top_p, num_samples, seed), and a row's draw
+            # depends on its position in the batch (its noise counter), so
+            # equal seeds reproduce per dispatch, not per row
+            by_cfg = {}
             for p in group:
-                by_beam.setdefault(p.beam_size, []).append(p)
-            for beam, members in by_beam.items():
+                by_cfg.setdefault((p.beam_size, p.sample), []).append(p)
+            for (beam, sample), members in by_cfg.items():
                 try:
                     feats = np.concatenate([m.features for m in members], axis=0)
                     n = feats.shape[0]
@@ -280,7 +335,7 @@ class CaptionServer:
                         if bucket > c:
                             chunk = np.concatenate(
                                 [chunk, np.repeat(chunk[-1:], bucket - c, axis=0)], axis=0)
-                        captions += self._cap.caption(chunk, beam_size=beam)[:c]
+                        captions += self._decode(chunk, beam, sample, lo)[:c]
                 except Exception as e:  # the batcher must keep serving
                     for m in members:
                         m.error = f"{type(e).__name__}: {e}"
@@ -297,25 +352,39 @@ class CaptionServer:
                     off += k
                     m.event.set()
 
+    def _decode(self, chunk: np.ndarray, beam: int, sample: Optional[tuple], lo: int) -> list:
+        """Captions of one bucket-shaped chunk; a sampled chunk at row offset
+        ``lo`` of its request draws under ``seed + lo``, so the chunks of one
+        oversized request do not repeat each other's noise."""
+        if sample is None:
+            return self._cap.caption(chunk, beam_size=beam)
+        t, k, p, r, seed = sample
+        return self._cap.sample_captions(chunk, temperature=t, top_k=k, top_p=p,
+                                         num_samples=r, seed=seed + lo)
+
     # ------------------------------------------------------------------
-    def warmup(self, feature_dim: int, beam_sizes=(0,), buckets=None):
-        """Decode one random batch per bucket and beam size before traffic,
-        so the first real requests pay neither the kernels' build nor the
-        allocator's first growth. Call before or after :meth:`start`."""
+    def warmup(self, feature_dim: int, beam_sizes=(0,), buckets=None, sample_configs=()):
+        """Decode one random batch per bucket, for each beam size and each
+        sampling config (the wire format's ``"sample"`` objects, e.g.
+        ``{"top_k": 40, "num_samples": 3}``), before traffic, so the first
+        real requests pay neither the kernels' build nor the allocator's
+        first growth. Call before or after :meth:`start`."""
         rng = np.random.default_rng(0)
         buckets = list(self._buckets) if buckets is None else buckets
+        samples = [_parse_sample(dict(s), self._max_samples) for s in sample_configs]
+        configs = [(beam, None) for beam in beam_sizes] + [(0, s) for s in samples]
         started = bool(self._threads) and self._threads[0].is_alive()
         for b in buckets:
             feats = rng.standard_normal((b, feature_dim)).astype(np.float32)
-            for beam in beam_sizes:
+            for beam, sample in configs:
                 if started:  # the batcher owns all device work once live
-                    p = _Pending(feats, beam)
+                    p = _Pending(feats, beam, sample)
                     self._queue.put(p)
                     self._await(p)
                     if p.error is not None:
                         raise RuntimeError(f"warmup failed: {p.error}")
                 else:
-                    self._cap.caption(feats, beam_size=beam)
+                    self._decode(feats, beam, sample, 0)
         return self
 
     def _await(self, p: _Pending) -> None:
@@ -380,14 +449,22 @@ def main(argv=None, block: bool = True):
                     help="skip decoding one batch per bucket before serving")
     ap.add_argument("--warmup_beams", type=int, nargs="*", default=[0],
                     help="beam sizes to warm up (0 = greedy)")
+    ap.add_argument("--warmup_samples", nargs="*", default=[],
+                    help="sampling configs to warm up, as JSON objects in the wire format's "
+                         '"sample" shape, e.g. \'{"top_k": 40, "num_samples": 3}\'')
+    ap.add_argument("--max_samples", type=int, default=64,
+                    help="largest accepted num_samples per request (a sampled batch is "
+                         "bucket * num_samples rows)")
     args = ap.parse_args(argv)
 
     cap = load_captioner(args.model, args.vocab, device=args.device)
     srv = CaptionServer(cap, host=args.host, port=args.port, max_batch=args.max_batch,
-                        max_wait_ms=args.max_wait_ms, max_body_mb=args.max_body_mb)
+                        max_wait_ms=args.max_wait_ms, max_body_mb=args.max_body_mb,
+                        max_samples=args.max_samples)
     if not args.no_warmup:
         print("[Serving] warming decode buckets", flush=True)
-        srv.warmup(cap.cfg.input_dim, beam_sizes=tuple(args.warmup_beams))
+        srv.warmup(cap.cfg.input_dim, beam_sizes=tuple(args.warmup_beams),
+                   sample_configs=[json.loads(s) for s in args.warmup_samples])
     srv.start()
     print(f"[Serving] captioning on {cap.device} at http://{srv.host}:{srv.port} "
           "(POST /caption, GET /healthz, GET /stats)", flush=True)

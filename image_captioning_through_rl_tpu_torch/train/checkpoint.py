@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..api import resolve_device
 from ..models.convert import load_state_dict, network_from_state_dict, network_to_state_dict
 from ..utils.io import atomic_write
 
@@ -41,10 +42,12 @@ def save_to_paths(params: dict, save_paths) -> None:
         save_network_pt("a2c", params, path)
 
 
-def load_network(kind: str, path: str, device=None) -> dict:
+def load_network(kind: str, path: str, device="cuda") -> dict:
     """A reference-layout ``.pt`` checkpoint of ``kind`` -> the port's
-    parameter tree (float32, on ``device``)."""
+    parameter tree (float32, on ``device``: the card unless the caller asks
+    for ``"cpu"``; a missing CUDA device raises)."""
     check_pt_path(path)
+    device = resolve_device(device)
     params = network_from_state_dict(kind, load_state_dict(path))
     return to_device(params, device)
 

@@ -22,6 +22,14 @@ gradient, by relative Frobenius error, within 1e-4 with float32 weights
 (sum order alone) and 2e-2 with bf16 weights (sum order ahead of a bf16
 rounding of h or of a gate gradient moves it by one bf16 step, 2^-8).
 
+The sampling kernel at the small widths, bf16 and float32 weights, for the
+four filter variants (none, top-k, nucleus, both) at t = 0.7: tokens equal
+to the plain version's except where the plain version came within
+``SAMPLE_NEAR_TIE`` of a tie at the first step where they part (its top-2
+noisy gap, the k-th/(k+1)-th logit gap, the nucleus's boundary-value gap or
+its mass margin over z; bf16 logits of the two differ by up to ~2e-4, see
+``chip_smoke.py``).
+
 The A2C kernels at the small widths: the threefry kernel's bits equal the
 plain version's and its Gumbel noise lies within 4 ulps of it (two
 ``logf``s, see ``test_torch_prng.py``); the reward stream and the rollout
@@ -60,6 +68,11 @@ from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain
 from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
 from image_captioning_through_rl_tpu_torch.ops import prng
 from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
+from image_captioning_through_rl_tpu_torch.ops.fused_sample import (
+    MAX_VOCAB,
+    fused_sample_decode,
+    sample_decode_plain,
+)
 from image_captioning_through_rl_tpu_torch.train.steps import a2c_rollout_loss_fused
 
 CFG = NetConfig(vocab_size=60, input_dim=16, wordvec_dim=16, hidden_dim=16, max_seq_len=7)
@@ -67,6 +80,7 @@ T = CFG.max_seq_len
 BEAM = 3
 N = 20
 NEAR_TIE = 1e-4
+SAMPLE_NEAR_TIE = {torch.float32: 1e-4, torch.bfloat16: 5e-4}
 SCORE_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 WEIGHT_TYPES = [torch.float32, torch.bfloat16]
 
@@ -145,6 +159,45 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
         fused_beam_search(bw, f.double(), s, T, BEAM)
     with pytest.raises(ValueError, match="start tokens"):
         fused_greedy_decode(gw, f, torch.full_like(s, CFG.vocab_size), T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,p", [(0, None), (5, None), (0, 0.8), (5, 0.8)])
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+def test_sample_kernel_matches_plain(dev, wd, k, p):
+    gw, _, f, s = _setup(dev, wd)
+    key = prng.PRNGKey(3)
+    before = fused_sample_decode.launches
+    k_tok = fused_sample_decode(gw, f, s, key, T, temperature=0.7, top_k=k, top_p=p)
+    torch.cuda.synchronize()
+    assert fused_sample_decode.launches == before + 1
+    p_tok, margins = sample_decode_plain(gw, f, s, key, T, 0.7, k, p, margins=True)
+    assert k_tok.shape == (N, T) and bool((k_tok[:, 0] == START_ID).all())
+    bad = _differing_rows(k_tok, p_tok)
+    first = (k_tok != p_tok).int().argmax(dim=1) - 1
+    assert bool((margins[bad].gather(1, first[bad, None])[:, 0] < SAMPLE_NEAR_TIE[wd]).all()), \
+        "a non-tie row differs"
+    fused_sample_decode(gw, f, s, key, T, top_k=k, top_p=p, use_fused_kernel=False)
+    assert fused_sample_decode.launches == before + 1
+
+
+@pytest.mark.cuda
+def test_sample_wrapper_rejects_bad_inputs(dev):
+    gw, _, f, s = _setup(dev, torch.float32)
+    key = prng.PRNGKey(0)
+    with pytest.raises(ValueError, match="start_tokens"):
+        fused_sample_decode(gw, f, s.long(), key, T)
+    with pytest.raises(ValueError, match="temperature"):
+        fused_sample_decode(gw, f, s, key, T, temperature=0.0)
+    wide = prepare_greedy_weights({
+        "embedding": torch.zeros((MAX_VOCAB + 2, 16), device=dev),
+        "cnn2linear": {"w": torch.zeros((16, 16), device=dev), "b": torch.zeros(16, device=dev)},
+        "lstm": {"wi": torch.zeros((16, 64), device=dev), "wh": torch.zeros((16, 64), device=dev),
+                 "b": torch.zeros(64, device=dev)},
+        "head": {"w": torch.zeros((16, MAX_VOCAB + 2), device=dev),
+                 "b": torch.zeros(MAX_VOCAB + 2, device=dev)}}, torch.float32)
+    with pytest.raises(ValueError, match="vocabulary"):
+        fused_sample_decode(wide, f, s, key, T)
 
 
 CHAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}

@@ -58,17 +58,17 @@ def test_gumbel_matches_jax(shape):
     for seed in range(4):
         key = prng.PRNGKey(seed)
         want = np.asarray(jax.random.gumbel(jnp.asarray(key), shape, jnp.float32))
-        got = prng.gumbel(key, shape).numpy()
+        got = prng.gumbel(key, shape, device="cpu").numpy()
         ulp = np.spacing(np.maximum(np.abs(want), np.float32(1.0)))
         assert np.all(np.abs(got - want) <= 4 * ulp), float(np.max(np.abs(got - want) / ulp))
 
 
 def test_gumbel_noise_stacks_one_draw_per_key():
     keys = prng.split(prng.PRNGKey(9), 4)
-    noise = prng.gumbel_noise(keys, (5, 7))
+    noise = prng.gumbel_noise(keys, (5, 7), device="cpu")
     assert noise.shape == (4, 5, 7) and noise.dtype == torch.float32
     for k, row in zip(keys, noise):
-        torch.testing.assert_close(row, prng.gumbel(k, (5, 7)), rtol=0, atol=0)
+        torch.testing.assert_close(row, prng.gumbel(k, (5, 7), "cpu"), rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

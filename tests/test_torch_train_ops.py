@@ -134,7 +134,7 @@ def test_reward_pt_round_trip_is_bit_exact(reward_params, tmp_path):
     jp, _ = reward_params
     src = tmp_path / "src.pt"
     torch.save({k: _t(np.array(v)) for k, v in reward_to_torch(jp).items()}, src)
-    loaded = tckpt.load_network("reward", str(src))
+    loaded = tckpt.load_network("reward", str(src), device="cpu")
     assert set(loaded["gru"]) == {"wi", "wh", "bi", "bh"}
     out = tmp_path / "rewardNetwork.pt"
     tckpt.save_network_pt("reward", loaded, str(out))

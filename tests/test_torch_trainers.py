@@ -44,6 +44,8 @@ from image_captioning_through_rl_tpu_torch.models import policy as tpolicy
 from image_captioning_through_rl_tpu_torch.models import reward as treward
 from image_captioning_through_rl_tpu_torch.models import value as tvalue
 from image_captioning_through_rl_tpu_torch.models.convert import from_jax_params
+from image_captioning_through_rl_tpu_torch.ops import prng as tprng
+from image_captioning_through_rl_tpu_torch.train import checkpoint as tckpt
 from image_captioning_through_rl_tpu_torch.train import loops as tloops
 
 torch.set_num_threads(1)
@@ -190,12 +192,16 @@ def _entry_points(tmp_path):
         "train_value_network": lambda: tloops.train_value_network(data, paths, None, False),
         "train_a2c_network": lambda: tloops.train_a2c_network(data, saves, paths, None, False,
                                                               epochs=1, batch_size=8),
+        "load_network": lambda: tckpt.load_network("a2c", str(model_pt)),
+        "gumbel_noise": lambda: tprng.gumbel_noise(tprng.split(tprng.PRNGKey(0), 2), (2, 3)),
+        "gumbel": lambda: tprng.gumbel(tprng.PRNGKey(0), (2, 3)),
     }
 
 
 @pytest.mark.parametrize("entry", ["load_captioner", "train_reward_network",
                                    "train_policy_network", "train_value_network",
-                                   "train_a2c_network"])
+                                   "train_a2c_network", "load_network", "gumbel_noise",
+                                   "gumbel"])
 def test_default_device_is_the_card(entry, tmp_path, monkeypatch):
     """The entry points run on the card unless the caller asks for the CPU:
     with no CUDA device their default raises instead of falling back."""
