@@ -35,8 +35,12 @@ Phases:
      wrote); every logged loss finite, the policy XE loss falling, each .pt
      reloading through the port's converters, and every kernel of the path
      launched; then one minibatch of each step, fused vs plain;
- 10. timings (CUDA events): each chain's forward and backward, kernel and
-     plain, and one training step per trainer, fused and plain;
+ 10. timings (CUDA events): each chain's forward and backward, kernel,
+     plain and library (cuDNN's torch.nn.LSTM / GRU with the chain's
+     weights), and one training step per trainer, fused and plain; the LSTM
+     chain's launches per call at T = 8 and 16 (torch.profiler: the forward
+     one launch beside the x-gate table, the backward as many at either T),
+     and a torch.profiler window over one fused policy step;
  11. the threefry noise kernel vs plain, [16, 512, 1004] for three keys;
  12. the reward stream kernel vs plain, bf16 and f32 weights, N = 512, on
      the actions and tokens of a kernel rollout, and against the rewards of
@@ -75,9 +79,11 @@ its plain version's, and its bound: the least time an H100 SXM could take
 (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16, 67 TFLOP/s for
 the noise kernel's integer and float32 work; the sampling kernel's products
 at the first rate plus its hash, Gumbel map and bisection passes at the
-second), counted in ``bounds()``. The
-x-gate table is the one kernel whose function one PyTorch call computes
-(``torch.mm`` with a float32 output), timed as ``library_ms``.
+second), counted in ``bounds()``. Where one PyTorch call computes a
+kernel's function it is timed as ``library_ms`` (and never called by the
+port): ``torch.mm`` with a float32 output for the x-gate table, cuDNN's
+``torch.nn.LSTM`` and ``torch.nn.GRU`` for the chains (phase 10); the
+decode, rollout, reward-stream, noise and sampling kernels have none.
 
 Tolerances. Tokens must be equal. A row may differ only where the plain
 version came within 1e-4 of a tie, and in at most 1% of rows: the kernel
@@ -451,9 +457,54 @@ def train_main_path(dev, tmp: str) -> tuple:
     return launches, data, nets, paths
 
 
+def library_chain(kind: str, case, hs_kernel) -> dict:
+    """The library yardstick of a chain: ``torch.nn.LSTM`` / ``torch.nn.GRU``
+    (cuDNN) loaded with the chain's weights, in bf16 (fp16, the same bytes
+    and tensor-core rate, where cuDNN refuses bf16 RNNs). The LSTM's fused
+    bias goes to ``bias_ih``, ``bias_hh`` is 0; the GRU's gate order r, z, n
+    and ``n = tanh(i_n + r (h @ W_hn + b_hn))`` are the chain's. The
+    embedding gather ``emb[tok]`` runs once, outside the timed calls. Times
+    the forward under ``no_grad`` and the backward as ``autograd.grad`` of
+    the output against ``dhs`` with respect to x, the weights, h0 and c0;
+    returns them with the dtype and the relative Frobenius distance of
+    cuDNN's hs from the kernel's (the same function, rounded elsewhere)."""
+    params, emb, tok, states, dhs = case
+    dev = emb.device
+    cls = torch.nn.LSTM if kind == "lstm" else torch.nn.GRU
+    for dtype in (torch.bfloat16, torch.float16):
+        rnn = cls(E, H).to(dev, dtype)
+        with torch.no_grad():
+            rnn.weight_ih_l0.copy_(params["wi"].t())
+            rnn.weight_hh_l0.copy_(params["wh"].t())
+            rnn.bias_ih_l0.copy_(params["b"] if kind == "lstm" else params["bi"])
+            rnn.bias_hh_l0.copy_(torch.zeros_like(params["b"]) if kind == "lstm"
+                                 else params["bh"])
+        x = emb.detach()[tok.t()].to(dtype).requires_grad_()  # [T, N, E]
+        st = [s.detach()[None].to(dtype).requires_grad_() for s in states]
+        try:
+            out, _ = rnn(x, tuple(st) if kind == "lstm" else st[0])
+            break
+        except RuntimeError:
+            if dtype == torch.float16:
+                raise
+    grad_out = dhs.transpose(0, 1).to(dtype).contiguous()
+    wrt = [x, *rnn.parameters(), *st]
+
+    def fwd():
+        with torch.no_grad():
+            rnn(x, tuple(st) if kind == "lstm" else st[0])
+
+    hs = out.detach().transpose(0, 1).float()
+    return {"fwd": cuda_ms(fwd, 10),
+            "bwd": cuda_ms(lambda: torch.autograd.grad(out, wrt, grad_out, retain_graph=True), 10),
+            "dtype": str(dtype)[6:],
+            "rel": float((hs - hs_kernel).norm() / hs_kernel.norm())}
+
+
 def time_training(data, nets, dev) -> dict:
-    """Phase 10: chain forward and backward, kernel and plain (bf16, N =
-    512), and one step per trainer, fused and plain (batch 512)."""
+    """Phase 10: chain forward and backward, kernel, plain and library
+    (cuDNN, :func:`library_chain`) at bf16, N = 512, and one step per
+    trainer, fused and plain (batch 512)."""
     from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain
     from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
     from image_captioning_through_rl_tpu_torch.train import loops, steps
@@ -461,7 +512,8 @@ def time_training(data, nets, dev) -> dict:
 
     times = {}
     for kind, length in (("lstm", 16), ("gru", 17)):
-        params, emb, tok, states, dhs = chain_case(kind, length, dev)
+        case = chain_case(kind, length, dev)
+        params, emb, tok, states, dhs = case
         inputs = [*params.values(), emb, *states]
         chain = fused_lstm_chain if kind == "lstm" else fused_gru_chain
         for label, flag in (("ms", None), ("plain_ms", False)):
@@ -474,6 +526,13 @@ def time_training(data, nets, dev) -> dict:
             times[(kind, "fwd", label)] = cuda_ms(fwd, 10)
             times[(kind, "bwd", label)] = cuda_ms(
                 lambda: torch.autograd.grad(hs, inputs, dhs, retain_graph=True), 10)
+            if flag is None:
+                hs_kernel = hs.detach()
+        lib = library_chain(kind, case, hs_kernel)
+        for d in ("fwd", "bwd"):
+            times[(kind, d, "library_ms")] = lib[d]
+        times[(kind, "library")] = lib
+    times["chain_launches"] = chain_launches(dev)
     cfg = loops._cfg_for(data, False)
     feats = torch.from_numpy(data.train_features[data.train_image_idxs[:BATCH]]).to(dev)
     caps = torch.from_numpy(data.train_captions[:BATCH]).to(dev).long()
@@ -491,6 +550,8 @@ def time_training(data, nets, dev) -> dict:
                 step = make(cfg, opt, fused=fused)
                 fn = lambda: step(params, feats, caps)  # noqa: E731
             times[(kind, "step", label)] = cuda_ms(fn, 5)
+            if kind == "policy" and fused:
+                times["policy_profile"] = profile_window(fn, 3)
     return times
 
 
@@ -791,20 +852,61 @@ def profile_window(step_fn, iters: int) -> str:
             step_fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / iters
-    by_name, launches = {}, 0
+    by_name, counts = device_ops(prof)
+    busy = sum(by_name.values()) / iters
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return (f"wall {wall:.3f} ms/call, device {busy:.3f} ms/call (busy {busy / wall:.0%}), "
+            f"{sum(counts.values()) / iters:.0f} device ops/call; top (ms, launches per call): "
+            + ", ".join(f"{k} {v / iters:.3f} x{counts[k] / iters:g}" for k, v in top))
+
+
+def device_ops(prof) -> tuple[dict, dict]:
+    """A profile's device time (ms) and launch count by short kernel name."""
+    ms, counts = {}, {}
     for evt in prof.key_averages():
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(evt, "self_device_time_total", None)
         us = evt.self_cuda_time_total if us is None else us
         key = short_kernel_name(evt.key)
-        by_name[key] = by_name.get(key, 0.0) + us / 1e3 / iters
-        launches += evt.count
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    return (f"wall {wall:.3f} ms/call, device {busy:.3f} ms/call (busy {busy / wall:.0%}), "
-            f"{launches / iters:.0f} device ops/call; top: "
-            + ", ".join(f"{k} {v:.3f}" for k, v in top))
+        ms[key] = ms.get(key, 0.0) + us / 1e3
+        counts[key] = counts.get(key, 0) + evt.count
+    return ms, counts
+
+
+CHAIN_KERNELS = ("lstm_fwd_kernel", "lstm_bwd_kernel", "wgmma_gemm_kernel", "linear_kernel",
+                 "colsum_part_kernel", "colsum_finish_kernel")
+
+
+def chain_launches(dev) -> dict:
+    """Phase 10: the LSTM chain kernels launched by one fused forward and by
+    one backward (bf16, N = 512) at T = 8 and T = 16, from the profiler, and
+    the recurrence kernels' device ms at each T. The forward must be one
+    chain launch beside the x-gate table, and the backward's launches must
+    not depend on T."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
+
+    out = {}
+    for steps in (8, 16):
+        params, emb, tok, states, dhs = chain_case("lstm", steps, dev)
+        hs = fused_lstm_chain(params, emb, tok, *states)
+        torch.cuda.synchronize()
+        for d, run in (("fwd", lambda: fused_lstm_chain(params, emb, tok, *states)),
+                       ("bwd", lambda: torch.autograd.grad(
+                           hs, [*params.values(), emb, *states], dhs, retain_graph=True))):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            ms, counts = device_ops(prof)
+            out[(steps, d)] = {k: counts[k] for k in CHAIN_KERNELS if counts.get(k)}
+            out[(steps, d, "ms")] = ms.get(f"lstm_{d}_kernel", 0.0)
+    if (out[(8, "fwd")] != out[(16, "fwd")]
+            or out[(8, "fwd")] != {"lstm_fwd_kernel": 1, "linear_kernel": 1}
+            or out[(8, "bwd")] != out[(16, "bwd")] or out[(8, "bwd")].get("lstm_bwd_kernel") != 1):
+        raise AssertionError(f"LSTM chain launches per call by T: {out}")
+    return out
 
 
 def time_a2c(a2c_params, rparams, data, dev) -> dict:
@@ -1284,10 +1386,23 @@ def main() -> int:
         tt = time_training(data, nets, dev)
         phase("timing", f"{card} | bf16 weights, N = {CHAIN_N} | " + " | ".join(
             f"{net} chain {d}: kernel {tt[(net, d, 'ms')]:.3f} ms, plain "
-            f"{tt[(net, d, 'plain_ms')]:.3f} ms" for net in ("lstm", "gru")
-            for d in ("fwd", "bwd")) + " | " + " | ".join(
+            f"{tt[(net, d, 'plain_ms')]:.3f} ms, library "
+            f"{tt[(net, d, 'library_ms')]:.3f} ms ({tt[(net, 'library')]['dtype']} cuDNN; "
+            f"kernel / library {tt[(net, d, 'ms')] / tt[(net, d, 'library_ms')]:.2f})"
+            for net in ("lstm", "gru") for d in ("fwd", "bwd")) + " | " + " | ".join(
+            f"{net} cuDNN hs vs kernel hs: relative {tt[(net, 'library')]['rel']:.3g}"
+            for net in ("lstm", "gru")) + " | " + " | ".join(
             f"{net} step: fused {tt[(net, 'step', 'ms')]:.3f} ms, plain "
             f"{tt[(net, 'step', 'plain_ms')]:.3f} ms" for net in ("reward", "policy", "value")))
+        cl = tt["chain_launches"]
+        phase("profile", f"{card} | LSTM chain launches per call (N = {CHAIN_N}, bf16): "
+                         + "; ".join(f"T={k[0]} {k[1]} {v}" for k, v in cl.items() if len(k) == 2)
+                         + " | recurrence kernel device ms at T = 8 / 16 (per step, rest): "
+                         + "; ".join(f"{d} {cl[(8, d, 'ms')]:.4f} / {cl[(16, d, 'ms')]:.4f} "
+                                     f"({(cl[(16, d, 'ms')] - cl[(8, d, 'ms')]) / 8 * 1e3:.2f} us, "
+                                     f"{2 * cl[(8, d, 'ms')] - cl[(16, d, 'ms')]:.4f} ms)"
+                                     for d in ("fwd", "bwd")))
+        phase("profile", f"{card} | fused policy step, batch {BATCH}: {tt['policy_profile']}")
 
         # phases 11-13: the noise, reward stream and rollout kernels vs plain
         gumbel_ulps = compare_threefry(dev)
@@ -1346,7 +1461,8 @@ def main() -> int:
             kernels.append(entry(
                 f"{net}_chain_{d}", f"{net}_chain.cu", f"{line}:{at}",
                 train_launches[f"{net}_chain_{d}"], chain_err[(net, d)], tt[(net, d, "ms")],
-                tt[(net, d, "plain_ms")], f"N={CHAIN_N} T={length} E=H={H} V={V} bf16"))
+                tt[(net, d, "plain_ms")], f"N={CHAIN_N} T={length} E=H={H} V={V} bf16",
+                tt[(net, d, "library_ms")]))
     shape = f"N={ROLLOUT_N} S={S} E=H=F={H} V={V} bf16"
     for name, source, replaces, err in (
             ("threefry_gumbel", "threefry.cu", "pallas_sample.py:90", gumbel_ulps),

@@ -15,62 +15,97 @@
 //
 // What bounds it here: each forward step is an [N, 512] x [512, 2048]
 // product, and each backward step one more of that size, that depend on the
-// step before. At N = 512 one such product is 128 block tiles, one wave on
-// 132 SMs, and a tile is bound by how fast it issues its staging and WMMA
-// instructions and waits out each depth step (common.cuh), far below the
-// tensor cores' rate: launch latency and the tile's instruction rate bound
-// the chain, not bytes. What the design does about it:
+// step before. At N = 512 one step's product is ~1 GFLOP, a microsecond of
+// the tensor cores' time; what a step costs is moving its operands into the
+// SMs and the wait between steps. What the design does about it
+// (lstm_chain.cuh):
 //   * x @ wi depends on the token alone: the wrapper builds the x-gate
 //     table emb @ wi once per call (token_gates.cu, the weights change every
-//     step), so each forward step runs only rnd(h) @ wh, with the gate math
-//     and the c/h update in its epilogue (one launch per step). The gates
-//     then add up as (x @ wi) + (h @ wh) + b, not as one [x; h] @ [wi; wh]
-//     sum: a float32 sum-order change.
-//   * The backward keeps only what recurs inside the loop: per step, an
-//     elementwise pass forms the gate gradients from the tape and
-//     dh = carry + upstream, and one product forms dh_prev = rnd(dg) @ wh^T.
-//     The products that do not recur (d[wi; wh] = rnd([x; h_prev])^T rnd(dg)
-//     over all T N rows, db, dx = rnd(dg) @ wi^T) run once after the loop as
-//     large tile products, from the float32 gate gradients of every step.
-//   * The step loop runs on the host inside one C call per direction.
-// A persistent, weights-stationary chain, wgmma and TMA are later work.
+//     step), so each forward step runs only rnd(h) @ wh. The gates add up as
+//     (x @ wi) + (h @ wh) + b, not as one [x; h] @ [wi; wh] sum: a float32
+//     sum-order change.
+//   * Each direction's recurrence is one persistent cooperative launch:
+//     each block keeps its units' slice of wh in shared memory for the whole
+//     chain (wh is read from L2 once per call, not once per step and row
+//     tile), streams only the step's rnd(h) (forward) or rnd(dg) (backward)
+//     rows through a cp.async ring, finishes the cell in the same block, and
+//     meets a grid-wide barrier: no launch per step, no host loop.
+//   * The backward keeps only what recurs inside the loop: dh_prev =
+//     rnd(dg) @ wh^T and the gate gradients of the step before. The products
+//     that do not recur (d[wi; wh] over all T N rows, dx) run once after it
+//     on wgmma (wgmma.cuh), db as fixed-order column sums.
+// Larger wgmma tiles, TMA multicast of the shared dg rows across a cluster,
+// and the same design for the GRU chain are later work.
 #include "lstm_chain.cuh"
+
+namespace {
+
+// The wrapper's plan (ops/fused_lstm.py:lstm_chain_plan) against this
+// file's: a mismatch is a bug in one of the two, not a shape to run.
+bool same_plan(const icrl::ChainPlan& p, int rows_per_tile, int units, int row_groups,
+               long smem) {
+  return p.rows_per_tile == rows_per_tile && p.units == units && p.row_groups == row_groups &&
+         p.smem == smem;
+}
+
+}  // namespace
 
 extern "C" {
 
 // Forward. tok [T, n] int32 step-major; xg [V, 4H] float32 (icrl_token_gates);
-// wh [H, 4H] bf16 when bf16 != 0, else float32; b [4H]; hbuf, cbuf
-// [(T + 1) n, H] float32 with h0, c0 in the first n rows (the rest is
-// written); gates [T n, 4H]. Returns 0 or the first CUDA error of a launch.
-int icrl_lstm_chain_fwd(int n, int T, int H, int bf16, const int* tok, const float* xg,
-                        const void* wh, const float* b, float* hbuf, float* cbuf, float* gates,
+// wh [H, 4H] bf16 when bf16 != 0, else float32; b [4H]; h0, c0 [n, H]
+// float32. Outputs: hbuf, cbuf [(T + 1) n, H] float32 (the state entering
+// each step, h0 and c0 first), gates [T n, 4H], hs [n, T, H] (h leaving each
+// step). Scratch: h16 [2, n, H] bf16 (bf16 only). The
+// plan (rows per tile, units per slice, row groups, shared bytes) must be
+// lstm_chain_plan's. Returns 0 or the CUDA error of the launch (a refused
+// cooperative launch included).
+int icrl_lstm_chain_fwd(int n, int T, int H, int bf16, int rows_per_tile, int units,
+                        int row_groups, int smem, const int* tok, const float* xg,
+                        const void* wh, const float* b, const float* h0, const float* c0,
+                        float* hbuf, float* cbuf, float* gates, float* hs, void* h16,
                         void* stream) {
   using namespace icrl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ChainPlan p = bf16 ? chain_plan<__nv_bfloat16, false>(n, H, device_sms())
+                           : chain_plan<float, false>(n, H, device_sms());
+  if (!same_plan(p, rows_per_tile, units, row_groups, smem)) return (int)cudaErrorInvalidValue;
   if (bf16)
-    return lstm_fwd(n, T, H, tok, xg, static_cast<const __nv_bfloat16*>(wh), b, hbuf, cbuf,
-                    gates, s);
-  return lstm_fwd(n, T, H, tok, xg, static_cast<const float*>(wh), b, hbuf, cbuf, gates, s);
+    return lstm_fwd(n, T, H, tok, xg, static_cast<const __nv_bfloat16*>(wh), b, h0, c0, hbuf,
+                    cbuf, gates, hs, static_cast<__nv_bfloat16*>(h16), s);
+  return lstm_fwd(n, T, H, tok, xg, static_cast<const float*>(wh), b, h0, c0, hbuf, cbuf, gates,
+                  hs, static_cast<__nv_bfloat16*>(h16), s);
 }
 
-// Backward. dhs [T, n, H] float32 upstream gradient of the per-step h; hbuf,
+// Backward. dhs [n, T, H] float32 upstream gradient of hs; hbuf,
 // cbuf, gates as the forward left them; emb [V, E] and w = [wi; wh]
-// [E + H, 4H] in the weight type. Scratch: dg [T n, 4H], part
-// [16, 4H]. Outputs: dh, dc [n, H] (zero on entry; dh0 and dc0 on return),
-// dw [E + H, 4H], db [4H], dx [T n, E] (step-major rows).
-int icrl_lstm_chain_bwd(int n, int T, int E, int H, int bf16, const int* tok, const float* dhs,
+// [E + H, 4H] in the weight type. Scratch: dg [T n, 4H] float32, and for
+// bf16 weights dg16 [T n, 4H] and h16 [T n, H] bf16; part [16, 4H]. Outputs:
+// dh, dc [n, H] (dc zero on entry;
+// dh0 and dc0 on return), dw [E + H, 4H], db [4H], dx [T n, E] (step-major
+// rows). The plan is the backward's lstm_chain_plan.
+int icrl_lstm_chain_bwd(int n, int T, int E, int H, int bf16, int rows_per_tile, int units,
+                        int row_groups, int smem, const int* tok, const float* dhs,
                         const float* hbuf, const float* cbuf, const float* gates,
-                        const void* emb, const void* w, float* dg, float* dh, float* dc,
-                        float* part, float* dw, float* db, float* dx, void* stream) {
+                        const void* emb, const void* w, float* dg, void* dg16, void* h16,
+                        float* dh, float* dc, float* part, float* dw, float* db, float* dx,
+                        void* stream) {
   using namespace icrl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const ChainPlan p = bf16 ? chain_plan<__nv_bfloat16, true>(n, H, device_sms())
+                           : chain_plan<float, true>(n, H, device_sms());
+  if (!same_plan(p, rows_per_tile, units, row_groups, smem)) return (int)cudaErrorInvalidValue;
+  auto* d16 = static_cast<__nv_bfloat16*>(dg16);
+  auto* h = static_cast<__nv_bfloat16*>(h16);
   if (bf16) {
     using W = __nv_bfloat16;
-    return lstm_bwd(n, T, E, H, tok, dhs, hbuf, cbuf, gates, static_cast<const W*>(emb),
-                    static_cast<const W*>(w), dg, dh, dc, part, dw, db, dx, s);
+    return lstm_bwd(n, T, E, H, tok, dhs, (long)T * H, H, hbuf, cbuf, gates,
+                    static_cast<const W*>(emb), static_cast<const W*>(w), dg, d16, h, dh, dc, part,
+                    dw, db, dx, s);
   }
-  return lstm_bwd(n, T, E, H, tok, dhs, hbuf, cbuf, gates, static_cast<const float*>(emb),
-                  static_cast<const float*>(w), dg, dh, dc, part, dw, db, dx, s);
+  return lstm_bwd(n, T, E, H, tok, dhs, (long)T * H, H, hbuf, cbuf, gates,
+                  static_cast<const float*>(emb), static_cast<const float*>(w), dg, d16, h, dh, dc,
+                  part, dw, db, dx, s);
 }
 
 }  // extern "C"

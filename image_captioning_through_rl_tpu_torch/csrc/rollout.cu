@@ -32,8 +32,8 @@
 // dh_head[t + 1], and the cotangent of the start state is the chain's dh0 plus
 // dh_head[0]. The rounding points of the TPU kernel's _cell_bwd and _outer
 // (pallas_rollout.py:324-373) are the chain's, line by line: the gate
-// gradients are formed in float32 from the taped gates and c (lstm_chain_grad
-// kernel: do, dct, di, df, dg, dc_prev as in _cell_bwd), cast to the weight
+// gradients are formed in float32 from the taped gates and c (lstm_cell_bwd:
+// do, dct, di, df, dg, dc_prev as in _cell_bwd), cast to the weight
 // type before dh_prev = rnd(dg) @ rnd(wh)^T and dx = rnd(dg) @ rnd(wi)^T
 // (_cell_bwd's dxh), and before d[wi; wh] = rnd([x; h])^T rnd(dg) (_outer);
 // db sums them unrounded; the carried dh adds the head's dh as the TPU kernel
@@ -61,15 +61,75 @@
 //
 // What bounds it: at N = 512, COCO width, the forward moves ~250 MB (the
 // tape and the noise) and does ~70 GFLOP in products; the backward ~180
-// GFLOP. Both are chains of small dependent products (one wave of block tiles
-// or less), so launch latency and the tile product's instruction rate bound
-// them, far from the bytes and the tensor-core peak; PERF.md holds the times
-// beside the bounds.
+// GFLOP. The forward is a chain of small dependent products (one wave of
+// block tiles or less), so launch latency and the tile product's instruction
+// rate bound it, far from the bytes and the tensor-core peak; the backward's
+// two recurrences are the chain's persistent kernel and its large products
+// run on wgmma (lstm_chain.cuh); PERF.md holds the times beside the bounds.
 #include "lstm_chain.cuh"
 #include "reward_stream.cuh"
 
 namespace icrl {
 namespace {
+
+// One advance of the policy or value LSTM inside the rollout's step loop
+// (its token is the one this step placed, so the chain's whole-chain
+// kernels do not apply): a block owns 64 rows and 16 hidden units j (the
+// four gate columns {j, H+j, 2H+j, 3H+j} of wh), so each thread holds the
+// four gates of one (row, j) after the product and finishes the cell in its
+// epilogue, writing the tape the chain's backward reads.
+template <typename W>
+struct RolloutCellArgs {
+  int n, H;
+  const int* tok;      // [n] this step's tokens
+  const float* xg;     // [V, 4H] x-gate table emb @ wi
+  const W* wh;         // [H, 4H]
+  const float* b;      // [4H]
+  const float* h_in;   // [n, H] state entering the step
+  const float* c_in;
+  float* h_out;        // [n, H] state leaving it
+  float* c_out;
+  float* gates;        // [n, 4H] post-activation i, f, g, o
+};
+
+template <typename W>
+__global__ void __launch_bounds__(NT) rollout_cell_kernel(RolloutCellArgs<W> a) {
+  __shared__ int s_tok[BM];
+  const int row0 = blockIdx.x * BM, j0 = blockIdx.y * UNITS, H = a.H, G = 4 * H;
+  if (threadIdx.x < BM) {
+    const int r = row0 + threadIdx.x;
+    s_tok[threadIdx.x] = r < a.n ? a.tok[r] : 0;
+  }
+  __syncthreads();
+  auto arow = [&](int m) { return row0 + m < a.n ? row0 + m : -1; };
+  auto bcol = [&](int c) {  // tile column c = gate * UNITS + unit
+    const int j = j0 + c % UNITS;
+    return j < H ? (c / UNITS) * H + j : -1;
+  };
+  float acc[4][4];
+  gemm<kIsBf16<W>>(acc, H, a.h_in, H, arow, a.wh, G, bcol);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, j = j0 + tx;
+  if (j >= H) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int m = ty + 16 * i, r = row0 + m;
+    if (r >= a.n) continue;
+    const float* x = a.xg + (size_t)s_tok[m] * G;
+    const size_t o = (size_t)r * H + j;
+    const float gi = sigmoid(x[j] + acc[i][0] + a.b[j]);
+    const float gf = sigmoid(x[H + j] + acc[i][1] + a.b[H + j]);
+    const float gg = tanhf(x[2 * H + j] + acc[i][2] + a.b[2 * H + j]);
+    const float go = sigmoid(x[3 * H + j] + acc[i][3] + a.b[3 * H + j]);
+    const float c = gf * a.c_in[o] + gi * gg;
+    a.c_out[o] = c;
+    a.h_out[o] = go * tanhf(c);
+    float* g = a.gates + (size_t)r * G + j;
+    g[0] = gi;
+    g[H] = gf;
+    g[2 * H] = gg;
+    g[3 * H] = go;
+  }
+}
 
 // v1 = rnd(h_v) @ w1[F:] + fw1 + b1 over [M, N] (fw1 = rnd(feats) @ w1[:F],
 // computed once per call).
@@ -317,15 +377,15 @@ int rollout_fwd(const RolloutFwdArgs<W>& a, cudaStream_t s) {
                              a.rewards + row, s));
     if (t + 1 == a.S) break;  // the last step's advances are never read
     const dim3 grid(cdiv(n, BM), cdiv(H, UNITS));
-    const LstmStepArgs<W> p{n,          H,          a.tok + row,      a.p_xg,
-                            wh_p,       a.p_b,      a.hp + t * NH,    a.cp + t * NH,
-                            a.hp + (t + 1) * NH, a.cp + (t + 1) * NH, a.gp + t * NG};
-    lstm_chain_step_kernel<W><<<grid, NT, 0, s>>>(p);
+    const RolloutCellArgs<W> p{n,          H,          a.tok + row,      a.p_xg,
+                               wh_p,       a.p_b,      a.hp + t * NH,    a.cp + t * NH,
+                               a.hp + (t + 1) * NH, a.cp + (t + 1) * NH, a.gp + t * NG};
+    rollout_cell_kernel<W><<<grid, NT, 0, s>>>(p);
     ICRL_CHECK(cudaGetLastError());
-    const LstmStepArgs<W> v{n,          H,          a.tok + row,      a.v_xg,
-                            wh_v,       a.v_b,      a.hv + t * NH,    a.cv + t * NH,
-                            a.hv + (t + 1) * NH, a.cv + (t + 1) * NH, a.gv + t * NG};
-    lstm_chain_step_kernel<W><<<grid, NT, 0, s>>>(v);
+    const RolloutCellArgs<W> v{n,          H,          a.tok + row,      a.v_xg,
+                               wh_v,       a.v_b,      a.hv + t * NH,    a.cv + t * NH,
+                               a.hv + (t + 1) * NH, a.cv + (t + 1) * NH, a.gv + t * NG};
+    rollout_cell_kernel<W><<<grid, NT, 0, s>>>(v);
     ICRL_CHECK(cudaGetLastError());
   }
   return 0;
@@ -335,8 +395,9 @@ template <typename W>
 int rollout_policy_bwd(int n, int S, int E, int H, int V, int Vp, const int* tok, const int* act,
                        const float* dlogp, const float* hp, const float* cp, const float* gp,
                        const W* emb, const W* w, const W* hw, const float* hb, float* dlogits,
-                       float* part, float* dg, float* dhw, float* dhb, float* dh_head, float* dh,
-                       float* dc, float* dw, float* db, float* dx, cudaStream_t s) {
+                       float* part, float* dg, __nv_bfloat16* dg16, __nv_bfloat16* h16, float* dhw,
+                       float* dhb, float* dh_head, float* dh, float* dc, float* dw, float* db,
+                       float* dx, cudaStream_t s) {
   const int R = S * n;
   const size_t NH = (size_t)n * H;
   ICRL_CHECK((launch_linear<W, float, true>(R, H, Vp, hp, hw, hb, dlogits, s)));
@@ -348,8 +409,8 @@ int rollout_policy_bwd(int n, int S, int E, int H, int V, int Vp, const int* tok
   ICRL_CHECK((launch_view<W, false, true>(R, H, Vp, dlogits, Vp, nullptr, hw, Vp, false, dh_head,
                                           s)));
   if (S > 1)
-    ICRL_CHECK(lstm_bwd(n, S - 1, E, H, tok, dh_head + NH, hp, cp, gp, emb, w, dg, dh, dc, part,
-                        dw, db, dx, s));
+    ICRL_CHECK(lstm_bwd(n, S - 1, E, H, tok, dh_head + NH, H, (long)NH, hp, cp, gp, emb, w, dg,
+                        dg16, h16, dh, dc, part, dw, db, dx, s));
   add_kernel<<<cdiv(NH, 256), 256, 0, s>>>(NH, dh, dh_head);
   return (int)cudaGetLastError();
 }
@@ -358,8 +419,9 @@ template <typename W>
 int rollout_value_bwd(int n, int S, int F, int E, int H, const int* tok, const float* dval,
                       const float* feats, const float* hv, const float* cv, const float* gv,
                       const float* v1, const W* emb, const W* w, const W* w1, const W* w2,
-                      int* ridx, float* tmp, float* dv1, float* part, float* dg, float* dfh,
-                      float* dw2, float* db2, float* dw1, float* db1, float* dfeat,
+                      int* ridx, float* tmp, float* dv1, float* part, float* dg,
+                      __nv_bfloat16* dg16, __nv_bfloat16* h16, float* dfh, float* dw2, float* db2,
+                      float* dw1, float* db1, float* dfeat,
                       float* dh_head, float* dh, float* dc, float* dw, float* db, float* dx,
                       cudaStream_t s) {
   const int R = S * n;
@@ -380,8 +442,8 @@ int rollout_value_bwd(int n, int S, int F, int E, int H, const int* tok, const f
   step_sum_kernel<<<cdiv((size_t)n * F, 256), 256, 0, s>>>(n, S, F, dfh, dfeat);
   ICRL_CHECK(cudaGetLastError());
   if (S > 1)
-    ICRL_CHECK(lstm_bwd(n, S - 1, E, H, tok, dh_head + NH, hv, cv, gv, emb, w, dg, dh, dc, part,
-                        dw, db, dx, s));
+    ICRL_CHECK(lstm_bwd(n, S - 1, E, H, tok, dh_head + NH, H, (long)NH, hv, cv, gv, emb, w, dg,
+                        dg16, h16, dh, dc, part, dw, db, dx, s));
   add_kernel<<<cdiv(NH, 256), 256, 0, s>>>(NH, dh, dh_head);
   return (int)cudaGetLastError();
 }
@@ -428,47 +490,50 @@ int icrl_rollout_fwd(int n, int S, int F, int E, int H, int V, int Vp, int curr,
 
 // Policy backward. tok, act [S, n]; dlogp [S, n]; the tape hp, cp, gp; emb
 // [V, E], w = [wi; wh] [E + H, 4H] and hw [H, Vp] in the weight type; hb [Vp].
-// Scratch: dlogits [S n, Vp], part [16, max(Vp, 4H)], dg [(S - 1) n, 4H].
+// Scratch: dlogits [S n, Vp], part [16, max(Vp, 4H)], dg [(S - 1) n, 4H], and
+// for bf16 weights dg16 [(S - 1) n, 4H] and h16 [(S - 1) n, H] bf16.
 // Outputs: dhw [H, V], dhb [Vp], dh_head [S n, H], dh and dc [n, H] (zero on
 // entry; the start state's cotangents on return), dw [E + H, 4H], db [4H], dx
 // [(S - 1) n, E].
 int icrl_rollout_policy_bwd(int n, int S, int E, int H, int V, int Vp, int bf16, const int* tok,
                             const int* act, const float* dlogp, const float* hp, const float* cp,
                             const float* gp, const void* emb, const void* w, const void* hw,
-                            const float* hb, float* dlogits, float* part, float* dg, float* dhw,
-                            float* dhb, float* dh_head, float* dh, float* dc, float* dw,
-                            float* db, float* dx, void* stream) {
+                            const float* hb, float* dlogits, float* part, float* dg, void* dg16,
+                            void* h16, float* dhw, float* dhb, float* dh_head, float* dh,
+                            float* dc, float* dw, float* db, float* dx, void* stream) {
   using namespace icrl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto tag) {
     using W = decltype(tag);
     return rollout_policy_bwd<W>(n, S, E, H, V, Vp, tok, act, dlogp, hp, cp, gp, (const W*)emb,
-                                 (const W*)w, (const W*)hw, hb, dlogits, part, dg, dhw, dhb,
-                                 dh_head, dh, dc, dw, db, dx, s);
+                                 (const W*)w, (const W*)hw, hb, dlogits, part, dg,
+                                 (__nv_bfloat16*)dg16, (__nv_bfloat16*)h16, dhw, dhb, dh_head, dh,
+                                 dc, dw, db, dx, s);
   };
   return bf16 ? run(__nv_bfloat16{}) : run(float{});
 }
 
 // Value backward. tok [S, n]; dval [S, n]; feats [n, F]; the tape hv, cv, gv,
 // v1; emb, w as the policy's; w1 [F + H, H], w2 [H] in the weight type.
-// Scratch: ridx [S n] int32, tmp and dv1 [S n, H], part [16, 4H], dg
-// [(S - 1) n, 4H], dfh [S n, F]. Outputs: dw2 [H], db2 [1], dw1 [F + H, H],
+// Scratch: ridx [S n] int32, tmp and dv1 [S n, H], part [16, 4H], dg, dg16 and
+// h16 as the policy's, dfh [S n, F]. Outputs: dw2 [H], db2 [1], dw1 [F + H, H],
 // db1 [H], dfeat [n, F], dh_head [S n, H], dh, dc, dw, db, dx as the policy's.
 int icrl_rollout_value_bwd(int n, int S, int F, int E, int H, int bf16, const int* tok,
                            const float* dval, const float* feats, const float* hv,
                            const float* cv, const float* gv, const float* v1, const void* emb,
                            const void* w, const void* w1, const void* w2, int* ridx, float* tmp,
-                           float* dv1, float* part, float* dg, float* dfh, float* dw2,
-                           float* db2, float* dw1, float* db1, float* dfeat, float* dh_head,
-                           float* dh, float* dc, float* dw, float* db, float* dx, void* stream) {
+                           float* dv1, float* part, float* dg, void* dg16, void* h16, float* dfh,
+                           float* dw2, float* db2, float* dw1, float* db1, float* dfeat,
+                           float* dh_head, float* dh, float* dc, float* dw, float* db, float* dx,
+                           void* stream) {
   using namespace icrl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto run = [&](auto tag) {
     using W = decltype(tag);
     return rollout_value_bwd<W>(n, S, F, E, H, tok, dval, feats, hv, cv, gv, v1, (const W*)emb,
                                 (const W*)w, (const W*)w1, (const W*)w2, ridx, tmp, dv1, part,
-                                dg, dfh, dw2, db2, dw1, db1, dfeat, dh_head, dh, dc, dw, db, dx,
-                                s);
+                                dg, (__nv_bfloat16*)dg16, (__nv_bfloat16*)h16, dfh, dw2, db2, dw1,
+                                db1, dfeat, dh_head, dh, dc, dw, db, dx, s);
   };
   return bf16 ? run(__nv_bfloat16{}) : run(float{});
 }

@@ -18,9 +18,17 @@ Routing in :func:`fused_lstm_chain`: a CUDA tensor goes to the kernels (or
 the call raises), a CPU tensor to :func:`lstm_chain_plain`, and
 ``use_fused_kernel=False`` selects the plain version explicitly. No path
 catches a kernel error and falls back.
+
+Each direction's recurrence is one cooperative launch of a persistent
+kernel whose blocks must all be resident at once: :func:`lstm_chain_plan`
+sizes it (rows per tile, hidden units per block, the grid, the shared
+memory each block opts in to beyond 48 KB) and the C entry points check
+the plan against their own.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -30,8 +38,71 @@ from .kernel_build import check_error, load_library
 
 def _step_major(tokens: torch.Tensor) -> torch.Tensor:
     """``[N, T]`` tokens -> ``[T, N]`` contiguous int32: row ``t N + r`` of
-    every per-step stream is sample ``r`` at step ``t``."""
-    return tokens.t().to(torch.int32).contiguous()
+    every per-step stream is sample ``r`` at step ``t`` (one copy)."""
+    n, steps = tokens.shape
+    return torch.empty((steps, n), dtype=torch.int32, device=tokens.device).copy_(tokens.t())
+
+
+# The chain kernels' tiles (csrc/lstm_chain.cuh ChainTile), per weight type
+# and direction: hidden units per block, product columns per block, depth
+# per staged slice, slices in the ring.
+_CHAIN_TILES = {(torch.bfloat16, False): (32, 128, 128, 5),
+                (torch.bfloat16, True): (32, 32, 128, 5),
+                (torch.float32, False): (16, 64, 32, 4),
+                (torch.float32, True): (16, 16, 32, 4)}
+CHAIN_ROWS = 64
+# H100 shared memory: per SM, the most one block may opt in to, and what the
+# runtime reserves per block.
+SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233472, 232448, 1024
+
+
+def lstm_chain_plan(n: int, hidden: int, weight_dtype: torch.dtype, sm_count: int,
+                    backward: bool = False) -> dict:
+    """The cooperative launch of one chain direction, as
+    ``csrc/lstm_chain.cuh:chain_plan`` computes it: blocks ``(slice,
+    group)`` over ``grid = (slices, row_groups)``; block ``(s, g)`` owns the
+    hidden units ``[s units, s units + units)`` and the row tiles ``g, g +
+    row_groups, ...`` of ``rows_per_tile`` rows, and opts in to
+    ``smem_bytes`` of shared memory (its slice of ``wh`` and the staging
+    ring, which the product tile overlays). ``co_resident`` is how many such
+    blocks the card holds at once; the grid never exceeds it. Raises
+    ``ValueError`` for a width whose slice does not fit in one SM."""
+    units, cols, depth, stages = _CHAIN_TILES[(weight_dtype, backward)]
+    elem = 2 if weight_dtype == torch.bfloat16 else 4
+    pad = 16 // elem
+    k = 4 * hidden if backward else hidden
+    kp = -(-k // depth) * depth
+    weights = cols * (kp + pad) if backward else kp * (cols + pad)
+    smem = (weights + stages * CHAIN_ROWS * (depth + pad)) * elem
+    if smem > SMEM_PER_BLOCK:
+        raise ValueError(f"lstm chain: hidden {hidden} needs {smem} bytes of shared memory per "
+                         f"block, more than the {SMEM_PER_BLOCK} one block may use")
+    slices = -(-hidden // units)
+    co_resident = sm_count * (SMEM_PER_SM // (smem + SMEM_RESERVED))
+    if slices > co_resident:
+        raise ValueError(f"lstm chain: {slices} unit slices exceed the {co_resident} blocks the "
+                         f"card holds at once")
+    row_groups = max(1, min(-(-n // CHAIN_ROWS), co_resident // slices))
+    return {"rows_per_tile": CHAIN_ROWS, "units": units, "slices": slices,
+            "row_groups": row_groups, "grid": (slices, row_groups), "smem_bytes": smem,
+            "co_resident": co_resident}
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_args(n: int, hidden: int, weight_dtype: torch.dtype, index: int,
+               backward: bool) -> tuple:
+    """The plan's launch arguments for the card ``index`` (cached: the host
+    time around a chain call is part of a training step's)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    p = lstm_chain_plan(n, hidden, weight_dtype, sms, backward)
+    return p["rows_per_tile"], p["units"], p["row_groups"], p["smem_bytes"]
+
+
+def _bf16_scratch(weight_dtype: torch.dtype, dev: torch.device, *shape) -> torch.Tensor:
+    """bf16 scratch of the chain kernels (none with float32 weights)."""
+    if weight_dtype != torch.bfloat16:
+        return torch.empty((0,), dtype=torch.bfloat16, device=dev)
+    return torch.empty(shape, dtype=torch.bfloat16, device=dev)
 
 
 def embedding_grad(dx: torch.Tensor, tok_sm: torch.Tensor, vocab: int) -> torch.Tensor:
@@ -124,8 +195,11 @@ def lstm_chain_backward_plain(dhs: torch.Tensor, tok_sm: torch.Tensor, xs: torch
 
 def _check_chain_inputs(name: str, params: dict, embedding: torch.Tensor, tokens: torch.Tensor,
                         states: tuple, gates: int, weight_dtype: torch.dtype) -> None:
-    """Device, type, shape and range checks of a chain kernel's inputs
-    (shared with :mod:`.fused_gru`)."""
+    """Device, type and shape checks of a chain kernel's inputs (shared with
+    :mod:`.fused_gru`), and the token range, checked on the device without a
+    host sync: a token outside ``[0, V)`` fails the assertion (on the CPU at
+    once; on a CUDA device at the next synchronisation, which ends the
+    process's CUDA context)."""
     dev = states[0].device
     tensors = [embedding, *states, *params.values()]
     if any(t.device != dev or t.dtype != torch.float32 for t in tensors):
@@ -147,14 +221,16 @@ def _check_chain_inputs(name: str, params: dict, embedding: torch.Tensor, tokens
         raise ValueError(f"{name}: wi must be [E, {gates}H], wh [H, {gates}H] and each "
                          f"bias [{gates}H]")
     check_tile_widths(weight_dtype, emb_dim=emb_dim, hidden=hidden)
-    if tokens.numel() and bool(((tokens < 0) | (tokens >= vocab)).any()):
-        raise ValueError(f"{name}: tokens must lie in [0, {vocab})")
+    if tokens.numel():  # floor(token / V) is 0 exactly for a token in [0, V)
+        torch._assert_async(torch.floor_divide(tokens, vocab).eq(0).all(),
+                            f"{name}: tokens must lie in [0, {vocab})")
 
 
 class _LstmChainKernel(torch.autograd.Function):
-    """The chain through ``csrc/lstm_chain.cu``: one C call forward, one
-    backward. The x-gate table is rebuilt each call (the weights change
-    every optimiser step)."""
+    """The chain through ``csrc/lstm_chain.cu``: one C call forward (one
+    kernel launch beside the x-gate table), one backward (five launches,
+    whatever T is). The x-gate table is rebuilt each call (the weights
+    change every optimiser step)."""
 
     @staticmethod
     def forward(ctx, wi, wh, b, embedding, h0, c0, tokens, weight_dtype):
@@ -164,26 +240,31 @@ class _LstmChainKernel(torch.autograd.Function):
         hidden = h0.shape[1]
         dev = h0.device
         emb_w = embedding.detach().to(weight_dtype).contiguous()
-        w = torch.cat([wi.detach(), wh.detach()]).to(weight_dtype).contiguous()
-        b32 = b.detach().contiguous()
+        w = torch.empty((wi.shape[0] + hidden, 4 * hidden), dtype=weight_dtype, device=dev)
+        torch.cat([wi.detach(), wh.detach()], out=w)  # [wi; wh] cast as it is copied
         tok_sm = _step_major(tokens)
         xg = token_gate_table(emb_w, w)
-        hbuf = torch.empty(((steps + 1) * n, hidden), dtype=torch.float32, device=dev)
-        cbuf = torch.empty_like(hbuf)
-        hbuf[:n] = h0.detach()
-        cbuf[:n] = c0.detach()
-        gates = torch.empty((steps * n, 4 * hidden), dtype=torch.float32, device=dev)
+
+        def f32(*shape):
+            return torch.empty(shape, dtype=torch.float32, device=dev)
+
+        # the tape (h, c entering every step; gates) and hs, written by the kernel
+        hbuf, cbuf = f32((steps + 1) * n, hidden), f32((steps + 1) * n, hidden)
+        gates, hs = f32(steps * n, 4 * hidden), f32(n, steps, hidden)
+        h16 = _bf16_scratch(weight_dtype, dev, 2, n, hidden)
         lib = load_library()
         ptr = torch.Tensor.data_ptr
         with torch.cuda.device(dev):
             err = lib.icrl_lstm_chain_fwd(
-                n, steps, hidden, int(weight_dtype == torch.bfloat16), ptr(tok_sm), ptr(xg),
-                ptr(w[embedding.shape[1]:]), ptr(b32), ptr(hbuf), ptr(cbuf), ptr(gates),
-                torch.cuda.current_stream(dev).cuda_stream)
+                n, steps, hidden, int(weight_dtype == torch.bfloat16),
+                *_plan_args(n, hidden, weight_dtype, dev.index, False), ptr(tok_sm), ptr(xg),
+                ptr(w[embedding.shape[1]:]), ptr(b.detach().contiguous()),
+                ptr(h0.detach().contiguous()), ptr(c0.detach().contiguous()), ptr(hbuf), ptr(cbuf),
+                ptr(gates), ptr(hs), ptr(h16), torch.cuda.current_stream(dev).cuda_stream)
         check_error(lib, "icrl_lstm_chain_fwd", err)
         fused_lstm_chain.fwd_launches += 1
         ctx.save_for_backward(tok_sm, hbuf, cbuf, gates, emb_w, w)
-        return hbuf[n:].view(steps, n, hidden).transpose(0, 1).contiguous()
+        return hs
 
     @staticmethod
     def backward(ctx, dhs):
@@ -192,22 +273,24 @@ class _LstmChainKernel(torch.autograd.Function):
         vocab, emb_dim = emb_w.shape
         hidden = hbuf.shape[1]
         dev = hbuf.device
-        dhs_sm = dhs.transpose(0, 1).to(torch.float32).contiguous()  # [T, N, H]
+        dhs = dhs.to(torch.float32).contiguous()  # [N, T, H], read in place
 
         def f32(*shape):
             return torch.empty(shape, dtype=torch.float32, device=dev)
 
         dg, part = f32(steps * n, 4 * hidden), f32(16, 4 * hidden)
-        dh = torch.zeros((n, hidden), dtype=torch.float32, device=dev)
-        dc = torch.zeros_like(dh)
+        dh, dc = f32(n, hidden), torch.zeros((n, hidden), dtype=torch.float32, device=dev)
         dw, db, dx = f32(emb_dim + hidden, 4 * hidden), f32(4 * hidden), f32(steps * n, emb_dim)
+        dg16 = _bf16_scratch(w.dtype, dev, steps * n, 4 * hidden)
+        h16 = _bf16_scratch(w.dtype, dev, steps * n, hidden)
         lib = load_library()
         ptr = torch.Tensor.data_ptr
         with torch.cuda.device(dev):
             err = lib.icrl_lstm_chain_bwd(
-                n, steps, emb_dim, hidden, int(w.dtype == torch.bfloat16), ptr(tok_sm),
-                ptr(dhs_sm), ptr(hbuf), ptr(cbuf), ptr(gates), ptr(emb_w), ptr(w), ptr(dg),
-                ptr(dh), ptr(dc), ptr(part), ptr(dw), ptr(db), ptr(dx),
+                n, steps, emb_dim, hidden, int(w.dtype == torch.bfloat16),
+                *_plan_args(n, hidden, w.dtype, dev.index, True), ptr(tok_sm), ptr(dhs), ptr(hbuf),
+                ptr(cbuf), ptr(gates), ptr(emb_w), ptr(w), ptr(dg), ptr(dg16), ptr(h16), ptr(dh),
+                ptr(dc), ptr(part), ptr(dw), ptr(db), ptr(dx),
                 torch.cuda.current_stream(dev).cuda_stream)
         check_error(lib, "icrl_lstm_chain_bwd", err)
         fused_lstm_chain.bwd_launches += 1

@@ -48,7 +48,7 @@ import torch
 from ..models import policy as policy_mod
 from ..models import value as value_mod
 from .fused_decode import check_tile_widths, round_to, token_gate_table, wmatmul
-from .fused_lstm import embedding_grad, lstm_chain_backward_plain
+from .fused_lstm import _bf16_scratch, embedding_grad, lstm_chain_backward_plain
 from .kernel_build import check_error, load_library
 from .linalg import dense
 from .prng import gumbel_noise, split
@@ -548,6 +548,8 @@ def rollout_backward_kernel(tape: RolloutTape, feats: torch.Tensor, w: RolloutWe
 
     part = f32(16, max(vp, 4 * hidden))
     dg = f32(max(rows - n, 1), 4 * hidden)
+    dg16 = _bf16_scratch(w.dtype, dev, rows - n, 4 * hidden)
+    h16 = _bf16_scratch(w.dtype, dev, rows - n, hidden)
     dlogits, dhw, dhb, dh_head = f32(rows, vp), f32(hidden, vocab), f32(vp), f32(rows, hidden)
     dph1, dpc1 = zeros(n, hidden), zeros(n, hidden)
     dpw, dpb, dxp = (zeros(emb_dim + hidden, 4 * hidden), zeros(4 * hidden),
@@ -563,16 +565,16 @@ def rollout_backward_kernel(tape: RolloutTape, feats: torch.Tensor, w: RolloutWe
         err = lib.icrl_rollout_policy_bwd(
             n, steps, emb_dim, hidden, vocab, vp, bf16, _ptr(tape.tok), _ptr(tape.act),
             _ptr(dlogp), _ptr(tape.hp), _ptr(tape.cp), _ptr(tape.gp), _ptr(w.p_emb),
-            _ptr(w.p_w), _ptr(w.hw), _ptr(w.hb), _ptr(dlogits), _ptr(part), _ptr(dg), _ptr(dhw),
-            _ptr(dhb), _ptr(dh_head), _ptr(dph1), _ptr(dpc1), _ptr(dpw), _ptr(dpb), _ptr(dxp),
-            _stream(dev))
+            _ptr(w.p_w), _ptr(w.hw), _ptr(w.hb), _ptr(dlogits), _ptr(part), _ptr(dg), _ptr(dg16),
+            _ptr(h16), _ptr(dhw), _ptr(dhb), _ptr(dh_head), _ptr(dph1), _ptr(dpc1), _ptr(dpw),
+            _ptr(dpb), _ptr(dxp), _stream(dev))
         check_error(lib, "icrl_rollout_policy_bwd", err)
         err = lib.icrl_rollout_value_bwd(
             n, steps, f, emb_dim, hidden, bf16, _ptr(tape.tok), _ptr(dval), _ptr(feats),
             _ptr(tape.hv), _ptr(tape.cv), _ptr(tape.gv), _ptr(tape.v1), _ptr(w.v_emb),
             _ptr(w.v_w), _ptr(w.w1), _ptr(w.w2), _ptr(ridx), _ptr(tmp), _ptr(dv1), _ptr(part),
-            _ptr(dg), _ptr(dfh), _ptr(dw2), _ptr(db2), _ptr(dw1), _ptr(db1), _ptr(dfeat),
-            _ptr(dh_head_v), _ptr(dvh1), _ptr(dvc1), _ptr(dvw), _ptr(dvb), _ptr(dxv),
+            _ptr(dg), _ptr(dg16), _ptr(h16), _ptr(dfh), _ptr(dw2), _ptr(db2), _ptr(dw1), _ptr(db1),
+            _ptr(dfeat), _ptr(dh_head_v), _ptr(dvh1), _ptr(dvc1), _ptr(dvw), _ptr(dvb), _ptr(dxv),
             _stream(dev))
         check_error(lib, "icrl_rollout_value_bwd", err)
     fused_rollout.bwd_launches += 1

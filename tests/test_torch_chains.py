@@ -29,8 +29,10 @@ from image_captioning_through_rl_tpu.ops.pallas_lstm import fused_lstm_chain as 
 from image_captioning_through_rl_tpu_torch.models.convert import from_jax_params
 from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain, gru_chain_plain
 from image_captioning_through_rl_tpu_torch.ops.fused_lstm import (
+    _check_chain_inputs,
     fused_lstm_chain,
     lstm_chain_plain,
+    lstm_chain_plan,
 )
 from image_captioning_through_rl_tpu_torch.ops.rnn import gru_scan, lstm_scan
 
@@ -130,3 +132,60 @@ def test_chains_route_by_device_without_fallback():
         assert (chain.fwd_launches, chain.bwd_launches) == before
         with pytest.raises(RuntimeError, match="CUDA"):
             chain(*args, use_fused_kernel=True)
+
+
+def _blocks(plan, n, hidden):
+    """The (row, unit) pairs each block of a chain launch owns, walked as
+    the kernels walk them (csrc/lstm_chain.cuh)."""
+    rows, units = plan["rows_per_tile"], plan["units"]
+    tiles = -(-n // rows)
+    for s in range(plan["slices"]):
+        for g in range(plan["row_groups"]):
+            owned = set()
+            for rt in range(g, tiles, plan["row_groups"]):
+                for r in range(rt * rows, min(n, rt * rows + rows)):
+                    owned.update((r, j) for j in range(s * units, min(hidden, s * units + units)))
+            yield owned
+
+
+@pytest.mark.parametrize("backward", [False, True])
+@pytest.mark.parametrize("wd", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [1, 33, 512, 2000])
+def test_lstm_chain_plan_covers_each_row_and_unit_once(n, wd, backward):
+    """The cooperative launch's plan at COCO width on an H100 (132 SMs):
+    every (row, unit) falls to exactly one block, a block's shared memory
+    fits the 227 KB one block may opt in to, and the grid fits what the card
+    holds at once (a cooperative launch runs only if every block is
+    resident)."""
+    hidden, sms = 512, 132
+    plan = lstm_chain_plan(n, hidden, wd, sms, backward=backward)
+    seen = {}
+    for owned in _blocks(plan, n, hidden):
+        for pair in owned:
+            seen[pair] = seen.get(pair, 0) + 1
+    assert len(seen) == n * hidden and set(seen.values()) == {1}
+    assert plan["smem_bytes"] <= 227 * 1024
+    slices, groups = plan["grid"]
+    assert slices * groups <= plan["co_resident"] <= sms * (233472 // (plan["smem_bytes"] + 1024))
+    assert groups == min(-(-n // plan["rows_per_tile"]), plan["co_resident"] // slices)
+
+
+def test_lstm_chain_plan_refuses_what_one_sm_cannot_hold():
+    with pytest.raises(ValueError, match="shared memory"):
+        lstm_chain_plan(512, 2048, torch.bfloat16, 132)
+
+
+def test_chain_token_range_is_checked_on_the_device():
+    """The token-range check is a device assertion, not a host sync: on CPU
+    tensors it raises at once; in range it passes."""
+    jp, emb, toks, states, _ = _case("lstm")
+    args = (from_jax_params(jp), torch.from_numpy(emb.copy()))
+    states = tuple(map(torch.from_numpy, states))
+    for tokens, ok in ((toks, True), (toks + V, False), (toks - V, False)):
+        if ok:
+            _check_chain_inputs("fused_lstm_chain", *args, torch.from_numpy(tokens), states, 4,
+                                torch.bfloat16)
+            continue
+        with pytest.raises(RuntimeError, match="tokens must lie"):
+            _check_chain_inputs("fused_lstm_chain", *args, torch.from_numpy(tokens), states, 4,
+                                torch.bfloat16)

@@ -20,7 +20,12 @@ plain versions at a small shape and at the COCO shape (N = 512, T = 17,
 E = H = 512, V = 1004): ``hs`` and every gradient for a fixed upstream
 gradient, by relative Frobenius error, within 1e-4 with float32 weights
 (sum order alone) and 2e-2 with bf16 weights (sum order ahead of a bf16
-rounding of h or of a gate gradient moves it by one bf16 step, 2^-8).
+rounding of h or of a gate gradient moves it by one bf16 step, 2^-8). The
+LSTM chain's persistent kernels are also held so at COCO width at the
+batches and lengths that stress their launch plan (N in {1, 33, 2000}, T
+in {1, 16, 17}), must give bit-identical results on two calls, must
+launch once per forward and a fixed number of times per backward whatever
+T is, and must fail a bad token through the device-side assertion.
 
 The sampling kernel at the small widths, bf16 and float32 weights, for the
 four filter variants (none, top-k, nucleus, both) at t = 0.7: tokens equal
@@ -39,6 +44,10 @@ backward, run by kernel and plain on one shared forward tape, within
 ``CHAIN_TOL`` by relative Frobenius error (its recurrences are the LSTM
 chain's backward).
 """
+
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -205,7 +214,9 @@ CHAIN_SHAPES = {"small": (20, 7, 16, 16, 60), "coco": (512, 17, 512, 512, 1004)}
 
 
 def _chain_setup(dev, kind, shape):
-    n, t, e, h, v = CHAIN_SHAPES[shape]
+    """Chain operands from a seed; ``shape`` is a CHAIN_SHAPES key or an
+    (N, T, E, H, V) tuple."""
+    n, t, e, h, v = CHAIN_SHAPES.get(shape, shape)
     gen = torch.Generator().manual_seed(3)
     params = (lstm_init if kind == "lstm" else gru_init)(gen, e, h)
     emb = embedding_init(gen, v, e)
@@ -255,8 +266,6 @@ def test_chain_wrappers_reject_bad_inputs(dev):
         fused_lstm_chain(params, emb, tok, h0, c0.cpu())
     with pytest.raises(ValueError, match="float32"):
         fused_lstm_chain(params, emb.double(), tok, h0, c0)
-    with pytest.raises(ValueError, match="tokens must lie"):
-        fused_lstm_chain(params, emb, tok + 1000, h0, c0)
     odd = {k: v[:, :4 * 12] if v.dim() == 2 else v[:4 * 12] for k, v in params.items()}
     odd["wh"] = odd["wh"][:12]
     with pytest.raises(ValueError, match="multiples of 8"):
@@ -264,6 +273,86 @@ def test_chain_wrappers_reject_bad_inputs(dev):
     gparams, ginputs, gtok, _ = _chain_setup(dev, "gru", "small")
     with pytest.raises(ValueError, match="integers"):
         fused_gru_chain(gparams, ginputs[4], gtok.float(), ginputs[5])
+
+
+@pytest.mark.cuda
+def test_chain_bad_token_fails_on_the_card(dev):
+    """An out-of-range token fails the wrappers' device-side assertion (no
+    host sync in the call): the process's next synchronisation raises. A
+    failed device assertion ends the CUDA context, so it runs in a child."""
+    script = (
+        "import torch\n"
+        "from image_captioning_through_rl_tpu_torch.models.initializers import "
+        "embedding_init, lstm_init\n"
+        "from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain\n"
+        "gen = torch.Generator().manual_seed(0)\n"
+        "p = {k: v.cuda() for k, v in lstm_init(gen, 16, 16).items()}\n"
+        "emb = embedding_init(gen, 60, 16).cuda()\n"
+        "h = torch.zeros((4, 16), device='cuda')\n"
+        "fused_lstm_chain(p, emb, torch.full((4, 3), 60, device='cuda'), h, h)\n"
+        "torch.cuda.synchronize()\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    done = subprocess.run([sys.executable, "-c", script], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    assert done.returncode != 0 and "assert" in done.stderr.lower(), done.stderr[-2000:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 16, 17])
+@pytest.mark.parametrize("n", [1, 33, 2000])
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+def test_lstm_chain_kernels_match_plain_at_plan_edges(dev, wd, n, steps):
+    """The persistent kernels at batches that leave a row tile ragged (1,
+    33), that loop over row tiles inside a step (2000), and at one step."""
+    case = _chain_setup(dev, "lstm", (n, steps, 512, 512, 1004))
+    got = _chain_run("lstm", *case, wd, None)
+    torch.cuda.synchronize()
+    want = _chain_run("lstm", *case, wd, False)
+    for name, a, b in zip(["hs", "wi", "wh", "b", "embedding", "h0", "c0"], got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        rel = float((a - b).norm() / b.norm())
+        assert rel <= CHAIN_TOL[wd], f"N={n} T={steps} {name}: relative error {rel:.3g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+def test_lstm_chain_kernels_are_deterministic(dev, wd):
+    """Two identical calls give bit-identical hs and gradients (fixed-order
+    sums, no float atomics; the embedding gradient's index_add_ runs in
+    PyTorch's deterministic mode here)."""
+    case = _chain_setup(dev, "lstm", (512, 16, 512, 512, 1004))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        first, second = (_chain_run("lstm", *case, wd, None) for _ in range(2))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name, a, b in zip(["hs", "wi", "wh", "b", "embedding", "h0", "c0"], first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_lstm_chain_launches_do_not_grow_with_steps(dev):
+    """The forward is one chain kernel launch besides the x-gate table, the
+    backward one recurrence launch and two wgmma products, at T = 1 and 16."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    for steps in (1, 16):
+        case = _chain_setup(dev, "lstm", (64, steps, 512, 512, 1004))
+        _chain_run("lstm", *case, torch.bfloat16, None)
+        torch.cuda.synchronize()
+        before = fused_lstm_chain.fwd_launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _chain_run("lstm", *case, torch.bfloat16, None)
+            torch.cuda.synchronize()
+        assert fused_lstm_chain.fwd_launches == before + 1
+        names = [e.key for e in prof.key_averages() for _ in range(e.count)
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts[steps] = {k: sum(k in name for name in names)
+                         for k in ("lstm_fwd_kernel", "lstm_bwd_kernel", "wgmma_gemm_kernel",
+                                   "linear_kernel")}
+    assert counts[1] == counts[16] == {"lstm_fwd_kernel": 1, "lstm_bwd_kernel": 1,
+                                       "wgmma_gemm_kernel": 2, "linear_kernel": 1}, counts
 
 
 @pytest.mark.cuda
