@@ -37,10 +37,11 @@ Phases:
      launched; then one minibatch of each step, fused vs plain;
  10. timings (CUDA events): each chain's forward and backward, kernel,
      plain and library (cuDNN's torch.nn.LSTM / GRU with the chain's
-     weights), and one training step per trainer, fused and plain; the LSTM
+     weights), and one training step per trainer, fused and plain; each
      chain's launches per call at T = 8 and 16 (torch.profiler: the forward
-     one launch beside the x-gate table, the backward as many at either T),
-     and a torch.profiler window over one fused policy step;
+     one launch beside the x-gate table, the backward as many at either T
+     and no view_kernel) with its recurrence's device slope per step, and a
+     torch.profiler window over one fused policy step;
  11. the threefry noise kernel vs plain, [16, 512, 1004] for three keys;
  12. the reward stream kernel vs plain, bf16 and f32 weights, N = 512, on
      the actions and tokens of a kernel rollout, and against the rewards of
@@ -57,8 +58,8 @@ Phases:
  15. timings (CUDA events): the noise kernel, the reward stream, the
      rollout forward and backward, kernel and plain, one A2C step fused and
      plain, and a torch.profiler window over three fused A2C steps;
- 16. the sampling kernel vs plain: bf16 and f32 weights, N in {1, 1000,
-     1024}, four variants (unfiltered at t = 1.0, top-k 40 at t = 0.7,
+ 16. the sampling kernel vs plain: bf16 and f32 weights, N in {1, 1024},
+     four variants (unfiltered at t = 1.0, top-k 40 at t = 0.7,
      nucleus 0.9, top-k 40 with nucleus 0.9), one key each; column 0 the
      start token; with f32 weights, temperature-0 requests equal greedy;
  17. sampling main path: the server started through ``server.main`` with
@@ -70,7 +71,15 @@ Phases:
      answered 400; ``/stats`` with the sampling kernel launched, 0 errors;
  18. timings (CUDA events): the sampling kernel and plain at N = 1024,
      unfiltered and top-k 40 + nucleus 0.9, and at the served shape N = 64,
-     R = 4.
+     R = 4;
+ 19. the width faults repaired: train_reward_network and
+     train_policy_network at hidden_dim = 1024 (2 minibatches of 512 each,
+     chain launches counted, one minibatch of each step fused vs plain as in
+     phase 9); both chains at H = E = 2048, whose weights stream through the
+     ring, vs plain (phase 7's bounds); greedy, beam and top-k 40 + nucleus
+     0.9 sampling at V = 1001, E = H = F = 500 (weights padded by the
+     wrappers), and sampling at V = 2000 (one block per row), vs plain under
+     the near-tie rules, and that last one timed at N = 1024.
 
 The last JSON line but two lists every kernel with its launches on its main
 path (serving for greedy, beam and the x-gate table; the pretrainers for
@@ -166,8 +175,8 @@ is wider because the kernel's and cuBLAS's bf16 logits differ by up to
 measured at COCO width), 2.5e-4 once divided by t = 0.7, so a top-k
 boundary 1.7e-4 apart was seen to swap.
 
-The whole run takes 45-55 s of command time on the H100, build (7-10 s)
-included.
+The whole run takes about a minute of command time on the H100, the
+build included.
 """
 
 from __future__ import annotations
@@ -207,10 +216,18 @@ SAMPLE_VARIANTS = (("unfiltered", 1.0, 0, None), ("top-k 40", 0.7, 40, None),
                    ("nucleus 0.9", 1.0, 0, 0.9), ("top-k 40 + nucleus 0.9", 1.0, 40, 0.9))
 SERVE_BATCH, SERVE_MAX_SAMPLES = 64, 4
 H100_BF16, H100_F32, H100_BYTES = 989e12, 67e12, 3.35e12
+# phase 19: a hidden width whose chain slices shrink (trainers), a width whose
+# chain weights stream, an odd vocabulary and widths the wrappers pad, and a
+# vocabulary past one warp per sampled row
+WIDE_H, STREAM_H, STREAM_N, STREAM_T = 1024, 2048, 96, 5
+ODD_V, ODD_W, WIDE_V = 1001, 500, 2000
+
+
+T0 = time.perf_counter()
 
 
 def phase(name: str, msg: str) -> None:
-    print(f"[{name}] {msg}", flush=True)
+    print(f"[{name}] {msg} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def card_line() -> str:
@@ -260,21 +277,21 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def chain_case(kind: str, steps: int, dev):
-    """Random COCO-width chain inputs from the seed: parameters (leaves that
-    need gradients), embedding, tokens, initial state and an upstream
-    gradient of hs."""
+def chain_case(kind: str, steps: int, dev, n: int = CHAIN_N, width: int = H):
+    """Random chain inputs from the seed (COCO width unless ``width`` is
+    given, E = H): parameters (leaves that need gradients), embedding,
+    tokens, initial state and an upstream gradient of hs."""
     from image_captioning_through_rl_tpu_torch.models.initializers import (
         embedding_init, gru_init, lstm_init)
 
     gen = torch.Generator().manual_seed(SEED + steps)
-    params = (lstm_init if kind == "lstm" else gru_init)(gen, E, H)
+    params = (lstm_init if kind == "lstm" else gru_init)(gen, width, width)
     params = {k: v.to(dev).requires_grad_() for k, v in params.items()}
-    emb = embedding_init(gen, V, E).to(dev).requires_grad_()
-    tok = torch.randint(0, V, (CHAIN_N, steps), generator=gen).to(dev)
-    states = [(0.5 * torch.randn((CHAIN_N, H), generator=gen)).to(dev).requires_grad_()
+    emb = embedding_init(gen, V, width).to(dev).requires_grad_()
+    tok = torch.randint(0, V, (n, steps), generator=gen).to(dev)
+    states = [(0.5 * torch.randn((n, width), generator=gen)).to(dev).requires_grad_()
               for _ in range(2 if kind == "lstm" else 1)]
-    dhs = torch.randn((CHAIN_N, steps, H), generator=gen).to(dev)
+    dhs = torch.randn((n, steps, width), generator=gen).to(dev)
     return params, emb, tok, states, dhs
 
 
@@ -321,7 +338,7 @@ def compare_chains(dev) -> dict:
     return worst
 
 
-def synthetic_coco(seed: int):
+def synthetic_coco(seed: int, n_captions: int = N_CAPTIONS, n_images: int = N_IMAGES):
     """A COCO-width bundle in memory: vocab 1004 (the four specials, then
     1000 words drawn Zipf-like, so a unigram is there to learn), features
     512, captions <START> body <END> <NULL>* of length 17, two captions per
@@ -332,16 +349,16 @@ def synthetic_coco(seed: int):
     rng = np.random.default_rng(seed)
     words = ["<NULL>", "<START>", "<END>", "<UNK>"] + [f"w{i}" for i in range(4, V)]
     p = 1.0 / np.arange(1, V - 3)
-    body = 4 + rng.choice(V - 4, size=(N_CAPTIONS, T), p=p / p.sum())
-    lens = rng.integers(6, T + 1, size=N_CAPTIONS)  # with <START> and <END>
+    body = 4 + rng.choice(V - 4, size=(n_captions, T), p=p / p.sum())
+    lens = rng.integers(6, T + 1, size=n_captions)  # with <START> and <END>
     pos = np.arange(T)[None, :]
     caps = np.where(pos < lens[:, None] - 1, body, 0)
-    caps[np.arange(N_CAPTIONS), lens - 1] = END_ID
+    caps[np.arange(n_captions), lens - 1] = END_ID
     caps[:, 0] = START_ID
     caps = caps.astype(np.int32)
-    idxs = rng.permutation(np.repeat(np.arange(N_IMAGES), N_CAPTIONS // N_IMAGES))
-    feats = rng.standard_normal((N_IMAGES, F)).astype(np.float32)
-    urls = np.array([f"img{i}.jpg" for i in range(N_IMAGES)])
+    idxs = rng.permutation(np.repeat(np.arange(n_images), n_captions // n_images))
+    feats = rng.standard_normal((n_images, F)).astype(np.float32)
+    urls = np.array([f"img{i}.jpg" for i in range(n_images)])
     n_val = 64
     return CocoData(
         train_captions=caps, train_image_idxs=idxs.astype(np.int32),
@@ -874,38 +891,45 @@ def device_ops(prof) -> tuple[dict, dict]:
     return ms, counts
 
 
-CHAIN_KERNELS = ("lstm_fwd_kernel", "lstm_bwd_kernel", "wgmma_gemm_kernel", "linear_kernel",
-                 "colsum_part_kernel", "colsum_finish_kernel")
+CHAIN_KERNELS = ("lstm_fwd_kernel", "lstm_bwd_kernel", "gru_fwd_kernel", "gru_bwd_kernel",
+                 "wgmma_gemm_kernel", "linear_kernel", "colsum_part_kernel",
+                 "colsum_finish_kernel", "view_kernel")
 
 
 def chain_launches(dev) -> dict:
-    """Phase 10: the LSTM chain kernels launched by one fused forward and by
-    one backward (bf16, N = 512) at T = 8 and T = 16, from the profiler, and
-    the recurrence kernels' device ms at each T. The forward must be one
-    chain launch beside the x-gate table, and the backward's launches must
-    not depend on T."""
+    """Phase 10: the LSTM and GRU chain kernels launched by one fused
+    forward and by one backward (bf16, N = 512) at T = 8 and T = 16, from
+    the profiler, and the recurrence kernels' device ms at each T. Each
+    forward must be one chain launch beside the x-gate table, and each
+    backward's launches must not depend on T, with no view_kernel. Also each
+    call's device time in all (the wrappers' casts and copies, the embedding
+    gradient's index_add_ included)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain
     from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
 
     out = {}
-    for steps in (8, 16):
-        params, emb, tok, states, dhs = chain_case("lstm", steps, dev)
-        hs = fused_lstm_chain(params, emb, tok, *states)
-        torch.cuda.synchronize()
-        for d, run in (("fwd", lambda: fused_lstm_chain(params, emb, tok, *states)),
-                       ("bwd", lambda: torch.autograd.grad(
-                           hs, [*params.values(), emb, *states], dhs, retain_graph=True))):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                run()
-                torch.cuda.synchronize()
-            ms, counts = device_ops(prof)
-            out[(steps, d)] = {k: counts[k] for k in CHAIN_KERNELS if counts.get(k)}
-            out[(steps, d, "ms")] = ms.get(f"lstm_{d}_kernel", 0.0)
-    if (out[(8, "fwd")] != out[(16, "fwd")]
-            or out[(8, "fwd")] != {"lstm_fwd_kernel": 1, "linear_kernel": 1}
-            or out[(8, "bwd")] != out[(16, "bwd")] or out[(8, "bwd")].get("lstm_bwd_kernel") != 1):
-        raise AssertionError(f"LSTM chain launches per call by T: {out}")
+    for kind, chain in (("lstm", fused_lstm_chain), ("gru", fused_gru_chain)):
+        for steps in (8, 16):
+            params, emb, tok, states, dhs = chain_case(kind, steps, dev)
+            hs = chain(params, emb, tok, *states)
+            torch.cuda.synchronize()
+            for d, run in (("fwd", lambda: chain(params, emb, tok, *states)),
+                           ("bwd", lambda: torch.autograd.grad(
+                               hs, [*params.values(), emb, *states], dhs, retain_graph=True))):
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    run()
+                    torch.cuda.synchronize()
+                ms, counts = device_ops(prof)
+                out[(kind, steps, d)] = {k: counts[k] for k in CHAIN_KERNELS if counts.get(k)}
+                out[(kind, steps, d, "ms")] = ms.get(f"{kind}_{d}_kernel", 0.0)
+                out[(kind, steps, d, "device")] = sum(ms.values())
+        fwd8, fwd16 = out[(kind, 8, "fwd")], out[(kind, 16, "fwd")]
+        bwd8, bwd16 = out[(kind, 8, "bwd")], out[(kind, 16, "bwd")]
+        if (fwd8 != fwd16 or fwd8 != {f"{kind}_fwd_kernel": 1, "linear_kernel": 1}
+                or bwd8 != bwd16 or bwd8.get(f"{kind}_bwd_kernel") != 1 or "view_kernel" in bwd8):
+            raise AssertionError(f"{kind} chain launches per call by T: {out}")
     return out
 
 
@@ -975,7 +999,7 @@ def compare_sampling(weights: dict, inputs, params, dev) -> float:
 
     worst = 0.0
     for wd, (gw, _) in weights.items():
-        for n in (1, 1000, 1024):
+        for n in (1, 1024):
             feats, start = inputs(n)
             report = []
             for i, (name, t, k, p) in enumerate(SAMPLE_VARIANTS):
@@ -1112,11 +1136,207 @@ def time_sampling(gw, inputs) -> dict:
         s = start[:f.shape[0]].contiguous()
         times[(label, "ms")] = cuda_ms(lambda: fused_sample_decode(gw, f, s, key, T, t, k, p), 20)
         times[(label, "plain_ms")] = cuda_ms(
-            lambda: sample_decode_plain(gw, f, s, key, T, t, k, p), 3)
+            lambda: sample_decode_plain(gw, f, s, key, T, t, k, p), 1)
     _, t, k, p = SAMPLE_VARIANTS[3]
     times["profile"] = profile_window(
         lambda: fused_sample_decode(gw, feats, start, key, T, t, k, p), 5)
     return times
+
+
+# --------------------------------------------------------------------------
+# Phase 19: the width faults repaired (any hidden width, any vocabulary, any
+# widths the kernels pad)
+# --------------------------------------------------------------------------
+
+def wide_trainers(dev, tmp: str) -> dict:
+    """Phase 19a: train_reward_network and train_policy_network on the card
+    at hidden_dim = 1024 (whose chain slices shrink to 16 and 8 units), one
+    epoch of 2 minibatches each, then one minibatch of each step fused vs
+    plain. Returns the chain kernels' launches during the trainers' run."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain
+    from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
+    from image_captioning_through_rl_tpu_torch.train import loops, steps
+
+    dims = {"hidden_dim": WIDE_H}
+    data = synthetic_coco(SEED + 1, 2 * BATCH, BATCH)
+    paths = {f"{k}_network": os.path.join(tmp, f"wide_{k}Network.pt")
+             for k in ("reward", "policy")}
+    counters = {"lstm_chain_fwd": (fused_lstm_chain, "fwd_launches"),
+                "lstm_chain_bwd": (fused_lstm_chain, "bwd_launches"),
+                "gru_chain_fwd": (fused_gru_chain, "fwd_launches"),
+                "gru_chain_bwd": (fused_gru_chain, "bwd_launches")}
+    kw = dict(epochs=1, batch_size=BATCH, seed=SEED, device=dev, net_dims=dims)
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    nets = {"reward": loops.train_reward_network(data, paths, tmp, False, **kw),
+            "policy": loops.train_policy_network(data, paths, tmp, False, **kw)}
+    torch.cuda.synchronize()
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
+    if min(launches.values()) < 2:
+        raise AssertionError(f"the wide trainers skipped a chain kernel: {launches}")
+    if nets["policy"]["lstm"]["wh"].shape != (WIDE_H, 4 * WIDE_H):
+        raise AssertionError("the policy was not trained at the asked width")
+    cfg = loops._cfg_for(data, False, dims)
+    feats = torch.from_numpy(data.train_features[data.train_image_idxs[:BATCH]]).to(dev)
+    caps = torch.from_numpy(data.train_captions[:BATCH]).to(dev).long()
+    caplens = steps.batch_caption_lens(caps)
+    report = []
+    for kind, loss_fn in (
+            ("reward", lambda p, fused: (steps.reward_loss_fused if fused else
+                                         steps.reward_loss)(p, cfg, feats, caps)),
+            ("policy", lambda p, fused: (steps.policy_loss_fused if fused else
+                                         steps.policy_loss)(p, cfg, feats, caps, caplens))):
+        out = {}
+        for fused in (True, False):
+            p = {k: ({kk: vv.detach().clone().requires_grad_() for kk, vv in v.items()}
+                     if isinstance(v, dict) else v.detach().clone().requires_grad_())
+                 for k, v in nets[kind].items()}
+            loss = loss_fn(p, fused)
+            names, ts = zip(*leaves(p))
+            out[fused] = (float(loss.detach()), torch.autograd.grad(loss, ts), names)
+        (lf, gf, names), (lp, gp, _) = out[True], out[False]
+        rel = abs(lf - lp) / abs(lp)
+        cos = min(float(torch.nn.functional.cosine_similarity(a.flatten(), b.flatten(), dim=0))
+                  for a, b in zip(gf, gp))
+        if not (np.isfinite(lf) and rel <= STEP_LOSS_TOL and cos >= GRAD_COS):
+            raise AssertionError(f"wide {kind} step: fused loss {lf} vs plain {lp} (relative "
+                                 f"{rel:.3g}), smallest gradient cosine {cos}")
+        report.append(f"{kind} loss {lf:.6f} vs plain {lp:.6f} (relative {rel:.2e}), "
+                      f"smallest gradient cosine {cos:.6f}")
+    phase("faults", f"trainers at hidden_dim={WIDE_H}, 2 minibatches of {BATCH} each: "
+                    f"chain launches {launches}; " + "; ".join(report))
+    return launches
+
+
+def streamed_chains(dev) -> None:
+    """Phase 19b: both chains at a width whose weights stream through the
+    ring (H = E = 2048), small N and T, against their plain versions."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_gru import gru_chain_plan
+    from image_captioning_through_rl_tpu_torch.ops.fused_lstm import lstm_chain_plan
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for kind, plan in (("lstm", lstm_chain_plan), ("gru", gru_chain_plan)):
+        if not all(plan(STREAM_N, STREAM_H, wd, sms, b)["stream"]
+                   for wd in (torch.bfloat16, torch.float32) for b in (False, True)):
+            raise AssertionError(f"{kind} chain at H={STREAM_H} does not stream")
+        case = chain_case(kind, STREAM_T, dev, STREAM_N, STREAM_H)
+        names = ["hs", *case[0], "embedding", "h0", "c0"]
+        for wd in (torch.bfloat16, torch.float32):
+            got = chain_run(kind, case, wd, None)
+            torch.cuda.synchronize()
+            want = chain_run(kind, case, wd, False)
+            rels = []
+            for name, a, b in zip(names, got, want):
+                rel = float((a - b).norm() / b.norm())
+                if (a.shape != b.shape or not bool(torch.isfinite(a).all())
+                        or not rel <= CHAIN_TOL[wd]):
+                    raise AssertionError(f"streamed {kind} chain {wd} {name}: relative error "
+                                         f"{rel:.3g}")
+                rels.append(rel)
+            phase("faults", f"{kind} chain H=E={STREAM_H} (streamed weights) N={STREAM_N} "
+                            f"T={STREAM_T} {str(wd)[6:]}: largest relative error {max(rels):.3g} "
+                            f"(bound {CHAIN_TOL[wd]})")
+
+
+def padded_decodes(dev) -> None:
+    """Phase 19c: greedy, beam and sampling at V = 1001, E = H = F = 500
+    (weights padded by the wrappers), bf16 and f32, against their plain
+    versions under the near-tie rules."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.config import NetConfig
+    from image_captioning_through_rl_tpu_torch.models import a2c
+    from image_captioning_through_rl_tpu_torch.ops import prng
+    from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
+        beam_search_plain, fused_beam_search, prepare_beam_weights)
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
+        fused_greedy_decode, greedy_decode_plain, prepare_greedy_weights)
+    from image_captioning_through_rl_tpu_torch.ops.fused_sample import (
+        fused_sample_decode, sample_decode_plain)
+
+    cfg = NetConfig(vocab_size=ODD_V, input_dim=ODD_W, wordvec_dim=ODD_W, hidden_dim=ODD_W,
+                    max_seq_len=T)
+    params = to_device(a2c.init(torch.Generator().manual_seed(SEED + 3), cfg), dev)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    n = 256
+    feats = torch.randn((n, ODD_W), generator=gen).to(dev)
+    start = torch.full((n,), START_ID, dtype=torch.int32, device=dev)
+    for wd in (torch.bfloat16, torch.float32):
+        gw = prepare_greedy_weights(params["policy"], wd)
+        if gw.widths != (ODD_W, ODD_W, ODD_W) or gw.wo.shape[1] != ODD_V + 1:
+            raise AssertionError(f"the odd-width policy was not padded: {gw.widths}")
+        bw = prepare_beam_weights(gw, params["value"])
+        k_tok = fused_greedy_decode(gw, feats, start, T)
+        torch.cuda.synchronize()
+        p_tok, gaps = greedy_decode_plain(gw, feats, start, T, margins=True)
+        g_bad, _, _ = check_rows(
+            "padded greedy", k_tok, p_tok,
+            lambda bad: gaps[bad].gather(
+                1, first_divergent_step(k_tok[bad], p_tok[bad])[:, None].long())[:, 0])
+        k_tok, k_sc = fused_beam_search(bw, feats[:64], start[:64], T, BEAM)
+        p_tok, p_sc, margins = beam_search_plain(bw, feats[:64], start[:64], T, BEAM,
+                                                 margins=True)
+        b_bad, _, _ = check_rows("padded beam", k_tok, p_tok,
+                                 lambda bad: margins[bad].min(dim=1).values)
+        same = ~(k_tok != p_tok).reshape(64, -1).any(dim=1)
+        if float((k_sc - p_sc)[same].abs().max()) > SCORE_TOL[wd]:
+            raise AssertionError("padded beam scores differ")
+        key = prng.PRNGKey(SEED + 5)
+        _, t, k, p = SAMPLE_VARIANTS[3]
+        k_tok = fused_sample_decode(gw, feats, start, key, T, t, k, p)
+        torch.cuda.synchronize()
+        p_tok, margins = sample_decode_plain(gw, feats, start, key, T, t, k, p, margins=True)
+        s_bad, _, _ = check_rows(
+            "padded sample", k_tok, p_tok,
+            lambda bad: margins[bad].gather(
+                1, first_divergent_step(k_tok[bad], p_tok[bad])[:, None].long())[:, 0],
+            SAMPLE_NEAR_TIE[wd])
+        if int(k_tok.max()) >= ODD_V:
+            raise AssertionError("a padded word was sampled")
+        phase("faults", f"V={ODD_V} E=H=F={ODD_W} {str(wd)[6:]} (padded to {gw.wc.shape[0]}, "
+                        f"head {gw.wo.shape[1]}): rows that differ at near-ties: greedy "
+                        f"{g_bad}/{n}, beam {b_bad}/64, top-k 40 + nucleus 0.9 {s_bad}/{n}")
+
+
+def wide_vocab_sampling(dev) -> dict:
+    """Phase 19d: sampling at V = 2000 (one block per row), COCO widths, top-k
+    40 + nucleus 0.9, bf16 and f32, against the plain version under the
+    near-tie rule; then its time at N = 1024 (bf16), kernel and plain."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.config import NetConfig
+    from image_captioning_through_rl_tpu_torch.models import a2c
+    from image_captioning_through_rl_tpu_torch.ops import prng
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import prepare_greedy_weights
+    from image_captioning_through_rl_tpu_torch.ops.fused_sample import (
+        WARP_VOCAB, fused_sample_decode, sample_decode_plain)
+
+    cfg = NetConfig(vocab_size=WIDE_V, input_dim=F, wordvec_dim=E, hidden_dim=H, max_seq_len=T)
+    policy = to_device(a2c.init(torch.Generator().manual_seed(SEED + 6), cfg)["policy"], dev)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    n = 1024
+    feats = torch.randn((n, F), generator=gen).to(dev)
+    start = torch.full((n,), START_ID, dtype=torch.int32, device=dev)
+    _, t, k, p = SAMPLE_VARIANTS[3]
+    key = prng.PRNGKey(SEED + 8)
+    assert WIDE_V > WARP_VOCAB
+    out = {}
+    for wd in (torch.bfloat16, torch.float32):
+        gw = prepare_greedy_weights(policy, wd)
+        k_tok = fused_sample_decode(gw, feats, start, key, T, t, k, p)
+        torch.cuda.synchronize()
+        p_tok, margins = sample_decode_plain(gw, feats, start, key, T, t, k, p, margins=True)
+        n_bad, gap, err = check_rows(
+            f"sample V={WIDE_V} {wd}", k_tok, p_tok,
+            lambda bad: margins[bad].gather(
+                1, first_divergent_step(k_tok[bad], p_tok[bad])[:, None].long())[:, 0],
+            SAMPLE_NEAR_TIE[wd])
+        out[("err", wd)] = err
+        phase("faults", f"sampling V={WIDE_V} {str(wd)[6:]} N={n}, top-k 40 + nucleus 0.9: "
+                        f"{n_bad} row(s) differ (margin there {gap:.3g})")
+        if wd == torch.bfloat16:
+            out["ms"] = cuda_ms(lambda: fused_sample_decode(gw, feats, start, key, T, t, k, p), 20)
+            out["plain_ms"] = cuda_ms(
+                lambda: sample_decode_plain(gw, feats, start, key, T, t, k, p), 1)
+    return out
 
 
 def work(nbytes: float, flops: float, peak: float = H100_BF16,
@@ -1395,13 +1615,17 @@ def main() -> int:
             f"{net} step: fused {tt[(net, 'step', 'ms')]:.3f} ms, plain "
             f"{tt[(net, 'step', 'plain_ms')]:.3f} ms" for net in ("reward", "policy", "value")))
         cl = tt["chain_launches"]
-        phase("profile", f"{card} | LSTM chain launches per call (N = {CHAIN_N}, bf16): "
-                         + "; ".join(f"T={k[0]} {k[1]} {v}" for k, v in cl.items() if len(k) == 2)
-                         + " | recurrence kernel device ms at T = 8 / 16 (per step, rest): "
-                         + "; ".join(f"{d} {cl[(8, d, 'ms')]:.4f} / {cl[(16, d, 'ms')]:.4f} "
-                                     f"({(cl[(16, d, 'ms')] - cl[(8, d, 'ms')]) / 8 * 1e3:.2f} us, "
-                                     f"{2 * cl[(8, d, 'ms')] - cl[(16, d, 'ms')]:.4f} ms)"
-                                     for d in ("fwd", "bwd")))
+        for net in ("lstm", "gru"):
+            phase("profile", f"{card} | {net.upper()} chain launches per call (N = {CHAIN_N}, "
+                             f"bf16): " + "; ".join(f"T={k[1]} {k[2]} {v}" for k, v in cl.items()
+                                                    if len(k) == 3 and k[0] == net)
+                  + " | recurrence kernel device ms at T = 8 / 16 (per step, rest): "
+                  + "; ".join(f"{d} {cl[(net, 8, d, 'ms')]:.4f} / {cl[(net, 16, d, 'ms')]:.4f} "
+                              f"({(cl[(net, 16, d, 'ms')] - cl[(net, 8, d, 'ms')]) / 8 * 1e3:.2f}"
+                              f" us, {2 * cl[(net, 8, d, 'ms')] - cl[(net, 16, d, 'ms')]:.4f} ms)"
+                              for d in ("fwd", "bwd"))
+                  + " | all device ms per call at T = 16: " + "; ".join(
+                      f"{d} {cl[(net, 16, d, 'device')]:.4f}" for d in ("fwd", "bwd")))
         phase("profile", f"{card} | fused policy step, batch {BATCH}: {tt['policy_profile']}")
 
         # phases 11-13: the noise, reward stream and rollout kernels vs plain
@@ -1432,6 +1656,16 @@ def main() -> int:
     phase("profile", f"{card} | sampling kernel, N = 1024, top-k 40 + nucleus 0.9: "
                      f"{ts['profile']}")
 
+    # phase 19: the width faults repaired
+    with tempfile.TemporaryDirectory() as tmp:
+        wide_trainers(dev, tmp)
+    streamed_chains(dev)
+    padded_decodes(dev)
+    wv = wide_vocab_sampling(dev)
+    phase("timing", f"{card} | bf16 weights | sampling V={WIDE_V} (one block per row), N=1024, "
+                    f"top-k 40 + nucleus 0.9: kernel {wv['ms']:.3f} ms, plain "
+                    f"{wv['plain_ms']:.3f} ms")
+
     # the library call that computes the x-gate table's function
     emb, wi = gw.emb, gw.w[:E]
     tab_library = cuda_ms(lambda: torch.mm(emb, wi, out_dtype=torch.float32), 20)
@@ -1459,7 +1693,7 @@ def main() -> int:
             ("lstm", "pallas_lstm.py", (158, 184), 16), ("gru", "pallas_gru.py", (139, 167), 17)):
         for d, at in (("fwd", fwd_at), ("bwd", bwd_at)):
             kernels.append(entry(
-                f"{net}_chain_{d}", f"{net}_chain.cu", f"{line}:{at}",
+                f"{net}_chain_{d}", f"{net}_chain{'_bwd' if d == 'bwd' else ''}.cu", f"{line}:{at}",
                 train_launches[f"{net}_chain_{d}"], chain_err[(net, d)], tt[(net, d, "ms")],
                 tt[(net, d, "plain_ms")], f"N={CHAIN_N} T={length} E=H={H} V={V} bf16",
                 tt[(net, d, "library_ms")]))

@@ -3,10 +3,10 @@
 // gru_chain.cu).
 //
 // Every product the TPU kernels compute in their own bodies (the h0 projection,
-// the LSTM and GRU gates, the vocab head, the critic cell, the value MLP and
-// the GRU chain's backward products), except the LSTM chain's (its
-// persistent kernels and wgmma products, lstm_chain.cuh and wgmma.cuh; with
-// float32 weights its products after the loop still run here), runs through
+// the LSTM and GRU gates, the vocab head, the critic cell, the value MLP),
+// except the training chains' (their persistent kernels and wgmma products,
+// chain.cuh and wgmma.cuh; with float32 weights their products after the
+// loop still run here), runs through
 // a 64 x 64 block tile with float32 accumulation: on the tensor
 // cores (WMMA, gemm_tile_tc) when both operands are bf16 values, else on the
 // CUDA cores (gemm_tile). Weights are float or __nv_bfloat16 (template W);

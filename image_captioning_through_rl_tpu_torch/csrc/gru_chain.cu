@@ -16,145 +16,165 @@
 // gradients) stay float32.
 //
 // What bounds it here: as in lstm_chain.cu, a chain of small dependent
-// products ([N, 512] x [512, 1536] per step each way), one wave of block
-// tiles at N = 512, bound by launch latency and the tile's instruction rate,
-// not bytes. The design is lstm_chain.cu's:
+// products ([N, 512] x [512, 1536] per step each way), a microsecond of the
+// tensor cores' time each at N = 512; what a step costs is moving its
+// operands into the SMs and the wait between steps. The design is the LSTM
+// chain's (chain.cuh, lstm_chain.cu's note):
 //   * gi depends on the token alone: the wrapper builds the table
-//     emb @ wi + bi once per call (token_gates.cu; bi added after the
-//     product, as gi is formed), so each forward step runs rnd(h) @ wh with
-//     the gate math and the update in its epilogue. A block owns 16 hidden
-//     units, i.e. 48 of its tile's 64 columns (three gates; the fourth group
-//     of 16 columns stays empty).
-//   * The backward keeps per step an elementwise pass (dgi, dgh from the
-//     tape, dgh's n part times r) and the product
-//     dh_prev = rnd(dgh) @ rnd(wh)^T + dh * z; dwi, dwh, dbi, dbh and
-//     dx = rnd(dgi) @ rnd(wi)^T run once after the loop over all T N rows.
-//   * The step loop runs on the host inside one C call per direction.
-#include "common.cuh"
+//     emb @ wi + bi once per call (token_gates.cu), so each forward step runs
+//     only rnd(h) @ wh.
+//   * The forward's recurrence is one persistent cooperative launch: block
+//     (slice, group) keeps the 3U gate-major columns of its U units of wh in
+//     shared memory, streams the step's rnd(h) rows through the cp.async
+//     ring into mma.sync, and runs the cell in the epilogue from the x-gate
+//     rows it loaded before the product; a grid barrier ends each step. It
+//     reads h0 itself and writes h (float32 tape and hs) and the bf16 rnd(h)
+//     that the next step and the backward's products read.
+//   * The backward's recurrence is one cooperative launch too: block (slice,
+//     group) keeps its U rows of wh [U, 3H], streams rnd(dgh_t) (K = 3H) and
+//     forms dh_prev = rnd(dgh_t) @ wh^T + dh z for its units, then the gate
+//     gradients of step t - 1 from the tape: float32 dgi and dgh (the bias
+//     sums) and their bf16 copies (the products).
+//   * The products that do not recur run once after the loop over all T N
+//     rows, on wgmma (wgmma.cuh) for bf16 weights: dwi = x^T rnd(dgi) with x
+//     gathered through the tokens and dwh = rnd(h_prev)^T rnd(dgh) in one
+//     launch (each alone fills only 48 of the 132 SMs at COCO width), dx =
+//     rnd(dgi) @ rnd(wi)^T; dbi and dbh as fixed-order column sums. Float32
+//     weights keep the CUDA-core tile products (common.cuh).
+//   * Wide chains take the plan's streaming mode (chain.cuh).
+// The backward's kernel and entry point are in gru_chain_bwd.cu.
+#include "chain.cuh"
 
 namespace icrl {
 namespace {
 
 template <typename W>
-struct GruStepArgs {
-  int n, H;
-  const int* tok;      // [n] this step's tokens
-  const float* xg;     // [V, 3H] table emb @ wi + bi
-  const W* wh;         // [H, 3H]
-  const float* bh;     // [3H]
-  const float* h_in;   // [n, H]
-  float* h_out;        // [n, H]
-  float* gates;        // [n, 3H] r, z, n
-  float* ghn;          // [n, H] gh_n = (rnd(h) @ wh + bh)[:, 2H:]
+struct GruFwdArgs {
+  int n, T, H, row_groups;
+  const int* tok;       // [T, n] step-major tokens
+  const float* xg;      // [V, 3H] table emb @ wi + bi
+  const W* wh;          // [H, 3H]
+  const float* bh;      // [3H]
+  const float* h0;      // [n, H] initial state
+  float* hbuf;          // [(T + 1) n, H]: h entering step t in rows t n .. t n + n
+  float* gates;         // [T n, 3H] r, z, n
+  float* ghn;           // [T n, H] gh_n = (rnd(h) @ wh + bh)[:, 2H:]
+  float* hs;            // [n, T, H] h leaving each step
+  __nv_bfloat16* h16;   // [(T + 1) n, H] rnd(h) as hbuf (bf16 weights only)
 };
 
-template <typename W>
-__global__ void __launch_bounds__(NT) gru_chain_step_kernel(GruStepArgs<W> a) {
-  __shared__ int s_tok[BM];
-  const int row0 = blockIdx.x * BM, j0 = blockIdx.y * UNITS, H = a.H, G = 3 * H;
-  if (threadIdx.x < BM) {
-    const int r = row0 + threadIdx.x;
-    s_tok[threadIdx.x] = r < a.n ? a.tok[r] : 0;
-  }
-  __syncthreads();
-  auto arow = [&](int m) { return row0 + m < a.n ? row0 + m : -1; };
-  auto bcol = [&](int c) {  // tile column c = gate * UNITS + unit; gate 3 is empty
-    const int gate = c / UNITS, j = j0 + c % UNITS;
-    return gate < 3 && j < H ? gate * H + j : -1;
-  };
-  float acc[4][4];
-  gemm<kIsBf16<W>>(acc, H, a.h_in, H, arow, a.wh, G, bcol);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, j = j0 + tx;
-  if (j >= H) return;
+template <typename W, int U, bool kStream>
+__global__ void __launch_bounds__(CHAIN_THREADS, 1) gru_fwd_kernel(GruFwdArgs<W> a) {
+  using Tl = ChainTile<W, false, U, 3, kStream>;
+  using S = ChainSmem<Tl>;
+  constexpr int ROWS = CHAIN_THREADS / U, CELLS = CHAIN_BR / ROWS;
+  extern __shared__ __align__(16) unsigned char gru_fwd_smem[];
+  const int H = a.H, G = 3 * H, n = a.n, tid = threadIdx.x, u = tid % U;
+  const S sm(gru_fwd_smem, H);
+  const int slices = (H + U - 1) / U;
+  if constexpr (!kStream) chain_load_weights<Tl>(sm, a.wh, H, blockIdx.x * U);
+  const size_t NH = (size_t)n * H;
+  const int tiles = (n + CHAIN_BR - 1) / CHAIN_BR;
+  // this thread's cells: unit j of rows row0 + tid / U + i ROWS; loads read
+  // a valid row and unit (the last ones) where the cell lies outside
+  auto cell_row = [&](int row0, int i) { return row0 + tid / U + i * ROWS; };
+  int tk[CELLS];
+  auto load_tokens = [&](int t, int rt) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = ty + 16 * i, r = row0 + m;
-    if (r >= a.n) continue;
-    const float* x = a.xg + (size_t)s_tok[m] * G;
-    const size_t o = (size_t)r * H + j;
-    const float gh_r = acc[i][0] + a.bh[j];
-    const float gh_z = acc[i][1] + a.bh[H + j];
-    const float gh_n = acc[i][2] + a.bh[2 * H + j];
-    const float rg = sigmoid(x[j] + gh_r);
-    const float zg = sigmoid(x[H + j] + gh_z);
-    const float ng = tanhf(x[2 * H + j] + rg * gh_n);
-    a.h_out[o] = (1.f - zg) * ng + zg * a.h_in[o];
-    float* g = a.gates + (size_t)r * G + j;
-    g[0] = rg;
-    g[H] = zg;
-    g[2 * H] = ng;
-    a.ghn[o] = gh_n;
+    for (int i = 0; i < CELLS; ++i)
+      tk[i] = ld_early_nc(a.tok + (size_t)t * n + min(cell_row(rt * CHAIN_BR, i), n - 1));
+  };
+  load_tokens(0, blockIdx.y);
+  cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  for (int t = 0; t < a.T; ++t) {
+    for (int s = blockIdx.x; s < slices; s += gridDim.x) {
+      const int j0 = s * U, j = j0 + u, jc = min(j, H - 1);
+      float bias[3];
+#pragma unroll
+      for (int g = 0; g < 3; ++g) bias[g] = j < H ? a.bh[g * H + j] : 0.f;
+      for (int rt = blockIdx.y; rt < tiles; rt += a.row_groups) {
+        const int row0 = rt * CHAIN_BR;
+        float xv[CELLS][3], hv[CELLS];
+#pragma unroll
+        for (int i = 0; i < CELLS; ++i) {
+          const float* x = a.xg + (size_t)tk[i] * G + jc;
+#pragma unroll
+          for (int g = 0; g < 3; ++g) xv[i][g] = ld_early_nc(x + g * H);
+          const size_t o = (size_t)min(cell_row(row0, i), n - 1) * H + jc;
+          hv[i] = t == 0 ? ld_early_nc(a.h0 + o) : ld_early(a.hbuf + t * NH + o);
+        }
+        if (rt + a.row_groups < tiles)
+          load_tokens(t, rt + a.row_groups);
+        else if (s + (int)gridDim.x < slices)
+          load_tokens(t, blockIdx.y);
+        else if (t + 1 < a.T)
+          load_tokens(t + 1, blockIdx.y);
+        // rnd(h_t): the float32 h0 at t = 0 (rounded as it is staged), then
+        // the bf16 copy the step before wrote; float32 weights read the tape
+        if (t == 0)
+          chain_product<Tl>(sm, a.h0, H, row0, n, H, a.wh, H, j0);
+        else if constexpr (kIsBf16<W>)
+          chain_product<Tl>(sm, a.h16 + t * NH, H, row0, n, H, a.wh, H, j0);
+        else
+          chain_product<Tl>(sm, a.hbuf + t * NH, H, row0, n, H, a.wh, H, j0);
+        __syncthreads();
+        // the cells' gate math first, without branches; then the stores
+        float rg[CELLS], zg[CELLS], ng[CELLS], ghn[CELLS], hn[CELLS];
+#pragma unroll
+        for (int i = 0; i < CELLS; ++i) {
+          const float* acc = sm.Cs + (cell_row(0, i)) * S::CLD + u;
+          const float gh_r = acc[0] + bias[0], gh_z = acc[U] + bias[1];
+          ghn[i] = acc[2 * U] + bias[2];
+          rg[i] = sigmoid(xv[i][0] + gh_r);
+          zg[i] = sigmoid(xv[i][1] + gh_z);
+          ng[i] = tanhf(xv[i][2] + rg[i] * ghn[i]);
+          hn[i] = (1.f - zg[i]) * ng[i] + zg[i] * hv[i];
+        }
+        if (j < H) {
+#pragma unroll
+          for (int i = 0; i < CELLS; ++i) {
+            const int row = cell_row(row0, i);
+            if (row >= n) continue;
+            const size_t o = (size_t)row * H + j;
+            if (t == 0) {  // the tape starts with the initial state
+              a.hbuf[o] = hv[i];
+              if constexpr (kIsBf16<W>) a.h16[o] = __float2bfloat16_rn(hv[i]);
+            }
+            a.hbuf[(t + 1) * NH + o] = hn[i];
+            a.hs[((size_t)row * a.T + t) * H + j] = hn[i];
+            if constexpr (kIsBf16<W>) a.h16[(t + 1) * NH + o] = __float2bfloat16_rn(hn[i]);
+            float* gp = a.gates + ((size_t)t * n + row) * G + j;
+            gp[0] = rg[i];
+            gp[H] = zg[i];
+            gp[2 * H] = ng[i];
+            a.ghn[(size_t)t * NH + o] = ghn[i];
+          }
+        }
+        __syncthreads();  // Cs serves the next row tile
+      }
+    }
+    if (t + 1 < a.T) grid.sync();
   }
 }
 
-// The gate gradients of one step, one thread per (row, unit): dgi, dgh
-// [n, 3H] from the tape and dh = carry + upstream; dh is replaced by its
-// direct part dh * z, to which the product adds dgh @ wh^T.
-__global__ void gru_chain_grad_kernel(int n, int H, const float* __restrict__ gates,
-                                      const float* __restrict__ ghn,
-                                      const float* __restrict__ h_prev,
-                                      const float* __restrict__ dh_up, float* __restrict__ dh,
-                                      float* __restrict__ dgi, float* __restrict__ dgh) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)n * H) return;
-  const size_t r = idx / H, j = idx % H, G = 3 * (size_t)H;
-  const float* g = gates + r * G + j;
-  const float rg = g[0], zg = g[H], ng = g[2 * H];
-  const float dhv = dh[idx] + dh_up[idx];
-  const float dz = dhv * (h_prev[idx] - ng);
-  const float dn = dhv * (1.f - zg);
-  const float dn_pre = dn * (1.f - ng * ng);
-  const float dr = dn_pre * ghn[idx];
-  const float dr_pre = dr * rg * (1.f - rg);
-  const float dz_pre = dz * zg * (1.f - zg);
-  float* di = dgi + r * G + j;
-  float* dhh = dgh + r * G + j;
-  di[0] = dr_pre;
-  di[H] = dz_pre;
-  di[2 * H] = dn_pre;
-  dhh[0] = dr_pre;
-  dhh[H] = dz_pre;
-  dhh[2 * H] = dn_pre * rg;
-  dh[idx] = dhv * zg;
-}
-
-// hbuf: [(T + 1) n, H], the state entering step t in rows t n .. t n + n (the
-// wrapper writes h0 into the first n rows).
 template <typename W>
-int gru_fwd(int n, int T, int H, const int* tok, const float* xg, const W* wh, const float* bh,
-            float* hbuf, float* gates, float* ghn, cudaStream_t s) {
-  const size_t NH = (size_t)n * H, NG = (size_t)n * 3 * H;
-  for (int t = 0; t < T; ++t) {
-    const GruStepArgs<W> a{n,  H,  tok + (size_t)t * n, xg, wh, bh, hbuf + t * NH,
-                           hbuf + (t + 1) * NH, gates + t * NG, ghn + t * NH};
-    gru_chain_step_kernel<W><<<dim3(cdiv(n, BM), cdiv(H, UNITS)), NT, 0, s>>>(a);
-    ICRL_CHECK(cudaGetLastError());
-  }
-  return 0;
-}
+struct GruFwdLaunch {
+  template <int U, bool kStream>
+  struct At {
+    static cudaError_t run(const ChainPlan& p, const GruFwdArgs<W>& a, cudaStream_t s) {
+      return launch_chain(gru_fwd_kernel<W, U, kStream>, p, a, s);
+    }
+  };
+};
 
+// One launch whatever T is.
 template <typename W>
-int gru_bwd(int n, int T, int E, int H, const int* tok, const float* dhs, const float* hbuf,
-            const float* gates, const float* ghn, const W* emb, const W* wi, const W* wh,
-            float* dgi, float* dgh, float* dh, float* part, float* dwi, float* dwh, float* dbi,
-            float* dbh, float* dx, cudaStream_t s) {
-  const int G = 3 * H, R = T * n;
-  const size_t NH = (size_t)n * H, NG = (size_t)n * G;
-  for (int t = T - 1; t >= 0; --t) {
-    gru_chain_grad_kernel<<<cdiv(NH, 256), 256, 0, s>>>(n, H, gates + t * NG, ghn + t * NH,
-                                                         hbuf + t * NH, dhs + t * NH, dh,
-                                                         dgi + t * NG, dgh + t * NG);
-    ICRL_CHECK(cudaGetLastError());
-    // dh_prev = rnd(dgh_t) @ rnd(wh)^T + dh * z   ([n, 3H] x [3H, H])
-    ICRL_CHECK((launch_view<W, false, true>(n, H, G, dgh + t * NG, G, nullptr, wh, G, true, dh,
-                                            s)));
-  }
-  ICRL_CHECK((launch_view<W, true, false>(E, G, R, emb, E, tok, dgi, G, false, dwi, s)));
-  ICRL_CHECK((launch_view<W, true, false>(H, G, R, hbuf, H, nullptr, dgh, G, false, dwh, s)));
-  ICRL_CHECK(launch_colsum(R, G, dgi, part, dbi, s));
-  ICRL_CHECK(launch_colsum(R, G, dgh, part, dbh, s));
-  ICRL_CHECK((launch_view<W, false, true>(R, E, G, dgi, G, nullptr, wi, G, false, dx, s)));
-  return 0;
+int gru_fwd(int n, int T, int H, const ChainPlan& p, const int* tok, const float* xg,
+            const W* wh, const float* bh, const float* h0, float* hbuf, float* gates, float* ghn,
+            float* hs, __nv_bfloat16* h16, cudaStream_t s) {
+  if (n == 0 || T == 0) return 0;
+  const GruFwdArgs<W> a{n, T, H, p.row_groups, tok, xg, wh, bh, h0, hbuf, gates, ghn, hs, h16};
+  return (int)launch_planned<W, false, 3, GruFwdLaunch<W>::template At>(p, a, s);
 }
 
 }  // namespace
@@ -164,39 +184,28 @@ extern "C" {
 
 // Forward. tok [T, n] int32 step-major; xg [V, 3H] float32 (emb @ wi + bi,
 // icrl_token_gates); wh [H, 3H] bf16 when bf16 != 0, else float32; bh [3H];
-// hbuf [(T + 1) n, H] float32 with h0 in the first n rows; gates [T n, 3H];
-// ghn [T n, H]. Returns 0 or the first CUDA error of a launch.
-int icrl_gru_chain_fwd(int n, int T, int H, int bf16, const int* tok, const float* xg,
-                       const void* wh, const float* bh, float* hbuf, float* gates, float* ghn,
-                       void* stream) {
+// h0 [n, H] float32. Outputs: hbuf [(T + 1) n, H] float32 (the state
+// entering each step, h0 first), gates [T n, 3H], ghn [T n, H], hs [n, T, H]
+// (h leaving each step), h16 [(T + 1) n, H] bf16 (bf16 only: rnd(hbuf)).
+// The plan (rows per tile, units per slice, streaming or not, grid columns,
+// row groups, shared bytes) must be gru_chain_plan's. Returns 0 or the CUDA
+// error of the launch (a refused cooperative launch included).
+int icrl_gru_chain_fwd(int n, int T, int H, int bf16, int rows_per_tile, int units, int stream,
+                       int grid_x, int row_groups, int smem, const int* tok, const float* xg,
+                       const void* wh, const float* bh, const float* h0, float* hbuf,
+                       float* gates, float* ghn, float* hs, void* h16, void* stream_) {
   using namespace icrl;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+  const ChainPlan p = bf16 ? chain_plan<__nv_bfloat16, false, 3>(n, H, device_sms())
+                           : chain_plan<float, false, 3>(n, H, device_sms());
+  if (!plan_matches(p, rows_per_tile, units, stream, grid_x, row_groups, smem))
+    return (int)cudaErrorInvalidValue;
+  auto* h = static_cast<__nv_bfloat16*>(h16);
   if (bf16)
-    return gru_fwd(n, T, H, tok, xg, static_cast<const __nv_bfloat16*>(wh), bh, hbuf, gates, ghn,
-                   s);
-  return gru_fwd(n, T, H, tok, xg, static_cast<const float*>(wh), bh, hbuf, gates, ghn, s);
-}
-
-// Backward. dhs [T, n, H] float32; hbuf, gates, ghn as the forward left them;
-// emb [V, E], wi [E, 3H], wh [H, 3H] in the weight type. Scratch: dgi, dgh
-// [T n, 3H], part [16, 3H]. Outputs: dh [n, H] (zero on entry, dh0 on
-// return), dwi [E, 3H], dwh [H, 3H], dbi, dbh [3H], dx [T n, E].
-int icrl_gru_chain_bwd(int n, int T, int E, int H, int bf16, const int* tok, const float* dhs,
-                       const float* hbuf, const float* gates, const float* ghn, const void* emb,
-                       const void* wi, const void* wh, float* dgi, float* dgh, float* dh,
-                       float* part, float* dwi, float* dwh, float* dbi, float* dbh, float* dx,
-                       void* stream) {
-  using namespace icrl;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    using W = __nv_bfloat16;
-    return gru_bwd(n, T, E, H, tok, dhs, hbuf, gates, ghn, static_cast<const W*>(emb),
-                   static_cast<const W*>(wi), static_cast<const W*>(wh), dgi, dgh, dh, part,
-                   dwi, dwh, dbi, dbh, dx, s);
-  }
-  return gru_bwd(n, T, E, H, tok, dhs, hbuf, gates, ghn, static_cast<const float*>(emb),
-                 static_cast<const float*>(wi), static_cast<const float*>(wh), dgi, dgh, dh, part,
-                 dwi, dwh, dbi, dbh, dx, s);
+    return gru_fwd(n, T, H, p, tok, xg, static_cast<const __nv_bfloat16*>(wh), bh, h0, hbuf,
+                   gates, ghn, hs, h, s);
+  return gru_fwd(n, T, H, p, tok, xg, static_cast<const float*>(wh), bh, h0, hbuf, gates, ghn, hs,
+                 h, s);
 }
 
 }  // extern "C"

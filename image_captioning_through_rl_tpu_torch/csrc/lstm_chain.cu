@@ -34,21 +34,16 @@
 //     rnd(dg) @ wh^T and the gate gradients of the step before. The products
 //     that do not recur (d[wi; wh] over all T N rows, dx) run once after it
 //     on wgmma (wgmma.cuh), db as fixed-order column sums.
-// Larger wgmma tiles, TMA multicast of the shared dg rows across a cluster,
-// and the same design for the GRU chain are later work.
+//   * The plan (chain.cuh) picks the units per block from the width: the
+//     widest slice (bf16: 32, 16 or 8 units; float32: 8) that fits shared
+//     memory beside the ring while every slice keeps a block of its own;
+//     past that (bf16: the forward from H = 1064, the backward from H =
+//     1128) the weights stream through the ring with A at every step, still
+//     in one cooperative launch, so no width is refused.
+// Larger wgmma tiles and TMA multicast of the shared dg rows across a
+// cluster are later work. The kernels are lstm_chain.cuh's; the backward's
+// entry point is in lstm_chain_bwd.cu.
 #include "lstm_chain.cuh"
-
-namespace {
-
-// The wrapper's plan (ops/fused_lstm.py:lstm_chain_plan) against this
-// file's: a mismatch is a bug in one of the two, not a shape to run.
-bool same_plan(const icrl::ChainPlan& p, int rows_per_tile, int units, int row_groups,
-               long smem) {
-  return p.rows_per_tile == rows_per_tile && p.units == units && p.row_groups == row_groups &&
-         p.smem == smem;
-}
-
-}  // namespace
 
 extern "C" {
 
@@ -56,56 +51,26 @@ extern "C" {
 // wh [H, 4H] bf16 when bf16 != 0, else float32; b [4H]; h0, c0 [n, H]
 // float32. Outputs: hbuf, cbuf [(T + 1) n, H] float32 (the state entering
 // each step, h0 and c0 first), gates [T n, 4H], hs [n, T, H] (h leaving each
-// step). Scratch: h16 [2, n, H] bf16 (bf16 only). The
-// plan (rows per tile, units per slice, row groups, shared bytes) must be
-// lstm_chain_plan's. Returns 0 or the CUDA error of the launch (a refused
-// cooperative launch included).
-int icrl_lstm_chain_fwd(int n, int T, int H, int bf16, int rows_per_tile, int units,
-                        int row_groups, int smem, const int* tok, const float* xg,
+// step). Scratch: h16 [2, n, H] bf16 (bf16 only). The plan (rows per tile,
+// units per slice, streaming or not, grid columns, row groups, shared bytes)
+// must be lstm_chain_plan's. Returns 0 or the CUDA error of the launch (a
+// refused cooperative launch included).
+int icrl_lstm_chain_fwd(int n, int T, int H, int bf16, int rows_per_tile, int units, int stream,
+                        int grid_x, int row_groups, int smem, const int* tok, const float* xg,
                         const void* wh, const float* b, const float* h0, const float* c0,
                         float* hbuf, float* cbuf, float* gates, float* hs, void* h16,
-                        void* stream) {
+                        void* stream_) {
   using namespace icrl;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ChainPlan p = bf16 ? chain_plan<__nv_bfloat16, false>(n, H, device_sms())
-                           : chain_plan<float, false>(n, H, device_sms());
-  if (!same_plan(p, rows_per_tile, units, row_groups, smem)) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+  const ChainPlan p = bf16 ? chain_plan<__nv_bfloat16, false, 4>(n, H, device_sms())
+                           : chain_plan<float, false, 4>(n, H, device_sms());
+  if (!plan_matches(p, rows_per_tile, units, stream, grid_x, row_groups, smem))
+    return (int)cudaErrorInvalidValue;
   if (bf16)
     return lstm_fwd(n, T, H, tok, xg, static_cast<const __nv_bfloat16*>(wh), b, h0, c0, hbuf,
                     cbuf, gates, hs, static_cast<__nv_bfloat16*>(h16), s);
   return lstm_fwd(n, T, H, tok, xg, static_cast<const float*>(wh), b, h0, c0, hbuf, cbuf, gates,
                   hs, static_cast<__nv_bfloat16*>(h16), s);
-}
-
-// Backward. dhs [n, T, H] float32 upstream gradient of hs; hbuf,
-// cbuf, gates as the forward left them; emb [V, E] and w = [wi; wh]
-// [E + H, 4H] in the weight type. Scratch: dg [T n, 4H] float32, and for
-// bf16 weights dg16 [T n, 4H] and h16 [T n, H] bf16; part [16, 4H]. Outputs:
-// dh, dc [n, H] (dc zero on entry;
-// dh0 and dc0 on return), dw [E + H, 4H], db [4H], dx [T n, E] (step-major
-// rows). The plan is the backward's lstm_chain_plan.
-int icrl_lstm_chain_bwd(int n, int T, int E, int H, int bf16, int rows_per_tile, int units,
-                        int row_groups, int smem, const int* tok, const float* dhs,
-                        const float* hbuf, const float* cbuf, const float* gates,
-                        const void* emb, const void* w, float* dg, void* dg16, void* h16,
-                        float* dh, float* dc, float* part, float* dw, float* db, float* dx,
-                        void* stream) {
-  using namespace icrl;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ChainPlan p = bf16 ? chain_plan<__nv_bfloat16, true>(n, H, device_sms())
-                           : chain_plan<float, true>(n, H, device_sms());
-  if (!same_plan(p, rows_per_tile, units, row_groups, smem)) return (int)cudaErrorInvalidValue;
-  auto* d16 = static_cast<__nv_bfloat16*>(dg16);
-  auto* h = static_cast<__nv_bfloat16*>(h16);
-  if (bf16) {
-    using W = __nv_bfloat16;
-    return lstm_bwd(n, T, E, H, tok, dhs, (long)T * H, H, hbuf, cbuf, gates,
-                    static_cast<const W*>(emb), static_cast<const W*>(w), dg, d16, h, dh, dc, part,
-                    dw, db, dx, s);
-  }
-  return lstm_bwd(n, T, E, H, tok, dhs, (long)T * H, H, hbuf, cbuf, gates,
-                  static_cast<const float*>(emb), static_cast<const float*>(w), dg, d16, h, dh, dc,
-                  part, dw, db, dx, s);
 }
 
 }  // extern "C"

@@ -4,334 +4,10 @@
 // chain's backward). The design notes are lstm_chain.cu's.
 #pragma once
 
-#include <cooperative_groups.h>
-
-#include <algorithm>
-
-#include "common.cuh"
-#include "wgmma.cuh"
+#include "chain.cuh"
 
 namespace icrl {
 namespace {
-
-// ---- The persistent, weights-stationary chain kernels ----
-//
-// Both directions run as one cooperative launch of at most one block per
-// SM. Block (slice, group) owns the hidden units [slice U, slice U + U) and
-// the row tiles group, group + row_groups, ... of CHAIN_BR rows; it keeps
-// its slice of wh in shared memory (Bs, ChainSmem) for the whole chain, and
-// a grid-wide barrier ends each step. Per step and row
-// tile it streams the tile's A rows ([CHAIN_BR, K]) from L2 through a ring
-// of cp.async slices, multiplies them against Bs into a float32 tile Cs
-// [CHAIN_BR][NC], and finishes the cell from Cs, whose other operands (the
-// x-gate rows and tape) it loaded before the product, so their latency
-// hides behind it:
-//   forward:  A = rnd(h_t), K = H, NC = 4U (the four gate columns of its
-//             units, gate-major), the cell's gate math and c/h update;
-//   backward: A = rnd(dg_t), K = 4H, NC = U (dh_prev = rnd(dg_t) @ wh^T for
-//             its units), then the gate gradients of step t - 1.
-// bf16 weights multiply on the tensor cores (mma.sync m16n8k16 from
-// ldmatrix, float32 sums; WM x WN warps over the tile, each of KS of them
-// taking every KS-th 16-deep step, their partial tiles then added in order
-// KS = 0, 1, ...), float32 weights on the CUDA cores (fmaf, no rounding):
-// every sum has a fixed order, so every output is the same from run to run.
-template <typename W, bool kBwd>
-struct ChainTile;
-template <>
-struct ChainTile<__nv_bfloat16, false> {
-  static constexpr int U = 32, NC = 128, KC = 128, STAGES = 5, WM = 2, WN = 4, KS = 1;
-};
-template <>
-struct ChainTile<__nv_bfloat16, true> {
-  static constexpr int U = 32, NC = 32, KC = 128, STAGES = 5, WM = 2, WN = 1, KS = 4;
-};
-template <>
-struct ChainTile<float, false> {
-  static constexpr int U = 16, NC = 64, KC = 32, STAGES = 4, WM = 0, WN = 0, KS = 1;
-};
-template <>
-struct ChainTile<float, true> {
-  static constexpr int U = 16, NC = 16, KC = 32, STAGES = 4, WM = 0, WN = 0, KS = 1;
-};
-constexpr int CHAIN_BR = 64, CHAIN_THREADS = 256;
-// H100: shared memory per SM, the most one block may opt in to, and what
-// the runtime reserves per block.
-constexpr long SMEM_PER_SM = 233472, SMEM_PER_BLOCK = 232448, SMEM_RESERVED = 1024;
-
-// The launch plan; ops/fused_lstm.py:lstm_chain_plan computes the same.
-struct ChainPlan {
-  int rows_per_tile, units, slices, row_groups;
-  long smem;
-};
-
-template <typename W, bool kBwd>
-ChainPlan chain_plan(int n, int H, int sms) {
-  using Tl = ChainTile<W, kBwd>;
-  const long e = sizeof(W), pad = 16 / e, K = kBwd ? 4L * H : H;
-  const long Kp = (K + Tl::KC - 1) / Tl::KC * Tl::KC;
-  ChainPlan p;
-  p.rows_per_tile = CHAIN_BR;
-  p.units = Tl::U;
-  p.slices = cdiv(H, Tl::U);
-  p.smem = ((kBwd ? Tl::NC * (Kp + pad) : Kp * (Tl::NC + pad)) +
-            (long)Tl::STAGES * CHAIN_BR * (Tl::KC + pad)) * e;
-  const long per_sm = p.smem > SMEM_PER_BLOCK ? 0 : SMEM_PER_SM / (p.smem + SMEM_RESERVED);
-  const long groups = sms * per_sm / p.slices;
-  p.row_groups = (int)std::max(1L, std::min<long>(cdiv(std::max(n, 1), CHAIN_BR), groups));
-  return p;
-}
-
-inline int device_sms() {
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  return sms;
-}
-
-// Loads issued where they stand: a volatile asm is not moved past the
-// product's barriers and copies, so the epilogue's operands arrive while the
-// product runs. ``nc``: through the read-only path, for data no block of
-// this launch writes.
-__device__ __forceinline__ float ld_early(const float* p) {
-  float v;
-  asm volatile("ld.global.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ float ld_early_nc(const float* p) {
-  float v;
-  asm volatile("ld.global.nc.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
-  return v;
-}
-__device__ __forceinline__ int ld_early_nc(const int* p) {
-  int v;
-  asm volatile("ld.global.nc.s32 %0, [%1];\n" : "=r"(v) : "l"(p));
-  return v;
-}
-
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The shared-memory regions of a chain kernel: the weight slice Bs and the
-// A ring [STAGES][CHAIN_BR][ALD], which the float32 product tile Cs
-// [CHAIN_BR][NC + 4] (after KS > 1 partial tiles of that shape) overlays
-// once the product is done. Bs holds B(k, n) at bidx(n, k): [NC][Kp + PAD]
-// for the backward (rows of wh as they lie in memory), [Kp][NC + PAD] for
-// the forward (columns of wh, so each row of the slice is four 16-byte
-// aligned runs of wh's row k); the padding keeps ldmatrix's eight row
-// addresses on distinct banks.
-template <typename W, bool kBwd>
-struct ChainSmem {
-  using Tl = ChainTile<W, kBwd>;
-  static constexpr int PAD = 16 / sizeof(W), ALD = Tl::KC + PAD, CLD = Tl::NC + 4;
-  static constexpr int PARTS = Tl::KS > 1 ? Tl::KS * CHAIN_BR * CLD : 0;
-  static_assert(Tl::STAGES * CHAIN_BR * ALD * sizeof(W) >=
-                    (PARTS + CHAIN_BR * CLD) * sizeof(float),
-                "the partial tiles and Cs overlay the ring");
-  int Kp, BLD;
-  W *Bs, *ring;
-  float *part, *Cs;
-  __device__ ChainSmem(unsigned char* base, int K) {
-    Kp = (K + Tl::KC - 1) / Tl::KC * Tl::KC;
-    BLD = kBwd ? Kp + PAD : Tl::NC + PAD;
-    Bs = reinterpret_cast<W*>(base);
-    ring = Bs + (size_t)(kBwd ? Tl::NC : Kp) * BLD;
-    part = reinterpret_cast<float*>(ring);
-    Cs = part + PARTS;
-  }
-  __device__ __forceinline__ int bidx(int n, int k) const {
-    return kBwd ? n * BLD + k : k * BLD + n;
-  }
-};
-
-// Bs from wh [H, 4H] (W), with 16-byte cp.async copies, zeros outside it:
-// the backward's rows wh[j0 + n, :], the forward's columns {gate H + j0 + u}
-// for the gate-major local column n = gate U + u. Waits for the copies.
-template <typename W, bool kBwd>
-__device__ void chain_load_weights(const ChainSmem<W, kBwd>& sm, const W* __restrict__ wh, int H,
-                                   int j0) {
-  using Tl = ChainTile<W, kBwd>;
-  constexpr int VEC = 16 / sizeof(W);
-  const int G = 4 * H;
-  if constexpr (kBwd) {
-    const int per_row = sm.Kp / VEC;
-    for (int v = threadIdx.x; v < Tl::NC * per_row; v += CHAIN_THREADS) {
-      const int c = v / per_row, k = (v % per_row) * VEC;
-      const W* src = j0 + c < H && k < G ? wh + (size_t)(j0 + c) * G + k : nullptr;
-      wg::cp16(wg::smem_addr(sm.Bs + sm.bidx(c, k)), src, wh);
-    }
-  } else {
-    constexpr int per_row = Tl::NC / VEC;
-    for (int v = threadIdx.x; v < sm.Kp * per_row; v += CHAIN_THREADS) {
-      const int k = v / per_row, c = (v % per_row) * VEC, j = j0 + c % Tl::U;
-      const W* src = k < H && j < H ? wh + (size_t)k * G + (c / Tl::U) * H + j : nullptr;
-      wg::cp16(wg::smem_addr(sm.Bs + sm.bidx(c, k)), src, wh);
-    }
-  }
-  wg::cp_commit();
-  wg::cp_wait<0>();
-  __syncthreads();
-}
-
-// Cs[r][c] = sum_{k < K} A(row0 + r, k) Bs[c][k], A(row, k) = a[row lda + k]
-// (zero for row >= nrows), rounded to W as it is staged (an AT = float
-// source with bf16 weights: the forward's float32 h0).
-template <typename W, bool kBwd, typename AT>
-__device__ void chain_product(const ChainSmem<W, kBwd>& sm, const AT* __restrict__ a, int lda,
-                              int row0, int nrows, int K) {
-  using Tl = ChainTile<W, kBwd>;
-  using S = ChainSmem<W, kBwd>;
-  constexpr int VEC = 16 / sizeof(W), CPR = Tl::KC / VEC, PER = CHAIN_BR * CPR / CHAIN_THREADS;
-  const int tid = threadIdx.x, nk = sm.Kp / Tl::KC;
-  auto issue = [&](int kc) {
-    W* slot = sm.ring + (size_t)(kc % Tl::STAGES) * CHAIN_BR * S::ALD;
-#pragma unroll
-    for (int i = 0; i < PER; ++i) {
-      const int q = tid + i * CHAIN_THREADS, r = q / CPR, c = q % CPR, k = kc * Tl::KC + c * VEC;
-      const int row = row0 + r;
-      const AT* src = row < nrows && k < K ? a + (size_t)row * lda + k : nullptr;
-      W* dst = slot + r * S::ALD + c * VEC;
-      if constexpr (std::is_same<AT, W>::value) {
-        wg::cp16(wg::smem_addr(dst), src, a);
-      } else {
-        *reinterpret_cast<uint4*>(dst) = src ? load8_bf16(src) : make_uint4(0, 0, 0, 0);
-      }
-    }
-  };
-#pragma unroll
-  for (int s = 0; s < Tl::STAGES - 1; ++s) {
-    if (s < nk) issue(s);
-    wg::cp_commit();
-  }
-  if constexpr (kIsBf16<W>) {
-    constexpr int WTM = CHAIN_BR / Tl::WM, WTN = Tl::NC / Tl::WN, MT = WTM / 16, NT = WTN / 8;
-    static_assert(Tl::WM * Tl::WN * Tl::KS * 32 == CHAIN_THREADS, "one warp per tile and part");
-    const int lane = tid % 32, warp = tid / 32, wn = warp % Tl::WN;
-    const int wm = warp / Tl::WN % Tl::WM, kpart = warp / (Tl::WN * Tl::WM);
-    float acc[MT][NT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
-    for (int kc = 0; kc < nk; ++kc) {
-      wg::cp_wait<Tl::STAGES - 2>();
-      __syncthreads();
-      if (kc + Tl::STAGES - 1 < nk) issue(kc + Tl::STAGES - 1);
-      wg::cp_commit();
-      const W* slot = sm.ring + (size_t)(kc % Tl::STAGES) * CHAIN_BR * S::ALD;
-#pragma unroll
-      for (int k16 = 0; k16 < Tl::KC / 16 / Tl::KS; ++k16) {
-        const int ks = k16 * Tl::KS + kpart;
-        unsigned af[MT][4], bf[NT][2];
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-          ldmatrix_x4(af[i], slot + (wm * WTM + i * 16 + lane % 16) * S::ALD + ks * 16 +
-                                 (lane / 16) * 8);
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          // matrices (k 0-7, n 0-7), (k 8-15, n 0-7), (k 0-7, n 8-15), (k 8-15, n 8-15)
-          unsigned r[4];
-          const W* bp = sm.Bs + sm.bidx(wn * WTN + j * 8 + (lane / 16) * 8 + (kBwd ? lane % 8 : 0),
-                                        kc * Tl::KC + ks * 16 + ((lane / 8) % 2) * 8 +
-                                            (kBwd ? 0 : lane % 8));
-          if constexpr (kBwd)
-            ldmatrix_x4(r, bp);
-          else
-            ldmatrix_x4_trans(r, bp);
-          bf[j][0] = r[0];
-          bf[j][1] = r[1];
-          bf[j + 1][0] = r[2];
-          bf[j + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j) mma_bf16(acc[i][j], af[i], bf[j][0], bf[j][1]);
-      }
-    }
-    // accumulator v of (i, j): row wm WTM + 16 i + lane / 4 (+ 8 for v >= 2),
-    // column wn WTN + 8 j + 2 (lane % 4) (+ 1 for odd v), into Cs (KS = 1) or
-    // this warp's partial tile; both overlay the ring
-    wg::cp_wait<0>();
-    __syncthreads();
-    float* out = Tl::KS > 1 ? sm.part + kpart * CHAIN_BR * S::CLD : sm.Cs;
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int r = wm * WTM + i * 16 + lane / 4, c = wn * WTN + j * 8 + 2 * (lane % 4);
-        out[r * S::CLD + c] = acc[i][j][0];
-        out[r * S::CLD + c + 1] = acc[i][j][1];
-        out[(r + 8) * S::CLD + c] = acc[i][j][2];
-        out[(r + 8) * S::CLD + c + 1] = acc[i][j][3];
-      }
-    if constexpr (Tl::KS > 1) {
-      __syncthreads();
-      for (int e = tid; e < CHAIN_BR * Tl::NC; e += CHAIN_THREADS) {
-        const int o = (e / Tl::NC) * S::CLD + e % Tl::NC;
-        float v = sm.part[o];
-#pragma unroll
-        for (int q = 1; q < Tl::KS; ++q) v += sm.part[q * CHAIN_BR * S::CLD + o];
-        sm.Cs[o] = v;
-      }
-    }
-  } else {
-    // 16 x 16 threads: rows ty + 16 i, columns tx + 16 j
-    constexpr int RM = CHAIN_BR / 16, CN = Tl::NC / 16;
-    const int tx = tid % 16, ty = tid / 16;
-    float acc[RM][CN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) acc[i][j] = 0.f;
-    for (int kc = 0; kc < nk; ++kc) {
-      wg::cp_wait<Tl::STAGES - 2>();
-      __syncthreads();
-      if (kc + Tl::STAGES - 1 < nk) issue(kc + Tl::STAGES - 1);
-      wg::cp_commit();
-      const W* slot = sm.ring + (size_t)(kc % Tl::STAGES) * CHAIN_BR * S::ALD;
-#pragma unroll 8
-      for (int kk = 0; kk < Tl::KC; ++kk) {
-        float av[RM], bv[CN];
-#pragma unroll
-        for (int i = 0; i < RM; ++i) av[i] = slot[(ty + 16 * i) * S::ALD + kk];
-#pragma unroll
-        for (int j = 0; j < CN; ++j) bv[j] = sm.Bs[sm.bidx(tx + 16 * j, kc * Tl::KC + kk)];
-#pragma unroll
-        for (int i = 0; i < RM; ++i)
-#pragma unroll
-          for (int j = 0; j < CN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-    wg::cp_wait<0>();
-    __syncthreads();  // Cs overlays the ring
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < CN; ++j) sm.Cs[(ty + 16 * i) * S::CLD + tx + 16 * j] = acc[i][j];
-  }
-}
 
 template <typename W>
 struct ChainFwdArgs {
@@ -349,22 +25,20 @@ struct ChainFwdArgs {
   __nv_bfloat16* h16;   // [2, n, H] rnd(h) for the next step (bf16 weights only)
 };
 
-template <typename W>
+template <typename W, int U, bool kStream>
 __global__ void __launch_bounds__(CHAIN_THREADS, 1) lstm_fwd_kernel(ChainFwdArgs<W> a) {
-  using Tl = ChainTile<W, false>;
-  constexpr int U = Tl::U, ROWS = CHAIN_THREADS / U, CELLS = CHAIN_BR / ROWS;
+  using Tl = ChainTile<W, false, U, 4, kStream>;
+  using S = ChainSmem<Tl>;
+  constexpr int ROWS = CHAIN_THREADS / U, CELLS = CHAIN_BR / ROWS;
   extern __shared__ __align__(16) unsigned char chain_fwd_smem[];
-  const int H = a.H, G = 4 * H, n = a.n, tid = threadIdx.x;
-  const ChainSmem<W, false> sm(chain_fwd_smem, H);
-  // this thread's cells: unit j of rows row0 + tid / U + i ROWS; loads read
-  // a valid row and unit (the last ones) where the cell lies outside
-  const int j0 = blockIdx.x * U, u = tid % U, j = j0 + u, jc = min(j, H - 1);
-  chain_load_weights(sm, a.wh, H, j0);
-  float bias[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) bias[g] = j < H ? a.b[g * H + j] : 0.f;
+  const int H = a.H, G = 4 * H, n = a.n, tid = threadIdx.x, u = tid % U;
+  const S sm(chain_fwd_smem, H);
+  const int slices = (H + U - 1) / U;
+  if constexpr (!kStream) chain_load_weights<Tl>(sm, a.wh, H, blockIdx.x * U);
   const size_t NH = (size_t)n * H;
   const int tiles = (n + CHAIN_BR - 1) / CHAIN_BR;
+  // this thread's cells: unit j of rows row0 + tid / U + i ROWS; loads read
+  // a valid row and unit (the last ones) where the cell lies outside
   auto cell_row = [&](int row0, int i) { return row0 + tid / U + i * ROWS; };
   // the tokens of the cells of (step t, row tile rt), loaded one tile ahead
   int tk[CELLS];
@@ -376,63 +50,71 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) lstm_fwd_kernel(ChainFwdArgs
   load_tokens(0, blockIdx.y);
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   for (int t = 0; t < a.T; ++t) {
-    for (int rt = blockIdx.y; rt < tiles; rt += a.row_groups) {
-      const int row0 = rt * CHAIN_BR;
-      float xv[CELLS][4], cv[CELLS];
+    for (int s = blockIdx.x; s < slices; s += gridDim.x) {
+      const int j0 = s * U, j = j0 + u, jc = min(j, H - 1);
+      float bias[4];
 #pragma unroll
-      for (int i = 0; i < CELLS; ++i) {
-        const float* x = a.xg + (size_t)tk[i] * G + jc;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) xv[i][g] = ld_early_nc(x + g * H);
-        const size_t o = (size_t)min(cell_row(row0, i), n - 1) * H + jc;
-        cv[i] = t == 0 ? ld_early_nc(a.c0 + o) : ld_early(a.cbuf + t * NH + o);
-      }
-      if (rt + a.row_groups < tiles)
-        load_tokens(t, rt + a.row_groups);
-      else if (t + 1 < a.T)
-        load_tokens(t + 1, blockIdx.y);
-      // rnd(h_t): the float32 h0 at t = 0 (rounded as it is staged), then
-      // the bf16 copy the step before wrote; float32 weights read the tape
-      if (t == 0)
-        chain_product(sm, a.h0, H, row0, n, H);
-      else if constexpr (kIsBf16<W>)
-        chain_product(sm, a.h16 + (t % 2) * NH, H, row0, n, H);
-      else
-        chain_product(sm, a.hbuf + t * NH, H, row0, n, H);
-      __syncthreads();
-      // every cell's gate math first, without branches, so the eight cells'
-      // dependent transcendental chains interleave; then the stores
-      float gv[CELLS][4], cn[CELLS], hn[CELLS];
-#pragma unroll
-      for (int i = 0; i < CELLS; ++i) {
-        const float* acc = sm.Cs + (cell_row(0, i)) * ChainSmem<W, false>::CLD + u;
-        gv[i][0] = sigmoid(xv[i][0] + acc[0] + bias[0]);
-        gv[i][1] = sigmoid(xv[i][1] + acc[U] + bias[1]);
-        gv[i][2] = tanhf(xv[i][2] + acc[2 * U] + bias[2]);
-        gv[i][3] = sigmoid(xv[i][3] + acc[3 * U] + bias[3]);
-        cn[i] = gv[i][1] * cv[i] + gv[i][0] * gv[i][2];
-        hn[i] = gv[i][3] * tanhf(cn[i]);
-      }
-      if (j < H) {
+      for (int g = 0; g < 4; ++g) bias[g] = j < H ? a.b[g * H + j] : 0.f;
+      for (int rt = blockIdx.y; rt < tiles; rt += a.row_groups) {
+        const int row0 = rt * CHAIN_BR;
+        float xv[CELLS][4], cv[CELLS];
 #pragma unroll
         for (int i = 0; i < CELLS; ++i) {
-          const int row = cell_row(row0, i);
-          if (row >= n) continue;
-          const size_t o = (size_t)row * H + j;
-          if (t == 0) {  // the tape starts with the initial state
-            a.hbuf[o] = a.h0[o];
-            a.cbuf[o] = cv[i];
-          }
-          a.cbuf[(t + 1) * NH + o] = cn[i];
-          a.hbuf[(t + 1) * NH + o] = hn[i];
-          if (a.hs) a.hs[((size_t)row * a.T + t) * H + j] = hn[i];
-          if constexpr (kIsBf16<W>) a.h16[((t + 1) % 2) * NH + o] = __float2bfloat16_rn(hn[i]);
-          float* gp = a.gates + ((size_t)t * n + row) * G + j;
+          const float* x = a.xg + (size_t)tk[i] * G + jc;
 #pragma unroll
-          for (int g = 0; g < 4; ++g) gp[g * H] = gv[i][g];
+          for (int g = 0; g < 4; ++g) xv[i][g] = ld_early_nc(x + g * H);
+          const size_t o = (size_t)min(cell_row(row0, i), n - 1) * H + jc;
+          cv[i] = t == 0 ? ld_early_nc(a.c0 + o) : ld_early(a.cbuf + t * NH + o);
         }
+        if (rt + a.row_groups < tiles)
+          load_tokens(t, rt + a.row_groups);
+        else if (s + (int)gridDim.x < slices)
+          load_tokens(t, blockIdx.y);
+        else if (t + 1 < a.T)
+          load_tokens(t + 1, blockIdx.y);
+        // rnd(h_t): the float32 h0 at t = 0 (rounded as it is staged), then
+        // the bf16 copy the step before wrote; float32 weights read the tape
+        if (t == 0)
+          chain_product<Tl>(sm, a.h0, H, row0, n, H, a.wh, H, j0);
+        else if constexpr (kIsBf16<W>)
+          chain_product<Tl>(sm, a.h16 + (t % 2) * NH, H, row0, n, H, a.wh, H, j0);
+        else
+          chain_product<Tl>(sm, a.hbuf + t * NH, H, row0, n, H, a.wh, H, j0);
+        __syncthreads();
+        // every cell's gate math first, without branches, so the cells'
+        // dependent transcendental chains interleave; then the stores
+        float gv[CELLS][4], cn[CELLS], hn[CELLS];
+#pragma unroll
+        for (int i = 0; i < CELLS; ++i) {
+          const float* acc = sm.Cs + (cell_row(0, i)) * S::CLD + u;
+          gv[i][0] = sigmoid(xv[i][0] + acc[0] + bias[0]);
+          gv[i][1] = sigmoid(xv[i][1] + acc[U] + bias[1]);
+          gv[i][2] = tanhf(xv[i][2] + acc[2 * U] + bias[2]);
+          gv[i][3] = sigmoid(xv[i][3] + acc[3 * U] + bias[3]);
+          cn[i] = gv[i][1] * cv[i] + gv[i][0] * gv[i][2];
+          hn[i] = gv[i][3] * tanhf(cn[i]);
+        }
+        if (j < H) {
+#pragma unroll
+          for (int i = 0; i < CELLS; ++i) {
+            const int row = cell_row(row0, i);
+            if (row >= n) continue;
+            const size_t o = (size_t)row * H + j;
+            if (t == 0) {  // the tape starts with the initial state
+              a.hbuf[o] = a.h0[o];
+              a.cbuf[o] = cv[i];
+            }
+            a.cbuf[(t + 1) * NH + o] = cn[i];
+            a.hbuf[(t + 1) * NH + o] = hn[i];
+            if (a.hs) a.hs[((size_t)row * a.T + t) * H + j] = hn[i];
+            if constexpr (kIsBf16<W>) a.h16[((t + 1) % 2) * NH + o] = __float2bfloat16_rn(hn[i]);
+            float* gp = a.gates + ((size_t)t * n + row) * G + j;
+#pragma unroll
+            for (int g = 0; g < 4; ++g) gp[g * H] = gv[i][g];
+          }
+        }
+        __syncthreads();  // Cs serves the next row tile
       }
-      __syncthreads();  // Cs serves the next row tile
     }
     if (t + 1 < a.T) grid.sync();
   }
@@ -521,15 +203,16 @@ __device__ __forceinline__ void lstm_cells_bwd(const ChainBwdArgs<W>& a,
   }
 }
 
-template <typename W>
+template <typename W, int U, bool kStream>
 __global__ void __launch_bounds__(CHAIN_THREADS, 1) lstm_bwd_kernel(ChainBwdArgs<W> a) {
-  using Tl = ChainTile<W, true>;
-  constexpr int U = Tl::U, ROWS = CHAIN_THREADS / U, CELLS = CHAIN_BR / ROWS;
+  using Tl = ChainTile<W, true, U, 4, kStream>;
+  using S = ChainSmem<Tl>;
+  constexpr int ROWS = CHAIN_THREADS / U, CELLS = CHAIN_BR / ROWS;
   extern __shared__ __align__(16) unsigned char chain_bwd_smem[];
-  const int H = a.H, G = 4 * H, n = a.n, tid = threadIdx.x;
-  const ChainSmem<W, true> sm(chain_bwd_smem, G);
-  const int j0 = blockIdx.x * U, u = tid % U, j = j0 + u, jc = min(j, H - 1);
-  chain_load_weights(sm, a.wh, H, j0);
+  const int H = a.H, G = 4 * H, n = a.n, tid = threadIdx.x, u = tid % U;
+  const S sm(chain_bwd_smem, G);
+  const int slices = (H + U - 1) / U;
+  if constexpr (!kStream) chain_load_weights<Tl>(sm, a.wh, H, blockIdx.x * U);
   const int tiles = (n + CHAIN_BR - 1) / CHAIN_BR;
   const W* dga;
   if constexpr (kIsBf16<W>)
@@ -538,56 +221,71 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) lstm_bwd_kernel(ChainBwdArgs
     dga = a.dg;
   // the tape of this thread's cells of step t in row tile row0 (a valid row
   // and unit, the last ones, where the cell lies outside)
-  auto load_tape = [&](CellTape (&tp)[CELLS], int t, int row0) {
+  auto load_tape = [&](CellTape (&tp)[CELLS], int t, int row0, int jc) {
 #pragma unroll
     for (int i = 0; i < CELLS; ++i)
       tp[i] = lstm_cell_tape(a, t, min(row0 + tid / U + i * ROWS, n - 1), jc);
   };
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   // the last step has no carry
-  for (int rt = blockIdx.y; rt < tiles; rt += a.row_groups) {
-    CellTape tape[CELLS];
-    float zero[CELLS] = {};
-    load_tape(tape, a.T - 1, rt * CHAIN_BR);
-    lstm_cells_bwd<W, U>(a, tape, zero, a.T - 1, rt * CHAIN_BR, j);
+  for (int s = blockIdx.x; s < slices; s += gridDim.x) {
+    const int j = s * U + u;
+    for (int rt = blockIdx.y; rt < tiles; rt += a.row_groups) {
+      CellTape tape[CELLS];
+      float zero[CELLS] = {};
+      load_tape(tape, a.T - 1, rt * CHAIN_BR, min(j, H - 1));
+      lstm_cells_bwd<W, U>(a, tape, zero, a.T - 1, rt * CHAIN_BR, j);
+    }
   }
   // step t: the carry rnd(dg_t) @ wh^T of this slice's units feeds the gate
   // gradients of step t - 1; after step 0 it is dh0
   for (int t = a.T - 1; t >= 0; --t) {
     grid.sync();
-    for (int rt = blockIdx.y; rt < tiles; rt += a.row_groups) {
-      const int row0 = rt * CHAIN_BR;
-      CellTape tape[CELLS];
-      if (t > 0) load_tape(tape, t - 1, row0);  // loaded now, read after the product
-      chain_product(sm, dga + (size_t)t * n * G, G, row0, n, G);
-      __syncthreads();
-      float carry[CELLS];
+    for (int s = blockIdx.x; s < slices; s += gridDim.x) {
+      const int j0 = s * U, j = j0 + u;
+      for (int rt = blockIdx.y; rt < tiles; rt += a.row_groups) {
+        const int row0 = rt * CHAIN_BR;
+        CellTape tape[CELLS];
+        if (t > 0) load_tape(tape, t - 1, row0, min(j, H - 1));  // read after the product
+        chain_product<Tl>(sm, dga + (size_t)t * n * G, G, row0, n, G, a.wh, H, j0);
+        __syncthreads();
+        float carry[CELLS];
 #pragma unroll
-      for (int i = 0; i < CELLS; ++i)
-        carry[i] = sm.Cs[(tid / U + i * ROWS) * ChainSmem<W, true>::CLD + u];
-      if (t > 0) {
-        lstm_cells_bwd<W, U>(a, tape, carry, t - 1, row0, j);
-      } else if (j < H) {
+        for (int i = 0; i < CELLS; ++i) carry[i] = sm.Cs[(tid / U + i * ROWS) * S::CLD + u];
+        if (t > 0) {
+          lstm_cells_bwd<W, U>(a, tape, carry, t - 1, row0, j);
+        } else if (j < H) {
 #pragma unroll
-        for (int i = 0; i < CELLS; ++i) {
-          const int row = row0 + tid / U + i * ROWS;
-          if (row < n) a.dh[(size_t)row * H + j] = carry[i];
+          for (int i = 0; i < CELLS; ++i) {
+            const int row = row0 + tid / U + i * ROWS;
+            if (row < n) a.dh[(size_t)row * H + j] = carry[i];
+          }
         }
+        __syncthreads();
       }
-      __syncthreads();
     }
   }
 }
 
-template <typename Kernel, typename Args>
-cudaError_t launch_chain(Kernel kernel, const ChainPlan& p, Args args, cudaStream_t s) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)p.smem);
-  if (err != cudaSuccess) return err;
-  void* argv[] = {&args};
-  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(p.slices, p.row_groups),
-                                     dim3(CHAIN_THREADS), argv, (size_t)p.smem, s);
-}
+template <typename W>
+struct LstmFwdLaunch {
+  template <int U, bool kStream>
+  struct At {
+    static cudaError_t run(const ChainPlan& p, const ChainFwdArgs<W>& a, cudaStream_t s) {
+      return launch_chain(lstm_fwd_kernel<W, U, kStream>, p, a, s);
+    }
+  };
+};
+
+template <typename W>
+struct LstmBwdLaunch {
+  template <int U, bool kStream>
+  struct At {
+    static cudaError_t run(const ChainPlan& p, const ChainBwdArgs<W>& a, cudaStream_t s) {
+      return launch_chain(lstm_bwd_kernel<W, U, kStream>, p, a, s);
+    }
+  };
+};
 
 // hbuf, cbuf: [(T + 1) n, H], the state entering step t in rows t n .. t n + n
 // (the kernel copies h0, c0 [n, H] into the first n rows). hs: [n, T, H],
@@ -598,10 +296,10 @@ int lstm_fwd(int n, int T, int H, const int* tok, const float* xg, const W* wh, 
              const float* h0, const float* c0, float* hbuf, float* cbuf, float* gates, float* hs,
              __nv_bfloat16* h16, cudaStream_t s) {
   if (n == 0 || T == 0) return 0;
-  const ChainPlan p = chain_plan<W, false>(n, H, device_sms());
+  const ChainPlan p = chain_plan<W, false, 4>(n, H, device_sms());
   const ChainFwdArgs<W> a{n, T, H, p.row_groups, tok, xg, wh, b, h0, c0, hbuf, cbuf, gates, hs,
                           h16};
-  return (int)launch_chain(lstm_fwd_kernel<W>, p, a, s);
+  return (int)launch_planned<W, false, 4, LstmFwdLaunch<W>::template At>(p, a, s);
 }
 
 // The backward (dhs[r dhs_row + t dhs_step + j] the upstream gradient of h
@@ -624,10 +322,10 @@ int lstm_bwd(int n, int T, int E, int H, const int* tok, const float* dhs, long 
     ICRL_CHECK(cudaMemsetAsync(dw, 0, sizeof(float) * (size_t)(E + H) * G, s));
     return (int)cudaMemsetAsync(db, 0, sizeof(float) * G, s);
   }
-  const ChainPlan p = chain_plan<W, true>(n, H, device_sms());
+  const ChainPlan p = chain_plan<W, true, 4>(n, H, device_sms());
   const ChainBwdArgs<W> a{n,    T,    H,     p.row_groups, dhs, dhs_row, dhs_step, hbuf,
                           cbuf, gates, w + (size_t)E * G, dg, dg16, h16,     dh,       dc};
-  ICRL_CHECK(launch_chain(lstm_bwd_kernel<W>, p, a, s));
+  ICRL_CHECK((launch_planned<W, true, 4, LstmBwdLaunch<W>::template At>(p, a, s)));
   ICRL_CHECK(launch_colsum(R, G, dg, part, db, s));
   if constexpr (kIsBf16<W>) {
     const DenseRows dgr{dg16, R, G, G};
@@ -644,4 +342,18 @@ int lstm_bwd(int n, int T, int E, int H, const int* tok, const float* dhs, long 
 }
 
 }  // namespace
+
+// lstm_bwd for each weight type, compiled once (lstm_chain_bwd.cu) for the
+// chain's entry point and the A2C rollout (rollout.cu) alike.
+int lstm_chain_backward(int n, int T, int E, int H, const int* tok, const float* dhs,
+                        long dhs_row, long dhs_step, const float* hbuf, const float* cbuf,
+                        const float* gates, const __nv_bfloat16* emb,
+                        const __nv_bfloat16* w, float* dg, __nv_bfloat16* dg16,
+                        __nv_bfloat16* h16, float* dh, float* dc, float* part, float* dw,
+                        float* db, float* dx, cudaStream_t s);
+int lstm_chain_backward(int n, int T, int E, int H, const int* tok, const float* dhs,
+                        long dhs_row, long dhs_step, const float* hbuf, const float* cbuf,
+                        const float* gates, const float* emb, const float* w, float* dg,
+                        __nv_bfloat16* dg16, __nv_bfloat16* h16, float* dh, float* dc,
+                        float* part, float* dw, float* db, float* dx, cudaStream_t s);
 }  // namespace icrl

@@ -27,10 +27,10 @@
 //     dw1 = rnd([feats; h_v])^T rnd(dv1), db1, dfh = rnd(dv1) @ rnd(w1)^T,
 //     split into dfeat (summed over the steps) and dh_head.
 // Then each encoder's recurrence is the teacher-forced chain's backward
-// (lstm_bwd, lstm_chain.cuh) over the S - 1 advances: the chain's step t
-// output h_p[t + 1] feeds the head at step t + 1, so its upstream gradient is
-// dh_head[t + 1], and the cotangent of the start state is the chain's dh0 plus
-// dh_head[0]. The rounding points of the TPU kernel's _cell_bwd and _outer
+// (lstm_chain_backward, lstm_chain_bwd.cu) over the S - 1 advances: the
+// chain's step t output h_p[t + 1] feeds the head at step t + 1, so its
+// upstream gradient is dh_head[t + 1], and the cotangent of the start state
+// is the chain's dh0 plus dh_head[0]. The rounding points of the TPU kernel's _cell_bwd and _outer
 // (pallas_rollout.py:324-373) are the chain's, line by line: the gate
 // gradients are formed in float32 from the taped gates and c (lstm_cell_bwd:
 // do, dct, di, df, dg, dc_prev as in _cell_bwd), cast to the weight
@@ -409,8 +409,8 @@ int rollout_policy_bwd(int n, int S, int E, int H, int V, int Vp, const int* tok
   ICRL_CHECK((launch_view<W, false, true>(R, H, Vp, dlogits, Vp, nullptr, hw, Vp, false, dh_head,
                                           s)));
   if (S > 1)
-    ICRL_CHECK(lstm_bwd(n, S - 1, E, H, tok, dh_head + NH, H, (long)NH, hp, cp, gp, emb, w, dg,
-                        dg16, h16, dh, dc, part, dw, db, dx, s));
+    ICRL_CHECK(lstm_chain_backward(n, S - 1, E, H, tok, dh_head + NH, H, (long)NH, hp, cp, gp,
+                                   emb, w, dg, dg16, h16, dh, dc, part, dw, db, dx, s));
   add_kernel<<<cdiv(NH, 256), 256, 0, s>>>(NH, dh, dh_head);
   return (int)cudaGetLastError();
 }
@@ -442,8 +442,8 @@ int rollout_value_bwd(int n, int S, int F, int E, int H, const int* tok, const f
   step_sum_kernel<<<cdiv((size_t)n * F, 256), 256, 0, s>>>(n, S, F, dfh, dfeat);
   ICRL_CHECK(cudaGetLastError());
   if (S > 1)
-    ICRL_CHECK(lstm_bwd(n, S - 1, E, H, tok, dh_head + NH, H, (long)NH, hv, cv, gv, emb, w, dg,
-                        dg16, h16, dh, dc, part, dw, db, dx, s));
+    ICRL_CHECK(lstm_chain_backward(n, S - 1, E, H, tok, dh_head + NH, H, (long)NH, hv, cv, gv,
+                                   emb, w, dg, dg16, h16, dh, dc, part, dw, db, dx, s));
   add_kernel<<<cdiv(NH, 256), 256, 0, s>>>(NH, dh, dh_head);
   return (int)cudaGetLastError();
 }

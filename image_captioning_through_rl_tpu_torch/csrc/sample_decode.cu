@@ -34,13 +34,20 @@
 // one warp per row that holds the row's V <= 1024 scaled logits in registers
 // (32 per lane), so the bisection rounds read no memory; the warp's shuffle
 // sums leave the same total in every lane, so every decision is the warp's.
+// A wider vocabulary takes one block per row (sample_wide_kernel): the
+// scaled logits stay in the row of the logits workspace (L1-resident), each
+// thread walks every 256th column, and every count, mass, extreme and
+// argmax is a block-wide reduction in a fixed order (the warps' butterflies,
+// then the eight warp results in warp order, read by every thread), so
+// every decision is again the row's. The logits' row stride may exceed V
+// (a head padded to an even width); the padded columns are never read.
 #include "common.cuh"
 #include "threefry.cuh"
 
 namespace icrl {
 namespace {
 
-constexpr int PER_LANE = 32;  // logits a lane holds: V <= 1024 (MAX_VOCAB in ops/fused_sample.py)
+constexpr int PER_LANE = 32;  // logits a lane holds: V <= 1024 (WARP_VOCAB in ops/fused_sample.py)
 constexpr float MASKED = -1e30f;  // a filtered-out logit (pallas_decode.py _NEG)
 
 __device__ __forceinline__ int monotone_key(float x) {
@@ -87,15 +94,15 @@ __device__ __forceinline__ int keyspace_threshold(const int (&key)[PER_LANE],
   return hi;
 }
 
-// out[r * out_stride] = the token drawn for row r of logits [M, V] under
-// the step key (k0, k1).
+// out[r * out_stride] = the token drawn for row r of logits [M, ldv] (its
+// first V columns) under the step key (k0, k1).
 template <bool kTopK, bool kTopP>
 __global__ void __launch_bounds__(NT)
-    sample_rows_kernel(int M, int V, float temp, int k, float p, unsigned k0, unsigned k1,
+    sample_rows_kernel(int M, int V, int ldv, float temp, int k, float p, unsigned k0, unsigned k1,
                        const float* __restrict__ logits, int* __restrict__ out, int out_stride) {
   const int lane = threadIdx.x % 32, r = blockIdx.x * ROWS_PER_BLOCK + threadIdx.x / 32;
   if (r >= M) return;
-  const float* row = logits + (size_t)r * V;
+  const float* row = logits + (size_t)r * ldv;
   float x[PER_LANE];
 #pragma unroll
   for (int i = 0; i < PER_LANE; ++i) {
@@ -152,31 +159,176 @@ __global__ void __launch_bounds__(NT)
   if (lane == 0) out[(size_t)r * out_stride] = idx;
 }
 
-cudaError_t launch_sample_rows(bool top_k, bool top_p, int M, int V, float temp, int k, float p,
-                               unsigned k0, unsigned k1, const float* logits, int* out,
-                               int out_stride, cudaStream_t s) {
-  const dim3 grid(cdiv(M, ROWS_PER_BLOCK)), block(NT);
-  if (top_k && top_p)
-    sample_rows_kernel<true, true><<<grid, block, 0, s>>>(M, V, temp, k, p, k0, k1, logits, out,
-                                                          out_stride);
-  else if (top_k)
-    sample_rows_kernel<true, false><<<grid, block, 0, s>>>(M, V, temp, k, p, k0, k1, logits, out,
-                                                           out_stride);
-  else if (top_p)
-    sample_rows_kernel<false, true><<<grid, block, 0, s>>>(M, V, temp, k, p, k0, k1, logits, out,
-                                                           out_stride);
+// Block-wide reductions of the wide path, in a fixed order: the warp's
+// butterfly, then the eight warp results in warp order. Every thread gets
+// the same value. ``sh`` holds NT / 32 values; the barriers make a second
+// call safe.
+__device__ __forceinline__ float block_sum(float v, float* sh) {
+  v = warp_sum(v);
+  __syncthreads();
+  if (threadIdx.x % 32 == 0) sh[threadIdx.x / 32] = v;
+  __syncthreads();
+  float t = 0.f;
+#pragma unroll
+  for (int w = 0; w < NT / 32; ++w) t += sh[w];
+  return t;
+}
+__device__ __forceinline__ float block_max(float v, float* sh) {
+#pragma unroll
+  for (int off = 16; off; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
+  __syncthreads();
+  if (threadIdx.x % 32 == 0) sh[threadIdx.x / 32] = v;
+  __syncthreads();
+  float t = sh[0];
+#pragma unroll
+  for (int w = 1; w < NT / 32; ++w) t = fmaxf(t, sh[w]);
+  return t;
+}
+__device__ __forceinline__ void block_key_range(int& kmin, int& kmax, int* sh) {
+#pragma unroll
+  for (int off = 16; off; off >>= 1) {
+    kmin = min(kmin, __shfl_xor_sync(FULL, kmin, off));
+    kmax = max(kmax, __shfl_xor_sync(FULL, kmax, off));
+  }
+  __syncthreads();
+  if (threadIdx.x % 32 == 0) {
+    sh[threadIdx.x / 32] = kmin;
+    sh[NT / 32 + threadIdx.x / 32] = kmax;
+  }
+  __syncthreads();
+  kmin = sh[0];
+  kmax = sh[NT / 32];
+#pragma unroll
+  for (int w = 1; w < NT / 32; ++w) {
+    kmin = min(kmin, sh[w]);
+    kmax = max(kmax, sh[NT / 32 + w]);
+  }
+}
+
+// keyspace_threshold over a whole row x [V] (scaled, in memory) with one
+// block: w = 1 when kCount, else expf(x - m).
+template <bool kCount>
+__device__ int block_threshold(const float* x, int V, float m, float budget, float* shf,
+                               int* shi) {
+  int kmin = 0x7fffffff, kmax = -0x7fffffff - 1;
+  for (int c = threadIdx.x; c < V; c += NT) {
+    const int key = monotone_key(x[c]);
+    kmin = min(kmin, key);
+    kmax = max(kmax, key);
+  }
+  block_key_range(kmin, kmax, shi);
+  int lo = (int)((unsigned)kmin - 1u), hi = kmax;
+  for (int round = 0; round < 32; ++round) {
+    const int mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1);  // floor((lo + hi) / 2)
+    float mass = 0.f;
+    for (int c = threadIdx.x; c < V; c += NT) {
+      const float v = x[c];
+      if (monotone_key(v) > mid) mass += kCount ? 1.f : expf(v - m);
+    }
+    if (block_sum(mass, shf) < budget)
+      hi = mid;
+    else
+      lo = mid;
+  }
+  return hi;
+}
+
+// The wide path: one block per row r of logits [M, ldv], V > 32 PER_LANE.
+// The row's first V columns are scaled (and masked) in place.
+template <bool kTopK, bool kTopP>
+__global__ void __launch_bounds__(NT)
+    sample_wide_kernel(int M, int V, int ldv, float temp, int k, float p, unsigned k0,
+                       unsigned k1, float* __restrict__ logits, int* __restrict__ out,
+                       int out_stride) {
+  __shared__ float shf[NT / 32];
+  __shared__ int shi[2 * (NT / 32)];
+  __shared__ float best_v[NT / 32];
+  __shared__ int best_i[NT / 32];
+  const int r = blockIdx.x;
+  float* x = logits + (size_t)r * ldv;
+  for (int c = threadIdx.x; c < V; c += NT) x[c] = x[c] / temp;
+  __syncthreads();
+  if constexpr (kTopK) {
+    const int thr = block_threshold<true>(x, V, 0.f, (float)k, shf, shi);
+    for (int c = threadIdx.x; c < V; c += NT)
+      if (monotone_key(x[c]) < thr) x[c] = MASKED;
+    __syncthreads();
+  }
+  if constexpr (kTopP) {
+    float m = -INFINITY;
+    for (int c = threadIdx.x; c < V; c += NT) m = fmaxf(m, x[c]);
+    m = block_max(m, shf);
+    float z = 0.f;
+    for (int c = threadIdx.x; c < V; c += NT) z += expf(x[c] - m);  // masked entries: 0
+    const float budget = p * block_sum(z, shf);
+    const int thr = block_threshold<false>(x, V, m, budget, shf, shi);
+    __syncthreads();
+    for (int c = threadIdx.x; c < V; c += NT)
+      if (monotone_key(x[c]) < thr) x[c] = MASKED;
+    __syncthreads();
+  }
+  // Gumbel-max, first index on ties
+  const unsigned base = (unsigned)r * (unsigned)V;
+  float best = -INFINITY;
+  int idx = V;  // sentinel: loses every tie against a real column
+  for (int c = threadIdx.x; c < V; c += NT) {
+    const float noisy = x[c] + gumbel_from_bits(random_bits(k0, k1, base + (unsigned)c));
+    if (idx == V || noisy > best) {
+      best = noisy;
+      idx = c;
+    }
+  }
+  warp_argmax(best, idx);
+  if (threadIdx.x % 32 == 0) {
+    best_v[threadIdx.x / 32] = best;
+    best_i[threadIdx.x / 32] = idx;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < NT / 32; ++w)
+      if (best_v[w] > best || (best_v[w] == best && best_i[w] < idx)) {
+        best = best_v[w];
+        idx = best_i[w];
+      }
+    out[(size_t)r * out_stride] = idx;
+  }
+}
+
+template <bool kTopK, bool kTopP>
+cudaError_t launch_sample_rows_t(int M, int V, int ldv, float temp, int k, float p, unsigned k0,
+                                 unsigned k1, float* logits, int* out, int out_stride,
+                                 cudaStream_t s) {
+  if (V <= 32 * PER_LANE)
+    sample_rows_kernel<kTopK, kTopP><<<cdiv(M, ROWS_PER_BLOCK), NT, 0, s>>>(
+        M, V, ldv, temp, k, p, k0, k1, logits, out, out_stride);
   else
-    sample_rows_kernel<false, false><<<grid, block, 0, s>>>(M, V, temp, k, p, k0, k1, logits,
-                                                            out, out_stride);
+    sample_wide_kernel<kTopK, kTopP><<<M, NT, 0, s>>>(M, V, ldv, temp, k, p, k0, k1, logits, out,
+                                                      out_stride);
   return cudaGetLastError();
 }
 
+cudaError_t launch_sample_rows(bool top_k, bool top_p, int M, int V, int ldv, float temp, int k,
+                               float p, unsigned k0, unsigned k1, float* logits, int* out,
+                               int out_stride, cudaStream_t s) {
+  if (top_k && top_p)
+    return launch_sample_rows_t<true, true>(M, V, ldv, temp, k, p, k0, k1, logits, out,
+                                            out_stride, s);
+  if (top_k)
+    return launch_sample_rows_t<true, false>(M, V, ldv, temp, k, p, k0, k1, logits, out,
+                                             out_stride, s);
+  if (top_p)
+    return launch_sample_rows_t<false, true>(M, V, ldv, temp, k, p, k0, k1, logits, out,
+                                             out_stride, s);
+  return launch_sample_rows_t<false, false>(M, V, ldv, temp, k, p, k0, k1, logits, out,
+                                            out_stride, s);
+}
+
 template <typename W>
-int sample(int n, int F, int E, int H, int V, int T, bool top_k, bool top_p, int k, float temp,
-           float p, const unsigned* keys, const float* feats, const int* start, const W* wc,
-           const float* bc, const float* xg, const W* w, const float* b, const W* wo,
+int sample(int n, int F, int E, int H, int V, int Vh, int T, bool top_k, bool top_p, int k,
+           float temp, float p, const unsigned* keys, const float* feats, const int* start,
+           const W* wc, const float* bc, const float* xg, const W* w, const float* b, const W* wo,
            const float* bo, int* out, float* ws, cudaStream_t s) {
-  const GreedyLayout<W> l = greedy_layout<W>(ws, n, H, V);
+  const GreedyLayout<W> l = greedy_layout<W>(ws, n, H, Vh);
   const W* wh = w + (size_t)E * 4 * H;
   fill_start_kernel<<<cdiv(n, 256), 256, 0, s>>>(n, T, start, out);
   ICRL_CHECK(cudaGetLastError());
@@ -189,9 +341,9 @@ int sample(int n, int F, int E, int H, int V, int T, bool top_k, bool top_p, int
                         nullptr, 1, wh,      b,  l.h[cur ^ 1], l.c[cur ^ 1]};
     ICRL_CHECK(launch_lstm(a, s));
     cur ^= 1;
-    ICRL_CHECK((launch_linear<W, W, false>(n, H, V, l.h[cur], wo, bo, l.logits, s)));
-    ICRL_CHECK(launch_sample_rows(top_k, top_p, n, V, temp, k, p, keys[2 * t], keys[2 * t + 1],
-                                  l.logits, out + t + 1, T, s));
+    ICRL_CHECK((launch_linear<W, W, false>(n, H, Vh, l.h[cur], wo, bo, l.logits, s)));
+    ICRL_CHECK(launch_sample_rows(top_k, top_p, n, V, Vh, temp, k, p, keys[2 * t],
+                                  keys[2 * t + 1], l.logits, out + t + 1, T, s));
   }
   return 0;
 }
@@ -202,26 +354,29 @@ int sample(int n, int F, int E, int H, int V, int T, bool top_k, bool top_p, int
 extern "C" {
 
 // Sampled decode of n rows into out [n, T] (device), in the greedy decode's
-// workspace (icrl_greedy_workspace_floats). keys: host memory, uint32
+// workspace (icrl_greedy_workspace_floats for the head's width Vh). V is the
+// vocabulary (the noise counters' width), Vh >= V the head's (wo [H, Vh],
+// bo [Vh]: a padded head). keys: host memory, uint32
 // [T - 1, 2], step t's subkey at keys[2 t], keys[2 t + 1]. Top-k (k) runs
 // when use_top_k != 0, the nucleus (p) when use_top_p != 0; temp > 0. Weights
 // and other pointers as in icrl_greedy_decode. Returns 0 or the first CUDA
 // error raised by a launch.
-int icrl_sample_decode(int n, int F, int E, int H, int V, int T, int bf16, int use_top_k,
-                       int use_top_p, int k, float temp, float p, const unsigned* keys,
-                       const float* feats, const int* start, const void* wc, const float* bc,
-                       const float* xg, const void* w, const float* b, const void* wo,
-                       const float* bo, int* out, float* ws, void* stream) {
+int icrl_sample_decode(int n, int F, int E, int H, int V, int Vh, int T, int bf16,
+                       int use_top_k, int use_top_p, int k, float temp, float p,
+                       const unsigned* keys, const float* feats, const int* start,
+                       const void* wc, const float* bc, const float* xg, const void* w,
+                       const float* b, const void* wo, const float* bo, int* out, float* ws,
+                       void* stream) {
   using namespace icrl;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     using W = __nv_bfloat16;
-    return sample<W>(n, F, E, H, V, T, use_top_k, use_top_p, k, temp, p, keys, feats, start,
+    return sample<W>(n, F, E, H, V, Vh, T, use_top_k, use_top_p, k, temp, p, keys, feats, start,
                      (const W*)wc, bc, xg, (const W*)w, b, (const W*)wo, bo, out, ws, s);
   }
-  return sample<float>(n, F, E, H, V, T, use_top_k, use_top_p, k, temp, p, keys, feats, start,
-                       (const float*)wc, bc, xg, (const float*)w, b, (const float*)wo, bo, out,
-                       ws, s);
+  return sample<float>(n, F, E, H, V, Vh, T, use_top_k, use_top_p, k, temp, p, keys, feats,
+                       start, (const float*)wc, bc, xg, (const float*)w, b, (const float*)wo, bo,
+                       out, ws, s);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // A bf16 matrix product on Hopper's warpgroup MMA (wgmma), for the large
-// products of the LSTM chain's backward (lstm_chain.cuh): d[wi; wh] =
-// rnd([x; h_prev])^T rnd(dg) over all T N rows and dx = rnd(dg) @ rnd(wi)^T.
+// products of the chains' backward (lstm_chain.cuh, gru_chain.cu): the LSTM's
+// d[wi; wh] = rnd([x; h_prev])^T rnd(dg) over all T N rows and dx =
+// rnd(dg) @ rnd(wi)^T, the GRU's dwi, dwh and dx alike.
 //
 // out [M, N] float32 = A [M, K] @ B [K, N], bf16 operands, float32 sums. A
 // block owns a 128 x 128 output tile: two consumer warpgroups, each issuing
@@ -114,13 +115,39 @@ struct TokenStateRows {
   }
 };
 
-template <bool kMN, class ASrc, class BSrc>
+// One or two products that share N and K, one per blockIdx.z: two small
+// products (the GRU backward's dwi and dwh, 48 blocks each at COCO width)
+// share one launch, so their partial waves of blocks run side by side.
+template <class ASrc, class BSrc, int NB>
+struct WgmmaProblems {
+  static_assert(NB == 1 || NB == 2, "one or two products");
+  int M[NB];
+  ASrc a[NB];
+  BSrc b[NB];
+  float* out[NB];
+};
+
+template <int NB, class T>
+__device__ __forceinline__ T pick(const T (&v)[NB], int z) {
+  if constexpr (NB == 1)
+    return v[0];
+  else
+    return z ? v[1] : v[0];
+}
+
+template <bool kMN, class ASrc, class BSrc, int NB>
 __global__ void __launch_bounds__(wg::THREADS, 1)
-    wgmma_gemm_kernel(int M, int N, int K, ASrc asrc, BSrc bsrc, float* __restrict__ out) {
+    wgmma_gemm_kernel(int N, int K, WgmmaProblems<ASrc, BSrc, NB> pr) {
   extern __shared__ uint8_t wg_smem[];
+  const int z = NB > 1 ? (int)blockIdx.z : 0;
+  const int M = pick<NB>(pr.M, z);
+  const ASrc asrc = pick<NB>(pr.a, z);
+  const BSrc bsrc = pick<NB>(pr.b, z);
+  float* __restrict__ out = pick<NB>(pr.out, z);
   const uint32_t base = (wg::smem_addr(wg_smem) + 1023u) & ~1023u;
   const int tid = threadIdx.x, wgi = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
   const int m0 = blockIdx.x * wg::BM, n0 = blockIdx.y * wg::BN;
+  if (m0 >= M) return;  // past the shorter product's rows
   const int nk = (K + wg::BK - 1) / wg::BK;
 
   // one 64-deep slice of both operands into ring slot ``slot``
@@ -208,16 +235,24 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     }
 }
 
-template <bool kMN, class ASrc, class BSrc>
-cudaError_t launch_wgmma_gemm(int M, int N, int K, const ASrc& a, const BSrc& b, float* out,
-                              cudaStream_t s) {
-  auto kernel = wgmma_gemm_kernel<kMN, ASrc, BSrc>;
+template <bool kMN, class ASrc, class BSrc, int NB>
+cudaError_t launch_wgmma_batch(int N, int K, const WgmmaProblems<ASrc, BSrc, NB>& pr,
+                               cudaStream_t s) {
+  auto kernel = wgmma_gemm_kernel<kMN, ASrc, BSrc, NB>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
   if (err != cudaSuccess) return err;
-  const dim3 grid((M + wg::BM - 1) / wg::BM, (N + wg::BN - 1) / wg::BN);
-  kernel<<<grid, wg::THREADS, wg::SMEM_BYTES, s>>>(M, N, K, a, b, out);
+  int m = 0;
+  for (int i = 0; i < NB; ++i) m = pr.M[i] > m ? pr.M[i] : m;
+  const dim3 grid((m + wg::BM - 1) / wg::BM, (N + wg::BN - 1) / wg::BN, NB);
+  kernel<<<grid, wg::THREADS, wg::SMEM_BYTES, s>>>(N, K, pr);
   return cudaGetLastError();
+}
+
+template <bool kMN, class ASrc, class BSrc>
+cudaError_t launch_wgmma_gemm(int M, int N, int K, const ASrc& a, const BSrc& b, float* out,
+                              cudaStream_t s) {
+  return launch_wgmma_batch<kMN>(N, K, WgmmaProblems<ASrc, BSrc, 1>{{M}, {a}, {b}, {out}}, s);
 }
 
 }  // namespace

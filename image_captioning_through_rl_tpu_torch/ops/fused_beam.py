@@ -10,8 +10,9 @@ Routing in :func:`fused_beam_search` is that of
 raise, CPU tensors run :func:`beam_search_plain`, and
 ``use_fused_kernel=False`` selects the plain version explicitly.
 
-Weights are prepared once (:func:`prepare_beam_weights`). Of the TPU
-kernel's workarounds none carries over: no vocab padding, no one-hot
+Weights are prepared once (:func:`prepare_beam_weights`), padded as the
+policy's are when its widths need it (:func:`.fused_decode.pad_greedy_weights`).
+Of the TPU kernel's other workarounds none carries over: no one-hot
 matmuls, no ``linear2`` padded to 128 columns, no ``(b, n)``-major rows to
 de-interleave.
 """
@@ -29,11 +30,13 @@ from .fused_decode import (
     check_tile_widths,
     check_weights,
     lstm_cell_plain,
+    pad_features,
     round_to,
     token_gate_table,
     wmatmul,
 )
 from .kernel_build import check_error, load_library
+from .padding import pad_dim, pad_gates, pad_split_rows
 
 MAX_BEAM = 8  # the kernel's bound (icrl_beam_max_beam in csrc/beam_search.cu)
 
@@ -66,14 +69,18 @@ class BeamWeights(NamedTuple):
 
 def prepare_beam_weights(policy: GreedyWeights, value_params: dict) -> BeamWeights:
     """Critic parameters (JAX layout, on the policy's device) joined to the
-    prepared policy weights, in the policy's working type."""
+    prepared policy weights, in the policy's working type, padded to the
+    policy's widths when the policy is padded."""
     if "lstm" not in value_params:
         raise ValueError("the fused beam kernel needs a unidirectional critic")
-    if (value_params["embedding"].shape[1] != policy.emb.shape[1]
-            or value_params["lstm"]["wh"].shape[0] != policy.wc.shape[1]):
+    feat_dim, emb_dim, hidden = policy.widths or (policy.wc.shape[0], policy.emb.shape[1],
+                                                  policy.wc.shape[1])
+    if (value_params["embedding"].shape[1] != emb_dim
+            or value_params["lstm"]["wh"].shape[0] != hidden):
         raise ValueError("the fused beam kernel needs policy and value networks with "
                          "matching embedding and hidden widths")
     wd = policy.dtype
+    fp, (ep, hp) = policy.wc.shape[0], (policy.emb.shape[1], policy.wc.shape[1])
 
     def wt(x):
         return x.to(wd).contiguous()
@@ -82,11 +89,15 @@ def prepare_beam_weights(policy: GreedyWeights, value_params: dict) -> BeamWeigh
         return x.to(torch.float32).contiguous()
 
     lstm = value_params["lstm"]
-    emb, w = wt(value_params["embedding"]), wt(torch.cat([lstm["wi"], lstm["wh"]], dim=0))
+    w = pad_split_rows(pad_gates(torch.cat([lstm["wi"], lstm["wh"]], dim=0), 4, hp), emb_dim, ep,
+                       hp)
+    emb, w = wt(pad_dim(value_params["embedding"], 1, ep)), wt(w)
+    w1 = pad_dim(pad_split_rows(value_params["linear1"]["w"], feat_dim, fp, hp), 1, hp)
     return BeamWeights(policy, ValueWeights(
-        emb=emb, w=w, b=f32(lstm["b"]),
-        w1=wt(value_params["linear1"]["w"]), b1=f32(value_params["linear1"]["b"]),
-        w2=wt(value_params["linear2"]["w"][:, 0]), b2=f32(value_params["linear2"]["b"]),
+        emb=emb, w=w, b=f32(pad_gates(lstm["b"], 4, hp)),
+        w1=wt(w1), b1=f32(pad_dim(value_params["linear1"]["b"], 0, hp)),
+        w2=wt(pad_dim(value_params["linear2"]["w"][:, 0], 0, hp)),
+        b2=f32(value_params["linear2"]["b"]),
         xg=token_gate_table(emb, w) if emb.is_cuda else None,
     ))
 
@@ -121,6 +132,7 @@ def beam_search_plain(weights: BeamWeights, features: torch.Tensor,
     if not 1 <= beam <= MAX_BEAM:
         raise ValueError(f"beam must be in [1, {MAX_BEAM}], got {beam}")
     p, v = weights
+    features = pad_features(p, features)
     wd = p.dtype
     pemb, vemb = p.emb.to(torch.float32), v.emb.to(torch.float32)
     n, b = features.shape[0], beam
@@ -183,6 +195,7 @@ def beam_search_plain(weights: BeamWeights, features: torch.Tensor,
 def _launch_beam(weights: BeamWeights, features: torch.Tensor, start_tokens: torch.Tensor,
                  max_len: int, beam: int, value_weight: float, logprob_weight: float):
     p, v = weights
+    features = pad_features(p, features)
     vocab, emb_dim = p.emb.shape
     feat_dim, hidden = p.wc.shape
     check_kernel_inputs(features, start_tokens, vocab)
@@ -190,10 +203,9 @@ def _launch_beam(weights: BeamWeights, features: torch.Tensor, start_tokens: tor
     check_weights(v, features.device)
     if v.dtype != p.dtype:
         raise ValueError("policy and value weights must share one working type")
-    check_tile_widths(p.dtype, feat_dim=feat_dim, emb_dim=emb_dim, hidden=hidden, vocab=vocab)
+    check_tile_widths(p.dtype, feat_dim=feat_dim, emb_dim=emb_dim, hidden=hidden,
+                      vocab=p.wo.shape[1])
     n = features.shape[0]
-    if features.shape[1] != feat_dim:
-        raise ValueError(f"features have {features.shape[1]} columns, the policy {feat_dim}")
     if max_len < 2 or vocab <= beam:
         raise ValueError("max_len must be at least 2 and the vocabulary larger than the beam")
     dev = features.device
@@ -205,6 +217,7 @@ def _launch_beam(weights: BeamWeights, features: torch.Tensor, start_tokens: tor
     ptr = torch.Tensor.data_ptr
     with torch.cuda.device(dev):
         bf16 = int(p.dtype == torch.bfloat16)
+        vocab = p.wo.shape[1]  # the head's width: a padded word never makes the cut
         ws = torch.empty(lib.icrl_beam_workspace_floats(n, hidden, vocab, max_len, beam, bf16),
                          dtype=torch.float32, device=dev)
         err = lib.icrl_beam_search(

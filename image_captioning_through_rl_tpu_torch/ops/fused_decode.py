@@ -11,9 +11,11 @@ path catches a kernel error and falls back.
 
 Weights are prepared once (:func:`prepare_greedy_weights`): cast to the
 working type, ``[wi; wh]`` concatenated and, on CUDA, the x-gate table
-``emb @ wi`` built by :func:`token_gate_table`. None of the TPU kernel's
-workarounds carry over: no vocab padding, no one-hot matmuls, no batch
-padding.
+``emb @ wi`` built by :func:`token_gate_table`. A model whose widths the
+kernels cannot stage (:mod:`.padding`: E, F or H not a multiple of 8, or an
+odd vocabulary) is padded there once, as the TPU kernel pads its vocabulary;
+the features are padded per call. None of the TPU kernel's other
+workarounds carry over: no one-hot matmuls, no batch padding.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 from .. import MAX_SEQ_LEN
 from .kernel_build import check_error, load_library
 from .linalg import matmul
+from .padding import NEG, needs_padding, pad8, pad_dim, pad_gates, pad_split_rows
 
 
 class GreedyWeights(NamedTuple):
@@ -32,7 +35,11 @@ class GreedyWeights(NamedTuple):
     ``wo`` are in the working type (bf16 or f32); biases and ``xg`` are
     f32. ``xg`` is the x-gate table ``emb @ wi``, which the kernels read
     instead of multiplying the embedding row each step; it is built on a
-    CUDA device only (None on the CPU, where the plain versions run)."""
+    CUDA device only (None on the CPU, where the plain versions run).
+    ``widths`` is ``(F, E, H)`` of the model when :func:`pad_greedy_weights`
+    padded it (then the shapes below are padded: F, E, H to multiples of 8,
+    the head's V to an even width; the embedding keeps its V rows), else
+    None."""
 
     wc: torch.Tensor   # [F, H]
     bc: torch.Tensor   # [H]
@@ -42,12 +49,18 @@ class GreedyWeights(NamedTuple):
     wo: torch.Tensor   # [H, V]
     bo: torch.Tensor   # [V]
     xg: torch.Tensor | None  # [V, 4H]
+    widths: tuple | None = None
 
     f32_fields = ("bc", "b", "bo", "xg")
 
     @property
     def dtype(self) -> torch.dtype:
         return self.w.dtype
+
+    @property
+    def feat_dim(self) -> int:
+        """The width of the features the model takes (before padding)."""
+        return self.widths[0] if self.widths else self.wc.shape[0]
 
 
 def prepare_greedy_weights(params: dict, weight_dtype: torch.dtype = torch.bfloat16
@@ -66,11 +79,43 @@ def prepare_greedy_weights(params: dict, weight_dtype: torch.dtype = torch.bfloa
 
     lstm = params["lstm"]
     emb, w = wt(params["embedding"]), wt(torch.cat([lstm["wi"], lstm["wh"]], dim=0))
-    return GreedyWeights(
+    weights = GreedyWeights(
         wc=wt(params["cnn2linear"]["w"]), bc=f32(params["cnn2linear"]["b"]), emb=emb, w=w,
-        b=f32(lstm["b"]), wo=wt(params["head"]["w"]), bo=f32(params["head"]["b"]),
+        b=f32(lstm["b"]), wo=wt(params["head"]["w"]), bo=f32(params["head"]["b"]), xg=None)
+    (feat_dim, hidden), (vocab, emb_dim) = weights.wc.shape, emb.shape
+    if needs_padding(feat_dim, emb_dim, hidden, vocab=vocab):
+        return pad_greedy_weights(weights)
+    return weights._replace(xg=token_gate_table(emb, w) if emb.is_cuda else None)
+
+
+def pad_greedy_weights(weights: GreedyWeights) -> GreedyWeights:
+    """Unpadded weights padded for the kernels (:mod:`.padding`): F, E and H
+    to multiples of 8, the head to an even vocabulary with a -1e30 bias on
+    the padded word; the x-gate table rebuilt on CUDA. Every decode gives
+    the same tokens on the padded weights (with features padded by
+    :func:`pad_features`)."""
+    (feat_dim, hidden), emb_dim = weights.wc.shape, weights.emb.shape[1]
+    vocab = weights.wo.shape[1]
+    fp, ep, hp, vp = pad8(feat_dim), pad8(emb_dim), pad8(hidden), vocab + vocab % 2
+    emb = pad_dim(weights.emb, 1, ep).contiguous()
+    w = pad_split_rows(pad_gates(weights.w, 4, hp), emb_dim, ep, hp).contiguous()
+    return GreedyWeights(
+        wc=pad_dim(pad_dim(weights.wc, 0, fp), 1, hp).contiguous(),
+        bc=pad_dim(weights.bc, 0, hp).contiguous(), emb=emb, w=w,
+        b=pad_gates(weights.b, 4, hp).contiguous(),
+        wo=pad_dim(pad_dim(weights.wo, 0, hp), 1, vp).contiguous(),
+        bo=pad_dim(weights.bo, 0, vp, NEG).contiguous(),
         xg=token_gate_table(emb, w) if emb.is_cuda else None,
-    )
+        widths=(feat_dim, emb_dim, hidden))
+
+
+def pad_features(weights, features: torch.Tensor) -> torch.Tensor:
+    """``features [N, F]`` checked against the model's F and padded with
+    zero columns to the weights' padded F (as they are, when unpadded)."""
+    if features.dim() != 2 or features.shape[1] != weights.feat_dim:
+        raise ValueError(f"features must be [N, {weights.feat_dim}], got "
+                         f"{tuple(features.shape)}")
+    return pad_dim(features, 1, weights.wc.shape[0])
 
 
 def token_gate_table_plain(emb: torch.Tensor, w: torch.Tensor,
@@ -86,7 +131,8 @@ def check_tile_widths(dtype: torch.dtype, **widths: int) -> None:
     """The bf16 kernels stage their tensor-core operands in 16-byte chunks
     (``csrc/common.cuh``, ``gemm_tile_tc``): every reduction width must be a
     multiple of 8, and an output width read in bf16 pairs (the vocabulary, a
-    gate table's columns) even. The float32 kernels take any width."""
+    gate table's columns) even. The wrappers pad (:mod:`.padding`) before
+    they check, so this guards the kernels and refuses no caller."""
     if dtype != torch.bfloat16:
         return
     bad = {k: v for k, v in widths.items() if v % (2 if k in ("vocab", "columns") else 8)}
@@ -109,6 +155,12 @@ def _launch_token_gates(emb: torch.Tensor, w: torch.Tensor,
                              or bias.device != emb.device or not bias.is_contiguous()):
         raise ValueError("token_gate_table's bias must be a contiguous float32 [G] tensor "
                          "on the embedding's device")
+    if needs_padding(emb_dim, vocab=width):  # zero columns of emb, zero rows and columns of w
+        ep, gp = pad8(emb_dim), width + width % 2
+        out = _launch_token_gates(pad_dim(emb, 1, ep).contiguous(),
+                                  pad_dim(pad_dim(w[:emb_dim], 0, ep), 1, gp).contiguous(),
+                                  None if bias is None else pad_dim(bias, 0, gp).contiguous())
+        return out[:, :width].contiguous()
     check_tile_widths(emb.dtype, emb_dim=emb_dim, columns=width)
     out = torch.empty((vocab, width), dtype=torch.float32, device=emb.device)
     lib = load_library()
@@ -183,6 +235,7 @@ def greedy_decode_plain(weights: GreedyWeights, features: torch.Tensor,
     top-2 logit gap of every step, ``[N, max_len - 1]`` — how close each
     argmax came to a tie, which a comparison with the kernel needs.
     """
+    features = pad_features(weights, features)
     wd = weights.dtype
     emb = weights.emb.to(torch.float32)
     h = matmul(features.to(torch.float32), weights.wc.to(torch.float32)) + weights.bc
@@ -205,6 +258,8 @@ def check_weights(weights, device: torch.device) -> None:
     """Every tensor of a weights tuple present and contiguous on ``device``,
     its ``f32_fields`` f32 and the rest in the tuple's working type."""
     for name, t in weights._asdict().items():
+        if name == "widths":
+            continue
         want = torch.float32 if name in weights.f32_fields else weights.dtype
         if t is None or t.device != device or not t.is_contiguous() or t.dtype != want:
             raise ValueError(f"weight {name!r} must be a contiguous {want} tensor on {device}")
@@ -230,25 +285,25 @@ def check_kernel_inputs(features: torch.Tensor, start_tokens: torch.Tensor, voca
 
 def check_decode_inputs(weights: GreedyWeights, features: torch.Tensor,
                         start_tokens: torch.Tensor, max_len: int) -> None:
-    """The checks of a decode kernel's call (greedy, sampling): inputs,
-    weights, tile widths, the feature width and ``max_len``."""
+    """The checks of a decode kernel's call (greedy, sampling): inputs
+    (``features`` already padded by :func:`pad_features`), weights, tile
+    widths and ``max_len``."""
     vocab, emb_dim = weights.emb.shape
     feat_dim, hidden = weights.wc.shape
     check_kernel_inputs(features, start_tokens, vocab)
     check_weights(weights, features.device)
     check_tile_widths(weights.dtype, feat_dim=feat_dim, emb_dim=emb_dim, hidden=hidden,
-                      vocab=vocab)
-    if features.shape[1] != feat_dim:
-        raise ValueError(f"features have {features.shape[1]} columns, the policy {feat_dim}")
+                      vocab=weights.wo.shape[1])
     if max_len < 2:
         raise ValueError("max_len must be at least 2")
 
 
 def _launch_greedy(weights: GreedyWeights, features: torch.Tensor,
                    start_tokens: torch.Tensor, max_len: int) -> torch.Tensor:
+    features = pad_features(weights, features)
     check_decode_inputs(weights, features, start_tokens, max_len)
-    vocab, emb_dim = weights.emb.shape
-    feat_dim, hidden = weights.wc.shape
+    emb_dim, (feat_dim, hidden) = weights.emb.shape[1], weights.wc.shape
+    vocab = weights.wo.shape[1]  # the head's width: the kernel never picks a padded word
     n = features.shape[0]
     dev = features.device
     out = torch.empty((n, max_len), dtype=torch.int32, device=dev)

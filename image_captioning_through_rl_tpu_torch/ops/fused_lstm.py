@@ -21,9 +21,10 @@ catches a kernel error and falls back.
 
 Each direction's recurrence is one cooperative launch of a persistent
 kernel whose blocks must all be resident at once: :func:`lstm_chain_plan`
-sizes it (rows per tile, hidden units per block, the grid, the shared
-memory each block opts in to beyond 48 KB) and the C entry points check
-the plan against their own.
+sizes it (rows per tile, hidden units per block, stationary or streamed
+weights, the grid, the shared memory each block opts in to beyond 48 KB)
+and the C entry points check the plan against their own. Every width
+plans; widths the kernels cannot stage are padded (:func:`padded_chain`).
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ import functools
 
 import torch
 
-from .fused_decode import check_tile_widths, round_to, token_gate_table, wmatmul
+from .fused_decode import round_to, token_gate_table, wmatmul
 from .kernel_build import check_error, load_library
+from .padding import needs_padding, pad8, pad_cell, pad_dim
 
 
 def _step_major(tokens: torch.Tensor) -> torch.Tensor:
@@ -43,59 +45,91 @@ def _step_major(tokens: torch.Tensor) -> torch.Tensor:
     return torch.empty((steps, n), dtype=torch.int32, device=tokens.device).copy_(tokens.t())
 
 
-# The chain kernels' tiles (csrc/lstm_chain.cuh ChainTile), per weight type
-# and direction: hidden units per block, product columns per block, depth
-# per staged slice, slices in the ring.
-_CHAIN_TILES = {(torch.bfloat16, False): (32, 128, 128, 5),
-                (torch.bfloat16, True): (32, 32, 128, 5),
-                (torch.float32, False): (16, 64, 32, 4),
-                (torch.float32, True): (16, 16, 32, 4)}
+# The chain kernels' ring (csrc/chain.cuh ChainRing), per weight type: the
+# depth of a staged slice, the slots of the ring, and the hidden units per
+# block the plan tries, widest first.
+_CHAIN_RING = {torch.bfloat16: (128, 5, (32, 16, 8)), torch.float32: (32, 4, (8,))}
 CHAIN_ROWS = 64
 # H100 shared memory: per SM, the most one block may opt in to, and what the
 # runtime reserves per block.
 SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233472, 232448, 1024
 
 
-def lstm_chain_plan(n: int, hidden: int, weight_dtype: torch.dtype, sm_count: int,
-                    backward: bool = False) -> dict:
-    """The cooperative launch of one chain direction, as
-    ``csrc/lstm_chain.cuh:chain_plan`` computes it: blocks ``(slice,
-    group)`` over ``grid = (slices, row_groups)``; block ``(s, g)`` owns the
-    hidden units ``[s units, s units + units)`` and the row tiles ``g, g +
-    row_groups, ...`` of ``rows_per_tile`` rows, and opts in to
-    ``smem_bytes`` of shared memory (its slice of ``wh`` and the staging
-    ring, which the product tile overlays). ``co_resident`` is how many such
-    blocks the card holds at once; the grid never exceeds it. Raises
-    ``ValueError`` for a width whose slice does not fit in one SM."""
-    units, cols, depth, stages = _CHAIN_TILES[(weight_dtype, backward)]
+def _chain_smem(weight_dtype: torch.dtype, backward: bool, gates: int, units: int,
+                stream: bool, kp: int) -> int:
+    """A block's shared memory (csrc/chain.cuh chain_smem): the stationary
+    weight slice and the ring, or the streaming ring of A rows and weight
+    rows."""
+    depth, stages, _ = _CHAIN_RING[weight_dtype]
     elem = 2 if weight_dtype == torch.bfloat16 else 4
     pad = 16 // elem
-    k = 4 * hidden if backward else hidden
+    cols = units if backward else gates * units
+    a = CHAIN_ROWS * (depth + pad)
+    if stream:
+        return stages * (a + (cols * (depth + pad) if backward else depth * (cols + pad))) * elem
+    return ((cols * (kp + pad) if backward else kp * (cols + pad)) + stages * a) * elem
+
+
+def chain_plan(n: int, hidden: int, weight_dtype: torch.dtype, sm_count: int,
+               backward: bool = False, gates: int = 4) -> dict:
+    """The cooperative launch of one direction of a chain with ``gates``
+    gates (4: LSTM, 3: GRU), as ``csrc/chain.cuh:chain_plan`` computes it.
+
+    The block's ``units`` (32, 16 or 8 with bf16 weights; 8 with float32)
+    are the widest whose slice of ``wh`` fits shared memory beside
+    the staging ring while every slice still gets a block of its own among
+    the ``co_resident`` blocks the card holds at once: then each block keeps
+    its slice for the whole chain (``stream`` False). Otherwise the weights
+    stream through the ring with the A rows at every step (``stream``
+    True), with the widest slice whose streaming ring fits. Blocks ``(x,
+    group)`` over ``grid = (grid_x, row_groups)``: block ``(x, g)`` owns the
+    slices ``x, x + grid_x, ...`` (units ``[s units, s units + units)``)
+    and the row tiles ``g, g + row_groups, ...`` of ``rows_per_tile`` rows,
+    and opts in to ``smem_bytes`` of shared memory. The grid never exceeds
+    ``co_resident``; no width is refused."""
+    depth, _, unit_choices = _CHAIN_RING[weight_dtype]
+    k = gates * hidden if backward else hidden
     kp = -(-k // depth) * depth
-    weights = cols * (kp + pad) if backward else kp * (cols + pad)
-    smem = (weights + stages * CHAIN_ROWS * (depth + pad)) * elem
-    if smem > SMEM_PER_BLOCK:
-        raise ValueError(f"lstm chain: hidden {hidden} needs {smem} bytes of shared memory per "
-                         f"block, more than the {SMEM_PER_BLOCK} one block may use")
+
+    def co_resident(smem):  # one block per SM: the kernels may take every register
+        if smem > SMEM_PER_BLOCK:
+            return 0
+        return sm_count * min(1, SMEM_PER_SM // (smem + SMEM_RESERVED))
+
+    for units in unit_choices:
+        smem = _chain_smem(weight_dtype, backward, gates, units, False, kp)
+        if co_resident(smem) >= -(-hidden // units):
+            stream = False
+            break
+    else:
+        stream = True
+        units = next(u for u in unit_choices
+                     if _chain_smem(weight_dtype, backward, gates, u, True, kp) <= SMEM_PER_BLOCK)
+        smem = _chain_smem(weight_dtype, backward, gates, units, True, kp)
+    co = co_resident(smem)
     slices = -(-hidden // units)
-    co_resident = sm_count * (SMEM_PER_SM // (smem + SMEM_RESERVED))
-    if slices > co_resident:
-        raise ValueError(f"lstm chain: {slices} unit slices exceed the {co_resident} blocks the "
-                         f"card holds at once")
-    row_groups = max(1, min(-(-n // CHAIN_ROWS), co_resident // slices))
-    return {"rows_per_tile": CHAIN_ROWS, "units": units, "slices": slices,
-            "row_groups": row_groups, "grid": (slices, row_groups), "smem_bytes": smem,
-            "co_resident": co_resident}
+    grid_x = min(slices, co)
+    row_groups = max(1, min(-(-max(n, 1) // CHAIN_ROWS), co // max(grid_x, 1)))
+    return {"rows_per_tile": CHAIN_ROWS, "units": units, "stream": stream, "slices": slices,
+            "row_groups": row_groups, "grid": (grid_x, row_groups), "smem_bytes": smem,
+            "co_resident": co}
+
+
+def lstm_chain_plan(n: int, hidden: int, weight_dtype: torch.dtype, sm_count: int,
+                    backward: bool = False) -> dict:
+    """The LSTM chain's launch plan (:func:`chain_plan` with four gates)."""
+    return chain_plan(n, hidden, weight_dtype, sm_count, backward, gates=4)
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_args(n: int, hidden: int, weight_dtype: torch.dtype, index: int,
-               backward: bool) -> tuple:
+def plan_args(n: int, hidden: int, weight_dtype: torch.dtype, index: int, backward: bool,
+              gates: int) -> tuple:
     """The plan's launch arguments for the card ``index`` (cached: the host
     time around a chain call is part of a training step's)."""
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    p = lstm_chain_plan(n, hidden, weight_dtype, sms, backward)
-    return p["rows_per_tile"], p["units"], p["row_groups"], p["smem_bytes"]
+    p = chain_plan(n, hidden, weight_dtype, sms, backward, gates)
+    return (p["rows_per_tile"], p["units"], int(p["stream"]), p["grid"][0], p["row_groups"],
+            p["smem_bytes"])
 
 
 def _bf16_scratch(weight_dtype: torch.dtype, dev: torch.device, *shape) -> torch.Tensor:
@@ -196,10 +230,10 @@ def lstm_chain_backward_plain(dhs: torch.Tensor, tok_sm: torch.Tensor, xs: torch
 def _check_chain_inputs(name: str, params: dict, embedding: torch.Tensor, tokens: torch.Tensor,
                         states: tuple, gates: int, weight_dtype: torch.dtype) -> None:
     """Device, type and shape checks of a chain kernel's inputs (shared with
-    :mod:`.fused_gru`), and the token range, checked on the device without a
-    host sync: a token outside ``[0, V)`` fails the assertion (on the CPU at
-    once; on a CUDA device at the next synchronisation, which ends the
-    process's CUDA context)."""
+    :mod:`.fused_gru`; any widths, which :func:`padded_chain` pads), and the
+    token range, checked on the device without a host sync: a token outside
+    ``[0, V)`` fails the assertion (on the CPU at once; on a CUDA device at
+    the next synchronisation, which ends the process's CUDA context)."""
     dev = states[0].device
     tensors = [embedding, *states, *params.values()]
     if any(t.device != dev or t.dtype != torch.float32 for t in tensors):
@@ -220,7 +254,6 @@ def _check_chain_inputs(name: str, params: dict, embedding: torch.Tensor, tokens
     if any(p.shape != want.get(k, (gates * hidden,)) for k, p in params.items()):
         raise ValueError(f"{name}: wi must be [E, {gates}H], wh [H, {gates}H] and each "
                          f"bias [{gates}H]")
-    check_tile_widths(weight_dtype, emb_dim=emb_dim, hidden=hidden)
     if tokens.numel():  # floor(token / V) is 0 exactly for a token in [0, V)
         torch._assert_async(torch.floor_divide(tokens, vocab).eq(0).all(),
                             f"{name}: tokens must lie in [0, {vocab})")
@@ -234,8 +267,6 @@ class _LstmChainKernel(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, wi, wh, b, embedding, h0, c0, tokens, weight_dtype):
-        _check_chain_inputs("fused_lstm_chain", {"wi": wi, "wh": wh, "b": b}, embedding, tokens,
-                            (h0, c0), 4, weight_dtype)
         n, steps = tokens.shape
         hidden = h0.shape[1]
         dev = h0.device
@@ -257,7 +288,7 @@ class _LstmChainKernel(torch.autograd.Function):
         with torch.cuda.device(dev):
             err = lib.icrl_lstm_chain_fwd(
                 n, steps, hidden, int(weight_dtype == torch.bfloat16),
-                *_plan_args(n, hidden, weight_dtype, dev.index, False), ptr(tok_sm), ptr(xg),
+                *plan_args(n, hidden, weight_dtype, dev.index, False, 4), ptr(tok_sm), ptr(xg),
                 ptr(w[embedding.shape[1]:]), ptr(b.detach().contiguous()),
                 ptr(h0.detach().contiguous()), ptr(c0.detach().contiguous()), ptr(hbuf), ptr(cbuf),
                 ptr(gates), ptr(hs), ptr(h16), torch.cuda.current_stream(dev).cuda_stream)
@@ -288,9 +319,9 @@ class _LstmChainKernel(torch.autograd.Function):
         with torch.cuda.device(dev):
             err = lib.icrl_lstm_chain_bwd(
                 n, steps, emb_dim, hidden, int(w.dtype == torch.bfloat16),
-                *_plan_args(n, hidden, w.dtype, dev.index, True), ptr(tok_sm), ptr(dhs), ptr(hbuf),
-                ptr(cbuf), ptr(gates), ptr(emb_w), ptr(w), ptr(dg), ptr(dg16), ptr(h16), ptr(dh),
-                ptr(dc), ptr(part), ptr(dw), ptr(db), ptr(dx),
+                *plan_args(n, hidden, w.dtype, dev.index, True, 4), ptr(tok_sm), ptr(dhs),
+                ptr(hbuf), ptr(cbuf), ptr(gates), ptr(emb_w), ptr(w), ptr(dg), ptr(dg16),
+                ptr(h16), ptr(dh), ptr(dc), ptr(part), ptr(dw), ptr(db), ptr(dx),
                 torch.cuda.current_stream(dev).cuda_stream)
         check_error(lib, "icrl_lstm_chain_bwd", err)
         fused_lstm_chain.bwd_launches += 1
@@ -325,8 +356,29 @@ def fused_lstm_chain(lstm_params: dict, embedding: torch.Tensor, tokens: torch.T
     if not h0.is_cuda:
         raise RuntimeError("use_fused_kernel=True needs CUDA tensors: the LSTM chain kernels "
                            "run only on a CUDA device")
-    return _LstmChainKernel.apply(lstm_params["wi"], lstm_params["wh"], lstm_params["b"],
-                                  embedding, h0, c0, tokens, weight_dtype)
+    _check_chain_inputs("fused_lstm_chain", lstm_params, embedding, tokens, (h0, c0), 4,
+                        weight_dtype)
+
+    def kernel(p, emb, tok, h, c):
+        return _LstmChainKernel.apply(p["wi"], p["wh"], p["b"], emb, h, c, tok, weight_dtype)
+
+    return padded_chain(kernel, lstm_params, embedding, tokens, (h0, c0), 4)
+
+
+def padded_chain(chain, params: dict, embedding: torch.Tensor, tokens: torch.Tensor,
+                 states: tuple, gates: int) -> torch.Tensor:
+    """``chain(params, embedding, tokens, *states) -> hs [N, T, H]`` run on
+    inputs padded to the kernels' widths (:mod:`.padding`): E and H to
+    multiples of 8, the padded units with zero weights and zero initial
+    state, which stay zero. ``hs`` is sliced back to H; the gradients reach
+    the unpadded inputs through the padding, unchanged."""
+    emb_dim, hidden = embedding.shape[1], states[0].shape[1]
+    if not needs_padding(emb_dim, hidden):
+        return chain(params, embedding, tokens, *states)
+    ep, hp = pad8(emb_dim), pad8(hidden)
+    hs = chain(pad_cell(params, gates, ep, hp), pad_dim(embedding, 1, ep), tokens,
+               *(pad_dim(s, 1, hp) for s in states))
+    return hs[..., :hidden]
 
 
 fused_lstm_chain.fwd_launches = 0

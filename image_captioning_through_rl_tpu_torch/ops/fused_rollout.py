@@ -35,6 +35,9 @@ each encoder's recurrence as the teacher-forced LSTM chain's backward
 Routing, as in :mod:`.fused_lstm`: a CUDA tensor runs the kernels (or the
 call raises), a CPU tensor the plain versions, and ``use_fused_kernel=False``
 selects the plain versions. No path catches a kernel error and falls back.
+Networks whose widths the kernels cannot stage are padded (:mod:`.padding`)
+on their way into the kernels, differentiably, so the gradients reach the
+unpadded parameters.
 ``fused_rollout.fwd_launches`` / ``.bwd_launches`` and
 ``fused_reward_stream.launches`` count kernel launches.
 """
@@ -51,6 +54,7 @@ from .fused_decode import check_tile_widths, round_to, token_gate_table, wmatmul
 from .fused_lstm import _bf16_scratch, embedding_grad, lstm_chain_backward_plain
 from .kernel_build import check_error, load_library
 from .linalg import dense
+from .padding import needs_padding, pad8, pad_cell, pad_dim, pad_split_rows
 from .prng import gumbel_noise, split
 from .rnn import gru_cell, lstm_cell
 
@@ -100,8 +104,15 @@ def prepare_reward_weights(reward_params: dict, features: torch.Tensor,
     table kernel on CUDA), the weights cast to ``weight_dtype``, and the
     per-episode constants in plain f32 torch, as the JAX package computes
     them outside its kernel: ``rew0`` the GRU state after the start token,
-    ``vn`` the normalised ``visual_embed(features)``."""
+    ``vn`` the normalised ``visual_embed(features)``. A network whose widths
+    the kernel cannot stage is padded first (:func:`pad_reward_params`): its
+    rewards are the same."""
     _check_weight_dtype(weight_dtype)
+    emb_dim, hidden = reward_params["embedding"].shape[1], reward_params["gru"]["wh"].shape[0]
+    if needs_padding(emb_dim, hidden, features.shape[1]):
+        ep, hp, fp = pad8(emb_dim), pad8(hidden), pad8(features.shape[1])
+        reward_params = pad_reward_params(reward_params, ep, hp, fp)
+        features = pad_dim(features, 1, fp)
     with torch.no_grad():
         gru = reward_params["gru"]
         emb = reward_params["embedding"].to(weight_dtype).contiguous()
@@ -117,6 +128,21 @@ def prepare_reward_weights(reward_params: dict, features: torch.Tensor,
             xg=xg, wh=gru["wh"].to(weight_dtype).contiguous(), bh=gru["bh"].to(_F32).contiguous(),
             sem_w=sem["w"].to(weight_dtype).contiguous(), sem_b=sem["b"].to(_F32).contiguous(),
             vn=vn.to(_F32).contiguous(), rew0=rew0.to(_F32).contiguous())
+
+
+def pad_reward_params(reward_params: dict, emb_p: int, hidden_p: int, feat_p: int) -> dict:
+    """The reward network's embedding, GRU, ``visual_embed`` and
+    ``semantic_embed`` padded to ``E = emb_p``, ``H = hidden_p``, ``F =
+    feat_p`` (:mod:`.padding`)."""
+    vis, sem = reward_params["visual_embed"], reward_params["semantic_embed"]
+    return {
+        "embedding": pad_dim(reward_params["embedding"], 1, emb_p),
+        "gru": pad_cell(reward_params["gru"], 3, emb_p, hidden_p),
+        "visual_embed": {"w": pad_dim(pad_dim(vis["w"], 0, feat_p), 1, hidden_p),
+                         "b": pad_dim(vis["b"], 0, hidden_p)},
+        "semantic_embed": {"w": pad_dim(pad_dim(sem["w"], 0, hidden_p), 1, hidden_p),
+                           "b": pad_dim(sem["b"], 0, hidden_p)},
+    }
 
 
 def _gru_update(gi: torch.Tensor, gh: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
@@ -711,7 +737,6 @@ def rollout_from_noise(a2c_params: dict, cfg, features: torch.Tensor, captions: 
     teach_sm = captions[:, 1:].t().to(torch.int32).contiguous()
     reward = None if reward_params is None else prepare_reward_weights(
         reward_params, features, start, weight_dtype)
-    leaves = rollout_leaves(a2c_params)
     if use_fused_kernel is False or (not features.is_cuda and not use_fused_kernel):
         fn = _RolloutPlain
     elif not features.is_cuda:
@@ -719,11 +744,39 @@ def rollout_from_noise(a2c_params: dict, cfg, features: torch.Tensor, captions: 
                            "only on a CUDA device")
     else:
         fn = _RolloutKernel
+        emb_dim, hidden = a2c_params["policy"]["embedding"].shape[1], ph1.shape[1]
+        if needs_padding(emb_dim, hidden, features.shape[1]):
+            a2c_params, features, (ph1, pc1, vh1, vc1) = pad_rollout_inputs(
+                a2c_params, features, (ph1, pc1, vh1, vc1))
+    leaves = rollout_leaves(a2c_params)
     values, logp, act, tok, rewards = fn.apply(int(curr_seq_len), weight_dtype, teach_sm,
                                                noise.to(_F32), reward, features.to(_F32), ph1,
                                                pc1, vh1, vc1, *leaves)
     result = (values.t(), logp.t(), act.t(), tok.t())
     return result + (rewards.t(),) if reward_params is not None else result
+
+
+def pad_rollout_inputs(a2c_params: dict, features: torch.Tensor, states: tuple):
+    """The rollout's policy and value leaves, features and start states
+    padded to the kernels' widths (:mod:`.padding`): E, F and H to
+    multiples of 8, differentiably (the head's vocabulary is padded by the
+    kernels' own weight layout)."""
+    p, v = a2c_params["policy"], a2c_params["value"]
+    emb_dim, hidden = p["embedding"].shape[1], states[0].shape[1]
+    feat_dim = features.shape[1]
+    ep, hp, fp = pad8(emb_dim), pad8(hidden), pad8(feat_dim)
+    l1, l2 = v["linear1"], v["linear2"]
+    padded = {
+        "policy": {"embedding": pad_dim(p["embedding"], 1, ep),
+                   "lstm": pad_cell(p["lstm"], 4, ep, hp),
+                   "head": {"w": pad_dim(p["head"]["w"], 0, hp), "b": p["head"]["b"]}},
+        "value": {"embedding": pad_dim(v["embedding"], 1, ep),
+                  "lstm": pad_cell(v["lstm"], 4, ep, hp),
+                  "linear1": {"w": pad_dim(pad_split_rows(l1["w"], feat_dim, fp, hp), 1, hp),
+                              "b": pad_dim(l1["b"], 0, hp)},
+                  "linear2": {"w": pad_dim(l2["w"], 0, hp), "b": l2["b"]}},
+    }
+    return padded, pad_dim(features, 1, fp), tuple(pad_dim(s, 1, hp) for s in states)
 
 
 def fused_rollout(a2c_params: dict, cfg, features: torch.Tensor, captions: torch.Tensor,

@@ -22,7 +22,11 @@ the call raises), CPU tensors run :func:`sample_decode_plain`,
 ``use_fused_kernel=False`` selects the plain version and ``True`` on CPU
 tensors raises. The noise counters are uint32 ``row * V + col``, so a
 batch needs ``rows * V < 2**32`` (:func:`fused_rows_ok`); a larger one
-raises on every route.
+raises on every route. V is the vocabulary's own width even where the head
+is padded to an even one (:func:`.fused_decode.pad_greedy_weights`): the
+padded word is cut from the logits before the filters and the noise. The
+kernel takes any V (one warp per row up to :data:`WARP_VOCAB`, one block
+per row past it).
 """
 
 from __future__ import annotations
@@ -38,13 +42,16 @@ from .fused_decode import (
     GreedyWeights,
     check_decode_inputs,
     lstm_cell_plain,
+    pad_features,
     round_to,
     wmatmul,
 )
 from .kernel_build import check_error, load_library
 from .linalg import matmul
 
-MAX_VOCAB = 1024  # the kernel's bound: one warp holds a row (csrc/sample_decode.cu PER_LANE)
+# the widest vocabulary the kernel's one-warp-per-row path holds in registers
+# (csrc/sample_decode.cu PER_LANE); a wider one takes its block-per-row path
+WARP_VOCAB = 1024
 _NEG = -1e30  # a filtered-out logit, as in the TPU kernels
 
 
@@ -158,7 +165,8 @@ def sample_decode_plain(weights: GreedyWeights, features: torch.Tensor,
     between the two largest noisy filtered logits and the filter margins of
     :func:`filter_scaled_logits`.
     """
-    vocab = weights.emb.shape[0]
+    features = pad_features(weights, features)
+    vocab = weights.emb.shape[0]  # a padded head's extra word is cut from the logits
     k, use_top_k, use_top_p = _filters(vocab, top_k, top_p)
     dev, wd = features.device, weights.dtype
     n = features.shape[0]
@@ -170,7 +178,7 @@ def sample_decode_plain(weights: GreedyWeights, features: torch.Tensor,
     toks, gaps = [tok], []
     for sub in prng.sample_step_keys(key, max_len - 1):
         h, c = lstm_cell_plain(weights.w, weights.b, emb[tok], round_to(h, wd), c)
-        logits = wmatmul(round_to(h, wd), weights.wo) + weights.bo
+        logits = (wmatmul(round_to(h, wd), weights.wo) + weights.bo)[:, :vocab]
         scaled = filter_scaled_logits(logits / t, k, top_p, use_top_k, use_top_p, margins)
         if margins:
             scaled, margin = scaled
@@ -188,12 +196,11 @@ def _launch_sample(weights: GreedyWeights, features: torch.Tensor, start_tokens:
                    key, max_len: int, temperature: float, top_k, top_p) -> torch.Tensor:
     # the host work first: the input checks wait for the device (token range)
     keys = np.ascontiguousarray(prng.sample_step_keys(key, max_len - 1))
+    features = pad_features(weights, features)
     check_decode_inputs(weights, features, start_tokens, max_len)
     vocab, emb_dim = weights.emb.shape
     feat_dim, hidden = weights.wc.shape
-    if vocab > MAX_VOCAB:
-        raise ValueError(f"the sampling kernel takes a vocabulary of at most {MAX_VOCAB} "
-                         f"words, got {vocab}")
+    head = weights.wo.shape[1]  # the logits' row stride; the noise counters use V
     k, use_top_k, use_top_p = _filters(vocab, top_k, top_p)
     n = features.shape[0]
     dev = features.device
@@ -205,11 +212,11 @@ def _launch_sample(weights: GreedyWeights, features: torch.Tensor, start_tokens:
     with torch.cuda.device(dev):
         bf16 = int(weights.dtype == torch.bfloat16)
         # the greedy decode's workspace: h, c and the logits
-        ws = torch.empty(lib.icrl_greedy_workspace_floats(n, hidden, vocab, bf16),
+        ws = torch.empty(lib.icrl_greedy_workspace_floats(n, hidden, head, bf16),
                          dtype=torch.float32, device=dev)
         err = lib.icrl_sample_decode(
-            n, feat_dim, emb_dim, hidden, vocab, max_len, bf16, int(use_top_k), int(use_top_p),
-            k, float(temperature), float(top_p) if use_top_p else 1.0,
+            n, feat_dim, emb_dim, hidden, vocab, head, max_len, bf16, int(use_top_k),
+            int(use_top_p), k, float(temperature), float(top_p) if use_top_p else 1.0,
             keys.ctypes.data_as(ctypes.c_void_p), ptr(features), ptr(start_tokens),
             ptr(weights.wc), ptr(weights.bc), ptr(weights.xg), ptr(weights.w), ptr(weights.b),
             ptr(weights.wo), ptr(weights.bo), ptr(out), ptr(ws),

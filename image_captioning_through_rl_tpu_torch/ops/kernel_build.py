@@ -34,15 +34,15 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "icrl_greedy_workspace_floats": (ctypes.c_size_t, [_I] * 4),
     "icrl_greedy_decode": (_I, [_I] * 7 + [_P] * 12),
-    "icrl_sample_decode": (_I, [_I] * 10 + [_F, _F] + [_P] * 13),
+    "icrl_sample_decode": (_I, [_I] * 11 + [_F, _F] + [_P] * 13),
     "icrl_beam_max_beam": (_I, []),
     "icrl_beam_workspace_floats": (ctypes.c_size_t, [_I] * 6),
     "icrl_beam_search": (_I, [_I] * 7 + [_F, _F, _I] + [_P] * 20),
     "icrl_token_gates": (_I, [_I] * 4 + [_P] * 5),
-    "icrl_lstm_chain_fwd": (_I, [_I] * 8 + [_P] * 12),
-    "icrl_lstm_chain_bwd": (_I, [_I] * 9 + [_P] * 17),
-    "icrl_gru_chain_fwd": (_I, [_I] * 4 + [_P] * 8),
-    "icrl_gru_chain_bwd": (_I, [_I] * 5 + [_P] * 18),
+    "icrl_lstm_chain_fwd": (_I, [_I] * 10 + [_P] * 12),
+    "icrl_lstm_chain_bwd": (_I, [_I] * 11 + [_P] * 17),
+    "icrl_gru_chain_fwd": (_I, [_I] * 10 + [_P] * 11),
+    "icrl_gru_chain_bwd": (_I, [_I] * 11 + [_P] * 22),
     "icrl_threefry": (_I, [_I, _P, ctypes.c_longlong, _I, _P, _P]),
     "icrl_reward_stream_workspace_floats": (ctypes.c_size_t, [_I] * 2),
     "icrl_reward_stream": (_I, [_I] * 4 + [_P] * 12),

@@ -27,7 +27,11 @@ from image_captioning_through_rl_tpu.models.initializers import embedding_init, 
 from image_captioning_through_rl_tpu.ops.pallas_gru import fused_gru_chain as jax_gru_chain
 from image_captioning_through_rl_tpu.ops.pallas_lstm import fused_lstm_chain as jax_lstm_chain
 from image_captioning_through_rl_tpu_torch.models.convert import from_jax_params
-from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain, gru_chain_plain
+from image_captioning_through_rl_tpu_torch.ops.fused_gru import (
+    fused_gru_chain,
+    gru_chain_plain,
+    gru_chain_plan,
+)
 from image_captioning_through_rl_tpu_torch.ops.fused_lstm import (
     _check_chain_inputs,
     fused_lstm_chain,
@@ -134,45 +138,62 @@ def test_chains_route_by_device_without_fallback():
             chain(*args, use_fused_kernel=True)
 
 
-def _blocks(plan, n, hidden):
-    """The (row, unit) pairs each block of a chain launch owns, walked as
-    the kernels walk them (csrc/lstm_chain.cuh)."""
+def _owners(plan, n, hidden):
+    """How many blocks of a chain launch own each row and each unit, walked
+    as the kernels walk them (csrc/chain.cuh): block (x, g) owns the slices
+    x, x + grid_x, ... and the row tiles g, g + row_groups, ...; it owns a
+    (row, unit) pair when it owns both, so each pair falls to exactly one
+    block when every row and every unit does."""
     rows, units = plan["rows_per_tile"], plan["units"]
+    grid_x, groups = plan["grid"]
     tiles = -(-n // rows)
-    for s in range(plan["slices"]):
-        for g in range(plan["row_groups"]):
-            owned = set()
-            for rt in range(g, tiles, plan["row_groups"]):
-                for r in range(rt * rows, min(n, rt * rows + rows)):
-                    owned.update((r, j) for j in range(s * units, min(hidden, s * units + units)))
-            yield owned
+    row_owners, unit_owners = np.zeros(n, np.int64), np.zeros(hidden, np.int64)
+    for g in range(groups):
+        for rt in range(g, tiles, groups):
+            row_owners[rt * rows:min(n, rt * rows + rows)] += 1
+    for x in range(grid_x):
+        for sl in range(x, plan["slices"], grid_x):
+            unit_owners[sl * units:min(hidden, sl * units + units)] += 1
+    return row_owners, unit_owners
 
 
+@pytest.mark.parametrize("hidden", [500, 512, 1024, 1536, 2048, 4096])
 @pytest.mark.parametrize("backward", [False, True])
 @pytest.mark.parametrize("wd", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("n", [1, 33, 512, 2000])
-def test_lstm_chain_plan_covers_each_row_and_unit_once(n, wd, backward):
-    """The cooperative launch's plan at COCO width on an H100 (132 SMs):
-    every (row, unit) falls to exactly one block, a block's shared memory
-    fits the 227 KB one block may opt in to, and the grid fits what the card
-    holds at once (a cooperative launch runs only if every block is
-    resident)."""
-    hidden, sms = 512, 132
-    plan = lstm_chain_plan(n, hidden, wd, sms, backward=backward)
-    seen = {}
-    for owned in _blocks(plan, n, hidden):
-        for pair in owned:
-            seen[pair] = seen.get(pair, 0) + 1
-    assert len(seen) == n * hidden and set(seen.values()) == {1}
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_lstm_chain_plan_covers_each_row_and_unit_once(kind, n, wd, backward, hidden):
+    """The cooperative launch's plan of either chain on an H100 (132 SMs),
+    from below COCO width to 8x it: every (row, unit) falls to exactly one
+    block, a block's shared memory fits the 227 KB one block may opt in
+    to, and the grid fits what the card holds at once (a cooperative launch
+    runs only if every block is resident), one block per SM. Past the
+    widths whose weight slices fit beside the ring, the plan streams them."""
+    sms = 132
+    plan = (lstm_chain_plan if kind == "lstm" else gru_chain_plan)(n, hidden, wd, sms,
+                                                                    backward=backward)
+    row_owners, unit_owners = _owners(plan, n, hidden)
+    assert set(row_owners) == {1} and set(unit_owners) == {1}
     assert plan["smem_bytes"] <= 227 * 1024
-    slices, groups = plan["grid"]
-    assert slices * groups <= plan["co_resident"] <= sms * (233472 // (plan["smem_bytes"] + 1024))
-    assert groups == min(-(-n // plan["rows_per_tile"]), plan["co_resident"] // slices)
+    grid_x, groups = plan["grid"]
+    assert grid_x * groups <= plan["co_resident"] <= sms * min(
+        1, 233472 // (plan["smem_bytes"] + 1024))
+    assert groups == max(1, min(-(-n // plan["rows_per_tile"]), plan["co_resident"] // grid_x))
+    assert plan["units"] in ((32, 16, 8) if wd == torch.bfloat16 else (8,))
+    if not plan["stream"]:  # a stationary slice has a block of its own
+        assert grid_x == plan["slices"]
+    if hidden == 512:  # COCO width keeps each slice stationary, one block per slice
+        assert not plan["stream"] and grid_x == plan["slices"]
 
 
 def test_lstm_chain_plan_refuses_what_one_sm_cannot_hold():
-    with pytest.raises(ValueError, match="shared memory"):
-        lstm_chain_plan(512, 2048, torch.bfloat16, 132)
+    """What one SM cannot hold is streamed, not refused: H = 2048 plans,
+    bf16 and float32, forward and backward, within one block per SM."""
+    for wd in (torch.bfloat16, torch.float32):
+        for backward in (False, True):
+            plan = lstm_chain_plan(512, 2048, wd, 132, backward=backward)
+            assert plan["stream"] and plan["smem_bytes"] <= 227 * 1024
+            assert plan["grid"][0] * plan["grid"][1] <= 132
 
 
 def test_chain_token_range_is_checked_on_the_device():

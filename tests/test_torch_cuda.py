@@ -20,20 +20,24 @@ plain versions at a small shape and at the COCO shape (N = 512, T = 17,
 E = H = 512, V = 1004): ``hs`` and every gradient for a fixed upstream
 gradient, by relative Frobenius error, within 1e-4 with float32 weights
 (sum order alone) and 2e-2 with bf16 weights (sum order ahead of a bf16
-rounding of h or of a gate gradient moves it by one bf16 step, 2^-8). The
-LSTM chain's persistent kernels are also held so at COCO width at the
-batches and lengths that stress their launch plan (N in {1, 33, 2000}, T
-in {1, 16, 17}), must give bit-identical results on two calls, must
-launch once per forward and a fixed number of times per backward whatever
-T is, and must fail a bad token through the device-side assertion.
+rounding of h or of a gate gradient moves it by one bf16 step, 2^-8). Both
+chains' persistent kernels are also held so at the batches, lengths and
+widths that stress their launch plan (N in {1, 33, 2000}, T in {1, 16,
+17}; H = 1024, whose slices shrink to 16 or 8 units, and H = 2048, whose
+weights stream through the ring), at widths the wrappers pad (H = 12),
+must give bit-identical results on two calls, must launch once per forward
+and a fixed number of times per backward whatever T is, and must fail a
+bad token through the device-side assertion.
 
 The sampling kernel at the small widths, bf16 and float32 weights, for the
-four filter variants (none, top-k, nucleus, both) at t = 0.7: tokens equal
+four filter variants (none, top-k, nucleus, both) at t = 0.7, and at V =
+2000 (past the one-warp rows: one block per row): tokens equal
 to the plain version's except where the plain version came within
 ``SAMPLE_NEAR_TIE`` of a tie at the first step where they part (its top-2
 noisy gap, the k-th/(k+1)-th logit gap, the nucleus's boundary-value gap or
 its mass margin over z; bf16 logits of the two differ by up to ~2e-4, see
-``chip_smoke.py``).
+``chip_smoke.py``). Greedy, beam and sampling also run a model the
+wrappers pad (V = 61, E = H = F = 12) under the same rules.
 
 The A2C kernels at the small widths: the threefry kernel's bits equal the
 plain version's and its Gumbel noise lies within 4 ulps of it (two
@@ -78,7 +82,7 @@ from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
 from image_captioning_through_rl_tpu_torch.ops import prng
 from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
 from image_captioning_through_rl_tpu_torch.ops.fused_sample import (
-    MAX_VOCAB,
+    WARP_VOCAB,
     fused_sample_decode,
     sample_decode_plain,
 )
@@ -198,15 +202,73 @@ def test_sample_wrapper_rejects_bad_inputs(dev):
         fused_sample_decode(gw, f, s.long(), key, T)
     with pytest.raises(ValueError, match="temperature"):
         fused_sample_decode(gw, f, s, key, T, temperature=0.0)
-    wide = prepare_greedy_weights({
-        "embedding": torch.zeros((MAX_VOCAB + 2, 16), device=dev),
-        "cnn2linear": {"w": torch.zeros((16, 16), device=dev), "b": torch.zeros(16, device=dev)},
-        "lstm": {"wi": torch.zeros((16, 64), device=dev), "wh": torch.zeros((16, 64), device=dev),
-                 "b": torch.zeros(64, device=dev)},
-        "head": {"w": torch.zeros((16, MAX_VOCAB + 2), device=dev),
-                 "b": torch.zeros(MAX_VOCAB + 2, device=dev)}}, torch.float32)
-    with pytest.raises(ValueError, match="vocabulary"):
-        fused_sample_decode(wide, f, s, key, T)
+    with pytest.raises(ValueError, match="features"):
+        fused_sample_decode(gw, f[:, :-1].contiguous(), s, key, T)
+
+
+def _decode_setup(dev, wd, cfg, n=N, seed=0):
+    params = a2c.init(torch.Generator().manual_seed(seed), cfg)
+    on_dev = {net: {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
+                        else v.to(dev)) for k, v in p.items()} for net, p in params.items()}
+    gw = prepare_greedy_weights(on_dev["policy"], wd)
+    bw = prepare_beam_weights(gw, on_dev["value"])
+    feats = np.random.default_rng(seed + 5).standard_normal((n, cfg.input_dim)).astype(np.float32)
+    start = torch.full((n,), START_ID, dtype=torch.int32, device=dev)
+    return gw, bw, torch.from_numpy(feats).to(dev), start
+
+
+def _check_sampled(k_tok, p_tok, margins, wd):
+    bad = _differing_rows(k_tok, p_tok)
+    first = (k_tok != p_tok).int().argmax(dim=1) - 1
+    assert bool((margins[bad].gather(1, first[bad, None])[:, 0] < SAMPLE_NEAR_TIE[wd]).all()), \
+        "a non-tie row differs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,p", [(0, None), (40, 0.9)])
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+def test_sample_kernel_past_one_warp_per_row(dev, wd, k, p):
+    """V = 2000: one block per row, block-wide sums in a fixed order."""
+    cfg = NetConfig(vocab_size=2000, input_dim=16, wordvec_dim=16, hidden_dim=16, max_seq_len=7)
+    assert cfg.vocab_size > WARP_VOCAB
+    gw, _, f, s = _decode_setup(dev, wd, cfg, n=40)
+    key = prng.PRNGKey(6)
+    before = fused_sample_decode.launches
+    k_tok = fused_sample_decode(gw, f, s, key, T, temperature=0.8, top_k=k, top_p=p)
+    torch.cuda.synchronize()
+    assert fused_sample_decode.launches == before + 1
+    p_tok, margins = sample_decode_plain(gw, f, s, key, T, 0.8, k, p, margins=True)
+    assert k_tok.shape == (40, T) and int(k_tok.max()) < 2000
+    _check_sampled(k_tok, p_tok, margins, wd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+def test_decode_kernels_take_widths_they_pad(dev, wd):
+    """An odd vocabulary and E = H = F = 12: greedy, beam and sampling run
+    on padded weights and hold their plain versions' tokens."""
+    cfg = NetConfig(vocab_size=61, input_dim=12, wordvec_dim=12, hidden_dim=12, max_seq_len=7)
+    gw, bw, f, s = _decode_setup(dev, wd, cfg)
+    assert gw.widths == (12, 12, 12) and gw.wo.shape == (16, 62)
+    k_tok = fused_greedy_decode(gw, f, s, T)
+    p_tok, gaps = greedy_decode_plain(gw, f, s, T, margins=True)
+    bad = _differing_rows(k_tok, p_tok)
+    assert bool((gaps[bad].min(dim=1).values < NEAR_TIE).all()) and int(k_tok.max()) < 61
+    k_tok, k_sc = fused_beam_search(bw, f, s, T, BEAM)
+    p_tok, p_sc, gaps = beam_search_plain(bw, f, s, T, BEAM, margins=True)
+    bad = _differing_rows(k_tok, p_tok)
+    assert bool((gaps[bad].min(dim=1).values < NEAR_TIE).all()) and int(k_tok.max()) < 61
+    torch.testing.assert_close(k_sc[~bad], p_sc[~bad], rtol=0, atol=SCORE_TOL[wd])
+    key = prng.PRNGKey(4)
+    k_tok = fused_sample_decode(gw, f, s, key, T, temperature=0.7, top_k=5, top_p=0.8)
+    p_tok, margins = sample_decode_plain(gw, f, s, key, T, 0.7, 5, 0.8, margins=True)
+    assert int(k_tok.max()) < 61
+    _check_sampled(k_tok, p_tok, margins, wd)
+    # the x-gate table pads an odd embedding width and column count itself
+    emb = bw.value.emb[:, :12].contiguous()
+    w = bw.value.w[:12, :45].contiguous()
+    torch.testing.assert_close(token_gate_table(emb, w), token_gate_table_plain(emb, w),
+                               rtol=1e-5, atol=1e-5)
 
 
 CHAIN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -266,10 +328,6 @@ def test_chain_wrappers_reject_bad_inputs(dev):
         fused_lstm_chain(params, emb, tok, h0, c0.cpu())
     with pytest.raises(ValueError, match="float32"):
         fused_lstm_chain(params, emb.double(), tok, h0, c0)
-    odd = {k: v[:, :4 * 12] if v.dim() == 2 else v[:4 * 12] for k, v in params.items()}
-    odd["wh"] = odd["wh"][:12]
-    with pytest.raises(ValueError, match="multiples of 8"):
-        fused_lstm_chain(odd, emb, tok, h0[:, :12], c0[:, :12])
     gparams, ginputs, gtok, _ = _chain_setup(dev, "gru", "small")
     with pytest.raises(ValueError, match="integers"):
         fused_gru_chain(gparams, ginputs[4], gtok.float(), ginputs[5])
@@ -353,6 +411,88 @@ def test_lstm_chain_launches_do_not_grow_with_steps(dev):
                                    "linear_kernel")}
     assert counts[1] == counts[16] == {"lstm_fwd_kernel": 1, "lstm_bwd_kernel": 1,
                                        "wgmma_gemm_kernel": 2, "linear_kernel": 1}, counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 16, 17])
+@pytest.mark.parametrize("n", [1, 33, 2000])
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+def test_gru_chain_kernels_match_plain_at_plan_edges(dev, wd, n, steps):
+    """The GRU's persistent kernels at COCO width, at the batches and
+    lengths of the LSTM's plan-edge test."""
+    case = _chain_setup(dev, "gru", (n, steps, 512, 512, 1004))
+    got = _chain_run("gru", *case, wd, None)
+    torch.cuda.synchronize()
+    want = _chain_run("gru", *case, wd, False)
+    for name, a, b in zip(["hs", "wi", "wh", "bi", "bh", "embedding", "h0"], got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        rel = float((a - b).norm() / b.norm())
+        assert rel <= CHAIN_TOL[wd], f"N={n} T={steps} {name}: relative error {rel:.3g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 17, 1024), (33, 1, 1024), (33, 17, 1024), (33, 17, 2048),
+                                   (9, 3, 4096), (20, 7, 12)])
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+@pytest.mark.parametrize("kind", ["lstm", "gru"])
+def test_chain_kernels_match_plain_at_wide_and_padded_widths(dev, kind, wd, shape):
+    """H = 1024 (slices of 16 or 8 units), H = 2048 (weights streamed
+    through the ring), H = 4096 (streamed, each block walking several
+    slices) and H = 12 (padded to 16 by the wrapper), E = H, V = 1004."""
+    n, steps, width = shape
+    chain = fused_lstm_chain if kind == "lstm" else fused_gru_chain
+    params, inputs, tok, dhs = _chain_setup(dev, kind, (n, steps, width, width, 1004))
+    before = (chain.fwd_launches, chain.bwd_launches)
+    got = _chain_run(kind, params, inputs, tok, dhs, wd, None)
+    torch.cuda.synchronize()
+    assert (chain.fwd_launches, chain.bwd_launches) == (before[0] + 1, before[1] + 1)
+    want = _chain_run(kind, params, inputs, tok, dhs, wd, False)
+    for name, a, b in zip(["hs", *params, "embedding", "h0", "c0"], got, want):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), name
+        rel = float((a - b).norm() / b.norm())
+        assert rel <= CHAIN_TOL[wd], f"{kind} {shape} {name}: relative error {rel:.3g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [512, 2048])
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+def test_gru_chain_kernels_are_deterministic(dev, wd, width):
+    """Two identical GRU calls give bit-identical hs and gradients, with
+    stationary and with streamed weights."""
+    case = _chain_setup(dev, "gru", (256, 9, width, width, 1004))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        first, second = (_chain_run("gru", *case, wd, None) for _ in range(2))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for name, a, b in zip(["hs", "wi", "wh", "bi", "bh", "embedding", "h0"], first, second):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.cuda
+def test_gru_chain_launches_do_not_grow_with_steps(dev):
+    """The forward is one chain kernel launch besides the x-gate table; the
+    backward one recurrence launch, two wgmma launches (dwi and dwh in one,
+    dx) and two column sums (two launches each), at T = 1 and 17; no
+    view_kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    for steps in (1, 17):
+        case = _chain_setup(dev, "gru", (64, steps, 512, 512, 1004))
+        _chain_run("gru", *case, torch.bfloat16, None)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _chain_run("gru", *case, torch.bfloat16, None)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() for _ in range(e.count)
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts[steps] = {k: sum(k in name for name in names)
+                         for k in ("gru_fwd_kernel", "gru_bwd_kernel", "wgmma_gemm_kernel",
+                                   "linear_kernel", "colsum_part_kernel", "view_kernel")}
+    assert counts[1] == counts[17] == {"gru_fwd_kernel": 1, "gru_bwd_kernel": 1,
+                                       "wgmma_gemm_kernel": 2, "linear_kernel": 1,
+                                       "colsum_part_kernel": 2, "view_kernel": 0}, counts
 
 
 @pytest.mark.cuda
@@ -462,6 +602,44 @@ def test_a2c_loss_runs_each_rollout_kernel_once(dev):
     assert bool(torch.isfinite(loss))
     assert (fr.fused_rollout.fwd_launches, fr.fused_rollout.bwd_launches,
             prng.gumbel_noise.launches) == (counts[0] + 1, counts[1] + 1, counts[2] + 1)
+
+
+@pytest.mark.cuda
+def test_rollout_takes_widths_it_pads(dev):
+    """E = H = F = 12 and V = 61 (float32 weights): the rollout pads the
+    networks, features and start states on the kernel route; its actions,
+    values, log-probs and rewards, and the parameters' gradients, hold the
+    plain route's (which runs unpadded) within ROLLOUT_TOL and CHAIN_TOL."""
+    cfg = NetConfig(vocab_size=61, input_dim=12, wordvec_dim=12, hidden_dim=12, max_seq_len=7)
+    gen = torch.Generator().manual_seed(12)
+    nets, rparams = a2c.init(gen, cfg), reward.init(gen, cfg)
+
+    def to_dev(tree):
+        return {k: to_dev(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    nets, rparams = to_dev(nets), to_dev(rparams)
+    rng = np.random.default_rng(13)
+    feats = torch.from_numpy(rng.standard_normal((N, 12)).astype(np.float32)).to(dev)
+    caps = torch.from_numpy(rng.integers(4, 61, size=(N, T))).to(dev)
+    caps[:, 0] = START_ID
+    out = {}
+    for flag in (None, False):
+        params = {net: {k: ({kk: vv.clone().requires_grad_() for kk, vv in v.items()}
+                            if isinstance(v, dict) else v.clone().requires_grad_())
+                        for k, v in p.items()} for net, p in nets.items()}
+        values, logp, act, tok, rewards = fr.fused_rollout(
+            params, cfg, feats, caps, 3, prng.PRNGKey(1), weight_dtype=torch.float32,
+            reward_params=rparams, use_fused_kernel=flag)
+        leaves = fr.rollout_leaves(params)
+        out[flag] = ([values.detach(), logp.detach(), act, tok, rewards],
+                     torch.autograd.grad(values.sum() + logp.sum(), leaves))
+    (k_out, k_grads), (p_out, p_grads) = out[None], out[False]
+    assert torch.equal(k_out[2], p_out[2]) and torch.equal(k_out[3], p_out[3])
+    for a, b in zip(k_out[:2] + k_out[4:], p_out[:2] + p_out[4:]):
+        assert float((a - b).abs().max()) <= ROLLOUT_TOL[torch.float32]
+    for i, (a, b) in enumerate(zip(k_grads, p_grads)):
+        rel = float((a - b).norm() / max(float(b.norm()), 1e-30))
+        assert rel <= CHAIN_TOL[torch.float32], f"gradient {i}: relative error {rel:.3g}"
 
 
 @pytest.mark.cuda
