@@ -14,14 +14,16 @@ prints no result.
 Phases:
   1. device: the card's name and power limit (nvidia-smi);
   2. build the kernels;
-  3. the x-gate table kernel (emb @ wi, read by both decode kernels) vs
-     plain, bf16 and f32; then the greedy kernel vs plain: N in
+  3. the x-gate table kernel (emb @ wi (+ b), wgmma for bf16 weights) vs
+     plain, bf16 and f32: both decode kernels' [V, 4H] tables and a GRU's
+     [V, 3H] with its bias; then the greedy kernel vs plain: N in
      {1, 1000, 1024}, bf16 and f32 weights;
   4. beam kernel vs plain: N in {127, 1024}, B = 5, bf16 and f32 weights;
   5. main path: a reference-layout a2c .pt and a vocab JSON on disk, the
      server started through ``server.main``, greedy (JSON and binary) and
      beam-5 requests answered, launch counters read;
-  6. timings: kernel and plain ms (CUDA events): the x-gate table, greedy
+  6. timings: kernel and plain ms (CUDA events): the x-gate table (its
+     kernel through the C entry point, and through its wrapper), greedy
      at N = 1024 and beam at N = 127 and 1024;
   7. LSTM chain kernels (forward and backward) vs plain: N = 512,
      E = H = 512, V = 1004, T = 16 and 17, bf16 and f32 weights: hs and
@@ -39,15 +41,16 @@ Phases:
      plain and library (cuDNN's torch.nn.LSTM / GRU with the chain's
      weights), and one training step per trainer, fused and plain; each
      chain's launches per call at T = 8 and 16 (torch.profiler: the forward
-     one launch beside the x-gate table, the backward as many at either T
-     and no view_kernel) with its recurrence's device slope per step, and a
-     torch.profiler window over one fused policy step;
+     one launch beside the x-gate table's wgmma, the backward as many at
+     either T and no view_kernel) with its recurrence's device slope per
+     step, and a torch.profiler window over one fused policy step;
  11. the threefry noise kernel vs plain, [16, 512, 1004] for three keys;
  12. the reward stream kernel vs plain, bf16 and f32 weights, N = 512, on
      the actions and tokens of a kernel rollout, and against the rewards of
      the stream fused into that rollout;
  13. the rollout kernels vs plain, bf16 and f32, N = 512, curr_seq_len 1
-     and 8: the forward, then the backward on the kernel forward's tape;
+     and 8: the forward (and two calls bit-equal), then the backward on the
+     kernel forward's tape;
  14. A2C main path: train_a2c_network on the card from phase 9's three .pt
      files, plain A2C one epoch at batch 512 (reward stream fused into the
      rollout), then curriculum [8] (levels 8 and 16, one epoch each) with
@@ -57,7 +60,10 @@ Phases:
      minibatch fused (bf16 kernels) vs plain (float32 eager);
  15. timings (CUDA events): the noise kernel, the reward stream, the
      rollout forward and backward, kernel and plain, one A2C step fused and
-     plain, and a torch.profiler window over three fused A2C steps;
+     plain; the rollout forward's device time and launches per call
+     (torch.profiler: one rollout_fwd_kernel beside the two x-gate tables,
+     none of the per-step kernels it replaced), and a torch.profiler window
+     over three fused A2C steps;
  16. the sampling kernel vs plain: bf16 and f32 weights, N in {1, 1024},
      four variants (unfiltered at t = 1.0, top-k 40 at t = 0.7,
      nucleus 0.9, top-k 40 with nucleus 0.9), one key each; column 0 the
@@ -79,7 +85,9 @@ Phases:
      ring, vs plain (phase 7's bounds); greedy, beam and top-k 40 + nucleus
      0.9 sampling at V = 1001, E = H = F = 500 (weights padded by the
      wrappers), and sampling at V = 2000 (one block per row), vs plain under
-     the near-tie rules, and that last one timed at N = 1024.
+     the near-tie rules, and that last one timed at N = 1024; the rollout
+     forward and backward at hidden_dim = 1024 (weights streamed) and at
+     V = 2000, bf16 and f32, vs plain under phase 13's rules.
 
 The last JSON line but two lists every kernel with its launches on its main
 path (serving for greedy, beam and the x-gate table; the pretrainers for
@@ -143,7 +151,8 @@ actions agree, values, log-probs and rewards agree to 1e-4 with f32 weights
 or v1 that two sum orders straddle moves a product by ~1e-3 of its size;
 values are sums of 512 such terms); the reward stream's kernel against its
 plain version the same, and against the rollout's fused-in stream to 1e-6
-(the same kernels on the same operands). The rollout backward, kernel and
+(the same products, summed in the same order over the same operands; only
+the cosine's last sums differ in order). The rollout backward, kernel and
 plain fed one tape, is held as the chains are (its recurrences are the LSTM
 chain's backward): relative Frobenius error per gradient within 1e-4 (f32)
 and 2e-3 (bf16). One A2C minibatch fused (bf16 kernels) vs plain (float32
@@ -674,9 +683,9 @@ GRAD_NAMES = ("features", "ph1", "pc1", "vh1", "vc1", "p_emb", "p_wi", "p_wh", "
 
 def compare_rollout(dev) -> dict:
     """Phase 13: the rollout forward against plain (near-tie rule on the
-    actions, bounds on values, log-probs and rewards of agreeing rows), and
-    the backward against plain on the kernel forward's tape. Returns the
-    largest bf16 max-abs errors ("fwd", "bwd")."""
+    actions, bounds on values, log-probs and rewards of agreeing rows; two
+    calls bit-equal), and the backward against plain on the kernel forward's
+    tape. Returns the largest bf16 max-abs errors ("fwd", "bwd")."""
     from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
 
     worst = {"fwd": 0.0, "bwd": 0.0}
@@ -684,7 +693,11 @@ def compare_rollout(dev) -> dict:
         for curr in (1, 8):
             args, _, _, feats, _ = rollout_case(dev, wd, curr, SEED + 30 + curr)
             k_val, k_logp, k_rew, tape = fr.rollout_forward_kernel(*args)
+            again = fr.rollout_forward_kernel(*args)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip((k_val, k_logp, k_rew, *tape),
+                                                         (*again[:3], *again[3]))):
+                raise AssertionError(f"rollout forward {wd} curr={curr}: two calls differ")
             p_val, p_logp, p_rew, p_tape, gaps = fr.rollout_forward_plain(*args, margins=True)
             if not torch.equal(tape.tok[:curr - 1], args[1][:curr - 1]):
                 raise AssertionError("the teacher-forced tokens were not placed")
@@ -718,7 +731,8 @@ def compare_rollout(dev) -> dict:
                 worst["fwd"] = max(worst["fwd"], *errs.values())
                 worst["bwd"] = max(worst["bwd"], abs_err)
             top = max(rels, key=rels.get)
-            phase("rollout", f"{str(wd)[6:]} N={ROLLOUT_N} curr={curr}: {n_bad} row(s) differ "
+            phase("rollout", f"{str(wd)[6:]} N={ROLLOUT_N} curr={curr}: two calls bit-equal; "
+                             f"{n_bad} row(s) differ "
                              f"(smallest gap there {gap:.3g}; smallest gap overall "
                              f"{float(gaps.min()):.3g}); max abs errors "
                              + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
@@ -891,6 +905,25 @@ def device_ops(prof) -> tuple[dict, dict]:
     return ms, counts
 
 
+def device_profile(call, iters: int = 1) -> tuple[dict, dict]:
+    """:func:`device_ops` of a torch.profiler window over ``iters`` calls of
+    ``call``. CUPTI now and then hands back a window with no device event
+    at all (seen once on the H100 machine, with full windows before and
+    after it in the same process): such a window is taken again, up to three
+    times. A window with device work in it is never retaken."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        ms, counts = device_ops(prof)
+        if counts:
+            return ms, counts
+    raise AssertionError("torch.profiler recorded no device work in three windows")
+
+
 CHAIN_KERNELS = ("lstm_fwd_kernel", "lstm_bwd_kernel", "gru_fwd_kernel", "gru_bwd_kernel",
                  "wgmma_gemm_kernel", "linear_kernel", "colsum_part_kernel",
                  "colsum_finish_kernel", "view_kernel")
@@ -900,12 +933,10 @@ def chain_launches(dev) -> dict:
     """Phase 10: the LSTM and GRU chain kernels launched by one fused
     forward and by one backward (bf16, N = 512) at T = 8 and T = 16, from
     the profiler, and the recurrence kernels' device ms at each T. Each
-    forward must be one chain launch beside the x-gate table, and each
+    forward must be one chain launch beside the x-gate table (wgmma), and each
     backward's launches must not depend on T, with no view_kernel. Also each
     call's device time in all (the wrappers' casts and copies, the embedding
     gradient's index_add_ included)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain
     from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
 
@@ -918,19 +949,62 @@ def chain_launches(dev) -> dict:
             for d, run in (("fwd", lambda: chain(params, emb, tok, *states)),
                            ("bwd", lambda: torch.autograd.grad(
                                hs, [*params.values(), emb, *states], dhs, retain_graph=True))):
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    run()
-                    torch.cuda.synchronize()
-                ms, counts = device_ops(prof)
+                ms, counts = device_profile(run)
                 out[(kind, steps, d)] = {k: counts[k] for k in CHAIN_KERNELS if counts.get(k)}
                 out[(kind, steps, d, "ms")] = ms.get(f"{kind}_{d}_kernel", 0.0)
                 out[(kind, steps, d, "device")] = sum(ms.values())
         fwd8, fwd16 = out[(kind, 8, "fwd")], out[(kind, 16, "fwd")]
         bwd8, bwd16 = out[(kind, 8, "bwd")], out[(kind, 16, "bwd")]
-        if (fwd8 != fwd16 or fwd8 != {f"{kind}_fwd_kernel": 1, "linear_kernel": 1}
+        if (fwd8 != fwd16 or fwd8 != {f"{kind}_fwd_kernel": 1, "wgmma_gemm_kernel": 1}
                 or bwd8 != bwd16 or bwd8.get(f"{kind}_bwd_kernel") != 1 or "view_kernel" in bwd8):
             raise AssertionError(f"{kind} chain launches per call by T: {out}")
     return out
+
+
+ROLLOUT_FWD_GONE = ("rollout_cell_kernel", "value_hidden_kernel", "sample_rows_kernel",
+                    "linear_kernel")
+
+
+def rollout_fwd_profile(call, iters: int = 3) -> str:
+    """Phase 15: the rollout forward's device time and launches per call
+    (torch.profiler): one rollout_fwd_kernel beside the x-gate tables, and
+    none of the per-step kernels it replaced."""
+    call()
+    torch.cuda.synchronize()
+    ms, counts = device_profile(call, iters)
+    per_call = {k: counts[k] / iters for k in counts}
+    if per_call.get("rollout_fwd_kernel") != 1 or any(k in per_call for k in ROLLOUT_FWD_GONE):
+        raise AssertionError(f"rollout forward launches per call: {per_call}")
+    return (f"device {sum(ms.values()) / iters:.4f} ms per call, rollout_fwd_kernel "
+            f"{ms['rollout_fwd_kernel'] / iters:.4f} ms ({ms['rollout_fwd_kernel'] / iters / S * 1e3:.2f}"
+            f" us a step); launches per call "
+            + ", ".join(f"{k} x{v:g}" for k, v in sorted(per_call.items())))
+
+
+def rollout_fwd_phases(args) -> str:
+    """Phase 15: where the rollout forward's time goes, from the kernel's
+    own clock over one call (each mark the last block's): the slices' load,
+    then per step the means of phase A, phase B and the two grid barriers."""
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+
+    steps = args[1].shape[0]
+    clock = torch.zeros(fr.rollout_clock_slots(steps), dtype=torch.int64, device=args[4].device)
+    fr.rollout_forward_kernel(*args, clock=clock)
+    c = clock.cpu().tolist()
+    passes = steps + (args[3] is not None)
+    if min(c[:2 + 4 * passes]) <= 0:
+        raise AssertionError(f"the rollout forward's clock has unset marks: {c}")
+
+    def mean_us(pairs):
+        return sum((c[b] - c[a]) for a, b in pairs) / len(pairs) / 1e3
+
+    at = [2 + 4 * t for t in range(passes)]
+    return (f"{passes} passes in {(c[at[-1] + 3] - c[0]) / 1e3:.1f} us from the last block's "
+            f"start: slices loaded {(c[1] - c[0]) / 1e3:.1f} us; a pass: phase A "
+            f"{mean_us([(k, k + 1) for k in at]):.2f} us, barrier "
+            f"{mean_us([(k + 1, k + 2) for k in at]):.2f}, phase B "
+            f"{mean_us([(k + 2, k + 3) for k in at]):.2f}, barrier "
+            f"{mean_us([(k + 3, k + 4) for k in at[:-1]]) if passes > 1 else 0.0:.2f}")
 
 
 def time_a2c(a2c_params, rparams, data, dev) -> dict:
@@ -957,6 +1031,8 @@ def time_a2c(a2c_params, rparams, data, dev) -> dict:
         lambda: fr.reward_stream(rw, tape.act, tape.tok, use_fused_kernel=False), 3)
     times[("rollout_fwd", "ms")] = cuda_ms(lambda: fr.rollout_forward_kernel(*args), 10)
     times[("rollout_fwd", "plain_ms")] = cuda_ms(lambda: fr.rollout_forward_plain(*args), 3)
+    times[("rollout_fwd", "profile")] = rollout_fwd_profile(lambda: fr.rollout_forward_kernel(*args))
+    times[("rollout_fwd", "phases")] = rollout_fwd_phases(args)
     gen = torch.Generator().manual_seed(SEED + 61)
     dval, dlogp = (torch.randn((S, ROLLOUT_N), generator=gen).to(dev) for _ in range(2))
     times[("rollout_bwd", "ms")] = cuda_ms(
@@ -1339,6 +1415,88 @@ def wide_vocab_sampling(dev) -> dict:
     return out
 
 
+def wide_rollouts(dev) -> None:
+    """Phase 19e: the rollout forward and backward at hidden_dim = 1024
+    (whose weights stream through the ring) with the trainer's N = 512 rows
+    (each block walks all eight row tiles), and at V = 2000, bf16 and f32,
+    reward stream fused in, against plain under phase 13's rules."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.config import NetConfig
+    from image_captioning_through_rl_tpu_torch.models import a2c, reward
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+    from image_captioning_through_rl_tpu_torch.ops import prng
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, width, vocab, steps in ((ROLLOUT_N, WIDE_H, V, 5), (128, H, WIDE_V, 8)):
+        cfg = NetConfig(vocab_size=vocab, input_dim=width, wordvec_dim=width, hidden_dim=width,
+                        max_seq_len=steps + 1)
+        gen = torch.Generator().manual_seed(SEED + width + vocab)
+        nets, rparams = to_device(a2c.init(gen, cfg), dev), to_device(reward.init(gen, cfg), dev)
+        feats = torch.randn((n, width), generator=gen).to(dev)
+        caps = torch.randint(4, vocab, (n, steps + 1), generator=gen).to(dev)
+        caps[:, 0] = START_ID
+        with torch.no_grad():
+            states = fr.start_states(nets, cfg, feats, caps[:, 0])
+        noise = prng.gumbel_noise(prng.split(prng.PRNGKey(SEED + 9), steps), (n, vocab), dev)
+        teach = caps[:, 1:].t().to(torch.int32).contiguous()
+        for wd in (torch.bfloat16, torch.float32):
+            plan = fr.rollout_plan(n, width, width, -(-vocab // 8) * 8, wd, sms)
+            rw = fr.prepare_reward_weights(rparams, feats, caps[:, 0], wd)
+            w = fr.prepare_rollout_weights(nets, wd)
+            args = (1, teach, noise, rw, feats, *states, w)
+            k_val, k_logp, k_rew, tape = fr.rollout_forward_kernel(*args)
+            torch.cuda.synchronize()
+            p_val, p_logp, p_rew, p_tape, gaps = fr.rollout_forward_plain(*args, margins=True)
+            differ = tape.act != p_tape.act
+            first = differ.int().argmax(dim=0)
+            n_bad, _, _ = check_rows(f"rollout {width}/{vocab} {wd}", tape.act.t(), p_tape.act.t(),
+                                     lambda bad: gaps.gather(0, first[None])[0][bad])
+            ok = ~differ.any(dim=0)
+            err = max(float((a - b)[:, ok].abs().max()) for a, b in
+                      ((k_val, p_val), (k_logp, p_logp), (k_rew, p_rew)))
+            gen_d = torch.Generator().manual_seed(SEED + 41)
+            dval, dlogp = (torch.randn((steps, n), generator=gen_d).to(dev) for _ in range(2))
+            got = fr.rollout_backward_kernel(tape, feats, w, dval, dlogp)
+            torch.cuda.synchronize()
+            want = fr.rollout_backward_plain(tape, feats, w, dval, dlogp)
+            rel = max(float((a - b).norm() / max(float(b.norm()), 1e-30)) for a, b in zip(got, want))
+            if not (np.isfinite(err) and err <= ROLLOUT_TOL[wd] and rel <= CHAIN_TOL[wd]):
+                raise AssertionError(f"rollout H={width} V={vocab} {wd}: forward max abs error "
+                                     f"{err:.3g}, backward relative {rel:.3g}")
+            phase("faults", f"rollout H=E=F={width} V={vocab} N={n} S={steps} {str(wd)[6:]} "
+                            f"({'streamed' if plan['stream'] else 'stationary'} slices of "
+                            f"{plan['columns']} columns, grid {plan['grid']}): {n_bad} row(s) "
+                            f"differ at near-ties; forward max abs error {err:.3g} (bound "
+                            f"{ROLLOUT_TOL[wd]}), backward largest relative {rel:.3g} (bound "
+                            f"{CHAIN_TOL[wd]})")
+
+
+def host_us(fn, iters: int = 200) -> float:
+    """Phase 6: the host's microseconds a call of ``fn`` (back-to-back calls
+    that queue faster than the card runs them: the host side alone)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def table_device_ms(emb: torch.Tensor, w: torch.Tensor, iters: int = 10) -> float:
+    """Phase 6: the x-gate table's device time per call through its wrapper
+    (torch.profiler), beside the CUDA-event time of back-to-back calls."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import token_gate_table
+
+    token_gate_table(emb, w)
+    torch.cuda.synchronize()
+    ms, counts = device_profile(lambda: token_gate_table(emb, w), iters)
+    if counts.get("wgmma_gemm_kernel") != iters:
+        raise AssertionError(f"the bf16 table ran {counts}, not wgmma_gemm_kernel once a call")
+    return sum(ms.values()) / iters
+
+
 def work(nbytes: float, flops: float, peak: float = H100_BF16,
          scalar_ops: float = 0.0) -> tuple[float, str]:
     """The least time the card could take, in ms, and what bounds it: the
@@ -1466,17 +1624,25 @@ def main() -> int:
         feats = torch.randn((n, F), generator=gen).to(dev)
         return feats, torch.full((n,), START_ID, dtype=torch.int32, device=dev)
 
-    # phase 3a: the x-gate tables (emb @ wi) that both decode kernels read
+    # phase 3a: the x-gate tables (emb @ wi (+ b)) that every recurrent kernel
+    # reads: both decode kernels' [V, 4H], and a GRU's [V, 3H] with its bias
+    # added in the product's epilogue (wgmma for bf16 weights)
     table_err = 0.0
+    tab_gen = torch.Generator().manual_seed(SEED + 9)
+    gru_w = torch.randn((E + H, 3 * H), generator=tab_gen).to(dev) * 0.05
+    gru_b = torch.randn((3 * H,), generator=tab_gen).to(dev)
     for wd, (gw, bw) in weights.items():
-        for name, (emb, w) in (("policy", (gw.emb, gw.w)), ("value", (bw.value.emb, bw.value.w))):
-            k_tab = token_gate_table(emb, w)
+        for name, (emb, w, b) in (("policy", (gw.emb, gw.w, None)),
+                                  ("value", (bw.value.emb, bw.value.w, None)),
+                                  ("gru", (gw.emb, gru_w.to(wd), gru_b))):
+            k_tab = token_gate_table(emb, w, b)
             torch.cuda.synchronize()
-            err = float((k_tab - token_gate_table_plain(emb, w)).abs().max())
-            if k_tab.shape != (V, 4 * H) or not err <= TABLE_TOL:
+            err = float((k_tab - token_gate_table_plain(emb, w, b)).abs().max())
+            if k_tab.shape != (V, w.shape[1]) or not err <= TABLE_TOL:
                 raise AssertionError(f"token gate table ({name}, {wd}) differs by {err:.3g}")
             table_err = max(table_err, err)
-            phase("token_gates", f"{str(wd)[6:]} {name} [V, 4H]: max abs err {err:.3g} "
+            phase("token_gates", f"{str(wd)[6:]} {name} [V, {w.shape[1] // H}H]"
+                                 f"{' + b' if b is not None else ''}: max abs err {err:.3g} "
                                  f"(tolerance {TABLE_TOL})")
 
     # phase 3b: greedy kernel vs plain
@@ -1578,7 +1744,12 @@ def main() -> int:
     # phase 6: timings (CUDA events over back-to-back calls, bf16 serving weights)
     gw, bw = weights[torch.bfloat16]
     tab_ms = cuda_ms(lambda: token_gate_table(gw.emb, gw.w), 20)
+    tab_device = table_device_ms(gw.emb, gw.w)
     tab_plain = cuda_ms(lambda: token_gate_table_plain(gw.emb, gw.w), 20)
+    # the library call that computes the table's function
+    tab_library = cuda_ms(lambda: torch.mm(gw.emb, gw.w[:E], out_dtype=torch.float32), 20)
+    tab_host = (host_us(lambda: token_gate_table(gw.emb, gw.w)),
+                host_us(lambda: torch.mm(gw.emb, gw.w[:E], out_dtype=torch.float32)))
     feats, start = inputs(1024)
     g_ms = cuda_ms(lambda: fused_greedy_decode(gw, feats, start, T), 20)
     g_plain = cuda_ms(lambda: greedy_decode_plain(gw, feats, start, T), 20)
@@ -1588,7 +1759,10 @@ def main() -> int:
         times[n] = (cuda_ms(lambda: fused_beam_search(bw, f_n, s_n, T, BEAM), 5),
                     cuda_ms(lambda: beam_search_plain(bw, f_n, s_n, T, BEAM), 5))
     phase("timing", f"{card} | bf16 weights | token gate table [1004, 2048]: kernel "
-                    f"{tab_ms:.3f} ms, plain {tab_plain:.3f} ms | greedy N=1024: kernel "
+                    f"{tab_ms:.4f} ms (device {tab_device:.4f} ms a call), plain "
+                    f"{tab_plain:.3f} ms, library (torch.mm) {tab_library:.4f} ms (kernel / "
+                    f"library {tab_ms / tab_library:.2f}); host us a call: wrapper "
+                    f"{tab_host[0]:.1f}, torch.mm {tab_host[1]:.1f} | greedy N=1024: kernel "
                     f"{g_ms:.3f} ms, plain "
                     f"{g_plain:.3f} ms | beam-5 N=127: kernel {times[127][0]:.3f} ms, plain "
                     f"{times[127][1]:.3f} ms | beam-5 N=1024: kernel {times[1024][0]:.3f} ms, "
@@ -1644,6 +1818,9 @@ def main() -> int:
         for k in ("threefry_gumbel", "reward_stream", "rollout_fwd", "rollout_bwd"))
         + f" | a2c step: fused {ta[('a2c', 'step', 'ms')]:.3f} ms, plain "
           f"{ta[('a2c', 'step', 'plain_ms')]:.3f} ms")
+    phase("profile", f"{card} | rollout forward, N = {ROLLOUT_N}, S = {S}, bf16, reward fused "
+                     f"in: {ta[('rollout_fwd', 'profile')]} | its clock: "
+                     f"{ta[('rollout_fwd', 'phases')]}")
     phase("profile", f"{card} | fused A2C step, batch {BATCH}: {ta[('a2c', 'profile')]}")
 
     # phases 16-18: the sampling kernel vs plain, sampled serving, timings
@@ -1662,13 +1839,11 @@ def main() -> int:
     streamed_chains(dev)
     padded_decodes(dev)
     wv = wide_vocab_sampling(dev)
+    wide_rollouts(dev)
     phase("timing", f"{card} | bf16 weights | sampling V={WIDE_V} (one block per row), N=1024, "
                     f"top-k 40 + nucleus 0.9: kernel {wv['ms']:.3f} ms, plain "
                     f"{wv['plain_ms']:.3f} ms")
 
-    # the library call that computes the x-gate table's function
-    emb, wi = gw.emb, gw.w[:E]
-    tab_library = cuda_ms(lambda: torch.mm(emb, wi, out_dtype=torch.float32), 20)
     bound = bounds()
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, shape, library_ms=None):
@@ -1701,7 +1876,7 @@ def main() -> int:
     for name, source, replaces, err in (
             ("threefry_gumbel", "threefry.cu", "pallas_sample.py:90", gumbel_ulps),
             ("reward_stream", "reward_stream.cu", "pallas_rollout.py:1066", stream_err),
-            ("rollout_fwd", "rollout.cu", "pallas_rollout.py:308", rollout_err["fwd"]),
+            ("rollout_fwd", "rollout_fwd.cu", "pallas_rollout.py:308", rollout_err["fwd"]),
             ("rollout_bwd", "rollout.cu", "pallas_rollout.py:575", rollout_err["bwd"])):
         kernels.append(entry(name, source, replaces, a2c_launches[name], err, ta[(name, "ms")],
                              ta[(name, "plain_ms")],

@@ -264,24 +264,37 @@ __device__ __forceinline__ const typename Tl::W* chain_weight_src(const typename
   }
 }
 
-// Bs from wh with 16-byte cp.async copies, zeros outside it (stationary
-// mode). Waits for the copies.
+// The weight slice j0 of wh as a source of 16-byte chunks: src(n, k) is
+// chain_weight_src's, src.base() a valid address for a zero-filled copy.
+// Other slice shapes (the rollout's column slices, rollout_fwd.cu) pass
+// their own source with the same two members.
 template <class Tl>
-__device__ void chain_load_weights(const ChainSmem<Tl>& sm, const typename Tl::W* __restrict__ wh,
-                                   int H, int j0) {
+struct GateSlice {
+  const typename Tl::W* wh;
+  int H, j0;
+  __device__ __forceinline__ const typename Tl::W* operator()(int n, int k) const {
+    return chain_weight_src<Tl>(wh, H, j0, n, k);
+  }
+  __device__ __forceinline__ const void* base() const { return wh; }
+};
+
+// Bs from the slice source with 16-byte cp.async copies, zeros outside it
+// (stationary mode). Waits for the copies.
+template <class Tl, class Src>
+__device__ void chain_load_slice(const ChainSmem<Tl>& sm, const Src& src) {
   using W = typename Tl::W;
   constexpr int VEC = 16 / sizeof(W);
   if constexpr (Tl::BWD) {
     const int per_row = sm.Kp / VEC;
     for (int v = threadIdx.x; v < Tl::NC * per_row; v += CHAIN_THREADS) {
       const int c = v / per_row, k = (v % per_row) * VEC;
-      wg::cp16(wg::smem_addr(sm.Bs + sm.bidx(c, k)), chain_weight_src<Tl>(wh, H, j0, c, k), wh);
+      wg::cp16(wg::smem_addr(sm.Bs + sm.bidx(c, k)), src(c, k), src.base());
     }
   } else {
     constexpr int per_row = Tl::NC / VEC;
     for (int v = threadIdx.x; v < sm.Kp * per_row; v += CHAIN_THREADS) {
       const int k = v / per_row, c = (v % per_row) * VEC;
-      wg::cp16(wg::smem_addr(sm.Bs + sm.bidx(c, k)), chain_weight_src<Tl>(wh, H, j0, c, k), wh);
+      wg::cp16(wg::smem_addr(sm.Bs + sm.bidx(c, k)), src(c, k), src.base());
     }
   }
   wg::cp_commit();
@@ -289,14 +302,20 @@ __device__ void chain_load_weights(const ChainSmem<Tl>& sm, const typename Tl::W
   __syncthreads();
 }
 
+// Bs from the slice j0 of wh.
+template <class Tl>
+__device__ void chain_load_weights(const ChainSmem<Tl>& sm, const typename Tl::W* __restrict__ wh,
+                                   int H, int j0) {
+  chain_load_slice(sm, GateSlice<Tl>{wh, H, j0});
+}
+
 // Cs[r][c] = sum_{k < K} A(row0 + r, k) B(k, c), A(row, k) = a[row lda + k]
 // (zero for row >= nrows), rounded to W as it is staged (an AT = float
-// source with bf16 weights: the forward's float32 h0); B the slice j0 of wh
-// (Bs, or streamed with A when Tl::STREAM).
-template <class Tl, typename AT>
-__device__ void chain_product(const ChainSmem<Tl>& sm, const AT* __restrict__ a, int lda,
-                              int row0, int nrows, int K, const typename Tl::W* __restrict__ wh,
-                              int H, int j0) {
+// source with bf16 weights: the forward's float32 h0); B the slice of the
+// source src (Bs, or streamed with A from src when Tl::STREAM).
+template <class Tl, typename AT, class Src>
+__device__ void chain_product_src(const ChainSmem<Tl>& sm, const AT* __restrict__ a, int lda,
+                                  int row0, int nrows, int K, const Src& src) {
   using W = typename Tl::W;
   using S = ChainSmem<Tl>;
   constexpr int VEC = 16 / sizeof(W), CPR = Tl::KC / VEC, PER = CHAIN_BR * CPR / CHAIN_THREADS;
@@ -323,8 +342,7 @@ __device__ void chain_product(const ChainSmem<Tl>& sm, const AT* __restrict__ a,
       for (int v = tid; v < BROWS * BPR; v += CHAIN_THREADS) {
         const int rr = v / BPR, cc = (v % BPR) * VEC;
         const int n = Tl::BWD ? rr : cc, kk = Tl::BWD ? cc : rr;
-        wg::cp16(wg::smem_addr(sb + rr * S::SLD + cc),
-                 chain_weight_src<Tl>(wh, H, j0, n, kc * Tl::KC + kk), wh);
+        wg::cp16(wg::smem_addr(sb + rr * S::SLD + cc), src(n, kc * Tl::KC + kk), src.base());
       }
     }
   };
@@ -462,6 +480,14 @@ __device__ void chain_product(const ChainSmem<Tl>& sm, const AT* __restrict__ a,
 #pragma unroll
       for (int j = 0; j < CN; ++j) sm.Cs[(ty + Tl::TY * i) * S::CLD + tx + Tl::TX * j] = acc[i][j];
   }
+}
+
+// chain_product_src on the slice j0 of wh.
+template <class Tl, typename AT>
+__device__ void chain_product(const ChainSmem<Tl>& sm, const AT* __restrict__ a, int lda,
+                              int row0, int nrows, int K, const typename Tl::W* __restrict__ wh,
+                              int H, int j0) {
+  chain_product_src(sm, a, lda, row0, nrows, K, GateSlice<Tl>{wh, H, j0});
 }
 
 template <typename Kernel, typename Args>

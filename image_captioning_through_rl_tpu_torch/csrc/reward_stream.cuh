@@ -9,15 +9,20 @@
 namespace icrl {
 namespace {
 
-// The GRU update of one unit j from its input gates gi (a row of the table
+// The GRU update of one unit from its input gates gi (a row of the table
 // emb @ wi + bi) and recurrent gates gh (rnd(h) @ wh + bh), gate order
-// r, z, n, as ops/rnn.gru_cell and the TPU kernel's _gru_step compose it.
+// r, z, n, as ops/rnn.gru_cell and the TPU kernel's _gru_step compose it;
+// gru_unit reads unit j's gates from the rows gi and gh.
+__device__ __forceinline__ float gru_update(const float (&gi)[3], const float (&gh)[3], float h) {
+  const float r = sigmoid(gi[0] + gh[0]);
+  const float z = sigmoid(gi[1] + gh[1]);
+  const float n = tanhf(gi[2] + r * gh[2]);
+  return (1.f - z) * n + z * h;
+}
+
 __device__ __forceinline__ float gru_unit(int H, int j, const float* gi, const float* gh,
                                           float h) {
-  const float r = sigmoid(gi[j] + gh[j]);
-  const float z = sigmoid(gi[H + j] + gh[H + j]);
-  const float n = tanhf(gi[2 * H + j] + r * gh[2 * H + j]);
-  return (1.f - z) * n + z * h;
+  return gru_update({gi[j], gi[H + j], gi[2 * H + j]}, {gh[j], gh[H + j], gh[2 * H + j]}, h);
 }
 
 // One thread per (row, unit): the lookahead on the sampled action,

@@ -143,32 +143,36 @@ def check_tile_widths(dtype: torch.dtype, **widths: int) -> None:
 
 def _launch_token_gates(emb: torch.Tensor, w: torch.Tensor,
                         bias: torch.Tensor | None) -> torch.Tensor:
+    # every call of a decode, a chain or a rollout makes its tables here, and
+    # the kernel takes ~11 us: the host work stays under it (device indices
+    # as ints, the raw stream, the device set in C only where it differs)
     vocab, emb_dim = emb.shape
     width = w.shape[1]
-    if (w.device != emb.device or w.dtype != emb.dtype
-            or emb.dtype not in (torch.bfloat16, torch.float32)
+    dtype, index = emb.dtype, emb.get_device()
+    bf16 = dtype == torch.bfloat16
+    if (w.dtype != dtype or not (bf16 or dtype == torch.float32) or w.get_device() != index
             or w.dim() != 2 or w.shape[0] < emb_dim
             or not (emb.is_contiguous() and w.is_contiguous())):
         raise ValueError("token_gate_table needs contiguous emb [V, E] and w [>= E, G] "
                          "of one type (bf16 or f32) on one device")
     if bias is not None and (bias.dtype != torch.float32 or bias.shape != (width,)
-                             or bias.device != emb.device or not bias.is_contiguous()):
+                             or bias.get_device() != index or not bias.is_contiguous()):
         raise ValueError("token_gate_table's bias must be a contiguous float32 [G] tensor "
                          "on the embedding's device")
-    if needs_padding(emb_dim, vocab=width):  # zero columns of emb, zero rows and columns of w
-        ep, gp = pad8(emb_dim), width + width % 2
+    # zero columns of emb, zero rows and columns of w: both products need E a
+    # multiple of 8 and G even, and wgmma (bf16), which reads w's rows in
+    # 16-byte chunks, G a multiple of 8
+    if emb_dim % 8 or width % (8 if bf16 else 2):
+        ep, gp = pad8(emb_dim), pad8(width) if bf16 else width + width % 2
         out = _launch_token_gates(pad_dim(emb, 1, ep).contiguous(),
                                   pad_dim(pad_dim(w[:emb_dim], 0, ep), 1, gp).contiguous(),
                                   None if bias is None else pad_dim(bias, 0, gp).contiguous())
         return out[:, :width].contiguous()
-    check_tile_widths(emb.dtype, emb_dim=emb_dim, columns=width)
     out = torch.empty((vocab, width), dtype=torch.float32, device=emb.device)
     lib = load_library()
-    with torch.cuda.device(emb.device):
-        err = lib.icrl_token_gates(vocab, emb_dim, width, int(emb.dtype == torch.bfloat16),
-                                   emb.data_ptr(), w.data_ptr(),
-                                   None if bias is None else bias.data_ptr(), out.data_ptr(),
-                                   torch.cuda.current_stream(emb.device).cuda_stream)
+    err = lib.icrl_token_gates(vocab, emb_dim, width, int(bf16), emb.data_ptr(), w.data_ptr(),
+                               None if bias is None else bias.data_ptr(), out.data_ptr(), index,
+                               torch._C._cuda_getCurrentRawStream(index))
     check_error(lib, "icrl_token_gates", err)
     token_gate_table.launches += 1
     return out

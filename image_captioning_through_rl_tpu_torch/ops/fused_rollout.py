@@ -5,9 +5,11 @@ Counterpart of the JAX ``ops/pallas_rollout.py``: ``fused_reward_stream``
 (TPU kernel ``_reward_stream_kernel``) and ``fused_rollout``
 (``_rollout_fwd_kernel``, ``_policy_bwd_kernel`` and ``_value_bwd_kernel``
 under the custom VJP of ``_make_core``). The kernels are
-``csrc/reward_stream.cu`` and ``csrc/rollout.cu``; their notes say what each
-step computes, where it rounds, what bounds it on Hopper and what the design
-does about that.
+``csrc/reward_stream.cu``, ``csrc/rollout_fwd.cu`` (the forward: one
+persistent cooperative launch for all steps, planned by
+:func:`rollout_plan`) and ``csrc/rollout.cu`` (the backward); their notes say
+what each step computes, where it rounds, what bounds it on Hopper and what
+the design does about that.
 
 Over S = T - 1 steps the rollout takes, at step s (position p = s + 1), the
 policy's logits from its carried state, the Gumbel-max action on the step's
@@ -44,6 +46,7 @@ unpadded parameters.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -51,7 +54,8 @@ import torch
 from ..models import policy as policy_mod
 from ..models import value as value_mod
 from .fused_decode import check_tile_widths, round_to, token_gate_table, wmatmul
-from .fused_lstm import _bf16_scratch, embedding_grad, lstm_chain_backward_plain
+from .fused_lstm import (_CHAIN_RING, CHAIN_ROWS, SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED,
+                         _bf16_scratch, _chain_smem, embedding_grad, lstm_chain_backward_plain)
 from .kernel_build import check_error, load_library
 from .linalg import dense
 from .padding import needs_padding, pad8, pad_cell, pad_dim, pad_split_rows
@@ -184,6 +188,17 @@ def reward_stream_plain(rw: RewardWeights, act_sm: torch.Tensor, tok_sm: torch.T
     return torch.stack(out)
 
 
+def _assert_tokens(msg: str, vocab: int, *tokens: torch.Tensor) -> None:
+    """The token range, checked on the device without a host sync, as the
+    chains check theirs (:func:`.fused_lstm._check_chain_inputs`): a token
+    outside ``[0, V)`` fails the assertion (on the CPU at once; on a CUDA
+    device at the next synchronisation, which ends the process's CUDA
+    context)."""
+    for t in tokens:
+        if t.numel():  # floor(token / V) is 0 exactly for a token in [0, V)
+            torch._assert_async(torch.floor_divide(t, vocab).eq(0).all(), msg)
+
+
 def _check_reward_weights(rw: RewardWeights, n: int, vocab: int) -> None:
     dev = rw.xg.device
     wd = rw.wh.dtype
@@ -208,9 +223,7 @@ def _launch_reward_stream(rw: RewardWeights, act_sm: torch.Tensor, tok_sm: torch
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != rw.xg.device:
             raise ValueError(f"{name} must be a contiguous int32 [S, N] tensor on the weights' "
                              f"device")
-    if act_sm.numel() and bool(((act_sm < 0) | (act_sm >= vocab) | (tok_sm < 0)
-                                | (tok_sm >= vocab)).any()):
-        raise ValueError(f"actions and tokens must lie in [0, {vocab})")
+    _assert_tokens(f"actions and tokens must lie in [0, {vocab})", vocab, act_sm, tok_sm)
     dev = rw.xg.device
     hidden = rw.wh.shape[0]
     rewards = torch.empty((steps, n), dtype=_F32, device=dev)
@@ -476,8 +489,8 @@ def rollout_backward_plain(tape: RolloutTape, feats: torch.Tensor, w: RolloutWei
 
 
 def _check_rollout_inputs(teach_sm, noise, reward, feats, states, w: RolloutWeights) -> None:
-    """Device, type, shape, width and token-range checks of the rollout
-    kernels' inputs (one device sync, for the token range)."""
+    """Device, type, shape and width checks of the rollout kernels' inputs,
+    and the token range as a device assertion (no host sync)."""
     dev = feats.device
     steps, n = teach_sm.shape
     vocab, emb_dim = w.p_emb.shape
@@ -498,18 +511,158 @@ def _check_rollout_inputs(teach_sm, noise, reward, feats, states, w: RolloutWeig
     if reward is not None:
         _check_reward_weights(reward, n, vocab)
     check_tile_widths(w.dtype, feat_dim=feats.shape[1], emb_dim=emb_dim, hidden=hidden)
-    if teach_sm.numel() and bool(((teach_sm < 0) | (teach_sm >= vocab)).any()):
-        raise ValueError(f"tokens must lie in [0, {vocab})")
+    _assert_tokens(f"tokens must lie in [0, {vocab})", vocab, teach_sm)
+
+
+# The forward kernel's products in slice order (csrc/rollout_fwd.cu
+# RolloutMat), and per weight type the units per slice (a slice is 4 units =
+# 4U consecutive columns) its plan tries, widest first, before it streams.
+ROLLOUT_PRODUCTS = ("head", "linear1", "policy", "value", "reward", "semantic")
+_ROLLOUT_UNITS = {torch.bfloat16: (32, 16, 8), torch.float32: (16, 8)}
+
+
+def _rollout_smem(weight_dtype: torch.dtype, units: int, stream: bool, depth: int) -> int:
+    """A block's shared memory (chain.cuh ``chain_smem``) for slices of
+    ``depth`` rows."""
+    kc = _CHAIN_RING[weight_dtype][0]
+    return _chain_smem(weight_dtype, False, 4, units, stream, -(-depth // kc) * kc)
+
+
+def rollout_columns(hidden: int, vp: int, reward: bool) -> tuple:
+    """The columns of each product of a forward step, in slice order: the
+    head's Vp, linear1's h half H, both cells' 4H, the reward GRU's 3H and
+    ``semantic_embed``'s H (the last two only with the reward stream)."""
+    return (vp, hidden, 4 * hidden, 4 * hidden, 3 * hidden if reward else 0,
+            hidden if reward else 0)
+
+
+def rollout_plan(n: int, feat_dim: int, hidden: int, vp: int, weight_dtype: torch.dtype,
+                 sm_count: int, reward: bool = True) -> dict:
+    """The rollout forward's cooperative launch, as ``csrc/rollout_fwd.cu:
+    rollout_plan`` computes it.
+
+    The columns of the six products (:func:`rollout_columns`) are cut, in
+    that order, into slices of ``columns = 4 units`` consecutive columns:
+    ``units`` is the widest (bf16 32, 16, 8; float32 16, 8) whose slice of
+    ``max(H, F)`` rows fits shared memory beside the chains' staging ring
+    while every slice gets a block of its own among the ``co_resident``
+    blocks (one per SM): then each block keeps its slice for the whole
+    rollout (``stream`` False). Otherwise the weights stream through the
+    ring with the A rows every step (``stream`` True, the chains' streaming
+    slice width), and block ``x`` walks slices ``x, x + grid_x, ...``. The
+    blocks left over make ``row_groups`` (each a replica of the weights):
+    block ``(x, g)`` takes the row tiles ``g, g + row_groups, ...`` of
+    ``rows_per_tile`` rows. ``slice_table`` lists each slice as
+    ``(product, first column, columns)``. No width is refused."""
+    depth = max(hidden, feat_dim)
+    cols = rollout_columns(hidden, vp, reward)
+
+    def slices(nc):
+        return sum(-(-c // nc) for c in cols)
+
+    def co_resident(smem):  # one block per SM
+        if smem > SMEM_PER_BLOCK:
+            return 0
+        return sm_count * min(1, SMEM_PER_SM // (smem + SMEM_RESERVED))
+
+    for units in _ROLLOUT_UNITS[weight_dtype]:
+        smem = _rollout_smem(weight_dtype, units, False, depth)
+        if co_resident(smem) >= slices(4 * units):
+            stream = False
+            break
+    else:
+        stream = True
+        units = next(u for u in _CHAIN_RING[weight_dtype][2]
+                     if _rollout_smem(weight_dtype, u, True, depth) <= SMEM_PER_BLOCK)
+        smem = _rollout_smem(weight_dtype, units, True, depth)
+    co = co_resident(smem)
+    nc = 4 * units
+    total = slices(nc)
+    grid_x = min(total, co)
+    row_groups = max(1, min(-(-max(n, 1) // CHAIN_ROWS), co // max(grid_x, 1)))
+    table = [(m, c0, min(nc, c - c0)) for m, c in enumerate(cols) for c0 in range(0, c, nc)]
+    return {"rows_per_tile": CHAIN_ROWS, "units": units, "columns": nc, "stream": stream,
+            "slices": total, "slice_table": table, "row_groups": row_groups,
+            "grid": (grid_x, row_groups), "smem_bytes": smem, "co_resident": co}
+
+
+@functools.lru_cache(maxsize=None)
+def _rollout_plan_args(n: int, feat_dim: int, hidden: int, vp: int, weight_dtype: torch.dtype,
+                       index: int, reward: bool) -> tuple:
+    """The plan's launch arguments for the card ``index`` (cached)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    p = rollout_plan(n, feat_dim, hidden, vp, weight_dtype, sms, reward)
+    return (p["rows_per_tile"], p["units"], int(p["stream"]), p["grid"][0], p["row_groups"],
+            p["smem_bytes"])
+
+
+def combine_row_partials(logits: torch.Tensor, noise: torch.Tensor, v1w: torch.Tensor,
+                         b2: torch.Tensor, se: torch.Tensor, vn: torch.Tensor, columns: int):
+    """A plain model of the forward kernel's cross-slice combine (for tests):
+    ``logits`` and ``noise`` ``[N, V]``, ``v1w = rnd(v1) * rnd(w2)`` and the
+    semantic embedding ``se`` and ``vn`` ``[N, H]``, cut into slices of
+    ``columns`` columns as the plan cuts them. Each slice keeps per row the
+    maximum logit, the sum of ``exp(l - max)``, the largest noisy logit with
+    its first index and its logit, and the sums of ``v1w``, ``se * se`` and
+    ``vn * se``; the combine takes the slices in order (the first index wins
+    an equal maximum across slices too) -> ``(action, log-prob, value,
+    cosine)`` per row."""
+    n, vocab = logits.shape
+    m_all, se_all, best, idx, lb = [], [], None, None, None
+    for c0 in range(0, vocab, columns):
+        lg, y = logits[:, c0:c0 + columns], logits[:, c0:c0 + columns] + noise[:, c0:c0 + columns]
+        m = lg.max(dim=1).values
+        m_all.append(m)
+        se_all.append(torch.exp(lg - m[:, None]).sum(dim=1))
+        bv, bi = y.max(dim=1)  # the first maximal index within the slice
+        bl = lg.gather(1, bi[:, None])[:, 0]
+        if best is None:
+            best, idx, lb = bv, bi + c0, bl
+        else:
+            take = bv > best  # strict: an earlier slice keeps an equal maximum
+            best, idx, lb = (torch.where(take, bv, best), torch.where(take, bi + c0, idx),
+                             torch.where(take, bl, lb))
+    m_rows = torch.stack(m_all, dim=1)
+    mx = m_rows.max(dim=1).values
+    sum_exp = (torch.exp(m_rows - mx[:, None]) * torch.stack(se_all, dim=1)).sum(dim=1)
+    logp = (lb - mx) - torch.log(sum_exp)
+    hidden = v1w.shape[1]
+
+    def sliced(x):
+        return torch.stack([x[:, c0:c0 + columns].sum(dim=1)
+                            for c0 in range(0, hidden, columns)], dim=1).sum(dim=1)
+
+    value = sliced(v1w) + b2
+    cosine = sliced(vn * se) / torch.clamp_min(torch.sqrt(sliced(se * se)), 1e-12)
+    return idx, logp, value, cosine
+
+
+def rollout_clock_slots(steps: int) -> int:
+    """The length of the forward kernel's phase profile for ``steps`` steps
+    (``clock`` of :func:`rollout_forward_kernel`)."""
+    return 2 + 4 * (steps + 1)
 
 
 def rollout_forward_kernel(curr: int, teach_sm: torch.Tensor, noise: torch.Tensor,
                            reward: RewardWeights | None, feats: torch.Tensor, ph1, pc1, vh1,
-                           vc1, w: RolloutWeights):
-    """The forward through ``csrc/rollout.cu`` (one C call): the same
-    results as :func:`rollout_forward_plain`."""
+                           vc1, w: RolloutWeights, *, clock: torch.Tensor | None = None):
+    """The forward through ``csrc/rollout_fwd.cu``: the two x-gate tables,
+    then one cooperative launch for all S steps (:func:`rollout_plan`); the
+    same results as :func:`rollout_forward_plain`.
+
+    ``clock``, for a profile: int64 zeros of :func:`rollout_clock_slots` on
+    the card, which the launch fills with the nanoseconds at which its last
+    block passed each mark: 0 the start, 1 the slices loaded, then for step
+    ``t`` (``t = S``: the last reward's pass) ``2 + 4t`` phase A entered,
+    ``+ 1`` phase A done, ``+ 2`` phase B entered, ``+ 3`` phase B done."""
     _check_rollout_inputs(teach_sm, noise, reward, feats, (ph1, pc1, vh1, vc1), w)
     dev = feats.device
     steps, n = teach_sm.shape
+    if clock is not None and (clock.dtype != torch.int64 or clock.device != dev
+                              or not clock.is_contiguous()
+                              or clock.numel() < rollout_clock_slots(steps)):
+        raise ValueError(f"clock must be {rollout_clock_slots(steps)} contiguous int64 zeros "
+                         f"on {dev}")
     vocab, emb_dim = w.p_emb.shape
     hidden = w.p_b.shape[0] // 4
     f = feats.shape[1]
@@ -538,12 +691,13 @@ def rollout_forward_kernel(curr: int, teach_sm: torch.Tensor, noise: torch.Tenso
         ws = f32(lib.icrl_rollout_workspace_floats(n, hidden, vp))
         err = lib.icrl_rollout_fwd(
             n, steps, f, emb_dim, hidden, vocab, vp, int(curr), int(w.dtype == torch.bfloat16),
+            *_rollout_plan_args(n, f, hidden, vp, w.dtype, dev.index, reward is not None),
             _ptr(feats), _ptr(teach_sm), _ptr(noise), _ptr(p_xg), _ptr(w.p_w), _ptr(w.p_b),
             _ptr(w.hw), _ptr(w.hb), _ptr(v_xg), _ptr(w.v_w), _ptr(w.v_b), _ptr(w.w1),
             _ptr(w.b1), _ptr(w.w2), _ptr(w.b2), _ptr(rw.xg), _ptr(rw.wh), _ptr(rw.bh),
             _ptr(rw.sem_w), _ptr(rw.sem_b), _ptr(rw.vn), _ptr(rw.rew0), _ptr(values),
             _ptr(logp), _ptr(act), _ptr(tok), _ptr(rewards), _ptr(hp), _ptr(cp), _ptr(gp),
-            _ptr(hv), _ptr(cv), _ptr(gv), _ptr(v1), _ptr(ws), _stream(dev))
+            _ptr(hv), _ptr(cv), _ptr(gv), _ptr(v1), _ptr(ws), _ptr(clock), _stream(dev))
     check_error(lib, "icrl_rollout_fwd", err)
     fused_rollout.fwd_launches += 1
     tape = RolloutTape(hp=hp, cp=cp, gp=gp, hv=hv, cv=cv, gv=gv, v1=v1, act=act, tok=tok)
@@ -655,8 +809,9 @@ class _RolloutPlain(torch.autograd.Function):
 
 
 class _RolloutKernel(torch.autograd.Function):
-    """The rollout through ``csrc/rollout.cu``, over the same arguments as
-    :class:`_RolloutPlain`: one C call forward, two backward. The x-gate
+    """The rollout through ``csrc/rollout_fwd.cu`` and ``csrc/rollout.cu``,
+    over the same arguments as :class:`_RolloutPlain`: one C call forward
+    (one kernel launch beside the x-gate tables), two backward. The x-gate
     tables are rebuilt each call (the weights change every optimiser
     step)."""
 
@@ -795,8 +950,8 @@ def fused_rollout(a2c_params: dict, cfg, features: torch.Tensor, captions: torch
     ``[2]``), made on the features' device (:func:`.prng.gumbel_noise`).
     Weights act in ``weight_dtype`` (bf16 by default, as the TPU kernel).
 
-    CUDA tensors run the kernels (``csrc/rollout.cu``), CPU tensors the
-    plain versions; ``use_fused_kernel=False`` forces the plain versions,
+    CUDA tensors run the kernels (``csrc/rollout_fwd.cu``,
+    ``csrc/rollout.cu``), CPU tensors the plain versions; ``use_fused_kernel=False`` forces the plain versions,
     ``True`` on CPU tensors raises."""
     steps = captions.shape[1] - 1
     vocab = a2c_params["policy"]["embedding"].shape[0]

@@ -46,7 +46,12 @@ forward within ``ROLLOUT_TOL`` (max abs error, on the rows whose actions
 agree; a row may part only at a near-tie of the noisy logits); the rollout
 backward, run by kernel and plain on one shared forward tape, within
 ``CHAIN_TOL`` by relative Frobenius error (its recurrences are the LSTM
-chain's backward).
+chain's backward). The one-launch rollout forward is also held so at the
+widths its plan treats apart (COCO width, H = 1024 streamed, V = 2000, a
+padded width, N = 1, S = 1; bf16 and f32; curr 1 and 8; with and without
+the reward stream), must give bit-identical results on two calls and be one
+`rollout_fwd_kernel` launch beside its two x-gate tables; the bf16 x-gate
+table runs on wgmma and matches its plain version within 1e-4.
 """
 
 import os
@@ -390,8 +395,9 @@ def test_lstm_chain_kernels_are_deterministic(dev, wd):
 
 @pytest.mark.cuda
 def test_lstm_chain_launches_do_not_grow_with_steps(dev):
-    """The forward is one chain kernel launch besides the x-gate table, the
-    backward one recurrence launch and two wgmma products, at T = 1 and 16."""
+    """The forward is one chain kernel launch besides the x-gate table (a
+    wgmma product), the backward one recurrence launch and two wgmma
+    products, at T = 1 and 16."""
     from torch.profiler import ProfilerActivity, profile
 
     counts = {}
@@ -410,7 +416,7 @@ def test_lstm_chain_launches_do_not_grow_with_steps(dev):
                          for k in ("lstm_fwd_kernel", "lstm_bwd_kernel", "wgmma_gemm_kernel",
                                    "linear_kernel")}
     assert counts[1] == counts[16] == {"lstm_fwd_kernel": 1, "lstm_bwd_kernel": 1,
-                                       "wgmma_gemm_kernel": 2, "linear_kernel": 1}, counts
+                                       "wgmma_gemm_kernel": 3, "linear_kernel": 0}, counts
 
 
 @pytest.mark.cuda
@@ -471,10 +477,10 @@ def test_gru_chain_kernels_are_deterministic(dev, wd, width):
 
 @pytest.mark.cuda
 def test_gru_chain_launches_do_not_grow_with_steps(dev):
-    """The forward is one chain kernel launch besides the x-gate table; the
-    backward one recurrence launch, two wgmma launches (dwi and dwh in one,
-    dx) and two column sums (two launches each), at T = 1 and 17; no
-    view_kernel."""
+    """The forward is one chain kernel launch besides the x-gate table (a
+    wgmma product); the backward one recurrence launch, two wgmma launches
+    (dwi and dwh in one, dx) and two column sums (two launches each), at
+    T = 1 and 17; no view_kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     counts = {}
@@ -491,7 +497,7 @@ def test_gru_chain_launches_do_not_grow_with_steps(dev):
                          for k in ("gru_fwd_kernel", "gru_bwd_kernel", "wgmma_gemm_kernel",
                                    "linear_kernel", "colsum_part_kernel", "view_kernel")}
     assert counts[1] == counts[17] == {"gru_fwd_kernel": 1, "gru_bwd_kernel": 1,
-                                       "wgmma_gemm_kernel": 2, "linear_kernel": 1,
+                                       "wgmma_gemm_kernel": 3, "linear_kernel": 0,
                                        "colsum_part_kernel": 2, "view_kernel": 0}, counts
 
 
@@ -590,6 +596,156 @@ def test_rollout_kernels_match_plain(dev, wd, curr):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bias", [False, True])
+@pytest.mark.parametrize("gates", [3, 4])
+@pytest.mark.parametrize("vocab,emb_dim", [(1004, 512), (2000, 512), (1001, 500)])
+def test_token_gate_table_on_wgmma_matches_plain(dev, vocab, emb_dim, gates, bias):
+    """bf16 weights: the table runs on wgmma (emb K-major, wi read MN-major
+    where it lies in [wi; wh]), the bias in its epilogue; an odd vocabulary
+    is masked rows, E = 500 is padded by the wrapper. (chip_smoke.py's
+    profiles show the launch as wgmma_gemm_kernel.)"""
+    gen = torch.Generator().manual_seed(vocab + gates)
+    hidden = 512
+    emb = torch.randn((vocab, emb_dim), generator=gen).to(dev).to(torch.bfloat16)
+    w = (0.05 * torch.randn((emb_dim + hidden, gates * hidden), generator=gen)).to(dev)
+    w = w.to(torch.bfloat16)
+    b = torch.randn((gates * hidden,), generator=gen).to(dev) if bias else None
+    before = token_gate_table.launches
+    got = token_gate_table(emb, w, b)
+    torch.cuda.synchronize()
+    assert token_gate_table.launches == before + 1
+    want = token_gate_table_plain(emb, w, b)
+    assert got.shape == want.shape == (vocab, gates * hidden)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+# (N, E = H = F, V, S): COCO width; H = 1024, whose weights stream while each
+# block walks all eight row tiles; V = 2000; widths the wrappers pad; one row;
+# one step
+ROLLOUT_SHAPES = {"coco": (512, 512, 1004, 16), "h1024": (512, 1024, 1004, 5),
+                  "v2000": (128, 512, 2000, 8), "padded": (100, 500, 1001, 6),
+                  "n1": (1, 512, 1004, 16), "s1": (33, 512, 1004, 1)}
+
+
+def _wide_rollout_case(dev, wd, curr, shape, with_reward, seed=21):
+    n, width, vocab, steps = shape
+    cfg = NetConfig(vocab_size=vocab, input_dim=width, wordvec_dim=width, hidden_dim=width,
+                    max_seq_len=steps + 1)
+    gen = torch.Generator().manual_seed(seed)
+
+    def to_dev(tree):
+        return {k: to_dev(v) if isinstance(v, dict) else v.to(dev) for k, v in tree.items()}
+
+    nets, rparams = to_dev(a2c.init(gen, cfg)), to_dev(reward.init(gen, cfg))
+    rng = np.random.default_rng(seed)
+    feats = torch.from_numpy(rng.standard_normal((n, width)).astype(np.float32)).to(dev)
+    caps = torch.from_numpy(rng.integers(4, vocab, size=(n, steps + 1))).to(dev)
+    caps[:, 0] = START_ID
+    with torch.no_grad():
+        states = fr.start_states(nets, cfg, feats, caps[:, 0])
+        rw = fr.prepare_reward_weights(rparams, feats, caps[:, 0], wd) if with_reward else None
+        if width % 8:
+            nets, feats, states = fr.pad_rollout_inputs(nets, feats, states)
+    teach = caps[:, 1:].t().to(torch.int32).contiguous()
+    noise = prng.gumbel_noise(prng.split(prng.PRNGKey(seed), steps), (n, vocab), dev)
+    return (curr, teach, noise, rw, feats, *states, fr.prepare_rollout_weights(nets, wd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_reward", [True, False])
+@pytest.mark.parametrize("curr", [1, 8])
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+@pytest.mark.parametrize("shape", list(ROLLOUT_SHAPES))
+def test_rollout_forward_kernel_matches_plain_at_plan_widths(dev, shape, wd, curr, with_reward):
+    """The one-launch forward against the plain version at the widths its
+    plan treats differently: actions equal except at near-ties, values,
+    log-probs and rewards within ROLLOUT_TOL, the teacher tokens placed; the
+    backward on its tape within CHAIN_TOL."""
+    args = _wide_rollout_case(dev, wd, curr, ROLLOUT_SHAPES[shape], with_reward)
+    k_val, k_logp, k_rew, tape = fr.rollout_forward_kernel(*args)
+    torch.cuda.synchronize()
+    p_val, p_logp, p_rew, p_tape, gaps = fr.rollout_forward_plain(*args, margins=True)
+    steps = tape.act.shape[0]
+    assert torch.equal(tape.tok[:min(curr, steps + 1) - 1], args[1][:min(curr, steps + 1) - 1])
+    differ = tape.act != p_tape.act
+    bad = differ.any(dim=0)
+    if bool(bad.any()):
+        first = differ.int().argmax(dim=0)
+        assert bool((gaps.gather(0, first[None])[0][bad] < NEAR_TIE).all()), "a non-tie differs"
+    pairs = [("values", k_val, p_val), ("log_probs", k_logp, p_logp)]
+    if with_reward:
+        pairs.append(("rewards", k_rew, p_rew))
+    else:
+        assert k_rew is None
+    for name, a, b in pairs:
+        err = float((a - b)[:, ~bad].abs().max()) if bool((~bad).any()) else 0.0
+        assert err <= ROLLOUT_TOL[wd], f"{name}: max abs error {err:.3g}"
+    gen = torch.Generator().manual_seed(9)
+    dval, dlogp = (torch.randn(tape.act.shape, generator=gen).to(dev) for _ in range(2))
+    got = fr.rollout_backward_kernel(tape, args[4], args[-1], dval, dlogp)
+    torch.cuda.synchronize()
+    want = fr.rollout_backward_plain(tape, args[4], args[-1], dval, dlogp)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), i
+        rel = float((a - b).norm() / max(float(b.norm()), 1e-30))
+        assert rel <= CHAIN_TOL[wd], f"gradient {i}: relative error {rel:.3g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+def test_rollout_forward_kernel_is_deterministic(dev, wd):
+    """Two calls on the same inputs give bit-identical outputs and tape (every
+    sum in a fixed order, the combine included)."""
+    args = _wide_rollout_case(dev, wd, 4, ROLLOUT_SHAPES["coco"], True)
+    first, second = (fr.rollout_forward_kernel(*args) for _ in range(2))
+    for a, b in zip(first[:3] + tuple(first[3]), second[:3] + tuple(second[3])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_reward", [True, False])
+def test_rollout_forward_clock_marks_every_phase(dev, with_reward):
+    """The optional clock: every mark of every pass set, in order, and the
+    outputs bit-equal to a call without it."""
+    args = _wide_rollout_case(dev, torch.bfloat16, 1, ROLLOUT_SHAPES["coco"], with_reward)
+    steps = args[1].shape[0]
+    clock = torch.zeros(fr.rollout_clock_slots(steps), dtype=torch.int64, device=dev)
+    timed = fr.rollout_forward_kernel(*args, clock=clock)
+    plain = fr.rollout_forward_kernel(*args)
+    marks = clock.cpu()[:2 + 4 * (steps + with_reward)]
+    assert bool((marks > 0).all()) and bool((marks[1:] >= marks[:-1]).all())
+    assert bool((clock.cpu()[len(marks):] == 0).all())
+    for a, b in zip(timed[:3] + tuple(timed[3]), plain[:3] + tuple(plain[3])):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_reward", [True, False])
+def test_rollout_forward_is_one_launch(dev, with_reward):
+    """One rollout_fwd_kernel launch per call beside the two x-gate tables
+    (wgmma), whatever S; none of the old per-step kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for shape in ("coco", "s1"):
+        args = _wide_rollout_case(dev, torch.bfloat16, 1, ROLLOUT_SHAPES[shape], with_reward)
+        fr.rollout_forward_kernel(*args)
+        torch.cuda.synchronize()
+        before = fr.fused_rollout.fwd_launches
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fr.rollout_forward_kernel(*args)
+            torch.cuda.synchronize()
+        assert fr.fused_rollout.fwd_launches == before + 1
+        names = [e.key for e in prof.key_averages() for _ in range(e.count)
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts = {k: sum(k in name for name in names)
+                  for k in ("rollout_fwd_kernel", "wgmma_gemm_kernel", "linear_kernel",
+                            "rollout_cell_kernel", "value_hidden_kernel", "sample_rows_kernel")}
+        assert counts == {"rollout_fwd_kernel": 1, "wgmma_gemm_kernel": 2, "linear_kernel": 0,
+                          "rollout_cell_kernel": 0, "value_hidden_kernel": 0,
+                          "sample_rows_kernel": 0}, (shape, counts)
+
+
+@pytest.mark.cuda
 def test_a2c_loss_runs_each_rollout_kernel_once(dev):
     _, nets, rparams, feats, caps = _rollout_case(dev, torch.bfloat16, 1)
     params = {net: {k: ({kk: vv.requires_grad_() for kk, vv in v.items()} if isinstance(v, dict)
@@ -644,11 +800,24 @@ def test_rollout_takes_widths_it_pads(dev):
 
 @pytest.mark.cuda
 def test_rollout_wrappers_reject_bad_inputs(dev):
+    """Shapes raise at once; a token out of range fails the wrappers'
+    device-side assertion at the next synchronisation (no host sync in the
+    call), which ends the CUDA context, so each runs in a child."""
     args, _, _, _, _ = _rollout_case(dev, torch.float32, 1)
     curr, teach, noise, rw, feats, *states, w = args
     with pytest.raises(ValueError, match="noise"):
         fr.rollout_forward_kernel(curr, teach, noise[:, :, :-2], rw, feats, *states, w)
-    with pytest.raises(ValueError, match="tokens must lie"):
-        fr.rollout_forward_kernel(curr, teach + 1000, noise, rw, feats, *states, w)
-    with pytest.raises(ValueError, match="actions and tokens"):
-        fr.reward_stream(rw, teach + 1000, teach)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    for call in ("fr.rollout_forward_kernel(curr, teach + 1000, noise, rw, feats, *states, w)",
+                 "fr.reward_stream(rw, teach + 1000, teach)"):
+        script = (
+            "import sys, torch\n"
+            f"sys.path.insert(0, {os.path.join(root, 'tests')!r})\n"
+            "from test_torch_cuda import _rollout_case, fr\n"
+            "args, *_ = _rollout_case(torch.device('cuda'), torch.float32, 1)\n"
+            "curr, teach, noise, rw, feats, *states, w = args\n"
+            f"{call}\n"
+            "torch.cuda.synchronize()\n")
+        done = subprocess.run([sys.executable, "-c", script], cwd=root, capture_output=True,
+                              text=True, timeout=300)
+        assert done.returncode != 0 and "assert" in done.stderr.lower(), done.stderr[-2000:]
