@@ -50,7 +50,8 @@ Phases:
      the stream fused into that rollout;
  13. the rollout kernels vs plain, bf16 and f32, N = 512, curr_seq_len 1
      and 8: the forward (and two calls bit-equal), then the backward on the
-     kernel forward's tape;
+     kernel forward's tape (and two calls bit-equal, the embedding
+     gradient's index_add_ in PyTorch's deterministic mode);
  14. A2C main path: train_a2c_network on the card from phase 9's three .pt
      files, plain A2C one epoch at batch 512 (reward stream fused into the
      rollout), then curriculum [8] (levels 8 and 16, one epoch each) with
@@ -62,8 +63,13 @@ Phases:
      rollout forward and backward, kernel and plain, one A2C step fused and
      plain; the rollout forward's device time and launches per call
      (torch.profiler: one rollout_fwd_kernel beside the two x-gate tables,
-     none of the per-step kernels it replaced), and a torch.profiler window
-     over three fused A2C steps;
+     none of the per-step kernels it replaced); the rollout backward's
+     device time and launches per call (its own ten, no view_kernel or
+     linear_kernel) and the device time of its parts: the heads (prep,
+     softmax gradient, wgmma_group_kernel, column sums and the finishing
+     pass), both recurrences (lstm_bwd_pair_kernel) and the chains'
+     products (wgmma_gemm_kernel); and a torch.profiler window over three
+     fused A2C steps;
  16. the sampling kernel vs plain: bf16 and f32 weights, N in {1, 1024},
      four variants (unfiltered at t = 1.0, top-k 40 at t = 0.7,
      nucleus 0.9, top-k 40 with nucleus 0.9), one key each; column 0 the
@@ -715,8 +721,19 @@ def compare_rollout(dev) -> dict:
             gen = torch.Generator().manual_seed(SEED + 40)
             dval, dlogp = (torch.randn((S, ROLLOUT_N), generator=gen).to(dev) for _ in range(2))
             w = args[-1]
-            got = fr.rollout_backward_kernel(tape, feats, w, dval, dlogp)
-            torch.cuda.synchronize()
+            # the kernels sum in a fixed order; the embedding gradient's
+            # index_add_ (PyTorch's, outside them) needs its deterministic mode
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                got, twice = (fr.rollout_backward_kernel(tape, feats, w, dval, dlogp)
+                              for _ in range(2))
+                torch.cuda.synchronize()
+            finally:
+                torch.use_deterministic_algorithms(False)
+            differ = [name for name, a, b in zip(GRAD_NAMES, got, twice) if not torch.equal(a, b)]
+            if differ:
+                raise AssertionError(f"rollout backward {wd} curr={curr}: two calls differ in "
+                                     f"{differ}")
             want = fr.rollout_backward_plain(tape, feats, w, dval, dlogp)
             rels, abs_err = {}, 0.0
             for name, a, b in zip(GRAD_NAMES, got, want):
@@ -731,7 +748,8 @@ def compare_rollout(dev) -> dict:
                 worst["fwd"] = max(worst["fwd"], *errs.values())
                 worst["bwd"] = max(worst["bwd"], abs_err)
             top = max(rels, key=rels.get)
-            phase("rollout", f"{str(wd)[6:]} N={ROLLOUT_N} curr={curr}: two calls bit-equal; "
+            phase("rollout", f"{str(wd)[6:]} N={ROLLOUT_N} curr={curr}: two forwards and two "
+                             f"backwards bit-equal; "
                              f"{n_bad} row(s) differ "
                              f"(smallest gap there {gap:.3g}; smallest gap overall "
                              f"{float(gaps.min()):.3g}); max abs errors "
@@ -981,6 +999,40 @@ def rollout_fwd_profile(call, iters: int = 3) -> str:
             + ", ".join(f"{k} x{v:g}" for k, v in sorted(per_call.items())))
 
 
+# The rollout backward's kernels (csrc/rollout.cu, bf16) by part.
+ROLLOUT_BWD_PARTS = {
+    "heads": ("rollout_bwd_prep_kernel", "wgmma_group_kernel", "softmax_grad_rows_kernel",
+              "colsum_parts_kernel", "rollout_bwd_finish_kernel"),
+    "recurrences": ("lstm_bwd_pair_kernel",),
+    "chain products": ("wgmma_gemm_kernel",)}
+ROLLOUT_BWD_GONE = ("view_kernel", "linear_kernel", "lstm_bwd_kernel", "colsum_part_kernel",
+                    "colsum_finish_kernel")
+
+
+def rollout_bwd_profile(call, iters: int = 3) -> tuple[str, float]:
+    """Phase 15: the rollout backward's device time per call, its launches
+    (its own kernels, ten, none of the tile products it replaced; and all
+    device operations of the call, PyTorch's embedding gradient included)
+    and the device time of its parts. Returns the line and the device ms."""
+    call()
+    torch.cuda.synchronize()
+    ms, counts = device_profile(call, iters)
+    per_call = {k: counts[k] / iters for k in counts}
+    own = {k: v for k, v in per_call.items() if any(k in names for names in
+                                                   ROLLOUT_BWD_PARTS.values())}
+    if any(k in per_call for k in ROLLOUT_BWD_GONE) or sum(own.values()) != 10:
+        raise AssertionError(f"rollout backward launches per call: {per_call}")
+    device = sum(ms.values()) / iters
+    parts = {part: sum(ms.get(k, 0.0) for k in names) / iters
+             for part, names in ROLLOUT_BWD_PARTS.items()}
+    return (f"device {device:.4f} ms per call: "
+            + ", ".join(f"{part} {v:.4f}" for part, v in parts.items())
+            + f", around them (PyTorch's embedding gradient) {device - sum(parts.values()):.4f};"
+              f" launches per call: its own {sum(own.values()):g} ("
+            + ", ".join(f"{k} x{v:g}" for k, v in sorted(own.items()))
+            + f"), all device operations {sum(per_call.values()):g}"), device
+
+
 def rollout_fwd_phases(args) -> str:
     """Phase 15: where the rollout forward's time goes, from the kernel's
     own clock over one call (each mark the last block's): the slices' load,
@@ -1039,6 +1091,8 @@ def time_a2c(a2c_params, rparams, data, dev) -> dict:
         lambda: fr.rollout_backward_kernel(tape, feats, w, dval, dlogp), 10)
     times[("rollout_bwd", "plain_ms")] = cuda_ms(
         lambda: fr.rollout_backward_plain(tape, feats, w, dval, dlogp), 3)
+    times[("rollout_bwd", "profile")], times[("rollout_bwd", "device_ms")] = rollout_bwd_profile(
+        lambda: fr.rollout_backward_kernel(tape, feats, w, dval, dlogp))
     cfg = loops._cfg_for(data, False)
     feats = torch.from_numpy(data.train_features[data.train_image_idxs[:BATCH]]).to(dev)
     caps = torch.from_numpy(data.train_captions[:BATCH]).to(dev).long()
@@ -1821,6 +1875,9 @@ def main() -> int:
     phase("profile", f"{card} | rollout forward, N = {ROLLOUT_N}, S = {S}, bf16, reward fused "
                      f"in: {ta[('rollout_fwd', 'profile')]} | its clock: "
                      f"{ta[('rollout_fwd', 'phases')]}")
+    phase("profile", f"{card} | rollout backward, N = {ROLLOUT_N}, S = {S}, bf16: kernel "
+                     f"{ta[('rollout_bwd', 'ms')]:.4f} ms a call through its wrapper (CUDA "
+                     f"events), {ta[('rollout_bwd', 'profile')]}")
     phase("profile", f"{card} | fused A2C step, batch {BATCH}: {ta[('a2c', 'profile')]}")
 
     # phases 16-18: the sampling kernel vs plain, sampled serving, timings

@@ -490,13 +490,16 @@ __device__ void chain_product(const ChainSmem<Tl>& sm, const AT* __restrict__ a,
   chain_product_src(sm, a, lda, row0, nrows, K, GateSlice<Tl>{wh, H, j0});
 }
 
+// chains: how many chains of the same plan share the launch, one per
+// blockIdx.z (the rollout's two encoders, rollout.cu).
 template <typename Kernel, typename Args>
-cudaError_t launch_chain(Kernel kernel, const ChainPlan& p, Args args, cudaStream_t s) {
+cudaError_t launch_chain(Kernel kernel, const ChainPlan& p, Args args, cudaStream_t s,
+                         int chains = 1) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)p.smem);
   if (err != cudaSuccess) return err;
   void* argv[] = {&args};
-  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(p.grid_x, p.row_groups),
+  return cudaLaunchCooperativeKernel((const void*)kernel, dim3(p.grid_x, p.row_groups, chains),
                                      dim3(CHAIN_THREADS), argv, (size_t)p.smem, s);
 }
 

@@ -131,7 +131,8 @@ struct ChainBwdArgs {
   const W* wh;          // [H, 4H]
   float* dg;            // [T n, 4H] gate gradients
   __nv_bfloat16* dg16;  // the same rounded to bf16, and rnd(h) entering
-  __nv_bfloat16* h16;   //   each step [T n, H] (bf16 weights only)
+  __nv_bfloat16* h16;   //   each step [T n, H] (bf16 weights only; the
+                        //   kernel writes h16 unless its caller already has)
   float* dh;            // [n, H] dh0 on return
   float* dc;            // [n, H] zero on entry, dc0 on return
 };
@@ -141,7 +142,9 @@ struct CellTape {
   float i, f, g, o, c_new, c_prev, dh_up, dc, h;
 };
 
-template <typename W>
+// kH16: the recurrence writes rnd(h) into h16 (the chain's own backward);
+// the A2C rollout's backward has written it before (rollout.cu).
+template <typename W, bool kH16>
 __device__ __forceinline__ CellTape lstm_cell_tape(const ChainBwdArgs<W>& a, int t, int row,
                                                    int j) {
   const int H = a.H;
@@ -155,14 +158,14 @@ __device__ __forceinline__ CellTape lstm_cell_tape(const ChainBwdArgs<W>& a, int
           ld_early_nc(a.cbuf + t * NH + o),
           ld_early_nc(a.dhs + (size_t)row * a.dhs_row + (size_t)t * a.dhs_step + j),
           ld_early(a.dc + o),
-          kIsBf16<W> ? ld_early_nc(a.hbuf + t * NH + o) : 0.f};
+          kIsBf16<W> && kH16 ? ld_early_nc(a.hbuf + t * NH + o) : 0.f};
 }
 
 // The gate gradients of step t for this thread's cells (unit j of rows
 // row0 + tid / U + i ROWS) from their tape and dh = carry + upstream, as the
 // TPU kernel's _bwd_kernel forms them; carries dc. All cells' arithmetic
 // first, then the stores of the cells that lie inside.
-template <typename W, int U, int CELLS>
+template <typename W, int U, int CELLS, bool kH16>
 __device__ __forceinline__ void lstm_cells_bwd(const ChainBwdArgs<W>& a,
                                                const CellTape (&tp)[CELLS],
                                                const float (&carry)[CELLS], int t, int row0,
@@ -197,20 +200,22 @@ __device__ __forceinline__ void lstm_cells_bwd(const ChainBwdArgs<W>& a,
       __nv_bfloat16* dq = a.dg16 + r * G + j;
 #pragma unroll
       for (int g = 0; g < 4; ++g) dq[g * H] = __float2bfloat16_rn(d[q][g]);
-      a.h16[r * H + j] = __float2bfloat16_rn(tp[q].h);
+      if constexpr (kH16) a.h16[r * H + j] = __float2bfloat16_rn(tp[q].h);
     }
     a.dc[(size_t)row * H + j] = dcn[q];
   }
 }
 
-template <typename W, int U, bool kStream>
-__global__ void __launch_bounds__(CHAIN_THREADS, 1) lstm_bwd_kernel(ChainBwdArgs<W> a) {
+// The backward recurrence of one chain on this block's slices and row tiles
+// (the body of lstm_bwd_kernel, and of the rollout's kernel that runs both
+// encoders' chains in one launch, rollout.cu).
+template <typename W, int U, bool kStream, bool kH16>
+__device__ __forceinline__ void lstm_bwd_steps(const ChainBwdArgs<W>& a, unsigned char* smem) {
   using Tl = ChainTile<W, true, U, 4, kStream>;
   using S = ChainSmem<Tl>;
   constexpr int ROWS = CHAIN_THREADS / U, CELLS = CHAIN_BR / ROWS;
-  extern __shared__ __align__(16) unsigned char chain_bwd_smem[];
   const int H = a.H, G = 4 * H, n = a.n, tid = threadIdx.x, u = tid % U;
-  const S sm(chain_bwd_smem, G);
+  const S sm(smem, G);
   const int slices = (H + U - 1) / U;
   if constexpr (!kStream) chain_load_weights<Tl>(sm, a.wh, H, blockIdx.x * U);
   const int tiles = (n + CHAIN_BR - 1) / CHAIN_BR;
@@ -224,7 +229,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) lstm_bwd_kernel(ChainBwdArgs
   auto load_tape = [&](CellTape (&tp)[CELLS], int t, int row0, int jc) {
 #pragma unroll
     for (int i = 0; i < CELLS; ++i)
-      tp[i] = lstm_cell_tape(a, t, min(row0 + tid / U + i * ROWS, n - 1), jc);
+      tp[i] = lstm_cell_tape<W, kH16>(a, t, min(row0 + tid / U + i * ROWS, n - 1), jc);
   };
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   // the last step has no carry
@@ -234,7 +239,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) lstm_bwd_kernel(ChainBwdArgs
       CellTape tape[CELLS];
       float zero[CELLS] = {};
       load_tape(tape, a.T - 1, rt * CHAIN_BR, min(j, H - 1));
-      lstm_cells_bwd<W, U>(a, tape, zero, a.T - 1, rt * CHAIN_BR, j);
+      lstm_cells_bwd<W, U, CELLS, kH16>(a, tape, zero, a.T - 1, rt * CHAIN_BR, j);
     }
   }
   // step t: the carry rnd(dg_t) @ wh^T of this slice's units feeds the gate
@@ -253,7 +258,7 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) lstm_bwd_kernel(ChainBwdArgs
 #pragma unroll
         for (int i = 0; i < CELLS; ++i) carry[i] = sm.Cs[(tid / U + i * ROWS) * S::CLD + u];
         if (t > 0) {
-          lstm_cells_bwd<W, U>(a, tape, carry, t - 1, row0, j);
+          lstm_cells_bwd<W, U, CELLS, kH16>(a, tape, carry, t - 1, row0, j);
         } else if (j < H) {
 #pragma unroll
           for (int i = 0; i < CELLS; ++i) {
@@ -265,6 +270,12 @@ __global__ void __launch_bounds__(CHAIN_THREADS, 1) lstm_bwd_kernel(ChainBwdArgs
       }
     }
   }
+}
+
+template <typename W, int U, bool kStream>
+__global__ void __launch_bounds__(CHAIN_THREADS, 1) lstm_bwd_kernel(ChainBwdArgs<W> a) {
+  extern __shared__ __align__(16) unsigned char chain_bwd_smem[];
+  lstm_bwd_steps<W, U, kStream, true>(a, chain_bwd_smem);
 }
 
 template <typename W>
@@ -343,17 +354,12 @@ int lstm_bwd(int n, int T, int E, int H, const int* tok, const float* dhs, long 
 
 }  // namespace
 
-// lstm_bwd for each weight type, compiled once (lstm_chain_bwd.cu) for the
-// chain's entry point and the A2C rollout (rollout.cu) alike.
-int lstm_chain_backward(int n, int T, int E, int H, const int* tok, const float* dhs,
-                        long dhs_row, long dhs_step, const float* hbuf, const float* cbuf,
-                        const float* gates, const __nv_bfloat16* emb,
-                        const __nv_bfloat16* w, float* dg, __nv_bfloat16* dg16,
-                        __nv_bfloat16* h16, float* dh, float* dc, float* part, float* dw,
-                        float* db, float* dx, cudaStream_t s);
+// lstm_bwd for float32 weights, compiled once (lstm_chain_bwd.cu) for the A2C
+// rollout's float32 backward (rollout.cu); bf16 weights run the rollout's
+// recurrences as one launch of both chains there.
 int lstm_chain_backward(int n, int T, int E, int H, const int* tok, const float* dhs,
                         long dhs_row, long dhs_step, const float* hbuf, const float* cbuf,
                         const float* gates, const float* emb, const float* w, float* dg,
-                        __nv_bfloat16* dg16, __nv_bfloat16* h16, float* dh, float* dc,
-                        float* part, float* dw, float* db, float* dx, cudaStream_t s);
+                        float* dh, float* dc, float* part, float* dw, float* db, float* dx,
+                        cudaStream_t s);
 }  // namespace icrl

@@ -1,29 +1,19 @@
 // The teacher-forced LSTM chain's backward: lstm_chain.cu's note describes
 // the chain. This file instantiates the backward's kernels once, for its C
-// entry point and for the A2C rollout (rollout.cu, through
-// lstm_chain_backward), apart from the forward's, so the two compile in
-// parallel.
+// entry point and for the A2C rollout's float32 backward (rollout.cu,
+// through lstm_chain_backward), apart from the forward's, so the two compile
+// in parallel.
 #include "lstm_chain.cuh"
 
 namespace icrl {
 
 int lstm_chain_backward(int n, int T, int E, int H, const int* tok, const float* dhs,
                         long dhs_row, long dhs_step, const float* hbuf, const float* cbuf,
-                        const float* gates, const __nv_bfloat16* emb,
-                        const __nv_bfloat16* w, float* dg, __nv_bfloat16* dg16,
-                        __nv_bfloat16* h16, float* dh, float* dc, float* part, float* dw,
-                        float* db, float* dx, cudaStream_t s) {
-  return lstm_bwd(n, T, E, H, tok, dhs, dhs_row, dhs_step, hbuf, cbuf, gates, emb, w, dg, dg16,
-                  h16, dh, dc, part, dw, db, dx, s);
-}
-
-int lstm_chain_backward(int n, int T, int E, int H, const int* tok, const float* dhs,
-                        long dhs_row, long dhs_step, const float* hbuf, const float* cbuf,
                         const float* gates, const float* emb, const float* w, float* dg,
-                        __nv_bfloat16* dg16, __nv_bfloat16* h16, float* dh, float* dc,
-                        float* part, float* dw, float* db, float* dx, cudaStream_t s) {
-  return lstm_bwd(n, T, E, H, tok, dhs, dhs_row, dhs_step, hbuf, cbuf, gates, emb, w, dg, dg16,
-                  h16, dh, dc, part, dw, db, dx, s);
+                        float* dh, float* dc, float* part, float* dw, float* db, float* dx,
+                        cudaStream_t s) {
+  return lstm_bwd(n, T, E, H, tok, dhs, dhs_row, dhs_step, hbuf, cbuf, gates, emb, w, dg,
+                  (__nv_bfloat16*)nullptr, (__nv_bfloat16*)nullptr, dh, dc, part, dw, db, dx, s);
 }
 
 }  // namespace icrl

@@ -1,38 +1,41 @@
 // The A2C rollout's backward on Hopper.
 //
 // Replaces the TPU kernels image_captioning_through_rl_tpu/ops/pallas_rollout.py
-// _policy_bwd_kernel and _value_bwd_kernel under the custom VJP of _make_core
-// (fused_rollout). The forward (_rollout_fwd_kernel) is rollout_fwd.cu: one
-// persistent cooperative launch; its note says what each step computes, where
-// it rounds and what bounds it now. It leaves a float32 tape of S steps over
-// n rows: h and c entering every step, the post-activation gates of the S - 1
-// advances, and v1.
+// _policy_bwd_kernel and _value_bwd_kernel (_policy_bwd_pallas :537 and
+// _value_bwd_pallas :603) under the custom VJP of _make_core (fused_rollout).
+// The forward (_rollout_fwd_kernel) is rollout_fwd.cu: one persistent
+// cooperative launch; its note says what each step computes, where it rounds
+// and what bounds it. It leaves a float32 tape of S steps over n rows (R = S n
+// rows, step-major): h and c entering every step, the post-activation gates
+// of the S - 1 advances, and v1.
 //
-// The backward: only the recurrences are sequential, and the heads' backward
-// needs the tape and the cotangents, not the reverse carry. So both heads run
-// first, once over all S N rows:
+// What the backward computes. Only the recurrences are sequential, and the
+// heads' backward needs the tape and the cotangents, not the reverse carry.
+// So both heads run first, once over all R rows:
 //   policy: logits recomputed from the tape, dlogits = dlogp (onehot -
 //     softmax), dhw = rnd(h_p)^T rnd(dlogits), dhb = column sums, dh_head =
-//     rnd(dlogits) @ rnd(hw)^T. The recomputed logits are the tile product's
+//     rnd(dlogits) @ rnd(hw)^T. The recomputed logits are this product's
 //     sums, the forward's are its mma.sync slices': they may differ in the
 //     last bits, and with them the softmax, so the backward on the forward's
 //     tape is held to the chains' bound (CHAIN_TOL), as the TPU kernel's
 //     recomputation would be;
 //   value: dv1 = rnd(dval) rnd(w2)^T, dw2 = rnd(v1)^T rnd(dval), db2,
-//     dw1 = rnd([feats; h_v])^T rnd(dv1), db1, dfh = rnd(dv1) @ rnd(w1)^T,
-//     split into dfeat (summed over the steps) and dh_head.
+//     dw1 = rnd([feats; h_v])^T rnd(dv1), db1, [dfh, dh_head] =
+//     rnd(dv1) @ rnd(w1)^T, the feature half summed over the steps (last
+//     step first, the TPU kernel's reverse-time order) into dfeat.
 // Then each encoder's recurrence is the teacher-forced chain's backward
-// (lstm_chain_backward, lstm_chain_bwd.cu) over the S - 1 advances: the
-// chain's step t output h_p[t + 1] feeds the head at step t + 1, so its
-// upstream gradient is dh_head[t + 1], and the cotangent of the start state
-// is the chain's dh0 plus dh_head[0]. The rounding points of the TPU kernel's _cell_bwd and _outer
+// (lstm_chain.cuh) over the S - 1 advances: the chain's step t output h[t + 1]
+// feeds the head at step t + 1, so its upstream gradient is dh_head[t + 1],
+// and the cotangent of the start state is the chain's dh0 plus dh_head[0].
+// The rounding points of the TPU kernel's _cell_bwd and _outer
 // (pallas_rollout.py:324-373) are the chain's, line by line: the gate
-// gradients are formed in float32 from the taped gates and c (lstm_cell_bwd:
-// do, dct, di, df, dg, dc_prev as in _cell_bwd), cast to the weight
-// type before dh_prev = rnd(dg) @ rnd(wh)^T and dx = rnd(dg) @ rnd(wi)^T
-// (_cell_bwd's dxh), and before d[wi; wh] = rnd([x; h])^T rnd(dg) (_outer);
-// db sums them unrounded; the carried dh adds the head's dh as the TPU kernel
-// adds dxh_h + dh_head.
+// gradients are formed in float32 from the taped gates and c, cast to the
+// weight type before dh_prev = rnd(dg) @ rnd(wh)^T and dx = rnd(dg) @
+// rnd(wi)^T, and before d[wi; wh] = rnd([x; h])^T rnd(dg); db sums them
+// unrounded; the carried dh adds the head's dh as the TPU kernel adds
+// dxh_h + dh_head. Every product rounds its operands (h_p, dlogits, dval,
+// [feats; h_v], dv1, dg) to the weight type and sums in float32; the bias
+// sums dhb, db1, db2 and db are of unrounded float32 values.
 //
 // What differs from the TPU kernel in form: the vocabulary is padded to a
 // multiple of 8 (zero head columns no reduction reads), not to 1024 with a
@@ -41,11 +44,49 @@
 // padding. The gate tape holds the S - 1 advances only: the chain backward
 // reads no last-step row, so none needs the TPU kernel's defined zeros.
 //
-// What bounds it: at N = 512, COCO width, ~180 GFLOP; the two recurrences are
-// the chain's persistent kernel and its large products run on wgmma
-// (lstm_chain.cuh); the heads' products still run on the 64 x 64 tile of
-// common.cuh (launch_view), far from the tensor-core peak. PERF.md holds the
-// times beside the bounds.
+// bf16 weights (every trainer) run one C call of ten launches, whatever S:
+//   1. prep (one pass over the [R, H] tape): rnd(h_p) and rnd(h_v) in bf16
+//      (the A operands of the heads' products and of d[wi; wh], whose rows
+//      below (S - 1) n the chain would otherwise write again), rnd(dv1) in
+//      bf16, the column sums of dw2 and db1 and the sum db2 in fixed-order
+//      row parts, rnd(feats) in bf16, and the chains' dc zeroed;
+//   2. logits = rnd(h_p) @ hw + hb on wgmma (wgmma.cuh's group kernel, the
+//      bias in its epilogue);
+//   3. the softmax gradient, in place, with rnd(dlogits) in bf16 beside it;
+//   4. dhw and dw1 on wgmma in one launch, both operands MN-major as they
+//      lie (rnd([feats[r mod n]; h_v]) read through SplitRows, no gathered
+//      copy). Their depth is K = R (8192 at N = 512) against only 32 output
+//      tiles each, so the plan (rollout_bwd_plan, mirrored by
+//      ops/fused_rollout.rollout_bwd_plan and checked here) cuts K into P
+//      parts, enough to fill the card (P = 2 at COCO width: 128 blocks);
+//      part p writes its own float32 slice, and the last launch adds the
+//      parts in the order p = 0, 1, ...: no float atomics, so two calls give
+//      the same bits;
+//   5. dh_head = rnd(dlogits) @ rnd(hw)^T and [dfh, dh_head_v] = rnd(dv1) @
+//      rnd(w1)^T (one product of width F + H) in one launch, K-major;
+//   6. both encoders' recurrences in one cooperative launch (the pair
+//      plan: chain_plan at half the SMs for each chain, blockIdx.z the
+//      chain; at COCO width 16 slices x 4 row groups each, two row tiles a
+//      block a step); the two chains do not depend on each other, and each
+//      alone is bound by the latency of its step (a product from L2, the
+//      cell, a grid barrier), not by the card's width;
+//   7. both chains' d[wi; wh] = rnd([x; h])^T rnd(dg) as one batched wgmma
+//      launch (same N = 4H, K = (S - 1) n), and 8. both dx = rnd(dg) @
+//      rnd(wi)^T as another;
+//   9. the column sums of dlogits and of both chains' dg in fixed-order row
+//      parts, and 10. one pass that adds every set of parts in order (the
+//      split-K slices, the column sums), sums dfeat over the steps and adds
+//      dh_head[0] to each chain's dh0.
+// Float32 weights (the tests' path) keep the two heads on the CUDA-core tile
+// product of common.cuh and each chain's own backward in turn
+// (lstm_chain_backward).
+//
+// What bounds it: at N = 512, COCO width, ~171 GFLOP (0.17 ms on the tensor
+// cores). The heads' products are ~43 GFLOP on wgmma.cuh's tile, which L2
+// caps near 350 TFLOP/s (~0.12 ms); the recurrences are latency-bound steps
+// (each chain ~15 us a step alone, PERF.md), run side by side here; the
+// rest moves ~0.4 GB (the tape, the float32 logits and gate gradients, their
+// bf16 copies). PERF.md holds the times beside the bounds.
 #include "lstm_chain.cuh"
 
 namespace icrl {
@@ -81,11 +122,14 @@ __device__ __forceinline__ float block_max(float v, float* sh) {
 
 // In place, one block per row of the [R, ldl] logits: dlogits = dlogp (onehot
 // - softmax) on the first V columns (softmax = exp(l - max) / sum, as the TPU
-// kernel forms it), zeros on the padding columns.
+// kernel forms it), zeros on the padding columns; and, when l16 is not null,
+// rnd(dlogits) in bf16 beside them (the products' operand; dhb sums the
+// float32 values).
 __global__ void __launch_bounds__(NT) softmax_grad_rows_kernel(int V, int ldl,
                                                                float* __restrict__ logits,
                                                                const int* __restrict__ act,
-                                                               const float* __restrict__ dlogp) {
+                                                               const float* __restrict__ dlogp,
+                                                               __nv_bfloat16* __restrict__ l16) {
   __shared__ float sh[NT / 32];
   const int r = blockIdx.x;
   float* l = logits + (size_t)r * ldl;
@@ -97,24 +141,28 @@ __global__ void __launch_bounds__(NT) softmax_grad_rows_kernel(int V, int ldl,
   se = block_sum(se, sh);
   const int a = act[r];
   const float d = dlogp[r];
-  for (int c = threadIdx.x; c < ldl; c += NT)
-    l[c] = c < V ? d * ((c == a ? 1.f : 0.f) - expf(l[c] - m) / se) : 0.f;
+  __nv_bfloat16* l2 = l16 ? l16 + (size_t)r * ldl : nullptr;
+  for (int c = threadIdx.x; c < ldl; c += NT) {
+    const float v = c < V ? d * ((c == a ? 1.f : 0.f) - expf(l[c] - m) / se) : 0.f;
+    l[c] = v;
+    if (l2) l2[c] = __float2bfloat16_rn(v);
+  }
 }
 
-// Elementwise over [R, H]: dv1 = rnd(dval) rnd(w2), tmp = rnd(v1) rnd(dval)
-// (its column sums are dw2), and ridx[r] = r % n, the feature row of
-// tape row r.
-template <typename W>
+// ---- Float32 weights: the heads on the CUDA-core tile, the chains in turn ----
+
+// Elementwise over [R, H]: dv1 = dval w2, tmp = v1 dval (its column sums are
+// dw2), and ridx[r] = r % n, the feature row of tape row r.
 __global__ void value_grad_kernel(int R, int H, int n, const float* __restrict__ dval,
-                                  const float* __restrict__ v1, const W* __restrict__ w2,
+                                  const float* __restrict__ v1, const float* __restrict__ w2,
                                   float* __restrict__ dv1, float* __restrict__ tmp,
                                   int* __restrict__ ridx) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (size_t)R * H) return;
   const int r = (int)(idx / H), j = (int)(idx % H);
-  const float d = rnd<W>(dval[r]);
-  dv1[idx] = d * ld(w2 + j);
-  tmp[idx] = rnd<W>(v1[idx]) * d;
+  const float d = dval[r];
+  dv1[idx] = d * w2[j];
+  tmp[idx] = v1[idx] * d;
   if (j == 0) ridx[r] = r % n;
 }
 
@@ -134,60 +182,444 @@ __global__ void add_kernel(size_t size, float* __restrict__ a, const float* __re
   if (idx < size) a[idx] += b[idx];
 }
 
-template <typename W>
-int rollout_policy_bwd(int n, int S, int E, int H, int V, int Vp, const int* tok, const int* act,
-                       const float* dlogp, const float* hp, const float* cp, const float* gp,
-                       const W* emb, const W* w, const W* hw, const float* hb, float* dlogits,
-                       float* part, float* dg, __nv_bfloat16* dg16, __nv_bfloat16* h16, float* dhw,
-                       float* dhb, float* dh_head, float* dh, float* dc, float* dw, float* db,
-                       float* dx, cudaStream_t s) {
-  const int R = S * n;
-  const size_t NH = (size_t)n * H;
-  ICRL_CHECK((launch_linear<W, float, true>(R, H, Vp, hp, hw, hb, dlogits, s)));
-  softmax_grad_rows_kernel<<<R, NT, 0, s>>>(V, Vp, dlogits, act, dlogp);
+// What the backward reads and writes (shapes in icrl_rollout_bwd's note).
+struct BwdIn {
+  int n, S, F, E, H, V, Vp;
+  const int *tok, *act;
+  const float *dlogp, *dval, *feats, *hp, *cp, *gp, *hv, *cv, *gv, *v1;
+  const void *p_emb, *p_w, *hw;
+  const float* hb;
+  const void *v_emb, *v_w, *w1, *w2;
+};
+
+struct BwdOut {
+  float *dfeat, *dph1, *dpc1, *dvh1, *dvc1, *dpw, *dpb, *dhw, *dhb, *dvw, *dvb, *dw1, *db1,
+      *dw2, *db2, *dxp, *dxv;
+};
+
+// The float32 path's scratch.
+struct F32Layout {
+  float *dlogits, *part, *dg, *tmp, *dv1, *dfh, *dh_head_p, *dh_head_v;
+  int* ridx;
+};
+
+F32Layout f32_layout(float* ws, int n, int S, int F, int H, int Vp, size_t* used = nullptr) {
+  Carver cv{ws};
+  const size_t R = (size_t)S * n, RH = R * H;
+  F32Layout l;
+  l.dlogits = cv.take(R * Vp);
+  l.part = cv.take((size_t)COLSUM_PARTS * std::max(Vp, 4 * H));
+  l.dg = cv.take((size_t)std::max(S - 1, 1) * n * 4 * H);
+  l.tmp = cv.take(RH);
+  l.dv1 = cv.take(RH);
+  l.dfh = cv.take(R * F);
+  l.dh_head_p = cv.take(RH);
+  l.dh_head_v = cv.take(RH);
+  l.ridx = cv.take<int>(R);
+  if (used) *used = cv.used;
+  return l;
+}
+
+int rollout_bwd_f32(const BwdIn& in, const BwdOut& o, const F32Layout& L, cudaStream_t s) {
+  const int n = in.n, S = in.S, F = in.F, E = in.E, H = in.H, G = 4 * H, R = S * n;
+  const size_t NH = (size_t)n * H, RH = (size_t)R * H;
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  // the chains' dc enter as zeros; with S = 1 no chain runs
+  ICRL_CHECK(cudaMemsetAsync(o.dpc1, 0, sizeof(float) * NH, s));
+  ICRL_CHECK(cudaMemsetAsync(o.dvc1, 0, sizeof(float) * NH, s));
+  if (S == 1) {
+    const size_t WG = (size_t)(E + H) * G;
+    ICRL_CHECK(cudaMemsetAsync(o.dph1, 0, sizeof(float) * NH, s));
+    ICRL_CHECK(cudaMemsetAsync(o.dvh1, 0, sizeof(float) * NH, s));
+    ICRL_CHECK(cudaMemsetAsync(o.dpw, 0, sizeof(float) * WG, s));
+    ICRL_CHECK(cudaMemsetAsync(o.dvw, 0, sizeof(float) * WG, s));
+    ICRL_CHECK(cudaMemsetAsync(o.dpb, 0, sizeof(float) * G, s));
+    ICRL_CHECK(cudaMemsetAsync(o.dvb, 0, sizeof(float) * G, s));
+  }
+  // policy: logits, dlogits, dhw [H, V], dhb, dh_head = dlogits @ hw^T
+  ICRL_CHECK((launch_linear<float, float, true>(R, H, in.Vp, in.hp, f(in.hw), in.hb, L.dlogits,
+                                                s)));
+  softmax_grad_rows_kernel<<<R, NT, 0, s>>>(in.V, in.Vp, L.dlogits, in.act, in.dlogp, nullptr);
   ICRL_CHECK(cudaGetLastError());
-  // dhw = rnd(h_p)^T rnd(dlogits) [H, V]; dhb; dh_head = rnd(dlogits) @ rnd(hw)^T [R, H]
-  ICRL_CHECK((launch_view<W, true, false>(H, V, R, hp, H, nullptr, dlogits, Vp, false, dhw, s)));
-  ICRL_CHECK(launch_colsum(R, Vp, dlogits, part, dhb, s));
-  ICRL_CHECK((launch_view<W, false, true>(R, H, Vp, dlogits, Vp, nullptr, hw, Vp, false, dh_head,
-                                          s)));
+  ICRL_CHECK((launch_view<float, true, false>(H, in.V, R, in.hp, H, nullptr, L.dlogits, in.Vp,
+                                              false, o.dhw, s)));
+  ICRL_CHECK(launch_colsum(R, in.Vp, L.dlogits, L.part, o.dhb, s));
+  ICRL_CHECK((launch_view<float, false, true>(R, H, in.Vp, L.dlogits, in.Vp, nullptr, f(in.hw),
+                                              in.Vp, false, L.dh_head_p, s)));
   if (S > 1)
-    ICRL_CHECK(lstm_chain_backward(n, S - 1, E, H, tok, dh_head + NH, H, (long)NH, hp, cp, gp,
-                                   emb, w, dg, dg16, h16, dh, dc, part, dw, db, dx, s));
-  add_kernel<<<cdiv(NH, 256), 256, 0, s>>>(NH, dh, dh_head);
+    ICRL_CHECK(lstm_chain_backward(n, S - 1, E, H, in.tok, L.dh_head_p + NH, H, (long)NH, in.hp,
+                                   in.cp, in.gp, f(in.p_emb), f(in.p_w), L.dg, o.dph1, o.dpc1,
+                                   L.part, o.dpw, o.dpb, o.dxp, s));
+  add_kernel<<<cdiv(NH, 256), 256, 0, s>>>(NH, o.dph1, L.dh_head_p);
+  ICRL_CHECK(cudaGetLastError());
+  // value: dv1, dw2, db2, dw1 = [feats; h_v]^T dv1 (the feature rows through
+  // ridx), db1, dfh = dv1 @ w1^T as its feature half and its h half, dfeat
+  value_grad_kernel<<<cdiv(RH, 256), 256, 0, s>>>(R, H, n, in.dval, in.v1, f(in.w2), L.dv1,
+                                                  L.tmp, L.ridx);
+  ICRL_CHECK(cudaGetLastError());
+  ICRL_CHECK(launch_colsum(R, H, L.tmp, L.part, o.dw2, s));
+  ICRL_CHECK(launch_colsum(R, 1, in.dval, L.part, o.db2, s));
+  ICRL_CHECK((launch_view<float, true, false>(F, H, R, in.feats, F, L.ridx, L.dv1, H, false,
+                                              o.dw1, s)));
+  ICRL_CHECK((launch_view<float, true, false>(H, H, R, in.hv, H, nullptr, L.dv1, H, false,
+                                              o.dw1 + (size_t)F * H, s)));
+  ICRL_CHECK(launch_colsum(R, H, L.dv1, L.part, o.db1, s));
+  ICRL_CHECK((launch_view<float, false, true>(R, F, H, L.dv1, H, nullptr, f(in.w1), H, false,
+                                              L.dfh, s)));
+  ICRL_CHECK((launch_view<float, false, true>(R, H, H, L.dv1, H, nullptr,
+                                              f(in.w1) + (size_t)F * H, H, false, L.dh_head_v,
+                                              s)));
+  step_sum_kernel<<<cdiv((size_t)n * F, 256), 256, 0, s>>>(n, S, F, L.dfh, o.dfeat);
+  ICRL_CHECK(cudaGetLastError());
+  if (S > 1)
+    ICRL_CHECK(lstm_chain_backward(n, S - 1, E, H, in.tok, L.dh_head_v + NH, H, (long)NH, in.hv,
+                                   in.cv, in.gv, f(in.v_emb), f(in.v_w), L.dg, o.dvh1, o.dvc1,
+                                   L.part, o.dvw, o.dvb, o.dxv, s));
+  add_kernel<<<cdiv(NH, 256), 256, 0, s>>>(NH, o.dvh1, L.dh_head_v);
   return (int)cudaGetLastError();
 }
 
-template <typename W>
-int rollout_value_bwd(int n, int S, int F, int E, int H, const int* tok, const float* dval,
-                      const float* feats, const float* hv, const float* cv, const float* gv,
-                      const float* v1, const W* emb, const W* w, const W* w1, const W* w2,
-                      int* ridx, float* tmp, float* dv1, float* part, float* dg,
-                      __nv_bfloat16* dg16, __nv_bfloat16* h16, float* dfh, float* dw2, float* db2,
-                      float* dw1, float* db1, float* dfeat,
-                      float* dh_head, float* dh, float* dc, float* dw, float* db, float* dx,
-                      cudaStream_t s) {
+// ---- bf16 weights: the heads on wgmma, both recurrences in one launch ----
+
+using Bf = __nv_bfloat16;
+
+// Row parts of the prep pass's column sums (dw2, db1, db2), and the least
+// depth of a split-K part in 64-deep slices.
+constexpr int PREP_PARTS = 32, SPLITK_MIN_SLICES = 4;
+
+// The plan; ops/fused_rollout.py:rollout_bwd_plan computes the same. Each
+// product of depth K = R = S n (dhw, dw1) is cut into parts so that the two
+// products' tiles times their parts fill the card's SMs once (a part keeps
+// at least SPLITK_MIN_SLICES slices); both recurrences share one launch,
+// each planned on half the SMs.
+struct RolloutBwdPlan {
+  int parts_dhw, parts_dw1;
+  ChainPlan chain;
+};
+
+inline int splitk_parts(int tiles, int K, int sms) {
+  const int nk = cdiv(K, wg::BK);
+  return std::max(1, std::min(sms / std::max(tiles, 1), nk / SPLITK_MIN_SLICES));
+}
+
+RolloutBwdPlan rollout_bwd_plan(int n, int S, int F, int H, int Vp, int sms, int pair) {
   const int R = S * n;
-  const size_t NH = (size_t)n * H, RH = (size_t)R * H;
-  value_grad_kernel<W><<<cdiv(RH, 256), 256, 0, s>>>(R, H, n, dval, v1, w2, dv1, tmp, ridx);
+  const int tiles = cdiv(H, wg::BM) * cdiv(Vp, wg::BN) + cdiv(F + H, wg::BM) * cdiv(H, wg::BN);
+  return {splitk_parts(tiles, R, sms), splitk_parts(tiles, R, sms),
+          chain_plan<Bf, true, 4>(n, H, pair == 2 ? sms / 2 : sms)};
+}
+
+// The bf16 path's scratch.
+struct Bf16Layout {
+  float *logits, *dhw_part, *dw1_part, *dh_head, *dfh, *dg_p, *dg_v, *cpart, *ppart;
+  Bf *l16, *hp16, *hv16, *f16, *dv16, *dg16_p, *dg16_v;
+};
+
+Bf16Layout bf16_layout(float* ws, int n, int S, int F, int H, int Vp, int parts_dhw,
+                       int parts_dw1, size_t* used = nullptr) {
+  Carver cv{ws};
+  const size_t R = (size_t)S * n, RH = R * H, R1G = (size_t)(S - 1) * n * 4 * H;
+  Bf16Layout l;
+  l.logits = cv.take(R * Vp);
+  l.l16 = cv.take<Bf>(R * Vp);
+  l.hp16 = cv.take<Bf>(RH);
+  l.hv16 = cv.take<Bf>(RH);
+  l.f16 = cv.take<Bf>((size_t)n * F);
+  l.dv16 = cv.take<Bf>(RH);
+  l.dhw_part = cv.take((size_t)parts_dhw * H * Vp);
+  l.dw1_part = cv.take((size_t)parts_dw1 * (F + H) * H);
+  l.dh_head = cv.take(RH);
+  l.dfh = cv.take(R * (F + H));
+  l.dg_p = cv.take(R1G);
+  l.dg_v = cv.take(R1G);
+  l.dg16_p = cv.take<Bf>(R1G);
+  l.dg16_v = cv.take<Bf>(R1G);
+  l.cpart = cv.take((size_t)COLSUM_PARTS * (Vp + 8 * H));
+  l.ppart = cv.take((size_t)PREP_PARTS * (2 * H + 1));
+  if (used) *used = cv.used;
+  return l;
+}
+
+struct PrepArgs {
+  int n, R, F, H;
+  const float *hp, *hv, *v1, *dval, *feats;
+  const Bf* w2;
+  Bf *hp16, *hv16, *f16, *dv16;
+  float* part;  // [PREP_PARTS, 2H + 1]: dw2's column sums, db1's, db2
+  float *dc_p, *dc_v;
+};
+
+// Block (x, y): 32 columns (a lane each) of rows part y, 8 warps striding the
+// rows; the warps' sums then add in order. The rest of the grid's threads
+// cast the features and zero dc.
+__global__ void __launch_bounds__(NT) rollout_bwd_prep_kernel(PrepArgs a) {
+  __shared__ float sh[3][NT / 32][33];
+  const int lane = threadIdx.x % 32, g = threadIdx.x / 32, j = blockIdx.x * 32 + lane;
+  const int per = (a.R + PREP_PARTS - 1) / PREP_PARTS, r0 = blockIdx.y * per;
+  const int r1 = min(a.R, r0 + per);
+  const bool col = j < a.H, first = blockIdx.x == 0 && lane == 0;
+  const float w2 = col ? __bfloat162float(a.w2[j]) : 0.f;
+  float sdw2 = 0.f, sdb1 = 0.f, sdb2 = 0.f;
+  for (int r = r0 + g; r < r1; r += NT / 32) {
+    const float dv = a.dval[r];
+    if (col) {
+      const size_t o = (size_t)r * a.H + j;
+      a.hp16[o] = __float2bfloat16_rn(a.hp[o]);
+      a.hv16[o] = __float2bfloat16_rn(a.hv[o]);
+      const float d = rnd<Bf>(dv), x = d * w2;
+      a.dv16[o] = __float2bfloat16_rn(x);
+      sdb1 += x;
+      sdw2 += rnd<Bf>(a.v1[o]) * d;
+    }
+    if (first) sdb2 += dv;
+  }
+  sh[0][g][lane] = sdw2;
+  sh[1][g][lane] = sdb1;
+  sh[2][g][lane] = sdb2;
+  __syncthreads();
+  if (g == 0) {
+    float t0 = 0.f, t1 = 0.f, t2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < NT / 32; ++i) {
+      t0 += sh[0][i][lane];
+      t1 += sh[1][i][lane];
+      t2 += sh[2][i][lane];
+    }
+    float* p = a.part + (size_t)blockIdx.y * (2 * a.H + 1);
+    if (col) {
+      p[j] = t0;
+      p[a.H + j] = t1;
+    }
+    if (first) p[2 * a.H] = t2;
+  }
+  const size_t tid = ((size_t)blockIdx.y * gridDim.x + blockIdx.x) * NT + threadIdx.x;
+  const size_t stride = (size_t)gridDim.x * gridDim.y * NT;
+  for (size_t i = tid; i < (size_t)a.n * a.F; i += stride)
+    a.f16[i] = __float2bfloat16_rn(a.feats[i]);
+  for (size_t i = tid; i < (size_t)a.n * a.H; i += stride) {
+    a.dc_p[i] = 0.f;
+    a.dc_v[i] = 0.f;
+  }
+}
+
+// Column sums of three float32 arrays in one launch, as launch_colsum's first
+// pass: array z's 32-column blocks start at block first[z]; block (x, y) sums
+// rows part y of its 32 columns into part[y, off[z] + column].
+struct ColsumList {
+  const float* x[3];
+  int R[3], C[3], off[3], first[3];
+  float* part;
+  int ldp;
+};
+
+__global__ void __launch_bounds__(NT) colsum_parts_kernel(ColsumList l) {
+  __shared__ float sh[NT / 32][33];
+  int z = 0;
+#pragma unroll
+  for (int i = 1; i < 3; ++i)
+    if ((int)blockIdx.x >= l.first[i]) z = i;
+  const float* __restrict__ x = pick<3>(l.x, z);
+  const int R = pick<3>(l.R, z), C = pick<3>(l.C, z);
+  const int lane = threadIdx.x % 32, g = threadIdx.x / 32;
+  const int c = ((int)blockIdx.x - pick<3>(l.first, z)) * 32 + lane;
+  const int per = (R + COLSUM_PARTS - 1) / COLSUM_PARTS, r0 = blockIdx.y * per;
+  const int r1 = min(R, r0 + per);
+  float s = 0.f;
+  if (c < C)
+    for (int r = r0 + g; r < r1; r += NT / 32) s += x[(size_t)r * C + c];
+  sh[g][lane] = s;
+  __syncthreads();
+  if (g == 0 && c < C) {
+    float t = 0.f;
+#pragma unroll
+    for (int i = 0; i < NT / 32; ++i) t += sh[i][lane];
+    l.part[(size_t)blockIdx.y * l.ldp + pick<3>(l.off, z) + c] = t;
+  }
+}
+
+struct FinishArgs {
+  int n, S, F, H, V, Vp, parts_dhw, parts_dw1;
+  const float *dhw_part, *dw1_part, *cpart, *ppart, *dh_head, *dfh;
+  float *dhw, *dw1, *dhb, *db_p, *db_v, *dw2, *db1, *db2, *dfeat, *dph1, *dvh1;
+};
+
+constexpr int FINISH_BLOCKS = 128;
+
+// Every sum of parts, each in the order p = 0, 1, ...: blockIdx.y 0 dhw
+// [H, V] from its split-K slices [P, H, Vp], 1 dw1, 2 the column sums (dhb,
+// both db, dw2, db1, db2); 3 dfeat over the steps (last first) and dh0 +
+// dh_head[0] of each chain (dh_head[0] alone when no chain ran, S = 1).
+__global__ void __launch_bounds__(NT) rollout_bwd_finish_kernel(FinishArgs a) {
+  const size_t stride = (size_t)gridDim.x * NT, i0 = (size_t)blockIdx.x * NT + threadIdx.x;
+  const int H = a.H, FH = a.F + H, G = 4 * H;
+  if (blockIdx.y == 0) {
+    const size_t slice = (size_t)H * a.Vp;
+    for (size_t i = i0; i < (size_t)H * a.V; i += stride) {
+      const size_t o = i / a.V * a.Vp + i % a.V;
+      float t = 0.f;
+      for (int p = 0; p < a.parts_dhw; ++p) t += a.dhw_part[p * slice + o];
+      a.dhw[i] = t;
+    }
+  } else if (blockIdx.y == 1) {
+    const size_t slice = (size_t)FH * H;
+    for (size_t i = i0; i < slice; i += stride) {
+      float t = 0.f;
+      for (int p = 0; p < a.parts_dw1; ++p) t += a.dw1_part[p * slice + i];
+      a.dw1[i] = t;
+    }
+  } else if (blockIdx.y == 2) {
+    const int lc = a.Vp + 2 * G, lp = 2 * H + 1;
+    for (size_t i = i0; i < (size_t)(lc + lp); i += stride) {
+      float t = 0.f;
+      float* dst;
+      if (i < (size_t)lc) {
+        for (int p = 0; p < COLSUM_PARTS; ++p) t += a.cpart[(size_t)p * lc + i];
+        dst = i < (size_t)a.Vp ? a.dhb + i : i < (size_t)(a.Vp + G) ? a.db_p + i - a.Vp
+                                                                     : a.db_v + i - a.Vp - G;
+      } else {
+        const size_t k = i - lc;
+        for (int p = 0; p < PREP_PARTS; ++p) t += a.ppart[(size_t)p * lp + k];
+        dst = k < (size_t)H ? a.dw2 + k : k < (size_t)(2 * H) ? a.db1 + k - H : a.db2;
+      }
+      *dst = t;
+    }
+  } else {
+    const size_t NF = (size_t)a.n * a.F, NH = (size_t)a.n * H;
+    for (size_t i = i0; i < NF; i += stride) {
+      const size_t r = i / a.F, f = i % a.F;
+      float t = 0.f;
+      for (int s = a.S - 1; s >= 0; --s) t += a.dfh[((size_t)s * a.n + r) * FH + f];
+      a.dfeat[i] = t;
+    }
+    for (size_t i = i0; i < NH; i += stride) {
+      const size_t r = i / H, j = i % H;
+      const float cp = a.S > 1 ? a.dph1[i] : 0.f, cv = a.S > 1 ? a.dvh1[i] : 0.f;
+      a.dph1[i] = cp + a.dh_head[i];
+      a.dvh1[i] = cv + a.dfh[r * FH + a.F + j];
+    }
+  }
+}
+
+// Both encoders' backward recurrences in one cooperative launch: blockIdx.z
+// picks the chain, (x, y) its slice and row group as in lstm_bwd_kernel.
+// rnd(h) is already in each chain's h16 (the prep pass), so the recurrence
+// does not write it.
+template <typename W>
+struct ChainPair {
+  ChainBwdArgs<W> c[2];
+  int chains;  // TRIAL: 2 = both in one launch, 1 = c[0] alone
+};
+
+template <typename W, int U, bool kStream>
+__global__ void __launch_bounds__(CHAIN_THREADS, 1) lstm_bwd_pair_kernel(ChainPair<W> a) {
+  extern __shared__ __align__(16) unsigned char pair_smem[];
+  if (blockIdx.z)
+    lstm_bwd_steps<W, U, kStream, false>(a.c[1], pair_smem);
+  else
+    lstm_bwd_steps<W, U, kStream, false>(a.c[0], pair_smem);
+}
+
+template <typename W>
+struct LstmPairLaunch {
+  template <int U, bool kStream>
+  struct At {
+    static cudaError_t run(const ChainPlan& p, const ChainPair<W>& a, cudaStream_t s) {
+      return launch_chain(lstm_bwd_pair_kernel<W, U, kStream>, p, a, s, a.chains);
+    }
+  };
+};
+
+int rollout_bwd_bf16(const BwdIn& in, const BwdOut& o, const Bf16Layout& L,
+                     const RolloutBwdPlan& plan, int pair_chains, cudaStream_t s) {
+  const int n = in.n, S = in.S, F = in.F, E = in.E, H = in.H, Vp = in.Vp;
+  const int G = 4 * H, FH = F + H, R = S * n, R1 = (S - 1) * n;
+  auto b = [](const void* p) { return static_cast<const Bf*>(p); };
+  // 1. the bf16 operands, dw2 / db1 / db2's parts, dc = 0
+  rollout_bwd_prep_kernel<<<dim3(cdiv(H, 32), PREP_PARTS), NT, 0, s>>>(
+      PrepArgs{n, R, F, H, in.hp, in.hv, in.v1, in.dval, in.feats, b(in.w2), L.hp16, L.hv16,
+               L.f16, L.dv16, L.ppart, o.dpc1, o.dvc1});
   ICRL_CHECK(cudaGetLastError());
-  ICRL_CHECK(launch_colsum(R, H, tmp, part, dw2, s));
-  ICRL_CHECK(launch_colsum(R, 1, dval, part, db2, s));
-  // dw1 = rnd([feats; h_v])^T rnd(dv1): the feature rows through ridx
-  ICRL_CHECK((launch_view<W, true, false>(F, H, R, feats, F, ridx, dv1, H, false, dw1, s)));
-  ICRL_CHECK((launch_view<W, true, false>(H, H, R, hv, H, nullptr, dv1, H, false,
-                                          dw1 + (size_t)F * H, s)));
-  ICRL_CHECK(launch_colsum(R, H, dv1, part, db1, s));
-  // dfh = rnd(dv1) @ rnd(w1)^T, as its feature half and its h half
-  ICRL_CHECK((launch_view<W, false, true>(R, F, H, dv1, H, nullptr, w1, H, false, dfh, s)));
-  ICRL_CHECK((launch_view<W, false, true>(R, H, H, dv1, H, nullptr, w1 + (size_t)F * H, H, false,
-                                          dh_head, s)));
-  step_sum_kernel<<<cdiv((size_t)n * F, 256), 256, 0, s>>>(n, S, F, dfh, dfeat);
+  // 2. logits = rnd(h_p) @ hw + hb
+  ICRL_CHECK((launch_wgmma_group<false, true>(
+      WgmmaGroup<SplitRows, SplitRows, 1>{{R}, {Vp}, {H}, {1}, {},
+                                          {dense_rows(L.hp16, R, H, H)},
+                                          {dense_rows(b(in.hw), H, Vp, Vp)}, {L.logits}, {in.hb}},
+      s)));
+  // 3. dlogits in place, rnd(dlogits) in bf16
+  softmax_grad_rows_kernel<<<R, NT, 0, s>>>(in.V, Vp, L.logits, in.act, in.dlogp, L.l16);
   ICRL_CHECK(cudaGetLastError());
-  if (S > 1)
-    ICRL_CHECK(lstm_chain_backward(n, S - 1, E, H, tok, dh_head + NH, H, (long)NH, hv, cv, gv,
-                                   emb, w, dg, dg16, h16, dh, dc, part, dw, db, dx, s));
-  add_kernel<<<cdiv(NH, 256), 256, 0, s>>>(NH, dh, dh_head);
+  // 4. dhw = rnd(h_p)^T rnd(dlogits), dw1 = rnd([feats; h_v])^T rnd(dv1):
+  // split-K parts
+  ICRL_CHECK((launch_wgmma_group<true, true>(
+      WgmmaGroup<SplitRows, SplitRows, 2>{
+          {H, FH}, {Vp, H}, {R, R}, {plan.parts_dhw, plan.parts_dw1}, {},
+          {dense_rows(L.hp16, R, H, H), SplitRows{L.f16, L.hv16, R, FH, F, F, H, n}},
+          {dense_rows(L.l16, R, Vp, Vp), dense_rows(L.dv16, R, H, H)},
+          {L.dhw_part, L.dw1_part}, {nullptr, nullptr}},
+      s)));
+  // 5. dh_head = rnd(dlogits) @ rnd(hw)^T, [dfh, dh_head_v] = rnd(dv1) @ rnd(w1)^T
+  ICRL_CHECK((launch_wgmma_group<false, false>(
+      WgmmaGroup<SplitRows, SplitRows, 2>{
+          {R, R}, {H, FH}, {Vp, H}, {1, 1}, {},
+          {dense_rows(L.l16, R, Vp, Vp), dense_rows(L.dv16, R, H, H)},
+          {dense_rows(b(in.hw), H, Vp, Vp), dense_rows(b(in.w1), FH, H, H)},
+          {L.dh_head, L.dfh}, {nullptr, nullptr}},
+      s)));
+  if (S > 1) {
+    // 6. both recurrences: upstream dh_head[t + 1] of the policy, the h half
+    // of dfh of the value
+    const size_t NH = (size_t)n * H, NFH = (size_t)n * FH;
+    const ChainBwdArgs<Bf> cp{n, S - 1, H, plan.chain.row_groups, L.dh_head + NH, H, (long)NH,
+                              in.hp, in.cp, in.gp, b(in.p_w) + (size_t)E * G, L.dg_p, L.dg16_p,
+                              L.hp16, o.dph1, o.dpc1};
+    const ChainBwdArgs<Bf> cv{n, S - 1, H, plan.chain.row_groups, L.dfh + NFH + F, FH, (long)NFH,
+                              in.hv, in.cv, in.gv, b(in.v_w) + (size_t)E * G, L.dg_v, L.dg16_v,
+                              L.hv16, o.dvh1, o.dvc1};
+    if (pair_chains == 2) {
+      ICRL_CHECK((launch_planned<Bf, true, 4, LstmPairLaunch<Bf>::template At>(
+          plan.chain, ChainPair<Bf>{{cp, cv}, 2}, s)));
+    } else {  // TRIAL: in turn, each on the whole card
+      ICRL_CHECK((launch_planned<Bf, true, 4, LstmPairLaunch<Bf>::template At>(
+          plan.chain, ChainPair<Bf>{{cp, cp}, 1}, s)));
+      ICRL_CHECK((launch_planned<Bf, true, 4, LstmPairLaunch<Bf>::template At>(
+          plan.chain, ChainPair<Bf>{{cv, cv}, 1}, s)));
+    }
+    // 7. d[wi; wh] = rnd([x; h_prev])^T rnd(dg) of both chains
+    ICRL_CHECK((launch_wgmma_batch<true>(
+        G, R1,
+        WgmmaProblems<TokenStateRows, DenseRows, 2>{
+            {E + H, E + H},
+            {TokenStateRows{b(in.p_emb), in.tok, L.hp16, R1, E, H},
+             TokenStateRows{b(in.v_emb), in.tok, L.hv16, R1, E, H}},
+            {DenseRows{L.dg16_p, R1, G, G}, DenseRows{L.dg16_v, R1, G, G}},
+            {o.dpw, o.dvw},
+            {nullptr, nullptr}},
+        s)));
+    // 8. dx = rnd(dg) @ rnd(wi)^T of both chains
+    ICRL_CHECK((launch_wgmma_batch<false>(
+        E, G,
+        WgmmaProblems<DenseRows, DenseRows, 2>{
+            {R1, R1},
+            {DenseRows{L.dg16_p, R1, G, G}, DenseRows{L.dg16_v, R1, G, G}},
+            {DenseRows{b(in.p_w), E, G, G}, DenseRows{b(in.v_w), E, G, G}},
+            {o.dxp, o.dxv},
+            {nullptr, nullptr}},
+        s)));
+  } else {
+    ICRL_CHECK(cudaMemsetAsync(o.dpw, 0, sizeof(float) * (E + H) * G, s));
+    ICRL_CHECK(cudaMemsetAsync(o.dvw, 0, sizeof(float) * (E + H) * G, s));
+  }
+  // 9. the column sums' parts: dhb over dlogits, db over each chain's dg
+  const int cb = cdiv(Vp, 32), gb = cdiv(G, 32);
+  colsum_parts_kernel<<<dim3(cb + 2 * gb, COLSUM_PARTS), NT, 0, s>>>(
+      ColsumList{{L.logits, L.dg_p, L.dg_v}, {R, R1, R1}, {Vp, G, G}, {0, Vp, Vp + G},
+                 {0, cb, cb + gb}, L.cpart, Vp + 2 * G});
+  ICRL_CHECK(cudaGetLastError());
+  // 10. every sum of parts, dfeat, dh0 + dh_head[0]
+  rollout_bwd_finish_kernel<<<dim3(FINISH_BLOCKS, 4), NT, 0, s>>>(
+      FinishArgs{n, S, F, H, in.V, Vp, plan.parts_dhw, plan.parts_dw1, L.dhw_part, L.dw1_part,
+                 L.cpart, L.ppart, L.dh_head, L.dfh, o.dhw, o.dw1, o.dhb, o.dpb, o.dvb, o.dw2,
+                 o.db1, o.db2, o.dfeat, o.dph1, o.dvh1});
   return (int)cudaGetLastError();
 }
 
@@ -196,54 +628,69 @@ int rollout_value_bwd(int n, int S, int F, int E, int H, const int* tok, const f
 
 extern "C" {
 
-// Policy backward. tok, act [S, n]; dlogp [S, n]; the tape hp, cp, gp; emb
-// [V, E], w = [wi; wh] [E + H, 4H] and hw [H, Vp] in the weight type; hb [Vp].
-// Scratch: dlogits [S n, Vp], part [16, max(Vp, 4H)], dg [(S - 1) n, 4H], and
-// for bf16 weights dg16 [(S - 1) n, 4H] and h16 [(S - 1) n, H] bf16.
-// Outputs: dhw [H, V], dhb [Vp], dh_head [S n, H], dh and dc [n, H] (zero on
-// entry; the start state's cotangents on return), dw [E + H, 4H], db [4H], dx
-// [(S - 1) n, E].
-int icrl_rollout_policy_bwd(int n, int S, int E, int H, int V, int Vp, int bf16, const int* tok,
-                            const int* act, const float* dlogp, const float* hp, const float* cp,
-                            const float* gp, const void* emb, const void* w, const void* hw,
-                            const float* hb, float* dlogits, float* part, float* dg, void* dg16,
-                            void* h16, float* dhw, float* dhb, float* dh_head, float* dh,
-                            float* dc, float* dw, float* db, float* dx, void* stream) {
-  using namespace icrl;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto run = [&](auto tag) {
-    using W = decltype(tag);
-    return rollout_policy_bwd<W>(n, S, E, H, V, Vp, tok, act, dlogp, hp, cp, gp, (const W*)emb,
-                                 (const W*)w, (const W*)hw, hb, dlogits, part, dg,
-                                 (__nv_bfloat16*)dg16, (__nv_bfloat16*)h16, dhw, dhb, dh_head, dh,
-                                 dc, dw, db, dx, s);
-  };
-  return bf16 ? run(__nv_bfloat16{}) : run(float{});
+// Float32 elements of the workspace icrl_rollout_bwd needs (parts_*: the
+// plan's; unused with float32 weights).
+size_t icrl_rollout_bwd_workspace_floats(int n, int S, int F, int H, int Vp, int bf16,
+                                         int parts_dhw, int parts_dw1) {
+  size_t used = 0;
+  if (bf16)
+    icrl::bf16_layout(nullptr, n, S, F, H, Vp, parts_dhw, parts_dw1, &used);
+  else
+    icrl::f32_layout(nullptr, n, S, F, H, Vp, &used);
+  return used;
 }
 
-// Value backward. tok [S, n]; dval [S, n]; feats [n, F]; the tape hv, cv, gv,
-// v1; emb, w as the policy's; w1 [F + H, H], w2 [H] in the weight type.
-// Scratch: ridx [S n] int32, tmp and dv1 [S n, H], part [16, 4H], dg, dg16 and
-// h16 as the policy's, dfh [S n, F]. Outputs: dw2 [H], db2 [1], dw1 [F + H, H],
-// db1 [H], dfeat [n, F], dh_head [S n, H], dh, dc, dw, db, dx as the policy's.
-int icrl_rollout_value_bwd(int n, int S, int F, int E, int H, int bf16, const int* tok,
-                           const float* dval, const float* feats, const float* hv,
-                           const float* cv, const float* gv, const float* v1, const void* emb,
-                           const void* w, const void* w1, const void* w2, int* ridx, float* tmp,
-                           float* dv1, float* part, float* dg, void* dg16, void* h16, float* dfh,
-                           float* dw2, float* db2, float* dw1, float* db1, float* dfeat,
-                           float* dh_head, float* dh, float* dc, float* dw, float* db, float* dx,
-                           void* stream) {
+// The rollout's backward, S >= 1 steps of n rows. tok, act [S, n] int32;
+// dlogp, dval [S, n]; feats [n, F]; the tape hp, cp, hv, cv, v1 [S n, H], gp,
+// gv [(S - 1) n, 4H]; p_emb, v_emb [V, E], p_w, v_w = [wi; wh] [E + H, 4H], hw
+// [H, Vp] (zero columns past V), w1 [F + H, H], w2 [H] in the weight type
+// (bf16 when bf16 != 0, else float32); hb [Vp]. ws: the workspace
+// (icrl_rollout_bwd_workspace_floats). Outputs, float32, all written: dfeat
+// [n, F]; dph1, dpc1, dvh1, dvc1 [n, H] (the start states' cotangents); dpw,
+// dvw [E + H, 4H]; dpb, dvb [4H]; dhw [H, V]; dhb [Vp]; dw1 [F + H, H]; db1,
+// dw2 [H]; db2 [1]; dxp, dxv [(S - 1) n, E]. With bf16 weights the plan
+// (parts_dhw, parts_dw1, then the recurrence pair's rows per tile, units,
+// streaming, grid columns, row groups, shared bytes) must be
+// rollout_bwd_plan's; float32 weights take none (zeros). Runs on CUDA device
+// `device`, on `stream` (the caller's current device is restored after it).
+// Returns 0 or the first CUDA error.
+int icrl_rollout_bwd(int n, int S, int F, int E, int H, int V, int Vp, int bf16, int parts_dhw,
+                     int parts_dw1, int rows_per_tile, int units, int stream, int grid_x,
+                     int row_groups, int smem, int pair_chains, const int* tok, const int* act,
+                     const float* dlogp, const float* dval, const float* feats, const float* hp,
+                     const float* cp, const float* gp, const float* hv, const float* cv,
+                     const float* gv, const float* v1, const void* p_emb, const void* p_w,
+                     const void* hw, const float* hb, const void* v_emb, const void* v_w,
+                     const void* w1, const void* w2, float* ws, float* dfeat, float* dph1,
+                     float* dpc1, float* dvh1, float* dvc1, float* dpw, float* dpb, float* dhw,
+                     float* dhb, float* dvw, float* dvb, float* dw1, float* db1, float* dw2,
+                     float* db2, float* dxp, float* dxv, int device, void* stream_) {
   using namespace icrl;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  auto run = [&](auto tag) {
-    using W = decltype(tag);
-    return rollout_value_bwd<W>(n, S, F, E, H, tok, dval, feats, hv, cv, gv, v1, (const W*)emb,
-                                (const W*)w, (const W*)w1, (const W*)w2, ridx, tmp, dv1, part,
-                                dg, (__nv_bfloat16*)dg16, (__nv_bfloat16*)h16, dfh, dw2, db2, dw1,
-                                db1, dfeat, dh_head, dh, dc, dw, db, dx, s);
-  };
-  return bf16 ? run(__nv_bfloat16{}) : run(float{});
+  cudaStream_t s = static_cast<cudaStream_t>(stream_);
+  int prev = device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const BwdIn in{n,  S,  F,  E,  H,  V,  Vp,  tok,   act, dlogp, dval, feats, hp,
+                 cp, gp, hv, cv, gv, v1, p_emb, p_w, hw,    hb,   v_emb, v_w,  w1, w2};
+  const BwdOut o{dfeat, dph1, dpc1, dvh1, dvc1, dpw, dpb, dhw, dhb,
+                 dvw,   dvb,  dw1,  db1,  dw2,  db2, dxp, dxv};
+  int ret = 0;
+  if (n == 0 || S == 0) {
+    ret = 0;
+  } else if (bf16) {
+    const RolloutBwdPlan p = rollout_bwd_plan(n, S, F, H, Vp, device_sms(), pair_chains);
+    if (p.parts_dhw != parts_dhw || p.parts_dw1 != parts_dw1 ||
+        !plan_matches(p.chain, rows_per_tile, units, stream, grid_x, row_groups, smem))
+      ret = (int)cudaErrorInvalidValue;
+    else
+      ret = rollout_bwd_bf16(in, o, bf16_layout(ws, n, S, F, H, Vp, parts_dhw, parts_dw1), p,
+                             pair_chains, s);
+  } else {
+    ret = rollout_bwd_f32(in, o, f32_layout(ws, n, S, F, H, Vp), s);
+  }
+  if (prev != device) cudaSetDevice(prev);
+  return ret;
 }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 // A bf16 matrix product on Hopper's warpgroup MMA (wgmma), for the large
 // products of the chains' backward (lstm_chain.cuh, gru_chain.cu): the LSTM's
 // d[wi; wh] = rnd([x; h_prev])^T rnd(dg) over all T N rows and dx =
-// rnd(dg) @ rnd(wi)^T, the GRU's dwi, dwh and dx alike; and the x-gate
-// tables emb @ wi (+ b) of every recurrent kernel (token_gates.cu).
+// rnd(dg) @ rnd(wi)^T, the GRU's dwi, dwh and dx alike; the x-gate tables
+// emb @ wi (+ b) of every recurrent kernel (token_gates.cu); and the A2C
+// rollout backward's head products (rollout.cu, through the group kernel).
 //
 // out [M, N] float32 = A [M, K] @ B [K, N] (+ bias [N]), bf16 operands,
 // float32 sums, the bias added after them. A
@@ -24,6 +25,15 @@
 // as it lies, with no transposed copy.
 // Out-of-range rows, columns and depths are zero-filled by cp.async (source
 // size 0), and stores are masked, so any M, N and K (multiples of 8) work.
+//
+// Two launchers: wgmma_gemm_kernel takes one or two products of the same N
+// and K (blockIdx.z picks one); wgmma_group_kernel takes a few products of
+// any shapes in one flat grid and may cut each one's depth into parts (a
+// split-K: part p's sums go to its own float32 slice of the output, which
+// the caller adds in the order p = 0, 1, ..., so two calls give the same
+// bits). A product whose K is much deeper than its output is wide (the
+// rollout's dhw and dw1: 32 tiles each, K = S N) would fill a quarter of
+// the card in one piece.
 //
 // What bounds it: at the chain's shapes (M = 1024, N = 2048, K = 8192 for
 // d[wi; wh]; M = 8192, N = 512, K = 2048 for dx) each block reads 64 FLOP
@@ -123,6 +133,25 @@ struct TokenStateRows {
   }
 };
 
+// Row ``row`` of two bf16 arrays side by side: columns [0, split) from p0,
+// whose row is ``row % wrap`` (wrap > 0: rows that repeat, as the rollout's
+// features repeat every n tape rows) or ``row``, columns [split, cols) from
+// p1. With split = cols it is one dense array.
+struct SplitRows {
+  const __nv_bfloat16 *p0, *p1;
+  int rows, cols, split, ld0, ld1, wrap;
+  __device__ __forceinline__ const __nv_bfloat16* operator()(int row, int col) const {
+    if (row >= rows || col >= cols) return nullptr;
+    if (col >= split) return p1 + (size_t)row * ld1 + col - split;
+    return p0 + (size_t)(wrap ? row % wrap : row) * ld0 + col;
+  }
+};
+
+// A dense bf16 row-major [rows, cols] array with row stride ld, as SplitRows.
+inline SplitRows dense_rows(const __nv_bfloat16* p, int rows, int cols, int ld) {
+  return SplitRows{p, p, rows, cols, cols, ld, ld, 0};
+}
+
 // One or two products that share N and K, one per blockIdx.z: two small
 // products (the GRU backward's dwi and dwh, 48 blocks each at COCO width)
 // share one launch, so their partial waves of blocks run side by side.
@@ -139,27 +168,23 @@ struct WgmmaProblems {
 
 template <int NB, class T>
 __device__ __forceinline__ T pick(const T (&v)[NB], int z) {
-  if constexpr (NB == 1)
-    return v[0];
-  else
-    return z ? v[1] : v[0];
+  // constant indices only: the kernel's parameters stay where they are
+  T r = v[0];
+#pragma unroll
+  for (int i = 1; i < NB; ++i)
+    if (z == i) r = v[i];
+  return r;
 }
 
-template <bool kAMN, bool kBMN, class ASrc, class BSrc, int NB>
-__global__ void __launch_bounds__(wg::THREADS, 1)
-    wgmma_gemm_kernel(int N, int K, WgmmaProblems<ASrc, BSrc, NB> pr) {
-  extern __shared__ uint8_t wg_smem[];
-  const int z = NB > 1 ? (int)blockIdx.z : 0;
-  const int M = pick<NB>(pr.M, z);
-  const ASrc asrc = pick<NB>(pr.a, z);
-  const BSrc bsrc = pick<NB>(pr.b, z);
-  float* __restrict__ out = pick<NB>(pr.out, z);
-  const float* __restrict__ bias = pick<NB>(pr.bias, z);
-  const uint32_t base = (wg::smem_addr(wg_smem) + 1023u) & ~1023u;
-  const int tid = threadIdx.x, wgi = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
-  const int m0 = blockIdx.x * wg::BM, n0 = blockIdx.y * wg::BN;
-  if (m0 >= M) return;  // past the shorter product's rows
-  const int nk = (K + wg::BK - 1) / wg::BK;
+// The sums of the output tile (m0, n0) over the 64-deep slices [kc0, kc1)
+// of the depth, into acc (zeroed first). base: the ring, 1024-byte aligned;
+// valid: any readable address (the source of zero-filled copies).
+template <bool kAMN, bool kBMN, class ASrc, class BSrc>
+__device__ __forceinline__ void wgmma_tile(uint32_t base, const ASrc& asrc, const BSrc& bsrc,
+                                           int M, int N, int K, int m0, int n0, int kc0,
+                                           int kc1, const void* valid, float (&acc)[2][32]) {
+  const int tid = threadIdx.x, wgi = tid / 128;
+  const int nk = kc1 - kc0;
 
   // one 64-deep slice of both operands into ring slot ``slot``: 1024 chunks
   // of 16 bytes per operand, in the operand's own layout
@@ -171,11 +196,11 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
         const int kk = q / 16, c = q % 16, p = c / 8, cc = c % 8;  // k row, 16 chunks of m
         const uint32_t off = p * 8192 + kk * 128 + ((cc ^ (kk & 7)) << 4);
         wg::cp16(dst + off, k0 + kk < K && i0 + 8 * c < lim ? src(k0 + kk, i0 + 8 * c) : nullptr,
-                 out);
+                 valid);
       } else {
         const int r = q / 8, c = q % 8;  // a 128-byte row of 64 k, chunk c
         const uint32_t off = r * 128 + ((c ^ (r & 7)) << 4);
-        wg::cp16(dst + off, k0 + 8 * c < K ? src(i0 + r, k0 + 8 * c) : nullptr, out);
+        wg::cp16(dst + off, k0 + 8 * c < K ? src(i0 + r, k0 + 8 * c) : nullptr, valid);
       }
     };
 #pragma unroll
@@ -186,7 +211,6 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     }
   };
 
-  float acc[2][32];
 #pragma unroll
   for (int h = 0; h < 2; ++h)
 #pragma unroll
@@ -194,18 +218,18 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
 
 #pragma unroll
   for (int s = 0; s < wg::STAGES - 2; ++s) {
-    if (s < nk) load(s, s);
+    if (s < nk) load(kc0 + s, s);
     wg::cp_commit();
   }
-  for (int kc = 0; kc < nk; ++kc) {
+  for (int i = 0; i < nk; ++i) {
     wg::cp_wait<wg::STAGES - 3>();
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();
-    // the slot refilled now was last read by the wgmma group of kc - 2,
+    // the slot refilled now was last read by the wgmma group of i - 2,
     // which every warpgroup waited out before this barrier
-    if (kc + wg::STAGES - 2 < nk) load(kc + wg::STAGES - 2, (kc + wg::STAGES - 2) % wg::STAGES);
+    if (i + wg::STAGES - 2 < nk) load(kc0 + i + wg::STAGES - 2, (i + wg::STAGES - 2) % wg::STAGES);
     wg::cp_commit();
-    const uint32_t sa = base + (kc % wg::STAGES) * wg::STAGE_BYTES, sb = sa + wg::A_BYTES;
+    const uint32_t sa = base + (i % wg::STAGES) * wg::STAGE_BYTES, sb = sa + wg::A_BYTES;
     wg::fence_operands(acc);
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
@@ -231,7 +255,14 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
   wg::fence_operands(acc);
   wg::cp_wait<0>();
+}
 
+// The tile's sums into out [M, N] (+ bias [N], or null), masked to the
+// product.
+__device__ __forceinline__ void wgmma_store(const float (&acc)[2][32], float* __restrict__ out,
+                                            int M, int N, int m0, int n0,
+                                            const float* __restrict__ bias) {
+  const int tid = threadIdx.x, wgi = tid / 128, lane = tid % 32, warp = (tid % 128) / 32;
   // accumulator i of half h: row 16 warp + lane / 4 (+ 8), column
   // 64 h + 8 (i / 4) + 2 (lane % 4) (+ 1)
 #pragma unroll
@@ -247,25 +278,89 @@ __global__ void __launch_bounds__(wg::THREADS, 1)
     }
 }
 
+template <bool kAMN, bool kBMN, class ASrc, class BSrc, int NB>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    wgmma_gemm_kernel(int N, int K, WgmmaProblems<ASrc, BSrc, NB> pr) {
+  extern __shared__ uint8_t wg_smem[];
+  const int z = NB > 1 ? (int)blockIdx.z : 0;
+  const int M = pick<NB>(pr.M, z);
+  float* __restrict__ out = pick<NB>(pr.out, z);
+  const int m0 = blockIdx.x * wg::BM, n0 = blockIdx.y * wg::BN;
+  if (m0 >= M) return;  // past the shorter product's rows
+  const uint32_t base = (wg::smem_addr(wg_smem) + 1023u) & ~1023u;
+  float acc[2][32];
+  wgmma_tile<kAMN, kBMN>(base, pick<NB>(pr.a, z), pick<NB>(pr.b, z), M, N, K, m0, n0, 0,
+                         (K + wg::BK - 1) / wg::BK, out, acc);
+  wgmma_store(acc, out, M, N, m0, n0, pick<NB>(pr.bias, z));
+}
+
+// A few products of any shapes in one launch (up to NP; an unused one has
+// M = 0), each with its depth cut into parts[z] pieces of whole 64-deep
+// slices, balanced: part p takes slices [p nk / parts, (p + 1) nk / parts)
+// of the nk = ceil(K / 64) (ops/fused_rollout.py:split_k_ranges mirrors
+// it). Product z owns the blocks [first[z], first[z + 1]), part-major
+// (the blocks in flight together share their depth range), then its tiles
+// m-fastest; part p writes its sums to out[z] + p M N. A bias takes one part.
+template <class ASrc, class BSrc, int NP>
+struct WgmmaGroup {
+  int M[NP], N[NP], K[NP], parts[NP], first[NP + 1];
+  ASrc a[NP];
+  BSrc b[NP];
+  float* out[NP];
+  const float* bias[NP];
+};
+
+template <bool kAMN, bool kBMN, class ASrc, class BSrc, int NP>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    wgmma_group_kernel(WgmmaGroup<ASrc, BSrc, NP> g) {
+  extern __shared__ uint8_t wg_smem[];
+  const int bid = blockIdx.x;
+  int z = 0, start = 0;
+#pragma unroll
+  for (int i = 1; i < NP; ++i)
+    if (bid >= g.first[i]) {  // an empty product ends where the next starts
+      z = i;
+      start = g.first[i];
+    }
+  const int M = pick<NP>(g.M, z), N = pick<NP>(g.N, z), K = pick<NP>(g.K, z);
+  const int parts = pick<NP>(g.parts, z);
+  const int local = bid - start;
+  const int mt = (M + wg::BM - 1) / wg::BM, tiles = mt * ((N + wg::BN - 1) / wg::BN);
+  const int p = local / tiles, t = local % tiles;
+  const int m0 = (t % mt) * wg::BM, n0 = (t / mt) * wg::BN;
+  const int nk = (K + wg::BK - 1) / wg::BK;
+  float* __restrict__ out = pick<NP>(g.out, z) + (size_t)p * M * N;
+  const uint32_t base = (wg::smem_addr(wg_smem) + 1023u) & ~1023u;
+  float acc[2][32];
+  wgmma_tile<kAMN, kBMN>(base, pick<NP>(g.a, z), pick<NP>(g.b, z), M, N, K, m0, n0,
+                         (int)((long)p * nk / parts), (int)((long)(p + 1) * nk / parts), out,
+                         acc);
+  wgmma_store(acc, out, M, N, m0, n0, pick<NP>(g.bias, z));
+}
+
+// The shared-memory opt-in of a kernel, once per device (small calls, an
+// x-gate table takes ~11 us, should not pay a driver call each); ``opted``
+// is the kernel's own record, one bit per device.
+inline cudaError_t wgmma_opt_in(const void* kernel, std::atomic<unsigned long long>& opted) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (opted.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM_BYTES);
+  if (err == cudaSuccess) opted.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
 // kAMN, kBMN: whether A, B are MN-major (a k row of the operand holds
 // consecutive m or n), else K-major; B follows A unless given.
 template <bool kAMN, bool kBMN = kAMN, class ASrc, class BSrc, int NB>
 cudaError_t launch_wgmma_batch(int N, int K, const WgmmaProblems<ASrc, BSrc, NB>& pr,
                                cudaStream_t s) {
   auto kernel = wgmma_gemm_kernel<kAMN, kBMN, ASrc, BSrc, NB>;
-  // the shared-memory opt-in, once per device for this kernel: small calls
-  // (an x-gate table takes ~11 us) should not pay a driver call each
   static std::atomic<unsigned long long> opted{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = wgmma_opt_in((const void*)kernel, opted);
   if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (!(opted.load(std::memory_order_relaxed) & bit)) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               wg::SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    opted.fetch_or(bit, std::memory_order_relaxed);
-  }
   int m = 0;
   for (int i = 0; i < NB; ++i) m = pr.M[i] > m ? pr.M[i] : m;
   const dim3 grid((m + wg::BM - 1) / wg::BM, (N + wg::BN - 1) / wg::BN, NB);
@@ -278,6 +373,28 @@ cudaError_t launch_wgmma_gemm(int M, int N, int K, const ASrc& a, const BSrc& b,
                               cudaStream_t s, const float* bias = nullptr) {
   return launch_wgmma_batch<kAMN, kBMN>(
       N, K, WgmmaProblems<ASrc, BSrc, 1>{{M}, {a}, {b}, {out}, {bias}}, s);
+}
+
+// The group's launch: first[] from the shapes and parts (set here), one
+// flat grid of every product's tiles and parts.
+template <bool kAMN, bool kBMN, class ASrc, class BSrc, int NP>
+cudaError_t launch_wgmma_group(WgmmaGroup<ASrc, BSrc, NP> g, cudaStream_t s) {
+  auto kernel = wgmma_group_kernel<kAMN, kBMN, ASrc, BSrc, NP>;
+  static std::atomic<unsigned long long> opted{0};
+  const cudaError_t err = wgmma_opt_in((const void*)kernel, opted);
+  if (err != cudaSuccess) return err;
+  g.first[0] = 0;
+  for (int i = 0; i < NP; ++i) {
+    if (g.M[i] > 0 && (g.parts[i] < 1 || (g.bias[i] && g.parts[i] != 1)))
+      return cudaErrorInvalidValue;
+    const int tiles = g.M[i] > 0 ? ((g.M[i] + wg::BM - 1) / wg::BM) *
+                                       ((g.N[i] + wg::BN - 1) / wg::BN) * g.parts[i]
+                                 : 0;
+    g.first[i + 1] = g.first[i] + tiles;
+  }
+  if (g.first[NP] == 0) return cudaSuccess;
+  kernel<<<g.first[NP], wg::THREADS, wg::SMEM_BYTES, s>>>(g);
+  return cudaGetLastError();
 }
 
 }  // namespace

@@ -7,9 +7,11 @@ Counterpart of the JAX ``ops/pallas_rollout.py``: ``fused_reward_stream``
 under the custom VJP of ``_make_core``). The kernels are
 ``csrc/reward_stream.cu``, ``csrc/rollout_fwd.cu`` (the forward: one
 persistent cooperative launch for all steps, planned by
-:func:`rollout_plan`) and ``csrc/rollout.cu`` (the backward); their notes say
-what each step computes, where it rounds, what bounds it on Hopper and what
-the design does about that.
+:func:`rollout_plan`) and ``csrc/rollout.cu`` (the backward: one C call, the
+heads' products on ``wgmma`` with a fixed-order split-K and both encoders'
+recurrences in one cooperative launch, planned by :func:`rollout_bwd_plan`);
+their notes say what each step computes, where it rounds, what bounds it on
+Hopper and what the design does about that.
 
 Over S = T - 1 steps the rollout takes, at step s (position p = s + 1), the
 policy's logits from its carried state, the Gumbel-max action on the step's
@@ -47,6 +49,7 @@ unpadded parameters.
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -55,7 +58,7 @@ from ..models import policy as policy_mod
 from ..models import value as value_mod
 from .fused_decode import check_tile_widths, round_to, token_gate_table, wmatmul
 from .fused_lstm import (_CHAIN_RING, CHAIN_ROWS, SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED,
-                         _bf16_scratch, _chain_smem, embedding_grad, lstm_chain_backward_plain)
+                         _chain_smem, chain_plan, embedding_grad, lstm_chain_backward_plain)
 from .kernel_build import check_error, load_library
 from .linalg import dense
 from .padding import needs_padding, pad8, pad_cell, pad_dim, pad_split_rows
@@ -704,66 +707,151 @@ def rollout_forward_kernel(curr: int, teach_sm: torch.Tensor, noise: torch.Tenso
     return values, logp, rewards, tape
 
 
+_PAIR_CHAINS = 2  # TRIAL: 2 = both recurrences in one launch, 1 = in turn
+
+# csrc/wgmma.cuh: the output tile and the depth slice of a block; the least
+# depth of a split-K part, in slices (csrc/rollout.cu SPLITK_MIN_SLICES)
+WG_TILE, WG_SLICE, SPLITK_MIN_SLICES = 128, 64, 4
+
+
+def split_k_parts(tiles: int, depth: int, sm_count: int) -> int:
+    """Parts of a product of ``depth`` rows among products of ``tiles``
+    output tiles in all (``csrc/rollout.cu:splitk_parts``): as many as keep
+    every part's blocks on the card at once, at most one part per
+    ``SPLITK_MIN_SLICES`` slices of the depth, at least one."""
+    slices = -(-depth // WG_SLICE)
+    return max(1, min(sm_count // max(tiles, 1), slices // SPLITK_MIN_SLICES))
+
+
+def split_k_ranges(depth: int, parts: int) -> list:
+    """The depth rows ``[k0, k1)`` of each part, as ``wgmma_group_kernel``
+    cuts them: whole 64-deep slices, part p taking slices ``[p nk / parts,
+    (p + 1) nk / parts)`` of the ``nk = ceil(depth / 64)``."""
+    nk = -(-depth // WG_SLICE)
+    return [(p * nk // parts * WG_SLICE, min(depth, (p + 1) * nk // parts * WG_SLICE))
+            for p in range(parts)]
+
+
+def split_k_product(a: torch.Tensor, b: torch.Tensor, parts: int, arrival=None) -> torch.Tensor:
+    """A plain model of a split-K product and its combine (for tests):
+    ``a^T b`` for ``a [K, M]``, ``b [K, N]`` (float32), each part summing its
+    depth rows (:func:`split_k_ranges`) into a slice of its own. The parts
+    finish in any order (``arrival``, a permutation of ``range(parts)``;
+    blocks run in no order on the card); the combine adds the slices in the
+    order p = 0, 1, ..., so the result does not depend on ``arrival``."""
+    slices = [None] * parts
+    for p in range(parts) if arrival is None else arrival:
+        k0, k1 = split_k_ranges(a.shape[0], parts)[p]
+        slices[p] = a[k0:k1].t() @ b[k0:k1]
+    out = slices[0].clone()
+    for p in range(1, parts):
+        out += slices[p]
+    return out
+
+
+def rollout_bwd_plan(n: int, steps: int, feat_dim: int, hidden: int, vp: int,
+                     sm_count: int) -> dict:
+    """The bf16 rollout backward's launch plan, as ``csrc/rollout.cu:
+    rollout_bwd_plan`` computes it (float32 weights take none).
+
+    ``parts``: the split-K parts of ``dhw = rnd(h_p)^T rnd(dlogits)`` (``tiles``
+    ``ceil(H / 128) x ceil(Vp / 128)``) and ``dw1 = rnd([feats; h_v])^T
+    rnd(dv1)`` (``ceil((F + H) / 128) x ceil(H / 128)``), both of depth
+    ``S n`` (:func:`split_k_parts` over the two products' tiles).
+    ``chains``: the plan of each encoder's backward recurrence,
+    :func:`.fused_lstm.chain_plan` on half the SMs; the two run in one
+    cooperative launch of ``grid = (grid_x, row_groups, 2)`` blocks, block
+    ``(x, g, c)`` taking chain c's slices and row tiles as a chain's block
+    ``(x, g)`` does. A card of fewer than two SMs is refused."""
+    if sm_count < 2:
+        raise ValueError(f"the rollout backward runs two chains side by side: it needs at least "
+                         f"2 SMs, got {sm_count}")
+    depth = steps * n
+    tiles = {"dhw": -(-hidden // WG_TILE) * -(-vp // WG_TILE),
+             "dw1": -(-(feat_dim + hidden) // WG_TILE) * -(-hidden // WG_TILE)}
+    total = sum(tiles.values())
+    chains = chain_plan(n, hidden, torch.bfloat16, sm_count // _PAIR_CHAINS, backward=True)
+    return {"depth": depth, "tiles": tiles,
+            "parts": {k: split_k_parts(total, depth, sm_count) for k in tiles},
+            "chains": chains, "grid": chains["grid"] + (2,)}
+
+
+@functools.lru_cache(maxsize=None)
+def _rollout_bwd_plan_args(n: int, steps: int, feat_dim: int, hidden: int, vp: int,
+                           index: int) -> tuple:
+    """The bf16 plan's launch arguments for the card ``index`` (cached)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    p = rollout_bwd_plan(n, steps, feat_dim, hidden, vp, sms)
+    c = p["chains"]
+    return (p["parts"]["dhw"], p["parts"]["dw1"], c["rows_per_tile"], c["units"],
+            int(c["stream"]), c["grid"][0], c["row_groups"], c["smem_bytes"], _PAIR_CHAINS)
+
+
+def _carved_size(shapes) -> int:
+    """Float32 elements of consecutive regions of the given shapes, each
+    starting on a 256-byte boundary (as ``Carver`` carves the kernels'
+    workspaces)."""
+    return sum(-(-math.prod(shape) // 64) * 64 for shape in shapes)
+
+
+def _carve(buf: torch.Tensor, shapes) -> list:
+    """Views of ``buf`` of the given shapes, laid out as :func:`_carved_size`
+    counts them."""
+    out, at = [], 0
+    for shape in shapes:
+        out.append(buf[at:at + math.prod(shape)].view(shape))
+        at += _carved_size((shape,))
+    return out
+
+
 def rollout_backward_kernel(tape: RolloutTape, feats: torch.Tensor, w: RolloutWeights,
                             dvalues: torch.Tensor, dlogp: torch.Tensor, need_emb=(True, True)):
-    """The backward through ``csrc/rollout.cu`` (two C calls: the policy's,
-    the value's): the same gradients as :func:`rollout_backward_plain`."""
+    """The backward through ``csrc/rollout.cu``, one C call: the same
+    gradients as :func:`rollout_backward_plain`. The gradients are views of
+    one buffer, the scratch (with ``dx`` of both chains) another."""
     dev = feats.device
     steps, n = tape.act.shape
     vocab, emb_dim = w.p_emb.shape
     hidden = tape.hp.shape[1]
     f = feats.shape[1]
     vp = w.hw.shape[1]
-    rows = steps * n
     bf16 = int(w.dtype == torch.bfloat16)
     feats = feats.to(_F32).contiguous()
     dlogp = dlogp.to(_F32).contiguous()
     dval = dvalues.to(_F32).contiguous()
-
-    def f32(*shape):
-        return torch.empty(shape, dtype=_F32, device=dev)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=_F32, device=dev)
-
-    part = f32(16, max(vp, 4 * hidden))
-    dg = f32(max(rows - n, 1), 4 * hidden)
-    dg16 = _bf16_scratch(w.dtype, dev, rows - n, 4 * hidden)
-    h16 = _bf16_scratch(w.dtype, dev, rows - n, hidden)
-    dlogits, dhw, dhb, dh_head = f32(rows, vp), f32(hidden, vocab), f32(vp), f32(rows, hidden)
-    dph1, dpc1 = zeros(n, hidden), zeros(n, hidden)
-    dpw, dpb, dxp = (zeros(emb_dim + hidden, 4 * hidden), zeros(4 * hidden),
-                     f32(max(rows - n, 1), emb_dim))
-    ridx = torch.empty((rows,), dtype=torch.int32, device=dev)
-    tmp, dv1, dfh, dh_head_v = f32(rows, hidden), f32(rows, hidden), f32(rows, f), f32(rows, hidden)
-    dw2, db2, dw1, db1, dfeat = f32(hidden), f32(1), f32(f + hidden, hidden), f32(hidden), f32(n, f)
-    dvh1, dvc1 = zeros(n, hidden), zeros(n, hidden)
-    dvw, dvb, dxv = (zeros(emb_dim + hidden, 4 * hidden), zeros(4 * hidden),
-                     f32(max(rows - n, 1), emb_dim))
+    r1 = (steps - 1) * n
+    shapes = _bwd_grad_shapes(n, f, emb_dim, hidden, vocab, vp)
+    grads = _carve(torch.empty(_carved_size(shapes), dtype=_F32, device=dev), shapes)
+    plan = _rollout_bwd_plan_args(n, steps, f, hidden, vp, dev.index) if bf16 else (0,) * 9
     lib = load_library()
-    with torch.cuda.device(dev):
-        err = lib.icrl_rollout_policy_bwd(
-            n, steps, emb_dim, hidden, vocab, vp, bf16, _ptr(tape.tok), _ptr(tape.act),
-            _ptr(dlogp), _ptr(tape.hp), _ptr(tape.cp), _ptr(tape.gp), _ptr(w.p_emb),
-            _ptr(w.p_w), _ptr(w.hw), _ptr(w.hb), _ptr(dlogits), _ptr(part), _ptr(dg), _ptr(dg16),
-            _ptr(h16), _ptr(dhw), _ptr(dhb), _ptr(dh_head), _ptr(dph1), _ptr(dpc1), _ptr(dpw),
-            _ptr(dpb), _ptr(dxp), _stream(dev))
-        check_error(lib, "icrl_rollout_policy_bwd", err)
-        err = lib.icrl_rollout_value_bwd(
-            n, steps, f, emb_dim, hidden, bf16, _ptr(tape.tok), _ptr(dval), _ptr(feats),
-            _ptr(tape.hv), _ptr(tape.cv), _ptr(tape.gv), _ptr(tape.v1), _ptr(w.v_emb),
-            _ptr(w.v_w), _ptr(w.w1), _ptr(w.w2), _ptr(ridx), _ptr(tmp), _ptr(dv1), _ptr(part),
-            _ptr(dg), _ptr(dg16), _ptr(h16), _ptr(dfh), _ptr(dw2), _ptr(db2), _ptr(dw1), _ptr(db1),
-            _ptr(dfeat), _ptr(dh_head_v), _ptr(dvh1), _ptr(dvc1), _ptr(dvw), _ptr(dvb), _ptr(dxv),
-            _stream(dev))
-        check_error(lib, "icrl_rollout_value_bwd", err)
+    ws_floats = lib.icrl_rollout_bwd_workspace_floats(n, steps, f, hidden, vp, bf16, *plan[:2])
+    dx_shapes = ((r1, emb_dim), (r1, emb_dim))
+    scratch = torch.empty(_carved_size(dx_shapes) + ws_floats, dtype=_F32, device=dev)
+    dxp, dxv = _carve(scratch, dx_shapes)
+    ws = scratch[_carved_size(dx_shapes):]
+    (dfeat, dph1, dpc1, dvh1, dvc1, dpw, dpb, dhw, dhb, dvw, dvb, dw1, db1, dw2, db2) = grads
+    err = lib.icrl_rollout_bwd(
+        n, steps, f, emb_dim, hidden, vocab, vp, bf16, *plan, _ptr(tape.tok), _ptr(tape.act),
+        _ptr(dlogp), _ptr(dval), _ptr(feats), _ptr(tape.hp), _ptr(tape.cp), _ptr(tape.gp),
+        _ptr(tape.hv), _ptr(tape.cv), _ptr(tape.gv), _ptr(tape.v1), _ptr(w.p_emb), _ptr(w.p_w),
+        _ptr(w.hw), _ptr(w.hb), _ptr(w.v_emb), _ptr(w.v_w), _ptr(w.w1), _ptr(w.w2), _ptr(ws),
+        *(_ptr(t) for t in grads), _ptr(dxp), _ptr(dxv), dev.index, _stream(dev))
+    check_error(lib, "icrl_rollout_bwd", err)
     fused_rollout.bwd_launches += 1
     tok_c = tape.tok[:-1]
-    dp_emb = embedding_grad(dxp[:rows - n], tok_c, vocab) if need_emb[0] else None
-    dv_emb = embedding_grad(dxv[:rows - n], tok_c, vocab) if need_emb[1] else None
+    dp_emb = embedding_grad(dxp, tok_c, vocab) if need_emb[0] else None
+    dv_emb = embedding_grad(dxv, tok_c, vocab) if need_emb[1] else None
     return (dfeat, dph1, dpc1, dvh1, dvc1,
             dp_emb, dpw[:emb_dim], dpw[emb_dim:], dpb, dhw, dhb[:vocab],
             dv_emb, dvw[:emb_dim], dvw[emb_dim:], dvb, dw1, db1, dw2.reshape(hidden, 1), db2)
+
+
+def _bwd_grad_shapes(n: int, f: int, emb_dim: int, hidden: int, vocab: int, vp: int) -> tuple:
+    """The shapes of the C entry's gradient outputs, in its order."""
+    g4 = 4 * hidden
+    return ((n, f), (n, hidden), (n, hidden), (n, hidden), (n, hidden), (emb_dim + hidden, g4),
+            (g4,), (hidden, vocab), (vp,), (emb_dim + hidden, g4), (g4,), (f + hidden, hidden),
+            (hidden,), (hidden,), (1,))
 
 
 def _function_forward(ctx, forward, curr, weight_dtype, teach_sm, noise, reward, feats, ph1,
@@ -811,7 +899,7 @@ class _RolloutPlain(torch.autograd.Function):
 class _RolloutKernel(torch.autograd.Function):
     """The rollout through ``csrc/rollout_fwd.cu`` and ``csrc/rollout.cu``,
     over the same arguments as :class:`_RolloutPlain`: one C call forward
-    (one kernel launch beside the x-gate tables), two backward. The x-gate
+    (one kernel launch beside the x-gate tables), one backward. The x-gate
     tables are rebuilt each call (the weights change every optimiser
     step)."""
 

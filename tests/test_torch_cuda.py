@@ -51,7 +51,13 @@ widths its plan treats apart (COCO width, H = 1024 streamed, V = 2000, a
 padded width, N = 1, S = 1; bf16 and f32; curr 1 and 8; with and without
 the reward stream), must give bit-identical results on two calls and be one
 `rollout_fwd_kernel` launch beside its two x-gate tables; the bf16 x-gate
-table runs on wgmma and matches its plain version within 1e-4.
+table runs on wgmma and matches its plain version within 1e-4. The rollout
+backward (the heads on wgmma with a fixed-order split-K, both recurrences in
+one launch) is held to CHAIN_TOL at COCO width, H = 1024 and 2048, V = 2000,
+a padded width, n = 12 and 500, curr 1 and 8, bf16 and f32; two calls give
+the same bits (the embedding gradient's index_add_ in PyTorch's
+deterministic mode); and a bf16 call launches its own ten kernels, none a
+view_kernel or linear_kernel, whatever S.
 """
 
 import os
@@ -821,3 +827,89 @@ def test_rollout_wrappers_reject_bad_inputs(dev):
         done = subprocess.run([sys.executable, "-c", script], cwd=root, capture_output=True,
                               text=True, timeout=300)
         assert done.returncode != 0 and "assert" in done.stderr.lower(), done.stderr[-2000:]
+
+
+# (N, E = H = F, V, S) for the backward: COCO width; H = 1024 and 2048 (the
+# forward streams its weights from 1024, the recurrences from 2048); V =
+# 2000; a padded width; rows not a multiple of 8
+BWD_SHAPES = {"coco": (512, 512, 1004, 16), "h1024": (512, 1024, 1004, 5),
+              "h2048": (96, 2048, 1004, 4), "v2000": (128, 512, 2000, 8),
+              "padded": (100, 500, 1001, 6), "n12": (12, 512, 1004, 16),
+              "n500": (500, 512, 1004, 16)}
+
+
+def _backward_case(dev, wd, curr, shape):
+    args = _wide_rollout_case(dev, wd, curr, BWD_SHAPES[shape], True)
+    _, _, _, tape = fr.rollout_forward_kernel(*args)
+    gen = torch.Generator().manual_seed(10)
+    dval, dlogp = (torch.randn(tape.act.shape, generator=gen).to(dev) for _ in range(2))
+    return tape, args[4], args[-1], dval, dlogp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curr", [1, 8])
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+@pytest.mark.parametrize("shape", list(BWD_SHAPES))
+def test_rollout_backward_kernel_matches_plain(dev, shape, wd, curr):
+    """Every gradient of the one-call backward against the plain version on
+    the kernel forward's tape, by relative Frobenius error within
+    CHAIN_TOL."""
+    case = _backward_case(dev, wd, curr, shape)
+    before = fr.fused_rollout.bwd_launches
+    got = fr.rollout_backward_kernel(*case)
+    torch.cuda.synchronize()
+    assert fr.fused_rollout.bwd_launches == before + 1
+    want = fr.rollout_backward_plain(*case)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), i
+        rel = float((a - b).norm() / max(float(b.norm()), 1e-30))
+        assert rel <= CHAIN_TOL[wd], f"gradient {i}: relative error {rel:.3g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+def test_rollout_backward_kernel_is_deterministic(dev, wd):
+    """Two calls on one tape give bit-identical gradients: the split-K parts
+    and every column sum add in a fixed order, with no float atomics (the
+    embedding gradient's index_add_ runs in PyTorch's deterministic mode
+    here)."""
+    case = _backward_case(dev, wd, 4, "coco")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        first, second = (fr.rollout_backward_kernel(*case) for _ in range(2))
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for i, (a, b) in enumerate(zip(first, second)):
+        assert torch.equal(a, b), i
+
+
+@pytest.mark.cuda
+def test_rollout_backward_launches_do_not_grow_with_steps(dev):
+    """A bf16 backward launches its own ten kernels (prep, three wgmma
+    groups, the softmax gradient, the recurrence pair, two wgmma batches,
+    the column sums, the finishing pass) at S = 8 and 16 alike, and no
+    view_kernel or linear_kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    own = ("rollout_bwd_prep_kernel", "wgmma_group_kernel", "softmax_grad_rows_kernel",
+           "lstm_bwd_pair_kernel", "wgmma_gemm_kernel", "colsum_parts_kernel",
+           "rollout_bwd_finish_kernel")
+    counts = {}
+    for steps in (8, 16):
+        args = _wide_rollout_case(dev, torch.bfloat16, 1, (256, 512, 1004, steps), True)
+        _, _, _, tape = fr.rollout_forward_kernel(*args)
+        dval = torch.ones(tape.act.shape, device=dev)
+        fr.rollout_backward_kernel(tape, args[4], args[-1], dval, dval)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fr.rollout_backward_kernel(tape, args[4], args[-1], dval, dval)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() for _ in range(e.count)
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        assert not any("view_kernel" in k or "linear_kernel" in k for k in names), names
+        counts[steps] = {k: sum(k in name for name in names) for k in own}
+    assert counts[8] == counts[16] == {
+        "rollout_bwd_prep_kernel": 1, "wgmma_group_kernel": 3, "softmax_grad_rows_kernel": 1,
+        "lstm_bwd_pair_kernel": 1, "wgmma_gemm_kernel": 2, "colsum_parts_kernel": 1,
+        "rollout_bwd_finish_kernel": 1}, counts
