@@ -923,12 +923,15 @@ def device_ops(prof) -> tuple[dict, dict]:
     return ms, counts
 
 
-def device_profile(call, iters: int = 1) -> tuple[dict, dict]:
+def device_profile(call, iters: int = 1, complete=None) -> tuple[dict, dict]:
     """:func:`device_ops` of a torch.profiler window over ``iters`` calls of
-    ``call``. CUPTI now and then hands back a window with no device event
-    at all (seen once on the H100 machine, with full windows before and
-    after it in the same process): such a window is taken again, up to three
-    times. A window with device work in it is never retaken."""
+    ``call``. The tracer now and then misses launches at the start of a
+    window (seen on the H100 machine: a whole window with no device event,
+    once; the first one to three launches of a window, a few times, with
+    full windows before and after in the same process, warm-up step or
+    not). A window with no device event is taken again, and so is one
+    whose launch counts ``complete(counts)`` finds short, up to three
+    windows in all; a count that is short in all three is the answer."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -937,8 +940,10 @@ def device_profile(call, iters: int = 1) -> tuple[dict, dict]:
                 call()
             torch.cuda.synchronize()
         ms, counts = device_ops(prof)
-        if counts:
+        if counts and (complete is None or complete(counts)):
             return ms, counts
+    if counts:
+        return ms, counts
     raise AssertionError("torch.profiler recorded no device work in three windows")
 
 
@@ -1002,24 +1007,24 @@ def rollout_fwd_profile(call, iters: int = 3) -> str:
 # The rollout backward's kernels (csrc/rollout.cu, bf16) by part.
 ROLLOUT_BWD_PARTS = {
     "heads": ("rollout_bwd_prep_kernel", "wgmma_group_kernel", "softmax_grad_rows_kernel",
-              "colsum_parts_kernel", "rollout_bwd_finish_kernel"),
+              "colsum_part_kernel", "rollout_bwd_finish_kernel"),
     "recurrences": ("lstm_bwd_pair_kernel",),
     "chain products": ("wgmma_gemm_kernel",)}
-ROLLOUT_BWD_GONE = ("view_kernel", "linear_kernel", "lstm_bwd_kernel", "colsum_part_kernel",
-                    "colsum_finish_kernel")
+ROLLOUT_BWD_GONE = ("view_kernel", "linear_kernel", "lstm_bwd_kernel", "colsum_finish_kernel")
 
 
-def rollout_bwd_profile(call, iters: int = 3) -> tuple[str, float]:
+def rollout_bwd_profile(call, iters: int = 3) -> str:
     """Phase 15: the rollout backward's device time per call, its launches
     (its own kernels, ten, none of the tile products it replaced; and all
     device operations of the call, PyTorch's embedding gradient included)
-    and the device time of its parts. Returns the line and the device ms."""
+    and the device time of its parts."""
     call()
     torch.cuda.synchronize()
-    ms, counts = device_profile(call, iters)
+    ours = [k for names in ROLLOUT_BWD_PARTS.values() for k in names]
+    ms, counts = device_profile(call, iters,
+                                lambda c: sum(c.get(k, 0) for k in ours) >= 10 * iters)
     per_call = {k: counts[k] / iters for k in counts}
-    own = {k: v for k, v in per_call.items() if any(k in names for names in
-                                                   ROLLOUT_BWD_PARTS.values())}
+    own = {k: v for k, v in per_call.items() if k in ours}
     if any(k in per_call for k in ROLLOUT_BWD_GONE) or sum(own.values()) != 10:
         raise AssertionError(f"rollout backward launches per call: {per_call}")
     device = sum(ms.values()) / iters
@@ -1030,7 +1035,7 @@ def rollout_bwd_profile(call, iters: int = 3) -> tuple[str, float]:
             + f", around them (PyTorch's embedding gradient) {device - sum(parts.values()):.4f};"
               f" launches per call: its own {sum(own.values()):g} ("
             + ", ".join(f"{k} x{v:g}" for k, v in sorted(own.items()))
-            + f"), all device operations {sum(per_call.values()):g}"), device
+            + f"), all device operations {sum(per_call.values()):g}")
 
 
 def rollout_fwd_phases(args) -> str:
@@ -1091,7 +1096,7 @@ def time_a2c(a2c_params, rparams, data, dev) -> dict:
         lambda: fr.rollout_backward_kernel(tape, feats, w, dval, dlogp), 10)
     times[("rollout_bwd", "plain_ms")] = cuda_ms(
         lambda: fr.rollout_backward_plain(tape, feats, w, dval, dlogp), 3)
-    times[("rollout_bwd", "profile")], times[("rollout_bwd", "device_ms")] = rollout_bwd_profile(
+    times[("rollout_bwd", "profile")] = rollout_bwd_profile(
         lambda: fr.rollout_backward_kernel(tape, feats, w, dval, dlogp))
     cfg = loops._cfg_for(data, False)
     feats = torch.from_numpy(data.train_features[data.train_image_idxs[:BATCH]]).to(dev)
@@ -1545,7 +1550,8 @@ def table_device_ms(emb: torch.Tensor, w: torch.Tensor, iters: int = 10) -> floa
 
     token_gate_table(emb, w)
     torch.cuda.synchronize()
-    ms, counts = device_profile(lambda: token_gate_table(emb, w), iters)
+    ms, counts = device_profile(lambda: token_gate_table(emb, w), iters,
+                                lambda c: c.get("wgmma_gemm_kernel", 0) >= iters)
     if counts.get("wgmma_gemm_kernel") != iters:
         raise AssertionError(f"the bf16 table ran {counts}, not wgmma_gemm_kernel once a call")
     return sum(ms.values()) / iters

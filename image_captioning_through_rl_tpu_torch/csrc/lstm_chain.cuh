@@ -129,10 +129,10 @@ struct ChainBwdArgs {
   const float* cbuf;
   const float* gates;
   const W* wh;          // [H, 4H]
-  float* dg;            // [T n, 4H] gate gradients
+  float* dg;            // [T n, 4H] gate gradients (not with kSumDb)
   __nv_bfloat16* dg16;  // the same rounded to bf16, and rnd(h) entering
-  __nv_bfloat16* h16;   //   each step [T n, H] (bf16 weights only; the
-                        //   kernel writes h16 unless its caller already has)
+  __nv_bfloat16* h16;   //   each step [T n, H] (bf16 weights only; with
+                        //   kSumDb h16 is an input)
   float* dh;            // [n, H] dh0 on return
   float* dc;            // [n, H] zero on entry, dc0 on return
 };
@@ -142,9 +142,11 @@ struct CellTape {
   float i, f, g, o, c_new, c_prev, dh_up, dc, h;
 };
 
-// kH16: the recurrence writes rnd(h) into h16 (the chain's own backward);
-// the A2C rollout's backward has written it before (rollout.cu).
-template <typename W, bool kH16>
+// kSumDb false (the chain's own backward): the recurrence writes rnd(h) into
+// h16 and the float32 dg (whose column sums are db). true (the A2C rollout's
+// backward, rollout.cu, which has written h16 before): it writes neither and
+// sums db itself.
+template <typename W, bool kSumDb>
 __device__ __forceinline__ CellTape lstm_cell_tape(const ChainBwdArgs<W>& a, int t, int row,
                                                    int j) {
   const int H = a.H;
@@ -158,18 +160,19 @@ __device__ __forceinline__ CellTape lstm_cell_tape(const ChainBwdArgs<W>& a, int
           ld_early_nc(a.cbuf + t * NH + o),
           ld_early_nc(a.dhs + (size_t)row * a.dhs_row + (size_t)t * a.dhs_step + j),
           ld_early(a.dc + o),
-          kIsBf16<W> && kH16 ? ld_early_nc(a.hbuf + t * NH + o) : 0.f};
+          kIsBf16<W> && !kSumDb ? ld_early_nc(a.hbuf + t * NH + o) : 0.f};
 }
 
 // The gate gradients of step t for this thread's cells (unit j of rows
 // row0 + tid / U + i ROWS) from their tape and dh = carry + upstream, as the
 // TPU kernel's _bwd_kernel forms them; carries dc. All cells' arithmetic
-// first, then the stores of the cells that lie inside.
-template <typename W, int U, int CELLS, bool kH16>
+// first, then the stores of the cells that lie inside. With kSumDb the
+// cells' gate gradients add into db (per gate) instead of going to dg.
+template <typename W, int U, int CELLS, bool kSumDb>
 __device__ __forceinline__ void lstm_cells_bwd(const ChainBwdArgs<W>& a,
                                                const CellTape (&tp)[CELLS],
                                                const float (&carry)[CELLS], int t, int row0,
-                                               int j) {
+                                               int j, float (&db)[4]) {
   constexpr int ROWS = CHAIN_THREADS / U;
   const int H = a.H, G = 4 * H;
   float d[CELLS][4], dcn[CELLS];
@@ -193,14 +196,19 @@ __device__ __forceinline__ void lstm_cells_bwd(const ChainBwdArgs<W>& a,
     const int row = row0 + threadIdx.x / U + q * ROWS;
     if (row >= a.n) continue;
     const size_t r = (size_t)t * a.n + row;
-    float* dp = a.dg + r * G + j;
+    if constexpr (kSumDb) {
 #pragma unroll
-    for (int g = 0; g < 4; ++g) dp[g * H] = d[q][g];
+      for (int g = 0; g < 4; ++g) db[g] += d[q][g];
+    } else {
+      float* dp = a.dg + r * G + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) dp[g * H] = d[q][g];
+    }
     if constexpr (kIsBf16<W>) {
       __nv_bfloat16* dq = a.dg16 + r * G + j;
 #pragma unroll
       for (int g = 0; g < 4; ++g) dq[g * H] = __float2bfloat16_rn(d[q][g]);
-      if constexpr (kH16) a.h16[r * H + j] = __float2bfloat16_rn(tp[q].h);
+      if constexpr (!kSumDb) a.h16[r * H + j] = __float2bfloat16_rn(tp[q].h);
     }
     a.dc[(size_t)row * H + j] = dcn[q];
   }
@@ -208,9 +216,14 @@ __device__ __forceinline__ void lstm_cells_bwd(const ChainBwdArgs<W>& a,
 
 // The backward recurrence of one chain on this block's slices and row tiles
 // (the body of lstm_bwd_kernel, and of the rollout's kernel that runs both
-// encoders' chains in one launch, rollout.cu).
-template <typename W, int U, bool kStream, bool kH16>
-__device__ __forceinline__ void lstm_bwd_steps(const ChainBwdArgs<W>& a, unsigned char* smem) {
+// encoders' chains in one launch, rollout.cu). With kSumDb, db_part
+// [row_groups (CHAIN_THREADS / U), 4H] receives each thread's sums of its
+// cells' gate gradients over its row tiles and steps, in a fixed order (row
+// (g, tid / U) of block (x, g); each entry has one owner); the caller adds
+// its rows in order.
+template <typename W, int U, bool kStream, bool kSumDb>
+__device__ __forceinline__ void lstm_bwd_steps(const ChainBwdArgs<W>& a, unsigned char* smem,
+                                               float* db_part) {
   using Tl = ChainTile<W, true, U, 4, kStream>;
   using S = ChainSmem<Tl>;
   constexpr int ROWS = CHAIN_THREADS / U, CELLS = CHAIN_BR / ROWS;
@@ -229,18 +242,30 @@ __device__ __forceinline__ void lstm_bwd_steps(const ChainBwdArgs<W>& a, unsigne
   auto load_tape = [&](CellTape (&tp)[CELLS], int t, int row0, int jc) {
 #pragma unroll
     for (int i = 0; i < CELLS; ++i)
-      tp[i] = lstm_cell_tape<W, kH16>(a, t, min(row0 + tid / U + i * ROWS, n - 1), jc);
+      tp[i] = lstm_cell_tape<W, kSumDb>(a, t, min(row0 + tid / U + i * ROWS, n - 1), jc);
+  };
+  // this thread's db sums of one slice into its db_part row: stored on the
+  // first step the recurrence forms (T - 1), added after
+  auto flush_db = [&](const float (&db)[4], int j, bool first) {
+    if constexpr (kSumDb) {
+      if (j >= H) return;
+      float* p = db_part + ((size_t)blockIdx.y * ROWS + tid / U) * G + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) p[g * H] = first ? db[g] : p[g * H] + db[g];
+    }
   };
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
   // the last step has no carry
   for (int s = blockIdx.x; s < slices; s += gridDim.x) {
     const int j = s * U + u;
+    float db[4] = {};
     for (int rt = blockIdx.y; rt < tiles; rt += a.row_groups) {
       CellTape tape[CELLS];
       float zero[CELLS] = {};
       load_tape(tape, a.T - 1, rt * CHAIN_BR, min(j, H - 1));
-      lstm_cells_bwd<W, U, CELLS, kH16>(a, tape, zero, a.T - 1, rt * CHAIN_BR, j);
+      lstm_cells_bwd<W, U, CELLS, kSumDb>(a, tape, zero, a.T - 1, rt * CHAIN_BR, j, db);
     }
+    flush_db(db, j, true);
   }
   // step t: the carry rnd(dg_t) @ wh^T of this slice's units feeds the gate
   // gradients of step t - 1; after step 0 it is dh0
@@ -248,6 +273,7 @@ __device__ __forceinline__ void lstm_bwd_steps(const ChainBwdArgs<W>& a, unsigne
     grid.sync();
     for (int s = blockIdx.x; s < slices; s += gridDim.x) {
       const int j0 = s * U, j = j0 + u;
+      float db[4] = {};
       for (int rt = blockIdx.y; rt < tiles; rt += a.row_groups) {
         const int row0 = rt * CHAIN_BR;
         CellTape tape[CELLS];
@@ -258,7 +284,7 @@ __device__ __forceinline__ void lstm_bwd_steps(const ChainBwdArgs<W>& a, unsigne
 #pragma unroll
         for (int i = 0; i < CELLS; ++i) carry[i] = sm.Cs[(tid / U + i * ROWS) * S::CLD + u];
         if (t > 0) {
-          lstm_cells_bwd<W, U, CELLS, kH16>(a, tape, carry, t - 1, row0, j);
+          lstm_cells_bwd<W, U, CELLS, kSumDb>(a, tape, carry, t - 1, row0, j, db);
         } else if (j < H) {
 #pragma unroll
           for (int i = 0; i < CELLS; ++i) {
@@ -268,6 +294,7 @@ __device__ __forceinline__ void lstm_bwd_steps(const ChainBwdArgs<W>& a, unsigne
         }
         __syncthreads();
       }
+      if (t > 0) flush_db(db, j, false);
     }
   }
 }
@@ -275,7 +302,7 @@ __device__ __forceinline__ void lstm_bwd_steps(const ChainBwdArgs<W>& a, unsigne
 template <typename W, int U, bool kStream>
 __global__ void __launch_bounds__(CHAIN_THREADS, 1) lstm_bwd_kernel(ChainBwdArgs<W> a) {
   extern __shared__ __align__(16) unsigned char chain_bwd_smem[];
-  lstm_bwd_steps<W, U, kStream, true>(a, chain_bwd_smem);
+  lstm_bwd_steps<W, U, kStream, false>(a, chain_bwd_smem, nullptr);
 }
 
 template <typename W>

@@ -49,7 +49,10 @@
 //      (the A operands of the heads' products and of d[wi; wh], whose rows
 //      below (S - 1) n the chain would otherwise write again), rnd(dv1) in
 //      bf16, the column sums of dw2 and db1 and the sum db2 in fixed-order
-//      row parts, rnd(feats) in bf16, and the chains' dc zeroed;
+//      row parts, rnd(feats) in bf16, each chain's embedding rows of the
+//      placed tokens (so d[wi; wh] reads x densely: a token lookup inside
+//      the product stalls each slice's loads behind a dependent read), and
+//      the chains' dc zeroed;
 //   2. logits = rnd(h_p) @ hw + hb on wgmma (wgmma.cuh's group kernel, the
 //      bias in its epilogue);
 //   3. the softmax gradient, in place, with rnd(dlogits) in bf16 beside it;
@@ -69,24 +72,27 @@
 //      chain; at COCO width 16 slices x 4 row groups each, two row tiles a
 //      block a step); the two chains do not depend on each other, and each
 //      alone is bound by the latency of its step (a product from L2, the
-//      cell, a grid barrier), not by the card's width;
+//      cell, a grid barrier), not by the card's width. Each thread sums its
+//      cells' gate gradients for db as it forms them (db parts, one row per
+//      row group and thread row), so no float32 dg is written or read back;
 //   7. both chains' d[wi; wh] = rnd([x; h])^T rnd(dg) as one batched wgmma
 //      launch (same N = 4H, K = (S - 1) n), and 8. both dx = rnd(dg) @
 //      rnd(wi)^T as another;
-//   9. the column sums of dlogits and of both chains' dg in fixed-order row
-//      parts, and 10. one pass that adds every set of parts in order (the
-//      split-K slices, the column sums), sums dfeat over the steps and adds
-//      dh_head[0] to each chain's dh0.
+//   9. the column sums of dlogits in fixed-order row parts, and 10. one pass
+//      that adds every set of parts in order (the split-K slices, the column
+//      sums, the db parts), sums dfeat over the steps and adds dh_head[0] to
+//      each chain's dh0.
 // Float32 weights (the tests' path) keep the two heads on the CUDA-core tile
 // product of common.cuh and each chain's own backward in turn
 // (lstm_chain_backward).
 //
 // What bounds it: at N = 512, COCO width, ~171 GFLOP (0.17 ms on the tensor
-// cores). The heads' products are ~43 GFLOP on wgmma.cuh's tile, which L2
-// caps near 350 TFLOP/s (~0.12 ms); the recurrences are latency-bound steps
-// (each chain ~15 us a step alone, PERF.md), run side by side here; the
-// rest moves ~0.4 GB (the tape, the float32 logits and gate gradients, their
-// bf16 copies). PERF.md holds the times beside the bounds.
+// cores). The products run on wgmma.cuh's 128 x 128 tile, which L2 caps
+// near 350 TFLOP/s and whose pipeline reaches ~150-310 TFLOP/s here (short
+// depths pay its fill and epilogue); the recurrences are latency-bound steps
+// (~15 us a step, PERF.md), run side by side here; the rest moves ~0.3 GB
+// (the tape, the float32 logits, the bf16 operands). PERF.md holds the times
+// beside the bounds.
 #include "lstm_chain.cuh"
 
 namespace icrl {
@@ -287,13 +293,13 @@ using Bf = __nv_bfloat16;
 // depth of a split-K part in 64-deep slices.
 constexpr int PREP_PARTS = 32, SPLITK_MIN_SLICES = 4;
 
-// The plan; ops/fused_rollout.py:rollout_bwd_plan computes the same. Each
-// product of depth K = R = S n (dhw, dw1) is cut into parts so that the two
-// products' tiles times their parts fill the card's SMs once (a part keeps
-// at least SPLITK_MIN_SLICES slices); both recurrences share one launch,
-// each planned on half the SMs.
+// The plan; ops/fused_rollout.py:rollout_bwd_plan computes the same. Both
+// products of depth K = R = S n (dhw, dw1) are cut into as many parts as
+// keep the two products' tiles times their parts within the card's SMs (a
+// part keeps at least SPLITK_MIN_SLICES slices); both recurrences share one
+// launch, each planned on half the SMs.
 struct RolloutBwdPlan {
-  int parts_dhw, parts_dw1;
+  int parts;
   ChainPlan chain;
 };
 
@@ -302,23 +308,27 @@ inline int splitk_parts(int tiles, int K, int sms) {
   return std::max(1, std::min(sms / std::max(tiles, 1), nk / SPLITK_MIN_SLICES));
 }
 
-RolloutBwdPlan rollout_bwd_plan(int n, int S, int F, int H, int Vp, int sms, int pair) {
+RolloutBwdPlan rollout_bwd_plan(int n, int S, int F, int H, int Vp, int sms) {
   const int R = S * n;
   const int tiles = cdiv(H, wg::BM) * cdiv(Vp, wg::BN) + cdiv(F + H, wg::BM) * cdiv(H, wg::BN);
-  return {splitk_parts(tiles, R, sms), splitk_parts(tiles, R, sms),
-          chain_plan<Bf, true, 4>(n, H, pair == 2 ? sms / 2 : sms)};
+  return {splitk_parts(tiles, R, sms), chain_plan<Bf, true, 4>(n, H, sms / 2)};
 }
+
+// Rows of a chain's db parts (lstm_bwd_steps): one per row group and thread
+// row of a block.
+inline int db_rows(const ChainPlan& p) { return p.row_groups * (CHAIN_THREADS / p.units); }
 
 // The bf16 path's scratch.
 struct Bf16Layout {
-  float *logits, *dhw_part, *dw1_part, *dh_head, *dfh, *dg_p, *dg_v, *cpart, *ppart;
-  Bf *l16, *hp16, *hv16, *f16, *dv16, *dg16_p, *dg16_v;
+  float *logits, *dhw_part, *dw1_part, *dh_head, *dfh, *db_part_p, *db_part_v, *cpart, *ppart;
+  Bf *l16, *hp16, *hv16, *f16, *dv16, *px16, *vx16, *dg16_p, *dg16_v;
 };
 
-Bf16Layout bf16_layout(float* ws, int n, int S, int F, int H, int Vp, int parts_dhw,
-                       int parts_dw1, size_t* used = nullptr) {
+// db_rows: the recurrence pair's db parts per chain (db_rows(plan)).
+Bf16Layout bf16_layout(float* ws, int n, int S, int F, int E, int H, int Vp, int parts,
+                       int db_rows, size_t* used = nullptr) {
   Carver cv{ws};
-  const size_t R = (size_t)S * n, RH = R * H, R1G = (size_t)(S - 1) * n * 4 * H;
+  const size_t R = (size_t)S * n, RH = R * H, R1 = (size_t)(S - 1) * n, R1G = R1 * 4 * H;
   Bf16Layout l;
   l.logits = cv.take(R * Vp);
   l.l16 = cv.take<Bf>(R * Vp);
@@ -326,32 +336,37 @@ Bf16Layout bf16_layout(float* ws, int n, int S, int F, int H, int Vp, int parts_
   l.hv16 = cv.take<Bf>(RH);
   l.f16 = cv.take<Bf>((size_t)n * F);
   l.dv16 = cv.take<Bf>(RH);
-  l.dhw_part = cv.take((size_t)parts_dhw * H * Vp);
-  l.dw1_part = cv.take((size_t)parts_dw1 * (F + H) * H);
+  l.dhw_part = cv.take((size_t)parts * H * Vp);
+  l.dw1_part = cv.take((size_t)parts * (F + H) * H);
   l.dh_head = cv.take(RH);
   l.dfh = cv.take(R * (F + H));
-  l.dg_p = cv.take(R1G);
-  l.dg_v = cv.take(R1G);
+  l.px16 = cv.take<Bf>(R1 * E);
+  l.vx16 = cv.take<Bf>(R1 * E);
   l.dg16_p = cv.take<Bf>(R1G);
   l.dg16_v = cv.take<Bf>(R1G);
-  l.cpart = cv.take((size_t)COLSUM_PARTS * (Vp + 8 * H));
+  l.db_part_p = cv.take((size_t)db_rows * 4 * H);
+  l.db_part_v = cv.take((size_t)db_rows * 4 * H);
+  l.cpart = cv.take((size_t)COLSUM_PARTS * Vp);
   l.ppart = cv.take((size_t)PREP_PARTS * (2 * H + 1));
   if (used) *used = cv.used;
   return l;
 }
 
 struct PrepArgs {
-  int n, R, F, H;
+  int n, R, R1, F, E, H;
   const float *hp, *hv, *v1, *dval, *feats;
-  const Bf* w2;
-  Bf *hp16, *hv16, *f16, *dv16;
+  const int* tok;
+  const Bf *w2, *p_emb, *v_emb;
+  Bf *hp16, *hv16, *f16, *dv16, *px16, *vx16;
   float* part;  // [PREP_PARTS, 2H + 1]: dw2's column sums, db1's, db2
   float *dc_p, *dc_v;
 };
 
 // Block (x, y): 32 columns (a lane each) of rows part y, 8 warps striding the
-// rows; the warps' sums then add in order. The rest of the grid's threads
-// cast the features and zero dc.
+// rows; the warps' sums then add in order. Then every thread of the grid
+// takes a share of the rest: the features in bf16, each chain's embedding
+// rows of the placed tokens (x = emb[tok] [(S - 1) n, E], so that d[wi; wh]
+// reads its A operand densely, with no token lookup per chunk), dc zeroed.
 __global__ void __launch_bounds__(NT) rollout_bwd_prep_kernel(PrepArgs a) {
   __shared__ float sh[3][NT / 32][33];
   const int lane = threadIdx.x % 32, g = threadIdx.x / 32, j = blockIdx.x * 32 + lane;
@@ -396,59 +411,33 @@ __global__ void __launch_bounds__(NT) rollout_bwd_prep_kernel(PrepArgs a) {
   const size_t stride = (size_t)gridDim.x * gridDim.y * NT;
   for (size_t i = tid; i < (size_t)a.n * a.F; i += stride)
     a.f16[i] = __float2bfloat16_rn(a.feats[i]);
+  const int e8 = a.E / 8;  // 16-byte chunks of an embedding row
+  for (size_t i = tid; i < (size_t)a.R1 * e8; i += stride) {
+    const size_t r = i / e8, c = (i % e8) * 8, t = (size_t)__ldg(a.tok + r);
+    *reinterpret_cast<uint4*>(a.px16 + r * a.E + c) =
+        __ldg(reinterpret_cast<const uint4*>(a.p_emb + t * a.E + c));
+    *reinterpret_cast<uint4*>(a.vx16 + r * a.E + c) =
+        __ldg(reinterpret_cast<const uint4*>(a.v_emb + t * a.E + c));
+  }
   for (size_t i = tid; i < (size_t)a.n * a.H; i += stride) {
     a.dc_p[i] = 0.f;
     a.dc_v[i] = 0.f;
   }
 }
 
-// Column sums of three float32 arrays in one launch, as launch_colsum's first
-// pass: array z's 32-column blocks start at block first[z]; block (x, y) sums
-// rows part y of its 32 columns into part[y, off[z] + column].
-struct ColsumList {
-  const float* x[3];
-  int R[3], C[3], off[3], first[3];
-  float* part;
-  int ldp;
-};
-
-__global__ void __launch_bounds__(NT) colsum_parts_kernel(ColsumList l) {
-  __shared__ float sh[NT / 32][33];
-  int z = 0;
-#pragma unroll
-  for (int i = 1; i < 3; ++i)
-    if ((int)blockIdx.x >= l.first[i]) z = i;
-  const float* __restrict__ x = pick<3>(l.x, z);
-  const int R = pick<3>(l.R, z), C = pick<3>(l.C, z);
-  const int lane = threadIdx.x % 32, g = threadIdx.x / 32;
-  const int c = ((int)blockIdx.x - pick<3>(l.first, z)) * 32 + lane;
-  const int per = (R + COLSUM_PARTS - 1) / COLSUM_PARTS, r0 = blockIdx.y * per;
-  const int r1 = min(R, r0 + per);
-  float s = 0.f;
-  if (c < C)
-    for (int r = r0 + g; r < r1; r += NT / 32) s += x[(size_t)r * C + c];
-  sh[g][lane] = s;
-  __syncthreads();
-  if (g == 0 && c < C) {
-    float t = 0.f;
-#pragma unroll
-    for (int i = 0; i < NT / 32; ++i) t += sh[i][lane];
-    l.part[(size_t)blockIdx.y * l.ldp + pick<3>(l.off, z) + c] = t;
-  }
-}
-
 struct FinishArgs {
-  int n, S, F, H, V, Vp, parts_dhw, parts_dw1;
-  const float *dhw_part, *dw1_part, *cpart, *ppart, *dh_head, *dfh;
+  int n, S, F, H, V, Vp, parts, db_rows;
+  const float *dhw_part, *dw1_part, *db_part_p, *db_part_v, *cpart, *ppart, *dh_head, *dfh;
   float *dhw, *dw1, *dhb, *db_p, *db_v, *dw2, *db1, *db2, *dfeat, *dph1, *dvh1;
 };
 
 constexpr int FINISH_BLOCKS = 128;
 
 // Every sum of parts, each in the order p = 0, 1, ...: blockIdx.y 0 dhw
-// [H, V] from its split-K slices [P, H, Vp], 1 dw1, 2 the column sums (dhb,
-// both db, dw2, db1, db2); 3 dfeat over the steps (last first) and dh0 +
-// dh_head[0] of each chain (dh_head[0] alone when no chain ran, S = 1).
+// [H, V] from its split-K slices [P, H, Vp], 1 dw1, 2 the column sums (dhb;
+// each chain's db from the recurrence's parts, zero when no chain ran;
+// dw2, db1, db2); 3 dfeat over the steps (last first) and dh0 + dh_head[0]
+// of each chain (dh_head[0] alone when no chain ran, S = 1).
 __global__ void __launch_bounds__(NT) rollout_bwd_finish_kernel(FinishArgs a) {
   const size_t stride = (size_t)gridDim.x * NT, i0 = (size_t)blockIdx.x * NT + threadIdx.x;
   const int H = a.H, FH = a.F + H, G = 4 * H;
@@ -457,27 +446,32 @@ __global__ void __launch_bounds__(NT) rollout_bwd_finish_kernel(FinishArgs a) {
     for (size_t i = i0; i < (size_t)H * a.V; i += stride) {
       const size_t o = i / a.V * a.Vp + i % a.V;
       float t = 0.f;
-      for (int p = 0; p < a.parts_dhw; ++p) t += a.dhw_part[p * slice + o];
+      for (int p = 0; p < a.parts; ++p) t += a.dhw_part[p * slice + o];
       a.dhw[i] = t;
     }
   } else if (blockIdx.y == 1) {
     const size_t slice = (size_t)FH * H;
     for (size_t i = i0; i < slice; i += stride) {
       float t = 0.f;
-      for (int p = 0; p < a.parts_dw1; ++p) t += a.dw1_part[p * slice + i];
+      for (int p = 0; p < a.parts; ++p) t += a.dw1_part[p * slice + i];
       a.dw1[i] = t;
     }
   } else if (blockIdx.y == 2) {
-    const int lc = a.Vp + 2 * G, lp = 2 * H + 1;
-    for (size_t i = i0; i < (size_t)(lc + lp); i += stride) {
+    const int lp = 2 * H + 1, rows = a.S > 1 ? a.db_rows : 0;
+    for (size_t i = i0; i < (size_t)(a.Vp + 2 * G + lp); i += stride) {
       float t = 0.f;
       float* dst;
-      if (i < (size_t)lc) {
-        for (int p = 0; p < COLSUM_PARTS; ++p) t += a.cpart[(size_t)p * lc + i];
-        dst = i < (size_t)a.Vp ? a.dhb + i : i < (size_t)(a.Vp + G) ? a.db_p + i - a.Vp
-                                                                     : a.db_v + i - a.Vp - G;
+      if (i < (size_t)a.Vp) {
+        for (int p = 0; p < COLSUM_PARTS; ++p) t += a.cpart[(size_t)p * a.Vp + i];
+        dst = a.dhb + i;
+      } else if (i < (size_t)(a.Vp + 2 * G)) {
+        const size_t c = (i - a.Vp) % G;
+        const bool v = i >= (size_t)(a.Vp + G);
+        const float* part = v ? a.db_part_v : a.db_part_p;
+        for (int p = 0; p < rows; ++p) t += part[(size_t)p * G + c];
+        dst = (v ? a.db_v : a.db_p) + c;
       } else {
-        const size_t k = i - lc;
+        const size_t k = i - a.Vp - 2 * G;
         for (int p = 0; p < PREP_PARTS; ++p) t += a.ppart[(size_t)p * lp + k];
         dst = k < (size_t)H ? a.dw2 + k : k < (size_t)(2 * H) ? a.db1 + k - H : a.db2;
       }
@@ -503,20 +497,20 @@ __global__ void __launch_bounds__(NT) rollout_bwd_finish_kernel(FinishArgs a) {
 // Both encoders' backward recurrences in one cooperative launch: blockIdx.z
 // picks the chain, (x, y) its slice and row group as in lstm_bwd_kernel.
 // rnd(h) is already in each chain's h16 (the prep pass), so the recurrence
-// does not write it.
+// does not write it; it sums db into db_part instead of writing a float32 dg.
 template <typename W>
 struct ChainPair {
   ChainBwdArgs<W> c[2];
-  int chains;  // TRIAL: 2 = both in one launch, 1 = c[0] alone
+  float* db_part[2];
 };
 
 template <typename W, int U, bool kStream>
 __global__ void __launch_bounds__(CHAIN_THREADS, 1) lstm_bwd_pair_kernel(ChainPair<W> a) {
   extern __shared__ __align__(16) unsigned char pair_smem[];
   if (blockIdx.z)
-    lstm_bwd_steps<W, U, kStream, false>(a.c[1], pair_smem);
+    lstm_bwd_steps<W, U, kStream, true>(a.c[1], pair_smem, a.db_part[1]);
   else
-    lstm_bwd_steps<W, U, kStream, false>(a.c[0], pair_smem);
+    lstm_bwd_steps<W, U, kStream, true>(a.c[0], pair_smem, a.db_part[0]);
 }
 
 template <typename W>
@@ -524,20 +518,21 @@ struct LstmPairLaunch {
   template <int U, bool kStream>
   struct At {
     static cudaError_t run(const ChainPlan& p, const ChainPair<W>& a, cudaStream_t s) {
-      return launch_chain(lstm_bwd_pair_kernel<W, U, kStream>, p, a, s, a.chains);
+      return launch_chain(lstm_bwd_pair_kernel<W, U, kStream>, p, a, s, 2);
     }
   };
 };
 
 int rollout_bwd_bf16(const BwdIn& in, const BwdOut& o, const Bf16Layout& L,
-                     const RolloutBwdPlan& plan, int pair_chains, cudaStream_t s) {
+                     const RolloutBwdPlan& plan, cudaStream_t s) {
   const int n = in.n, S = in.S, F = in.F, E = in.E, H = in.H, Vp = in.Vp;
   const int G = 4 * H, FH = F + H, R = S * n, R1 = (S - 1) * n;
   auto b = [](const void* p) { return static_cast<const Bf*>(p); };
   // 1. the bf16 operands, dw2 / db1 / db2's parts, dc = 0
   rollout_bwd_prep_kernel<<<dim3(cdiv(H, 32), PREP_PARTS), NT, 0, s>>>(
-      PrepArgs{n, R, F, H, in.hp, in.hv, in.v1, in.dval, in.feats, b(in.w2), L.hp16, L.hv16,
-               L.f16, L.dv16, L.ppart, o.dpc1, o.dvc1});
+      PrepArgs{n, R, R1, F, E, H, in.hp, in.hv, in.v1, in.dval, in.feats, in.tok, b(in.w2),
+               b(in.p_emb), b(in.v_emb), L.hp16, L.hv16, L.f16, L.dv16, L.px16, L.vx16,
+               L.ppart, o.dpc1, o.dvc1});
   ICRL_CHECK(cudaGetLastError());
   // 2. logits = rnd(h_p) @ hw + hb
   ICRL_CHECK((launch_wgmma_group<false, true>(
@@ -552,7 +547,7 @@ int rollout_bwd_bf16(const BwdIn& in, const BwdOut& o, const Bf16Layout& L,
   // split-K parts
   ICRL_CHECK((launch_wgmma_group<true, true>(
       WgmmaGroup<SplitRows, SplitRows, 2>{
-          {H, FH}, {Vp, H}, {R, R}, {plan.parts_dhw, plan.parts_dw1}, {},
+          {H, FH}, {Vp, H}, {R, R}, {plan.parts, plan.parts}, {},
           {dense_rows(L.hp16, R, H, H), SplitRows{L.f16, L.hv16, R, FH, F, F, H, n}},
           {dense_rows(L.l16, R, Vp, Vp), dense_rows(L.dv16, R, H, H)},
           {L.dhw_part, L.dw1_part}, {nullptr, nullptr}},
@@ -569,28 +564,24 @@ int rollout_bwd_bf16(const BwdIn& in, const BwdOut& o, const Bf16Layout& L,
     // 6. both recurrences: upstream dh_head[t + 1] of the policy, the h half
     // of dfh of the value
     const size_t NH = (size_t)n * H, NFH = (size_t)n * FH;
-    const ChainBwdArgs<Bf> cp{n, S - 1, H, plan.chain.row_groups, L.dh_head + NH, H, (long)NH,
-                              in.hp, in.cp, in.gp, b(in.p_w) + (size_t)E * G, L.dg_p, L.dg16_p,
-                              L.hp16, o.dph1, o.dpc1};
-    const ChainBwdArgs<Bf> cv{n, S - 1, H, plan.chain.row_groups, L.dfh + NFH + F, FH, (long)NFH,
-                              in.hv, in.cv, in.gv, b(in.v_w) + (size_t)E * G, L.dg_v, L.dg16_v,
-                              L.hv16, o.dvh1, o.dvc1};
-    if (pair_chains == 2) {
-      ICRL_CHECK((launch_planned<Bf, true, 4, LstmPairLaunch<Bf>::template At>(
-          plan.chain, ChainPair<Bf>{{cp, cv}, 2}, s)));
-    } else {  // TRIAL: in turn, each on the whole card
-      ICRL_CHECK((launch_planned<Bf, true, 4, LstmPairLaunch<Bf>::template At>(
-          plan.chain, ChainPair<Bf>{{cp, cp}, 1}, s)));
-      ICRL_CHECK((launch_planned<Bf, true, 4, LstmPairLaunch<Bf>::template At>(
-          plan.chain, ChainPair<Bf>{{cv, cv}, 1}, s)));
-    }
-    // 7. d[wi; wh] = rnd([x; h_prev])^T rnd(dg) of both chains
+    const ChainPair<Bf> pair{
+        {ChainBwdArgs<Bf>{n, S - 1, H, plan.chain.row_groups, L.dh_head + NH, H, (long)NH,
+                          in.hp, in.cp, in.gp, b(in.p_w) + (size_t)E * G, nullptr, L.dg16_p,
+                          L.hp16, o.dph1, o.dpc1},
+         ChainBwdArgs<Bf>{n, S - 1, H, plan.chain.row_groups, L.dfh + NFH + F, FH, (long)NFH,
+                          in.hv, in.cv, in.gv, b(in.v_w) + (size_t)E * G, nullptr, L.dg16_v,
+                          L.hv16, o.dvh1, o.dvc1}},
+        {L.db_part_p, L.db_part_v}};
+    ICRL_CHECK((launch_planned<Bf, true, 4, LstmPairLaunch<Bf>::template At>(plan.chain, pair,
+                                                                               s)));
+    // 7. d[wi; wh] = rnd([x; h_prev])^T rnd(dg) of both chains, x the
+    // gathered embedding rows
     ICRL_CHECK((launch_wgmma_batch<true>(
         G, R1,
-        WgmmaProblems<TokenStateRows, DenseRows, 2>{
+        WgmmaProblems<SplitRows, DenseRows, 2>{
             {E + H, E + H},
-            {TokenStateRows{b(in.p_emb), in.tok, L.hp16, R1, E, H},
-             TokenStateRows{b(in.v_emb), in.tok, L.hv16, R1, E, H}},
+            {SplitRows{L.px16, L.hp16, R1, E + H, E, E, H, 0},
+             SplitRows{L.vx16, L.hv16, R1, E + H, E, E, H, 0}},
             {DenseRows{L.dg16_p, R1, G, G}, DenseRows{L.dg16_v, R1, G, G}},
             {o.dpw, o.dvw},
             {nullptr, nullptr}},
@@ -609,17 +600,15 @@ int rollout_bwd_bf16(const BwdIn& in, const BwdOut& o, const Bf16Layout& L,
     ICRL_CHECK(cudaMemsetAsync(o.dpw, 0, sizeof(float) * (E + H) * G, s));
     ICRL_CHECK(cudaMemsetAsync(o.dvw, 0, sizeof(float) * (E + H) * G, s));
   }
-  // 9. the column sums' parts: dhb over dlogits, db over each chain's dg
-  const int cb = cdiv(Vp, 32), gb = cdiv(G, 32);
-  colsum_parts_kernel<<<dim3(cb + 2 * gb, COLSUM_PARTS), NT, 0, s>>>(
-      ColsumList{{L.logits, L.dg_p, L.dg_v}, {R, R1, R1}, {Vp, G, G}, {0, Vp, Vp + G},
-                 {0, cb, cb + gb}, L.cpart, Vp + 2 * G});
+  // 9. dhb's parts: the column sums of dlogits
+  colsum_part_kernel<<<dim3(cdiv(Vp, 32), COLSUM_PARTS), NT, 0, s>>>(R, Vp, L.logits, L.cpart);
   ICRL_CHECK(cudaGetLastError());
   // 10. every sum of parts, dfeat, dh0 + dh_head[0]
   rollout_bwd_finish_kernel<<<dim3(FINISH_BLOCKS, 4), NT, 0, s>>>(
-      FinishArgs{n, S, F, H, in.V, Vp, plan.parts_dhw, plan.parts_dw1, L.dhw_part, L.dw1_part,
-                 L.cpart, L.ppart, L.dh_head, L.dfh, o.dhw, o.dw1, o.dhb, o.dpb, o.dvb, o.dw2,
-                 o.db1, o.db2, o.dfeat, o.dph1, o.dvh1});
+      FinishArgs{n, S, F, H, in.V, Vp, plan.parts, db_rows(plan.chain),
+                 L.dhw_part, L.dw1_part, L.db_part_p, L.db_part_v, L.cpart, L.ppart, L.dh_head,
+                 L.dfh, o.dhw, o.dw1, o.dhb, o.dpb, o.dvb, o.dw2, o.db1, o.db2, o.dfeat,
+                 o.dph1, o.dvh1});
   return (int)cudaGetLastError();
 }
 
@@ -628,13 +617,14 @@ int rollout_bwd_bf16(const BwdIn& in, const BwdOut& o, const Bf16Layout& L,
 
 extern "C" {
 
-// Float32 elements of the workspace icrl_rollout_bwd needs (parts_*: the
-// plan's; unused with float32 weights).
-size_t icrl_rollout_bwd_workspace_floats(int n, int S, int F, int H, int Vp, int bf16,
-                                         int parts_dhw, int parts_dw1) {
+// Float32 elements of the workspace icrl_rollout_bwd needs. parts: the bf16
+// plan's split-K parts; db_rows: its recurrence pair's rows of db parts per
+// chain, row_groups (256 / units). Unused with float32 weights.
+size_t icrl_rollout_bwd_workspace_floats(int n, int S, int F, int E, int H, int Vp, int bf16,
+                                         int parts, int db_rows) {
   size_t used = 0;
   if (bf16)
-    icrl::bf16_layout(nullptr, n, S, F, H, Vp, parts_dhw, parts_dw1, &used);
+    icrl::bf16_layout(nullptr, n, S, F, E, H, Vp, parts, db_rows, &used);
   else
     icrl::f32_layout(nullptr, n, S, F, H, Vp, &used);
   return used;
@@ -649,14 +639,14 @@ size_t icrl_rollout_bwd_workspace_floats(int n, int S, int F, int H, int Vp, int
 // [n, F]; dph1, dpc1, dvh1, dvc1 [n, H] (the start states' cotangents); dpw,
 // dvw [E + H, 4H]; dpb, dvb [4H]; dhw [H, V]; dhb [Vp]; dw1 [F + H, H]; db1,
 // dw2 [H]; db2 [1]; dxp, dxv [(S - 1) n, E]. With bf16 weights the plan
-// (parts_dhw, parts_dw1, then the recurrence pair's rows per tile, units,
+// (the split-K parts, then the recurrence pair's rows per tile, units,
 // streaming, grid columns, row groups, shared bytes) must be
 // rollout_bwd_plan's; float32 weights take none (zeros). Runs on CUDA device
 // `device`, on `stream` (the caller's current device is restored after it).
 // Returns 0 or the first CUDA error.
-int icrl_rollout_bwd(int n, int S, int F, int E, int H, int V, int Vp, int bf16, int parts_dhw,
-                     int parts_dw1, int rows_per_tile, int units, int stream, int grid_x,
-                     int row_groups, int smem, int pair_chains, const int* tok, const int* act,
+int icrl_rollout_bwd(int n, int S, int F, int E, int H, int V, int Vp, int bf16, int parts,
+                     int rows_per_tile, int units, int stream, int grid_x,
+                     int row_groups, int smem, const int* tok, const int* act,
                      const float* dlogp, const float* dval, const float* feats, const float* hp,
                      const float* cp, const float* gp, const float* hv, const float* cv,
                      const float* gv, const float* v1, const void* p_emb, const void* p_w,
@@ -679,13 +669,13 @@ int icrl_rollout_bwd(int n, int S, int F, int E, int H, int V, int Vp, int bf16,
   if (n == 0 || S == 0) {
     ret = 0;
   } else if (bf16) {
-    const RolloutBwdPlan p = rollout_bwd_plan(n, S, F, H, Vp, device_sms(), pair_chains);
-    if (p.parts_dhw != parts_dhw || p.parts_dw1 != parts_dw1 ||
+    const RolloutBwdPlan p = rollout_bwd_plan(n, S, F, H, Vp, device_sms());
+    if (p.parts != parts ||
         !plan_matches(p.chain, rows_per_tile, units, stream, grid_x, row_groups, smem))
       ret = (int)cudaErrorInvalidValue;
     else
-      ret = rollout_bwd_bf16(in, o, bf16_layout(ws, n, S, F, H, Vp, parts_dhw, parts_dw1), p,
-                             pair_chains, s);
+      ret = rollout_bwd_bf16(
+          in, o, bf16_layout(ws, n, S, F, E, H, Vp, parts, db_rows(p.chain)), p, s);
   } else {
     ret = rollout_bwd_f32(in, o, f32_layout(ws, n, S, F, H, Vp), s);
   }

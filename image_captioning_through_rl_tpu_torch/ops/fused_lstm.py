@@ -49,7 +49,7 @@ def _step_major(tokens: torch.Tensor) -> torch.Tensor:
 # depth of a staged slice, the slots of the ring, and the hidden units per
 # block the plan tries, widest first.
 _CHAIN_RING = {torch.bfloat16: (128, 5, (32, 16, 8)), torch.float32: (32, 4, (8,))}
-CHAIN_ROWS = 64
+CHAIN_ROWS, CHAIN_THREADS = 64, 256  # rows per tile, threads per block
 # H100 shared memory: per SM, the most one block may opt in to, and what the
 # runtime reserves per block.
 SMEM_PER_SM, SMEM_PER_BLOCK, SMEM_RESERVED = 233472, 232448, 1024

@@ -57,8 +57,9 @@ import torch
 from ..models import policy as policy_mod
 from ..models import value as value_mod
 from .fused_decode import check_tile_widths, round_to, token_gate_table, wmatmul
-from .fused_lstm import (_CHAIN_RING, CHAIN_ROWS, SMEM_PER_BLOCK, SMEM_PER_SM, SMEM_RESERVED,
-                         _chain_smem, chain_plan, embedding_grad, lstm_chain_backward_plain)
+from .fused_lstm import (_CHAIN_RING, CHAIN_ROWS, CHAIN_THREADS, SMEM_PER_BLOCK, SMEM_PER_SM,
+                         SMEM_RESERVED, _chain_smem, chain_plan, embedding_grad,
+                         lstm_chain_backward_plain)
 from .kernel_build import check_error, load_library
 from .linalg import dense
 from .padding import needs_padding, pad8, pad_cell, pad_dim, pad_split_rows
@@ -707,8 +708,6 @@ def rollout_forward_kernel(curr: int, teach_sm: torch.Tensor, noise: torch.Tenso
     return values, logp, rewards, tape
 
 
-_PAIR_CHAINS = 2  # TRIAL: 2 = both recurrences in one launch, 1 = in turn
-
 # csrc/wgmma.cuh: the output tile and the depth slice of a block; the least
 # depth of a split-K part, in slices (csrc/rollout.cu SPLITK_MIN_SLICES)
 WG_TILE, WG_SLICE, SPLITK_MIN_SLICES = 128, 64, 4
@@ -754,15 +753,17 @@ def rollout_bwd_plan(n: int, steps: int, feat_dim: int, hidden: int, vp: int,
     """The bf16 rollout backward's launch plan, as ``csrc/rollout.cu:
     rollout_bwd_plan`` computes it (float32 weights take none).
 
-    ``parts``: the split-K parts of ``dhw = rnd(h_p)^T rnd(dlogits)`` (``tiles``
-    ``ceil(H / 128) x ceil(Vp / 128)``) and ``dw1 = rnd([feats; h_v])^T
-    rnd(dv1)`` (``ceil((F + H) / 128) x ceil(H / 128)``), both of depth
-    ``S n`` (:func:`split_k_parts` over the two products' tiles).
+    ``parts``: the split-K parts of each of ``dhw = rnd(h_p)^T rnd(dlogits)``
+    (``tiles`` ``ceil(H / 128) x ceil(Vp / 128)``) and ``dw1 = rnd([feats;
+    h_v])^T rnd(dv1)`` (``ceil((F + H) / 128) x ceil(H / 128)``), both of
+    depth ``S n`` (:func:`split_k_parts` over the two products' tiles).
     ``chains``: the plan of each encoder's backward recurrence,
     :func:`.fused_lstm.chain_plan` on half the SMs; the two run in one
     cooperative launch of ``grid = (grid_x, row_groups, 2)`` blocks, block
     ``(x, g, c)`` taking chain c's slices and row tiles as a chain's block
-    ``(x, g)`` does. A card of fewer than two SMs is refused."""
+    ``(x, g)`` does, and sums its cells' gate gradients into ``db_rows =
+    row_groups x (CHAIN_THREADS / units)`` rows of parts per chain. A card of fewer than
+    two SMs is refused."""
     if sm_count < 2:
         raise ValueError(f"the rollout backward runs two chains side by side: it needs at least "
                          f"2 SMs, got {sm_count}")
@@ -770,21 +771,23 @@ def rollout_bwd_plan(n: int, steps: int, feat_dim: int, hidden: int, vp: int,
     tiles = {"dhw": -(-hidden // WG_TILE) * -(-vp // WG_TILE),
              "dw1": -(-(feat_dim + hidden) // WG_TILE) * -(-hidden // WG_TILE)}
     total = sum(tiles.values())
-    chains = chain_plan(n, hidden, torch.bfloat16, sm_count // _PAIR_CHAINS, backward=True)
+    chains = chain_plan(n, hidden, torch.bfloat16, sm_count // 2, backward=True)
     return {"depth": depth, "tiles": tiles,
-            "parts": {k: split_k_parts(total, depth, sm_count) for k in tiles},
-            "chains": chains, "grid": chains["grid"] + (2,)}
+            "parts": split_k_parts(total, depth, sm_count),
+            "chains": chains, "grid": chains["grid"] + (2,),
+            "db_rows": chains["row_groups"] * (CHAIN_THREADS // chains["units"])}
 
 
 @functools.lru_cache(maxsize=None)
 def _rollout_bwd_plan_args(n: int, steps: int, feat_dim: int, hidden: int, vp: int,
                            index: int) -> tuple:
-    """The bf16 plan's launch arguments for the card ``index`` (cached)."""
+    """The bf16 plan's launch arguments for the card ``index`` (cached), and
+    its rows of db parts."""
     sms = torch.cuda.get_device_properties(index).multi_processor_count
     p = rollout_bwd_plan(n, steps, feat_dim, hidden, vp, sms)
     c = p["chains"]
-    return (p["parts"]["dhw"], p["parts"]["dw1"], c["rows_per_tile"], c["units"],
-            int(c["stream"]), c["grid"][0], c["row_groups"], c["smem_bytes"], _PAIR_CHAINS)
+    return (p["parts"], c["rows_per_tile"], c["units"], int(c["stream"]), c["grid"][0],
+            c["row_groups"], c["smem_bytes"]), p["db_rows"]
 
 
 def _carved_size(shapes) -> int:
@@ -822,9 +825,11 @@ def rollout_backward_kernel(tape: RolloutTape, feats: torch.Tensor, w: RolloutWe
     r1 = (steps - 1) * n
     shapes = _bwd_grad_shapes(n, f, emb_dim, hidden, vocab, vp)
     grads = _carve(torch.empty(_carved_size(shapes), dtype=_F32, device=dev), shapes)
-    plan = _rollout_bwd_plan_args(n, steps, f, hidden, vp, dev.index) if bf16 else (0,) * 9
+    plan, db_rows = (_rollout_bwd_plan_args(n, steps, f, hidden, vp, dev.index) if bf16
+                     else ((0,) * 7, 0))
     lib = load_library()
-    ws_floats = lib.icrl_rollout_bwd_workspace_floats(n, steps, f, hidden, vp, bf16, *plan[:2])
+    ws_floats = lib.icrl_rollout_bwd_workspace_floats(n, steps, f, emb_dim, hidden, vp, bf16,
+                                                      plan[0], db_rows)
     dx_shapes = ((r1, emb_dim), (r1, emb_dim))
     scratch = torch.empty(_carved_size(dx_shapes) + ws_floats, dtype=_F32, device=dev)
     dxp, dxv = _carve(scratch, dx_shapes)

@@ -48,8 +48,8 @@ _SIGNATURES = {
     "icrl_reward_stream": (_I, [_I] * 4 + [_P] * 12),
     "icrl_rollout_workspace_floats": (ctypes.c_size_t, [_I] * 3),
     "icrl_rollout_fwd": (_I, [_I] * 15 + [_P] * 37),
-    "icrl_rollout_bwd_workspace_floats": (ctypes.c_size_t, [_I] * 8),
-    "icrl_rollout_bwd": (_I, [_I] * 17 + [_P] * 38 + [_I, _P]),
+    "icrl_rollout_bwd_workspace_floats": (ctypes.c_size_t, [_I] * 9),
+    "icrl_rollout_bwd": (_I, [_I] * 15 + [_P] * 38 + [_I, _P]),
     "icrl_error_string": (ctypes.c_char_p, [_I]),
 }
 

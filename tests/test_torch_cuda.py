@@ -884,32 +884,44 @@ def test_rollout_backward_kernel_is_deterministic(dev, wd):
         assert torch.equal(a, b), i
 
 
+def _profiled_kernels(call, complete):
+    """The device kernels of one call of ``call`` (torch.profiler). The
+    tracer now and then misses the first launches of a window: a window
+    that ``complete(names)`` finds short is taken again, up to three in
+    all."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() for _ in range(e.count)
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if complete(names):
+            break
+    return names
+
+
 @pytest.mark.cuda
 def test_rollout_backward_launches_do_not_grow_with_steps(dev):
     """A bf16 backward launches its own ten kernels (prep, three wgmma
     groups, the softmax gradient, the recurrence pair, two wgmma batches,
     the column sums, the finishing pass) at S = 8 and 16 alike, and no
     view_kernel or linear_kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     own = ("rollout_bwd_prep_kernel", "wgmma_group_kernel", "softmax_grad_rows_kernel",
-           "lstm_bwd_pair_kernel", "wgmma_gemm_kernel", "colsum_parts_kernel",
+           "lstm_bwd_pair_kernel", "wgmma_gemm_kernel", "colsum_part_kernel",
            "rollout_bwd_finish_kernel")
     counts = {}
     for steps in (8, 16):
         args = _wide_rollout_case(dev, torch.bfloat16, 1, (256, 512, 1004, steps), True)
         _, _, _, tape = fr.rollout_forward_kernel(*args)
         dval = torch.ones(tape.act.shape, device=dev)
-        fr.rollout_backward_kernel(tape, args[4], args[-1], dval, dval)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fr.rollout_backward_kernel(tape, args[4], args[-1], dval, dval)
-            torch.cuda.synchronize()
-        names = [e.key for e in prof.key_averages() for _ in range(e.count)
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        names = _profiled_kernels(
+            lambda: fr.rollout_backward_kernel(tape, args[4], args[-1], dval, dval),
+            lambda names: sum(any(k in name for k in own) for name in names) >= 10)
         assert not any("view_kernel" in k or "linear_kernel" in k for k in names), names
         counts[steps] = {k: sum(k in name for name in names) for k in own}
     assert counts[8] == counts[16] == {
         "rollout_bwd_prep_kernel": 1, "wgmma_group_kernel": 3, "softmax_grad_rows_kernel": 1,
-        "lstm_bwd_pair_kernel": 1, "wgmma_gemm_kernel": 2, "colsum_parts_kernel": 1,
+        "lstm_bwd_pair_kernel": 1, "wgmma_gemm_kernel": 2, "colsum_part_kernel": 1,
         "rollout_bwd_finish_kernel": 1}, counts

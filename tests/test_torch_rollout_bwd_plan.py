@@ -46,26 +46,25 @@ def test_split_k_plan_covers_every_depth_of_every_product_once(hidden):
             p = fr.rollout_bwd_plan(n, steps, hidden, hidden, vp, SMS)
             depth = steps * n
             assert p["depth"] == depth
-            blocks = 0
-            for name, parts in p["parts"].items():
-                assert parts >= 1
-                ranges = fr.split_k_ranges(depth, parts)
-                assert len(ranges) == parts
-                seen = np.zeros(depth, dtype=int)
-                for k0, k1 in ranges:
-                    assert k0 % fr.WG_SLICE == 0 and k0 < k1 <= depth, (name, ranges)
-                    if parts > 1:  # a part keeps a few slices of the depth
-                        assert k1 - k0 > (fr.SPLITK_MIN_SLICES - 1) * fr.WG_SLICE
-                    seen[k0:k1] += 1
-                assert (seen == 1).all(), (name, depth, parts)
-                blocks += p["tiles"][name] * parts
+            # both products have this depth and take the same parts
+            parts = p["parts"]
+            assert parts >= 1
+            ranges = fr.split_k_ranges(depth, parts)
+            assert len(ranges) == parts
+            seen = np.zeros(depth, dtype=int)
+            for k0, k1 in ranges:
+                assert k0 % fr.WG_SLICE == 0 and k0 < k1 <= depth, ranges
+                if parts > 1:  # a part keeps a few slices of the depth
+                    assert k1 - k0 > (fr.SPLITK_MIN_SLICES - 1) * fr.WG_SLICE
+                seen[k0:k1] += 1
+            assert (seen == 1).all(), (depth, parts)
             # the parts fill the card once, never more than the tiles alone;
             # a card less than half full has as many parts as the depth allows
             tiles = sum(p["tiles"].values())
+            blocks = tiles * parts
             assert blocks <= max(SMS, tiles)
             slices = -(-depth // fr.WG_SLICE)
-            assert blocks > SMS // 2 or all(
-                parts == max(1, slices // fr.SPLITK_MIN_SLICES) for parts in p["parts"].values())
+            assert blocks > SMS // 2 or parts == max(1, slices // fr.SPLITK_MIN_SLICES)
 
 
 def test_split_k_plan_at_coco_width():
@@ -74,7 +73,7 @@ def test_split_k_plan_at_coco_width():
     of the 132 SMs, each part 64 slices deep."""
     p = fr.rollout_bwd_plan(512, 16, 512, 512, 1008, SMS)
     assert p["tiles"] == {"dhw": 32, "dw1": 32}
-    assert p["parts"] == {"dhw": 2, "dw1": 2}
+    assert p["parts"] == 2
     assert fr.split_k_ranges(8192, 2) == [(0, 4096), (4096, 8192)]
 
 
@@ -141,6 +140,8 @@ def test_pair_plan_at_coco_width():
     p = fr.rollout_bwd_plan(512, 16, 512, 512, 1008, SMS)
     assert p["grid"] == (16, 4, 2) and p["chains"]["units"] == 32
     assert not p["chains"]["stream"] and -(-512 // p["chains"]["rows_per_tile"]) == 2 * 4
+    # each block's 256 threads hold 8 rows of 32 units: 4 x 8 rows of db parts
+    assert p["db_rows"] == 32
 
 
 def test_pair_plan_refuses_what_one_sm_cannot_hold():
