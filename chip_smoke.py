@@ -887,6 +887,20 @@ def short_kernel_name(name: str) -> str:
     return found[0] if found else name[:48]
 
 
+# How long a torch.profiler window stays idle before its first launch: the
+# tracer takes effect some time after the window opens (on the H100 machine
+# windows lost their first ~0.01-3.5 ms of launches: one x-gate table of
+# ten, the first three kernels of a rollout backward, two of three rollout
+# forwards).
+TRACER_SETTLE_S = 0.05
+
+
+def settle_tracer() -> None:
+    """The card idle for TRACER_SETTLE_S inside a freshly opened window."""
+    torch.cuda.synchronize()
+    time.sleep(TRACER_SETTLE_S)
+
+
 def profile_window(step_fn, iters: int) -> str:
     """torch.profiler over ``iters`` calls of ``step_fn``: device ms per
     call, its busy share of the wall time, and the kernels that take the
@@ -896,6 +910,7 @@ def profile_window(step_fn, iters: int) -> str:
     step_fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        settle_tracer()
         t0 = time.perf_counter()
         for _ in range(iters):
             step_fn()
@@ -925,17 +940,16 @@ def device_ops(prof) -> tuple[dict, dict]:
 
 def device_profile(call, iters: int = 1, complete=None) -> tuple[dict, dict]:
     """:func:`device_ops` of a torch.profiler window over ``iters`` calls of
-    ``call``. The tracer now and then misses launches at the start of a
-    window (seen on the H100 machine: a whole window with no device event,
-    once; the first one to three launches of a window, a few times, with
-    full windows before and after in the same process, warm-up step or
-    not). A window with no device event is taken again, and so is one
-    whose launch counts ``complete(counts)`` finds short, up to three
-    windows in all; a count that is short in all three is the answer."""
+    ``call``, made once the tracer has settled (:func:`settle_tracer`).
+    CUPTI has also handed back, once, a window with no device event at all:
+    such a window is taken again, and so is one whose launch counts
+    ``complete(counts)`` finds short, up to three windows in all; a count
+    that is short in all three is the answer."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            settle_tracer()
             for _ in range(iters):
                 call()
             torch.cuda.synchronize()
@@ -972,7 +986,9 @@ def chain_launches(dev) -> dict:
             for d, run in (("fwd", lambda: chain(params, emb, tok, *states)),
                            ("bwd", lambda: torch.autograd.grad(
                                hs, [*params.values(), emb, *states], dhs, retain_graph=True))):
-                ms, counts = device_profile(run)
+                ms, counts = device_profile(run, complete=lambda c: (
+                    c.get(f"{kind}_{d}_kernel", 0) >= 1
+                    and c.get("wgmma_gemm_kernel", 0) >= (1 if d == "fwd" else 2)))
                 out[(kind, steps, d)] = {k: counts[k] for k in CHAIN_KERNELS if counts.get(k)}
                 out[(kind, steps, d, "ms")] = ms.get(f"{kind}_{d}_kernel", 0.0)
                 out[(kind, steps, d, "device")] = sum(ms.values())
@@ -994,7 +1010,7 @@ def rollout_fwd_profile(call, iters: int = 3) -> str:
     none of the per-step kernels it replaced."""
     call()
     torch.cuda.synchronize()
-    ms, counts = device_profile(call, iters)
+    ms, counts = device_profile(call, iters, lambda c: c.get("rollout_fwd_kernel", 0) >= iters)
     per_call = {k: counts[k] / iters for k in counts}
     if per_call.get("rollout_fwd_kernel") != 1 or any(k in per_call for k in ROLLOUT_FWD_GONE):
         raise AssertionError(f"rollout forward launches per call: {per_call}")

@@ -885,14 +885,20 @@ def test_rollout_backward_kernel_is_deterministic(dev, wd):
 
 
 def _profiled_kernels(call, complete):
-    """The device kernels of one call of ``call`` (torch.profiler). The
-    tracer now and then misses the first launches of a window: a window
-    that ``complete(names)`` finds short is taken again, up to three in
+    """The device kernels of one call of ``call`` (torch.profiler), after a
+    call outside the window. The tracer takes effect some time after a
+    window opens, so the card idles 50 ms before the call; a window that
+    ``complete(names)`` still finds short is taken again, up to three in
     all."""
+    import time
+
     from torch.profiler import ProfilerActivity, profile
 
+    call()
+    torch.cuda.synchronize()
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
             call()
             torch.cuda.synchronize()
         names = [e.key for e in prof.key_averages() for _ in range(e.count)
