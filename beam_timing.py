@@ -1,0 +1,159 @@
+"""Time the port's value-guided beam search on one GPU.
+
+    python3 beam_timing.py [ROOT] [--runs K]
+
+Imports ``image_captioning_through_rl_tpu_torch`` from ``ROOT`` (default:
+the directory of this file; another checkout of the repository may be given,
+so that two versions are timed on one card in one session, each in its own
+process), builds its kernels, and times ``fused_beam_search`` at COCO width
+(V = 1004, E = H = F = 512, T = 17, beam 5, bf16 weights, random weights
+from a seed) at N = 127 and N = 1024:
+
+* ``ms``: K runs (default 5), each the mean of 5 back-to-back calls timed by
+  CUDA events; the median and the range are printed;
+* a torch.profiler window over 3 calls: device ms per call, the busy share
+  of the window's wall time, and device ms and launches per call by kernel;
+* where the checkout's kernel has a phase clock (``fused_beam_search(...,
+  clock=...)``), the mean us per step of its phases A-D and of the
+  barriers, and the set-up's us, from one call.
+
+Prints the card's name and power limit, then one JSON line per N. Needs a
+CUDA device; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import statistics
+import subprocess
+import sys
+import time
+
+import torch
+
+V, F, E, H, T, BEAM, SEED = 1004, 512, 512, 512, 17, 5, 0
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_name(name: str) -> str:
+    found = re.findall(r"[A-Za-z_]\w*_kernel", name)
+    return found[0] if found else name[:48]
+
+
+def profile(fn, iters: int = 3) -> dict:
+    """Device ms and launches per call by kernel over ``iters`` calls, after
+    the card idled 50 ms inside the window (the tracer takes effect late)."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / iters
+    ms, counts = {}, {}
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        us = evt.self_cuda_time_total if us is None else us
+        key = kernel_name(evt.key)
+        ms[key] = ms.get(key, 0.0) + us / 1e3 / iters
+        counts[key] = counts.get(key, 0) + evt.count / iters
+    device = sum(ms.values())
+    return {"device_ms": device, "wall_ms": wall, "busy": device / wall,
+            "launches_per_call": sum(counts.values()),
+            "kernels": {k: {"ms": ms[k], "launches": counts[k]}
+                        for k in sorted(ms, key=lambda k: -ms[k])}}
+
+
+def phases(fused_beam, call) -> dict | None:
+    """The kernel's own clock over one call (each mark the last block's):
+    the set-up, then per step the means of phases A-D and of the three
+    barriers inside a step, in us; None where the kernel has no clock."""
+    if not hasattr(fused_beam, "beam_clock_slots"):
+        return None
+    clock = torch.zeros(fused_beam.beam_clock_slots(T), dtype=torch.int64, device="cuda")
+    call(clock)
+    c = clock.cpu().tolist()
+    steps = T - 1
+
+    def mean_us(a, b):
+        return sum(c[2 + 8 * t + b] - c[2 + 8 * t + a] for t in range(steps)) / steps / 1e3
+
+    return {"setup_us": (c[1] - c[0]) / 1e3, "A_us": mean_us(0, 1), "B_us": mean_us(2, 3),
+            "C_us": mean_us(4, 5), "D_us": mean_us(6, 7),
+            "barriers_us": mean_us(1, 2) + mean_us(3, 4) + mean_us(5, 6)}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("root", nargs="?", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--runs", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("beam_timing: needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.abspath(args.root))
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.config import NetConfig
+    from image_captioning_through_rl_tpu_torch.models import a2c
+    from image_captioning_through_rl_tpu_torch.ops import fused_beam, kernel_build
+    from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
+        fused_beam_search, prepare_beam_weights)
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import prepare_greedy_weights
+
+    kernel_build.load_library()
+    print(card_line(), flush=True)
+    dev = torch.device("cuda", 0)
+    cfg = NetConfig(vocab_size=V, input_dim=F, wordvec_dim=E, hidden_dim=H, max_seq_len=T)
+    gen = torch.Generator().manual_seed(SEED)
+    params = a2c.init(gen, cfg)
+    on_dev = {net: {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
+                        else v.to(dev)) for k, v in p.items()} for net, p in params.items()}
+    gw = prepare_greedy_weights(on_dev["policy"], torch.bfloat16)
+    bw = prepare_beam_weights(gw, on_dev["value"])
+    feats = torch.randn((1024, F), generator=gen).to(dev)
+    start = torch.full((1024,), START_ID, dtype=torch.int32, device=dev)
+    for n in (127, 1024):
+        f, s = feats[:n].contiguous(), start[:n].contiguous()
+
+        def call():
+            return fused_beam_search(bw, f, s, T, BEAM)
+
+        runs = [cuda_ms(call, 5) for _ in range(args.runs)]
+        print(json.dumps({"root": os.path.abspath(args.root), "n": n, "beam": BEAM,
+                          "ms_median": statistics.median(runs), "ms_min": min(runs),
+                          "ms_max": max(runs), "ms_runs": runs, "profile": profile(call),
+                          "phases": phases(fused_beam, lambda clock: fused_beam_search(
+                              bw, f, s, T, BEAM, clock=clock))}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

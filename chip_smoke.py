@@ -18,13 +18,18 @@ Phases:
      plain, bf16 and f32: both decode kernels' [V, 4H] tables and a GRU's
      [V, 3H] with its bias; then the greedy kernel vs plain: N in
      {1, 1000, 1024}, bf16 and f32 weights;
-  4. beam kernel vs plain: N in {127, 1024}, B = 5, bf16 and f32 weights;
+  4. beam kernel (one persistent launch) vs plain: N in {127, 1024}, B = 5,
+     bf16 and f32 weights; B in {1, 2, 8} at small N and an N whose N B and
+     N B^2 rows fill no whole row tile; every case also run twice, bit-equal;
   5. main path: a reference-layout a2c .pt and a vocab JSON on disk, the
      server started through ``server.main``, greedy (JSON and binary) and
      beam-5 requests answered, launch counters read;
   6. timings: kernel and plain ms (CUDA events): the x-gate table (its
      kernel through the C entry point, and through its wrapper), greedy
-     at N = 1024 and beam at N = 127 and 1024;
+     at N = 1024 and beam at N = 127 and 1024 (the median and range of
+     three runs), with the beam's device time and launches per call
+     (torch.profiler: one beam_kernel, none of the kernels it replaced) and
+     its phases per step from the kernel's own clock;
   7. LSTM chain kernels (forward and backward) vs plain: N = 512,
      E = H = 512, V = 1004, T = 16 and 17, bf16 and f32 weights: hs and
      every gradient (wi, wh, b, embedding, h0, c0) for a fixed upstream
@@ -91,7 +96,8 @@ Phases:
      ring, vs plain (phase 7's bounds); greedy, beam and top-k 40 + nucleus
      0.9 sampling at V = 1001, E = H = F = 500 (weights padded by the
      wrappers), and sampling at V = 2000 (one block per row), vs plain under
-     the near-tie rules, and that last one timed at N = 1024; the rollout
+     the near-tie rules, and that last one timed at N = 1024; the beam at
+     hidden_dim = 1024 (weights streamed), bf16 and f32, vs plain; the rollout
      forward and backward at hidden_dim = 1024 (weights streamed) and at
      V = 2000, bf16 and f32, vs plain under phase 13's rules.
 
@@ -1088,6 +1094,51 @@ def rollout_fwd_phases(args) -> str:
             f"{mean_us([(k + 3, k + 4) for k in at[:-1]]) if passes > 1 else 0.0:.2f}")
 
 
+BEAM_GONE = ("lse_topb_kernel", "lstm_expand_kernel", "value_mlp_kernel",
+             "select_reorder_kernel", "linear_kernel", "lstm_kernel", "beam_init_kernel")
+
+
+def beam_profile(call, iters: int = 3) -> str:
+    """Phase 6: the beam's device time and launches per call
+    (torch.profiler): one beam_kernel for all T - 1 steps, at most two small
+    launches beside it (one asserts the start tokens' range), none of the
+    kernels it replaced, and no copy to the host."""
+    call()
+    torch.cuda.synchronize()
+    ms, counts = device_profile(call, iters, lambda c: c.get("beam_kernel", 0) >= iters)
+    launches = per_call(counts, iters)
+    if (launches.get("beam_kernel") != 1 or sum(launches.values()) > 3
+            or any(launches.get(k) for k in BEAM_GONE)
+            or any("Memcpy DtoH" in k and v for k, v in launches.items())):
+        raise AssertionError(f"beam launches per call: {launches}")
+    return (f"device {sum(ms.values()) / iters:.4f} ms per call, beam_kernel "
+            f"{ms['beam_kernel'] / iters:.4f} ms ({ms['beam_kernel'] / iters / (T - 1) * 1e3:.2f}"
+            f" us a step); launches per call "
+            + ", ".join(f"{k} x{v:g}" for k, v in sorted(launches.items()) if v))
+
+
+def beam_phases(bw, feats, start) -> str:
+    """Phase 6: where the beam kernel's time goes, from its own clock over
+    one call (each mark the last block's): the set-up (h0, fproj, the first
+    cells), then per step the means of phases A-D and of the barriers."""
+    from image_captioning_through_rl_tpu_torch.ops import fused_beam as fb
+
+    clock = torch.zeros(fb.beam_clock_slots(T), dtype=torch.int64, device=feats.device)
+    fb.fused_beam_search(bw, feats, start, T, BEAM, clock=clock)
+    c = clock.cpu().tolist()
+    if min(c) <= 0:
+        raise AssertionError(f"the beam's clock has unset marks: {c}")
+    steps = T - 1
+
+    def mean_us(a, b):  # from mark 2 + 8t + a to 2 + 8t + b, over the steps
+        return sum(c[2 + 8 * t + b] - c[2 + 8 * t + a] for t in range(steps)) / steps / 1e3
+
+    return (f"{steps} steps in {(c[-1] - c[0]) / 1e3:.1f} us from the last block's start: "
+            f"set-up {(c[1] - c[0]) / 1e3:.1f} us; a step: phase A {mean_us(0, 1):.2f} us, "
+            f"B {mean_us(2, 3):.2f}, C {mean_us(4, 5):.2f}, D {mean_us(6, 7):.2f}, the "
+            f"three barriers inside it {mean_us(1, 2) + mean_us(3, 4) + mean_us(5, 6):.2f}")
+
+
 def time_a2c(a2c_params, rparams, data, dev) -> dict:
     """Phase 15: CUDA-event timings at the main path's shapes (bf16, N =
     512): the noise kernel, the reward stream, the rollout forward and
@@ -1397,6 +1448,32 @@ def streamed_chains(dev) -> None:
                             f"(bound {CHAIN_TOL[wd]})")
 
 
+def compare_beam(label: str, bw, feats, start, beam: int, wd) -> tuple[int, float, float]:
+    """The beam kernel against its plain version under the near-tie rule,
+    the scores of agreeing rows within SCORE_TOL, and two kernel calls
+    bit-equal. Returns (rows that differ, smallest gap there, largest score
+    error)."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
+        beam_search_plain, fused_beam_search)
+
+    n = feats.shape[0]
+    k_tok, k_sc = fused_beam_search(bw, feats, start, T, beam)
+    again = fused_beam_search(bw, feats, start, T, beam)
+    torch.cuda.synchronize()
+    if not (torch.equal(again[0], k_tok) and torch.equal(again[1], k_sc)):
+        raise AssertionError(f"{label}: two beam kernel calls differ")
+    p_tok, p_sc, margins = beam_search_plain(bw, feats, start, T, beam, margins=True)
+    if k_tok.shape != (n, beam, T) or not bool(torch.isfinite(k_sc).all()):
+        raise AssertionError(f"{label}: beam kernel output has the wrong shape or non-finite "
+                             f"scores")
+    n_bad, gap, _ = check_rows(label, k_tok, p_tok, lambda bad: margins[bad].min(dim=1).values)
+    same = ~(k_tok != p_tok).reshape(n, -1).any(dim=1)
+    err = float((k_sc - p_sc)[same].abs().max())
+    if err > SCORE_TOL[wd]:
+        raise AssertionError(f"{label}: beam scores differ by {err:.3g} > {SCORE_TOL[wd]}")
+    return n_bad, gap, err
+
+
 def padded_decodes(dev) -> None:
     """Phase 19c: greedy, beam and sampling at V = 1001, E = H = F = 500
     (weights padded by the wrappers), bf16 and f32, against their plain
@@ -1405,8 +1482,7 @@ def padded_decodes(dev) -> None:
     from image_captioning_through_rl_tpu_torch.config import NetConfig
     from image_captioning_through_rl_tpu_torch.models import a2c
     from image_captioning_through_rl_tpu_torch.ops import prng
-    from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
-        beam_search_plain, fused_beam_search, prepare_beam_weights)
+    from image_captioning_through_rl_tpu_torch.ops.fused_beam import prepare_beam_weights
     from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
         fused_greedy_decode, greedy_decode_plain, prepare_greedy_weights)
     from image_captioning_through_rl_tpu_torch.ops.fused_sample import (
@@ -1431,14 +1507,7 @@ def padded_decodes(dev) -> None:
             "padded greedy", k_tok, p_tok,
             lambda bad: gaps[bad].gather(
                 1, first_divergent_step(k_tok[bad], p_tok[bad])[:, None].long())[:, 0])
-        k_tok, k_sc = fused_beam_search(bw, feats[:64], start[:64], T, BEAM)
-        p_tok, p_sc, margins = beam_search_plain(bw, feats[:64], start[:64], T, BEAM,
-                                                 margins=True)
-        b_bad, _, _ = check_rows("padded beam", k_tok, p_tok,
-                                 lambda bad: margins[bad].min(dim=1).values)
-        same = ~(k_tok != p_tok).reshape(64, -1).any(dim=1)
-        if float((k_sc - p_sc)[same].abs().max()) > SCORE_TOL[wd]:
-            raise AssertionError("padded beam scores differ")
+        b_bad, _, _ = compare_beam("padded beam", bw, feats[:64], start[:64], BEAM, wd)
         key = prng.PRNGKey(SEED + 5)
         _, t, k, p = SAMPLE_VARIANTS[3]
         k_tok = fused_sample_decode(gw, feats, start, key, T, t, k, p)
@@ -1454,6 +1523,39 @@ def padded_decodes(dev) -> None:
         phase("faults", f"V={ODD_V} E=H=F={ODD_W} {str(wd)[6:]} (padded to {gw.wc.shape[0]}, "
                         f"head {gw.wo.shape[1]}): rows that differ at near-ties: greedy "
                         f"{g_bad}/{n}, beam {b_bad}/64, top-k 40 + nucleus 0.9 {s_bad}/{n}")
+
+
+def wide_beam(dev) -> None:
+    """Phase 19: the beam at hidden_dim = 1024, whose weights stream through
+    the ring (no slice width gives every slice a block), bf16 and f32, beam
+    5, against plain under phase 4's rules, at N = 512 rows as the wide
+    rollouts: at this width most samples come within 1e-4 of a tie
+    somewhere in their 16 steps, and the kernel and cuBLAS sum in other
+    orders, so a few rows part at near-ties (on an H100 the same rows, with
+    the same tokens, as with the per-step kernels this launch replaced); at
+    N = 127 the 1% share would allow one row."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.config import NetConfig
+    from image_captioning_through_rl_tpu_torch.models import a2c
+    from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
+        beam_plan, prepare_beam_weights)
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import prepare_greedy_weights
+
+    cfg = NetConfig(vocab_size=V, input_dim=F, wordvec_dim=E, hidden_dim=WIDE_H, max_seq_len=T)
+    params = to_device(a2c.init(torch.Generator().manual_seed(SEED + 6), cfg), dev)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    n = 512
+    feats = torch.randn((n, F), generator=gen).to(dev)
+    start = torch.full((n,), START_ID, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for wd in (torch.bfloat16, torch.float32):
+        if not beam_plan(n, BEAM, F, WIDE_H, V, wd, sms)["stream"]:
+            raise AssertionError(f"the beam at H = {WIDE_H} ({wd}) does not stream its weights")
+        bw = prepare_beam_weights(prepare_greedy_weights(params["policy"], wd), params["value"])
+        n_bad, gap, err = compare_beam(f"wide beam {str(wd)[6:]}", bw, feats, start, BEAM, wd)
+        phase("faults", f"beam at hidden_dim={WIDE_H} (weights streamed) {str(wd)[6:]} N={n}: "
+                        f"{n_bad} row(s) differ (smallest gap there {gap:.3g}); score max abs "
+                        f"err {err:.3g} (tolerance {SCORE_TOL[wd]}); two calls bit-equal")
 
 
 def wide_vocab_sampling(dev) -> dict:
@@ -1748,27 +1850,17 @@ def main() -> int:
                             f"(smallest gap there {gap:.3g}; smallest gap overall "
                             f"{float(gaps.min()):.3g})")
 
-    # phase 4: beam kernel vs plain
+    # phase 4: beam kernel vs plain; B in {1, 2, 8} at small N, and N = 77
+    # (385 and 1925 rows: no whole row tile)
     beam_err = 0.0
     for wd, (_, bw) in weights.items():
-        for n in (127, 1024):
+        for n, beam in ((127, BEAM), (1024, BEAM), (3, 1), (37, 2), (13, 8), (77, BEAM)):
             feats, start = inputs(n)
-            k_tok, k_sc = fused_beam_search(bw, feats, start, T, BEAM)
-            torch.cuda.synchronize()
-            p_tok, p_sc, margins = beam_search_plain(bw, feats, start, T, BEAM, margins=True)
-            if k_tok.shape != (n, BEAM, T) or not bool(torch.isfinite(k_sc).all()):
-                raise AssertionError("beam kernel output has the wrong shape or non-finite "
-                                     "scores")
-            n_bad, gap, _ = check_rows("beam", k_tok, p_tok,
-                                       lambda bad: margins[bad].min(dim=1).values)
-            same = ~(k_tok != p_tok).reshape(n, -1).any(dim=1)
-            err = float((k_sc - p_sc)[same].abs().max())
-            if err > SCORE_TOL[wd]:
-                raise AssertionError(f"beam scores differ by {err:.3g} > {SCORE_TOL[wd]}")
+            n_bad, gap, err = compare_beam("beam", bw, feats, start, beam, wd)
             beam_err = max(beam_err, err)
-            phase("beam", f"{str(wd)[6:]} N={n}: {n_bad} row(s) differ (smallest gap "
-                          f"there {gap:.3g}); score max abs err {err:.3g} "
-                          f"(tolerance {SCORE_TOL[wd]})")
+            phase("beam", f"{str(wd)[6:]} N={n} B={beam}: {n_bad} row(s) differ (smallest gap "
+                          f"there {gap:.3g}); score max abs err {err:.3g} (tolerance "
+                          f"{SCORE_TOL[wd]}); two calls bit-equal")
 
     # phase 5: the main path, through the server's entry point
     rng = np.random.default_rng(SEED)
@@ -1837,20 +1929,28 @@ def main() -> int:
     feats, start = inputs(1024)
     g_ms = cuda_ms(lambda: fused_greedy_decode(gw, feats, start, T), 20)
     g_plain = cuda_ms(lambda: greedy_decode_plain(gw, feats, start, T), 20)
-    times = {}
+    times, beam_prof = {}, {}
     for n in (127, 1024):
         f_n, s_n = feats[:n].contiguous(), start[:n].contiguous()
-        times[n] = (cuda_ms(lambda: fused_beam_search(bw, f_n, s_n, T, BEAM), 5),
-                    cuda_ms(lambda: beam_search_plain(bw, f_n, s_n, T, BEAM), 5))
+        runs = sorted(cuda_ms(lambda: fused_beam_search(bw, f_n, s_n, T, BEAM), 5)
+                      for _ in range(3))
+        times[n] = (runs[1], cuda_ms(lambda: beam_search_plain(bw, f_n, s_n, T, BEAM), 5),
+                    runs[0], runs[-1])
+        beam_prof[n] = (beam_profile(lambda: fused_beam_search(bw, f_n, s_n, T, BEAM)),
+                        beam_phases(bw, f_n, s_n))
     phase("timing", f"{card} | bf16 weights | token gate table [1004, 2048]: kernel "
                     f"{tab_ms:.4f} ms (device {tab_device:.4f} ms a call), plain "
                     f"{tab_plain:.3f} ms, library (torch.mm) {tab_library:.4f} ms (kernel / "
                     f"library {tab_ms / tab_library:.2f}); host us a call: wrapper "
                     f"{tab_host[0]:.1f}, torch.mm {tab_host[1]:.1f} | greedy N=1024: kernel "
                     f"{g_ms:.3f} ms, plain "
-                    f"{g_plain:.3f} ms | beam-5 N=127: kernel {times[127][0]:.3f} ms, plain "
-                    f"{times[127][1]:.3f} ms | beam-5 N=1024: kernel {times[1024][0]:.3f} ms, "
-                    f"plain {times[1024][1]:.3f} ms")
+                    f"{g_plain:.3f} ms | " + " | ".join(
+                        f"beam-5 N={n}: kernel {times[n][0]:.3f} ms (median of 3, "
+                        f"{times[n][2]:.3f}-{times[n][3]:.3f}), plain {times[n][1]:.3f} ms"
+                        for n in (127, 1024)))
+    for n in (127, 1024):
+        phase("profile", f"{card} | beam-5 N={n}, bf16: {beam_prof[n][0]} | its clock: "
+                         f"{beam_prof[n][1]}")
 
     # phases 7-8: the LSTM and GRU chains vs their plain versions
     chain_err = compare_chains(dev)
@@ -1925,6 +2025,7 @@ def main() -> int:
         wide_trainers(dev, tmp)
     streamed_chains(dev)
     padded_decodes(dev)
+    wide_beam(dev)
     wv = wide_vocab_sampling(dev)
     wide_rollouts(dev)
     phase("timing", f"{card} | bf16 weights | sampling V={WIDE_V} (one block per row), N=1024, "

@@ -525,5 +525,95 @@ cudaError_t launch_planned(const ChainPlan& p, const Args& a, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
+// ---- Shared by the persistent launches that slice several weights by columns
+// (rollout_fwd.cu, beam_search.cu) ----
+
+// Per weight type, the units (NC = 4U columns per slice) a plan that deals
+// several weights' columns out as slices tries, widest first, before it
+// streams.
+template <typename W>
+struct SliceUnits;
+template <>
+struct SliceUnits<__nv_bfloat16> {
+  static constexpr int N = 3;
+  static constexpr int U[N] = {32, 16, 8};
+};
+template <>
+struct SliceUnits<float> {
+  static constexpr int N = 2;
+  static constexpr int U[N] = {16, 8};
+};
+
+__host__ __device__ constexpr int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// Columns [c0, c0 + NC) of a row-major [K, C] weight (row stride ld) as a
+// chain slice source.
+template <typename W>
+struct ColSlice {
+  const W* w;
+  int K, C, ld, c0;
+  __device__ __forceinline__ const W* operator()(int n, int k) const {
+    return k < K && c0 + n < C ? w + (size_t)k * ld + c0 + n : nullptr;
+  }
+  __device__ __forceinline__ const void* base() const { return w; }
+};
+
+__device__ __forceinline__ float sum4(float v) {  // over the 4 lanes of a row
+  v += __shfl_xor_sync(FULL, v, 1);
+  return v + __shfl_xor_sync(FULL, v, 2);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off; off >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, off));
+  return v;
+}
+
+// 16-byte accesses of four consecutive floats (plain, coherent loads: the
+// data may have been written earlier in this launch).
+__device__ __forceinline__ void ld4(float (&v)[4], const float* p) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(__nv_bfloat16* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]));
+}
+
+// A block's staging of its slices and its product of a row tile, on
+// chain.cuh's mma.sync from ldmatrix: load(src, K) stages the stationary
+// slice of depth K (no-op when streaming), product(a, lda, row0, nrows, K,
+// src) returns the float32 tile Cs [ROWS][CLD] of rows row0 .., scratch()
+// phase B's few ints.
+template <class Tl>
+struct ChainStage {
+  static constexpr int ROWS = CHAIN_BR, CLD = ChainSmem<Tl>::CLD;
+  unsigned char* base;
+  int H;
+  template <class Src>
+  __device__ void load(const Src& src, int K) const {
+    if constexpr (!Tl::STREAM) chain_load_slice(ChainSmem<Tl>(base, K), src);
+  }
+  template <typename AT, class Src>
+  __device__ float* product(const AT* a, int lda, int row0, int nrows, int K,
+                            const Src& src) const {
+    const ChainSmem<Tl> sm(base, K);
+    chain_product_src<Tl>(sm, a, lda, row0, nrows, K, src);
+    return sm.Cs;
+  }
+  __device__ int* scratch() const { return reinterpret_cast<int*>(ChainSmem<Tl>(base, H).Cs); }
+};
+
 }  // namespace
 }  // namespace icrl

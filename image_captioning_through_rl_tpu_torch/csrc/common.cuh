@@ -1,12 +1,10 @@
 // Building blocks shared by the decode kernels (greedy_decode.cu,
-// beam_search.cu, sample_decode.cu) and the training chains (lstm_chain.cu,
-// gru_chain.cu).
+// sample_decode.cu), the persistent launches (chain.cuh: the training chains,
+// the rollout forward, the beam search) and the rest.
 //
-// Every product the TPU kernels compute in their own bodies (the h0 projection,
-// the LSTM and GRU gates, the vocab head, the critic cell, the value MLP),
-// except the training chains' (their persistent kernels and wgmma products,
-// chain.cuh and wgmma.cuh; with float32 weights their products after the
-// loop still run here), runs through
+// Every product the greedy and sampling decodes compute (the h0 projection,
+// the LSTM gates, the vocab head), and the float32 chains' products after the
+// loop, runs through
 // a 64 x 64 block tile with float32 accumulation: on the tensor
 // cores (WMMA, gemm_tile_tc) when both operands are bf16 values, else on the
 // CUDA cores (gemm_tile). Weights are float or __nv_bfloat16 (template W);

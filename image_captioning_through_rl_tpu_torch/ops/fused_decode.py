@@ -269,9 +269,23 @@ def check_weights(weights, device: torch.device) -> None:
             raise ValueError(f"weight {name!r} must be a contiguous {want} tensor on {device}")
 
 
-def check_kernel_inputs(features: torch.Tensor, start_tokens: torch.Tensor, vocab: int
-                        ) -> None:
-    """Device, type, shape and range checks of a kernel wrapper's inputs."""
+def assert_tokens(msg: str, vocab: int, *tokens: torch.Tensor) -> None:
+    """The token range, checked on the device without a host sync, as the
+    chains check theirs (:func:`.fused_lstm._check_chain_inputs`): a token
+    outside ``[0, V)`` fails the assertion (on the CPU at once; on a CUDA
+    device at the next synchronisation, which ends the process's CUDA
+    context). No sync, so a decode can be captured in a CUDA graph."""
+    for t in tokens:
+        if t.numel():  # floor(token / V) is 0 exactly for a token in [0, V)
+            torch._assert_async(torch.floor_divide(t, vocab).eq(0).all(), msg)
+
+
+def check_kernel_inputs(features: torch.Tensor, start_tokens: torch.Tensor,
+                        vocab: int | None) -> None:
+    """Device, type and shape checks of a kernel wrapper's inputs, and the
+    start tokens' range by :func:`assert_tokens` (``vocab`` None: the C
+    entry asserts the range itself, as the beam's does, in one launch where
+    this takes four)."""
     dev = features.device
     if features.dtype != torch.float32 or features.dim() != 2 or not features.is_contiguous():
         raise ValueError("features must be a contiguous float32 [N, F] tensor")
@@ -283,8 +297,8 @@ def check_kernel_inputs(features: torch.Tensor, start_tokens: torch.Tensor, voca
             or not start_tokens.is_contiguous() or start_tokens.device != dev):
         raise ValueError("start_tokens must be a contiguous int32 [N] tensor on the "
                          "features' device")
-    if n and (int(start_tokens.min()) < 0 or int(start_tokens.max()) >= vocab):
-        raise ValueError(f"start tokens must lie in [0, {vocab})")
+    if vocab is not None:
+        assert_tokens(f"start tokens must lie in [0, {vocab})", vocab, start_tokens)
 
 
 def check_decode_inputs(weights: GreedyWeights, features: torch.Tensor,

@@ -49,6 +49,10 @@ def _step_major(tokens: torch.Tensor) -> torch.Tensor:
 # depth of a staged slice, the slots of the ring, and the hidden units per
 # block the plan tries, widest first.
 _CHAIN_RING = {torch.bfloat16: (128, 5, (32, 16, 8)), torch.float32: (32, 4, (8,))}
+# Per weight type, the units (a slice is 4U consecutive columns) that a plan
+# dealing several weights' columns out as slices tries, widest first, before
+# it streams (csrc/chain.cuh SliceUnits: the rollout forward's and the beam's).
+_SLICE_UNITS = {torch.bfloat16: (32, 16, 8), torch.float32: (16, 8)}
 CHAIN_ROWS, CHAIN_THREADS = 64, 256  # rows per tile, threads per block
 # H100 shared memory: per SM, the most one block may opt in to, and what the
 # runtime reserves per block.

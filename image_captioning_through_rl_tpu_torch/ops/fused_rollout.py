@@ -56,9 +56,10 @@ import torch
 
 from ..models import policy as policy_mod
 from ..models import value as value_mod
-from .fused_decode import check_tile_widths, round_to, token_gate_table, wmatmul
-from .fused_lstm import (_CHAIN_RING, CHAIN_ROWS, CHAIN_THREADS, SMEM_PER_BLOCK, SMEM_PER_SM,
-                         SMEM_RESERVED, _chain_smem, chain_plan, embedding_grad,
+from .fused_decode import (assert_tokens, check_tile_widths, round_to, token_gate_table,
+                           wmatmul)
+from .fused_lstm import (_CHAIN_RING, _SLICE_UNITS, CHAIN_ROWS, CHAIN_THREADS, SMEM_PER_BLOCK,
+                         SMEM_PER_SM, SMEM_RESERVED, _chain_smem, chain_plan, embedding_grad,
                          lstm_chain_backward_plain)
 from .kernel_build import check_error, load_library
 from .linalg import dense
@@ -192,17 +193,6 @@ def reward_stream_plain(rw: RewardWeights, act_sm: torch.Tensor, tok_sm: torch.T
     return torch.stack(out)
 
 
-def _assert_tokens(msg: str, vocab: int, *tokens: torch.Tensor) -> None:
-    """The token range, checked on the device without a host sync, as the
-    chains check theirs (:func:`.fused_lstm._check_chain_inputs`): a token
-    outside ``[0, V)`` fails the assertion (on the CPU at once; on a CUDA
-    device at the next synchronisation, which ends the process's CUDA
-    context)."""
-    for t in tokens:
-        if t.numel():  # floor(token / V) is 0 exactly for a token in [0, V)
-            torch._assert_async(torch.floor_divide(t, vocab).eq(0).all(), msg)
-
-
 def _check_reward_weights(rw: RewardWeights, n: int, vocab: int) -> None:
     dev = rw.xg.device
     wd = rw.wh.dtype
@@ -227,7 +217,7 @@ def _launch_reward_stream(rw: RewardWeights, act_sm: torch.Tensor, tok_sm: torch
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != rw.xg.device:
             raise ValueError(f"{name} must be a contiguous int32 [S, N] tensor on the weights' "
                              f"device")
-    _assert_tokens(f"actions and tokens must lie in [0, {vocab})", vocab, act_sm, tok_sm)
+    assert_tokens(f"actions and tokens must lie in [0, {vocab})", vocab, act_sm, tok_sm)
     dev = rw.xg.device
     hidden = rw.wh.shape[0]
     rewards = torch.empty((steps, n), dtype=_F32, device=dev)
@@ -515,14 +505,12 @@ def _check_rollout_inputs(teach_sm, noise, reward, feats, states, w: RolloutWeig
     if reward is not None:
         _check_reward_weights(reward, n, vocab)
     check_tile_widths(w.dtype, feat_dim=feats.shape[1], emb_dim=emb_dim, hidden=hidden)
-    _assert_tokens(f"tokens must lie in [0, {vocab})", vocab, teach_sm)
+    assert_tokens(f"tokens must lie in [0, {vocab})", vocab, teach_sm)
 
 
 # The forward kernel's products in slice order (csrc/rollout_fwd.cu
-# RolloutMat), and per weight type the units per slice (a slice is 4 units =
-# 4U consecutive columns) its plan tries, widest first, before it streams.
+# RolloutMat); its plan tries the slice widths of fused_lstm._SLICE_UNITS.
 ROLLOUT_PRODUCTS = ("head", "linear1", "policy", "value", "reward", "semantic")
-_ROLLOUT_UNITS = {torch.bfloat16: (32, 16, 8), torch.float32: (16, 8)}
 
 
 def _rollout_smem(weight_dtype: torch.dtype, units: int, stream: bool, depth: int) -> int:
@@ -569,7 +557,7 @@ def rollout_plan(n: int, feat_dim: int, hidden: int, vp: int, weight_dtype: torc
             return 0
         return sm_count * min(1, SMEM_PER_SM // (smem + SMEM_RESERVED))
 
-    for units in _ROLLOUT_UNITS[weight_dtype]:
+    for units in _SLICE_UNITS[weight_dtype]:
         smem = _rollout_smem(weight_dtype, units, False, depth)
         if co_resident(smem) >= slices(4 * units):
             stream = False

@@ -36,8 +36,8 @@ _SIGNATURES = {
     "icrl_greedy_decode": (_I, [_I] * 7 + [_P] * 12),
     "icrl_sample_decode": (_I, [_I] * 11 + [_F, _F] + [_P] * 13),
     "icrl_beam_max_beam": (_I, []),
-    "icrl_beam_workspace_floats": (ctypes.c_size_t, [_I] * 6),
-    "icrl_beam_search": (_I, [_I] * 7 + [_F, _F, _I] + [_P] * 20),
+    "icrl_beam_workspace_floats": (ctypes.c_size_t, [_I] * 5),
+    "icrl_beam_search": (_I, [_I] * 9 + [_F, _F] + [_I] * 8 + [_P] * 21),
     "icrl_token_gates": (_I, [_I] * 4 + [_P] * 4 + [_I, _P]),
     "icrl_lstm_chain_fwd": (_I, [_I] * 10 + [_P] * 12),
     "icrl_lstm_chain_bwd": (_I, [_I] * 11 + [_P] * 17),

@@ -29,6 +29,15 @@ must give bit-identical results on two calls, must launch once per forward
 and a fixed number of times per backward whatever T is, and must fail a
 bad token through the device-side assertion.
 
+The beam kernel (one persistent cooperative launch for all T - 1 steps) is
+held so at beams 1 to 8, at batches whose N B and N B^2 rows fill no whole
+row tile, at COCO width (stationary weight slices) and at H = 1024 (the
+weights stream through the ring); two calls give the same bits, a call is
+one beam_kernel launch whatever T (beside one small launch that asserts the
+start tokens' range), and its optional phase clock marks every phase. An
+out-of-range start token fails the greedy, beam and sampling wrappers'
+device-side assertion (in a child process: it ends the CUDA context).
+
 The sampling kernel at the small widths, bf16 and float32 weights, for the
 four filter variants (none, top-k, nucleus, both) at t = 0.7, and at V =
 2000 (past the one-warp rows: one block per row): tokens equal
@@ -76,6 +85,7 @@ from image_captioning_through_rl_tpu_torch.models.initializers import (
     gru_init,
     lstm_init,
 )
+from image_captioning_through_rl_tpu_torch.ops import fused_beam as fb
 from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
     beam_search_plain,
     fused_beam_search,
@@ -160,16 +170,24 @@ def test_greedy_kernel_matches_plain(dev, wd):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,beam", [(N, BEAM), (1, 1), (5, 2), (9, 8), (67, 5)])
 @pytest.mark.parametrize("wd", WEIGHT_TYPES)
-def test_beam_kernel_matches_plain(dev, wd):
+def test_beam_kernel_matches_plain(dev, wd, n, beam):
+    """Beams 1 to 8 and batches whose N B and N B^2 rows fill no whole row
+    tile; two calls give the same bits (every sum in a fixed order)."""
     _, bw, f, s = _setup(dev, wd)
+    f = torch.from_numpy(np.random.default_rng(n).standard_normal((n, CFG.input_dim))
+                         .astype(np.float32)).to(dev)
+    s = torch.full((n,), START_ID, dtype=torch.int32, device=dev)
     before = fused_beam_search.launches
-    k_tok, k_sc = fused_beam_search(bw, f, s, T, BEAM)
+    k_tok, k_sc = fused_beam_search(bw, f, s, T, beam)
     torch.cuda.synchronize()
     assert fused_beam_search.launches == before + 1
-    p_tok, p_sc, gaps = beam_search_plain(bw, f, s, T, BEAM, margins=True)
+    again = fused_beam_search(bw, f, s, T, beam)
+    assert torch.equal(again[0], k_tok) and torch.equal(again[1], k_sc)
+    p_tok, p_sc, gaps = beam_search_plain(bw, f, s, T, beam, margins=True)
     bad = _differing_rows(k_tok, p_tok)
-    assert k_tok.shape == (N, BEAM, T) and k_sc.shape == (N, BEAM)
+    assert k_tok.shape == (n, beam, T) and k_sc.shape == (n, beam)
     assert bool((gaps[bad].min(dim=1).values < NEAR_TIE).all()), "a non-tie row differs"
     torch.testing.assert_close(k_sc[~bad], p_sc[~bad], rtol=0, atol=SCORE_TOL[wd])
 
@@ -181,8 +199,98 @@ def test_kernel_wrappers_reject_bad_inputs(dev):
         fused_greedy_decode(gw, f, s.long(), T)
     with pytest.raises(ValueError, match="features"):
         fused_beam_search(bw, f.double(), s, T, BEAM)
-    with pytest.raises(ValueError, match="start tokens"):
-        fused_greedy_decode(gw, f, torch.full_like(s, CFG.vocab_size), T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["greedy", "beam", "sample"])
+def test_decode_bad_start_token_fails_on_the_card(dev, kind):
+    """An out-of-range start token fails the decode wrappers' device-side
+    assertion (no host sync in the call, so a decode can be graph-captured):
+    the process's next synchronisation raises. A failed device assertion ends
+    the CUDA context, so it runs in a child."""
+    call = {"greedy": "fused_greedy_decode(gw, f, s, 7)",
+            "beam": "fused_beam_search(bw, f, s, 7, 3)",
+            "sample": "fused_sample_decode(gw, f, s, prng.PRNGKey(0), 7)"}[kind]
+    script = (
+        "import torch\n"
+        "from image_captioning_through_rl_tpu_torch.config import NetConfig\n"
+        "from image_captioning_through_rl_tpu_torch.models import a2c\n"
+        "from image_captioning_through_rl_tpu_torch.ops import prng\n"
+        "from image_captioning_through_rl_tpu_torch.ops.fused_beam import "
+        "fused_beam_search, prepare_beam_weights\n"
+        "from image_captioning_through_rl_tpu_torch.ops.fused_decode import "
+        "fused_greedy_decode, prepare_greedy_weights\n"
+        "from image_captioning_through_rl_tpu_torch.ops.fused_sample import fused_sample_decode\n"
+        "cfg = NetConfig(vocab_size=60, input_dim=16, wordvec_dim=16, hidden_dim=16, "
+        "max_seq_len=7)\n"
+        "p = a2c.init(torch.Generator().manual_seed(0), cfg)\n"
+        "cuda = lambda t: {k: cuda(v) for k, v in t.items()} if isinstance(t, dict) "
+        "else t.cuda()\n"
+        "gw = prepare_greedy_weights(cuda(p['policy']), torch.float32)\n"
+        "bw = prepare_beam_weights(gw, cuda(p['value']))\n"
+        "f = torch.zeros((4, 16), device='cuda')\n"
+        "s = torch.full((4,), 60, dtype=torch.int32, device='cuda')\n"
+        f"{call}\n"
+        "torch.cuda.synchronize()\n")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    done = subprocess.run([sys.executable, "-c", script], cwd=root, capture_output=True,
+                          text=True, timeout=300)
+    assert done.returncode != 0 and "assert" in done.stderr.lower(), done.stderr[-2000:]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hidden", [512, 1024])
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+def test_beam_kernel_matches_plain_at_plan_widths(dev, wd, hidden):
+    """COCO width (stationary slices) and H = 1024 (the weights stream
+    through the ring), N = 127, beam 5."""
+    cfg = NetConfig(vocab_size=1004, input_dim=512, wordvec_dim=512, hidden_dim=hidden,
+                    max_seq_len=17)
+    _, bw, f, s = _decode_setup(dev, wd, cfg, n=127)
+    k_tok, k_sc = fused_beam_search(bw, f, s, 17, 5)
+    p_tok, p_sc, gaps = beam_search_plain(bw, f, s, 17, 5, margins=True)
+    bad = _differing_rows(k_tok, p_tok)
+    assert int(bad.sum()) <= 2 and bool((gaps[bad].min(dim=1).values < NEAR_TIE).all())
+    torch.testing.assert_close(k_sc[~bad], p_sc[~bad], rtol=0, atol=SCORE_TOL[wd])
+
+
+@pytest.mark.cuda
+def test_beam_search_is_one_launch(dev):
+    """One beam_kernel launch per call, whatever T, beside one small launch
+    that asserts the start tokens' range; none of the per-step kernels it
+    replaced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, bw, f, s = _setup(dev, torch.bfloat16)
+    for steps in (2, T):
+        fused_beam_search(bw, f, s, steps, BEAM)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fused_beam_search(bw, f, s, steps, BEAM)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages() for _ in range(e.count)
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        counts = {k: sum(k in name for name in names)
+                  for k in ("beam_kernel", "beam_start_check_kernel", "linear_kernel",
+                            "lstm_kernel", "lse_topb_kernel", "lstm_expand_kernel",
+                            "value_mlp_kernel", "select_reorder_kernel")}
+        assert counts == {"beam_kernel": 1, "beam_start_check_kernel": 1, "linear_kernel": 0,
+                          "lstm_kernel": 0, "lse_topb_kernel": 0, "lstm_expand_kernel": 0,
+                          "value_mlp_kernel": 0, "select_reorder_kernel": 0}, (steps, counts)
+        assert len(names) == 2, names
+
+
+@pytest.mark.cuda
+def test_beam_clock_marks_every_phase(dev):
+    """The optional clock: every mark set, in order, and the outputs
+    bit-equal to a call without it."""
+    _, bw, f, s = _setup(dev, torch.bfloat16)
+    clock = torch.zeros(fb.beam_clock_slots(T), dtype=torch.int64, device=dev)
+    timed = fused_beam_search(bw, f, s, T, BEAM, clock=clock)
+    plain = fused_beam_search(bw, f, s, T, BEAM)
+    marks = clock.cpu()
+    assert bool((marks > 0).all()) and bool((marks[1:] >= marks[:-1]).all())
+    assert torch.equal(timed[0], plain[0]) and torch.equal(timed[1], plain[1])
 
 
 @pytest.mark.cuda
