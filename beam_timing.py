@@ -1,24 +1,30 @@
-"""Time the port's value-guided beam search on one GPU.
+"""Time the port's decodes on one GPU.
 
-    python3 beam_timing.py [ROOT] [--runs K]
+    python3 beam_timing.py [ROOT] [--runs K] [--path beam|greedy|sample]
 
 Imports ``image_captioning_through_rl_tpu_torch`` from ``ROOT`` (default:
 the directory of this file; another checkout of the repository may be given,
 so that two versions are timed on one card in one session, each in its own
-process), builds its kernels, and times ``fused_beam_search`` at COCO width
-(V = 1004, E = H = F = 512, T = 17, beam 5, bf16 weights, random weights
-from a seed) at N = 127 and N = 1024:
+process), builds its kernels, and times one decode at COCO width (V = 1004,
+E = H = F = 512, T = 17, bf16 weights, random weights from a seed):
+``--path beam`` (the default) ``fused_beam_search`` with beam 5 at N = 127
+and N = 1024; ``greedy`` ``fused_greedy_decode`` at N = 1024, 64 and 4;
+``sample`` ``fused_sample_decode`` at N = 1024 unfiltered, N = 1024 with
+top-k 40 + nucleus 0.9, and the served shape N = 64 x R = 4 (256 rows,
+top-k 40 + nucleus 0.9). For each shape:
 
 * ``ms``: K runs (default 5), each the mean of 5 back-to-back calls timed by
   CUDA events; the median and the range are printed;
 * a torch.profiler window over 3 calls: device ms per call, the busy share
   of the window's wall time, and device ms and launches per call by kernel;
-* where the checkout's kernel has a phase clock (``fused_beam_search(...,
-  clock=...)``), the mean us per step of its phases A-D and of the
-  barriers, and the set-up's us, from one call.
+* where the checkout's kernel has a phase clock (``clock=...``), the mean us
+  per step of its phases (the beam's A-D, a decode's A and B) and of the
+  barriers, and the set-up's us, from one call;
+* the host's microseconds a call (200 back-to-back calls, the host side
+  alone).
 
-Prints the card's name and power limit, then one JSON line per N. Needs a
-CUDA device; imports no JAX.
+Prints the card's name and power limit, then one JSON line per shape. Needs
+a CUDA device; imports no JAX.
 """
 
 from __future__ import annotations
@@ -91,6 +97,39 @@ def profile(fn, iters: int = 3) -> dict:
                         for k in sorted(ms, key=lambda k: -ms[k])}}
 
 
+def host_us(fn, iters: int = 200) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t0) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def decode_phases(fused_decode, call) -> dict | None:
+    """A greedy or sampling decode's own clock over one call: the set-up,
+    then per step the means of phases A and B and of the two barriers, in
+    us, and phase A's mean head and cell tile in clock64 cycles; None where
+    the checkout's kernel has no clock."""
+    if not hasattr(fused_decode, "decode_clock_slots"):
+        return None
+    clock = torch.zeros(fused_decode.decode_clock_slots(T), dtype=torch.int64, device="cuda")
+    call(clock)
+    c = clock.cpu().tolist()
+    steps = T - 1
+
+    def mean_us(a, b):
+        return sum(c[2 + 4 * t + b] - c[2 + 4 * t + a] for t in range(steps)) / steps / 1e3
+
+    between = sum(c[6 + 4 * t] - c[5 + 4 * t] for t in range(steps - 1)) / (steps - 1) / 1e3
+    return {"setup_us": (c[1] - c[0]) / 1e3, "A_us": mean_us(0, 1), "B_us": mean_us(2, 3),
+            "barriers_us": mean_us(1, 2) + between,
+            "head_tile_cycles": c[2 + 4 * steps] / c[3 + 4 * steps],
+            "cell_tile_cycles": c[4 + 4 * steps] / c[5 + 4 * steps]}
+
+
 def phases(fused_beam, call) -> dict | None:
     """The kernel's own clock over one call (each mark the last block's):
     the set-up, then per step the means of phases A-D and of the three
@@ -110,22 +149,59 @@ def phases(fused_beam, call) -> dict | None:
             "barriers_us": mean_us(1, 2) + mean_us(3, 4) + mean_us(5, 6)}
 
 
+def shapes(path: str, on_dev: dict, gen):
+    """(label, call, call with a clock or None, its phases function) per
+    timed shape of the path."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.ops import fused_beam, fused_decode, prng
+    from image_captioning_through_rl_tpu_torch.ops.fused_beam import prepare_beam_weights
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import prepare_greedy_weights
+    from image_captioning_through_rl_tpu_torch.ops.fused_sample import fused_sample_decode
+
+    gw = prepare_greedy_weights(on_dev["policy"], torch.bfloat16)
+    feats = torch.randn((1024, F), generator=gen).to("cuda")
+    start = torch.full((1024,), START_ID, dtype=torch.int32, device="cuda")
+    if path == "beam":
+        bw = prepare_beam_weights(gw, on_dev["value"])
+        for n in (127, 1024):
+            f, s = feats[:n].contiguous(), start[:n].contiguous()
+            yield (f"beam-{BEAM} N={n}", lambda f=f, s=s: fused_beam.fused_beam_search(
+                       bw, f, s, T, BEAM),
+                   lambda c, f=f, s=s: fused_beam.fused_beam_search(bw, f, s, T, BEAM, clock=c),
+                   lambda call: phases(fused_beam, call))
+    elif path == "greedy":
+        for n in (1024, 64, 4):
+            f, s = feats[:n].contiguous(), start[:n].contiguous()
+            yield (f"greedy N={n}", lambda f=f, s=s: fused_decode.fused_greedy_decode(gw, f, s, T),
+                   lambda c, f=f, s=s: fused_decode.fused_greedy_decode(gw, f, s, T, clock=c),
+                   lambda call: decode_phases(fused_decode, call))
+    else:
+        key = prng.PRNGKey(SEED + 90)
+        served = feats[:64].repeat_interleave(4, dim=0).contiguous()
+        for label, f, k, p in (("N=1024 unfiltered", feats, 0, None),
+                               ("N=1024 top-k 40 + nucleus 0.9", feats, 40, 0.9),
+                               ("N=64 R=4 top-k 40 + nucleus 0.9", served, 40, 0.9)):
+            s = start[:f.shape[0]].contiguous()
+            yield (f"sample {label}", lambda f=f, s=s, k=k, p=p: fused_sample_decode(
+                       gw, f, s, key, T, 1.0, k, p),
+                   lambda c, f=f, s=s, k=k, p=p: fused_sample_decode(gw, f, s, key, T, 1.0, k, p,
+                                                                     clock=c),
+                   lambda call: decode_phases(fused_decode, call))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--runs", type=int, default=5)
+    ap.add_argument("--path", choices=("beam", "greedy", "sample"), default="beam")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("beam_timing: needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.abspath(args.root))
-    from image_captioning_through_rl_tpu_torch import START_ID
     from image_captioning_through_rl_tpu_torch.config import NetConfig
     from image_captioning_through_rl_tpu_torch.models import a2c
-    from image_captioning_through_rl_tpu_torch.ops import fused_beam, kernel_build
-    from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
-        fused_beam_search, prepare_beam_weights)
-    from image_captioning_through_rl_tpu_torch.ops.fused_decode import prepare_greedy_weights
+    from image_captioning_through_rl_tpu_torch.ops import kernel_build
 
     kernel_build.load_library()
     print(card_line(), flush=True)
@@ -135,23 +211,16 @@ def main() -> int:
     params = a2c.init(gen, cfg)
     on_dev = {net: {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
                         else v.to(dev)) for k, v in p.items()} for net, p in params.items()}
-    gw = prepare_greedy_weights(on_dev["policy"], torch.bfloat16)
-    bw = prepare_beam_weights(gw, on_dev["value"])
-    feats = torch.randn((1024, F), generator=gen).to(dev)
-    start = torch.full((1024,), START_ID, dtype=torch.int32, device=dev)
-    for n in (127, 1024):
-        f, s = feats[:n].contiguous(), start[:n].contiguous()
-
-        def call():
-            return fused_beam_search(bw, f, s, T, BEAM)
-
+    for label, call, timed, phases_of in shapes(args.path, on_dev, gen):
         runs = [cuda_ms(call, 5) for _ in range(args.runs)]
-        print(json.dumps({"root": os.path.abspath(args.root), "n": n, "beam": BEAM,
+        try:  # a parent checkout's wrapper may take no clock
+            ph = phases_of(timed)
+        except TypeError:
+            ph = None
+        print(json.dumps({"root": os.path.abspath(args.root), "path": args.path, "shape": label,
                           "ms_median": statistics.median(runs), "ms_min": min(runs),
                           "ms_max": max(runs), "ms_runs": runs, "profile": profile(call),
-                          "phases": phases(fused_beam, lambda clock: fused_beam_search(
-                              bw, f, s, T, BEAM, clock=clock))}),
-              flush=True)
+                          "phases": ph, "host_us": host_us(call)}), flush=True)
     return 0
 
 

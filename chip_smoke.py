@@ -16,8 +16,9 @@ Phases:
   2. build the kernels;
   3. the x-gate table kernel (emb @ wi (+ b), wgmma for bf16 weights) vs
      plain, bf16 and f32: both decode kernels' [V, 4H] tables and a GRU's
-     [V, 3H] with its bias; then the greedy kernel vs plain: N in
-     {1, 1000, 1024}, bf16 and f32 weights;
+     [V, 3H] with its bias; then the greedy kernel (csrc/decode.cu, one
+     persistent launch) vs plain: N in {1, 4, 1000, 1024}, bf16 and f32
+     weights, every case also run twice, bit-equal;
   4. beam kernel (one persistent launch) vs plain: N in {127, 1024}, B = 5,
      bf16 and f32 weights; B in {1, 2, 8} at small N and an N whose N B and
      N B^2 rows fill no whole row tile; every case also run twice, bit-equal;
@@ -26,10 +27,12 @@ Phases:
      beam-5 requests answered, launch counters read;
   6. timings: kernel and plain ms (CUDA events): the x-gate table (its
      kernel through the C entry point, and through its wrapper), greedy
-     at N = 1024 and beam at N = 127 and 1024 (the median and range of
-     three runs), with the beam's device time and launches per call
-     (torch.profiler: one beam_kernel, none of the kernels it replaced) and
-     its phases per step from the kernel's own clock;
+     at N = 1024, 64 and 4 (the median and range of three runs, its device
+     time and launches per call from torch.profiler: one decode_kernel beside
+     the start-token check, none of the per-step kernels it replaced; its
+     phases per step from the kernel's own clock; its bound; the wrapper's
+     host us a call) and beam at N = 127 and 1024 (the same, one
+     beam_kernel);
   7. LSTM chain kernels (forward and backward) vs plain: N = 512,
      E = H = 512, V = 1004, T = 16 and 17, bf16 and f32 weights: hs and
      every gradient (wi, wh, b, embedding, h0, c0) for a fixed upstream
@@ -77,8 +80,9 @@ Phases:
      fused A2C steps;
  16. the sampling kernel vs plain: bf16 and f32 weights, N in {1, 1024},
      four variants (unfiltered at t = 1.0, top-k 40 at t = 0.7,
-     nucleus 0.9, top-k 40 with nucleus 0.9), one key each; column 0 the
-     start token; with f32 weights, temperature-0 requests equal greedy;
+     nucleus 0.9, top-k 40 with nucleus 0.9), one key each, every case also
+     run twice, bit-equal; column 0 the start token; with f32 weights,
+     temperature-0 requests equal greedy;
  17. sampling main path: the server started through ``server.main`` with
      ``--warmup_samples``, sampled requests posted through the port's
      ``CaptionClient`` over JSON and binary headers (num_samples 1 and 3, two
@@ -86,17 +90,23 @@ Phases:
      ``seed + row offset``), each equal to ``Captioner.sample_captions`` at the
      same seeds; beam + sample and num_samples above ``--max_samples``
      answered 400; ``/stats`` with the sampling kernel launched, 0 errors;
- 18. timings (CUDA events): the sampling kernel and plain at N = 1024,
-     unfiltered and top-k 40 + nucleus 0.9, and at the served shape N = 64,
-     R = 4;
+ 18. timings (CUDA events): the sampling kernel (the greedy decode's launch
+     with a sampling pick) and plain at N = 1024, unfiltered and top-k 40 +
+     nucleus 0.9, and at the served shape N = 64, R = 4, as phase 6 times
+     greedy (median and range, device time, launches, phase clock), with the
+     bound of each from the noise entries the filters keep on these inputs;
+     the unfiltered case also with its noise hashed in phase B instead of in
+     the head's epilogue (the pick not kept); the wrapper's host us a call;
  19. the width faults repaired: train_reward_network and
      train_policy_network at hidden_dim = 1024 (2 minibatches of 512 each,
      chain launches counted, one minibatch of each step fused vs plain as in
      phase 9); both chains at H = E = 2048, whose weights stream through the
      ring, vs plain (phase 7's bounds); greedy, beam and top-k 40 + nucleus
      0.9 sampling at V = 1001, E = H = F = 500 (weights padded by the
-     wrappers), and sampling at V = 2000 (one block per row), vs plain under
-     the near-tie rules, and that last one timed at N = 1024; the beam at
+     wrappers), and sampling at V = 2000 (rows past what a warp holds in
+     registers, walked in L2), vs plain under the near-tie rules, and that
+     last one timed at N = 1024; greedy and sampling at hidden_dim = 1024
+     (weights streamed), bf16 and f32, vs plain; the beam at
      hidden_dim = 1024 (weights streamed), bf16 and f32, vs plain; the rollout
      forward and backward at hidden_dim = 1024 (weights streamed) and at
      V = 2000, bf16 and f32, vs plain under phase 13's rules.
@@ -107,8 +117,10 @@ the chains; A2C for the rest), its largest error against plain, its time and
 its plain version's, and its bound: the least time an H100 SXM could take
 (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16, 67 TFLOP/s for
 the noise kernel's integer and float32 work; the sampling kernel's products
-at the first rate plus its hash, Gumbel map and bisection passes at the
-second), counted in ``bounds()``. Where one PyTorch call computes a
+at the first rate plus, at the second, per element the division by t, the
+key and one select pass per filter, and the hash and Gumbel map of the
+noise entries the filters keep on this run's inputs), counted in
+``bounds()`` and ``sample_work()``. Where one PyTorch call computes a
 kernel's function it is timed as ``library_ms`` (and never called by the
 port): ``torch.mm`` with a float32 output for the x-gate table, cuDNN's
 ``torch.nn.LSTM`` and ``torch.nn.GRU`` for the chains (phase 10); the
@@ -196,8 +208,8 @@ is wider because the kernel's and cuBLAS's bf16 logits differ by up to
 measured at COCO width), 2.5e-4 once divided by t = 0.7, so a top-k
 boundary 1.7e-4 apart was seen to swap.
 
-The whole run takes about a minute of command time on the H100, the
-build included.
+The whole run takes about two minutes of command time on the H100, the
+build (about 80-110 s) included.
 """
 
 from __future__ import annotations
@@ -1139,6 +1151,87 @@ def beam_phases(bw, feats, start) -> str:
             f"three barriers inside it {mean_us(1, 2) + mean_us(3, 4) + mean_us(5, 6):.2f}")
 
 
+DECODE_GONE = ("lstm_kernel", "linear_kernel", "argmax_rows_kernel", "sample_rows_kernel",
+               "sample_wide_kernel", "fill_start_kernel")
+
+
+def decode_profile(call, iters: int = 3) -> tuple[str, float, int]:
+    """Phases 6 and 18: a decode's device time and launches per call
+    (torch.profiler): one decode_kernel for all T - 1 steps beside the small
+    launch that asserts the start tokens' range, none of the kernels it
+    replaced, no copy to the host. Returns the line, the device ms a call
+    and the launches a call."""
+    call()
+    torch.cuda.synchronize()
+    ms, counts = device_profile(call, iters, lambda c: c.get("decode_kernel", 0) >= iters)
+    launches = per_call(counts, iters)
+    if (launches.get("decode_kernel") != 1 or sum(launches.values()) > 2
+            or any(launches.get(k) for k in DECODE_GONE)
+            or any("Memcpy" in k and v for k, v in launches.items())):
+        raise AssertionError(f"decode launches per call: {launches}")
+    device = sum(ms.values()) / iters
+    return (f"device {device:.4f} ms a call (decode_kernel {ms['decode_kernel'] / iters:.4f}); "
+            f"launches a call " + ", ".join(f"{k} x{v:g}" for k, v in sorted(launches.items()) if v),
+            device, sum(launches.values()))
+
+
+def decode_phases(call) -> str:
+    """Phases 6 and 18: where a decode's time goes, from the kernel's own
+    clock over one call ``call(clock)`` (each mark the last block's): the
+    set-up (h0 and the first cell), then per step the means of phases A and
+    B and of the two barriers; and the mean clock64 cycles of a head tile and
+    of a cell tile in phase A (the ratio the plan's DECODE_TILE_COST
+    balances)."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import decode_clock_slots
+
+    clock = torch.zeros(decode_clock_slots(T), dtype=torch.int64, device="cuda")
+    call(clock)
+    c = clock.cpu().tolist()
+    if min(c) <= 0:
+        raise AssertionError(f"the decode's clock has unset marks: {c}")
+    steps = T - 1
+
+    def mean_us(a, b):  # from mark 2 + 4t + a to 2 + 4t + b, over the steps
+        return sum(c[2 + 4 * t + b] - c[2 + 4 * t + a] for t in range(steps)) / steps / 1e3
+
+    between = sum(c[6 + 4 * t] - c[5 + 4 * t] for t in range(steps - 1)) / (steps - 1) / 1e3
+    head, cell = (c[2 + 4 * steps + i] / c[3 + 4 * steps + i] for i in (0, 2))
+    return (f"set-up {(c[1] - c[0]) / 1e3:.1f} us; a step: phase A {mean_us(0, 1):.2f} us, "
+            f"B {mean_us(2, 3):.2f}, barriers {mean_us(1, 2) + between:.2f}; phase A's tiles: "
+            f"head {head:.0f} cycles, cell {cell:.0f} (head / cell {head / cell:.2f})")
+
+
+def time_decode(call, timed=None) -> dict:
+    """Phases 6 and 18: a decode's time (the median and range of three runs
+    of 20 back-to-back calls, CUDA events), its device time, launches a call
+    and phase clock; ``timed(clock)`` is the call with a clock."""
+    runs = sorted(cuda_ms(call, 20) for _ in range(3))
+    prof, device, launches = decode_profile(call)
+    return {"ms": runs[1], "min": runs[0], "max": runs[2], "profile": prof, "device": device,
+            "launches": launches, "phases": decode_phases(timed)}
+
+
+def decode_line(label: str, t: dict) -> str:
+    return (f"{label}: kernel {t['ms']:.4f} ms (median of 3, {t['min']:.4f}-{t['max']:.4f}), "
+            f"{t['profile']} | its clock: {t['phases']}")
+
+
+def time_greedy(gw, feats, start) -> dict:
+    """Phase 6: the greedy decode at N = 1024, 64 and 4 (bf16), its plain
+    version at N = 1024 and the wrapper's host microseconds a call."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
+        fused_greedy_decode, greedy_decode_plain)
+
+    out = {}
+    for n in (1024, 64, 4):
+        f, s = feats[:n].contiguous(), start[:n].contiguous()
+        out[n] = time_decode(lambda: fused_greedy_decode(gw, f, s, T),
+                             lambda c: fused_greedy_decode(gw, f, s, T, clock=c))
+    out["plain_ms"] = cuda_ms(lambda: greedy_decode_plain(gw, feats, start, T), 20)
+    out["host_us"] = host_us(lambda: fused_greedy_decode(gw, feats, start, T))
+    return out
+
+
 def time_a2c(a2c_params, rparams, data, dev) -> dict:
     """Phase 15: CUDA-event timings at the main path's shapes (bf16, N =
     512): the noise kernel, the reward stream, the rollout forward and
@@ -1215,7 +1308,8 @@ def compare_sampling(weights: dict, inputs, params, dev) -> float:
             for i, (name, t, k, p) in enumerate(SAMPLE_VARIANTS):
                 key = prng.PRNGKey(SEED + 70 + i)
                 k_tok = fused_sample_decode(gw, feats, start, key, T, t, k, p)
-                torch.cuda.synchronize()
+                if not torch.equal(fused_sample_decode(gw, feats, start, key, T, t, k, p), k_tok):
+                    raise AssertionError(f"two sampling calls differ ({name}, {wd}, N={n})")
                 p_tok, margins = sample_decode_plain(gw, feats, start, key, T, t, k, p,
                                                      margins=True)
                 if k_tok.shape != (n, T) or not bool((k_tok[:, 0] == START_ID).all()):
@@ -1229,7 +1323,8 @@ def compare_sampling(weights: dict, inputs, params, dev) -> float:
                 worst = max(worst, err)
                 report.append(f"{name}: {n_bad} differ (margin there {gap:.3g}, smallest "
                               f"{float(margins.min()):.3g})")
-            phase("sample", f"{str(wd)[6:]} N={n}: " + "; ".join(report))
+            phase("sample", f"{str(wd)[6:]} N={n}: " + "; ".join(report)
+                  + "; every variant's two calls bit-equal")
     feats, start = inputs(1000)
     cap = Captioner(params, net_cfg(), {i: f"w{i}" for i in range(V)}, device=dev,
                     weight_dtype=torch.float32)
@@ -1328,11 +1423,50 @@ def sampling_main_path(params: dict) -> dict:
     return launches
 
 
-def time_sampling(gw, inputs) -> dict:
-    """Phase 18: the sampling kernel and its plain version (bf16 weights) at
-    N = 1024, unfiltered and top-k 40 + nucleus 0.9, and at the served shape
-    N = 64, R = 4 (256 rows, top-k 40 + nucleus 0.9)."""
+def kept_entries(gw, feats, start, key, t, k, p) -> int:
+    """Phase 18: the (step, row, column) entries the filters keep over the
+    plain sampled decode of these inputs (every column when unfiltered): the
+    noise the kernel must hash, which the sampling bound counts. The plain
+    version's loop (ops/fused_sample.sample_decode_plain), counting."""
     from image_captioning_through_rl_tpu_torch.ops import prng
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
+        lstm_cell_plain, round_to, wmatmul)
+    from image_captioning_through_rl_tpu_torch.ops.fused_sample import (
+        _filters, filter_scaled_logits)
+    from image_captioning_through_rl_tpu_torch.ops.linalg import matmul
+
+    vocab = gw.emb.shape[0]
+    kk, use_k, use_p = _filters(vocab, k, p)
+    wd, emb = gw.dtype, gw.emb.to(torch.float32)
+    temp = torch.tensor(float(t), dtype=torch.float32, device=feats.device)
+    h = matmul(feats, gw.wc.to(torch.float32)) + gw.bc
+    c = torch.zeros_like(h)
+    tok, kept = start.long(), 0
+    for sub in prng.sample_step_keys(key, T - 1):
+        h, c = lstm_cell_plain(gw.w, gw.b, emb[tok], round_to(h, wd), c)
+        logits = (wmatmul(round_to(h, wd), gw.wo) + gw.bo)[:, :vocab]
+        scaled = filter_scaled_logits(logits / temp, kk, p, use_k, use_p)
+        kept += int((scaled > -1e30).sum())
+        noise = prng.gumbel_noise_plain(sub[None], scaled.shape, feats.device)[0]
+        tok = torch.argmax(scaled + noise, dim=-1)
+    return kept
+
+
+SAMPLE_SHAPES = ("N=1024 unfiltered", "N=1024 top-k 40 + nucleus 0.9",
+                 "N=64 R=4 top-k 40 + nucleus 0.9")
+
+
+def time_sampling(gw, inputs) -> dict:
+    """Phase 18: the sampling kernel (bf16 weights) at N = 1024, unfiltered
+    and top-k 40 + nucleus 0.9, and at the served shape N = 64, R = 4 (256
+    rows, top-k 40 + nucleus 0.9): the kernel's median and range of three
+    runs, device time, launches a call and phase clock (time_decode), its
+    plain version, and the noise entries the filters keep (the bound's
+    count); the unfiltered case also with its noise hashed in phase B over
+    each row instead of in the head's epilogue (the pick not kept); the
+    wrapper's host microseconds a call; a torch.profiler window."""
+    from image_captioning_through_rl_tpu_torch.ops import prng
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import PICK_FILTER, launch_decode
     from image_captioning_through_rl_tpu_torch.ops.fused_sample import (
         fused_sample_decode, sample_decode_plain)
 
@@ -1340,14 +1474,23 @@ def time_sampling(gw, inputs) -> dict:
     served = feats[:64].repeat_interleave(4, dim=0).contiguous()
     key = prng.PRNGKey(SEED + 90)
     times = {}
-    for label, f, (_, t, k, p) in (("N=1024 unfiltered", feats, SAMPLE_VARIANTS[0]),
-                                   ("N=1024 top-k 40 + nucleus 0.9", feats, SAMPLE_VARIANTS[3]),
-                                   ("N=64 R=4 top-k 40 + nucleus 0.9", served, SAMPLE_VARIANTS[3])):
+    for label, f, (_, t, k, p) in zip(SAMPLE_SHAPES, (feats, feats, served),
+                                      (SAMPLE_VARIANTS[0], SAMPLE_VARIANTS[3],
+                                       SAMPLE_VARIANTS[3])):
         s = start[:f.shape[0]].contiguous()
-        times[(label, "ms")] = cuda_ms(lambda: fused_sample_decode(gw, f, s, key, T, t, k, p), 20)
-        times[(label, "plain_ms")] = cuda_ms(
-            lambda: sample_decode_plain(gw, f, s, key, T, t, k, p), 1)
+        times[label] = time_decode(
+            lambda: fused_sample_decode(gw, f, s, key, T, t, k, p),
+            lambda c: fused_sample_decode(gw, f, s, key, T, t, k, p, clock=c))
+        times[label].update(
+            plain_ms=cuda_ms(lambda: sample_decode_plain(gw, f, s, key, T, t, k, p), 1),
+            kept=kept_entries(gw, f, s, key, t, k, p), rows=f.shape[0],
+            filters=int(k > 0) + int(p is not None))
+    words = prng.key_words(key)
+    times["N=1024 unfiltered, noise in phase B"] = time_decode(
+        lambda: launch_decode(gw, feats, start, T, PICK_FILTER, 1.0, 0, None, words),
+        lambda c: launch_decode(gw, feats, start, T, PICK_FILTER, 1.0, 0, None, words, c))
     _, t, k, p = SAMPLE_VARIANTS[3]
+    times["host_us"] = host_us(lambda: fused_sample_decode(gw, feats, start, key, T, t, k, p))
     times["profile"] = profile_window(
         lambda: fused_sample_decode(gw, feats, start, key, T, t, k, p), 5)
     return times
@@ -1558,8 +1701,60 @@ def wide_beam(dev) -> None:
                         f"err {err:.3g} (tolerance {SCORE_TOL[wd]}); two calls bit-equal")
 
 
+def wide_decodes(dev) -> None:
+    """Phase 19: greedy and top-k 40 + nucleus 0.9 sampling at hidden_dim =
+    1024, whose weights stream through the ring (no slice width gives every
+    slice a block), bf16 and f32, against plain under the near-tie rules, at
+    N = 512 rows as the wide beam (at this width more rows come within a
+    near-tie somewhere in their 16 steps); two calls bit-equal."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.config import NetConfig
+    from image_captioning_through_rl_tpu_torch.models import a2c
+    from image_captioning_through_rl_tpu_torch.ops import prng
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
+        PICK_ARGMAX, PICK_FILTER, decode_plan, fused_greedy_decode, greedy_decode_plain,
+        prepare_greedy_weights)
+    from image_captioning_through_rl_tpu_torch.ops.fused_sample import (
+        fused_sample_decode, sample_decode_plain)
+
+    cfg = NetConfig(vocab_size=V, input_dim=F, wordvec_dim=E, hidden_dim=WIDE_H, max_seq_len=T)
+    policy = to_device(a2c.init(torch.Generator().manual_seed(SEED + 6), cfg)["policy"], dev)
+    gen = torch.Generator().manual_seed(SEED + 7)
+    n = 512
+    feats = torch.randn((n, F), generator=gen).to(dev)
+    start = torch.full((n,), START_ID, dtype=torch.int32, device=dev)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, t, k, p = SAMPLE_VARIANTS[3]
+    key = prng.PRNGKey(SEED + 8)
+    for wd in (torch.bfloat16, torch.float32):
+        if not all(decode_plan(n, F, WIDE_H, V, pick, wd, sms)["stream"]
+                   for pick in (PICK_ARGMAX, PICK_FILTER)):
+            raise AssertionError(f"the decodes at H = {WIDE_H} ({wd}) do not stream")
+        gw = prepare_greedy_weights(policy, wd)
+        k_tok = fused_greedy_decode(gw, feats, start, T)
+        s_tok = fused_sample_decode(gw, feats, start, key, T, t, k, p)
+        if not (torch.equal(fused_greedy_decode(gw, feats, start, T), k_tok) and torch.equal(
+                fused_sample_decode(gw, feats, start, key, T, t, k, p), s_tok)):
+            raise AssertionError(f"two decodes at H = {WIDE_H} ({wd}) differ")
+        p_tok, gaps = greedy_decode_plain(gw, feats, start, T, margins=True)
+        g_bad, g_gap, _ = check_rows(
+            f"greedy H={WIDE_H} {wd}", k_tok, p_tok,
+            lambda bad: gaps[bad].gather(
+                1, first_divergent_step(k_tok[bad], p_tok[bad])[:, None].long())[:, 0])
+        p_tok, margins = sample_decode_plain(gw, feats, start, key, T, t, k, p, margins=True)
+        s_bad, s_gap, _ = check_rows(
+            f"sample H={WIDE_H} {wd}", s_tok, p_tok,
+            lambda bad: margins[bad].gather(
+                1, first_divergent_step(s_tok[bad], p_tok[bad])[:, None].long())[:, 0],
+            SAMPLE_NEAR_TIE[wd])
+        phase("faults", f"greedy and top-k 40 + nucleus 0.9 sampling at hidden_dim={WIDE_H} "
+                        f"(weights streamed) {str(wd)[6:]} N={n}: {g_bad} and {s_bad} row(s) "
+                        f"differ (smallest gap there {g_gap:.3g}, {s_gap:.3g}); two calls "
+                        f"bit-equal")
+
+
 def wide_vocab_sampling(dev) -> dict:
-    """Phase 19d: sampling at V = 2000 (one block per row), COCO widths, top-k
+    """Phase 19d: sampling at V = 2000 (a filtered row walked in L2), COCO widths, top-k
     40 + nucleus 0.9, bf16 and f32, against the plain version under the
     near-tie rule; then its time at N = 1024 (bf16), kernel and plain."""
     from image_captioning_through_rl_tpu_torch import START_ID
@@ -1694,6 +1889,31 @@ def work(nbytes: float, flops: float, peak: float = H100_BF16,
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def decode_work(n: int, scalar_ops: float = 0.0) -> tuple[float, str]:
+    """The greedy decode's bound at N = n (bf16, COCO width): its bytes (the
+    features, the weights, the x-gate table's inputs, the tokens) and its
+    products (h0, the x-gate table, per step the cell's h @ wh and the head),
+    with ``scalar_ops`` more at the float32 rate (sampling's pick)."""
+    bw, fw, g4 = 2, 4, 4 * H
+    lstm_w = (V * E + (E + H) * g4) * bw + g4 * fw
+    head_w = H * V * bw + V * fw
+    return work(n * F * fw + F * H * bw + lstm_w + head_w + n * T * 4,
+                2 * n * F * H + 2 * V * E * g4 + (T - 1) * (2 * n * H * g4 + 2 * n * H * V),
+                scalar_ops=scalar_ops)
+
+
+def sample_work(n: int, filters: int, kept: int) -> tuple[float, str]:
+    """The sampling decode's bound at N = n rows: greedy's bytes and products
+    (decode_work), and the scalar work the function needs on these inputs:
+    per step and element the division by t and, with a filter on, the key
+    (3 operations) and one select pass per filter; for each of the ``kept``
+    (step, row, column) entries the filters keep (every column when
+    unfiltered) the hash and Gumbel map (126, as threefry_gumbel), the noise
+    add and the argmax compare."""
+    per_element = 1 + (3 + filters if filters else 0)
+    return decode_work(n, (T - 1) * n * V * per_element + kept * (126 + 2))
+
+
 def bounds() -> dict:
     """Each kernel's bound at the shapes its time was taken at (bf16 weights,
     float32 activations), counted from the shapes and the code: the products
@@ -1704,10 +1924,8 @@ def bounds() -> dict:
     lstm_w = (V * E + (E + H) * g4) * bw + g4 * fw
     head_w = H * V * bw + V * fw
     out = {}
-    n, steps = 1024, T - 1  # greedy, N = 1024
-    out["greedy_decode"] = work(
-        n * F * fw + F * H * bw + lstm_w + head_w + n * T * 4,
-        2 * n * F * H + 2 * V * E * g4 + steps * (2 * n * H * g4 + 2 * n * H * V))
+    steps = T - 1
+    out["greedy_decode"] = decode_work(1024)
     n = 127  # beam-5, N = 127: policy cells and heads of N B beams, the critic's
     # h @ wh once per parent and its MLP for every one of the B^2 candidates
     nb = n * BEAM
@@ -1716,18 +1934,6 @@ def bounds() -> dict:
         + nb * (T + 1) * 4,
         2 * n * F * H * 2 + 2 * 2 * V * E * g4
         + steps * (2 * nb * H * g4 * 2 + 2 * nb * H * V + 2 * nb * BEAM * H * H))
-    # sampling, N = 1024, top-k 40 + nucleus 0.9: greedy's bytes and products,
-    # and per element and step the scalar work of the row kernel: the hash and
-    # Gumbel map (126, as threefry_gumbel), the division by t, the noise add
-    # and the argmax compare (3); per filter a key (3), 32 bisection passes of
-    # a compare and an add (64) and the mask (1), and for the nucleus the
-    # subtract, exp and max (3) and the sum z (1)
-    n = 1024
-    per_element = 126 + 3 + (3 + 64 + 1) + (3 + 64 + 1 + 3 + 1)
-    out["sample_decode"] = work(
-        n * F * fw + F * H * bw + lstm_w + head_w + n * T * 4,
-        2 * n * F * H + 2 * V * E * g4 + steps * (2 * n * H * g4 + 2 * n * H * V),
-        scalar_ops=steps * n * V * per_element)
     out["token_gates"] = work((V * E + E * g4) * bw + V * g4 * fw, 2 * V * E * g4)
     n = CHAIN_N
     for kind, g, steps, tape in (("lstm", g4, 16, 2 * H + g4), ("gru", g3, 17, 2 * H + g3)):
@@ -1834,10 +2040,11 @@ def main() -> int:
     # phase 3b: greedy kernel vs plain
     greedy_err = 0.0
     for wd, (gw, _) in weights.items():
-        for n in (1, 1000, 1024):
+        for n in (1, 4, 1000, 1024):
             feats, start = inputs(n)
             k_tok = fused_greedy_decode(gw, feats, start, T)
-            torch.cuda.synchronize()
+            if not torch.equal(fused_greedy_decode(gw, feats, start, T), k_tok):
+                raise AssertionError(f"two greedy calls differ ({wd}, N={n})")
             p_tok, gaps = greedy_decode_plain(gw, feats, start, T, margins=True)
             if k_tok.shape != (n, T) or not bool((k_tok[:, 0] == START_ID).all()):
                 raise AssertionError("greedy kernel output has the wrong shape or start column")
@@ -1848,7 +2055,7 @@ def main() -> int:
             greedy_err = max(greedy_err, err)
             phase("greedy", f"{str(wd)[6:]} N={n}: {n_bad} row(s) differ "
                             f"(smallest gap there {gap:.3g}; smallest gap overall "
-                            f"{float(gaps.min()):.3g})")
+                            f"{float(gaps.min()):.3g}); two calls bit-equal")
 
     # phase 4: beam kernel vs plain; B in {1, 2, 8} at small N, and N = 77
     # (385 and 1925 rows: no whole row tile)
@@ -1927,8 +2134,7 @@ def main() -> int:
     tab_host = (host_us(lambda: token_gate_table(gw.emb, gw.w)),
                 host_us(lambda: torch.mm(gw.emb, gw.w[:E], out_dtype=torch.float32)))
     feats, start = inputs(1024)
-    g_ms = cuda_ms(lambda: fused_greedy_decode(gw, feats, start, T), 20)
-    g_plain = cuda_ms(lambda: greedy_decode_plain(gw, feats, start, T), 20)
+    tg = time_greedy(gw, feats, start)
     times, beam_prof = {}, {}
     for n in (127, 1024):
         f_n, s_n = feats[:n].contiguous(), start[:n].contiguous()
@@ -1943,11 +2149,14 @@ def main() -> int:
                     f"{tab_plain:.3f} ms, library (torch.mm) {tab_library:.4f} ms (kernel / "
                     f"library {tab_ms / tab_library:.2f}); host us a call: wrapper "
                     f"{tab_host[0]:.1f}, torch.mm {tab_host[1]:.1f} | greedy N=1024: kernel "
-                    f"{g_ms:.3f} ms, plain "
-                    f"{g_plain:.3f} ms | " + " | ".join(
+                    f"{tg[1024]['ms']:.4f} ms, plain {tg['plain_ms']:.3f} ms, host us a call "
+                    f"{tg['host_us']:.1f} | " + " | ".join(
                         f"beam-5 N={n}: kernel {times[n][0]:.3f} ms (median of 3, "
                         f"{times[n][2]:.3f}-{times[n][3]:.3f}), plain {times[n][1]:.3f} ms"
                         for n in (127, 1024)))
+    for n in (1024, 64, 4):
+        phase("profile", f"{card} | " + decode_line(f"greedy N={n}, bf16", tg[n])
+              + " | bound {:.4f} ms ({})".format(*decode_work(n)))
     for n in (127, 1024):
         phase("profile", f"{card} | beam-5 N={n}, bf16: {beam_prof[n][0]} | its clock: "
                          f"{beam_prof[n][1]}")
@@ -2014,9 +2223,14 @@ def main() -> int:
     sample_err = compare_sampling(weights, inputs, params_dev, dev)
     sample_launches = sampling_main_path(params)
     ts = time_sampling(gw, inputs)
+    sample_bound = {label: sample_work(ts[label]["rows"], ts[label]["filters"],
+                                       ts[label]["kept"]) for label in SAMPLE_SHAPES}
     phase("timing", f"{card} | bf16 weights | sampling: " + " | ".join(
-        f"{label}: kernel {ts[(label, 'ms')]:.3f} ms, plain {ts[(label, 'plain_ms')]:.3f} ms"
-        for label in dict.fromkeys(key[0] for key in ts if key != "profile")))
+        f"{label}: kernel {ts[label]['ms']:.4f} ms, plain {ts[label]['plain_ms']:.3f} ms, bound "
+        f"{sample_bound[label][0]:.4f} ms ({sample_bound[label][1]}; {ts[label]['kept']} noise "
+        f"entries kept)" for label in SAMPLE_SHAPES) + f" | host us a call {ts['host_us']:.1f}")
+    for label in (*SAMPLE_SHAPES, "N=1024 unfiltered, noise in phase B"):
+        phase("profile", f"{card} | " + decode_line(f"sampling {label}, bf16", ts[label]))
     phase("profile", f"{card} | sampling kernel, N = 1024, top-k 40 + nucleus 0.9: "
                      f"{ts['profile']}")
 
@@ -2026,25 +2240,29 @@ def main() -> int:
     streamed_chains(dev)
     padded_decodes(dev)
     wide_beam(dev)
+    wide_decodes(dev)
     wv = wide_vocab_sampling(dev)
     wide_rollouts(dev)
-    phase("timing", f"{card} | bf16 weights | sampling V={WIDE_V} (one block per row), N=1024, "
+    phase("timing", f"{card} | bf16 weights | sampling V={WIDE_V} (rows walked in L2), N=1024, "
                     f"top-k 40 + nucleus 0.9: kernel {wv['ms']:.3f} ms, plain "
                     f"{wv['plain_ms']:.3f} ms")
 
-    bound = bounds()
+    bounds_ = bounds()
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, shape, library_ms=None):
+    def entry(name, source, replaces, launches, err, ms, plain_ms, shape, library_ms=None,
+              bound=None):
+        bound = bound or bounds_[name]
         return {"name": name, "route": "cuda",
                 "source": f"image_captioning_through_rl_tpu_torch/csrc/{source}",
                 "replaces": f"image_captioning_through_rl_tpu/ops/{replaces}",
                 "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound[name][0], "bound_by": bound[name][1],
+                "bound_ms": bound[0], "bound_by": bound[1],
                 "library_ms": library_ms, "shape": shape}
 
     kernels = [
-        entry("greedy_decode", "greedy_decode.cu", "pallas_decode.py:176",
-              launches["fused_greedy_decode"], greedy_err, g_ms, g_plain, "N=1024 bf16"),
+        entry("greedy_decode", "decode.cu", "pallas_decode.py:176",
+              launches["fused_greedy_decode"], greedy_err, tg[1024]["ms"], tg["plain_ms"],
+              "N=1024 bf16"),
         entry("beam_search", "beam_search.cu", "pallas_beam.py:362",
               launches["fused_beam_search"], beam_err, times[127][0], times[127][1],
               "N=127 B=5 bf16"),
@@ -2070,10 +2288,11 @@ def main() -> int:
                              ta[(name, "plain_ms")],
                              f"[{S}, {ROLLOUT_N}, {V}] f32" if name == "threefry_gumbel"
                              else shape))
-    label = "N=1024 top-k 40 + nucleus 0.9"
-    kernels.append(entry("sample_decode", "sample_decode.cu", "pallas_sample.py:350",
-                         sample_launches["fused_sample_decode"], sample_err, ts[(label, "ms")],
-                         ts[(label, "plain_ms")], "N=1024 T=17 top-k 40 + top-p 0.9 bf16"))
+    label = SAMPLE_SHAPES[1]
+    kernels.append(entry("sample_decode", "decode.cu", "pallas_sample.py:350",
+                         sample_launches["fused_sample_decode"], sample_err, ts[label]["ms"],
+                         ts[label]["plain_ms"], "N=1024 T=17 top-k 40 + top-p 0.9 bf16",
+                         bound=sample_bound[label]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

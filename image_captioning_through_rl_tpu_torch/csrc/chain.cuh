@@ -615,5 +615,129 @@ struct ChainStage {
   __device__ int* scratch() const { return reinterpret_cast<int*>(ChainSmem<Tl>(base, H).Cs); }
 };
 
+// Raises clock[k] to the %globaltimer nanoseconds now (thread 0 of the
+// block; a null clock costs a branch): every block marking slot k leaves the
+// latest block's time there. The persistent decodes' optional phase clocks.
+__device__ __forceinline__ void clock_mark(unsigned long long* clock, int k) {
+  if (clock && threadIdx.x == 0) {
+    unsigned long long ns;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+    atomicMax(clock + k, ns);
+  }
+}
+
+// ---- The per-row picks and the LSTM cell of the persistent decodes
+// (beam_search.cu, decode.cu) ----
+
+// (v, i) ranks before (v2, i2): a larger value, or an equal one at a lower
+// index, as lax.top_k orders them.
+// (Bitwise, not short-circuit: the compiler turns || and && on data into
+// branches and reconvergence points, which made the beam's top-B rounds take
+// five times as long.)
+__device__ __forceinline__ bool ranks_before(float v, int i, float v2, int i2) {
+  return (v > v2) | ((v == v2) & (i < i2));
+}
+
+// (value, lowest index) over the lanes whose xor masks are below ``width``.
+__device__ __forceinline__ void argmax_width(float& v, int& i, int width) {
+  for (int off = 1; off < width; off <<= 1) {
+    const float v2 = __shfl_xor_sync(FULL, v, off);
+    const int i2 = __shfl_xor_sync(FULL, i, off);
+    const bool take = ranks_before(v2, i2, v, i);
+    v = take ? v2 : v;
+    i = take ? i2 : i;
+  }
+}
+
+// The gate parts of four consecutive units j .. j + 3 of one row, [gate][unit]:
+// the x-gate row, the recurrent pre-activation, the bias (each 4 x 4 from
+// four 16-byte loads) and c.
+struct Cell4 {
+  float x[4][4], p[4][4], b[4][4], c[4];
+};
+
+__device__ __forceinline__ void ld_gates(float (&v)[4][4], int H, const float* p) {
+#pragma unroll
+  for (int g = 0; g < 4; ++g) ld4(v[g], p + g * H);
+}
+
+__device__ __forceinline__ void zero4(float (&v)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) v[u] = 0.f;
+}
+
+// A cell's operands: p null for a zero state's product, c_in null for c = 0.
+__device__ __forceinline__ void cell_load(Cell4& in, int H, const float* x, const float* p,
+                                          const float* b, const float* c_in) {
+  ld_gates(in.x, H, x);
+  ld_gates(in.b, H, b);
+  if (p) {
+    ld_gates(in.p, H, p);
+  } else {
+#pragma unroll
+    for (int g = 0; g < 4; ++g) zero4(in.p[g]);
+  }
+  if (c_in)
+    ld4(in.c, c_in);
+  else
+    zero4(in.c);
+}
+
+// The LSTM advance from gate pre-activations x + p + b (the TPU kernel's
+// order) -> h and c. Where two phases compute the same cell from the same
+// operands, so both get the same bits (explicit fmaf: no contraction choice
+// left to the compiler).
+__device__ __forceinline__ void cell_math(const float (&x)[4][4], const Cell4& in, float (&h)[4],
+                                          float (&c)[4]) {
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const float gi = sigmoid(x[0][u] + in.p[0][u] + in.b[0][u]);
+    const float gf = sigmoid(x[1][u] + in.p[1][u] + in.b[1][u]);
+    const float gg = tanhf(x[2][u] + in.p[2][u] + in.b[2][u]);
+    const float go = sigmoid(x[3][u] + in.p[3][u] + in.b[3][u]);
+    c[u] = fmaf(gf, in.c[u], gi * gg);
+    h[u] = go * tanhf(c[u]);
+  }
+}
+
+// cell_math on loaded operands, h stored in the weight type and c in float32.
+template <typename W>
+__device__ __forceinline__ void cell_store(const Cell4& in, W* h_out, float* c_out) {
+  float h[4], c[4];
+  cell_math(in.x, in, h, c);
+  st4(h_out, h);
+  st4(c_out, c);
+}
+
+// A recurrent product's epilogue: the tile's columns [c0, c0 + lim) to the
+// pre-activation scratch out [nrows, ld], four consecutive columns a thread.
+template <class Tl>
+__device__ void pre_epilogue(float* out, int ld, int nrows, const float* Cs, int cld, int c0,
+                             int lim, int row0) {
+  constexpr int Q = Tl::NC / 4, RS = CHAIN_THREADS / Q;
+  const int c = threadIdx.x % Q * 4;
+  if (c >= lim) return;
+  for (int r = threadIdx.x / Q; r < CHAIN_BR && row0 + r < nrows; r += RS) {
+    float v[4];
+    ld4(v, Cs + r * cld + c);
+    st4(out + (size_t)(row0 + r) * ld + c0 + c, v);
+  }
+}
+
+// Calls f(slice, row tile) for this block's items of a phase: stationary, the
+// row tiles group, group + groups, ... of its own slice (none when the block
+// serves the other phase); streaming, the items blockIdx.x, + gridDim.x, ...
+// of all slices x tiles.
+template <bool kStream, class Fn>
+__device__ __forceinline__ void for_items(int my_slice, int group, int groups, int slices,
+                                          int tiles, const Fn& f) {
+  if constexpr (kStream) {
+    for (int i = blockIdx.x; i < slices * tiles; i += gridDim.x) f(i % slices, i / slices);
+  } else {
+    if (my_slice < 0) return;
+    for (int rt = group; rt < tiles; rt += groups) f(my_slice, rt);
+  }
+}
+
 }  // namespace
 }  // namespace icrl

@@ -1,10 +1,9 @@
-// Building blocks shared by the decode kernels (greedy_decode.cu,
-// sample_decode.cu), the persistent launches (chain.cuh: the training chains,
-// the rollout forward, the beam search) and the rest.
+// Building blocks shared by the persistent launches (chain.cuh: the training
+// chains, the rollout forward, the beam search, the greedy and sampling
+// decodes) and the rest.
 //
-// Every product the greedy and sampling decodes compute (the h0 projection,
-// the LSTM gates, the vocab head), and the float32 chains' products after the
-// loop, runs through
+// The per-step products of the reward stream, the float32 chains' products
+// after the loop and the rollout backward's float32 heads run through
 // a 64 x 64 block tile with float32 accumulation: on the tensor
 // cores (WMMA, gemm_tile_tc) when both operands are bf16 values, else on the
 // CUDA cores (gemm_tile). Weights are float or __nv_bfloat16 (template W);
@@ -12,8 +11,8 @@
 // a product of two bf16 values is exact in float32 and only the order of
 // the float32 sums differs from the plain PyTorch versions.
 //
-// Bound on Hopper: at decode batch sizes each step streams the weights
-// (about 6.5 MB in bf16 at COCO width) from L2 once per 64-row tile, and a
+// Bound on Hopper: at small batches each step streams the weights from L2
+// once per 64-row tile, and a
 // tile's time is set by how fast it can dispatch its staging and WMMA
 // instructions and wait out each depth step, far below the tensor cores'
 // rate (about 90 TFLOP/s for a large bf16 product on an H100). The design
@@ -42,7 +41,6 @@ constexpr int BM = 64;          // rows per block tile
 constexpr int BN = 64;          // output columns per block tile
 constexpr int BK = 16;          // reduction depth per shared-memory stage
 constexpr int NT = 256;         // threads per block: 16 x 16, 4 x 4 outputs each
-constexpr int UNITS = BN / 4;   // hidden units per LSTM block (four gate columns each)
 constexpr int ROWS_PER_BLOCK = NT / 32;  // row kernels: one warp per row
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -91,7 +89,7 @@ __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)
 // the same A rows and B column at every depth step, so it resolves them
 // once, before the depth loop; inside it only the depth offset moves.
 //
-// On the CUDA cores, for float32 operands (and greedy's float32-feature h0
+// On the CUDA cores, for float32 operands (and a float32 activation
 // against bf16 weights): float32 products, no rounding.
 template <class AT, class W, class ARow, class BCol>
 __device__ __forceinline__ void gemm_tile(float (&acc)[4][4], int K, const AT* __restrict__ a,
@@ -304,88 +302,6 @@ cudaError_t launch_linear(int M, int K, int N, const AT* A, const W* w, const fl
                           OT* out, cudaStream_t s) {
   linear_kernel<W, AT, kRoundA, OT><<<dim3(cdiv(M, BM), cdiv(N, BN)), NT, 0, s>>>(M, K, N, A, w,
                                                                                   bias, out);
-  return cudaGetLastError();
-}
-
-// The gate math and c/h update of one LSTM cell, from the gate pre-activation
-// parts x_part (token row of the x-gate table xg = emb @ wi) and h_part
-// (rnd(h) @ wh), added in the TPU kernels' order: x_part + h_part + b. The
-// new h is stored in the weight type HT: every later read of it is a
-// product's operand, which the TPU kernels round to that type first.
-template <typename HT>
-__device__ __forceinline__ void lstm_update(int H, int j, const float* x_part,
-                                            const float (&h_part)[4], const float* b,
-                                            float c, HT* h_out, float* c_out) {
-  const float gi = sigmoid(x_part[j] + h_part[0] + b[j]);
-  const float gf = sigmoid(x_part[H + j] + h_part[1] + b[H + j]);
-  const float gg = tanhf(x_part[2 * H + j] + h_part[2] + b[2 * H + j]);
-  const float go = sigmoid(x_part[3 * H + j] + h_part[3] + b[3 * H + j]);
-  const float c_new = gf * c + gi * gg;
-  *c_out = c_new;
-  st(h_out, go * tanhf(c_new));
-}
-
-// One LSTM cell over ``rows`` rows. The input product x @ wi of a token is a
-// row of the x-gate table xg [V, 4H], computed once per weights (the TPU
-// kernels compute it every step from a one-hot matmul); the recurrent product
-// rnd(h) @ wh runs here:
-//   token of row r: tok[(r / tok_div) * tok_stride];
-//   state row s = state_idx ? state_idx[r] : r / state_div, h = h_in[s],
-//   c = c_in[s]; null h_in / c_in are zeros (then no product runs).
-// h is kept in the weight type W (rounded, as the products read it), c in
-// float32.
-// A block owns 64 rows and 16 hidden units j, i.e. the four gate columns
-// {j, H+j, 2H+j, 3H+j} of wh; each thread then holds all four gates of one
-// (row, j) and applies the gate math and the c/h update in its epilogue.
-template <typename W>
-struct LstmArgs {
-  int rows, H;
-  const int* tok;
-  int tok_div, tok_stride;
-  const float* xg;      // [V, 4H] x-gate table
-  const W* h_in;        // [*, H] or null
-  const float* c_in;    // [*, H] or null
-  const int* state_idx; // [rows] or null
-  int state_div;
-  const W* wh;          // [H, 4H]
-  const float* b;       // [4H]
-  W* h_out;             // [rows, H]
-  float* c_out;         // [rows, H]
-};
-
-template <typename W>
-__global__ void __launch_bounds__(NT) lstm_kernel(LstmArgs<W> a) {
-  __shared__ int s_tok[BM];
-  __shared__ int s_state[BM];
-  const int row0 = blockIdx.x * BM, j0 = blockIdx.y * UNITS, G = 4 * a.H;
-  if (threadIdx.x < BM) {
-    const int r = row0 + threadIdx.x;
-    s_tok[threadIdx.x] = r < a.rows ? a.tok[(size_t)(r / a.tok_div) * a.tok_stride] : -1;
-    s_state[threadIdx.x] = r < a.rows ? (a.state_idx ? a.state_idx[r] : r / a.state_div) : 0;
-  }
-  __syncthreads();
-  auto arow = [&](int m) { return s_tok[m] < 0 ? -1 : s_state[m]; };
-  auto bcol = [&](int c) {  // tile column c = gate * UNITS + unit
-    const int j = j0 + c % UNITS;
-    return j < a.H ? (c / UNITS) * a.H + j : -1;
-  };
-  float acc[4][4];
-  gemm<kIsBf16<W>>(acc, a.h_in ? a.H : 0, a.h_in, a.H, arow, a.wh, G, bcol);
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16, j = j0 + tx;
-  if (j >= a.H) return;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = ty + 16 * i, r = row0 + m;
-    if (r >= a.rows) continue;
-    const float c = a.c_in ? a.c_in[(size_t)s_state[m] * a.H + j] : 0.f;
-    lstm_update(a.H, j, a.xg + (size_t)s_tok[m] * G, acc[i], a.b, c,
-                a.h_out + (size_t)r * a.H + j, a.c_out + (size_t)r * a.H + j);
-  }
-}
-
-template <typename W>
-cudaError_t launch_lstm(const LstmArgs<W>& a, cudaStream_t s) {
-  lstm_kernel<W><<<dim3(cdiv(a.rows, BM), cdiv(a.H, UNITS)), NT, 0, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -645,50 +561,6 @@ cudaError_t launch_colsum(int R, int C, const float* x, float* part, float* out,
   if (err != cudaSuccess) return err;
   colsum_finish_kernel<<<cdiv(C, 256), 256, 0, s>>>(C, part, out);
   return cudaGetLastError();
-}
-
-// Warp-wide (max value, lowest index) reduction: ties go to the lower index,
-// as jnp.argmax and lax.top_k break them.
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off; off >>= 1) {
-    const float v2 = __shfl_xor_sync(FULL, v, off);
-    const int i2 = __shfl_xor_sync(FULL, i, off);
-    if (v2 > v || (v2 == v && i2 < i)) {
-      v = v2;
-      i = i2;
-    }
-  }
-}
-
-// ---- The decode loops' shared pieces (greedy_decode.cu, sample_decode.cu) ----
-
-// out[r, 0] = start[r] for the [n, T] token output.
-__global__ void fill_start_kernel(int n, int T, const int* __restrict__ start,
-                                  int* __restrict__ out) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r < n) out[(size_t)r * T] = start[r];
-}
-
-// The decode loops' workspace: h in the weight type (only ever read as a
-// product's rounded operand), c and the logits in float32.
-template <typename W>
-struct GreedyLayout {
-  W* h[2];
-  float *c[2], *logits;
-};
-
-template <typename W>
-GreedyLayout<W> greedy_layout(float* ws, int n, int H, int V, size_t* used = nullptr) {
-  Carver cv{ws};
-  GreedyLayout<W> l;
-  for (int i = 0; i < 2; ++i) {
-    l.h[i] = cv.take<W>((size_t)n * H);
-    l.c[i] = cv.take((size_t)n * H);
-  }
-  l.logits = cv.take((size_t)n * V);
-  if (used) *used = cv.used;
-  return l;
 }
 
 // Return the CUDA error code (a cudaError_t, or the int a host loop

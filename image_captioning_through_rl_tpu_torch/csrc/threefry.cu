@@ -5,7 +5,7 @@
 // element by element with its helpers threefry2x32_bits and
 // gumbel_from_bits (lines 90-140), whose CUDA form is threefry.cuh. The A2C
 // rollout reads its [S, N, V] noise from here; the sampling decode
-// (sample_decode.cu) computes its noise inline from the same header.
+// (decode.cu) computes its noise inline from the same header.
 //
 // What bounds it: per element ~80 integer and float operations and one
 // 4-byte store. At [16, 512, 1004] (8.2 M elements, 33 MB) the two bounds

@@ -3,7 +3,7 @@
 // The CUDA form of the two helpers of the TPU kernel
 // image_captioning_through_rl_tpu/ops/pallas_sample.py (threefry2x32_bits,
 // gumbel_from_bits, lines 90-140). Shared by the noise kernel (threefry.cu)
-// and the sampling decode (sample_decode.cu), which recomputes each
+// and the sampling decode (decode.cu), which recomputes each
 // element's noise where it needs it.
 //
 // Element c of a key's draw is the 20-round threefry-2x32 hash of the 64-bit

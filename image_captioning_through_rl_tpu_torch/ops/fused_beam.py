@@ -30,6 +30,8 @@ import torch
 from .. import MAX_SEQ_LEN
 from .fused_decode import (
     GreedyWeights,
+    check_clock,
+    check_head,
     check_kernel_inputs,
     check_tile_widths,
     check_weights,
@@ -42,7 +44,7 @@ from .fused_decode import (
 from .fused_lstm import (_CHAIN_RING, _SLICE_UNITS, CHAIN_ROWS, SMEM_PER_BLOCK, SMEM_PER_SM,
                          SMEM_RESERVED, _chain_smem)
 from .kernel_build import check_error, load_library
-from .padding import pad8, pad_dim, pad_gates, pad_split_rows
+from .padding import pad_dim, pad_gates, pad_split_rows
 
 MAX_BEAM = 8  # the kernel's bound (icrl_beam_max_beam in csrc/beam_search.cu)
 
@@ -71,7 +73,7 @@ class ValueWeights(NamedTuple):
 class BeamWeights(NamedTuple):
     """The policy's and the critic's weights, and (CUDA only) the head ``wo``
     with its rows padded to a multiple of 8 columns, which the kernel stages
-    in 16-byte chunks."""
+    in 16-byte chunks (the policy's own ``head``)."""
 
     policy: GreedyWeights
     value: ValueWeights
@@ -104,18 +106,13 @@ def prepare_beam_weights(policy: GreedyWeights, value_params: dict) -> BeamWeigh
                        hp)
     emb, w = wt(pad_dim(value_params["embedding"], 1, ep)), wt(w)
     w1 = pad_dim(pad_split_rows(value_params["linear1"]["w"], feat_dim, fp, hp), 1, hp)
-    head = None
-    if emb.is_cuda:
-        head = policy.wo
-        if head.shape[1] % 8:
-            head = pad_dim(head, 1, pad8(head.shape[1])).contiguous()
     return BeamWeights(policy, ValueWeights(
         emb=emb, w=w, b=f32(pad_gates(lstm["b"], 4, hp)),
         w1=wt(w1), b1=f32(pad_dim(value_params["linear1"]["b"], 0, hp)),
         w2=wt(pad_dim(value_params["linear2"]["w"][:, 0], 0, hp)),
         b2=f32(value_params["linear2"]["b"]),
         xg=token_gate_table(emb, w) if emb.is_cuda else None,
-    ), head)
+    ), policy.head)
 
 
 def stable_topk(x: torch.Tensor, k: int, largest: bool = True):
@@ -375,7 +372,7 @@ def _launch_beam(weights: BeamWeights, features: torch.Tensor, start_tokens: tor
     features = pad_features(p, features)
     vocab, emb_dim = p.emb.shape
     feat_dim, hidden = p.wc.shape
-    check_kernel_inputs(features, start_tokens, None)  # the C entry asserts their range
+    check_kernel_inputs(features, start_tokens)  # the C entry asserts their range
     check_weights(p, features.device)
     check_weights(v, features.device)
     if v.dtype != p.dtype:
@@ -383,11 +380,7 @@ def _launch_beam(weights: BeamWeights, features: torch.Tensor, start_tokens: tor
     check_tile_widths(p.dtype, feat_dim=feat_dim, emb_dim=emb_dim, hidden=hidden,
                       vocab=p.wo.shape[1])
     width = p.wo.shape[1]  # the head's width: a padded word never makes the cut
-    if (head is None or head.dtype != p.dtype or head.device != features.device
-            or not head.is_contiguous() or head.shape[0] != hidden or head.shape[1] % 8
-            or not width <= head.shape[1] < width + 8):
-        raise ValueError("weights.head must be the head wo with rows padded to a multiple of 8 "
-                         "columns, as prepare_beam_weights makes it")
+    check_head(head, p.wo)
     n = features.shape[0]
     if max_len < 2 or vocab <= beam:
         raise ValueError("max_len must be at least 2 and the vocabulary larger than the beam")
@@ -437,12 +430,7 @@ def fused_beam_search(weights: BeamWeights, features: torch.Tensor,
     if not 1 <= beam <= MAX_BEAM:
         raise ValueError(f"beam must be in [1, {MAX_BEAM}], got {beam}")
     args = (weights, features, start_tokens, max_len, beam, value_weight, logprob_weight)
-    if clock is not None and (clock.dtype != torch.int64 or not clock.is_cuda
-                              or clock.device != features.device or not clock.is_contiguous()
-                              or clock.numel() < beam_clock_slots(max_len)
-                              or use_fused_kernel is False):
-        raise ValueError(f"clock must be {beam_clock_slots(max_len)} contiguous int64 zeros on "
-                         f"the features' CUDA device, for the kernel")
+    check_clock(clock, beam_clock_slots(max_len), features, use_fused_kernel)
     if use_fused_kernel is False:
         return beam_search_plain(*args)
     if features.is_cuda:

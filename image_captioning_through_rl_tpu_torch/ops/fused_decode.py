@@ -1,8 +1,12 @@
 """Greedy decode: the hand-written CUDA kernel and its plain PyTorch version.
 
 Counterpart of the JAX ``ops/pallas_decode.py`` (``fused_greedy_decode``,
-TPU kernel ``_kernel``). The kernel is ``csrc/greedy_decode.cu``; its note
-says what bounds it on Hopper and what its design does about that.
+TPU kernel ``_kernel``). The kernel is ``csrc/decode.cu``, one persistent
+cooperative launch for the whole decode, shared with the sampling decode
+(:mod:`.fused_sample`); its note says what bounds it on Hopper and what its
+design does about that. :func:`decode_plan` mirrors its launch plan, and
+:func:`merge_argmax_partials` is a plain model of how it merges per-slice
+argmaxes, for the tests.
 
 Routing in :func:`fused_greedy_decode`: a CUDA tensor goes to the kernel
 (or the call raises), a CPU tensor goes to :func:`greedy_decode_plain`,
@@ -20,6 +24,7 @@ workarounds carry over: no one-hot matmuls, no batch padding.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -39,7 +44,9 @@ class GreedyWeights(NamedTuple):
     ``widths`` is ``(F, E, H)`` of the model when :func:`pad_greedy_weights`
     padded it (then the shapes below are padded: F, E, H to multiples of 8,
     the head's V to an even width; the embedding keeps its V rows), else
-    None."""
+    None. ``head`` (CUDA only, like ``xg``) is ``wo`` with its rows padded to
+    a multiple of 8 columns, which the decode and beam kernels stage in
+    16-byte chunks (``wo`` itself where its width is one)."""
 
     wc: torch.Tensor   # [F, H]
     bc: torch.Tensor   # [H]
@@ -50,6 +57,7 @@ class GreedyWeights(NamedTuple):
     bo: torch.Tensor   # [V]
     xg: torch.Tensor | None  # [V, 4H]
     widths: tuple | None = None
+    head: torch.Tensor | None = None  # [H, pad8(V)]
 
     f32_fields = ("bc", "b", "bo", "xg")
 
@@ -85,13 +93,24 @@ def prepare_greedy_weights(params: dict, weight_dtype: torch.dtype = torch.bfloa
     (feat_dim, hidden), (vocab, emb_dim) = weights.wc.shape, emb.shape
     if needs_padding(feat_dim, emb_dim, hidden, vocab=vocab):
         return pad_greedy_weights(weights)
-    return weights._replace(xg=token_gate_table(emb, w) if emb.is_cuda else None)
+    return _with_tables(weights)
+
+
+def _with_tables(weights: GreedyWeights) -> GreedyWeights:
+    """The weights with what the kernels read beside them, on CUDA: the
+    x-gate table and the head padded to a multiple of 8 columns."""
+    if not weights.emb.is_cuda:
+        return weights
+    wo = weights.wo
+    head = wo if wo.shape[1] % 8 == 0 else pad_dim(wo, 1, pad8(wo.shape[1])).contiguous()
+    return weights._replace(xg=token_gate_table(weights.emb, weights.w), head=head)
 
 
 def pad_greedy_weights(weights: GreedyWeights) -> GreedyWeights:
     """Unpadded weights padded for the kernels (:mod:`.padding`): F, E and H
     to multiples of 8, the head to an even vocabulary with a -1e30 bias on
-    the padded word; the x-gate table rebuilt on CUDA. Every decode gives
+    the padded word; the x-gate table and the padded head rebuilt on CUDA.
+    Every decode gives
     the same tokens on the padded weights (with features padded by
     :func:`pad_features`)."""
     (feat_dim, hidden), emb_dim = weights.wc.shape, weights.emb.shape[1]
@@ -99,14 +118,13 @@ def pad_greedy_weights(weights: GreedyWeights) -> GreedyWeights:
     fp, ep, hp, vp = pad8(feat_dim), pad8(emb_dim), pad8(hidden), vocab + vocab % 2
     emb = pad_dim(weights.emb, 1, ep).contiguous()
     w = pad_split_rows(pad_gates(weights.w, 4, hp), emb_dim, ep, hp).contiguous()
-    return GreedyWeights(
+    return _with_tables(GreedyWeights(
         wc=pad_dim(pad_dim(weights.wc, 0, fp), 1, hp).contiguous(),
         bc=pad_dim(weights.bc, 0, hp).contiguous(), emb=emb, w=w,
         b=pad_gates(weights.b, 4, hp).contiguous(),
         wo=pad_dim(pad_dim(weights.wo, 0, hp), 1, vp).contiguous(),
-        bo=pad_dim(weights.bo, 0, vp, NEG).contiguous(),
-        xg=token_gate_table(emb, w) if emb.is_cuda else None,
-        widths=(feat_dim, emb_dim, hidden))
+        bo=pad_dim(weights.bo, 0, vp, NEG).contiguous(), xg=None,
+        widths=(feat_dim, emb_dim, hidden)))
 
 
 def pad_features(weights, features: torch.Tensor) -> torch.Tensor:
@@ -280,12 +298,10 @@ def assert_tokens(msg: str, vocab: int, *tokens: torch.Tensor) -> None:
             torch._assert_async(torch.floor_divide(t, vocab).eq(0).all(), msg)
 
 
-def check_kernel_inputs(features: torch.Tensor, start_tokens: torch.Tensor,
-                        vocab: int | None) -> None:
-    """Device, type and shape checks of a kernel wrapper's inputs, and the
-    start tokens' range by :func:`assert_tokens` (``vocab`` None: the C
-    entry asserts the range itself, as the beam's does, in one launch where
-    this takes four)."""
+def check_kernel_inputs(features: torch.Tensor, start_tokens: torch.Tensor) -> None:
+    """Device, type and shape checks of a decode kernel wrapper's inputs. The
+    start tokens' range is asserted on the device by the C entry, in one
+    small launch, without a host sync."""
     dev = features.device
     if features.dtype != torch.float32 or features.dim() != 2 or not features.is_contiguous():
         raise ValueError("features must be a contiguous float32 [N, F] tensor")
@@ -297,8 +313,17 @@ def check_kernel_inputs(features: torch.Tensor, start_tokens: torch.Tensor,
             or not start_tokens.is_contiguous() or start_tokens.device != dev):
         raise ValueError("start_tokens must be a contiguous int32 [N] tensor on the "
                          "features' device")
-    if vocab is not None:
-        assert_tokens(f"start tokens must lie in [0, {vocab})", vocab, start_tokens)
+
+
+def check_head(head: torch.Tensor | None, wo: torch.Tensor) -> None:
+    """``head`` must be ``wo`` with its rows padded to a multiple of 8
+    columns, as :func:`prepare_greedy_weights` makes it on CUDA."""
+    width = wo.shape[1]
+    if (head is None or head.dtype != wo.dtype or head.device != wo.device
+            or not head.is_contiguous() or head.shape[0] != wo.shape[0] or head.shape[1] % 8
+            or not width <= head.shape[1] < width + 8):
+        raise ValueError("the head must be wo with rows padded to a multiple of 8 columns, as "
+                         "prepare_greedy_weights makes it")
 
 
 def check_decode_inputs(weights: GreedyWeights, features: torch.Tensor,
@@ -308,56 +333,211 @@ def check_decode_inputs(weights: GreedyWeights, features: torch.Tensor,
     widths and ``max_len``."""
     vocab, emb_dim = weights.emb.shape
     feat_dim, hidden = weights.wc.shape
-    check_kernel_inputs(features, start_tokens, vocab)
+    check_kernel_inputs(features, start_tokens)
     check_weights(weights, features.device)
     check_tile_widths(weights.dtype, feat_dim=feat_dim, emb_dim=emb_dim, hidden=hidden,
                       vocab=weights.wo.shape[1])
+    check_head(weights.head, weights.wo)
     if max_len < 2:
         raise ValueError("max_len must be at least 2")
 
 
-def _launch_greedy(weights: GreedyWeights, features: torch.Tensor,
-                   start_tokens: torch.Tensor, max_len: int) -> torch.Tensor:
+def check_clock(clock: torch.Tensor | None, slots: int, features: torch.Tensor,
+                use_fused_kernel) -> None:
+    """A kernel's optional phase clock: ``slots`` contiguous int64 zeros on
+    the features' CUDA device, for a call that runs the kernel."""
+    if clock is not None and (clock.dtype != torch.int64 or not clock.is_cuda
+                              or clock.device != features.device or not clock.is_contiguous()
+                              or clock.numel() < slots or use_fused_kernel is False):
+        raise ValueError(f"clock must be {slots} contiguous int64 zeros on the features' CUDA "
+                         f"device, for the kernel")
+
+
+# The decode kernel's picks (csrc/decode.cu DecodePick): greedy's argmax, the
+# Gumbel-max of an unfiltered sample, the filtered sample. Per pick, the
+# relative time of one row tile of a head slice and of a cell slice
+# (DECODE_TILE_COST, measured by the kernel's tile counters), which the plan
+# balances.
+PICK_ARGMAX, PICK_GUMBEL, PICK_FILTER = 0, 1, 2
+DECODE_TILE_COST = ((9, 8), (5, 2), (3, 2))
+
+
+def decode_columns(hidden: int, vocab: int) -> tuple:
+    """The columns of each product of a decode step, in slice order: the
+    head's V, the cell's recurrent 4H."""
+    return (vocab, 4 * hidden)
+
+
+def decode_plan(n: int, feat_dim: int, hidden: int, vocab: int, pick: int,
+                weight_dtype: torch.dtype, sm_count: int) -> dict:
+    """The decode kernel's cooperative launch, as ``csrc/decode.cu:
+    decode_plan`` computes it.
+
+    The columns of the head and the cell's ``wh`` (:func:`decode_columns`)
+    are cut, in that order, into slices of ``columns = 4 units`` consecutive
+    columns: ``units`` is the widest (bf16 32, 16, 8; float32 16, 8) whose
+    slice of ``max(H, F)`` rows fits shared memory beside the chains' staging
+    ring while every slice gets a block of its own among the ``co_resident``
+    blocks (one per SM); each block then keeps its slice for the whole
+    decode (``stream`` False). The blocks left over replicate the slices as
+    row groups over the ``tiles`` row tiles of the N rows: ``h_groups``
+    copies of each head slice and ``a_groups`` of each cell slice, the counts
+    that make ``max(ceil(tiles / h_groups) w_h, ceil(tiles / a_groups) w_a)``
+    least (tile costs ``DECODE_TILE_COST[pick]``), then the grid largest,
+    then the fewest head copies. Block ``b < sh h_groups`` holds head slice
+    ``b % sh`` and takes its tiles ``b // sh + k h_groups``; the cell
+    slices' blocks follow likewise. Where no width fits, the weights stream
+    through the ring with the rows every step (``stream`` True, the chains'
+    streaming slice width, groups 0): every block of ``grid = co_resident``
+    takes the (slice, tile) items ``b, b + grid, ...``. ``slice_table``
+    lists each slice as ``(product, first column, columns)``."""
+    from .fused_lstm import (_CHAIN_RING, _SLICE_UNITS, CHAIN_ROWS, SMEM_PER_BLOCK, SMEM_PER_SM,
+                             SMEM_RESERVED, _chain_smem)
+
+    kc = _CHAIN_RING[weight_dtype][0]
+    kp = -(-max(hidden, feat_dim) // kc) * kc
+    cols = decode_columns(hidden, vocab)
+
+    def co_resident(smem):  # one block per SM
+        if smem > SMEM_PER_BLOCK:
+            return 0
+        return sm_count * min(1, SMEM_PER_SM // (smem + SMEM_RESERVED))
+
+    tiles = -(-max(n, 1) // CHAIN_ROWS)
+    for units in _SLICE_UNITS[weight_dtype]:
+        smem = _chain_smem(weight_dtype, False, 4, units, False, kp)
+        if co_resident(smem) >= sum(-(-c // (4 * units)) for c in cols):
+            stream = False
+            break
+    else:
+        stream = True
+        units = next(u for u in _CHAIN_RING[weight_dtype][2]
+                     if _chain_smem(weight_dtype, False, 4, u, True, kp) <= SMEM_PER_BLOCK)
+        smem = _chain_smem(weight_dtype, False, 4, units, True, kp)
+    co = co_resident(smem)
+    nc = 4 * units
+    sh, sp = (-(-c // nc) for c in cols)
+    if stream:
+        h_groups = a_groups = 0
+        grid = co
+    else:
+        w_h, w_a = DECODE_TILE_COST[pick]
+        best = None
+        for gh in range(1, tiles + 1):
+            if sh * gh + sp > co:
+                break
+            for gp in range(1, tiles + 1):
+                if sh * gh + sp * gp > co:
+                    break
+                key = (max(-(-tiles // gh) * w_h, -(-tiles // gp) * w_a), -(sh * gh + sp * gp))
+                if best is None or key < best[0]:
+                    best = (key, gh, gp)
+        _, h_groups, a_groups = best
+        grid = sh * h_groups + sp * a_groups
+    table = [(m, c0, min(nc, c - c0)) for m, c in enumerate(cols) for c0 in range(0, c, nc)]
+    return {"rows_per_tile": CHAIN_ROWS, "units": units, "columns": nc, "stream": stream,
+            "head_slices": sh, "slices": sh + sp, "slice_table": table, "tiles": tiles,
+            "h_groups": h_groups, "a_groups": a_groups, "grid": grid, "smem_bytes": smem,
+            "co_resident": co}
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_plan_args(n: int, feat_dim: int, hidden: int, vocab: int, pick: int,
+                      weight_dtype: torch.dtype, index: int) -> tuple:
+    """The plan's launch arguments for the card ``index`` (cached)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    p = decode_plan(n, feat_dim, hidden, vocab, pick, weight_dtype, sms)
+    return (p["rows_per_tile"], p["units"], int(p["stream"]), p["grid"], p["h_groups"],
+            p["a_groups"], p["smem_bytes"])
+
+
+def merge_argmax_partials(logits: torch.Tensor, columns: int) -> torch.Tensor:
+    """A plain model of the kernel's argmax pick (for tests): ``logits
+    [R, V]`` cut into slices of ``columns`` columns as the plan cuts the
+    head; each slice keeps per row its largest value and the first column
+    holding it; the slices' pairs merge under the same order (the larger
+    value, the lower column among equal ones) -> ``[R]`` columns."""
+    vals, cols = [], []
+    for c0 in range(0, logits.shape[1], columns):
+        lg = logits[:, c0:c0 + columns]
+        i = torch.argmax(lg, dim=1)  # the first maximal index
+        vals.append(lg.gather(1, i[:, None])[:, 0])
+        cols.append(i + c0)
+    vals, cols = torch.stack(vals, dim=1), torch.stack(cols, dim=1)
+    top = vals.max(dim=1, keepdim=True).values
+    return torch.where(vals == top, cols, logits.shape[1]).min(dim=1).values
+
+
+def decode_clock_slots(max_len: int) -> int:
+    """The length of the decode kernel's phase profile (``clock`` of
+    :func:`fused_greedy_decode` and :func:`.fused_sample.fused_sample_decode`)
+    for ``max_len`` columns: the phases' marks, then phase A's tile counters."""
+    return 6 + 4 * (max_len - 1)
+
+
+def launch_decode(weights: GreedyWeights, features: torch.Tensor, start_tokens: torch.Tensor,
+                  max_len: int, pick: int, temperature: float = 1.0, top_k: int = 0,
+                  top_p=None, key_words: tuple = (0, 0),
+                  clock: torch.Tensor | None = None) -> torch.Tensor:
+    """One call of the decode kernel (``csrc/decode.cu``) for greedy
+    (``PICK_ARGMAX``) or a sample (``PICK_GUMBEL``; ``PICK_FILTER`` with
+    ``top_k`` > 0 and / or ``top_p`` given), the host key's two words
+    ``key_words``, on the features' CUDA device: ``[N, max_len]`` int32. The
+    wrappers' shared launch; it counts nothing."""
     features = pad_features(weights, features)
     check_decode_inputs(weights, features, start_tokens, max_len)
-    emb_dim, (feat_dim, hidden) = weights.emb.shape[1], weights.wc.shape
-    vocab = weights.wo.shape[1]  # the head's width: the kernel never picks a padded word
+    vocab, emb_dim = weights.emb.shape  # the picks never reach a padded head's extra word
+    feat_dim, hidden = weights.wc.shape
     n = features.shape[0]
-    dev = features.device
-    out = torch.empty((n, max_len), dtype=torch.int32, device=dev)
+    index = features.get_device()
+    out = torch.empty((n, max_len), dtype=torch.int32, device=features.device)
     if n == 0:
         return out
     lib = load_library()
+    bf16 = int(weights.dtype == torch.bfloat16)
+    ws = torch.empty(lib.icrl_decode_workspace_floats(n, feat_dim, hidden, vocab, bf16, pick),
+                     dtype=torch.float32, device=features.device)
     ptr = torch.Tensor.data_ptr
-    with torch.cuda.device(dev):
-        bf16 = int(weights.dtype == torch.bfloat16)
-        ws = torch.empty(lib.icrl_greedy_workspace_floats(n, hidden, vocab, bf16),
-                         dtype=torch.float32, device=dev)
-        err = lib.icrl_greedy_decode(
-            n, feat_dim, emb_dim, hidden, vocab, max_len, bf16,
-            ptr(features), ptr(start_tokens), ptr(weights.wc), ptr(weights.bc),
-            ptr(weights.xg), ptr(weights.w), ptr(weights.b), ptr(weights.wo),
-            ptr(weights.bo), ptr(out), ptr(ws), torch.cuda.current_stream(dev).cuda_stream)
-    check_error(lib, "icrl_greedy_decode", err)
-    fused_greedy_decode.launches += 1
+    err = lib.icrl_decode(
+        n, feat_dim, emb_dim, hidden, vocab, weights.head.shape[1], vocab, max_len, bf16, pick,
+        int(top_k), int(top_p is not None), float(temperature),
+        1.0 if top_p is None else float(top_p), *key_words,
+        *_decode_plan_args(n, feat_dim, hidden, vocab, pick, weights.dtype, index),
+        ptr(features), ptr(start_tokens), ptr(weights.wc), ptr(weights.bc), ptr(weights.xg),
+        ptr(weights.w), ptr(weights.b), ptr(weights.head), ptr(weights.bo), ptr(out), ptr(ws),
+        None if clock is None else ptr(clock), index, torch._C._cuda_getCurrentRawStream(index))
+    check_error(lib, "icrl_decode", err)
     return out
 
 
 def fused_greedy_decode(weights: GreedyWeights, features: torch.Tensor,
                         start_tokens: torch.Tensor, max_len: int = MAX_SEQ_LEN,
-                        use_fused_kernel: bool | None = None) -> torch.Tensor:
+                        use_fused_kernel: bool | None = None,
+                        clock: torch.Tensor | None = None) -> torch.Tensor:
     """Greedy decode: ``features [N, F]`` f32, ``start_tokens [N]`` int32 ->
     ``[N, max_len]`` int32 tokens on the features' device.
 
-    CUDA tensors run the kernel (``csrc/greedy_decode.cu``); CPU tensors
-    run :func:`greedy_decode_plain`. ``use_fused_kernel=False`` forces the
-    plain version; ``True`` on CPU tensors raises.
-    ``fused_greedy_decode.launches`` counts kernel launches.
+    CUDA tensors run the kernel (``csrc/decode.cu``, one launch for all
+    steps beside one that asserts the start tokens' range); CPU tensors run
+    :func:`greedy_decode_plain`. ``use_fused_kernel=False`` forces the plain
+    version; ``True`` on CPU tensors raises.
+    ``fused_greedy_decode.launches`` counts kernel calls.
+
+    ``clock``, for a profile of the kernel: int64 zeros of
+    :func:`decode_clock_slots` on the card, which the launch fills with the
+    nanoseconds at which its last block passed each mark: 0 the start, 1
+    the set-up done (h0 and the first cell), then for step ``t`` ``2 + 4t``
+    phase A entered, ``+ 1`` done, ``+ 2`` phase B entered, ``+ 3`` done;
+    after them phase A's head tiles' summed ``clock64`` cycles and their
+    count, then the cell tiles' (what ``DECODE_TILE_COST`` balances).
     """
+    check_clock(clock, decode_clock_slots(max_len), features, use_fused_kernel)
     if use_fused_kernel is False:
         return greedy_decode_plain(weights, features, start_tokens, max_len)
     if features.is_cuda:
-        return _launch_greedy(weights, features, start_tokens, max_len)
+        out = launch_decode(weights, features, start_tokens, max_len, PICK_ARGMAX, clock=clock)
+        fused_greedy_decode.launches += 1
+        return out
     if use_fused_kernel:
         raise RuntimeError("use_fused_kernel=True needs CUDA tensors: the greedy kernel "
                            "runs only on a CUDA device")

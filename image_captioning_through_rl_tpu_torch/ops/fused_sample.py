@@ -1,10 +1,12 @@
 """Sampled decode: the hand-written CUDA kernel and its plain PyTorch version.
 
 Counterpart of the JAX ``ops/pallas_sample.py`` (``fused_sample_decode``,
-TPU kernel ``_kernel``). The kernel is ``csrc/sample_decode.cu``; its note
-says what bounds it on Hopper and what its design does about that. It
-reads the greedy decode's weights (:class:`.fused_decode.GreedyWeights`,
-x-gate table included): there is no second copy of them.
+TPU kernel ``_kernel``). The kernel is the greedy decode's
+``csrc/decode.cu`` (one persistent cooperative launch for all steps) with a
+sampling pick; its note says what bounds it on Hopper and what its design
+does about that. It reads the greedy decode's weights
+(:class:`.fused_decode.GreedyWeights`, x-gate table and padded head
+included): there is no second copy of them.
 
 Each step draws ``argmax(filter(logits / t) + gumbel)``, which is
 ``jax.random.categorical`` under the step's subkey
@@ -15,6 +17,11 @@ smallest key whose strict tail weighs less than a budget, and
 :func:`filter_scaled_logits` keeps everything at or above it (top-k first,
 then the nucleus over the renormalised survivors), masking the rest to
 ``-1e30``. The keep sets equal :func:`..decode.sample.filter_logits`'s.
+The kernel reaches the same keep sets another way (a radix select for the
+k-th largest key, the nucleus over top-k's survivors, noise hashed only for
+the kept columns); :func:`kth_largest_keys`, :func:`kernel_keep_sets` and
+:func:`survivor_gumbel_pick` are plain models of those steps, for the
+tests, and :func:`launch_step_keys` of the subkeys it carries.
 
 Routing in :func:`fused_sample_decode` is that of
 :func:`.fused_decode.fused_greedy_decode`: CUDA tensors run the kernel (or
@@ -25,13 +32,11 @@ batch needs ``rows * V < 2**32`` (:func:`fused_rows_ok`); a larger one
 raises on every route. V is the vocabulary's own width even where the head
 is padded to an even one (:func:`.fused_decode.pad_greedy_weights`): the
 padded word is cut from the logits before the filters and the noise. The
-kernel takes any V (one warp per row up to :data:`WARP_VOCAB`, one block
-per row past it).
+kernel takes any V (a filtered row held in a warp's registers up to
+:data:`WARP_VOCAB`, walked in L2 past it).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import numpy as np
 import torch
@@ -39,18 +44,21 @@ import torch
 from .. import MAX_SEQ_LEN
 from . import prng
 from .fused_decode import (
+    PICK_FILTER,
+    PICK_GUMBEL,
     GreedyWeights,
-    check_decode_inputs,
+    check_clock,
+    decode_clock_slots,
+    launch_decode,
     lstm_cell_plain,
     pad_features,
     round_to,
     wmatmul,
 )
-from .kernel_build import check_error, load_library
 from .linalg import matmul
 
-# the widest vocabulary the kernel's one-warp-per-row path holds in registers
-# (csrc/sample_decode.cu PER_LANE); a wider one takes its block-per-row path
+# the longest row (or survivor list) the kernel's filtered pick holds in a
+# warp's registers (csrc/decode.cu: 32 PER); a longer one is walked in L2
 WARP_VOCAB = 1024
 _NEG = -1e30  # a filtered-out logit, as in the TPU kernels
 
@@ -193,63 +201,45 @@ def sample_decode_plain(weights: GreedyWeights, features: torch.Tensor,
 
 
 def _launch_sample(weights: GreedyWeights, features: torch.Tensor, start_tokens: torch.Tensor,
-                   key, max_len: int, temperature: float, top_k, top_p) -> torch.Tensor:
-    # the host work first: the input checks wait for the device (token range)
-    keys = np.ascontiguousarray(prng.sample_step_keys(key, max_len - 1))
-    features = pad_features(weights, features)
-    check_decode_inputs(weights, features, start_tokens, max_len)
-    vocab, emb_dim = weights.emb.shape
-    feat_dim, hidden = weights.wc.shape
-    head = weights.wo.shape[1]  # the logits' row stride; the noise counters use V
-    k, use_top_k, use_top_p = _filters(vocab, top_k, top_p)
-    n = features.shape[0]
-    dev = features.device
-    out = torch.empty((n, max_len), dtype=torch.int32, device=dev)
-    if n == 0:
-        return out
-    lib = load_library()
-    ptr = torch.Tensor.data_ptr
-    with torch.cuda.device(dev):
-        bf16 = int(weights.dtype == torch.bfloat16)
-        # the greedy decode's workspace: h, c and the logits
-        ws = torch.empty(lib.icrl_greedy_workspace_floats(n, hidden, head, bf16),
-                         dtype=torch.float32, device=dev)
-        err = lib.icrl_sample_decode(
-            n, feat_dim, emb_dim, hidden, vocab, head, max_len, bf16, int(use_top_k),
-            int(use_top_p), k, float(temperature), float(top_p) if use_top_p else 1.0,
-            keys.ctypes.data_as(ctypes.c_void_p), ptr(features), ptr(start_tokens),
-            ptr(weights.wc), ptr(weights.bc), ptr(weights.xg), ptr(weights.w), ptr(weights.b),
-            ptr(weights.wo), ptr(weights.bo), ptr(out), ptr(ws),
-            torch.cuda.current_stream(dev).cuda_stream)
-    check_error(lib, "icrl_sample_decode", err)
-    fused_sample_decode.launches += 1
-    return out
+                   key, max_len: int, temperature: float, top_k, top_p,
+                   clock: torch.Tensor | None = None) -> torch.Tensor:
+    k, use_top_k, use_top_p = _filters(weights.emb.shape[0], top_k, top_p)
+    pick = PICK_FILTER if use_top_k or use_top_p else PICK_GUMBEL
+    return launch_decode(weights, features, start_tokens, max_len, pick, temperature, k,
+                         top_p if use_top_p else None, prng.key_words(key), clock)
 
 
 def fused_sample_decode(weights: GreedyWeights, features: torch.Tensor,
                         start_tokens: torch.Tensor, key, max_len: int = MAX_SEQ_LEN,
                         temperature=1.0, top_k: int = 0, top_p=None,
-                        use_fused_kernel: bool | None = None) -> torch.Tensor:
+                        use_fused_kernel: bool | None = None,
+                        clock: torch.Tensor | None = None) -> torch.Tensor:
     """Sampled decode: ``features [N, F]`` f32, ``start_tokens [N]`` int32
     and the host key ``key`` (uint32 ``[2]``, :func:`.prng.PRNGKey`) ->
     ``[N, max_len]`` int32 tokens on the features' device. ``temperature``
     must be positive; top-k runs when ``0 < top_k < V``, the nucleus when
     ``top_p`` is given.
 
-    CUDA tensors run the kernel (``csrc/sample_decode.cu``); CPU tensors
-    run :func:`sample_decode_plain`. ``use_fused_kernel=False`` forces the
-    plain version; ``True`` on CPU tensors raises. A batch with ``N * V >=
-    2**32`` raises on every route. ``fused_sample_decode.launches`` counts
-    kernel launches.
+    CUDA tensors run the kernel (``csrc/decode.cu``, one launch for all
+    steps beside one that asserts the start tokens' range; the step subkeys
+    carried in the launch from the key's two words); CPU tensors run
+    :func:`sample_decode_plain`. ``use_fused_kernel=False`` forces the plain
+    version; ``True`` on CPU tensors raises. A batch with ``N * V >= 2**32``
+    raises on every route. ``fused_sample_decode.launches`` counts kernel
+    calls. ``clock`` is the greedy decode's phase profile
+    (:func:`.fused_decode.fused_greedy_decode`).
     """
     check_counter_space(features.shape[0], weights.emb.shape[0])
     if not float(temperature) > 0:
         raise ValueError(f"temperature must be positive, got {temperature} (0 is greedy)")
+    check_clock(clock, decode_clock_slots(max_len), features, use_fused_kernel)
     args = (weights, features, start_tokens, key, max_len, temperature, top_k, top_p)
     if use_fused_kernel is False:
         return sample_decode_plain(*args)
     if features.is_cuda:
-        return _launch_sample(*args)
+        out = _launch_sample(*args, clock=clock)
+        fused_sample_decode.launches += 1
+        return out
     if use_fused_kernel:
         raise RuntimeError("use_fused_kernel=True needs CUDA tensors: the sampling kernel "
                            "runs only on a CUDA device")
@@ -257,3 +247,105 @@ def fused_sample_decode(weights: GreedyWeights, features: torch.Tensor,
 
 
 fused_sample_decode.launches = 0
+
+
+# ---- Plain models of the kernel's pick and key schedule (for tests) ----
+
+def _threefry_u32(k0, k1, x0, x1):
+    """threefry2x32 as the kernel computes it (``csrc/threefry.cuh``), in
+    wrapping uint32 numpy arithmetic."""
+    u = np.uint32
+    ks = (u(k0), u(k1), u(k0) ^ u(k1) ^ u(0x1BD11BDA))
+    x0 = np.array([x0], dtype=u) + ks[0]
+    x1 = np.array([x1], dtype=u) + ks[1]
+    for i in range(5):
+        for d in ((13, 15, 26, 6), (17, 29, 16, 24))[i % 2]:
+            x0 = x0 + x1
+            x1 = ((x1 << u(d)) | (x1 >> u(32 - d))) ^ x0
+        x0 = x0 + ks[(i + 1) % 3]
+        x1 = x1 + ks[(i + 2) % 3] + u(i + 1)
+    return int(x0[0]), int(x1[0])
+
+
+def launch_step_keys(key, steps: int) -> np.ndarray:
+    """The subkeys the kernel carries (``csrc/decode.cu`` decode_steps): from
+    the key's two words, each step ``sub = threefry(key, (0, 1))`` and ``key =
+    threefry(key, (0, 0))`` -> uint32 ``[steps, 2]``."""
+    k0, k1 = prng.key_words(key)
+    subs = np.empty((steps, 2), dtype=np.uint32)
+    for t in range(steps):
+        subs[t] = _threefry_u32(k0, k1, 0, 1)
+        k0, k1 = _threefry_u32(k0, k1, 0, 0)
+    return subs
+
+
+def kth_largest_keys(keys: torch.Tensor, k: int) -> torch.Tensor:
+    """Per row of int32 ``keys [N, V]``, the k-th largest, by the kernel's
+    radix select: 2-bit digits of the order-preserving unsigned key (``key ^
+    0x80000000``), most significant first, each pass keeping the digit that
+    holds the k-th largest candidate, until at most 64 candidates remain;
+    then the smallest candidate with fewer than k candidates above it ->
+    ``[N, 1]`` int32."""
+    out = []
+    for u in ((keys.to(torch.int64) & 0xFFFFFFFF) ^ 0x80000000).numpy():
+        kk, shift = k, 30
+        while len(u) > 64 and shift >= 0:
+            digits = (u >> shift) & 3
+            for d in (3, 2, 1, 0):
+                count = int((digits == d).sum())
+                if kk <= count:
+                    break
+                kk -= count
+            u, shift = u[digits == d], shift - 2
+        if len(u) > 64:  # every digit fixed: all equal
+            out.append(int(u[0]))
+        else:
+            above = (u[None, :] > u[:, None]).sum(axis=1)
+            out.append(int(u[above < kk].min()))
+    thr = np.array(out, dtype=np.int64)[:, None] ^ 0x80000000
+    return torch.from_numpy(np.where(thr >= 2**31, thr - 2**32, thr).astype(np.int32))
+
+
+def kernel_keep_sets(scaled: torch.Tensor, k: int, p, use_top_k: bool, use_top_p: bool
+                     ) -> torch.Tensor:
+    """The columns the kernel's filtered pick keeps, ``[N, V]`` bool: top-k
+    by :func:`kth_largest_keys`, then the nucleus over top-k's survivors only
+    (weights ``exp(v - max)`` against ``p * z``): for at most 64 survivors
+    the smallest survivor key whose strict tail mass is under the budget
+    (the max's key at least), else the bisection of
+    :func:`keyspace_threshold` from the survivors' own key range."""
+    keys = monotone_keys(scaled)
+    keep = torch.ones_like(scaled, dtype=torch.bool)
+    if use_top_k:
+        keep = keys >= kth_largest_keys(keys, k)
+    if use_top_p:
+        big = torch.iinfo(torch.int64).max
+        k64 = keys.to(torch.int64)
+        mx = torch.where(keep, scaled, -torch.inf).amax(dim=1, keepdim=True)
+        e = torch.where(keep, torch.exp(scaled - mx), 0.0)
+        budget = torch.tensor(float(p), dtype=torch.float32) * e.sum(dim=1, keepdim=True)
+        lo = torch.where(keep, k64, big).amin(dim=1, keepdim=True) - 1
+        hi = torch.where(keep, k64, -big).amax(dim=1, keepdim=True)
+        for _ in range(32):
+            mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)
+            below = torch.where(k64 > mid, e, 0.0).sum(dim=1, keepdim=True) < budget
+            lo = torch.where(below, lo, mid)
+            hi = torch.where(below, mid, hi)
+        # at most 64 survivors: each one's tail mass directly
+        rows = (keep.sum(dim=1) <= 64).nonzero()[:, 0]
+        cols = torch.argsort((~keep[rows]).to(torch.int8), dim=1, stable=True)[:, :64]
+        valid = keep[rows].gather(1, cols)
+        ks, es = k64[rows].gather(1, cols), e[rows].gather(1, cols)
+        above = (es[:, None, :] * (ks[:, None, :] > ks[:, :, None])).sum(dim=2)
+        direct = torch.where(valid & (above < budget[rows]), ks, big).amin(dim=1, keepdim=True)
+        hi[rows] = torch.minimum(direct, torch.where(valid, ks, -big).amax(dim=1, keepdim=True))
+        keep = keep & (k64 >= hi)
+    return keep
+
+
+def survivor_gumbel_pick(scaled: torch.Tensor, keep: torch.Tensor, noise: torch.Tensor
+                         ) -> torch.Tensor:
+    """The kernel's Gumbel-max over the kept columns only (the noise of the
+    others never computed): the first column of the largest ``scaled +
+    noise`` among them -> ``[N]``."""
+    return torch.argmax(torch.where(keep, scaled + noise, -torch.inf), dim=1)

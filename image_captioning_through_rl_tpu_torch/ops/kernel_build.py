@@ -31,10 +31,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_U = ctypes.c_uint
 _SIGNATURES = {
-    "icrl_greedy_workspace_floats": (ctypes.c_size_t, [_I] * 4),
-    "icrl_greedy_decode": (_I, [_I] * 7 + [_P] * 12),
-    "icrl_sample_decode": (_I, [_I] * 11 + [_F, _F] + [_P] * 13),
+    "icrl_decode_workspace_floats": (ctypes.c_size_t, [_I] * 6),
+    "icrl_decode": (_I, [_I] * 12 + [_F, _F, _U, _U] + [_I] * 7 + [_P] * 12 + [_I, _P]),
     "icrl_beam_max_beam": (_I, []),
     "icrl_beam_workspace_floats": (ctypes.c_size_t, [_I] * 5),
     "icrl_beam_search": (_I, [_I] * 9 + [_F, _F] + [_I] * 8 + [_P] * 21),

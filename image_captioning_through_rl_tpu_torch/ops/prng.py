@@ -11,7 +11,8 @@ and of its helpers ``threefry2x32_bits`` and ``gumbel_from_bits``
     output words stacked as the new keys;
   * :func:`sample_step_keys` — the sampling decode's per-step subkeys
     (``pallas_sample.py:282-292``): carry the key, each step
-    ``key, sub = split(key)``;
+    ``key, sub = split(key)`` (the plain version's; the kernel carries the
+    same chain itself from the key's two words, :func:`key_words`);
   * :func:`random_bits` — ``jax.random.bits(key, shape)``: ``y0 ^ y1`` of the
     hash of the flat counter ``(hi 0, lo row * V + col)``;
   * :func:`gumbel` — ``jax.random.gumbel`` in its default mode "low": the
@@ -62,7 +63,8 @@ def _threefry2x32(k0: int, k1: int, x0, x1):
     return x0, x1
 
 
-def _key_words(key) -> tuple[int, int]:
+def key_words(key) -> tuple[int, int]:
+    """A host key's two uint32 words as Python ints (a kernel's arguments)."""
     key = np.asarray(key)
     if key.shape != (2,) or key.dtype != np.uint32:
         raise ValueError(f"a key is a uint32 array of shape (2,), got {key.dtype} {key.shape}")
@@ -79,7 +81,7 @@ def PRNGKey(seed: int) -> np.ndarray:  # noqa: N802 (jax's name)
 
 def split(key, num: int = 2) -> np.ndarray:
     """``jax.random.split(key, num)`` -> ``uint32 [num, 2]``, on the host."""
-    k0, k1 = _key_words(key)
+    k0, k1 = key_words(key)
     lo = np.arange(num, dtype=np.int64)
     y0, y1 = _threefry2x32(k0, k1, np.zeros_like(lo), lo)
     return np.stack([y0, y1], axis=1).astype(np.uint32)
@@ -90,7 +92,7 @@ def sample_step_keys(key, steps: int) -> np.ndarray:
     ``key``: carry the key, each step ``key, sub = split(key)``. On the host
     in Python ints: a chain of single hashes, where numpy's per-call cost
     would take ten times as long (~3 ms for 16 steps)."""
-    k0, k1 = _key_words(key)
+    k0, k1 = key_words(key)
     subs = np.empty((steps, 2), dtype=np.uint32)
     for s in range(steps):
         subs[s] = _threefry2x32(k0, k1, 0, 1)  # split(key)[1]
@@ -108,7 +110,7 @@ def _draw_size(shape) -> int:
 def random_bits(key, shape, device="cpu") -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32) in the plain version: an
     int64 tensor of ``shape`` holding the uint32 values."""
-    k0, k1 = _key_words(key)
+    k0, k1 = key_words(key)
     lo = torch.arange(_draw_size(shape), dtype=torch.int64, device=device)
     y0, y1 = _threefry2x32(k0, k1, torch.zeros_like(lo), lo)
     return (y0 ^ y1).reshape(shape)

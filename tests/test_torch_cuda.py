@@ -38,15 +38,21 @@ start tokens' range), and its optional phase clock marks every phase. An
 out-of-range start token fails the greedy, beam and sampling wrappers'
 device-side assertion (in a child process: it ends the CUDA context).
 
-The sampling kernel at the small widths, bf16 and float32 weights, for the
-four filter variants (none, top-k, nucleus, both) at t = 0.7, and at V =
-2000 (past the one-warp rows: one block per row): tokens equal
+The greedy and sampling decodes are one persistent cooperative launch each
+(csrc/decode.cu, beside one small launch that asserts the start tokens'
+range, whatever T). The sampling kernel at the small widths, bf16 and
+float32 weights, for the four filter variants (none, top-k, nucleus, both)
+at t = 0.7, and at V = 2000 (past the rows a warp holds in registers: the
+row walked in L2): tokens equal
 to the plain version's except where the plain version came within
 ``SAMPLE_NEAR_TIE`` of a tie at the first step where they part (its top-2
 noisy gap, the k-th/(k+1)-th logit gap, the nucleus's boundary-value gap or
 its mass margin over z; bf16 logits of the two differ by up to ~2e-4, see
 ``chip_smoke.py``). Greedy, beam and sampling also run a model the
-wrappers pad (V = 61, E = H = F = 12) under the same rules.
+wrappers pad (V = 61, E = H = F = 12) under the same rules. Both decodes
+are also held so at N = 1, 4 and 77 (no whole row tile) and at H = 1024
+(the weights stream through the ring), give the same bits on two calls,
+and their optional phase clock marks every phase.
 
 The A2C kernels at the small widths: the threefry kernel's bits equal the
 plain version's and its Gumbel noise lies within 4 ulps of it (two
@@ -86,6 +92,7 @@ from image_captioning_through_rl_tpu_torch.models.initializers import (
     lstm_init,
 )
 from image_captioning_through_rl_tpu_torch.ops import fused_beam as fb
+from image_captioning_through_rl_tpu_torch.ops import fused_decode as fd
 from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
     beam_search_plain,
     fused_beam_search,
@@ -325,6 +332,124 @@ def test_sample_wrapper_rejects_bad_inputs(dev):
         fused_sample_decode(gw, f[:, :-1].contiguous(), s, key, T)
 
 
+def _check_greedy(k_tok, p_tok, gaps):
+    bad = _differing_rows(k_tok, p_tok)
+    assert bool((gaps[bad].min(dim=1).values < NEAR_TIE).all()), "a non-tie row differs"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4, 77])
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+def test_decode_kernels_at_partial_row_tiles_are_bit_stable(dev, wd, n):
+    """N = 1, 4 and 77 fill no whole 64-row tile: greedy and the four sampling
+    variants hold their plain versions, and two calls give the same bits."""
+    gw = _setup(dev, wd)[0]
+    f = torch.from_numpy(np.random.default_rng(n).standard_normal((n, CFG.input_dim))
+                         .astype(np.float32)).to(dev)
+    s = torch.full((n,), START_ID, dtype=torch.int32, device=dev)
+    k_tok = fused_greedy_decode(gw, f, s, T)
+    assert torch.equal(fused_greedy_decode(gw, f, s, T), k_tok)
+    _check_greedy(k_tok, *greedy_decode_plain(gw, f, s, T, margins=True))
+    key = prng.PRNGKey(n)
+    for k, p in ((0, None), (5, None), (0, 0.8), (5, 0.8)):
+        k_tok = fused_sample_decode(gw, f, s, key, T, 0.7, k, p)
+        assert torch.equal(fused_sample_decode(gw, f, s, key, T, 0.7, k, p), k_tok)
+        p_tok, margins = sample_decode_plain(gw, f, s, key, T, 0.7, k, p, margins=True)
+        assert k_tok.shape == (n, T) and bool((k_tok[:, 0] == START_ID).all())
+        _check_sampled(k_tok, p_tok, margins, wd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+def test_decode_kernels_with_streamed_weights(dev, wd):
+    """H = 1024 at COCO's other widths: no slice width gives every slice a
+    block, so the weights stream through the ring; N = 77, bit-stable."""
+    cfg = NetConfig(vocab_size=1004, input_dim=512, wordvec_dim=512, hidden_dim=1024,
+                    max_seq_len=T)
+    gw, _, f, s = _decode_setup(dev, wd, cfg, n=77)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for pick in (fd.PICK_ARGMAX, fd.PICK_GUMBEL, fd.PICK_FILTER):
+        assert fd.decode_plan(77, 512, 1024, 1004, pick, wd, sms)["stream"]
+    k_tok = fused_greedy_decode(gw, f, s, T)
+    assert torch.equal(fused_greedy_decode(gw, f, s, T), k_tok)
+    _check_greedy(k_tok, *greedy_decode_plain(gw, f, s, T, margins=True))
+    key = prng.PRNGKey(8)
+    for k, p in ((0, None), (40, 0.9)):
+        k_tok = fused_sample_decode(gw, f, s, key, T, 0.8, k, p)
+        assert torch.equal(fused_sample_decode(gw, f, s, key, T, 0.8, k, p), k_tok)
+        _check_sampled(k_tok, *sample_decode_plain(gw, f, s, key, T, 0.8, k, p, margins=True),
+                       wd)
+
+
+@pytest.mark.cuda
+def test_decodes_are_one_launch_whatever_the_length(dev):
+    """Greedy and sampling (unfiltered, filtered) at T = 2, 7 and 40: one
+    decode_kernel a call beside one small launch that asserts the start
+    tokens' range; none of the per-step kernels it replaced. Counted by
+    torch.profiler in one window (the tracer misses launches in a process
+    that opens many windows) over three rounds of the nine calls, after the
+    card idled 50 ms in it, rounded to whole launches a call (a window may
+    miss its first launches)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    gw, _, f, s = _setup(dev, torch.bfloat16)
+    key = prng.PRNGKey(1)
+    calls = [call for steps in (2, T, 40) for call in (
+        lambda steps=steps: fused_greedy_decode(gw, f, s, steps),
+        lambda steps=steps: fused_sample_decode(gw, f, s, key, steps),
+        lambda steps=steps: fused_sample_decode(gw, f, s, key, steps, 0.7, 5, 0.8))]
+    for call in calls:
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+        for _ in range(3):
+            for call in calls:
+                call()
+        torch.cuda.synchronize()
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    per_call = {k: round(v / (3 * len(calls))) for k, v in counts.items()}
+    per_call = {k: v for k, v in per_call.items() if v}
+    assert sorted(per_call.values()) == [1, 1], per_call
+    assert any("decode_kernel" in k and "check" not in k for k in per_call), per_call
+    assert any("decode_start_check_kernel" in k for k in per_call), per_call
+    for gone in ("lstm_kernel", "linear_kernel", "argmax_rows_kernel", "sample_rows_kernel",
+                 "sample_wide_kernel", "fill_start_kernel"):
+        assert not any(gone in k for k in counts), (gone, counts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["greedy", "sample"])
+def test_decode_clock_marks_every_phase(dev, kind):
+    """The optional clock: every mark set, in order, phase A's head and cell
+    tiles counted (T - 1 steps of the head's, T - 2 of the cell's), and the
+    tokens bit-equal to a call without it."""
+    gw, _, f, s = _setup(dev, torch.bfloat16)
+    clock = torch.zeros(fd.decode_clock_slots(T), dtype=torch.int64, device=dev)
+    if kind == "greedy":
+        timed, plain = (fused_greedy_decode(gw, f, s, T, clock=c) for c in (clock, None))
+    else:
+        timed, plain = (fused_sample_decode(gw, f, s, prng.PRNGKey(2), T, 0.7, 5, 0.8, clock=c)
+                        for c in (clock, None))
+    marks, tiles = clock.cpu()[:2 + 4 * (T - 1)], clock.cpu()[2 + 4 * (T - 1):]
+    assert bool((marks > 0).all()) and bool((marks[1:] >= marks[:-1]).all())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = fd.decode_plan(N, CFG.input_dim, CFG.hidden_dim, CFG.vocab_size,
+                          fd.PICK_ARGMAX if kind == "greedy" else fd.PICK_FILTER,
+                          torch.bfloat16, sms)
+    heads, tiles_per_slice = plan["head_slices"], plan["tiles"]
+    cells = plan["slices"] - heads
+    assert tiles[1] == (T - 1) * heads * tiles_per_slice and tiles[0] > 0
+    assert tiles[3] == (T - 2) * cells * tiles_per_slice and tiles[2] > 0
+    assert torch.equal(timed, plain)
+
+
 def _decode_setup(dev, wd, cfg, n=N, seed=0):
     params = a2c.init(torch.Generator().manual_seed(seed), cfg)
     on_dev = {net: {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
@@ -347,7 +472,8 @@ def _check_sampled(k_tok, p_tok, margins, wd):
 @pytest.mark.parametrize("k,p", [(0, None), (40, 0.9)])
 @pytest.mark.parametrize("wd", WEIGHT_TYPES)
 def test_sample_kernel_past_one_warp_per_row(dev, wd, k, p):
-    """V = 2000: one block per row, block-wide sums in a fixed order."""
+    """V = 2000: a filtered row past what a warp holds in registers, walked in
+    L2 (every sum in a fixed order)."""
     cfg = NetConfig(vocab_size=2000, input_dim=16, wordvec_dim=16, hidden_dim=16, max_seq_len=7)
     assert cfg.vocab_size > WARP_VOCAB
     gw, _, f, s = _decode_setup(dev, wd, cfg, n=40)
