@@ -1,6 +1,6 @@
 """Time the port's decodes on one GPU.
 
-    python3 beam_timing.py [ROOT] [--runs K] [--path beam|greedy|sample]
+    python3 beam_timing.py [ROOT] [--runs K] [--path beam|greedy|sample|reward]
 
 Imports ``image_captioning_through_rl_tpu_torch`` from ``ROOT`` (default:
 the directory of this file; another checkout of the repository may be given,
@@ -11,15 +11,20 @@ E = H = F = 512, T = 17, bf16 weights, random weights from a seed):
 and N = 1024; ``greedy`` ``fused_greedy_decode`` at N = 1024, 64 and 4;
 ``sample`` ``fused_sample_decode`` at N = 1024 unfiltered, N = 1024 with
 top-k 40 + nucleus 0.9, and the served shape N = 64 x R = 4 (256 rows,
-top-k 40 + nucleus 0.9). For each shape:
+top-k 40 + nucleus 0.9); ``reward`` the A2C reward stream alone
+(``fused_rollout.reward_stream``) at N = 512, S = 16 on actions made from a
+seed, with every token the action (the plain A2C rollout's tokens) and with
+the teacher's tokens on the first seven steps (a curriculum rollout at
+level 8, whose trainer runs the stream on its own). For each shape:
 
 * ``ms``: K runs (default 5), each the mean of 5 back-to-back calls timed by
   CUDA events; the median and the range are printed;
 * a torch.profiler window over 3 calls: device ms per call, the busy share
   of the window's wall time, and device ms and launches per call by kernel;
 * where the checkout's kernel has a phase clock (``clock=...``), the mean us
-  per step of its phases (the beam's A-D, a decode's A and B) and of the
-  barriers, and the set-up's us, from one call;
+  per step of its phases (the beam's A-D, a decode's A and B, the reward
+  stream's A and B over its S + 1 passes) and of the barriers, and the
+  set-up's us, from one call;
 * the host's microseconds a call (200 back-to-back calls, the host side
   alone).
 
@@ -149,6 +154,50 @@ def phases(fused_beam, call) -> dict | None:
             "barriers_us": mean_us(1, 2) + mean_us(3, 4) + mean_us(5, 6)}
 
 
+def stream_phases(fused_rollout, call) -> dict:
+    """The reward stream's own clock over one call: the set-up, then the
+    means over its S + 1 passes of phases A and B and of the two barriers,
+    in us."""
+    clock = torch.zeros(fused_rollout.rollout_clock_slots(T - 1), dtype=torch.int64,
+                        device="cuda")
+    call(clock)
+    c = clock.cpu().tolist()
+    passes = T
+
+    def mean_us(a, b):
+        return sum(c[2 + 4 * t + b] - c[2 + 4 * t + a] for t in range(passes)) / passes / 1e3
+
+    between = sum(c[6 + 4 * t] - c[5 + 4 * t] for t in range(passes - 1)) / (passes - 1) / 1e3
+    return {"setup_us": (c[1] - c[0]) / 1e3, "A_us": mean_us(0, 1), "B_us": mean_us(2, 3),
+            "barriers_us": mean_us(1, 2) + between}
+
+
+def reward_shapes(gen):
+    """(label, call, call with a clock, its phases function) for the reward
+    stream at N = 512, S = T - 1."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.config import NetConfig
+    from image_captioning_through_rl_tpu_torch.models import reward
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+
+    n, steps = 512, T - 1
+    cfg = NetConfig(vocab_size=V, input_dim=F, wordvec_dim=E, hidden_dim=H, max_seq_len=T)
+    rparams = {k: ({kk: vv.to("cuda") for kk, vv in v.items()} if isinstance(v, dict)
+                   else v.to("cuda")) for k, v in reward.init(gen, cfg).items()}
+    feats = torch.randn((n, F), generator=gen).to("cuda")
+    start = torch.full((n,), START_ID, dtype=torch.int32, device="cuda")
+    rw = fr.prepare_reward_weights(rparams, feats, start, torch.bfloat16)
+    act = torch.randint(4, V, (steps, n), generator=gen, dtype=torch.int32).to("cuda")
+    teacher = torch.randint(4, V, (steps, n), generator=gen, dtype=torch.int32).to("cuda")
+    curriculum = act.clone()
+    curriculum[:7] = teacher[:7]
+    for label, tok in (("tokens = actions", act), ("teacher tokens on 7 steps", curriculum)):
+        yield (f"reward stream N={n} S={steps} {label}",
+               lambda tok=tok: fr.reward_stream(rw, act, tok),
+               lambda c, tok=tok: fr.reward_stream(rw, act, tok, clock=c),
+               lambda call: stream_phases(fr, call))
+
+
 def shapes(path: str, on_dev: dict, gen):
     """(label, call, call with a clock or None, its phases function) per
     timed shape of the path."""
@@ -158,6 +207,9 @@ def shapes(path: str, on_dev: dict, gen):
     from image_captioning_through_rl_tpu_torch.ops.fused_decode import prepare_greedy_weights
     from image_captioning_through_rl_tpu_torch.ops.fused_sample import fused_sample_decode
 
+    if path == "reward":
+        yield from reward_shapes(gen)
+        return
     gw = prepare_greedy_weights(on_dev["policy"], torch.bfloat16)
     feats = torch.randn((1024, F), generator=gen).to("cuda")
     start = torch.full((1024,), START_ID, dtype=torch.int32, device="cuda")
@@ -193,7 +245,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("root", nargs="?", default=os.path.dirname(os.path.abspath(__file__)))
     ap.add_argument("--runs", type=int, default=5)
-    ap.add_argument("--path", choices=("beam", "greedy", "sample"), default="beam")
+    ap.add_argument("--path", choices=("beam", "greedy", "sample", "reward"), default="beam")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("beam_timing: needs a CUDA device", file=sys.stderr)

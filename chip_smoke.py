@@ -53,9 +53,11 @@ Phases:
      either T and no view_kernel) with its recurrence's device slope per
      step, and a torch.profiler window over one fused policy step;
  11. the threefry noise kernel vs plain, [16, 512, 1004] for three keys;
- 12. the reward stream kernel vs plain, bf16 and f32 weights, N = 512, on
-     the actions and tokens of a kernel rollout, and against the rewards of
-     the stream fused into that rollout;
+ 12. the reward stream kernel (one persistent launch, the rollout
+     forward's reward-only mode) vs plain, bf16 and f32 weights, N = 512,
+     on the actions and tokens of kernel rollouts at curr_seq_len 1 and 8,
+     and against the rewards of the stream fused into each rollout; two
+     calls bit-equal, one launch a call;
  13. the rollout kernels vs plain, bf16 and f32, N = 512, curr_seq_len 1
      and 8: the forward (and two calls bit-equal), then the backward on the
      kernel forward's tape (and two calls bit-equal, the embedding
@@ -69,7 +71,10 @@ Phases:
      minibatch fused (bf16 kernels) vs plain (float32 eager);
  15. timings (CUDA events): the noise kernel, the reward stream, the
      rollout forward and backward, kernel and plain, one A2C step fused and
-     plain; the rollout forward's device time and launches per call
+     plain; the reward stream's device time and launches per call
+     (torch.profiler: one reward_stream_kernel beside the token check, none
+     of the host loop's kernels) and its phases per step from its clock;
+     the rollout forward's device time and launches per call
      (torch.profiler: one rollout_fwd_kernel beside the two x-gate tables,
      none of the per-step kernels it replaced); the rollout backward's
      device time and launches per call (its own ten, no view_kernel or
@@ -109,7 +114,9 @@ Phases:
      (weights streamed), bf16 and f32, vs plain; the beam at
      hidden_dim = 1024 (weights streamed), bf16 and f32, vs plain; the rollout
      forward and backward at hidden_dim = 1024 (weights streamed) and at
-     V = 2000, bf16 and f32, vs plain under phase 13's rules.
+     V = 2000, bf16 and f32, vs plain under phase 13's rules; the reward
+     stream at hidden_dim = 1024 and at V = 1001, H = 500 (padded), bf16 and
+     f32, vs plain under phase 12's rules.
 
 The last JSON line but two lists every kernel with its launches on its main
 path (serving for greedy, beam and the x-gate table; the pretrainers for
@@ -674,30 +681,54 @@ def rollout_case(dev, wd, curr: int, seed: int):
     return args, nets, rparams, feats, caps
 
 
+def check_reward_stream(label: str, rw, act, tok, fused_in=None) -> tuple[float, str]:
+    """The reward stream kernel on ``[S, N]`` actions and tokens against its
+    plain version (ROLLOUT_TOL), two calls bit-equal and one launch a call,
+    and, given, against the rewards of the stream fused into a rollout
+    (within 1e-6). Returns the max abs error against plain and a report."""
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+
+    wd = rw.wh.dtype
+    before = fr.fused_reward_stream.launches
+    got = fr.reward_stream(rw, act, tok)
+    again = fr.reward_stream(rw, act, tok)
+    torch.cuda.synchronize()
+    launches = fr.fused_reward_stream.launches - before
+    want = fr.reward_stream(rw, act, tok, use_fused_kernel=False)
+    err = float((got - want).abs().max())
+    msg = (f"max abs error vs plain {err:.3g} (bound {ROLLOUT_TOL[wd]}); two calls "
+           f"bit-equal, {launches // 2} launch a call")
+    ok = (got.shape == act.shape and np.isfinite(err) and err <= ROLLOUT_TOL[wd]
+          and torch.equal(got, again) and launches == 2)
+    if fused_in is not None:
+        same = float((got - fused_in).abs().max())
+        msg += (f"; vs the rollout's fused-in stream {same:.3g} (bound 1e-6), bits "
+                f"{'equal' if torch.equal(got, fused_in) else 'not equal'}")
+        ok = ok and same <= 1e-6
+    if not ok:
+        raise AssertionError(f"reward stream {label}: {msg}; two calls equal "
+                             f"{torch.equal(got, again)}, {launches} launches in two calls")
+    return err, msg
+
+
 def compare_reward_stream(dev) -> float:
     """Phase 12: the reward stream kernel against plain on the actions and
-    tokens of a kernel rollout, and against the stream fused into that
-    rollout. Returns the largest bf16 max-abs error against plain."""
+    tokens of kernel rollouts (curr_seq_len 1: every token the action; 8:
+    the teacher's tokens on the first seven steps), and against the stream
+    fused into each rollout. Returns the largest bf16 max-abs error against
+    plain."""
     from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
 
     worst = 0.0
     for wd in (torch.bfloat16, torch.float32):
-        args, *_ = rollout_case(dev, wd, 1, SEED + 20)
-        _, _, fused_in, tape = fr.rollout_forward_kernel(*args)
-        rw = args[3]
-        got = fr.reward_stream(rw, tape.act, tape.tok)
-        torch.cuda.synchronize()
-        want = fr.reward_stream(rw, tape.act, tape.tok, use_fused_kernel=False)
-        err = float((got - want).abs().max())
-        same = float((got - fused_in).abs().max())
-        if got.shape != (S, ROLLOUT_N) or not err <= ROLLOUT_TOL[wd] or not same <= 1e-6:
-            raise AssertionError(f"reward stream {wd}: max abs error {err:.3g} vs plain "
-                                 f"(bound {ROLLOUT_TOL[wd]}), {same:.3g} vs the fused-in stream")
-        if wd == torch.bfloat16:
-            worst = err
-        phase("reward_stream", f"{str(wd)[6:]} N={ROLLOUT_N}: max abs error vs plain {err:.3g} "
-                               f"(bound {ROLLOUT_TOL[wd]}); vs the rollout's fused-in stream "
-                               f"{same:.3g} (bound 1e-6)")
+        for curr in (1, 8):
+            args, *_ = rollout_case(dev, wd, curr, SEED + 19 + curr)
+            _, _, fused_in, tape = fr.rollout_forward_kernel(*args)
+            label = f"{str(wd)[6:]} N={ROLLOUT_N} curr={curr}"
+            err, msg = check_reward_stream(label, args[3], tape.act, tape.tok, fused_in)
+            if wd == torch.bfloat16:
+                worst = max(worst, err)
+            phase("reward_stream", f"{label}: {msg}")
     return worst
 
 
@@ -1028,6 +1059,25 @@ def chain_launches(dev) -> dict:
 
 ROLLOUT_FWD_GONE = ("rollout_cell_kernel", "value_hidden_kernel", "sample_rows_kernel",
                     "linear_kernel")
+# the reward stream's host step loop, before its persistent launch
+REWARD_STREAM_GONE = ("gru_pair_kernel", "cosine_rows_kernel", "linear_kernel")
+
+
+def reward_stream_profile(call, iters: int = 3) -> str:
+    """Phase 15: the reward stream's device time and launches per call
+    (torch.profiler): one reward_stream_kernel beside the token check's
+    small operations, none of the host loop's kernels."""
+    call()
+    torch.cuda.synchronize()
+    ms, counts = device_profile(call, iters, lambda c: c.get("reward_stream_kernel", 0) >= iters)
+    launches = per_call(counts, iters)
+    if (launches.get("reward_stream_kernel") != 1
+            or any(launches.get(k) for k in REWARD_STREAM_GONE)):
+        raise AssertionError(f"reward stream launches per call: {launches}")
+    kernel = ms["reward_stream_kernel"] / iters
+    return (f"device {sum(ms.values()) / iters:.4f} ms per call, reward_stream_kernel "
+            f"{kernel:.4f} ms; launches per call "
+            + ", ".join(f"{k} x{v:g}" for k, v in sorted(launches.items()) if v))
 
 
 def rollout_fwd_profile(call, iters: int = 3) -> str:
@@ -1089,10 +1139,27 @@ def rollout_fwd_phases(args) -> str:
     steps = args[1].shape[0]
     clock = torch.zeros(fr.rollout_clock_slots(steps), dtype=torch.int64, device=args[4].device)
     fr.rollout_forward_kernel(*args, clock=clock)
-    c = clock.cpu().tolist()
-    passes = steps + (args[3] is not None)
+    return pass_phases("rollout forward", clock.cpu().tolist(), steps + (args[3] is not None))
+
+
+def reward_stream_phases(rw, act, tok) -> str:
+    """Phase 15: the reward stream's phases from its own clock over one
+    call, as :func:`rollout_fwd_phases` reads the rollout forward's (S + 1
+    passes: the last takes the last step's reward)."""
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+
+    steps = act.shape[0]
+    clock = torch.zeros(fr.rollout_clock_slots(steps), dtype=torch.int64, device=act.device)
+    fr.reward_stream(rw, act, tok, clock=clock)
+    return pass_phases("reward stream", clock.cpu().tolist(), steps + 1)
+
+
+def pass_phases(label: str, c: list, passes: int) -> str:
+    """A persistent rollout launch's clock (rollout_clock_slots marks): the
+    slices' load, then the means over its passes of phase A, phase B and
+    the two grid barriers, in us."""
     if min(c[:2 + 4 * passes]) <= 0:
-        raise AssertionError(f"the rollout forward's clock has unset marks: {c}")
+        raise AssertionError(f"the {label}'s clock has unset marks: {c}")
 
     def mean_us(pairs):
         return sum((c[b] - c[a]) for a, b in pairs) / len(pairs) / 1e3
@@ -1254,6 +1321,9 @@ def time_a2c(a2c_params, rparams, data, dev) -> dict:
     times[("reward_stream", "ms")] = cuda_ms(lambda: fr.reward_stream(rw, tape.act, tape.tok), 20)
     times[("reward_stream", "plain_ms")] = cuda_ms(
         lambda: fr.reward_stream(rw, tape.act, tape.tok, use_fused_kernel=False), 3)
+    times[("reward_stream", "profile")] = reward_stream_profile(
+        lambda: fr.reward_stream(rw, tape.act, tape.tok))
+    times[("reward_stream", "phases")] = reward_stream_phases(rw, tape.act, tape.tok)
     times[("rollout_fwd", "ms")] = cuda_ms(lambda: fr.rollout_forward_kernel(*args), 10)
     times[("rollout_fwd", "plain_ms")] = cuda_ms(lambda: fr.rollout_forward_plain(*args), 3)
     times[("rollout_fwd", "profile")] = rollout_fwd_profile(lambda: fr.rollout_forward_kernel(*args))
@@ -1851,6 +1921,47 @@ def wide_rollouts(dev) -> None:
                             f"{CHAIN_TOL[wd]})")
 
 
+def reward_stream_case(dev, wd, n: int, width: int, vocab: int, steps: int, seed: int):
+    """Random reward-network weights of hidden, embedding and feature width
+    ``width``, prepared for the stream, and ``[S, N]`` actions and tokens
+    from a seed (half the tokens the action, as after the teacher's steps of
+    a curriculum rollout): ``(weights, actions, tokens)``."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.config import NetConfig
+    from image_captioning_through_rl_tpu_torch.models import reward
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+
+    cfg = NetConfig(vocab_size=vocab, input_dim=width, wordvec_dim=width, hidden_dim=width,
+                    max_seq_len=steps + 1)
+    gen = torch.Generator().manual_seed(seed)
+    rparams = to_device(reward.init(gen, cfg), dev)
+    feats = torch.randn((n, width), generator=gen).to(dev)
+    start = torch.full((n,), START_ID, dtype=torch.int32, device=dev)
+    act = torch.randint(4, vocab, (steps, n), generator=gen, dtype=torch.int32)
+    other = torch.randint(4, vocab, (steps, n), generator=gen, dtype=torch.int32)
+    tok = torch.where(torch.rand((steps, n), generator=gen) < 0.5, act, other)
+    rw = fr.prepare_reward_weights(rparams, feats, start, wd)
+    return rw, act.to(dev).contiguous(), tok.to(dev).contiguous()
+
+
+def wide_reward_streams(dev) -> None:
+    """Phase 19f: the reward stream at hidden_dim = 1024 (N = 512, S = 16)
+    and at V = 1001, E = H = F = 500 (padded to 504; N = 100, no whole row
+    tile, S = 6), bf16 and f32, under phase 12's rules."""
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for n, width, vocab, steps in ((ROLLOUT_N, WIDE_H, V, S), (100, ODD_W, ODD_V, 6)):
+        for wd in (torch.bfloat16, torch.float32):
+            rw, act, tok = reward_stream_case(dev, wd, n, width, vocab, steps, SEED + width)
+            hidden = rw.wh.shape[0]
+            plan = fr.rollout_plan(n, hidden, hidden, 0, wd, sms, reward_only=True)
+            _, msg = check_reward_stream(f"H={width} {wd}", rw, act, tok)
+            phase("faults", f"reward stream H=E=F={width} (kernel width {hidden}) V={vocab} N={n} "
+                            f"S={steps} {str(wd)[6:]} ({'streamed' if plan['stream'] else 'stationary'}"
+                            f" slices of {plan['columns']} columns, grid {plan['grid']}): {msg}")
+
+
 def host_us(fn, iters: int = 200) -> float:
     """Phase 6: the host's microseconds a call of ``fn`` (back-to-back calls
     that queue faster than the card runs them: the host side alone)."""
@@ -2211,6 +2322,10 @@ def main() -> int:
         for k in ("threefry_gumbel", "reward_stream", "rollout_fwd", "rollout_bwd"))
         + f" | a2c step: fused {ta[('a2c', 'step', 'ms')]:.3f} ms, plain "
           f"{ta[('a2c', 'step', 'plain_ms')]:.3f} ms")
+    phase("profile", f"{card} | reward stream, N = {ROLLOUT_N}, S = {S}, bf16: kernel "
+                     f"{ta[('reward_stream', 'ms')]:.4f} ms a call through its wrapper (CUDA "
+                     f"events), {ta[('reward_stream', 'profile')]} | its clock: "
+                     f"{ta[('reward_stream', 'phases')]}")
     phase("profile", f"{card} | rollout forward, N = {ROLLOUT_N}, S = {S}, bf16, reward fused "
                      f"in: {ta[('rollout_fwd', 'profile')]} | its clock: "
                      f"{ta[('rollout_fwd', 'phases')]}")
@@ -2243,6 +2358,7 @@ def main() -> int:
     wide_decodes(dev)
     wv = wide_vocab_sampling(dev)
     wide_rollouts(dev)
+    wide_reward_streams(dev)
     phase("timing", f"{card} | bf16 weights | sampling V={WIDE_V} (rows walked in L2), N=1024, "
                     f"top-k 40 + nucleus 0.9: kernel {wv['ms']:.3f} ms, plain "
                     f"{wv['plain_ms']:.3f} ms")

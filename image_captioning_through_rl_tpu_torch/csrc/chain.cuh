@@ -266,7 +266,7 @@ __device__ __forceinline__ const typename Tl::W* chain_weight_src(const typename
 
 // The weight slice j0 of wh as a source of 16-byte chunks: src(n, k) is
 // chain_weight_src's, src.base() a valid address for a zero-filled copy.
-// Other slice shapes (the rollout's column slices, rollout_fwd.cu) pass
+// Other slice shapes (the rollout's column slices, rollout_fwd.cuh) pass
 // their own source with the same two members.
 template <class Tl>
 struct GateSlice {
@@ -526,7 +526,7 @@ cudaError_t launch_planned(const ChainPlan& p, const Args& a, cudaStream_t s) {
 }
 
 // ---- Shared by the persistent launches that slice several weights by columns
-// (rollout_fwd.cu, beam_search.cu) ----
+// (rollout_fwd.cuh, beam_search.cu) ----
 
 // Per weight type, the units (NC = 4U columns per slice) a plan that deals
 // several weights' columns out as slices tries, widest first, before it

@@ -2,20 +2,21 @@
 // chains, the rollout forward, the beam search, the greedy and sampling
 // decodes) and the rest.
 //
-// The per-step products of the reward stream, the float32 chains' products
-// after the loop and the rollout backward's float32 heads run through
-// a 64 x 64 block tile with float32 accumulation: on the tensor
-// cores (WMMA, gemm_tile_tc) when both operands are bf16 values, else on the
-// CUDA cores (gemm_tile). Weights are float or __nv_bfloat16 (template W);
-// the activation operand is rounded to W where the TPU kernel casts it, so
-// a product of two bf16 values is exact in float32 and only the order of
-// the float32 sums differs from the plain PyTorch versions.
+// The products outside the persistent launches (the float32 x-gate table,
+// the float32 chains' products after the loop and the rollout backward's
+// float32 heads) run through a 64 x 64 block tile with float32
+// accumulation: linear_kernel on the CUDA cores (gemm_tile), view_kernel on
+// the tensor cores (WMMA, gemm_view_tc) when both operands are bf16 values,
+// else on the CUDA cores. Weights are float or
+// __nv_bfloat16 (template W); the activation operand is rounded to W where
+// the TPU kernel casts it, so a product of two bf16 values is exact in
+// float32 and only the order of the float32 sums differs from the plain
+// PyTorch versions.
 //
-// Bound on Hopper: at small batches each step streams the weights from L2
-// once per 64-row tile, and a
-// tile's time is set by how fast it can dispatch its staging and WMMA
-// instructions and wait out each depth step, far below the tensor cores'
-// rate (about 90 TFLOP/s for a large bf16 product on an H100). The design
+// Bound on Hopper: a tile's time is set by how fast it can dispatch its
+// staging and WMMA instructions and wait out each depth step, far below the
+// tensor cores' rate (about 90 TFLOP/s for a large bf16 product on an
+// H100). The design
 // keeps the staging short: each thread resolves the rows and column it
 // stages (a gathered state row, a gate-strided weight column) once per tile,
 // moves bf16 operands in 16-byte and 4-byte words, and loads the next depth
@@ -41,7 +42,6 @@ constexpr int BM = 64;          // rows per block tile
 constexpr int BN = 64;          // output columns per block tile
 constexpr int BK = 16;          // reduction depth per shared-memory stage
 constexpr int NT = 256;         // threads per block: 16 x 16, 4 x 4 outputs each
-constexpr int ROWS_PER_BLOCK = NT / 32;  // row kernels: one warp per row
 constexpr unsigned FULL = 0xffffffffu;
 
 inline int cdiv(long a, long b) { return (int)((a + b - 1) / b); }
@@ -74,10 +74,6 @@ template <> __device__ __forceinline__ float rnd<float>(float x) { return x; }
 template <> __device__ __forceinline__ float rnd<__nv_bfloat16>(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
-
-// Store a float32 value as T (rounding to bf16 for T = __nv_bfloat16).
-__device__ __forceinline__ void st(float* p, float x) { *p = x; }
-__device__ __forceinline__ void st(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
 
 __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -153,138 +149,25 @@ __device__ __forceinline__ uint4 load8_bf16(const float* p) {
                     pack_bf16x2(y.z, y.w));
 }
 
-// gemm_tile on the tensor cores, for bf16 weights: A is rounded to bf16 as
-// it is staged, which is the TPU kernels' cast of the activation before a
-// product (exact for A already in bf16), so every product is of two bf16
-// values, exact in float32. Each depth step stages a 64 x 64 slice of A and
-// a 64 x 64 slice of B in shared memory; the 8 warps (4 x 2) each own a
-// 16 x 32 block of the tile and run WMMA m16n16k16 with float32
-// accumulators, which go back through shared memory into gemm_tile's
-// acc[i][j] layout, so every epilogue stays as it is.
-//
-// Staging is vectorised, because address arithmetic and one load per
-// element made the depth step instruction-bound (~580 instructions per
-// warp for 16 HMMA): a thread moves A as 16-byte chunks of 8 depths of one
-// row, and B as bf16 pairs of two adjacent columns, from pointers resolved
-// once per tile, and loads the next depth step into registers while this
-// one's products run. That needs K % 8 == 0, lda % 8 == 0 (bf16 A) or
-// % 4 == 0 (float32 A), 16-byte aligned A, an even ldb, and
-// bcol(2p + 1) == bcol(2p) + 1 with bcol(2p) even: the wrappers check the
-// widths.
+// The depth of a staged slice of the WMMA view products below.
 constexpr int TBK = 64;
-
-template <class AT, class ARow, class BCol>
-__device__ __forceinline__ void gemm_tile_tc(float (&acc)[4][4], int K, const AT* __restrict__ a,
-                                             int lda, const ARow& arow,
-                                             const __nv_bfloat16* __restrict__ w, int ldb,
-                                             const BCol& bcol) {
-  namespace wmma = nvcuda::wmma;
-  constexpr int KC = TBK / 8;                // 16-byte chunks per slice row of A
-  constexpr int A_CHUNKS = BM * KC / NT;     // chunks per thread
-  constexpr int PAIRS = BN / 2;              // column pairs per slice row of B
-  constexpr int B_ROWS = TBK * PAIRS / NT;   // B rows per thread
-  __shared__ __align__(128) __nv_bfloat16 As[BM][TBK + 8];
-  __shared__ __align__(128) __nv_bfloat16 Bs[TBK][BN + 8];
-  __shared__ __align__(128) float Cs[BM][BN + 4];
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int wr = (warp / 2) * 16, wc = (warp % 2) * 32;
-  const int kc = tid % KC, am0 = tid / KC;      // A: chunk kc of rows am0 + i * NT / KC
-  const int bp = tid % PAIRS, bk0 = tid / PAIRS;  // B: pair bp of rows bk0 + i * NT / PAIRS
-  const AT* ap[A_CHUNKS];
-#pragma unroll
-  for (int i = 0; i < A_CHUNKS; ++i) {
-    const int r = arow(am0 + i * (NT / KC));
-    ap[i] = r >= 0 ? a + (size_t)r * lda + kc * 8 : nullptr;
-  }
-  const int col = bcol(2 * bp);
-  const __nv_bfloat16* bptr = col >= 0 ? w + (size_t)bk0 * ldb + col : nullptr;
-  const size_t bstep = (size_t)(NT / PAIRS) * ldb;
-  // the next depth step's slice is loaded into registers while this one's
-  // products run
-  uint4 ra[A_CHUNKS];
-  unsigned rb[B_ROWS];
-  auto fetch = [&](int k0) {
-#pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i)
-      ra[i] = ap[i] && k0 + kc * 8 < K ? load8_bf16(ap[i] + k0) : make_uint4(0, 0, 0, 0);
-    const __nv_bfloat16* bk = bptr ? bptr + (size_t)k0 * ldb : nullptr;
-#pragma unroll
-    for (int i = 0; i < B_ROWS; ++i)
-      rb[i] = bk && k0 + bk0 + i * (NT / PAIRS) < K
-                  ? __ldg(reinterpret_cast<const unsigned*>(bk + i * bstep))
-                  : 0u;
-  };
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2];
-  wmma::fill_fragment(c[0], 0.f);
-  wmma::fill_fragment(c[1], 0.f);
-  fetch(0);
-  for (int k0 = 0; k0 < K; k0 += TBK) {
-#pragma unroll
-    for (int i = 0; i < A_CHUNKS; ++i)
-      *reinterpret_cast<uint4*>(&As[am0 + i * (NT / KC)][kc * 8]) = ra[i];
-#pragma unroll
-    for (int i = 0; i < B_ROWS; ++i)
-      *reinterpret_cast<unsigned*>(&Bs[bk0 + i * (NT / PAIRS)][2 * bp]) = rb[i];
-    __syncthreads();
-    if (k0 + TBK < K) fetch(k0 + TBK);
-#pragma unroll
-    for (int ks = 0; ks < TBK; ks += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> fa;
-      wmma::load_matrix_sync(fa, &As[wr][ks], TBK + 8);
-#pragma unroll
-      for (int f = 0; f < 2; ++f) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, &Bs[ks][wc + 16 * f], BN + 8);
-        wmma::mma_sync(c[f], fa, fb, c[f]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int f = 0; f < 2; ++f)
-    wmma::store_matrix_sync(&Cs[wr][wc + 16 * f], c[f], BN + 4, wmma::mem_row_major);
-  __syncthreads();
-  const int tx = tid % 16, ty = tid / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = Cs[ty + 16 * i][tx + 16 * j];
-}
 
 template <typename W>
 constexpr bool kIsBf16 = std::is_same<W, __nv_bfloat16>::value;
 
-// The tile product on the tensor cores (kTC: bf16 weights, A rounded to
-// bf16), else on the CUDA cores (no rounding).
-template <bool kTC, class AT, class W, class ARow, class BCol>
-__device__ __forceinline__ void gemm(float (&acc)[4][4], int K, const AT* a, int lda,
-                                     const ARow& arow, const W* w, int ldb, const BCol& bcol) {
-  if constexpr (kTC) {
-    static_assert(kIsBf16<W>, "the tensor-core tile takes bf16 weights");
-    gemm_tile_tc(acc, K, a, lda, arow, w, ldb, bcol);
-  } else {
-    gemm_tile(acc, K, a, lda, arow, w, ldb, bcol);
-  }
-}
-
-// out[r, c] = sum_k A[r, k] * w[k, c] (+ bias[c])   (A [M, K] of AT, w [K, N] of W;
-// bias may be null; out [M, N] of OT). kRoundA rounds A to W first (the TPU
-// kernels' cast of the activation); it has an effect only for bf16 weights
-// and runs the product on the tensor cores, as does A already in bf16.
-// OT = W stores the result rounded to W, for an output that is only ever
-// read as a product's rounded operand (an h0).
-template <typename W, typename AT, bool kRoundA, typename OT = float>
+// out[r, c] = sum_k A[r, k] * w[k, c] (+ bias[c]), float32 throughout
+// (A [M, K], w [K, N], bias may be null, out [M, N]): the x-gate table of
+// float32 weights and the rollout backward's recomputed logits.
 __global__ void __launch_bounds__(NT) linear_kernel(int M, int K, int N,
-                                                    const AT* __restrict__ A,
-                                                    const W* __restrict__ w,
+                                                    const float* __restrict__ A,
+                                                    const float* __restrict__ w,
                                                     const float* __restrict__ bias,
-                                                    OT* __restrict__ out) {
+                                                    float* __restrict__ out) {
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
   auto arow = [&](int m) { return row0 + m < M ? row0 + m : -1; };
   auto bcol = [&](int c) { return col0 + c < N ? col0 + c : -1; };
   float acc[4][4];
-  gemm<(kIsBf16<W> && (kRoundA || std::is_same<AT, W>::value))>(acc, K, A, K, arow, w, N,
-                                                                 bcol);
+  gemm_tile(acc, K, A, K, arow, w, N, bcol);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -292,16 +175,14 @@ __global__ void __launch_bounds__(NT) linear_kernel(int M, int K, int N,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int c = col0 + tx + 16 * j;
-      if (r < M && c < N) st(out + (size_t)r * N + c, bias ? acc[i][j] + bias[c] : acc[i][j]);
+      if (r < M && c < N) out[(size_t)r * N + c] = bias ? acc[i][j] + bias[c] : acc[i][j];
     }
   }
 }
 
-template <typename W, typename AT, bool kRoundA, typename OT = float>
-cudaError_t launch_linear(int M, int K, int N, const AT* A, const W* w, const float* bias,
-                          OT* out, cudaStream_t s) {
-  linear_kernel<W, AT, kRoundA, OT><<<dim3(cdiv(M, BM), cdiv(N, BN)), NT, 0, s>>>(M, K, N, A, w,
-                                                                                  bias, out);
+inline cudaError_t launch_linear(int M, int K, int N, const float* A, const float* w,
+                                 const float* bias, float* out, cudaStream_t s) {
+  linear_kernel<<<dim3(cdiv(M, BM), cdiv(N, BN)), NT, 0, s>>>(M, K, N, A, w, bias, out);
   return cudaGetLastError();
 }
 

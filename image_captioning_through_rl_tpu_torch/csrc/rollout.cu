@@ -3,7 +3,7 @@
 // Replaces the TPU kernels image_captioning_through_rl_tpu/ops/pallas_rollout.py
 // _policy_bwd_kernel and _value_bwd_kernel (_policy_bwd_pallas :537 and
 // _value_bwd_pallas :603) under the custom VJP of _make_core (fused_rollout).
-// The forward (_rollout_fwd_kernel) is rollout_fwd.cu: one persistent
+// The forward (_rollout_fwd_kernel) is rollout_fwd.cuh: one persistent
 // cooperative launch; its note says what each step computes, where it rounds
 // and what bounds it. It leaves a float32 tape of S steps over n rows (R = S n
 // rows, step-major): h and c entering every step, the post-activation gates
@@ -243,8 +243,7 @@ int rollout_bwd_f32(const BwdIn& in, const BwdOut& o, const F32Layout& L, cudaSt
     ICRL_CHECK(cudaMemsetAsync(o.dvb, 0, sizeof(float) * G, s));
   }
   // policy: logits, dlogits, dhw [H, V], dhb, dh_head = dlogits @ hw^T
-  ICRL_CHECK((launch_linear<float, float, true>(R, H, in.Vp, in.hp, f(in.hw), in.hb, L.dlogits,
-                                                s)));
+  ICRL_CHECK((launch_linear(R, H, in.Vp, in.hp, f(in.hw), in.hb, L.dlogits, s)));
   softmax_grad_rows_kernel<<<R, NT, 0, s>>>(in.V, in.Vp, L.dlogits, in.act, in.dlogp, nullptr);
   ICRL_CHECK(cudaGetLastError());
   ICRL_CHECK((launch_view<float, true, false>(H, in.V, R, in.hp, H, nullptr, L.dlogits, in.Vp,

@@ -43,8 +43,7 @@ int icrl_token_gates(int V, int E, int G, int bf16, const void* emb, const void*
     err = launch_wgmma_gemm<false, true>(V, G, E, DenseRows{(const W*)emb, V, E, E},
                                          DenseRows{(const W*)w, E, G, G}, xg, s, bias);
   } else {
-    err = launch_linear<float, float, false>(V, E, G, (const float*)emb, (const float*)w, bias,
-                                             xg, s);
+    err = launch_linear(V, E, G, (const float*)emb, (const float*)w, bias, xg, s);
   }
   if (prev != device) cudaSetDevice(prev);
   return (int)err;

@@ -5,13 +5,14 @@ Counterpart of the JAX ``ops/pallas_rollout.py``: ``fused_reward_stream``
 (TPU kernel ``_reward_stream_kernel``) and ``fused_rollout``
 (``_rollout_fwd_kernel``, ``_policy_bwd_kernel`` and ``_value_bwd_kernel``
 under the custom VJP of ``_make_core``). The kernels are
-``csrc/reward_stream.cu``, ``csrc/rollout_fwd.cu`` (the forward: one
-persistent cooperative launch for all steps, planned by
-:func:`rollout_plan`) and ``csrc/rollout.cu`` (the backward: one C call, the
-heads' products on ``wgmma`` with a fixed-order split-K and both encoders'
-recurrences in one cooperative launch, planned by :func:`rollout_bwd_plan`);
-their notes say what each step computes, where it rounds, what bounds it on
-Hopper and what the design does about that.
+``csrc/rollout_fwd.cuh`` (the forward: one persistent cooperative launch for
+all steps, planned by :func:`rollout_plan`; entered by ``rollout_fwd.cu``,
+and by ``reward_stream.cu`` in its reward-only mode, the stream alone) and
+``csrc/rollout.cu`` (the backward: one C call, the heads' products on
+``wgmma`` with a fixed-order split-K and both encoders' recurrences in one
+cooperative launch, planned by :func:`rollout_bwd_plan`); their notes say
+what each step computes, where it rounds, what bounds it on Hopper and what
+the design does about that.
 
 Over S = T - 1 steps the rollout takes, at step s (position p = s + 1), the
 policy's logits from its carried state, the Gumbel-max action on the step's
@@ -208,8 +209,8 @@ def _check_reward_weights(rw: RewardWeights, n: int, vocab: int) -> None:
     check_tile_widths(wd, hidden=hidden)
 
 
-def _launch_reward_stream(rw: RewardWeights, act_sm: torch.Tensor, tok_sm: torch.Tensor
-                          ) -> torch.Tensor:
+def _launch_reward_stream(rw: RewardWeights, act_sm: torch.Tensor, tok_sm: torch.Tensor,
+                          clock: torch.Tensor | None = None) -> torch.Tensor:
     steps, n = act_sm.shape
     vocab = rw.xg.shape[0]
     _check_reward_weights(rw, n, vocab)
@@ -217,8 +218,9 @@ def _launch_reward_stream(rw: RewardWeights, act_sm: torch.Tensor, tok_sm: torch
         if t.dtype != torch.int32 or not t.is_contiguous() or t.device != rw.xg.device:
             raise ValueError(f"{name} must be a contiguous int32 [S, N] tensor on the weights' "
                              f"device")
-    assert_tokens(f"actions and tokens must lie in [0, {vocab})", vocab, act_sm, tok_sm)
     dev = rw.xg.device
+    _check_clock(clock, steps, dev)
+    assert_tokens(f"actions and tokens must lie in [0, {vocab})", vocab, act_sm, tok_sm)
     hidden = rw.wh.shape[0]
     rewards = torch.empty((steps, n), dtype=_F32, device=dev)
     if rewards.numel() == 0:
@@ -228,25 +230,35 @@ def _launch_reward_stream(rw: RewardWeights, act_sm: torch.Tensor, tok_sm: torch
         ws = torch.empty(lib.icrl_reward_stream_workspace_floats(n, hidden), dtype=_F32,
                          device=dev)
         err = lib.icrl_reward_stream(
-            n, steps, hidden, int(rw.wh.dtype == torch.bfloat16), _ptr(act_sm), _ptr(tok_sm),
+            n, steps, hidden, int(rw.wh.dtype == torch.bfloat16),
+            *_reward_plan_args(n, hidden, rw.wh.dtype, dev.index), _ptr(act_sm), _ptr(tok_sm),
             _ptr(rw.xg), _ptr(rw.wh), _ptr(rw.bh), _ptr(rw.sem_w), _ptr(rw.sem_b), _ptr(rw.vn),
-            _ptr(rw.rew0), _ptr(rewards), _ptr(ws), _stream(dev))
+            _ptr(rw.rew0), _ptr(rewards), _ptr(ws), _ptr(clock), _stream(dev))
     check_error(lib, "icrl_reward_stream", err)
     fused_reward_stream.launches += 1
     return rewards
 
 
 def reward_stream(rw: RewardWeights, act_sm: torch.Tensor, tok_sm: torch.Tensor,
-                  use_fused_kernel: bool | None = None) -> torch.Tensor:
+                  use_fused_kernel: bool | None = None, *,
+                  clock: torch.Tensor | None = None) -> torch.Tensor:
     """The stream on prepared weights: ``[S, N]`` int32 actions and tokens
-    -> rewards ``[S, N]``. CUDA tensors run the kernel, CPU tensors
-    :func:`reward_stream_plain`."""
+    -> rewards ``[S, N]``. CUDA tensors run the kernel (one persistent
+    launch, the rollout forward's reward-only mode: :func:`rollout_plan`
+    with ``reward_only=True``), CPU tensors :func:`reward_stream_plain`.
+
+    ``clock``, for a profile of the kernel: int64 zeros of
+    :func:`rollout_clock_slots` on the card, filled as
+    :func:`rollout_forward_kernel` fills its own (S + 1 passes: the last
+    one takes the last step's reward)."""
     if use_fused_kernel is False or (not rw.xg.is_cuda and not use_fused_kernel):
+        if clock is not None:
+            raise ValueError("clock profiles the kernel: the plain version takes none")
         return reward_stream_plain(rw, act_sm, tok_sm)
     if not rw.xg.is_cuda:
         raise RuntimeError("use_fused_kernel=True needs CUDA tensors: the reward stream kernel "
                            "runs only on a CUDA device")
-    return _launch_reward_stream(rw, act_sm, tok_sm)
+    return _launch_reward_stream(rw, act_sm, tok_sm, clock)
 
 
 def fused_reward_stream(reward_params: dict, cfg, features: torch.Tensor,
@@ -508,7 +520,7 @@ def _check_rollout_inputs(teach_sm, noise, reward, feats, states, w: RolloutWeig
     assert_tokens(f"tokens must lie in [0, {vocab})", vocab, teach_sm)
 
 
-# The forward kernel's products in slice order (csrc/rollout_fwd.cu
+# The forward kernel's products in slice order (csrc/rollout_fwd.cuh
 # RolloutMat); its plan tries the slice widths of fused_lstm._SLICE_UNITS.
 ROLLOUT_PRODUCTS = ("head", "linear1", "policy", "value", "reward", "semantic")
 
@@ -520,17 +532,20 @@ def _rollout_smem(weight_dtype: torch.dtype, units: int, stream: bool, depth: in
     return _chain_smem(weight_dtype, False, 4, units, stream, -(-depth // kc) * kc)
 
 
-def rollout_columns(hidden: int, vp: int, reward: bool) -> tuple:
+def rollout_columns(hidden: int, vp: int, reward: bool, reward_only: bool = False) -> tuple:
     """The columns of each product of a forward step, in slice order: the
     head's Vp, linear1's h half H, both cells' 4H, the reward GRU's 3H and
-    ``semantic_embed``'s H (the last two only with the reward stream)."""
-    return (vp, hidden, 4 * hidden, 4 * hidden, 3 * hidden if reward else 0,
-            hidden if reward else 0)
+    ``semantic_embed``'s H (the last two only with the reward stream;
+    ``reward_only``, the stream alone: the last two alone)."""
+    stream = (3 * hidden, hidden) if reward or reward_only else (0, 0)
+    if reward_only:
+        return (0, 0, 0, 0, *stream)
+    return (vp, hidden, 4 * hidden, 4 * hidden, *stream)
 
 
 def rollout_plan(n: int, feat_dim: int, hidden: int, vp: int, weight_dtype: torch.dtype,
-                 sm_count: int, reward: bool = True) -> dict:
-    """The rollout forward's cooperative launch, as ``csrc/rollout_fwd.cu:
+                 sm_count: int, reward: bool = True, reward_only: bool = False) -> dict:
+    """The rollout forward's cooperative launch, as ``csrc/rollout_fwd.cuh:
     rollout_plan`` computes it.
 
     The columns of the six products (:func:`rollout_columns`) are cut, in
@@ -545,9 +560,13 @@ def rollout_plan(n: int, feat_dim: int, hidden: int, vp: int, weight_dtype: torc
     blocks left over make ``row_groups`` (each a replica of the weights):
     block ``(x, g)`` takes the row tiles ``g, g + row_groups, ...`` of
     ``rows_per_tile`` rows. ``slice_table`` lists each slice as
-    ``(product, first column, columns)``. No width is refused."""
-    depth = max(hidden, feat_dim)
-    cols = rollout_columns(hidden, vp, reward)
+    ``(product, first column, columns)``. No width is refused.
+
+    ``reward_only``: the reward stream alone (``csrc/reward_stream.cu``),
+    the same launch with only the reward GRU's and ``semantic_embed``'s
+    columns, in slices of ``H`` rows (``feat_dim`` and ``vp`` unread)."""
+    depth = hidden if reward_only else max(hidden, feat_dim)
+    cols = rollout_columns(hidden, vp, reward, reward_only)
 
     def slices(nc):
         return sum(-(-c // nc) for c in cols)
@@ -583,9 +602,21 @@ def _rollout_plan_args(n: int, feat_dim: int, hidden: int, vp: int, weight_dtype
                        index: int, reward: bool) -> tuple:
     """The plan's launch arguments for the card ``index`` (cached)."""
     sms = torch.cuda.get_device_properties(index).multi_processor_count
-    p = rollout_plan(n, feat_dim, hidden, vp, weight_dtype, sms, reward)
+    return _launch_args(rollout_plan(n, feat_dim, hidden, vp, weight_dtype, sms, reward))
+
+
+def _launch_args(p: dict) -> tuple:
+    """A plan's six values as the C entries take them."""
     return (p["rows_per_tile"], p["units"], int(p["stream"]), p["grid"][0], p["row_groups"],
             p["smem_bytes"])
+
+
+@functools.lru_cache(maxsize=None)
+def _reward_plan_args(n: int, hidden: int, weight_dtype: torch.dtype, index: int) -> tuple:
+    """The reward stream's plan (the reward-only mode), launch arguments for
+    the card ``index`` (cached)."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return _launch_args(rollout_plan(n, hidden, hidden, 0, weight_dtype, sms, reward_only=True))
 
 
 def combine_row_partials(logits: torch.Tensor, noise: torch.Tensor, v1w: torch.Tensor,
@@ -631,8 +662,16 @@ def combine_row_partials(logits: torch.Tensor, noise: torch.Tensor, v1w: torch.T
 
 def rollout_clock_slots(steps: int) -> int:
     """The length of the forward kernel's phase profile for ``steps`` steps
-    (``clock`` of :func:`rollout_forward_kernel`)."""
+    (``clock`` of :func:`rollout_forward_kernel` and :func:`reward_stream`)."""
     return 2 + 4 * (steps + 1)
+
+
+def _check_clock(clock: torch.Tensor | None, steps: int, dev: torch.device) -> None:
+    if clock is not None and (clock.dtype != torch.int64 or clock.device != dev
+                              or not clock.is_contiguous()
+                              or clock.numel() < rollout_clock_slots(steps)):
+        raise ValueError(f"clock must be {rollout_clock_slots(steps)} contiguous int64 zeros "
+                         f"on {dev}")
 
 
 def rollout_forward_kernel(curr: int, teach_sm: torch.Tensor, noise: torch.Tensor,
@@ -650,11 +689,7 @@ def rollout_forward_kernel(curr: int, teach_sm: torch.Tensor, noise: torch.Tenso
     _check_rollout_inputs(teach_sm, noise, reward, feats, (ph1, pc1, vh1, vc1), w)
     dev = feats.device
     steps, n = teach_sm.shape
-    if clock is not None and (clock.dtype != torch.int64 or clock.device != dev
-                              or not clock.is_contiguous()
-                              or clock.numel() < rollout_clock_slots(steps)):
-        raise ValueError(f"clock must be {rollout_clock_slots(steps)} contiguous int64 zeros "
-                         f"on {dev}")
+    _check_clock(clock, steps, dev)
     vocab, emb_dim = w.p_emb.shape
     hidden = w.p_b.shape[0] // 4
     f = feats.shape[1]

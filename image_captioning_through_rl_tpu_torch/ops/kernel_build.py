@@ -45,7 +45,7 @@ _SIGNATURES = {
     "icrl_gru_chain_bwd": (_I, [_I] * 11 + [_P] * 22),
     "icrl_threefry": (_I, [_I, _P, ctypes.c_longlong, _I, _P, _P]),
     "icrl_reward_stream_workspace_floats": (ctypes.c_size_t, [_I] * 2),
-    "icrl_reward_stream": (_I, [_I] * 4 + [_P] * 12),
+    "icrl_reward_stream": (_I, [_I] * 10 + [_P] * 13),
     "icrl_rollout_workspace_floats": (ctypes.c_size_t, [_I] * 3),
     "icrl_rollout_fwd": (_I, [_I] * 15 + [_P] * 37),
     "icrl_rollout_bwd_workspace_floats": (ctypes.c_size_t, [_I] * 9),

@@ -66,7 +66,13 @@ widths its plan treats apart (COCO width, H = 1024 streamed, V = 2000, a
 padded width, N = 1, S = 1; bf16 and f32; curr 1 and 8; with and without
 the reward stream), must give bit-identical results on two calls and be one
 `rollout_fwd_kernel` launch beside its two x-gate tables; the bf16 x-gate
-table runs on wgmma and matches its plain version within 1e-4. The rollout
+table runs on wgmma and matches its plain version within 1e-4. The reward
+stream alone (the rollout forward's reward-only mode) is held to its plain
+version within ``ROLLOUT_TOL`` at COCO width, S = 1 and 2, N = 33 (no whole
+row tile), H = 1024 and a padded width, gives the same bits on two calls,
+is one `reward_stream_kernel` launch a call whatever S (counted in the
+rollout forward's profiler window), marks every phase on its optional
+clock, and gives the fused-in stream's rewards within 1e-6 at COCO width. The rollout
 backward (the heads on wgmma with a fixed-order split-K, both recurrences in
 one launch) is held to CHAIN_TOL at COCO width, H = 1024 and 2048, V = 2000,
 a padded width, n = 12 and 500, curr 1 and 8, bf16 and f32; two calls give
@@ -963,26 +969,110 @@ def test_rollout_forward_clock_marks_every_phase(dev, with_reward):
 @pytest.mark.parametrize("with_reward", [True, False])
 def test_rollout_forward_is_one_launch(dev, with_reward):
     """One rollout_fwd_kernel launch per call beside the two x-gate tables
-    (wgmma), whatever S; none of the old per-step kernels."""
+    (wgmma), whatever S; none of the old per-step kernels. With the reward
+    stream, the stream alone on the rollout's actions and tokens is one
+    reward_stream_kernel launch, none of its old host loop's kernels (in the
+    same window: late in a process that has opened many windows, the tracer
+    was seen to lose a later window's events whole)."""
     from torch.profiler import ProfilerActivity, profile
 
     for shape in ("coco", "s1"):
         args = _wide_rollout_case(dev, torch.bfloat16, 1, ROLLOUT_SHAPES[shape], with_reward)
         fr.rollout_forward_kernel(*args)
         torch.cuda.synchronize()
-        before = fr.fused_rollout.fwd_launches
+        before = fr.fused_rollout.fwd_launches, fr.fused_reward_stream.launches
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fr.rollout_forward_kernel(*args)
+            _, _, _, tape = fr.rollout_forward_kernel(*args)
+            if with_reward:
+                fr.reward_stream(args[3], tape.act, tape.tok)
             torch.cuda.synchronize()
-        assert fr.fused_rollout.fwd_launches == before + 1
+        assert (fr.fused_rollout.fwd_launches, fr.fused_reward_stream.launches) == (
+            before[0] + 1, before[1] + with_reward)
         names = [e.key for e in prof.key_averages() for _ in range(e.count)
                  if e.device_type == torch.autograd.DeviceType.CUDA]
         counts = {k: sum(k in name for name in names)
                   for k in ("rollout_fwd_kernel", "wgmma_gemm_kernel", "linear_kernel",
-                            "rollout_cell_kernel", "value_hidden_kernel", "sample_rows_kernel")}
+                            "rollout_cell_kernel", "value_hidden_kernel", "sample_rows_kernel",
+                            "reward_stream_kernel", "gru_pair_kernel", "cosine_rows_kernel")}
         assert counts == {"rollout_fwd_kernel": 1, "wgmma_gemm_kernel": 2, "linear_kernel": 0,
                           "rollout_cell_kernel": 0, "value_hidden_kernel": 0,
-                          "sample_rows_kernel": 0}, (shape, counts)
+                          "sample_rows_kernel": 0, "reward_stream_kernel": int(with_reward),
+                          "gru_pair_kernel": 0, "cosine_rows_kernel": 0}, (shape, counts)
+
+
+# (N, E = H = F, V, S) for the reward stream alone: COCO width; one and two
+# steps; rows that fill no whole row tile; H = 1024 (slices of 32 columns);
+# a width the wrappers pad
+STREAM_SHAPES = {"coco": (512, 512, 1004, 16), "s1": (100, 512, 1004, 1),
+                 "s2": (100, 512, 1004, 2), "n33": (33, 512, 1004, 16),
+                 "h1024": (512, 1024, 1004, 16), "padded": (100, 500, 1001, 6)}
+
+
+def _stream_case(dev, wd, shape, seed=31):
+    """Reward weights prepared for the stream and ``[S, N]`` int32 actions
+    and tokens from a seed, half the tokens the action."""
+    n, width, vocab, steps = shape
+    cfg = NetConfig(vocab_size=vocab, input_dim=width, wordvec_dim=width, hidden_dim=width,
+                    max_seq_len=steps + 1)
+    rparams = reward.init(torch.Generator().manual_seed(seed), cfg)
+    rparams = {k: ({kk: vv.to(dev) for kk, vv in v.items()} if isinstance(v, dict)
+                   else v.to(dev)) for k, v in rparams.items()}
+    rng = np.random.default_rng(seed)
+    feats = torch.from_numpy(rng.standard_normal((n, width)).astype(np.float32)).to(dev)
+    start = torch.full((n,), START_ID, dtype=torch.int32, device=dev)
+    act = rng.integers(4, vocab, size=(steps, n))
+    tok = np.where(rng.random((steps, n)) < 0.5, act, rng.integers(4, vocab, size=(steps, n)))
+    rw = fr.prepare_reward_weights(rparams, feats, start, wd)
+    return (rw, torch.from_numpy(act.astype(np.int32)).to(dev),
+            torch.from_numpy(tok.astype(np.int32)).to(dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+@pytest.mark.parametrize("shape", list(STREAM_SHAPES))
+def test_reward_stream_kernel_matches_plain(dev, shape, wd):
+    """The stream's one persistent launch against its plain version within
+    ROLLOUT_TOL; two calls give the same bits; one launch a call."""
+    rw, act, tok = _stream_case(dev, wd, STREAM_SHAPES[shape])
+    before = fr.fused_reward_stream.launches
+    got = fr.reward_stream(rw, act, tok)
+    again = fr.reward_stream(rw, act, tok)
+    torch.cuda.synchronize()
+    assert fr.fused_reward_stream.launches == before + 2
+    assert torch.equal(got, again)
+    want = fr.reward_stream(rw, act, tok, use_fused_kernel=False)
+    assert got.shape == want.shape == act.shape and bool(torch.isfinite(got).all())
+    err = float((got - want).abs().max())
+    assert err <= ROLLOUT_TOL[wd], f"max abs error {err:.3g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("curr", [1, 8])
+@pytest.mark.parametrize("wd", WEIGHT_TYPES)
+def test_reward_stream_equals_the_fused_in_stream(dev, wd, curr):
+    """At COCO width, on a kernel rollout's actions and tokens (curr 8: the
+    teacher's tokens on the first seven steps), the stream alone gives the
+    rewards of the stream fused into that rollout within 1e-6: the same
+    slices, partials and combine."""
+    args = _wide_rollout_case(dev, wd, curr, ROLLOUT_SHAPES["coco"], True)
+    _, _, fused_in, tape = fr.rollout_forward_kernel(*args)
+    stream = fr.reward_stream(args[3], tape.act, tape.tok)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(stream, fused_in, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_reward_stream_clock_marks_every_phase(dev):
+    """The optional clock: every mark of the S + 1 passes set, in order, and
+    the rewards bit-equal to a call without it."""
+    rw, act, tok = _stream_case(dev, torch.bfloat16, STREAM_SHAPES["coco"])
+    steps = act.shape[0]
+    clock = torch.zeros(fr.rollout_clock_slots(steps), dtype=torch.int64, device=dev)
+    timed = fr.reward_stream(rw, act, tok, clock=clock)
+    plain = fr.reward_stream(rw, act, tok)
+    marks = clock.cpu()
+    assert bool((marks > 0).all()) and bool((marks[1:] >= marks[:-1]).all())
+    assert torch.equal(timed, plain)
 
 
 @pytest.mark.cuda
@@ -1120,24 +1210,34 @@ def test_rollout_backward_kernel_is_deterministic(dev, wd):
 
 def _launches_per_call(call, iters=5):
     """Device kernel launches per call of ``call`` by name: torch.profiler
-    over ``iters`` calls (after one call outside the window), each count
-    rounded to whole launches a call. The tracer now and then misses the
-    first launches of a window (on the H100 machine: the first two or three
-    of a backward, window after window, late in a process that has opened
-    many); rounding recovers the true count while fewer than half of a
-    kernel's launches go unrecorded."""
+    over ``iters`` calls (after one call outside the window, and 50 ms of an
+    idle card inside it), each count rounded to whole launches a call. The
+    tracer now and then misses the first launches of a window (on the H100
+    machine: the first two or three of a backward, window after window, late
+    in a process that has opened many); rounding recovers the true count
+    while fewer than half of a kernel's launches go unrecorded. It has also
+    handed back windows with no device event at all (late in the same
+    process): such a window is taken again, up to three windows in all, as
+    ``chip_smoke.py``'s ``device_profile`` does."""
+    import time
+
     from torch.profiler import ProfilerActivity, profile
 
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            call()
-        torch.cuda.synchronize()
-    counts = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            counts[e.key] = counts.get(e.key, 0) + e.count
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+        counts = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                counts[e.key] = counts.get(e.key, 0) + e.count
+        if counts:
+            break
     return {k: round(c / iters) for k, c in counts.items()}
 
 
