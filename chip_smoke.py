@@ -117,11 +117,30 @@ Phases:
      V = 2000, bf16 and f32, vs plain under phase 13's rules; the reward
      stream at hidden_dim = 1024 and at V = 1001, H = 500 (padded), bf16 and
      f32, vs plain under phase 12's rules.
+ 20. evaluation main path: a synthetic COCO-width bundle with a val split of
+     4096 captions whose urls are file:// paths to small files; phase 14's
+     policy, value and a2c .pt files through load_a2c_models on the card
+     (the tree equal to the a2c .pt's); test_a2c_network at 40504 draws
+     (the JAX CLI's --test_size default), 128-row slices (127 kept), eight
+     slices a group: 317 slices, 40188 lines, 40 groups of 1016 rows, the
+     last padded; on the beam kernel (bf16 weights; one beam_kernel launch a
+     group, the two x-gate tables a call, no other decode), clean and with
+     the Q13 compat dump (the clean lines' slices joined without a trailing
+     newline), and on the plain beam with the same weights (real and url
+     dumps byte-identical, generated lines under the near-tie rule below);
+     calculate_a2c_network_score on the kernel's dumps through the native
+     fastmetrics library (seven finite scores, one results block), equal to
+     the pure-Python scorers on the same files to rtol 1e-12; post_process_data
+     (five best_scores.txt lines in score order, their five images copied
+     from file://); times: test_a2c_network on each route, beam_kernel's
+     device time a group (torch.profiler), the host seconds around the
+     decode, scoring and post-processing.
 
 The last JSON line but two lists every kernel with its launches on its main
-path (serving for greedy, beam and the x-gate table; the pretrainers for
-the chains; A2C for the rest), its largest error against plain, its time and
-its plain version's, and its bound: the least time an H100 SXM could take
+path (serving for greedy; serving and the evaluation, by path, for the beam
+and the x-gate table; the pretrainers for the chains; A2C for the rest), its
+largest error against plain, its time and its plain version's, and its
+bound: the least time an H100 SXM could take
 (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16, 67 TFLOP/s for
 the noise kernel's integer and float32 work; the sampling kernel's products
 at the first rate plus, at the second, per element the division by t, the
@@ -215,15 +234,24 @@ is wider because the kernel's and cuBLAS's bf16 logits differ by up to
 measured at COCO width), 2.5e-4 once divided by t = 0.7, so a top-k
 boundary 1.7e-4 apart was seen to swap.
 
-The whole run takes about two minutes of command time on the H100, the
-build (about 80-110 s) included.
+The evaluation (phase 20) holds the kernel's generated dump against the
+plain beam's by the beam rule above, line by line: a line may differ only
+where the plain beam's smallest gap over the steps, for that line's
+features, is below 1e-4, in at most 1% of lines. The native scorers must
+equal the pure-Python ones to 1e-12 relative (the same float64 arithmetic
+in the same order; the JAX package holds its own native scorers so).
+
+The whole run takes about three minutes of command time on the H100, the
+build (about 80-110 s) and phase 20 (about 25 s) included.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -261,6 +289,10 @@ H100_BF16, H100_F32, H100_BYTES = 989e12, 67e12, 3.35e12
 # vocabulary past one warp per sampled row
 WIDE_H, STREAM_H, STREAM_N, STREAM_T = 1024, 2048, 96, 5
 ODD_V, ODD_W, WIDE_V = 1001, 500, 2000
+# phase 20: the JAX CLI's --test_size default, the reference's 128-row slices
+# (127 kept), eight slices a decode group, a val split of 4096 captions
+EVAL_DRAWS, EVAL_VBS, EVAL_GROUP, EVAL_VAL = 40504, 128, 8, 4096
+SCORE_RTOL = 1e-12
 
 
 T0 = time.perf_counter()
@@ -378,11 +410,12 @@ def compare_chains(dev) -> dict:
     return worst
 
 
-def synthetic_coco(seed: int, n_captions: int = N_CAPTIONS, n_images: int = N_IMAGES):
+def synthetic_coco(seed: int, n_captions: int = N_CAPTIONS, n_images: int = N_IMAGES,
+                   n_val: int = 64):
     """A COCO-width bundle in memory: vocab 1004 (the four specials, then
     1000 words drawn Zipf-like, so a unigram is there to learn), features
     512, captions <START> body <END> <NULL>* of length 17, two captions per
-    image."""
+    image; the val split is the first ``n_val`` captions."""
     from image_captioning_through_rl_tpu_torch import END_ID, START_ID
     from image_captioning_through_rl_tpu_torch.data.coco import CocoData, caption_lengths
 
@@ -399,7 +432,6 @@ def synthetic_coco(seed: int, n_captions: int = N_CAPTIONS, n_images: int = N_IM
     idxs = rng.permutation(np.repeat(np.arange(n_images), n_captions // n_images))
     feats = rng.standard_normal((n_images, F)).astype(np.float32)
     urls = np.array([f"img{i}.jpg" for i in range(n_images)])
-    n_val = 64
     return CocoData(
         train_captions=caps, train_image_idxs=idxs.astype(np.int32),
         val_captions=caps[:n_val], val_image_idxs=idxs[:n_val].astype(np.int32),
@@ -1962,6 +1994,222 @@ def wide_reward_streams(dev) -> None:
                             f" slices of {plan['columns']} columns, grid {plan['grid']}): {msg}")
 
 
+def eval_bundle(tmp: str):
+    """Phase 20's bundle: phase 9's synthetic COCO-width bundle with a val
+    split of EVAL_VAL captions, whose urls are file:// paths to small files
+    written into ``tmp`` (each holds its image's index)."""
+    from pathlib import Path
+
+    data = synthetic_coco(SEED + 20, n_val=EVAL_VAL)
+    images = Path(tmp) / "images"
+    images.mkdir()
+    urls = []
+    for i in range(N_IMAGES):
+        path = images / f"img{i}.jpg"
+        path.write_bytes(f"image {i}\n".encode())
+        urls.append(path.as_uri())
+    urls = np.array(urls)
+    return dataclasses.replace(data, train_urls=urls, val_urls=urls)
+
+
+def eval_main_path(files: dict, tmp: str, dev, card: str) -> dict:
+    """Phase 20: load_a2c_models on the card from phase 14's .pt files, a
+    40504-draw test_a2c_network on the beam kernel (clean and Q13 dumps)
+    held against the plain beam on the same bf16 weights, the scores of the
+    kernel's dumps (native and pure Python) and post-processing with
+    file:// images. Returns the kernels' launches during the clean kernel
+    run and the times."""
+    from image_captioning_through_rl_tpu_torch.data.coco import get_coco_batch
+    from image_captioning_through_rl_tpu_torch.metrics import (
+        calculate_a2c_network_score, load_textfiles, score)
+    from image_captioning_through_rl_tpu_torch.metrics import native as native_metrics
+    from image_captioning_through_rl_tpu_torch.metrics.postprocess import post_process_data
+    from image_captioning_through_rl_tpu_torch.native import native_available
+    from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
+        beam_search_plain, fused_beam_search, prepare_beam_weights)
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
+        fused_greedy_decode, prepare_greedy_weights, token_gate_table)
+    from image_captioning_through_rl_tpu_torch.ops.fused_sample import fused_sample_decode
+    from image_captioning_through_rl_tpu_torch.train import checkpoint as ckpt
+    from image_captioning_through_rl_tpu_torch.train import loops
+
+    data = eval_bundle(tmp)
+    params, cfg = loops.load_a2c_models(files["a2c"], data, files, False, device=dev)
+    want = ckpt.load_network("a2c", files["a2c"], "cpu")
+    got, ref = list(leaves(params)), list(leaves(want))
+    if ([n for n, _ in got] != [n for n, _ in ref]
+            or any(t.device != dev or not torch.equal(t.cpu(), r) for (_, t), (_, r)
+                   in zip(got, ref))):
+        raise AssertionError("load_a2c_models does not give the a2c .pt's tree on the card")
+    if (cfg.vocab_size, cfg.input_dim, cfg.hidden_dim) != (V, F, H):
+        raise AssertionError(f"load_a2c_models: {cfg}")
+    phase("eval", f"load_a2c_models on {dev}: {len(got)} tensors equal to {files['a2c']}'s")
+
+    counters = (fused_beam_search, fused_greedy_decode, fused_sample_decode, token_gate_table)
+    keys = ("real_captions_path", "generated_captions_path", "image_urls_path")
+
+    def run(name: str, **kw) -> tuple[dict, float, dict]:
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        paths = {k: os.path.join(d, f"{k[:-5]}.txt") for k in keys}
+        paths.update(best_score_file_path=os.path.join(d, "best_scores.txt"),
+                     best_score_images_path=os.path.join(d, "best_images"),
+                     results_path=os.path.join(d, "results.txt"))
+        for fn in counters:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        loops.test_a2c_network(params, cfg, data, paths, EVAL_DRAWS, EVAL_VBS, seed=SEED,
+                               eval_superbatch=EVAL_GROUP, device=dev, **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return paths, seconds, {fn.__name__: fn.launches for fn in counters}
+
+    def lines(paths: dict) -> dict:
+        out = {}
+        for k in keys:
+            with open(paths[k]) as f:
+                out[k] = f.read()
+        return out
+
+    # the Q9 walk: the draws test_a2c_network keeps, slice by slice (127 of
+    # every 128), and the draws themselves with the bf16 weights it decodes with
+    slices = [range(i, min(i + EVAL_VBS - 1, EVAL_DRAWS))
+              for i in range(0, EVAL_DRAWS, EVAL_VBS)]
+    rows = [r for s in slices for r in s]
+    groups = -(-len(slices) // EVAL_GROUP)
+    caps, feats, _ = get_coco_batch(data, batch_size=EVAL_DRAWS, split="val",
+                                    rng=np.random.default_rng(SEED + 5))
+    bw = prepare_beam_weights(prepare_greedy_weights(params["policy"], torch.bfloat16),
+                              params["value"])
+    kernel, k_s, launches = run("kernel")
+    if launches != {"fused_beam_search": groups, "fused_greedy_decode": 0,
+                    "fused_sample_decode": 0, "token_gate_table": 2}:
+        raise AssertionError(f"eval launches {launches}, expected one beam kernel a group "
+                             f"({groups}), the two x-gate tables and no other decode")
+    plain, p_s, p_launches = run("plain", use_fused_kernel=False)
+    if p_launches["fused_beam_search"] != 0:
+        raise AssertionError(f"the plain eval launched the beam kernel: {p_launches}")
+    compat, _, c_launches = run("compat", compat_dump=True)
+    if c_launches["fused_beam_search"] != groups:
+        raise AssertionError(f"the compat eval's launches {c_launches}")
+    k_text, p_text, c_text = lines(kernel), lines(plain), lines(compat)
+
+    # the plain route: real and url dumps byte-identical, generated lines
+    # parted only at near-ties of the plain beam (phase 4's rule)
+    for k in ("real_captions_path", "image_urls_path"):
+        if k_text[k] != p_text[k]:
+            raise AssertionError(f"eval {k}: the kernel's and the plain route's dumps differ")
+    k_gen = k_text["generated_captions_path"].splitlines()
+    p_gen = p_text["generated_captions_path"].splitlines()
+    if len(k_gen) != len(rows) or len(p_gen) != len(rows):
+        raise AssertionError(f"eval dumps hold {len(k_gen)} / {len(p_gen)} lines, expected "
+                             f"{len(rows)}")
+    parted = [i for i, (a, b) in enumerate(zip(k_gen, p_gen)) if a != b]
+    gap = float("nan")
+    if parted:
+        if len(parted) > MAX_DIFF_SHARE * len(rows):
+            raise AssertionError(f"eval: {len(parted)}/{len(rows)} generated lines differ "
+                                 f"(more than {MAX_DIFF_SHARE:.0%})")
+        at = [rows[i] for i in parted]
+        _, _, margins = beam_search_plain(
+            bw, torch.from_numpy(feats[at]).to(dev),
+            torch.from_numpy(caps[at, 0].astype(np.int32)).to(dev), T, BEAM, margins=True)
+        gaps = margins.min(dim=1).values
+        if float(gaps.max()) >= NEAR_TIE:
+            raise AssertionError(f"eval: a generated line differs where the plain beam's gap "
+                                 f"{float(gaps.max()):.3g} is not a near-tie (< {NEAR_TIE})")
+        gap = float(gaps.min())
+
+    # the Q13 dump: each slice's lines joined with no trailing newline
+    widths = [len(s) for s in slices]
+    for k in keys:
+        clean = k_text[k].splitlines()
+        merged, off = [], 0
+        for w in widths:
+            merged.append("\n".join(clean[off: off + w]))
+            off += w
+        if c_text[k] != "".join(merged) or len(c_text[k].splitlines()) != len(rows) - len(
+                slices) + 1:
+            raise AssertionError(f"eval {k}: the compat dump is not the Q13 merge of the "
+                                 f"clean one")
+
+    # the beam kernel's device time a group, at the eval's group shape
+    first = [r for s in slices[:EVAL_GROUP] for r in s]
+    g_feats = torch.from_numpy(feats[first]).to(dev)
+    g_start = torch.from_numpy(caps[first, 0].astype(np.int32)).to(dev)
+    fused_beam_search(bw, g_feats, g_start, T, BEAM)
+    torch.cuda.synchronize()
+    ms, counts = device_profile(lambda: fused_beam_search(bw, g_feats, g_start, T, BEAM), 3,
+                                lambda c: c.get("beam_kernel", 0) >= 3)
+    if per_call(counts, 3).get("beam_kernel") != 1:
+        raise AssertionError(f"eval group: beam launches per call {per_call(counts, 3)}")
+    group_ms = ms["beam_kernel"] / 3
+
+    # scores of the kernel's dumps: native, then pure Python on the same files
+    if not native_available():
+        raise AssertionError("the native fastmetrics library did not build or load")
+    t0 = time.perf_counter()
+    scores = calculate_a2c_network_score(kernel, kernel)
+    score_s = time.perf_counter() - t0
+    names = ["Bleu_1", "Bleu_2", "Bleu_3", "Bleu_4", "METEOR", "ROUGE_L", "CIDEr"]
+    with open(kernel["results_path"]) as f:
+        blocks = f.read().count("---------- results ----------")
+    if list(scores) != names or not np.isfinite(list(scores.values())).all() or blocks != 2:
+        raise AssertionError(f"eval scores {scores}, results blocks {blocks // 2}")
+    ref_caps, hyp_caps = load_textfiles(kernel["real_captions_path"],
+                                        kernel["generated_captions_path"])
+    library = native_metrics.load_fastmetrics
+    native_metrics.load_fastmetrics = lambda: None
+    try:
+        t0 = time.perf_counter()
+        python = score(ref_caps, hyp_caps)
+        python_s = time.perf_counter() - t0
+    finally:
+        native_metrics.load_fastmetrics = library
+    rel = max(abs(python[k] - scores[k]) / max(abs(scores[k]), 1e-300) for k in names)
+    if list(python) != names or rel > SCORE_RTOL:
+        raise AssertionError(f"native scores {scores} vs pure Python {python}: relative "
+                             f"{rel:.3g} > {SCORE_RTOL}")
+
+    # post-processing: the best five lines and their images, copied from file://
+    t0 = time.perf_counter()
+    post_process_data(kernel)
+    post_s = time.perf_counter() - t0
+    with open(kernel["best_score_file_path"]) as f:
+        best = f.read().splitlines()
+    urls = k_text["image_urls_path"].splitlines()
+    ranked = [(int(m.group(1)), float(m.group(2))) for m in
+              (re.match(r"item_index\[(\d+)\] score:\[([-0-9.e]+)\]", line) for line in best)
+              if m]
+    copied = sorted(os.listdir(kernel["best_score_images_path"]))
+    if (len(best) != 5 or len(ranked) != 5 or copied != sorted(f"{i}.jpg" for i, _ in ranked)
+            or [s for _, s in ranked] != sorted((s for _, s in ranked), reverse=True)):
+        raise AssertionError(f"post-processing: best_scores.txt {best}, images {copied}")
+    for i, _ in ranked:
+        with open(os.path.join(kernel["best_score_images_path"], f"{i}.jpg"), "rb") as a, \
+                urllib.request.urlopen(urls[i - 1]) as b:
+            if a.read() != b.read():
+                raise AssertionError(f"post-processing: image {i} is not {urls[i - 1]}")
+
+    host_s = k_s - groups * group_ms / 1e3
+    phase("eval", f"test_a2c_network: {EVAL_DRAWS} draws, {len(slices)} slices, {len(rows)} "
+                  f"lines in {groups} groups of {EVAL_GROUP * (EVAL_VBS - 1)} rows; launches "
+                  f"{launches}; vs the plain beam (bf16): real and url dumps byte-identical, "
+                  f"{len(parted)} generated line(s) differ (smallest gap there {gap:.3g}); the "
+                  f"compat dump is the Q13 merge ({len(rows) - len(slices) + 1} lines); scores "
+                  f"{ {k: round(v, 6) for k, v in scores.items()} }, native = pure Python "
+                  f"(largest relative difference {rel:.3g}, bound {SCORE_RTOL}); best five "
+                  f"{[i for i, _ in ranked]} copied from file://")
+    phase("timing", f"{card} | eval, {EVAL_DRAWS} draws, bf16 weights: test_a2c_network "
+                    f"{k_s:.3f} s on the beam kernel, {p_s:.3f} s plain; beam_kernel device "
+                    f"{group_ms:.4f} ms a group of {len(first)} rows (torch.profiler), "
+                    f"{groups} groups {groups * group_ms / 1e3:.3f} s; host around the "
+                    f"decode {host_s:.3f} s; calculate_a2c_network_score {score_s:.3f} s "
+                    f"(native; pure Python {python_s:.3f} s); post_process_data "
+                    f"{post_s:.3f} s ({len(rows)} lines)")
+    return {"launches": launches}
+
+
 def host_us(fn, iters: int = 200) -> float:
     """Phase 6: the host's microseconds a call of ``fn`` (back-to-back calls
     that queue faster than the card runs them: the host side alone)."""
@@ -2275,7 +2523,9 @@ def main() -> int:
     # phases 7-8: the LSTM and GRU chains vs their plain versions
     chain_err = compare_chains(dev)
 
-    # phase 9: the training main path, through the three trainers
+    # phase 9: the training main path, through the three trainers (phase 20
+    # evaluates the model that phase 14 trains: its files are kept in eval_tmp)
+    eval_tmp = tempfile.TemporaryDirectory()
     with tempfile.TemporaryDirectory() as tmp:
         train_launches, data, nets, paths = train_main_path(dev, tmp)
         compare_steps(data, nets["reward"], nets["policy"], nets["value"], dev)
@@ -2314,6 +2564,10 @@ def main() -> int:
         # phase 14: the A2C main path, through train_a2c_network
         a2c_launches, a2c_params, rparams = a2c_main_path(data, paths, tmp, dev)
         compare_a2c_step(data, a2c_params, rparams, dev)
+        model_files = {k: shutil.copy(paths[k], eval_tmp.name)
+                       for k in ("policy_network", "value_network")}
+        model_files["a2c"] = shutil.copy(os.path.join(tmp, "a2c_plain", "a2cNetwork.pt"),
+                                         eval_tmp.name)
 
     # phase 15: timings of the A2C kernels and of one A2C step, and a profile
     ta = time_a2c(a2c_params, rparams, data, dev)
@@ -2363,27 +2617,37 @@ def main() -> int:
                     f"top-k 40 + nucleus 0.9: kernel {wv['ms']:.3f} ms, plain "
                     f"{wv['plain_ms']:.3f} ms")
 
+    # phase 20: the evaluation main path, from phase 14's model
+    with eval_tmp as tmp:
+        ev = eval_main_path(model_files, tmp, dev, card)
+
     bounds_ = bounds()
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, shape, library_ms=None,
               bound=None):
+        """``launches``: a count, or the counts by main path (summed)."""
         bound = bound or bounds_[name]
+        by_path = launches if isinstance(launches, dict) else None
         return {"name": name, "route": "cuda",
                 "source": f"image_captioning_through_rl_tpu_torch/csrc/{source}",
                 "replaces": f"image_captioning_through_rl_tpu/ops/{replaces}",
-                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "launches": sum(by_path.values()) if by_path else launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bound[0], "bound_by": bound[1],
-                "library_ms": library_ms, "shape": shape}
+                "library_ms": library_ms, "shape": shape,
+                **({"launches_by_path": by_path} if by_path else {})}
 
     kernels = [
         entry("greedy_decode", "decode.cu", "pallas_decode.py:176",
               launches["fused_greedy_decode"], greedy_err, tg[1024]["ms"], tg["plain_ms"],
               "N=1024 bf16"),
         entry("beam_search", "beam_search.cu", "pallas_beam.py:362",
-              launches["fused_beam_search"], beam_err, times[127][0], times[127][1],
-              "N=127 B=5 bf16"),
+              {"serve": launches["fused_beam_search"],
+               "eval": ev["launches"]["fused_beam_search"]}, beam_err, times[127][0],
+              times[127][1], "N=127 B=5 bf16"),
         entry("token_gates", "token_gates.cu", "pallas_decode.py:99",
-              launches["token_gate_table"], table_err, tab_ms, tab_plain,
+              {"serve": launches["token_gate_table"],
+               "eval": ev["launches"]["token_gate_table"]}, table_err, tab_ms, tab_plain,
               "V=1004 E=512 4H=2048 bf16", tab_library),
     ]
     for net, line, (fwd_at, bwd_at), length in (

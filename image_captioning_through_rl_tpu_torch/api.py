@@ -10,7 +10,8 @@ On a CUDA device the captioner decodes through the hand-written kernels
 (:mod:`.ops.fused_decode`, :mod:`.ops.fused_beam`, :mod:`.ops.fused_sample`);
 on the CPU through their plain PyTorch versions. Nothing falls back from
 the kernels at serving time: ``chip_smoke.py`` holds each kernel against its
-plain version. The mesh, faithful-beam and image paths of the JAX
+plain version. :func:`evaluate_captions` scores caption pairs
+(:mod:`.metrics`). The mesh, faithful-beam and image paths of the JAX
 ``Captioner``, and its verified dispatch with fresh-key canary retries, are
 not ported.
 """
@@ -153,6 +154,15 @@ class Captioner:
     def caption(self, features, **kw) -> List[str]:
         """Caption strings for a feature batch."""
         return decode_captions(self.caption_tokens(features, **kw), self._idx_to_word)
+
+
+def evaluate_captions(real: List[str], generated: List[str]) -> dict:
+    """Score caption pairs (BLEU 1-4, METEOR, ROUGE-L, CIDEr)."""
+    from .metrics import score
+
+    refs = {i: [r.strip()] for i, r in enumerate(real)}
+    hypos = {i: [g.strip()] for i, g in enumerate(generated)}
+    return score(refs, hypos)
 
 
 def load_captioner(model_pt: str, vocab_json: str, device="cuda",

@@ -43,7 +43,7 @@ def beam_search(policy_params: dict, value_params: dict, cfg: NetConfig,
     break ties by the lowest index, as ``lax.top_k`` does."""
     if not dcfg.per_sample_beams:
         raise NotImplementedError(
-            "the faithful (Q2 batch-mean) beam is not ported yet (ROADMAP §1, module 5)")
+            "the faithful (Q2 batch-mean) beam is not ported yet (ROADMAP §1 item 6)")
     n = features.shape[0]
     b = dcfg.beam_size
     t_max = dcfg.max_seq_len
@@ -104,4 +104,4 @@ def beam_search(policy_params: dict, value_params: dict, cfg: NetConfig,
 def beam_search_compat(*args, **kwargs):
     """The reference-faithful Q1-stateful beam (JAX ``decode/beam_compat.py``)."""
     raise NotImplementedError(
-        "beam_search_compat is not ported yet (ROADMAP §1, module 5)")
+        "beam_search_compat is not ported yet (ROADMAP §1 item 6)")

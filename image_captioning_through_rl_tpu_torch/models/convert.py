@@ -67,7 +67,7 @@ def _gru(sd: Mapping, prefix: str) -> dict:
 def _check_unidirectional(sd: Mapping) -> None:
     if any(k.endswith("_reverse") for k in sd):
         raise NotImplementedError(
-            "bidirectional checkpoints are not ported yet (ROADMAP §1, modules 2-3)")
+            "bidirectional checkpoints are not ported yet (ROADMAP §1 item 5)")
 
 
 def _strip_prefix(sd: Mapping, prefix: str) -> dict:

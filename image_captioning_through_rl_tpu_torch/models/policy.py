@@ -26,7 +26,7 @@ from .initializers import embedding_init, linear_init, lstm_init
 def check_unidirectional(cfg: NetConfig) -> None:
     if cfg.bidirectional:
         raise NotImplementedError(
-            "bidirectional networks are not ported yet (ROADMAP §1, modules 2-3)")
+            "bidirectional networks are not ported yet (ROADMAP §1 item 5)")
 
 
 def embedding_table(gen: torch.Generator, cfg: NetConfig, pretrained_embeddings=None

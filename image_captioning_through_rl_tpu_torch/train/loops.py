@@ -27,6 +27,13 @@ steps (on the CPU their wrappers run the kernels' plain versions),
 device-resident tables, the mesh, resume snapshots, the compat (Q1) and
 bidirectional networks, and native ``.ckpt`` checkpoints — network and
 save paths must be reference ``.pt`` files.
+
+The evaluation half: ``load_a2c_models`` loads a finished model, and
+``test_a2c_network`` decodes random val draws with the value-guided beam
+(``csrc/beam_search.cu`` on the card) and dumps the real and generated
+captions and the image urls, which :mod:`..metrics` scores. It draws
+``data_size`` val samples *with replacement* (quirk Q8) and walks them in
+127-wide slices per 128 stride (quirk Q9), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -40,11 +47,13 @@ import torch
 
 from .. import END_ID, MAX_SEQ_LEN
 from ..api import resolve_device
-from ..config import NetConfig, TrainConfig
-from ..data.coco import CocoData, get_coco_minibatches
+from ..config import DecodeConfig, NetConfig, TrainConfig
+from ..data.coco import CocoData, decode_captions, get_coco_batch, get_coco_minibatches
 from ..models import policy as policy_mod
 from ..models import reward as reward_mod
 from ..models import value as value_mod
+from ..ops.fused_beam import fused_beam_search, prepare_beam_weights
+from ..ops.fused_decode import prepare_greedy_weights
 from ..ops.prng import PRNGKey, split
 from ..utils.io import append_results, global_minibatch_number
 from ..utils.logging import make_metrics_writer, print_green
@@ -431,3 +440,115 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
     append_results(save_paths["results_path"],
                    describe_params("AdvantageActorCriticNetwork", a2c_params), header="network")
     return a2c_params, reward_params, cfg
+
+
+def test_a2c_network(a2c_params: dict, cfg: NetConfig, test_data: CocoData,
+                     image_caption_data: Dict[str, str], data_size: int,
+                     validation_batch_size: int = 128, dcfg: Optional[DecodeConfig] = None,
+                     seed: int = 0, eval_superbatch: int = 8, compat_dump: bool = False,
+                     use_fused_kernel: Optional[bool] = None, device=None) -> None:
+    """Evaluation pass (trainers.py:619-665): value-guided beam decode of
+    ``data_size`` random val draws (``default_rng(seed + 5)``, with
+    replacement), appending the real captions, the best beam's captions and
+    the image urls to the three paths of ``image_caption_data``.
+
+    The draws are walked in Q9 slices (``validation_batch_size - 1`` rows at
+    a stride of ``validation_batch_size``) and decoded ``eval_superbatch``
+    slices at a time. A short group is padded with repeats of its last row
+    to the full width, so the beam runs at one shape, and trimmed after the
+    decode. Each slice's start tokens are its captions' first column. The
+    dumps are written slice by slice and flushed after each group;
+    ``compat_dump=True`` reproduces quirk Q13 (each slice written with
+    ``"\\n".join`` and no trailing newline, so slice boundaries merge).
+
+    On ``device`` (the card unless the caller asks for the CPU; a missing
+    CUDA device raises) the weights are prepared once: bf16 on the card,
+    where the beam runs the kernel (:func:`..ops.fused_beam.fused_beam_search`),
+    float32 on the CPU, where it runs the plain version.
+    ``use_fused_kernel=False`` runs the plain version; ``True`` on the CPU
+    raises. The faithful (Q2 batch-mean) mode and bidirectional networks
+    are not ported: they raise ``NotImplementedError``.
+    """
+    dcfg = dcfg or DecodeConfig(max_seq_len=cfg.max_seq_len)
+    if not dcfg.per_sample_beams:
+        raise NotImplementedError(
+            "the faithful evaluation (the Q2 batch-mean beam with the Q1-stateful critic) is "
+            "not ported yet (ROADMAP §1 item 6)")
+    policy_mod.check_unidirectional(cfg)
+    dev = _device(device)
+    if use_fused_kernel and dev.type != "cuda":
+        raise RuntimeError("use_fused_kernel=True needs a CUDA device: the beam kernel runs "
+                           "only on the card")
+    wd = torch.bfloat16 if dev.type == "cuda" else torch.float32
+    weights = prepare_beam_weights(
+        prepare_greedy_weights(ckpt.to_device(a2c_params["policy"], dev), wd),
+        ckpt.to_device(a2c_params["value"], dev))
+
+    rng = np.random.default_rng(seed + 5)
+    captions_all, features_all, urls_all = get_coco_batch(
+        test_data, batch_size=data_size, split="val", rng=rng)
+    width = validation_batch_size - 1  # Q9: 127-wide slices per 128 stride
+    slices = [
+        (captions_all[i: i + width], features_all[i: i + width], urls_all[i: i + width])
+        for i in range(0, len(captions_all), validation_batch_size)
+    ]
+    slices = [s for s in slices if s[0].shape[0] > 0]
+    gwidth = width * eval_superbatch
+
+    def write_slice(f, lines):
+        if compat_dump:
+            f.write("\n".join(lines))  # Q13: no trailing newline
+        else:
+            f.write("\n".join(lines) + "\n")
+
+    t0 = time.perf_counter()
+    with open(image_caption_data["real_captions_path"], "a") as real_f, \
+         open(image_caption_data["generated_captions_path"], "a") as gen_f, \
+         open(image_caption_data["image_urls_path"], "a") as url_f:
+        for g in range(0, len(slices), eval_superbatch):
+            batch = slices[g: g + eval_superbatch]
+            captions_real = np.concatenate([b[0] for b in batch], axis=0)
+            features_real = np.concatenate([b[1] for b in batch], axis=0)
+            n_real = captions_real.shape[0]
+            if n_real < gwidth:  # pad to the full width: one shape for the beam
+                pad = gwidth - n_real
+                features_real = np.concatenate(
+                    [features_real, np.repeat(features_real[-1:], pad, axis=0)], axis=0)
+                captions_real = np.concatenate(
+                    [captions_real, np.repeat(captions_real[-1:], pad, axis=0)], axis=0)
+            toks, _ = fused_beam_search(
+                weights, torch.from_numpy(np.ascontiguousarray(features_real, np.float32)).to(dev),
+                torch.from_numpy(captions_real[:, 0].astype(np.int32)).to(dev),
+                max_len=dcfg.max_seq_len, beam=dcfg.beam_size, value_weight=dcfg.value_weight,
+                logprob_weight=dcfg.logprob_weight, use_fused_kernel=use_fused_kernel)
+            gen_all = toks[:n_real, 0].cpu().numpy()  # most likely = beam 0
+            # write per original slice, the reference's cadence
+            off = 0
+            for caps_s, _, urls_s in batch:
+                n_s = caps_s.shape[0]
+                write_slice(real_f, decode_captions(caps_s, test_data.idx_to_word))
+                write_slice(gen_f, decode_captions(gen_all[off: off + n_s], test_data.idx_to_word))
+                write_slice(url_f, urls_s.tolist())
+                off += n_s
+            real_f.flush()
+            gen_f.flush()
+            url_f.flush()
+    print(f"Testing model: {len(slices)} slices in {-(-len(slices) // eval_superbatch)} groups "
+          f"of {gwidth} rows in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def load_a2c_models(model_path: str, train_data: CocoData, network_paths: Dict[str, str],
+                    bidirectional: bool, net_dims: Optional[Dict[str, int]] = None,
+                    device=None) -> tuple:
+    """Load a finished A2C model for testing (utilities.py:299-323): the
+    policy and value networks from their own ``.pt`` files, then the a2c
+    ``.pt`` over them, which holds both. Returns ``(params, cfg)``, the
+    parameters on ``device`` (the card unless the caller asks for the CPU;
+    a missing CUDA device raises)."""
+    cfg = _cfg_for(train_data, bidirectional, net_dims)
+    policy_mod.check_unidirectional(cfg)
+    dev = _device(device)
+    params = {kind: ckpt.load_network(kind, network_paths[f"{kind}_network"], dev)
+              for kind in ("value", "policy")}
+    params.update(ckpt.load_network("a2c", model_path, dev))
+    return params, cfg

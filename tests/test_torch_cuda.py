@@ -79,6 +79,12 @@ a padded width, n = 12 and 500, curr 1 and 8, bf16 and f32; two calls give
 the same bits (the embedding gradient's index_add_ in PyTorch's
 deterministic mode); and a bf16 call launches its own ten kernels, none a
 view_kernel or linear_kernel, whatever S.
+
+The evaluation pass (``train.loops.test_a2c_network``) on the card runs the
+beam kernel once a decode group; against the plain beam on the same bf16
+weights its real and url dumps are byte-identical and a generated line may
+part only at a near-tie of the plain beam (the COCO-width run of 40504
+draws is ``chip_smoke.py`` phase 20's).
 """
 
 import os
@@ -1264,3 +1270,74 @@ def test_rollout_backward_launches_do_not_grow_with_steps(dev):
         "rollout_bwd_prep_kernel": 1, "wgmma_group_kernel": 3, "softmax_grad_rows_kernel": 1,
         "lstm_bwd_pair_kernel": 1, "wgmma_gemm_kernel": 2, "colsum_part_kernel": 1,
         "rollout_bwd_finish_kernel": 1}, counts
+
+
+def _eval_bundle(n_images=60):
+    """A small in-memory val split (V = 60, F = 16) for test_a2c_network."""
+    from image_captioning_through_rl_tpu_torch.data.coco import CocoData, caption_lengths
+
+    rng = np.random.default_rng(41)
+    words = ["<NULL>", "<START>", "<END>", "<UNK>"] + [f"w{i}" for i in range(4, CFG.vocab_size)]
+    n = 2 * n_images
+    lens = rng.integers(4, 18, size=n)
+    caps = np.where(np.arange(17)[None] < lens[:, None] - 1,
+                    rng.integers(4, CFG.vocab_size, size=(n, 17)), 0)
+    caps[np.arange(n), lens - 1] = 2
+    caps[:, 0] = START_ID
+    caps = caps.astype(np.int32)
+    idxs = np.repeat(np.arange(n_images), 2).astype(np.int32)
+    feats = rng.standard_normal((n_images, CFG.input_dim)).astype(np.float32)
+    urls = np.array([f"file:///val/{i}.jpg" for i in range(n_images)])
+    return CocoData(train_captions=caps, train_image_idxs=idxs, val_captions=caps,
+                    val_image_idxs=idxs, train_features=feats, val_features=feats,
+                    word_to_idx={w: i for i, w in enumerate(words)},
+                    idx_to_word=dict(enumerate(words)), train_urls=urls, val_urls=urls,
+                    train_captions_lens=caption_lengths(caps),
+                    val_captions_lens=caption_lengths(caps))
+
+
+@pytest.mark.cuda
+def test_eval_on_the_beam_kernel_matches_plain(dev, tmp_path):
+    """test_a2c_network on the card: 300 draws (slices of 127, 127 and 44)
+    in two groups of 254 rows, one beam kernel launch a group, bf16 weights;
+    against the plain beam on the same weights the real and url dumps are
+    byte-identical and a generated line may part only at a plain-version
+    gap below NEAR_TIE, in at most 1% of lines."""
+    from image_captioning_through_rl_tpu_torch.config import DecodeConfig
+    from image_captioning_through_rl_tpu_torch.data.coco import get_coco_batch
+    from image_captioning_through_rl_tpu_torch.train.checkpoint import to_device
+    from image_captioning_through_rl_tpu_torch.train.loops import test_a2c_network as evaluate
+
+    data = _eval_bundle()
+    params = a2c.init(torch.Generator().manual_seed(0), CFG)
+    cfg = NetConfig(vocab_size=CFG.vocab_size, input_dim=CFG.input_dim,
+                    wordvec_dim=CFG.wordvec_dim, hidden_dim=CFG.hidden_dim)
+    dumps = {}
+    for route in (None, False):
+        d = tmp_path / str(route)
+        d.mkdir()
+        paths = {k: str(d / f"{k}.txt") for k in ("real_captions_path",
+                                                   "generated_captions_path", "image_urls_path")}
+        before = fused_beam_search.launches
+        evaluate(params, cfg, data, paths, data_size=300, eval_superbatch=2, seed=0,
+                 use_fused_kernel=route, device=dev)
+        assert fused_beam_search.launches - before == (2 if route is None else 0)
+        dumps[route] = {k: open(p).read().splitlines() for k, p in paths.items()}
+    kernel, plain = dumps[None], dumps[False]
+    for k in ("real_captions_path", "image_urls_path"):
+        assert kernel[k] == plain[k], k
+    parted = [i for i, (a, b) in enumerate(zip(kernel["generated_captions_path"],
+                                                plain["generated_captions_path"])) if a != b]
+    assert len(kernel["generated_captions_path"]) == 298 and len(parted) <= 0.01 * 298
+    if parted:
+        _, feats, _ = get_coco_batch(data, batch_size=300, split="val",
+                                     rng=np.random.default_rng(5))
+        kept = [i for s in range(0, 300, 128) for i in range(s, min(s + 127, 300))]
+        rows = torch.from_numpy(feats[[kept[i] for i in parted]]).to(dev)
+        on_dev = to_device(params, dev)
+        bw = prepare_beam_weights(prepare_greedy_weights(on_dev["policy"], torch.bfloat16),
+                                  on_dev["value"])
+        start = torch.full((len(parted),), START_ID, dtype=torch.int32, device=dev)
+        _, _, gaps = beam_search_plain(bw, rows, start, 17, DecodeConfig().beam_size,
+                                       margins=True)
+        assert bool((gaps.min(dim=1).values < NEAR_TIE).all()), "a non-tie line differs"

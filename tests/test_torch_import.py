@@ -1,10 +1,11 @@
-"""The PyTorch port imports neither jax nor the JAX package."""
+"""The PyTorch port imports neither jax, the JAX package nor tqdm."""
 
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "image_captioning_through_rl_tpu_torch"
 
 
 def test_port_imports_without_jax():
@@ -31,3 +32,44 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_evaluation_half_imports_without_jax_or_tqdm():
+    """The evaluation modules import, and score a pair through the native
+    library, with ``tqdm`` unimportable (the GPU machine has none). This
+    host's torch imports tqdm itself, so it is imported first and its tqdm
+    modules dropped before the blocker goes in."""
+    code = (
+        "import importlib.abc, sys\n"
+        "import torch\n"
+        "for m in [m for m in sys.modules if m == 'tqdm' or m.startswith('tqdm.')]:\n"
+        "    del sys.modules[m]\n"
+        "class NoTqdm(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path, target=None):\n"
+        "        if name == 'tqdm' or name.startswith('tqdm.'):\n"
+        "            raise ModuleNotFoundError(name)\n"
+        "sys.meta_path.insert(0, NoTqdm())\n"
+        "import image_captioning_through_rl_tpu_torch.metrics as m\n"
+        "import image_captioning_through_rl_tpu_torch.metrics.postprocess\n"
+        "import image_captioning_through_rl_tpu_torch.native as native\n"
+        "from image_captioning_through_rl_tpu_torch.api import evaluate_captions\n"
+        "from image_captioning_through_rl_tpu_torch.train.loops import (\n"
+        "    load_a2c_models, test_a2c_network)\n"
+        "native.native_available()\n"
+        "assert set(evaluate_captions(['a b c'], ['a b'])) == {\n"
+        "    'Bleu_1', 'Bleu_2', 'Bleu_3', 'Bleu_4', 'METEOR', 'ROUGE_L', 'CIDEr'}\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'tqdm', 'requests', 'PIL')\n"
+        "             or m.startswith(('jax.', 'tqdm.', 'image_captioning_through_rl_tpu.'))\n"
+        "             or m == 'image_captioning_through_rl_tpu')\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_name_no_tqdm():
+    """No module of the port imports tqdm, at the top or inside a function."""
+    for path in PORT.rglob("*.py"):
+        text = path.read_text()
+        assert "import tqdm" not in text and "from tqdm" not in text, path
