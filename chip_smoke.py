@@ -135,10 +135,30 @@ Phases:
      from file://); times: test_a2c_network on each route, beam_kernel's
      device time a group (torch.profiler), the host seconds around the
      decode, scoring and post-processing.
+ 21. CLI main path, in a temporary working directory: a synthetic bundle of
+     COCO-2014's full size (82783 train and 40504 val images, 5 captions
+     each, V = 1004, F = 512, T = 17) written through the port's
+     make_synthetic_coco and read back through load_data (every field held
+     against the generator's arrays, dtype for dtype); then cli.main.main
+     with --retrain --training_size 2048 --epochs 1 --batch_size 512
+     --test_size 4064 --device cuda (numpy's global generator seeded first):
+     the three pretrainers (4 minibatches x 50 / 100 / 50 epochs) and one
+     A2C epoch on the card, every artifact of the JAX CLI's log directory
+     but the .trainstate snapshots, every logged loss finite, seven finite
+     scores, the GRU chain's, the rollout's, the noise kernel's and the
+     beam's launches as counted from the run's minibatches and groups, the
+     LSTM chain, greedy and the x-gate tables launched, and every .ckpt
+     written read back bit-equal (the a2c files to the returned parameters,
+     the pretrainers' files re-encoded to the same bytes); then a
+     --test_model evaluation of the a2c .ckpt at 40504 draws (the log
+     directory reused, eval_config.json, a second block of scores, one beam
+     launch a 1016-row group and no other kernel but the x-gate tables);
+     times: the bundle's write and read (MB/s), each stage's wall seconds.
 
 The last JSON line but two lists every kernel with its launches on its main
-path (serving for greedy; serving and the evaluation, by path, for the beam
-and the x-gate table; the pretrainers for the chains; A2C for the rest), its
+paths, by path (serving for greedy; serving and the evaluation for the beam
+and the x-gate table; the pretrainers for the chains; A2C for the rest; and
+the CLI's two runs of phase 21 for every kernel they launch), its
 largest error against plain, its time and its plain version's, and its
 bound: the least time an H100 SXM could take
 (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16, 67 TFLOP/s for
@@ -241,8 +261,8 @@ features, is below 1e-4, in at most 1% of lines. The native scorers must
 equal the pure-Python ones to 1e-12 relative (the same float64 arithmetic
 in the same order; the JAX package holds its own native scorers so).
 
-The whole run takes about three minutes of command time on the H100, the
-build (about 80-110 s) and phase 20 (about 25 s) included.
+The whole run takes about four minutes of command time on the H100, the
+build (about 80-110 s), phase 20 (about 25 s) and phase 21 included.
 """
 
 from __future__ import annotations
@@ -293,6 +313,12 @@ ODD_V, ODD_W, WIDE_V = 1001, 500, 2000
 # (127 kept), eight slices a decode group, a val split of 4096 captions
 EVAL_DRAWS, EVAL_VBS, EVAL_GROUP, EVAL_VAL = 40504, 128, 8, 4096
 SCORE_RTOL = 1e-12
+# phase 21: COCO-2014's full size (images and captions per split), the CLI's
+# --training_size and --test_size of the training run, and the eval's draws
+CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, CLI_CAPTIONS_PER_IMAGE = 82783, 40504, 5
+CLI_TRAINING_SIZE, CLI_TEST_SIZE = 2048, 4064
+CLI_ARTIFACTS = {"a2cNetwork.ckpt", "generated_captions.txt", "image_url.txt", "metrics.jsonl",
+                 "real_captions.txt", "results.txt", "run_config.json"}
 
 
 T0 = time.perf_counter()
@@ -2210,6 +2236,214 @@ def eval_main_path(files: dict, tmp: str, dev, card: str) -> dict:
     return {"launches": launches}
 
 
+def cli_bundle(tmp: str) -> tuple[str, dict]:
+    """Phase 21, first part: a synthetic bundle of COCO-2014's full size
+    written through the port's make_synthetic_coco, read back through
+    load_data and held, field for field and dtype for dtype, against the
+    generator's arrays (the same seed, drawn again). Returns the bundle's
+    directory and its write and read times."""
+    from image_captioning_through_rl_tpu_torch.data.coco import caption_lengths, load_data
+    from image_captioning_through_rl_tpu_torch.data.synthetic import (
+        make_synthetic_coco, make_vocab, random_captions)
+
+    bundle = os.path.join(tmp, "bundle")
+    seed = SEED + 21
+    t0 = time.perf_counter()
+    make_synthetic_coco(bundle, CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, CLI_CAPTIONS_PER_IMAGE, V, F,
+                        T, seed=seed)
+    write_s = time.perf_counter() - t0
+    mb = sum(os.path.getsize(os.path.join(bundle, f)) for f in os.listdir(bundle)
+             if f.endswith(".h5")) / 1e6
+    t0 = time.perf_counter()
+    data = load_data(bundle)
+    read_s = time.perf_counter() - t0
+
+    rng = np.random.default_rng(seed)  # make_synthetic_coco's draws, in its order
+    k = CLI_CAPTIONS_PER_IMAGE
+    caps = {s: random_captions(rng, n * k, V, T)
+            for s, n in (("train", CLI_TRAIN_IMAGES), ("val", CLI_VAL_IMAGES))}
+    feats = {s: rng.standard_normal((n, F)).astype(np.float32)
+             for s, n in (("train", CLI_TRAIN_IMAGES), ("val", CLI_VAL_IMAGES))}
+    word_to_idx, words = make_vocab(V)
+    want = {}
+    for s, n in (("train", CLI_TRAIN_IMAGES), ("val", CLI_VAL_IMAGES)):
+        want.update({f"{s}_captions": caps[s], f"{s}_features": feats[s],
+                     f"{s}_image_idxs": np.repeat(np.arange(n), k).astype(np.int32),
+                     f"{s}_captions_lens": caption_lengths(caps[s]),
+                     f"{s}_urls": np.asarray([f"http://example.com/{s}/{i}.jpg"
+                                              for i in range(n)])})
+    for name, w in want.items():
+        got = getattr(data, name)
+        if got.dtype != w.dtype or got.shape != w.shape or not np.array_equal(got, w):
+            raise AssertionError(f"load_data: {name} is {got.dtype} {got.shape}, the generator "
+                                 f"wrote {w.dtype} {w.shape} (or other values)")
+    if data.word_to_idx != word_to_idx or data.idx_to_word != dict(enumerate(words)):
+        raise AssertionError("load_data: the vocabulary differs from the generator's")
+    phase("cli", f"bundle of {CLI_TRAIN_IMAGES} + {CLI_VAL_IMAGES} images x {k} captions, "
+                 f"V={V} F={F} T={T}: {mb:.1f} MB of h5 written in {write_s:.3f} s, read "
+                 f"through load_data in {read_s:.3f} s ({mb / read_s:.0f} MB/s); every field "
+                 f"equal to the generator's arrays, dtype for dtype")
+    return bundle, {"write_s": write_s, "read_s": read_s, "mb": mb}
+
+
+def cli_main_path(dev, card: str) -> dict:
+    """Phase 21: the CLI's main path on the card, in a temporary working
+    directory (the CLI writes logs/ under it): the full-size bundle, a
+    --retrain training run through cli.main.main (the three pretrainers and
+    A2C on the card, 4 minibatches of 512 each), then a --test_model
+    evaluation of the a2c .ckpt it wrote at 40504 draws. Returns the
+    kernels' launches in each run."""
+    import ast
+    import contextlib
+    import importlib
+
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+    from image_captioning_through_rl_tpu_torch.ops import prng
+    from image_captioning_through_rl_tpu_torch.ops.fused_beam import fused_beam_search
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
+        fused_greedy_decode, token_gate_table)
+    from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain
+    from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
+    from image_captioning_through_rl_tpu_torch.train import checkpoint as ckpt
+
+    cli = importlib.import_module("image_captioning_through_rl_tpu_torch.cli.main")
+    counters = {"gru_chain_fwd": (fused_gru_chain, "fwd_launches"),
+                "gru_chain_bwd": (fused_gru_chain, "bwd_launches"),
+                "lstm_chain_fwd": (fused_lstm_chain, "fwd_launches"),
+                "lstm_chain_bwd": (fused_lstm_chain, "bwd_launches"),
+                "greedy_decode": (fused_greedy_decode, "launches"),
+                "rollout_fwd": (fr.fused_rollout, "fwd_launches"),
+                "rollout_bwd": (fr.fused_rollout, "bwd_launches"),
+                "threefry_gumbel": (prng.gumbel_noise, "launches"),
+                "reward_stream": (fr.fused_reward_stream, "launches"),
+                "beam_search": (fused_beam_search, "launches"),
+                "token_gates": (token_gate_table, "launches")}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        bundle, io_times = cli_bundle(tmp)
+        pre = os.path.join(tmp, "pretrained")
+        log_path = os.path.join(tmp, "cli.log")
+
+        def run(argv: list) -> tuple[dict, dict, float]:
+            """cli.main.main on ``argv`` with its output in cli.log; the
+            launches during the run."""
+            args = cli.parse_args_with_config(cli.build_arg_parser(), argv)
+            for fn, attr in counters.values():
+                setattr(fn, attr, 0)
+            t0 = time.perf_counter()
+            try:
+                with open(log_path, "a") as log, contextlib.redirect_stdout(log):
+                    out = cli.main(args)
+                torch.cuda.synchronize()
+            except BaseException:
+                with open(log_path) as log:
+                    print("".join(log.readlines()[-40:]), flush=True)
+                raise
+            seconds = time.perf_counter() - t0
+            return out, {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}, seconds
+
+        def score_blocks(path: str) -> list:
+            with open(path) as f:
+                blocks = f.read().split("---------- results ----------")
+            scores = [ast.literal_eval(b.strip()) for b in blocks if b.strip().startswith("{")]
+            for sc in scores:
+                if len(sc) != 7 or not all(np.isfinite(list(sc.values()))):
+                    raise AssertionError(f"results.txt: a block of scores {sc}")
+            return scores
+
+        os.chdir(tmp)
+        try:
+            np.random.seed(SEED)  # the --training_size draw (numpy's global generator)
+            train, train_launches, train_s = run(
+                ["--data_dir", bundle, "--training_size", str(CLI_TRAINING_SIZE), "--epochs", "1",
+                 "--batch_size", str(BATCH), "--test_size", str(CLI_TEST_SIZE), "--retrain",
+                 "--pretrained_path", pre, "--seed", str(SEED), "--device", "cuda"])
+            log_dir = os.path.join(tmp, train["log_dir"])
+            files = set(os.listdir(log_dir))
+            if files != CLI_ARTIFACTS:
+                raise AssertionError(f"the training run wrote {sorted(files)}, not "
+                                     f"{sorted(CLI_ARTIFACTS)}")
+            with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+                log = [json.loads(line) for line in f]
+            minibatches = CLI_TRAINING_SIZE // BATCH
+            counts = {}
+            for rec in log:
+                counts[rec["tag"]] = counts.get(rec["tag"], 0) + 1
+            want = {"Reward Network-loss": 50 * minibatches, "Policy Network-loss":
+                    100 * minibatches, "Value Network-loss": 50 * minibatches,
+                    "A2C Network-episodic-loss": minibatches}
+            if (any(counts.get(k) != v for k, v in want.items())
+                    or not np.isfinite([r["value"] for r in log]).all()):
+                raise AssertionError(f"metrics.jsonl: {counts} (want {want}), finite "
+                                     f"{np.isfinite([r['value'] for r in log]).all()}")
+            if len(score_blocks(os.path.join(log_dir, "results.txt"))) != 1:
+                raise AssertionError("results.txt of the training run holds no single block")
+            groups = -(-(-(-CLI_TEST_SIZE // EVAL_VBS)) // EVAL_GROUP)
+            steps_run = {"gru_chain_fwd": 50 * minibatches, "gru_chain_bwd": 50 * minibatches,
+                         "rollout_fwd": minibatches, "rollout_bwd": minibatches,
+                         "threefry_gumbel": minibatches, "beam_search": groups}
+            if (any(train_launches[k] != v for k, v in steps_run.items())
+                    or min(train_launches[k] for k in ("lstm_chain_fwd", "lstm_chain_bwd",
+                                                       "greedy_decode", "token_gates")) < 1):
+                raise AssertionError(f"the training run's launches {train_launches}, expected "
+                                     f"{steps_run} and the LSTM chain, greedy and the x-gate "
+                                     f"tables launched")
+            # every .ckpt the run wrote reads back bit-equal: the a2c files to
+            # the parameters main returned, the pretrainers' Q12 files to the
+            # tensors they hold (loaded, then written again to the same bytes)
+            for path in (os.path.join(log_dir, "a2cNetwork.ckpt"),
+                         os.path.join(pre, "a2cNetwork.ckpt")):
+                back = dict(leaves(ckpt.load_network("a2c", path, dev, train["cfg"])))
+                params = dict(leaves(train["params"]))
+                if sorted(back) != sorted(params) or any(
+                        not torch.equal(back[k], params[k].detach()) for k in params):
+                    raise AssertionError(f"{path} does not read back to the trained parameters")
+            for kind in ("reward", "policy", "value"):
+                path = os.path.join(pre, f"{kind}Network.ckpt")
+                again = os.path.join(tmp, f"{kind}.again")
+                ckpt.save_pytree(ckpt.load_network(kind, path, dev, train["cfg"]), again)
+                with open(path, "rb") as a, open(again, "rb") as b:
+                    if a.read() != b.read():
+                        raise AssertionError(f"{path} does not read back bit-equal")
+            stages = train["seconds"]
+            phase("cli", f"training run (--retrain, --training_size {CLI_TRAINING_SIZE}: "
+                         f"{minibatches} minibatches of {BATCH} x 50 / 100 / 50 pretraining "
+                         f"epochs, 1 A2C epoch; --test_size {CLI_TEST_SIZE}) in {train_s:.1f} s; "
+                         f"artifacts {sorted(files)}; {len(log)} finite losses logged; seven "
+                         f"finite scores; launches {train_launches}; the four .ckpt files read "
+                         f"back bit-equal")
+
+            ev, eval_launches, eval_s = run(
+                ["--data_dir", bundle, "--test_model", os.path.join(log_dir, "a2cNetwork.ckpt"),
+                 "--test_size", str(EVAL_DRAWS), "--pretrained_path", pre, "--seed", str(SEED),
+                 "--device", "cuda"])
+            eval_groups = -(-(-(-EVAL_DRAWS // EVAL_VBS)) // EVAL_GROUP)
+            if (os.path.join(tmp, ev["log_dir"]) != log_dir
+                    or set(os.listdir(log_dir)) != CLI_ARTIFACTS | {"eval_config.json"}
+                    or len(score_blocks(os.path.join(log_dir, "results.txt"))) != 2):
+                raise AssertionError(f"the evaluation run: log dir {ev['log_dir']}, files "
+                                     f"{sorted(os.listdir(log_dir))}")
+            if (eval_launches["beam_search"] != eval_groups
+                    or any(v for k, v in eval_launches.items()
+                           if k not in ("beam_search", "token_gates"))):
+                raise AssertionError(f"the evaluation run's launches {eval_launches}, expected "
+                                     f"one beam kernel a group ({eval_groups}) and no other "
+                                     f"kernel but the x-gate tables")
+            phase("cli", f"evaluation run (--test_model {ev['log_dir']}/a2cNetwork.ckpt, "
+                         f"--test_size {EVAL_DRAWS}) in {eval_s:.1f} s: eval_config.json "
+                         f"written, a second block of seven finite scores; launches "
+                         f"{eval_launches}")
+        finally:
+            os.chdir(cwd)
+    phase("timing", f"{card} | CLI at COCO width: bundle write {io_times['write_s']:.3f} s, "
+                    f"read {io_times['read_s']:.3f} s ({io_times['mb'] / io_times['read_s']:.0f} "
+                    f"MB/s) | training run {train_s:.3f} s: " + ", ".join(
+                        f"{k} {v:.3f} s" for k, v in stages.items())
+          + f" | evaluation run {eval_s:.3f} s: " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in ev["seconds"].items()))
+    return {"train": train_launches, "eval": eval_launches}
+
+
 def host_us(fn, iters: int = 200) -> float:
     """Phase 6: the host's microseconds a call of ``fn`` (back-to-back calls
     that queue faster than the card runs them: the host side alone)."""
@@ -2621,6 +2855,10 @@ def main() -> int:
     with eval_tmp as tmp:
         ev = eval_main_path(model_files, tmp, dev, card)
 
+    # phase 21: the CLI's main path (a training run, then an evaluation)
+    cli_runs = cli_main_path(dev, card)
+    cli_launches = {k: cli_runs["train"][k] + cli_runs["eval"][k] for k in cli_runs["train"]}
+
     bounds_ = bounds()
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, shape, library_ms=None,
@@ -2639,23 +2877,24 @@ def main() -> int:
 
     kernels = [
         entry("greedy_decode", "decode.cu", "pallas_decode.py:176",
-              launches["fused_greedy_decode"], greedy_err, tg[1024]["ms"], tg["plain_ms"],
-              "N=1024 bf16"),
+              {"serve": launches["fused_greedy_decode"], "cli": cli_launches["greedy_decode"]},
+              greedy_err, tg[1024]["ms"], tg["plain_ms"], "N=1024 bf16"),
         entry("beam_search", "beam_search.cu", "pallas_beam.py:362",
               {"serve": launches["fused_beam_search"],
-               "eval": ev["launches"]["fused_beam_search"]}, beam_err, times[127][0],
-              times[127][1], "N=127 B=5 bf16"),
+               "eval": ev["launches"]["fused_beam_search"], "cli": cli_launches["beam_search"]},
+              beam_err, times[127][0], times[127][1], "N=127 B=5 bf16"),
         entry("token_gates", "token_gates.cu", "pallas_decode.py:99",
               {"serve": launches["token_gate_table"],
-               "eval": ev["launches"]["token_gate_table"]}, table_err, tab_ms, tab_plain,
-              "V=1004 E=512 4H=2048 bf16", tab_library),
+               "eval": ev["launches"]["token_gate_table"], "cli": cli_launches["token_gates"]},
+              table_err, tab_ms, tab_plain, "V=1004 E=512 4H=2048 bf16", tab_library),
     ]
     for net, line, (fwd_at, bwd_at), length in (
             ("lstm", "pallas_lstm.py", (158, 184), 16), ("gru", "pallas_gru.py", (139, 167), 17)):
         for d, at in (("fwd", fwd_at), ("bwd", bwd_at)):
             kernels.append(entry(
                 f"{net}_chain_{d}", f"{net}_chain{'_bwd' if d == 'bwd' else ''}.cu", f"{line}:{at}",
-                train_launches[f"{net}_chain_{d}"], chain_err[(net, d)], tt[(net, d, "ms")],
+                {"pretrain": train_launches[f"{net}_chain_{d}"],
+                 "cli": cli_launches[f"{net}_chain_{d}"]}, chain_err[(net, d)], tt[(net, d, "ms")],
                 tt[(net, d, "plain_ms")], f"N={CHAIN_N} T={length} E=H={H} V={V} bf16",
                 tt[(net, d, "library_ms")]))
     shape = f"N={ROLLOUT_N} S={S} E=H=F={H} V={V} bf16"
@@ -2664,7 +2903,9 @@ def main() -> int:
             ("reward_stream", "reward_stream.cu", "pallas_rollout.py:1066", stream_err),
             ("rollout_fwd", "rollout_fwd.cu", "pallas_rollout.py:308", rollout_err["fwd"]),
             ("rollout_bwd", "rollout.cu", "pallas_rollout.py:575", rollout_err["bwd"])):
-        kernels.append(entry(name, source, replaces, a2c_launches[name], err, ta[(name, "ms")],
+        kernels.append(entry(name, source, replaces,
+                             {"a2c": a2c_launches[name], "cli": cli_launches[name]}, err,
+                             ta[(name, "ms")],
                              ta[(name, "plain_ms")],
                              f"[{S}, {ROLLOUT_N}, {V}] f32" if name == "threefry_gumbel"
                              else shape))

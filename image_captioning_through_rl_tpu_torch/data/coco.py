@@ -1,19 +1,24 @@
-"""COCO-2014 captioning bundle helpers (counterpart of the JAX
-``data/coco.py``): the in-memory bundle (:class:`CocoData`), the
-vocabulary file, caption lengths, the token-to-text decoder and the batch
-iterators. ``load_data`` is not ported yet: it reads the h5 tables with
-``h5py``, which the port's GPU machines do not have.
+"""COCO-2014 captioning bundle loader and helpers (counterpart of the JAX
+``data/coco.py``): :func:`load_data` reads the bundle directory (the
+reference's layout, utilities.py:45-113: ``coco2014_captions.h5``,
+``{train,val}2014_vgg16_fc7[_pca].h5``, ``coco2014_vocab.json``,
+``{train,val}2014_urls.txt``) into the in-memory bundle
+(:class:`CocoData`); then the vocabulary file, caption lengths, the
+token-to-text decoder and the batch iterators. The h5 tables are read by
+the port's own reader (:mod:`.hdf5`), not ``h5py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
 from .. import END_ID
+from .hdf5 import read_h5
 
 
 @dataclasses.dataclass
@@ -72,6 +77,60 @@ def load_vocab(path: str) -> Tuple[Dict[str, int], Dict[int, str]]:
     return word_to_idx, idx_to_word
 
 
+def load_data(base_dir: str, max_train: Optional[int] = None, pca_features: bool = True,
+              print_keys: bool = False, seed: Optional[int] = None) -> CocoData:
+    """Load the bundle from ``base_dir``, field for field and dtype for
+    dtype as the JAX package's ``load_data``: captions and image indices
+    int32, features float32, lengths from the raw captions, urls the
+    stripped lines. ``max_train`` subsamples the training captions *with
+    replacement* as the reference does (utilities.py:92-96): from numpy's
+    global generator (``np.random.randint``) when ``seed`` is None, else
+    from ``default_rng(seed).integers``. ``pca_features=False`` reads the
+    full ``{split}2014_vgg16_fc7.h5`` tables."""
+    raw: Dict[str, np.ndarray] = read_h5(os.path.join(base_dir, "coco2014_captions.h5"))
+    variant = "_pca" if pca_features else ""
+    for split in ("train", "val"):
+        raw[f"{split}_features"] = read_h5(
+            os.path.join(base_dir, f"{split}2014_vgg16_fc7{variant}.h5"), ["features"])["features"]
+    word_to_idx, idx_to_word = load_vocab(os.path.join(base_dir, "coco2014_vocab.json"))
+    urls = {}
+    for split in ("train", "val"):
+        with open(os.path.join(base_dir, f"{split}2014_urls.txt")) as f:
+            urls[split] = np.asarray([line.strip() for line in f])
+
+    if max_train is not None:
+        num_train = raw["train_captions"].shape[0]
+        if seed is None:
+            mask = np.random.randint(num_train, size=max_train)
+        else:
+            mask = np.random.default_rng(seed).integers(num_train, size=max_train)
+        raw["train_captions"] = raw["train_captions"][mask]
+        raw["train_image_idxs"] = raw["train_image_idxs"][mask]
+
+    data = CocoData(
+        train_captions=raw["train_captions"].astype(np.int32),
+        train_image_idxs=raw["train_image_idxs"].astype(np.int32),
+        val_captions=raw["val_captions"].astype(np.int32),
+        val_image_idxs=raw["val_image_idxs"].astype(np.int32),
+        train_features=raw["train_features"].astype(np.float32),
+        val_features=raw["val_features"].astype(np.float32),
+        word_to_idx=word_to_idx,
+        idx_to_word=idx_to_word,
+        train_urls=urls["train"],
+        val_urls=urls["val"],
+        train_captions_lens=caption_lengths(raw["train_captions"]),
+        val_captions_lens=caption_lengths(raw["val_captions"]),
+    )
+    if print_keys:
+        for f in dataclasses.fields(data):
+            v = getattr(data, f.name)
+            if isinstance(v, np.ndarray):
+                print(f.name, type(v), v.shape, v.dtype)
+            elif v is not None:
+                print(f.name, type(v), len(v))
+    return data
+
+
 def decode_captions(captions: np.ndarray, idx_to_word: Dict[int, str]):
     """Token ids -> text. Skips <NULL>, keeps words up to and including
     <END>, then stops."""
@@ -123,3 +182,9 @@ def get_coco_minibatches(data: CocoData, batch_size: int = 100, split: str = "tr
     for mask in epoch_minibatch_indices(caps.shape[0], batch_size, rng):
         image_idxs = idxs[mask]
         yield caps[mask], feats[image_idxs], urls[image_idxs]
+
+
+def get_coco_validation_data(data: CocoData):
+    """The whole val split: ``(captions, features, urls)`` (reference
+    utilities.py:181-190)."""
+    return data.val_captions, data.val_features, data.val_urls

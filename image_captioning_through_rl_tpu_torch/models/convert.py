@@ -15,8 +15,9 @@ Counterpart of the JAX ``models/convert.py``. Layout facts:
 The reference a2c checkpoint carries both networks under
 ``value_network.*`` and ``policy_network.*``; the reward network's keys are
 ``rewrnn.caption_embedding.weight``, ``rewrnn.gru.*_l0``, ``visual_embed``
-and ``semantic_embed``. These ``.pt`` files are the port's checkpoint
-format (native ``.ckpt`` files are not ported yet).
+and ``semantic_embed``. These ``.pt`` files are one of the port's two
+checkpoint formats; the other, native ``.ckpt``, is
+:mod:`..train.checkpoint`'s msgpack tree.
 """
 
 from __future__ import annotations

@@ -1,2 +1,2 @@
-"""Training of the port: the reward, policy and value pretrainers
-(counterpart of the JAX package's ``train/``). A2C is not ported yet."""
+"""Training of the port: the reward, policy and value pretrainers and A2C
+(counterpart of the JAX package's ``train/``)."""

@@ -23,10 +23,13 @@ Reproduced reference behaviours:
 ``fused_chain=None`` (``fused_rollout=None`` for A2C) runs the kernels on a
 CUDA device and the plain steps on the CPU; ``True`` forces the fused
 steps (on the CPU their wrappers run the kernels' plain versions),
-``False`` the plain ones. Not ported yet (ROADMAP §1): chunked steps,
-device-resident tables, the mesh, resume snapshots, the compat (Q1) and
-bidirectional networks, and native ``.ckpt`` checkpoints — network and
-save paths must be reference ``.pt`` files.
+``False`` the plain ones. Every network and save path is written in the
+format its suffix names (:func:`.checkpoint.save_network`: ``.pt`` the
+reference state dict, anything else — the CLI's ``.ckpt`` — the native
+msgpack tree); a divergence dump goes to ``<path>.diverged`` in the native
+format, as in the JAX package. Not ported yet (ROADMAP §1): chunked steps,
+device-resident tables, the mesh, ``.trainstate`` snapshots and resume, and
+the compat (Q1) and bidirectional networks.
 
 The evaluation half: ``load_a2c_models`` loads a finished model, and
 ``test_a2c_network`` decodes random val draws with the value-guided beam
@@ -148,11 +151,11 @@ def _drive_best_loss_training(desc: str, tag: str, kind: str, ckpt_path: str, wr
     def resolve(prev, loss_dev, epoch, minibatch_id):
         loss = float(loss_dev)
         check_finite(loss, desc, f"epoch {epoch + 1}, minibatch {minibatch_id}",
-                     dump=lambda path: ckpt.save_network_pt(kind, prev, path),
-                     dump_path=ckpt_path + ".diverged.pt")
+                     dump=lambda path: ckpt.save_pytree(prev, path),
+                     dump_path=ckpt_path + ".diverged")
         if loss < state["best"]:
             state["best"] = loss
-            ckpt.save_network_pt(kind, prev, ckpt_path)  # Q12: weights entering
+            ckpt.save_network(kind, prev, ckpt_path)  # Q12: weights entering
         writer.add_scalar(tag, loss, global_minibatch_number(epoch, minibatch_id, batch_size))
 
     keeper = _DeferredBookkeeper(resolve)
@@ -174,9 +177,8 @@ def _drive_best_loss_training(desc: str, tag: str, kind: str, ckpt_path: str, wr
 
 def _start(kind: str, train_data: CocoData, network_paths: Dict[str, str], bidirectional: bool,
            net_dims, device):
-    ckpt_path = network_paths[f"{kind}_network"]
-    ckpt.check_pt_path(ckpt_path)
-    return ckpt_path, _cfg_for(train_data, bidirectional, net_dims), _device(device)
+    cfg = _cfg_for(train_data, bidirectional, net_dims)
+    return network_paths[f"{kind}_network"], cfg, _device(device)
 
 
 def train_reward_network(train_data: CocoData, network_paths: Dict[str, str],
@@ -186,8 +188,8 @@ def train_reward_network(train_data: CocoData, network_paths: Dict[str, str],
                          fused_chain: Optional[bool] = None,
                          net_dims: Optional[Dict[str, int]] = None) -> dict:
     """VSE-loss training of the reward network (trainers.py:260-309);
-    writes ``network_paths["reward_network"]`` (a ``.pt``) and returns the
-    trained parameters."""
+    writes ``network_paths["reward_network"]`` and returns the trained
+    parameters."""
     ckpt_path, cfg, dev = _start("reward", train_data, network_paths, bidirectional, net_dims,
                                  device)
     writer = make_metrics_writer(plot_dir)
@@ -243,8 +245,8 @@ def train_value_network(train_data: CocoData, network_paths: Dict[str, str],
     writer = make_metrics_writer(plot_dir)
     rng = np.random.default_rng(seed + 2)
     py_rng = pyrandom.Random(seed + 2)
-    rparams = ckpt.load_network("reward", network_paths["reward_network"], dev)
-    pparams = ckpt.load_network("policy", network_paths["policy_network"], dev)
+    rparams = ckpt.load_network("reward", network_paths["reward_network"], dev, cfg)
+    pparams = ckpt.load_network("policy", network_paths["policy_network"], dev, cfg)
     params = ckpt.to_device(value_mod.init(torch.Generator().manual_seed(seed + 2), cfg,
                                            train_data.embeddings), dev)
     opt = adam(lr, params, cfg.freeze_embeddings)
@@ -299,8 +301,8 @@ def _a2c_resolver(desc: str, tags: tuple, writer, state: dict, a2c_params: dict,
     def resolve(stats, epoch, minibatch_id):
         loss = float(stats.loss)
         check_finite(loss, desc, f"epoch {epoch + 1}, minibatch {minibatch_id}",
-                     dump=lambda path: ckpt.save_network_pt("a2c", a2c_params, path),
-                     dump_path=str(save_paths[0]) + ".diverged.pt" if save_paths else None)
+                     dump=lambda path: ckpt.save_pytree(a2c_params, path),
+                     dump_path=str(save_paths[0]) + ".diverged" if save_paths else None)
         state["best"] = min(state["best"], loss)
         n = global_minibatch_number(epoch, minibatch_id, batch_size)
         writer.add_scalar(tags[0], loss, n)
@@ -385,7 +387,8 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
                       retrain_all: bool = False, curriculum: Optional[Sequence[int]] = None,
                       seed: int = 0, fused_rollout: Optional[bool] = None,
                       a2c_lr: float = _T.a2c_lr, device=None,
-                      net_dims: Optional[Dict[str, int]] = None, fuse_reward: bool = True):
+                      net_dims: Optional[Dict[str, int]] = None, fuse_reward: bool = True,
+                      stage_seconds: Optional[Dict[str, float]] = None):
     """The A2C orchestrator (trainers.py:312-399): load each sub-network
     from ``network_paths`` (training it when its file is missing, or all
     three with ``retrain_all``), freeze the reward network, then run plain
@@ -395,29 +398,35 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
     epoch, and append the parameter summary to
     ``save_paths["results_path"]``. ``fuse_reward=False`` runs the frozen
     reward stream as its own kernel after each fused rollout instead of
-    inside it. Returns ``(a2c_params, reward_params, cfg)``."""
+    inside it. ``stage_seconds``, when given, receives the wall seconds of
+    each sub-network trained and of the A2C loop. Returns ``(a2c_params,
+    reward_params, cfg)``."""
     cfg = _cfg_for(train_data, bidirectional, net_dims)
     dev = _device(device)
     all_save_paths = [save_paths["model_path"], network_paths["a2c_network"]]
-    for path in all_save_paths + [network_paths[f"{k}_network"]
-                                  for k in ("reward", "policy", "value")]:
-        ckpt.check_pt_path(path)
     kw = dict(batch_size=batch_size, seed=seed, device=dev, net_dims=net_dims)
     trainers = {"reward": train_reward_network, "policy": train_policy_network,
                 "value": train_value_network}
+    seconds = {} if stage_seconds is None else stage_seconds
     nets = {}
+
+    def train(kind, train_fn):
+        t0 = time.perf_counter()
+        nets[kind] = train_fn(train_data, network_paths, plot_dir, bidirectional, **kw)
+        seconds[kind] = time.perf_counter() - t0
+
     if retrain_all:
         print_green("[Training] Training all the networks")
     for kind, train_fn in trainers.items():
         if retrain_all:
-            nets[kind] = train_fn(train_data, network_paths, plot_dir, bidirectional, **kw)
+            train(kind, train_fn)
             continue
         try:
-            nets[kind] = ckpt.load_network(kind, network_paths[f"{kind}_network"], dev)
+            nets[kind] = ckpt.load_network(kind, network_paths[f"{kind}_network"], dev, cfg)
             print(f"[Training] loaded {kind} network")
         except FileNotFoundError:
             print(f"[Training] {kind} network not found")
-            nets[kind] = train_fn(train_data, network_paths, plot_dir, bidirectional, **kw)
+            train(kind, train_fn)
     if retrain_all:
         print_green("[Training] All networks trained")
     reward_params = _clone(nets["reward"])  # frozen: detached, no gradient
@@ -429,6 +438,7 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
     print(f"[Training] epochs = {epochs}")
     args = (train_data, a2c_params, reward_params, optimizer, cfg, plot_dir, all_save_paths,
             batch_size, epochs)
+    t0 = time.perf_counter()
     if curriculum is None:
         a2c_training(*args, seed=seed, fused_rollout=fused_rollout, fuse_reward=fuse_reward)
     else:
@@ -437,6 +447,7 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
             curriculum.append(16)  # the last level is full training (trainers.py:389-390)
         a2c_curriculum_training(*args, curriculum, seed=seed, fused_rollout=fused_rollout,
                                 fuse_reward=fuse_reward)
+    seconds["a2c"] = time.perf_counter() - t0
     append_results(save_paths["results_path"],
                    describe_params("AdvantageActorCriticNetwork", a2c_params), header="network")
     return a2c_params, reward_params, cfg
@@ -541,14 +552,15 @@ def load_a2c_models(model_path: str, train_data: CocoData, network_paths: Dict[s
                     bidirectional: bool, net_dims: Optional[Dict[str, int]] = None,
                     device=None) -> tuple:
     """Load a finished A2C model for testing (utilities.py:299-323): the
-    policy and value networks from their own ``.pt`` files, then the a2c
-    ``.pt`` over them, which holds both. Returns ``(params, cfg)``, the
-    parameters on ``device`` (the card unless the caller asks for the CPU;
-    a missing CUDA device raises)."""
+    policy and value networks from their own files, then the a2c file over
+    them, which holds both (each ``.pt`` or native, by suffix; every shape
+    checked against the config). Returns ``(params, cfg)``, the parameters
+    on ``device`` (the card unless the caller asks for the CPU; a missing
+    CUDA device raises)."""
     cfg = _cfg_for(train_data, bidirectional, net_dims)
     policy_mod.check_unidirectional(cfg)
     dev = _device(device)
-    params = {kind: ckpt.load_network(kind, network_paths[f"{kind}_network"], dev)
+    params = {kind: ckpt.load_network(kind, network_paths[f"{kind}_network"], dev, cfg)
               for kind in ("value", "policy")}
-    params.update(ckpt.load_network("a2c", model_path, dev))
+    params.update(ckpt.load_network("a2c", model_path, dev, cfg))
     return params, cfg

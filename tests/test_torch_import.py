@@ -34,6 +34,36 @@ def test_port_imports_without_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_cli_slice_imports_without_h5py_msgpack_or_flax():
+    """The bundle reader and writer, the native checkpoints and the CLIs
+    import without jax, flax, h5py, msgpack or the JAX package (the GPU
+    machine has none of them), and ``python -m`` the package reaches the
+    CLI's parser."""
+    code = (
+        "import sys\n"
+        "import image_captioning_through_rl_tpu_torch.data.hdf5\n"
+        "import image_captioning_through_rl_tpu_torch.data.coco\n"
+        "import image_captioning_through_rl_tpu_torch.data.synthetic\n"
+        "import image_captioning_through_rl_tpu_torch.data.build\n"
+        "import image_captioning_through_rl_tpu_torch.utils.msgpack\n"
+        "import image_captioning_through_rl_tpu_torch.utils.profiling\n"
+        "import image_captioning_through_rl_tpu_torch.cli.main\n"
+        "import image_captioning_through_rl_tpu_torch.cli.score\n"
+        "import image_captioning_through_rl_tpu_torch.cli.export\n"
+        "import image_captioning_through_rl_tpu_torch.cli.build_data\n"
+        "import image_captioning_through_rl_tpu_torch.__main__\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in (\n"
+        "    'jax', 'flax', 'h5py', 'msgpack', 'image_captioning_through_rl_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    proc = subprocess.run([sys.executable, "-m", "image_captioning_through_rl_tpu_torch",
+                           "--help"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0 and "--device" in proc.stdout, proc.stderr
+
+
 def test_evaluation_half_imports_without_jax_or_tqdm():
     """The evaluation modules import, and score a pair through the native
     library, with ``tqdm`` unimportable (the GPU machine has none). This

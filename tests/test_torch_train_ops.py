@@ -35,6 +35,7 @@ from image_captioning_through_rl_tpu_torch.models import (
     reward_from_state_dict,
     reward_to_state_dict,
 )
+from image_captioning_through_rl_tpu_torch.models import policy as tpolicy
 from image_captioning_through_rl_tpu_torch.models.initializers import gru_init
 from image_captioning_through_rl_tpu_torch.ops import losses, rnn
 from image_captioning_through_rl_tpu_torch.ops.reward_ops import cosine_embedding_reward
@@ -152,10 +153,17 @@ def test_reward_pt_round_trip_is_bit_exact(reward_params, tmp_path):
 
 @pytest.mark.parametrize("kind", ["policy", "value", "reward"])
 def test_checkpoints_reject_native_paths(kind, tmp_path):
-    with pytest.raises(NotImplementedError, match=r"\.pt"):
-        tckpt.load_network(kind, str(tmp_path / f"{kind}Network.ckpt"))
-    with pytest.raises(NotImplementedError, match=r"\.pt"):
-        tckpt.save_network_pt(kind, {}, str(tmp_path / f"{kind}Network.ckpt"))
+    """Native ``.ckpt`` paths are read and written (the msgpack tree) since
+    the CLI slice; a missing one raises ``FileNotFoundError`` (the trainers
+    then train the network), and one holding another kind of network is
+    rejected, naming the file."""
+    path = str(tmp_path / f"{kind}Network.ckpt")
+    with pytest.raises(FileNotFoundError):
+        tckpt.load_network(kind, path, device="cpu")
+    other, init = ("reward", reward.init) if kind != "reward" else ("policy", tpolicy.init)
+    tckpt.save_network(other, init(torch.Generator().manual_seed(0), TCFG), path)
+    with pytest.raises(ValueError, match=rf"{path}: not a {kind} network"):
+        tckpt.load_network(kind, path, device="cpu")
 
 
 def test_reward_init_matches_jax_shapes_and_pretrained_embeddings():

@@ -9,7 +9,8 @@ frozen reward and policy ``.pt`` files. Compared: every per-minibatch loss
 in the JSONL metric logs (tag, step and value, rtol 1e-4: a few Adam steps
 of float32 noise, see ``test_torch_steps.py``), and the Q12 checkpoint —
 the port's ``.pt`` read by the JAX package's own ``load_network`` against
-the JAX trainer's ``.ckpt``, atol 2e-5.
+the JAX trainer's ``.ckpt``, atol 2e-5 (and, for the policy trainer, the
+port's own native ``.ckpt``).
 
 A2C (plain, and the curriculum ``[4]`` with its appended level 16) runs the
 JAX trainer's plain XLA step (``fused_rollout=False``) and the port's plain
@@ -124,11 +125,31 @@ def test_trainer_matches_jax_trainer(kind, tmp_path, monkeypatch):
                                    err_msg=jax.tree_util.keystr(path))
 
 
-def test_trainer_rejects_native_checkpoint_path(tmp_path):
-    data = CocoData(**_fields())
-    with pytest.raises(NotImplementedError, match=r"\.pt"):
-        tloops.train_policy_network(data, {"policy_network": str(tmp_path / "p.ckpt")}, None,
-                                    False, device="cpu", **KW)
+def test_policy_trainer_native_checkpoint_matches_jax(tmp_path, monkeypatch):
+    """The policy trainer's Q12 checkpoint at a ``.ckpt`` path is the native
+    format: both packages' ``load_network`` read it, equal to the JAX
+    trainer's ``.ckpt`` within atol 2e-5."""
+    fields = _fields()
+    jdata, tdata = JCocoData(**fields), CocoData(**fields)
+    jcfg = jloops._cfg_for(jdata, False, DIMS)
+    jinit = jpolicy.init(jax.random.PRNGKey(SEED + 1), jcfg)
+    monkeypatch.setattr(tpolicy, "init", lambda gen, cfg, emb=None: from_jax_params(
+        jax.tree.map(np.asarray, jinit)))
+    jpath, tpath = str(tmp_path / "j.ckpt"), str(tmp_path / "policyNetwork.ckpt")
+    jparams = jloops.train_policy_network(jdata, {"policy_network": jpath}, None, False,
+                                          device_data=False, chunk_steps=1, fused_chain=False,
+                                          **KW)
+    tloops.train_policy_network(tdata, {"policy_network": tpath}, None, False, device="cpu",
+                                fused_chain=False, **KW)
+    saved_j = jckpt.load_network("policy", jpath, template=jparams)
+    saved_t = jckpt.load_network("policy", tpath, template=jparams)
+    port_t = tckpt.load_network("policy", tpath, device="cpu",
+                                cfg=NetConfig(vocab_size=V, input_dim=F, **DIMS))
+    for (path, a), b, c in zip(jax.tree_util.tree_leaves_with_path(saved_j),
+                               jax.tree.leaves(saved_t), jax.tree.leaves(port_t)):
+        np.testing.assert_allclose(np.asarray(b), np.asarray(a), rtol=0, atol=2e-5,
+                                   err_msg=jax.tree_util.keystr(path))
+        np.testing.assert_array_equal(c.numpy(), np.asarray(b))
 
 
 @pytest.mark.parametrize("curriculum", [None, [4]], ids=["plain", "curriculum"])
