@@ -154,6 +154,26 @@ Phases:
      directory reused, eval_config.json, a second block of scores, one beam
      launch a 1016-row group and no other kernel but the x-gate tables);
      times: the bundle's write and read (MB/s), each stage's wall seconds.
+ 22. bidirectional main path (no model kernel: the JAX package has none
+     for such a model), float32 eager on the card: the three networks' forwards
+     (policy logits, value, reward pair; N = 64, T = 17) against the same
+     code on the CPU, relative Frobenius error within 1e-4; the carried
+     greedy (N = 1024) and beam-5 (N = 127) against their full-prefix
+     oracles under the near-tie rule below (the oracles' own gaps; agreeing
+     beams' scores within 1e-4); cli.main.main --bidirectional --retrain
+     --training_size 2048 --epochs 1 --batch_size 512 --test_size 4064 on
+     phase 21's bundle: every artifact under its _bidirectional name, every
+     logged loss finite, seven finite scores, the parameters on the card,
+     every .ckpt read back bit-equal; --bidirectional --test_model of its
+     a2c .ckpt at 40504 draws (40 groups of 1016 rows on the carried eager
+     beam); cli/export --bidirectional of that .ckpt to a reference .pt,
+     served by server.main --bidirectional: greedy, beam-5 and one sampled
+     request (top-k 40 + nucleus 0.9) of 8 rows, each equal to the
+     Captioner's; every model kernel's launch counter 0 over the whole
+     phase, the threefry noise kernel one launch a draw (16 an A2C step,
+     16 a sampled decode);
+     times: each pretrainer's wall time a step, the full-prefix A2C step at
+     batch 512, the evaluation a 1016-row group, each request.
 
 The last JSON line but two lists every kernel with its launches on its main
 paths, by path (serving for greedy; serving and the evaluation for the beam
@@ -262,11 +282,14 @@ equal the pure-Python ones to 1e-12 relative (the same float64 arithmetic
 in the same order; the JAX package holds its own native scorers so).
 
 The whole run takes about four minutes of command time on the H100, the
-build (about 80-110 s), phase 20 (about 25 s) and phase 21 included.
+build (about 80-110 s), phase 20 (about 25 s), phase 21 and phase 22
+included.
 """
 
 from __future__ import annotations
 
+import ast
+import contextlib
 import dataclasses
 import json
 import os
@@ -319,6 +342,13 @@ CLI_TRAIN_IMAGES, CLI_VAL_IMAGES, CLI_CAPTIONS_PER_IMAGE = 82783, 40504, 5
 CLI_TRAINING_SIZE, CLI_TEST_SIZE = 2048, 4064
 CLI_ARTIFACTS = {"a2cNetwork.ckpt", "generated_captions.txt", "image_url.txt", "metrics.jsonl",
                  "real_captions.txt", "results.txt", "run_config.json"}
+# phase 22: the bidirectional forwards' batch and card-vs-CPU bound, the
+# carried decodes' batches against their oracles, the training run's --test_size, the evaluation's draws, the served rows
+BIDI_N, BIDI_REL, BIDI_GREEDY_N, BIDI_BEAM_N = 64, 1e-4, 1024, 127
+BIDI_TRAIN_TEST_SIZE, BIDI_EVAL_DRAWS, BIDI_SERVE_ROWS = 4064, 40504, 8
+BIDI_ARTIFACTS = {"a2cNetwork_bidirectional.ckpt", "generated_captions_bidirectional.txt",
+                  "image_url.txt", "metrics.jsonl", "real_captions.txt",
+                  "results_bidirectional.txt", "run_config.json"}
 
 
 T0 = time.perf_counter()
@@ -2286,17 +2316,8 @@ def cli_bundle(tmp: str) -> tuple[str, dict]:
     return bundle, {"write_s": write_s, "read_s": read_s, "mb": mb}
 
 
-def cli_main_path(dev, card: str) -> dict:
-    """Phase 21: the CLI's main path on the card, in a temporary working
-    directory (the CLI writes logs/ under it): the full-size bundle, a
-    --retrain training run through cli.main.main (the three pretrainers and
-    A2C on the card, 4 minibatches of 512 each), then a --test_model
-    evaluation of the a2c .ckpt it wrote at 40504 draws. Returns the
-    kernels' launches in each run."""
-    import ast
-    import contextlib
-    import importlib
-
+def kernel_counters() -> dict:
+    """Every kernel wrapper's launch counter: name -> (function, attribute)."""
     from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
     from image_captioning_through_rl_tpu_torch.ops import prng
     from image_captioning_through_rl_tpu_torch.ops.fused_beam import fused_beam_search
@@ -2304,137 +2325,176 @@ def cli_main_path(dev, card: str) -> dict:
         fused_greedy_decode, token_gate_table)
     from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain
     from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
+    from image_captioning_through_rl_tpu_torch.ops.fused_sample import fused_sample_decode
+
+    return {"gru_chain_fwd": (fused_gru_chain, "fwd_launches"),
+            "gru_chain_bwd": (fused_gru_chain, "bwd_launches"),
+            "lstm_chain_fwd": (fused_lstm_chain, "fwd_launches"),
+            "lstm_chain_bwd": (fused_lstm_chain, "bwd_launches"),
+            "greedy_decode": (fused_greedy_decode, "launches"),
+            "rollout_fwd": (fr.fused_rollout, "fwd_launches"),
+            "rollout_bwd": (fr.fused_rollout, "bwd_launches"),
+            "threefry_gumbel": (prng.gumbel_noise, "launches"),
+            "reward_stream": (fr.fused_reward_stream, "launches"),
+            "beam_search": (fused_beam_search, "launches"),
+            "token_gates": (token_gate_table, "launches"),
+            "sample_decode": (fused_sample_decode, "launches")}
+
+
+def read_counters(counters: dict) -> dict:
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+
+
+def zero_counters(counters: dict) -> None:
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+
+
+def cli_run(cli, argv: list, log_path: str, counters: dict) -> tuple[dict, dict, float]:
+    """cli.main.main on ``argv`` with its output in ``log_path`` (its last
+    40 lines printed if it fails); the kernels' launches during the run and
+    its wall seconds."""
+    args = cli.parse_args_with_config(cli.build_arg_parser(), argv)
+    zero_counters(counters)
+    t0 = time.perf_counter()
+    try:
+        with open(log_path, "a") as log, contextlib.redirect_stdout(log):
+            out = cli.main(args)
+        torch.cuda.synchronize()
+    except BaseException:
+        with open(log_path) as log:
+            print("".join(log.readlines()[-40:]), flush=True)
+        raise
+    return out, read_counters(counters), time.perf_counter() - t0
+
+
+def score_blocks(path: str) -> list:
+    """The blocks of scores in a results file, each seven finite numbers."""
+    with open(path) as f:
+        blocks = f.read().split("---------- results ----------")
+    scores = [ast.literal_eval(b.strip()) for b in blocks if b.strip().startswith("{")]
+    for sc in scores:
+        if len(sc) != 7 or not all(np.isfinite(list(sc.values()))):
+            raise AssertionError(f"{path}: a block of scores {sc}")
+    return scores
+
+
+def check_training_run(log_dir: str, pre: str, suffix: str, train: dict, dev,
+                       work_dir: str) -> list:
+    """Phases 21 and 22: a --retrain run's record. metrics.jsonl holds every
+    stage's losses (one a minibatch a step), all finite;
+    results{suffix}.txt one block of scores; every .ckpt the run wrote reads
+    back bit-equal: the a2c files to the parameters main returned, the
+    pretrainers' Q12 files to the tensors they hold (loaded, then written
+    again to the same bytes). Returns metrics.jsonl's records."""
     from image_captioning_through_rl_tpu_torch.train import checkpoint as ckpt
 
+    with open(os.path.join(log_dir, "metrics.jsonl")) as f:
+        log = [json.loads(line) for line in f]
+    minibatches = CLI_TRAINING_SIZE // BATCH
+    counts = {}
+    for rec in log:
+        counts[rec["tag"]] = counts.get(rec["tag"], 0) + 1
+    want = {"Reward Network-loss": 50 * minibatches, "Policy Network-loss":
+            100 * minibatches, "Value Network-loss": 50 * minibatches,
+            "A2C Network-episodic-loss": minibatches}
+    finite = bool(np.isfinite([r["value"] for r in log]).all())
+    if any(counts.get(k) != v for k, v in want.items()) or not finite:
+        raise AssertionError(f"{log_dir}/metrics.jsonl: {counts} (want {want}), finite "
+                             f"{finite}")
+    if len(score_blocks(os.path.join(log_dir, f"results{suffix}.txt"))) != 1:
+        raise AssertionError(f"results{suffix}.txt of the training run holds no single block")
+    params = dict(leaves(train["params"]))
+    for path in (os.path.join(log_dir, f"a2cNetwork{suffix}.ckpt"),
+                 os.path.join(pre, f"a2cNetwork{suffix}.ckpt")):
+        back = dict(leaves(ckpt.load_network("a2c", path, dev, train["cfg"])))
+        if sorted(back) != sorted(params) or any(
+                not torch.equal(back[k], params[k].detach()) for k in params):
+            raise AssertionError(f"{path} does not read back to the trained parameters")
+    for kind in ("reward", "policy", "value"):
+        path = os.path.join(pre, f"{kind}Network{suffix}.ckpt")
+        again = os.path.join(work_dir, f"{kind}.again")
+        ckpt.save_pytree(ckpt.load_network(kind, path, dev, train["cfg"]), again)
+        with open(path, "rb") as a, open(again, "rb") as b:
+            if a.read() != b.read():
+                raise AssertionError(f"{path} does not read back bit-equal")
+    return log
+
+
+def cli_main_path(dev, card: str, tmp: str) -> dict:
+    """Phase 21: the CLI's main path on the card, in the working directory
+    ``tmp`` (the CLI writes logs/ under it): the full-size bundle
+    (``tmp/bundle``, which phase 22 reads too), a --retrain training run
+    through cli.main.main (the three pretrainers and A2C on the card, 4
+    minibatches of 512 each), then a --test_model evaluation of the a2c
+    .ckpt it wrote at 40504 draws. Returns the kernels' launches in each
+    run."""
+    import importlib
+
     cli = importlib.import_module("image_captioning_through_rl_tpu_torch.cli.main")
-    counters = {"gru_chain_fwd": (fused_gru_chain, "fwd_launches"),
-                "gru_chain_bwd": (fused_gru_chain, "bwd_launches"),
-                "lstm_chain_fwd": (fused_lstm_chain, "fwd_launches"),
-                "lstm_chain_bwd": (fused_lstm_chain, "bwd_launches"),
-                "greedy_decode": (fused_greedy_decode, "launches"),
-                "rollout_fwd": (fr.fused_rollout, "fwd_launches"),
-                "rollout_bwd": (fr.fused_rollout, "bwd_launches"),
-                "threefry_gumbel": (prng.gumbel_noise, "launches"),
-                "reward_stream": (fr.fused_reward_stream, "launches"),
-                "beam_search": (fused_beam_search, "launches"),
-                "token_gates": (token_gate_table, "launches")}
+    counters = kernel_counters()
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        bundle, io_times = cli_bundle(tmp)
-        pre = os.path.join(tmp, "pretrained")
-        log_path = os.path.join(tmp, "cli.log")
+    bundle, io_times = cli_bundle(tmp)
+    pre = os.path.join(tmp, "pretrained")
+    log_path = os.path.join(tmp, "cli.log")
 
-        def run(argv: list) -> tuple[dict, dict, float]:
-            """cli.main.main on ``argv`` with its output in cli.log; the
-            launches during the run."""
-            args = cli.parse_args_with_config(cli.build_arg_parser(), argv)
-            for fn, attr in counters.values():
-                setattr(fn, attr, 0)
-            t0 = time.perf_counter()
-            try:
-                with open(log_path, "a") as log, contextlib.redirect_stdout(log):
-                    out = cli.main(args)
-                torch.cuda.synchronize()
-            except BaseException:
-                with open(log_path) as log:
-                    print("".join(log.readlines()[-40:]), flush=True)
-                raise
-            seconds = time.perf_counter() - t0
-            return out, {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}, seconds
+    def run(argv: list) -> tuple[dict, dict, float]:
+        return cli_run(cli, argv, log_path, counters)
 
-        def score_blocks(path: str) -> list:
-            with open(path) as f:
-                blocks = f.read().split("---------- results ----------")
-            scores = [ast.literal_eval(b.strip()) for b in blocks if b.strip().startswith("{")]
-            for sc in scores:
-                if len(sc) != 7 or not all(np.isfinite(list(sc.values()))):
-                    raise AssertionError(f"results.txt: a block of scores {sc}")
-            return scores
+    os.chdir(tmp)
+    try:
+        np.random.seed(SEED)  # the --training_size draw (numpy's global generator)
+        train, train_launches, train_s = run(
+            ["--data_dir", bundle, "--training_size", str(CLI_TRAINING_SIZE), "--epochs", "1",
+             "--batch_size", str(BATCH), "--test_size", str(CLI_TEST_SIZE), "--retrain",
+             "--pretrained_path", pre, "--seed", str(SEED), "--device", "cuda"])
+        log_dir = os.path.join(tmp, train["log_dir"])
+        files = set(os.listdir(log_dir))
+        if files != CLI_ARTIFACTS:
+            raise AssertionError(f"the training run wrote {sorted(files)}, not "
+                                 f"{sorted(CLI_ARTIFACTS)}")
+        log = check_training_run(log_dir, pre, "", train, dev, tmp)
+        minibatches = CLI_TRAINING_SIZE // BATCH
+        groups = -(-(-(-CLI_TEST_SIZE // EVAL_VBS)) // EVAL_GROUP)
+        steps_run = {"gru_chain_fwd": 50 * minibatches, "gru_chain_bwd": 50 * minibatches,
+                     "rollout_fwd": minibatches, "rollout_bwd": minibatches,
+                     "threefry_gumbel": minibatches, "beam_search": groups}
+        if (any(train_launches[k] != v for k, v in steps_run.items())
+                or min(train_launches[k] for k in ("lstm_chain_fwd", "lstm_chain_bwd",
+                                                   "greedy_decode", "token_gates")) < 1):
+            raise AssertionError(f"the training run's launches {train_launches}, expected "
+                                 f"{steps_run} and the LSTM chain, greedy and the x-gate "
+                                 f"tables launched")
+        stages = train["seconds"]
+        phase("cli", f"training run (--retrain, --training_size {CLI_TRAINING_SIZE}: "
+                     f"{minibatches} minibatches of {BATCH} x 50 / 100 / 50 pretraining "
+                     f"epochs, 1 A2C epoch; --test_size {CLI_TEST_SIZE}) in {train_s:.1f} s; "
+                     f"artifacts {sorted(files)}; {len(log)} finite losses logged; seven "
+                     f"finite scores; launches {train_launches}; the four .ckpt files read "
+                     f"back bit-equal")
 
-        os.chdir(tmp)
-        try:
-            np.random.seed(SEED)  # the --training_size draw (numpy's global generator)
-            train, train_launches, train_s = run(
-                ["--data_dir", bundle, "--training_size", str(CLI_TRAINING_SIZE), "--epochs", "1",
-                 "--batch_size", str(BATCH), "--test_size", str(CLI_TEST_SIZE), "--retrain",
-                 "--pretrained_path", pre, "--seed", str(SEED), "--device", "cuda"])
-            log_dir = os.path.join(tmp, train["log_dir"])
-            files = set(os.listdir(log_dir))
-            if files != CLI_ARTIFACTS:
-                raise AssertionError(f"the training run wrote {sorted(files)}, not "
-                                     f"{sorted(CLI_ARTIFACTS)}")
-            with open(os.path.join(log_dir, "metrics.jsonl")) as f:
-                log = [json.loads(line) for line in f]
-            minibatches = CLI_TRAINING_SIZE // BATCH
-            counts = {}
-            for rec in log:
-                counts[rec["tag"]] = counts.get(rec["tag"], 0) + 1
-            want = {"Reward Network-loss": 50 * minibatches, "Policy Network-loss":
-                    100 * minibatches, "Value Network-loss": 50 * minibatches,
-                    "A2C Network-episodic-loss": minibatches}
-            if (any(counts.get(k) != v for k, v in want.items())
-                    or not np.isfinite([r["value"] for r in log]).all()):
-                raise AssertionError(f"metrics.jsonl: {counts} (want {want}), finite "
-                                     f"{np.isfinite([r['value'] for r in log]).all()}")
-            if len(score_blocks(os.path.join(log_dir, "results.txt"))) != 1:
-                raise AssertionError("results.txt of the training run holds no single block")
-            groups = -(-(-(-CLI_TEST_SIZE // EVAL_VBS)) // EVAL_GROUP)
-            steps_run = {"gru_chain_fwd": 50 * minibatches, "gru_chain_bwd": 50 * minibatches,
-                         "rollout_fwd": minibatches, "rollout_bwd": minibatches,
-                         "threefry_gumbel": minibatches, "beam_search": groups}
-            if (any(train_launches[k] != v for k, v in steps_run.items())
-                    or min(train_launches[k] for k in ("lstm_chain_fwd", "lstm_chain_bwd",
-                                                       "greedy_decode", "token_gates")) < 1):
-                raise AssertionError(f"the training run's launches {train_launches}, expected "
-                                     f"{steps_run} and the LSTM chain, greedy and the x-gate "
-                                     f"tables launched")
-            # every .ckpt the run wrote reads back bit-equal: the a2c files to
-            # the parameters main returned, the pretrainers' Q12 files to the
-            # tensors they hold (loaded, then written again to the same bytes)
-            for path in (os.path.join(log_dir, "a2cNetwork.ckpt"),
-                         os.path.join(pre, "a2cNetwork.ckpt")):
-                back = dict(leaves(ckpt.load_network("a2c", path, dev, train["cfg"])))
-                params = dict(leaves(train["params"]))
-                if sorted(back) != sorted(params) or any(
-                        not torch.equal(back[k], params[k].detach()) for k in params):
-                    raise AssertionError(f"{path} does not read back to the trained parameters")
-            for kind in ("reward", "policy", "value"):
-                path = os.path.join(pre, f"{kind}Network.ckpt")
-                again = os.path.join(tmp, f"{kind}.again")
-                ckpt.save_pytree(ckpt.load_network(kind, path, dev, train["cfg"]), again)
-                with open(path, "rb") as a, open(again, "rb") as b:
-                    if a.read() != b.read():
-                        raise AssertionError(f"{path} does not read back bit-equal")
-            stages = train["seconds"]
-            phase("cli", f"training run (--retrain, --training_size {CLI_TRAINING_SIZE}: "
-                         f"{minibatches} minibatches of {BATCH} x 50 / 100 / 50 pretraining "
-                         f"epochs, 1 A2C epoch; --test_size {CLI_TEST_SIZE}) in {train_s:.1f} s; "
-                         f"artifacts {sorted(files)}; {len(log)} finite losses logged; seven "
-                         f"finite scores; launches {train_launches}; the four .ckpt files read "
-                         f"back bit-equal")
-
-            ev, eval_launches, eval_s = run(
-                ["--data_dir", bundle, "--test_model", os.path.join(log_dir, "a2cNetwork.ckpt"),
-                 "--test_size", str(EVAL_DRAWS), "--pretrained_path", pre, "--seed", str(SEED),
-                 "--device", "cuda"])
-            eval_groups = -(-(-(-EVAL_DRAWS // EVAL_VBS)) // EVAL_GROUP)
-            if (os.path.join(tmp, ev["log_dir"]) != log_dir
-                    or set(os.listdir(log_dir)) != CLI_ARTIFACTS | {"eval_config.json"}
-                    or len(score_blocks(os.path.join(log_dir, "results.txt"))) != 2):
-                raise AssertionError(f"the evaluation run: log dir {ev['log_dir']}, files "
-                                     f"{sorted(os.listdir(log_dir))}")
-            if (eval_launches["beam_search"] != eval_groups
-                    or any(v for k, v in eval_launches.items()
-                           if k not in ("beam_search", "token_gates"))):
-                raise AssertionError(f"the evaluation run's launches {eval_launches}, expected "
-                                     f"one beam kernel a group ({eval_groups}) and no other "
-                                     f"kernel but the x-gate tables")
-            phase("cli", f"evaluation run (--test_model {ev['log_dir']}/a2cNetwork.ckpt, "
-                         f"--test_size {EVAL_DRAWS}) in {eval_s:.1f} s: eval_config.json "
-                         f"written, a second block of seven finite scores; launches "
-                         f"{eval_launches}")
-        finally:
-            os.chdir(cwd)
+        ev, eval_launches, eval_s = run(
+            ["--data_dir", bundle, "--test_model", os.path.join(log_dir, "a2cNetwork.ckpt"),
+             "--test_size", str(EVAL_DRAWS), "--pretrained_path", pre, "--seed", str(SEED),
+             "--device", "cuda"])
+        eval_groups = -(-(-(-EVAL_DRAWS // EVAL_VBS)) // EVAL_GROUP)
+        if (os.path.join(tmp, ev["log_dir"]) != log_dir
+                or set(os.listdir(log_dir)) != CLI_ARTIFACTS | {"eval_config.json"}
+                or len(score_blocks(os.path.join(log_dir, "results.txt"))) != 2):
+            raise AssertionError(f"the evaluation run: log dir {ev['log_dir']}, files "
+                                 f"{sorted(os.listdir(log_dir))}")
+        if (eval_launches["beam_search"] != eval_groups
+                or any(v for k, v in eval_launches.items()
+                       if k not in ("beam_search", "token_gates"))):
+            raise AssertionError(f"the evaluation run's launches {eval_launches}, expected "
+                                 f"one beam kernel a group ({eval_groups}) and no other "
+                                 f"kernel but the x-gate tables")
+        phase("cli", f"evaluation run (--test_model {ev['log_dir']}/a2cNetwork.ckpt, "
+                     f"--test_size {EVAL_DRAWS}) in {eval_s:.1f} s: eval_config.json "
+                     f"written, a second block of seven finite scores; launches "
+                     f"{eval_launches}")
+    finally:
+        os.chdir(cwd)
     phase("timing", f"{card} | CLI at COCO width: bundle write {io_times['write_s']:.3f} s, "
                     f"read {io_times['read_s']:.3f} s ({io_times['mb'] / io_times['read_s']:.0f} "
                     f"MB/s) | training run {train_s:.3f} s: " + ", ".join(
@@ -2442,6 +2502,218 @@ def cli_main_path(dev, card: str) -> dict:
           + f" | evaluation run {eval_s:.3f} s: " + ", ".join(
               f"{k} {v:.3f} s" for k, v in ev["seconds"].items()))
     return {"train": train_launches, "eval": eval_launches}
+
+
+def bidirectional_networks(dev) -> None:
+    """Phase 22, first part: the three bidirectional networks' forwards on
+    the card against the same code on the CPU in float32 (relative Frobenius
+    error within BIDI_REL); then the carried greedy and beam-5 against their
+    full-prefix oracles on the card, under the near-tie rule."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.config import DecodeConfig, NetConfig
+    from image_captioning_through_rl_tpu_torch.decode import (
+        beam_search, beam_search_full_prefix, greedy_decode, greedy_decode_full_prefix)
+    from image_captioning_through_rl_tpu_torch.models import a2c, policy, reward, value
+
+    cfg = NetConfig(vocab_size=V, input_dim=F, wordvec_dim=E, hidden_dim=H, max_seq_len=T,
+                    bidirectional=True)
+    gen = torch.Generator().manual_seed(SEED + 22)
+    cpu = {"a2c": a2c.init(gen, cfg), "reward": reward.init(gen, cfg)}
+    on_dev = {k: to_device(v, dev) for k, v in cpu.items()}
+    if any(leaf.device.type != "cuda" for _, leaf in leaves(on_dev)):
+        raise AssertionError("a bidirectional parameter is not on the card")
+    feats = torch.randn((BIDI_N, F), generator=gen)
+    caps = torch.randint(4, V, (BIDI_N, T), generator=gen)
+    caps[:, 0] = START_ID
+    def forwards(p: dict, f, c) -> dict:
+        return {"policy": (policy.forward(p["a2c"]["policy"], cfg, f, c),),
+                "value": (value.forward(p["a2c"]["value"], cfg, f, c),),
+                "reward": reward.forward(p["reward"], cfg, f, c)}
+
+    errs = {}
+    with torch.no_grad():
+        on_cpu, on_card = forwards(cpu, feats, caps), forwards(on_dev, feats.to(dev), caps.to(dev))
+        for name, want in on_cpu.items():
+            got = on_card[name]
+            errs[name] = max(float(torch.linalg.norm(g.cpu() - w) / torch.linalg.norm(w))
+                             for g, w in zip(got, want))
+            if not errs[name] <= BIDI_REL:
+                raise AssertionError(f"bidirectional {name} forward: card vs CPU relative "
+                                     f"error {errs[name]:.3g} > {BIDI_REL}")
+    phase("bidi", f"forwards at V={V} F=E={E} H={H} per direction, N={BIDI_N} T={T}, "
+                  f"float32: card vs CPU relative error " + ", ".join(
+                      f"{k} {v:.3g}" for k, v in errs.items()) + f" (bound {BIDI_REL})")
+
+    pp, vp = on_dev["a2c"]["policy"], on_dev["a2c"]["value"]
+    out = []
+    with torch.no_grad():
+        feats = torch.randn((BIDI_GREEDY_N, F), generator=gen).to(dev)
+        start = torch.full((BIDI_GREEDY_N,), START_ID, dtype=torch.int32, device=dev)
+        k_tok = greedy_decode(pp, cfg, feats, start)
+        p_tok, gaps = greedy_decode_full_prefix(pp, cfg, feats, start, margins=True)
+        n_bad, gap, _ = check_rows(
+            "bidirectional greedy", k_tok, p_tok,
+            lambda bad: gaps[bad].gather(
+                1, first_divergent_step(k_tok[bad], p_tok[bad])[:, None].long())[:, 0])
+        out.append(f"greedy N={BIDI_GREEDY_N}: {n_bad} row(s) differ (smallest gap there {gap:.3g}; "
+                   f"smallest gap overall {float(gaps.min()):.3g})")
+        n = BIDI_BEAM_N
+        dcfg = DecodeConfig(beam_size=BEAM, max_seq_len=T)
+        k_tok, k_sc = beam_search(pp, vp, cfg, dcfg, feats[:n], start[:n])
+        p_tok, p_sc, margins = beam_search_full_prefix(pp, vp, cfg, dcfg, feats[:n], start[:n],
+                                                       margins=True)
+        n_bad, gap, _ = check_rows("bidirectional beam", k_tok, p_tok,
+                                   lambda bad: margins[bad].min(dim=1).values)
+        same = ~(k_tok != p_tok).reshape(n, -1).any(dim=1)
+        err = float((k_sc - p_sc)[same].abs().max())
+        if not bool(torch.isfinite(k_sc).all()) or err > SCORE_TOL[torch.float32]:
+            raise AssertionError(f"bidirectional beam scores differ by {err:.3g}")
+        out.append(f"beam-5 N={n}: {n_bad} row(s) differ (smallest gap there {gap:.3g}); "
+                   f"score max abs err {err:.3g} (tolerance {SCORE_TOL[torch.float32]})")
+    phase("bidi", "carried decodes vs the full-prefix oracles on the card, float32: "
+                  + "; ".join(out))
+
+
+def bidirectional_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
+    """Phase 22: a bidirectional model at COCO width through the CLI and the
+    server, on the card: the networks held as :func:`bidirectional_networks`
+    holds them; a --bidirectional --retrain training run and a --test_model
+    evaluation of its a2c .ckpt on phase 21's bundle; its export to a
+    reference .pt (cli/export --bidirectional) served by server.main
+    --bidirectional (greedy, beam-5 and one sampled request). No model
+    kernel of the port launches in the phase (the JAX package has none for
+    such a model); the threefry noise kernel makes every draw's noise, as
+    it does for any model; every parameter lies on the card. Returns the
+    kernels' launches over the phase."""
+    import importlib
+
+    from image_captioning_through_rl_tpu_torch import server
+    from image_captioning_through_rl_tpu_torch.cli import export
+    from image_captioning_through_rl_tpu_torch.client import CaptionClient
+
+    counters = kernel_counters()
+    zero_counters(counters)
+    bidirectional_networks(dev)
+    launches = {"networks": read_counters(counters)}
+
+    cli = importlib.import_module("image_captioning_through_rl_tpu_torch.cli.main")
+    work_dir, pre = os.path.join(tmp, "bidirectional"), os.path.join(tmp, "bidi_pretrained")
+    os.makedirs(work_dir)
+    log_path = os.path.join(work_dir, "cli.log")
+    cwd = os.getcwd()
+    os.chdir(work_dir)
+    try:
+        np.random.seed(SEED)  # the --training_size draw (numpy's global generator)
+        train, launches["train"], train_s = cli_run(
+            cli, ["--data_dir", bundle, "--bidirectional", "--retrain", "--training_size",
+                  str(CLI_TRAINING_SIZE), "--epochs", "1", "--batch_size", str(BATCH),
+                  "--test_size", str(BIDI_TRAIN_TEST_SIZE), "--pretrained_path", pre, "--seed",
+                  str(SEED), "--device", "cuda"], log_path, counters)
+        log_dir = os.path.join(work_dir, train["log_dir"])
+        files = set(os.listdir(log_dir))
+        if files != BIDI_ARTIFACTS or set(os.listdir(pre)) != {
+                f"{k}Network_bidirectional.ckpt" for k in ("reward", "policy", "value", "a2c")}:
+            raise AssertionError(f"the bidirectional run wrote {sorted(files)} and "
+                                 f"{sorted(os.listdir(pre))}")
+        if not train["cfg"].bidirectional or any(
+                leaf.device.type != "cuda" for _, leaf in leaves(train["params"])):
+            raise AssertionError("the bidirectional run's parameters are not bidirectional "
+                                 "and on the card")
+        log = check_training_run(log_dir, pre, "_bidirectional", train, dev, work_dir)
+        minibatches = CLI_TRAINING_SIZE // BATCH
+        stages = train["seconds"]
+        per_step = {"reward": stages["reward"] / (50 * minibatches),
+                    "policy": stages["policy"] / (100 * minibatches),
+                    "value": stages["value"] / (50 * minibatches),
+                    "a2c": stages["a2c"] / minibatches}
+        phase("bidi", f"training run (--bidirectional --retrain, --training_size "
+                      f"{CLI_TRAINING_SIZE}, {minibatches} minibatches of {BATCH}; --test_size "
+                      f"{BIDI_TRAIN_TEST_SIZE}) in {train_s:.1f} s; artifacts {sorted(files)}; "
+                      f"{len(log)} finite losses; seven finite scores; the four .ckpt files "
+                      f"read back bit-equal; launches {launches['train']}")
+
+        model = os.path.join(log_dir, "a2cNetwork_bidirectional.ckpt")
+        ev, launches["eval"], eval_s = cli_run(
+            cli, ["--data_dir", bundle, "--bidirectional", "--test_model", model,
+                  "--test_size", str(BIDI_EVAL_DRAWS), "--pretrained_path", pre, "--seed",
+                  str(SEED), "--device", "cuda"], log_path, counters)
+        eval_groups = -(-(-(-BIDI_EVAL_DRAWS // EVAL_VBS)) // EVAL_GROUP)
+        if (os.path.join(work_dir, ev["log_dir"]) != log_dir
+                or len(score_blocks(os.path.join(log_dir, "results_bidirectional.txt"))) != 2
+                or not os.path.exists(os.path.join(log_dir, "eval_config.json"))):
+            raise AssertionError(f"the bidirectional evaluation: log dir {ev['log_dir']}, files "
+                                 f"{sorted(os.listdir(log_dir))}")
+        with open(os.path.join(log_dir, "generated_captions_bidirectional.txt")) as f:
+            lines = f.read().splitlines()
+        phase("bidi", f"evaluation run (--bidirectional --test_model, --test_size "
+                      f"{BIDI_EVAL_DRAWS}: {eval_groups} groups of {EVAL_GROUP * (EVAL_VBS - 1)} "
+                      f"rows on the carried eager beam) in {eval_s:.1f} s: a second block of "
+                      f"seven finite scores, {len(lines)} generated lines in all; launches "
+                      f"{launches['eval']}")
+
+        # the model as a reference .pt, served
+        model_pt = os.path.join(work_dir, "a2cNetwork_bidirectional.pt")
+        vocab = os.path.join(bundle, "coco2014_vocab.json")
+        with open(log_path, "a") as log, contextlib.redirect_stdout(log):
+            export.main([model, model_pt, "--kind", "a2c", "--vocab", bundle, "--bidirectional"])
+        launches["export"] = read_counters(counters)
+        zero_counters(counters)
+        srv = server.main(["--model", model_pt, "--vocab", vocab, "--bidirectional", "--device",
+                           "cuda", "--port", "0", "--warmup_beams", "0", str(BEAM)], block=False)
+        try:
+            cap = srv._cap
+            if not cap.cfg.bidirectional or any(
+                    leaf.device.type != "cuda"
+                    for _, leaf in leaves({"policy": cap._policy, "value": cap._value})):
+                raise AssertionError("the served model is not bidirectional and on the card")
+            client = CaptionClient(f"http://{srv.host}:{srv.port}", timeout=120)
+            rng = np.random.default_rng(SEED + 22)
+            feats = rng.standard_normal((BIDI_SERVE_ROWS, F)).astype(np.float32)
+            sample = {"temperature": 0.8, "top_k": 40, "top_p": 0.9, "seed": 7}
+            req_s = {}
+            for name, call, want in (
+                    ("greedy", lambda: client.caption(feats), lambda: cap.caption(feats)),
+                    ("beam-5", lambda: client.caption(feats, beam_size=BEAM),
+                     lambda: cap.caption(feats, beam_size=BEAM)),
+                    ("sampled", lambda: client.caption(feats, sample=sample),
+                     lambda: cap.sample_captions(feats, **sample))):
+                t0 = time.perf_counter()
+                got = call()
+                req_s[name] = time.perf_counter() - t0
+                if got != want() or not all(c.startswith("<START>") for c in got):
+                    raise AssertionError(f"the served {name} captions differ from the "
+                                         f"Captioner's")
+            stats = client.stats()
+        finally:
+            srv.stop()
+        launches["serve"] = read_counters(counters)
+        if stats["errors"] != 0 or any(stats["kernel_launches"].values()):
+            raise AssertionError(f"bidirectional server stats {stats}")
+        phase("bidi", f"server.main --bidirectional on the exported .pt: greedy, beam-5 and "
+                      f"one sampled request of {BIDI_SERVE_ROWS} rows, each equal to the "
+                      f"Captioner's; 0 errors; launches {launches['serve']}")
+    finally:
+        os.chdir(cwd)
+    # one noise launch a draw: T - 1 draws a full-prefix A2C step, and T - 1
+    # a sampled decode (the request, and the Captioner's call it is held to)
+    draws = {"networks": 0, "train": (T - 1) * minibatches, "eval": 0, "export": 0,
+             "serve": 2 * (T - 1)}
+    if (any(v for run in launches.values() for k, v in run.items() if k != "threefry_gumbel")
+            or any(launches[run]["threefry_gumbel"] != n for run, n in draws.items())):
+        raise AssertionError(f"a model kernel of the port launched for a bidirectional model, "
+                             f"or the noise kernel not once a draw ({draws}): {launches}")
+    phase("bidi", f"no model kernel of the port launched in the phase: {sorted(launches)} all 0 "
+                  f"({', '.join(sorted(k for k in counters if k != 'threefry_gumbel'))}); "
+                  f"threefry_gumbel once a draw: {draws}")
+    phase("timing", f"{card} | bidirectional, float32 eager, COCO width | training run "
+                    f"{train_s:.3f} s: " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items())
+          + " | a step: " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in per_step.items())
+          + f" (A2C: the full-prefix rollout at batch {BATCH}) | evaluation run {eval_s:.3f} s "
+            f"(test {ev['seconds']['test']:.3f} s, {ev['seconds']['test'] / eval_groups * 1e3:.1f} "
+            f"ms "
+            f"a {EVAL_GROUP * (EVAL_VBS - 1)}-row group) | requests of {BIDI_SERVE_ROWS} rows: "
+          + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in req_s.items()))
+    return {k: sum(run[k] for run in launches.values()) for k in counters}
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -2855,8 +3127,12 @@ def main() -> int:
     with eval_tmp as tmp:
         ev = eval_main_path(model_files, tmp, dev, card)
 
-    # phase 21: the CLI's main path (a training run, then an evaluation)
-    cli_runs = cli_main_path(dev, card)
+    # phase 21: the CLI's main path (a training run, then an evaluation);
+    # phase 22: a bidirectional model through the CLI and the server, on
+    # phase 21's bundle
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_runs = cli_main_path(dev, card, tmp)
+        bidi_launches = bidirectional_main_path(dev, card, os.path.join(tmp, "bundle"), tmp)
     cli_launches = {k: cli_runs["train"][k] + cli_runs["eval"][k] for k in cli_runs["train"]}
 
     bounds_ = bounds()
@@ -2904,7 +3180,9 @@ def main() -> int:
             ("rollout_fwd", "rollout_fwd.cu", "pallas_rollout.py:308", rollout_err["fwd"]),
             ("rollout_bwd", "rollout.cu", "pallas_rollout.py:575", rollout_err["bwd"])):
         kernels.append(entry(name, source, replaces,
-                             {"a2c": a2c_launches[name], "cli": cli_launches[name]}, err,
+                             {"a2c": a2c_launches[name], "cli": cli_launches[name],
+                              **({"bidirectional": bidi_launches[name]}
+                                 if bidi_launches[name] else {})}, err,
                              ta[(name, "ms")],
                              ta[(name, "plain_ms")],
                              f"[{S}, {ROLLOUT_N}, {V}] f32" if name == "threefry_gumbel"

@@ -8,7 +8,11 @@
 
 On a CUDA device the captioner decodes through the hand-written kernels
 (:mod:`.ops.fused_decode`, :mod:`.ops.fused_beam`, :mod:`.ops.fused_sample`);
-on the CPU through their plain PyTorch versions. Nothing falls back from
+on the CPU through their plain PyTorch versions. A bidirectional model has
+no decode kernel, in the JAX package as here: it decodes through the
+carried eager decodes of :mod:`.decode` in float32 on its device (its
+draws' noise from :func:`.ops.prng.gumbel`, as every draw's), and
+``use_fused_kernel=True`` raises ``ValueError``. Nothing falls back from
 the kernels at serving time: ``chip_smoke.py`` holds each kernel against its
 plain version. :func:`evaluate_captions` scores caption pairs
 (:mod:`.metrics`). The mesh, faithful-beam and image paths of the JAX
@@ -26,8 +30,10 @@ import torch
 from . import START_ID
 from .config import DecodeConfig, NetConfig
 from .data.coco import decode_captions, load_vocab
+from .decode.beam import beam_search
+from .decode.greedy import greedy_decode
+from .decode.sample import sample_decode_n
 from .models.convert import a2c_from_state_dict, load_state_dict
-from .models.policy import check_unidirectional
 from .ops import prng
 from .ops.fused_beam import fused_beam_search, prepare_beam_weights
 from .ops.fused_decode import fused_greedy_decode, prepare_greedy_weights
@@ -53,16 +59,14 @@ class Captioner:
     plain versions then equal the JAX package's float32 decode. The
     weights are cast and laid out for the kernels once, here. ``device``
     is the card unless the caller asks for ``"cpu"``; a missing CUDA
-    device raises.
+    device raises. A bidirectional ``cfg`` keeps the float32 weights as
+    they are, on the device, for the eager decodes (another
+    ``weight_dtype`` raises: no decode kernel reads it).
     """
 
     def __init__(self, params: dict, cfg: NetConfig, idx_to_word: dict, device="cuda",
                  weight_dtype: torch.dtype | None = None):
-        check_unidirectional(cfg)
         self.device = resolve_device(device)
-        if weight_dtype is None:
-            weight_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
-        self.weight_dtype = weight_dtype
         policy, value = (params["policy"], params.get("value")) if "policy" in params \
             else (params, None)
 
@@ -71,9 +75,20 @@ class Captioner:
                 return {k: to_dev(v) for k, v in tree.items()}
             return tree.to(self.device, torch.float32)
 
-        self._greedy_w = prepare_greedy_weights(to_dev(policy), weight_dtype)
-        self._beam_w = (prepare_beam_weights(self._greedy_w, to_dev(value))
-                        if value is not None else None)
+        self._policy, self._value = to_dev(policy), to_dev(value) if value is not None else None
+        if cfg.bidirectional:
+            if weight_dtype not in (None, torch.float32):
+                raise ValueError(f"weight_dtype={weight_dtype}: a bidirectional model decodes "
+                                 "in float32 (no decode kernel serves it)")
+            self.weight_dtype = torch.float32
+            self._greedy_w = self._beam_w = None
+        else:
+            if weight_dtype is None:
+                weight_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+            self.weight_dtype = weight_dtype
+            self._greedy_w = prepare_greedy_weights(self._policy, weight_dtype)
+            self._beam_w = (prepare_beam_weights(self._greedy_w, self._value)
+                            if value is not None else None)
         self._cfg = cfg
         self._idx_to_word = idx_to_word
 
@@ -89,6 +104,11 @@ class Captioner:
     def _start(self, rows: int) -> torch.Tensor:
         return torch.full((rows,), START_ID, dtype=torch.int32, device=self.device)
 
+    def _check_kernel(self, use_fused_kernel, what: str) -> None:
+        if use_fused_kernel and self._cfg.bidirectional:
+            raise ValueError(f"use_fused_kernel=True cannot be honored: the fused {what} "
+                             "kernel is unidirectional only")
+
     def caption_tokens(self, features, beam_size: int = 0, use_fused_kernel=None
                        ) -> np.ndarray:
         """Token ids ``[N, T]`` for a feature batch ``[N, F]``
@@ -98,14 +118,24 @@ class Captioner:
         start = self._start(feats.shape[0])
         max_len = self._cfg.max_seq_len
         if beam_size > 0:
-            if self._beam_w is None:
+            if self._value is None:
                 raise ValueError("beam search needs a value network (pass a2c params)")
+            self._check_kernel(use_fused_kernel, "beam")
             dcfg = DecodeConfig(beam_size=beam_size, max_seq_len=max_len)
+            if self._cfg.bidirectional:
+                with torch.no_grad():
+                    toks, _ = beam_search(self._policy, self._value, self._cfg, dcfg, feats,
+                                          start)
+                return toks[:, 0].cpu().numpy()
             toks, _ = fused_beam_search(
                 self._beam_w, feats, start, max_len=max_len, beam=beam_size,
                 value_weight=dcfg.value_weight, logprob_weight=dcfg.logprob_weight,
                 use_fused_kernel=use_fused_kernel)
             return toks[:, 0].cpu().numpy()
+        self._check_kernel(use_fused_kernel, "greedy")
+        if self._cfg.bidirectional:
+            with torch.no_grad():
+                return greedy_decode(self._policy, self._cfg, feats, start, max_len).cpu().numpy()
         toks = fused_greedy_decode(self._greedy_w, feats, start, max_len=max_len,
                                    use_fused_kernel=use_fused_kernel)
         return toks.cpu().numpy()
@@ -122,7 +152,9 @@ class Captioner:
         batch (samples-minor), decoded by :func:`.ops.fused_sample.fused_sample_decode`
         with the greedy weights: on the card every request with ``temperature
         > 0`` runs the kernel, filtered or not. ``use_fused_kernel`` as
-        there. A batch of ``N * R * V >= 2**32`` raises."""
+        there. A batch of ``N * R * V >= 2**32`` raises. A bidirectional
+        model samples through :func:`.decode.sample.sample_decode_n` under the
+        same key, in the same samples-minor order."""
         if num_samples < 1:
             raise ValueError(f"num_samples must be >= 1, got {num_samples}")
         if temperature < 0:
@@ -132,9 +164,17 @@ class Captioner:
         if temperature == 0:
             toks = self.caption_tokens(features, use_fused_kernel=use_fused_kernel)
             return np.repeat(toks[:, None, :], num_samples, axis=1) if num_samples > 1 else toks
+        self._check_kernel(use_fused_kernel, "sampling")
         feats = self._features(features)
         n = feats.shape[0]
         check_counter_space(n * num_samples, self._cfg.vocab_size)  # before the R-fold copy
+        if self._cfg.bidirectional:
+            with torch.no_grad():
+                toks = sample_decode_n(
+                    self._policy, self._cfg, feats, self._start(n), prng.PRNGKey(seed),
+                    num_samples, temperature=float(temperature), top_k=top_k,
+                    top_p=float(top_p) if top_p < 1.0 else None).cpu().numpy()
+            return toks[:, 0] if num_samples == 1 else toks
         tiled = feats.repeat_interleave(num_samples, dim=0)
         toks = fused_sample_decode(
             self._greedy_w, tiled, self._start(tiled.shape[0]), prng.PRNGKey(seed),
@@ -166,16 +206,20 @@ def evaluate_captions(real: List[str], generated: List[str]) -> dict:
 
 
 def load_captioner(model_pt: str, vocab_json: str, device="cuda",
-                   weight_dtype: torch.dtype | None = None) -> Captioner:
+                   weight_dtype: torch.dtype | None = None,
+                   bidirectional: bool = False) -> Captioner:
     """A :class:`Captioner` from a reference-layout a2c ``.pt`` checkpoint
     (``value_network.* / policy_network.*``) and ``coco2014_vocab.json``.
-    The network widths come from the checkpoint's shapes."""
-    params = a2c_from_state_dict(load_state_dict(model_pt))
+    The network widths come from the checkpoint's shapes; a bidirectional
+    checkpoint needs ``bidirectional=True``."""
+    params = a2c_from_state_dict(load_state_dict(model_pt), bidirectional)
     _, idx_to_word = load_vocab(vocab_json)
     pol = params["policy"]
     vocab, wordvec = pol["embedding"].shape
+    cell = pol["lstm_fwd" if bidirectional else "lstm"]
     cfg = NetConfig(vocab_size=vocab, input_dim=pol["cnn2linear"]["w"].shape[0],
-                    wordvec_dim=wordvec, hidden_dim=pol["lstm"]["wh"].shape[0])
+                    wordvec_dim=wordvec, hidden_dim=cell["wh"].shape[0],
+                    bidirectional=bidirectional)
     if len(idx_to_word) != vocab:
         raise ValueError(f"the vocabulary has {len(idx_to_word)} words, the model {vocab}")
     return Captioner(params, cfg, idx_to_word, device=device, weight_dtype=weight_dtype)

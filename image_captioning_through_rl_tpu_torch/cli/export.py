@@ -25,7 +25,7 @@ def main(argv=None) -> None:
                     help="coco2014_vocab.json (or bundle dir); required for native .ckpt "
                          "inputs, where it sizes the shape check")
     ap.add_argument("--bidirectional", action="store_true",
-                    help="bidirectional networks (not ported yet: raises, ROADMAP §1 item 5)")
+                    help="the network's encoders are bidirectional")
     ap.add_argument("--input_dim", type=int, default=512)
     ap.add_argument("--wordvec_dim", type=int, default=512)
     ap.add_argument("--hidden_dim", type=int, default=512)
@@ -33,9 +33,6 @@ def main(argv=None) -> None:
 
     if not os.path.exists(args.src):
         ap.error(f"input checkpoint not found: {args.src}")
-    if args.bidirectional:
-        raise NotImplementedError("--bidirectional: bidirectional networks are not ported yet "
-                                  "(ROADMAP §1 item 5)")
     if not args.src.endswith(".pt") and not args.vocab:
         ap.error("--vocab is required for native .ckpt inputs (sizes the shape check)")
 
@@ -49,11 +46,16 @@ def main(argv=None) -> None:
         vocab_path = (os.path.join(args.vocab, "coco2014_vocab.json")
                       if os.path.isdir(args.vocab) else args.vocab)
         word_to_idx, _ = load_vocab(vocab_path)
-        cfg = NetConfig.for_vocab(word_to_idx, input_dim=args.input_dim,
-                                  wordvec_dim=args.wordvec_dim, hidden_dim=args.hidden_dim)
+        cfg = NetConfig.for_vocab(word_to_idx, bidirectional=args.bidirectional,
+                                  input_dim=args.input_dim, wordvec_dim=args.wordvec_dim,
+                                  hidden_dim=args.hidden_dim)
     params = ckpt.load_network(args.kind, args.src, device="cpu", cfg=cfg)
+    if ckpt.is_bidirectional(args.kind, params) != args.bidirectional:
+        raise ValueError(f"{args.src}: --bidirectional does not match the checkpoint's "
+                         f"directions")
     ckpt.save_network_pt(args.kind, params, args.dst)
-    print_green(f"[Export] {args.src} -> {args.dst} ({args.kind})")
+    print_green(f"[Export] {args.src} -> {args.dst} ({args.kind}"
+                f"{', bidirectional' if args.bidirectional else ''})")
 
 
 if __name__ == "__main__":

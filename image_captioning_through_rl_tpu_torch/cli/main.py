@@ -10,8 +10,8 @@ Every flag of the JAX CLI keeps its name, default, type and choices, and
 ``--device`` (default ``cuda``, as ``server.main`` has it); without a card
 the run raises unless it asks for ``--device cpu``. Flags of parts the port
 does not have yet raise ``NotImplementedError`` before the bundle is read,
-naming their ROADMAP §1 item: ``--bidirectional`` (5), ``--faithful_beam``
-and ``--compat_batch_as_time`` (6), ``--resume`` (7), ``--spmd`` (8),
+naming their ROADMAP §1 item: ``--faithful_beam`` and
+``--compat_batch_as_time`` (6), ``--resume`` (7), ``--spmd`` (8),
 ``--train_word2vec`` and ``--pretrained_word2vec`` other than ``none`` (10).
 
 A run writes into ``logs/<stamp>/`` what the JAX CLI writes there, except
@@ -60,7 +60,6 @@ CURRICULUM_LEVELS = [3, 6, 9, 12, 15]  # image_captioner.py:35
 
 # flags of parts not ported yet: (flag, is it set?, what, ROADMAP §1 item)
 UNPORTED = (
-    ("--bidirectional", lambda a: a.bidirectional, "bidirectional networks", 5),
     ("--faithful_beam", lambda a: a.faithful_beam, "the faithful (Q2 batch-mean) beam", 6),
     ("--compat_batch_as_time", lambda a: a.compat_batch_as_time,
      "the Q1 batch-as-time encoders", 6),
@@ -250,8 +249,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--curriculum", action=argparse.BooleanOptionalAction, default=False,
                    help="Run the staged-rollout (curriculum) variant of A2C training")
     p.add_argument("--bidirectional", action=argparse.BooleanOptionalAction, default=False,
-                   help="Build every recurrent encoder bidirectionally (not ported yet: "
-                        "raises, ROADMAP §1 item 5)")
+                   help="Build every recurrent encoder bidirectionally")
     p.add_argument("--test_model", type=str, default="",
                    help="Path to a finished A2C checkpoint to evaluate instead of "
                         "training (.ckpt or reference .pt)")

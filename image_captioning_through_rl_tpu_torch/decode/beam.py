@@ -8,7 +8,11 @@ next tokens, score each expansion with
 and keep the ``B`` smallest scores per image. The policy and critic carry
 their LSTM state per candidate (gathered on reorder), so each step costs
 ``B`` policy cells and ``B^2`` critic cells instead of the reference's
-full-prefix re-encodes.
+full-prefix re-encodes. The states are nested tuples of tensors, flat
+``(h, c)`` or, bidirectional, a pair per direction (:mod:`..models.policy`,
+:mod:`..models.value`); :func:`_tree_map` tiles and gathers every leaf.
+:func:`beam_search_full_prefix` is the reference's literal O(T^2) loop,
+kept as the oracle for :func:`beam_search` in either direction mode.
 
 Only the per-sample mode (``DecodeConfig(per_sample_beams=True)``: an
 independent beam per image, log-softmax scoring) is ported. The faithful
@@ -25,6 +29,13 @@ from ..config import DecodeConfig, NetConfig
 from ..models import policy as policy_mod
 from ..models import value as value_mod
 from ..ops.fused_beam import stable_topk
+
+
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a nested tuple of tensors."""
+    if isinstance(tree, tuple):
+        return tuple(_tree_map(fn, x) for x in tree)
+    return fn(tree)
 
 
 def _gather_beam(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -57,11 +68,11 @@ def beam_search(policy_params: dict, value_params: dict, cfg: NetConfig,
 
     pol0 = policy_mod.init_decode_state(policy_params, cfg, features)
     logits0, pol1 = policy_mod.step(policy_params, cfg, start, pol0)
-    pol_state = tuple(tile_beam(x) for x in pol1)
+    pol_state = _tree_map(tile_beam, pol1)
     last_logits = tile_beam(logits0)
     val_state = value_mod.rnn_step(
         value_params, cfg, start, value_mod.zero_rnn_state(cfg, n, features.device))
-    val_state = tuple(tile_beam(x) for x in val_state)
+    val_state = _tree_map(tile_beam, val_state)
 
     # only beam 0 is live at step 0; +inf parents keep the clones unselected
     scores = torch.full((n, b), float("inf"), device=features.device)
@@ -77,7 +88,7 @@ def beam_search(policy_params: dict, value_params: dict, cfg: NetConfig,
 
         emb = value_params["embedding"][topk_idx]  # [N, B, B, E]
         vstate_new = value_mod.rnn_step_emb(
-            value_params, cfg, emb, tuple(tile_exp(x) for x in val_state))
+            value_params, cfg, emb, _tree_map(tile_exp, val_state))
         values = value_mod.value_from_state(value_params, cfg, feats_exp, vstate_new)[..., 0]
 
         delta = dcfg.value_weight * values + dcfg.logprob_weight * logp
@@ -88,17 +99,65 @@ def beam_search(policy_params: dict, value_params: dict, cfg: NetConfig,
         new_tok = torch.gather(topk_idx.reshape(n, b * b), 1, sel)  # [N, B]
         tokens = _gather_beam(tokens, parent)
         tokens[:, :, t + 1] = new_tok
-        val_state = tuple(_gather_beam(x.reshape((n, b * b) + x.shape[3:]), sel)
-                          for x in vstate_new)
-        pol_parent = tuple(_gather_beam(x, parent) for x in pol_state)
+        val_state = _tree_map(
+            lambda x: _gather_beam(x.reshape((n, b * b) + x.shape[3:]), sel), vstate_new)
+        pol_parent = _tree_map(lambda x: _gather_beam(x, parent), pol_state)
         # the last step's advance would feed a step that never runs
         if t < t_max - 2:
             logits_new, pol_new = policy_mod.step(
                 policy_params, cfg, new_tok.reshape(n * b),
-                tuple(x.reshape(n * b, -1) for x in pol_parent))
-            pol_state = tuple(x.reshape(n, b, -1) for x in pol_new)
+                _tree_map(lambda x: x.reshape(n * b, -1), pol_parent))
+            pol_state = _tree_map(lambda x: x.reshape(n, b, -1), pol_new)
             last_logits = logits_new.reshape(n, b, -1)
     return tokens.to(torch.int32), scores
+
+
+def beam_search_full_prefix(policy_params: dict, value_params: dict, cfg: NetConfig,
+                            dcfg: DecodeConfig, features: torch.Tensor,
+                            start_tokens: torch.Tensor, margins: bool = False):
+    """The beam search that re-encodes every candidate's whole prefix each
+    step (the JAX ``decode/beam_full.py``, per-sample mode): the O(T^2)
+    oracle for :func:`beam_search`. Returns ``(tokens [N, B, T] int32,
+    scores [N, B])``; ``margins=True`` adds ``[N, T - 1]``: per step, the
+    smallest of the top-``B`` cut's logit gap over the sample's candidates
+    and the gaps between its ``B + 1`` best candidate scores, how close the
+    step's choices came to a tie (as :func:`..ops.fused_beam.beam_search_plain`
+    reports them)."""
+    if not dcfg.per_sample_beams:
+        raise NotImplementedError(
+            "the faithful (Q2 batch-mean) beam is not ported yet (ROADMAP §1 item 6)")
+    n = features.shape[0]
+    b = dcfg.beam_size
+    tokens = start_tokens.long()[:, None, None].expand(n, b, 1)
+    scores = torch.full((n, b), float("inf"), device=features.device)
+    scores[:, 0] = 0.0
+    feats_rep = features.repeat_interleave(b, dim=0)  # [N B, F]
+    feats_bb = features.repeat_interleave(b * b, dim=0)  # [N B B, F]
+    k = b + 1 if margins else b
+    gaps = []
+    for t in range(dcfg.max_seq_len - 1):
+        logits = policy_mod.forward(policy_params, cfg, feats_rep,
+                                    tokens.reshape(n * b, t + 1))[:, -1].reshape(n, b, -1)
+        topv, topk_idx = stable_topk(logits, k)
+        topk_idx = topk_idx[..., :b]  # [N, B, B]
+        logp = torch.gather(torch.log_softmax(logits, dim=-1), -1, topk_idx)
+        ext = torch.cat([tokens[:, :, None].expand(n, b, b, t + 1), topk_idx[..., None]],
+                        dim=-1)  # [N, B, B, t + 2]
+        values = value_mod.forward(value_params, cfg, feats_bb,
+                                   ext.reshape(n * b * b, t + 2)).reshape(n, b, b)
+        delta = dcfg.value_weight * values + dcfg.logprob_weight * logp
+        sorted_scores, order = stable_topk((scores[:, :, None] - delta).reshape(n, b * b), k,
+                                           largest=False)
+        scores, sel = sorted_scores[:, :b], order[:, :b]
+        if margins:
+            gap = (topv[..., b - 1] - topv[..., b]).min(dim=1).values
+            if b > 1:  # beam 1 keeps its one candidate
+                gap = torch.minimum(gap, (sorted_scores[:, 1:] - sorted_scores[:, :-1])
+                                    .min(dim=1).values)
+            gaps.append(gap)
+        tokens = _gather_beam(ext.reshape(n, b * b, t + 2), sel)
+    out = tokens.to(torch.int32), scores
+    return out + (torch.stack(gaps, dim=1),) if margins else out
 
 
 def beam_search_compat(*args, **kwargs):

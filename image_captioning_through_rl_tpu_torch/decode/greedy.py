@@ -1,7 +1,8 @@
 """Greedy decoding (counterpart of the JAX ``decode/greedy.py``).
 
 Carrying ``(h, c)`` across steps gives the same logits as re-encoding the
-whole prefix each step (the reference's O(T^2) loop), with O(T) work.
+whole prefix each step (the reference's O(T^2) loop), with O(T) work, in
+both direction modes (:mod:`..models.policy`).
 Like the reference, decoding always runs the full ``max_len - 1`` steps
 and does not stop at <END>; :func:`..data.coco.decode_captions` trims.
 """
@@ -33,14 +34,19 @@ def greedy_decode(params: dict, cfg: NetConfig, features: torch.Tensor,
 
 
 def greedy_decode_full_prefix(params: dict, cfg: NetConfig, features: torch.Tensor,
-                              start_tokens: torch.Tensor, max_len: int | None = None
-                              ) -> torch.Tensor:
+                              start_tokens: torch.Tensor, max_len: int | None = None,
+                              margins: bool = False):
     """Greedy decode that re-encodes the whole prefix each step — the
     reference's literal O(T^2) semantics, kept as the oracle for
-    :func:`greedy_decode`."""
+    :func:`greedy_decode`. ``margins=True`` also returns ``[N, max_len - 1]``:
+    each step's top-2 logit gap, how close its pick came to a tie."""
     max_len = max_len or cfg.max_seq_len
-    toks = [start_tokens.long()]
+    toks, gaps = [start_tokens.long()], []
     for _ in range(max_len - 1):
-        logits = policy_mod.forward(params, cfg, features, torch.stack(toks, dim=1))
-        toks.append(torch.argmax(logits[:, -1, :], dim=-1))
-    return torch.stack(toks, dim=1).to(torch.int32)
+        logits = policy_mod.forward(params, cfg, features, torch.stack(toks, dim=1))[:, -1, :]
+        toks.append(torch.argmax(logits, dim=-1))
+        if margins:
+            top2 = torch.topk(logits, 2, dim=-1).values
+            gaps.append(top2[:, 0] - top2[:, 1])
+    out = torch.stack(toks, dim=1).to(torch.int32)
+    return (out, torch.stack(gaps, dim=1)) if margins else out

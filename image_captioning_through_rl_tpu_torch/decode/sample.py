@@ -13,7 +13,7 @@ logits first; ``top_k`` keeps the k highest per row, every tie at the k-th
 value included; ``top_p`` keeps the smallest prefix of the
 probability-sorted vocabulary whose mass reaches ``top_p``, the crossing
 token included. Both on: top-k first, the nucleus over the renormalised
-survivors. Unidirectional policies only, like the rest of the port.
+survivors. Both direction modes step through :func:`..models.policy.step`.
 """
 
 from __future__ import annotations

@@ -15,8 +15,12 @@ Counterpart of the JAX ``models/convert.py``. Layout facts:
 The reference a2c checkpoint carries both networks under
 ``value_network.*`` and ``policy_network.*``; the reward network's keys are
 ``rewrnn.caption_embedding.weight``, ``rewrnn.gru.*_l0``, ``visual_embed``
-and ``semantic_embed``. These ``.pt`` files are one of the port's two
-checkpoint formats; the other, native ``.ckpt``, is
+and ``semantic_embed``. A bidirectional network's backward direction is
+torch's ``*_l0_reverse`` keys (the port's ``lstm_bwd`` / ``gru_bwd``), the
+forward its ``*_l0`` keys (``lstm_fwd`` / ``gru_fwd``), and the critic adds
+``rnn_linear``; every converter takes ``bidirectional``, and a state dict
+whose ``_reverse`` keys disagree with it raises. These ``.pt`` files are one
+of the port's two checkpoint formats; the other, native ``.ckpt``, is
 :mod:`..train.checkpoint`'s msgpack tree.
 """
 
@@ -48,27 +52,34 @@ def _linear(sd: Mapping, prefix: str) -> dict:
     return {"w": _t(sd[f"{prefix}.weight"]).T.contiguous(), "b": _t(sd[f"{prefix}.bias"])}
 
 
-def _lstm(sd: Mapping, prefix: str) -> dict:
+def _lstm(sd: Mapping, prefix: str, reverse: bool = False) -> dict:
+    sfx = "_reverse" if reverse else ""
     return {
-        "wi": _t(sd[f"{prefix}.weight_ih_l0"]).T.contiguous(),
-        "wh": _t(sd[f"{prefix}.weight_hh_l0"]).T.contiguous(),
-        "b": _t(sd[f"{prefix}.bias_ih_l0"]) + _t(sd[f"{prefix}.bias_hh_l0"]),
+        "wi": _t(sd[f"{prefix}.weight_ih_l0{sfx}"]).T.contiguous(),
+        "wh": _t(sd[f"{prefix}.weight_hh_l0{sfx}"]).T.contiguous(),
+        "b": _t(sd[f"{prefix}.bias_ih_l0{sfx}"]) + _t(sd[f"{prefix}.bias_hh_l0{sfx}"]),
     }
 
 
-def _gru(sd: Mapping, prefix: str) -> dict:
+def _gru(sd: Mapping, prefix: str, reverse: bool = False) -> dict:
+    sfx = "_reverse" if reverse else ""
     return {
-        "wi": _t(sd[f"{prefix}.weight_ih_l0"]).T.contiguous(),
-        "wh": _t(sd[f"{prefix}.weight_hh_l0"]).T.contiguous(),
-        "bi": _t(sd[f"{prefix}.bias_ih_l0"]),
-        "bh": _t(sd[f"{prefix}.bias_hh_l0"]),
+        "wi": _t(sd[f"{prefix}.weight_ih_l0{sfx}"]).T.contiguous(),
+        "wh": _t(sd[f"{prefix}.weight_hh_l0{sfx}"]).T.contiguous(),
+        "bi": _t(sd[f"{prefix}.bias_ih_l0{sfx}"]),
+        "bh": _t(sd[f"{prefix}.bias_hh_l0{sfx}"]),
     }
 
 
-def _check_unidirectional(sd: Mapping) -> None:
-    if any(k.endswith("_reverse") for k in sd):
-        raise NotImplementedError(
-            "bidirectional checkpoints are not ported yet (ROADMAP §1 item 5)")
+def _check_directions(sd: Mapping, bidirectional: bool) -> None:
+    """A state dict's ``_reverse`` keys must agree with ``bidirectional``
+    (the JAX converters would drop them, or fail on a missing key)."""
+    reverse = any(k.endswith("_reverse") for k in sd)
+    if reverse and not bidirectional:
+        raise ValueError("a bidirectional checkpoint: load it with bidirectional=True "
+                         "(--bidirectional)")
+    if bidirectional and not reverse:
+        raise ValueError("bidirectional=True, but the checkpoint has no _reverse weights")
 
 
 def _strip_prefix(sd: Mapping, prefix: str) -> dict:
@@ -78,40 +89,51 @@ def _strip_prefix(sd: Mapping, prefix: str) -> dict:
     return out
 
 
-def policy_from_state_dict(sd: Mapping) -> dict:
-    _check_unidirectional(sd)
+def _rnn_pair(read, sd: Mapping, prefix: str, name: str, bidirectional: bool) -> dict:
+    """``{name: ...}`` or ``{name_fwd: ..., name_bwd: ...}`` from torch's
+    ``*_l0`` / ``*_l0_reverse`` keys."""
+    if bidirectional:
+        return {f"{name}_fwd": read(sd, prefix), f"{name}_bwd": read(sd, prefix, reverse=True)}
+    return {name: read(sd, prefix)}
+
+
+def policy_from_state_dict(sd: Mapping, bidirectional: bool = False) -> dict:
+    _check_directions(sd, bidirectional)
     return {
         "embedding": _t(sd["caption_embedding.weight"]),
         "cnn2linear": _linear(sd, "cnn2linear"),
         "head": _linear(sd, "linear2vocab"),
-        "lstm": _lstm(sd, "lstm"),
+        **_rnn_pair(_lstm, sd, "lstm", "lstm", bidirectional),
     }
 
 
-def value_from_state_dict(sd: Mapping) -> dict:
-    _check_unidirectional(sd)
-    return {
+def value_from_state_dict(sd: Mapping, bidirectional: bool = False) -> dict:
+    _check_directions(sd, bidirectional)
+    params = {
         "embedding": _t(sd["valrnn.caption_embedding.weight"]),
         "linear1": _linear(sd, "linear1"),
         "linear2": _linear(sd, "linear2"),
-        "lstm": _lstm(sd, "valrnn.lstm"),
+        **_rnn_pair(_lstm, sd, "valrnn.lstm", "lstm", bidirectional),
     }
+    if bidirectional:
+        params["rnn_linear"] = _linear(sd, "rnn_linear")
+    return params
 
 
-def reward_from_state_dict(sd: Mapping) -> dict:
-    _check_unidirectional(sd)
+def reward_from_state_dict(sd: Mapping, bidirectional: bool = False) -> dict:
+    _check_directions(sd, bidirectional)
     return {
         "embedding": _t(sd["rewrnn.caption_embedding.weight"]),
         "visual_embed": _linear(sd, "visual_embed"),
         "semantic_embed": _linear(sd, "semantic_embed"),
-        "gru": _gru(sd, "rewrnn.gru"),
+        **_rnn_pair(_gru, sd, "rewrnn.gru", "gru", bidirectional),
     }
 
 
-def a2c_from_state_dict(sd: Mapping) -> dict:
+def a2c_from_state_dict(sd: Mapping, bidirectional: bool = False) -> dict:
     return {
-        "value": value_from_state_dict(_strip_prefix(sd, "value_network.")),
-        "policy": policy_from_state_dict(_strip_prefix(sd, "policy_network.")),
+        "value": value_from_state_dict(_strip_prefix(sd, "value_network."), bidirectional),
+        "policy": policy_from_state_dict(_strip_prefix(sd, "policy_network."), bidirectional),
     }
 
 
@@ -124,48 +146,62 @@ def _linear_to(p: Mapping, prefix: str, out: dict) -> None:
     out[f"{prefix}.bias"] = _host(p["b"]).clone()
 
 
-def _lstm_to(p: Mapping, prefix: str, out: dict) -> None:
-    out[f"{prefix}.weight_ih_l0"] = _host(p["wi"]).T.contiguous()
-    out[f"{prefix}.weight_hh_l0"] = _host(p["wh"]).T.contiguous()
-    out[f"{prefix}.bias_ih_l0"] = _host(p["b"]).clone()
-    out[f"{prefix}.bias_hh_l0"] = torch.zeros_like(_host(p["b"]))
+def _lstm_to(p: Mapping, prefix: str, out: dict, reverse: bool = False) -> None:
+    sfx = "_reverse" if reverse else ""
+    out[f"{prefix}.weight_ih_l0{sfx}"] = _host(p["wi"]).T.contiguous()
+    out[f"{prefix}.weight_hh_l0{sfx}"] = _host(p["wh"]).T.contiguous()
+    out[f"{prefix}.bias_ih_l0{sfx}"] = _host(p["b"]).clone()
+    out[f"{prefix}.bias_hh_l0{sfx}"] = torch.zeros_like(_host(p["b"]))
 
 
-def _gru_to(p: Mapping, prefix: str, out: dict) -> None:
-    out[f"{prefix}.weight_ih_l0"] = _host(p["wi"]).T.contiguous()
-    out[f"{prefix}.weight_hh_l0"] = _host(p["wh"]).T.contiguous()
-    out[f"{prefix}.bias_ih_l0"] = _host(p["bi"]).clone()
-    out[f"{prefix}.bias_hh_l0"] = _host(p["bh"]).clone()
+def _gru_to(p: Mapping, prefix: str, out: dict, reverse: bool = False) -> None:
+    sfx = "_reverse" if reverse else ""
+    out[f"{prefix}.weight_ih_l0{sfx}"] = _host(p["wi"]).T.contiguous()
+    out[f"{prefix}.weight_hh_l0{sfx}"] = _host(p["wh"]).T.contiguous()
+    out[f"{prefix}.bias_ih_l0{sfx}"] = _host(p["bi"]).clone()
+    out[f"{prefix}.bias_hh_l0{sfx}"] = _host(p["bh"]).clone()
 
 
-def policy_to_state_dict(params: Mapping) -> dict:
+def _rnn_pair_to(write, params: Mapping, name: str, prefix: str, out: dict,
+                 bidirectional: bool) -> None:
+    if bidirectional:
+        write(params[f"{name}_fwd"], prefix, out)
+        write(params[f"{name}_bwd"], prefix, out, reverse=True)
+    else:
+        write(params[name], prefix, out)
+
+
+def policy_to_state_dict(params: Mapping, bidirectional: bool = False) -> dict:
     sd = {"caption_embedding.weight": _host(params["embedding"]).clone()}
     _linear_to(params["cnn2linear"], "cnn2linear", sd)
     _linear_to(params["head"], "linear2vocab", sd)
-    _lstm_to(params["lstm"], "lstm", sd)
+    _rnn_pair_to(_lstm_to, params, "lstm", "lstm", sd, bidirectional)
     return sd
 
 
-def value_to_state_dict(params: Mapping) -> dict:
+def value_to_state_dict(params: Mapping, bidirectional: bool = False) -> dict:
     sd = {"valrnn.caption_embedding.weight": _host(params["embedding"]).clone()}
     _linear_to(params["linear1"], "linear1", sd)
     _linear_to(params["linear2"], "linear2", sd)
-    _lstm_to(params["lstm"], "valrnn.lstm", sd)
+    _rnn_pair_to(_lstm_to, params, "lstm", "valrnn.lstm", sd, bidirectional)
+    if bidirectional:
+        _linear_to(params["rnn_linear"], "rnn_linear", sd)
     return sd
 
 
-def reward_to_state_dict(params: Mapping) -> dict:
+def reward_to_state_dict(params: Mapping, bidirectional: bool = False) -> dict:
     sd = {"rewrnn.caption_embedding.weight": _host(params["embedding"]).clone()}
     _linear_to(params["visual_embed"], "visual_embed", sd)
     _linear_to(params["semantic_embed"], "semantic_embed", sd)
-    _gru_to(params["gru"], "rewrnn.gru", sd)
+    _rnn_pair_to(_gru_to, params, "gru", "rewrnn.gru", sd, bidirectional)
     return sd
 
 
-def a2c_to_state_dict(params: Mapping) -> dict:
-    sd = {f"value_network.{k}": v for k, v in value_to_state_dict(params["value"]).items()}
+def a2c_to_state_dict(params: Mapping, bidirectional: bool = False) -> dict:
+    sd = {f"value_network.{k}": v
+          for k, v in value_to_state_dict(params["value"], bidirectional).items()}
     sd.update({f"policy_network.{k}": v
-               for k, v in policy_to_state_dict(params["policy"]).items()})
+               for k, v in policy_to_state_dict(params["policy"], bidirectional).items()})
     return sd
 
 
@@ -186,13 +222,13 @@ def _converter(table: dict, kind: str):
     return table[kind]
 
 
-def network_from_state_dict(kind: str, sd: Mapping) -> dict:
+def network_from_state_dict(kind: str, sd: Mapping, bidirectional: bool = False) -> dict:
     """A reference state dict of ``kind`` (policy, value, reward or a2c)
     -> the port's parameter tree (float32, CPU)."""
-    return _converter(_FROM, kind)(sd)
+    return _converter(_FROM, kind)(sd, bidirectional)
 
 
-def network_to_state_dict(kind: str, params: Mapping) -> dict:
+def network_to_state_dict(kind: str, params: Mapping, bidirectional: bool = False) -> dict:
     """The port's parameter tree of ``kind`` -> a reference state dict of
     float32 CPU tensors (``torch.save`` writes it as the reference does)."""
-    return _converter(_TO, kind)(params)
+    return _converter(_TO, kind)(params, bidirectional)

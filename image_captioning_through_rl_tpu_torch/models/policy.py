@@ -3,30 +3,34 @@
 Counterpart of the JAX ``models/policy.py``: token embedding -> LSTM
 whose initial hidden state is a linear projection of the image feature
 (cell state zeros) -> linear vocab head. Parameters are a plain dict in
-the JAX layout. Unidirectional only: the bidirectional policy is not
-ported yet (ROADMAP §1).
+the JAX layout. A bidirectional policy projects the feature to ``2H`` and
+splits it into per-direction initial states (``lstm_fwd``, ``lstm_bwd``),
+and its head reads ``[fwd_h_t, bwd_h_t]``.
 
   * :func:`forward` — full-sequence teacher forcing.
   * :func:`init_decode_state` + :func:`step` — incremental stepping that
-    carries ``(h, c)``, so decode is O(T).
+    carries ``(h, c)``, so decode is O(T). It is exact for a bidirectional
+    policy too: decoding reads the last position's logits only, and the
+    backward direction's state there is the first step of its right-to-left
+    scan, one cell applied to the current token from the fixed backward
+    initial state. The bidirectional step carries the forward ``(h, c)``
+    and recomputes that one backward cell per token.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
 from ..config import NetConfig
 from ..ops.linalg import dense
-from ..ops.rnn import LSTMState, lstm_cell, lstm_scan
+from ..ops.rnn import LSTMState, bilstm_scan, lstm_cell, lstm_scan
 from .initializers import embedding_init, linear_init, lstm_init
 
-
-def check_unidirectional(cfg: NetConfig) -> None:
-    if cfg.bidirectional:
-        raise NotImplementedError(
-            "bidirectional networks are not ported yet (ROADMAP §1 item 5)")
+# the carried decode state: ``(h, c)`` unidirectional, ``(fwd (h, c),
+# bwd_init (h, c))`` bidirectional
+DecodeState = Union[LSTMState, Tuple[LSTMState, LSTMState]]
 
 
 def embedding_table(gen: torch.Generator, cfg: NetConfig, pretrained_embeddings=None
@@ -39,22 +43,28 @@ def embedding_table(gen: torch.Generator, cfg: NetConfig, pretrained_embeddings=
 
 
 def init(gen: torch.Generator, cfg: NetConfig, pretrained_embeddings=None) -> dict:
-    check_unidirectional(cfg)
-    h = cfg.hidden_dim
+    h, nd = cfg.hidden_dim, cfg.num_directions
     embedding = embedding_table(gen, cfg, pretrained_embeddings)
-    return {
+    params = {
         "embedding": embedding,
-        "cnn2linear": linear_init(gen, cfg.input_dim, h),
-        "head": linear_init(gen, h, cfg.vocab_size),
-        "lstm": lstm_init(gen, embedding.shape[1], h),
+        "cnn2linear": linear_init(gen, cfg.input_dim, h * nd),
+        "head": linear_init(gen, h * nd, cfg.vocab_size),
     }
+    if cfg.bidirectional:
+        params["lstm_fwd"] = lstm_init(gen, embedding.shape[1], h)
+        params["lstm_bwd"] = lstm_init(gen, embedding.shape[1], h)
+    else:
+        params["lstm"] = lstm_init(gen, embedding.shape[1], h)
+    return params
 
 
-def init_decode_state(params: dict, cfg: NetConfig, features: torch.Tensor) -> LSTMState:
-    """Initial carried state ``(h0, c0)``: ``h0 = cnn2linear(features)``,
-    ``c0 = 0``."""
-    check_unidirectional(cfg)
+def init_decode_state(params: dict, cfg: NetConfig, features: torch.Tensor) -> DecodeState:
+    """Initial carried state: ``h0 = cnn2linear(features)``, ``c0 = 0``;
+    bidirectional, ``h0`` split into the forward and backward halves."""
     h0 = dense(features, params["cnn2linear"])
+    if cfg.bidirectional:
+        hf, hb = torch.chunk(h0, 2, dim=-1)
+        return (hf, torch.zeros_like(hf)), (hb, torch.zeros_like(hb))
     return h0, torch.zeros_like(h0)
 
 
@@ -62,14 +72,24 @@ def forward(params: dict, cfg: NetConfig, features: torch.Tensor,
             captions: torch.Tensor) -> torch.Tensor:
     """Teacher-forced forward. ``features [N, F]``, ``captions [N, T]`` -> ``[N, T, V]``."""
     xs = params["embedding"][captions].transpose(0, 1)  # [T, N, E]
-    hs, _ = lstm_scan(params["lstm"], xs, init_decode_state(params, cfg, features))
+    if cfg.bidirectional:
+        init_f, init_b = init_decode_state(params, cfg, features)
+        hs, _ = bilstm_scan(params["lstm_fwd"], params["lstm_bwd"], xs, init_f, init_b)
+    else:
+        hs, _ = lstm_scan(params["lstm"], xs, init_decode_state(params, cfg, features))
     return dense(hs, params["head"]).transpose(0, 1)
 
 
-def step(params: dict, cfg: NetConfig, tokens: torch.Tensor, state: LSTMState
-         ) -> Tuple[torch.Tensor, LSTMState]:
-    """Consume one token per sample: ``tokens [N]`` -> ``(logits [N, V], state)``."""
-    check_unidirectional(cfg)
+def step(params: dict, cfg: NetConfig, tokens: torch.Tensor, state: DecodeState
+         ) -> Tuple[torch.Tensor, DecodeState]:
+    """Consume one token per sample: ``tokens [N]`` -> ``(logits [N, V], state)``.
+    Bidirectional: the forward state advances, and one backward cell from
+    the carried backward initial state gives the backward half."""
     x = params["embedding"][tokens]
+    if cfg.bidirectional:
+        fwd, bwd_init = state
+        new_fwd = lstm_cell(params["lstm_fwd"], x, fwd)
+        h_bwd, _ = lstm_cell(params["lstm_bwd"], x, bwd_init)
+        return dense(torch.cat([new_fwd[0], h_bwd], dim=-1), params["head"]), (new_fwd, bwd_init)
     new_state = lstm_cell(params["lstm"], x, state)
     return dense(new_state[0], params["head"]), new_state

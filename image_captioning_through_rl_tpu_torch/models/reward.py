@@ -5,9 +5,10 @@ mode: token embedding -> GRU caption encoder -> ``semantic_embed``
 projection; image feature -> ``visual_embed`` projection. The forward
 returns the raw ``(ve, se)`` pair; the cosine reward and the VSE loss are
 separate ops (:func:`..ops.reward_ops.cosine_embedding_reward`,
-:func:`..ops.losses.visual_semantic_embedding_loss`). Unidirectional only:
-the bidirectional encoder and the batch-as-time compat mode (quirk Q1) are
-not ported yet (ROADMAP §1).
+:func:`..ops.losses.visual_semantic_embedding_loss`). A bidirectional
+encoder (``gru_fwd``, ``gru_bwd``) hands ``semantic_embed`` (2H -> H) its
+``2H`` encoding; it has no incremental step. The batch-as-time compat mode
+(quirk Q1) is not ported yet (ROADMAP §1).
 """
 
 from __future__ import annotations
@@ -21,25 +22,35 @@ from ..ops.linalg import dense
 from ..ops.reward_ops import cosine_embedding_reward
 from ..ops.rnn import gru_cell, gru_scan
 from .initializers import gru_init, linear_init
-from .policy import check_unidirectional, embedding_table
+from .policy import embedding_table
 
 
 def init(gen: torch.Generator, cfg: NetConfig, pretrained_embeddings=None) -> dict:
-    check_unidirectional(cfg)
     h = cfg.hidden_dim
     embedding = embedding_table(gen, cfg, pretrained_embeddings)
-    return {
+    params = {
         "embedding": embedding,
         "visual_embed": linear_init(gen, cfg.input_dim, h),
-        "semantic_embed": linear_init(gen, h, h),
-        "gru": gru_init(gen, embedding.shape[1], h),
+        "semantic_embed": linear_init(gen, h * cfg.num_directions, h),
     }
+    if cfg.bidirectional:
+        params["gru_fwd"] = gru_init(gen, embedding.shape[1], h)
+        params["gru_bwd"] = gru_init(gen, embedding.shape[1], h)
+    else:
+        params["gru"] = gru_init(gen, embedding.shape[1], h)
+    return params
 
 
 def encode(params: dict, cfg: NetConfig, captions: torch.Tensor) -> torch.Tensor:
-    """Per-sample caption encoding (batched mode). ``[N, T] -> [N, H]``."""
+    """Per-sample caption encoding (batched mode). ``[N, T] -> [N, H * nd]``."""
     xs = params["embedding"][captions].transpose(0, 1)  # [T, N, E]
-    hs, _ = gru_scan(params["gru"], xs, zero_rnn_state(cfg, captions.shape[0], xs.device))
+    z = zero_rnn_state(cfg, captions.shape[0], xs.device)
+    if cfg.bidirectional:
+        hs_f, _ = gru_scan(params["gru_fwd"], xs, z)
+        hs_b, _ = gru_scan(params["gru_bwd"], xs, z, reverse=True)
+        # [fwd after all T tokens, bwd after only token T-1]: torch's output[-1]
+        return torch.cat([hs_f[-1], hs_b[-1]], dim=-1)
+    hs, _ = gru_scan(params["gru"], xs, z)
     return hs[-1]
 
 
@@ -63,12 +74,12 @@ def get_rewards(params: dict, cfg: NetConfig, features: torch.Tensor,
 
 
 def zero_rnn_state(cfg: NetConfig, batch: int, device=None) -> torch.Tensor:
-    check_unidirectional(cfg)
     return torch.zeros((batch, cfg.hidden_dim), dtype=torch.float32, device=device)
 
 
 def rnn_step(params: dict, cfg: NetConfig, tokens: torch.Tensor, h: torch.Tensor
              ) -> torch.Tensor:
-    """Advance the encoder by one token id per sample."""
-    check_unidirectional(cfg)
+    """Advance the (unidirectional) encoder by one token id per sample."""
+    if cfg.bidirectional:
+        raise ValueError("incremental reward encoding requires unidirectional mode")
     return gru_cell(params["gru"], params["embedding"][tokens], h)

@@ -3,8 +3,15 @@
 Counterpart of the JAX ``models/value.py`` in its batched (per-sample)
 mode: token embedding -> LSTM caption encoder -> concat with the image
 feature -> ``linear1`` (F+H -> H) -> ``linear2`` (H -> 1), with no
-nonlinearity between the two linears. The reference-compat batch-as-time
-mode (quirk Q1) and the bidirectional critic are not ported yet.
+nonlinearity between the two linears. A bidirectional critic maps its
+``2H`` encoding through ``rnn_linear`` (2H -> H) first. The
+reference-compat batch-as-time mode (quirk Q1) is not ported yet.
+
+Incremental state: ``(h, c)`` unidirectional; bidirectional ``(fwd (h, c),
+h_bwd_last)``. :func:`encode` reads ``hs[-1]``, whose backward half is the
+reverse scan's state at the last position: one backward cell applied to
+the last token from the zero state, independent of the rest of the prefix.
+So stepping is exact for a bidirectional critic too.
 """
 
 from __future__ import annotations
@@ -13,27 +20,39 @@ import torch
 
 from ..config import NetConfig
 from ..ops.linalg import dense
-from ..ops.rnn import LSTMState, lstm_cell, lstm_scan
+from ..ops.rnn import bilstm_scan, lstm_cell, lstm_scan
 from .initializers import linear_init, lstm_init
-from .policy import check_unidirectional, embedding_table
+from .policy import embedding_table
 
 
 def init(gen: torch.Generator, cfg: NetConfig, pretrained_embeddings=None) -> dict:
-    check_unidirectional(cfg)
     h = cfg.hidden_dim
     embedding = embedding_table(gen, cfg, pretrained_embeddings)
-    return {
+    params = {
         "embedding": embedding,
         "linear1": linear_init(gen, cfg.input_dim + h, h),
         "linear2": linear_init(gen, h, 1),
-        "lstm": lstm_init(gen, embedding.shape[1], h),
     }
+    if cfg.bidirectional:
+        params["lstm_fwd"] = lstm_init(gen, embedding.shape[1], h)
+        params["lstm_bwd"] = lstm_init(gen, embedding.shape[1], h)
+        params["rnn_linear"] = linear_init(gen, 2 * h, h)
+    else:
+        params["lstm"] = lstm_init(gen, embedding.shape[1], h)
+    return params
 
 
 def encode(params: dict, cfg: NetConfig, captions: torch.Tensor) -> torch.Tensor:
     """Per-sample caption encoding. ``[N, T] -> [N, H]``."""
     xs = params["embedding"][captions].transpose(0, 1)  # [T, N, E]
-    hs, _ = lstm_scan(params["lstm"], xs, zero_rnn_state(cfg, captions.shape[0], xs.device))
+    z = torch.zeros((captions.shape[0], cfg.hidden_dim), dtype=torch.float32,
+                    device=xs.device)
+    if cfg.bidirectional:
+        hs, _ = bilstm_scan(params["lstm_fwd"], params["lstm_bwd"], xs, (z, z), (z, z))
+        # hs[-1] = [fwd after all T tokens, bwd after only token T-1]: torch's
+        # output[-1], as the JAX package keeps it for reference alignment
+        return dense(hs[-1], params["rnn_linear"])
+    hs, _ = lstm_scan(params["lstm"], xs, (z, z))
     return hs[-1]
 
 
@@ -50,25 +69,32 @@ def forward(params: dict, cfg: NetConfig, features: torch.Tensor,
     return value_head(params, cfg, features, encode(params, cfg, captions))
 
 
-def zero_rnn_state(cfg: NetConfig, batch: int, device=None) -> LSTMState:
-    check_unidirectional(cfg)
+def zero_rnn_state(cfg: NetConfig, batch: int, device=None):
     z = torch.zeros((batch, cfg.hidden_dim), dtype=torch.float32, device=device)
-    return z, z
+    return ((z, z), z) if cfg.bidirectional else (z, z)
 
 
-def rnn_step_emb(params: dict, cfg: NetConfig, x: torch.Tensor, state: LSTMState) -> LSTMState:
+def rnn_step_emb(params: dict, cfg: NetConfig, x: torch.Tensor, state):
     """Advance the encoder by one already-embedded token ``x [..., E]``
     (any leading shape — the beam expands candidates as ``[N, B, B, E]``)."""
-    check_unidirectional(cfg)
+    if cfg.bidirectional:
+        fwd, _ = state
+        z = torch.zeros(x.shape[:-1] + (cfg.hidden_dim,), dtype=x.dtype, device=x.device)
+        h_bwd, _ = lstm_cell(params["lstm_bwd"], x, (z, z))
+        return lstm_cell(params["lstm_fwd"], x, fwd), h_bwd
     return lstm_cell(params["lstm"], x, state)
 
 
-def rnn_step(params: dict, cfg: NetConfig, tokens: torch.Tensor, state: LSTMState) -> LSTMState:
+def rnn_step(params: dict, cfg: NetConfig, tokens: torch.Tensor, state):
     """Advance the encoder by one token id per sample."""
     return rnn_step_emb(params, cfg, params["embedding"][tokens], state)
 
 
 def value_from_state(params: dict, cfg: NetConfig, features: torch.Tensor,
-                     state: LSTMState) -> torch.Tensor:
+                     state) -> torch.Tensor:
     """Value of the prefix whose encoding is carried in ``state`` -> ``[..., 1]``."""
+    if cfg.bidirectional:
+        (h_f, _), h_bwd = state
+        rnn_out = dense(torch.cat([h_f, h_bwd], dim=-1), params["rnn_linear"])
+        return value_head(params, cfg, features, rnn_out)
     return value_head(params, cfg, features, state[0])

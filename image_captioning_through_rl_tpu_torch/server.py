@@ -26,7 +26,7 @@ Raw-image (``images_b64``) requests answer 400: they are not ported yet.
 :mod:`.client` wraps the wire formats.
 
     python -m image_captioning_through_rl_tpu_torch.server \\
-        --model a2cNetwork.pt --vocab coco2014_vocab.json [--device cuda]
+        --model a2cNetwork.pt --vocab coco2014_vocab.json [--device cuda] [--bidirectional]
 """
 
 from __future__ import annotations
@@ -436,6 +436,9 @@ def main(argv=None, block: bool = True):
     ap.add_argument("--model", required=True,
                     help="a2c checkpoint in the reference .pt layout")
     ap.add_argument("--vocab", required=True, help="coco2014_vocab.json")
+    ap.add_argument("--bidirectional", action="store_true", default=False,
+                    help="the model's encoders are bidirectional (served by the eager "
+                         "decodes: no decode kernel serves a bidirectional model)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to decode on (default cuda; there is no CPU "
                          "fallback when no GPU is found)")
@@ -457,7 +460,8 @@ def main(argv=None, block: bool = True):
                          "bucket * num_samples rows)")
     args = ap.parse_args(argv)
 
-    cap = load_captioner(args.model, args.vocab, device=args.device)
+    cap = load_captioner(args.model, args.vocab, device=args.device,
+                         bidirectional=args.bidirectional)
     srv = CaptionServer(cap, host=args.host, port=args.port, max_batch=args.max_batch,
                         max_wait_ms=args.max_wait_ms, max_body_mb=args.max_body_mb,
                         max_samples=args.max_samples)

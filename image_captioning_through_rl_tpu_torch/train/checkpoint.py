@@ -12,12 +12,16 @@ A network's file format follows its path's suffix, as in the JAX package:
 Every write is published atomically. :func:`load_network` checks the tree's
 keys against the network kind's and, given a config, every shape: the JAX
 package's ``from_bytes`` copies without a shape check; the port raises,
-naming the file and the first leaf that differs. ``.trainstate`` snapshots
-and Orbax are not ported (ROADMAP §1 item 7).
+naming the file and the first leaf that differs. A network's direction
+is its tree's: a ``.pt`` with ``_reverse`` keys or a tree whose cells are
+``*_fwd`` / ``*_bwd`` pairs is bidirectional, and a given ``cfg`` must
+agree with it. ``.trainstate`` snapshots and Orbax are not ported (ROADMAP
+§1 item 7).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
@@ -81,11 +85,13 @@ def _leaves(tree: dict, path=()):
 
 def _check_network(kind: str, params: dict, path: str, cfg: Optional[NetConfig] = None) -> None:
     """Raise ``ValueError`` unless ``params`` has the leaves of a ``kind``
-    network (float32), and, given ``cfg``, their shapes; the message names
-    ``path`` and the first leaf that differs."""
+    network (float32) of ``cfg``'s directions (the tree's own without one),
+    and, given ``cfg``, their shapes; the message names ``path`` and the
+    first leaf that differs."""
     if kind not in _INITS:
         raise ValueError(f"unknown network kind {kind!r} (expected one of {sorted(_INITS)})")
-    want = dict(_leaves(_INITS[kind](torch.Generator().manual_seed(0), cfg or _KEYS_CFG)))
+    keys_cfg = cfg or dataclasses.replace(_KEYS_CFG, bidirectional=is_bidirectional(kind, params))
+    want = dict(_leaves(_INITS[kind](torch.Generator().manual_seed(0), keys_cfg)))
     got = dict(_leaves(params))
     for name in sorted(want.keys() | got.keys()):
         if name not in got:
@@ -97,7 +103,8 @@ def _check_network(kind: str, params: dict, path: str, cfg: Optional[NetConfig] 
         if cfg is not None and tuple(got[name].shape) != tuple(want[name].shape):
             raise ValueError(f"{path}: leaf {name!r} has shape {tuple(got[name].shape)}, but "
                              f"this {kind} network needs {tuple(want[name].shape)} (check "
-                             f"--input_dim/--wordvec_dim/--hidden_dim and the vocabulary)")
+                             f"--input_dim/--wordvec_dim/--hidden_dim, --bidirectional and the "
+                             f"vocabulary)")
 
 
 def load_network(kind: str, path: str, device="cuda", cfg: Optional[NetConfig] = None) -> dict:
@@ -105,20 +112,31 @@ def load_network(kind: str, path: str, device="cuda", cfg: Optional[NetConfig] =
     parameter tree, float32 on ``device`` (the card unless the caller asks
     for ``"cpu"``; a missing CUDA device raises). ``.pt`` goes through the
     reference converters, any other path through msgpack; the tree is
-    checked by :func:`_check_network`."""
+    checked by :func:`_check_network`. The network is bidirectional when
+    ``cfg`` is, or, without ``cfg``, when the file is."""
     device = resolve_device(device)
     if str(path).endswith(".pt"):
-        params = network_from_state_dict(kind, load_state_dict(path))
+        sd = load_state_dict(path)
+        bidirectional = (cfg.bidirectional if cfg is not None
+                         else any(k.endswith("_reverse") for k in sd))
+        params = network_from_state_dict(kind, sd, bidirectional)
     else:
         params = load_pytree(path)
     _check_network(kind, params, path, cfg)
     return to_device(params, device)
 
 
+def is_bidirectional(kind: str, params: dict) -> bool:
+    """Whether a ``kind`` tree's recurrent cells are ``*_fwd`` / ``*_bwd``
+    pairs."""
+    tree = params.get("policy", {}) if kind == "a2c" else params
+    return any(k.endswith("_fwd") for k in tree)
+
+
 def save_network_pt(kind: str, params: dict, path: str) -> None:
-    """``params`` of ``kind`` as a reference-layout ``.pt`` state dict,
-    published atomically."""
-    sd = network_to_state_dict(kind, params)
+    """``params`` of ``kind`` as a reference-layout ``.pt`` state dict (the
+    ``_reverse`` keys too for a bidirectional tree), published atomically."""
+    sd = network_to_state_dict(kind, params, is_bidirectional(kind, params))
     with atomic_write(path) as f:
         torch.save(sd, f)
 

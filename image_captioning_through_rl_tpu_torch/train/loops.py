@@ -23,17 +23,20 @@ Reproduced reference behaviours:
 ``fused_chain=None`` (``fused_rollout=None`` for A2C) runs the kernels on a
 CUDA device and the plain steps on the CPU; ``True`` forces the fused
 steps (on the CPU their wrappers run the kernels' plain versions),
-``False`` the plain ones. Every network and save path is written in the
-format its suffix names (:func:`.checkpoint.save_network`: ``.pt`` the
-reference state dict, anything else — the CLI's ``.ckpt`` — the native
-msgpack tree); a divergence dump goes to ``<path>.diverged`` in the native
-format, as in the JAX package. Not ported yet (ROADMAP §1): chunked steps,
+``False`` the plain ones. A bidirectional config runs the plain steps on
+its device (the fused ones are unidirectional, as in the JAX package), and
+an explicit ``True`` raises ``ValueError``. Every network and save path is
+written in the format its suffix names (:func:`.checkpoint.save_network`:
+``.pt`` the reference state dict, anything else — the CLI's ``.ckpt`` — the
+native msgpack tree); a divergence dump goes to ``<path>.diverged`` in the
+native format, as in the JAX package. Not ported yet (ROADMAP §1): chunked steps,
 device-resident tables, the mesh, ``.trainstate`` snapshots and resume, and
-the compat (Q1) and bidirectional networks.
+the compat (Q1) networks.
 
 The evaluation half: ``load_a2c_models`` loads a finished model, and
 ``test_a2c_network`` decodes random val draws with the value-guided beam
-(``csrc/beam_search.cu`` on the card) and dumps the real and generated
+(``csrc/beam_search.cu`` on the card; a bidirectional model's carried eager
+beam, :func:`..decode.beam.beam_search`) and dumps the real and generated
 captions and the image urls, which :mod:`..metrics` scores. It draws
 ``data_size`` val samples *with replacement* (quirk Q8) and walks them in
 127-wide slices per 128 stride (quirk Q9), as the JAX package does.
@@ -52,6 +55,7 @@ from .. import END_ID, MAX_SEQ_LEN
 from ..api import resolve_device
 from ..config import DecodeConfig, NetConfig, TrainConfig
 from ..data.coco import CocoData, decode_captions, get_coco_batch, get_coco_minibatches
+from ..decode.beam import beam_search
 from ..models import policy as policy_mod
 from ..models import reward as reward_mod
 from ..models import value as value_mod
@@ -89,7 +93,22 @@ def _device(device) -> torch.device:
     return resolve_device("cuda" if device is None else device)
 
 
-def _use_fused(fused_chain: Optional[bool], device: torch.device) -> bool:
+def _forced_fused_conflict(flag, what: str, why: str) -> None:
+    """An explicitly forced fused path that cannot run raises rather than
+    quietly running another program (the JAX package's rule)."""
+    if flag:
+        raise ValueError(f"{what} was explicitly forced but cannot be honored {why} — the "
+                         "fused kernels are unidirectional; drop the force flag or the "
+                         "conflicting mode")
+
+
+def _use_fused(fused_chain: Optional[bool], device: torch.device, cfg: NetConfig,
+               what: str = "fused_chain") -> bool:
+    """The fused steps run on a CUDA device unless ``fused_chain`` says
+    otherwise; never for a bidirectional ``cfg`` (forcing them raises)."""
+    if cfg.bidirectional:
+        _forced_fused_conflict(fused_chain, what, "with a bidirectional model")
+        return False
     return device.type == "cuda" if fused_chain is None else bool(fused_chain)
 
 
@@ -192,12 +211,13 @@ def train_reward_network(train_data: CocoData, network_paths: Dict[str, str],
     parameters."""
     ckpt_path, cfg, dev = _start("reward", train_data, network_paths, bidirectional, net_dims,
                                  device)
+    fused = _use_fused(fused_chain, dev, cfg)
     writer = make_metrics_writer(plot_dir)
     rng = np.random.default_rng(seed)
     params = ckpt.to_device(reward_mod.init(torch.Generator().manual_seed(seed), cfg,
                                             train_data.embeddings), dev)
     opt = adam(lr, params, cfg.freeze_embeddings)
-    step = steps.make_reward_step(cfg, opt, fused=_use_fused(fused_chain, dev))
+    step = steps.make_reward_step(cfg, opt, fused=fused)
     print_green("[Training] Training Reward Network")
     params = _drive_best_loss_training(
         "Training Reward Network", "Reward Network-loss", "reward", ckpt_path, writer, epochs,
@@ -216,12 +236,13 @@ def train_policy_network(train_data: CocoData, network_paths: Dict[str, str],
     writes ``network_paths["policy_network"]``."""
     ckpt_path, cfg, dev = _start("policy", train_data, network_paths, bidirectional, net_dims,
                                  device)
+    fused = _use_fused(fused_chain, dev, cfg)
     writer = make_metrics_writer(plot_dir)
     rng = np.random.default_rng(seed + 1)
     params = ckpt.to_device(policy_mod.init(torch.Generator().manual_seed(seed + 1), cfg,
                                             train_data.embeddings), dev)
     opt = adam(lr, params, cfg.freeze_embeddings)
-    step = steps.make_policy_step(cfg, opt, fused=_use_fused(fused_chain, dev))
+    step = steps.make_policy_step(cfg, opt, fused=fused)
     print_green("[Training] Training Policy Network")
     params = _drive_best_loss_training(
         "Training Policy Network", "Policy Network-loss", "policy", ckpt_path, writer, epochs,
@@ -242,6 +263,7 @@ def train_value_network(train_data: CocoData, network_paths: Dict[str, str],
     ``network_paths["value_network"]``."""
     ckpt_path, cfg, dev = _start("value", train_data, network_paths, bidirectional, net_dims,
                                  device)
+    fused = _use_fused(fused_chain, dev, cfg)
     writer = make_metrics_writer(plot_dir)
     rng = np.random.default_rng(seed + 2)
     py_rng = pyrandom.Random(seed + 2)
@@ -250,7 +272,7 @@ def train_value_network(train_data: CocoData, network_paths: Dict[str, str],
     params = ckpt.to_device(value_mod.init(torch.Generator().manual_seed(seed + 2), cfg,
                                            train_data.embeddings), dev)
     opt = adam(lr, params, cfg.freeze_embeddings)
-    step = steps.make_value_step(cfg, opt, pparams, rparams, fused=_use_fused(fused_chain, dev))
+    step = steps.make_value_step(cfg, opt, pparams, rparams, fused=fused)
 
     def single_step(params, features, captions):
         # one random prefix length per minibatch, shared by the batch
@@ -339,10 +361,11 @@ def a2c_training(train_data: CocoData, a2c_params: dict, reward_params: dict,
     the start column, the A2C loss and one optimiser step of ``a2c_params``
     (updated in place); the weights go to every path of ``save_paths``
     after every epoch. Numpy seed and threefry key ``seed + 3``."""
-    writer = make_metrics_writer(plot_dir)
     device = a2c_params["policy"]["embedding"].device
     step = steps.make_a2c_step(cfg, optimizer, per_step_mean=False,
-                               fused=_use_fused(fused_rollout, device), fuse_reward=fuse_reward)
+                               fused=_use_fused(fused_rollout, device, cfg, "fused_rollout"),
+                               fuse_reward=fuse_reward)
+    writer = make_metrics_writer(plot_dir)
     print_green("[Training] Training Advantage Actor-Critic Network")
     _a2c_epochs("Training A2C Network",
                 ("A2C Network-episodic-loss", "A2C Network-episodic-mean-rewards",
@@ -363,10 +386,11 @@ def a2c_curriculum_training(train_data: CocoData, a2c_params: dict, reward_param
     that teacher-force the ground-truth prefix of length ``caplen - level``
     and roll out the last ``level`` tokens, with the per-step-mean loss. One
     numpy generator and one key (``seed + 4``) run through all levels."""
-    writer = make_metrics_writer(plot_dir)
     device = a2c_params["policy"]["embedding"].device
     step = steps.make_a2c_step(cfg, optimizer, per_step_mean=True,
-                               fused=_use_fused(fused_rollout, device), fuse_reward=fuse_reward)
+                               fused=_use_fused(fused_rollout, device, cfg, "fused_rollout"),
+                               fuse_reward=fuse_reward)
+    writer = make_metrics_writer(plot_dir)
     rng, key = np.random.default_rng(seed + 4), PRNGKey(seed + 4)
     print_green("[Training] Training Advantage Actor-Critic Network")
     print_green(f"[Training] mode set to curriculum training using levels: {list(curriculum)}")
@@ -403,6 +427,7 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
     reward_params, cfg)``."""
     cfg = _cfg_for(train_data, bidirectional, net_dims)
     dev = _device(device)
+    _use_fused(fused_rollout, dev, cfg, "fused_rollout")  # raises before any training
     all_save_paths = [save_paths["model_path"], network_paths["a2c_network"]]
     kw = dict(batch_size=batch_size, seed=seed, device=dev, net_dims=net_dims)
     trainers = {"reward": train_reward_network, "policy": train_policy_network,
@@ -477,23 +502,41 @@ def test_a2c_network(a2c_params: dict, cfg: NetConfig, test_data: CocoData,
     where the beam runs the kernel (:func:`..ops.fused_beam.fused_beam_search`),
     float32 on the CPU, where it runs the plain version.
     ``use_fused_kernel=False`` runs the plain version; ``True`` on the CPU
-    raises. The faithful (Q2 batch-mean) mode and bidirectional networks
-    are not ported: they raise ``NotImplementedError``.
+    raises. A bidirectional model runs the carried beam
+    (:func:`..decode.beam.beam_search`) in float32 on ``device``, as the
+    JAX package routes it, and refuses ``use_fused_kernel=True``. The
+    faithful (Q2 batch-mean) mode is not ported: it raises
+    ``NotImplementedError``.
     """
     dcfg = dcfg or DecodeConfig(max_seq_len=cfg.max_seq_len)
     if not dcfg.per_sample_beams:
         raise NotImplementedError(
             "the faithful evaluation (the Q2 batch-mean beam with the Q1-stateful critic) is "
             "not ported yet (ROADMAP §1 item 6)")
-    policy_mod.check_unidirectional(cfg)
+    if cfg.bidirectional:
+        _forced_fused_conflict(use_fused_kernel, "use_fused_kernel=True",
+                               "with a bidirectional model")
     dev = _device(device)
     if use_fused_kernel and dev.type != "cuda":
         raise RuntimeError("use_fused_kernel=True needs a CUDA device: the beam kernel runs "
                            "only on the card")
-    wd = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    weights = prepare_beam_weights(
-        prepare_greedy_weights(ckpt.to_device(a2c_params["policy"], dev), wd),
-        ckpt.to_device(a2c_params["value"], dev))
+    if cfg.bidirectional:
+        pparams, vparams = (ckpt.to_device(a2c_params[k], dev) for k in ("policy", "value"))
+
+        def decode(features, start):
+            with torch.no_grad():
+                return beam_search(pparams, vparams, cfg, dcfg, features, start)
+    else:
+        wd = torch.bfloat16 if dev.type == "cuda" else torch.float32
+        weights = prepare_beam_weights(
+            prepare_greedy_weights(ckpt.to_device(a2c_params["policy"], dev), wd),
+            ckpt.to_device(a2c_params["value"], dev))
+
+        def decode(features, start):
+            return fused_beam_search(
+                weights, features, start, max_len=dcfg.max_seq_len, beam=dcfg.beam_size,
+                value_weight=dcfg.value_weight, logprob_weight=dcfg.logprob_weight,
+                use_fused_kernel=use_fused_kernel)
 
     rng = np.random.default_rng(seed + 5)
     captions_all, features_all, urls_all = get_coco_batch(
@@ -527,11 +570,9 @@ def test_a2c_network(a2c_params: dict, cfg: NetConfig, test_data: CocoData,
                     [features_real, np.repeat(features_real[-1:], pad, axis=0)], axis=0)
                 captions_real = np.concatenate(
                     [captions_real, np.repeat(captions_real[-1:], pad, axis=0)], axis=0)
-            toks, _ = fused_beam_search(
-                weights, torch.from_numpy(np.ascontiguousarray(features_real, np.float32)).to(dev),
-                torch.from_numpy(captions_real[:, 0].astype(np.int32)).to(dev),
-                max_len=dcfg.max_seq_len, beam=dcfg.beam_size, value_weight=dcfg.value_weight,
-                logprob_weight=dcfg.logprob_weight, use_fused_kernel=use_fused_kernel)
+            toks, _ = decode(
+                torch.from_numpy(np.ascontiguousarray(features_real, np.float32)).to(dev),
+                torch.from_numpy(captions_real[:, 0].astype(np.int32)).to(dev))
             gen_all = toks[:n_real, 0].cpu().numpy()  # most likely = beam 0
             # write per original slice, the reference's cadence
             off = 0
@@ -558,7 +599,6 @@ def load_a2c_models(model_path: str, train_data: CocoData, network_paths: Dict[s
     on ``device`` (the card unless the caller asks for the CPU; a missing
     CUDA device raises)."""
     cfg = _cfg_for(train_data, bidirectional, net_dims)
-    policy_mod.check_unidirectional(cfg)
     dev = _device(device)
     params = {kind: ckpt.load_network(kind, network_paths[f"{kind}_network"], dev, cfg)
               for kind in ("value", "policy")}

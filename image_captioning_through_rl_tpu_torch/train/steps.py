@@ -1,5 +1,5 @@
-"""Training steps (counterpart of the JAX ``train/steps.py``,
-unidirectional and non-compat forms only).
+"""Training steps (counterpart of the JAX ``train/steps.py``, non-compat
+forms only).
 
   * reward — VSE ranking loss (reference trainers.py:260-309);
   * policy — caption-length-weighted XE (trainers.py:202-257);
@@ -21,6 +21,13 @@ The A2C rollout's fused form, :func:`a2c_rollout_loss_fused`, runs through
 tensors, their plain versions on CPU tensors), with the reward stream fused
 in by default.
 
+Bidirectional networks take the plain forms, as in the JAX package, whose
+fused steps refuse them: the value step regresses the value of the greedy
+rollout's prefix re-encoded (:func:`value_regression_loss`), and A2C runs
+:func:`a2c_rollout_loss_full`, which re-runs the three forwards on the
+growing prefix. ``fused=True`` with a bidirectional config raises
+``ValueError``.
+
 A step built by ``make_*_step`` runs one minibatch — loss, backward, one
 optimiser step that updates the parameter tensors in place — and returns
 the loss (the A2C step: its :class:`RolloutStats`) as detached 0-d tensors
@@ -36,6 +43,7 @@ import torch
 from .. import END_ID
 from ..config import NetConfig
 from ..decode.greedy import greedy_decode
+from ..models import a2c as a2c_mod
 from ..models import policy as policy_mod
 from ..models import reward as reward_mod
 from ..models import value as value_mod
@@ -88,7 +96,9 @@ def reward_loss_fused(params, cfg: NetConfig, features, captions, beta=0.2,
 def make_reward_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, beta=0.2,
                      fused: bool = False):
     """``step(params, features, captions) -> loss``; ``fused=True`` runs the
-    GRU chain through its kernels."""
+    GRU chain through its kernels (unidirectional only)."""
+    if fused and cfg.bidirectional:
+        raise ValueError("fused reward step is unidirectional, non-compat only")
     loss_fn = reward_loss_fused if fused else reward_loss
 
     def step(params, features, captions):
@@ -120,7 +130,9 @@ def policy_loss_fused(params, cfg: NetConfig, features, captions, caplens,
 
 def make_policy_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, fused: bool = False):
     """``step(params, features, captions) -> loss``; ``fused=True`` runs the
-    LSTM chain through its kernels."""
+    LSTM chain through its kernels (unidirectional only)."""
+    if fused and cfg.bidirectional:
+        raise ValueError("fused policy step is unidirectional only")
     loss_fn = policy_loss_fused if fused else policy_loss
 
     def step(params, features, captions):
@@ -162,7 +174,12 @@ def value_regression_loss(vparams, cfg: NetConfig, features, gen_caps, rewards,
     (shared by the batch, trainers.py:177) against ``rewards``. The encoder
     runs over the whole rollout and the value reads its state at
     ``prefix_len - 1``; ``fused=True`` runs it through the LSTM chain
-    kernels."""
+    kernels. A bidirectional critic encodes ``gen_caps[:, :prefix_len]``
+    itself (its backward direction starts at the prefix's end), as the JAX
+    package's ``steps.py:352-373`` does."""
+    if cfg.bidirectional:
+        values = value_mod.forward(vparams, cfg, features, gen_caps[:, :prefix_len])
+        return torch.mean(torch.square(values - rewards))
     n = gen_caps.shape[0]
     zeros = torch.zeros((n, cfg.hidden_dim), dtype=torch.float32, device=features.device)
     if fused:
@@ -194,7 +211,9 @@ def make_value_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, pparams: d
     frozen policy ``pparams`` and reward network ``rparams`` (loaded, not
     trained: trainers.py:140-150). ``fused=True`` prepares the policy's
     bf16 greedy-kernel weights once, here, and runs the rollout and the
-    value encoder through their kernels."""
+    value encoder through their kernels (unidirectional only)."""
+    if fused and cfg.bidirectional:
+        raise ValueError("fused value step is unidirectional, non-compat only")
     greedy_weights = prepare_greedy_weights(pparams) if fused else None
 
     def step(vparams, features, captions, prefix_len):
@@ -275,6 +294,34 @@ def a2c_rollout_loss(a2c_params: dict, cfg: NetConfig, reward_params: dict, feat
                      torch.stack(log_probs, dim=1), curr_seq_len, caplen, per_step_mean)
 
 
+def a2c_rollout_loss_full(a2c_params: dict, cfg: NetConfig, reward_params: dict, features,
+                          captions, curr_seq_len: int, caplen, rng,
+                          per_step_mean: bool = False):
+    """The full-prefix rollout loss (the JAX package's ``steps.py:613-660``),
+    the one a bidirectional A2C step takes: its encoders' backward halves
+    have no carried state, so each step re-runs the policy, value and
+    reward forwards on the growing prefix, as the reference does
+    (trainers.py:441-459). The same step keys, draws, placed tokens, loss
+    and mask as :func:`a2c_rollout_loss`."""
+    t_max = captions.shape[1]
+    step_keys = split(rng, t_max - 1)
+    buf = captions[:, :1]
+    values, rewards, log_probs = [], [], []
+    for p in range(1, t_max):
+        value, logits = a2c_mod.forward(a2c_params, cfg, features, buf)
+        action = sample_categorical(step_keys[p - 1], logits.detach())
+        log_probs.append(log_prob_of(logits, action))
+        values.append(value[:, 0])
+        with torch.no_grad():  # the reward of prefix + the sampled action
+            ve, se = reward_mod.forward(reward_params, cfg, features,
+                                        torch.cat([buf, action[:, None]], dim=1))
+            rewards.append(cosine_embedding_reward(ve, se))
+        token_in = captions[:, p] if p < curr_seq_len else action
+        buf = torch.cat([buf, token_in[:, None]], dim=1)
+    return _a2c_loss(torch.stack(values, dim=1), torch.stack(rewards, dim=1),
+                     torch.stack(log_probs, dim=1), curr_seq_len, caplen, per_step_mean)
+
+
 def a2c_rollout_loss_fused(a2c_params: dict, cfg: NetConfig, reward_params: dict, features,
                            captions, curr_seq_len: int, caplen, rng,
                            per_step_mean: bool = False,
@@ -306,9 +353,16 @@ def make_a2c_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, per_step_mea
     (``per_step_mean=False``) or curriculum (``True``). ``rng`` is the
     minibatch's host key. ``fused=True`` runs the rollout through the
     rollout kernels (:func:`a2c_rollout_loss_fused`), with the reward
-    stream fused in or, ``fuse_reward=False``, as its own kernel."""
+    stream fused in or, ``fuse_reward=False``, as its own kernel. A
+    bidirectional config takes :func:`a2c_rollout_loss_full` and refuses
+    ``fused=True``."""
+    if fused and cfg.bidirectional:
+        raise ValueError("fused rollout is unidirectional, non-compat only")
     fused_kw = {"fuse_reward": fuse_reward} if fused else {}
-    rollout = a2c_rollout_loss_fused if fused else a2c_rollout_loss
+    if fused:
+        rollout = a2c_rollout_loss_fused
+    else:
+        rollout = a2c_rollout_loss_full if cfg.bidirectional else a2c_rollout_loss
 
     def step(a2c_params, reward_params, features, captions, curr_seq_len, rng):
         caplen = torch.max(batch_caption_lens(captions))

@@ -168,8 +168,13 @@ def test_config_precedence_and_errors(case, tmp_path, capsys):
     (["--pretrained_word2vec", "glove"], 10)])
 def test_unported_flags_raise_before_the_bundle_is_read(flags, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
+    argv = ["--data_dir", str(tmp_path / "missing"), *flags, "--device", "cpu"]
+    if item == 5:  # ported: --bidirectional no longer raises, the run reads the bundle
+        with pytest.raises(FileNotFoundError, match="missing"):
+            _port_run(argv)
+        return
     with pytest.raises(NotImplementedError, match=rf"^{flags[0]}: .*ROADMAP §1 item {item}\)"):
-        _port_run(["--data_dir", str(tmp_path / "missing"), *flags, "--device", "cpu"])
+        _port_run(argv)
     assert not (tmp_path / "logs").exists()
 
 
@@ -273,6 +278,48 @@ def test_retrain_run_writes_ckpts_the_jax_package_loads(coco, tmp_path, monkeypa
         np.testing.assert_array_equal(v, final[k], err_msg=k)
 
 
+def test_bidirectional_retrain_and_test_model_match_jax_cli(coco, tmp_path, monkeypatch):
+    """``--bidirectional --retrain`` writes every artifact under its
+    ``_bidirectional`` name, with finite losses; ``--bidirectional
+    --test_model`` on its a2c ``.ckpt`` writes the JAX CLI's dumps, byte for
+    byte, and its scores."""
+    monkeypatch.chdir(tmp_path)
+    pre = tmp_path / "pre"
+    out = _port_run(["--data_dir", coco, "--bidirectional", "--retrain", "--epochs", "1",
+                     "--batch_size", "8", "--test_size", "20", "--pretrained_path", str(pre),
+                     *DIMS, "--device", "cpu"])
+    assert out["cfg"].bidirectional
+    log = _log_dir(tmp_path)
+    bidi = {"a2cNetwork_bidirectional.ckpt", "generated_captions_bidirectional.txt",
+            "results_bidirectional.txt"}
+    assert set(os.listdir(log)) == ARTIFACTS - {"a2cNetwork.ckpt", "generated_captions.txt",
+                                                 "results.txt"} | bidi
+    assert set(os.listdir(pre)) == {f"{k}Network_bidirectional.ckpt"
+                                    for k in ("reward", "policy", "value", "a2c")}
+    values = [json.loads(x)["value"] for x in (log / "metrics.jsonl").read_text().splitlines()]
+    assert values and np.isfinite(values).all()
+
+    runs = {}
+    for side, run in (("j", _jax_run), ("t", _port_run)):
+        d = tmp_path / side
+        shutil.copytree(pre, d / "pre")
+        (d / "run").mkdir()
+        shutil.copy(log / "a2cNetwork_bidirectional.ckpt", d / "run")
+        monkeypatch.chdir(d)
+        run(["--data_dir", coco, "--bidirectional", "--test_model",
+             str(d / "run" / "a2cNetwork_bidirectional.ckpt"), "--test_size", "300",
+             "--pretrained_path", str(d / "pre"), *DIMS]
+            + (["--device", "cpu"] if side == "t" else []))
+        runs[side] = d / "run"
+    for name in ("real_captions.txt", "generated_captions_bidirectional.txt", "image_url.txt"):
+        assert (runs["t"] / name).read_bytes() == (runs["j"] / name).read_bytes(), name
+    (want,) = _scores(runs["j"] / "results_bidirectional.txt")
+    (got,) = _scores(runs["t"] / "results_bidirectional.txt")
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-12, abs=1e-300), k
+
+
 def test_profile_dir_leaves_a_trace(coco, jax_models, tmp_path, monkeypatch):
     d = tmp_path / "t"
     shutil.copytree(jax_models, d, ignore=shutil.ignore_patterns("run"))
@@ -325,6 +372,33 @@ def test_export_cli_matches_jax_export(kind, coco, jax_models, tmp_path):
                       "--input_dim", str(F), "--hidden_dim", str(WIDTH + 1)])
     with pytest.raises(SystemExit):
         texport.main([str(src), str(tmp_path / "x.pt"), "--kind", kind])
+
+
+@pytest.mark.parametrize("kind", ["policy", "value", "reward", "a2c"])
+def test_export_cli_bidirectional_matches_jax_export(kind, coco, tmp_path):
+    cfg = JNetConfig(vocab_size=V, input_dim=F, wordvec_dim=WIDTH, hidden_dim=WIDTH,
+                     bidirectional=True)
+    mods = {"policy": jpolicy, "value": jvalue, "reward": jreward}
+    tree = ({k: mods[k].init(jax.random.PRNGKey(i), cfg) for i, k in enumerate(("value",
+                                                                               "policy"))}
+            if kind == "a2c" else mods[kind].init(jax.random.PRNGKey(3), cfg))
+    src = tmp_path / f"{kind}Network_bidirectional.ckpt"
+    jckpt.save_pytree(tree, str(src))
+    widths = ["--input_dim", str(F), "--wordvec_dim", str(WIDTH), "--hidden_dim", str(WIDTH)]
+    sds = {}
+    for side, mod in (("j", jexport), ("t", texport)):
+        mod.main([str(src), str(tmp_path / f"{side}.pt"), "--kind", kind, "--vocab", coco,
+                  "--bidirectional", *widths])
+        sds[side] = torch.load(tmp_path / f"{side}.pt", weights_only=True)
+    texport.main([str(tmp_path / "j.pt"), str(tmp_path / "again.pt"), "--kind", kind,
+                  "--bidirectional"])
+    again = torch.load(tmp_path / "again.pt", weights_only=True)
+    assert sorted(sds["t"]) == sorted(sds["j"]) == sorted(again)
+    assert any(k.endswith("_reverse") for k in again)
+    for k, v in sds["j"].items():
+        assert torch.equal(sds["t"][k], v) and torch.equal(again[k], v), k
+    with pytest.raises(ValueError, match="--bidirectional does not match"):
+        texport.main([str(tmp_path / "j.pt"), str(tmp_path / "x.pt"), "--kind", kind])
 
 
 def _annotations(path, split, rng):

@@ -269,19 +269,22 @@ def test_evaluate_captions_matches_jax():
 
 
 def test_unported_modes_raise(small, tmp_path):
-    """The faithful (Q2 batch-mean) mode and bidirectional networks raise
-    before anything is drawn or written; so does a bidirectional load."""
+    """The faithful (Q2 batch-mean) mode raises before anything is drawn or
+    written; a bidirectional model forced onto the beam kernel raises
+    ``ValueError`` as early, and a bidirectional load reaches its files."""
     _, tdata, _, tp = small
     p = _paths(str(tmp_path))
     cfg = tconfig.NetConfig(**SMALL)
     with pytest.raises(NotImplementedError, match="item 6"):
         teval(tp, cfg, tdata, p, data_size=10, device="cpu",
               dcfg=tconfig.DecodeConfig(per_sample_beams=False))
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(ValueError, match="bidirectional"):
         teval(tp, dataclasses.replace(cfg, bidirectional=True), tdata, p, data_size=10,
-              device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tload(str(tmp_path / "a2c.pt"), tdata, {}, True, device="cpu")
+              device="cpu", use_fused_kernel=True)
+    with pytest.raises(FileNotFoundError):
+        tload(str(tmp_path / "a2c.pt"), tdata, {k: str(tmp_path / f"{k}.pt")
+                                                for k in ("policy_network", "value_network")},
+              True, device="cpu")
     assert not any(os.path.exists(p[k]) for k in DUMPS)
 
 

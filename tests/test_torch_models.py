@@ -130,11 +130,17 @@ def test_torch_init_shapes_match_jax():
 
 
 def test_bidirectional_raises():
-    cfg = tconfig.NetConfig(bidirectional=True, **KW)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        policy.init(torch.Generator().manual_seed(0), cfg)
-    sd = {"lstm.weight_ih_l0_reverse": torch.zeros(1)}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        from image_captioning_through_rl_tpu_torch.models import policy_from_state_dict
+    """A bidirectional config builds the JAX package's trees; a state dict
+    whose ``_reverse`` keys disagree with ``bidirectional`` raises."""
+    from image_captioning_through_rl_tpu_torch.models import policy_from_state_dict
 
+    cfg = tconfig.NetConfig(bidirectional=True, **KW)
+    jcfg = jconfig.NetConfig(bidirectional=True, **KW)
+    tp = a2c.init(torch.Generator().manual_seed(0), cfg)
+    jp = ja2c.init(jax.random.PRNGKey(0), jcfg)
+    assert jax.tree.map(np.shape, jp) == jax.tree.map(lambda t: tuple(t.shape), tp)
+    sd = {"lstm.weight_ih_l0_reverse": torch.zeros(1)}
+    with pytest.raises(ValueError, match="bidirectional=True"):
         policy_from_state_dict(sd)
+    with pytest.raises(ValueError, match="no _reverse"):
+        policy_from_state_dict({"lstm.weight_ih_l0": torch.zeros(1)}, bidirectional=True)

@@ -279,3 +279,38 @@ def test_client_round_trip_and_main_sampling_flags(models, tmp_path):
         assert stats["errors"] == 0 and stats["kernel_launches"]["fused_sample_decode"] == 0
     finally:
         srv.stop()
+
+
+def test_main_serves_a_bidirectional_model(tmp_path):
+    """``server.main --bidirectional`` on a bidirectional ``.pt``: greedy,
+    beam-5 and sampled requests answer the JAX Captioner's captions (its XLA
+    decodes, the only route the JAX package has for such a model)."""
+    kw = {k: v for k, v in KW.items() if k != "max_seq_len"}
+    jcfg = JNetConfig(precision="highest", bidirectional=True, **kw)
+    jp = ja2c.init(jax.random.PRNGKey(4), jcfg)
+    model_pt = tmp_path / "a2cNetwork_bidirectional.pt"
+    torch.save({k: torch.from_numpy(np.array(v))
+                for k, v in a2c_to_torch(jp, bidirectional=True).items()}, model_pt)
+    vocab = tmp_path / "coco2014_vocab.json"
+    vocab.write_text(json.dumps({"word_to_idx": {w: i for i, w in enumerate(WORDS)},
+                                 "idx_to_word": WORDS}))
+    with pytest.raises(ValueError, match="bidirectional=True"):
+        load_captioner(str(model_pt), str(vocab), device="cpu")
+    srv = server_mod.main(["--model", str(model_pt), "--vocab", str(vocab), "--bidirectional",
+                           "--device", "cpu", "--port", "0", "--max_batch", "8",
+                           "--warmup_beams", "0", "5"], block=False)
+    try:
+        assert srv._cap.cfg.bidirectional and srv._cap.cfg.hidden_dim == KW["hidden_dim"]
+        jcap = JCaptioner(jp, jcfg, IDX_TO_WORD)
+        client = CaptionClient(f"http://{srv.host}:{srv.port}", timeout=60)
+        feats = _feats(5, seed=70)
+        assert client.caption(feats) == jcap.caption(feats, use_fused_kernel=False)
+        want = jcap.caption(feats, beam_size=5, use_fused_kernel=False)
+        assert client.caption(feats, beam_size=5) == want
+        assert _post_json(srv, {"features": feats.tolist(), "beam_size": 5}) == want
+        sample = {"temperature": 0.8, "top_k": 6, "num_samples": 2, "seed": 5}
+        assert client.caption(feats, sample=sample) == jcap.sample_captions(feats, **sample)
+        stats = client.stats()
+        assert stats["errors"] == 0 and not any(stats["kernel_launches"].values())
+    finally:
+        srv.stop()
