@@ -161,7 +161,7 @@ Phases:
      greedy (N = 1024) and beam-5 (N = 127) against their full-prefix
      oracles under the near-tie rule below (the oracles' own gaps; agreeing
      beams' scores within 1e-4); cli.main.main --bidirectional --retrain
-     --training_size 2048 --epochs 1 --batch_size 512 --test_size 4064 on
+     --training_size 1024 --epochs 1 --batch_size 512 --test_size 4064 on
      phase 21's bundle: every artifact under its _bidirectional name, every
      logged loss finite, seven finite scores, the parameters on the card,
      every .ckpt read back bit-equal; --bidirectional --test_model of its
@@ -171,9 +171,33 @@ Phases:
      request (top-k 40 + nucleus 0.9) of 8 rows, each equal to the
      Captioner's; every model kernel's launch counter 0 over the whole
      phase, the threefry noise kernel one launch a draw (16 an A2C step,
-     16 a sampled decode);
+     16 a sampled decode: 32 in the training run, 32 in serving);
      times: each pretrainer's wall time a step, the full-prefix A2C step at
      batch 512, the evaluation a 1016-row group, each request.
+ 23. the reference-exact paths (the reference's quirks Q1 and Q2; no model
+     kernel, as in the JAX package, which runs them in XLA), float32 on the
+     card, COCO width: flat_stream_scan (LSTM and GRU) over one full faithful
+     beam step's value stream (127 x 19 x 25 = 60325 tokens) and
+     column_stream_scan_bidi over [17, 127, 512], from non-zero carries,
+     against the same calls on the CPU (relative Frobenius error within
+     1e-4), with both sides' times and the port's cell-by-cell step loop's
+     us a step; the faithful carried beam-5 (N = 127) against the faithful
+     full-prefix beam, both on the card; test_a2c_network faithful with
+     compat_dump at 254 draws (slices of 127 and 126 rows) against the same
+     call on the CPU for the first slice (the real and url dumps equal, the
+     generated one too or parted at a batch-mean near-tie, below); a
+     cli.main.main --compat_batch_as_time --faithful_beam --retrain run on
+     phase 21's bundle (--training_size 1024: two minibatches of 512, three
+     epochs a pretrainer, one A2C epoch, 20 faithful test draws) held as
+     phase 21's; one bidirectional compat value step and A2C step at batch
+     512; cli/verify_reference --self_test with every stage [PASS]; one
+     Captioner.caption_tokens(faithful_beam=True) request of 8 rows against
+     the CPU's. Launch counters: every model kernel 0 on these paths but
+     the policy pretrainer's LSTM chain and its x-gate tables in the CLI run
+     (the policy has no compat mode); the noise kernel once a draw (16 an
+     A2C step). Times: the faithful eval's seconds a slice on the card and
+     on the CPU, each compat trainer's ms a step, the bidirectional compat
+     steps, the self test and the request.
 
 The last JSON line but two lists every kernel with its launches on its main
 paths, by path (serving for greedy; serving and the evaluation for the beam
@@ -274,16 +298,24 @@ is wider because the kernel's and cuBLAS's bf16 logits differ by up to
 measured at COCO width), 2.5e-4 once divided by t = 0.7, so a top-k
 boundary 1.7e-4 apart was seen to swap.
 
+The faithful (Q2) decodes of phase 23 share one selection a step across
+the batch, so one near-tie parts every row: two such decodes may differ
+only where the reference side's batch-mean step gap (the top-B cut's logit
+gap over the batch and the gaps between the B + 1 smallest batch-mean
+candidate scores, at some step up to the first column that differs) is
+below 1e-4.
+
 The evaluation (phase 20) holds the kernel's generated dump against the
 plain beam's by the beam rule above, line by line: a line may differ only
 where the plain beam's smallest gap over the steps, for that line's
 features, is below 1e-4, in at most 1% of lines. The native scorers must
 equal the pure-Python ones to 1e-12 relative (the same float64 arithmetic
-in the same order; the JAX package holds its own native scorers so).
+in the same order; the JAX package holds its own native scorers so), on
+the dump's first 4064 lines (all of them would take ~12 s).
 
-The whole run takes about four minutes of command time on the H100, the
-build (about 80-110 s), phase 20 (about 25 s), phase 21 and phase 22
-included.
+The whole run takes about five minutes of command time on the H100, the
+build (about 80-110 s), phase 20 (about 30 s), phases 21 and 22 and phase
+23 (about 70 s, a third of it the CPU's side of its comparisons) included.
 """
 
 from __future__ import annotations
@@ -291,6 +323,8 @@ from __future__ import annotations
 import ast
 import contextlib
 import dataclasses
+import functools
+import io
 import json
 import os
 import re
@@ -335,6 +369,9 @@ ODD_V, ODD_W, WIDE_V = 1001, 500, 2000
 # phase 20: the JAX CLI's --test_size default, the reference's 128-row slices
 # (127 kept), eight slices a decode group, a val split of 4096 captions
 EVAL_DRAWS, EVAL_VBS, EVAL_GROUP, EVAL_VAL = 40504, 128, 8, 4096
+# the lines on which the native scorers are held to pure Python (all 40188
+# would take ~12 s of pure Python)
+EVAL_PYTHON_LINES = 4064
 SCORE_RTOL = 1e-12
 # phase 21: COCO-2014's full size (images and captions per split), the CLI's
 # --training_size and --test_size of the training run, and the eval's draws
@@ -343,12 +380,23 @@ CLI_TRAINING_SIZE, CLI_TEST_SIZE = 2048, 4064
 CLI_ARTIFACTS = {"a2cNetwork.ckpt", "generated_captions.txt", "image_url.txt", "metrics.jsonl",
                  "real_captions.txt", "results.txt", "run_config.json"}
 # phase 22: the bidirectional forwards' batch and card-vs-CPU bound, the
-# carried decodes' batches against their oracles, the training run's --test_size, the evaluation's draws, the served rows
+# carried decodes' batches against their oracles, the training run's
+# --training_size (two minibatches) and --test_size, the
+# evaluation's draws, the served rows
 BIDI_N, BIDI_REL, BIDI_GREEDY_N, BIDI_BEAM_N = 64, 1e-4, 1024, 127
-BIDI_TRAIN_TEST_SIZE, BIDI_EVAL_DRAWS, BIDI_SERVE_ROWS = 4064, 40504, 8
+BIDI_TRAINING_SIZE, BIDI_TRAIN_TEST_SIZE = 1024, 4064
+BIDI_EVAL_DRAWS, BIDI_SERVE_ROWS = 40504, 8
 BIDI_ARTIFACTS = {"a2cNetwork_bidirectional.ckpt", "generated_captions_bidirectional.txt",
                   "image_url.txt", "metrics.jsonl", "real_captions.txt",
                   "results_bidirectional.txt", "run_config.json"}
+# phase 23: one full faithful beam step's value stream (127 rows x 25 calls x
+# 19 columns) and the streams' card-vs-CPU bound, the step loop's tokens, the
+# faithful eval's slice width and draws (two slices), the compat CLI run's
+# training size (two minibatches), pretraining epochs and test draws, the
+# faithful Captioner request's rows
+STREAM_TOKENS, STREAM_REL, LOOP_TOKENS = 127 * 19 * 25, 1e-4, 1024
+FAITHFUL_N, FAITHFUL_DRAWS = 127, 254
+COMPAT_TRAINING_SIZE, COMPAT_EPOCHS, COMPAT_TEST_SIZE, FAITHFUL_ROWS = 1024, 3, 20, 8
 
 
 T0 = time.perf_counter()
@@ -2212,8 +2260,13 @@ def eval_main_path(files: dict, tmp: str, dev, card: str) -> dict:
         blocks = f.read().count("---------- results ----------")
     if list(scores) != names or not np.isfinite(list(scores.values())).all() or blocks != 2:
         raise AssertionError(f"eval scores {scores}, results blocks {blocks // 2}")
+    # native against pure Python on the first EVAL_PYTHON_LINES lines (pure
+    # Python takes ~12 s for all of them)
     ref_caps, hyp_caps = load_textfiles(kernel["real_captions_path"],
                                         kernel["generated_captions_path"])
+    keys = list(ref_caps)[:EVAL_PYTHON_LINES]
+    ref_caps, hyp_caps = {k: ref_caps[k] for k in keys}, {k: hyp_caps[k] for k in keys}
+    native = score(ref_caps, hyp_caps)
     library = native_metrics.load_fastmetrics
     native_metrics.load_fastmetrics = lambda: None
     try:
@@ -2222,10 +2275,10 @@ def eval_main_path(files: dict, tmp: str, dev, card: str) -> dict:
         python_s = time.perf_counter() - t0
     finally:
         native_metrics.load_fastmetrics = library
-    rel = max(abs(python[k] - scores[k]) / max(abs(scores[k]), 1e-300) for k in names)
+    rel = max(abs(python[k] - native[k]) / max(abs(native[k]), 1e-300) for k in names)
     if list(python) != names or rel > SCORE_RTOL:
-        raise AssertionError(f"native scores {scores} vs pure Python {python}: relative "
-                             f"{rel:.3g} > {SCORE_RTOL}")
+        raise AssertionError(f"native scores {native} vs pure Python {python} on "
+                             f"{len(keys)} lines: relative {rel:.3g} > {SCORE_RTOL}")
 
     # post-processing: the best five lines and their images, copied from file://
     t0 = time.perf_counter()
@@ -2254,14 +2307,16 @@ def eval_main_path(files: dict, tmp: str, dev, card: str) -> dict:
                   f"{len(parted)} generated line(s) differ (smallest gap there {gap:.3g}); the "
                   f"compat dump is the Q13 merge ({len(rows) - len(slices) + 1} lines); scores "
                   f"{ {k: round(v, 6) for k, v in scores.items()} }, native = pure Python "
-                  f"(largest relative difference {rel:.3g}, bound {SCORE_RTOL}); best five "
+                  f"on the first {len(keys)} lines (largest relative difference {rel:.3g}, "
+                  f"bound {SCORE_RTOL}); best five "
                   f"{[i for i, _ in ranked]} copied from file://")
     phase("timing", f"{card} | eval, {EVAL_DRAWS} draws, bf16 weights: test_a2c_network "
                     f"{k_s:.3f} s on the beam kernel, {p_s:.3f} s plain; beam_kernel device "
                     f"{group_ms:.4f} ms a group of {len(first)} rows (torch.profiler), "
                     f"{groups} groups {groups * group_ms / 1e3:.3f} s; host around the "
                     f"decode {host_s:.3f} s; calculate_a2c_network_score {score_s:.3f} s "
-                    f"(native; pure Python {python_s:.3f} s); post_process_data "
+                    f"(native; pure Python {python_s:.3f} s for {len(keys)} lines); "
+                    f"post_process_data "
                     f"{post_s:.3f} s ({len(rows)} lines)")
     return {"launches": launches}
 
@@ -2380,9 +2435,11 @@ def score_blocks(path: str) -> list:
 
 
 def check_training_run(log_dir: str, pre: str, suffix: str, train: dict, dev,
-                       work_dir: str) -> list:
-    """Phases 21 and 22: a --retrain run's record. metrics.jsonl holds every
-    stage's losses (one a minibatch a step), all finite;
+                       work_dir: str, minibatches: int = CLI_TRAINING_SIZE // BATCH,
+                       epochs: tuple = (50, 100, 50)) -> list:
+    """Phases 21-23: a --retrain run's record. metrics.jsonl holds every
+    stage's losses (one a minibatch a step: ``epochs`` of the reward, policy
+    and value pretrainers, one of A2C), all finite;
     results{suffix}.txt one block of scores; every .ckpt the run wrote reads
     back bit-equal: the a2c files to the parameters main returned, the
     pretrainers' Q12 files to the tensors they hold (loaded, then written
@@ -2391,12 +2448,11 @@ def check_training_run(log_dir: str, pre: str, suffix: str, train: dict, dev,
 
     with open(os.path.join(log_dir, "metrics.jsonl")) as f:
         log = [json.loads(line) for line in f]
-    minibatches = CLI_TRAINING_SIZE // BATCH
     counts = {}
     for rec in log:
         counts[rec["tag"]] = counts.get(rec["tag"], 0) + 1
-    want = {"Reward Network-loss": 50 * minibatches, "Policy Network-loss":
-            100 * minibatches, "Value Network-loss": 50 * minibatches,
+    want = {"Reward Network-loss": epochs[0] * minibatches, "Policy Network-loss":
+            epochs[1] * minibatches, "Value Network-loss": epochs[2] * minibatches,
             "A2C Network-episodic-loss": minibatches}
     finite = bool(np.isfinite([r["value"] for r in log]).all())
     if any(counts.get(k) != v for k, v in want.items()) or not finite:
@@ -2606,7 +2662,7 @@ def bidirectional_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
         np.random.seed(SEED)  # the --training_size draw (numpy's global generator)
         train, launches["train"], train_s = cli_run(
             cli, ["--data_dir", bundle, "--bidirectional", "--retrain", "--training_size",
-                  str(CLI_TRAINING_SIZE), "--epochs", "1", "--batch_size", str(BATCH),
+                  str(BIDI_TRAINING_SIZE), "--epochs", "1", "--batch_size", str(BATCH),
                   "--test_size", str(BIDI_TRAIN_TEST_SIZE), "--pretrained_path", pre, "--seed",
                   str(SEED), "--device", "cuda"], log_path, counters)
         log_dir = os.path.join(work_dir, train["log_dir"])
@@ -2619,15 +2675,16 @@ def bidirectional_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
                 leaf.device.type != "cuda" for _, leaf in leaves(train["params"])):
             raise AssertionError("the bidirectional run's parameters are not bidirectional "
                                  "and on the card")
-        log = check_training_run(log_dir, pre, "_bidirectional", train, dev, work_dir)
-        minibatches = CLI_TRAINING_SIZE // BATCH
+        minibatches = BIDI_TRAINING_SIZE // BATCH
+        log = check_training_run(log_dir, pre, "_bidirectional", train, dev, work_dir,
+                                 minibatches)
         stages = train["seconds"]
         per_step = {"reward": stages["reward"] / (50 * minibatches),
                     "policy": stages["policy"] / (100 * minibatches),
                     "value": stages["value"] / (50 * minibatches),
                     "a2c": stages["a2c"] / minibatches}
         phase("bidi", f"training run (--bidirectional --retrain, --training_size "
-                      f"{CLI_TRAINING_SIZE}, {minibatches} minibatches of {BATCH}; --test_size "
+                      f"{BIDI_TRAINING_SIZE}, {minibatches} minibatches of {BATCH}; --test_size "
                       f"{BIDI_TRAIN_TEST_SIZE}) in {train_s:.1f} s; artifacts {sorted(files)}; "
                       f"{len(log)} finite losses; seven finite scores; the four .ckpt files "
                       f"read back bit-equal; launches {launches['train']}")
@@ -2713,6 +2770,415 @@ def bidirectional_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
             f"ms "
             f"a {EVAL_GROUP * (EVAL_VBS - 1)}-row group) | requests of {BIDI_SERVE_ROWS} rows: "
           + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in req_s.items()))
+    return {k: sum(run[k] for run in launches.values()) for k in counters}
+
+
+def rel_err(got, want) -> float:
+    """The largest relative Frobenius error over the tensors of two nested
+    tuples (``got`` on the card, ``want`` on the CPU)."""
+    if isinstance(want, tuple):
+        return max(rel_err(g, w) for g, w in zip(got, want))
+    return float(torch.linalg.norm(got.cpu() - want) / torch.linalg.norm(want))
+
+
+def check_q2(kind: str, k_tok: torch.Tensor, p_tok: torch.Tensor, gaps: torch.Tensor
+             ) -> tuple[int, float]:
+    """Phase 23: two faithful (Q2) decodes of one batch. The batch shares
+    one selection a step, so a near-tie parts every row: the first column
+    where any row differs was decided at the step before it, and some step
+    up to there must have come within NEAR_TIE (``gaps``, the reference
+    side's :func:`..decode.beam.q2_step_gap` a step). Returns the rows
+    parted and that gap (inf when none parted)."""
+    k_tok, p_tok = k_tok.cpu(), p_tok.cpu()
+    cols = (k_tok != p_tok).reshape(-1, k_tok.shape[-1]).any(dim=0)
+    if not bool(cols.any()):
+        return 0, float("inf")
+    col = int(cols.nonzero()[0])
+    gap = float(gaps.cpu()[:col].min())
+    rows = int((k_tok != p_tok).reshape(k_tok.shape[0], -1).any(dim=1).sum())
+    if not gap < NEAR_TIE:
+        raise AssertionError(f"{kind}: {rows} row(s) parted from column {col}, and no step "
+                             f"before it came within {NEAR_TIE} (smallest gap {gap:.3g})")
+    return rows, gap
+
+
+def compat_streams(dev, card: str) -> None:
+    """Phase 23, first part: the Q1 streams on the card against the same
+    calls on the CPU (relative error within STREAM_REL): flat_stream_scan,
+    LSTM and GRU, over one full faithful beam step's value stream from a
+    non-zero carry, and column_stream_scan_bidi over [T, 127, E]. Times
+    both, and the port's cell-by-cell step loop over LOOP_TOKENS tokens."""
+    from image_captioning_through_rl_tpu_torch.models.initializers import gru_init, lstm_init
+    from image_captioning_through_rl_tpu_torch.ops.rnn import (
+        column_stream_scan_bidi, flat_stream_scan, lstm_cell)
+
+    gen = torch.Generator().manual_seed(SEED + 23)
+    out, times = [], []
+    for kind, init in (("lstm", lstm_init), ("gru", gru_init)):
+        fwd, bwd = init(gen, E, H), init(gen, E, H)
+
+        def state():
+            h = torch.randn(H, generator=gen) * 0.5
+            return (h, torch.randn(H, generator=gen) * 0.5) if kind == "lstm" else h
+
+        xs = torch.randn((STREAM_TOKENS, E), generator=gen)
+        cols = torch.randn((T, FAITHFUL_N, E), generator=gen)
+        calls = {"flat": (lambda f, b, x, c: flat_stream_scan(kind, f, x, c), xs, state()),
+                 "bidi": (lambda f, b, x, c: column_stream_scan_bidi(kind, f, b, x, c), cols,
+                          (state(), state()))}
+        for name, (call, x, c) in calls.items():
+            with torch.no_grad():
+                t0 = time.perf_counter()
+                want = call(fwd, bwd, x, c)
+                cpu_s = time.perf_counter() - t0
+                on_dev = (to_device(fwd, dev), to_device(bwd, dev), x.to(dev), _tree_to(c, dev))
+                call(*on_dev)  # warm-up: cuDNN's set-up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = call(*on_dev)
+                torch.cuda.synchronize()
+                card_s = time.perf_counter() - t0
+            err = rel_err(got, want)
+            if not err <= STREAM_REL or got[0].shape != want[0].shape:
+                raise AssertionError(f"{kind} {name} stream: card vs CPU relative error "
+                                     f"{err:.3g} > {STREAM_REL}")
+            steps = STREAM_TOKENS if name == "flat" else 2 * T * FAITHFUL_N
+            out.append(f"{kind} {name} ({steps} cell steps) {err:.3g}")
+            times.append(f"{kind} {name}: card {card_s * 1e3:.1f} ms ({card_s / steps * 1e6:.2f} "
+                         f"us a step), CPU {cpu_s * 1e3:.1f} ms")
+        if kind == "lstm":
+            p, x = to_device(fwd, dev), xs[:LOOP_TOKENS].to(dev)
+            s = _tree_to(calls["flat"][2], dev)
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for t in range(LOOP_TOKENS):
+                    s = lstm_cell(p, x[t], s)
+                torch.cuda.synchronize()
+            loop_us = (time.perf_counter() - t0) / LOOP_TOKENS * 1e6
+    phase("compat", f"Q1 streams at E=H={H}, float32, from non-zero carries: card vs CPU "
+                    f"relative error " + ", ".join(out) + f" (bound {STREAM_REL})")
+    phase("timing", f"{card} | Q1 streams (torch.lstm/torch.gru, the op of nn.LSTM/nn.GRU; "
+                    f"cuDNN on the card) | " + " | ".join(times) + f" | the port's lstm_cell "
+                    f"step loop at batch 1 on the card: {loop_us:.1f} us a step over "
+                    f"{LOOP_TOKENS} tokens")
+
+
+def _tree_to(tree, dev):
+    return tuple(_tree_to(x, dev) for x in tree) if isinstance(tree, tuple) else tree.to(dev)
+
+
+def faithful_beams(dev, params: dict, cfg) -> str:
+    """Phase 23: the faithful (Q2) carried beam against the faithful
+    full-prefix beam, both on the card, at N = FAITHFUL_N, under
+    :func:`check_q2`; the scores where the tokens agree within
+    SCORE_TOL[float32]."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.config import DecodeConfig
+    from image_captioning_through_rl_tpu_torch.decode import beam_search, beam_search_full_prefix
+
+    gen = torch.Generator().manual_seed(SEED + 231)
+    feats = torch.randn((FAITHFUL_N, F), generator=gen).to(dev)
+    start = torch.full((FAITHFUL_N,), START_ID, dtype=torch.int32, device=dev)
+    dcfg = DecodeConfig(beam_size=BEAM, max_seq_len=T, per_sample_beams=False)
+    pp, vp = params["policy"], params["value"]
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        k_tok, k_sc = beam_search(pp, vp, cfg, dcfg, feats, start)
+        torch.cuda.synchronize()
+        carried_s = time.perf_counter() - t0
+        p_tok, p_sc, margins = beam_search_full_prefix(pp, vp, cfg, dcfg, feats, start,
+                                                       margins=True)
+    rows, gap = check_q2("faithful carried beam vs full prefix", k_tok, p_tok, margins[0])
+    err = float((k_sc - p_sc).abs().max()) if rows == 0 else float("nan")
+    if rows == 0 and not err <= SCORE_TOL[torch.float32]:
+        raise AssertionError(f"faithful beam scores differ by {err:.3g}")
+    return (f"faithful carried beam-5 vs the faithful full-prefix beam on the card, N="
+            f"{FAITHFUL_N}: {rows} row(s) parted (gap there {gap:.3g}; smallest step gap "
+            f"{float(margins[0].min()):.3g}), score max abs err {err:.3g} (tolerance "
+            f"{SCORE_TOL[torch.float32]}); carried beam {carried_s * 1e3:.1f} ms")
+
+
+def faithful_eval(data, params: dict, cfg, tmp: str) -> tuple[str, dict]:
+    """Phase 23: test_a2c_network in the faithful mode with compat_dump on
+    the card at FAITHFUL_DRAWS draws (slices of 127 and 126 rows), against
+    the same call on the CPU for the first slice: the real and url dumps
+    its prefix byte for byte, the generated one too, or parted only at a
+    batch-mean near-tie (both decodes of that slice rerun with margins).
+    Returns the line to print and the seconds of each side."""
+    from image_captioning_through_rl_tpu_torch.config import DecodeConfig
+    from image_captioning_through_rl_tpu_torch.data.coco import get_coco_batch
+    from image_captioning_through_rl_tpu_torch.decode import beam_search_compat
+    from image_captioning_through_rl_tpu_torch.train.loops import test_a2c_network
+
+    dcfg = DecodeConfig(beam_size=BEAM, max_seq_len=T, per_sample_beams=False)
+    dumps, secs = {}, {}
+    for side, device, draws in (("card", "cuda", FAITHFUL_DRAWS), ("cpu", "cpu", FAITHFUL_N)):
+        d = os.path.join(tmp, "faithful", side)
+        os.makedirs(d)
+        paths = {k: os.path.join(d, f"{k}.txt") for k in
+                 ("real_captions_path", "generated_captions_path", "image_urls_path")}
+        t0 = time.perf_counter()
+        with open(os.path.join(d, "eval.log"), "w") as log, contextlib.redirect_stdout(log):
+            test_a2c_network(params, cfg, data, paths, data_size=draws, dcfg=dcfg, seed=SEED,
+                             compat_dump=True, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        secs[side] = time.perf_counter() - t0
+        dumps[side] = {}
+        for k, path in paths.items():
+            with open(path, "rb") as f:
+                dumps[side][k] = f.read()
+    lines = len(dumps["card"]["real_captions_path"].splitlines())
+    if lines != 127 + 126 - 1:
+        raise AssertionError(f"the faithful dumps hold {lines} lines, not 252 (Q13 merged)")
+    for k in ("real_captions_path", "image_urls_path"):
+        if not dumps["card"][k].startswith(dumps["cpu"][k]):
+            raise AssertionError(f"faithful eval: the card's {k} does not begin with the CPU's")
+    rows, gap = 0, float("inf")
+    if not dumps["card"]["generated_captions_path"].startswith(
+            dumps["cpu"]["generated_captions_path"]):
+        caps, feats, _ = get_coco_batch(data, batch_size=FAITHFUL_N, split="val",
+                                        rng=np.random.default_rng(SEED + 5))
+        out = {}
+        for device in ("cuda", "cpu"):
+            f = torch.from_numpy(np.ascontiguousarray(feats, np.float32))
+            s = torch.from_numpy(caps[:, 0].astype(np.int32))
+            p = {k: to_device(v, device) for k, v in params.items()}
+            with torch.no_grad():
+                out[device] = beam_search_compat(p["policy"], p["value"], cfg, dcfg,
+                                                 f.to(device), s.to(device), margins=True)
+        rows, gap = check_q2("faithful eval, first slice", out["cuda"][0], out["cpu"][0],
+                             out["cpu"][3])
+    return (f"test_a2c_network faithful + compat_dump, {FAITHFUL_DRAWS} draws (slices of 127 "
+            f"and 126 rows, the tail unpadded) on the card in {secs['card']:.3f} s "
+            f"({secs['card'] / 2:.3f} s a slice), the first slice on the CPU in "
+            f"{secs['cpu']:.3f} s: real and url dumps the CPU's byte for byte; generated "
+            f"{'byte for byte' if rows == 0 else f'parted in {rows} row(s) at gap {gap:.3g}'}"
+            ), secs
+
+
+@contextlib.contextmanager
+def pretrain_epochs(epochs: int):
+    """The three pretrainers of train.loops with ``epochs`` epochs each (the
+    CLI takes the reference's 50 / 100 / 50)."""
+    from image_captioning_through_rl_tpu_torch.train import loops
+
+    names = ("train_reward_network", "train_policy_network", "train_value_network")
+    saved = {n: getattr(loops, n) for n in names}
+    try:
+        for n, fn in saved.items():
+            setattr(loops, n, functools.partial(fn, epochs=epochs))
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(loops, n, fn)
+
+
+def compat_cli_run(dev, bundle: str, tmp: str, counters: dict) -> tuple[dict, dict, float, int]:
+    """Phase 23: a --compat_batch_as_time --faithful_beam --retrain run
+    through cli.main.main on phase 21's bundle: COMPAT_TRAINING_SIZE
+    captions (two minibatches of 512), COMPAT_EPOCHS epochs per pretrainer,
+    one A2C epoch, COMPAT_TEST_SIZE faithful test draws; its record held by
+    :func:`check_training_run`. Returns the run, its launches, its seconds and
+    the losses it logged."""
+    import importlib
+
+    cli = importlib.import_module("image_captioning_through_rl_tpu_torch.cli.main")
+    work_dir, pre = os.path.join(tmp, "compat"), os.path.join(tmp, "compat_pretrained")
+    os.makedirs(work_dir)
+    cwd = os.getcwd()
+    os.chdir(work_dir)
+    try:
+        np.random.seed(SEED)  # the --training_size draw (numpy's global generator)
+        with pretrain_epochs(COMPAT_EPOCHS):
+            train, launches, train_s = cli_run(
+                cli, ["--data_dir", bundle, "--compat_batch_as_time", "--faithful_beam",
+                      "--retrain", "--training_size", str(COMPAT_TRAINING_SIZE), "--epochs", "1",
+                      "--batch_size", str(BATCH), "--test_size", str(COMPAT_TEST_SIZE),
+                      "--pretrained_path", pre, "--seed", str(SEED), "--device", "cuda"],
+                os.path.join(work_dir, "cli.log"), counters)
+        log_dir = os.path.join(work_dir, train["log_dir"])
+        files = set(os.listdir(log_dir))
+        if files != CLI_ARTIFACTS:
+            raise AssertionError(f"the compat run wrote {sorted(files)}")
+        log = check_training_run(log_dir, pre, "", train, dev, work_dir,
+                                 COMPAT_TRAINING_SIZE // BATCH, (COMPAT_EPOCHS,) * 3)
+        with open(os.path.join(log_dir, "run_config.json")) as f:
+            run_cfg = json.load(f)
+        if not (run_cfg["compat_batch_as_time"] and run_cfg["faithful_beam"]):
+            raise AssertionError(f"the compat run's run_config.json: {run_cfg}")
+    finally:
+        os.chdir(cwd)
+    return train, launches, train_s, len(log)
+
+
+def bidi_compat_steps(dev, data) -> dict:
+    """Phase 23: one bidirectional compat value step and one bidirectional
+    compat A2C step at batch BATCH and COCO width, on the card: finite
+    losses; their wall ms."""
+    from image_captioning_through_rl_tpu_torch.config import NetConfig
+    from image_captioning_through_rl_tpu_torch.models import a2c, reward
+    from image_captioning_through_rl_tpu_torch.ops.prng import PRNGKey
+    from image_captioning_through_rl_tpu_torch.train import steps
+    from image_captioning_through_rl_tpu_torch.train.optim import adam
+
+    cfg = NetConfig(vocab_size=V, input_dim=F, wordvec_dim=E, hidden_dim=H, max_seq_len=T,
+                    bidirectional=True)
+    gen = torch.Generator().manual_seed(SEED + 232)
+    params = to_device(a2c.init(gen, cfg), dev)
+    rparams = to_device(reward.init(gen, cfg), dev)
+    feats = torch.from_numpy(data.train_features[data.train_image_idxs[:BATCH]]).to(dev)
+    caps = torch.from_numpy(data.train_captions[:BATCH]).to(dev).long()
+    ms = {}
+    vstep = steps.make_value_step(cfg, adam(1e-6, params["value"]), params["policy"], rparams,
+                                  compat=True)
+    astep = steps.make_a2c_step(cfg, adam(1e-6, params), compat=True)
+    for name, call in (("value", lambda: vstep(params["value"], feats, caps, 8)),
+                       ("a2c", lambda: astep(params, rparams, feats, caps, 1,
+                                             PRNGKey(SEED)).loss)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = float(call())
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        if not np.isfinite(loss):
+            raise AssertionError(f"bidirectional compat {name} step: loss {loss}")
+    return ms
+
+
+def faithful_captioner(cap, data, params: dict, cfg) -> tuple[str, float]:
+    """Phase 23: one ``cap.caption_tokens(faithful_beam=True)`` request of
+    FAITHFUL_ROWS rows on the card (after one warm-up request), against the
+    same request on the CPU under :func:`check_q2`. Returns its ms."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.api import Captioner
+    from image_captioning_through_rl_tpu_torch.config import DecodeConfig
+    from image_captioning_through_rl_tpu_torch.decode import beam_search_compat
+
+    feats = np.random.default_rng(SEED + 233).standard_normal((FAITHFUL_ROWS, F)).astype(
+        np.float32)
+    cap.caption_tokens(feats, beam_size=BEAM, faithful_beam=True)
+    t0 = time.perf_counter()
+    got = cap.caption_tokens(feats, beam_size=BEAM, faithful_beam=True)
+    ms = (time.perf_counter() - t0) * 1e3
+    want = Captioner(params, cfg, data.idx_to_word, device="cpu").caption_tokens(
+        feats, beam_size=BEAM, faithful_beam=True)
+    if got.shape != (FAITHFUL_ROWS, T) or not (got[:, 0] == START_ID).all():
+        raise AssertionError(f"the faithful Captioner returned {got.shape} tokens")
+    rows, gap = 0, float("inf")
+    if not np.array_equal(got, want):
+        dcfg = DecodeConfig(beam_size=BEAM, max_seq_len=T, per_sample_beams=False)
+        p = to_device(params, "cpu")
+        with torch.no_grad():
+            *_, gaps = beam_search_compat(p["policy"], p["value"], cfg, dcfg,
+                                          torch.from_numpy(feats),
+                                          torch.full((FAITHFUL_ROWS,), START_ID,
+                                                     dtype=torch.int32), margins=True)
+        rows, gap = check_q2("faithful Captioner", torch.from_numpy(got),
+                             torch.from_numpy(want), gaps)
+    return (f"Captioner.caption_tokens(faithful_beam=True), {FAITHFUL_ROWS} rows: "
+            f"{rows} row(s) parted from the CPU's (gap {gap:.3g})"), ms
+
+
+def reference_exact_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
+    """Phase 23: the reference-exact paths at COCO width on the card: the Q1
+    streams against the CPU; the faithful carried beam against the faithful
+    full-prefix beam; the faithful eval's first slice against the CPU's; a
+    --compat_batch_as_time --faithful_beam --retrain CLI run; one
+    bidirectional compat value and A2C step; cli/verify_reference
+    --self_test with every stage PASS; one faithful Captioner request. No
+    model kernel of the port launches on these paths (the JAX package runs
+    them all in XLA), except the policy pretrainer's LSTM chain in the CLI
+    run (the policy has no compat mode; it trains as in every run); the
+    threefry noise kernel makes each A2C draw's noise. Returns the kernels'
+    launches over the phase."""
+    from image_captioning_through_rl_tpu_torch.api import Captioner
+    from image_captioning_through_rl_tpu_torch.cli import verify_reference
+    from image_captioning_through_rl_tpu_torch.config import NetConfig
+    from image_captioning_through_rl_tpu_torch.data.coco import load_data
+    from image_captioning_through_rl_tpu_torch.models import a2c
+
+    counters = kernel_counters()
+    launches = {}
+
+    def measured(name: str, fn):
+        """``fn()`` with the counters zeroed first; its launches under ``name``."""
+        zero_counters(counters)
+        out = fn()
+        launches[name] = read_counters(counters)
+        return out
+
+    measured("streams", lambda: compat_streams(dev, card))
+    data = load_data(bundle)
+    cfg = NetConfig(vocab_size=V, input_dim=F, wordvec_dim=E, hidden_dim=H, max_seq_len=T)
+    params = a2c.init(torch.Generator().manual_seed(SEED + 23), cfg)
+    phase("compat", measured("beams", lambda: faithful_beams(dev, to_device(params, dev), cfg)))
+    ev, ev_s = measured("eval", lambda: faithful_eval(data, params, cfg, tmp))
+    phase("compat", ev)
+
+    train, launches["cli"], train_s, n_losses = compat_cli_run(dev, bundle, tmp, counters)
+    minibatches = COMPAT_TRAINING_SIZE // BATCH
+    stages = train["seconds"]
+    per_step = {k: stages[k] / (COMPAT_EPOCHS * minibatches) for k in ("reward", "policy",
+                                                                       "value")}
+    per_step["a2c"] = stages["a2c"] / minibatches
+    phase("compat", f"CLI run (--compat_batch_as_time --faithful_beam --retrain, "
+                    f"--training_size {COMPAT_TRAINING_SIZE}: {minibatches} minibatches of "
+                    f"{BATCH} x {COMPAT_EPOCHS} epochs a pretrainer, 1 A2C epoch; --test_size "
+                    f"{COMPAT_TEST_SIZE}) in {train_s:.1f} s; {n_losses} finite losses; seven "
+                    f"finite scores; the four .ckpt files read back bit-equal; launches "
+                    f"{launches['cli']}")
+    bidi_ms = measured("bidi_steps", lambda: bidi_compat_steps(dev, data))
+
+    def self_test():
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = verify_reference.main(["--self_test", "--device", "cuda"])
+        return rc, buf.getvalue(), time.perf_counter() - t0
+
+    rc, out, verify_s = measured("verify", self_test)
+    work = re.search(r"SELF TEST — (\S+)", out)
+    if work:
+        shutil.rmtree(work.group(1), ignore_errors=True)
+    if rc != 0 or "[FAIL]" in out or out.count("[PASS]") != 8:
+        print(out, flush=True)
+        raise AssertionError(f"verify_reference --self_test on the card: exit {rc}")
+    phase("compat", "verify_reference --self_test on the card: " + "; ".join(
+        line.split(" — ")[0] for line in out.splitlines() if line.startswith("[PASS]")))
+    # built outside the count: its constructor lays out the greedy and beam
+    # kernels' weights (two x-gate tables), which the faithful request never reads
+    cap = Captioner(params, cfg, data.idx_to_word, device="cuda")
+    cap_line, cap_ms = measured("captioner", lambda: faithful_captioner(cap, data, params, cfg))
+    phase("compat", cap_line)
+
+    policy_steps = COMPAT_EPOCHS * minibatches
+    draws = {"streams": 0, "beams": 0, "eval": 0, "cli": (T - 1) * minibatches,
+             "bidi_steps": T - 1, "verify": 0, "captioner": 0}
+    cli_kernels = {"lstm_chain_fwd": policy_steps, "lstm_chain_bwd": policy_steps}
+    bad = {run: {k: v for k, v in got.items()
+                 if v != (draws[run] if k == "threefry_gumbel" else
+                          cli_kernels.get(k, 0) if run == "cli" else 0)
+                 and not (run == "cli" and k == "token_gates")}
+           for run, got in launches.items()}
+    if any(bad.values()):
+        raise AssertionError(f"phase 23's launches differ from one noise launch a draw {draws} "
+                             f"and the policy pretrainer's chain {cli_kernels}: {bad} (all: "
+                             f"{launches})")
+    phase("compat", f"no model kernel of the port launched on the reference-exact paths "
+                    f"({', '.join(sorted(launches))}), but the policy pretrainer's LSTM chain "
+                    f"in the CLI run ({cli_kernels}, its x-gate tables "
+                    f"{launches['cli']['token_gates']}); threefry_gumbel once a draw: {draws}")
+    phase("timing", f"{card} | reference-exact paths, float32, COCO width | faithful eval "
+                    f"{ev_s['card'] / 2:.3f} s a 127-row slice on the card, {ev_s['cpu']:.3f} s "
+                    f"on the CPU | compat CLI run {train_s:.3f} s: " + ", ".join(
+                        f"{k} {v:.3f} s" for k, v in stages.items())
+          + " | a step: " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in per_step.items())
+          + f" (reward, value and A2C on the Q1 streams at batch {BATCH}) | bidirectional "
+            f"compat steps at batch {BATCH}: " + ", ".join(
+                f"{k} {v:.1f} ms" for k, v in bidi_ms.items())
+          + f" | verify_reference --self_test {verify_s:.3f} s | faithful Captioner request of "
+            f"{FAITHFUL_ROWS} rows {cap_ms:.1f} ms")
     return {k: sum(run[k] for run in launches.values()) for k in counters}
 
 
@@ -3128,11 +3594,12 @@ def main() -> int:
         ev = eval_main_path(model_files, tmp, dev, card)
 
     # phase 21: the CLI's main path (a training run, then an evaluation);
-    # phase 22: a bidirectional model through the CLI and the server, on
-    # phase 21's bundle
+    # phase 22: a bidirectional model through the CLI and the server, and
+    # phase 23: the reference-exact paths, both on phase 21's bundle
     with tempfile.TemporaryDirectory() as tmp:
         cli_runs = cli_main_path(dev, card, tmp)
         bidi_launches = bidirectional_main_path(dev, card, os.path.join(tmp, "bundle"), tmp)
+        ref_launches = reference_exact_main_path(dev, card, os.path.join(tmp, "bundle"), tmp)
     cli_launches = {k: cli_runs["train"][k] + cli_runs["eval"][k] for k in cli_runs["train"]}
 
     bounds_ = bounds()
@@ -3192,6 +3659,10 @@ def main() -> int:
                          sample_launches["fused_sample_decode"], sample_err, ts[label]["ms"],
                          ts[label]["plain_ms"], "N=1024 T=17 top-k 40 + top-p 0.9 bf16",
                          bound=sample_bound[label]))
+    for k in kernels:  # phase 23's launches: the noise kernel's draws, the policy's chain
+        if ref_launches[k["name"]]:
+            k.setdefault("launches_by_path", {})["reference_exact"] = ref_launches[k["name"]]
+            k["launches"] += ref_launches[k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

@@ -12,12 +12,14 @@ on the CPU through their plain PyTorch versions. A bidirectional model has
 no decode kernel, in the JAX package as here: it decodes through the
 carried eager decodes of :mod:`.decode` in float32 on its device (its
 draws' noise from :func:`.ops.prng.gumbel`, as every draw's), and
-``use_fused_kernel=True`` raises ``ValueError``. Nothing falls back from
-the kernels at serving time: ``chip_smoke.py`` holds each kernel against its
+``use_fused_kernel=True`` raises ``ValueError``. The faithful beam
+(``faithful_beam=True``: the reference's Q2 batch-mean beam with its
+Q1-stateful critic, :func:`.decode.beam_compat.beam_search_compat`) has no
+kernel either, in either direction mode. Nothing falls back from the
+kernels at serving time: ``chip_smoke.py`` holds each kernel against its
 plain version. :func:`evaluate_captions` scores caption pairs
-(:mod:`.metrics`). The mesh, faithful-beam and image paths of the JAX
-``Captioner``, and its verified dispatch with fresh-key canary retries, are
-not ported.
+(:mod:`.metrics`). The mesh and image paths of the JAX ``Captioner``, and
+its verified dispatch with fresh-key canary retries, are not ported.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from . import START_ID
 from .config import DecodeConfig, NetConfig
 from .data.coco import decode_captions, load_vocab
 from .decode.beam import beam_search
+from .decode.beam_compat import beam_search_compat
 from .decode.greedy import greedy_decode
 from .decode.sample import sample_decode_n
 from .models.convert import a2c_from_state_dict, load_state_dict
@@ -109,19 +112,32 @@ class Captioner:
             raise ValueError(f"use_fused_kernel=True cannot be honored: the fused {what} "
                              "kernel is unidirectional only")
 
-    def caption_tokens(self, features, beam_size: int = 0, use_fused_kernel=None
-                       ) -> np.ndarray:
+    def caption_tokens(self, features, beam_size: int = 0, use_fused_kernel=None,
+                       faithful_beam: bool = False) -> np.ndarray:
         """Token ids ``[N, T]`` for a feature batch ``[N, F]``
         (beam 0 of the beam search when ``beam_size > 0``).
-        ``use_fused_kernel`` as in :func:`.ops.fused_decode.fused_greedy_decode`."""
+        ``use_fused_kernel`` as in :func:`.ops.fused_decode.fused_greedy_decode`.
+        ``faithful_beam=True`` decodes the beam as the reference's eval does
+        (Q2 and Q1, the critic's carry reset per call; the reference resets
+        it per slice), in float32 on the device; forcing the kernel then
+        raises ``ValueError``."""
         feats = self._features(features)
         start = self._start(feats.shape[0])
         max_len = self._cfg.max_seq_len
         if beam_size > 0:
             if self._value is None:
                 raise ValueError("beam search needs a value network (pass a2c params)")
+            if use_fused_kernel and faithful_beam:
+                raise ValueError("use_fused_kernel=True cannot be honored: the fused beam "
+                                 "kernel is unidirectional and non-faithful only")
             self._check_kernel(use_fused_kernel, "beam")
-            dcfg = DecodeConfig(beam_size=beam_size, max_seq_len=max_len)
+            dcfg = DecodeConfig(beam_size=beam_size, max_seq_len=max_len,
+                                per_sample_beams=not faithful_beam)
+            if faithful_beam:
+                with torch.no_grad():
+                    toks, _, _ = beam_search_compat(self._policy, self._value, self._cfg, dcfg,
+                                                    feats, start)
+                return toks[:, 0].cpu().numpy()
             if self._cfg.bidirectional:
                 with torch.no_grad():
                     toks, _ = beam_search(self._policy, self._value, self._cfg, dcfg, feats,

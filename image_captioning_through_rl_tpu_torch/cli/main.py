@@ -8,11 +8,14 @@ pipeline of image_captioner.py:
 Every flag of the JAX CLI keeps its name, default, type and choices, and
 ``--config`` its precedence and errors. One flag is the port's own:
 ``--device`` (default ``cuda``, as ``server.main`` has it); without a card
-the run raises unless it asks for ``--device cpu``. Flags of parts the port
-does not have yet raise ``NotImplementedError`` before the bundle is read,
-naming their ROADMAP §1 item: ``--faithful_beam`` and
-``--compat_batch_as_time`` (6), ``--resume`` (7), ``--spmd`` (8),
-``--train_word2vec`` and ``--pretrained_word2vec`` other than ``none`` (10).
+the run raises unless it asks for ``--device cpu``. ``--faithful_beam``
+evaluates with the reference's own beam (Q2 batch-mean ranking with the
+Q1-stateful critic) and ``--compat_batch_as_time`` trains the reward and
+value networks and A2C with the reference's batch-as-time encoders (Q1).
+Flags of parts the port does not have yet raise ``NotImplementedError``
+before the bundle is read, naming their ROADMAP §1 item: ``--resume`` (7),
+``--spmd`` (8), ``--train_word2vec`` and ``--pretrained_word2vec`` other
+than ``none`` (10).
 
 A run writes into ``logs/<stamp>/`` what the JAX CLI writes there, except
 the ``.trainstate`` snapshots: the caption, generated-caption and url
@@ -60,9 +63,6 @@ CURRICULUM_LEVELS = [3, 6, 9, 12, 15]  # image_captioner.py:35
 
 # flags of parts not ported yet: (flag, is it set?, what, ROADMAP §1 item)
 UNPORTED = (
-    ("--faithful_beam", lambda a: a.faithful_beam, "the faithful (Q2 batch-mean) beam", 6),
-    ("--compat_batch_as_time", lambda a: a.compat_batch_as_time,
-     "the Q1 batch-as-time encoders", 6),
     ("--resume", lambda a: a.resume, ".trainstate snapshots and resume", 7),
     ("--spmd", lambda a: a.spmd, "multi-GPU and multi-process runs", 8),
     ("--train_word2vec", lambda a: a.train_word2vec != "none", "word-embedding training", 10),
@@ -191,6 +191,7 @@ def main(args) -> dict:
                 retrain_all=args.retrain,
                 curriculum=curriculum,
                 seed=args.seed,
+                compat_batch_as_time=args.compat_batch_as_time,
                 # the flag forces the fused steps; the default runs the
                 # kernels on the card and the plain steps on the CPU
                 fused_rollout=True if args.fused_rollout else None,
@@ -270,15 +271,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0, help="Global RNG seed")
     p.add_argument("--faithful_beam", action=argparse.BooleanOptionalAction, default=False,
                    help="Reference-exact decoding: batch-mean shared beam (Q2) with "
-                        "stateful value encoding (Q1) (not ported yet: raises, ROADMAP §1 "
-                        "item 6)")
+                        "stateful value encoding (Q1), one 127-row slice a decode, in "
+                        "float32 on the device (no beam kernel)")
     p.add_argument("--compat_dump", action=argparse.BooleanOptionalAction, default=False,
                    help="Write caption dumps with the reference's merged slice "
                         "boundaries (no trailing newline per slice, quirk Q13)")
     p.add_argument("--compat_batch_as_time", action=argparse.BooleanOptionalAction,
                    default=False,
                    help="Reference-exact batch-as-time value/reward encoders (quirk Q1) "
-                        "(not ported yet: raises, ROADMAP §1 item 6)")
+                        "for the reward and value pretrainers and A2C (their plain steps, "
+                        "no fused kernel)")
     p.add_argument("--resume", action=argparse.BooleanOptionalAction, default=False,
                    help="Continue an interrupted run from its full-state snapshot (not "
                         "ported yet: raises, ROADMAP §1 item 7)")

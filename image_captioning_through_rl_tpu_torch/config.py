@@ -71,5 +71,5 @@ class DecodeConfig:
     logprob_weight: float = 0.4
     max_seq_len: int = MAX_SEQ_LEN
     # Faithful mode (False) ranks one shared beam by batch-mean score and
-    # scores with log(raw logit) — reference quirk Q2; not ported yet.
+    # scores with log(raw logit) — reference quirk Q2.
     per_sample_beams: bool = True

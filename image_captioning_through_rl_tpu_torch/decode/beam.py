@@ -1,22 +1,28 @@
-"""Value-guided beam search (counterpart of the JAX ``decode/beam.py``).
+"""Value-guided beam search (counterpart of the JAX ``decode/beam.py`` and
+``decode/beam_full.py``).
 
 Per step, expand each of the ``B`` candidates with the policy's top-``B``
 next tokens, score each expansion with
 
     score = parent_score - (0.6 * V(features, candidate + token) + 0.4 * log p)
 
-and keep the ``B`` smallest scores per image. The policy and critic carry
-their LSTM state per candidate (gathered on reorder), so each step costs
-``B`` policy cells and ``B^2`` critic cells instead of the reference's
-full-prefix re-encodes. The states are nested tuples of tensors, flat
-``(h, c)`` or, bidirectional, a pair per direction (:mod:`..models.policy`,
+and keep the ``B`` smallest scores. The policy and critic carry their LSTM
+state per candidate (gathered on reorder), so each step costs ``B`` policy
+cells and ``B^2`` critic cells instead of the reference's full-prefix
+re-encodes. The states are nested tuples of tensors, flat ``(h, c)`` or,
+bidirectional, a pair per direction (:mod:`..models.policy`,
 :mod:`..models.value`); :func:`_tree_map` tiles and gathers every leaf.
 :func:`beam_search_full_prefix` is the reference's literal O(T^2) loop,
 kept as the oracle for :func:`beam_search` in either direction mode.
 
-Only the per-sample mode (``DecodeConfig(per_sample_beams=True)``: an
-independent beam per image, log-softmax scoring) is ported. The faithful
-Q2 batch-mean mode and ``beam_compat.py`` raise ``NotImplementedError``.
+Two modes, as in the JAX package. ``DecodeConfig(per_sample_beams=True)``:
+an independent beam per image, log-softmax scoring. ``False``, the
+faithful mode, reproduces the reference's quirk Q2 (trainers.py:73-105):
+Q2a, one shared selection for the whole batch, the ``B`` smallest of the
+candidates' batch-mean scores (``argsort`` ascending, stable, NaN last, as
+``jnp.argsort``); Q2b, ``log p`` the log of the raw top-``B`` logit, NaN
+for a logit at or below 0. Both modes use the per-sample critic; the
+reference's Q1-stateful critic is :mod:`.beam_compat`.
 """
 
 from __future__ import annotations
@@ -44,17 +50,49 @@ def _gather_beam(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(x, 1, idx)
 
 
+def _select(flat_scores: torch.Tensor, k: int, per_sample: bool):
+    """The ``k`` smallest of ``flat_scores [N, C]`` as ``(scores, index)``,
+    each ``[N, k]``: per row, ties to the lowest index; or (Q2a) one shared
+    ranking by the batch mean, stable with NaN last, broadcast to every
+    row."""
+    if per_sample:
+        return stable_topk(flat_scores, k, largest=False)
+    sel = torch.argsort(flat_scores.mean(dim=0), stable=True)[:k]
+    sel = sel[None].expand(flat_scores.shape[0], k)
+    return torch.gather(flat_scores, 1, sel), sel
+
+
+def _logp(logits: torch.Tensor, topv: torch.Tensor, topk_idx: torch.Tensor,
+          per_sample: bool) -> torch.Tensor:
+    """The expansions' ``log p``: log-softmax, or (Q2b) the log of the raw
+    logit."""
+    if per_sample:
+        return torch.gather(torch.log_softmax(logits, dim=-1), -1, topk_idx)
+    return torch.log(topv)
+
+
+def q2_step_gap(topv: torch.Tensor, flat_scores: torch.Tensor, b: int) -> torch.Tensor:
+    """How close one faithful (Q2) step came to another choice: the smallest
+    of every candidate's top-``B`` cut gap (``topv [..., B + 1]``) over the
+    batch and the gaps between the ``B + 1`` smallest batch-mean scores
+    (NaN counted as no tie)."""
+    gap = (topv[..., b - 1] - topv[..., b]).min()
+    key = torch.sort(flat_scores.mean(dim=0), stable=True).values[:b + 1]
+    if key.numel() > 1:
+        gap = torch.minimum(gap, torch.nan_to_num(key[1:] - key[:-1], nan=float("inf")).min())
+    return gap
+
+
 def beam_search(policy_params: dict, value_params: dict, cfg: NetConfig,
                 dcfg: DecodeConfig, features: torch.Tensor, start_tokens: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run per-sample value-guided beam search.
+    """Run value-guided beam search, per sample or (``per_sample_beams=False``)
+    faithful to quirk Q2.
 
     ``features [N, F]``, ``start_tokens [N]`` -> ``(tokens [N, B, T] int32,
     scores [N, B])``, beam 0 the best-ranked candidate. Top-``B`` choices
     break ties by the lowest index, as ``lax.top_k`` does."""
-    if not dcfg.per_sample_beams:
-        raise NotImplementedError(
-            "the faithful (Q2 batch-mean) beam is not ported yet (ROADMAP §1 item 6)")
+    per_sample = dcfg.per_sample_beams
     n = features.shape[0]
     b = dcfg.beam_size
     t_max = dcfg.max_seq_len
@@ -80,8 +118,8 @@ def beam_search(policy_params: dict, value_params: dict, cfg: NetConfig,
     feats_exp = features[:, None, None].expand(n, b, b, features.shape[-1])
 
     for t in range(t_max - 1):
-        _, topk_idx = stable_topk(last_logits, b)  # [N, B, B]
-        logp = torch.gather(torch.log_softmax(last_logits, dim=-1), -1, topk_idx)
+        topv, topk_idx = stable_topk(last_logits, b)  # [N, B, B]
+        logp = _logp(last_logits, topv, topk_idx, per_sample)
 
         def tile_exp(x):  # [N, B, ...] -> [N, B, B, ...]
             return x[:, :, None].expand((n, b, b) + x.shape[2:])
@@ -93,7 +131,7 @@ def beam_search(policy_params: dict, value_params: dict, cfg: NetConfig,
 
         delta = dcfg.value_weight * values + dcfg.logprob_weight * logp
         flat_scores = (scores[:, :, None] - delta).reshape(n, b * b)
-        scores, sel = stable_topk(flat_scores, b, largest=False)
+        scores, sel = _select(flat_scores, b, per_sample)
         parent = sel // b
 
         new_tok = torch.gather(topk_idx.reshape(n, b * b), 1, sel)  # [N, B]
@@ -116,16 +154,15 @@ def beam_search_full_prefix(policy_params: dict, value_params: dict, cfg: NetCon
                             dcfg: DecodeConfig, features: torch.Tensor,
                             start_tokens: torch.Tensor, margins: bool = False):
     """The beam search that re-encodes every candidate's whole prefix each
-    step (the JAX ``decode/beam_full.py``, per-sample mode): the O(T^2)
+    step (the JAX ``decode/beam_full.py``), in either mode: the O(T^2)
     oracle for :func:`beam_search`. Returns ``(tokens [N, B, T] int32,
     scores [N, B])``; ``margins=True`` adds ``[N, T - 1]``: per step, the
     smallest of the top-``B`` cut's logit gap over the sample's candidates
     and the gaps between its ``B + 1`` best candidate scores, how close the
     step's choices came to a tie (as :func:`..ops.fused_beam.beam_search_plain`
-    reports them)."""
-    if not dcfg.per_sample_beams:
-        raise NotImplementedError(
-            "the faithful (Q2 batch-mean) beam is not ported yet (ROADMAP §1 item 6)")
+    reports them); in the faithful mode the batch's shared
+    :func:`q2_step_gap`, the same in every row."""
+    per_sample = dcfg.per_sample_beams
     n = features.shape[0]
     b = dcfg.beam_size
     tokens = start_tokens.long()[:, None, None].expand(n, b, 1)
@@ -140,27 +177,26 @@ def beam_search_full_prefix(policy_params: dict, value_params: dict, cfg: NetCon
                                     tokens.reshape(n * b, t + 1))[:, -1].reshape(n, b, -1)
         topv, topk_idx = stable_topk(logits, k)
         topk_idx = topk_idx[..., :b]  # [N, B, B]
-        logp = torch.gather(torch.log_softmax(logits, dim=-1), -1, topk_idx)
+        logp = _logp(logits, topv[..., :b], topk_idx, per_sample)
         ext = torch.cat([tokens[:, :, None].expand(n, b, b, t + 1), topk_idx[..., None]],
                         dim=-1)  # [N, B, B, t + 2]
         values = value_mod.forward(value_params, cfg, feats_bb,
                                    ext.reshape(n * b * b, t + 2)).reshape(n, b, b)
         delta = dcfg.value_weight * values + dcfg.logprob_weight * logp
-        sorted_scores, order = stable_topk((scores[:, :, None] - delta).reshape(n, b * b), k,
-                                           largest=False)
-        scores, sel = sorted_scores[:, :b], order[:, :b]
-        if margins:
-            gap = (topv[..., b - 1] - topv[..., b]).min(dim=1).values
-            if b > 1:  # beam 1 keeps its one candidate
-                gap = torch.minimum(gap, (sorted_scores[:, 1:] - sorted_scores[:, :-1])
-                                    .min(dim=1).values)
-            gaps.append(gap)
+        flat_scores = (scores[:, :, None] - delta).reshape(n, b * b)
+        if not per_sample:
+            scores, sel = _select(flat_scores, b, False)
+            if margins:
+                gaps.append(q2_step_gap(topv, flat_scores, b).expand(n))
+        else:
+            sorted_scores, order = stable_topk(flat_scores, k, largest=False)
+            scores, sel = sorted_scores[:, :b], order[:, :b]
+            if margins:
+                gap = (topv[..., b - 1] - topv[..., b]).min(dim=1).values
+                if b > 1:  # beam 1 keeps its one candidate
+                    gap = torch.minimum(gap, (sorted_scores[:, 1:] - sorted_scores[:, :-1])
+                                        .min(dim=1).values)
+                gaps.append(gap)
         tokens = _gather_beam(ext.reshape(n, b * b, t + 2), sel)
     out = tokens.to(torch.int32), scores
     return out + (torch.stack(gaps, dim=1),) if margins else out
-
-
-def beam_search_compat(*args, **kwargs):
-    """The reference-faithful Q1-stateful beam (JAX ``decode/beam_compat.py``)."""
-    raise NotImplementedError(
-        "beam_search_compat is not ported yet (ROADMAP §1 item 6)")

@@ -1,14 +1,14 @@
 """Reward network: the visual-semantic embedding model (the learned reward).
 
-Counterpart of the JAX ``models/reward.py`` in its batched (per-sample)
-mode: token embedding -> GRU caption encoder -> ``semantic_embed``
-projection; image feature -> ``visual_embed`` projection. The forward
-returns the raw ``(ve, se)`` pair; the cosine reward and the VSE loss are
-separate ops (:func:`..ops.reward_ops.cosine_embedding_reward`,
+Counterpart of the JAX ``models/reward.py``: token embedding -> GRU
+caption encoder -> ``semantic_embed`` projection; image feature ->
+``visual_embed`` projection. The forward returns the raw ``(ve, se)`` pair;
+the cosine reward and the VSE loss are separate ops
+(:func:`..ops.reward_ops.cosine_embedding_reward`,
 :func:`..ops.losses.visual_semantic_embedding_loss`). A bidirectional
 encoder (``gru_fwd``, ``gru_bwd``) hands ``semantic_embed`` (2H -> H) its
-``2H`` encoding; it has no incremental step. The batch-as-time compat mode
-(quirk Q1) is not ported yet (ROADMAP §1).
+``2H`` encoding; it has no incremental step. :func:`forward_compat` is the
+reference's batch-as-time encoding (quirk Q1), with its carried state.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import torch
 from ..config import NetConfig
 from ..ops.linalg import dense
 from ..ops.reward_ops import cosine_embedding_reward
-from ..ops.rnn import gru_cell, gru_scan
+from ..ops.rnn import column_stream_scan_bidi, flat_stream_scan, gru_cell, gru_scan
 from .initializers import gru_init, linear_init
 from .policy import embedding_table
 
@@ -83,3 +83,27 @@ def rnn_step(params: dict, cfg: NetConfig, tokens: torch.Tensor, h: torch.Tensor
     if cfg.bidirectional:
         raise ValueError("incremental reward encoding requires unidirectional mode")
     return gru_cell(params["gru"], params["embedding"][tokens], h)
+
+
+def compat_zero_state(cfg: NetConfig, device=None):
+    """The persistent hidden at zero: ``h [H]``; bidirectional, ``(fwd,
+    bwd)`` (the reference's ``(2, 1, H)``, models.py:217-224)."""
+    z = torch.zeros((cfg.hidden_dim,), dtype=torch.float32, device=device)
+    return (z, z) if cfg.bidirectional else z
+
+
+def forward_compat(params: dict, cfg: NetConfig, features: torch.Tensor,
+                   captions: torch.Tensor, carry):
+    """The reference-exact forward with batch-as-time GRU statefulness (the
+    JAX ``models/reward.py:113-150``) -> ``((ve, se), new_carry)``; reset
+    the carry per minibatch where the reference calls ``init_hidden()``
+    (trainers.py:307, 495)."""
+    n, t = captions.shape
+    if cfg.bidirectional:
+        xs = params["embedding"][captions].transpose(0, 1)  # [T, N, E]
+        rnn_out, new_carry = column_stream_scan_bidi(
+            "gru", params["gru_fwd"], params["gru_bwd"], xs, carry)
+        return embed_pair(params, cfg, features, rnn_out), new_carry
+    stream = captions.t().reshape(-1)
+    outs, new_carry = flat_stream_scan("gru", params["gru"], params["embedding"][stream], carry)
+    return embed_pair(params, cfg, features, outs[(t - 1) * n:]), new_carry

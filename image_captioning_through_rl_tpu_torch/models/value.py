@@ -1,11 +1,13 @@
 """Value network (critic): caption encoder + joint-state MLP.
 
-Counterpart of the JAX ``models/value.py`` in its batched (per-sample)
-mode: token embedding -> LSTM caption encoder -> concat with the image
-feature -> ``linear1`` (F+H -> H) -> ``linear2`` (H -> 1), with no
-nonlinearity between the two linears. A bidirectional critic maps its
-``2H`` encoding through ``rnn_linear`` (2H -> H) first. The
-reference-compat batch-as-time mode (quirk Q1) is not ported yet.
+Counterpart of the JAX ``models/value.py``: token embedding -> LSTM
+caption encoder -> concat with the image feature -> ``linear1`` (F+H -> H)
+-> ``linear2`` (H -> 1), with no nonlinearity between the two linears. A
+bidirectional critic maps its ``2H`` encoding through ``rnn_linear`` (2H ->
+H) first. Two encodings: the batched (per-sample) one, and the reference's
+batch-as-time one (quirk Q1, :func:`forward_compat`): the batch axis fed as
+the LSTM's time axis at batch 1 with a persistent hidden state, so sample
+``i`` depends on samples ``< i`` and on earlier calls.
 
 Incremental state: ``(h, c)`` unidirectional; bidirectional ``(fwd (h, c),
 h_bwd_last)``. :func:`encode` reads ``hs[-1]``, whose backward half is the
@@ -20,7 +22,7 @@ import torch
 
 from ..config import NetConfig
 from ..ops.linalg import dense
-from ..ops.rnn import bilstm_scan, lstm_cell, lstm_scan
+from ..ops.rnn import bilstm_scan, column_stream_scan_bidi, flat_stream_scan, lstm_cell, lstm_scan
 from .initializers import linear_init, lstm_init
 from .policy import embedding_table
 
@@ -98,3 +100,33 @@ def value_from_state(params: dict, cfg: NetConfig, features: torch.Tensor,
         rnn_out = dense(torch.cat([h_f, h_bwd], dim=-1), params["rnn_linear"])
         return value_head(params, cfg, features, rnn_out)
     return value_head(params, cfg, features, state[0])
+
+
+def compat_zero_state(cfg: NetConfig, device=None):
+    """The reference's persistent ``hidden_cell`` at zero (reference
+    models.py:122-128): ``(h, c)`` each ``[H]``; bidirectional, one such
+    pair per direction, ``(fwd, bwd)``."""
+    z = torch.zeros((cfg.hidden_dim,), dtype=torch.float32, device=device)
+    return ((z, z), (z, z)) if cfg.bidirectional else (z, z)
+
+
+def forward_compat(params: dict, cfg: NetConfig, features: torch.Tensor,
+                   captions: torch.Tensor, carry):
+    """The reference-exact value forward with batch-as-time statefulness
+    (the JAX ``models/value.py:152-197``) -> ``(values [N, 1], new_carry)``.
+    Unidirectional: the captions read column-major as one stream
+    (``captions.T.reshape(-1)``), the last column's outputs encoding the
+    samples. Bidirectional: one bidirectional call per column
+    (:func:`..ops.rnn.column_stream_scan_bidi`), then ``rnn_linear``. Thread
+    ``new_carry`` into the next call; reset it where the reference calls
+    ``init_hidden()`` (trainers.py:196-197, 495-496, 611-612)."""
+    n, t = captions.shape
+    if cfg.bidirectional:
+        xs = params["embedding"][captions].transpose(0, 1)  # [T, N, E]
+        rnn_out, new_carry = column_stream_scan_bidi(
+            "lstm", params["lstm_fwd"], params["lstm_bwd"], xs, carry)
+        rnn_out = dense(rnn_out, params["rnn_linear"])
+        return value_head(params, cfg, features, rnn_out), new_carry
+    stream = captions.t().reshape(-1)  # column-major [T N]
+    outs, new_carry = flat_stream_scan("lstm", params["lstm"], params["embedding"][stream], carry)
+    return value_head(params, cfg, features, outs[(t - 1) * n:]), new_carry

@@ -23,21 +23,24 @@ Reproduced reference behaviours:
 ``fused_chain=None`` (``fused_rollout=None`` for A2C) runs the kernels on a
 CUDA device and the plain steps on the CPU; ``True`` forces the fused
 steps (on the CPU their wrappers run the kernels' plain versions),
-``False`` the plain ones. A bidirectional config runs the plain steps on
-its device (the fused ones are unidirectional, as in the JAX package), and
-an explicit ``True`` raises ``ValueError``. Every network and save path is
+``False`` the plain ones. A bidirectional config, and
+``compat_batch_as_time=True`` (the reference's batch-as-time value and
+reward encoders, quirk Q1: the compat steps of :mod:`.steps`), run the
+plain steps on their device (the fused ones are unidirectional and
+non-compat, as in the JAX package), and an explicit ``True`` raises
+``ValueError``. Every network and save path is
 written in the format its suffix names (:func:`.checkpoint.save_network`:
 ``.pt`` the reference state dict, anything else — the CLI's ``.ckpt`` — the
 native msgpack tree); a divergence dump goes to ``<path>.diverged`` in the
 native format, as in the JAX package. Not ported yet (ROADMAP §1): chunked steps,
-device-resident tables, the mesh, ``.trainstate`` snapshots and resume, and
-the compat (Q1) networks.
+device-resident tables, the mesh, and ``.trainstate`` snapshots and resume.
 
 The evaluation half: ``load_a2c_models`` loads a finished model, and
 ``test_a2c_network`` decodes random val draws with the value-guided beam
 (``csrc/beam_search.cu`` on the card; a bidirectional model's carried eager
-beam, :func:`..decode.beam.beam_search`) and dumps the real and generated
-captions and the image urls, which :mod:`..metrics` scores. It draws
+beam, :func:`..decode.beam.beam_search`; the faithful mode's Q1-stateful
+:func:`..decode.beam_compat.beam_search_compat`) and dumps the real and
+generated captions and the image urls, which :mod:`..metrics` scores. It draws
 ``data_size`` val samples *with replacement* (quirk Q8) and walks them in
 127-wide slices per 128 stride (quirk Q9), as the JAX package does.
 """
@@ -56,6 +59,7 @@ from ..api import resolve_device
 from ..config import DecodeConfig, NetConfig, TrainConfig
 from ..data.coco import CocoData, decode_captions, get_coco_batch, get_coco_minibatches
 from ..decode.beam import beam_search
+from ..decode.beam_compat import beam_search_compat
 from ..models import policy as policy_mod
 from ..models import reward as reward_mod
 from ..models import value as value_mod
@@ -98,16 +102,18 @@ def _forced_fused_conflict(flag, what: str, why: str) -> None:
     quietly running another program (the JAX package's rule)."""
     if flag:
         raise ValueError(f"{what} was explicitly forced but cannot be honored {why} — the "
-                         "fused kernels are unidirectional; drop the force flag or the "
-                         "conflicting mode")
+                         "fused kernels are unidirectional and non-compat; drop the force "
+                         "flag or the conflicting mode")
 
 
 def _use_fused(fused_chain: Optional[bool], device: torch.device, cfg: NetConfig,
-               what: str = "fused_chain") -> bool:
+               what: str = "fused_chain", compat: bool = False) -> bool:
     """The fused steps run on a CUDA device unless ``fused_chain`` says
-    otherwise; never for a bidirectional ``cfg`` (forcing them raises)."""
-    if cfg.bidirectional:
-        _forced_fused_conflict(fused_chain, what, "with a bidirectional model")
+    otherwise; never for a bidirectional ``cfg`` or the compat (Q1) steps
+    (forcing them raises)."""
+    if cfg.bidirectional or compat:
+        _forced_fused_conflict(fused_chain, what, "with a bidirectional model"
+                               if cfg.bidirectional else "with compat_batch_as_time")
         return False
     return device.type == "cuda" if fused_chain is None else bool(fused_chain)
 
@@ -203,21 +209,22 @@ def _start(kind: str, train_data: CocoData, network_paths: Dict[str, str], bidir
 def train_reward_network(train_data: CocoData, network_paths: Dict[str, str],
                          plot_dir: Optional[str], bidirectional: bool,
                          epochs: int = _T.reward_epochs, batch_size: int = _T.batch_size,
-                         lr: float = _T.reward_lr, seed: int = 0, device=None,
+                         lr: float = _T.reward_lr, seed: int = 0,
+                         compat_batch_as_time: bool = False, device=None,
                          fused_chain: Optional[bool] = None,
                          net_dims: Optional[Dict[str, int]] = None) -> dict:
     """VSE-loss training of the reward network (trainers.py:260-309);
     writes ``network_paths["reward_network"]`` and returns the trained
-    parameters."""
+    parameters. ``compat_batch_as_time``: the batch-as-time encoder (Q1)."""
     ckpt_path, cfg, dev = _start("reward", train_data, network_paths, bidirectional, net_dims,
                                  device)
-    fused = _use_fused(fused_chain, dev, cfg)
+    fused = _use_fused(fused_chain, dev, cfg, compat=compat_batch_as_time)
     writer = make_metrics_writer(plot_dir)
     rng = np.random.default_rng(seed)
     params = ckpt.to_device(reward_mod.init(torch.Generator().manual_seed(seed), cfg,
                                             train_data.embeddings), dev)
     opt = adam(lr, params, cfg.freeze_embeddings)
-    step = steps.make_reward_step(cfg, opt, fused=fused)
+    step = steps.make_reward_step(cfg, opt, compat=compat_batch_as_time, fused=fused)
     print_green("[Training] Training Reward Network")
     params = _drive_best_loss_training(
         "Training Reward Network", "Reward Network-loss", "reward", ckpt_path, writer, epochs,
@@ -254,16 +261,18 @@ def train_policy_network(train_data: CocoData, network_paths: Dict[str, str],
 def train_value_network(train_data: CocoData, network_paths: Dict[str, str],
                         plot_dir: Optional[str], bidirectional: bool,
                         epochs: int = _T.value_epochs, batch_size: int = _T.batch_size,
-                        lr: float = _T.value_lr, seed: int = 0, device=None,
+                        lr: float = _T.value_lr, seed: int = 0,
+                        compat_batch_as_time: bool = False, device=None,
                         fused_chain: Optional[bool] = None,
                         net_dims: Optional[Dict[str, int]] = None) -> dict:
     """MSE training of the critic against the embedding rewards of greedy
     rollouts of the frozen policy (trainers.py:125-199). Loads the reward
     and policy networks from ``network_paths`` and writes
-    ``network_paths["value_network"]``."""
+    ``network_paths["value_network"]``. ``compat_batch_as_time``: the
+    batch-as-time critic and reward encoders (Q1)."""
     ckpt_path, cfg, dev = _start("value", train_data, network_paths, bidirectional, net_dims,
                                  device)
-    fused = _use_fused(fused_chain, dev, cfg)
+    fused = _use_fused(fused_chain, dev, cfg, compat=compat_batch_as_time)
     writer = make_metrics_writer(plot_dir)
     rng = np.random.default_rng(seed + 2)
     py_rng = pyrandom.Random(seed + 2)
@@ -272,7 +281,8 @@ def train_value_network(train_data: CocoData, network_paths: Dict[str, str],
     params = ckpt.to_device(value_mod.init(torch.Generator().manual_seed(seed + 2), cfg,
                                            train_data.embeddings), dev)
     opt = adam(lr, params, cfg.freeze_embeddings)
-    step = steps.make_value_step(cfg, opt, pparams, rparams, fused=fused)
+    step = steps.make_value_step(cfg, opt, pparams, rparams, compat=compat_batch_as_time,
+                                 fused=fused)
 
     def single_step(params, features, captions):
         # one random prefix length per minibatch, shared by the batch
@@ -356,14 +366,18 @@ def _a2c_epochs(desc: str, tags: tuple, level: Optional[int], writer, train_data
 def a2c_training(train_data: CocoData, a2c_params: dict, reward_params: dict,
                  optimizer: torch.optim.Optimizer, cfg: NetConfig, plot_dir: Optional[str],
                  save_paths, batch_size: int, epochs: int, seed: int = 0,
-                 fused_rollout: Optional[bool] = None, fuse_reward: bool = True) -> dict:
+                 compat_batch_as_time: bool = False, fused_rollout: Optional[bool] = None,
+                 fuse_reward: bool = True) -> dict:
     """The A2C loop (trainers.py:402-500): per minibatch one rollout from
     the start column, the A2C loss and one optimiser step of ``a2c_params``
     (updated in place); the weights go to every path of ``save_paths``
-    after every epoch. Numpy seed and threefry key ``seed + 3``."""
+    after every epoch. Numpy seed and threefry key ``seed + 3``.
+    ``compat_batch_as_time``: the Q1 rollout
+    (:func:`.steps.a2c_rollout_loss_compat`)."""
     device = a2c_params["policy"]["embedding"].device
-    step = steps.make_a2c_step(cfg, optimizer, per_step_mean=False,
-                               fused=_use_fused(fused_rollout, device, cfg, "fused_rollout"),
+    step = steps.make_a2c_step(cfg, optimizer, per_step_mean=False, compat=compat_batch_as_time,
+                               fused=_use_fused(fused_rollout, device, cfg, "fused_rollout",
+                                                compat_batch_as_time),
                                fuse_reward=fuse_reward)
     writer = make_metrics_writer(plot_dir)
     print_green("[Training] Training Advantage Actor-Critic Network")
@@ -380,15 +394,18 @@ def a2c_curriculum_training(train_data: CocoData, a2c_params: dict, reward_param
                             optimizer: torch.optim.Optimizer, cfg: NetConfig,
                             plot_dir: Optional[str], save_paths, batch_size: int, epochs: int,
                             curriculum: Sequence[int], seed: int = 0,
+                            compat_batch_as_time: bool = False,
                             fused_rollout: Optional[bool] = None,
                             fuse_reward: bool = True) -> dict:
     """Curriculum A2C (trainers.py:503-616): per level, ``epochs`` epochs
     that teacher-force the ground-truth prefix of length ``caplen - level``
     and roll out the last ``level`` tokens, with the per-step-mean loss. One
-    numpy generator and one key (``seed + 4``) run through all levels."""
+    numpy generator and one key (``seed + 4``) run through all levels.
+    ``compat_batch_as_time`` as in :func:`a2c_training`."""
     device = a2c_params["policy"]["embedding"].device
-    step = steps.make_a2c_step(cfg, optimizer, per_step_mean=True,
-                               fused=_use_fused(fused_rollout, device, cfg, "fused_rollout"),
+    step = steps.make_a2c_step(cfg, optimizer, per_step_mean=True, compat=compat_batch_as_time,
+                               fused=_use_fused(fused_rollout, device, cfg, "fused_rollout",
+                                                compat_batch_as_time),
                                fuse_reward=fuse_reward)
     writer = make_metrics_writer(plot_dir)
     rng, key = np.random.default_rng(seed + 4), PRNGKey(seed + 4)
@@ -409,7 +426,8 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
                       network_paths: Dict[str, str], plot_dir: Optional[str],
                       bidirectional: bool, epochs: int, batch_size: int,
                       retrain_all: bool = False, curriculum: Optional[Sequence[int]] = None,
-                      seed: int = 0, fused_rollout: Optional[bool] = None,
+                      seed: int = 0, compat_batch_as_time: bool = False,
+                      fused_rollout: Optional[bool] = None,
                       a2c_lr: float = _T.a2c_lr, device=None,
                       net_dims: Optional[Dict[str, int]] = None, fuse_reward: bool = True,
                       stage_seconds: Optional[Dict[str, float]] = None):
@@ -422,12 +440,15 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
     epoch, and append the parameter summary to
     ``save_paths["results_path"]``. ``fuse_reward=False`` runs the frozen
     reward stream as its own kernel after each fused rollout instead of
-    inside it. ``stage_seconds``, when given, receives the wall seconds of
+    inside it. ``compat_batch_as_time`` trains the reward and value networks
+    and runs A2C with the batch-as-time encoders (Q1); the policy has no
+    such mode. ``stage_seconds``, when given, receives the wall seconds of
     each sub-network trained and of the A2C loop. Returns ``(a2c_params,
     reward_params, cfg)``."""
     cfg = _cfg_for(train_data, bidirectional, net_dims)
     dev = _device(device)
-    _use_fused(fused_rollout, dev, cfg, "fused_rollout")  # raises before any training
+    # raises before any training
+    _use_fused(fused_rollout, dev, cfg, "fused_rollout", compat_batch_as_time)
     all_save_paths = [save_paths["model_path"], network_paths["a2c_network"]]
     kw = dict(batch_size=batch_size, seed=seed, device=dev, net_dims=net_dims)
     trainers = {"reward": train_reward_network, "policy": train_policy_network,
@@ -437,7 +458,8 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
 
     def train(kind, train_fn):
         t0 = time.perf_counter()
-        nets[kind] = train_fn(train_data, network_paths, plot_dir, bidirectional, **kw)
+        compat = {} if kind == "policy" else {"compat_batch_as_time": compat_batch_as_time}
+        nets[kind] = train_fn(train_data, network_paths, plot_dir, bidirectional, **kw, **compat)
         seconds[kind] = time.perf_counter() - t0
 
     if retrain_all:
@@ -465,13 +487,15 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
             batch_size, epochs)
     t0 = time.perf_counter()
     if curriculum is None:
-        a2c_training(*args, seed=seed, fused_rollout=fused_rollout, fuse_reward=fuse_reward)
+        a2c_training(*args, seed=seed, compat_batch_as_time=compat_batch_as_time,
+                     fused_rollout=fused_rollout, fuse_reward=fuse_reward)
     else:
         curriculum = list(curriculum)
         if 16 not in curriculum:
             curriculum.append(16)  # the last level is full training (trainers.py:389-390)
-        a2c_curriculum_training(*args, curriculum, seed=seed, fused_rollout=fused_rollout,
-                                fuse_reward=fuse_reward)
+        a2c_curriculum_training(*args, curriculum, seed=seed,
+                                compat_batch_as_time=compat_batch_as_time,
+                                fused_rollout=fused_rollout, fuse_reward=fuse_reward)
     seconds["a2c"] = time.perf_counter() - t0
     append_results(save_paths["results_path"],
                    describe_params("AdvantageActorCriticNetwork", a2c_params), header="network")
@@ -504,15 +528,21 @@ def test_a2c_network(a2c_params: dict, cfg: NetConfig, test_data: CocoData,
     ``use_fused_kernel=False`` runs the plain version; ``True`` on the CPU
     raises. A bidirectional model runs the carried beam
     (:func:`..decode.beam.beam_search`) in float32 on ``device``, as the
-    JAX package routes it, and refuses ``use_fused_kernel=True``. The
-    faithful (Q2 batch-mean) mode is not ported: it raises
-    ``NotImplementedError``.
+    JAX package routes it, and refuses ``use_fused_kernel=True``.
+
+    The faithful mode (``dcfg.per_sample_beams=False``) is the reference's
+    own eval: the Q2 batch-mean beam with the Q1-stateful critic
+    (:func:`..decode.beam_compat.beam_search_compat`, float32 on
+    ``device``, either direction mode), a fresh zero carry per slice
+    (trainers.py:661), one slice a decode (the batch-mean ranking couples
+    its rows) and the ragged tail at its own size, unpadded. It refuses
+    ``use_fused_kernel=True`` (``ValueError``), as the JAX package does.
     """
     dcfg = dcfg or DecodeConfig(max_seq_len=cfg.max_seq_len)
-    if not dcfg.per_sample_beams:
-        raise NotImplementedError(
-            "the faithful evaluation (the Q2 batch-mean beam with the Q1-stateful critic) is "
-            "not ported yet (ROADMAP §1 item 6)")
+    faithful = not dcfg.per_sample_beams
+    if faithful:
+        _forced_fused_conflict(use_fused_kernel, "use_fused_kernel=True",
+                               "in faithful (batch-mean Q2) mode")
     if cfg.bidirectional:
         _forced_fused_conflict(use_fused_kernel, "use_fused_kernel=True",
                                "with a bidirectional model")
@@ -520,12 +550,13 @@ def test_a2c_network(a2c_params: dict, cfg: NetConfig, test_data: CocoData,
     if use_fused_kernel and dev.type != "cuda":
         raise RuntimeError("use_fused_kernel=True needs a CUDA device: the beam kernel runs "
                            "only on the card")
-    if cfg.bidirectional:
+    if faithful or cfg.bidirectional:
         pparams, vparams = (ckpt.to_device(a2c_params[k], dev) for k in ("policy", "value"))
+        beam_fn = beam_search_compat if faithful else beam_search
 
         def decode(features, start):
-            with torch.no_grad():
-                return beam_search(pparams, vparams, cfg, dcfg, features, start)
+            with torch.no_grad():  # the compat beam's carry starts at zero per call
+                return beam_fn(pparams, vparams, cfg, dcfg, features, start)[:2]
     else:
         wd = torch.bfloat16 if dev.type == "cuda" else torch.float32
         weights = prepare_beam_weights(
@@ -547,7 +578,8 @@ def test_a2c_network(a2c_params: dict, cfg: NetConfig, test_data: CocoData,
         for i in range(0, len(captions_all), validation_batch_size)
     ]
     slices = [s for s in slices if s[0].shape[0] > 0]
-    gwidth = width * eval_superbatch
+    group = 1 if faithful else eval_superbatch  # Q2 couples a decode's rows
+    gwidth = width * group
 
     def write_slice(f, lines):
         if compat_dump:
@@ -559,12 +591,12 @@ def test_a2c_network(a2c_params: dict, cfg: NetConfig, test_data: CocoData,
     with open(image_caption_data["real_captions_path"], "a") as real_f, \
          open(image_caption_data["generated_captions_path"], "a") as gen_f, \
          open(image_caption_data["image_urls_path"], "a") as url_f:
-        for g in range(0, len(slices), eval_superbatch):
-            batch = slices[g: g + eval_superbatch]
+        for g in range(0, len(slices), group):
+            batch = slices[g: g + group]
             captions_real = np.concatenate([b[0] for b in batch], axis=0)
             features_real = np.concatenate([b[1] for b in batch], axis=0)
             n_real = captions_real.shape[0]
-            if n_real < gwidth:  # pad to the full width: one shape for the beam
+            if n_real < gwidth and not faithful:  # pad: one shape for the beam
                 pad = gwidth - n_real
                 features_real = np.concatenate(
                     [features_real, np.repeat(features_real[-1:], pad, axis=0)], axis=0)
@@ -585,7 +617,7 @@ def test_a2c_network(a2c_params: dict, cfg: NetConfig, test_data: CocoData,
             real_f.flush()
             gen_f.flush()
             url_f.flush()
-    print(f"Testing model: {len(slices)} slices in {-(-len(slices) // eval_superbatch)} groups "
+    print(f"Testing model: {len(slices)} slices in {-(-len(slices) // group)} groups "
           f"of {gwidth} rows in {time.perf_counter() - t0:.1f} s", flush=True)
 
 

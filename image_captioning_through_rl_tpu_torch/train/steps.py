@@ -1,5 +1,4 @@
-"""Training steps (counterpart of the JAX ``train/steps.py``, non-compat
-forms only).
+"""Training steps (counterpart of the JAX ``train/steps.py``).
 
   * reward — VSE ranking loss (reference trainers.py:260-309);
   * policy — caption-length-weighted XE (trainers.py:202-257);
@@ -25,8 +24,12 @@ Bidirectional networks take the plain forms, as in the JAX package, whose
 fused steps refuse them: the value step regresses the value of the greedy
 rollout's prefix re-encoded (:func:`value_regression_loss`), and A2C runs
 :func:`a2c_rollout_loss_full`, which re-runs the three forwards on the
-growing prefix. ``fused=True`` with a bidirectional config raises
-``ValueError``.
+growing prefix. ``compat=True`` selects the reference's batch-as-time
+value and reward encoders (quirk Q1, ``forward_compat``) with their
+carries reset per minibatch, where the reference calls ``init_hidden()``:
+the compat reward and value steps, and :func:`a2c_rollout_loss_compat`,
+whose carries thread through all S rollout steps. ``fused=True`` with a
+bidirectional config or ``compat=True`` raises ``ValueError``.
 
 A step built by ``make_*_step`` runs one minibatch — loss, backward, one
 optimiser step that updates the parameter tensors in place — and returns
@@ -36,6 +39,7 @@ the loss (the A2C step: its :class:`RolloutStats`) as detached 0-d tensors
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -77,8 +81,15 @@ def _train_step(optimizer: torch.optim.Optimizer, loss_fn):
 # Reward network (VSE loss)
 # --------------------------------------------------------------------------
 
-def reward_loss(params, cfg: NetConfig, features, captions, beta=0.2):
-    ve, se = reward_mod.forward(params, cfg, features, captions)
+def reward_loss(params, cfg: NetConfig, features, captions, beta=0.2, compat: bool = False):
+    """The VSE loss; ``compat=True`` encodes with the batch-as-time GRU from
+    a zero carry (the reference resets it after every minibatch,
+    trainers.py:307)."""
+    if compat:
+        (ve, se), _ = reward_mod.forward_compat(params, cfg, features, captions,
+                                                reward_mod.compat_zero_state(cfg, features.device))
+    else:
+        ve, se = reward_mod.forward(params, cfg, features, captions)
     return visual_semantic_embedding_loss(ve, se, beta=beta)
 
 
@@ -94,12 +105,13 @@ def reward_loss_fused(params, cfg: NetConfig, features, captions, beta=0.2,
 
 
 def make_reward_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, beta=0.2,
-                     fused: bool = False):
-    """``step(params, features, captions) -> loss``; ``fused=True`` runs the
-    GRU chain through its kernels (unidirectional only)."""
-    if fused and cfg.bidirectional:
+                     compat: bool = False, fused: bool = False):
+    """``step(params, features, captions) -> loss``; ``compat=True`` the
+    batch-as-time encoder (Q1); ``fused=True`` runs the GRU chain through
+    its kernels (unidirectional, non-compat only)."""
+    if fused and (compat or cfg.bidirectional):
         raise ValueError("fused reward step is unidirectional, non-compat only")
-    loss_fn = reward_loss_fused if fused else reward_loss
+    loss_fn = reward_loss_fused if fused else functools.partial(reward_loss, compat=compat)
 
     def step(params, features, captions):
         return _train_step(optimizer, lambda: loss_fn(params, cfg, features, captions, beta=beta))
@@ -205,15 +217,39 @@ def value_episode_loss(vparams, cfg: NetConfig, pparams, rparams, features, capt
                                  fused=fused, weight_dtype=weight_dtype)
 
 
+def value_compat_loss(vparams, cfg: NetConfig, pparams, rparams, features, captions,
+                      prefix_len: int):
+    """The compat value step's loss (the JAX ``steps.py:238-258``): the
+    frozen policy's plain greedy rollout, its reward under the batch-as-time
+    reward GRU, and the batch-as-time critic's value of the rollout's prefix
+    of length ``prefix_len``, both encoders from a zero carry (reset per
+    minibatch, trainers.py:196-197)."""
+    with torch.no_grad():
+        gen_caps = greedy_decode(pparams, cfg, features, captions[:, 0]).long()
+        (ve, se), _ = reward_mod.forward_compat(rparams, cfg, features, gen_caps,
+                                                reward_mod.compat_zero_state(cfg, features.device))
+        rewards = cosine_embedding_reward(ve, se)[:, None]
+    values, _ = value_mod.forward_compat(vparams, cfg, features, gen_caps[:, :prefix_len],
+                                         value_mod.compat_zero_state(cfg, features.device))
+    return torch.mean(torch.square(values - rewards))
+
+
 def make_value_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, pparams: dict,
-                    rparams: dict, fused: bool = False):
+                    rparams: dict, compat: bool = False, fused: bool = False):
     """``step(vparams, features, captions, prefix_len) -> loss`` against the
     frozen policy ``pparams`` and reward network ``rparams`` (loaded, not
-    trained: trainers.py:140-150). ``fused=True`` prepares the policy's
+    trained: trainers.py:140-150). ``compat=True`` takes
+    :func:`value_compat_loss` (Q1). ``fused=True`` prepares the policy's
     bf16 greedy-kernel weights once, here, and runs the rollout and the
-    value encoder through their kernels (unidirectional only)."""
-    if fused and cfg.bidirectional:
+    value encoder through their kernels (unidirectional, non-compat only)."""
+    if fused and (compat or cfg.bidirectional):
         raise ValueError("fused value step is unidirectional, non-compat only")
+    if compat:
+        def compat_step(vparams, features, captions, prefix_len):
+            return _train_step(optimizer, lambda: value_compat_loss(
+                vparams, cfg, pparams, rparams, features, captions, prefix_len))
+
+        return compat_step
     greedy_weights = prepare_greedy_weights(pparams) if fused else None
 
     def step(vparams, features, captions, prefix_len):
@@ -322,6 +358,42 @@ def a2c_rollout_loss_full(a2c_params: dict, cfg: NetConfig, reward_params: dict,
                      torch.stack(log_probs, dim=1), curr_seq_len, caplen, per_step_mean)
 
 
+def a2c_rollout_loss_compat(a2c_params: dict, cfg: NetConfig, reward_params: dict, features,
+                            captions, curr_seq_len: int, caplen, rng,
+                            per_step_mean: bool = False):
+    """The reference-exact rollout loss with batch-as-time statefulness
+    (quirk Q1; the JAX ``steps.py:678-746``): the value LSTM's and the
+    reward GRU's carries start at zero and thread through every forward of
+    the minibatch's S steps (the reference resets them at minibatch end,
+    trainers.py:495-496), each forward re-reading the growing prefix; the
+    policy re-runs its forward on the prefix. The same step keys, draws,
+    placed tokens, loss and mask as :func:`a2c_rollout_loss_full`; the
+    reward under ``no_grad``."""
+    pparams, vparams = a2c_params["policy"], a2c_params["value"]
+    t_max = captions.shape[1]
+    dev = features.device
+    step_keys = split(rng, t_max - 1)
+    val_carry = value_mod.compat_zero_state(cfg, dev)
+    rew_carry = reward_mod.compat_zero_state(cfg, dev)
+    buf = captions[:, :1]
+    values, rewards, log_probs = [], [], []
+    for p in range(1, t_max):
+        value, val_carry = value_mod.forward_compat(vparams, cfg, features, buf, val_carry)
+        logits = policy_mod.forward(pparams, cfg, features, buf)[:, -1]
+        action = sample_categorical(step_keys[p - 1], logits.detach())
+        log_probs.append(log_prob_of(logits, action))
+        values.append(value[:, 0])
+        with torch.no_grad():  # the reward of prefix + the sampled action
+            (ve, se), rew_carry = reward_mod.forward_compat(
+                reward_params, cfg, features, torch.cat([buf, action[:, None]], dim=1),
+                rew_carry)
+            rewards.append(cosine_embedding_reward(ve, se))
+        token_in = captions[:, p] if p < curr_seq_len else action
+        buf = torch.cat([buf, token_in[:, None]], dim=1)
+    return _a2c_loss(torch.stack(values, dim=1), torch.stack(rewards, dim=1),
+                     torch.stack(log_probs, dim=1), curr_seq_len, caplen, per_step_mean)
+
+
 def a2c_rollout_loss_fused(a2c_params: dict, cfg: NetConfig, reward_params: dict, features,
                            captions, curr_seq_len: int, caplen, rng,
                            per_step_mean: bool = False,
@@ -346,21 +418,24 @@ def a2c_rollout_loss_fused(a2c_params: dict, cfg: NetConfig, reward_params: dict
 
 
 def make_a2c_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, per_step_mean: bool = False,
-                  fused: bool = False, fuse_reward: bool = True):
+                  compat: bool = False, fused: bool = False, fuse_reward: bool = True):
     """``step(a2c_params, reward_params, features, captions, curr_seq_len,
     rng) -> RolloutStats`` (detached): one A2C update of ``{"policy",
     "value"}`` against the frozen reward network, plain
     (``per_step_mean=False``) or curriculum (``True``). ``rng`` is the
     minibatch's host key. ``fused=True`` runs the rollout through the
     rollout kernels (:func:`a2c_rollout_loss_fused`), with the reward
-    stream fused in or, ``fuse_reward=False``, as its own kernel. A
-    bidirectional config takes :func:`a2c_rollout_loss_full` and refuses
+    stream fused in or, ``fuse_reward=False``, as its own kernel.
+    ``compat=True`` takes :func:`a2c_rollout_loss_compat` (Q1); otherwise a
+    bidirectional config takes :func:`a2c_rollout_loss_full`. Both refuse
     ``fused=True``."""
-    if fused and cfg.bidirectional:
+    if fused and (compat or cfg.bidirectional):
         raise ValueError("fused rollout is unidirectional, non-compat only")
     fused_kw = {"fuse_reward": fuse_reward} if fused else {}
     if fused:
         rollout = a2c_rollout_loss_fused
+    elif compat:
+        rollout = a2c_rollout_loss_compat
     else:
         rollout = a2c_rollout_loss_full if cfg.bidirectional else a2c_rollout_loss
 

@@ -8,7 +8,8 @@ to the second). Held:
   * both parsers' defaults and flags (except the port's ``--device``), and
     ``--config``'s precedence and errors;
   * every flag of a part not ported yet raises before the bundle is read,
-    naming its ROADMAP item; without a card the default device raises;
+    naming its ROADMAP item, and the ported ones reach the bundle; without
+    a card the default device raises;
   * ``--test_model`` on JAX-written ``.ckpt`` files (JAX at
     ``precision="highest"``, as ``tests/test_torch_eval.py``): the three
     dumps byte-identical, ``results.txt`` scores within 1e-12,
@@ -21,12 +22,17 @@ to the second). Held:
     ``runs/`` directory (the port logs JSONL only);
   * a ``--retrain`` run of the port alone, whose ``.ckpt`` files the JAX
     package loads; ``--profile_dir`` leaves a Chrome trace;
+  * ``--faithful_beam --compat_dump --test_model``: the dumps byte for byte
+    and the scores against the JAX CLI's; ``--compat_batch_as_time`` runs,
+    with ``--retrain`` and from JAX-written sub-networks, their losses
+    within rtol 1e-4 of the JAX CLI's;
   * ``cli/score`` prints the JAX dict, ``cli/export`` writes the JAX
     export's tensors, and ``build_bundle`` (and ``cli/build_data``) writes
     the JAX builder's h5 contents, text files and stats.
 """
 
 import ast
+import dataclasses
 import importlib
 import json
 import os
@@ -51,6 +57,7 @@ from image_captioning_through_rl_tpu_torch.cli import build_data as tbuild_data
 from image_captioning_through_rl_tpu_torch.cli import export as texport
 from image_captioning_through_rl_tpu_torch.cli import score as tscore
 from image_captioning_through_rl_tpu_torch.data.build import build_bundle as tbuild_bundle
+from image_captioning_through_rl_tpu_torch.models import from_jax_params
 from image_captioning_through_rl_tpu_torch.train import checkpoint as tckpt
 
 # the cli packages export main(); the modules come by name
@@ -169,7 +176,7 @@ def test_config_precedence_and_errors(case, tmp_path, capsys):
 def test_unported_flags_raise_before_the_bundle_is_read(flags, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     argv = ["--data_dir", str(tmp_path / "missing"), *flags, "--device", "cpu"]
-    if item == 5:  # ported: --bidirectional no longer raises, the run reads the bundle
+    if item in (5, 6):  # ported: these flags no longer raise, the run reads the bundle
         with pytest.raises(FileNotFoundError, match="missing"):
             _port_run(argv)
         return
@@ -318,6 +325,99 @@ def test_bidirectional_retrain_and_test_model_match_jax_cli(coco, tmp_path, monk
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k] == pytest.approx(want[k], rel=1e-12, abs=1e-300), k
+
+
+def test_faithful_test_model_matches_jax_cli(coco, jax_models, tmp_path, monkeypatch):
+    """``--faithful_beam --compat_dump --test_model``: the reference's eval
+    (the Q2 batch-mean beam with the Q1-stateful critic, one slice a
+    decode, the tail at its own size, the Q13 merged dumps), its three
+    dumps byte for byte and its scores against the JAX CLI's."""
+    runs = {}
+    for side, run in (("j", _jax_run), ("t", _port_run)):
+        d = tmp_path / side
+        shutil.copytree(jax_models, d)
+        monkeypatch.chdir(d)
+        run(["--data_dir", coco, "--test_model", str(d / "run" / "a2cNetwork.ckpt"),
+             "--test_size", "150", "--faithful_beam", "--compat_dump", "--pretrained_path",
+             str(d), *DIMS] + (["--device", "cpu"] if side == "t" else []))
+        runs[side] = d / "run"
+    for name in ("real_captions.txt", "generated_captions.txt", "image_url.txt"):
+        got, want = (runs["t"] / name).read_bytes(), (runs["j"] / name).read_bytes()
+        assert got == want, name
+        assert len(want.splitlines()) == 149 - 1  # slices of 127 and 22 rows, merged (Q13)
+    (want,), (got,) = _scores(runs["j"] / "results.txt"), _scores(runs["t"] / "results.txt")
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-12, abs=1e-300), k
+
+
+def _jax_inits(monkeypatch):
+    """The port's networks start from the JAX initialisers' weights (the
+    same seeds), so two trainings can be held to each other."""
+    for name, jmod in (("reward", jreward), ("policy", jpolicy), ("value", jvalue)):
+        def init(gen, cfg, emb=None, jmod=jmod):
+            tree = jmod.init(jax.random.PRNGKey(gen.initial_seed()),
+                             JNetConfig(**dataclasses.asdict(cfg)), emb)
+            return from_jax_params(jax.tree.map(np.asarray, tree))
+
+        monkeypatch.setattr(importlib.import_module(
+            f"image_captioning_through_rl_tpu_torch.models.{name}"), "init", init)
+
+
+def _compat_runs(coco, tmp_path, monkeypatch, extra, models=None):
+    """A ``--compat_batch_as_time`` training run of each CLI on 8 training
+    captions (one minibatch an epoch) -> both sides' metrics.jsonl records
+    and log directories."""
+    _jax_inits(monkeypatch)
+    out = {}
+    for side, run in (("j", _jax_run), ("t", _port_run)):
+        d = tmp_path / side
+        if models is None:
+            d.mkdir()
+        else:
+            shutil.copytree(models, d, ignore=shutil.ignore_patterns("run", "value*"))
+        monkeypatch.chdir(d)
+        np.random.seed(4)  # the --training_size draw (numpy's global generator)
+        run(["--data_dir", coco, "--compat_batch_as_time", "--training_size", "8", "--epochs",
+             "1", "--batch_size", "8", "--chunk_steps", "1", "--test_size", "20",
+             "--pretrained_path", ".", "--seed", "2", *extra, *DIMS]
+            + (["--device", "cpu"] if side == "t" else []))
+        log = _log_dir(d)
+        out[side] = ([json.loads(x) for x in (log / "metrics.jsonl").read_text().splitlines()],
+                     log)
+    (want, jlog), (got, tlog) = out["j"], out["t"]
+    assert [(r["tag"], r["step"]) for r in got] == [(r["tag"], r["step"]) for r in want]
+    assert set(os.listdir(tlog)) == set(os.listdir(jlog)) - {"runs"} == ARTIFACTS
+    assert json.loads((tlog / "run_config.json").read_text())["compat_batch_as_time"]
+    return want, got
+
+
+def test_compat_retrain_run_matches_jax_cli(coco, tmp_path, monkeypatch):
+    """``--compat_batch_as_time --retrain``: the same stages, minibatches
+    and artifacts as the JAX CLI; the compat reward pretrainer's and the
+    policy's 150 losses within rtol 1e-4 of the JAX CLI's, from the same
+    initial weights and data. The value and A2C stages train against
+    networks those 150 Adam steps left apart by float noise (Adam's
+    normalised steps carry it into the weights), so their losses are
+    checked finite here and held to the JAX CLI's from shared frozen
+    networks by :func:`test_compat_training_run_matches_jax_cli`."""
+    want, got = _compat_runs(coco, tmp_path, monkeypatch, ["--retrain"])
+    assert len(got) == 50 + 100 + 50 + 3
+    first = [i for i, r in enumerate(got) if r["tag"] in ("Reward Network-loss",
+                                                          "Policy Network-loss")]
+    assert len(first) == 150
+    np.testing.assert_allclose([got[i]["value"] for i in first],
+                               [want[i]["value"] for i in first], rtol=1e-4)
+    assert np.isfinite([r["value"] for r in got]).all()
+
+
+def test_compat_training_run_matches_jax_cli(coco, jax_models, tmp_path, monkeypatch):
+    """``--compat_batch_as_time`` from JAX-written reward and policy
+    ``.ckpt`` files and no value network: the compat value pretrainer's 50
+    losses and the compat A2C step's losses within rtol 1e-4 of the JAX
+    CLI's."""
+    want, got = _compat_runs(coco, tmp_path, monkeypatch, [], models=jax_models)
+    assert [r["tag"] for r in got].count("Value Network-loss") == 50 and len(got) == 50 + 3
+    np.testing.assert_allclose([r["value"] for r in got], [r["value"] for r in want], rtol=1e-4)
 
 
 def test_profile_dir_leaves_a_trace(coco, jax_models, tmp_path, monkeypatch):

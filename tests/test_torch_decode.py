@@ -27,7 +27,6 @@ from image_captioning_through_rl_tpu_torch.decode import (
     greedy_decode,
     greedy_decode_full_prefix,
 )
-from image_captioning_through_rl_tpu_torch.decode.beam import beam_search_compat
 from image_captioning_through_rl_tpu_torch.models import from_jax_params
 from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
     beam_search_plain,
@@ -155,11 +154,6 @@ def test_routing_and_unported_modes(params):
         greedy_decode_plain(gw, f, s, T).numpy())
     with pytest.raises(ValueError, match="beam"):
         fused_beam_search(bw, f, s, T, beam=9)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        beam_search(tp["policy"], tp["value"], TCFG,
-                    tconfig.DecodeConfig(per_sample_beams=False), f, s)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        beam_search_compat()
 
 
 def test_bf16_kernel_width_check():

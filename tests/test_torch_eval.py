@@ -269,15 +269,12 @@ def test_evaluate_captions_matches_jax():
 
 
 def test_unported_modes_raise(small, tmp_path):
-    """The faithful (Q2 batch-mean) mode raises before anything is drawn or
-    written; a bidirectional model forced onto the beam kernel raises
-    ``ValueError`` as early, and a bidirectional load reaches its files."""
+    """A bidirectional model forced onto the beam kernel raises
+    ``ValueError`` before anything is drawn or written, and a bidirectional
+    load reaches its files."""
     _, tdata, _, tp = small
     p = _paths(str(tmp_path))
     cfg = tconfig.NetConfig(**SMALL)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        teval(tp, cfg, tdata, p, data_size=10, device="cpu",
-              dcfg=tconfig.DecodeConfig(per_sample_beams=False))
     with pytest.raises(ValueError, match="bidirectional"):
         teval(tp, dataclasses.replace(cfg, bidirectional=True), tdata, p, data_size=10,
               device="cpu", use_fused_kernel=True)

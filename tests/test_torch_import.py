@@ -16,6 +16,7 @@ def test_port_imports_without_jax():
         "import image_captioning_through_rl_tpu_torch.server\n"
         "import image_captioning_through_rl_tpu_torch.decode\n"
         "import image_captioning_through_rl_tpu_torch.decode.sample\n"
+        "import image_captioning_through_rl_tpu_torch.decode.beam_compat\n"
         "import image_captioning_through_rl_tpu_torch.client\n"
         "import image_captioning_through_rl_tpu_torch.train.loops\n"
         "import image_captioning_through_rl_tpu_torch.train.steps\n"
@@ -51,6 +52,7 @@ def test_cli_slice_imports_without_h5py_msgpack_or_flax():
         "import image_captioning_through_rl_tpu_torch.cli.score\n"
         "import image_captioning_through_rl_tpu_torch.cli.export\n"
         "import image_captioning_through_rl_tpu_torch.cli.build_data\n"
+        "import image_captioning_through_rl_tpu_torch.cli.verify_reference\n"
         "import image_captioning_through_rl_tpu_torch.__main__\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in (\n"
         "    'jax', 'flax', 'h5py', 'msgpack', 'image_captioning_through_rl_tpu'))\n"
