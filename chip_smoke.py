@@ -145,9 +145,10 @@ Phases:
      the three pretrainers (4 minibatches x 50 / 100 / 50 epochs) and one
      A2C epoch on the card, every artifact of the JAX CLI's log directory
      but the .trainstate snapshots, every logged loss finite, seven finite
-     scores, the GRU chain's, the rollout's, the noise kernel's and the
-     beam's launches as counted from the run's minibatches and groups, the
-     LSTM chain, greedy and the x-gate tables launched, and every .ckpt
+     scores, the chains', greedy's, the rollout's, the noise kernel's and
+     the beam's launches as counted from the run's minibatches and groups
+     (and the chain kernels' runs in a torch.profiler trace of the run),
+     the x-gate tables launched, and every .ckpt
      written read back bit-equal (the a2c files to the returned parameters,
      the pretrainers' files re-encoded to the same bytes); then a
      --test_model evaluation of the a2c .ckpt at 40504 draws (the log
@@ -198,11 +199,43 @@ Phases:
      A2C step). Times: the faithful eval's seconds a slice on the card and
      on the CPU, each compat trainer's ms a step, the bidirectional compat
      steps, the self test and the request.
+ 24. the JAX trainers' default walk, on phase 21's bundle at 16384 training
+     captions (32 minibatches of 512, bf16 kernels): the reward, policy and
+     value pretrainers and A2C plain and curriculum [8] one epoch each with
+     chunk_steps 16 (the train split on the card, the Q12 bookkeeping on the
+     device; the reward and policy chunks one CUDA graph replay each, the
+     value and A2C chunks eager) and with chunk_steps 1: the JSONL scalars,
+     the Q12 and a2c checkpoints and the .trainstate snapshots (final
+     weights, Adam's moments and count) bit-equal; the graph captures and
+     replays (one capture and two replays an epoch; one warm-up update
+     before each capture); every kernel's launches as its wrapper counts
+     them (the warm-up's and the capture's, none for a replay, which calls
+     no wrapper) and the chain kernels' runs in a torch.profiler trace of
+     each run (graph replays included), both against the minibatches; two
+     epochs against one plus a resume, for the policy
+     pretrainer and A2C, bit-equal, and a snapshot read back and written
+     again bit-equal; server.main with the JAX server's flags (--model
+     <log_dir>/a2cNetwork.ckpt --data_dir <bundle> --pretrained_path) on
+     phase 21's model, its greedy and beam-5 captions equal to
+     load_captioner's on the same file. Times: each trainer's wall ms a
+     minibatch chunked and per step, the steady state of a chunk (host ms
+     a chunk, wall ms a minibatch) against single steps each with its loss
+     read, torch.profiler's busy share and device ms over one chunk and
+     over 16 single steps, for each trainer, and the embedding gradient's
+     one-hot product against index_add_. Phases 21 and 23 expect the
+     reward and policy pretrainers' graphs in their launch counts (a
+     warm-up update and a capture a chunk size), phase 21 every run of the
+     chain kernels in a trace of its training run, phase 23 one policy
+     graph replay a chunk; phases 21-23 TensorBoard's runs/ beside
+     metrics.jsonl where torch.utils.tensorboard imports, and the
+     .trainstate snapshots.
 
 The last JSON line but two lists every kernel with its launches on its main
 paths, by path (serving for greedy; serving and the evaluation for the beam
-and the x-gate table; the pretrainers for the chains; A2C for the rest; and
-the CLI's two runs of phase 21 for every kernel they launch), its
+and the x-gate table; the pretrainers for the chains; A2C for the rest; the
+CLI's two runs of phase 21 for every kernel they launch; phase 24's runs as
+``chunked``; for the chains also ``runs_by_path``, the kernel's runs in the
+traces of phase 21's training run and phase 24, graph replays included), its
 largest error against plain, its time and its plain version's, and its
 bound: the least time an H100 SXM could take
 (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16, 67 TFLOP/s for
@@ -397,6 +430,9 @@ BIDI_ARTIFACTS = {"a2cNetwork_bidirectional.ckpt", "generated_captions_bidirecti
 STREAM_TOKENS, STREAM_REL, LOOP_TOKENS = 127 * 19 * 25, 1e-4, 1024
 FAITHFUL_N, FAITHFUL_DRAWS = 127, 254
 COMPAT_TRAINING_SIZE, COMPAT_EPOCHS, COMPAT_TEST_SIZE, FAITHFUL_ROWS = 1024, 3, 20, 8
+# phase 24: the trainers' chunk (minibatches a host dispatch, the default)
+# and the training size (32 minibatches of 512: two chunks)
+CHUNK_K, CHUNK_TRAINING_SIZE = 16, 16384
 
 
 T0 = time.perf_counter()
@@ -1110,10 +1146,14 @@ def profile_window(step_fn, iters: int) -> str:
 
 
 def device_ops(prof) -> tuple[dict, dict]:
-    """A profile's device time (ms) and launch count by short kernel name."""
+    """A profile's device time (ms) and launch count by short kernel name.
+    A ``record_function`` range's span on the device (a user annotation,
+    such as ``Optimizer.step#Adam.step``) is no kernel: counting it would
+    count its kernels twice."""
     ms, counts = {}, {}
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
             continue
         us = getattr(evt, "self_device_time_total", None)
         us = evt.self_cuda_time_total if us is None else us
@@ -1157,6 +1197,29 @@ def per_call(counts: dict, iters: int) -> dict:
 CHAIN_KERNELS = ("lstm_fwd_kernel", "lstm_bwd_kernel", "gru_fwd_kernel", "gru_bwd_kernel",
                  "wgmma_gemm_kernel", "linear_kernel", "colsum_part_kernel",
                  "colsum_finish_kernel", "view_kernel")
+
+# The kernel a chain wrapper's launch runs once (phase 10 holds one a call).
+CHAIN_RUNS = {"lstm_chain_fwd": "lstm_fwd_kernel", "lstm_chain_bwd": "lstm_bwd_kernel",
+              "gru_chain_fwd": "gru_fwd_kernel", "gru_chain_bwd": "gru_bwd_kernel"}
+
+
+def chain_runs(fn) -> tuple:
+    """``fn()`` under a torch.profiler trace of the device's work only: its
+    result, how many times each chain kernel ran, by wrapper name
+    (:data:`CHAIN_RUNS`), and the wall seconds of ``fn()`` to the card's
+    last kernel (the tracer's start, stop and read-out left out). A kernel
+    that a CUDA graph replays counts each time it runs; its wrapper, which
+    no replay calls, counted it once, when the graph was captured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        settle_tracer()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    counts = device_ops(prof)[1]
+    return out, {name: counts.get(kernel, 0) for name, kernel in CHAIN_RUNS.items()}, seconds
 
 
 def chain_launches(dev) -> dict:
@@ -2405,22 +2468,34 @@ def zero_counters(counters: dict) -> None:
         setattr(fn, attr, 0)
 
 
-def cli_run(cli, argv: list, log_path: str, counters: dict) -> tuple[dict, dict, float]:
+def cli_run(cli, argv: list, log_path: str, counters: dict,
+            runs: dict | None = None) -> tuple[dict, dict, float]:
     """cli.main.main on ``argv`` with its output in ``log_path`` (its last
     40 lines printed if it fails); the kernels' launches during the run and
-    its wall seconds."""
+    its wall seconds. With ``runs`` (a dict) the run is traced, and ``runs``
+    receives how many times each chain kernel ran (:func:`chain_runs`)."""
     args = cli.parse_args_with_config(cli.build_arg_parser(), argv)
     zero_counters(counters)
-    t0 = time.perf_counter()
-    try:
+
+    def go():
         with open(log_path, "a") as log, contextlib.redirect_stdout(log):
             out = cli.main(args)
         torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()
+    try:
+        if runs is None:
+            out = go()
+            seconds = time.perf_counter() - t0
+        else:
+            out, got, seconds = chain_runs(go)
+            runs.update(got)
     except BaseException:
         with open(log_path) as log:
             print("".join(log.readlines()[-40:]), flush=True)
         raise
-    return out, read_counters(counters), time.perf_counter() - t0
+    return out, read_counters(counters), seconds
 
 
 def score_blocks(path: str) -> list:
@@ -2494,40 +2569,50 @@ def cli_main_path(dev, card: str, tmp: str) -> dict:
     pre = os.path.join(tmp, "pretrained")
     log_path = os.path.join(tmp, "cli.log")
 
-    def run(argv: list) -> tuple[dict, dict, float]:
-        return cli_run(cli, argv, log_path, counters)
+    def run(argv: list, runs: dict | None = None) -> tuple[dict, dict, float]:
+        return cli_run(cli, argv, log_path, counters, runs)
 
     os.chdir(tmp)
+    train_runs = {}
     try:
         np.random.seed(SEED)  # the --training_size draw (numpy's global generator)
         train, train_launches, train_s = run(
             ["--data_dir", bundle, "--training_size", str(CLI_TRAINING_SIZE), "--epochs", "1",
              "--batch_size", str(BATCH), "--test_size", str(CLI_TEST_SIZE), "--retrain",
-             "--pretrained_path", pre, "--seed", str(SEED), "--device", "cuda"])
+             "--pretrained_path", pre, "--seed", str(SEED), "--device", "cuda"], train_runs)
         log_dir = os.path.join(tmp, train["log_dir"])
         files = set(os.listdir(log_dir))
-        if files != CLI_ARTIFACTS:
+        if files != CLI_ARTIFACTS | tb_runs():
             raise AssertionError(f"the training run wrote {sorted(files)}, not "
-                                 f"{sorted(CLI_ARTIFACTS)}")
+                                 f"{sorted(CLI_ARTIFACTS | tb_runs())}")
         log = check_training_run(log_dir, pre, "", train, dev, tmp)
         minibatches = CLI_TRAINING_SIZE // BATCH
         groups = -(-(-(-CLI_TEST_SIZE // EVAL_VBS)) // EVAL_GROUP)
-        steps_run = {"gru_chain_fwd": 50 * minibatches, "gru_chain_bwd": 50 * minibatches,
+        # the reward and policy pretrainers replay one CUDA graph a chunk
+        # (their wrappers count the warm-up and the capture, the trace every
+        # run); the value pretrainer's chunks run eagerly
+        warm, value = len(chunk_sizes(minibatches)), 50 * minibatches
+        gru, lstm = captured_launches(minibatches), captured_launches(minibatches) + value
+        steps_run = {"gru_chain_fwd": gru, "gru_chain_bwd": gru, "lstm_chain_fwd": lstm,
+                     "lstm_chain_bwd": lstm, "greedy_decode": value,
                      "rollout_fwd": minibatches, "rollout_bwd": minibatches,
                      "threefry_gumbel": minibatches, "beam_search": groups}
+        want_runs = {f"gru_chain_{d}": 50 * minibatches + warm for d in ("fwd", "bwd")}
+        want_runs.update({f"lstm_chain_{d}": 100 * minibatches + warm + value
+                          for d in ("fwd", "bwd")})
         if (any(train_launches[k] != v for k, v in steps_run.items())
-                or min(train_launches[k] for k in ("lstm_chain_fwd", "lstm_chain_bwd",
-                                                   "greedy_decode", "token_gates")) < 1):
+                or train_launches["token_gates"] < 1 or train_runs != want_runs):
             raise AssertionError(f"the training run's launches {train_launches}, expected "
-                                 f"{steps_run} and the LSTM chain, greedy and the x-gate "
-                                 f"tables launched")
+                                 f"{steps_run} and the x-gate tables launched; chain kernels "
+                                 f"run {train_runs}, expected {want_runs}")
         stages = train["seconds"]
         phase("cli", f"training run (--retrain, --training_size {CLI_TRAINING_SIZE}: "
                      f"{minibatches} minibatches of {BATCH} x 50 / 100 / 50 pretraining "
                      f"epochs, 1 A2C epoch; --test_size {CLI_TEST_SIZE}) in {train_s:.1f} s; "
                      f"artifacts {sorted(files)}; {len(log)} finite losses logged; seven "
-                     f"finite scores; launches {train_launches}; the four .ckpt files read "
-                     f"back bit-equal")
+                     f"finite scores; launches {train_launches}; chain kernels run (traced, "
+                     f"graph replays included) {train_runs}; the four .ckpt files read back "
+                     f"bit-equal")
 
         ev, eval_launches, eval_s = run(
             ["--data_dir", bundle, "--test_model", os.path.join(log_dir, "a2cNetwork.ckpt"),
@@ -2535,7 +2620,7 @@ def cli_main_path(dev, card: str, tmp: str) -> dict:
              "--device", "cuda"])
         eval_groups = -(-(-(-EVAL_DRAWS // EVAL_VBS)) // EVAL_GROUP)
         if (os.path.join(tmp, ev["log_dir"]) != log_dir
-                or set(os.listdir(log_dir)) != CLI_ARTIFACTS | {"eval_config.json"}
+                or set(os.listdir(log_dir)) != CLI_ARTIFACTS | tb_runs() | {"eval_config.json"}
                 or len(score_blocks(os.path.join(log_dir, "results.txt"))) != 2):
             raise AssertionError(f"the evaluation run: log dir {ev['log_dir']}, files "
                                  f"{sorted(os.listdir(log_dir))}")
@@ -2551,13 +2636,14 @@ def cli_main_path(dev, card: str, tmp: str) -> dict:
                      f"{eval_launches}")
     finally:
         os.chdir(cwd)
+    dirs = {"log_dir": log_dir, "pre": pre}
     phase("timing", f"{card} | CLI at COCO width: bundle write {io_times['write_s']:.3f} s, "
                     f"read {io_times['read_s']:.3f} s ({io_times['mb'] / io_times['read_s']:.0f} "
-                    f"MB/s) | training run {train_s:.3f} s: " + ", ".join(
+                    f"MB/s) | training run (traced) {train_s:.3f} s: " + ", ".join(
                         f"{k} {v:.3f} s" for k, v in stages.items())
           + f" | evaluation run {eval_s:.3f} s: " + ", ".join(
               f"{k} {v:.3f} s" for k, v in ev["seconds"].items()))
-    return {"train": train_launches, "eval": eval_launches}
+    return {"train": train_launches, "eval": eval_launches, "runs": train_runs, "dirs": dirs}
 
 
 def bidirectional_networks(dev) -> None:
@@ -2667,8 +2753,9 @@ def bidirectional_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
                   str(SEED), "--device", "cuda"], log_path, counters)
         log_dir = os.path.join(work_dir, train["log_dir"])
         files = set(os.listdir(log_dir))
-        if files != BIDI_ARTIFACTS or set(os.listdir(pre)) != {
-                f"{k}Network_bidirectional.ckpt" for k in ("reward", "policy", "value", "a2c")}:
+        if files != BIDI_ARTIFACTS | tb_runs() or set(os.listdir(pre)) != {
+                f"{k}Network_bidirectional.ckpt{s}" for k in ("reward", "policy", "value", "a2c")
+                for s in ("", ".trainstate")}:
             raise AssertionError(f"the bidirectional run wrote {sorted(files)} and "
                                  f"{sorted(os.listdir(pre))}")
         if not train["cfg"].bidirectional or any(
@@ -3000,7 +3087,7 @@ def compat_cli_run(dev, bundle: str, tmp: str, counters: dict) -> tuple[dict, di
                 os.path.join(work_dir, "cli.log"), counters)
         log_dir = os.path.join(work_dir, train["log_dir"])
         files = set(os.listdir(log_dir))
-        if files != CLI_ARTIFACTS:
+        if files != CLI_ARTIFACTS | tb_runs():
             raise AssertionError(f"the compat run wrote {sorted(files)}")
         log = check_training_run(log_dir, pre, "", train, dev, work_dir,
                                  COMPAT_TRAINING_SIZE // BATCH, (COMPAT_EPOCHS,) * 3)
@@ -3097,6 +3184,7 @@ def reference_exact_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
     from image_captioning_through_rl_tpu_torch.config import NetConfig
     from image_captioning_through_rl_tpu_torch.data.coco import load_data
     from image_captioning_through_rl_tpu_torch.models import a2c
+    from image_captioning_through_rl_tpu_torch.train import steps
 
     counters = kernel_counters()
     launches = {}
@@ -3116,7 +3204,9 @@ def reference_exact_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
     ev, ev_s = measured("eval", lambda: faithful_eval(data, params, cfg, tmp))
     phase("compat", ev)
 
+    steps.BestLossChunk.replays = 0
     train, launches["cli"], train_s, n_losses = compat_cli_run(dev, bundle, tmp, counters)
+    replays = steps.BestLossChunk.replays
     minibatches = COMPAT_TRAINING_SIZE // BATCH
     stages = train["seconds"]
     per_step = {k: stages[k] / (COMPAT_EPOCHS * minibatches) for k in ("reward", "policy",
@@ -3152,7 +3242,12 @@ def reference_exact_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
     cap_line, cap_ms = measured("captioner", lambda: faithful_captioner(cap, data, params, cfg))
     phase("compat", cap_line)
 
-    policy_steps = COMPAT_EPOCHS * minibatches
+    # the policy pretrainer's chunks replay a CUDA graph: its wrappers count a
+    # warm-up update and the capture of each chunk size, and no replay
+    policy_steps = captured_launches(minibatches)
+    if replays != COMPAT_EPOCHS * -(-minibatches // CHUNK_K):
+        raise AssertionError(f"the compat CLI run replayed {replays} policy graphs, not one "
+                             f"a chunk")
     draws = {"streams": 0, "beams": 0, "eval": 0, "cli": (T - 1) * minibatches,
              "bidi_steps": T - 1, "verify": 0, "captioner": 0}
     cli_kernels = {"lstm_chain_fwd": policy_steps, "lstm_chain_bwd": policy_steps}
@@ -3167,8 +3262,9 @@ def reference_exact_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
                              f"{launches})")
     phase("compat", f"no model kernel of the port launched on the reference-exact paths "
                     f"({', '.join(sorted(launches))}), but the policy pretrainer's LSTM chain "
-                    f"in the CLI run ({cli_kernels}, its x-gate tables "
-                    f"{launches['cli']['token_gates']}); threefry_gumbel once a draw: {draws}")
+                    f"in the CLI run ({cli_kernels}, then {replays} graph replays; its x-gate "
+                    f"tables {launches['cli']['token_gates']}); threefry_gumbel once a draw: "
+                    f"{draws}")
     phase("timing", f"{card} | reference-exact paths, float32, COCO width | faithful eval "
                     f"{ev_s['card'] / 2:.3f} s a 127-row slice on the card, {ev_s['cpu']:.3f} s "
                     f"on the CPU | compat CLI run {train_s:.3f} s: " + ", ".join(
@@ -3180,6 +3276,446 @@ def reference_exact_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
           + f" | verify_reference --self_test {verify_s:.3f} s | faithful Captioner request of "
             f"{FAITHFUL_ROWS} rows {cap_ms:.1f} ms")
     return {k: sum(run[k] for run in launches.values()) for k in counters}
+
+
+# --------------------------------------------------------------------------
+# Phase 24: the JAX trainers' default walk (chunked steps, the Q12
+# bookkeeping on the device, device tables, .trainstate snapshots, resume)
+# --------------------------------------------------------------------------
+
+def tb_runs() -> set:
+    """``{"runs"}`` where ``torch.utils.tensorboard`` imports (the trainers
+    then tee their scalars into ``<log_dir>/runs``), else nothing."""
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+    except Exception:
+        return set()
+    return {"runs"}
+
+
+def chunk_sizes(minibatches: int, k: int = CHUNK_K) -> set:
+    """The sizes of an epoch's chunks of whole minibatches: a captured
+    chunk makes one graph per size, after one warm-up update."""
+    return {min(k, minibatches - i) for i in range(0, minibatches, k)}
+
+
+def captured_launches(minibatches: int, k: int = CHUNK_K) -> int:
+    """A captured pretrainer's chain launches as its wrappers count them:
+    one warm-up update (which runs) and one capture (k updates, none run)
+    for each chunk size; the replays run no wrapper (:func:`chain_runs`
+    counts them)."""
+    sizes = chunk_sizes(minibatches, k)
+    return len(sizes) + sum(sizes)
+
+
+def same_files(a: str, b: str, names) -> None:
+    for name in names:
+        with open(os.path.join(a, name), "rb") as fa, open(os.path.join(b, name), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"{a}/{name} and {b}/{name} differ")
+
+
+def same_trees(a: dict, b: dict, what: str) -> None:
+    la, lb = leaves(a), leaves(b)
+    if [n for n, _ in la] != [n for n, _ in lb] or any(
+            not torch.equal(x.detach(), y.detach()) for (_, x), (_, y) in zip(la, lb)):
+        raise AssertionError(f"{what}: the weights differ")
+
+
+def chunk_timing(kind: str, data, nets: dict, dev, reps: int = 3) -> dict:
+    """Steady state of one trainer's step at batch 512 on phase 24's data:
+    a chunk of CHUNK_K minibatches (a graph replay for reward and policy,
+    eager for value and A2C) against CHUNK_K single steps each followed by
+    its loss read, as the per-step walk reads it. Host ms per chunk (the
+    call's return), wall ms per minibatch (losses back on the host), and a
+    torch.profiler window over one chunk and over CHUNK_K single steps."""
+    from image_captioning_through_rl_tpu_torch.data.device import DeviceCocoTables
+    from image_captioning_through_rl_tpu_torch.ops.prng import PRNGKey, split
+    from image_captioning_through_rl_tpu_torch.train import loops, steps
+    from image_captioning_through_rl_tpu_torch.train.optim import adam
+
+    cfg = loops._cfg_for(data, False)
+    tables = DeviceCocoTables(data, device=dev)
+    mask = np.random.default_rng(SEED + 24).permutation(tables.num_captions)[:CHUNK_K * BATCH]
+
+    def fresh(tree):
+        return {k: fresh(v) if isinstance(v, dict) else v.detach().clone()
+                for k, v in tree.items()}
+
+    frozen = {k: fresh(nets[k]) for k in ("reward", "policy")}
+    if kind == "a2c":
+        params = {"value": fresh(nets["value"]), "policy": fresh(nets["policy"])}
+        opt = adam(1e-4, params)
+        chunk = steps.make_a2c_chunk_step(cfg, opt, fused=True)
+        single = steps.make_a2c_step(cfg, opt, fused=True)
+        keys = [split(PRNGKey(j))[1] for j in range(CHUNK_K)]
+        caps, feats = tables.gather(mask)
+        caps, feats = caps.view(CHUNK_K, BATCH, -1), feats.view(CHUNK_K, BATCH, -1)
+
+        def call():
+            stats, _ = chunk(params, frozen["reward"], feats, caps, [1] * CHUNK_K, keys)
+            return stats
+
+        def read(stats):
+            return torch.stack(list(stats)).tolist()
+
+        def one(j):
+            return float(single(params, frozen["reward"], feats[j], caps[j], 1, keys[j]).loss)
+    else:
+        params = fresh(nets[kind])
+        opt = adam(1e-4, params)
+        if kind == "value":
+            chunk = steps.make_value_chunk_step(cfg, opt, params, frozen["policy"],
+                                                frozen["reward"], fused=True)
+            single = steps.make_value_step(cfg, opt, frozen["policy"], frozen["reward"],
+                                           fused=True)
+            extras = [(1 + j % (T - 1),) for j in range(CHUNK_K)]
+        else:
+            chunk = getattr(steps, f"make_{kind}_chunk_step")(cfg, opt, params, fused=True,
+                                                              graph=True)
+            single = getattr(steps, f"make_{kind}_step")(cfg, opt, fused=True)
+            extras = None
+        if chunk.graph:
+            feats, caps = chunk.inputs(CHUNK_K, BATCH, F, T)
+            tables.gather(mask, out=(caps.view(-1, T), feats.view(-1, F)))
+        else:
+            caps, feats = tables.gather(mask)
+            caps, feats = caps.view(CHUNK_K, BATCH, -1), feats.view(CHUNK_K, BATCH, -1)
+
+        def call():
+            losses, _, _, improved = chunk(float("inf"), feats, caps, extras)
+            return torch.cat([losses, improved.reshape(1).float()])
+
+        def read(out):
+            return out.tolist()
+
+        def one(j):
+            return float(single(params, feats[j], caps[j], *(extras[j] if extras else ())))
+
+    read(call())  # the capture (reward, policy) and one-time work
+    torch.cuda.synchronize()
+    host, wall = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = call()
+        host.append((time.perf_counter() - t0) * 1e3)
+        read(out)
+        wall.append((time.perf_counter() - t0) * 1e3 / CHUNK_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for j in range(CHUNK_K):
+            one(j)
+    per_step = (time.perf_counter() - t0) * 1e3 / (reps * CHUNK_K)
+    out = {"host_ms": float(np.median(host)), "chunk_ms": float(np.median(wall)),
+           "step_ms": per_step}
+    out["chunk_profile"] = profile_window(lambda: read(call()), 1)
+    out["step_profile"] = profile_window(lambda: [one(j) for j in range(CHUNK_K)], 1)
+    return out
+
+
+def embedding_grad_timing(data, dev) -> str:
+    """The embedding gradient on the card (``ops.fused_lstm.embedding_grad``:
+    a float32 one-hot product, fixed-order sums) against ``index_add_``
+    (atomic adds, the order not fixed) on the same ``dx``, for one
+    minibatch's tokens: T - 1 = 16 steps of 512 rows (a policy or value
+    step's chain, each of the A2C step's two) and T = 17 (the reward
+    step's). CUDA events over back-to-back calls."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_lstm import embedding_grad
+
+    caps = torch.from_numpy(data.train_captions[:BATCH]).to(dev).long()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    parts = []
+    for steps_t, tok in ((T - 1, caps[:, :-1]), (T, caps)):
+        tok_sm = tok.t().contiguous()
+        dx = torch.randn((tok_sm.numel(), E), generator=gen, device=dev)
+        idx = tok_sm.reshape(-1)
+        onehot = cuda_ms(lambda: embedding_grad(dx, tok_sm, V), 20)
+        add = cuda_ms(lambda: torch.zeros((V, E), device=dev).index_add_(0, idx, dx), 20)
+        parts.append(f"{steps_t} x {BATCH} rows of {E} onto {V}: one-hot product {onehot:.4f} "
+                     f"ms, index_add_ {add:.4f} ms")
+    return "; ".join(parts)
+
+
+def chunked_main_path(dev, card: str, bundle: str, cli_run_dirs: dict, tmp: str) -> dict:
+    """Phase 24: the JAX trainers' default walk on phase 21's COCO-width
+    bundle, CHUNK_TRAINING_SIZE captions (CHUNK_TRAINING_SIZE / 512
+    minibatches: two chunks of CHUNK_K). Each trainer (reward, policy,
+    value, A2C plain and curriculum [8]) runs one epoch chunked and one per
+    step: the JSONL scalars, the Q12 checkpoint, the a2c checkpoints and the
+    .trainstate snapshot (the final weights and Adam's state) bit-equal; the
+    graph captures and replays of the reward and policy chunks and every
+    kernel's launches against the minibatches. Then two epochs against one
+    plus --resume (policy, A2C): the snapshots, checkpoints and JSONL
+    scalars bit-equal, and a snapshot read back and written again
+    bit-equal. Then server.main with the JAX server's flags on phase 21's
+    a2cNetwork.ckpt, against load_captioner on the same file. Returns the
+    kernels' launches over the phase."""
+    from image_captioning_through_rl_tpu_torch import api, server
+    from image_captioning_through_rl_tpu_torch.data.coco import load_data
+    from image_captioning_through_rl_tpu_torch.train import checkpoint as ckpt
+    from image_captioning_through_rl_tpu_torch.train import loops, steps
+    from image_captioning_through_rl_tpu_torch.train.optim import adam
+
+    counters = kernel_counters()
+    total, total_runs = dict.fromkeys(counters, 0), dict.fromkeys(CHAIN_RUNS, 0)
+    data = load_data(bundle, max_train=CHUNK_TRAINING_SIZE, seed=SEED)
+    capture_s = []  # the wall seconds of each graph capture (warm-up update included)
+    real_capture = steps.BestLossChunk._capture
+
+    def timed_capture(self, *a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            return real_capture(self, *a)
+        finally:
+            torch.cuda.synchronize()
+            capture_s.append(time.perf_counter() - t0)
+
+    steps.BestLossChunk._capture = timed_capture
+    m = CHUNK_TRAINING_SIZE // BATCH
+    work = os.path.join(tmp, "chunked")
+    os.makedirs(work)
+    seconds, launches, runs, graphs, out = {}, {}, {}, {}, {}
+
+    def run(label, fn):
+        """``fn()`` traced (:func:`chain_runs`), with every count zeroed first."""
+        zero_counters(counters)
+        steps.BestLossChunk.captures = steps.BestLossChunk.replays = 0
+        log_path = os.path.join(work, "trainers.log")
+
+        def go():
+            with open(log_path, "a") as log, contextlib.redirect_stdout(log):
+                return fn()
+
+        try:
+            result, runs[label], seconds[label] = chain_runs(go)
+        except BaseException:
+            with open(log_path) as log:
+                print("".join(log.readlines()[-40:]), flush=True)
+            raise
+        launches[label] = read_counters(counters)
+        graphs[label] = (steps.BestLossChunk.captures, steps.BestLossChunk.replays)
+        for k, v in launches[label].items():
+            total[k] += v
+        for k, v in runs[label].items():
+            total_runs[k] += v
+        return result
+
+    def logged(d):
+        with open(os.path.join(d, "metrics.jsonl")) as f:
+            return [json.loads(line) for line in f]
+
+    def expect(label, want: dict, want_runs: dict | None = None) -> None:
+        """The wrappers' launches in run ``label`` (``want``, 0 elsewhere) and
+        the chain kernels' runs in its trace (``want_runs``, else the
+        launches: no graph replayed)."""
+        got = launches[label]
+        bad = {k: v for k, v in got.items() if k != "token_gates" and v != want.get(k, 0)}
+        want_runs = {k: (want_runs or want).get(k, 0) for k in CHAIN_RUNS}
+        if bad or runs[label] != want_runs:
+            raise AssertionError(f"{label}: launches {got}, expected {want} (and 0 elsewhere); "
+                                 f"chain kernels run {runs[label]}, expected {want_runs}")
+
+    nets_dir = os.path.join(work, "nets")  # the sub-networks, without their snapshots
+    os.makedirs(nets_dir)
+    warm = len(chunk_sizes(m))
+    chain = {"reward": "gru_chain", "policy": "lstm_chain", "value": "lstm_chain"}
+    for kind in ("reward", "policy", "value"):
+        for k in (CHUNK_K, 1):
+            d = os.path.join(work, f"{kind}_{k}")
+            os.makedirs(d)
+            paths = {f"{kind}_network": os.path.join(d, f"{kind}Network.ckpt")}
+            if kind == "value":
+                paths.update({f"{n}_network": os.path.join(nets_dir, f"{n}Network.ckpt")
+                              for n in ("reward", "policy")})
+            out[(kind, k)] = run((kind, k), lambda: getattr(loops, f"train_{kind}_network")(
+                data, paths, d, False, epochs=1, batch_size=BATCH, seed=SEED, chunk_steps=k,
+                device=dev))
+        a, b = (os.path.join(work, f"{kind}_{k}") for k in (CHUNK_K, 1))
+        same_files(a, b, ("metrics.jsonl", f"{kind}Network.ckpt",
+                          f"{kind}Network.ckpt.trainstate"))
+        same_trees(out[(kind, CHUNK_K)], out[(kind, 1)], f"{kind} chunked vs per-step")
+        log = logged(a)
+        if len(log) != m or not np.isfinite([r["value"] for r in log]).all():
+            raise AssertionError(f"{kind}: {len(log)} losses logged, not {m} finite ones")
+        captured = kind != "value"
+        want_graphs = (warm, -(-m // CHUNK_K)) if captured else (0, 0)
+        if graphs[(kind, CHUNK_K)] != want_graphs or graphs[(kind, 1)] != (0, 0):
+            raise AssertionError(f"{kind}: graph captures and replays {graphs[(kind, CHUNK_K)]}"
+                                 f" chunked, {graphs[(kind, 1)]} per step; expected "
+                                 f"{want_graphs} and none")
+        for k in (CHUNK_K, 1):
+            graph = captured and k == CHUNK_K
+            n = captured_launches(m) if graph else m
+            want = {f"{chain[kind]}_fwd": n, f"{chain[kind]}_bwd": n}
+            if kind == "value":
+                want["greedy_decode"] = m
+            expect((kind, k), want, {f"{chain[kind]}_{d}": m + warm * graph
+                                     for d in ("fwd", "bwd")})
+        shutil.copy(os.path.join(a, f"{kind}Network.ckpt"), nets_dir)
+
+    a2c_nets = {f"{n}_network": os.path.join(nets_dir, f"{n}Network.ckpt")
+                for n in ("reward", "policy", "value")}
+
+    def a2c_run(label, d, epochs, curriculum=None, k=CHUNK_K, resume=False):
+        os.makedirs(d, exist_ok=True)
+        saves = {"model_path": os.path.join(d, "model.ckpt"),
+                 "results_path": os.path.join(d, "results.txt")}
+        nets = dict(a2c_nets, a2c_network=os.path.join(d, "a2cNetwork.ckpt"))
+        params, _, _ = run(label, lambda: loops.train_a2c_network(
+            data, saves, nets, d, False, epochs=epochs, batch_size=BATCH, seed=SEED,
+            curriculum=curriculum, chunk_steps=k, resume=resume, device=dev))
+        return params
+
+    for label, curriculum in (("a2c", None), ("a2c_curriculum", [8])):
+        for k in (CHUNK_K, 1):
+            out[(label, k)] = a2c_run((label, k), os.path.join(work, f"{label}_{k}"), 1,
+                                      curriculum, k)
+        a, b = (os.path.join(work, f"{label}_{k}") for k in (CHUNK_K, 1))
+        same_files(a, b, ("metrics.jsonl", "a2cNetwork.ckpt", "model.ckpt",
+                          "a2cNetwork.ckpt.trainstate", "results.txt"))
+        same_trees(out[(label, CHUNK_K)], out[(label, 1)], f"{label} chunked vs per-step")
+        log = logged(a)
+        run_steps = sum(r["tag"].endswith("-loss") for r in log)
+        if (not np.isfinite([r["value"] for r in log]).all() or run_steps < m
+                or (curriculum is None and run_steps != m)):
+            raise AssertionError(f"{label}: {run_steps} minibatches logged")
+        for k in (CHUNK_K, 1):
+            expect((label, k), {"rollout_fwd": run_steps, "rollout_bwd": run_steps,
+                                "threefry_gumbel": run_steps})
+            if graphs[(label, k)] != (0, 0):
+                raise AssertionError(f"{label}: a graph was captured ({graphs[(label, k)]})")
+    phase("chunked", f"{m} minibatches of {BATCH} an epoch, K = {CHUNK_K}: reward, policy, "
+                     f"value, A2C plain and curriculum [8, 16] chunked vs per step bit-equal "
+                     f"(JSONL scalars, Q12 / a2c checkpoints, .trainstate snapshots, final "
+                     f"weights); graph captures and replays: reward "
+                     f"{graphs[('reward', CHUNK_K)]}, policy {graphs[('policy', CHUNK_K)]} (one "
+                     f"warm-up update a capture); launches (the wrappers' counts: a capture's, "
+                     f"no replay's): " + "; ".join(
+                         f"{label[0]} K={label[1]} " + ", ".join(
+                             f"{n} {v}" for n, v in got.items() if v)
+                         for label, got in launches.items())
+          + "; chain kernels run (traced, graph replays included): " + "; ".join(
+              f"{label[0]} K={label[1]} " + ", ".join(f"{n} {v}" for n, v in got.items() if v)
+              for label, got in runs.items() if any(got.values())))
+
+    # two epochs against one plus a resume, for the policy pretrainer and A2C
+    full, split = (os.path.join(work, f"policy_{s}") for s in ("full", "split"))
+    os.makedirs(full)
+    shutil.copytree(os.path.join(work, f"policy_{CHUNK_K}"), split)
+    resumed = {}
+    for label, d, resume in (("policy full", full, False), ("policy resume", split, True)):
+        resumed[label] = run(label, lambda: loops.train_policy_network(
+            data, {"policy_network": os.path.join(d, "policyNetwork.ckpt")}, d, False, epochs=2,
+            batch_size=BATCH, seed=SEED, resume=resume, device=dev))
+    same_files(full, split, ("metrics.jsonl", "policyNetwork.ckpt",
+                             "policyNetwork.ckpt.trainstate"))
+    same_trees(resumed["policy full"], resumed["policy resume"], "policy resume")
+    full, split = (os.path.join(work, f"a2c_{s}") for s in ("full", "split"))
+    shutil.copytree(os.path.join(work, f"a2c_{CHUNK_K}"), split)
+    a2c_full = a2c_run("a2c full", full, 2)
+    a2c_resumed = a2c_run("a2c resume", split, 2, resume=True)
+    same_files(full, split, ("metrics.jsonl", "a2cNetwork.ckpt", "model.ckpt",
+                             "a2cNetwork.ckpt.trainstate"))
+    same_trees(a2c_full, a2c_resumed, "A2C resume")
+    for label, epochs in (("policy full", 2), ("policy resume", 1)):
+        n = captured_launches(m)
+        expect(label, {"lstm_chain_fwd": n, "lstm_chain_bwd": n},
+               {"lstm_chain_fwd": epochs * m + warm, "lstm_chain_bwd": epochs * m + warm})
+    for label, epochs in (("a2c full", 2), ("a2c resume", 1)):
+        expect(label, dict.fromkeys(("rollout_fwd", "rollout_bwd", "threefry_gumbel"),
+                                    epochs * m))
+    state_path = os.path.join(split, "a2cNetwork.ckpt.trainstate")
+    state = ckpt.load_train_state(state_path, a2c_resumed)
+    def empty_like(tree):
+        return {k: empty_like(v) if isinstance(v, dict) else torch.empty_like(v.detach())
+                for k, v in tree.items()}
+
+    tmpl = empty_like(a2c_resumed)
+    opt = adam(1e-4, tmpl)
+    ckpt.restore_train_state(state, tmpl, opt)
+    same_trees(tmpl, a2c_resumed, "the A2C snapshot read back")
+    again = os.path.join(work, "again.trainstate")
+    ckpt.save_train_state(again, tmpl, opt, state["key"], {
+        k: v for k, v in state["meta"].items() if k not in ("version", "key_impl")})
+    with open(state_path, "rb") as fa, open(again, "rb") as fb:
+        if fa.read() != fb.read():
+            raise AssertionError("the A2C snapshot does not read back bit-equal")
+    if state["meta"]["epoch_done"] != 2 or state["meta"]["fused"] is not True:
+        raise AssertionError(f"the A2C snapshot's meta {state['meta']}")
+    phase("chunked", "two epochs vs one + resume, policy and A2C: .trainstate snapshots "
+                     "(weights, Adam's moments and count, key, generator), checkpoints and "
+                     "JSONL scalars bit-equal; the A2C snapshot read back and written again "
+                     f"bit-equal (meta epoch_done 2, fused True); launches: " + "; ".join(
+                         f"{label} " + ", ".join(f"{n} {v}" for n, v in launches[label].items()
+                                                 if v)
+                         for label in ("policy full", "policy resume", "a2c full",
+                                       "a2c resume"))
+          + f"; LSTM chain kernels run (traced): policy full {runs['policy full']}, policy "
+            f"resume {runs['policy resume']}")
+
+    # F1: server.main with the JAX server's flags on phase 21's a2cNetwork.ckpt
+    model = os.path.join(cli_run_dirs["log_dir"], "a2cNetwork.ckpt")
+    pre = cli_run_dirs["pre"]
+    zero_counters(counters)
+    srv = server.main(["--model", model, "--data_dir", bundle, "--pretrained_path", pre,
+                       "--device", "cuda", "--port", "0", "--warmup_beams", "0", str(BEAM)],
+                      block=False)
+    try:
+        feats = np.random.default_rng(SEED + 24).standard_normal((8, F)).astype(np.float32)
+        served = {}
+        for beam in (0, BEAM):
+            req = urllib.request.Request(
+                f"http://{srv.host}:{srv.port}/caption",
+                data=json.dumps({"features": feats.tolist(), "beam_size": beam}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                served[beam] = json.loads(r.read())["captions"]
+    finally:
+        srv.stop()
+    for k, v in read_counters(counters).items():
+        total[k] += v
+    cap = api.load_captioner(model, load_data(bundle, max_train=1, seed=SEED),
+                             {f"{n}_network": os.path.join(pre, f"{n}Network.ckpt")
+                              for n in ("policy", "value")}, device="cuda")
+    for beam, got in served.items():
+        if got != cap.caption(feats, beam_size=beam) or len(got) != 8:
+            raise AssertionError(f"server.main --data_dir (beam {beam}) differs from "
+                                 f"load_captioner on the same .ckpt")
+    phase("chunked", f"server.main --model <log_dir>/a2cNetwork.ckpt --data_dir <bundle> "
+                     f"--pretrained_path <pre>: greedy and beam-{BEAM} captions of 8 rows equal "
+                     f"load_captioner's on the same file; e.g. {served[BEAM][0]!r}")
+
+    steps.BestLossChunk._capture = real_capture
+    # timings: the trainers' wall ms per minibatch; the steady state of a chunk
+    nets = {k: out[(k, CHUNK_K)] for k in ("reward", "policy", "value")}
+    steady = {kind: chunk_timing(kind, data, nets, dev)
+              for kind in ("reward", "policy", "value", "a2c")}
+    per_mb = {label: seconds[label] * 1e3 / (2 * m if label[0] == "a2c_curriculum" else m)
+              for label in seconds if isinstance(label, tuple)}
+    phase("timing", f"{card} | phase 24, batch {BATCH}, one traced epoch of {m} minibatches "
+                    f"(set-up and the graph capture included), wall ms per minibatch chunked K="
+                    f"{CHUNK_K} vs per step: " + "; ".join(
+                        f"{kind} {per_mb[(kind, CHUNK_K)]:.3f} vs {per_mb[(kind, 1)]:.3f}"
+                        for kind in ("reward", "policy", "value", "a2c", "a2c_curriculum"))
+          + " | each graph capture's wall s (its warm-up update included; reward, policy, the "
+            "two-epoch policy's, the resumed policy's): "
+          + ", ".join(f"{t:.3f}" for t in capture_s))
+    phase("timing", f"{card} | phase 24 steady state, batch {BATCH}, a chunk of {CHUNK_K} "
+                    f"(graph replay for reward and policy, eager for value and A2C) vs "
+                    f"{CHUNK_K} single steps each with its loss read: " + "; ".join(
+                        f"{kind}: host {t['host_ms']:.3f} ms a chunk, wall "
+                        f"{t['chunk_ms']:.3f} ms a minibatch chunked vs {t['step_ms']:.3f} "
+                        f"per step" for kind, t in steady.items()))
+    phase("timing", f"{card} | phase 24, the embedding gradient a call: "
+                    + embedding_grad_timing(data, dev))
+    for kind in ("reward", "policy", "value", "a2c"):
+        phase("profile", f"{card} | phase 24 {kind}, one chunk of {CHUNK_K}: "
+                         f"{steady[kind]['chunk_profile']}")
+        phase("profile", f"{card} | phase 24 {kind}, {CHUNK_K} single steps, each loss "
+                         f"read: {steady[kind]['step_profile']}")
+    return total, total_runs
 
 
 def host_us(fn, iters: int = 200) -> float:
@@ -3600,6 +4136,9 @@ def main() -> int:
         cli_runs = cli_main_path(dev, card, tmp)
         bidi_launches = bidirectional_main_path(dev, card, os.path.join(tmp, "bundle"), tmp)
         ref_launches = reference_exact_main_path(dev, card, os.path.join(tmp, "bundle"), tmp)
+        # phase 24: the trainers' default walk (chunks, graphs, snapshots, resume)
+        chunk_launches, chunk_runs = chunked_main_path(dev, card, os.path.join(tmp, "bundle"),
+                                                       cli_runs["dirs"], tmp)
     cli_launches = {k: cli_runs["train"][k] + cli_runs["eval"][k] for k in cli_runs["train"]}
 
     bounds_ = bounds()
@@ -3663,6 +4202,13 @@ def main() -> int:
         if ref_launches[k["name"]]:
             k.setdefault("launches_by_path", {})["reference_exact"] = ref_launches[k["name"]]
             k["launches"] += ref_launches[k["name"]]
+    for k in kernels:  # phase 24's: chunked and per-step trainers, resume, the server
+        if chunk_launches[k["name"]]:
+            k.setdefault("launches_by_path", {})["chunked"] = chunk_launches[k["name"]]
+            k["launches"] += chunk_launches[k["name"]]
+        if k["name"] in CHAIN_RUNS:  # the traced runs, graph replays included
+            k["runs_by_path"] = {"cli": cli_runs["runs"][k["name"]],
+                                 "chunked": chunk_runs[k["name"]]}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

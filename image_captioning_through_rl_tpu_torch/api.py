@@ -1,7 +1,8 @@
 """High-level user API: caption image features (counterpart of the JAX
 ``api.py``).
 
->>> cap = load_captioner("a2cNetwork.pt", "coco2014_vocab.json", device="cuda")
+>>> data = load_data("datasets/coco_captioning", max_train=1)
+>>> cap = load_captioner("logs/<stamp>/a2cNetwork.ckpt", data, network_paths)
 >>> cap.caption(features)                 # greedy
 >>> cap.caption(features, beam_size=5)    # value-guided beam search
 >>> cap.sample_captions(features, temperature=0.8, top_p=0.9, num_samples=3, seed=7)
@@ -18,8 +19,12 @@ Q1-stateful critic, :func:`.decode.beam_compat.beam_search_compat`) has no
 kernel either, in either direction mode. Nothing falls back from the
 kernels at serving time: ``chip_smoke.py`` holds each kernel against its
 plain version. :func:`evaluate_captions` scores caption pairs
-(:mod:`.metrics`). The mesh and image paths of the JAX ``Captioner``, and
-its verified dispatch with fresh-key canary retries, are not ported.
+(:mod:`.metrics`). :func:`load_captioner` takes the JAX package's
+arguments (a ``.ckpt`` or ``.pt`` model, the bundle for the vocabulary, the
+sub-network paths); :func:`load_captioner_pt` builds one from a
+reference-layout ``.pt`` and ``coco2014_vocab.json`` alone. The mesh and
+image paths of the JAX ``Captioner``, and its verified dispatch with
+fresh-key canary retries, are not ported.
 """
 
 from __future__ import annotations
@@ -221,13 +226,35 @@ def evaluate_captions(real: List[str], generated: List[str]) -> dict:
     return score(refs, hypos)
 
 
-def load_captioner(model_pt: str, vocab_json: str, device="cuda",
-                   weight_dtype: torch.dtype | None = None,
-                   bidirectional: bool = False) -> Captioner:
+def load_captioner(model_path: str, data, network_paths: dict, bidirectional: bool = False,
+                   mesh=None, device="cuda", weight_dtype: torch.dtype | None = None
+                   ) -> Captioner:
+    """A :class:`Captioner` from checkpoints on disk, as the JAX package's
+    ``load_captioner``: the policy and value networks of ``network_paths``
+    with the a2c checkpoint ``model_path`` over them, each ``.ckpt``
+    (native) or ``.pt`` (reference) by its suffix
+    (:func:`.train.loops.load_a2c_models`), sized by ``data`` (a
+    :class:`.data.coco.CocoData`, whose vocabulary captions). ``mesh``
+    other than None raises: multi-GPU serving is not ported (ROADMAP §1
+    item 8)."""
+    if mesh is not None:
+        raise NotImplementedError("load_captioner(mesh=...): multi-GPU serving is not ported "
+                                  "yet (ROADMAP §1 item 8)")
+    from .train.loops import load_a2c_models  # the loops import this module
+
+    params, cfg = load_a2c_models(model_path, data, network_paths, bidirectional,
+                                  device=device)
+    return Captioner(params, cfg, data.idx_to_word, device=device, weight_dtype=weight_dtype)
+
+
+def load_captioner_pt(model_pt: str, vocab_json: str, device="cuda",
+                      weight_dtype: torch.dtype | None = None,
+                      bidirectional: bool = False) -> Captioner:
     """A :class:`Captioner` from a reference-layout a2c ``.pt`` checkpoint
-    (``value_network.* / policy_network.*``) and ``coco2014_vocab.json``.
-    The network widths come from the checkpoint's shapes; a bidirectional
-    checkpoint needs ``bidirectional=True``."""
+    (``value_network.* / policy_network.*``) and ``coco2014_vocab.json``
+    alone, without the bundle or the sub-network files. The network widths
+    come from the checkpoint's shapes; a bidirectional checkpoint needs
+    ``bidirectional=True``."""
     params = a2c_from_state_dict(load_state_dict(model_pt), bidirectional)
     _, idx_to_word = load_vocab(vocab_json)
     pol = params["policy"]

@@ -12,17 +12,20 @@ the run raises unless it asks for ``--device cpu``. ``--faithful_beam``
 evaluates with the reference's own beam (Q2 batch-mean ranking with the
 Q1-stateful critic) and ``--compat_batch_as_time`` trains the reward and
 value networks and A2C with the reference's batch-as-time encoders (Q1).
-Flags of parts the port does not have yet raise ``NotImplementedError``
-before the bundle is read, naming their ROADMAP §1 item: ``--resume`` (7),
-``--spmd`` (8), ``--train_word2vec`` and ``--pretrained_word2vec`` other
-than ``none`` (10).
+``--chunk_steps`` minibatch updates run per device dispatch (16 by default,
+as in the JAX CLI; 1 walks one minibatch a dispatch, with the same
+artifacts), and ``--resume`` continues an interrupted run from its
+``.trainstate`` snapshots, as the JAX CLI does. Flags of parts the port
+does not have yet raise ``NotImplementedError`` before the bundle is read,
+naming their ROADMAP §1 item: ``--spmd`` (8), ``--train_word2vec`` and
+``--pretrained_word2vec`` other than ``none`` (10).
 
-A run writes into ``logs/<stamp>/`` what the JAX CLI writes there, except
-the ``.trainstate`` snapshots: the caption, generated-caption and url
-dumps, ``results.txt``, ``run_config.json`` (``eval_config.json`` for a
-``--test_model`` run, which reuses the model's log directory),
-``metrics.jsonl`` and the a2c checkpoint; the sub-network checkpoints go to
-``--pretrained_path``. Checkpoints are native ``.ckpt`` files (flax's
+A run writes into ``logs/<stamp>/`` what the JAX CLI writes there: the
+caption, generated-caption and url dumps, ``results.txt``,
+``run_config.json`` (``eval_config.json`` for a ``--test_model`` run, which
+reuses the model's log directory), ``metrics.jsonl`` with TensorBoard's
+``runs/`` beside it, and the a2c checkpoint; the sub-network checkpoints
+and every ``.trainstate`` snapshot go to ``--pretrained_path``. Checkpoints are native ``.ckpt`` files (flax's
 msgpack, :mod:`..train.checkpoint`); reference ``.pt`` files of the same
 stem are read where no ``.ckpt`` is there.
 """
@@ -63,7 +66,6 @@ CURRICULUM_LEVELS = [3, 6, 9, 12, 15]  # image_captioner.py:35
 
 # flags of parts not ported yet: (flag, is it set?, what, ROADMAP §1 item)
 UNPORTED = (
-    ("--resume", lambda a: a.resume, ".trainstate snapshots and resume", 7),
     ("--spmd", lambda a: a.spmd, "multi-GPU and multi-process runs", 8),
     ("--train_word2vec", lambda a: a.train_word2vec != "none", "word-embedding training", 10),
     ("--pretrained_word2vec", lambda a: a.pretrained_word2vec != "none",
@@ -192,9 +194,11 @@ def main(args) -> dict:
                 curriculum=curriculum,
                 seed=args.seed,
                 compat_batch_as_time=args.compat_batch_as_time,
+                resume=args.resume,
                 # the flag forces the fused steps; the default runs the
                 # kernels on the card and the plain steps on the CPU
                 fused_rollout=True if args.fused_rollout else None,
+                chunk_steps=args.chunk_steps,
                 device=args.device,
                 net_dims=net_dims,
                 stage_seconds=seconds,
@@ -282,14 +286,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "for the reward and value pretrainers and A2C (their plain steps, "
                         "no fused kernel)")
     p.add_argument("--resume", action=argparse.BooleanOptionalAction, default=False,
-                   help="Continue an interrupted run from its full-state snapshot (not "
-                        "ported yet: raises, ROADMAP §1 item 7)")
+                   help="Continue an interrupted run from its full-state snapshots "
+                        "(<checkpoint>.trainstate: weights, Adam moments, RNG streams, "
+                        "epoch), bit-identically; without one, A2C resumes its weights "
+                        "only")
     p.add_argument("--chunk_steps", type=int, default=16,
-                   help="Minibatch updates per device dispatch in the JAX package; "
-                        "accepted for its configs and replays. The port runs one "
-                        "minibatch a dispatch, which gives the same artifacts (the JAX "
-                        "package's tests/test_chunked_pretrain.py shows chunked and "
-                        "per-step runs agree)")
+                   help="Minibatch updates per device dispatch, with the train split "
+                        "on the device and the best-loss bookkeeping kept there (the "
+                        "reward and policy pretrainers replay one CUDA graph a chunk on "
+                        "the card); 1 walks one minibatch a dispatch. The artifacts are "
+                        "the same either way")
     p.add_argument("--fused_rollout", action=argparse.BooleanOptionalAction, default=False,
                    help="Force the fused A2C steps (on the CPU their wrappers run the "
                         "kernels' plain versions). Default: the kernels on the card, the "

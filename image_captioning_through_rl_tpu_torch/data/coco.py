@@ -40,6 +40,10 @@ class CocoData:
     val_captions_lens: np.ndarray
     embeddings: Optional[np.ndarray] = None  # aligned word vectors or None
 
+    @property
+    def vocab_size(self) -> int:
+        return len(self.word_to_idx)
+
     def split(self, name: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         caps = getattr(self, f"{name}_captions")
         idxs = getattr(self, f"{name}_image_idxs")

@@ -12,7 +12,8 @@ differentiable with respect to ``wi``, ``wh``, ``b``, the embedding table,
 the gate gradients are rounded to the weight type before the products
 (plain autograd would not round them), the bias gradient sums them
 unrounded, and the embedding gradient is the per-token sum of ``dx``
-(``index_add_``, as JAX's ``segment_sum`` outside the kernel).
+(as JAX's ``segment_sum``, outside the kernel: ``index_add_`` on the CPU, a
+one-hot product on the card, :func:`embedding_grad`).
 
 Routing in :func:`fused_lstm_chain`: a CUDA tensor goes to the kernels (or
 the call raises), a CPU tensor to :func:`lstm_chain_plain`, and
@@ -35,6 +36,7 @@ import torch
 
 from .fused_decode import round_to, token_gate_table, wmatmul
 from .kernel_build import check_error, load_library
+from .linalg import matmul
 from .padding import needs_padding, pad8, pad_cell, pad_dim
 
 
@@ -145,9 +147,27 @@ def _bf16_scratch(weight_dtype: torch.dtype, dev: torch.device, *shape) -> torch
 
 def embedding_grad(dx: torch.Tensor, tok_sm: torch.Tensor, vocab: int) -> torch.Tensor:
     """The embedding table's gradient: the per-step ``dx [T N, E]`` summed
-    onto the rows of their tokens."""
+    onto the rows of their tokens. On the CPU ``index_add_`` adds each row's
+    terms in the order they come. On a CUDA device it is one product,
+    ``onehot(tokens)^T @ dx`` in float32 (:func:`embedding_grad_onehot`):
+    ``index_add_`` adds with atomics there, so two calls differ in the last
+    bits, and the sorted accumulating ``index_put_`` sums a frequent token's
+    thousands of rows one after another; the product sums in a fixed order
+    and makes no host sync (a CUDA graph captures it). Its price against
+    ``index_add_`` is in ``chip_smoke.py``'s timing lines."""
+    if dx.is_cuda:
+        return embedding_grad_onehot(dx, tok_sm, vocab)
     out = torch.zeros((vocab, dx.shape[-1]), dtype=torch.float32, device=dx.device)
     return out.index_add_(0, tok_sm.reshape(-1).long(), dx)
+
+
+def embedding_grad_onehot(dx: torch.Tensor, tok_sm: torch.Tensor, vocab: int) -> torch.Tensor:
+    """:func:`embedding_grad` as the product ``onehot(tokens)^T @ dx`` (any
+    device; the one-hot matrix is ``[T N, V]`` float32, the product in full
+    float32: :func:`.linalg.matmul` turns TF32 off)."""
+    tok = tok_sm.reshape(-1).long()
+    onehot = (tok[:, None] == torch.arange(vocab, device=dx.device)[None, :]).to(torch.float32)
+    return matmul(onehot.t(), dx.to(torch.float32))
 
 
 class _LstmChainPlain(torch.autograd.Function):

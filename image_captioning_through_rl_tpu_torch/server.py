@@ -26,7 +26,14 @@ Raw-image (``images_b64``) requests answer 400: they are not ported yet.
 :mod:`.client` wraps the wire formats.
 
     python -m image_captioning_through_rl_tpu_torch.server \\
-        --model a2cNetwork.pt --vocab coco2014_vocab.json [--device cuda] [--bidirectional]
+        --model logs/<stamp>/a2cNetwork.ckpt --data_dir datasets/coco_captioning \\
+        [--pretrained_path models_pretrained] [--device cuda] [--bidirectional]
+
+takes the JAX server's flags (the model as ``.ckpt`` or ``.pt``, its
+sub-network checkpoints under ``--pretrained_path``, the bundle for the
+vocabulary); ``--model a2cNetwork.pt --vocab coco2014_vocab.json`` serves a
+reference-layout ``.pt`` alone. The console script
+``image-caption-server-torch`` runs it.
 """
 
 from __future__ import annotations
@@ -430,12 +437,18 @@ def main(argv=None, block: bool = True):
     :class:`CaptionServer` instead of parking the main thread."""
     import argparse
 
-    from .api import load_captioner
+    from .api import load_captioner, load_captioner_pt
 
     ap = argparse.ArgumentParser(description="Caption serving over HTTP")
     ap.add_argument("--model", required=True,
-                    help="a2c checkpoint in the reference .pt layout")
-    ap.add_argument("--vocab", required=True, help="coco2014_vocab.json")
+                    help="a2cNetwork checkpoint (.ckpt or reference .pt)")
+    ap.add_argument("--pretrained_path", default="models_pretrained",
+                    help="dir holding the policy/value sub-network checkpoints")
+    ap.add_argument("--data_dir", default="",
+                    help="COCO bundle (for the vocab); required unless --vocab is given")
+    ap.add_argument("--vocab", default="",
+                    help="coco2014_vocab.json: serve a reference-layout .pt --model alone, "
+                         "without the bundle or the sub-network checkpoints")
     ap.add_argument("--bidirectional", action="store_true", default=False,
                     help="the model's encoders are bidirectional (served by the eager "
                          "decodes: no decode kernel serves a bidirectional model)")
@@ -460,8 +473,25 @@ def main(argv=None, block: bool = True):
                          "bucket * num_samples rows)")
     args = ap.parse_args(argv)
 
-    cap = load_captioner(args.model, args.vocab, device=args.device,
-                         bidirectional=args.bidirectional)
+    if args.vocab:
+        cap = load_captioner_pt(args.model, args.vocab, device=args.device,
+                                bidirectional=args.bidirectional)
+    elif args.data_dir:
+        import os
+
+        from .data.coco import load_data
+        from .utils.io import get_filename
+
+        data = load_data(base_dir=args.data_dir, max_train=1)
+        network_paths = {
+            k: os.path.join(args.pretrained_path,
+                            get_filename(f"{n}Network.ckpt", args.bidirectional, None))
+            for k, n in (("policy_network", "policy"), ("value_network", "value"),
+                         ("reward_network", "reward"))}
+        cap = load_captioner(args.model, data, network_paths, args.bidirectional,
+                             device=args.device)
+    else:
+        ap.error("one of --data_dir (the bundle) or --vocab (with a .pt --model) is required")
     srv = CaptionServer(cap, host=args.host, port=args.port, max_batch=args.max_batch,
                         max_wait_ms=args.max_wait_ms, max_body_mb=args.max_body_mb,
                         max_samples=args.max_samples)

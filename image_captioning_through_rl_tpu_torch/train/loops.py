@@ -32,8 +32,22 @@ non-compat, as in the JAX package), and an explicit ``True`` raises
 written in the format its suffix names (:func:`.checkpoint.save_network`:
 ``.pt`` the reference state dict, anything else — the CLI's ``.ckpt`` — the
 native msgpack tree); a divergence dump goes to ``<path>.diverged`` in the
-native format, as in the JAX package. Not ported yet (ROADMAP §1): chunked steps,
-device-resident tables, the mesh, and ``.trainstate`` snapshots and resume.
+native format, as in the JAX package.
+
+The JAX trainers' default walk: the train split lives on the run's device
+(``device_data=True``, :class:`..data.device.DeviceCocoTables`) and
+``chunk_steps`` (16) minibatch updates run per host dispatch with no host
+sync (:mod:`.steps`' chunk steps), their losses read back once a chunk; the
+pretrainers' Q12 bookkeeping stays on the device, and on the card the
+reward and policy chunks are one CUDA graph replay each. The value and A2C
+chunks run eagerly; A2C's per-step walk is its chunk of one minibatch, and
+a chunk's stats are read once the next chunk is queued. ``chunk_steps=1``
+or ``device_data=False`` walks one minibatch a dispatch, with the same
+artifacts. Every trainer writes a
+``.trainstate`` snapshot after each epoch (in the JAX package's layout,
+:func:`.checkpoint.save_train_state`), and ``resume=True`` continues from it
+bit-identically, from either package's snapshot. The mesh is not ported
+(ROADMAP §1 item 8).
 
 The evaluation half: ``load_a2c_models`` loads a finished model, and
 ``test_a2c_network`` decodes random val draws with the value-guided beam
@@ -47,6 +61,7 @@ generated captions and the image urls, which :mod:`..metrics` scores. It draws
 
 from __future__ import annotations
 
+import os
 import random as pyrandom
 import time
 from typing import Dict, Optional, Sequence
@@ -58,6 +73,7 @@ from .. import END_ID, MAX_SEQ_LEN
 from ..api import resolve_device
 from ..config import DecodeConfig, NetConfig, TrainConfig
 from ..data.coco import CocoData, decode_captions, get_coco_batch, get_coco_minibatches
+from ..data.device import DeviceCocoTables
 from ..decode.beam import beam_search
 from ..decode.beam_compat import beam_search_compat
 from ..models import policy as policy_mod
@@ -67,7 +83,7 @@ from ..ops.fused_beam import fused_beam_search, prepare_beam_weights
 from ..ops.fused_decode import prepare_greedy_weights
 from ..ops.prng import PRNGKey, split
 from ..utils.io import append_results, global_minibatch_number
-from ..utils.logging import make_metrics_writer, print_green
+from ..utils.logging import make_metrics_writer, print_green, print_red
 from . import checkpoint as ckpt
 from . import steps
 from .guard import check_finite
@@ -162,73 +178,225 @@ class _DeferredBookkeeper:
             self._pending = None
 
 
+def _device_tables(train_data: CocoData, device_data: bool, device: torch.device):
+    """The train split on ``device`` (:class:`..data.device.DeviceCocoTables`)
+    when ``device_data``, else None (minibatches gathered on the host)."""
+    return DeviceCocoTables(train_data, "train", device) if device_data else None
+
+
+def _note_route(resume_fused, fused: bool, what: str) -> None:
+    """A resumed snapshot records the route (kernels or plain steps) its run
+    took; this run keeps its own, and says so loudly when they differ (the
+    continuation is then not bit-identical)."""
+    if resume_fused is not None and bool(resume_fused) != fused:
+        def name(f):
+            return "the kernels" if f else "the plain steps"
+        print_red(f"[Training] WARNING: the interrupted run trained its {what} with "
+                  f"{name(resume_fused)}, this run takes {name(fused)} on its device — the "
+                  f"continuation is NOT bit-identical to the original run")
+
+
+def _resume_pretrainer(resume: bool, train_state_path: Optional[str], tag: str, params: dict,
+                       optimizer: torch.optim.Optimizer, rng: np.random.Generator,
+                       set_extra=None) -> tuple:
+    """Restore a pretrainer's snapshot (either package's) into ``params``
+    and ``optimizer`` in place, the numpy generator and ``set_extra`` (the
+    value trainer's stdlib prefix stream): ``(start_epoch, resume_best,
+    resume_fused)``, ``(0, None, None)`` when ``resume`` is off or there is
+    no snapshot. A snapshot of another network raises ``ValueError``."""
+    if not resume or not train_state_path or not os.path.exists(train_state_path):
+        return 0, None, None
+
+    def meta_check(meta):
+        if meta.get("kind") != "best_loss" or meta.get("tag") != tag:
+            raise ValueError(f"train-state at {train_state_path} is for "
+                             f"{meta.get('tag') or meta.get('kind')!r}, not {tag!r}")
+
+    state = ckpt.load_train_state(train_state_path, params, meta_check)
+    ckpt.restore_train_state(state, params, optimizer)
+    meta = state["meta"]
+    rng.bit_generator.state = meta["rng_state"]
+    if set_extra is not None and meta.get("extra") is not None:
+        set_extra(meta["extra"])
+    print_green(f"[Training] resumed full {tag.replace('-loss', '')} train state "
+                f"(epoch {meta['epoch_done']} done)")
+    return meta["epoch_done"], meta["best"], meta.get("fused")
+
+
 def _drive_best_loss_training(desc: str, tag: str, kind: str, ckpt_path: str, writer,
                               epochs: int, batch_size: int, rng: np.random.Generator,
                               train_data: CocoData, params: dict, single_step,
-                              device: torch.device) -> dict:
+                              device: torch.device, optimizer: torch.optim.Optimizer, *,
+                              tables=None, chunk=None, chunk_steps: int = 16,
+                              draw_extras=None, train_state_path: Optional[str] = None,
+                              start_epoch: int = 0, resume_best: Optional[float] = None,
+                              extra_state_fn=None, fused_used: Optional[bool] = None) -> dict:
     """The epoch loop shared by the three pretrainers (reference
-    trainers.py:160-197, 225-257, 280-309). ``single_step(params, features,
-    captions) -> loss`` runs one minibatch and updates ``params`` in place;
-    each minibatch's entering weights are cloned first, so the checkpoint
-    can hold them (Q12)."""
-    state = {"best": float("inf")}
+    trainers.py:160-197, 225-257, 280-309; the JAX package's
+    ``_drive_best_loss_training``).
+
+    With ``chunk`` (a :class:`.steps.BestLossChunk`), device ``tables`` and
+    ``chunk_steps > 1``, ``chunk_steps`` minibatch updates run per host
+    dispatch, gathered on the device from one permutation, with the Q12
+    bookkeeping on the device; their losses come back in one copy, and the
+    checkpoint is written once a chunk when the chunk improved on the best
+    loss. The ragged tail runs one single step. The same losses are logged
+    at the same steps, and the checkpoint ends with the same bytes, as the
+    per-step walk, where ``single_step(params, features, captions) ->
+    loss`` runs one minibatch and each minibatch's entering weights are
+    cloned first, so the checkpoint can hold them (Q12). ``draw_extras(k)``
+    gives k minibatches' extra chunk arguments (the value trainer's prefix
+    lengths, drawn in minibatch order on both walks).
+
+    ``train_state_path`` receives a snapshot after every epoch (weights,
+    Adam's state, the numpy generator, ``extra_state_fn()``, the epoch, the
+    best loss and the route ``fused_used``); ``start_epoch`` and
+    ``resume_best`` re-enter the loop from a restored one."""
+    state = {"best": float("inf") if resume_best is None else resume_best}
+
+    def snapshot(epoch):
+        if train_state_path:
+            ckpt.save_train_state(
+                train_state_path, params, optimizer, np.zeros((2,), np.uint32),
+                {"kind": "best_loss", "tag": tag, "epoch_done": epoch + 1, "best": state["best"],
+                 "rng_state": rng.bit_generator.state, "fused": fused_used,
+                 "extra": None if extra_state_fn is None else extra_state_fn()})
+
+    def log(loss, epoch, minibatch_id, dump_tree):
+        check_finite(loss, desc, f"epoch {epoch + 1}, minibatch {minibatch_id}",
+                     dump=lambda path: ckpt.save_pytree(dump_tree, path),
+                     dump_path=ckpt_path + ".diverged")
+        improved = loss < state["best"]
+        if improved:
+            state["best"] = loss
+        writer.add_scalar(tag, loss, global_minibatch_number(epoch, minibatch_id, batch_size))
+        return improved
 
     def resolve(prev, loss_dev, epoch, minibatch_id):
-        loss = float(loss_dev)
-        check_finite(loss, desc, f"epoch {epoch + 1}, minibatch {minibatch_id}",
-                     dump=lambda path: ckpt.save_pytree(prev, path),
-                     dump_path=ckpt_path + ".diverged")
-        if loss < state["best"]:
-            state["best"] = loss
+        if log(float(loss_dev), epoch, minibatch_id, prev):
             ckpt.save_network(kind, prev, ckpt_path)  # Q12: weights entering
-        writer.add_scalar(tag, loss, global_minibatch_number(epoch, minibatch_id, batch_size))
 
     keeper = _DeferredBookkeeper(resolve)
-    for epoch in range(epochs):
+    use_chunks = chunk is not None and chunk_steps > 1 and tables is not None
+    for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
-        minibatch_id = -1
-        for minibatch_id, (captions, features, _) in enumerate(
-                get_coco_minibatches(train_data, batch_size=batch_size, split="train",
-                                     rng=rng)):
-            prev = _clone(params)
-            loss = single_step(params, torch.from_numpy(features).to(device),
-                               torch.from_numpy(captions).to(device).long())
-            keeper.push(prev, loss, epoch, minibatch_id)
-        keeper.flush()
-        print(f"{desc} ({epoch + 1}/{epochs}): {minibatch_id + 1} minibatches in "
+        if use_chunks:
+            num = tables.num_captions
+            perm = rng.permutation(num)
+            i = minibatch_id = 0
+            while i < num:
+                k = min(chunk_steps, (num - i) // batch_size)
+                if k >= 1:
+                    mask = perm[i: i + k * batch_size]
+                    feat_dim, steps_t = tables.features.shape[1], tables.captions.shape[1]
+                    if chunk.graph:  # gather into the captured graph's input buffers
+                        feats_b, caps_b = chunk.inputs(k, batch_size, feat_dim, steps_t)
+                        tables.gather(mask, out=(caps_b.view(-1, steps_t),
+                                                 feats_b.view(-1, feat_dim)))
+                    else:
+                        caps_b, feats_b = tables.gather(mask)
+                        feats_b = feats_b.view(k, batch_size, feat_dim)
+                        caps_b = caps_b.view(k, batch_size, steps_t)
+                    extras = None if draw_extras is None else draw_extras(k)
+                    losses, best_prev, _, improved = chunk(state["best"], feats_b, caps_b,
+                                                           extras)
+                    host = torch.cat([losses, improved.reshape(1).to(losses.dtype)]).tolist()
+                    if host[-1]:
+                        ckpt.save_network(kind, best_prev, ckpt_path)  # Q12, once a chunk
+                    for loss in host[:-1]:
+                        # the post-chunk weights: the entering ones are not kept
+                        log(loss, epoch, minibatch_id, params)
+                        minibatch_id += 1
+                    i += k * batch_size
+                else:  # ragged tail: one single step
+                    caps_b, feats_b = tables.gather(perm[i:])
+                    prev = _clone(params)
+                    resolve(prev, single_step(params, feats_b, caps_b), epoch, minibatch_id)
+                    minibatch_id += 1
+                    i = num
+        else:
+            if tables is not None:
+                batches = tables.minibatches(batch_size, rng)
+            else:
+                batches = ((torch.from_numpy(c).to(device), torch.from_numpy(f).to(device))
+                           for c, f, _ in get_coco_minibatches(train_data, batch_size=batch_size,
+                                                               split="train", rng=rng))
+            minibatch_id = -1
+            for minibatch_id, (captions, features) in enumerate(batches):
+                prev = _clone(params)
+                loss = single_step(params, features, captions.long())
+                keeper.push(prev, loss, epoch, minibatch_id)
+            keeper.flush()
+            minibatch_id += 1
+        snapshot(epoch)
+        print(f"{desc} ({epoch + 1}/{epochs}): {minibatch_id} minibatches in "
               f"{time.perf_counter() - t0:.1f} s, best loss {state['best']}", flush=True)
     return params
 
 
 def _start(kind: str, train_data: CocoData, network_paths: Dict[str, str], bidirectional: bool,
-           net_dims, device):
+           net_dims, device, train_state_path: Optional[str]):
     cfg = _cfg_for(train_data, bidirectional, net_dims)
-    return network_paths[f"{kind}_network"], cfg, _device(device)
+    ckpt_path = network_paths[f"{kind}_network"]
+    return (ckpt_path, cfg, _device(device),
+            ckpt_path + ".trainstate" if train_state_path is None else train_state_path)
+
+
+def _already_trained(what: str, start_epoch: int, epochs: int, writer) -> bool:
+    if start_epoch < epochs:
+        return False
+    print_green(f"[Training] {what} already trained ({start_epoch}/{epochs} epochs) — nothing "
+                f"to resume")
+    writer.close()
+    return True
 
 
 def train_reward_network(train_data: CocoData, network_paths: Dict[str, str],
                          plot_dir: Optional[str], bidirectional: bool,
                          epochs: int = _T.reward_epochs, batch_size: int = _T.batch_size,
                          lr: float = _T.reward_lr, seed: int = 0,
-                         compat_batch_as_time: bool = False, device=None,
-                         fused_chain: Optional[bool] = None,
-                         net_dims: Optional[Dict[str, int]] = None) -> dict:
+                         compat_batch_as_time: bool = False, device_data: bool = True,
+                         fused_chain: Optional[bool] = None, chunk_steps: int = 16,
+                         resume: bool = False, train_state_path: Optional[str] = None,
+                         device=None, net_dims: Optional[Dict[str, int]] = None) -> dict:
     """VSE-loss training of the reward network (trainers.py:260-309);
     writes ``network_paths["reward_network"]`` and returns the trained
-    parameters. ``compat_batch_as_time``: the batch-as-time encoder (Q1)."""
-    ckpt_path, cfg, dev = _start("reward", train_data, network_paths, bidirectional, net_dims,
-                                 device)
+    parameters. ``compat_batch_as_time``: the batch-as-time encoder (Q1).
+
+    ``chunk_steps`` minibatches run per host dispatch when the train split
+    is on the device (``device_data``) and the step is chunked (not compat,
+    unidirectional); on the card with the kernels (the default there) each
+    chunk is one CUDA graph replay (:class:`.steps.BestLossChunk`).
+    ``chunk_steps=1`` or ``device_data=False`` walks one minibatch a
+    dispatch, with the same artifacts. A snapshot goes to
+    ``train_state_path`` (default ``<checkpoint>.trainstate``) after every
+    epoch; ``resume=True`` continues from it bit-identically (a run already
+    complete returns at once; no snapshot starts afresh)."""
+    ckpt_path, cfg, dev, state_path = _start("reward", train_data, network_paths, bidirectional,
+                                             net_dims, device, train_state_path)
     fused = _use_fused(fused_chain, dev, cfg, compat=compat_batch_as_time)
     writer = make_metrics_writer(plot_dir)
     rng = np.random.default_rng(seed)
     params = ckpt.to_device(reward_mod.init(torch.Generator().manual_seed(seed), cfg,
                                             train_data.embeddings), dev)
     opt = adam(lr, params, cfg.freeze_embeddings)
+    start_epoch, resume_best, resume_fused = _resume_pretrainer(
+        resume, state_path, "Reward Network-loss", params, opt, rng)
+    if _already_trained("Reward Network", start_epoch, epochs, writer):
+        return params
+    _note_route(resume_fused, fused, "reward network")
     step = steps.make_reward_step(cfg, opt, compat=compat_batch_as_time, fused=fused)
+    chunk = None
+    if chunk_steps > 1 and not compat_batch_as_time and not cfg.bidirectional:
+        chunk = steps.make_reward_chunk_step(cfg, opt, params, fused=fused,
+                                             graph=fused and dev.type == "cuda")
     print_green("[Training] Training Reward Network")
     params = _drive_best_loss_training(
         "Training Reward Network", "Reward Network-loss", "reward", ckpt_path, writer, epochs,
-        batch_size, rng, train_data, params, step, dev)
+        batch_size, rng, train_data, params, step, dev, opt,
+        tables=_device_tables(train_data, device_data, dev), chunk=chunk,
+        chunk_steps=chunk_steps, train_state_path=state_path, start_epoch=start_epoch,
+        resume_best=resume_best, fused_used=fused)
     writer.close()
     return params
 
@@ -236,24 +404,39 @@ def train_reward_network(train_data: CocoData, network_paths: Dict[str, str],
 def train_policy_network(train_data: CocoData, network_paths: Dict[str, str],
                          plot_dir: Optional[str], bidirectional: bool,
                          epochs: int = _T.policy_epochs, batch_size: int = _T.batch_size,
-                         lr: float = _T.policy_lr, seed: int = 0, device=None,
-                         fused_chain: Optional[bool] = None,
-                         net_dims: Optional[Dict[str, int]] = None) -> dict:
+                         lr: float = _T.policy_lr, seed: int = 0, device_data: bool = True,
+                         fused_chain: Optional[bool] = None, chunk_steps: int = 16,
+                         resume: bool = False, train_state_path: Optional[str] = None,
+                         device=None, net_dims: Optional[Dict[str, int]] = None) -> dict:
     """Teacher-forced XE pretraining of the policy (trainers.py:202-257);
-    writes ``network_paths["policy_network"]``."""
-    ckpt_path, cfg, dev = _start("policy", train_data, network_paths, bidirectional, net_dims,
-                                 device)
+    writes ``network_paths["policy_network"]``. Chunks (a CUDA graph each on
+    the card with the kernels), snapshots and ``resume`` as in
+    :func:`train_reward_network`."""
+    ckpt_path, cfg, dev, state_path = _start("policy", train_data, network_paths, bidirectional,
+                                             net_dims, device, train_state_path)
     fused = _use_fused(fused_chain, dev, cfg)
     writer = make_metrics_writer(plot_dir)
     rng = np.random.default_rng(seed + 1)
     params = ckpt.to_device(policy_mod.init(torch.Generator().manual_seed(seed + 1), cfg,
                                             train_data.embeddings), dev)
     opt = adam(lr, params, cfg.freeze_embeddings)
+    start_epoch, resume_best, resume_fused = _resume_pretrainer(
+        resume, state_path, "Policy Network-loss", params, opt, rng)
+    if _already_trained("Policy Network", start_epoch, epochs, writer):
+        return params
+    _note_route(resume_fused, fused, "policy network")
     step = steps.make_policy_step(cfg, opt, fused=fused)
+    chunk = None
+    if chunk_steps > 1 and not cfg.bidirectional:
+        chunk = steps.make_policy_chunk_step(cfg, opt, params, fused=fused,
+                                             graph=fused and dev.type == "cuda")
     print_green("[Training] Training Policy Network")
     params = _drive_best_loss_training(
         "Training Policy Network", "Policy Network-loss", "policy", ckpt_path, writer, epochs,
-        batch_size, rng, train_data, params, step, dev)
+        batch_size, rng, train_data, params, step, dev, opt,
+        tables=_device_tables(train_data, device_data, dev), chunk=chunk,
+        chunk_steps=chunk_steps, train_state_path=state_path, start_epoch=start_epoch,
+        resume_best=resume_best, fused_used=fused)
     writer.close()
     return params
 
@@ -262,130 +445,252 @@ def train_value_network(train_data: CocoData, network_paths: Dict[str, str],
                         plot_dir: Optional[str], bidirectional: bool,
                         epochs: int = _T.value_epochs, batch_size: int = _T.batch_size,
                         lr: float = _T.value_lr, seed: int = 0,
-                        compat_batch_as_time: bool = False, device=None,
-                        fused_chain: Optional[bool] = None,
-                        net_dims: Optional[Dict[str, int]] = None) -> dict:
+                        compat_batch_as_time: bool = False, device_data: bool = True,
+                        fused_chain: Optional[bool] = None, chunk_steps: int = 16,
+                        resume: bool = False, train_state_path: Optional[str] = None,
+                        device=None, net_dims: Optional[Dict[str, int]] = None) -> dict:
     """MSE training of the critic against the embedding rewards of greedy
     rollouts of the frozen policy (trainers.py:125-199). Loads the reward
     and policy networks from ``network_paths`` and writes
     ``network_paths["value_network"]``. ``compat_batch_as_time``: the
-    batch-as-time critic and reward encoders (Q1)."""
-    ckpt_path, cfg, dev = _start("value", train_data, network_paths, bidirectional, net_dims,
-                                 device)
+    batch-as-time critic and reward encoders (Q1). Chunks run eagerly, with
+    no host sync (each minibatch's prefix length is a host int); snapshots,
+    which carry the stdlib prefix-length stream, and ``resume`` as in
+    :func:`train_reward_network`."""
+    ckpt_path, cfg, dev, state_path = _start("value", train_data, network_paths, bidirectional,
+                                             net_dims, device, train_state_path)
     fused = _use_fused(fused_chain, dev, cfg, compat=compat_batch_as_time)
     writer = make_metrics_writer(plot_dir)
     rng = np.random.default_rng(seed + 2)
     py_rng = pyrandom.Random(seed + 2)
-    rparams = ckpt.load_network("reward", network_paths["reward_network"], dev, cfg)
-    pparams = ckpt.load_network("policy", network_paths["policy_network"], dev, cfg)
     params = ckpt.to_device(value_mod.init(torch.Generator().manual_seed(seed + 2), cfg,
                                            train_data.embeddings), dev)
     opt = adam(lr, params, cfg.freeze_embeddings)
+
+    def set_py_rng(s):  # JSON gives the tuple back as a list
+        py_rng.setstate((s[0], tuple(s[1]), s[2]))
+
+    start_epoch, resume_best, resume_fused = _resume_pretrainer(
+        resume, state_path, "Value Network-loss", params, opt, rng, set_extra=set_py_rng)
+    if _already_trained("Value Network", start_epoch, epochs, writer):
+        return params
+    _note_route(resume_fused, fused, "value network")
+    rparams = ckpt.load_network("reward", network_paths["reward_network"], dev, cfg)
+    pparams = ckpt.load_network("policy", network_paths["policy_network"], dev, cfg)
     step = steps.make_value_step(cfg, opt, pparams, rparams, compat=compat_batch_as_time,
                                  fused=fused)
 
     def single_step(params, features, captions):
         # one random prefix length per minibatch, shared by the batch
-        # (trainers.py:177)
+        # (trainers.py:177), drawn in minibatch order on both walks
         return step(params, features, captions, py_rng.randint(1, MAX_SEQ_LEN))
 
+    chunk = None
+    if chunk_steps > 1 and not compat_batch_as_time and not cfg.bidirectional:
+        chunk = steps.make_value_chunk_step(cfg, opt, params, pparams, rparams, fused=fused)
     print_green("[Training] Training Value Network")
     params = _drive_best_loss_training(
         "Training Value Network", "Value Network-loss", "value", ckpt_path, writer, epochs,
-        batch_size, rng, train_data, params, single_step, dev)
+        batch_size, rng, train_data, params, single_step, dev, opt,
+        tables=_device_tables(train_data, device_data, dev), chunk=chunk,
+        chunk_steps=chunk_steps,
+        draw_extras=lambda k: [(py_rng.randint(1, MAX_SEQ_LEN),) for _ in range(k)],
+        train_state_path=state_path, start_epoch=start_epoch, resume_best=resume_best,
+        extra_state_fn=lambda: list(py_rng.getstate()), fused_used=fused)
     writer.close()
     return params
 
 
+def _host_curr(captions: np.ndarray, level: Optional[int]) -> int:
+    """A minibatch's ``curr_seq_len``: 1 for plain A2C; for a curriculum
+    level, the batch's largest END position + 1 (trainers.py:547) less the
+    level, from the host's captions."""
+    if level is None:
+        return 1
+    return int(np.max(np.argmax(captions == END_ID, axis=1)) + 1) - level
+
+
 def _drive_a2c_epoch(*, epoch: int, level: Optional[int], train_data: CocoData,
-                     batch_size: int, step, a2c_params: dict, reward_params: dict,
-                     rng: np.random.Generator, key: np.ndarray, keeper, device: torch.device
-                     ) -> np.ndarray:
+                     batch_size: int, chunk, chunk_steps: int, tables, a2c_params: dict,
+                     reward_params: dict, rng: np.random.Generator, key: np.ndarray, keeper,
+                     device: torch.device) -> np.ndarray:
     """One epoch of (curriculum) A2C minibatch updates, the JAX package's
-    walk without chunks (``loops.py:1128-1150``): plain A2C (``level``
-    None) rolls out from position 1; a curriculum level teacher-forces
-    ``curr_seq_len = caplen - level`` positions and skips a minibatch where
-    that is below 1. The minibatch's key is split off before the skip
-    rule. Returns the carried key."""
-    for minibatch_id, (captions, features, _) in enumerate(
-            get_coco_minibatches(train_data, batch_size=batch_size, split="train", rng=rng)):
-        key, sub = split(key)
-        if level is None:
-            curr = 1
-        else:
-            # the batch's largest END position + 1 (trainers.py:547), on the host
-            curr = int(np.max(np.argmax(captions == END_ID, axis=1)) + 1) - level
-            if curr < 1:  # trainers.py:550
-                continue
-        stats = step(a2c_params, reward_params, torch.from_numpy(features).to(device),
-                     torch.from_numpy(captions).to(device).long(), curr, sub)
-        keeper.push(stats, epoch, minibatch_id)
+    walk (``loops.py:1057-1150``): plain A2C (``level`` None) rolls out from
+    position 1; a curriculum level teacher-forces ``curr_seq_len = caplen -
+    level`` positions and skips a minibatch where that is below 1. The
+    minibatches of one permutation run through ``chunk``
+    (:func:`.steps.make_a2c_chunk_step`) ``chunk_steps`` whole minibatches
+    a dispatch (1 for the per-step walk); the ragged tail is a dispatch of
+    its own. Each minibatch's key is split off in order, before the skip
+    rule, so every ``chunk_steps`` draws the same stream. A dispatch's stats
+    come back in one copy, read by ``keeper`` once the next dispatch is
+    queued. Returns the carried key."""
+    host_caps = train_data.train_captions
+    if tables is not None:
+        num, gather = tables.num_captions, tables.gather
+    else:
+        caps_all, idxs_all, feats_all, _ = train_data.split("train")
+        num = caps_all.shape[0]
+
+        def gather(mask):
+            return (torch.from_numpy(caps_all[mask]).to(device),
+                    torch.from_numpy(feats_all[idxs_all[mask]]).to(device))
+    perm = rng.permutation(num)  # the draw of data.coco.epoch_minibatch_indices
+    i = minibatch_id = 0
+    while i < num:
+        k = max(1, min(chunk_steps, (num - i) // batch_size))
+        mask = perm[i: i + k * batch_size]
+        n = len(mask) // k
+        subs, currs = [], []
+        for j in range(k):
+            key, sub = split(key)
+            subs.append(sub)
+            currs.append(_host_curr(host_caps[mask[j * n: (j + 1) * n]], level))
+        caps_b, feats_b = gather(mask)
+        stats, valid = chunk(a2c_params, reward_params, feats_b.view(k, n, -1),
+                             caps_b.long().view(k, n, -1), currs, subs)
+        keeper.push(stats, valid, epoch, minibatch_id)
+        minibatch_id += k
+        i += len(mask)
     keeper.flush()
     return key
 
 
 def _a2c_resolver(desc: str, tags: tuple, writer, state: dict, a2c_params: dict, save_paths,
                   batch_size: int):
-    """The per-minibatch bookkeeping of A2C: the divergence guard (dumping
-    the current weights next to the first save path), the best loss, and
-    the three metric tags (loss, mean reward, mean advantage)."""
+    """The bookkeeping of one A2C dispatch, ``resolve(stats, valid, epoch,
+    first_id)``: its ``[k]`` stats read back in one copy, then for each
+    minibatch that ran (``valid``; a skipped curriculum minibatch logs
+    nothing) the divergence guard (dumping the current weights next to the
+    first save path), the best loss, and the three metric tags (loss, mean
+    reward, mean advantage)."""
 
-    def resolve(stats, epoch, minibatch_id):
-        loss = float(stats.loss)
-        check_finite(loss, desc, f"epoch {epoch + 1}, minibatch {minibatch_id}",
-                     dump=lambda path: ckpt.save_pytree(a2c_params, path),
-                     dump_path=str(save_paths[0]) + ".diverged" if save_paths else None)
-        state["best"] = min(state["best"], loss)
-        n = global_minibatch_number(epoch, minibatch_id, batch_size)
-        writer.add_scalar(tags[0], loss, n)
-        writer.add_scalar(tags[1], float(stats.mean_reward), n)
-        writer.add_scalar(tags[2], float(stats.mean_advantage), n)
+    def resolve(stats, valid, epoch, first_id):
+        host = torch.stack(list(stats)).cpu().numpy()  # [5, k], one copy
+        for j in np.flatnonzero(valid):
+            loss = float(host[0, j])
+            minibatch_id = first_id + int(j)
+            check_finite(loss, desc, f"epoch {epoch + 1}, minibatch {minibatch_id}",
+                         dump=lambda path: ckpt.save_pytree(a2c_params, path),
+                         dump_path=str(save_paths[0]) + ".diverged" if save_paths else None)
+            state["best"] = min(state["best"], loss)
+            n = global_minibatch_number(epoch, minibatch_id, batch_size)
+            rec = steps.RolloutStats(*host[:, j])
+            writer.add_scalar(tags[0], loss, n)
+            writer.add_scalar(tags[1], float(rec.mean_reward), n)
+            writer.add_scalar(tags[2], float(rec.mean_advantage), n)
 
     return resolve
 
 
 def _a2c_epochs(desc: str, tags: tuple, level: Optional[int], writer, train_data: CocoData,
-                a2c_params: dict, reward_params: dict, step, save_paths, batch_size: int,
-                epochs: int, rng: np.random.Generator, key: np.ndarray) -> np.ndarray:
+                a2c_params: dict, reward_params: dict, chunk, chunk_steps: int, tables,
+                save_paths, batch_size: int, first_epoch: int, epochs: int,
+                rng: np.random.Generator, key: np.ndarray, best: Optional[float], snapshot
+                ) -> np.ndarray:
+    """The epochs ``first_epoch .. epochs - 1`` of one A2C run (or curriculum
+    level): after each, the weights go to every save path
+    (trainers.py:498) and ``snapshot(epoch, key, best)`` runs."""
     device = a2c_params["policy"]["embedding"].device
-    state = {"best": float("inf")}
+    state = {"best": float("inf") if best is None else best}
     keeper = _DeferredBookkeeper(_a2c_resolver(desc, tags, writer, state, a2c_params,
                                                save_paths, batch_size))
-    for epoch in range(epochs):
+    for epoch in range(first_epoch, epochs):
         t0 = time.perf_counter()
         key = _drive_a2c_epoch(epoch=epoch, level=level, train_data=train_data,
-                               batch_size=batch_size, step=step, a2c_params=a2c_params,
+                               batch_size=batch_size, chunk=chunk, chunk_steps=chunk_steps,
+                               tables=tables, a2c_params=a2c_params,
                                reward_params=reward_params, rng=rng, key=key, keeper=keeper,
                                device=device)
         ckpt.save_to_paths(a2c_params, save_paths)  # every epoch (trainers.py:498)
+        snapshot(epoch, key, state["best"])
         print(f"{desc} ({epoch + 1}/{epochs}): {time.perf_counter() - t0:.1f} s, best loss "
               f"{state['best']}", flush=True)
     return key
 
 
+def _a2c_resume_state(resume: bool, train_state_path: Optional[str], a2c_params: dict,
+                      optimizer: torch.optim.Optimizer, kind: str, what: str):
+    """A2C's snapshot, restored into ``a2c_params`` and ``optimizer`` in
+    place, or None (``resume`` off, or no snapshot). A snapshot of the
+    other A2C kind raises ``ValueError``, as the JAX package's does."""
+    if not resume or not train_state_path or not os.path.exists(train_state_path):
+        return None
+
+    def meta_check(meta):
+        if meta.get("kind") != kind:
+            raise ValueError(f"train-state kind {meta.get('kind')!r} cannot resume {what}")
+
+    state = ckpt.load_train_state(train_state_path, a2c_params, meta_check)
+    ckpt.restore_train_state(state, a2c_params, optimizer)
+    return state
+
+
+def _a2c_setup(cfg: NetConfig, optimizer, a2c_params: dict, train_data: CocoData,
+               per_step_mean: bool, compat: bool, fused_rollout, fuse_reward: bool,
+               device_data: bool, chunk_steps: int) -> tuple:
+    """A2C's route, chunk step, device tables and minibatches a dispatch:
+    ``chunk_steps`` from device tables (not compat), else 1."""
+    device = a2c_params["policy"]["embedding"].device
+    fused = _use_fused(fused_rollout, device, cfg, "fused_rollout", compat)
+    chunk = steps.make_a2c_chunk_step(cfg, optimizer, per_step_mean=per_step_mean,
+                                      compat=compat, fused=fused, fuse_reward=fuse_reward)
+    tables = _device_tables(train_data, device_data, device)
+    return fused, chunk, tables, chunk_steps if tables is not None and not compat else 1
+
+
 def a2c_training(train_data: CocoData, a2c_params: dict, reward_params: dict,
                  optimizer: torch.optim.Optimizer, cfg: NetConfig, plot_dir: Optional[str],
                  save_paths, batch_size: int, epochs: int, seed: int = 0,
-                 compat_batch_as_time: bool = False, fused_rollout: Optional[bool] = None,
-                 fuse_reward: bool = True) -> dict:
+                 compat_batch_as_time: bool = False, device_data: bool = True,
+                 chunk_steps: int = 16, fused_rollout: Optional[bool] = None,
+                 fuse_reward: bool = True, train_state_path: Optional[str] = None,
+                 resume: bool = False) -> dict:
     """The A2C loop (trainers.py:402-500): per minibatch one rollout from
     the start column, the A2C loss and one optimiser step of ``a2c_params``
     (updated in place); the weights go to every path of ``save_paths``
     after every epoch. Numpy seed and threefry key ``seed + 3``.
     ``compat_batch_as_time``: the Q1 rollout
-    (:func:`.steps.a2c_rollout_loss_compat`)."""
-    device = a2c_params["policy"]["embedding"].device
-    step = steps.make_a2c_step(cfg, optimizer, per_step_mean=False, compat=compat_batch_as_time,
-                               fused=_use_fused(fused_rollout, device, cfg, "fused_rollout",
-                                                compat_batch_as_time),
-                               fuse_reward=fuse_reward)
+    (:func:`.steps.a2c_rollout_loss_compat`), one minibatch a dispatch.
+
+    ``chunk_steps`` minibatches run per host dispatch (eagerly, with no host
+    sync) when the train split is on the device (``device_data``); the keys
+    are split one per minibatch as the per-step walk splits them, so the
+    run is the same at any ``chunk_steps``. A snapshot (weights, Adam's
+    state, the key, the numpy generator, the epoch, the best loss, the
+    route) goes to ``train_state_path`` after every epoch; ``resume=True``
+    continues from it bit-identically (a run already complete returns at
+    once; no snapshot starts afresh; a curriculum snapshot raises)."""
     writer = make_metrics_writer(plot_dir)
+    rng, key = np.random.default_rng(seed + 3), PRNGKey(seed + 3)
+    start_epoch, best, resume_fused = 0, None, None
+    rs = _a2c_resume_state(resume, train_state_path, a2c_params, optimizer, "a2c",
+                           "a plain (non-curriculum) A2C run")
+    if rs is not None:
+        meta = rs["meta"]
+        key, rng.bit_generator.state = rs["key"], meta["rng_state"]
+        start_epoch, best, resume_fused = meta["epoch_done"], meta["best"], meta.get("fused")
+        print_green(f"[Training] resumed full A2C train state (epoch {start_epoch} done) from "
+                    f"{train_state_path}")
+    if _already_trained("A2C Network", start_epoch, epochs, writer):
+        return a2c_params
+    fused, chunk, tables, chunk_steps = _a2c_setup(
+        cfg, optimizer, a2c_params, train_data, False, compat_batch_as_time, fused_rollout,
+        fuse_reward, device_data, chunk_steps)
+    _note_route(resume_fused, fused, "A2C rollout")
+
+    def snapshot(epoch, key, best):
+        if train_state_path:
+            ckpt.save_train_state(train_state_path, a2c_params, optimizer, key,
+                                  {"kind": "a2c", "epoch_done": epoch + 1, "best": best,
+                                   "fused": fused, "rng_state": rng.bit_generator.state})
+
     print_green("[Training] Training Advantage Actor-Critic Network")
     _a2c_epochs("Training A2C Network",
                 ("A2C Network-episodic-loss", "A2C Network-episodic-mean-rewards",
                  "A2C Network-episodic-mean-advantage"),
-                None, writer, train_data, a2c_params, reward_params, step, save_paths,
-                batch_size, epochs, np.random.default_rng(seed + 3), PRNGKey(seed + 3))
+                None, writer, train_data, a2c_params, reward_params, chunk, chunk_steps,
+                tables, save_paths, batch_size, start_epoch, epochs, rng, key, best, snapshot)
     writer.close()
     return a2c_params
 
@@ -394,30 +699,67 @@ def a2c_curriculum_training(train_data: CocoData, a2c_params: dict, reward_param
                             optimizer: torch.optim.Optimizer, cfg: NetConfig,
                             plot_dir: Optional[str], save_paths, batch_size: int, epochs: int,
                             curriculum: Sequence[int], seed: int = 0,
-                            compat_batch_as_time: bool = False,
-                            fused_rollout: Optional[bool] = None,
-                            fuse_reward: bool = True) -> dict:
+                            compat_batch_as_time: bool = False, device_data: bool = True,
+                            chunk_steps: int = 16, fused_rollout: Optional[bool] = None,
+                            fuse_reward: bool = True, train_state_path: Optional[str] = None,
+                            resume: bool = False) -> dict:
     """Curriculum A2C (trainers.py:503-616): per level, ``epochs`` epochs
     that teacher-force the ground-truth prefix of length ``caplen - level``
     and roll out the last ``level`` tokens, with the per-step-mean loss. One
     numpy generator and one key (``seed + 4``) run through all levels.
-    ``compat_batch_as_time`` as in :func:`a2c_training`."""
-    device = a2c_params["policy"]["embedding"].device
-    step = steps.make_a2c_step(cfg, optimizer, per_step_mean=True, compat=compat_batch_as_time,
-                               fused=_use_fused(fused_rollout, device, cfg, "fused_rollout",
-                                                compat_batch_as_time),
-                               fuse_reward=fuse_reward)
+    ``compat_batch_as_time``, chunks, snapshots (which carry the levels and
+    the level reached) and ``resume`` as in :func:`a2c_training`; a snapshot
+    of a plain run or of other levels raises."""
     writer = make_metrics_writer(plot_dir)
     rng, key = np.random.default_rng(seed + 4), PRNGKey(seed + 4)
+    curriculum = list(curriculum)
+    start_level, start_epoch, best, resume_fused = 0, 0, None, None
+    rs = _a2c_resume_state(resume, train_state_path, a2c_params, optimizer, "a2c_curriculum",
+                           "a curriculum A2C run")
+    if rs is not None:
+        meta = rs["meta"]
+        if meta["curriculum"] != curriculum:
+            raise ValueError(f"train-state curriculum {meta['curriculum']} does not match the "
+                             f"requested {curriculum}")
+        key, rng.bit_generator.state = rs["key"], meta["rng_state"]
+        start_level, start_epoch = meta["level_idx"], meta["epoch_done"]
+        best, resume_fused = meta["best"], meta.get("fused")
+        print_green(f"[Training] resumed full A2C train state (level index {start_level}, "
+                    f"epoch {start_epoch} done) from {train_state_path}")
+        if start_epoch >= epochs:  # resumed at a level boundary
+            start_level, start_epoch, best = start_level + 1, 0, None
+    if start_level >= len(curriculum):
+        print_green(f"[Training] curriculum already complete ({len(curriculum)} levels) — "
+                    f"nothing to resume")
+        writer.close()
+        return a2c_params
+    fused, chunk, tables, chunk_steps = _a2c_setup(
+        cfg, optimizer, a2c_params, train_data, True, compat_batch_as_time, fused_rollout,
+        fuse_reward, device_data, chunk_steps)
+    _note_route(resume_fused, fused, "A2C rollout")
     print_green("[Training] Training Advantage Actor-Critic Network")
-    print_green(f"[Training] mode set to curriculum training using levels: {list(curriculum)}")
-    for level in curriculum:
+    print_green(f"[Training] mode set to curriculum training using levels: {curriculum}")
+    for level_idx, level in enumerate(curriculum):
+        if level_idx < start_level:
+            continue  # resumed past this level
         print_green(f"[Training] Training curriculum level: {level}")
         tag = f"A2C Curriculum Level-{level}"
+
+        def snapshot(epoch, key, best, level_idx=level_idx):
+            if train_state_path:
+                ckpt.save_train_state(
+                    train_state_path, a2c_params, optimizer, key,
+                    {"kind": "a2c_curriculum", "curriculum": curriculum, "level_idx": level_idx,
+                     "epoch_done": epoch + 1, "best": best, "fused": fused,
+                     "rng_state": rng.bit_generator.state})
+
+        first = level_idx == start_level
         key = _a2c_epochs(f"Training A2C Curriculum Level {level}",
                           (f"{tag}-loss", f"{tag}-mean-rewards", f"{tag}-mean-advantage"),
-                          level, writer, train_data, a2c_params, reward_params, step,
-                          save_paths, batch_size, epochs, rng, key)
+                          level, writer, train_data, a2c_params, reward_params, chunk,
+                          chunk_steps, tables, save_paths, batch_size,
+                          start_epoch if first else 0, epochs, rng, key,
+                          best if first else None, snapshot)
     writer.close()
     return a2c_params
 
@@ -426,9 +768,10 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
                       network_paths: Dict[str, str], plot_dir: Optional[str],
                       bidirectional: bool, epochs: int, batch_size: int,
                       retrain_all: bool = False, curriculum: Optional[Sequence[int]] = None,
-                      seed: int = 0, compat_batch_as_time: bool = False,
-                      fused_rollout: Optional[bool] = None,
-                      a2c_lr: float = _T.a2c_lr, device=None,
+                      seed: int = 0, compat_batch_as_time: bool = False, resume: bool = False,
+                      fused_rollout: Optional[bool] = None, chunk_steps: int = 16,
+                      a2c_lr: float = _T.a2c_lr, device_data: bool = True,
+                      train_state_path: Optional[str] = None, device=None,
                       net_dims: Optional[Dict[str, int]] = None, fuse_reward: bool = True,
                       stage_seconds: Optional[Dict[str, float]] = None):
     """The A2C orchestrator (trainers.py:312-399): load each sub-network
@@ -442,15 +785,25 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
     reward stream as its own kernel after each fused rollout instead of
     inside it. ``compat_batch_as_time`` trains the reward and value networks
     and runs A2C with the batch-as-time encoders (Q1); the policy has no
-    such mode. ``stage_seconds``, when given, receives the wall seconds of
-    each sub-network trained and of the A2C loop. Returns ``(a2c_params,
-    reward_params, cfg)``."""
+    such mode. ``chunk_steps`` and ``device_data`` reach every trainer.
+    ``stage_seconds``, when given, receives the wall seconds of each
+    sub-network trained and of the A2C loop. Returns ``(a2c_params,
+    reward_params, cfg)``.
+
+    ``resume=True`` continues from the snapshots: a sub-network whose
+    ``.trainstate`` exists continues its pretraining, and A2C continues
+    from ``train_state_path`` (default
+    ``network_paths["a2c_network"] + ".trainstate"``); where A2C has no
+    snapshot, its weights come from ``network_paths["a2c_network"]`` with a
+    fresh optimiser and generators (the reference's resume,
+    trainers.py:338-370), or it starts afresh without that file."""
     cfg = _cfg_for(train_data, bidirectional, net_dims)
     dev = _device(device)
     # raises before any training
     _use_fused(fused_rollout, dev, cfg, "fused_rollout", compat_batch_as_time)
     all_save_paths = [save_paths["model_path"], network_paths["a2c_network"]]
-    kw = dict(batch_size=batch_size, seed=seed, device=dev, net_dims=net_dims)
+    kw = dict(batch_size=batch_size, seed=seed, device=dev, net_dims=net_dims,
+              chunk_steps=chunk_steps, device_data=device_data, resume=resume)
     trainers = {"reward": train_reward_network, "policy": train_policy_network,
                 "value": train_value_network}
     seconds = {} if stage_seconds is None else stage_seconds
@@ -465,11 +818,12 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
     if retrain_all:
         print_green("[Training] Training all the networks")
     for kind, train_fn in trainers.items():
-        if retrain_all:
-            train(kind, train_fn)
+        path = network_paths[f"{kind}_network"]
+        if retrain_all or (resume and os.path.exists(path + ".trainstate")):
+            train(kind, train_fn)  # with resume, an interrupted pretraining continues
             continue
         try:
-            nets[kind] = ckpt.load_network(kind, network_paths[f"{kind}_network"], dev, cfg)
+            nets[kind] = ckpt.load_network(kind, path, dev, cfg)
             print(f"[Training] loaded {kind} network")
         except FileNotFoundError:
             print(f"[Training] {kind} network not found")
@@ -478,6 +832,16 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
         print_green("[Training] All networks trained")
     reward_params = _clone(nets["reward"])  # frozen: detached, no gradient
     a2c_params = {"value": nets["value"], "policy": nets["policy"]}
+    state_path = (network_paths["a2c_network"] + ".trainstate" if train_state_path is None
+                  else train_state_path)
+    if resume and not os.path.exists(state_path):
+        # no snapshot: the reference's weights-only resume (fresh Adam, epoch 0)
+        try:
+            loaded = ckpt.load_network("a2c", network_paths["a2c_network"], dev, cfg)
+            a2c_params = {k: loaded[k] for k in ("value", "policy")}
+            print_green("[Training] resumed A2C weights from checkpoint")
+        except FileNotFoundError:
+            print("[Training] no A2C checkpoint to resume; starting fresh")
     optimizer = adam(a2c_lr, a2c_params, cfg.freeze_embeddings)  # trainers.py:378
 
     print(f"[Training] train_data len = {len(train_data.train_captions)}")
@@ -485,17 +849,17 @@ def train_a2c_network(train_data: CocoData, save_paths: Dict[str, str],
     print(f"[Training] epochs = {epochs}")
     args = (train_data, a2c_params, reward_params, optimizer, cfg, plot_dir, all_save_paths,
             batch_size, epochs)
+    kw = dict(seed=seed, compat_batch_as_time=compat_batch_as_time, device_data=device_data,
+              chunk_steps=chunk_steps, fused_rollout=fused_rollout, fuse_reward=fuse_reward,
+              train_state_path=state_path, resume=resume)
     t0 = time.perf_counter()
     if curriculum is None:
-        a2c_training(*args, seed=seed, compat_batch_as_time=compat_batch_as_time,
-                     fused_rollout=fused_rollout, fuse_reward=fuse_reward)
+        a2c_training(*args, **kw)
     else:
         curriculum = list(curriculum)
         if 16 not in curriculum:
             curriculum.append(16)  # the last level is full training (trainers.py:389-390)
-        a2c_curriculum_training(*args, curriculum, seed=seed,
-                                compat_batch_as_time=compat_batch_as_time,
-                                fused_rollout=fused_rollout, fuse_reward=fuse_reward)
+        a2c_curriculum_training(*args, curriculum, **kw)
     seconds["a2c"] = time.perf_counter() - t0
     append_results(save_paths["results_path"],
                    describe_params("AdvantageActorCriticNetwork", a2c_params), header="network")

@@ -4,7 +4,8 @@ Adam with torch's defaults, betas (0.9, 0.999) and eps 1e-8 — the
 reference's ``optim.Adam`` at four learning rates. With pretrained word
 vectors the reference freezes the embedding tables; here they are left out
 of the optimiser and need no gradient, so they never move (the JAX
-package zeroes their updates with optax's ``set_to_zero``).
+package zeroes their updates with optax's ``set_to_zero``). On the card the
+optimiser is capturable, so a chunk of steps can run as one CUDA graph.
 """
 
 from __future__ import annotations
@@ -30,4 +31,8 @@ def adam(lr: float, params: dict, freeze_embeddings: bool = False) -> torch.opti
         leaf.requires_grad_(not frozen)
         if not frozen:
             trained.append(leaf)
-    return torch.optim.Adam(trained, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    # on the card Adam is capturable (its step count and bias corrections
+    # on the device) on every path, so a chunk captured as a CUDA graph and
+    # a per-step run do the same arithmetic
+    capturable = bool(trained) and all(p.is_cuda for p in trained)
+    return torch.optim.Adam(trained, lr=lr, betas=(0.9, 0.999), eps=1e-8, capturable=capturable)

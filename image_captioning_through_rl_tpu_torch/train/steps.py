@@ -42,6 +42,7 @@ from __future__ import annotations
 import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import END_ID
@@ -68,13 +69,18 @@ def batch_caption_lens(captions: torch.Tensor) -> torch.Tensor:
     return torch.argmax((captions == END_ID).to(torch.int32), dim=1) + 1
 
 
-def _train_step(optimizer: torch.optim.Optimizer, loss_fn):
-    """One minibatch: zero the gradients, loss, backward, optimiser step."""
+def _train_step(optimizer: torch.optim.Optimizer, loss_fn, before_step=None):
+    """One minibatch: zero the gradients, loss, backward, ``before_step(loss)``
+    (the chunks' best-loss bookkeeping, while the weights still enter the
+    minibatch), optimiser step."""
     optimizer.zero_grad(set_to_none=True)
     loss = loss_fn()
     loss.backward()
+    loss = loss.detach()
+    if before_step is not None:
+        before_step(loss)
     optimizer.step()
-    return loss.detach()
+    return loss
 
 
 # --------------------------------------------------------------------------
@@ -449,3 +455,221 @@ def make_a2c_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, per_step_mea
         return RolloutStats(*(x.detach() for x in stats))
 
     return step
+
+
+# --------------------------------------------------------------------------
+# Chunked steps: K minibatch updates per host dispatch (JAX steps.py:156-237,
+# 381-498), the Q12 best-loss bookkeeping on the device
+# --------------------------------------------------------------------------
+
+def _tree_leaves(tree: dict) -> list:
+    return [leaf for k in sorted(tree)
+            for leaf in (_tree_leaves(tree[k]) if isinstance(tree[k], dict) else [tree[k]])]
+
+
+def _empty_like_tree(tree: dict) -> dict:
+    return {k: _empty_like_tree(v) if isinstance(v, dict) else torch.empty_like(v.detach())
+            for k, v in tree.items()}
+
+
+class BestLossChunk:
+    """``chunk(best_loss, features [k, N, F], captions [k, N, T], extras=None)
+    -> (losses [k], best_prev, best, improved)``: k minibatch updates of a
+    best-loss pretrainer's ``params`` (in place) with no host sync, the
+    counterpart of the JAX ``_best_loss_scan``.
+
+    The reference re-saves its checkpoint on every improvement
+    (trainers.py:182-186, 244-248, 293-297); only the last write is seen,
+    and it holds the weights entering the first minibatch that attains the
+    minimum loss (quirk Q12, strict ``<``). The chunk carries ``(best,
+    best_prev, improved)`` as device tensors: after each minibatch's
+    backward, while the weights still enter it, ``best_prev`` takes them
+    leaf by leaf through ``torch.where`` where the loss is below ``best``.
+    The host saves ``best_prev`` once a chunk, when ``improved`` is set.
+    ``extras[j]`` is minibatch j's extra step arguments (the value step's
+    prefix length).
+
+    ``graph=True`` (CUDA only) captures the k updates as one CUDA graph,
+    once per input shape, and replays it each chunk: the minibatches are
+    copied (or gathered by the caller, :meth:`inputs`) into the graph's
+    static buffers. The kernel wrappers count the launches they make (the
+    warm-up's, and the capture's, recorded and not run) and none of the
+    replays', which call no wrapper; ``BestLossChunk.captures`` and
+    ``BestLossChunk.replays`` count captures and replays. The optimiser
+    must be capturable (:func:`.optim.adam` makes it so on the
+    card). Before its capture one update runs on a side stream to do the
+    one-time host work (library load, shared-memory opt-ins, Adam's state),
+    and the weights and Adam's state are then put back, so a captured
+    chunk computes what k eager updates compute, bit for bit. A capture
+    that fails raises."""
+
+    def __init__(self, params: dict, optimizer: torch.optim.Optimizer, loss_fn,
+                 graph: bool = False):
+        self._leaves = _tree_leaves(params)
+        self._opt = optimizer
+        self._loss_fn = loss_fn
+        self.best_prev = _empty_like_tree(params)
+        self._best_prev_leaves = _tree_leaves(self.best_prev)
+        self.device = self._leaves[0].device
+        if graph and self.device.type != "cuda":
+            raise ValueError("a captured chunk runs on a CUDA device only")
+        self.graph = graph
+        self._best = torch.empty((), dtype=torch.float32, device=self.device)
+        self._improved = torch.empty((), dtype=torch.bool, device=self.device)
+        self._buffers, self._graphs = {}, {}
+
+    def _keep_best(self, loss: torch.Tensor) -> None:
+        take = loss < self._best
+        with torch.no_grad():
+            torch.where(take, loss, self._best, out=self._best)
+            for bp, p in zip(self._best_prev_leaves, self._leaves):
+                torch.where(take, p, bp, out=bp)
+            self._improved.logical_or_(take)
+
+    def _update(self, features, captions, extra=()) -> torch.Tensor:
+        return _train_step(self._opt, lambda: self._loss_fn(features, captions, *extra),
+                           self._keep_best)
+
+    def inputs(self, k: int, n: int, feature_dim: int, steps: int) -> tuple:
+        """The captured chunk's static ``(features [k, n, F], captions [k, n,
+        T] int64)`` buffers for that shape, to gather a chunk into."""
+        key = (k, n, feature_dim, steps)
+        if key not in self._buffers:
+            self._buffers[key] = (
+                torch.empty((k, n, feature_dim), dtype=torch.float32, device=self.device),
+                torch.empty((k, n, steps), dtype=torch.int64, device=self.device))
+        return self._buffers[key]
+
+    def __call__(self, best_loss: float, features: torch.Tensor, captions: torch.Tensor,
+                 extras=None):
+        k = features.shape[0]
+        if not self.graph:
+            self._best.fill_(best_loss)
+            self._improved.zero_()
+            losses = torch.stack([self._update(features[j], captions[j],
+                                               () if extras is None else extras[j])
+                                  for j in range(k)])
+            return losses, self.best_prev, self._best, self._improved
+        if extras is not None:
+            raise ValueError("a captured chunk takes no per-minibatch extras")
+        feats_buf, caps_buf = self.inputs(k, features.shape[1], features.shape[2],
+                                          captions.shape[2])
+        if features.data_ptr() != feats_buf.data_ptr():
+            feats_buf.copy_(features)
+        if captions.data_ptr() != caps_buf.data_ptr():
+            caps_buf.copy_(captions)
+        key = tuple(feats_buf.shape) + (caps_buf.shape[2],)
+        if key not in self._graphs:
+            self._graphs[key] = self._capture(feats_buf, caps_buf)
+        graph, losses = self._graphs[key]
+        self._best.fill_(best_loss)
+        self._improved.zero_()
+        graph.replay()
+        BestLossChunk.replays += 1
+        return losses, self.best_prev, self._best, self._improved
+
+    def _capture(self, feats_buf: torch.Tensor, caps_buf: torch.Tensor) -> tuple:
+        dev = self.device
+        saved = [p.detach().clone() for p in self._leaves]
+        saved_state = {id(p): {name: t.clone() for name, t in self._opt.state[p].items()}
+                       for p in self._leaves if p in self._opt.state}
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._best.fill_(float("inf"))
+            self._update(feats_buf[0], caps_buf[0])
+        torch.cuda.current_stream(dev).wait_stream(side)
+        with torch.no_grad():  # put the weights and Adam's state back
+            for p, q in zip(self._leaves, saved):
+                p.copy_(q)
+            for p in self._leaves:
+                old = saved_state.get(id(p))
+                for name, t in self._opt.state.get(p, {}).items():
+                    if old is None:
+                        t.zero_()  # a fresh state: step 0, zero moments
+                    else:
+                        t.copy_(old[name])
+        losses = torch.empty((feats_buf.shape[0],), dtype=torch.float32, device=dev)
+        self._opt.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        BestLossChunk.captures += 1
+        with torch.cuda.graph(graph):
+            for j in range(feats_buf.shape[0]):
+                losses[j].copy_(self._update(feats_buf[j], caps_buf[j]))
+        return graph, losses
+
+
+BestLossChunk.captures = 0
+BestLossChunk.replays = 0
+
+
+def make_reward_chunk_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, params: dict,
+                           beta=0.2, fused: bool = False, graph: bool = False) -> BestLossChunk:
+    """Chunked :func:`make_reward_step` of ``params`` (non-compat,
+    unidirectional): a :class:`BestLossChunk`."""
+    if cfg.bidirectional:
+        raise ValueError("chunked reward step is unidirectional only")
+    loss_fn = reward_loss_fused if fused else reward_loss
+    return BestLossChunk(params, optimizer,
+                         lambda f, c: loss_fn(params, cfg, f, c, beta=beta), graph=graph)
+
+
+def make_policy_chunk_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, params: dict,
+                           fused: bool = False, graph: bool = False) -> BestLossChunk:
+    """Chunked :func:`make_policy_step` of ``params`` (unidirectional): a
+    :class:`BestLossChunk`."""
+    if cfg.bidirectional:
+        raise ValueError("chunked policy step is unidirectional only")
+    loss_fn = policy_loss_fused if fused else policy_loss
+    return BestLossChunk(params, optimizer,
+                         lambda f, c: loss_fn(params, cfg, f, c, batch_caption_lens(c)),
+                         graph=graph)
+
+
+def make_value_chunk_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, params: dict,
+                          pparams: dict, rparams: dict, fused: bool = False) -> BestLossChunk:
+    """Chunked :func:`make_value_step` of ``params`` against the frozen
+    policy and reward networks (non-compat, unidirectional), run eagerly:
+    each minibatch's prefix length (``extras[j] = (prefix_len,)``, drawn by
+    the host in minibatch order) is a host int, and its targets come from
+    the greedy kernel."""
+    if cfg.bidirectional:
+        raise ValueError("chunked value step is unidirectional only")
+    greedy_weights = prepare_greedy_weights(pparams) if fused else None
+    return BestLossChunk(params, optimizer, lambda f, c, prefix_len: value_episode_loss(
+        params, cfg, pparams, rparams, f, c, prefix_len, fused=fused,
+        greedy_weights=greedy_weights))
+
+
+def make_a2c_chunk_step(cfg: NetConfig, optimizer: torch.optim.Optimizer,
+                        per_step_mean: bool = False, compat: bool = False, fused: bool = False,
+                        fuse_reward: bool = True):
+    """Chunked A2C update (the JAX ``make_a2c_chunk_step``): ``chunk(
+    a2c_params, reward_params, features [k, N, F], captions [k, N, T], currs,
+    rngs) -> (stats, valid)`` runs k minibatch updates of
+    :func:`make_a2c_step` eagerly with no host sync, minibatch j under its
+    host key ``rngs[j]`` (drawn by the host with the per-step loop's split
+    discipline) at ``curr_seq_len = currs[j]`` (host ints: 1 for plain A2C,
+    ``caplen - level`` for the curriculum). A minibatch with ``currs[j] <
+    1`` is skipped as the reference skips it (trainers.py:550): no update,
+    zero stats, ``valid[j]`` False. ``stats`` is a :class:`RolloutStats`
+    of ``[k]`` device tensors, ``valid`` a host bool array. The trainers'
+    per-step walk is the case k = 1."""
+    step = make_a2c_step(cfg, optimizer, per_step_mean=per_step_mean, compat=compat,
+                         fused=fused, fuse_reward=fuse_reward)
+
+    def chunk(a2c_params, reward_params, features, captions, currs, rngs):
+        k = features.shape[0]
+        valid = np.zeros(k, dtype=bool)
+        zero = torch.zeros((), dtype=torch.float32, device=features.device)
+        stats = []
+        for j in range(k):
+            if currs[j] < 1:
+                stats.append(RolloutStats(zero, zero, zero, zero, zero))
+                continue
+            stats.append(step(a2c_params, reward_params, features[j], captions[j],
+                              int(currs[j]), rngs[j]))
+            valid[j] = True
+        return RolloutStats(*(torch.stack(x) for x in zip(*stats))), valid
+
+    return chunk

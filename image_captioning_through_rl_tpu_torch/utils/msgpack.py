@@ -6,7 +6,10 @@ Covered: maps, str, bin, ext, non-negative ints, arrays and nil, each value
 in its smallest encoding as the ``msgpack`` package writes it. An ndarray
 is flax's ext type 1 holding ``packb((shape, dtype name, C-order bytes))``;
 map keys are written sorted at every level (the order ``jax.tree.map``
-gives flax). Anything else raises ``ValueError``, including an array above
+gives flax), except in an :class:`OrderedMap`, which keeps its insertion
+order (the order flax writes a plain dict in, as the top level of the JAX
+package's ``.trainstate`` payload). Anything else raises ``ValueError``,
+including an array above
 flax's 2^30-byte chunk limit (flax writes such an array as a chunked
 sub-map, which this subset does not write).
 """
@@ -20,6 +23,10 @@ import numpy as np
 
 NDARRAY_EXT = 1
 MAX_CHUNK_SIZE = 2 ** 30  # flax.serialization.MAX_CHUNK_SIZE
+
+
+class OrderedMap(dict):
+    """A map that :func:`packb` writes in its insertion order, not sorted."""
 
 
 def _uint(n: int) -> bytes:
@@ -71,7 +78,7 @@ def _pack(obj: Any, out: List[bytes]) -> None:
             _pack(v, out)
     elif isinstance(obj, dict):
         out.append(_head(len(obj), 0x80, 15, (None, 0xDE, 0xDF)))
-        for k in sorted(obj):
+        for k in obj if isinstance(obj, OrderedMap) else sorted(obj):
             if not isinstance(k, str):
                 raise ValueError(f"map key {k!r} is not a str")
             _pack(k, out)

@@ -157,8 +157,10 @@ def test_trainer_divergence_dump_is_native(tmp_path, monkeypatch):
                         lambda *a, **k: lambda p, f, c, *r: torch.tensor(float("nan")))
     path = str(tmp_path / "policyNetwork.ckpt")
     with pytest.raises(TrainingDiverged, match=r"policyNetwork\.ckpt\.diverged"):
+        # the per-step walk, whose step the patch replaces (the chunked walk's
+        # dump: tests/test_torch_chunked.py)
         tloops.train_policy_network(data, {"policy_network": path}, None, False, epochs=1,
-                                    batch_size=8, device="cpu",
+                                    batch_size=8, device="cpu", chunk_steps=1,
                                     net_dims={"wordvec_dim": E, "hidden_dim": H})
     template = jpolicy.init(jax.random.PRNGKey(0), _cfgs()[0])
     dumped = jckpt.load_network("policy", path + ".diverged", template=template)

@@ -8,7 +8,8 @@ to the second). Held:
   * both parsers' defaults and flags (except the port's ``--device``), and
     ``--config``'s precedence and errors;
   * every flag of a part not ported yet raises before the bundle is read,
-    naming its ROADMAP item, and the ported ones reach the bundle; without
+    naming its ROADMAP item, and the ported ones (``--resume`` among them)
+    reach the bundle; without
     a card the default device raises;
   * ``--test_model`` on JAX-written ``.ckpt`` files (JAX at
     ``precision="highest"``, as ``tests/test_torch_eval.py``): the three
@@ -17,9 +18,8 @@ to the second). Held:
   * a training run from JAX-written sub-network ``.ckpt`` files (A2C only,
     ``--epochs 1 --batch_size 8 --chunk_steps 1``): the A2C
     ``metrics.jsonl`` tags and steps equal and values within rtol 1e-4, the
-    a2c ``.ckpt`` within atol 2e-5 of the JAX CLI's, the artifacts equal
-    except the JAX package's ``.trainstate`` snapshots and its TensorBoard
-    ``runs/`` directory (the port logs JSONL only);
+    a2c ``.ckpt`` within atol 2e-5 of the JAX CLI's, the artifacts equal,
+    TensorBoard's ``runs/`` and the ``.trainstate`` snapshots included;
   * a ``--retrain`` run of the port alone, whose ``.ckpt`` files the JAX
     package loads; ``--profile_dir`` leaves a Chrome trace;
   * ``--faithful_beam --compat_dump --test_model``: the dumps byte for byte
@@ -70,7 +70,7 @@ DIMS = ["--hidden_dim", str(WIDTH), "--wordvec_dim", str(WIDTH)]
 JCFG = JNetConfig(vocab_size=V, input_dim=F, wordvec_dim=WIDTH, hidden_dim=WIDTH)
 JINITS = {"reward": (jreward, 5), "policy": (jpolicy, 6), "value": (jvalue, 7)}
 ARTIFACTS = {"a2cNetwork.ckpt", "generated_captions.txt", "image_url.txt", "metrics.jsonl",
-             "real_captions.txt", "results.txt", "run_config.json"}
+             "real_captions.txt", "results.txt", "run_config.json", "runs"}
 
 
 @pytest.fixture(scope="module")
@@ -176,7 +176,7 @@ def test_config_precedence_and_errors(case, tmp_path, capsys):
 def test_unported_flags_raise_before_the_bundle_is_read(flags, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     argv = ["--data_dir", str(tmp_path / "missing"), *flags, "--device", "cpu"]
-    if item in (5, 6):  # ported: these flags no longer raise, the run reads the bundle
+    if item in (5, 6, 7):  # ported: these flags no longer raise, the run reads the bundle
         with pytest.raises(FileNotFoundError, match="missing"):
             _port_run(argv)
         return
@@ -243,9 +243,8 @@ def test_training_run_matches_jax_cli(coco, jax_models, tmp_path, monkeypatch):
         for k in saved_j:
             np.testing.assert_allclose(saved_t[k], saved_j[k], rtol=0, atol=2e-5, err_msg=k)
 
-    assert set(os.listdir(tlog)) == set(os.listdir(jlog)) - {"runs"} == ARTIFACTS
-    assert set(os.listdir(sides["t"])) == {
-        f for f in os.listdir(sides["j"]) if not f.endswith(".trainstate")}
+    assert set(os.listdir(tlog)) == set(os.listdir(jlog)) == ARTIFACTS
+    assert set(os.listdir(sides["t"])) == set(os.listdir(sides["j"]))
     for name in ("real_captions.txt", "image_url.txt"):
         assert (tlog / name).read_bytes() == (jlog / name).read_bytes(), name
     assert len(_scores(tlog / "results.txt")) == 1
@@ -262,8 +261,9 @@ def test_retrain_run_writes_ckpts_the_jax_package_loads(coco, tmp_path, monkeypa
                      "--device", "cpu"])
     log = _log_dir(tmp_path)
     assert set(os.listdir(log)) == ARTIFACTS
-    assert set(os.listdir(pre)) == {f"{k}Network.ckpt" for k in ("reward", "policy", "value",
-                                                                  "a2c")}
+    assert set(os.listdir(pre)) == {f"{k}Network.ckpt{s}" for k in ("reward", "policy", "value",
+                                                                      "a2c")
+                                    for s in ("", ".trainstate")}
     assert set(out["seconds"]) == {"load", "reward", "policy", "value", "a2c", "test", "score"}
     tags = {json.loads(x)["tag"] for x in (log / "metrics.jsonl").read_text().splitlines()}
     assert {"Reward Network-loss", "Policy Network-loss", "Value Network-loss",
@@ -301,8 +301,9 @@ def test_bidirectional_retrain_and_test_model_match_jax_cli(coco, tmp_path, monk
             "results_bidirectional.txt"}
     assert set(os.listdir(log)) == ARTIFACTS - {"a2cNetwork.ckpt", "generated_captions.txt",
                                                  "results.txt"} | bidi
-    assert set(os.listdir(pre)) == {f"{k}Network_bidirectional.ckpt"
-                                    for k in ("reward", "policy", "value", "a2c")}
+    assert set(os.listdir(pre)) == {f"{k}Network_bidirectional.ckpt{s}"
+                                    for k in ("reward", "policy", "value", "a2c")
+                                    for s in ("", ".trainstate")}
     values = [json.loads(x)["value"] for x in (log / "metrics.jsonl").read_text().splitlines()]
     assert values and np.isfinite(values).all()
 
@@ -386,7 +387,7 @@ def _compat_runs(coco, tmp_path, monkeypatch, extra, models=None):
                      log)
     (want, jlog), (got, tlog) = out["j"], out["t"]
     assert [(r["tag"], r["step"]) for r in got] == [(r["tag"], r["step"]) for r in want]
-    assert set(os.listdir(tlog)) == set(os.listdir(jlog)) - {"runs"} == ARTIFACTS
+    assert set(os.listdir(tlog)) == set(os.listdir(jlog)) == ARTIFACTS
     assert json.loads((tlog / "run_config.json").read_text())["compat_batch_as_time"]
     return want, got
 

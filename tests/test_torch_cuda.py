@@ -1341,3 +1341,97 @@ def test_eval_on_the_beam_kernel_matches_plain(dev, tmp_path):
         _, _, gaps = beam_search_plain(bw, rows, start, 17, DecodeConfig().beam_size,
                                        margins=True)
         assert bool((gaps.min(dim=1).values < NEAR_TIE).all()), "a non-tie line differs"
+
+
+@pytest.mark.cuda
+def test_embedding_grad_on_the_card_is_deterministic_and_capturable(dev):
+    """The chains' and the rollout's embedding gradient on the card (a
+    one-hot product): two calls bit-equal; as close to the float64 sums as
+    the CPU's float32 ``index_add_`` is allowed to be (each entry within
+    1e-6 of its row's sum of magnitudes: float32 sums of up to ~3300 terms
+    in another order); the same bits when replayed from a CUDA graph."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_lstm import embedding_grad
+
+    gen = torch.Generator().manual_seed(0)
+    dx = torch.randn(16 * 512, 512, generator=gen)
+    tok = (torch.rand((16, 512), generator=gen) ** 4 * 1004).long()  # token 0 ~ 40% of rows
+    exact = torch.zeros(1004, 512, dtype=torch.float64).index_add_(
+        0, tok.reshape(-1), dx.double())
+    bound = 1e-6 * torch.zeros(1004, 512, dtype=torch.float64).index_add_(
+        0, tok.reshape(-1), dx.double().abs()) + 1e-7
+    dx_d, tok_d = dx.to(dev), tok.to(dev)
+    got = embedding_grad(dx_d, tok_d, 1004)
+    assert torch.equal(got, embedding_grad(dx_d, tok_d, 1004))
+    for name, value in (("card", got.cpu()), ("cpu", embedding_grad(dx, tok, 1004))):
+        assert bool(((value.double() - exact).abs() <= bound).all()), name
+    side = torch.cuda.Stream()  # warm up on a side stream before the capture
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        embedding_grad(dx_d, tok_d, 1004)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = embedding_grad(dx_d, tok_d, 1004)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+@pytest.mark.cuda
+def test_embedding_grad_turns_tf32_off(dev):
+    """The one-hot product runs in full float32 where the process allowed
+    TF32 (``ops.linalg.matmul`` turns it off): the bits of a TF32-off call."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_lstm import embedding_grad
+
+    gen = torch.Generator().manual_seed(1)
+    dx = torch.randn(16 * 64, 512, generator=gen).to(dev)
+    tok = torch.randint(0, 1004, (16, 64), generator=gen).to(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = embedding_grad(dx, tok, 1004)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = embedding_grad(dx, tok, 1004)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_captured_chunk_replays_call_no_wrapper(dev):
+    """A captured policy chunk of 3 minibatches, run twice: the LSTM chain's
+    wrappers count the warm-up update's launches and the capture's (3
+    updates, recorded), and the replays, which call no wrapper, add none;
+    ``BestLossChunk`` counts one capture and two replays; the losses and
+    weights equal two eager chunks' bit for bit."""
+    from image_captioning_through_rl_tpu_torch.models import policy
+    from image_captioning_through_rl_tpu_torch.train import checkpoint as ckpt
+    from image_captioning_through_rl_tpu_torch.train import steps
+    from image_captioning_through_rl_tpu_torch.train.optim import adam
+
+    cfg, v = CFG, CFG.vocab_size
+    rng = np.random.default_rng(0)
+    feats = rng.standard_normal((2, 3, 8, cfg.input_dim)).astype(np.float32)
+    feats = torch.from_numpy(feats).to(dev)
+    caps = rng.integers(4, v, size=(2, 3, 8, T))
+    caps[..., 0], caps[..., -1] = START_ID, 2
+    caps = torch.from_numpy(caps).to(dev)
+
+    def run(graph):
+        params = ckpt.to_device(policy.init(torch.Generator().manual_seed(3), cfg), dev)
+        chunk = steps.make_policy_chunk_step(cfg, adam(1e-3, params), params, fused=True,
+                                             graph=graph)
+        before = (fused_lstm_chain.fwd_launches, fused_lstm_chain.bwd_launches)
+        losses = torch.cat([chunk(float("inf"), feats[c], caps[c])[0].clone() for c in range(2)])
+        torch.cuda.synchronize()
+        after = (fused_lstm_chain.fwd_launches, fused_lstm_chain.bwd_launches)
+        return params, losses, (after[0] - before[0], after[1] - before[1])
+
+    steps.BestLossChunk.captures = steps.BestLossChunk.replays = 0
+    p_graph, l_graph, n_graph = run(True)
+    assert (steps.BestLossChunk.captures, steps.BestLossChunk.replays) == (1, 2)
+    assert n_graph == (1 + 3, 1 + 3)
+    p_eager, l_eager, n_eager = run(False)
+    assert n_eager == (6, 6)
+    assert torch.equal(l_graph, l_eager)
+    for (_, a), (_, b) in zip(ckpt._leaves(p_graph), ckpt._leaves(p_eager), strict=True):
+        assert torch.equal(a.detach(), b.detach())

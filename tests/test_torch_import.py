@@ -25,6 +25,8 @@ def test_port_imports_without_jax():
         "import image_captioning_through_rl_tpu_torch.ops.fused_rollout\n"
         "import image_captioning_through_rl_tpu_torch.ops.fused_sample\n"
         "import image_captioning_through_rl_tpu_torch.train.checkpoint\n"
+        "import image_captioning_through_rl_tpu_torch.train.optim\n"
+        "import image_captioning_through_rl_tpu_torch.data.device\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'image_captioning_through_rl_tpu'\n"
         "             or m.startswith('image_captioning_through_rl_tpu.'))\n"
@@ -33,6 +35,26 @@ def test_port_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_metrics_writer_imports_without_jax_or_tensorflow(tmp_path):
+    """The trainers' metric writer tees into TensorBoard through its
+    TensorFlow-free stub: writing a scalar imports neither jax, TensorFlow
+    nor the JAX package."""
+    code = (
+        "import sys\n"
+        "from image_captioning_through_rl_tpu_torch.utils.logging import make_metrics_writer\n"
+        f"w = make_metrics_writer({str(tmp_path)!r})\n"
+        "w.add_scalar('tag', 1.0, 0)\n"
+        "w.close()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in (\n"
+        "    'jax', 'tensorflow', 'image_captioning_through_rl_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert (tmp_path / "metrics.jsonl").exists() and (tmp_path / "runs").is_dir()
 
 
 def test_cli_slice_imports_without_h5py_msgpack_or_flax():

@@ -24,7 +24,7 @@ from image_captioning_through_rl_tpu.config import NetConfig as JNetConfig
 from image_captioning_through_rl_tpu.models import a2c as ja2c
 from image_captioning_through_rl_tpu.models.convert import a2c_to_torch
 from image_captioning_through_rl_tpu_torch import server as server_mod
-from image_captioning_through_rl_tpu_torch.api import Captioner, load_captioner
+from image_captioning_through_rl_tpu_torch.api import Captioner, load_captioner_pt
 from image_captioning_through_rl_tpu_torch.client import CaptionClient
 from image_captioning_through_rl_tpu_torch.config import NetConfig
 from image_captioning_through_rl_tpu_torch.models import from_jax_params
@@ -152,7 +152,7 @@ def test_main_serves_from_pt_and_vocab(models, tmp_path):
     vocab = tmp_path / "coco2014_vocab.json"
     vocab.write_text(json.dumps({"word_to_idx": {w: i for i, w in enumerate(WORDS)},
                                  "idx_to_word": WORDS}))
-    cap = load_captioner(str(model_pt), str(vocab), device="cpu")
+    cap = load_captioner_pt(str(model_pt), str(vocab), device="cpu")
     assert cap.cfg.vocab_size == KW["vocab_size"] and cap.cfg.hidden_dim == KW["hidden_dim"]
     # the checkpoint carries no caption length: the loaded model decodes
     # the default 17 tokens
@@ -295,7 +295,7 @@ def test_main_serves_a_bidirectional_model(tmp_path):
     vocab.write_text(json.dumps({"word_to_idx": {w: i for i, w in enumerate(WORDS)},
                                  "idx_to_word": WORDS}))
     with pytest.raises(ValueError, match="bidirectional=True"):
-        load_captioner(str(model_pt), str(vocab), device="cpu")
+        load_captioner_pt(str(model_pt), str(vocab), device="cpu")
     srv = server_mod.main(["--model", str(model_pt), "--vocab", str(vocab), "--bidirectional",
                            "--device", "cpu", "--port", "0", "--max_batch", "8",
                            "--warmup_beams", "0", "5"], block=False)

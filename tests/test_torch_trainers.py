@@ -207,7 +207,8 @@ def _entry_points(tmp_path):
              for k in ("reward", "policy", "value", "a2c")}
     saves = {"model_path": str(tmp_path / "model.pt"), "results_path": str(tmp_path / "r.txt")}
     return {
-        "load_captioner": lambda: tapi.load_captioner(str(model_pt), str(vocab)),
+        "load_captioner": lambda: tapi.load_captioner(str(model_pt), data, paths),
+        "load_captioner_pt": lambda: tapi.load_captioner_pt(str(model_pt), str(vocab)),
         "train_reward_network": lambda: tloops.train_reward_network(data, paths, None, False),
         "train_policy_network": lambda: tloops.train_policy_network(data, paths, None, False),
         "train_value_network": lambda: tloops.train_value_network(data, paths, None, False),
@@ -219,7 +220,7 @@ def _entry_points(tmp_path):
     }
 
 
-@pytest.mark.parametrize("entry", ["load_captioner", "train_reward_network",
+@pytest.mark.parametrize("entry", ["load_captioner", "load_captioner_pt", "train_reward_network",
                                    "train_policy_network", "train_value_network",
                                    "train_a2c_network", "load_network", "gumbel_noise",
                                    "gumbel"])
