@@ -229,6 +229,28 @@ Phases:
      graph replay a chunk; phases 21-23 TensorBoard's runs/ beside
      metrics.jsonl where torch.utils.tensorboard imports, and the
      .trainstate snapshots.
+ 25. kernel 6's tape options, then the visual front end. (a) At COCO width
+     (N = 512, S = 16, bf16 weights, curr_seq_len 1 and 8) the rollout
+     forward and backward with no gate tape (the backward recomputes the
+     gates in blocks of steps), with a bf16 tape, and with both: the
+     forward's outputs bit-equal to the default tape's and its tape the
+     default one rounded, the forward against its plain version (phase
+     13's bound) and the backward against its plain version on the
+     kernel's tape (CHAIN_TOL), the gradients against the default tape's
+     (VARIANT_GRAD_TOL), two calls bit-equal, each variant's launches
+     (counted under its own name), its forward and backward ms (CUDA
+     events) and the peak device memory of one forward and backward beside
+     the default tape's. No trainer passes the options, so these launches
+     are this phase's. (b) A random-weight torchvision-layout VGG16 .pt and
+     a PCA to 512 fitted on the card: FeatureExtractor at batch 64, float32
+     (TF32 off) and bf16, against the same module on the CPU (VGG_F32_REL,
+     VGG_BF16_MEAN_REL) and two calls bit-equal; caption_images (greedy,
+     beam-5) and sample_images on uint8 arrays through the decode kernels
+     (their counters); with PIL, server.main --vgg_weights --pca answering
+     greedy, beam-5 and sampled images_b64 requests equal to
+     Captioner.caption_images / sample_images (without PIL it says so on a
+     line of its own and runs the array routes only); the VGG's ms a batch
+     and images/s, one image request's latency, and the phase's seconds.
 
 The last JSON line but two lists every kernel with its launches on its main
 paths, by path (serving for greedy; serving and the evaluation for the beam
@@ -346,9 +368,10 @@ equal the pure-Python ones to 1e-12 relative (the same float64 arithmetic
 in the same order; the JAX package holds its own native scorers so), on
 the dump's first 4064 lines (all of them would take ~12 s).
 
-The whole run takes about five minutes of command time on the H100, the
-build (about 80-110 s), phase 20 (about 30 s), phases 21 and 22 and phase
-23 (about 70 s, a third of it the CPU's side of its comparisons) included.
+The whole run takes about eight minutes of command time on the H100 (435-528
+s in two calls before phase 25, 462.5 s with it), the build (about 80-110
+s), phase 20 (about 30 s), phases 21-23 (about 130-160 s), phase 24 (about
+50-75 s) and phase 25 (about 15 s) included.
 """
 
 from __future__ import annotations
@@ -3718,6 +3741,320 @@ def chunked_main_path(dev, card: str, bundle: str, cli_run_dirs: dict, tmp: str)
     return total, total_runs
 
 
+# ------------------------------------------------------------------------
+# Phase 25: kernel 6's tape options, then the visual front end
+# ------------------------------------------------------------------------
+
+# each tape option's gradients against the default tape's (relative
+# Frobenius error, bf16 weights; set before the first run): recomputed gates
+# differ from the taped ones by float noise, as the kernels and their plain
+# versions do (CHAIN_TOL); a bf16 tape rounds h, c and the gates once more
+# (2^-9 relative), which the recurrences carry through S - 1 steps
+VARIANT_GRAD_TOL = {"gates_recomputed": 2e-3, "bf16_tape": 1e-2,
+                    "bf16_tape_gates_recomputed": 1e-2}
+
+
+def rollout_peak_mb(case, tape_gates: bool, tape_dtype) -> float:
+    """The peak device memory (MB above what was allocated before) of one
+    fused rollout's forward and backward (``rollout_from_noise``, the reward
+    stream fused in, bf16 weights) on ``rollout_case``'s operands, the tape
+    option given: the tape lives from the forward to the backward."""
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+
+    args, nets, rparams, feats, caps = case
+    params = {net: {k: ({kk: vv.detach().clone().requires_grad_() for kk, vv in v.items()}
+                        if isinstance(v, dict) else v.detach().clone().requires_grad_())
+                    for k, v in tree.items()} for net, tree in nets.items()}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    values, logp, *_ = fr.rollout_from_noise(params, net_cfg(), feats, caps, args[0], args[2],
+                                             torch.bfloat16, rparams, tape_gates=tape_gates,
+                                             tape_dtype=tape_dtype)
+    (values.sum() + logp.sum()).backward()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def rel_frob(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).norm() / max(float(b.norm()), 1e-30))
+
+
+def tape_variants(dev, card: str) -> dict:
+    """Phase 25a: the rollout forward and backward with each tape option
+    (no gate tape, a bf16 tape, both) at COCO width (N = 512, E = H = F =
+    512, V = 1004, S = 16, bf16 weights, curr_seq_len 1 and 8): each against
+    its plain version by phase 13's rule, its forward's outputs bit-equal to
+    the default tape's and its tape the default one rounded, its gradients
+    against the default tape's (VARIANT_GRAD_TOL), two calls bit-equal, its
+    launches, its times (CUDA events) and the peak memory of one fused
+    rollout's forward and backward beside the default tape's. Returns, per
+    variant, the kernels line's numbers."""
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+
+    wd = torch.bfloat16
+    out = {}
+    options = {None: (True, torch.float32)}
+    options.update({name: key for key, name in fr.TAPE_VARIANTS.items()})
+    for curr in (1, 8):
+        args, _, _, feats, _ = rollout_case(dev, wd, curr, SEED + 80 + curr)
+        w = args[-1]
+        gen = torch.Generator().manual_seed(SEED + 90)
+        dval, dlogp = (torch.randn((S, ROLLOUT_N), generator=gen).to(dev) for _ in range(2))
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            ref = fr.rollout_forward_kernel(*args)
+            ref_grads = fr.rollout_backward_kernel(ref[3], feats, w, dval, dlogp)
+            for name, (gates, tdt) in options.items():
+                if name is None:
+                    continue
+                kw = {"tape_gates": gates, "tape_dtype": tdt}
+                before = dict(fr.fused_rollout.variant_launches)
+                k_out = fr.rollout_forward_kernel(*args, **kw)
+                again = fr.rollout_forward_kernel(*args, **kw)
+                got = fr.rollout_backward_kernel(k_out[3], feats, w, dval, dlogp)
+                twice = fr.rollout_backward_kernel(k_out[3], feats, w, dval, dlogp)
+                torch.cuda.synchronize()
+                launches = {d: fr.fused_rollout.variant_launches[f"rollout_{d}_{name}"]
+                            - before[f"rollout_{d}_{name}"] for d in ("fwd", "bwd")}
+                tape = k_out[3]
+                if (tape.gp is None) == gates or tape.hp.dtype != tdt:
+                    raise AssertionError(f"tape {name}: gate tape {tape.gp is not None}, "
+                                         f"type {tape.hp.dtype}")
+                same = all(torch.equal(a, b) for a, b in zip(
+                    (*k_out[:3], tape.act, tape.tok, tape.v1),
+                    (*ref[:3], ref[3].act, ref[3].tok, ref[3].v1)))
+                rounded = all(torch.equal(getattr(tape, k), getattr(ref[3], k).to(tdt))
+                              for k in ("hp", "cp", "hv", "cv")
+                              + (("gp", "gv") if gates else ()))
+                bits = (all(torch.equal(a, b) for a, b in zip((*k_out[:3], *[
+                    x for x in tape if x is not None]), (*again[:3], *[
+                        x for x in again[3] if x is not None])))
+                        and all(torch.equal(a, b) for a, b in zip(got, twice)))
+                if not (same and rounded and bits) or launches != {"fwd": 2, "bwd": 2}:
+                    raise AssertionError(f"tape {name} curr={curr}: outputs as the default "
+                                         f"tape's {same}, tape the default's rounded {rounded}, "
+                                         f"two calls bit-equal {bits}, launches {launches}")
+                p_out = fr.rollout_forward_plain(*args, **kw)
+                agree = ~(tape.act != p_out[3].act).any(dim=0)
+                fwd_err = max(float((a - b)[:, agree].abs().max())
+                              for a, b in zip(k_out[:3], p_out[:3]))
+                if not fwd_err <= ROLLOUT_TOL[wd]:
+                    raise AssertionError(f"tape {name} curr={curr}: forward vs plain {fwd_err}")
+                want = fr.rollout_backward_plain(tape, feats, w, dval, dlogp)
+                rel_plain = {n: rel_frob(a, b) for n, a, b in zip(GRAD_NAMES, got, want)}
+                rel_ref = {n: rel_frob(a, b) for n, a, b in zip(GRAD_NAMES, got, ref_grads)}
+                abs_err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                if not all(bool(torch.isfinite(a).all()) for a in got):
+                    raise AssertionError(f"tape {name}: non-finite gradients")
+                if max(rel_plain.values()) > CHAIN_TOL[wd]:
+                    raise AssertionError(f"tape {name} curr={curr}: relative errors vs plain "
+                                         f"{rel_plain} (bound {CHAIN_TOL[wd]})")
+                if max(rel_ref.values()) > VARIANT_GRAD_TOL[name]:
+                    raise AssertionError(f"tape {name} curr={curr}: relative errors vs the "
+                                         f"default tape {rel_ref} (bound "
+                                         f"{VARIANT_GRAD_TOL[name]})")
+                top_p, top_r = max(rel_plain, key=rel_plain.get), max(rel_ref, key=rel_ref.get)
+                entry = out.setdefault(name, {"fwd_err": 0.0, "bwd_err": 0.0, "launches": 0})
+                entry["fwd_err"] = max(entry["fwd_err"], fwd_err)
+                entry["bwd_err"] = max(entry["bwd_err"], abs_err)
+                entry["launches"] += launches["fwd"]
+                entry["bwd_launches"] = entry.get("bwd_launches", 0) + launches["bwd"]
+                phase("tape", f"{name} curr={curr}: forward outputs equal to the default "
+                              f"tape's, its tape the default's rounded, vs plain max abs "
+                              f"{fwd_err:.3g} on the {int(agree.sum())} rows whose actions agree "
+                              f"(bound {ROLLOUT_TOL[wd]}); two forwards and two "
+                              f"backwards bit-equal; backward vs plain largest relative error "
+                              f"{rel_plain[top_p]:.3g} ({top_p}; bound {CHAIN_TOL[wd]}), max "
+                              f"abs {abs_err:.3g}; vs the default tape {rel_ref[top_r]:.3g} "
+                              f"({top_r}; bound {VARIANT_GRAD_TOL[name]}); launches {launches}")
+        finally:
+            torch.use_deterministic_algorithms(False)
+    # times (CUDA events) and peak memory, curr_seq_len 1
+    case = rollout_case(dev, wd, 1, SEED + 81)
+    args, feats, w = case[0], case[3], case[0][-1]
+    gen = torch.Generator().manual_seed(SEED + 91)
+    dval, dlogp = (torch.randn((S, ROLLOUT_N), generator=gen).to(dev) for _ in range(2))
+    rows = []
+    for name, (gates, tdt) in options.items():
+        kw = {"tape_gates": gates, "tape_dtype": tdt}
+        tape = fr.rollout_forward_kernel(*args, **kw)[3]
+        fwd_ms = cuda_ms(lambda: fr.rollout_forward_kernel(*args, **kw), 10)
+        bwd_ms = cuda_ms(lambda: fr.rollout_backward_kernel(tape, feats, w, dval, dlogp), 10)
+        fwd_plain = cuda_ms(lambda: fr.rollout_forward_plain(*args, **kw), 2)
+        bwd_plain = cuda_ms(lambda: fr.rollout_backward_plain(tape, feats, w, dval, dlogp), 2)
+        peak = rollout_peak_mb(case, gates, tdt)
+        tape_mb = sum(x.numel() * x.element_size() for x in tape if x is not None) / 2 ** 20
+        label = name or "default"
+        rows.append(f"{label}: fwd {fwd_ms:.4f} ms (plain {fwd_plain:.3f}), bwd {bwd_ms:.4f} ms "
+                    f"(plain {bwd_plain:.3f}), tape {tape_mb:.1f} MB, peak of a forward and "
+                    f"backward {peak:.1f} MB")
+        if name is not None:
+            out[name].update(fwd_ms=fwd_ms, bwd_ms=bwd_ms, fwd_plain_ms=fwd_plain,
+                             bwd_plain_ms=bwd_plain, peak_mb=peak, tape_mb=tape_mb)
+        else:
+            out["default"] = {"peak_mb": peak, "tape_mb": tape_mb, "fwd_ms": fwd_ms,
+                              "bwd_ms": bwd_ms}
+    phase("timing", f"{card} | rollout tape options, bf16 weights, N = {ROLLOUT_N}, S = {S}, "
+                    f"recompute blocks of {fr.recompute_block_steps(T)} steps | "
+                    + " | ".join(rows))
+    return out
+
+
+# the visual front end against the same module on the CPU (set before the
+# first run): float32 with TF32 off differs only in the convolutions' sum
+# order (relative Frobenius error); bf16 by the JAX package's own bound (the
+# mean absolute difference over the mean magnitude, tests/test_vgg.py)
+VGG_F32_REL, VGG_BF16_MEAN_REL = 1e-4, 0.1
+VGG_BATCH, VGG_IMAGES, PCA_FIT_IMAGES = 64, 3, 576
+
+
+def visual_front_end(dev, card: str, params: dict, tmp: str) -> dict:
+    """Phase 25b: a random-weight torchvision-layout VGG16 ``.pt`` and a PCA
+    to F = 512 fitted on the card (576 random images); ``FeatureExtractor``
+    at batch 64, float32 (TF32 off) and bf16, against the same module on the
+    CPU (float32) and two calls bit-equal; ``caption_images`` (greedy and
+    beam-5) and ``sample_images`` on uint8 arrays through the decode
+    kernels (their launch counters); with PIL, ``server.main --vgg_weights
+    --pca --device cuda`` answering greedy, beam-5 and sampled
+    ``images_b64`` requests equal to ``Captioner.caption_images`` /
+    ``sample_images`` on the same files, and one image request's latency;
+    the VGG batch times (CUDA events) and images/s."""
+    import base64
+
+    from image_captioning_through_rl_tpu_torch import api, server
+    from image_captioning_through_rl_tpu_torch.data.pca import fit_pca
+    from image_captioning_through_rl_tpu_torch.models import vgg
+    from image_captioning_through_rl_tpu_torch.ops.fused_beam import fused_beam_search
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import fused_greedy_decode
+    from image_captioning_through_rl_tpu_torch.ops.fused_sample import fused_sample_decode
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 25)
+    weights = os.path.join(tmp, "vgg16.pt")
+    torch.save(vgg.init(torch.Generator().manual_seed(SEED + 25)).state_dict(), weights)
+    ext32 = api.load_feature_extractor(weights, device=dev)
+    fit_px = rng.integers(0, 256, (PCA_FIT_IMAGES, 224, 224, 3), dtype=np.uint8)
+    fc7 = torch.from_numpy(ext32(fit_px, batch_size=VGG_BATCH)).to(dev)
+    pca = os.path.join(tmp, "vgg16_fc7_pca.npz")
+    fit_pca(fc7, k=F).save(pca)
+    del fc7
+    # the comparisons read fc7: a random-weight VGG16 maps random images to
+    # nearly equal features, so their PCA coordinates (centred) are ~1e-5 and
+    # any rounding of fc7 shows there magnified ~100 times
+    ext16 = api.load_feature_extractor(weights, bf16=True, device=dev)
+    cpu = api.load_feature_extractor(weights, device="cpu")
+    px = rng.integers(0, 256, (VGG_BATCH, 256, 320, 3), dtype=np.uint8)  # resized on the card
+    want = cpu(px, batch_size=VGG_BATCH)
+    out = {}
+    for label, ext in (("float32", ext32), ("bf16", ext16)):
+        got, again = ext(px, batch_size=VGG_BATCH), ext(px, batch_size=VGG_BATCH)
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        mean_rel = float(np.abs(got - want).mean() / np.abs(want).mean())
+        ok = (got.shape == (VGG_BATCH, vgg.FC7_DIM) and np.isfinite(got).all()
+              and np.array_equal(got, again)
+              and (rel <= VGG_F32_REL if label == "float32" else mean_rel <= VGG_BF16_MEAN_REL))
+        if not ok:
+            raise AssertionError(f"FeatureExtractor {label} on the card vs the CPU: relative "
+                                 f"{rel:.3g}, mean relative {mean_rel:.3g}, two calls equal "
+                                 f"{np.array_equal(got, again)}")
+        batch = torch.from_numpy(px).to(dev)
+        ms = cuda_ms(lambda: vgg.features_fc7(ext.vgg, batch, compute_dtype=ext.compute_dtype),
+                     5)
+        out[label] = {"rel": rel, "mean_rel": mean_rel, "ms": ms,
+                      "images_s": VGG_BATCH / ms * 1e3}
+    del ext16, cpu
+    ext32 = api.load_feature_extractor(weights, pca, device=dev)
+    phase("vision", f"FeatureExtractor at batch {VGG_BATCH} ([{VGG_BATCH}, 256, 320, 3] uint8 "
+                    f"-> fc7 [{VGG_BATCH}, 4096]) vs the CPU float32: float32 (TF32 off) "
+                    f"relative "
+                    f"{out['float32']['rel']:.3g} (bound {VGG_F32_REL}), bf16 mean relative "
+                    f"{out['bf16']['mean_rel']:.3g} (bound {VGG_BF16_MEAN_REL}); two calls "
+                    f"bit-equal each; PCA to {F} fitted on the card from {PCA_FIT_IMAGES} "
+                    f"images")
+    words = ["<NULL>", "<START>", "<END>", "<UNK>"] + [f"w{i}" for i in range(4, V)]
+    cap = api.Captioner(params, net_cfg(), dict(enumerate(words)), device=dev)
+    images = px[:VGG_IMAGES]
+    counters = (fused_greedy_decode, fused_beam_search, fused_sample_decode)
+    before = [fn.launches for fn in counters]
+    greedy = cap.caption_images(images, ext32, batch_size=8)
+    beam = cap.caption_images(images, ext32, batch_size=8, beam_size=BEAM)
+    sampled = cap.sample_images(images, ext32, batch_size=8, temperature=0.8, seed=3)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches - b for fn, b in zip(counters, before)}
+    kernels_ran = dev.type != "cuda" or min(launches.values()) >= 1  # (a CPU rehearsal: plain)
+    if not kernels_ran or not all(len(c) == VGG_IMAGES and c[0].startswith("<START>")
+                                  for c in (greedy, beam, sampled)):
+        raise AssertionError(f"caption_images / sample_images: launches {launches}, "
+                             f"captions {greedy}, {beam}, {sampled}")
+    phase("vision", f"Captioner.caption_images (greedy, beam-{BEAM}) and sample_images on "
+                    f"{VGG_IMAGES} uint8 arrays: decode launches {launches}; e.g. {greedy[0]!r}")
+    try:
+        from PIL import Image
+    except ImportError:
+        print("PIL does not import on this machine: the image server's base64 route and the "
+              "path route are not run (the array routes above are)", flush=True)
+        out["server"] = None
+        out["seconds"] = time.perf_counter() - t_phase
+        return out
+    paths, blobs = [], []
+    for i, im in enumerate(images):
+        paths.append(os.path.join(tmp, f"img_{i}.png"))
+        Image.fromarray(im).save(paths[-1])
+        with open(paths[-1], "rb") as f:
+            blobs.append(base64.b64encode(f.read()).decode("ascii"))
+    model_pt, vocab_json = write_model_files(tmp, params)
+    srv = server.main(["--model", model_pt, "--vocab", vocab_json, "--device", str(dev),
+                       "--port", "0", "--vgg_weights", weights, "--pca", pca,
+                       "--extract_batch", "8", "--warmup_beams", "0", str(BEAM)], block=False)
+    try:
+        url = f"http://{srv.host}:{srv.port}/caption"
+
+        def post(payload: dict) -> list:
+            req = urllib.request.Request(url, data=json.dumps(payload).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return json.loads(r.read())["captions"]
+
+        sample = {"temperature": 0.8, "seed": 5}
+        served = {"greedy": post({"images_b64": blobs}),
+                  "beam": post({"images_b64": blobs, "beam_size": BEAM}),
+                  "sampled": post({"images_b64": blobs, "sample": sample})}
+        scap, sext = srv._cap, srv._extractor
+        expect = {"greedy": scap.caption_images(paths, sext, batch_size=8),
+                  "beam": scap.caption_images(paths, sext, batch_size=8, beam_size=BEAM),
+                  "sampled": scap.sample_images(paths, sext, batch_size=8, **sample)}
+        if served != expect:
+            raise AssertionError(f"served image captions differ from Captioner.caption_images: "
+                                 f"{served} vs {expect}")
+        post({"images_b64": blobs[:1]})  # warm: one image, extraction bucket 8
+        lat = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            post({"images_b64": blobs[:1]})
+            lat.append((time.perf_counter() - t0) * 1e3)
+        with urllib.request.urlopen(f"http://{srv.host}:{srv.port}/stats", timeout=30) as r:
+            stats = json.loads(r.read())
+    finally:
+        srv.stop()
+    if stats["errors"] or stats["images_extracted"] < 3 * VGG_IMAGES:
+        raise AssertionError(f"image server stats {stats}")
+    out["server"] = {"latency_ms": sorted(lat)[len(lat) // 2], "stats": stats}
+    out["seconds"] = time.perf_counter() - t_phase
+    phase("vision", f"server.main --vgg_weights --pca --device cuda: greedy, beam-{BEAM} and "
+                    f"sampled images_b64 requests ({VGG_IMAGES} PNGs) equal to "
+                    f"Captioner.caption_images / sample_images; {stats['images_extracted']} "
+                    f"images extracted, 0 errors; e.g. "
+                    f"{served['beam'][0]!r}")
+    phase("timing", f"{card} | VGG16 fc7 at batch {VGG_BATCH} (256x320 uint8, the resize to "
+                    f"224x224 included): float32 (TF32 off) {out['float32']['ms']:.3f} ms a batch "
+                    f"({out['float32']['images_s']:.0f} images/s), bf16 "
+                    f"{out['bf16']['ms']:.3f} ms ({out['bf16']['images_s']:.0f} images/s) | one "
+                    f"image request (PNG, base64, greedy) {out['server']['latency_ms']:.2f} ms, "
+                    f"the median of 5 | phase 25b {out['seconds']:.1f} s")
+    return out
+
+
 def host_us(fn, iters: int = 200) -> float:
     """Phase 6: the host's microseconds a call of ``fn`` (back-to-back calls
     that queue faster than the card runs them: the host side alone)."""
@@ -3821,17 +4158,24 @@ def bounds() -> dict:
     reward_step = 2 * n * H * g3 + 2 * n * H * H + 4 * n * H
     out["reward_stream"] = work(reward_w + 2 * n * H * fw + 3 * S * n * 4, S * reward_step)
     policy_value_w = 2 * lstm_w + head_w + ((F + H) * H + H) * bw
-    tape = (5 * S * n * H + 2 * (S - 1) * n * g4) * fw
-    out["rollout_fwd"] = work(
-        el * fw + n * F * fw + S * n * 4 + policy_value_w + reward_w + 5 * S * n * 4 + tape,
-        2 * 2 * V * E * g4 + 2 * n * F * H
-        + S * (2 * n * H * V + 2 * n * H * H + 2 * n * H + reward_step)
-        + (S - 1) * 2 * 2 * n * H * g4)
     grads = (2 * (V * E + (E + H) * g4 + g4) + H * V + V + (F + H) * H + 2 * H + 1) * fw
-    out["rollout_bwd"] = work(
-        tape + 4 * S * n * 4 + n * F * fw + policy_value_w + grads + (n * F + 4 * n * H) * fw,
-        3 * 2 * S * n * H * V + 2 * 2 * S * n * (F + H) * H
-        + 2 * (S - 1) * 2 * n * (g4 * H + (E + H) * g4 + g4 * E))
+    # the tape options (phase 25): h and c of both encoders, and their gates
+    # unless recomputed, in the tape's type; v1 float32. Without the gate
+    # tape the backward adds the recompute's products [x; h] @ [wi; wh]
+    for name, gates, tb in ((None, True, fw), ("gates_recomputed", False, fw),
+                            ("bf16_tape", True, bw), ("bf16_tape_gates_recomputed", False, bw)):
+        tape = 4 * S * n * H * tb + S * n * H * fw + (2 * (S - 1) * n * g4 * tb if gates else 0)
+        sfx = f"_{name}" if name else ""
+        out[f"rollout_fwd{sfx}"] = work(
+            el * fw + n * F * fw + S * n * 4 + policy_value_w + reward_w + 5 * S * n * 4 + tape,
+            2 * 2 * V * E * g4 + 2 * n * F * H
+            + S * (2 * n * H * V + 2 * n * H * H + 2 * n * H + reward_step)
+            + (S - 1) * 2 * 2 * n * H * g4)
+        out[f"rollout_bwd{sfx}"] = work(
+            tape + 4 * S * n * 4 + n * F * fw + policy_value_w + grads + (n * F + 4 * n * H) * fw,
+            3 * 2 * S * n * H * V + 2 * 2 * S * n * (F + H) * H
+            + 2 * (S - 1) * 2 * n * (g4 * H + (E + H) * g4 + g4 * E)
+            + (0 if gates else 2 * (S - 1) * 2 * n * (E + H) * g4))
     return out
 
 
@@ -4141,6 +4485,17 @@ def main() -> int:
                                                        cli_runs["dirs"], tmp)
     cli_launches = {k: cli_runs["train"][k] + cli_runs["eval"][k] for k in cli_runs["train"]}
 
+    # phase 25: kernel 6's tape options (no trainer passes them: their
+    # launches are this phase's), then the visual front end (VGG16, PCA, the
+    # raw-image paths of the Captioner and the server) from phase 5's model
+    t25 = time.perf_counter()
+    tape = tape_variants(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        vision = visual_front_end(dev, card, params, tmp)
+    phase("timing", f"{card} | phase 25: {time.perf_counter() - t25:.1f} s (tape options "
+                    f"{time.perf_counter() - t25 - vision['seconds']:.1f} s, visual front end "
+                    f"{vision['seconds']:.1f} s) | the run so far {time.perf_counter() - T0:.1f} s")
+
     bounds_ = bounds()
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, shape, library_ms=None,
@@ -4193,17 +4548,25 @@ def main() -> int:
                              ta[(name, "plain_ms")],
                              f"[{S}, {ROLLOUT_N}, {V}] f32" if name == "threefry_gumbel"
                              else shape))
+    for name, t in tape.items():  # the tape options' forwards and backwards
+        if name == "default":
+            continue
+        for d, source, at in (("fwd", "rollout_fwd.cu", 308), ("bwd", "rollout.cu", 575)):
+            kernels.append(entry(
+                f"rollout_{d}_{name}", source, f"pallas_rollout.py:{at}",
+                {"tape_options": t["launches"] if d == "fwd" else t["bwd_launches"]},
+                t[f"{d}_err"], t[f"{d}_ms"], t[f"{d}_plain_ms"], f"{shape} tape {name}"))
     label = SAMPLE_SHAPES[1]
     kernels.append(entry("sample_decode", "decode.cu", "pallas_sample.py:350",
                          sample_launches["fused_sample_decode"], sample_err, ts[label]["ms"],
                          ts[label]["plain_ms"], "N=1024 T=17 top-k 40 + top-p 0.9 bf16",
                          bound=sample_bound[label]))
     for k in kernels:  # phase 23's launches: the noise kernel's draws, the policy's chain
-        if ref_launches[k["name"]]:
+        if ref_launches.get(k["name"]):
             k.setdefault("launches_by_path", {})["reference_exact"] = ref_launches[k["name"]]
             k["launches"] += ref_launches[k["name"]]
     for k in kernels:  # phase 24's: chunked and per-step trainers, resume, the server
-        if chunk_launches[k["name"]]:
+        if chunk_launches.get(k["name"]):
             k.setdefault("launches_by_path", {})["chunked"] = chunk_launches[k["name"]]
             k["launches"] += chunk_launches[k["name"]]
         if k["name"] in CHAIN_RUNS:  # the traced runs, graph replays included

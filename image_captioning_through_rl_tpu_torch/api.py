@@ -22,9 +22,13 @@ plain version. :func:`evaluate_captions` scores caption pairs
 (:mod:`.metrics`). :func:`load_captioner` takes the JAX package's
 arguments (a ``.ckpt`` or ``.pt`` model, the bundle for the vocabulary, the
 sub-network paths); :func:`load_captioner_pt` builds one from a
-reference-layout ``.pt`` and ``coco2014_vocab.json`` alone. The mesh and
-image paths of the JAX ``Captioner``, and its verified dispatch with
-fresh-key canary retries, are not ported.
+reference-layout ``.pt`` and ``coco2014_vocab.json`` alone. Raw images
+go through the visual front end, :class:`FeatureExtractor` (VGG16 fc7 and an
+optional PCA, :func:`load_feature_extractor`), then the same decodes:
+:meth:`Captioner.caption_images` and :meth:`Captioner.sample_images`. The
+mesh paths of the JAX ``Captioner`` and ``FeatureExtractor`` (ROADMAP §1
+item 8), and the JAX ``Captioner``'s verified dispatch with fresh-key
+canary retries, are not ported.
 """
 
 from __future__ import annotations
@@ -215,6 +219,110 @@ class Captioner:
     def caption(self, features, **kw) -> List[str]:
         """Caption strings for a feature batch."""
         return decode_captions(self.caption_tokens(features, **kw), self._idx_to_word)
+
+    def caption_images(self, images, extractor: "FeatureExtractor", batch_size: int = 64,
+                       **kw) -> List[str]:
+        """Caption raw images end to end: pixels -> VGG16 fc7 (-> PCA) ->
+        :meth:`caption`. ``images``: file paths or an ``[N, H, W, 3]`` uint8
+        array; ``extractor`` the visual front end
+        (:func:`load_feature_extractor`)."""
+        return self.caption(self._extract_checked(images, extractor, batch_size), **kw)
+
+    def sample_images(self, images, extractor: "FeatureExtractor", batch_size: int = 64,
+                      **kw) -> List:
+        """:meth:`sample_captions` from raw images (the sampling twin of
+        :meth:`caption_images`)."""
+        return self.sample_captions(self._extract_checked(images, extractor, batch_size), **kw)
+
+    def _extract_checked(self, images, extractor: "FeatureExtractor", batch_size: int):
+        feats = extractor(images, batch_size=batch_size)
+        if feats.shape[1] != self._cfg.input_dim:
+            raise ValueError(
+                f"extractor produces {feats.shape[1]}-d features but the model was trained on "
+                f"{self._cfg.input_dim}-d input — pass the matching PCA projection (or none, "
+                "for raw fc7 models) to load_feature_extractor")
+        return feats
+
+
+class FeatureExtractor:
+    """The visual front end: VGG16 fc7 features, optionally PCA-reduced to
+    the bundle's compact dimension (the live counterpart of the bundle's
+    ``*_vgg16_fc7[_pca].h5`` tables).
+
+    ``vgg``: a :class:`.models.vgg.VGG16` (moved to ``device``, the card
+    unless the caller asks for ``"cpu"``); ``projection`` a
+    :class:`.data.pca.PCAProjection` or None. ``compute_dtype``
+    (``torch.bfloat16``) runs the stack with weights and activations in that
+    type, the weights cast once, here; float32 (None) runs in float32 on
+    every device (TF32 off). ``images`` of a call: file paths (decoded on
+    the host: the shorter side to 256, a centre crop of 224,
+    :func:`.cli.extract.load_image_batch`) or an ``[N, H, W, 3]`` array.
+    ``mesh`` raises: multi-GPU extraction is ROADMAP §1 item 8."""
+
+    def __init__(self, vgg, projection=None, compute_dtype: torch.dtype | None = None,
+                 mesh=None, device="cuda"):
+        from .models import vgg as vgg_mod
+
+        vgg_mod.refuse_mesh(mesh)
+        self.device = resolve_device(device)
+        vgg = vgg.to(self.device).eval()
+        if compute_dtype is not None:
+            vgg = vgg_mod.cast_params(vgg, compute_dtype)
+        self.vgg = vgg
+        self.projection = projection.to(self.device) if projection is not None else None
+        self.compute_dtype = compute_dtype
+
+    @property
+    def dim(self) -> int:
+        """The output feature dimension (the PCA's components, or fc7's
+        4096)."""
+        from .models.vgg import FC7_DIM
+
+        return self.projection.dim if self.projection is not None else FC7_DIM
+
+    def __call__(self, images, batch_size: int = 64, progress=None) -> np.ndarray:
+        from .models import vgg as vgg_mod
+
+        loader = None
+        if len(images) and isinstance(images[0], str):
+            from .cli.extract import load_image_batch
+
+            loader = load_image_batch
+        return vgg_mod.extract_features(self.vgg, images, batch_size=batch_size,
+                                        projection=self.projection, loader=loader,
+                                        progress=progress, compute_dtype=self.compute_dtype)
+
+
+def load_feature_extractor(weights: str = "", pca: str = "", bf16: bool = False, mesh=None,
+                           device="cuda") -> FeatureExtractor:
+    """A :class:`FeatureExtractor` from files, as the JAX package's: VGG16
+    weights (a torchvision-layout ``.pt`` state dict or a native ``.ckpt``;
+    empty: random weights, with a warning on stderr, for pipeline testing)
+    and an optional fitted PCA projection ``.npz`` (``cli/extract`` writes
+    one). ``bf16`` runs the stack in bfloat16. ``mesh`` raises (ROADMAP §1
+    item 8)."""
+    from .models import vgg as vgg_mod
+    from .models.convert import load_vgg_ckpt, vgg_from_state_dict
+
+    vgg_mod.refuse_mesh(mesh)
+    dev = resolve_device(device)
+    if weights.endswith(".pt"):
+        model = vgg_from_state_dict(load_state_dict(weights), device=dev)
+    elif weights:
+        model = load_vgg_ckpt(weights, device=dev)
+    else:
+        import sys
+
+        print("[FeatureExtractor] WARNING: random VGG16 weights (pipeline testing only)",
+              file=sys.stderr)
+        model = vgg_mod.init(torch.Generator().manual_seed(0)).to(dev)
+    projection = None
+    if pca:
+        from .data.pca import PCAProjection
+
+        projection = PCAProjection.load(pca)
+    return FeatureExtractor(model, projection, compute_dtype=torch.bfloat16 if bf16 else None,
+                            device=dev)
 
 
 def evaluate_captions(real: List[str], generated: List[str]) -> dict:

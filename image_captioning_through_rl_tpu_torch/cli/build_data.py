@@ -8,9 +8,8 @@ COCO annotation JSON -> the captioning bundle (caption half).
 
 Writes ``coco2014_captions.h5``, ``coco2014_vocab.json``,
 ``{split}2014_urls.txt`` and ``{split}2014_images.txt``. The image
-lists feed the JAX package's ``cli.extract`` (``--file_list``; not ported
-yet, ROADMAP §1 item 9) so the VGG16 feature-table rows land in the same
-image order the caption table indexes (reference utilities.py:45-113
+lists feed ``cli.extract`` (``--file_list``) so the VGG16 feature-table
+rows land in the same image order the caption table indexes (reference utilities.py:45-113
 documents the consumed layout).
 """
 
@@ -57,7 +56,7 @@ def main(argv=None) -> None:
     )
     print_green(
         "[BuildData] next: extract features per split, e.g.\n"
-        f"  python -m image_captioning_through_rl_tpu.cli.extract "
+        f"  python -m image_captioning_through_rl_tpu_torch.cli.extract "
         f"--images_dir <train2014/> --split train --out_dir {args.out_dir} "
         f"--file_list {args.out_dir}/train2014_images.txt "
         "--weights vgg16.pt --pca_components 512"

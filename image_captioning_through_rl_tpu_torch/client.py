@@ -7,8 +7,8 @@ of the JAX package's ``client.py`` with its wire formats:
   * ``sample`` switches a request to stochastic decode (the JSON
     ``"sample"`` object, or the ``X-Temperature`` / ``X-Top-K`` / ``X-Top-P``
     / ``X-Num-Samples`` / ``X-Sample-Seed`` headers on the binary path);
-  * raw images ride JSON ``images_b64``; the port's server answers them
-    with 400 until the image path is ported.
+  * raw images ride JSON ``images_b64`` (a server started with
+    ``--vgg_weights`` extracts their features).
 
 >>> client = CaptionClient("http://localhost:8000")
 >>> client.caption(features)                  # [N, F] float array
@@ -87,8 +87,7 @@ class CaptionClient:
     def caption_images(self, images: Sequence, beam_size: int = 0,
                        sample: dict | None = None) -> List:
         """Caption raw image files: paths, open file objects, or bytes
-        (``images_b64``; the port's server answers 400 until its image path
-        is ported). ``sample`` as in :meth:`caption`."""
+        (``images_b64``). ``sample`` as in :meth:`caption`."""
         blobs = []
         for im in images:
             if isinstance(im, (bytes, bytearray)):

@@ -135,6 +135,15 @@ struct ChainBwdArgs {
                         //   kSumDb h16 is an input)
   float* dh;            // [n, H] dh0 on return
   float* dc;            // [n, H] zero on entry, dc0 on return
+  // The A2C rollout's tape options (rollout.cu; read with kSumDb only; zeros
+  // give the default): tape16, cbuf and a gate tape in bf16; pre_gates, gates
+  // holds the float32 pre-activations (bias in) of steps t_lo .. t_hi - 1
+  // only, recomputed for this launch; either way c_new is f c_prev + i g from
+  // the gates, as the TPU kernel's _cell_bwd forms it. This launch takes the
+  // steps [t_lo, t_hi) (t_hi 0: all T): below the last step, its first carry
+  // comes from the dg16 of step t_hi that the launch before wrote, and it
+  // adds its db sums to theirs.
+  int tape16, pre_gates, t_lo, t_hi;
 };
 
 // What the gate gradients of one (step, row, unit) read besides the carry.
@@ -146,11 +155,41 @@ struct CellTape {
 // h16 and the float32 dg (whose column sums are db). true (the A2C rollout's
 // backward, rollout.cu, which has written h16 before): it writes neither and
 // sums db itself.
+__device__ __forceinline__ float ld_early_nc(const __nv_bfloat16* p) {
+  unsigned short v;
+  asm volatile("ld.global.nc.b16 %0, [%1];\n" : "=h"(v) : "l"(p));
+  return __uint_as_float((unsigned)v << 16);
+}
+
 template <typename W, bool kSumDb>
 __device__ __forceinline__ CellTape lstm_cell_tape(const ChainBwdArgs<W>& a, int t, int row,
                                                    int j) {
   const int H = a.H;
   const size_t NH = (size_t)a.n * H, o = (size_t)row * H + j;
+  if constexpr (kSumDb) {
+    if (a.tape16 || a.pre_gates) {
+      const auto* c16 = reinterpret_cast<const __nv_bfloat16*>(a.cbuf);
+      const float c_prev = a.tape16 ? ld_early_nc(c16 + t * NH + o) : ld_early_nc(a.cbuf + t * NH + o);
+      float q[4];
+      if (a.pre_gates) {
+        const float* g = a.gates + ((size_t)(t - a.t_lo) * a.n + row) * 4 * H + j;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) q[k] = ld_early_nc(g + k * H);
+        q[0] = sigmoid(q[0]);
+        q[1] = sigmoid(q[1]);
+        q[2] = tanhf(q[2]);
+        q[3] = sigmoid(q[3]);
+      } else {
+        const auto* g = reinterpret_cast<const __nv_bfloat16*>(a.gates) +
+                        ((size_t)t * a.n + row) * 4 * H + j;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) q[k] = ld_early_nc(g + k * H);
+      }
+      return {q[0], q[1], q[2], q[3], q[1] * c_prev + q[0] * q[2], c_prev,
+              ld_early_nc(a.dhs + (size_t)row * a.dhs_row + (size_t)t * a.dhs_step + j),
+              ld_early(a.dc + o), 0.f};
+    }
+  }
   const float* g = a.gates + ((size_t)t * a.n + row) * 4 * H + j;
   return {ld_early_nc(g),
           ld_early_nc(g + H),
@@ -255,21 +294,26 @@ __device__ __forceinline__ void lstm_bwd_steps(const ChainBwdArgs<W>& a, unsigne
     }
   };
   cooperative_groups::grid_group grid = cooperative_groups::this_grid();
+  // this launch's steps [lo, hi) (kSumDb: a block of them, ChainBwdArgs)
+  const int lo = kSumDb ? a.t_lo : 0, hi = kSumDb && a.t_hi ? a.t_hi : a.T;
   // the last step has no carry
-  for (int s = blockIdx.x; s < slices; s += gridDim.x) {
-    const int j = s * U + u;
-    float db[4] = {};
-    for (int rt = blockIdx.y; rt < tiles; rt += a.row_groups) {
-      CellTape tape[CELLS];
-      float zero[CELLS] = {};
-      load_tape(tape, a.T - 1, rt * CHAIN_BR, min(j, H - 1));
-      lstm_cells_bwd<W, U, CELLS, kSumDb>(a, tape, zero, a.T - 1, rt * CHAIN_BR, j, db);
+  if (hi == a.T) {
+    for (int s = blockIdx.x; s < slices; s += gridDim.x) {
+      const int j = s * U + u;
+      float db[4] = {};
+      for (int rt = blockIdx.y; rt < tiles; rt += a.row_groups) {
+        CellTape tape[CELLS];
+        float zero[CELLS] = {};
+        load_tape(tape, a.T - 1, rt * CHAIN_BR, min(j, H - 1));
+        lstm_cells_bwd<W, U, CELLS, kSumDb>(a, tape, zero, a.T - 1, rt * CHAIN_BR, j, db);
+      }
+      flush_db(db, j, true);
     }
-    flush_db(db, j, true);
   }
   // step t: the carry rnd(dg_t) @ wh^T of this slice's units feeds the gate
-  // gradients of step t - 1; after step 0 it is dh0
-  for (int t = a.T - 1; t >= 0; --t) {
+  // gradients of step t - 1 (while t - 1 is this launch's); after step 0 it
+  // is dh0
+  for (int t = hi == a.T ? a.T - 1 : hi; t > lo || t == 0; --t) {
     grid.sync();
     for (int s = blockIdx.x; s < slices; s += gridDim.x) {
       const int j0 = s * U, j = j0 + u;
@@ -277,13 +321,13 @@ __device__ __forceinline__ void lstm_bwd_steps(const ChainBwdArgs<W>& a, unsigne
       for (int rt = blockIdx.y; rt < tiles; rt += a.row_groups) {
         const int row0 = rt * CHAIN_BR;
         CellTape tape[CELLS];
-        if (t > 0) load_tape(tape, t - 1, row0, min(j, H - 1));  // read after the product
+        if (t > lo) load_tape(tape, t - 1, row0, min(j, H - 1));  // read after the product
         chain_product<Tl>(sm, dga + (size_t)t * n * G, G, row0, n, G, a.wh, H, j0);
         __syncthreads();
         float carry[CELLS];
 #pragma unroll
         for (int i = 0; i < CELLS; ++i) carry[i] = sm.Cs[(tid / U + i * ROWS) * S::CLD + u];
-        if (t > 0) {
+        if (t > lo) {
           lstm_cells_bwd<W, U, CELLS, kSumDb>(a, tape, carry, t - 1, row0, j, db);
         } else if (j < H) {
 #pragma unroll
@@ -294,7 +338,7 @@ __device__ __forceinline__ void lstm_bwd_steps(const ChainBwdArgs<W>& a, unsigne
         }
         __syncthreads();
       }
-      if (t > 0) flush_db(db, j, false);
+      if (t > lo) flush_db(db, j, false);
     }
   }
 }

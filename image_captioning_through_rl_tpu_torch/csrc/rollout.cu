@@ -5,9 +5,10 @@
 // _value_bwd_pallas :603) under the custom VJP of _make_core (fused_rollout).
 // The forward (_rollout_fwd_kernel) is rollout_fwd.cuh: one persistent
 // cooperative launch; its note says what each step computes, where it rounds
-// and what bounds it. It leaves a float32 tape of S steps over n rows (R = S n
-// rows, step-major): h and c entering every step, the post-activation gates
-// of the S - 1 advances, and v1.
+// and what bounds it. It leaves a tape of S steps over n rows (R = S n rows,
+// step-major; float32 unless a tape option says otherwise, below): h and c
+// entering every step, the post-activation gates of the S - 1 advances, and
+// v1.
 //
 // What the backward computes. Only the recurrences are sequential, and the
 // heads' backward needs the tape and the cotangents, not the reverse carry.
@@ -44,7 +45,8 @@
 // padding. The gate tape holds the S - 1 advances only: the chain backward
 // reads no last-step row, so none needs the TPU kernel's defined zeros.
 //
-// bf16 weights (every trainer) run one C call of ten launches, whatever S:
+// bf16 weights (every trainer) run one C call of ten launches, whatever S
+// (the default tape; without the gate tape, steps 6a and 6 once a block):
 //   1. prep (one pass over the [R, H] tape): rnd(h_p) and rnd(h_v) in bf16
 //      (the A operands of the heads' products and of d[wi; wh], whose rows
 //      below (S - 1) n the chain would otherwise write again), rnd(dv1) in
@@ -84,7 +86,35 @@
 //      each chain's dh0.
 // Float32 weights (the tests' path) keep the two heads on the CUDA-core tile
 // product of common.cuh and each chain's own backward in turn
-// (lstm_chain_backward).
+// (lstm_chain_backward), on the default tape only.
+//
+// The TPU kernel's two tape options (bf16 weights):
+//   * a bf16 tape (tape_dtype=bfloat16): h and c (and the gates when taped)
+//     arrive in bf16. The bf16 h tape is rnd(h) already, so it is the heads'
+//     and d[wi; wh]'s A operand itself (no hp16 / hv16 copies); the
+//     recurrence widens c and the gates as it loads them and forms c_new = f
+//     c_prev + i g from them, as _cell_bwd does (the taped c_new would be
+//     rounded once more);
+//   * no gate tape (tape_gates=False): the gates are recomputed off the
+//     serial path. The tape holds every h entering an advance, so the
+//     pre-activations [x; rnd(h)] @ [wi; wh] + b of a block of steps are one
+//     wgmma product (6a: both chains in one launch, the bias in its epilogue,
+//     the A operand the gathered embedding rows and the h tape that step 7
+//     reads too), and the recurrence applies the activations as it loads
+//     them. The TPU kernel recomputes one step at a time inside its reverse
+//     loop, which puts a product on the serial path. The blocks run last
+//     first, RECOMPUTE_BLOCKS of them (ceil((S - 1) / 8) steps each), each a
+//     product and then a launch of the recurrence pair over its steps (its
+//     first carry from the dg16 of the block above, its db sums added to
+//     theirs in the same order as one launch adds them), so the gate memory
+//     is one block's [ceil((S - 1) / 8) n, 4H] float32 per chain, not the
+//     tape's [(S - 1) n, 4H]. The products round their operands as the
+//     forward does (bf16 embedding rows and rnd(h)) and sum in float32 in
+//     another order than the x-gate table plus h @ wh, so the recomputed
+//     gates differ from the taped ones by float noise; the same inputs give
+//     the same bits every call (no atomics, no split-K).
+//   The last step's advance is dead work in the forward, and no block reads
+//   a gate of it: the recurrence covers the S - 1 advances only.
 //
 // What bounds it: at N = 512, COCO width, ~171 GFLOP (0.17 ms on the tensor
 // cores). The products run on wgmma.cuh's 128 x 128 tile, which L2 caps
@@ -189,13 +219,19 @@ __global__ void add_kernel(size_t size, float* __restrict__ a, const float* __re
 }
 
 // What the backward reads and writes (shapes in icrl_rollout_bwd's note).
+// The tape (hp .. gv) is bf16 when tape16, else float32; gp and gv are null
+// without the gate tape (then p_b and v_b are read, for the recompute).
 struct BwdIn {
   int n, S, F, E, H, V, Vp;
   const int *tok, *act;
-  const float *dlogp, *dval, *feats, *hp, *cp, *gp, *hv, *cv, *gv, *v1;
+  const float *dlogp, *dval, *feats;
+  const void *hp, *cp, *gp, *hv, *cv, *gv;
+  int tape16;
+  const float* v1;
   const void *p_emb, *p_w, *hw;
   const float* hb;
   const void *v_emb, *v_w, *w1, *w2;
+  const float *p_b, *v_b;
 };
 
 struct BwdOut {
@@ -230,6 +266,7 @@ int rollout_bwd_f32(const BwdIn& in, const BwdOut& o, const F32Layout& L, cudaSt
   const int n = in.n, S = in.S, F = in.F, E = in.E, H = in.H, G = 4 * H, R = S * n;
   const size_t NH = (size_t)n * H, RH = (size_t)R * H;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
+  const float *hp = f(in.hp), *hv = f(in.hv);
   // the chains' dc enter as zeros; with S = 1 no chain runs
   ICRL_CHECK(cudaMemsetAsync(o.dpc1, 0, sizeof(float) * NH, s));
   ICRL_CHECK(cudaMemsetAsync(o.dvc1, 0, sizeof(float) * NH, s));
@@ -243,17 +280,17 @@ int rollout_bwd_f32(const BwdIn& in, const BwdOut& o, const F32Layout& L, cudaSt
     ICRL_CHECK(cudaMemsetAsync(o.dvb, 0, sizeof(float) * G, s));
   }
   // policy: logits, dlogits, dhw [H, V], dhb, dh_head = dlogits @ hw^T
-  ICRL_CHECK((launch_linear(R, H, in.Vp, in.hp, f(in.hw), in.hb, L.dlogits, s)));
+  ICRL_CHECK((launch_linear(R, H, in.Vp, hp, f(in.hw), in.hb, L.dlogits, s)));
   softmax_grad_rows_kernel<<<R, NT, 0, s>>>(in.V, in.Vp, L.dlogits, in.act, in.dlogp, nullptr);
   ICRL_CHECK(cudaGetLastError());
-  ICRL_CHECK((launch_view<float, true, false>(H, in.V, R, in.hp, H, nullptr, L.dlogits, in.Vp,
+  ICRL_CHECK((launch_view<float, true, false>(H, in.V, R, hp, H, nullptr, L.dlogits, in.Vp,
                                               false, o.dhw, s)));
   ICRL_CHECK(launch_colsum(R, in.Vp, L.dlogits, L.part, o.dhb, s));
   ICRL_CHECK((launch_view<float, false, true>(R, H, in.Vp, L.dlogits, in.Vp, nullptr, f(in.hw),
                                               in.Vp, false, L.dh_head_p, s)));
   if (S > 1)
-    ICRL_CHECK(lstm_chain_backward(n, S - 1, E, H, in.tok, L.dh_head_p + NH, H, (long)NH, in.hp,
-                                   in.cp, in.gp, f(in.p_emb), f(in.p_w), L.dg, o.dph1, o.dpc1,
+    ICRL_CHECK(lstm_chain_backward(n, S - 1, E, H, in.tok, L.dh_head_p + NH, H, (long)NH, hp,
+                                   f(in.cp), f(in.gp), f(in.p_emb), f(in.p_w), L.dg, o.dph1, o.dpc1,
                                    L.part, o.dpw, o.dpb, o.dxp, s));
   add_kernel<<<cdiv(NH, 256), 256, 0, s>>>(NH, o.dph1, L.dh_head_p);
   ICRL_CHECK(cudaGetLastError());
@@ -266,7 +303,7 @@ int rollout_bwd_f32(const BwdIn& in, const BwdOut& o, const F32Layout& L, cudaSt
   ICRL_CHECK(launch_colsum(R, 1, in.dval, L.part, o.db2, s));
   ICRL_CHECK((launch_view<float, true, false>(F, H, R, in.feats, F, L.ridx, L.dv1, H, false,
                                               o.dw1, s)));
-  ICRL_CHECK((launch_view<float, true, false>(H, H, R, in.hv, H, nullptr, L.dv1, H, false,
+  ICRL_CHECK((launch_view<float, true, false>(H, H, R, hv, H, nullptr, L.dv1, H, false,
                                               o.dw1 + (size_t)F * H, s)));
   ICRL_CHECK(launch_colsum(R, H, L.dv1, L.part, o.db1, s));
   ICRL_CHECK((launch_view<float, false, true>(R, F, H, L.dv1, H, nullptr, f(in.w1), H, false,
@@ -277,8 +314,8 @@ int rollout_bwd_f32(const BwdIn& in, const BwdOut& o, const F32Layout& L, cudaSt
   step_sum_kernel<<<cdiv((size_t)n * F, 256), 256, 0, s>>>(n, S, F, L.dfh, o.dfeat);
   ICRL_CHECK(cudaGetLastError());
   if (S > 1)
-    ICRL_CHECK(lstm_chain_backward(n, S - 1, E, H, in.tok, L.dh_head_v + NH, H, (long)NH, in.hv,
-                                   in.cv, in.gv, f(in.v_emb), f(in.v_w), L.dg, o.dvh1, o.dvc1,
+    ICRL_CHECK(lstm_chain_backward(n, S - 1, E, H, in.tok, L.dh_head_v + NH, H, (long)NH, hv,
+                                   f(in.cv), f(in.gv), f(in.v_emb), f(in.v_w), L.dg, o.dvh1, o.dvc1,
                                    L.part, o.dvw, o.dvb, o.dxv, s));
   add_kernel<<<cdiv(NH, 256), 256, 0, s>>>(NH, o.dvh1, L.dh_head_v);
   return (int)cudaGetLastError();
@@ -288,9 +325,13 @@ int rollout_bwd_f32(const BwdIn& in, const BwdOut& o, const F32Layout& L, cudaSt
 
 using Bf = __nv_bfloat16;
 
-// Row parts of the prep pass's column sums (dw2, db1, db2), and the least
-// depth of a split-K part in 64-deep slices.
-constexpr int PREP_PARTS = 32, SPLITK_MIN_SLICES = 4;
+// Row parts of the prep pass's column sums (dw2, db1, db2), the least depth
+// of a split-K part in 64-deep slices, and the blocks of steps whose gates
+// are recomputed at a time without the gate tape.
+constexpr int PREP_PARTS = 32, SPLITK_MIN_SLICES = 4, RECOMPUTE_BLOCKS = 8;
+
+// Steps of a recompute block: the S - 1 advances in RECOMPUTE_BLOCKS blocks.
+inline int recompute_block_steps(int S) { return std::max(1, cdiv(S - 1, RECOMPUTE_BLOCKS)); }
 
 // The plan; ops/fused_rollout.py:rollout_bwd_plan computes the same. Both
 // products of depth K = R = S n (dhw, dw1) are cut into as many parts as
@@ -319,20 +360,23 @@ inline int db_rows(const ChainPlan& p) { return p.row_groups * (CHAIN_THREADS / 
 
 // The bf16 path's scratch.
 struct Bf16Layout {
-  float *logits, *dhw_part, *dw1_part, *dh_head, *dfh, *db_part_p, *db_part_v, *cpart, *ppart;
+  float *logits, *dhw_part, *dw1_part, *dh_head, *dfh, *db_part_p, *db_part_v, *cpart, *ppart,
+      *pre_p, *pre_v;
   Bf *l16, *hp16, *hv16, *f16, *dv16, *px16, *vx16, *dg16_p, *dg16_v;
 };
 
-// db_rows: the recurrence pair's db parts per chain (db_rows(plan)).
+// db_rows: the recurrence pair's db parts per chain (db_rows(plan)). A bf16
+// tape is its own rnd(h) (no hp16, hv16: null); without the gate tape, one
+// recompute block's pre-activations per chain.
 Bf16Layout bf16_layout(float* ws, int n, int S, int F, int E, int H, int Vp, int parts,
-                       int db_rows, size_t* used = nullptr) {
+                       int db_rows, bool tape16, bool gates, size_t* used = nullptr) {
   Carver cv{ws};
   const size_t R = (size_t)S * n, RH = R * H, R1 = (size_t)(S - 1) * n, R1G = R1 * 4 * H;
   Bf16Layout l;
   l.logits = cv.take(R * Vp);
   l.l16 = cv.take<Bf>(R * Vp);
-  l.hp16 = cv.take<Bf>(RH);
-  l.hv16 = cv.take<Bf>(RH);
+  l.hp16 = tape16 ? nullptr : cv.take<Bf>(RH);
+  l.hv16 = tape16 ? nullptr : cv.take<Bf>(RH);
   l.f16 = cv.take<Bf>((size_t)n * F);
   l.dv16 = cv.take<Bf>(RH);
   l.dhw_part = cv.take((size_t)parts * H * Vp);
@@ -347,10 +391,14 @@ Bf16Layout bf16_layout(float* ws, int n, int S, int F, int E, int H, int Vp, int
   l.db_part_v = cv.take((size_t)db_rows * 4 * H);
   l.cpart = cv.take((size_t)COLSUM_PARTS * Vp);
   l.ppart = cv.take((size_t)PREP_PARTS * (2 * H + 1));
+  const size_t pre = gates ? 0 : (size_t)recompute_block_steps(S) * n * 4 * H;
+  l.pre_p = pre ? cv.take(pre) : nullptr;
+  l.pre_v = pre ? cv.take(pre) : nullptr;
   if (used) *used = cv.used;
   return l;
 }
 
+// hp, hv null (a bf16 tape): hp16, hv16 are the tape, not written.
 struct PrepArgs {
   int n, R, R1, F, E, H;
   const float *hp, *hv, *v1, *dval, *feats;
@@ -378,8 +426,10 @@ __global__ void __launch_bounds__(NT) rollout_bwd_prep_kernel(PrepArgs a) {
     const float dv = a.dval[r];
     if (col) {
       const size_t o = (size_t)r * a.H + j;
-      a.hp16[o] = __float2bfloat16_rn(a.hp[o]);
-      a.hv16[o] = __float2bfloat16_rn(a.hv[o]);
+      if (a.hp) {
+        a.hp16[o] = __float2bfloat16_rn(a.hp[o]);
+        a.hv16[o] = __float2bfloat16_rn(a.hv[o]);
+      }
       const float d = rnd<Bf>(dv), x = d * w2;
       a.dv16[o] = __float2bfloat16_rn(x);
       sdb1 += x;
@@ -522,16 +572,21 @@ struct LstmPairLaunch {
   };
 };
 
-int rollout_bwd_bf16(const BwdIn& in, const BwdOut& o, const Bf16Layout& L,
+int rollout_bwd_bf16(const BwdIn& in, const BwdOut& o, Bf16Layout L,
                      const RolloutBwdPlan& plan, cudaStream_t s) {
   const int n = in.n, S = in.S, F = in.F, E = in.E, H = in.H, Vp = in.Vp;
   const int G = 4 * H, FH = F + H, R = S * n, R1 = (S - 1) * n;
   auto b = [](const void* p) { return static_cast<const Bf*>(p); };
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  if (in.tape16) {  // the bf16 tape is rnd(h) already
+    L.hp16 = const_cast<Bf*>(b(in.hp));
+    L.hv16 = const_cast<Bf*>(b(in.hv));
+  }
   // 1. the bf16 operands, dw2 / db1 / db2's parts, dc = 0
   rollout_bwd_prep_kernel<<<dim3(cdiv(H, 32), PREP_PARTS), NT, 0, s>>>(
-      PrepArgs{n, R, R1, F, E, H, in.hp, in.hv, in.v1, in.dval, in.feats, in.tok, b(in.w2),
-               b(in.p_emb), b(in.v_emb), L.hp16, L.hv16, L.f16, L.dv16, L.px16, L.vx16,
-               L.ppart, o.dpc1, o.dvc1});
+      PrepArgs{n, R, R1, F, E, H, in.tape16 ? nullptr : f(in.hp), in.tape16 ? nullptr : f(in.hv),
+               in.v1, in.dval, in.feats, in.tok, b(in.w2), b(in.p_emb), b(in.v_emb), L.hp16,
+               L.hv16, L.f16, L.dv16, L.px16, L.vx16, L.ppart, o.dpc1, o.dvc1});
   ICRL_CHECK(cudaGetLastError());
   // 2. logits = rnd(h_p) @ hw + hb
   ICRL_CHECK((launch_wgmma_group<false, true>(
@@ -561,18 +616,43 @@ int rollout_bwd_bf16(const BwdIn& in, const BwdOut& o, const Bf16Layout& L,
       s)));
   if (S > 1) {
     // 6. both recurrences: upstream dh_head[t + 1] of the policy, the h half
-    // of dfh of the value
+    // of dfh of the value; without the gate tape in blocks of steps, last
+    // first, each after 6a, its gates' recompute
     const size_t NH = (size_t)n * H, NFH = (size_t)n * FH;
-    const ChainPair<Bf> pair{
+    const bool recompute = in.gp == nullptr;
+    ChainPair<Bf> pair{
         {ChainBwdArgs<Bf>{n, S - 1, H, plan.chain.row_groups, L.dh_head + NH, H, (long)NH,
-                          in.hp, in.cp, in.gp, b(in.p_w) + (size_t)E * G, nullptr, L.dg16_p,
-                          L.hp16, o.dph1, o.dpc1},
+                          f(in.hp), f(in.cp), recompute ? L.pre_p : f(in.gp),
+                          b(in.p_w) + (size_t)E * G, nullptr, L.dg16_p, L.hp16, o.dph1, o.dpc1,
+                          in.tape16, recompute, 0, 0},
          ChainBwdArgs<Bf>{n, S - 1, H, plan.chain.row_groups, L.dfh + NFH + F, FH, (long)NFH,
-                          in.hv, in.cv, in.gv, b(in.v_w) + (size_t)E * G, nullptr, L.dg16_v,
-                          L.hv16, o.dvh1, o.dvc1}},
+                          f(in.hv), f(in.cv), recompute ? L.pre_v : f(in.gv),
+                          b(in.v_w) + (size_t)E * G, nullptr, L.dg16_v, L.hv16, o.dvh1, o.dvc1,
+                          in.tape16, recompute, 0, 0}},
         {L.db_part_p, L.db_part_v}};
-    ICRL_CHECK((launch_planned<Bf, true, 4, LstmPairLaunch<Bf>::template At>(plan.chain, pair,
-                                                                               s)));
+    const int block = recompute ? recompute_block_steps(S) : S - 1;
+    for (int hi = S - 1; hi > 0; hi -= block) {
+      const int lo = std::max(0, hi - block);
+      if (recompute) {
+        // 6a. the pre-activations of steps [lo, hi): [x; rnd(h)] @ [wi; wh] + b
+        const int rows = (hi - lo) * n;
+        const size_t x0 = (size_t)lo * n * E, h0 = (size_t)lo * NH;
+        ICRL_CHECK((launch_wgmma_group<false, true>(
+            WgmmaGroup<SplitRows, SplitRows, 2>{
+                {rows, rows}, {G, G}, {E + H, E + H}, {1, 1}, {},
+                {SplitRows{L.px16 + x0, L.hp16 + h0, rows, E + H, E, E, H, 0},
+                 SplitRows{L.vx16 + x0, L.hv16 + h0, rows, E + H, E, E, H, 0}},
+                {dense_rows(b(in.p_w), E + H, G, G), dense_rows(b(in.v_w), E + H, G, G)},
+                {L.pre_p, L.pre_v}, {in.p_b, in.v_b}},
+            s)));
+        for (auto& c : pair.c) {
+          c.t_lo = lo;
+          c.t_hi = hi;
+        }
+      }
+      ICRL_CHECK((launch_planned<Bf, true, 4, LstmPairLaunch<Bf>::template At>(plan.chain, pair,
+                                                                                 s)));
+    }
     // 7. d[wi; wh] = rnd([x; h_prev])^T rnd(dg) of both chains, x the
     // gathered embedding rows
     ICRL_CHECK((launch_wgmma_batch<true>(
@@ -618,20 +698,23 @@ extern "C" {
 
 // Float32 elements of the workspace icrl_rollout_bwd needs. parts: the bf16
 // plan's split-K parts; db_rows: its recurrence pair's rows of db parts per
-// chain, row_groups (256 / units). Unused with float32 weights.
+// chain, row_groups (256 / units) (both unused with float32 weights); tape16,
+// gates: the tape's options, as icrl_rollout_bwd takes them.
 size_t icrl_rollout_bwd_workspace_floats(int n, int S, int F, int E, int H, int Vp, int bf16,
-                                         int parts, int db_rows) {
+                                         int parts, int db_rows, int tape16, int gates) {
   size_t used = 0;
   if (bf16)
-    icrl::bf16_layout(nullptr, n, S, F, E, H, Vp, parts, db_rows, &used);
+    icrl::bf16_layout(nullptr, n, S, F, E, H, Vp, parts, db_rows, tape16, gates, &used);
   else
     icrl::f32_layout(nullptr, n, S, F, H, Vp, &used);
   return used;
 }
 
 // The rollout's backward, S >= 1 steps of n rows. tok, act [S, n] int32;
-// dlogp, dval [S, n]; feats [n, F]; the tape hp, cp, hv, cv, v1 [S n, H], gp,
-// gv [(S - 1) n, 4H]; p_emb, v_emb [V, E], p_w, v_w = [wi; wh] [E + H, 4H], hw
+// dlogp, dval [S, n]; feats [n, F]; the tape hp, cp, hv, cv [S n, H] and gp,
+// gv [(S - 1) n, 4H], bf16 when tape16 != 0, else float32, gp and gv both
+// null without the gate tape (then p_b, v_b [4H] are read); v1 [S n, H]
+// float32 (bf16 weights only take the options); p_emb, v_emb [V, E], p_w, v_w = [wi; wh] [E + H, 4H], hw
 // [H, Vp] (zero columns past V), w1 [F + H, H], w2 [H] in the weight type
 // (bf16 when bf16 != 0, else float32); hb [Vp]. ws: the workspace
 // (icrl_rollout_bwd_workspace_floats). Outputs, float32, all written: dfeat
@@ -646,11 +729,12 @@ size_t icrl_rollout_bwd_workspace_floats(int n, int S, int F, int E, int H, int 
 int icrl_rollout_bwd(int n, int S, int F, int E, int H, int V, int Vp, int bf16, int parts,
                      int rows_per_tile, int units, int stream, int grid_x,
                      int row_groups, int smem, const int* tok, const int* act,
-                     const float* dlogp, const float* dval, const float* feats, const float* hp,
-                     const float* cp, const float* gp, const float* hv, const float* cv,
-                     const float* gv, const float* v1, const void* p_emb, const void* p_w,
-                     const void* hw, const float* hb, const void* v_emb, const void* v_w,
-                     const void* w1, const void* w2, float* ws, float* dfeat, float* dph1,
+                     const float* dlogp, const float* dval, const float* feats, int tape16,
+                     const void* hp, const void* cp, const void* gp, const void* hv,
+                     const void* cv, const void* gv, const float* v1, const void* p_emb,
+                     const void* p_w, const float* p_b, const void* hw, const float* hb,
+                     const void* v_emb, const void* v_w, const float* v_b, const void* w1,
+                     const void* w2, float* ws, float* dfeat, float* dph1,
                      float* dpc1, float* dvh1, float* dvc1, float* dpw, float* dpb, float* dhw,
                      float* dhb, float* dvw, float* dvb, float* dw1, float* db1, float* dw2,
                      float* db2, float* dxp, float* dxv, int device, void* stream_) {
@@ -660,12 +744,15 @@ int icrl_rollout_bwd(int n, int S, int F, int E, int H, int V, int Vp, int bf16,
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const BwdIn in{n,  S,  F,  E,  H,  V,  Vp,  tok,   act, dlogp, dval, feats, hp,
-                 cp, gp, hv, cv, gv, v1, p_emb, p_w, hw,    hb,   v_emb, v_w,  w1, w2};
+  const BwdIn in{n,     S,   F,  E,  H,  V,   Vp, tok,   act, dlogp, dval, feats, hp, cp,
+                 gp,    hv,  cv, gv, tape16, v1, p_emb, p_w, hw,  hb,   v_emb, v_w, w1, w2,
+                 p_b,   v_b};
   const BwdOut o{dfeat, dph1, dpc1, dvh1, dvc1, dpw, dpb, dhw, dhb,
                  dvw,   dvb,  dw1,  db1,  dw2,  db2, dxp, dxv};
   int ret = 0;
-  if (n == 0 || S == 0) {
+  if ((gp == nullptr) != (gv == nullptr) || (!bf16 && (tape16 || gp == nullptr))) {
+    ret = (int)cudaErrorInvalidValue;
+  } else if (n == 0 || S == 0) {
     ret = 0;
   } else if (bf16) {
     const RolloutBwdPlan p = rollout_bwd_plan(n, S, F, H, Vp, device_sms());
@@ -673,8 +760,10 @@ int icrl_rollout_bwd(int n, int S, int F, int E, int H, int V, int Vp, int bf16,
         !plan_matches(p.chain, rows_per_tile, units, stream, grid_x, row_groups, smem))
       ret = (int)cudaErrorInvalidValue;
     else
-      ret = rollout_bwd_bf16(
-          in, o, bf16_layout(ws, n, S, F, E, H, Vp, parts, db_rows(p.chain)), p, s);
+      ret = rollout_bwd_bf16(in, o,
+                             bf16_layout(ws, n, S, F, E, H, Vp, parts, db_rows(p.chain), tape16,
+                                         gp != nullptr),
+                             p, s);
   } else {
     ret = rollout_bwd_f32(in, o, f32_layout(ws, n, S, F, H, Vp), s);
   }

@@ -15,12 +15,19 @@
 //     h_r advances on the token
 //   (h_p, c_p), (h_v, c_v) advance with the token (not on the last step:
 //   nothing reads those states, and the backward's chain ends one step early).
-// The tape is float32: h and c entering every step, the post-activation gates
-// of every advance, and v1 (RolloutTape in ops/fused_rollout.py; the backward,
+// The tape: h and c entering every step, the post-activation gates of every
+// advance, and v1 (RolloutTape in ops/fused_rollout.py; the backward,
 // rollout.cu, reads it). Rounding points are the TPU kernel's: h_p before the
 // head; feats, h_v and v1 in the value MLP; the embedding row (through the
 // x-gate table) and h in each cell; h_r and `after` before their products.
-// Sums, gate math, the softmax and the tape are float32.
+// Sums, gate math, the softmax and the carried states are float32. The TPU
+// kernel's two tape options (pallas_rollout.py _rollout_fwd_kernel) are
+// runtime arguments of the same launch, not more instantiations: tape16
+// stores h, c and the gates in bf16 (round to nearest, where the TPU kernel
+// casts to its tape type; the carried c stays float32 in the scratch cc_p,
+// cc_v, as the TPU kernel keeps it in VMEM), and null gp, gv write no gate
+// tape (tape_gates=False: the backward recomputes the gates from the h tape).
+// v1 stays float32 either way.
 //
 // What bounds it: a step multiplies six weight matrices of depth H by the
 // states entering it, [N, H] @ [H, Vp | H | 4H | 4H | 3H | H] (7664 columns
@@ -186,8 +193,14 @@ struct RolloutFwdArgs {
   float *values, *logp;  // [S, n]
   int *act, *tok;        // [S, n] written; read in the reward-only mode
   float* rewards;        // [S, n]
-  float *hp, *cp, *gp;   // tape: [S n, H] (first n rows: the start state), [(S - 1) n, 4H]
-  float *hv, *cv, *gv;
+  // the start states entering step 0, float32 [n, H]
+  const float *ph0, *pc0, *vh0, *vc0;
+  // tape, float32 or (tape16) bf16: hp, cp, hv, cv [S n, H] (the caller
+  // writes the start states into the first n rows), gp, gv [(S - 1) n, 4H]
+  // or null (no gate tape)
+  void *hp, *cp, *gp;
+  void *hv, *cv, *gv;
+  int tape16;
   float* v1;  // [S n, H]
   // scratch (written and read inside the launch: plain loads, no .nc path)
   float* fw1;              // [n, H] rnd(feats) @ w1[:F]
@@ -197,6 +210,7 @@ struct RolloutFwdArgs {
   float *lpart, *vpart, *spart;  // per (row, slice): 5, 1 and 2 floats
   int lp, hp_stride;       // slices allocated per row: ceil(Vp / 32), ceil(H / 32)
   W *hwp, *hwv, *hwr, *aw;  // [n, H] h_p, h_v, h_r, after in the weight type
+  float *cc_p, *cc_v;      // [n, H] the carried c of both LSTMs
   // null, or [2 + 4 (S + 1)] zeros: a profile of the phases (rollout_steps)
   unsigned long long* clock;
 };
@@ -385,9 +399,9 @@ __device__ void phase_a(const RolloutFwdArgs<W>& a, const Stage& st, const Rollo
       if (sl.m == M_SEM) {
         Cs = st.product(a.aw, H, row0, n, H, src);
       } else if (t == 0) {
-        const float* x = sl.m == M_HEAD || sl.m == M_POLICY ? a.hp
+        const float* x = sl.m == M_HEAD || sl.m == M_POLICY ? a.ph0
                          : sl.m == M_REWARD                 ? a.rew0
-                                                            : a.hv;
+                                                            : a.vh0;
         Cs = st.product(x, H, row0, n, H, src);
       } else {
         const W* x = sl.m == M_HEAD || sl.m == M_POLICY ? a.hwp
@@ -416,9 +430,9 @@ struct GruIn {
   float h[4], gh[3][4], xa[3][4], xt[3][4];
 };
 
-__device__ __forceinline__ void lstm_load(LstmIn& in, int H, size_t NH, int t, int row, int j,
-                                          int tk, const float* xg, const float* pre,
-                                          const float* b, const float* cbuf) {
+__device__ __forceinline__ void lstm_load(LstmIn& in, int H, int t, int row, int j, int tk,
+                                          const float* xg, const float* pre, const float* b,
+                                          const float* c0, const float* cc) {
   const size_t G = 4 * (size_t)H;
   const float* x = xg + (size_t)tk * G + j;
   const float* p = pre + (size_t)row * G + j;
@@ -428,14 +442,23 @@ __device__ __forceinline__ void lstm_load(LstmIn& in, int H, size_t NH, int t, i
     ld4(in.p[g], p + g * H);
     ld4(in.b[g], b + g * H + j);
   }
-  ld4(in.c, cbuf + t * NH + (size_t)row * H + j);
+  ld4(in.c, (t ? cc : c0) + (size_t)row * H + j);
 }
 
-// The LSTM advance (x + h @ wh + b, the TPU kernel's order): h, c, the gate
-// tape and h in the weight type.
+// Four consecutive floats into the tape at element o, float32 or bf16.
+__device__ __forceinline__ void st4_tape(void* tape, size_t o, const float (&v)[4], bool b16) {
+  if (b16)
+    st4(static_cast<__nv_bfloat16*>(tape) + o, v);
+  else
+    st4(static_cast<float*>(tape) + o, v);
+}
+
+// The LSTM advance (x + h @ wh + b, the TPU kernel's order): the carried c,
+// the tape's h, c and (gates not null) gates, and h in the weight type.
 template <typename W>
 __device__ __forceinline__ void lstm_store(const LstmIn& in, int n, int H, int t, int row, int j,
-                                           float* hbuf, float* cbuf, float* gates, W* hw) {
+                                           void* hbuf, void* cbuf, void* gates, bool b16,
+                                           float* cc, W* hw) {
   const size_t NH = (size_t)n * H, o = (size_t)row * H + j;
   float g[4][4], c[4], h[4];
 #pragma unroll
@@ -447,12 +470,15 @@ __device__ __forceinline__ void lstm_store(const LstmIn& in, int n, int H, int t
     c[u] = g[1][u] * in.c[u] + g[0][u] * g[2][u];
     h[u] = g[3][u] * tanhf(c[u]);
   }
-  st4(cbuf + (t + 1) * NH + o, c);
-  st4(hbuf + (t + 1) * NH + o, h);
+  st4(cc + o, c);
+  st4_tape(cbuf, (t + 1) * NH + o, c, b16);
+  st4_tape(hbuf, (t + 1) * NH + o, h, b16);
   st4(hw + o, h);
-  float* gp = gates + ((size_t)t * n + row) * 4 * H + j;
+  if (gates) {
+    const size_t gp = ((size_t)t * n + row) * 4 * H + j;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) st4(gp + q * H, g[q]);
+    for (int q = 0; q < 4; ++q) st4_tape(gates, gp + q * H, g[q], b16);
+  }
 }
 
 // Phase B of step t (t == S: only the last step's reward): this block's
@@ -529,15 +555,15 @@ __device__ void phase_b(const RolloutFwdArgs<W>& a, int* sh, int t) {
       // more: the states advance (not on the last step); adv: the LSTMs too
       const bool more = t + 1 < S, adv = !kOnly && more;
       const int H4 = H / 4, items = rows * H4;
-      const size_t NH = (size_t)n * H, G3 = 3 * (size_t)H;
+      const size_t G3 = 3 * (size_t)H;
       for (int e = tid; e < items; e += CHAIN_THREADS) {
         const int w = e / H4, j = e % H4 * 4, row = r0 + w, at = sh[w], tk = sh[8 + w];
         const size_t o = (size_t)row * H + j;
         LstmIn pin, vin;
         GruIn rin;
         if (adv) {
-          lstm_load(pin, H, NH, t, row, j, tk, a.p_xg, a.pre_p, a.p_b, a.cp);
-          lstm_load(vin, H, NH, t, row, j, tk, a.v_xg, a.pre_v, a.v_b, a.cv);
+          lstm_load(pin, H, t, row, j, tk, a.p_xg, a.pre_p, a.p_b, a.pc0, a.cc_p);
+          lstm_load(vin, H, t, row, j, tk, a.v_xg, a.pre_v, a.v_b, a.vc0, a.cc_v);
         }
         if (reward) {
           ld4(rin.h, (t ? a.hr : a.rew0) + o);
@@ -549,8 +575,8 @@ __device__ void phase_b(const RolloutFwdArgs<W>& a, int* sh, int t) {
           }
         }
         if (adv) {
-          lstm_store(pin, n, H, t, row, j, a.hp, a.cp, a.gp, a.hwp);
-          lstm_store(vin, n, H, t, row, j, a.hv, a.cv, a.gv, a.hwv);
+          lstm_store(pin, n, H, t, row, j, a.hp, a.cp, a.gp, a.tape16, a.cc_p, a.hwp);
+          lstm_store(vin, n, H, t, row, j, a.hv, a.cv, a.gv, a.tape16, a.cc_v, a.hwv);
         }
         if (reward) {  // the lookahead on the action, the advance on the token
           float after[4], hn[4];

@@ -10,8 +10,7 @@ must download a prebuilt archive. This module closes that loop for the
 caption half: given the official ``captions_train2014.json`` /
 ``captions_val2014.json`` annotation files it tokenizes, builds the
 vocabulary, encodes fixed-length token rows and writes the bundle. The
-image half (feature tables) is the JAX package's ``cli.extract`` (not
-ported yet, ROADMAP §1 item 9); the builder emits
+image half (feature tables) is ``cli.extract``; this module emits
 per-split image file lists so ``--file_list`` pins feature-row order to
 the caption table's ``image_idxs``.
 
@@ -209,7 +208,7 @@ def build_bundle(
     ``coco2014_vocab.json``, ``{split}2014_urls.txt`` and
     ``{split}2014_images.txt`` (feature-extraction file lists in
     image-row order, for ``cli.extract --file_list``). Returns a stats
-    dict. Feature tables come from the JAX package's ``cli.extract``; rows
+    dict. Feature tables come from ``cli.extract``; rows
     align because both sides order images by ascending COCO image id.
     """
     tr_toks, tr_rows, tr_files, tr_urls = _parse_split(train_annotations)

@@ -312,29 +312,23 @@ def _tree_levels(n_snods: int) -> List[List[List[int]]]:
         width = len(nodes)
 
 
-def write_h5(path: str, arrays: Mapping[str, np.ndarray]) -> None:
-    """Write ``arrays`` as datasets of the root group of a new HDF5 file at
-    ``path`` (h5py's default layout: superblock 0, a symbol-table root
-    group, contiguous storage), published atomically."""
-    items = []
-    for name, arr in arrays.items():
-        if not isinstance(name, str) or not name or "/" in name or "\0" in name or name == ".":
-            raise ValueError(f"{path}: dataset name {name!r} (a plain name in the root group)")
-        arr = np.asarray(arr)
-        _type_message(arr.dtype)
-        # little-endian, C order; astype keeps a 0-d array's shape
-        items.append((name.encode(), arr.astype(arr.dtype.newbyteorder("<"), order="C",
-                                                copy=False)))
-    items.sort(key=lambda it: it[0])
+def _check_name(path: str, name) -> None:
+    if not isinstance(name, str) or not name or "/" in name or "\0" in name or name == ".":
+        raise ValueError(f"{path}: dataset name {name!r} (a plain name in the root group)")
 
+
+def _layout(specs: List[Tuple[bytes, Tuple[int, ...], np.dtype]]) -> Tuple[bytes, List[int]]:
+    """The file's metadata for datasets ``(name, shape, dtype)`` sorted by
+    name, and each one's data address (UNDEF for an empty one); the data
+    follow the metadata, each 8-aligned, the last ending the file."""
     # the local heap: the empty name at offset 0, then each name, 8-aligned
     heap, name_off = bytearray(8), []
-    for name, _ in items:
+    for name, _, _ in specs:
         name_off.append(len(heap))
         heap += name + b"\0" * (_pad8(len(name) + 1) - len(name))
 
-    snods = [list(range(i, min(i + 2 * LEAF_K, len(items))))
-             for i in range(0, len(items), 2 * LEAF_K)]
+    snods = [list(range(i, min(i + 2 * LEAF_K, len(specs))))
+             for i in range(0, len(specs), 2 * LEAF_K)]
     levels = _tree_levels(len(snods))
     root_header = 96
     addr = root_header + 16 + 24
@@ -346,19 +340,20 @@ def write_h5(path: str, arrays: Mapping[str, np.ndarray]) -> None:
     addr += HEAP_HEADER + len(heap)
     snod_addr = [addr + SNOD_SIZE * i for i in range(len(snods))]
     addr += SNOD_SIZE * len(snods)
-    headers = [_dataset_header(a.shape, a.dtype, 0, 0) for _, a in items]
+    nbytes = [math.prod(shape) * dtype.itemsize for _, shape, dtype in specs]
+    headers = [_dataset_header(shape, dtype, 0, 0) for _, shape, dtype in specs]
     header_addr = []
     for h in headers:
         header_addr.append(addr)
         addr += len(h)
     data_addr = []
-    for _, a in items:
-        if not a.nbytes:
+    for size in nbytes:
+        if not size:
             data_addr.append(UNDEF)
             continue
         addr = _pad8(addr)
         data_addr.append(addr)
-        addr += a.nbytes
+        addr += size
     eof = addr
 
     out = bytearray(SUPERBLOCK_SIZE)
@@ -394,15 +389,87 @@ def write_h5(path: str, arrays: Mapping[str, np.ndarray]) -> None:
         for j, k in enumerate(s):
             struct.pack_into("<QQI", node, 8 + j * ENTRY_SIZE, name_off[k], header_addr[k], 0)
         out += node
-    for (_, a), d in zip(items, data_addr):
-        out += _dataset_header(a.shape, a.dtype, d, a.nbytes)
+    for (_, shape, dtype), d, size in zip(specs, data_addr, nbytes):
+        out += _dataset_header(shape, dtype, d, size)
+    return bytes(out), data_addr
 
+
+
+def _specs(path: str, shapes: Mapping[str, Tuple[Tuple[int, ...], np.dtype]]):
+    specs = []
+    for name, (shape, dtype) in shapes.items():
+        _check_name(path, name)
+        dtype = np.dtype(dtype).newbyteorder("<")
+        _type_message(dtype)
+        specs.append((name.encode(), tuple(int(d) for d in shape), dtype))
+    return sorted(specs, key=lambda it: it[0])
+
+
+def write_h5(path: str, arrays: Mapping[str, np.ndarray]) -> None:
+    """Write ``arrays`` as datasets of the root group of a new HDF5 file at
+    ``path`` (h5py's default layout: superblock 0, a symbol-table root
+    group, contiguous storage), published atomically."""
+    arrays = {name: np.asarray(arr) for name, arr in arrays.items()}
+    specs = _specs(path, {name: (a.shape, a.dtype) for name, a in arrays.items()})
+    meta, data_addr = _layout(specs)
     with atomic_path(path) as tmp, open(tmp, "wb") as f:
-        f.write(out)
-        pos = len(out)
-        for (_, a), d in zip(items, data_addr):
+        f.write(meta)
+        pos = len(meta)
+        for (name, _, dtype), d in zip(specs, data_addr):
             if d == UNDEF:
                 continue
+            # little-endian, C order; astype keeps a 0-d array's shape
+            a = arrays[name.decode()].astype(dtype, order="C", copy=False)
             f.write(b"\0" * (d - pos))
             f.write(memoryview(a.reshape(-1)).cast("B"))
             pos = d + a.nbytes
+
+
+class H5Writer:
+    """A new HDF5 file (:func:`write_h5`'s layout) of datasets of known
+    shape and type, filled block by block along their first axis, so a
+    table need never be held whole (``cli/extract`` writes its feature
+    tables so). ``with H5Writer(path, {"features": ((n, 4096), "f4")}) as
+    w: w.write("features", row0, block)``; rows never written read as
+    zeros. Published atomically on a clean exit; nothing is published if
+    the block raises."""
+
+    def __init__(self, path: str, shapes: Mapping[str, Tuple[Tuple[int, ...], np.dtype]]):
+        self.path = path
+        specs = _specs(path, shapes)
+        meta, data_addr = _layout(specs)
+        self._meta = meta
+        self._eof = max([d + math.prod(s) * t.itemsize for (_, s, t), d in zip(specs, data_addr)
+                         if d != UNDEF] + [len(meta)])
+        self._datasets = {name.decode(): (shape, dtype, d)
+                          for (name, shape, dtype), d in zip(specs, data_addr)}
+        self._stack = None
+        self._file = None
+
+    def __enter__(self) -> "H5Writer":
+        import contextlib
+
+        self._stack = contextlib.ExitStack()
+        tmp = self._stack.enter_context(atomic_path(self.path))
+        self._file = self._stack.enter_context(open(tmp, "wb"))
+        self._file.write(self._meta)
+        self._file.truncate(self._eof)
+        return self
+
+    def write(self, name: str, row0: int, block) -> None:
+        """Rows ``row0 ..`` of dataset ``name`` from ``block`` (cast to the
+        dataset's type)."""
+        shape, dtype, addr = self._datasets[name]
+        block = np.asarray(block).astype(dtype, order="C", copy=False)
+        rows = block.shape[0] if block.ndim else 0
+        if block.shape[1:] != shape[1:] or row0 < 0 or row0 + rows > shape[0]:
+            raise ValueError(f"{self.path}: rows [{row0}, {row0 + rows}) of shape "
+                             f"{block.shape[1:]} do not fit dataset {name!r} of shape {shape}")
+        if not block.size:
+            return
+        self._file.seek(addr + row0 * math.prod(shape[1:]) * dtype.itemsize)
+        self._file.write(memoryview(block.reshape(-1)).cast("B"))
+
+    def __exit__(self, *exc) -> bool:
+        stack, self._stack, self._file = self._stack, None, None
+        return stack.__exit__(*exc)

@@ -1,11 +1,11 @@
 """Networks of the port: policy (actor), value (critic) and the A2C pair.
 
 Each is a set of plain functions over a parameter dict in the JAX
-package's layout, plus the reward network (the learned VSE reward). VGG16
-is not ported yet.
+package's layout, plus the reward network (the learned VSE reward), and
+VGG16, the visual front end (an ``nn.Module`` in torchvision's layout).
 """
 
-from . import a2c, policy, reward, value
+from . import a2c, policy, reward, value, vgg
 from .convert import (
     a2c_from_state_dict,
     a2c_to_state_dict,
@@ -19,6 +19,9 @@ from .convert import (
     reward_to_state_dict,
     value_from_state_dict,
     value_to_state_dict,
+    vgg_from_jax,
+    vgg_from_state_dict,
+    vgg_to_jax,
 )
 
 __all__ = [
@@ -26,6 +29,7 @@ __all__ = [
     "policy",
     "reward",
     "value",
+    "vgg",
     "from_jax_params",
     "load_state_dict",
     "policy_from_state_dict",
@@ -38,4 +42,7 @@ __all__ = [
     "reward_to_state_dict",
     "network_from_state_dict",
     "network_to_state_dict",
+    "vgg_from_state_dict",
+    "vgg_from_jax",
+    "vgg_to_jax",
 ]

@@ -232,3 +232,86 @@ def network_to_state_dict(kind: str, params: Mapping, bidirectional: bool = Fals
     """The port's parameter tree of ``kind`` -> a reference state dict of
     float32 CPU tensors (``torch.save`` writes it as the reference does)."""
     return _converter(_TO, kind)(params, bidirectional)
+
+
+# ---- VGG16 (the visual front end, models/vgg.py) ----
+
+_VGG_FCS = (("fc6", 0), ("fc7", 3))
+
+
+def _vgg_check(sd: Mapping, source: str) -> None:
+    from .vgg import CONV_IDXS
+
+    want = {f"features.{i}.{p}" for i in CONV_IDXS for p in ("weight", "bias")}
+    want |= {f"classifier.{i}.{p}" for _, i in _VGG_FCS for p in ("weight", "bias")}
+    missing = sorted(want - set(sd))
+    if missing:
+        raise ValueError(f"{source}: not a VGG16 state dict (missing {missing[:4]}"
+                         f"{' ...' if len(missing) > 4 else ''})")
+
+
+def vgg_from_state_dict(sd: Mapping, device=None):
+    """A torchvision-layout VGG16 state dict (``features.{i}.*`` OIHW for
+    the 13 convolutions, ``classifier.{0,3}.*`` for fc6 and fc7) -> a
+    :class:`.vgg.VGG16` in float32 on ``device``; fc8 (``classifier.6``)
+    and any other key are dropped, as the JAX ``vgg_from_torch`` drops
+    them."""
+    from .vgg import VGG16
+
+    _vgg_check(sd, "vgg_from_state_dict")
+    model = VGG16(device=device)
+    keep = set(model.state_dict())
+    model.load_state_dict({k: _t(v) for k, v in sd.items() if k in keep}, strict=True)
+    return model
+
+
+def vgg_from_jax(tree: Mapping, device=None):
+    """The JAX VGG16 tree (``conv{k}: {w HWIO, b}``, ``fc6``/``fc7: {w [in,
+    out], b}``; :func:`from_jax_params` of its numpy leaves, or a ``.ckpt``'s
+    tree) -> a :class:`.vgg.VGG16`: convolutions HWIO -> OIHW, linear
+    weights transposed. fc6 reads the NCHW flatten in both packages, so its
+    rows keep their order."""
+    from .vgg import CONV_IDXS
+
+    sd = {}
+    for k, i in enumerate(CONV_IDXS):
+        sd[f"features.{i}.weight"] = _t(tree[f"conv{k}"]["w"]).permute(3, 2, 0, 1).contiguous()
+        sd[f"features.{i}.bias"] = _t(tree[f"conv{k}"]["b"])
+    for name, i in _VGG_FCS:
+        sd[f"classifier.{i}.weight"] = _t(tree[name]["w"]).T.contiguous()
+        sd[f"classifier.{i}.bias"] = _t(tree[name]["b"])
+    return vgg_from_state_dict(sd, device)
+
+
+def vgg_to_jax(model) -> dict:
+    """A :class:`.vgg.VGG16` -> the JAX VGG16 tree (float32 CPU tensors):
+    the inverse of :func:`vgg_from_jax`, as a ``.ckpt`` stores it."""
+    from .vgg import CONV_IDXS
+
+    sd = model.state_dict()
+    tree = {f"conv{k}": {"w": _host(sd[f"features.{i}.weight"]).permute(2, 3, 1, 0).contiguous(),
+                         "b": _host(sd[f"features.{i}.bias"])}
+            for k, i in enumerate(CONV_IDXS)}
+    for name, i in _VGG_FCS:
+        tree[name] = {"w": _host(sd[f"classifier.{i}.weight"]).T.contiguous(),
+                      "b": _host(sd[f"classifier.{i}.bias"])}
+    return tree
+
+
+def save_vgg_ckpt(model, path: str) -> None:
+    """A VGG16 as a native ``.ckpt``: the bytes the JAX package's
+    ``save_pytree`` writes for the same weights."""
+    from ..train.checkpoint import save_pytree
+
+    save_pytree(vgg_to_jax(model), path)
+
+
+def load_vgg_ckpt(path: str, device=None):
+    """A native VGG16 ``.ckpt`` (the JAX package's ``save_pytree`` or
+    :func:`save_vgg_ckpt`) -> a :class:`.vgg.VGG16` on ``device``."""
+    from ..train.checkpoint import load_pytree
+
+    tree = load_pytree(path)
+    if not all(f"conv{k}" in tree for k in range(13)) or "fc6" not in tree or "fc7" not in tree:
+        raise ValueError(f"{path}: not a VGG16 checkpoint (keys {sorted(tree)[:6]} ...)")
+    return vgg_from_jax(tree, device)

@@ -1,0 +1,232 @@
+"""VGG16, the visual front end: raw images -> fc7 features (counterpart of
+the JAX ``models/vgg.py``).
+
+Configuration D of Simonyan & Zisserman (2014): 3x3 convolutions in blocks
+of 64-64 / 128-128 / 256x3 / 512x3 / 512x3 channels, each block closed by a
+2x2 max-pool, then fc6 (4096) and fc7 (4096); no fc8 (only features are
+extracted). :class:`VGG16` is an ``nn.Module`` in NCHW whose state-dict keys
+are torchvision's (``features.{i}.*`` for the 13 convolutions at their
+``nn.Sequential`` indices, ``classifier.{0,3}.*`` for fc6 and fc7), so a
+torchvision-layout ``.pt`` loads as it is (:func:`.convert.vgg_from_state_dict`).
+The JAX package works in NHWC; its fc6 reads the NCHW flatten, which is this
+module's own, so its weights carry over unpermuted (:func:`.convert.vgg_from_jax`).
+
+There is no hand-written kernel here: the JAX package runs the stack in XLA,
+and the port runs it through ``torch.nn.functional.conv2d`` (cuDNN on the
+card), ``max_pool2d`` and ``linear``. A float32 stack on the card turns
+TF32 off first (cuDNN's convolutions use TF32 by default, which keeps about
+three decimal digits), so float32 is float32 on every device.
+"""
+
+from __future__ import annotations
+
+import sys
+from typing import Iterable, List
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from .initializers import linear_init
+
+# channels per convolution; "M" a 2x2 max-pool (configuration D)
+CFG: List = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
+             512, 512, 512, "M", 512, 512, 512, "M"]
+# the nn.Sequential indices of the 13 convolutions (torchvision's)
+CONV_IDXS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+FC7_DIM, IMAGE_SIZE = 4096, 224
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+
+# batches the extraction keeps on the device before reading them back, so
+# the host's decode of the next batch overlaps the card's stack
+PIPELINE_DEPTH = 4
+
+
+class VGG16(nn.Module):
+    """The stack up to fc7 (post-ReLU), in NCHW, on ``device``, without
+    gradients. Its weights are uninitialised until :meth:`init` or a state
+    dict fills them."""
+
+    def __init__(self, device=None):
+        super().__init__()
+        layers, in_ch = [], 3
+        # built on the meta device, then given uninitialised storage: torch's
+        # default initialisation of 138M weights would only be overwritten
+        for c in CFG:
+            if c == "M":
+                layers.append(nn.MaxPool2d(2, 2))
+            else:
+                layers += [nn.Conv2d(in_ch, c, 3, padding=1, device="meta"),
+                           nn.ReLU(inplace=True)]
+                in_ch = c
+        self.features = nn.Sequential(*layers)
+        # torchvision's indices: fc6 at 0, fc7 at 3 (its dropout at 2 is the
+        # identity at inference)
+        self.classifier = nn.Sequential(
+            nn.Linear(512 * 7 * 7, FC7_DIM, device="meta"), nn.ReLU(inplace=True), nn.Identity(),
+            nn.Linear(FC7_DIM, FC7_DIM, device="meta"), nn.ReLU(inplace=True))
+        self.to_empty(device=device if device is not None else "cpu")
+        self.requires_grad_(False)  # a feature extractor: nothing here trains
+
+    @torch.no_grad()
+    def init(self, gen: torch.Generator) -> "VGG16":
+        """Kaiming-uniform weights from ``gen``, as the JAX ``vgg.init``
+        draws them (U(-1/sqrt(fan_in), +1/sqrt(fan_in)) for every weight and
+        bias; a convolution's fan-in is 9 in-channels); the draws are torch's,
+        not JAX's."""
+        for i in CONV_IDXS:
+            conv = self.features[i]
+            c_out, c_in = conv.weight.shape[:2]
+            lin = linear_init(gen, 9 * c_in, c_out)
+            # [9 in, out] as JAX's HWIO, then OIHW
+            conv.weight.copy_(lin["w"].reshape(3, 3, c_in, c_out).permute(3, 2, 0, 1))
+            conv.bias.copy_(lin["b"])
+        for i in (0, 3):
+            fc = self.classifier[i]
+            lin = linear_init(gen, fc.in_features, fc.out_features)
+            fc.weight.copy_(lin["w"].t())
+            fc.bias.copy_(lin["b"])
+        return self
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Preprocessed images ``[N, 3, 224, 224]`` -> fc7 ``[N, 4096]`` in
+        the module's type."""
+        with torch.no_grad():
+            _no_tf32(x)
+            x = self.features(x)
+            return self.classifier(torch.flatten(x, 1))
+
+
+def init(gen: torch.Generator, device=None) -> VGG16:
+    """A :class:`VGG16` with weights drawn from ``gen`` (:meth:`VGG16.init`)."""
+    return VGG16(device=device).init(gen)
+
+
+def _no_tf32(x: torch.Tensor) -> None:
+    """On a CUDA tensor, float32 convolutions and products in float32: cuDNN
+    and cuBLAS otherwise take TF32 for them."""
+    if x.is_cuda:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def cast_params(model: VGG16, dtype: torch.dtype) -> VGG16:
+    """The model's weights in ``dtype`` (for example ``torch.bfloat16``),
+    cast once, not per batch."""
+    return model.to(dtype)
+
+
+def preprocess(images, size: int = IMAGE_SIZE, device=None) -> torch.Tensor:
+    """RGB ``[N, H, W, 3]`` (uint8, divided by 255, or float) -> normalised
+    ``[N, 3, size, size]`` float32 on ``device`` (the images' own for a
+    tensor, else the CPU): a bilinear resize that antialiases when it
+    shrinks (``jax.image.resize(..., "bilinear")``'s), skipped where the
+    images are ``size`` already, then ImageNet's mean and std."""
+    if not isinstance(images, torch.Tensor):
+        images = torch.from_numpy(np.ascontiguousarray(images))
+    if device is not None:
+        images = images.to(device)
+    x = images.to(torch.float32)
+    if images.dtype == torch.uint8:
+        x = x / 255.0
+    x = x.permute(0, 3, 1, 2)
+    if x.shape[2:] != (size, size):
+        x = F.interpolate(x, size=(size, size), mode="bilinear", align_corners=False,
+                          antialias=True)
+    mean = torch.tensor(IMAGENET_MEAN, dtype=x.dtype, device=x.device)[:, None, None]
+    std = torch.tensor(IMAGENET_STD, dtype=x.dtype, device=x.device)[:, None, None]
+    return ((x - mean) / std).contiguous()
+
+
+def features_fc7(model: VGG16, images, preprocessed: bool = False,
+                 compute_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """fc7 features ``[N, 4096]`` float32 from raw images ``[N, H, W, 3]``
+    or preprocessed ``[N, 3, 224, 224]``, on the model's device.
+    ``compute_dtype`` (``torch.bfloat16``) runs the stack with activations
+    in that type; the model must be cast to match (:func:`cast_params`)."""
+    dev = next(model.parameters()).device
+    x = images.to(dev) if preprocessed else preprocess(images, device=dev)
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+    return model(x).to(torch.float32)
+
+
+def refuse_mesh(mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError("feature extraction over a mesh (mesh=...) is multi-GPU "
+                                  "extraction, not ported yet (ROADMAP §1 item 8)")
+
+
+def iter_features(model: VGG16, images, batch_size: int = 64, projection=None, loader=None,
+                  progress=None, compute_dtype: torch.dtype | None = None, mesh=None):
+    """Feature blocks (numpy float32, one a batch, in input order), without
+    holding the whole table: ``images`` is ``[N, H, W, 3]`` or, with
+    ``loader``, any sequence whose slices ``loader`` turns into such an
+    array (file paths: :func:`..cli.extract.load_image_batch`). The last
+    batch is padded to ``batch_size`` by repeating its last item (one batch
+    shape, as the JAX package compiles one program), the padding cut off
+    the block. ``projection`` (:class:`..data.pca.PCAProjection`) maps fc7
+    on the device; ``progress`` optionally wraps the batch starts (any
+    iterable wrapper, for example a progress bar). Up to
+    :data:`PIPELINE_DEPTH` batches stay on the device before they are read
+    back, so the host decodes the next batch while the card computes.
+    ``mesh`` raises: multi-GPU extraction is ROADMAP §1 item 8."""
+    refuse_mesh(mesh)
+    n = images.shape[0] if hasattr(images, "shape") else len(images)
+    if n == 0:
+        return iter(())
+    dev = next(model.parameters()).device
+
+    def blocks():
+        pending = []
+        starts: Iterable[int] = range(0, n, batch_size)
+        if progress is not None:
+            starts = progress(starts)
+        for i in starts:
+            chunk = images[i:i + batch_size]
+            batch = np.asarray(chunk if loader is None else loader(chunk))
+            real = batch.shape[0]
+            if real < batch_size:
+                batch = np.concatenate([batch, np.repeat(batch[-1:], batch_size - real, axis=0)])
+            feats = features_fc7(model, torch.from_numpy(batch).to(dev, non_blocking=True),
+                                 compute_dtype=compute_dtype)
+            if projection is not None:
+                feats = projection.apply(feats)
+            pending.append((feats, real))
+            if len(pending) > PIPELINE_DEPTH:
+                f, r = pending.pop(0)
+                yield f[:r].cpu().numpy()
+        for f, r in pending:
+            yield f[:r].cpu().numpy()
+
+    return blocks()
+
+
+def extract_features(model: VGG16, images, batch_size: int = 64, projection=None, loader=None,
+                     progress=None, compute_dtype: torch.dtype | None = None,
+                     mesh=None) -> np.ndarray:
+    """:func:`iter_features` as one ``[N, dim]`` float32 array (``dim`` the
+    projection's components, else 4096; an empty input gives ``[0, dim]``)."""
+    blocks = list(iter_features(model, images, batch_size=batch_size, projection=projection,
+                                loader=loader, progress=progress, compute_dtype=compute_dtype,
+                                mesh=mesh))
+    if not blocks:
+        dim = projection.dim if projection is not None else FC7_DIM
+        return np.zeros((0, dim), np.float32)
+    return np.concatenate(blocks, axis=0)
+
+
+def print_progress(desc: str):
+    """A ``progress`` wrapper for :func:`iter_features` that prints one line
+    per batch to stderr (the card's machine has no progress-bar package)."""
+
+    def wrap(starts):
+        starts = list(starts)
+        for k, i in enumerate(starts):
+            yield i
+            print(f"{desc}: batch {k + 1}/{len(starts)}", file=sys.stderr, flush=True)
+
+    return wrap

@@ -213,18 +213,23 @@ class _LstmChainPlain(torch.autograd.Function):
 def lstm_chain_backward_plain(dhs: torch.Tensor, tok_sm: torch.Tensor, xs: torch.Tensor,
                               h0: torch.Tensor, c0: torch.Tensor, hs: torch.Tensor,
                               cs: torch.Tensor, gs: torch.Tensor, wi_w: torch.Tensor,
-                              wh_w: torch.Tensor, vocab: int, embedding_grad_needed: bool = True):
+                              wh_w: torch.Tensor, vocab: int, embedding_grad_needed: bool = True,
+                              c_prev: torch.Tensor | None = None):
     """The chain's backward in eager torch (the plain twin of
     ``lstm_bwd`` in ``csrc/lstm_chain.cuh``), from step-major ``dhs [T, N,
     H]``, the tokens ``tok_sm [T, N]``, their embedding rows ``xs [T, N, E]``
     (f32 values of the weight type), ``(h0, c0)``, the taped ``hs``, ``cs``
     ``[T, N, H]`` and post-activation gates ``gs [T, N, 4H]``, and ``wi``,
     ``wh`` in the weight type -> ``(dwi, dwh, db, demb or None, dh0, dc0)``.
-    Shared with the A2C rollout's plain backward (:mod:`.fused_rollout`)."""
+    Shared with the A2C rollout's plain backward (:mod:`.fused_rollout`),
+    which may give the c entering each step as ``c_prev [T, N, H]`` (then
+    ``cs`` is each step's c_new as its backward forms it, not the next
+    step's c_prev)."""
     wd = wi_w.dtype
     steps, n, hidden = hs.shape
     h_prev = torch.cat([h0[None].to(torch.float32), hs[:-1]])
-    c_prev = torch.cat([c0[None].to(torch.float32), cs[:-1]])
+    if c_prev is None:
+        c_prev = torch.cat([c0[None].to(torch.float32), cs[:-1]])
     dh = torch.zeros_like(h_prev[0])
     dc = torch.zeros_like(dh)
     dgs = [None] * steps

@@ -43,8 +43,17 @@ selects the plain versions. No path catches a kernel error and falls back.
 Networks whose widths the kernels cannot stage are padded (:mod:`.padding`)
 on their way into the kernels, differentiably, so the gradients reach the
 unpadded parameters.
-``fused_rollout.fwd_launches`` / ``.bwd_launches`` and
-``fused_reward_stream.launches`` count kernel launches.
+The TPU kernel's two tape options (``pallas_rollout.py:94-97, 207-230,
+678-694``) are arguments of :func:`fused_rollout`: ``tape_gates=False``
+writes no gate tape (the backward recomputes the gates from the h tape),
+``tape_dtype=torch.bfloat16`` stores h, c and the gates in bf16 (read back
+as float32; the carried states stay float32). On the card the options take
+bf16 weights.
+
+``fused_rollout.fwd_launches`` / ``.bwd_launches`` (the default tape),
+``fused_rollout.variant_launches`` (each option's forward and backward, by
+the names of :data:`TAPE_VARIANTS`) and ``fused_reward_stream.launches``
+count kernel launches.
 """
 
 from __future__ import annotations
@@ -338,42 +347,69 @@ class RolloutTape(NamedTuple):
     """What the backward reads, step-major (row ``s N + r`` is sample r at
     step s): ``hp``, ``cp``, ``hv``, ``cv`` ``[S N, H]`` the states entering
     each step (the first N rows are the start states), ``gp``, ``gv``
-    ``[(S - 1) N, 4H]`` the post-activation gates of each advance, ``v1``
-    ``[S N, H]`` linear1's output, ``act`` and ``tok`` ``[S, N]`` int32 the
-    actions and the placed tokens."""
+    ``[(S - 1) N, 4H]`` the post-activation gates of each advance (``None``
+    with ``tape_gates=False``), all in the tape type (float32 or bf16),
+    ``v1`` ``[S N, H]`` linear1's output (float32), ``act`` and ``tok`` ``[S,
+    N]`` int32 the actions and the placed tokens."""
 
     hp: torch.Tensor
     cp: torch.Tensor
-    gp: torch.Tensor
+    gp: torch.Tensor | None
     hv: torch.Tensor
     cv: torch.Tensor
-    gv: torch.Tensor
+    gv: torch.Tensor | None
     v1: torch.Tensor
     act: torch.Tensor
     tok: torch.Tensor
 
 
-def _cell_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
-                c: torch.Tensor):
-    """An LSTM advance on the embedding row ``x`` (f32 values of the working
-    type) and f32 ``h``, ``c``: gates ``x @ wi + rnd(h) @ wh + b`` ->
-    ``(h', c', post-activation gates)``."""
+# The tape options that are not the default, (tape_gates, tape_dtype), and
+# the names their kernel launches are counted under (rollout_fwd_<name>,
+# rollout_bwd_<name> in fused_rollout.variant_launches).
+TAPE_VARIANTS = {(False, torch.float32): "gates_recomputed",
+                 (True, torch.bfloat16): "bf16_tape",
+                 (False, torch.bfloat16): "bf16_tape_gates_recomputed"}
+
+
+def tape_variant(tape_gates: bool, tape_dtype: torch.dtype) -> str | None:
+    """The name of a tape option (:data:`TAPE_VARIANTS`), None for the
+    default float32 tape with gates; other tape types raise."""
+    if tape_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"tape_dtype must be float32 or bfloat16, got {tape_dtype}")
+    return TAPE_VARIANTS.get((bool(tape_gates), tape_dtype))
+
+
+def _gates_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, h: torch.Tensor):
+    """The post-activation gates ``x @ wi + rnd(h) @ wh + b`` of an LSTM
+    advance on the embedding row ``x`` (f32 values of the working type) and
+    f32 ``h`` -> ``(i, f, g, o)``."""
     e = x.shape[-1]
     gates = wmatmul(x, w[:e]) + wmatmul(round_to(h, w.dtype), w[e:]) + b
     i, f, g, o = torch.chunk(gates, 4, dim=-1)
-    i, f, g, o = torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+    return torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g), torch.sigmoid(o)
+
+
+def _cell_plain(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, h: torch.Tensor,
+                c: torch.Tensor):
+    """An LSTM advance (:func:`_gates_plain`) from f32 ``h``, ``c`` ->
+    ``(h', c', post-activation gates)``."""
+    i, f, g, o = _gates_plain(w, b, x, h)
     c_new = f * c + i * g
     return o * torch.tanh(c_new), c_new, torch.cat([i, f, g, o], dim=-1)
 
 
 def rollout_forward_plain(curr: int, teach_sm: torch.Tensor, noise: torch.Tensor,
                           reward: RewardWeights | None, feats: torch.Tensor, ph1, pc1, vh1, vc1,
-                          w: RolloutWeights, margins: bool = False):
+                          w: RolloutWeights, margins: bool = False, *, tape_gates: bool = True,
+                          tape_dtype: torch.dtype = torch.float32):
     """The rollout kernel's forward in eager torch (no autograd) ->
     ``(values [S, N], log_probs [S, N], rewards [S, N] or None, tape)``, and
     with ``margins=True`` also the gap between the two largest noisy logits
     of every step, ``[S, N]`` (how close each sampled action came to a tie,
-    which a comparison with the kernel needs)."""
+    which a comparison with the kernel needs). The tape is stored in
+    ``tape_dtype`` (rounded where the TPU kernel casts it); without
+    ``tape_gates`` it holds no gates."""
+    tape_variant(tape_gates, tape_dtype)
     wd = w.dtype
     steps, n = teach_sm.shape
     f = feats.shape[1]
@@ -387,7 +423,7 @@ def rollout_forward_plain(curr: int, teach_sm: torch.Tensor, noise: torch.Tensor
                            "logp", "reward", "gap")}
     for s in range(steps):
         for k, x in (("hp", h_p), ("cp", c_p), ("hv", h_v), ("cv", c_v)):
-            out[k].append(x)
+            out[k].append(x.to(tape_dtype))
         logits = wmatmul(round_to(h_p, wd), hw) + hb
         noisy = logits + noise[s]
         action = torch.argmax(noisy, dim=-1)  # first maximal index on ties
@@ -408,29 +444,37 @@ def rollout_forward_plain(curr: int, teach_sm: torch.Tensor, noise: torch.Tensor
             out["reward"].append(rew)
         if s + 1 < steps:
             h_p, c_p, g = _cell_plain(w.p_w, w.p_b, p_emb[token], h_p, c_p)
-            out["gp"].append(g)
+            out["gp"].append(g.to(tape_dtype))
             h_v, c_v, g = _cell_plain(w.v_w, w.v_b, v_emb[token], h_v, c_v)
-            out["gv"].append(g)
+            out["gv"].append(g.to(tape_dtype))
 
-    def rows(k, width):
+    def rows(k, width, dtype=tape_dtype):
         return (torch.cat(out[k]) if out[k] else
-                torch.empty((0, width), dtype=_F32, device=feats.device))
+                torch.empty((0, width), dtype=dtype, device=feats.device))
 
     hidden = w.p_b.shape[0] // 4
     tape = RolloutTape(
-        hp=rows("hp", hidden), cp=rows("cp", hidden), gp=rows("gp", 4 * hidden),
-        hv=rows("hv", hidden), cv=rows("cv", hidden), gv=rows("gv", 4 * hidden),
-        v1=rows("v1", hidden), act=torch.stack(out["act"]).to(torch.int32),
+        hp=rows("hp", hidden), cp=rows("cp", hidden),
+        gp=rows("gp", 4 * hidden) if tape_gates else None,
+        hv=rows("hv", hidden), cv=rows("cv", hidden),
+        gv=rows("gv", 4 * hidden) if tape_gates else None,
+        v1=rows("v1", hidden, _F32), act=torch.stack(out["act"]).to(torch.int32),
         tok=torch.stack(out["tok"]).to(torch.int32))
     rewards = torch.stack(out["reward"]) if reward is not None else None
     result = (torch.stack(out["value"]), torch.stack(out["logp"]), rewards, tape)
     return result + (torch.stack(out["gap"]),) if margins else result
 
 
-def _chain_grads_plain(tape_h, tape_c, gates, tok, emb, w_cat, dh_head, n, need_emb):
+def _chain_grads_plain(tape_h, tape_c, gates, tok, emb, w_cat, bias, dh_head, n, need_emb,
+                       c_new_from_gates):
     """One encoder's backward through the shared chain backward: the S - 1
     advances from the start state, upstream dh_head of the next step's head;
-    the start state's cotangent adds the first head's."""
+    the start state's cotangent adds the first head's. ``tape_h``,
+    ``tape_c`` are float32 values of the tape; ``gates`` the gate tape, or
+    None: recomputed from the h tape and ``bias`` as the forward formed
+    them. ``c_new_from_gates``: each step's c_new is ``f c_prev + i g`` from
+    the gates and the taped c_prev (the TPU kernel's ``_cell_bwd``), not the
+    tape's next c (the default tape, where the two are the same)."""
     hidden = tape_h.shape[1]
     steps = tape_h.shape[0] // n
     emb_dim = emb.shape[1]
@@ -443,11 +487,19 @@ def _chain_grads_plain(tape_h, tape_c, gates, tok, emb, w_cat, dh_head, n, need_
                 demb, dh_head[:n].clone(), torch.zeros_like(c0))
     tok_c = tok[:-1]
     t = steps - 1
+    xs = emb.to(_F32)[tok_c.long()]
+    if gates is None:
+        gates = torch.cat(_gates_plain(w_cat, bias, xs.reshape(t * n, emb_dim), tape_h[:t * n]),
+                          dim=-1)
+    c_new, c_prev = tape_c[n:].reshape(t, n, hidden), None
+    if c_new_from_gates:
+        i, f, g, _ = torch.chunk(gates.reshape(t, n, 4 * hidden), 4, dim=-1)
+        c_prev = tape_c[:t * n].reshape(t, n, hidden)
+        c_new = f * c_prev + i * g
     dwi, dwh, db, demb, dh, dc = lstm_chain_backward_plain(
-        dh_head[n:].reshape(t, n, hidden), tok_c, emb.to(_F32)[tok_c.long()], h0, c0,
-        tape_h[n:].reshape(t, n, hidden), tape_c[n:].reshape(t, n, hidden),
-        gates.reshape(t, n, 4 * hidden), w_cat[:emb_dim], w_cat[emb_dim:], emb.shape[0],
-        need_emb)
+        dh_head[n:].reshape(t, n, hidden), tok_c, xs, h0, c0,
+        tape_h[n:].reshape(t, n, hidden), c_new, gates.reshape(t, n, 4 * hidden),
+        w_cat[:emb_dim], w_cat[emb_dim:], emb.shape[0], need_emb, c_prev=c_prev)
     return dwi, dwh, db, demb, dh + dh_head[:n], dc
 
 
@@ -456,7 +508,11 @@ def rollout_backward_plain(tape: RolloutTape, feats: torch.Tensor, w: RolloutWei
     """The rollout kernel's backward in eager torch, from the tape and the
     step-major cotangents ``dvalues``, ``dlogp`` ``[S, N]`` -> the gradients
     of ``(feats, ph1, pc1, vh1, vc1, *policy leaves, *value leaves)`` in the
-    order of ``_POLICY`` and ``_VALUE``."""
+    order of ``_POLICY`` and ``_VALUE``. A bf16 tape is read back as float32,
+    the TPU kernel's way: the heads' h, each cell's c_prev and its gates are
+    the rounded values, c_new is formed from them, and with float32 weights
+    v1 is recomputed from the rounded h_v (with bf16 weights the taped v1 is
+    that product already); a tape without gates has them recomputed."""
     wd = w.dtype
     steps, n = tape.act.shape
     f = feats.shape[1]
@@ -464,8 +520,14 @@ def rollout_backward_plain(tape: RolloutTape, feats: torch.Tensor, w: RolloutWei
     hidden = tape.hp.shape[1]
     hw, hb = w.hw[:, :vocab], w.hb[:vocab]
     dlogp, dval = dlogp.reshape(-1).to(_F32), dvalues.reshape(-1).to(_F32)
+    tape16 = tape.hp.dtype == torch.bfloat16
+    hp, cp, hv, cv = (x.to(_F32) for x in (tape.hp, tape.cp, tape.hv, tape.cv))
+    gp, gv = (None if g is None else g.to(_F32) for g in (tape.gp, tape.gv))
+    exact_c = tape16 or gp is None
+    fh = torch.cat([feats.to(_F32).repeat(steps, 1), hv], dim=1)
+    v1 = (wmatmul(round_to(fh, wd), w.w1) + w.b1 if tape16 and wd == _F32 else tape.v1)
     # policy head, all S N rows at once
-    hp_w = round_to(tape.hp, wd)
+    hp_w = round_to(hp, wd)
     logits = wmatmul(hp_w, hw) + hb
     ex = torch.exp(logits - torch.max(logits, dim=-1, keepdim=True).values)
     softmax = ex / torch.sum(ex, dim=-1, keepdim=True)
@@ -476,19 +538,18 @@ def rollout_backward_plain(tape: RolloutTape, feats: torch.Tensor, w: RolloutWei
     dh_head = wmatmul(round_to(dlogits, wd), hw.t())
     # value head
     dval_w = round_to(dval[:, None], wd)
-    dw2 = wmatmul(round_to(tape.v1, wd).t(), dval_w.to(wd))
+    dw2 = wmatmul(round_to(v1, wd).t(), dval_w.to(wd))
     db2 = dval.sum(dim=0, keepdim=True)
     dv1 = wmatmul(dval_w, w.w2[None, :])
-    fh = torch.cat([feats.to(_F32).repeat(steps, 1), tape.hv], dim=1)
     dw1 = wmatmul(round_to(fh, wd).t(), dv1.to(wd))
     db1 = dv1.sum(dim=0)
     dfh = wmatmul(round_to(dv1, wd), w.w1.t())
     dfeat = dfh[:, :f].reshape(steps, n, f).sum(dim=0)
     dh_head_v = dfh[:, f:]
-    p = _chain_grads_plain(tape.hp, tape.cp, tape.gp, tape.tok, w.p_emb, w.p_w, dh_head, n,
-                           need_emb[0])
-    v = _chain_grads_plain(tape.hv, tape.cv, tape.gv, tape.tok, w.v_emb, w.v_w, dh_head_v, n,
-                           need_emb[1])
+    p = _chain_grads_plain(hp, cp, gp, tape.tok, w.p_emb, w.p_w, w.p_b, dh_head, n,
+                           need_emb[0], exact_c)
+    v = _chain_grads_plain(hv, cv, gv, tape.tok, w.v_emb, w.v_w, w.v_b, dh_head_v, n,
+                           need_emb[1], exact_c)
     return (dfeat, p[4], p[5], v[4], v[5],
             p[3], p[0], p[1], p[2], dhw, dhb,
             v[3], v[0], v[1], v[2], dw1, db1, dw2.reshape(hidden, 1), db2)
@@ -676,16 +737,19 @@ def _check_clock(clock: torch.Tensor | None, steps: int, dev: torch.device) -> N
 
 def rollout_forward_kernel(curr: int, teach_sm: torch.Tensor, noise: torch.Tensor,
                            reward: RewardWeights | None, feats: torch.Tensor, ph1, pc1, vh1,
-                           vc1, w: RolloutWeights, *, clock: torch.Tensor | None = None):
+                           vc1, w: RolloutWeights, *, clock: torch.Tensor | None = None,
+                           tape_gates: bool = True, tape_dtype: torch.dtype = torch.float32):
     """The forward through ``csrc/rollout_fwd.cu``: the two x-gate tables,
     then one cooperative launch for all S steps (:func:`rollout_plan`); the
-    same results as :func:`rollout_forward_plain`.
+    same results as :func:`rollout_forward_plain`, the tape in ``tape_dtype``
+    and without gates unless ``tape_gates``.
 
     ``clock``, for a profile: int64 zeros of :func:`rollout_clock_slots` on
     the card, which the launch fills with the nanoseconds at which its last
     block passed each mark: 0 the start, 1 the slices loaded, then for step
     ``t`` (``t = S``: the last reward's pass) ``2 + 4t`` phase A entered,
     ``+ 1`` phase A done, ``+ 2`` phase B entered, ``+ 3`` phase B done."""
+    variant = tape_variant(tape_gates, tape_dtype)
     _check_rollout_inputs(teach_sm, noise, reward, feats, (ph1, pc1, vh1, vc1), w)
     dev = feats.device
     steps, n = teach_sm.shape
@@ -704,10 +768,16 @@ def rollout_forward_kernel(curr: int, teach_sm: torch.Tensor, noise: torch.Tenso
     def f32(*shape):
         return torch.empty(shape, dtype=_F32, device=dev)
 
-    hp, cp, hv, cv, v1 = (f32(rows, hidden) for _ in range(5))
-    gp, gv = f32(rows - n, 4 * hidden), f32(rows - n, 4 * hidden)
-    for buf, x in ((hp, ph1), (cp, pc1), (hv, vh1), (cv, vc1)):
-        buf[:n] = x.detach()
+    def taped(*shape):
+        return torch.empty(shape, dtype=tape_dtype, device=dev)
+
+    hp, cp, hv, cv = (taped(rows, hidden) for _ in range(4))
+    v1 = f32(rows, hidden)
+    gp, gv = ((taped(rows - n, 4 * hidden), taped(rows - n, 4 * hidden)) if tape_gates
+              else (None, None))
+    starts = [x.detach().contiguous() for x in (ph1, pc1, vh1, vc1)]
+    for buf, x in zip((hp, cp, hv, cv), starts):
+        buf[:n] = x
     values, logp = f32(steps, n), f32(steps, n)
     rewards = f32(steps, n) if reward is not None else None
     act = torch.empty((steps, n), dtype=torch.int32, device=dev)
@@ -722,11 +792,15 @@ def rollout_forward_kernel(curr: int, teach_sm: torch.Tensor, noise: torch.Tenso
             _ptr(feats), _ptr(teach_sm), _ptr(noise), _ptr(p_xg), _ptr(w.p_w), _ptr(w.p_b),
             _ptr(w.hw), _ptr(w.hb), _ptr(v_xg), _ptr(w.v_w), _ptr(w.v_b), _ptr(w.w1),
             _ptr(w.b1), _ptr(w.w2), _ptr(w.b2), _ptr(rw.xg), _ptr(rw.wh), _ptr(rw.bh),
-            _ptr(rw.sem_w), _ptr(rw.sem_b), _ptr(rw.vn), _ptr(rw.rew0), _ptr(values),
-            _ptr(logp), _ptr(act), _ptr(tok), _ptr(rewards), _ptr(hp), _ptr(cp), _ptr(gp),
+            _ptr(rw.sem_w), _ptr(rw.sem_b), _ptr(rw.vn), _ptr(rw.rew0),
+            *(_ptr(x) for x in starts), _ptr(values), _ptr(logp), _ptr(act), _ptr(tok),
+            _ptr(rewards), int(tape_dtype == torch.bfloat16), _ptr(hp), _ptr(cp), _ptr(gp),
             _ptr(hv), _ptr(cv), _ptr(gv), _ptr(v1), _ptr(ws), _ptr(clock), _stream(dev))
     check_error(lib, "icrl_rollout_fwd", err)
-    fused_rollout.fwd_launches += 1
+    if variant is None:
+        fused_rollout.fwd_launches += 1
+    else:
+        fused_rollout.variant_launches[f"rollout_fwd_{variant}"] += 1
     tape = RolloutTape(hp=hp, cp=cp, gp=gp, hv=hv, cv=cv, gv=gv, v1=v1, act=act, tok=tok)
     return values, logp, rewards, tape
 
@@ -769,6 +843,24 @@ def split_k_product(a: torch.Tensor, b: torch.Tensor, parts: int, arrival=None) 
     for p in range(1, parts):
         out += slices[p]
     return out
+
+
+# csrc/rollout.cu: without the gate tape, the S - 1 advances' gates are
+# recomputed in at most this many blocks of steps, last first
+RECOMPUTE_BLOCKS = 8
+
+
+def recompute_block_steps(steps: int) -> int:
+    """Steps of a recompute block (``csrc/rollout.cu:recompute_block_steps``)
+    for a rollout of ``steps`` steps."""
+    return max(1, -(-(steps - 1) // RECOMPUTE_BLOCKS))
+
+
+def recompute_blocks(steps: int) -> list:
+    """The advances ``[lo, hi)`` of each recompute block, in the order the
+    backward takes them (the last first)."""
+    block = recompute_block_steps(steps)
+    return [(max(0, hi - block), hi) for hi in range(steps - 1, 0, -block)]
 
 
 def rollout_bwd_plan(n: int, steps: int, feat_dim: int, hidden: int, vp: int,
@@ -830,11 +922,22 @@ def _carve(buf: torch.Tensor, shapes) -> list:
     return out
 
 
+def _check_tape_options(variant: str | None, weight_dtype: torch.dtype) -> None:
+    """The card's backward takes the tape options with bf16 weights (every
+    trainer's, and the TPU kernel's default); its float32 path reads the
+    default tape."""
+    if variant is not None and weight_dtype != torch.bfloat16:
+        raise ValueError(f"the rollout kernels take tape option {variant!r} with bfloat16 "
+                         f"weights only, got {weight_dtype}")
+
+
 def rollout_backward_kernel(tape: RolloutTape, feats: torch.Tensor, w: RolloutWeights,
                             dvalues: torch.Tensor, dlogp: torch.Tensor, need_emb=(True, True)):
     """The backward through ``csrc/rollout.cu``, one C call: the same
     gradients as :func:`rollout_backward_plain`. The gradients are views of
-    one buffer, the scratch (with ``dx`` of both chains) another."""
+    one buffer, the scratch (with ``dx`` of both chains) another. A tape
+    without gates or in bf16 (bf16 weights only) takes the kernels' variants
+    of those options."""
     dev = feats.device
     steps, n = tape.act.shape
     vocab, emb_dim = w.p_emb.shape
@@ -842,6 +945,8 @@ def rollout_backward_kernel(tape: RolloutTape, feats: torch.Tensor, w: RolloutWe
     f = feats.shape[1]
     vp = w.hw.shape[1]
     bf16 = int(w.dtype == torch.bfloat16)
+    variant = tape_variant(tape.gp is not None, tape.hp.dtype)
+    _check_tape_options(variant, w.dtype)
     feats = feats.to(_F32).contiguous()
     dlogp = dlogp.to(_F32).contiguous()
     dval = dvalues.to(_F32).contiguous()
@@ -851,8 +956,10 @@ def rollout_backward_kernel(tape: RolloutTape, feats: torch.Tensor, w: RolloutWe
     plan, db_rows = (_rollout_bwd_plan_args(n, steps, f, hidden, vp, dev.index) if bf16
                      else ((0,) * 7, 0))
     lib = load_library()
+    tape16 = int(tape.hp.dtype == torch.bfloat16)
     ws_floats = lib.icrl_rollout_bwd_workspace_floats(n, steps, f, emb_dim, hidden, vp, bf16,
-                                                      plan[0], db_rows)
+                                                      plan[0], db_rows, tape16,
+                                                      int(tape.gp is not None))
     dx_shapes = ((r1, emb_dim), (r1, emb_dim))
     scratch = torch.empty(_carved_size(dx_shapes) + ws_floats, dtype=_F32, device=dev)
     dxp, dxv = _carve(scratch, dx_shapes)
@@ -860,12 +967,16 @@ def rollout_backward_kernel(tape: RolloutTape, feats: torch.Tensor, w: RolloutWe
     (dfeat, dph1, dpc1, dvh1, dvc1, dpw, dpb, dhw, dhb, dvw, dvb, dw1, db1, dw2, db2) = grads
     err = lib.icrl_rollout_bwd(
         n, steps, f, emb_dim, hidden, vocab, vp, bf16, *plan, _ptr(tape.tok), _ptr(tape.act),
-        _ptr(dlogp), _ptr(dval), _ptr(feats), _ptr(tape.hp), _ptr(tape.cp), _ptr(tape.gp),
-        _ptr(tape.hv), _ptr(tape.cv), _ptr(tape.gv), _ptr(tape.v1), _ptr(w.p_emb), _ptr(w.p_w),
-        _ptr(w.hw), _ptr(w.hb), _ptr(w.v_emb), _ptr(w.v_w), _ptr(w.w1), _ptr(w.w2), _ptr(ws),
-        *(_ptr(t) for t in grads), _ptr(dxp), _ptr(dxv), dev.index, _stream(dev))
+        _ptr(dlogp), _ptr(dval), _ptr(feats), tape16, _ptr(tape.hp), _ptr(tape.cp),
+        _ptr(tape.gp), _ptr(tape.hv), _ptr(tape.cv), _ptr(tape.gv), _ptr(tape.v1),
+        _ptr(w.p_emb), _ptr(w.p_w), _ptr(w.p_b), _ptr(w.hw), _ptr(w.hb), _ptr(w.v_emb),
+        _ptr(w.v_w), _ptr(w.v_b), _ptr(w.w1), _ptr(w.w2), _ptr(ws), *(_ptr(t) for t in grads),
+        _ptr(dxp), _ptr(dxv), dev.index, _stream(dev))
     check_error(lib, "icrl_rollout_bwd", err)
-    fused_rollout.bwd_launches += 1
+    if variant is None:
+        fused_rollout.bwd_launches += 1
+    else:
+        fused_rollout.variant_launches[f"rollout_bwd_{variant}"] += 1
     tok_c = tape.tok[:-1]
     dp_emb = embedding_grad(dxp, tok_c, vocab) if need_emb[0] else None
     dv_emb = embedding_grad(dxv, tok_c, vocab) if need_emb[1] else None
@@ -940,6 +1051,23 @@ class _RolloutKernel(torch.autograd.Function):
         return _function_backward(ctx, rollout_backward_kernel, dvalues, dlogp)
 
 
+@functools.lru_cache(maxsize=None)
+def _tape_function(kernel: bool, tape_gates: bool, tape_dtype: torch.dtype) -> type:
+    """:class:`_RolloutKernel` (``kernel``) or :class:`_RolloutPlain` with
+    a tape option (:data:`TAPE_VARIANTS`) bound."""
+    base = _RolloutKernel if kernel else _RolloutPlain
+    forward = functools.partial(rollout_forward_kernel if kernel else rollout_forward_plain,
+                                tape_gates=tape_gates, tape_dtype=tape_dtype)
+
+    class _Rollout(base):
+        @staticmethod
+        def forward(ctx, *args):
+            return _function_forward(ctx, forward, *args)
+
+    _Rollout.__name__ = f"{base.__name__}_{TAPE_VARIANTS[(tape_gates, tape_dtype)]}"
+    return _Rollout
+
+
 def _leaf(tree: dict, path: tuple) -> torch.Tensor:
     for k in path:
         tree = tree[k]
@@ -998,11 +1126,13 @@ def start_states(a2c_params: dict, cfg, features: torch.Tensor, start: torch.Ten
 def rollout_from_noise(a2c_params: dict, cfg, features: torch.Tensor, captions: torch.Tensor,
                        curr_seq_len: int, noise: torch.Tensor,
                        weight_dtype: torch.dtype = torch.bfloat16, reward_params: dict = None,
-                       use_fused_kernel: bool | None = None):
+                       use_fused_kernel: bool | None = None, tape_gates: bool = True,
+                       tape_dtype: torch.dtype = torch.float32):
     """:func:`fused_rollout` on given Gumbel noise ``[S, N, V]`` (row s is the
     draw of step s) instead of noise drawn from a key."""
     _check_nets(a2c_params["policy"], a2c_params["value"], reward_params)
     _check_weight_dtype(weight_dtype)
+    variant = tape_variant(tape_gates, tape_dtype)
     start = captions[:, 0].long()
     ph1, pc1, vh1, vc1 = start_states(a2c_params, cfg, features, start)
     teach_sm = captions[:, 1:].t().to(torch.int32).contiguous()
@@ -1014,11 +1144,14 @@ def rollout_from_noise(a2c_params: dict, cfg, features: torch.Tensor, captions: 
         raise RuntimeError("use_fused_kernel=True needs CUDA tensors: the rollout kernels run "
                            "only on a CUDA device")
     else:
+        _check_tape_options(variant, weight_dtype)
         fn = _RolloutKernel
         emb_dim, hidden = a2c_params["policy"]["embedding"].shape[1], ph1.shape[1]
         if needs_padding(emb_dim, hidden, features.shape[1]):
             a2c_params, features, (ph1, pc1, vh1, vc1) = pad_rollout_inputs(
                 a2c_params, features, (ph1, pc1, vh1, vc1))
+    if variant is not None:
+        fn = _tape_function(fn is _RolloutKernel, bool(tape_gates), tape_dtype)
     leaves = rollout_leaves(a2c_params)
     values, logp, act, tok, rewards = fn.apply(int(curr_seq_len), weight_dtype, teach_sm,
                                                noise.to(_F32), reward, features.to(_F32), ph1,
@@ -1052,7 +1185,8 @@ def pad_rollout_inputs(a2c_params: dict, features: torch.Tensor, states: tuple):
 
 def fused_rollout(a2c_params: dict, cfg, features: torch.Tensor, captions: torch.Tensor,
                   curr_seq_len: int, rng, weight_dtype: torch.dtype = torch.bfloat16,
-                  reward_params: dict = None, use_fused_kernel: bool | None = None):
+                  reward_params: dict = None, use_fused_kernel: bool | None = None,
+                  tape_gates: bool = True, tape_dtype: torch.dtype | None = None):
     """The A2C rollout of ``a2c_params`` (``{"policy", "value"}``) from
     ``captions[:, 0]``, teacher-forcing positions ``p < curr_seq_len``.
 
@@ -1066,6 +1200,12 @@ def fused_rollout(a2c_params: dict, cfg, features: torch.Tensor, captions: torch
     ``[2]``), made on the features' device (:func:`.prng.gumbel_noise`).
     Weights act in ``weight_dtype`` (bf16 by default, as the TPU kernel).
 
+    The tape the backward reads (``pallas_rollout.py:94-97, 240-254``):
+    ``tape_gates=False`` keeps no gate activations (the backward recomputes
+    them from the h tape), ``tape_dtype`` stores h, c and the gates in
+    float32 (None, the default) or bfloat16. On the card the options take
+    bf16 weights.
+
     CUDA tensors run the kernels (``csrc/rollout_fwd.cu``,
     ``csrc/rollout.cu``), CPU tensors the plain versions; ``use_fused_kernel=False`` forces the plain versions,
     ``True`` on CPU tensors raises."""
@@ -1073,8 +1213,11 @@ def fused_rollout(a2c_params: dict, cfg, features: torch.Tensor, captions: torch
     vocab = a2c_params["policy"]["embedding"].shape[0]
     noise = gumbel_noise(split(rng, steps), (captions.shape[0], vocab), features.device)
     return rollout_from_noise(a2c_params, cfg, features, captions, curr_seq_len, noise,
-                              weight_dtype, reward_params, use_fused_kernel)
+                              weight_dtype, reward_params, use_fused_kernel, tape_gates,
+                              _F32 if tape_dtype is None else tape_dtype)
 
 
 fused_rollout.fwd_launches = 0
 fused_rollout.bwd_launches = 0
+fused_rollout.variant_launches = {f"rollout_{d}_{v}": 0 for d in ("fwd", "bwd")
+                                  for v in TAPE_VARIANTS.values()}

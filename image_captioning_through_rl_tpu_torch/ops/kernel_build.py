@@ -47,9 +47,9 @@ _SIGNATURES = {
     "icrl_reward_stream_workspace_floats": (ctypes.c_size_t, [_I] * 2),
     "icrl_reward_stream": (_I, [_I] * 10 + [_P] * 13),
     "icrl_rollout_workspace_floats": (ctypes.c_size_t, [_I] * 3),
-    "icrl_rollout_fwd": (_I, [_I] * 15 + [_P] * 37),
-    "icrl_rollout_bwd_workspace_floats": (ctypes.c_size_t, [_I] * 9),
-    "icrl_rollout_bwd": (_I, [_I] * 15 + [_P] * 38 + [_I, _P]),
+    "icrl_rollout_fwd": (_I, [_I] * 15 + [_P] * 31 + [_I] + [_P] * 10),
+    "icrl_rollout_bwd_workspace_floats": (ctypes.c_size_t, [_I] * 11),
+    "icrl_rollout_bwd": (_I, [_I] * 15 + [_P] * 5 + [_I] + [_P] * 35 + [_I, _P]),
     "icrl_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -9,7 +9,11 @@ row), decodes once and scatters the rows back. Requests wait at most
 ``max_wait_ms`` for co-batching.
 
 Endpoints:
-  * ``POST /caption`` — JSON ``{"features": [[...]], "beam_size": 0}``, or
+  * ``POST /caption`` — JSON ``{"features": [[...]], "beam_size": 0}`` or
+    ``{"images_b64": [...]}`` (base64 JPEG/PNG files, with a server started
+    with ``--vgg_weights``: decoded on the handler thread, one co-batched
+    VGG16 forward a batch on the batcher thread, padded to an extraction
+    bucket), or
     raw little-endian float32 rows as ``application/octet-stream`` with
     the beam size in ``X-Beam-Size`` -> ``{"captions": [...]}``. Sampling
     rides the same endpoint: JSON ``"sample": {"temperature": 0.8,
@@ -22,7 +26,6 @@ Endpoints:
   * ``GET /stats`` — request counters, latency percentiles and each
     kernel's launch count.
 
-Raw-image (``images_b64``) requests answer 400: they are not ported yet.
 :mod:`.client` wraps the wire formats.
 
     python -m image_captioning_through_rl_tpu_torch.server \\
@@ -32,7 +35,10 @@ Raw-image (``images_b64``) requests answer 400: they are not ported yet.
 takes the JAX server's flags (the model as ``.ckpt`` or ``.pt``, its
 sub-network checkpoints under ``--pretrained_path``, the bundle for the
 vocabulary); ``--model a2cNetwork.pt --vocab coco2014_vocab.json`` serves a
-reference-layout ``.pt`` alone. The console script
+reference-layout ``.pt`` alone. ``--vgg_weights`` (a torchvision-layout
+``.pt`` or a ``.ckpt``), ``--pca`` (the ``.npz`` ``cli/extract`` fits),
+``--vgg_bf16`` and ``--extract_batch`` turn on the raw-image endpoint, as in
+the JAX server. The console script
 ``image-caption-server-torch`` runs it.
 """
 
@@ -102,10 +108,13 @@ def _parse_sample(src: dict, max_samples: int) -> tuple:
 
 
 class _Pending:
-    __slots__ = ("features", "beam_size", "sample", "event", "result", "error", "t_enq")
+    __slots__ = ("features", "pixels", "beam_size", "sample", "event", "result", "error",
+                 "t_enq")
 
-    def __init__(self, features: np.ndarray, beam_size: int, sample: Optional[tuple] = None):
+    def __init__(self, features: Optional[np.ndarray], beam_size: int,
+                 sample: Optional[tuple] = None, pixels: Optional[np.ndarray] = None):
         self.features = features
+        self.pixels = pixels  # uint8 [N, 224, 224, 3] awaiting extraction
         self.beam_size = beam_size
         self.sample = sample  # (temperature, top_k, top_p, num_samples, seed) or None
         self.event = threading.Event()
@@ -115,7 +124,7 @@ class _Pending:
 
     @property
     def rows(self) -> int:
-        return self.features.shape[0]
+        return (self.features if self.pixels is None else self.pixels).shape[0]
 
 
 class CaptionServer:
@@ -129,7 +138,24 @@ class CaptionServer:
 
     def __init__(self, captioner: Captioner, host: str = "127.0.0.1", port: int = 8000,
                  max_batch: int = 1024, max_wait_ms: float = 5.0, min_bucket: int = 8,
-                 max_body_mb: float = 256.0, max_samples: int = 64):
+                 extractor=None, extract_batch: int = 64, max_body_mb: float = 256.0,
+                 max_samples: int = 64):
+        """``extractor``: an optional :class:`.api.FeatureExtractor` that
+        turns on the raw-image endpoint (``images_b64``); its output must be
+        the model's input dimension, and Pillow must import (checked here,
+        not per request)."""
+        if extractor is not None:
+            if extractor.dim != captioner.cfg.input_dim:
+                raise ValueError(
+                    f"extractor produces {extractor.dim}-d features but the model expects "
+                    f"{captioner.cfg.input_dim}-d input — pass the matching PCA projection (or "
+                    "none for raw-fc7 models)")
+            try:
+                import PIL  # noqa: F401
+            except ImportError as e:
+                raise ValueError("the raw-image endpoint needs Pillow to decode uploads") from e
+        if extract_batch < 1:
+            raise ValueError("extract_batch must be >= 1")
         if max_body_mb <= 0:
             raise ValueError("max_body_mb must be positive")
         if max_samples < 1:
@@ -148,11 +174,16 @@ class CaptionServer:
             self._buckets.append(b)
             b *= 2
         self._buckets.append(max_batch)
+        # the VGG forward pads to a bucket too, at most extract_batch, so a
+        # one-image request does not pay a 64-image forward
+        self._extractor = extractor
+        self._extract_buckets = [x for x in self._buckets if x < extract_batch] + [extract_batch]
         self._stop = threading.Event()
         self._carry: Optional[_Pending] = None
         self._stats_lock = threading.Lock()
         self.stats = {
-            "requests": 0, "captions": 0, "batches": 0, "errors": 0, "max_batch_rows": 0,
+            "requests": 0, "captions": 0, "batches": 0, "errors": 0, "images_extracted": 0,
+            "max_batch_rows": 0,
             "latency_ms": collections.deque(maxlen=10_000),
         }
         server = self
@@ -204,6 +235,7 @@ class CaptionServer:
                 raw = self.rfile.read(n)  # read before any 400 (see above)
                 ctype = (self.headers.get("Content-Type") or "").split(";")[0].strip().lower()
                 want = server._cap.cfg.input_dim
+                pixels = None
                 try:
                     if ctype == "application/octet-stream":
                         beam = _parse_beam(self.headers.get("X-Beam-Size", 0))
@@ -220,8 +252,6 @@ class CaptionServer:
                         feats = np.frombuffer(raw, "<f4").reshape(-1, want)
                     else:
                         req = json.loads(raw)
-                        if "images_b64" in req:
-                            raise ValueError("raw-image requests (images_b64) are not yet ported")
                         beam = _parse_beam(req.get("beam_size", 0))
                         sample = None
                         if "sample" in req:
@@ -231,23 +261,27 @@ class CaptionServer:
                             sample = _parse_sample(req["sample"], server._max_samples)
                             if beam:
                                 raise ValueError("beam_size and 'sample' are mutually exclusive")
-                        feats = np.asarray(req["features"], np.float32)
-                        if feats.ndim == 1:
-                            feats = feats[None, :]
-                        if feats.ndim != 2 or feats.shape[0] == 0:
-                            raise ValueError("features must be [N, F] with N > 0, or [F]")
-                        if feats.shape[1] != want:
-                            raise ValueError(f"feature dim {feats.shape[1]} != model's {want}")
+                        if "images_b64" in req:
+                            feats, pixels = None, server._decode_images(req)
+                        else:
+                            feats = np.asarray(req["features"], np.float32)
+                            if feats.ndim == 1:
+                                feats = feats[None, :]
+                            if feats.ndim != 2 or feats.shape[0] == 0:
+                                raise ValueError("features must be [N, F] with N > 0, or [F]")
+                            if feats.shape[1] != want:
+                                raise ValueError(f"feature dim {feats.shape[1]} != model's "
+                                                 f"{want}")
                 except Exception as e:  # malformed request
                     self._reply(400, {"error": f"{type(e).__name__}: {e}"})
                     return
-                self._dispatch_and_reply(feats, beam, sample)
+                self._dispatch_and_reply(feats, beam, sample, pixels)
 
-            def _dispatch_and_reply(self, feats, beam, sample):
+            def _dispatch_and_reply(self, feats, beam, sample, pixels=None):
                 if server._stop.is_set():
                     self._reply(503, {"error": "server stopping"})
                     return
-                pending = _Pending(feats, beam, sample)
+                pending = _Pending(feats, beam, sample, pixels)
                 server._queue.put(pending)
                 server._await(pending)
                 if pending.error == "server stopped":
@@ -269,6 +303,57 @@ class CaptionServer:
         self._httpd = ThreadingHTTPServer((host, port), Handler)
         self.host, self.port = self._httpd.server_address[:2]
         self._threads: List[threading.Thread] = []
+
+    def _decode_images(self, req: dict) -> np.ndarray:
+        """A request's ``images_b64`` decoded on the handler thread (the
+        host's work) -> uint8 ``[N, 224, 224, 3]``, with the JAX server's
+        400s: both ``features`` and ``images_b64``, no extractor, an empty
+        list, more images than the per-request limit (``max_batch``: the
+        body cap does not bound the decoded pixels)."""
+        if "features" in req:
+            raise ValueError("send either 'features' or 'images_b64', not both")
+        if self._extractor is None:
+            raise ValueError("server has no feature extractor — start it with VGG weights "
+                             "(--vgg_weights) to caption raw images")
+        import base64
+        import io
+
+        from .cli.extract import load_image_batch
+
+        blobs = req["images_b64"]
+        if not isinstance(blobs, list) or not blobs:
+            raise ValueError("images_b64 must be a non-empty list")
+        if len(blobs) > self._max_batch:
+            raise ValueError(f"{len(blobs)} images exceed the per-request limit of "
+                             f"{self._max_batch}")
+        return load_image_batch([io.BytesIO(base64.b64decode(b)) for b in blobs])
+
+    def _extract(self, group: List[_Pending]) -> List[_Pending]:
+        """One co-batched VGG16 forward for the group's image requests,
+        padded to an extraction bucket; their features filled in. Returns
+        the requests that can decode (an extraction error answers its image
+        requests)."""
+        pix = [p for p in group if p.features is None]
+        if not pix:
+            return group
+        try:
+            pixels = np.concatenate([p.pixels for p in pix], axis=0)
+            eb = next((x for x in self._extract_buckets if x >= pixels.shape[0]),
+                      self._extract_buckets[-1])
+            feats = self._extractor(pixels, batch_size=eb)
+            off = 0
+            for p in pix:
+                k = p.pixels.shape[0]
+                p.features = np.asarray(feats[off:off + k], np.float32)
+                off += k
+            with self._stats_lock:
+                self.stats["images_extracted"] += int(pixels.shape[0])
+        except Exception as e:
+            for p in pix:
+                p.error = f"{type(e).__name__}: {e}"
+                p.event.set()
+            return [p for p in group if p.features is not None]
+        return group
 
     # ------------------------------------------------------------------
     def health(self) -> dict:
@@ -320,7 +405,7 @@ class CaptionServer:
 
     def _batcher(self):
         while not self._stop.is_set():
-            group = self._drain()
+            group = self._extract(self._drain())
             # one decode per config; sampled requests co-batch only with equal
             # (temperature, top_k, top_p, num_samples, seed), and a row's draw
             # depends on its position in the batch (its noise counter), so
@@ -370,17 +455,31 @@ class CaptionServer:
                                          num_samples=r, seed=seed + lo)
 
     # ------------------------------------------------------------------
-    def warmup(self, feature_dim: int, beam_sizes=(0,), buckets=None, sample_configs=()):
+    def warmup(self, feature_dim: int, beam_sizes=(0,), buckets=None, image_buckets=None,
+               sample_configs=()):
         """Decode one random batch per bucket, for each beam size and each
         sampling config (the wire format's ``"sample"`` objects, e.g.
         ``{"top_k": 40, "num_samples": 3}``), before traffic, so the first
         real requests pay neither the kernels' build nor the allocator's
-        first growth. Call before or after :meth:`start`."""
+        first growth. With a feature extractor, one VGG16 forward of random
+        pixels per extraction bucket too (``image_buckets``, default all;
+        ``[]`` skips them). Call before or after :meth:`start`."""
         rng = np.random.default_rng(0)
         buckets = list(self._buckets) if buckets is None else buckets
         samples = [_parse_sample(dict(s), self._max_samples) for s in sample_configs]
         configs = [(beam, None) for beam in beam_sizes] + [(0, s) for s in samples]
         started = bool(self._threads) and self._threads[0].is_alive()
+        if self._extractor is not None:
+            for eb in list(self._extract_buckets) if image_buckets is None else image_buckets:
+                px = rng.integers(0, 255, size=(eb, 224, 224, 3)).astype(np.uint8)
+                if started:
+                    p = _Pending(None, 0, pixels=px)
+                    self._queue.put(p)
+                    self._await(p)
+                    if p.error is not None:
+                        raise RuntimeError(f"warmup failed: {p.error}")
+                else:
+                    self._extractor(px, batch_size=eb)
         for b in buckets:
             feats = rng.standard_normal((b, feature_dim)).astype(np.float32)
             for beam, sample in configs:
@@ -471,7 +570,22 @@ def main(argv=None, block: bool = True):
     ap.add_argument("--max_samples", type=int, default=64,
                     help="largest accepted num_samples per request (a sampled batch is "
                          "bucket * num_samples rows)")
+    ap.add_argument("--vgg_weights", default="",
+                    help="VGG16 weights (.pt torchvision layout or .ckpt); turns on the "
+                         "raw-image endpoint (POST /caption with images_b64)")
+    ap.add_argument("--pca", default="",
+                    help="fitted PCA projection .npz mapping fc7 to the model's input dim "
+                         "(cli/extract writes one)")
+    ap.add_argument("--vgg_bf16", action="store_true",
+                    help="run the VGG16 stack in bfloat16 (features drift at bf16 rounding "
+                         "level: use a PCA basis fitted on same-type features)")
+    ap.add_argument("--extract_batch", type=int, default=64,
+                    help="largest VGG extraction bucket; warmup runs one forward per "
+                         "power-of-two bucket up to this")
     args = ap.parse_args(argv)
+    if args.pca and not args.vgg_weights:
+        # a long-running server must not caption with random VGG weights
+        ap.error("--pca requires --vgg_weights: the raw-image endpoint needs real VGG16 weights")
 
     if args.vocab:
         cap = load_captioner_pt(args.model, args.vocab, device=args.device,
@@ -492,8 +606,15 @@ def main(argv=None, block: bool = True):
                              device=args.device)
     else:
         ap.error("one of --data_dir (the bundle) or --vocab (with a .pt --model) is required")
+    extractor = None
+    if args.vgg_weights:
+        from .api import load_feature_extractor
+
+        extractor = load_feature_extractor(weights=args.vgg_weights, pca=args.pca,
+                                           bf16=args.vgg_bf16, device=args.device)
     srv = CaptionServer(cap, host=args.host, port=args.port, max_batch=args.max_batch,
-                        max_wait_ms=args.max_wait_ms, max_body_mb=args.max_body_mb,
+                        max_wait_ms=args.max_wait_ms, extractor=extractor,
+                        extract_batch=args.extract_batch, max_body_mb=args.max_body_mb,
                         max_samples=args.max_samples)
     if not args.no_warmup:
         print("[Serving] warming decode buckets", flush=True)

@@ -404,20 +404,23 @@ def a2c_rollout_loss_fused(a2c_params: dict, cfg: NetConfig, reward_params: dict
                            captions, curr_seq_len: int, caplen, rng,
                            per_step_mean: bool = False,
                            weight_dtype: torch.dtype = torch.bfloat16,
-                           fuse_reward: bool = True):
+                           fuse_reward: bool = True, tape_gates: bool = True):
     """:func:`a2c_rollout_loss` with the rollout through
     :func:`..ops.fused_rollout.fused_rollout` (the JAX package's
     ``steps.py:749-818``): the same keys, so the same actions up to the
     kernels' near-ties; the same loss and mask. The frozen reward stream
     runs inside the rollout (``fuse_reward=True``, the default) or as its
-    own kernel (:func:`..ops.fused_rollout.fused_reward_stream`)."""
+    own kernel (:func:`..ops.fused_rollout.fused_reward_stream`).
+    ``tape_gates=False`` keeps no gate tape: the backward recomputes the
+    gates."""
     if fuse_reward:
         values, log_probs, _, _, rewards = fused_rollout(
             a2c_params, cfg, features, captions, curr_seq_len, rng, weight_dtype=weight_dtype,
-            reward_params=reward_params)
+            reward_params=reward_params, tape_gates=tape_gates)
     else:
         values, log_probs, actions, tokens = fused_rollout(
-            a2c_params, cfg, features, captions, curr_seq_len, rng, weight_dtype=weight_dtype)
+            a2c_params, cfg, features, captions, curr_seq_len, rng, weight_dtype=weight_dtype,
+            tape_gates=tape_gates)
         rewards = fused_reward_stream(reward_params, cfg, features, captions[:, 0], actions,
                                       tokens, weight_dtype=weight_dtype)
     return _a2c_loss(values, rewards, log_probs, curr_seq_len, caplen, per_step_mean)

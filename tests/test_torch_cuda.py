@@ -848,6 +848,42 @@ def test_rollout_kernels_match_plain(dev, wd, curr):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("variant", sorted(fr.TAPE_VARIANTS.values()))
+def test_rollout_tape_options_match_plain(dev, variant):
+    """Each tape option (bf16 weights): the forward's outputs bit-equal to
+    the default tape's, its tape the default one in its type (no gate tape
+    without ``tape_gates``), the backward against its plain version on the
+    kernel's tape, one launch each counted under the option's name, and an
+    option with float32 weights refused."""
+    tape_gates, tape_dtype = next(k for k, v in fr.TAPE_VARIANTS.items() if v == variant)
+    kw = {"tape_gates": tape_gates, "tape_dtype": tape_dtype}
+    args, _, _, feats, _ = _rollout_case(dev, torch.bfloat16, 4)
+    ref = fr.rollout_forward_kernel(*args)
+    counts = dict(fr.fused_rollout.variant_launches)
+    out = fr.rollout_forward_kernel(*args, **kw)
+    tape = out[3]
+    assert (tape.gp is None) == (not tape_gates) and tape.hp.dtype == tape_dtype
+    for a, b in zip((*out[:3], tape.act, tape.tok), (*ref[:3], ref[3].act, ref[3].tok)):
+        assert torch.equal(a, b)
+    assert torch.equal(tape.cp, ref[3].cp.to(tape_dtype))
+    gen = torch.Generator().manual_seed(9)
+    dval, dlogp = (torch.randn(tape.act.shape, generator=gen).to(dev) for _ in range(2))
+    got = fr.rollout_backward_kernel(tape, feats, args[-1], dval, dlogp)
+    torch.cuda.synchronize()
+    assert all(fr.fused_rollout.variant_launches[f"rollout_{d}_{variant}"]
+               == counts[f"rollout_{d}_{variant}"] + 1 for d in ("fwd", "bwd"))
+    want = fr.rollout_backward_plain(tape, feats, args[-1], dval, dlogp)
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.shape == b.shape and bool(torch.isfinite(a).all()), i
+        rel = float((a - b).norm() / max(float(b.norm()), 1e-30))
+        assert rel <= CHAIN_TOL[torch.bfloat16], f"gradient {i}: relative error {rel:.3g}"
+    args32 = _rollout_case(dev, torch.float32, 4)[0]
+    tape32 = fr.rollout_forward_kernel(*args32, **kw)[3]
+    with pytest.raises(ValueError, match="bfloat16 weights only"):
+        fr.rollout_backward_kernel(tape32, feats, args32[-1], dval, dlogp)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bias", [False, True])
 @pytest.mark.parametrize("gates", [3, 4])
 @pytest.mark.parametrize("vocab,emb_dim", [(1004, 512), (2000, 512), (1001, 500)])

@@ -109,8 +109,8 @@ def test_server_rejects_unported_and_malformed_requests(server, payload):
         _post_json(srv, payload)
     assert ei.value.code == 400
     body = json.loads(ei.value.read())
-    if "images_b64" in payload:
-        assert "not yet ported" in body["error"]
+    if "images_b64" in payload:  # a server started without --vgg_weights
+        assert "no feature extractor" in body["error"]
     if "sample" in payload:
         assert "mutually exclusive" in body["error"]
 
@@ -314,3 +314,147 @@ def test_main_serves_a_bidirectional_model(tmp_path):
         assert stats["errors"] == 0 and not any(stats["kernel_launches"].values())
     finally:
         srv.stop()
+
+
+# ---- the raw-image endpoint (images_b64) ----
+#
+# Both packages' servers, started with the JAX server's command line and the
+# same VGG16 ``.pt`` and PCA ``.npz``, answer the same PNGs with the same
+# captions: the fc7 features agree to ~1e-6 relative (test_torch_vision.py),
+# and the decodes are the XLA / plain ones above. The networks take the
+# servers' default width (512), the features the PCA's 8 dimensions.
+
+IMG_V, IMG_F, IMG_BATCH, IMG_EXTRACT = 40, 8, 8, 4
+
+
+@pytest.fixture(scope="module")
+def image_servers(tmp_path_factory):
+    from image_captioning_through_rl_tpu import server as jserver
+    from image_captioning_through_rl_tpu_torch.data import make_synthetic_coco
+    from image_captioning_through_rl_tpu_torch.data.pca import PCAProjection
+    from image_captioning_through_rl_tpu_torch.models import a2c as ta2c
+    from image_captioning_through_rl_tpu_torch.models import policy as tpolicy
+    from image_captioning_through_rl_tpu_torch.models import reward as treward
+    from image_captioning_through_rl_tpu_torch.models import value as tvalue
+    from image_captioning_through_rl_tpu_torch.models import vgg as tvgg
+    from image_captioning_through_rl_tpu_torch.train import checkpoint as tckpt
+    from PIL import Image
+
+    d = tmp_path_factory.mktemp("image_server")
+    coco = make_synthetic_coco(str(d / "coco"), num_train_images=6, num_val_images=3,
+                               captions_per_image=2, vocab_size=IMG_V, feature_dim=IMG_F,
+                               seed=12)
+    cfg = NetConfig(vocab_size=IMG_V, input_dim=IMG_F)
+    pre = d / "pre"
+    pre.mkdir()
+    for seed, (kind, mod) in enumerate((("reward", treward), ("policy", tpolicy),
+                                        ("value", tvalue))):
+        tckpt.save_network(kind, mod.init(torch.Generator().manual_seed(seed), cfg),
+                           str(pre / f"{kind}Network.ckpt"))
+    tckpt.save_network("a2c", ta2c.init(torch.Generator().manual_seed(3), cfg),
+                       str(d / "a2cNetwork.ckpt"))
+    torch.save(tvgg.init(torch.Generator().manual_seed(4)).state_dict(), d / "vgg16.pt")
+    rng = np.random.default_rng(6)
+    PCAProjection(torch.zeros(4096), torch.from_numpy(
+        rng.standard_normal((4096, IMG_F)).astype(np.float32) * 0.01)).save(str(d / "pca.npz"))
+    pngs = []
+    for i, (h, w) in enumerate(((40, 60), (64, 48), (300, 200))):
+        Image.fromarray(rng.integers(0, 256, (h, w, 3), dtype=np.uint8)).save(d / f"{i}.png")
+        pngs.append(str(d / f"{i}.png"))
+    argv = ["--model", str(d / "a2cNetwork.ckpt"), "--data_dir", coco, "--pretrained_path",
+            str(pre), "--port", "0", "--max_batch", str(IMG_BATCH), "--vgg_weights",
+            str(d / "vgg16.pt"), "--pca", str(d / "pca.npz"), "--extract_batch",
+            str(IMG_EXTRACT), "--no_warmup"]
+    ours = server_mod.main(argv + ["--device", "cpu"], block=False)
+    theirs = jserver.main(argv, block=False)
+    yield ours, theirs, pngs
+    ours.stop()
+    theirs.stop()
+
+
+def _b64(paths):
+    import base64
+
+    out = []
+    for p in paths:
+        with open(p, "rb") as f:
+            out.append(base64.b64encode(f.read()).decode("ascii"))
+    return out
+
+
+def _post_error(srv, payload):
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        _post_json(srv, payload)
+    return ei.value.code, json.loads(ei.value.read())["error"]
+
+
+def test_image_servers_answer_alike(image_servers):
+    """Greedy, beam-5 and sampled ``images_b64`` requests: the port's server
+    answers the JAX server's captions, which are ``Captioner.caption_images``
+    on the same files."""
+    ours, theirs, pngs = image_servers
+    assert ours._extractor.dim == IMG_F and ours._extract_buckets == [IMG_EXTRACT]
+    for extra in ({"beam_size": 0}, {"beam_size": 5},
+                  {"sample": {"temperature": 0.8, "num_samples": 2, "seed": 7}}):
+        payload = {"images_b64": _b64(pngs), **extra}
+        got = _post_json(ours, payload)
+        assert got == _post_json(theirs, payload), extra
+        assert len(got) == len(pngs)
+    assert _post_json(ours, {"images_b64": _b64(pngs)}) == ours._cap.caption_images(
+        pngs, ours._extractor, batch_size=IMG_EXTRACT)
+
+
+def test_image_requests_400_as_the_jax_server(image_servers):
+    """Both ``features`` and ``images_b64``, an empty list, more images than
+    the per-request limit: the JAX server's 400s, word for word."""
+    ours, theirs, pngs = image_servers
+    for payload in ({"features": [[0.0] * IMG_F], "images_b64": _b64(pngs[:1])},
+                    {"images_b64": []},
+                    {"images_b64": _b64(pngs[:1]) * (IMG_BATCH + 1)}):
+        code, msg = _post_error(ours, payload)
+        assert (code, msg) == _post_error(theirs, payload)
+        assert code == 400
+    # a server started without --vgg_weights (the features-only fixture above)
+    # answers images with the JAX server's 400 too
+
+
+def test_features_and_images_cobatch(image_servers):
+    """An image request and a feature request in flight together: each gets
+    its own captions, and the image rows count as extracted."""
+    import threading
+
+    ours, _, pngs = image_servers
+    feats = np.random.default_rng(8).standard_normal((3, IMG_F)).astype(np.float32)
+    before = ours.snapshot_stats()["images_extracted"]
+    out = {}
+    threads = [threading.Thread(target=lambda: out.__setitem__(
+                   "img", _post_json(ours, {"images_b64": _b64(pngs)}))),
+               threading.Thread(target=lambda: out.__setitem__(
+                   "feat", _post_json(ours, {"features": feats.tolist()})))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert out["feat"] == ours._cap.caption(feats)
+    assert out["img"] == ours._cap.caption_images(pngs, ours._extractor,
+                                                  batch_size=IMG_EXTRACT)
+    stats = ours.snapshot_stats()
+    assert stats["images_extracted"] - before == len(pngs) and stats["errors"] == 0
+
+
+def test_image_bucket_warmup_and_client(image_servers):
+    """``warmup`` runs one VGG16 forward per extraction bucket (through the
+    batcher once the server is live); the port's ``CaptionClient`` posts
+    paths, file objects and bytes alike."""
+    ours, _, pngs = image_servers
+    before = ours.snapshot_stats()["images_extracted"]
+    ours.warmup(IMG_F, beam_sizes=(), buckets=[])
+    assert ours.snapshot_stats()["images_extracted"] - before == IMG_EXTRACT
+    client = CaptionClient(f"http://{ours.host}:{ours.port}", timeout=120)
+    want = client.caption_images(pngs)
+    with open(pngs[0], "rb") as f:
+        raw = f.read()
+    with open(pngs[1], "rb") as f:
+        assert client.caption_images([raw, f, pngs[2]]) == want
+    assert client.caption_images(pngs, beam_size=5) == _post_json(
+        ours, {"images_b64": _b64(pngs), "beam_size": 5})
