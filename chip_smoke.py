@@ -251,13 +251,45 @@ Phases:
      Captioner.caption_images / sample_images (without PIL it says so on a
      line of its own and runs the array routes only); the VGG's ms a batch
      and images/s, one image request's latency, and the phase's seconds.
+ 26. the word embeddings, on a synthetic bundle of 4096 + 1024 images x 5
+     captions (V = 1004, F = 512) whose vocabulary is rewritten to
+     letters-only words (simple_preprocess splits the generator's word0 at
+     its digits): (a) SGNS at full width (65536 pairs a step, size 300, 5
+     negatives, V = 1003 corpus words): the vectorised pair miner equal to
+     the JAX package's loop on this machine's numpy (and the generator's
+     state after it); one draw of negatives through the noise kernel
+     against the plain Gumbel draw on the card (equal but at near-ties);
+     three steps of word2vec and of fastText (131072 buckets) on the card
+     against the same steps on the CPU at 2048 pairs (rtol 1e-5, atol 1e-6,
+     the CPU tests' bound), two card runs of 20 full-width steps bit-equal,
+     and the host syncs of one step (PyTorch's sync debug mode); (b) 100
+     full-width steps of each timed (CUDA events): ms a step, pairs a
+     second, peak memory, 30 epochs at COCO-2014's corpus extrapolated from
+     the pair count, the pair mining's host seconds; (c) cli.main.main
+     --train_word2vec word2vec --save_word2vec w2v.bin --retrain
+     --training_size 2048 (the pretrainers' 50 / 100 / 50 epochs, one A2C
+     epoch, --test_size 1024): E = 300 and frozen tables, every network's
+     table in every .ckpt bit-equal to the aligned vectors (the .bin read
+     back and aligned as the run did), phase 21's checks, every kernel's
+     launches against the run's minibatches plus the noise kernel once an
+     SGNS step, the chain kernels' runs in a trace; --test_model of its
+     a2c .ckpt with --pretrained_word2vec w2v.bin; --train_word2vec
+     fasttext --save_word2vec ft.vec --retrain with one epoch a
+     pretrainer; (d) with that run's weights, greedy (N = 1024), beam-5
+     (N = 127) and top-k 40 + nucleus 0.9 sampling (N = 1024), both chains
+     forward and backward with the frozen tables, the rollout forward and
+     backward (N = 512, padded to E = 304 as the trainers pad it) and the
+     reward stream, bf16 and f32, each against its plain version under the
+     rules below.
 
 The last JSON line but two lists every kernel with its launches on its main
 paths, by path (serving for greedy; serving and the evaluation for the beam
 and the x-gate table; the pretrainers for the chains; A2C for the rest; the
 CLI's two runs of phase 21 for every kernel they launch; phase 24's runs as
-``chunked``; for the chains also ``runs_by_path``, the kernel's runs in the
-traces of phase 21's training run and phase 24, graph replays included), its
+``chunked``; phase 26's word-vector runs at E = 300 as ``embeddings``, the
+noise kernel's SGNS draws included; for the chains also ``runs_by_path``,
+the kernel's runs in the traces of phase 21's training run, phase 24 and
+phase 26's runs, graph replays included), its
 largest error against plain, its time and its plain version's, and its
 bound: the least time an H100 SXM could take
 (bytes over 3.35 TB/s or operations over 989 TFLOP/s bf16, 67 TFLOP/s for
@@ -368,10 +400,11 @@ equal the pure-Python ones to 1e-12 relative (the same float64 arithmetic
 in the same order; the JAX package holds its own native scorers so), on
 the dump's first 4064 lines (all of them would take ~12 s).
 
-The whole run takes about eight minutes of command time on the H100 (435-528
-s in two calls before phase 25, 462.5 s with it), the build (about 80-110
-s), phase 20 (about 30 s), phases 21-23 (about 130-160 s), phase 24 (about
-50-75 s) and phase 25 (about 15 s) included.
+The whole run takes about nine to ten minutes of command time on the H100
+(435-528 s in two calls before phase 25, 462.5 s with it, 529.4-565.6 s
+with phase 26), the build (about 80-110 s), phase 20 (about 30 s), phases 21-23
+(about 130-160 s), phase 24 (about 50-75 s), phase 25 (about 15 s) and
+phase 26 (about 90-100 s) included.
 """
 
 from __future__ import annotations
@@ -456,6 +489,23 @@ COMPAT_TRAINING_SIZE, COMPAT_EPOCHS, COMPAT_TEST_SIZE, FAITHFUL_ROWS = 1024, 3, 
 # phase 24: the trainers' chunk (minibatches a host dispatch, the default)
 # and the training size (32 minibatches of 512: two chunks)
 CHUNK_K, CHUNK_TRAINING_SIZE = 16, 16384
+# phase 26: SGNS at full width (pairs a step, vector size, negatives a pair,
+# the CLI's epochs), the steps timed, the card-vs-CPU comparison's batch and
+# steps (each CPU step draws its B x 5 x V noise in the plain version: ~3 s
+# at B = 2048 on an 8-core host, 6.4 s at 4096) and its bounds (the CPU
+# tests'), the steps of the two bit-equal runs; the letters-only bundle
+# (images a split, captions an image), the CLI runs' --training_size and
+# --test_size; the E = 300 kernel checks' rows; COCO-2014's captions (train
+# and val, the reference's corpus) for the extrapolation
+SGNS_B, SGNS_SIZE, SGNS_K, SGNS_EPOCHS = 65536, 300, 5, 30
+SGNS_TIMED, SGNS_CPU_B, SGNS_CPU_STEPS, SGNS_REPEAT = 100, 2048, 3, 20
+SGNS_RTOL, SGNS_ATOL = 1e-5, 1e-6
+W2V_TRAIN_IMAGES, W2V_VAL_IMAGES, W2V_CAPTIONS = 4096, 1024, 5
+W2V_TRAINING_SIZE, W2V_TEST_SIZE = 2048, 1024
+# the CLI runs: --train_word2vec, --save_word2vec, pretraining epochs
+W2V_RUNS = (("word2vec", "w2v.bin", (50, 100, 50)), ("fasttext", "ft.vec", (1, 1, 1)))
+E300_GREEDY_N, E300_BEAM_N, E300_ROLLOUT_N = 1024, 127, 512
+COCO_SENTENCES = 414113 + 202654
 
 
 T0 = time.perf_counter()
@@ -2575,6 +2625,29 @@ def check_training_run(log_dir: str, pre: str, suffix: str, train: dict, dev,
     return log
 
 
+def cli_expectations(minibatches: int, test_size: int, epochs: tuple = (50, 100, 50)
+                     ) -> tuple[dict, dict]:
+    """A --retrain run's launches as the wrappers count them and the chain
+    kernels' runs in a trace of it, for ``minibatches`` a pretraining epoch
+    and A2C's one epoch, ``epochs`` of the reward, policy and value
+    pretrainers and a --test_size of ``test_size``: the reward and policy
+    pretrainers replay one CUDA graph a chunk (their wrappers count the
+    warm-up and the capture, the trace every run), the value pretrainer's
+    chunks run eagerly (a greedy decode a step), A2C draws its noise once a
+    minibatch, the test one beam launch a group."""
+    groups = -(-(-(-test_size // EVAL_VBS)) // EVAL_GROUP)
+    warm, value = len(chunk_sizes(minibatches)), epochs[2] * minibatches
+    gru, lstm = captured_launches(minibatches), captured_launches(minibatches) + value
+    launches = {"gru_chain_fwd": gru, "gru_chain_bwd": gru, "lstm_chain_fwd": lstm,
+                "lstm_chain_bwd": lstm, "greedy_decode": value, "rollout_fwd": minibatches,
+                "rollout_bwd": minibatches, "threefry_gumbel": minibatches,
+                "beam_search": groups}
+    runs = {f"gru_chain_{d}": epochs[0] * minibatches + warm for d in ("fwd", "bwd")}
+    runs.update({f"lstm_chain_{d}": epochs[1] * minibatches + warm + value
+                 for d in ("fwd", "bwd")})
+    return launches, runs
+
+
 def cli_main_path(dev, card: str, tmp: str) -> dict:
     """Phase 21: the CLI's main path on the card, in the working directory
     ``tmp`` (the CLI writes logs/ under it): the full-size bundle
@@ -2610,19 +2683,7 @@ def cli_main_path(dev, card: str, tmp: str) -> dict:
                                  f"{sorted(CLI_ARTIFACTS | tb_runs())}")
         log = check_training_run(log_dir, pre, "", train, dev, tmp)
         minibatches = CLI_TRAINING_SIZE // BATCH
-        groups = -(-(-(-CLI_TEST_SIZE // EVAL_VBS)) // EVAL_GROUP)
-        # the reward and policy pretrainers replay one CUDA graph a chunk
-        # (their wrappers count the warm-up and the capture, the trace every
-        # run); the value pretrainer's chunks run eagerly
-        warm, value = len(chunk_sizes(minibatches)), 50 * minibatches
-        gru, lstm = captured_launches(minibatches), captured_launches(minibatches) + value
-        steps_run = {"gru_chain_fwd": gru, "gru_chain_bwd": gru, "lstm_chain_fwd": lstm,
-                     "lstm_chain_bwd": lstm, "greedy_decode": value,
-                     "rollout_fwd": minibatches, "rollout_bwd": minibatches,
-                     "threefry_gumbel": minibatches, "beam_search": groups}
-        want_runs = {f"gru_chain_{d}": 50 * minibatches + warm for d in ("fwd", "bwd")}
-        want_runs.update({f"lstm_chain_{d}": 100 * minibatches + warm + value
-                          for d in ("fwd", "bwd")})
+        steps_run, want_runs = cli_expectations(minibatches, CLI_TEST_SIZE)
         if (any(train_launches[k] != v for k, v in steps_run.items())
                 or train_launches["token_gates"] < 1 or train_runs != want_runs):
             raise AssertionError(f"the training run's launches {train_launches}, expected "
@@ -4055,6 +4116,568 @@ def visual_front_end(dev, card: str, params: dict, tmp: str) -> dict:
     return out
 
 
+# phase 26: word embeddings (SGNS word2vec and fastText; the CLI's
+# --train_word2vec and --pretrained_word2vec; every model kernel at E = 300)
+
+
+def letters_word(i: int) -> str:
+    """Body word ``i`` of a letters-only vocabulary: ``w`` and three base-26
+    letters (kept whole by simple_preprocess, which splits ``word12`` at its
+    digits)."""
+    return "w" + "".join(chr(97 + (i // 26 ** p) % 26) for p in (2, 1, 0))
+
+
+def letters_bundle(tmp: str) -> tuple:
+    """Phase 26: a synthetic COCO-width bundle (W2V_TRAIN_IMAGES and
+    W2V_VAL_IMAGES images, W2V_CAPTIONS captions each, V = 1004, F = 512)
+    written by the port's make_synthetic_coco, its vocabulary file rewritten
+    to letters-only words with the four specials at their ids (the
+    generator's ``word0``... would all become ``word`` and align to
+    nothing). Returns the directory and the bundle read back."""
+    from image_captioning_through_rl_tpu_torch.data.coco import load_data
+    from image_captioning_through_rl_tpu_torch.data.synthetic import make_synthetic_coco
+
+    bundle = os.path.join(tmp, "letters")
+    make_synthetic_coco(bundle, W2V_TRAIN_IMAGES, W2V_VAL_IMAGES, W2V_CAPTIONS, V, F, T,
+                        seed=SEED + 26)
+    words = ["<NULL>", "<START>", "<END>", "<UNK>"] + [letters_word(i) for i in range(V - 4)]
+    with open(os.path.join(bundle, "coco2014_vocab.json"), "w") as f:
+        json.dump({"word_to_idx": {w: i for i, w in enumerate(words)}, "idx_to_word": words}, f)
+    return bundle, load_data(bundle)
+
+
+def mine_pairs_loop(corpus, word_to_id: dict, window: int, rng) -> np.ndarray:
+    """The JAX package's pair miner, a window draw a word: the plain version
+    of the port's vectorised ``word2vec._mine_pairs``."""
+    pairs = []
+    for sent in corpus:
+        ids = [word_to_id[w] for w in sent if w in word_to_id]
+        for i, c in enumerate(ids):
+            b = int(rng.integers(1, window + 1))
+            for j in range(max(0, i - b), min(len(ids), i + b + 1)):
+                if j != i:
+                    pairs.append((c, ids[j]))
+    return np.asarray(pairs, dtype=np.int32).reshape(-1, 2)
+
+
+def sgns_start(corpus, subwords: bool):
+    """``word2vec._sgns_start`` on the CPU with train_sgns's defaults (size
+    300, window 5, 131072 buckets of 32 n-grams, the CLI's seed 0)."""
+    from image_captioning_through_rl_tpu_torch.embeddings import word2vec as w2v
+
+    return w2v._sgns_start(corpus, SGNS_SIZE, 5, 1, subwords, 1 << 17, 32, 0,
+                           torch.device("cpu"))
+
+
+def sgns_prepare(start, subwords: bool, dev, batch: int, steps: int) -> dict:
+    """A train_sgns run on ``dev`` from a copy of ``start`` (a
+    ``word2vec._sgns_start`` on the CPU) at this batch, ready for ``steps``
+    steps: the tables and operands on the device, its permutations' batches
+    and its learning rates (over SGNS_EPOCHS epochs), the key and the step."""
+    import copy
+
+    from image_captioning_through_rl_tpu_torch.embeddings import word2vec as w2v
+    from image_captioning_through_rl_tpu_torch.ops import prng
+
+    _, params, grams, wts, logits, pairs, rng = start
+    rng, n = copy.deepcopy(rng), pairs.shape[0]
+    per_epoch = -(-n // batch)
+    order = np.concatenate([w2v._epoch_batches(rng, n, batch)
+                            for _ in range(-(-steps // per_epoch))])[:steps]
+    total = SGNS_EPOCHS * per_epoch
+    lrs = np.asarray([max(1e-4, 0.025 * (1.0 - s / total)) for s in range(steps)],
+                     dtype=np.float32)
+    return {"params": {k: v.to(dev, copy=True) for k, v in params.items()},
+            "grams": grams.to(dev), "wts": wts.to(dev), "logits": logits.to(dev),
+            "pairs": torch.as_tensor(pairs.astype(np.int64)).to(dev),
+            "batches": torch.as_tensor(order).to(dev), "lrs": torch.as_tensor(lrs).to(dev),
+            "key": prng.PRNGKey(0), "step": w2v._make_sgns_step(SGNS_K, subwords), "at": 0}
+
+
+def sgns_step(run: dict) -> torch.Tensor:
+    """The run's next step, as train_sgns takes it (the key split on the
+    host, then the step); returns its loss."""
+    from image_captioning_through_rl_tpu_torch.ops import prng
+
+    s = run["at"] % run["batches"].shape[0]
+    run["key"], sub = prng.split(run["key"])
+    sel = run["batches"][s]
+    run["params"], loss = run["step"](run["params"], run["grams"], run["wts"], run["lrs"][s],
+                                      run["pairs"][sel, 0], run["pairs"][sel, 1], sub,
+                                      run["logits"])
+    run["at"] += 1
+    return loss
+
+
+def sgns_run(start, subwords: bool, dev, batch: int, steps: int) -> dict:
+    """``steps`` steps of :func:`sgns_prepare`'s run: the tables, the
+    losses, and on a CUDA device the ms a step (CUDA events around the
+    loop, the host's key splits and launches included) and the run's peak
+    memory (MB: its tables, operands and steps, above what the device held
+    before it)."""
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    run = sgns_prepare(start, subwords, dev, batch, steps)
+    if cuda:
+        torch.cuda.synchronize()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+    losses = torch.stack([sgns_step(run) for _ in range(steps)])
+    out = {"params": run["params"], "losses": losses, "run": run}
+    if cuda:
+        t1.record()
+        torch.cuda.synchronize()
+        out["ms"] = t0.elapsed_time(t1) / steps
+        out["peak_mb"] = (torch.cuda.max_memory_allocated() - base) / 2**20
+    return out
+
+
+def sync_warnings(fn) -> list:
+    """``fn()`` under PyTorch's sync debug mode: the first line of each
+    warning it gives for an operation that syncs the host with the card."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def sgns_negatives(logits: torch.Tensor, dev) -> str:
+    """Phase 26a: one full-width draw of negatives, [SGNS_B, SGNS_K] from
+    the vocabulary's unigram^0.75 logits, through the noise kernel against
+    the plain Gumbel draw on the card: equal index for index (a pair may
+    part only at a near-tie of the plain draw, NEAR_TIE, in at most
+    MAX_DIFF_SHARE of them), the noise within GUMBEL_ULPS."""
+    from image_captioning_through_rl_tpu_torch.ops import prng
+
+    key = prng.split(prng.PRNGKey(SEED + 26))[1]
+    shape = (SGNS_B, SGNS_K, logits.shape[0])
+    before = prng.gumbel_noise.launches
+    k_neg = prng.categorical(key, logits, shape=shape[:2])
+    launches = prng.gumbel_noise.launches - before
+    k_noise = prng.gumbel(key, shape, dev)
+    scores = prng.gumbel_noise_plain(key[None], shape, dev)[0]
+    big = scores.abs().clamp_min(1.0)
+    ulps = float(((k_noise - scores).abs() / (torch.nextafter(big, big + 1) - big)).max())
+    del k_noise, big
+    scores.add_(logits)
+    p_neg = scores.argmax(-1)
+    differ = k_neg != p_neg
+    n_diff = int(differ.sum())
+    gap = float("nan")
+    if n_diff:
+        top2 = scores[differ].topk(2, dim=-1).values
+        gap = float((top2[:, 0] - top2[:, 1]).max())
+        if gap >= NEAR_TIE or n_diff > MAX_DIFF_SHARE * k_neg.numel():
+            raise AssertionError(f"SGNS negatives: {n_diff} differ from the plain draw, largest "
+                                 f"plain gap there {gap:.3g}")
+    if launches != 1 or k_neg.shape != shape[:2] or not ulps <= GUMBEL_ULPS:
+        raise AssertionError(f"SGNS negatives: {launches} noise launches, shape "
+                             f"{tuple(k_neg.shape)}, noise {ulps:.3g} ulps from plain")
+    return (f"negatives [{SGNS_B}, {SGNS_K}] over V={shape[2]} (one noise launch, "
+            f"{shape[0] * shape[1] * shape[2]} Gumbel entries): {n_diff} differ from the plain "
+            f"draw (largest plain gap there {gap:.3g}); noise within {ulps:.3g} ulps")
+
+
+def sgns_main_path(dev, card: str, corpus) -> dict:
+    """Phase 26a-b: SGNS at full width on the letters-only corpus (word2vec
+    and fastText): the vectorised miner against the loop on this machine's
+    numpy (the pairs, and the generator's state after them); the negatives
+    against the plain draw; SGNS_CPU_STEPS steps on the card against the
+    same steps on the CPU at a batch of SGNS_CPU_B (SGNS_RTOL, SGNS_ATOL);
+    two card runs of SGNS_REPEAT full-width steps bit-equal; the host syncs
+    of one step (PyTorch's sync debug mode); then SGNS_TIMED full-width
+    steps timed (CUDA events): ms a step, pairs a second, peak memory, and
+    30 epochs at COCO-2014's corpus size extrapolated from the pair count.
+    Returns the numbers."""
+    from image_captioning_through_rl_tpu_torch.embeddings import word2vec as w2v
+
+    word_to_id, _ = w2v.build_vocab(corpus)
+    rngs = (np.random.default_rng(SEED), np.random.default_rng(SEED))
+    t0 = time.perf_counter()
+    pairs = w2v._mine_pairs(corpus, word_to_id, 5, rngs[0])
+    mine_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loop = mine_pairs_loop(corpus, word_to_id, 5, rngs[1])
+    loop_s = time.perf_counter() - t0
+    if not (np.array_equal(pairs, loop) and pairs.dtype == loop.dtype
+            and rngs[0].bit_generator.state == rngs[1].bit_generator.state):
+        raise AssertionError("the vectorised pair miner differs from the loop (pairs or the "
+                             "generator's state after them)")
+    phase("embeddings", f"corpus of {len(corpus)} sentences, V={len(word_to_id)}: "
+                        f"{pairs.shape[0]} pairs, the vectorised miner equal to the loop on "
+                        f"numpy {np.__version__} (the generator's state too): "
+                        f"{mine_s:.3f} s against {loop_s:.3f} s")
+    out = {"pairs": pairs.shape[0], "sentences": len(corpus), "vocab": len(word_to_id),
+           "mine_s": mine_s, "loop_s": loop_s}
+    for subwords, kind in ((False, "word2vec"), (True, "fasttext")):
+        start = sgns_start(corpus, subwords)
+        if kind == "word2vec":
+            phase("embeddings", sgns_negatives(start[4].to(dev), dev))
+        cpu = sgns_run(start, subwords, torch.device("cpu"), SGNS_CPU_B, SGNS_CPU_STEPS)
+        card_run = sgns_run(start, subwords, dev, SGNS_CPU_B, SGNS_CPU_STEPS)
+        errs, rels = {}, {}
+        for k, want in cpu["params"].items():
+            got = card_run["params"][k].cpu()
+            if not torch.allclose(got, want, rtol=SGNS_RTOL, atol=SGNS_ATOL):
+                raise AssertionError(f"SGNS {kind} {k}: card vs CPU after {SGNS_CPU_STEPS} steps "
+                                     f"beyond rtol {SGNS_RTOL}, atol {SGNS_ATOL}")
+            moved = want - start[1][k]
+            errs[k] = float((got - want).abs().max())
+            rels[k] = float((got - want).norm() / max(float(moved.norm()), 1e-30))
+        if not torch.allclose(card_run["losses"].cpu(), cpu["losses"], rtol=SGNS_RTOL,
+                              atol=SGNS_ATOL):
+            raise AssertionError(f"SGNS {kind} losses: card {card_run['losses'].tolist()}, CPU "
+                                 f"{cpu['losses'].tolist()}")
+        runs = [sgns_run(start, subwords, dev, SGNS_B, SGNS_REPEAT) for _ in range(2)]
+        same = [k for k in runs[0]["params"]
+                if not torch.equal(runs[0]["params"][k], runs[1]["params"][k])]
+        if same or not torch.equal(runs[0]["losses"], runs[1]["losses"]):
+            raise AssertionError(f"SGNS {kind}: two card runs of {SGNS_REPEAT} steps differ in "
+                                 f"{same or 'the losses'}")
+        if not bool(torch.isfinite(runs[0]["losses"]).all()):
+            raise AssertionError(f"SGNS {kind}: a loss is not finite")
+        run = sgns_prepare(start, subwords, dev, SGNS_B, 2)
+        sgns_step(run)
+        syncs = sync_warnings(lambda: sgns_step(run))
+        phase("embeddings", f"{kind} B={SGNS_CPU_B}, {SGNS_CPU_STEPS} steps, card vs CPU: max "
+                            f"abs error " + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+              + f" (rtol {SGNS_RTOL}, atol {SGNS_ATOL}); relative to the update "
+              + ", ".join(f"{k} {v:.3g}" for k, v in rels.items())
+              + f"; losses {[round(x, 6) for x in cpu['losses'].tolist()]} | B={SGNS_B}: two "
+                f"runs of {SGNS_REPEAT} steps bit-equal (tables and losses) | host syncs in a "
+                f"step: {len(syncs)}" + (f" ({syncs[0]})" if syncs else ""))
+        timed = sgns_run(start, subwords, dev, SGNS_B, SGNS_TIMED)
+        profile = profile_window(lambda: sgns_step(timed["run"]), 3)
+        coco_pairs = pairs.shape[0] / len(corpus) * COCO_SENTENCES
+        coco_steps = SGNS_EPOCHS * -(-int(coco_pairs) // SGNS_B)
+        out[kind] = {"ms": timed["ms"], "peak_mb": timed["peak_mb"], "syncs": len(syncs),
+                     "coco_s": coco_steps * timed["ms"] / 1e3, "err": max(errs.values())}
+        phase("timing", f"{card} | SGNS {kind} B={SGNS_B} size {SGNS_SIZE} K={SGNS_K} "
+                        f"V={len(word_to_id)}: {timed['ms']:.3f} ms a step over {SGNS_TIMED} "
+                        f"steps ({SGNS_B / timed['ms'] * 1e3:.4g} pairs/s), peak memory "
+                        f"{timed['peak_mb']:.1f} MB | COCO-2014 ({COCO_SENTENCES} sentences, "
+                        f"~{coco_pairs:.4g} pairs at this corpus's {pairs.shape[0] / len(corpus):.2f}"
+                        f" a sentence): {coco_steps} steps for {SGNS_EPOCHS} epochs, "
+                        f"{out[kind]['coco_s']:.1f} s extrapolated; pair mining "
+                        f"{mine_s / len(corpus) * COCO_SENTENCES:.1f} s extrapolated | a step "
+                        f"in torch.profiler: {profile}")
+    return out
+
+
+def frozen_tables(pre: str, log_dir: str, train: dict, aligned: np.ndarray, dev) -> None:
+    """Every network's embedding table in every checkpoint of a run
+    (the three pretrainers' files, both a2c files' policy and value)
+    bit-equal to the aligned vectors the run started from."""
+    from image_captioning_through_rl_tpu_torch.train import checkpoint as ckpt
+
+    want = torch.as_tensor(aligned).to(dev)
+    tables = {k: ckpt.load_network(k, os.path.join(pre, f"{k}Network.ckpt"), dev,
+                                   train["cfg"])["embedding"]
+              for k in ("reward", "policy", "value")}
+    for where in (pre, log_dir):
+        tree = ckpt.load_network("a2c", os.path.join(where, "a2cNetwork.ckpt"), dev, train["cfg"])
+        tables.update({f"a2c {k} ({where})": tree[k]["embedding"] for k in ("policy", "value")})
+    moved = [k for k, t in tables.items() if not torch.equal(t, want)]
+    if moved or want.shape != (V, SGNS_SIZE):
+        raise AssertionError(f"embedding tables not the aligned vectors: {moved}")
+
+
+def check_w2v_launches(kind: str, launches: dict, runs: dict, minibatches: int, epochs: tuple,
+                       sgns_steps: int) -> None:
+    """A word-vector run's launches: a --retrain run's (cli_expectations),
+    the noise kernel once more an SGNS step, the reward stream in none (it
+    runs fused into the rollout)."""
+    want, want_runs = cli_expectations(minibatches, W2V_TEST_SIZE, epochs)
+    want["threefry_gumbel"] += sgns_steps
+    if (any(launches[k] != v for k, v in want.items()) or launches["token_gates"] < 1
+            or launches["reward_stream"] or runs != want_runs):
+        raise AssertionError(f"the {kind} run's launches {launches}, expected {want}; chain "
+                             f"kernels run {runs}, expected {want_runs}")
+
+
+def embeddings_cli(dev, card: str, bundle: str, tmp: str) -> dict:
+    """Phase 26c: cli.main.main on the letters-only bundle: --train_word2vec
+    word2vec --save_word2vec w2v.bin --retrain (the pretrainers' 50 / 100 /
+    50 epochs over W2V_TRAINING_SIZE captions, one A2C epoch, --test_size
+    W2V_TEST_SIZE): the artifacts, finite losses, seven finite scores, every
+    .ckpt read back bit-equal, every network's table bit-equal to the
+    aligned vectors (the .bin read back and aligned to the vocabulary as the
+    run did, numpy's global draws replayed), every kernel's launches against
+    the run's minibatches and SGNS steps and the chain kernels' runs in a
+    trace; then --test_model of its a2c .ckpt with --pretrained_word2vec
+    w2v.bin; then --train_word2vec fasttext --save_word2vec ft.vec --retrain
+    with one epoch a pretrainer. Returns the launches and runs of the three
+    runs and the trained weights."""
+    import importlib
+
+    from image_captioning_through_rl_tpu_torch.data.coco import load_data
+    from image_captioning_through_rl_tpu_torch.embeddings import (
+        get_preprocessed_corpus, get_vectors_by_vocab, load_word2vec_format)
+    from image_captioning_through_rl_tpu_torch.train import checkpoint as ckpt
+
+    cli = importlib.import_module("image_captioning_through_rl_tpu_torch.cli.main")
+    counters = kernel_counters()
+    log_path = os.path.join(tmp, "embeddings_cli.log")
+    minibatches = W2V_TRAINING_SIZE // BATCH
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    out = {"launches": {}, "runs": {}}
+    try:
+        for kind, vectors, epochs in W2V_RUNS:
+            pre = os.path.join(tmp, f"pre_{kind}")
+            vec_path = os.path.join(tmp, vectors)
+            runs = {}
+            np.random.seed(SEED)  # the --training_size draw and the OOV rows
+            with (contextlib.nullcontext() if epochs == (50, 100, 50)
+                  else pretrain_epochs(epochs[0])):
+                train, launches, secs = cli_run(
+                    cli, ["--data_dir", bundle, "--train_word2vec", kind, "--save_word2vec",
+                          vec_path, "--retrain", "--training_size", str(W2V_TRAINING_SIZE),
+                          "--epochs", "1", "--batch_size", str(BATCH), "--test_size",
+                          str(W2V_TEST_SIZE), "--pretrained_path", pre, "--seed", str(SEED),
+                          "--device", "cuda"], log_path, counters, runs)
+            log_dir = os.path.join(tmp, train["log_dir"])
+            files = set(os.listdir(log_dir))
+            if files != CLI_ARTIFACTS | tb_runs():
+                raise AssertionError(f"the {kind} run wrote {sorted(files)}")
+            if train["cfg"].wordvec_dim != SGNS_SIZE or not train["cfg"].freeze_embeddings:
+                raise AssertionError(f"the {kind} run's config {train['cfg']}")
+            log = check_training_run(log_dir, pre, "", train, dev, tmp, minibatches, epochs)
+            # the run's own draws again: load_data's --training_size draw, then
+            # the alignment's OOV rows, from numpy's global generator
+            np.random.seed(SEED)
+            data = load_data(bundle, max_train=W2V_TRAINING_SIZE)
+            model = load_word2vec_format(vec_path)
+            aligned = get_vectors_by_vocab(model, data.word_to_idx)
+            frozen_tables(pre, log_dir, train, aligned, dev)
+            sgns_steps = SGNS_EPOCHS * -(-sgns_start(get_preprocessed_corpus(data),
+                                                     kind == "fasttext")[5].shape[0] // SGNS_B)
+            check_w2v_launches(kind, launches, runs, minibatches, epochs, sgns_steps)
+            out["launches"][kind], out["runs"][kind] = launches, runs
+            phase("embeddings", f"cli --train_word2vec {kind} --save_word2vec {vectors} "
+                                f"--retrain (--training_size {W2V_TRAINING_SIZE}: {minibatches} "
+                                f"minibatches x {' / '.join(map(str, epochs))} pretraining "
+                                f"epochs, 1 A2C epoch) in {secs:.1f} s (word2vec stage "
+                                f"{train['seconds']['word2vec']:.1f} s: {sgns_steps} SGNS steps "
+                                f"of {SGNS_B} pairs); {len(model)} vectors of {SGNS_SIZE}; E = "
+                                f"{train['cfg'].wordvec_dim}, tables frozen: every checkpoint's "
+                                f"bit-equal to the aligned vectors; {len(log)} finite losses, "
+                                f"seven finite scores, every .ckpt read back bit-equal; "
+                                f"launches {launches}; chain kernels run {runs}")
+            if kind != "word2vec":
+                continue
+            out["params"], out["cfg"], out["data"] = train["params"], train["cfg"], data
+            out["reward"] = ckpt.load_network("reward", os.path.join(pre, "rewardNetwork.ckpt"),
+                                              dev, train["cfg"])
+            ev, ev_launches, ev_s = cli_run(
+                cli, ["--data_dir", bundle, "--test_model", os.path.join(log_dir,
+                                                                         "a2cNetwork.ckpt"),
+                      "--pretrained_word2vec", vec_path, "--test_size", str(W2V_TEST_SIZE),
+                      "--pretrained_path", pre, "--seed", str(SEED), "--device", "cuda"],
+                log_path, counters)
+            groups = cli_expectations(minibatches, W2V_TEST_SIZE)[0]["beam_search"]
+            if (len(score_blocks(os.path.join(log_dir, "results.txt"))) != 2
+                    or ev["cfg"].wordvec_dim != SGNS_SIZE
+                    or ev_launches["beam_search"] != groups
+                    or any(v for k, v in ev_launches.items()
+                           if k not in ("beam_search", "token_gates"))):
+                raise AssertionError(f"the --test_model run: launches {ev_launches}, config "
+                                     f"{ev['cfg']}")
+            out["launches"]["eval"] = ev_launches
+            phase("embeddings", f"cli --test_model {train['log_dir']}/a2cNetwork.ckpt "
+                                f"--pretrained_word2vec {vectors} (--test_size {W2V_TEST_SIZE})"
+                                f" in {ev_s:.1f} s: a second block of seven finite scores; "
+                                f"launches {ev_launches}")
+    finally:
+        os.chdir(cwd)
+    return out
+
+
+def e300_kernels(dev, cli_out: dict) -> None:
+    """Phase 26d: every model kernel at E = 300 (padded to 304 by the
+    wrappers) and H = F = 512, with the weights of phase 26c's word2vec run
+    (the frozen tables), bf16 and f32, against its plain version: greedy at
+    N = 1024, beam-5 at N = 127 and top-k 40 + nucleus 0.9 sampling at
+    N = 1024 under the near-tie rules; both chains forward and backward
+    (the tables frozen, as the trainers run them) under CHAIN_TOL; the
+    rollout forward and backward and the reward stream (:func:`e300_rollout`),
+    with these weights and with the initialisers' over the same tables."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.models import policy, reward, value
+    from image_captioning_through_rl_tpu_torch.ops import prng
+    from image_captioning_through_rl_tpu_torch.ops.fused_beam import prepare_beam_weights
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
+        fused_greedy_decode, greedy_decode_plain, prepare_greedy_weights)
+    from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain
+    from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain
+    from image_captioning_through_rl_tpu_torch.ops.fused_sample import (
+        fused_sample_decode, sample_decode_plain)
+
+    params, rparams, cfg, data = (cli_out[k] for k in ("params", "reward", "cfg", "data"))
+
+    def detached(tree):
+        return ({k: detached(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.detach())
+
+    params = detached(params)
+    # the same shapes and tables from the initialisers, beside the trained weights
+    init_gen = torch.Generator().manual_seed(SEED + 263)
+    table = params["policy"]["embedding"].cpu()
+    initial = (to_device({"value": value.init(init_gen, cfg, table),
+                          "policy": policy.init(init_gen, cfg, table)}, dev),
+               to_device(reward.init(init_gen, cfg, table), dev))
+    feats_all = torch.as_tensor(data.train_features[data.train_image_idxs]).to(dev)
+    caps_all = torch.as_tensor(data.train_captions.astype(np.int64)).to(dev)
+    gen = torch.Generator().manual_seed(SEED + 260)
+    for wd in (torch.bfloat16, torch.float32):
+        name = str(wd)[6:]
+        gw = prepare_greedy_weights(params["policy"], wd)
+        bw = prepare_beam_weights(gw, params["value"])
+        n = E300_GREEDY_N
+        feats = feats_all[:n].contiguous()
+        start = torch.full((n,), START_ID, dtype=torch.int32, device=dev)
+        k_tok = fused_greedy_decode(gw, feats, start, T)
+        torch.cuda.synchronize()
+        p_tok, gaps = greedy_decode_plain(gw, feats, start, T, margins=True)
+        g_bad, _, _ = check_rows(
+            "E=300 greedy", k_tok, p_tok,
+            lambda bad: gaps[bad].gather(
+                1, first_divergent_step(k_tok[bad], p_tok[bad])[:, None].long())[:, 0])
+        b_bad, _, b_err = compare_beam("E=300 beam", bw, feats[:E300_BEAM_N].contiguous(),
+                                       start[:E300_BEAM_N].contiguous(), BEAM, wd)
+        key = prng.PRNGKey(SEED + 261)
+        _, t, k, p = SAMPLE_VARIANTS[3]
+        k_tok = fused_sample_decode(gw, feats, start, key, T, t, k, p)
+        torch.cuda.synchronize()
+        p_tok, margins = sample_decode_plain(gw, feats, start, key, T, t, k, p, margins=True)
+        s_bad, _, _ = check_rows(
+            "E=300 sample", k_tok, p_tok,
+            lambda bad: margins[bad].gather(
+                1, first_divergent_step(k_tok[bad], p_tok[bad])[:, None].long())[:, 0],
+            SAMPLE_NEAR_TIE[wd])
+        phase("embeddings", f"E={cfg.wordvec_dim} (kernel width {gw.emb.shape[1]}) H=F={H} "
+                            f"{name}, the word2vec run's weights: rows that differ at near-ties: "
+                            f"greedy {g_bad}/{n}, beam-5 {b_bad}/{E300_BEAM_N} (score max abs "
+                            f"err {b_err:.3g}), top-k 40 + nucleus 0.9 {s_bad}/{n}")
+
+        report = []
+        for kind, chain, tree, steps in (("lstm", fused_lstm_chain, params["policy"], T - 1),
+                                         ("gru", fused_gru_chain, rparams, T)):
+            weights = {k: v.detach().clone().requires_grad_() for k, v in tree[kind].items()}
+            tok = caps_all[:CHAIN_N, :steps].contiguous()
+            states = [(0.5 * torch.randn((CHAIN_N, H), generator=gen)).to(dev).requires_grad_()
+                      for _ in range(2 if kind == "lstm" else 1)]
+            dhs = torch.randn((CHAIN_N, steps, H), generator=gen).to(dev)
+            emb = tree["embedding"]  # frozen: no gradient asked, as in training
+
+            def run(fused):
+                hs = chain(weights, emb, tok, *states, weight_dtype=wd, use_fused_kernel=fused)
+                return [hs.detach(), *torch.autograd.grad(hs, [*weights.values(), *states], dhs)]
+
+            got, want = run(None), run(False)
+            names = ["hs", *weights, "h0", "c0"]
+            rels = {nm: float((a - b).norm() / b.norm()) for nm, a, b in zip(names, got, want)}
+            if max(rels.values()) > CHAIN_TOL[wd] or not all(
+                    bool(torch.isfinite(a).all()) for a in got):
+                raise AssertionError(f"E=300 {kind} chain {name}: relative errors {rels}")
+            report.append(f"{kind} chain T={steps} largest relative error "
+                          f"{max(rels.values()):.3g} ({max(rels, key=rels.get)}; bound "
+                          f"{CHAIN_TOL[wd]})")
+
+        for label, nets, reward_net in (("trained", params, rparams), ("initial", *initial)):
+            msg = e300_rollout(dev, nets, reward_net, cfg, feats_all, caps_all, wd, gen)
+            report.append(f"rollout and reward stream, {label} weights: {msg}")
+        phase("embeddings", f"E={cfg.wordvec_dim} H=F={H} {name}: " + "; ".join(report))
+
+
+def e300_rollout(dev, nets: dict, rparams: dict, cfg, feats_all, caps_all, wd, gen) -> str:
+    """Phase 26d: the rollout forward and backward (E300_ROLLOUT_N rows,
+    S = 16, curr_seq_len 1, E padded to a multiple of 8 as the trainers'
+    rollout pads it) against plain under phase 13's rules, and the reward
+    stream on its actions and tokens under phase 12's. Phase 13's bound on
+    values, log-probs and rewards is scaled by each output's largest plain
+    magnitude (at least 1): phase 13's reason for it, a bf16 rounding that
+    two sum orders straddle moving a product by ~1e-3 of its size, grows
+    with the logits, and a trained policy's log-probs reach ~14 (measured,
+    bf16: 0.00232 at magnitude 14.4; values and rewards below 1 keep the
+    bound as it is). Returns a report."""
+    from image_captioning_through_rl_tpu_torch.ops import fused_rollout as fr
+    from image_captioning_through_rl_tpu_torch.ops import prng
+
+    name = str(wd)[6:]
+    n, steps = E300_ROLLOUT_N, S
+    feats = feats_all[:n].contiguous()
+    caps = caps_all[:n].contiguous()
+    with torch.no_grad():
+        states = fr.start_states(nets, cfg, feats, caps[:, 0])
+    noise = prng.gumbel_noise(prng.split(prng.PRNGKey(SEED + 262), steps), (n, V), dev)
+    teach = caps[:, 1:].t().to(torch.int32).contiguous()
+    rw = fr.prepare_reward_weights(rparams, feats, caps[:, 0], wd)
+    padded, feats, states = fr.pad_rollout_inputs(nets, feats, states)
+    w = fr.prepare_rollout_weights(padded, wd)
+    args = (1, teach, noise, rw, feats, *states, w)
+    k_val, k_logp, k_rew, tape = fr.rollout_forward_kernel(*args)
+    torch.cuda.synchronize()
+    p_val, p_logp, p_rew, p_tape, gaps = fr.rollout_forward_plain(*args, margins=True)
+    differ = tape.act != p_tape.act
+    first = differ.int().argmax(dim=0)
+    r_bad, _, _ = check_rows(f"E=300 rollout {name}", tape.act.t(), p_tape.act.t(),
+                             lambda bad: gaps.gather(0, first[None])[0][bad])
+    ok = ~differ.any(dim=0)
+    errs = {k: (float((a - b)[:, ok].abs().max()), float(b[:, ok].abs().max()))
+            for k, a, b in (("values", k_val, p_val), ("log_probs", k_logp, p_logp),
+                            ("rewards", k_rew, p_rew))}
+    dval, dlogp = (torch.randn((steps, n), generator=gen).to(dev) for _ in range(2))
+    got = fr.rollout_backward_kernel(tape, feats, w, dval, dlogp)
+    torch.cuda.synchronize()
+    want = fr.rollout_backward_plain(tape, feats, w, dval, dlogp)
+    rels = {k: float((a - b).norm() / max(float(b.norm()), 1e-30))
+            for k, a, b in zip(GRAD_NAMES, got, want)}
+    msg = (f"{r_bad} row(s) differ at near-ties; forward max abs error (largest plain "
+           f"magnitude) " + ", ".join(f"{k} {e:.3g} ({m:.3g})" for k, (e, m) in errs.items())
+           + f" (bound {ROLLOUT_TOL[wd]} x the magnitude, at least 1); backward largest relative "
+             f"{max(rels.values()):.3g} ({max(rels, key=rels.get)}; bound {CHAIN_TOL[wd]})")
+    if not (all(np.isfinite(e) and e <= ROLLOUT_TOL[wd] * max(1.0, m) for e, m in errs.values())
+            and max(rels.values()) <= CHAIN_TOL[wd]):
+        raise AssertionError(f"E=300 rollout {name}: {msg}")
+    _, stream = check_reward_stream(f"E=300 {name}", rw, tape.act, tape.tok, k_rew)
+    return msg + f"; reward stream: {stream}"
+
+
+def embeddings_main_path(dev, card: str, tmp: str) -> dict:
+    """Phase 26: the letters-only bundle, SGNS at full width (26a-b), the
+    CLI's word-vector runs (26c), every model kernel at E = 300 (26d).
+    Returns the SGNS numbers and the CLI runs' launches and chain runs."""
+    from image_captioning_through_rl_tpu_torch.embeddings import get_preprocessed_corpus
+
+    t0 = time.perf_counter()
+    bundle, data = letters_bundle(tmp)
+    corpus = get_preprocessed_corpus(data)
+    sgns = sgns_main_path(dev, card, corpus)
+    cli_out = embeddings_cli(dev, card, bundle, tmp)
+    e300_kernels(dev, cli_out)
+    launches = {}
+    for counts in cli_out["launches"].values():
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    runs = {k: sum(r[k] for r in cli_out["runs"].values()) for k in CHAIN_RUNS}
+    seconds = time.perf_counter() - t0
+    phase("timing", f"{card} | phase 26: {seconds:.1f} s | the run so far "
+                    f"{time.perf_counter() - T0:.1f} s")
+    return {"sgns": sgns, "launches": launches, "runs": runs, "seconds": seconds}
+
+
 def host_us(fn, iters: int = 200) -> float:
     """Phase 6: the host's microseconds a call of ``fn`` (back-to-back calls
     that queue faster than the card runs them: the host side alone)."""
@@ -4496,6 +5119,11 @@ def main() -> int:
                     f"{time.perf_counter() - t25 - vision['seconds']:.1f} s, visual front end "
                     f"{vision['seconds']:.1f} s) | the run so far {time.perf_counter() - T0:.1f} s")
 
+    # phase 26: the word embeddings (SGNS on the card, the CLI's word-vector
+    # runs, every model kernel at E = 300)
+    with tempfile.TemporaryDirectory() as tmp:
+        emb = embeddings_main_path(dev, card, tmp)
+
     bounds_ = bounds()
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, shape, library_ms=None,
@@ -4572,6 +5200,12 @@ def main() -> int:
         if k["name"] in CHAIN_RUNS:  # the traced runs, graph replays included
             k["runs_by_path"] = {"cli": cli_runs["runs"][k["name"]],
                                  "chunked": chunk_runs[k["name"]]}
+    for k in kernels:  # phase 26's: the word-vector CLI runs at E = 300 (SGNS draws included)
+        if emb["launches"].get(k["name"]):
+            k.setdefault("launches_by_path", {})["embeddings"] = emb["launches"][k["name"]]
+            k["launches"] += emb["launches"][k["name"]]
+        if k["name"] in CHAIN_RUNS:
+            k["runs_by_path"]["embeddings"] = emb["runs"][k["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

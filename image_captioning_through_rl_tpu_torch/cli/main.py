@@ -15,10 +15,14 @@ value networks and A2C with the reference's batch-as-time encoders (Q1).
 ``--chunk_steps`` minibatch updates run per device dispatch (16 by default,
 as in the JAX CLI; 1 walks one minibatch a dispatch, with the same
 artifacts), and ``--resume`` continues an interrupted run from its
-``.trainstate`` snapshots, as the JAX CLI does. Flags of parts the port
-does not have yet raise ``NotImplementedError`` before the bundle is read,
-naming their ROADMAP §1 item: ``--spmd`` (8), ``--train_word2vec`` and
-``--pretrained_word2vec`` other than ``none`` (10).
+``.trainstate`` snapshots, as the JAX CLI does. ``--train_word2vec
+word2vec|fasttext`` trains word vectors on the caption corpus (SGNS, on
+``--device``; ``--save_word2vec`` writes them) and ``--pretrained_word2vec``
+loads a named model or a vector file; either way the vectors, aligned to the
+vocabulary, become every network's frozen embedding table and fix its
+width. ``--spmd`` (multi-GPU, not ported yet) raises
+``NotImplementedError`` before the bundle is read, naming its ROADMAP §1
+item (8).
 
 A run writes into ``logs/<stamp>/`` what the JAX CLI writes there: the
 caption, generated-caption and url dumps, ``results.txt``,
@@ -67,9 +71,6 @@ CURRICULUM_LEVELS = [3, 6, 9, 12, 15]  # image_captioner.py:35
 # flags of parts not ported yet: (flag, is it set?, what, ROADMAP §1 item)
 UNPORTED = (
     ("--spmd", lambda a: a.spmd, "multi-GPU and multi-process runs", 8),
-    ("--train_word2vec", lambda a: a.train_word2vec != "none", "word-embedding training", 10),
-    ("--pretrained_word2vec", lambda a: a.pretrained_word2vec != "none",
-     "pretrained word vectors", 10),
 )
 
 
@@ -138,8 +139,8 @@ def _record_run_config(args, log_dir: str) -> None:
 def main(args) -> dict:
     """Run the pipeline for parsed ``args``. Returns the log directory, the
     A2C parameters, the network config and the wall seconds of each stage
-    (``load``, ``reward``/``policy``/``value`` when trained, ``a2c``,
-    ``test``, ``score``, ``postprocess``)."""
+    (``load``, ``word2vec`` with word vectors, ``reward``/``policy``/``value``
+    when trained, ``a2c``, ``test``, ``score``, ``postprocess``)."""
     check_ported(args)
     log_dir, save_paths, image_caption_data, network_paths = setup(args)
     print_green(f"[Info] Saving Logs in dir: {log_dir}")
@@ -157,6 +158,23 @@ def main(args) -> dict:
     with stage("load"):
         data = load_data(base_dir=args.data_dir, max_train=max_train, print_keys=True)
     print_green("[Info] COCO dataset loaded")
+
+    if args.train_word2vec != "none":
+        from ..embeddings import get_preprocessed_corpus, train_word_embeddings
+
+        print_green(f"[Info] Training Word Embeddings {args.train_word2vec}")
+        with stage("word2vec"):
+            data.embeddings = train_word_embeddings(
+                args.train_word2vec, data, get_preprocessed_corpus(data),
+                save_path=args.save_word2vec, device=args.device)
+        print_green("[Info] Done Training Word Embeddings")
+    elif args.pretrained_word2vec != "none":
+        from ..embeddings import get_embeddings, get_vectors_by_vocab
+
+        print_green(f"[Info] Loading Pretrained Word Embeddings {args.pretrained_word2vec}")
+        with stage("word2vec"):
+            data.embeddings = get_vectors_by_vocab(get_embeddings(args.pretrained_word2vec),
+                                                   data.word_to_idx)
 
     use_test_model = bool(os.path.isfile(args.test_model)
                           and "a2cNetwork" in os.path.split(args.test_model)[1])
@@ -262,12 +280,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="Directory holding the sub-network checkpoints")
     p.add_argument("--pretrained_word2vec", type=str, default="none",
                    help="Pretrained word-vector source: none, conceptnet, word2vec, "
-                        "fasttext, glove, or a file path (not ported yet: anything but "
-                        "none raises, ROADMAP §1 item 10)")
+                        "fasttext, glove (a file of that name in $ICRL_EMBEDDINGS_DIR, "
+                        "else a gensim download), or a word2vec/GloVe file path; the "
+                        "vectors become the frozen embedding tables")
     p.add_argument("--train_word2vec", type=str, default="none",
                    choices=["none", "word2vec", "fasttext"],
-                   help="Fit word embeddings on the caption corpus before training (not "
-                        "ported yet: anything but none raises, ROADMAP §1 item 10)")
+                   help="Fit word embeddings on the caption corpus before training "
+                        "(SGNS on --device); they become the frozen embedding tables")
     p.add_argument("--save_word2vec", type=str, default="",
                    help="Also write the trained word vectors to this path in the "
                         "word2vec interchange format (.bin for binary, .gz ok)")

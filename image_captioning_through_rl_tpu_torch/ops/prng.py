@@ -18,7 +18,7 @@ and of its helpers ``threefry2x32_bits`` and ``gumbel_from_bits``
   * :func:`gumbel` — ``jax.random.gumbel`` in its default mode "low": the
     mantissa-fill uniform in ``[tiny, 1)``, then ``-log(-log(u))``;
   * :func:`categorical` — ``argmax(gumbel + logits)``, the first index on
-    ties (``jax.random.categorical``).
+    ties (``jax.random.categorical``, with its ``shape=`` draw).
 
 Where each part runs: keys are eight bytes, so they stay on the host as
 numpy ``uint32[2]`` and are split there (no device sync per minibatch). The
@@ -187,8 +187,19 @@ def gumbel(key, shape, device="cuda") -> torch.Tensor:
     return gumbel_noise(np.asarray(key)[None], shape, device)[0]
 
 
-def categorical(key, logits: torch.Tensor) -> torch.Tensor:
-    """``jax.random.categorical(key, logits)`` over the last axis: the first
-    index of the largest ``gumbel + logits`` (int64)."""
-    noise = gumbel(key, logits.shape, logits.device)
-    return torch.argmax(noise + logits, dim=-1)
+def categorical(key, logits: torch.Tensor, shape=None) -> torch.Tensor:
+    """``jax.random.categorical(key, logits, shape=shape)`` over the last
+    axis: the first index of the largest ``gumbel + logits`` (int64).
+
+    ``shape`` (default: the logits' batch axes) is JAX's draw with
+    replacement: its trailing axes must be the logits' batch axes, the noise
+    is one Gumbel draw of ``[*shape, V]`` and the logits are added to it in
+    place, broadcast over the leading axes (the SGNS negatives draw
+    ``[B, K]`` from ``[V]`` logits this way)."""
+    batch = tuple(logits.shape[:-1])
+    shape = batch if shape is None else tuple(shape)
+    if shape[len(shape) - len(batch):] != batch:
+        raise ValueError(f"categorical: shape {shape} must end with the logits' batch "
+                         f"shape {batch}")
+    noise = gumbel(key, (*shape, logits.shape[-1]), logits.device)
+    return torch.argmax(noise.add_(logits), dim=-1)

@@ -8,8 +8,8 @@ to the second). Held:
   * both parsers' defaults and flags (except the port's ``--device``), and
     ``--config``'s precedence and errors;
   * every flag of a part not ported yet raises before the bundle is read,
-    naming its ROADMAP item, and the ported ones (``--resume`` among them)
-    reach the bundle; without
+    naming its ROADMAP item, and the ported ones (``--resume`` and the word
+    vectors' among them) reach the bundle; without
     a card the default device raises;
   * ``--test_model`` on JAX-written ``.ckpt`` files (JAX at
     ``precision="highest"``, as ``tests/test_torch_eval.py``): the three
@@ -176,7 +176,7 @@ def test_config_precedence_and_errors(case, tmp_path, capsys):
 def test_unported_flags_raise_before_the_bundle_is_read(flags, item, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     argv = ["--data_dir", str(tmp_path / "missing"), *flags, "--device", "cpu"]
-    if item in (5, 6, 7):  # ported: these flags no longer raise, the run reads the bundle
+    if item in (5, 6, 7, 10):  # ported: these flags no longer raise, the run reads the bundle
         with pytest.raises(FileNotFoundError, match="missing"):
             _port_run(argv)
         return
