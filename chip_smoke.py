@@ -162,7 +162,7 @@ Phases:
      greedy (N = 1024) and beam-5 (N = 127) against their full-prefix
      oracles under the near-tie rule below (the oracles' own gaps; agreeing
      beams' scores within 1e-4); cli.main.main --bidirectional --retrain
-     --training_size 1024 --epochs 1 --batch_size 512 --test_size 4064 on
+     --training_size 2048 --epochs 1 --batch_size 512 --test_size 4064 on
      phase 21's bundle: every artifact under its _bidirectional name, every
      logged loss finite, seven finite scores, the parameters on the card,
      every .ckpt read back bit-equal; --bidirectional --test_model of its
@@ -172,7 +172,8 @@ Phases:
      request (top-k 40 + nucleus 0.9) of 8 rows, each equal to the
      Captioner's; every model kernel's launch counter 0 over the whole
      phase, the threefry noise kernel one launch a draw (16 an A2C step,
-     16 a sampled decode: 32 in the training run, 32 in serving);
+     16 a sampled decode: 64 in the training run of four minibatches, 32
+     in serving);
      times: each pretrainer's wall time a step, the full-prefix A2C step at
      batch 512, the evaluation a 1016-row group, each request.
  23. the reference-exact paths (the reference's quirks Q1 and Q2; no model
@@ -281,13 +282,43 @@ Phases:
      backward (N = 512, padded to E = 304 as the trainers pad it) and the
      reward stream, bf16 and f32, each against its plain version under the
      rules below.
+ 27. data parallelism (ROADMAP §1 item 8): (a) the noise kernel at a first
+     global row (row0): [16, 512, 1004] split into 2 and 3 row blocks, each
+     block's bits and Gumbel noise bit-equal to the whole draw's rows, its
+     bits equal to the plain version at row0 and its noise within the
+     4-ulp rule; the sampling kernel (kernel 7, bf16) at row0, unfiltered
+     and top-k 40 + nucleus 0.9 at N = 1024 and a ragged N = 1000: each
+     block token-equal to the rows of one call, against its plain version
+     at row0 under the sampling rule, and sharded_sample_tokens over 2 and
+     3 entries of the card token-equal to one call; sharded_greedy_tokens
+     and sharded_beam_tokens over [cuda:0, cuda:0] at N = 1024 and 1001
+     against one call (tokens by the near-tie rule, scores within 1e-6);
+     (b) on phase 21's bundle, cli.main.main --retrain --training_size 2048
+     (four minibatches of 512, two epochs a pretrainer, one of A2C,
+     --test_size 4064) without --spmd in this process, then with --spmd as
+     a world of one over NCCL (a subprocess with torchrun's variables:
+     python3 chip_smoke.py --spmd-rank <json>), its .ckpt files and dumps
+     bit-equal to the first run's, its reward and policy chunks captured as
+     CUDA graphs with the all-reduce inside; then as a world of two ranks
+     on the one card (--device cuda:0: gloo carrying CUDA tensors, 256 rows
+     a rank, each rank in its own directory), every kernel of the path
+     launched on each rank, rank 1 writing nothing, the pretrainers'
+     parameters and losses and the dumps held to the world of one's, one
+     A2C step from the world of one's sub-network files to the same step in
+     this process, by the rule below, and its sharded
+     --test_model evaluation of the world of one's model byte-equal to that
+     model's dumps; the ms a minibatch of each trainer and the eager
+     all-reduces' share in both worlds (two ranks on one card measure no
+     scaling), the noise and sampling kernels' times at a first row beside
+     the whole call's, the phase's seconds.
 
 The last JSON line but two lists every kernel with its launches on its main
 paths, by path (serving for greedy; serving and the evaluation for the beam
 and the x-gate table; the pretrainers for the chains; A2C for the rest; the
 CLI's two runs of phase 21 for every kernel they launch; phase 24's runs as
 ``chunked``; phase 26's word-vector runs at E = 300 as ``embeddings``, the
-noise kernel's SGNS draws included; for the chains also ``runs_by_path``,
+noise kernel's SGNS draws included; phase 27's CLI runs in the worlds of
+one and two, every rank summed, as ``spmd``; for the chains also ``runs_by_path``,
 the kernel's runs in the traces of phase 21's training run, phase 24 and
 phase 26's runs, graph replays included), its
 largest error against plain, its time and its plain version's, and its
@@ -398,13 +429,37 @@ where the plain beam's smallest gap over the steps, for that line's
 features, is below 1e-4, in at most 1% of lines. The native scorers must
 equal the pure-Python ones to 1e-12 relative (the same float64 arithmetic
 in the same order; the JAX package holds its own native scorers so), on
-the dump's first 4064 lines (all of them would take ~12 s).
+all of the dump's 40188 lines (~12 s of pure Python).
+
+Data parallelism (phase 27): a world of one over NCCL does the arithmetic
+of one process without --spmd (an all-reduce over one rank is a copy, the
+reward loss's row part over every row is the whole loss, op for op), so
+its files must be bit-equal to that run's. Two ranks sum their gradients
+in another order than one process. Adam turns that rounding into another
+step only where a gradient is itself at rounding level: its sign may flip,
+and each side then moves the weight by up to the learning rate a step. So
+each of the world of two's parameters stays within 2 x (learning rate x
+steps) of the world of one's, and at most 1% of a network's entries part by
+more than 1e-4; every logged pretraining loss agrees within 1e-2 of its
+tag's largest magnitude in the run (phase 9's bound), and the trained
+model's generated captions differ in at most 1% of lines. A2C is held from
+the same start: the --retrain runs' A2C starts from each run's final
+pretrainer weights, which the Q12 files do not hold, so one A2C step (one
+minibatch of 512) from the world of one's sub-network files runs in this
+process and in the world of two (rank 1 drawing its rows of the noise at
+row0 = 256): its logged loss, reward and advantage within 1e-2 of their
+scale, and its parameters within 2 x 1e-4 (one Adam step of lr 1e-4 moves
+an entry by lr g / (|g| + eps) on each side: the A2C loss sums terms of
+both signs over the rows, so many gradient entries sit at rounding level
+and their signs may part; no share is held). Its sharded evaluation of the world of one's
+model must write that model's dumps byte for byte.
 
 The whole run takes about nine to ten minutes of command time on the H100
 (435-528 s in two calls before phase 25, 462.5 s with it, 529.4-565.6 s
 with phase 26), the build (about 80-110 s), phase 20 (about 30 s), phases 21-23
 (about 130-160 s), phase 24 (about 50-75 s), phase 25 (about 15 s) and
-phase 26 (about 90-100 s) included.
+phase 26 (about 90-100 s) included; with phase 27 (about 50 s), phase 22's
+four minibatches and phase 20's 40188 lines, 614.6-675.2 s (PERF.md).
 """
 
 from __future__ import annotations
@@ -458,9 +513,9 @@ ODD_V, ODD_W, WIDE_V = 1001, 500, 2000
 # phase 20: the JAX CLI's --test_size default, the reference's 128-row slices
 # (127 kept), eight slices a decode group, a val split of 4096 captions
 EVAL_DRAWS, EVAL_VBS, EVAL_GROUP, EVAL_VAL = 40504, 128, 8, 4096
-# the lines on which the native scorers are held to pure Python (all 40188
-# would take ~12 s of pure Python)
-EVAL_PYTHON_LINES = 4064
+# the lines on which the native scorers are held to pure Python: all of them
+# (~12 s of pure Python for 40188)
+EVAL_PYTHON_LINES = None
 SCORE_RTOL = 1e-12
 # phase 21: COCO-2014's full size (images and captions per split), the CLI's
 # --training_size and --test_size of the training run, and the eval's draws
@@ -470,10 +525,10 @@ CLI_ARTIFACTS = {"a2cNetwork.ckpt", "generated_captions.txt", "image_url.txt", "
                  "real_captions.txt", "results.txt", "run_config.json"}
 # phase 22: the bidirectional forwards' batch and card-vs-CPU bound, the
 # carried decodes' batches against their oracles, the training run's
-# --training_size (two minibatches) and --test_size, the
+# --training_size (four minibatches) and --test_size, the
 # evaluation's draws, the served rows
 BIDI_N, BIDI_REL, BIDI_GREEDY_N, BIDI_BEAM_N = 64, 1e-4, 1024, 127
-BIDI_TRAINING_SIZE, BIDI_TRAIN_TEST_SIZE = 1024, 4064
+BIDI_TRAINING_SIZE, BIDI_TRAIN_TEST_SIZE = 2048, 4064
 BIDI_EVAL_DRAWS, BIDI_SERVE_ROWS = 40504, 8
 BIDI_ARTIFACTS = {"a2cNetwork_bidirectional.ckpt", "generated_captions_bidirectional.txt",
                   "image_url.txt", "metrics.jsonl", "real_captions.txt",
@@ -506,6 +561,23 @@ W2V_TRAINING_SIZE, W2V_TEST_SIZE = 2048, 1024
 W2V_RUNS = (("word2vec", "w2v.bin", (50, 100, 50)), ("fasttext", "ft.vec", (1, 1, 1)))
 E300_GREEDY_N, E300_BEAM_N, E300_ROLLOUT_N = 1024, 127, 512
 COCO_SENTENCES = 414113 + 202654
+# phase 27: the row splits of the kernels' first-row checks (ranks x rows),
+# the sharded decodes' meshes (entries of the one card) and ragged N, the
+# CLI runs' pretraining epochs (four minibatches of 512 an epoch), the
+# deadline of a world of processes; and how far a world of two's parameters
+# may part from the world of one's: the same arithmetic but for the order of
+# two ranks' gradient sums, which Adam turns into another step only where a
+# gradient is at rounding level (its sign may flip: each side then moves the
+# weight by up to its learning rate a step), so every entry stays within 2 x
+# the sum of lr x steps its network took (SPMD_ADAM_STEPS), and at most
+# SPMD_PARAM_SHARE of the entries part by more than SPMD_PARAM_ATOL
+SPMD_SPLITS, SPMD_MESHES, SPMD_RAGGED_N = (2, 3), (2, 3), 1000
+SPMD_EPOCHS, SPMD_DEADLINE_S = 2, 420
+SPMD_PARAM_ATOL, SPMD_PARAM_SHARE = 1e-4, 0.01
+SPMD_ADAM_STEPS = {  # (learning rate, Adam steps) of each pretrainer
+    "reward": ((1e-4, SPMD_EPOCHS * CLI_TRAINING_SIZE // BATCH),),
+    "policy": ((1e-3, SPMD_EPOCHS * CLI_TRAINING_SIZE // BATCH),),
+    "value": ((1e-3, SPMD_EPOCHS * CLI_TRAINING_SIZE // BATCH),)}
 
 
 T0 = time.perf_counter()
@@ -2396,8 +2468,8 @@ def eval_main_path(files: dict, tmp: str, dev, card: str) -> dict:
         blocks = f.read().count("---------- results ----------")
     if list(scores) != names or not np.isfinite(list(scores.values())).all() or blocks != 2:
         raise AssertionError(f"eval scores {scores}, results blocks {blocks // 2}")
-    # native against pure Python on the first EVAL_PYTHON_LINES lines (pure
-    # Python takes ~12 s for all of them)
+    # native against pure Python on EVAL_PYTHON_LINES lines (all: ~12 s of
+    # pure Python)
     ref_caps, hyp_caps = load_textfiles(kernel["real_captions_path"],
                                         kernel["generated_captions_path"])
     keys = list(ref_caps)[:EVAL_PYTHON_LINES]
@@ -4678,6 +4750,515 @@ def embeddings_main_path(dev, card: str, tmp: str) -> dict:
     return {"sgns": sgns, "launches": launches, "runs": runs, "seconds": seconds}
 
 
+def row_blocks(n: int, parts: int) -> list:
+    """Rows ``[lo, hi)`` of ``parts`` blocks of ``n`` rows (the last may be
+    shorter, as a ragged batch's is)."""
+    b = -(-n // parts)
+    return [(lo, min(lo + b, n)) for lo in range(0, n, b)]
+
+
+def spmd_kernels(dev, weights: dict, params_dev: dict, card: str) -> dict:
+    """Phase 27, first part: the noise kernel and the sampling kernel (kernel
+    7) at a first global row, bit-equal to the rows of one whole call and
+    held to their plain versions at that row; the decodes sharded over
+    entries of the one card (``sharded_*_tokens``) against one unsharded
+    call; and both kernels' times at a first row beside the whole call's.
+    Returns the times."""
+    from image_captioning_through_rl_tpu_torch import START_ID
+    from image_captioning_through_rl_tpu_torch.config import DecodeConfig
+    from image_captioning_through_rl_tpu_torch.ops import prng
+    from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
+        beam_search_plain, fused_beam_search)
+    from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
+        fused_greedy_decode, greedy_decode_plain)
+    from image_captioning_through_rl_tpu_torch.ops.fused_sample import (
+        fused_sample_decode, sample_decode_plain)
+    from image_captioning_through_rl_tpu_torch.parallel import (
+        make_mesh, sharded_beam_tokens, sharded_greedy_tokens, sharded_sample_tokens)
+
+    gen = torch.Generator().manual_seed(SEED + 27)
+    cfg = net_cfg()
+
+    # the noise kernel: rows [lo, hi) of every step's [N, V] draw at row0 = lo
+    keys = prng.split(prng.PRNGKey(SEED + 27), S)
+    shape = (ROLLOUT_N, V)
+    whole_bits = prng.threefry_bits_kernel(keys, shape, dev)
+    whole = prng.gumbel_noise(keys, shape, dev)
+    ulps = 0.0
+    for parts in SPMD_SPLITS:
+        for lo, hi in row_blocks(ROLLOUT_N, parts):
+            bits = prng.threefry_bits_kernel(keys, (hi - lo, V), dev, row0=lo)
+            noise = prng.gumbel_noise(keys, (hi - lo, V), dev, row0=lo)
+            plain_bits = torch.stack([prng.random_bits(k, (hi - lo, V), dev, row0=lo)
+                                      for k in keys])
+            plain = prng.gumbel_noise_plain(keys, (hi - lo, V), dev, row0=lo)
+            torch.cuda.synchronize()
+            if not (torch.equal(bits, whole_bits[:, lo:hi]) and torch.equal(noise, whole[:, lo:hi])
+                    and torch.equal(bits.to(torch.int64) & 0xFFFFFFFF, plain_bits)):
+                raise AssertionError(f"the noise kernel at row0={lo}: its rows differ from the "
+                                     f"whole draw's or its bits from the plain version's")
+            ulp = torch.from_numpy(np.spacing(np.maximum(plain.abs().cpu().numpy(),
+                                                         np.float32(1.0)))).to(dev)
+            ulps = max(ulps, float(((noise - plain).abs() / ulp).max()))
+    if not ulps <= GUMBEL_ULPS:
+        raise AssertionError(f"the noise kernel at a first row: Gumbel {ulps:.3g} ulps from "
+                             f"plain (> {GUMBEL_ULPS})")
+    phase("spmd", f"noise kernel, [{S}, {ROLLOUT_N}, {V}] split into "
+                  f"{' and '.join(str(p) for p in SPMD_SPLITS)} row blocks: each block at "
+                  f"row0 = its first row bit-equal to the whole draw's rows (bits and Gumbel), "
+                  f"bits equal to the plain version at row0, Gumbel within {ulps:.3g} ulps of it "
+                  f"(bound {GUMBEL_ULPS})")
+
+    # kernel 7 at row0, and the sampled decode sharded over the card's entries
+    gw, bw = weights[torch.bfloat16]
+    key = prng.PRNGKey(SEED + 72)
+    report = []
+    for n in (1024, SPMD_RAGGED_N):
+        feats = torch.randn((n, F), generator=gen).to(dev)
+        start = torch.full((n,), START_ID, dtype=torch.int32, device=dev)
+        for name, t, k, p in (("unfiltered", 1.0, 0, None), ("top-k 40 + nucleus 0.9", 0.7, 40,
+                                                              0.9)):
+            one = fused_sample_decode(gw, feats, start, key, T, t, k, p)
+            for parts in SPMD_SPLITS:
+                for lo, hi in row_blocks(n, parts):
+                    part = fused_sample_decode(gw, feats[lo:hi], start[lo:hi], key, T, t, k, p,
+                                               row0=lo)
+                    if not torch.equal(part, one[lo:hi]):
+                        raise AssertionError(f"sampling kernel ({name}, N={n}) at row0={lo}: "
+                                             f"not the rows of one call")
+            lo, hi = row_blocks(n, 2)[1]
+            k_tok = fused_sample_decode(gw, feats[lo:hi], start[lo:hi], key, T, t, k, p, row0=lo)
+            p_tok, margins = sample_decode_plain(gw, feats[lo:hi], start[lo:hi], key, T, t, k, p,
+                                                 margins=True, row0=lo)
+            n_bad, gap, _ = check_rows(
+                f"sample {name} N={n} row0={lo}", k_tok, p_tok,
+                lambda bad: margins[bad].gather(
+                    1, first_divergent_step(k_tok[bad], p_tok[bad])[:, None].long())[:, 0],
+                SAMPLE_NEAR_TIE[torch.bfloat16])
+            for m in SPMD_MESHES:
+                got = sharded_sample_tokens(make_mesh(devices=[dev] * m), params_dev["policy"],
+                                            cfg, feats, start, key, temperature=t, top_k=k,
+                                            top_p=p)
+                if not torch.equal(got, one):
+                    raise AssertionError(f"sharded_sample_tokens over {m} entries ({name}, "
+                                         f"N={n}) differs from one call")
+            report.append(f"{name} N={n}: row0 blocks = one call; vs plain at row0={lo} {n_bad} "
+                          f"row(s) differ (gap {gap:.3g})")
+    phase("spmd", "sampling kernel (bf16) at row0: " + "; ".join(report)
+          + f"; sharded_sample_tokens over {' and '.join(str(m) for m in SPMD_MESHES)} entries "
+            f"of {dev} token-equal to one unsharded call")
+
+    # greedy and the per-sample beam sharded over [dev, dev]
+    mesh = make_mesh(devices=[dev, dev])
+    dcfg = DecodeConfig(beam_size=BEAM, max_seq_len=T)
+    report = []
+    for n in (1024, SPMD_RAGGED_N + 1):  # + 1: odd, so the mesh pads a row
+        feats = torch.randn((n, F), generator=gen).to(dev)
+        start = torch.full((n,), START_ID, dtype=torch.int32, device=dev)
+        g_one = fused_greedy_decode(gw, feats, start, T)
+        g = sharded_greedy_tokens(mesh, params_dev["policy"], cfg, feats, start)
+
+        def greedy_gaps(bad):
+            _, gaps = greedy_decode_plain(gw, feats[bad], start[bad], T, margins=True)
+            return gaps.gather(1, first_divergent_step(g[bad], g_one[bad])[:, None].long())[:, 0]
+
+        g_bad, g_gap, _ = check_rows(f"sharded greedy N={n}", g, g_one, greedy_gaps)
+        b_one, s_one = fused_beam_search(bw, feats, start, T, BEAM)
+        b, s = sharded_beam_tokens(mesh, params_dev["policy"], params_dev["value"], cfg, dcfg,
+                                   feats, start)
+        b_bad, b_gap, _ = check_rows(
+            f"sharded beam N={n}", b, b_one,
+            lambda bad: beam_search_plain(bw, feats[bad], start[bad], T, BEAM,
+                                          margins=True)[2].min(dim=1).values)
+        same = ~(b != b_one).reshape(n, -1).any(dim=1)
+        err = float((s - s_one)[same].abs().max())
+        if err > 1e-6:
+            raise AssertionError(f"sharded beam N={n}: scores differ by {err:.3g} > 1e-6")
+        report.append(f"N={n}: greedy {g_bad} row(s) differ (gap {g_gap:.3g}), beam-{BEAM} "
+                      f"{b_bad} (gap {b_gap:.3g}), scores within {err:.3g}")
+    phase("spmd", f"sharded_greedy_tokens and sharded_beam_tokens over [{dev}, {dev}] (bf16) "
+                  f"against one unsharded call: " + "; ".join(report))
+
+    # the times at a first row beside the whole call's (CUDA events)
+    half = ROLLOUT_N // 2
+    feats = torch.randn((1024, F), generator=gen).to(dev)
+    start = torch.full((1024,), START_ID, dtype=torch.int32, device=dev)
+    return {
+        "noise_ms": cuda_ms(lambda: prng.gumbel_noise(keys, shape, dev), 20),
+        "noise_row0_ms": cuda_ms(lambda: prng.gumbel_noise(keys, (half, V), dev, row0=half), 20),
+        "sample_ms": cuda_ms(lambda: fused_sample_decode(gw, feats, start, key, T, 0.7, 40, 0.9),
+                             5),
+        "sample_row0_ms": cuda_ms(lambda: fused_sample_decode(
+            gw, feats[512:], start[512:], key, T, 0.7, 40, 0.9, row0=512), 5)}
+
+
+SPMD_KERNELS = ("gru_chain_fwd", "gru_chain_bwd", "lstm_chain_fwd", "lstm_chain_bwd",
+                "greedy_decode", "rollout_fwd", "rollout_bwd", "threefry_gumbel", "beam_search",
+                "token_gates")
+
+
+def spmd_rank(spec: dict) -> int:
+    """One rank of phase 27's worlds: ``python3 chip_smoke.py --spmd-rank
+    <json>``, started with torchrun's variables by :func:`spmd_world`. Runs
+    each argv of ``spec["runs"]`` through cli.main.main (the pretrainers at
+    SPMD_EPOCHS epochs) with the kernels' counters set to 0 before each and
+    read after it, and counts the all-reduces: those made while a CUDA graph
+    captures (counted only), and the eager ones (each timed between two
+    device syncs). Writes its record to ``spec["res"]/rank<r>.json`` and its
+    output to ``rank<r>.log`` there."""
+    sys.path.insert(0, ROOT)
+    import importlib
+
+    from image_captioning_through_rl_tpu_torch.parallel import collectives
+    from image_captioning_through_rl_tpu_torch.train import steps
+
+    cli = importlib.import_module("image_captioning_through_rl_tpu_torch.cli.main")
+    counters = kernel_counters()
+    ar = {}
+    inner = collectives.all_reduce_
+    cuda = torch.cuda.is_available()  # False only for a rehearsal of the worlds on the CPU
+
+    def counted(t):
+        if cuda and torch.cuda.is_current_stream_capturing():
+            ar["captured"] += 1
+            return inner(t)
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(t)
+        if cuda:
+            torch.cuda.synchronize()
+        ar["seconds"] += time.perf_counter() - t0
+        ar["eager"] += 1
+        return out
+
+    collectives.all_reduce_ = counted
+    # each chunk call's ms and minibatches, by chunk (the pretrainers' in the
+    # CLI's order: reward, policy, value; then A2C's), between device syncs
+    chunk_ms = {}
+    best_loss_call, make_a2c_chunk = steps.BestLossChunk.__call__, steps.make_a2c_chunk_step
+
+    def timed(key, fn, k, *args):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        if cuda:
+            torch.cuda.synchronize()
+        chunk_ms.setdefault(key, []).append(((time.perf_counter() - t0) * 1e3, k))
+        return out
+
+    steps.BestLossChunk.__call__ = lambda self, best, f, c, *a: timed(
+        id(self), best_loss_call, f.shape[0], self, best, f, c, *a)
+    steps.make_a2c_chunk_step = lambda *a, **kw: functools.partial(
+        lambda chunk, *b: timed("a2c", chunk, b[2].shape[0], *b), make_a2c_chunk(*a, **kw))
+    rank = int(os.environ["RANK"])
+    runs = []
+    with open(os.path.join(spec["res"], f"rank{rank}.log"), "a") as log, \
+            contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        for argv in spec["runs"]:
+            np.random.seed(SEED)  # the --training_size draw (numpy's global generator)
+            zero_counters(counters)
+            ar.update(captured=0, eager=0, seconds=0.0)
+            chunk_ms.clear()
+            captures = steps.BestLossChunk.captures
+            with pretrain_epochs(SPMD_EPOCHS):
+                out = cli.main(cli.parse_args_with_config(cli.build_arg_parser(), argv))
+            if cuda:
+                torch.cuda.synchronize()
+            runs.append({"launches": read_counters(counters), "allreduce": dict(ar),
+                         "captures": steps.BestLossChunk.captures - captures,
+                         "chunks": list(chunk_ms.values()),
+                         "seconds": out["seconds"], "log_dir": out["log_dir"]})
+    record = {"rank": rank, "size": torch.distributed.get_world_size(),
+              "backend": torch.distributed.get_backend(), "runs": runs}
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(spec["res"], f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    return 0
+
+
+def spmd_world(size: int, runs: list, cwds: list, res: str) -> list:
+    """``size`` ranks of :func:`spmd_rank` (rank r in ``cwds[r]``) under one
+    deadline: when a rank fails or the deadline passes every rank is
+    killed, its log's last 40 lines printed and the phase fails. Returns
+    the ranks' records."""
+    import socket
+
+    with socket.socket() as sock:  # a port the OS chose, on this machine
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    os.makedirs(res, exist_ok=True)
+    procs = []
+    for rank in range(size):
+        os.makedirs(cwds[rank], exist_ok=True)
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(size), RANK=str(rank), LOCAL_RANK=str(rank),
+                   NCCL_SOCKET_IFNAME="lo", NCCL_IB_DISABLE="1")
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--spmd-rank",
+             json.dumps({"runs": runs, "res": res})], cwd=cwds[rank], env=env,
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+    deadline, failed = time.monotonic() + SPMD_DEADLINE_S, None
+    try:
+        while any(p.poll() is None for p in procs) and failed is None:
+            if any(p.poll() not in (None, 0) for p in procs):
+                failed = "a rank failed"
+            elif time.monotonic() > deadline:
+                failed = f"the world passed its {SPMD_DEADLINE_S} s deadline"
+            time.sleep(0.1)
+        if failed is None and any(p.returncode != 0 for p in procs):
+            failed = "a rank failed"
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if failed:
+        for rank in range(size):
+            path = os.path.join(res, f"rank{rank}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    print(f"--- rank {rank} ---\n" + "".join(f.readlines()[-40:]), flush=True)
+        raise AssertionError(f"a world of {size}: {failed} (exit codes "
+                             f"{[p.returncode for p in procs]})")
+    records = []
+    for rank in range(size):
+        with open(os.path.join(res, f"rank{rank}.json")) as f:
+            records.append(json.load(f))
+    return records
+
+
+def spmd_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
+    """Phase 27, second part: the CLI data-parallel on phase 21's bundle.
+    The same --retrain run (--training_size 2048: four minibatches of 512,
+    SPMD_EPOCHS epochs a pretrainer, one A2C epoch, then the beam eval at
+    --test_size 4064) in one process without --spmd, as a world of one over
+    NCCL (--spmd --device cuda) and as a world of two ranks on the one card
+    (--spmd --device cuda:0: gloo carrying CUDA tensors, 256 rows a rank),
+    each rank in a directory of its own; the world of two then evaluates
+    the world of one's model (--test_model). Returns every kernel's
+    launches in the worlds' runs, all ranks summed."""
+    import importlib
+
+    from image_captioning_through_rl_tpu_torch.train import checkpoint as ckpt
+
+    cli = importlib.import_module("image_captioning_through_rl_tpu_torch.cli.main")
+    counters = kernel_counters()
+    work = os.path.join(tmp, "spmd")
+    base = ["--data_dir", bundle, "--training_size", str(CLI_TRAINING_SIZE), "--epochs", "1",
+            "--batch_size", str(BATCH), "--test_size", str(CLI_TEST_SIZE), "--retrain",
+            "--pretrained_path", "pre", "--seed", str(SEED)]
+    minibatches = CLI_TRAINING_SIZE // BATCH
+
+    # one process, no --spmd
+    single = os.path.join(work, "single")
+    os.makedirs(single)
+    cwd = os.getcwd()
+    os.chdir(single)
+    try:
+        np.random.seed(SEED)
+        t0 = time.perf_counter()
+        with pretrain_epochs(SPMD_EPOCHS):
+            ref, _, _ = cli_run(cli, [*base, "--device", "cuda"],
+                                os.path.join(work, "single.log"), counters)
+        single_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+
+    # a world of one over NCCL
+    t0 = time.perf_counter()
+    one_dir = os.path.join(work, "one")
+    (one,) = spmd_world(1, [["--spmd", *base, "--device", "cuda"]], [one_dir],
+                        os.path.join(work, "one_res"))
+    one_s = time.perf_counter() - t0
+    one_run = one["runs"][0]
+    if one["backend"] != "nccl" or one["size"] != 1:
+        raise AssertionError(f"the world of one ran {one['backend']} with {one['size']} ranks")
+    dumps = ("generated_captions.txt", "real_captions.txt", "image_url.txt")
+    ref_log, one_log = (os.path.join(single, ref["log_dir"]),
+                        os.path.join(one_dir, one_run["log_dir"]))
+    nets = [f"{k}Network.ckpt" for k in ("reward", "policy", "value", "a2c")]
+    pairs = [(os.path.join(single, "pre", n), os.path.join(one_dir, "pre", n)) for n in nets]
+    pairs += [(os.path.join(ref_log, n), os.path.join(one_log, n))
+              for n in ("a2cNetwork.ckpt", *dumps)]
+    for a, b in pairs:
+        with open(a, "rb") as fa, open(b, "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"the world of one's {os.path.relpath(b, work)} is not the "
+                                     f"single process's bit for bit")
+    if one_run["captures"] < 2 or one_run["allreduce"]["captured"] < 2:
+        raise AssertionError(f"the world of one captured {one_run['captures']} chunk graph(s) "
+                             f"with {one_run['allreduce']['captured']} all-reduce(s) inside "
+                             f"(the reward and policy chunks take one each, at least)")
+    phase("spmd", f"world of one over NCCL (cli.main --spmd --retrain, torchrun's variables): "
+                  f"its {len(pairs)} files ({', '.join(nets)}, the log's a2c .ckpt and three "
+                  f"dumps) bit-equal to the run without --spmd; {one_run['captures']} chunk "
+                  f"graphs captured with {one_run['allreduce']['captured']} all-reduces "
+                  f"inside, {one_run['allreduce']['eager']} eager; launches "
+                  f"{one_run['launches']}")
+
+    # one A2C step alone (--training_size 512: one minibatch) from the world
+    # of one's sub-network files, in one process: the world of two's A2C
+    # starts from the same weights (the --retrain runs' A2C start from each
+    # run's final pretrainer weights, which the Q12 files do not hold)
+    model_dir = os.path.join(work, "model")
+    os.makedirs(model_dir)
+    model = shutil.copy(os.path.join(one_log, "a2cNetwork.ckpt"), model_dir)
+    a2c_pre = {}
+    for side in ("single", "two"):  # each run writes its a2c .ckpt beside its copies
+        a2c_pre[side] = os.path.join(work, f"a2c_pre_{side}")
+        os.makedirs(a2c_pre[side])
+        for n in nets[:3]:
+            shutil.copy(os.path.join(one_dir, "pre", n), a2c_pre[side])
+    a2c_argv = ["--data_dir", bundle, "--training_size", str(BATCH), "--epochs", "1",
+                "--batch_size", str(BATCH), "--test_size", str(CLI_TEST_SIZE), "--seed",
+                str(SEED)]
+    os.chdir(single)
+    try:
+        np.random.seed(SEED)
+        a2c_ref, _, _ = cli_run(cli, [*a2c_argv, "--pretrained_path", a2c_pre["single"],
+                                      "--device", "cuda"], os.path.join(work, "single.log"),
+                                counters)
+    finally:
+        os.chdir(cwd)
+
+    # a world of two ranks on the one card (gloo, CUDA tensors): the same
+    # --retrain run, the same A2C step, and a --test_model evaluation of the
+    # world of one's model
+    two_dirs = [os.path.join(work, f"two_rank{r}") for r in range(2)]
+    flags = ["--spmd", "--seed", str(SEED), "--device", "cuda:0"]
+    t0 = time.perf_counter()
+    two = spmd_world(2, [["--spmd", *base, "--device", "cuda:0"],
+                         ["--spmd", *a2c_argv, "--pretrained_path", a2c_pre["two"],
+                          "--device", "cuda:0"],
+                         [*flags, "--data_dir", bundle, "--test_model", model, "--test_size",
+                          str(CLI_TEST_SIZE), "--pretrained_path", os.path.join(one_dir, "pre")]],
+                     two_dirs, os.path.join(work, "two_res"))
+    two_s = time.perf_counter() - t0
+    if [r["backend"] for r in two] != ["gloo", "gloo"] or os.listdir(two_dirs[1]):
+        raise AssertionError(f"the world of two: backends {[r['backend'] for r in two]}, rank "
+                             f"1 wrote {os.listdir(two_dirs[1])}")
+    for r in two:
+        low = {k: v for k, v in r["runs"][0]["launches"].items() if k in SPMD_KERNELS and v < 1}
+        if low or r["runs"][2]["launches"]["beam_search"] < 1:
+            raise AssertionError(f"rank {r['rank']} of the world of two launched no {low} "
+                                 f"(or no beam in its evaluation): {r['runs']}")
+    two_log, a2c_log = (os.path.join(two_dirs[0], two[0]["runs"][i]["log_dir"]) for i in (0, 1))
+    faults, report = [], []
+
+    def params_apart(kind: str, mine: str, theirs: str, stages,
+                     share_limit: float | None = SPMD_PARAM_SHARE) -> None:
+        """A network's parameters against the reference run's by the Adam rule
+        (SPMD_ADAM_STEPS): every entry within 2 x sum(lr x steps) (and a
+        float's margin), at most ``share_limit`` of them past
+        SPMD_PARAM_ATOL."""
+        a = dict(leaves(ckpt.load_network(kind, theirs, dev)))
+        b = dict(leaves(ckpt.load_network(kind, mine, dev)))
+        diff = torch.cat([(a[k] - b[k]).abs().reshape(-1) for k in a])
+        worst, share = float(diff.max()), float((diff > SPMD_PARAM_ATOL).float().mean())
+        bound = 2 * sum(lr * steps for lr, steps in stages) * (1 + 1e-3)
+        report.append(f"{kind} max {worst:.3g} (bound {bound:.3g}), {share:.3%} of "
+                      f"{diff.numel()} entries past {SPMD_PARAM_ATOL}")
+        if worst > bound or (share_limit is not None and share > share_limit):
+            faults.append(f"{kind}: parameters {report[-1]}")
+
+    def losses_apart(theirs: str, mine: str, tags) -> float:
+        """The largest difference of a logged value from the reference run's,
+        over the largest magnitude that tag reached in the run."""
+        logs = []
+        for d in (theirs, mine):
+            with open(os.path.join(d, "metrics.jsonl")) as f:
+                records = [json.loads(line) for line in f]
+            logs.append([r for r in records if r["tag"].startswith(tags)])
+        if [(r["tag"], r["step"]) for r in logs[0]] != [(r["tag"], r["step"]) for r in logs[1]]:
+            faults.append(f"the worlds logged other {tags} tags or steps")
+        scale = {}
+        for r in logs[0]:
+            scale[r["tag"]] = max(scale.get(r["tag"], 0.0), abs(r["value"]))
+        rel = max(abs(x["value"] - y["value"]) / scale[x["tag"]] for x, y in zip(*logs))
+        if rel > STEP_LOSS_TOL:
+            faults.append(f"a logged {tags} value differs by {rel:.3g} of its scale "
+                          f"> {STEP_LOSS_TOL}")
+        return rel
+
+    for n in nets[:3]:  # the pretrainers, trained alike from the same start
+        kind = n[: -len("Network.ckpt")]
+        params_apart(kind, os.path.join(two_dirs[0], "pre", n), os.path.join(one_dir, "pre", n),
+                     SPMD_ADAM_STEPS[kind])
+    pre_rel = losses_apart(one_log, two_log, ("Reward", "Policy", "Value"))
+    # the A2C step from the same files: its logged stats are those of one
+    # rollout of the same weights on the same noise (row0 on rank 1); its one
+    # Adam step moves each entry by lr g / (|g| + eps), so a gradient entry
+    # whose sign the sums' rounding flips parts the two by up to 2 lr, and the
+    # A2C loss sums terms of both signs over the rows: many of its gradient
+    # entries sit at rounding level (no share is held)
+    params_apart("a2c", os.path.join(a2c_pre["two"], nets[3]),
+                 os.path.join(a2c_pre["single"], nets[3]), ((1e-4, 1),), None)
+    a2c_rel = losses_apart(os.path.join(single, a2c_ref["log_dir"]), a2c_log, ("A2C",))
+    texts = {}
+    for name in dumps:
+        for side, d in (("one", one_log), ("two", two_log), ("eval", model_dir)):
+            with open(os.path.join(d, name)) as f:
+                texts[side, name] = f.read()
+    for name in dumps[1:]:
+        if texts["one", name] != texts["two", name]:
+            faults.append(f"the world of two's {name} differs from the world of one's")
+    eval_same = [texts["eval", name] == texts["one", name] for name in dumps]
+    if not all(eval_same):  # the same model, its beam sharded over two ranks
+        faults.append(f"the world of two's evaluation of the world of one's model: dumps "
+                      f"{[n for n, same in zip(dumps, eval_same) if not same]} differ")
+    gen_one = texts["one", dumps[0]].splitlines()
+    gen_two = texts["two", dumps[0]].splitlines()
+    parted = sum(a != b for a, b in zip(gen_one, gen_two))
+    if len(gen_one) != len(gen_two) or parted > MAX_DIFF_SHARE * len(gen_one):
+        faults.append(f"the world of two's generated captions: {parted}/{len(gen_one)} lines "
+                      f"differ from the world of one's")
+    phase("spmd", f"world of two on {dev} (gloo, CUDA tensors; --device cuda:0), 256 rows a "
+                  f"rank: every kernel of the path launched on each rank "
+                  f"({[r['runs'][0]['launches'] for r in two]}); rank 1 wrote nothing; against "
+                  f"one process (two ranks' gradient sums in another order), the pretrainers of "
+                  f"the --retrain run and one A2C step from the same sub-network files: "
+                  f"parameters {'; '.join(report)}; logged values within {pre_rel:.3g} "
+                  f"(pretrainers' losses) and {a2c_rel:.3g} (the A2C step's loss, reward, "
+                  f"advantage) of each tag's scale (bound {STEP_LOSS_TOL}); real and url dumps "
+                  f"{'equal' if texts['one', dumps[1]] == texts['two', dumps[1]] else 'DIFFER'}, "
+                  f"{parted}/{len(gen_one)} generated lines differ (at most "
+                  f"{MAX_DIFF_SHARE:.0%}); its sharded evaluation of the world of one's model "
+                  f"{'writes that model dumps byte for byte' if all(eval_same) else 'DIFFERS'}")
+    if faults:
+        raise AssertionError("the world of two: " + "; ".join(faults))
+
+    def per_minibatch(run):
+        """Each trainer's last chunk call (the pretrainers' second epoch,
+        after any capture; A2C's one epoch), ms a minibatch."""
+        return {k: c[-1][0] / c[-1][1] for k, c in zip(("reward", "policy", "value", "a2c"),
+                                                       run["chunks"])}
+
+    def share(run):
+        total = sum(ms for c in run["chunks"] for ms, _ in c) / 1e3
+        return run["allreduce"]["seconds"] / total
+
+    ms1, ms2 = per_minibatch(one_run), per_minibatch(two[0]["runs"][0])
+    phase("timing", f"{card} | phase 27, batch {BATCH}, ms a minibatch in a chunk call between "
+                    f"device syncs (world of one over NCCL / world of two ranks on this one card "
+                    f"over gloo, rank 0): " + ", ".join(
+                        f"{k} {ms1[k]:.3f} / {ms2[k]:.3f}" for k in ms1)
+          + f" | the eager all-reduces' share of the chunk calls' time (each between two "
+            f"device syncs): {share(one_run):.1%} / {share(two[0]['runs'][0]):.1%} "
+            f"({one_run['allreduce']['eager']} / {two[0]['runs'][0]['allreduce']['eager']} "
+            f"calls; the world of one's {one_run['allreduce']['captured']} captured ones run "
+            f"inside its graphs, untimed) | two ranks on one card share its SMs and talk "
+            f"through host memory: this measures no scaling | wall: single process "
+            f"{single_s:.1f} s, world of one {one_s:.1f} s, world of two {two_s:.1f} s")
+    launches = {}
+    for r in (one, *two):
+        for run in r["runs"]:
+            for k, v in run["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def host_us(fn, iters: int = 200) -> float:
     """Phase 6: the host's microseconds a call of ``fn`` (back-to-back calls
     that queue faster than the card runs them: the host side alone)."""
@@ -5098,14 +5679,16 @@ def main() -> int:
 
     # phase 21: the CLI's main path (a training run, then an evaluation);
     # phase 22: a bidirectional model through the CLI and the server, and
-    # phase 23: the reference-exact paths, both on phase 21's bundle
-    with tempfile.TemporaryDirectory() as tmp:
-        cli_runs = cli_main_path(dev, card, tmp)
-        bidi_launches = bidirectional_main_path(dev, card, os.path.join(tmp, "bundle"), tmp)
-        ref_launches = reference_exact_main_path(dev, card, os.path.join(tmp, "bundle"), tmp)
-        # phase 24: the trainers' default walk (chunks, graphs, snapshots, resume)
-        chunk_launches, chunk_runs = chunked_main_path(dev, card, os.path.join(tmp, "bundle"),
-                                                       cli_runs["dirs"], tmp)
+    # phase 23: the reference-exact paths, both on phase 21's bundle (which
+    # phase 27 reads too)
+    cli_tmp = tempfile.TemporaryDirectory()
+    tmp = cli_tmp.name
+    cli_runs = cli_main_path(dev, card, tmp)
+    bidi_launches = bidirectional_main_path(dev, card, os.path.join(tmp, "bundle"), tmp)
+    ref_launches = reference_exact_main_path(dev, card, os.path.join(tmp, "bundle"), tmp)
+    # phase 24: the trainers' default walk (chunks, graphs, snapshots, resume)
+    chunk_launches, chunk_runs = chunked_main_path(dev, card, os.path.join(tmp, "bundle"),
+                                                   cli_runs["dirs"], tmp)
     cli_launches = {k: cli_runs["train"][k] + cli_runs["eval"][k] for k in cli_runs["train"]}
 
     # phase 25: kernel 6's tape options (no trainer passes them: their
@@ -5123,6 +5706,24 @@ def main() -> int:
     # runs, every model kernel at E = 300)
     with tempfile.TemporaryDirectory() as tmp:
         emb = embeddings_main_path(dev, card, tmp)
+
+    # phase 27: data parallelism: the noise and sampling kernels at a first
+    # global row, the decodes sharded over entries of the card, and the CLI
+    # with --spmd as a world of one over NCCL and a world of two ranks on
+    # the one card, on phase 21's bundle
+    t27 = time.perf_counter()
+    spmd_times = spmd_kernels(dev, weights, params_dev, card)
+    spmd_launches = spmd_main_path(dev, card, os.path.join(cli_tmp.name, "bundle"),
+                                   cli_tmp.name)
+    cli_tmp.cleanup()
+    phase("timing", f"{card} | phase 27: {time.perf_counter() - t27:.1f} s | at a first row "
+                    f"(CUDA events): noise kernel [{S}, {ROLLOUT_N // 2}, {V}] at row0 = "
+                    f"{ROLLOUT_N // 2} {spmd_times['noise_row0_ms']:.4f} ms beside the whole "
+                    f"[{S}, {ROLLOUT_N}, {V}] draw's {spmd_times['noise_ms']:.4f} ms; sampling "
+                    f"kernel, top-k 40 + nucleus 0.9, N = 512 at row0 = 512 "
+                    f"{spmd_times['sample_row0_ms']:.4f} ms beside N = 1024's "
+                    f"{spmd_times['sample_ms']:.4f} ms | the run so far "
+                    f"{time.perf_counter() - T0:.1f} s")
 
     bounds_ = bounds()
 
@@ -5200,6 +5801,10 @@ def main() -> int:
         if k["name"] in CHAIN_RUNS:  # the traced runs, graph replays included
             k["runs_by_path"] = {"cli": cli_runs["runs"][k["name"]],
                                  "chunked": chunk_runs[k["name"]]}
+    for k in kernels:  # phase 27's: the CLI's runs in the worlds of one and two, every rank
+        if spmd_launches.get(k["name"]):
+            k.setdefault("launches_by_path", {})["spmd"] = spmd_launches[k["name"]]
+            k["launches"] += spmd_launches[k["name"]]
     for k in kernels:  # phase 26's: the word-vector CLI runs at E = 300 (SGNS draws included)
         if emb["launches"].get(k["name"]):
             k.setdefault("launches_by_path", {})["embeddings"] = emb["launches"][k["name"]]
@@ -5214,4 +5819,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--spmd-rank":  # one rank of phase 27's worlds
+        sys.exit(spmd_rank(json.loads(sys.argv[2])))
     sys.exit(main())

@@ -25,10 +25,13 @@ sub-network paths); :func:`load_captioner_pt` builds one from a
 reference-layout ``.pt`` and ``coco2014_vocab.json`` alone. Raw images
 go through the visual front end, :class:`FeatureExtractor` (VGG16 fc7 and an
 optional PCA, :func:`load_feature_extractor`), then the same decodes:
-:meth:`Captioner.caption_images` and :meth:`Captioner.sample_images`. The
-mesh paths of the JAX ``Captioner`` and ``FeatureExtractor`` (ROADMAP §1
-item 8), and the JAX ``Captioner``'s verified dispatch with fresh-key
-canary retries, are not ported.
+:meth:`Captioner.caption_images` and :meth:`Captioner.sample_images`.
+``mesh=`` (:mod:`.parallel`) shards each batch over a mesh's ``data`` axis:
+the captioner through :mod:`.parallel.serve` (each entry's rows through its
+device's kernels; on a mesh that spans processes every rank decodes its rows
+and receives every row's tokens), the extractor over one process's devices.
+The JAX ``Captioner``'s verified dispatch with fresh-key canary retries is
+not ported.
 """
 
 from __future__ import annotations
@@ -74,11 +77,18 @@ class Captioner:
     device raises. A bidirectional ``cfg`` keeps the float32 weights as
     they are, on the device, for the eager decodes (another
     ``weight_dtype`` raises: no decode kernel reads it).
+
+    ``mesh``: greedy, per-sample beam and sampled decodes shard each batch
+    over the mesh's ``data`` axis (:mod:`.parallel.serve`), the parameters
+    committed to the mesh once, here; ``device`` is then the mesh's first
+    device of this process. ``use_fused_kernel=True`` is honoured on every
+    block. The faithful beam couples a batch's rows and decodes unsharded.
     """
 
     def __init__(self, params: dict, cfg: NetConfig, idx_to_word: dict, device="cuda",
-                 weight_dtype: torch.dtype | None = None):
-        self.device = resolve_device(device)
+                 weight_dtype: torch.dtype | None = None, mesh=None):
+        self._mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.first_device)
         policy, value = (params["policy"], params.get("value")) if "policy" in params \
             else (params, None)
 
@@ -103,10 +113,20 @@ class Captioner:
                             if value is not None else None)
         self._cfg = cfg
         self._idx_to_word = idx_to_word
+        self._mesh_params = None
+        if mesh is not None:
+            from .parallel.sharding import replicate
+
+            self._mesh_params = (replicate(mesh, self._policy),
+                                 None if self._value is None else replicate(mesh, self._value))
 
     @property
     def cfg(self) -> NetConfig:
         return self._cfg
+
+    def _mesh_kw(self, use_fused_kernel) -> dict:
+        return {"weight_dtype": None if self._cfg.bidirectional else self.weight_dtype,
+                "use_fused_kernel": use_fused_kernel}
 
     def _features(self, features) -> torch.Tensor:
         if not isinstance(features, torch.Tensor):
@@ -147,6 +167,12 @@ class Captioner:
                     toks, _, _ = beam_search_compat(self._policy, self._value, self._cfg, dcfg,
                                                     feats, start)
                 return toks[:, 0].cpu().numpy()
+            if self._mesh is not None:
+                from .parallel.serve import sharded_beam_tokens
+
+                toks, _ = sharded_beam_tokens(self._mesh, *self._mesh_params, self._cfg, dcfg,
+                                              feats, start, **self._mesh_kw(use_fused_kernel))
+                return toks[:, 0].cpu().numpy()
             if self._cfg.bidirectional:
                 with torch.no_grad():
                     toks, _ = beam_search(self._policy, self._value, self._cfg, dcfg, feats,
@@ -158,6 +184,11 @@ class Captioner:
                 use_fused_kernel=use_fused_kernel)
             return toks[:, 0].cpu().numpy()
         self._check_kernel(use_fused_kernel, "greedy")
+        if self._mesh is not None:
+            from .parallel.serve import sharded_greedy_tokens
+
+            return sharded_greedy_tokens(self._mesh, self._mesh_params[0], self._cfg, feats,
+                                         start, **self._mesh_kw(use_fused_kernel)).cpu().numpy()
         if self._cfg.bidirectional:
             with torch.no_grad():
                 return greedy_decode(self._policy, self._cfg, feats, start, max_len).cpu().numpy()
@@ -193,6 +224,15 @@ class Captioner:
         feats = self._features(features)
         n = feats.shape[0]
         check_counter_space(n * num_samples, self._cfg.vocab_size)  # before the R-fold copy
+        if self._mesh is not None:
+            from .parallel.serve import sharded_sample_tokens
+
+            toks = sharded_sample_tokens(
+                self._mesh, self._mesh_params[0], self._cfg, feats, self._start(n),
+                prng.PRNGKey(seed), num_samples, temperature=float(temperature), top_k=top_k,
+                top_p=float(top_p) if top_p < 1.0 else None,
+                **self._mesh_kw(use_fused_kernel)).cpu().numpy()
+            return toks
         if self._cfg.bidirectional:
             with torch.no_grad():
                 toks = sample_decode_n(
@@ -257,14 +297,16 @@ class FeatureExtractor:
     every device (TF32 off). ``images`` of a call: file paths (decoded on
     the host: the shorter side to 256, a centre crop of 224,
     :func:`.cli.extract.load_image_batch`) or an ``[N, H, W, 3]`` array.
-    ``mesh`` raises: multi-GPU extraction is ROADMAP §1 item 8."""
+    ``mesh`` (one process's devices) splits each batch over its ``data``
+    entries (:func:`.models.vgg.iter_features`); ``device`` is then the
+    mesh's first device."""
 
     def __init__(self, vgg, projection=None, compute_dtype: torch.dtype | None = None,
                  mesh=None, device="cuda"):
         from .models import vgg as vgg_mod
 
-        vgg_mod.refuse_mesh(mesh)
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.first_device)
         vgg = vgg.to(self.device).eval()
         if compute_dtype is not None:
             vgg = vgg_mod.cast_params(vgg, compute_dtype)
@@ -290,7 +332,8 @@ class FeatureExtractor:
             loader = load_image_batch
         return vgg_mod.extract_features(self.vgg, images, batch_size=batch_size,
                                         projection=self.projection, loader=loader,
-                                        progress=progress, compute_dtype=self.compute_dtype)
+                                        progress=progress, compute_dtype=self.compute_dtype,
+                                        mesh=self.mesh)
 
 
 def load_feature_extractor(weights: str = "", pca: str = "", bf16: bool = False, mesh=None,
@@ -299,13 +342,12 @@ def load_feature_extractor(weights: str = "", pca: str = "", bf16: bool = False,
     weights (a torchvision-layout ``.pt`` state dict or a native ``.ckpt``;
     empty: random weights, with a warning on stderr, for pipeline testing)
     and an optional fitted PCA projection ``.npz`` (``cli/extract`` writes
-    one). ``bf16`` runs the stack in bfloat16. ``mesh`` raises (ROADMAP §1
-    item 8)."""
+    one). ``bf16`` runs the stack in bfloat16. ``mesh``: each batch split
+    over one process's devices (:class:`FeatureExtractor`)."""
     from .models import vgg as vgg_mod
     from .models.convert import load_vgg_ckpt, vgg_from_state_dict
 
-    vgg_mod.refuse_mesh(mesh)
-    dev = resolve_device(device)
+    dev = resolve_device(device if mesh is None else mesh.first_device)
     if weights.endswith(".pt"):
         model = vgg_from_state_dict(load_state_dict(weights), device=dev)
     elif weights:
@@ -322,7 +364,7 @@ def load_feature_extractor(weights: str = "", pca: str = "", bf16: bool = False,
 
         projection = PCAProjection.load(pca)
     return FeatureExtractor(model, projection, compute_dtype=torch.bfloat16 if bf16 else None,
-                            device=dev)
+                            mesh=mesh, device=dev)
 
 
 def evaluate_captions(real: List[str], generated: List[str]) -> dict:
@@ -342,27 +384,25 @@ def load_captioner(model_path: str, data, network_paths: dict, bidirectional: bo
     with the a2c checkpoint ``model_path`` over them, each ``.ckpt``
     (native) or ``.pt`` (reference) by its suffix
     (:func:`.train.loops.load_a2c_models`), sized by ``data`` (a
-    :class:`.data.coco.CocoData`, whose vocabulary captions). ``mesh``
-    other than None raises: multi-GPU serving is not ported (ROADMAP §1
-    item 8)."""
-    if mesh is not None:
-        raise NotImplementedError("load_captioner(mesh=...): multi-GPU serving is not ported "
-                                  "yet (ROADMAP §1 item 8)")
+    :class:`.data.coco.CocoData`, whose vocabulary captions). ``mesh``: a
+    sharded captioner (:class:`Captioner`); on a mesh that spans processes
+    rank 0 reads the checkpoints for every rank."""
     from .train.loops import load_a2c_models  # the loops import this module
 
     params, cfg = load_a2c_models(model_path, data, network_paths, bidirectional,
-                                  device=device)
-    return Captioner(params, cfg, data.idx_to_word, device=device, weight_dtype=weight_dtype)
+                                  device=device, mesh=mesh)
+    return Captioner(params, cfg, data.idx_to_word, device=device, weight_dtype=weight_dtype,
+                     mesh=mesh)
 
 
 def load_captioner_pt(model_pt: str, vocab_json: str, device="cuda",
                       weight_dtype: torch.dtype | None = None,
-                      bidirectional: bool = False) -> Captioner:
+                      bidirectional: bool = False, mesh=None) -> Captioner:
     """A :class:`Captioner` from a reference-layout a2c ``.pt`` checkpoint
     (``value_network.* / policy_network.*``) and ``coco2014_vocab.json``
     alone, without the bundle or the sub-network files. The network widths
     come from the checkpoint's shapes; a bidirectional checkpoint needs
-    ``bidirectional=True``."""
+    ``bidirectional=True``. ``mesh`` as in :class:`Captioner`."""
     params = a2c_from_state_dict(load_state_dict(model_pt), bidirectional)
     _, idx_to_word = load_vocab(vocab_json)
     pol = params["policy"]
@@ -373,4 +413,5 @@ def load_captioner_pt(model_pt: str, vocab_json: str, device="cuda",
                     bidirectional=bidirectional)
     if len(idx_to_word) != vocab:
         raise ValueError(f"the vocabulary has {len(idx_to_word)} words, the model {vocab}")
-    return Captioner(params, cfg, idx_to_word, device=device, weight_dtype=weight_dtype)
+    return Captioner(params, cfg, idx_to_word, device=device, weight_dtype=weight_dtype,
+                     mesh=mesh)

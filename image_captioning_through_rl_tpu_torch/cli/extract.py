@@ -15,8 +15,9 @@ Images are read with PIL in file-name order; ``--file_list`` pins the order
 the default) or, asked, the CPU. Without ``--pca_components`` (or with
 ``--pca_from``) the tables are written block by block as the batches come
 (:class:`..data.hdf5.H5Writer`), never held whole; a fresh PCA fit needs the
-whole fc7 table, as in the JAX package. ``--spmd`` (multi-GPU extraction)
-raises ``NotImplementedError``: ROADMAP §1 item 8.
+whole fc7 table, as in the JAX package. ``--spmd`` splits each batch over
+all of the process's cards (:func:`..models.vgg.iter_features` with a mesh),
+as the JAX CLI shards it over its chips.
 """
 
 from __future__ import annotations
@@ -77,7 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run the VGG16 stack in bfloat16 (fc7 values drift at bf16 rounding "
                          "level; fit and apply PCA on the same type's features)")
     ap.add_argument("--spmd", action="store_true",
-                    help="shard each batch over all local cards (not ported: raises)")
+                    help="shard each batch over all of this process's cards")
     ap.add_argument("--pca_refit", action="store_true",
                     help="overwrite an existing vgg16_fc7_pca.npz with a fresh fit; any other "
                          "split's _pca features must then be re-extracted with --pca_from "
@@ -94,11 +95,15 @@ def main(argv=None) -> None:
     from ..utils.logging import print_green
 
     args = build_parser().parse_args(argv)
-    if args.spmd:
-        raise NotImplementedError("--spmd: multi-GPU and multi-process runs are not ported yet "
-                                  "(ROADMAP §1 item 8)")
     device = resolve_device(args.device)
-    extractor = load_feature_extractor(weights=args.weights, bf16=args.bf16, device=device)
+    mesh = None
+    if args.spmd:
+        from ..parallel import make_mesh
+
+        mesh = make_mesh(device=args.device)
+        print_green(f"[Extract] SPMD: each batch split over {mesh}")
+    extractor = load_feature_extractor(weights=args.weights, bf16=args.bf16, device=device,
+                                       mesh=mesh)
     if args.weights:
         print_green(f"[Extract] loaded VGG16 weights from {args.weights}")
     paths = list_images(args.images_dir, args.file_list or None)
@@ -106,7 +111,7 @@ def main(argv=None) -> None:
 
     kwargs = dict(batch_size=args.batch_size, loader=load_image_batch,
                   progress=vgg.print_progress("Extracting"),
-                  compute_dtype=extractor.compute_dtype)
+                  compute_dtype=extractor.compute_dtype, mesh=mesh)
     os.makedirs(args.out_dir, exist_ok=True)
     raw_path = os.path.join(args.out_dir, f"{args.split}2014_vgg16_fc7.h5")
     pca_path = os.path.join(args.out_dir, f"{args.split}2014_vgg16_fc7_pca.h5")

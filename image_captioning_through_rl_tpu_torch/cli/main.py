@@ -20,9 +20,18 @@ word2vec|fasttext`` trains word vectors on the caption corpus (SGNS, on
 ``--device``; ``--save_word2vec`` writes them) and ``--pretrained_word2vec``
 loads a named model or a vector file; either way the vectors, aligned to the
 vocabulary, become every network's frozen embedding table and fix its
-width. ``--spmd`` (multi-GPU, not ported yet) raises
-``NotImplementedError`` before the bundle is read, naming its ROADMAP §1
-item (8).
+width.
+
+``--spmd`` trains and evaluates data-parallel (:mod:`..parallel`): one
+process per card, launched by ``torchrun --nproc_per_node=K -m
+image_captioning_through_rl_tpu_torch --spmd ...``; each rank joins the
+process group that torchrun's variables announce (NCCL on the cards, gloo
+on the CPU or where ``--device cuda:<i>`` makes the ranks share one card)
+and the mesh holds one entry a rank. A single process with ``--spmd`` is a
+world of one. Rank 0 decides (whether ``--test_model`` names a model, the
+log directory's name, the word vectors) and broadcasts, rank 0 alone writes
+(``run_config.json``, the checkpoints, the dumps, ``results.txt``), and the
+other ranks return before scoring.
 
 A run writes into ``logs/<stamp>/`` what the JAX CLI writes there: the
 caption, generated-caption and url dumps, ``results.txt``,
@@ -48,6 +57,8 @@ import torch
 from ..api import resolve_device
 from ..config import DecodeConfig
 from ..data.coco import load_data
+from ..parallel import collectives
+from ..parallel.mesh import is_main_process, make_mesh, maybe_init_distributed, rank_device, world
 from ..train.loops import load_a2c_models, test_a2c_network, train_a2c_network
 from ..utils.io import atomic_write, get_filename, resolve_checkpoint
 from ..utils.logging import print_green
@@ -68,33 +79,35 @@ BEST_SCORE_FILENAME = "best_scores.txt"
 BEST_SCORE_IMAGES_PATH = "best_scores_images"
 CURRICULUM_LEVELS = [3, 6, 9, 12, 15]  # image_captioner.py:35
 
-# flags of parts not ported yet: (flag, is it set?, what, ROADMAP §1 item)
-UNPORTED = (
-    ("--spmd", lambda a: a.spmd, "multi-GPU and multi-process runs", 8),
-)
-
-
-def check_ported(args) -> None:
-    """Raise ``NotImplementedError`` for the first flag that asks for a part
-    the port does not have yet, naming its ROADMAP item."""
-    for flag, is_set, what, item in UNPORTED:
-        if is_set(args):
-            raise NotImplementedError(f"{flag}: {what} are not ported yet (ROADMAP §1 item "
-                                      f"{item})")
+def spmd_mesh(args):
+    """``--spmd``: join the process group torchrun's variables announce
+    (a partial set raises) and return the mesh, one entry a rank (this
+    process's device alone in a world of one); None without ``--spmd``."""
+    if not args.spmd:
+        return None
+    if maybe_init_distributed(args.device) or collectives.active():
+        rank, size = world()
+        print_green(f"[Info] SPMD: rank {rank} of {size} "
+                    f"({torch.distributed.get_backend()})")
+        return make_mesh(device=args.device)
+    return make_mesh(devices=[rank_device(args.device)])
 
 
 def setup(args):
     """Check the device, derive the log directory and the three path dicts
-    (reference image_captioner.py:38-90)."""
-    dev = resolve_device(args.device)
+    (reference image_captioner.py:38-90). In a process group the log
+    directory is rank 0's, and only rank 0 makes it."""
+    dev = rank_device(args.device) if args.spmd else resolve_device(args.device)
     name = f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""
     print_green(f"[Info] Working on: {dev}{name}")
 
     if os.path.isdir(os.path.split(args.test_model)[0]):
         log_dir = os.path.split(args.test_model)[0]
     else:
-        stamp = datetime.now().strftime("%d-%b-%Y_%H_%M_%S")
-        log_dir = os.path.join("logs", stamp)
+        log_dir = os.path.join("logs", datetime.now().strftime("%d-%b-%Y_%H_%M_%S"))
+    if collectives.active():  # rank 0's answer: its files decide
+        log_dir = collectives.broadcast_bytes(log_dir.encode()).decode()
+    if is_main_process():
         os.makedirs(log_dir, exist_ok=True)
 
     reward_file = get_filename(REWARD_NETWORK_WEIGHTS_FILE, args.bidirectional, None)
@@ -128,7 +141,9 @@ def _record_run_config(args, log_dir: str) -> None:
     """Write the resolved flags to ``<log_dir>/run_config.json`` (replayable
     through ``--config``); a ``--test_model`` run reuses the model's log
     directory and writes ``eval_config.json`` instead, so the training run's
-    record survives its evaluations."""
+    record survives its evaluations. Rank 0's alone."""
+    if not is_main_process():
+        return
     reused_dir = os.path.isdir(os.path.split(args.test_model)[0])
     name = "eval_config.json" if reused_dir else "run_config.json"
     resolved = {k: v for k, v in sorted(vars(args).items()) if k != "config"}
@@ -140,8 +155,11 @@ def main(args) -> dict:
     """Run the pipeline for parsed ``args``. Returns the log directory, the
     A2C parameters, the network config and the wall seconds of each stage
     (``load``, ``word2vec`` with word vectors, ``reward``/``policy``/``value``
-    when trained, ``a2c``, ``test``, ``score``, ``postprocess``)."""
-    check_ported(args)
+    when trained, ``a2c``, ``test``, ``score``, ``postprocess``); a rank
+    other than 0 returns after the test, before the scores."""
+    mesh = spmd_mesh(args)
+    device = args.device if mesh is None else mesh.first_device
+    multiprocess = mesh is not None and mesh.spans_processes
     log_dir, save_paths, image_caption_data, network_paths = setup(args)
     print_green(f"[Info] Saving Logs in dir: {log_dir}")
     _record_run_config(args, log_dir)
@@ -164,20 +182,30 @@ def main(args) -> dict:
 
         print_green(f"[Info] Training Word Embeddings {args.train_word2vec}")
         with stage("word2vec"):
-            data.embeddings = train_word_embeddings(
-                args.train_word2vec, data, get_preprocessed_corpus(data),
-                save_path=args.save_word2vec, device=args.device)
+            if is_main_process():
+                data.embeddings = train_word_embeddings(
+                    args.train_word2vec, data, get_preprocessed_corpus(data),
+                    save_path=args.save_word2vec, device=device)
+            if multiprocess:
+                data.embeddings = _broadcast_array(data.embeddings)
         print_green("[Info] Done Training Word Embeddings")
     elif args.pretrained_word2vec != "none":
         from ..embeddings import get_embeddings, get_vectors_by_vocab
 
         print_green(f"[Info] Loading Pretrained Word Embeddings {args.pretrained_word2vec}")
         with stage("word2vec"):
-            data.embeddings = get_vectors_by_vocab(get_embeddings(args.pretrained_word2vec),
-                                                   data.word_to_idx)
+            if is_main_process():
+                data.embeddings = get_vectors_by_vocab(get_embeddings(args.pretrained_word2vec),
+                                                       data.word_to_idx)
+            if multiprocess:
+                data.embeddings = _broadcast_array(data.embeddings)
 
     use_test_model = bool(os.path.isfile(args.test_model)
                           and "a2cNetwork" in os.path.split(args.test_model)[1])
+    if multiprocess:
+        # rank 0's decision: ranks that disagree about a local file would
+        # enter mismatched collectives (the load's broadcast vs training)
+        use_test_model = bool(collectives.broadcast_int(use_test_model))
     net_dims = {k: v for k, v in (("input_dim", args.input_dim),
                                   ("wordvec_dim", args.wordvec_dim),
                                   ("hidden_dim", args.hidden_dim))
@@ -188,12 +216,12 @@ def main(args) -> dict:
         with stage("load_model"):
             a2c_params, cfg = load_a2c_models(args.test_model, data, network_paths,
                                               args.bidirectional, net_dims=net_dims,
-                                              device=args.device)
+                                              device=device, mesh=mesh)
         print_green("[Info] A2C Network loaded")
     else:
         curriculum = CURRICULUM_LEVELS if args.curriculum else None
         prof = contextlib.nullcontext()
-        if args.profile_dir:
+        if args.profile_dir and is_main_process():
             from ..utils.profiling import trace
 
             prof = trace(args.profile_dir)
@@ -217,9 +245,10 @@ def main(args) -> dict:
                 # kernels on the card and the plain steps on the CPU
                 fused_rollout=True if args.fused_rollout else None,
                 chunk_steps=args.chunk_steps,
-                device=args.device,
+                device=device,
                 net_dims=net_dims,
                 stage_seconds=seconds,
+                mesh=mesh,
             )
         print_green("[Info] A2C Network trained")
 
@@ -228,8 +257,11 @@ def main(args) -> dict:
     with stage("test"):
         test_a2c_network(a2c_params, cfg, test_data=data, image_caption_data=image_caption_data,
                          data_size=args.test_size, dcfg=dcfg, seed=args.seed,
-                         compat_dump=args.compat_dump, device=args.device)
+                         compat_dump=args.compat_dump, device=device, mesh=mesh)
     print_green("[Info] A2C Network Tested")
+    result = {"log_dir": log_dir, "params": a2c_params, "cfg": cfg, "seconds": seconds}
+    if not is_main_process():
+        return result  # the dumps are rank 0's: it scores them
 
     print_green("[Info] A2C Network score - start")
     from ..metrics import calculate_a2c_network_score
@@ -248,7 +280,21 @@ def main(args) -> dict:
 
     print_green(f"[Info] Logs saved in dir: {log_dir}")
     print_green("[Info] Stage seconds: " + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items()))
-    return {"log_dir": log_dir, "params": a2c_params, "cfg": cfg, "seconds": seconds}
+    return result
+
+
+def _broadcast_array(arr):
+    """Rank 0's numpy array (or None) on every rank."""
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    if is_main_process():
+        np.save(buf, np.asarray(arr) if arr is not None else np.zeros((0,)), allow_pickle=False)
+    data = collectives.broadcast_bytes(buf.getvalue())
+    out = np.load(io.BytesIO(data), allow_pickle=False)
+    return None if out.shape == (0,) else out
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -329,8 +375,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--hidden_dim", type=int, default=None,
                    help="RNN hidden dimension (default 512)")
     p.add_argument("--spmd", action=argparse.BooleanOptionalAction, default=False,
-                   help="Train and evaluate over a data-sharded mesh of every device of "
-                        "the job (not ported yet: raises, ROADMAP §1 item 8)")
+                   help="Train and evaluate data-parallel over every rank of the job, one "
+                        "card a process (launch with torchrun --nproc_per_node=K); a single "
+                        "process is a world of one")
     p.add_argument("--profile_dir", type=str, default="",
                    help="Capture a torch.profiler trace of the training phase (host, and "
                         "the card when there is one) into this directory as a Chrome "

@@ -9,8 +9,10 @@
 // column 0 is the start token. The picks:
 //   * argmax (greedy): the first index of the row's largest logit;
 //   * Gumbel (sampling, no filter): the first index of the largest
-//     logits / t + gumbel(threefry(subkey_t, row * V + col)), which is
-//     jax.random.categorical under the step's subkey;
+//     logits / t + gumbel(threefry(subkey_t, (row0 + row) * V + col)), which
+//     is jax.random.categorical under the step's subkey (row0: the launch's
+//     first row in the global batch, 0 unless a rank or device decodes a
+//     slice of it, so each slice draws its rows of the whole draw);
 //   * filtered (sampling with top-k and/or the nucleus): the same over the
 //     columns the filters keep. A dropped column is -1e30 in the TPU kernel,
 //     and -1e30 + g == -1e30 for every noise value g (in ~[-4.5, 16.6],
@@ -183,6 +185,7 @@ struct DecodeArgs {
   int n, F, E, H, V, Vh, T, pick, top_k, top_p, h_groups, a_groups, parts;
   float temp, p;
   unsigned key0, key1;
+  unsigned row0;       // the first row's global index: its noise counters start at row0 * V
   const float* feats;  // [n, F]
   const int* start;    // [n]
   const W* h0_a;       // the h0 product's A: [parts, n, F] (bf16: the features' parts)
@@ -255,7 +258,8 @@ __device__ void head_epilogue(const DecodeArgs<W>& a, const float* Cs, int cld, 
   float v[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
   int vi[4] = {0x7fffffff, 0x7fffffff, 0x7fffffff, 0x7fffffff};  // sentinels
   if (a.pick == PICK_GUMBEL) {
-    const unsigned base = (unsigned)min(row, a.n - 1) * (unsigned)a.V + (unsigned)c0;
+    const unsigned base =
+        (a.row0 + (unsigned)min(row, a.n - 1)) * (unsigned)a.V + (unsigned)c0;
     auto pick = [&](auto divide) {
 #pragma unroll
       for (int i = 0; i < CPT; ++i) {
@@ -575,11 +579,11 @@ struct FilterArgs {
 // cu, survivors' values and columns. Not inlined: every kernel variant of
 // the file calls the one copy (it depends on neither the weight type nor
 // the slice width), which keeps the build short.
-__device__ __noinline__ int pick_filtered(FilterArgs a, int row, int* sh, unsigned s0,
-                                          unsigned s1) {
+__device__ __noinline__ int pick_filtered(FilterArgs a, int row, unsigned row0, int* sh,
+                                          unsigned s0, unsigned s1) {
   const int lane = threadIdx.x % 32;
   const size_t o = (size_t)row * a.V;
-  const unsigned base = (unsigned)row * (unsigned)a.V;
+  const unsigned base = (row0 + (unsigned)row) * (unsigned)a.V;
   unsigned* cu = reinterpret_cast<unsigned*>(sh);
   float* svs = reinterpret_cast<float*>(sh + SHORT);
   int* scs = sh + 2 * SHORT;
@@ -615,7 +619,8 @@ __device__ void phase_b(const DecodeArgs<W>& a, int nh, int* sh, int t, unsigned
       const int row = r0 + warp;
       int tok;
       if (a.pick == PICK_FILTER) {
-        tok = pick_filtered({a.xs, a.sv, a.sc, a.V, a.top_k, a.top_p, a.p}, row, wsh, s0, s1);
+        tok = pick_filtered({a.xs, a.sv, a.sc, a.V, a.top_k, a.top_p, a.p}, row, a.row0, wsh, s0,
+                             s1);
       } else {
         const float* pr = a.part + (size_t)row * a.pp * 2;
         float v = -INFINITY;
@@ -842,7 +847,7 @@ DecodeLayout decode_layout(float* ws, int n, int F, int H, int V, bool bf16, boo
 // icrl_decode on the current device, after its argument checks.
 int decode_on_device(int n, int F, int E, int H, int V, int Vh, int Vx, int T, int bf16, int pick,
                      int top_k, int top_p, float temp, float p, unsigned key0, unsigned key1,
-                     int rows_per_tile, int units, int stream, int grid, int h_groups,
+                     unsigned row0, int rows_per_tile, int units, int stream, int grid, int h_groups,
                      int a_groups, int smem, const float* feats, const int* start,
                      const void* wc, const float* bc, const float* xg, const void* w,
                      const float* b, const void* head, const float* bo, int* out, float* ws,
@@ -877,6 +882,7 @@ int decode_on_device(int n, int F, int E, int H, int V, int Vh, int Vx, int T, i
     a.p = p;
     a.key0 = key0;
     a.key1 = key1;
+    a.row0 = row0;
     a.feats = feats;
     a.start = start;
     a.h0_a = bf16 ? (const W*)L.fs : (const W*)feats;
@@ -926,9 +932,10 @@ size_t icrl_decode_workspace_floats(int n, int F, int H, int V, int bf16, int pi
 // columns, rows padded to Vh, a multiple of 8) bf16 when bf16 != 0, else
 // float32; xg = emb @ wi [Vx, 4H]
 // float32 (icrl_token_gates). V <= Vh is the vocabulary the picks range over
-// (the noise counters row * V + col, uint32: n V < 2^32); bo holds at least
-// V values. key0, key1: the host key's words (the step subkeys are carried in
-// the launch); temp > 0. Needs T >= 2, n >= 1; a start token outside [0, Vx)
+// (the noise counters (row0 + row) * V + col, uint32: (row0 + n) V < 2^32;
+// row0 is the first row's index in the global batch a rank or device holds
+// a slice of); bo holds at least V values. key0, key1: the host key's words
+// (the step subkeys are carried in the launch); temp > 0. Needs T >= 2, n >= 1; a start token outside [0, Vx)
 // fails a device assertion (decode_start_check_kernel, one small launch
 // before the decode's). The plan (rows per tile, units, streaming or not,
 // grid, head and cell row groups, shared bytes) must be decode_plan's for
@@ -939,8 +946,8 @@ size_t icrl_decode_workspace_floats(int n, int F, int H, int V, int bf16, int pi
 // their count, and the cell tiles' (DECODE_TILE_COST's measure).
 int icrl_decode(int n, int F, int E, int H, int V, int Vh, int Vx, int T, int bf16, int pick,
                 int top_k, int top_p, float temp, float p, unsigned key0, unsigned key1,
-                int rows_per_tile, int units, int stream, int grid, int h_groups, int a_groups,
-                int smem, const float* feats, const int* start, const void* wc, const float* bc,
+                unsigned row0, int rows_per_tile, int units, int stream, int grid, int h_groups,
+                int a_groups, int smem, const float* feats, const int* start, const void* wc, const float* bc,
                 const float* xg, const void* w, const float* b, const void* head,
                 const float* bo, int* out, float* ws, unsigned long long* clock, int device,
                 void* stream_) {
@@ -954,7 +961,7 @@ int icrl_decode(int n, int F, int E, int H, int V, int Vh, int Vx, int T, int bf
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int code = decode_on_device(n, F, E, H, V, Vh, Vx, T, bf16, pick, top_k, top_p, temp, p,
-                                    key0, key1, rows_per_tile, units, stream, grid, h_groups,
+                                    key0, key1, row0, rows_per_tile, units, stream, grid, h_groups,
                                     a_groups, smem, feats, start, wc, bc, xg, w, b, head, bo, out,
                                     ws, clock, static_cast<cudaStream_t>(stream_));
   if (prev != device) cudaSetDevice(prev);

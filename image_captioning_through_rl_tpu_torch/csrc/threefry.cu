@@ -24,14 +24,18 @@ struct Keys {
   unsigned k[2 * MAX_KEYS];
 };
 
-// out[s, c] for s < keys, c < plane: Gumbel noise (float) or the raw bits.
+// out[s, c] for s < keys, c < plane: Gumbel noise (float) or the raw bits of
+// counter counter0 + c (counter0: the first global row's first counter, so a
+// rank's rows of a larger draw hash as in the whole draw).
 template <bool kGumbel>
-__global__ void threefry_kernel(Keys keys, int nkeys, unsigned plane, void* out) {
+__global__ void threefry_kernel(Keys keys, int nkeys, unsigned plane, unsigned counter0,
+                                void* out) {
   const size_t total = (size_t)nkeys * plane;
   for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < total;
        i += (size_t)gridDim.x * blockDim.x) {
     const int s = (int)(i / plane);
-    const unsigned bits = random_bits(keys.k[2 * s], keys.k[2 * s + 1], (unsigned)(i % plane));
+    const unsigned bits = random_bits(keys.k[2 * s], keys.k[2 * s + 1],
+                                      counter0 + (unsigned)(i % plane));
     if constexpr (kGumbel)
       static_cast<float*>(out)[i] = gumbel_from_bits(bits);
     else
@@ -44,12 +48,13 @@ __global__ void threefry_kernel(Keys keys, int nkeys, unsigned plane, void* out)
 
 extern "C" {
 
-// nkeys draws of `plane` elements each (plane < 2^32), key s at
-// keys[2 s], keys[2 s + 1] (host memory, uint32); out (device) is float32
+// nkeys draws of `plane` elements each, key s at keys[2 s], keys[2 s + 1]
+// (host memory, uint32), element c hashing counter counter0 + c
+// (counter0 + plane <= 2^32: the caller checks the global draw); out (device) is float32
 // Gumbel noise when gumbel != 0, else the uint32 bits, [nkeys, plane].
 // Returns 0 or the first CUDA error of a launch.
-int icrl_threefry(int nkeys, const unsigned* keys, long long plane, int gumbel, void* out,
-                  void* stream) {
+int icrl_threefry(int nkeys, const unsigned* keys, long long plane, long long counter0,
+                  int gumbel, void* out, void* stream) {
   using namespace icrl;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int k0 = 0; k0 < nkeys; k0 += MAX_KEYS) {
@@ -60,10 +65,10 @@ int icrl_threefry(int nkeys, const unsigned* keys, long long plane, int gumbel, 
     const int blocks = (int)std::min<size_t>((total + 255) / 256, 132 * 64);
     const size_t offset = (size_t)k0 * (size_t)plane;
     if (gumbel)
-      threefry_kernel<true><<<blocks, 256, 0, st>>>(kv, nk, (unsigned)plane,
+      threefry_kernel<true><<<blocks, 256, 0, st>>>(kv, nk, (unsigned)plane, (unsigned)counter0,
                                                    static_cast<float*>(out) + offset);
     else
-      threefry_kernel<false><<<blocks, 256, 0, st>>>(kv, nk, (unsigned)plane,
+      threefry_kernel<false><<<blocks, 256, 0, st>>>(kv, nk, (unsigned)plane, (unsigned)counter0,
                                                     static_cast<unsigned*>(out) + offset);
     ICRL_CHECK(cudaGetLastError());
   }

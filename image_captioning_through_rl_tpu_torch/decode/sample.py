@@ -54,11 +54,12 @@ def _scaled(logits: torch.Tensor, temperature) -> torch.Tensor:
 
 def sample_decode(params: dict, cfg: NetConfig, features: torch.Tensor,
                   start_tokens: torch.Tensor, key, max_len: int | None = None,
-                  temperature=1.0, top_k: int = 0, top_p=None) -> torch.Tensor:
+                  temperature=1.0, top_k: int = 0, top_p=None, row0: int = 0) -> torch.Tensor:
     """Ancestral sampling with carried LSTM state: ``[N, max_len]`` int32
     ids starting with ``start_tokens``, the full static length (the text
     decoder trims at <END>). Each step takes ``key, sub = split(key)`` and
-    draws from the filtered softmax under ``sub``."""
+    draws from the filtered softmax under ``sub`` (rows ``[row0, row0 + N)``
+    of a global batch's draw with ``row0``)."""
     max_len = max_len or cfg.max_seq_len
     state = policy_mod.init_decode_state(params, cfg, features)
     tok = start_tokens.long()
@@ -66,7 +67,8 @@ def sample_decode(params: dict, cfg: NetConfig, features: torch.Tensor,
     for _ in range(max_len - 1):
         logits, state = policy_mod.step(params, cfg, tok, state)
         key, sub = prng.split(key)
-        tok = sample_categorical(sub, filter_logits(_scaled(logits, temperature), top_k, top_p))
+        tok = sample_categorical(sub, filter_logits(_scaled(logits, temperature), top_k, top_p),
+                                 row0)
         toks.append(tok)
     return torch.stack(toks, dim=1).to(torch.int32)
 

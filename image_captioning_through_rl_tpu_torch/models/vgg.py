@@ -20,6 +20,7 @@ three decimal digits), so float32 is float32 on every device.
 
 from __future__ import annotations
 
+import copy
 import sys
 from typing import Iterable, List
 
@@ -154,10 +155,24 @@ def features_fc7(model: VGG16, images, preprocessed: bool = False,
     return model(x).to(torch.float32)
 
 
-def refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError("feature extraction over a mesh (mesh=...) is multi-GPU "
-                                  "extraction, not ported yet (ROADMAP §1 item 8)")
+def _mesh_replicas(model: VGG16, projection, mesh) -> list:
+    """``(device, model, projection)`` for each entry of ``mesh``: the
+    given model and projection on their own device, a copy on each other
+    device (once, however often the device repeats). A mesh that spans
+    processes raises ``ValueError``: each process extracts its own file
+    list instead (its pixels are on its host)."""
+    if mesh.spans_processes:
+        raise ValueError("extract_features(mesh=...) shards over the devices of one process; "
+                         "in a multi-process job give each process its own file list instead "
+                         "of sharding a global batch")
+    home = next(model.parameters()).device
+    copies = {}
+    for d in mesh.local_devices:
+        if d not in copies:
+            same = d == home
+            copies[d] = (model if same else copy.deepcopy(model).to(d),
+                         None if projection is None else projection.to(d))
+    return [(d, *copies[d]) for d in mesh.local_devices]
 
 
 def iter_features(model: VGG16, images, batch_size: int = 64, projection=None, loader=None,
@@ -173,12 +188,31 @@ def iter_features(model: VGG16, images, batch_size: int = 64, projection=None, l
     iterable wrapper, for example a progress bar). Up to
     :data:`PIPELINE_DEPTH` batches stay on the device before they are read
     back, so the host decodes the next batch while the card computes.
-    ``mesh`` raises: multi-GPU extraction is ROADMAP §1 item 8."""
-    refuse_mesh(mesh)
+
+    ``mesh`` (one process's :class:`..parallel.mesh.Mesh`) splits each
+    padded batch into equal row blocks over its ``data`` entries, each on
+    its device's copy of the model (the batch rounded up to a multiple of
+    the entries), and joins the blocks on the model's device."""
+    replicas = None
+    if mesh is not None:
+        replicas = _mesh_replicas(model, projection, mesh)
+        batch_size = -(-batch_size // len(replicas)) * len(replicas)
     n = images.shape[0] if hasattr(images, "shape") else len(images)
     if n == 0:
         return iter(())
     dev = next(model.parameters()).device
+
+    def fc7(batch: np.ndarray) -> torch.Tensor:
+        if replicas is None:
+            feats = features_fc7(model, torch.from_numpy(batch).to(dev, non_blocking=True),
+                                 compute_dtype=compute_dtype)
+            return feats if projection is None else projection.apply(feats)
+        parts = []
+        for block, (d, m, proj) in zip(np.split(batch, len(replicas)), replicas):
+            f = features_fc7(m, torch.from_numpy(block).to(d, non_blocking=True),
+                             compute_dtype=compute_dtype)
+            parts.append((f if proj is None else proj.apply(f)).to(dev))
+        return torch.cat(parts)
 
     def blocks():
         pending = []
@@ -191,11 +225,7 @@ def iter_features(model: VGG16, images, batch_size: int = 64, projection=None, l
             real = batch.shape[0]
             if real < batch_size:
                 batch = np.concatenate([batch, np.repeat(batch[-1:], batch_size - real, axis=0)])
-            feats = features_fc7(model, torch.from_numpy(batch).to(dev, non_blocking=True),
-                                 compute_dtype=compute_dtype)
-            if projection is not None:
-                feats = projection.apply(feats)
-            pending.append((feats, real))
+            pending.append((fc7(batch), real))
             if len(pending) > PIPELINE_DEPTH:
                 f, r = pending.pop(0)
                 yield f[:r].cpu().numpy()

@@ -478,12 +478,13 @@ def decode_clock_slots(max_len: int) -> int:
 def launch_decode(weights: GreedyWeights, features: torch.Tensor, start_tokens: torch.Tensor,
                   max_len: int, pick: int, temperature: float = 1.0, top_k: int = 0,
                   top_p=None, key_words: tuple = (0, 0),
-                  clock: torch.Tensor | None = None) -> torch.Tensor:
+                  clock: torch.Tensor | None = None, row0: int = 0) -> torch.Tensor:
     """One call of the decode kernel (``csrc/decode.cu``) for greedy
     (``PICK_ARGMAX``) or a sample (``PICK_GUMBEL``; ``PICK_FILTER`` with
     ``top_k`` > 0 and / or ``top_p`` given), the host key's two words
-    ``key_words``, on the features' CUDA device: ``[N, max_len]`` int32. The
-    wrappers' shared launch; it counts nothing."""
+    ``key_words``, on the features' CUDA device: ``[N, max_len]`` int32;
+    ``row0`` is the rows' first index in the global batch whose noise they
+    draw. The wrappers' shared launch; it counts nothing."""
     features = pad_features(weights, features)
     check_decode_inputs(weights, features, start_tokens, max_len)
     vocab, emb_dim = weights.emb.shape  # the picks never reach a padded head's extra word
@@ -501,7 +502,7 @@ def launch_decode(weights: GreedyWeights, features: torch.Tensor, start_tokens: 
     err = lib.icrl_decode(
         n, feat_dim, emb_dim, hidden, vocab, weights.head.shape[1], vocab, max_len, bf16, pick,
         int(top_k), int(top_p is not None), float(temperature),
-        1.0 if top_p is None else float(top_p), *key_words,
+        1.0 if top_p is None else float(top_p), *key_words, int(row0),
         *_decode_plan_args(n, feat_dim, hidden, vocab, pick, weights.dtype, index),
         ptr(features), ptr(start_tokens), ptr(weights.wc), ptr(weights.bc), ptr(weights.xg),
         ptr(weights.w), ptr(weights.b), ptr(weights.head), ptr(weights.bo), ptr(out), ptr(ws),

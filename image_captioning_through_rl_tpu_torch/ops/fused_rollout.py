@@ -1186,7 +1186,8 @@ def pad_rollout_inputs(a2c_params: dict, features: torch.Tensor, states: tuple):
 def fused_rollout(a2c_params: dict, cfg, features: torch.Tensor, captions: torch.Tensor,
                   curr_seq_len: int, rng, weight_dtype: torch.dtype = torch.bfloat16,
                   reward_params: dict = None, use_fused_kernel: bool | None = None,
-                  tape_gates: bool = True, tape_dtype: torch.dtype | None = None):
+                  tape_gates: bool = True, tape_dtype: torch.dtype | None = None,
+                  row0: int = 0):
     """The A2C rollout of ``a2c_params`` (``{"policy", "value"}``) from
     ``captions[:, 0]``, teacher-forcing positions ``p < curr_seq_len``.
 
@@ -1197,8 +1198,9 @@ def fused_rollout(a2c_params: dict, cfg, features: torch.Tensor, captions: torch
     a fifth array, ``rewards [N, S]`` (no gradient), follows. The actions
     are ``jax.random.categorical`` draws: step s's noise is
     ``gumbel(split(rng, S)[s], (N, V))`` from the host key ``rng`` (uint32
-    ``[2]``), made on the features' device (:func:`.prng.gumbel_noise`).
-    Weights act in ``weight_dtype`` (bf16 by default, as the TPU kernel).
+    ``[2]``), made on the features' device (:func:`.prng.gumbel_noise`);
+    ``row0`` makes the rows ``[row0, row0 + N)`` of a global batch's draw
+    (a rank's rows of the minibatch). Weights act in ``weight_dtype`` (bf16 by default, as the TPU kernel).
 
     The tape the backward reads (``pallas_rollout.py:94-97, 240-254``):
     ``tape_gates=False`` keeps no gate activations (the backward recomputes
@@ -1211,7 +1213,7 @@ def fused_rollout(a2c_params: dict, cfg, features: torch.Tensor, captions: torch
     ``True`` on CPU tensors raises."""
     steps = captions.shape[1] - 1
     vocab = a2c_params["policy"]["embedding"].shape[0]
-    noise = gumbel_noise(split(rng, steps), (captions.shape[0], vocab), features.device)
+    noise = gumbel_noise(split(rng, steps), (captions.shape[0], vocab), features.device, row0)
     return rollout_from_noise(a2c_params, cfg, features, captions, curr_seq_len, noise,
                               weight_dtype, reward_params, use_fused_kernel, tape_gates,
                               _F32 if tape_dtype is None else tape_dtype)

@@ -27,9 +27,11 @@ Routing in :func:`fused_sample_decode` is that of
 :func:`.fused_decode.fused_greedy_decode`: CUDA tensors run the kernel (or
 the call raises), CPU tensors run :func:`sample_decode_plain`,
 ``use_fused_kernel=False`` selects the plain version and ``True`` on CPU
-tensors raises. The noise counters are uint32 ``row * V + col``, so a
-batch needs ``rows * V < 2**32`` (:func:`fused_rows_ok`); a larger one
-raises on every route. V is the vocabulary's own width even where the head
+tensors raises. The noise counters are uint32 ``(row0 + row) * V + col``,
+where ``row0`` is the batch's first row in a global batch that a rank or a
+mesh entry decodes a slice of (:mod:`..parallel.serve`; 0 otherwise), so a
+batch needs ``(row0 + rows) * V < 2**32`` (:func:`fused_rows_ok`); a larger
+one raises on every route. V is the vocabulary's own width even where the head
 is padded to an even one (:func:`.fused_decode.pad_greedy_weights`): the
 padded word is cut from the logits before the filters and the noise. The
 kernel takes any V (a filtered row held in a warp's registers up to
@@ -156,7 +158,8 @@ def _filters(vocab: int, top_k, top_p) -> tuple[int, bool, bool]:
 
 def sample_decode_plain(weights: GreedyWeights, features: torch.Tensor,
                         start_tokens: torch.Tensor, key, max_len: int = MAX_SEQ_LEN,
-                        temperature=1.0, top_k: int = 0, top_p=None, margins: bool = False):
+                        temperature=1.0, top_k: int = 0, top_p=None, margins: bool = False,
+                        row0: int = 0):
     """The sampling kernel's function in eager torch.
 
     The cell and head round where the greedy kernel's plain version does
@@ -165,8 +168,9 @@ def sample_decode_plain(weights: GreedyWeights, features: torch.Tensor,
     otherwise), filtered by :func:`filter_scaled_logits` and drawn with
     Gumbel noise from :func:`.prng.gumbel_noise_plain` (not the noise
     kernel), under the subkeys :func:`.prng.sample_step_keys` makes from the
-    host key ``key``. With float32 weights it is the JAX package's sampling
-    decode, token for token.
+    host key ``key`` (rows ``[row0, row0 + N)`` of the global draw). With
+    float32 weights it is the JAX package's sampling decode, token for
+    token.
 
     Returns ``[N, max_len]`` int32 tokens; with ``margins=True`` also, per
     step, the smallest distance to a tie ``[N, max_len - 1]``: the gap
@@ -190,7 +194,7 @@ def sample_decode_plain(weights: GreedyWeights, features: torch.Tensor,
         scaled = filter_scaled_logits(logits / t, k, top_p, use_top_k, use_top_p, margins)
         if margins:
             scaled, margin = scaled
-        noisy = scaled + prng.gumbel_noise_plain(sub[None], (n, vocab), dev)[0]
+        noisy = scaled + prng.gumbel_noise_plain(sub[None], (n, vocab), dev, row0)[0]
         tok = torch.argmax(noisy, dim=-1)  # first maximal index on ties
         toks.append(tok)
         if margins:
@@ -202,18 +206,18 @@ def sample_decode_plain(weights: GreedyWeights, features: torch.Tensor,
 
 def _launch_sample(weights: GreedyWeights, features: torch.Tensor, start_tokens: torch.Tensor,
                    key, max_len: int, temperature: float, top_k, top_p,
-                   clock: torch.Tensor | None = None) -> torch.Tensor:
+                   clock: torch.Tensor | None = None, row0: int = 0) -> torch.Tensor:
     k, use_top_k, use_top_p = _filters(weights.emb.shape[0], top_k, top_p)
     pick = PICK_FILTER if use_top_k or use_top_p else PICK_GUMBEL
     return launch_decode(weights, features, start_tokens, max_len, pick, temperature, k,
-                         top_p if use_top_p else None, prng.key_words(key), clock)
+                         top_p if use_top_p else None, prng.key_words(key), clock, row0)
 
 
 def fused_sample_decode(weights: GreedyWeights, features: torch.Tensor,
                         start_tokens: torch.Tensor, key, max_len: int = MAX_SEQ_LEN,
                         temperature=1.0, top_k: int = 0, top_p=None,
                         use_fused_kernel: bool | None = None,
-                        clock: torch.Tensor | None = None) -> torch.Tensor:
+                        clock: torch.Tensor | None = None, row0: int = 0) -> torch.Tensor:
     """Sampled decode: ``features [N, F]`` f32, ``start_tokens [N]`` int32
     and the host key ``key`` (uint32 ``[2]``, :func:`.prng.PRNGKey`) ->
     ``[N, max_len]`` int32 tokens on the features' device. ``temperature``
@@ -224,26 +228,28 @@ def fused_sample_decode(weights: GreedyWeights, features: torch.Tensor,
     steps beside one that asserts the start tokens' range; the step subkeys
     carried in the launch from the key's two words); CPU tensors run
     :func:`sample_decode_plain`. ``use_fused_kernel=False`` forces the plain
-    version; ``True`` on CPU tensors raises. A batch with ``N * V >= 2**32``
-    raises on every route. ``fused_sample_decode.launches`` counts kernel
+    version; ``True`` on CPU tensors raises. ``row0``: the rows are ``[row0,
+    row0 + N)`` of a global batch, and draw those rows' noise of its draw
+    (a shard's slice of a sampled batch, :mod:`..parallel.serve`). A batch
+    with ``(row0 + N) * V >= 2**32`` raises on every route. ``fused_sample_decode.launches`` counts kernel
     calls. ``clock`` is the greedy decode's phase profile
     (:func:`.fused_decode.fused_greedy_decode`).
     """
-    check_counter_space(features.shape[0], weights.emb.shape[0])
+    check_counter_space(row0 + features.shape[0], weights.emb.shape[0])
     if not float(temperature) > 0:
         raise ValueError(f"temperature must be positive, got {temperature} (0 is greedy)")
     check_clock(clock, decode_clock_slots(max_len), features, use_fused_kernel)
     args = (weights, features, start_tokens, key, max_len, temperature, top_k, top_p)
     if use_fused_kernel is False:
-        return sample_decode_plain(*args)
+        return sample_decode_plain(*args, row0=row0)
     if features.is_cuda:
-        out = _launch_sample(*args, clock=clock)
+        out = _launch_sample(*args, clock=clock, row0=row0)
         fused_sample_decode.launches += 1
         return out
     if use_fused_kernel:
         raise RuntimeError("use_fused_kernel=True needs CUDA tensors: the sampling kernel "
                            "runs only on a CUDA device")
-    return sample_decode_plain(*args)
+    return sample_decode_plain(*args, row0=row0)
 
 
 fused_sample_decode.launches = 0

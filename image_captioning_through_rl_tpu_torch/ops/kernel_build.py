@@ -34,7 +34,7 @@ _F = ctypes.c_float
 _U = ctypes.c_uint
 _SIGNATURES = {
     "icrl_decode_workspace_floats": (ctypes.c_size_t, [_I] * 6),
-    "icrl_decode": (_I, [_I] * 12 + [_F, _F, _U, _U] + [_I] * 7 + [_P] * 12 + [_I, _P]),
+    "icrl_decode": (_I, [_I] * 12 + [_F, _F, _U, _U, _U] + [_I] * 7 + [_P] * 12 + [_I, _P]),
     "icrl_beam_max_beam": (_I, []),
     "icrl_beam_workspace_floats": (ctypes.c_size_t, [_I] * 5),
     "icrl_beam_search": (_I, [_I] * 9 + [_F, _F] + [_I] * 8 + [_P] * 21),
@@ -43,7 +43,7 @@ _SIGNATURES = {
     "icrl_lstm_chain_bwd": (_I, [_I] * 11 + [_P] * 17),
     "icrl_gru_chain_fwd": (_I, [_I] * 10 + [_P] * 11),
     "icrl_gru_chain_bwd": (_I, [_I] * 11 + [_P] * 22),
-    "icrl_threefry": (_I, [_I, _P, ctypes.c_longlong, _I, _P, _P]),
+    "icrl_threefry": (_I, [_I, _P, ctypes.c_longlong, ctypes.c_longlong, _I, _P, _P]),
     "icrl_reward_stream_workspace_floats": (ctypes.c_size_t, [_I] * 2),
     "icrl_reward_stream": (_I, [_I] * 10 + [_P] * 13),
     "icrl_rollout_workspace_floats": (ctypes.c_size_t, [_I] * 3),

@@ -14,17 +14,31 @@ def visual_semantic_embedding_loss(visuals: torch.Tensor, semantics: torch.Tenso
     matrix, ``visuals, semantics: [N, D]`` -> scalar. Quirk Q4: the margin
     is ``beta / N`` (not ``beta``), and the zeroed diagonal stays inside the
     relu-sum."""
-    n = visuals.shape[0]
-    margin = beta / n
-    off_diag = 1.0 - torch.eye(n, dtype=visuals.dtype, device=visuals.device)
+    return visual_semantic_embedding_loss_rows(visuals, semantics, visuals, semantics, 0,
+                                               beta)
+
+
+def visual_semantic_embedding_loss_rows(visuals: torch.Tensor, semantics: torch.Tensor,
+                                        all_visuals: torch.Tensor, all_semantics: torch.Tensor,
+                                        lo: int, beta: float = 0.2) -> torch.Tensor:
+    """The part of :func:`visual_semantic_embedding_loss` over the batch
+    ``all_visuals, all_semantics [N, D]`` that rows ``[lo, lo + n)`` own:
+    ``visuals, semantics [n, D]`` (those rows) against every column, in both
+    directions, with the whole batch's margin ``beta / N`` and divisor
+    ``N``. The parts of disjoint row blocks sum to the whole loss (a rank's
+    part of the data-parallel reward step); ``lo = 0`` with the whole batch
+    is the whole loss."""
+    n_all, rows = all_visuals.shape[0], visuals.shape[0]
+    margin = beta / n_all
+    off_diag = 1.0 - torch.eye(n_all, dtype=visuals.dtype, device=visuals.device)[lo: lo + rows]
 
     def one_side(a, b):
-        sim = matmul(a, b.t())  # [N, N]
-        sim = sim - torch.diagonal(sim)[:, None]
+        sim = matmul(a, b.t())  # [n, N]
+        sim = sim - torch.diagonal(sim, offset=lo)[:, None]
         sim = sim + margin * off_diag
-        return torch.sum(torch.relu(sim)) / n
+        return torch.sum(torch.relu(sim)) / n_all
 
-    return one_side(visuals, semantics) + one_side(semantics, visuals)
+    return one_side(visuals, all_semantics) + one_side(semantics, all_visuals)
 
 
 def weighted_caption_xe_loss(logits: torch.Tensor, targets: torch.Tensor,

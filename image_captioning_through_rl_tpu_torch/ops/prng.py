@@ -13,6 +13,9 @@ and of its helpers ``threefry2x32_bits`` and ``gumbel_from_bits``
     (``pallas_sample.py:282-292``): carry the key, each step
     ``key, sub = split(key)`` (the plain version's; the kernel carries the
     same chain itself from the key's two words, :func:`key_words`);
+  * :func:`fold_in` — ``jax.random.fold_in(key, data)``: the hash of the
+    counter ``(0, data)`` under the key (the per-rank keys of
+    :func:`..parallel.shard_map_step.make_shard_map_a2c_step`);
   * :func:`random_bits` — ``jax.random.bits(key, shape)``: ``y0 ^ y1`` of the
     hash of the flat counter ``(hi 0, lo row * V + col)``;
   * :func:`gumbel` — ``jax.random.gumbel`` in its default mode "low": the
@@ -30,6 +33,14 @@ functions run on the card unless the caller asks for ``device="cpu"``.
 
 Counters are 32-bit: one key's draw must hold fewer than 2**32 elements
 (JAX's high counter word is then 0).
+
+``row0``: every draw can be a slice of a larger one. With ``row0 = r`` a
+draw of ``shape`` is rows ``[r, r + shape[0])`` of the draw of the global
+shape ``(r + shape[0], *shape[1:])``: its counters start at ``r *
+prod(shape[1:])``, and the global draw must fit the 32-bit counters. This is
+how a rank or a mesh entry that holds rows ``[lo, hi)`` of a batch draws
+exactly the noise of those rows in the whole batch's draw, as each device of
+a JAX mesh computes its slice of the partitionable draw.
 """
 
 from __future__ import annotations
@@ -100,18 +111,37 @@ def sample_step_keys(key, steps: int) -> np.ndarray:
     return subs
 
 
-def _draw_size(shape) -> int:
+def fold_in(key, data: int) -> np.ndarray:
+    """``jax.random.fold_in(key, data)`` for a 32-bit ``data``: the key
+    ``(y0, y1)`` of the hash of the counter ``(0, data)``, on the host."""
+    k0, k1 = key_words(key)
+    return np.array(_threefry2x32(k0, k1, 0, int(data) & _MASK), dtype=np.uint32)
+
+
+def _draw_size(shape, row0: int = 0) -> int:
+    """The elements of a draw of ``shape``, after checking that the global
+    draw it is rows ``[row0, row0 + shape[0])`` of fits 32-bit counters."""
     size = math.prod(shape)
-    if size >= 2**32:
-        raise ValueError(f"a draw of {size} elements needs 64-bit counters (at most 2**32 - 1)")
+    if row0 < 0:
+        raise ValueError(f"row0 must be >= 0, got {row0}")
+    total = size + row0 * math.prod(shape[1:])
+    if total >= 2**32:
+        raise ValueError(f"a draw of {total} elements needs 64-bit counters (at most 2**32 - 1)")
     return size
 
 
-def random_bits(key, shape, device="cpu") -> torch.Tensor:
+def _offset(shape, row0: int) -> int:
+    return int(row0) * math.prod(shape[1:])
+
+
+def random_bits(key, shape, device="cpu", row0: int = 0) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32) in the plain version: an
-    int64 tensor of ``shape`` holding the uint32 values."""
+    int64 tensor of ``shape`` holding the uint32 values; rows ``[row0, row0
+    + shape[0])`` of the global draw with ``row0``."""
     k0, k1 = key_words(key)
-    lo = torch.arange(_draw_size(shape), dtype=torch.int64, device=device)
+    shape = tuple(shape)
+    size = _draw_size(shape, row0)
+    lo = torch.arange(size, dtype=torch.int64, device=device) + _offset(shape, row0)
     y0, y1 = _threefry2x32(k0, k1, torch.zeros_like(lo), lo)
     return (y0 ^ y1).reshape(shape)
 
@@ -125,14 +155,14 @@ def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
-def gumbel_noise_plain(keys, shape, device="cpu") -> torch.Tensor:
+def gumbel_noise_plain(keys, shape, device="cpu", row0: int = 0) -> torch.Tensor:
     """:func:`gumbel_noise` in the plain version, on any device."""
-    return torch.stack([gumbel_from_bits(random_bits(k, shape, device)) for k in keys])
+    return torch.stack([gumbel_from_bits(random_bits(k, shape, device, row0)) for k in keys])
 
 
-def _launch_threefry(keys: np.ndarray, shape, device: torch.device, gumbel_out: bool
-                     ) -> torch.Tensor:
-    plane = _draw_size(shape)
+def _launch_threefry(keys: np.ndarray, shape, device: torch.device, gumbel_out: bool,
+                     row0: int = 0) -> torch.Tensor:
+    plane = _draw_size(shape, row0)
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     out = torch.empty((len(keys), *shape), device=device,
                       dtype=torch.float32 if gumbel_out else torch.int32)
@@ -141,17 +171,18 @@ def _launch_threefry(keys: np.ndarray, shape, device: torch.device, gumbel_out: 
     lib = load_library()
     with torch.cuda.device(device):
         err = lib.icrl_threefry(len(keys), keys.ctypes.data_as(ctypes.c_void_p), plane,
-                                int(gumbel_out), out.data_ptr(),
+                                _offset(shape, row0), int(gumbel_out), out.data_ptr(),
                                 torch.cuda.current_stream(device).cuda_stream)
     check_error(lib, "icrl_threefry", err)
     gumbel_noise.launches += 1
     return out
 
 
-def gumbel_noise(keys, shape, device="cuda") -> torch.Tensor:
+def gumbel_noise(keys, shape, device="cuda", row0: int = 0) -> torch.Tensor:
     """One Gumbel draw of ``shape`` per key: ``keys uint32 [S, 2]`` ->
     float32 ``[S, *shape]`` on ``device``; row ``s`` is
-    ``jax.random.gumbel(keys[s], shape)``. On a CUDA device the kernel
+    ``jax.random.gumbel(keys[s], shape)`` (with ``row0``, its rows ``[row0,
+    row0 + shape[0])`` of the global draw). On a CUDA device the kernel
     (``csrc/threefry.cu``) makes all of them in one launch
     (``gumbel_noise.launches`` counts them); on ``device="cpu"`` the plain
     version runs. A missing CUDA device raises."""
@@ -163,14 +194,14 @@ def gumbel_noise(keys, shape, device="cuda") -> torch.Tensor:
     device = resolve_device(device)
     shape = tuple(shape)
     if device.type == "cuda":
-        return _launch_threefry(keys, shape, device, True)
-    return gumbel_noise_plain(keys, shape, device)
+        return _launch_threefry(keys, shape, device, True, row0)
+    return gumbel_noise_plain(keys, shape, device, row0)
 
 
 gumbel_noise.launches = 0
 
 
-def threefry_bits_kernel(keys, shape, device) -> torch.Tensor:
+def threefry_bits_kernel(keys, shape, device, row0: int = 0) -> torch.Tensor:
     """The kernel's raw bits, ``[S, *shape]`` int32 holding the uint32
     bit patterns, for comparing the kernel with :func:`random_bits` on a
     CUDA device (the training path reads only :func:`gumbel_noise`)."""
@@ -178,16 +209,17 @@ def threefry_bits_kernel(keys, shape, device) -> torch.Tensor:
     device = torch.device(device)
     if device.type != "cuda":
         raise RuntimeError("threefry_bits_kernel runs only on a CUDA device")
-    return _launch_threefry(keys, tuple(shape), device, False)
+    return _launch_threefry(keys, tuple(shape), device, False, row0)
 
 
-def gumbel(key, shape, device="cuda") -> torch.Tensor:
+def gumbel(key, shape, device="cuda", row0: int = 0) -> torch.Tensor:
     """``jax.random.gumbel(key, shape)`` float32 on ``device`` (the card
-    unless the caller asks for the CPU)."""
-    return gumbel_noise(np.asarray(key)[None], shape, device)[0]
+    unless the caller asks for the CPU); rows from ``row0`` of the global
+    draw."""
+    return gumbel_noise(np.asarray(key)[None], shape, device, row0)[0]
 
 
-def categorical(key, logits: torch.Tensor, shape=None) -> torch.Tensor:
+def categorical(key, logits: torch.Tensor, shape=None, row0: int = 0) -> torch.Tensor:
     """``jax.random.categorical(key, logits, shape=shape)`` over the last
     axis: the first index of the largest ``gumbel + logits`` (int64).
 
@@ -195,11 +227,13 @@ def categorical(key, logits: torch.Tensor, shape=None) -> torch.Tensor:
     replacement: its trailing axes must be the logits' batch axes, the noise
     is one Gumbel draw of ``[*shape, V]`` and the logits are added to it in
     place, broadcast over the leading axes (the SGNS negatives draw
-    ``[B, K]`` from ``[V]`` logits this way)."""
+    ``[B, K]`` from ``[V]`` logits this way). ``row0``: the draw is rows
+    ``[row0, row0 + shape[0])`` of the global one (a rank's rows of a
+    batch)."""
     batch = tuple(logits.shape[:-1])
     shape = batch if shape is None else tuple(shape)
     if shape[len(shape) - len(batch):] != batch:
         raise ValueError(f"categorical: shape {shape} must end with the logits' batch "
                          f"shape {batch}")
-    noise = gumbel(key, (*shape, logits.shape[-1]), logits.device)
+    noise = gumbel(key, (*shape, logits.shape[-1]), logits.device, row0)
     return torch.argmax(noise.add_(logits), dim=-1)

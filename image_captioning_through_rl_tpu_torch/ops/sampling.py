@@ -14,10 +14,11 @@ import torch
 from .prng import categorical
 
 
-def sample_categorical(key, logits: torch.Tensor) -> torch.Tensor:
+def sample_categorical(key, logits: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """Token ids ``[N]`` (int64) from unnormalised ``logits [N, V]`` under
-    the host key ``key`` (uint32 ``[2]``): ``jax.random.categorical``."""
-    return categorical(key, logits)
+    the host key ``key`` (uint32 ``[2]``): ``jax.random.categorical``; with
+    ``row0``, the rows are ``[row0, row0 + N)`` of a larger batch's draw."""
+    return categorical(key, logits, row0=row0)
 
 
 def log_prob_of(logits: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:

@@ -37,6 +37,9 @@ sub-network checkpoints under ``--pretrained_path``, the bundle for the
 vocabulary); ``--model a2cNetwork.pt --vocab coco2014_vocab.json`` serves a
 reference-layout ``.pt`` alone. ``--vgg_weights`` (a torchvision-layout
 ``.pt`` or a ``.ckpt``), ``--pca`` (the ``.npz`` ``cli/extract`` fits),
+``--spmd`` shards each decode batch (and each VGG16 batch) over a mesh of
+the process's cards (:mod:`.parallel`), each card running its rows through
+its own kernels, as the JAX server's ``--spmd`` shards over its chips.
 ``--vgg_bf16`` and ``--extract_batch`` turn on the raw-image endpoint, as in
 the JAX server. The console script
 ``image-caption-server-torch`` runs it.
@@ -582,14 +585,22 @@ def main(argv=None, block: bool = True):
     ap.add_argument("--extract_batch", type=int, default=64,
                     help="largest VGG extraction bucket; warmup runs one forward per "
                          "power-of-two bucket up to this")
+    ap.add_argument("--spmd", action="store_true", default=False,
+                    help="shard each decode batch over all of this process's cards")
     args = ap.parse_args(argv)
     if args.pca and not args.vgg_weights:
         # a long-running server must not caption with random VGG weights
         ap.error("--pca requires --vgg_weights: the raw-image endpoint needs real VGG16 weights")
 
+    mesh = None
+    if args.spmd:
+        from .parallel import make_mesh
+
+        mesh = make_mesh(device=args.device)
+        print(f"[Serving] SPMD: batches sharded over {mesh}", flush=True)
     if args.vocab:
         cap = load_captioner_pt(args.model, args.vocab, device=args.device,
-                                bidirectional=args.bidirectional)
+                                bidirectional=args.bidirectional, mesh=mesh)
     elif args.data_dir:
         import os
 
@@ -603,7 +614,7 @@ def main(argv=None, block: bool = True):
             for k, n in (("policy_network", "policy"), ("value_network", "value"),
                          ("reward_network", "reward"))}
         cap = load_captioner(args.model, data, network_paths, args.bidirectional,
-                             device=args.device)
+                             device=args.device, mesh=mesh)
     else:
         ap.error("one of --data_dir (the bundle) or --vocab (with a .pt --model) is required")
     extractor = None
@@ -611,7 +622,7 @@ def main(argv=None, block: bool = True):
         from .api import load_feature_extractor
 
         extractor = load_feature_extractor(weights=args.vgg_weights, pca=args.pca,
-                                           bf16=args.vgg_bf16, device=args.device)
+                                           bf16=args.vgg_bf16, device=args.device, mesh=mesh)
     srv = CaptionServer(cap, host=args.host, port=args.port, max_batch=args.max_batch,
                         max_wait_ms=args.max_wait_ms, extractor=extractor,
                         extract_batch=args.extract_batch, max_body_mb=args.max_body_mb,

@@ -35,6 +35,26 @@ A step built by ``make_*_step`` runs one minibatch — loss, backward, one
 optimiser step that updates the parameter tensors in place — and returns
 the loss (the A2C step: its :class:`RolloutStats`) as detached 0-d tensors
 (no device sync).
+
+Data parallelism, rank by rank: a step given a ``shard``
+(:class:`..parallel.collectives.RowShard`, this rank's rows ``[lo, hi)``
+of a global minibatch of ``n``) computes its rows' loss and gradient and
+sums them over the ranks in one flattened ``all_reduce`` before the
+optimiser step (:func:`..parallel.collectives.reduce_gradients`), so every
+rank takes the step the single-device program takes on the whole minibatch.
+The policy, value and A2C losses are means over rows (the A2C step mask is
+the same for every row: it depends on the global ``curr_seq_len`` and
+``caplen`` only), so with equal shards the mean of the rank means is the
+global mean: their reduction divides by the ranks. The reward network's VSE
+loss couples every row through its similarity matrix: each rank gathers
+both embeddings (the gradient flows back to the owning rank) and takes its
+rows of both directions with the global margin and divisor
+(:func:`..ops.losses.visual_semantic_embedding_loss_rows`); the parts sum
+to the loss. The rollout's noise is drawn at ``row0 = lo``, and its
+``caplen`` is the global minibatch's (``caplen=``, from the host, where every
+rank holds the global minibatch). Without a shard (one device, or a ragged
+minibatch that every rank computes whole) a step runs no collective. The
+compat (Q1) steps treat the batch as time and take no shard.
 """
 
 from __future__ import annotations
@@ -57,11 +77,13 @@ from ..ops.fused_gru import fused_gru_chain
 from ..ops.fused_lstm import fused_lstm_chain
 from ..ops.fused_rollout import fused_reward_stream, fused_rollout
 from ..ops.linalg import dense
-from ..ops.losses import a2c_losses, visual_semantic_embedding_loss, weighted_caption_xe_loss
+from ..ops.losses import (a2c_losses, visual_semantic_embedding_loss,
+                          visual_semantic_embedding_loss_rows, weighted_caption_xe_loss)
 from ..ops.prng import split
 from ..ops.reward_ops import cosine_embedding_reward
 from ..ops.rnn import lstm_cell, lstm_scan
 from ..ops.sampling import log_prob_of, sample_categorical
+from ..parallel.collectives import RowShard, gather_rows, reduce_gradients
 
 
 def batch_caption_lens(captions: torch.Tensor) -> torch.Tensor:
@@ -69,14 +91,19 @@ def batch_caption_lens(captions: torch.Tensor) -> torch.Tensor:
     return torch.argmax((captions == END_ID).to(torch.int32), dim=1) + 1
 
 
-def _train_step(optimizer: torch.optim.Optimizer, loss_fn, before_step=None):
-    """One minibatch: zero the gradients, loss, backward, ``before_step(loss)``
-    (the chunks' best-loss bookkeeping, while the weights still enter the
-    minibatch), optimiser step."""
+def _train_step(optimizer: torch.optim.Optimizer, loss_fn, before_step=None,
+                shard: RowShard | None = None, mean: bool = True):
+    """One minibatch: zero the gradients, loss, backward, with a ``shard``
+    the gradients and the loss reduced over the ranks (divided by them for a
+    ``mean`` loss), ``before_step(loss)`` (the chunks' best-loss
+    bookkeeping, while the weights still enter the minibatch), optimiser
+    step."""
     optimizer.zero_grad(set_to_none=True)
     loss = loss_fn()
     loss.backward()
     loss = loss.detach()
+    if shard is not None:
+        loss, = reduce_gradients(optimizer, [loss], shard, mean)
     if before_step is not None:
         before_step(loss)
     optimizer.step()
@@ -87,40 +114,53 @@ def _train_step(optimizer: torch.optim.Optimizer, loss_fn, before_step=None):
 # Reward network (VSE loss)
 # --------------------------------------------------------------------------
 
-def reward_loss(params, cfg: NetConfig, features, captions, beta=0.2, compat: bool = False):
+def _vse(ve, se, beta, shard: RowShard | None):
+    if shard is None:
+        return visual_semantic_embedding_loss(ve, se, beta=beta)
+    return visual_semantic_embedding_loss_rows(ve, se, gather_rows(ve, shard),
+                                               gather_rows(se, shard), shard.lo, beta)
+
+
+def reward_loss(params, cfg: NetConfig, features, captions, beta=0.2, compat: bool = False,
+                shard: RowShard | None = None):
     """The VSE loss; ``compat=True`` encodes with the batch-as-time GRU from
     a zero carry (the reference resets it after every minibatch,
-    trainers.py:307)."""
+    trainers.py:307). With ``shard``, this rank's part of the global loss."""
     if compat:
+        if shard is not None:
+            raise ValueError("the compat reward step treats the batch as time: it takes no shard")
         (ve, se), _ = reward_mod.forward_compat(params, cfg, features, captions,
                                                 reward_mod.compat_zero_state(cfg, features.device))
     else:
         ve, se = reward_mod.forward(params, cfg, features, captions)
-    return visual_semantic_embedding_loss(ve, se, beta=beta)
+    return _vse(ve, se, beta, shard)
 
 
 def reward_loss_fused(params, cfg: NetConfig, features, captions, beta=0.2,
-                      weight_dtype=torch.bfloat16):
+                      weight_dtype=torch.bfloat16, shard: RowShard | None = None):
     """:func:`reward_loss` with the GRU chain through the chain kernels."""
     h0 = torch.zeros((captions.shape[0], cfg.hidden_dim), dtype=torch.float32,
                      device=features.device)
     hs = fused_gru_chain(params["gru"], params["embedding"], captions, h0,
                          weight_dtype=weight_dtype)
     ve, se = reward_mod.embed_pair(params, cfg, features, hs[:, -1])
-    return visual_semantic_embedding_loss(ve, se, beta=beta)
+    return _vse(ve, se, beta, shard)
 
 
 def make_reward_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, beta=0.2,
                      compat: bool = False, fused: bool = False):
-    """``step(params, features, captions) -> loss``; ``compat=True`` the
-    batch-as-time encoder (Q1); ``fused=True`` runs the GRU chain through
-    its kernels (unidirectional, non-compat only)."""
+    """``step(params, features, captions, shard=None) -> loss``;
+    ``compat=True`` the batch-as-time encoder (Q1); ``fused=True`` runs the
+    GRU chain through its kernels (unidirectional, non-compat only). With a
+    ``shard`` the rank's parts of the loss and gradient are summed over the
+    ranks."""
     if fused and (compat or cfg.bidirectional):
         raise ValueError("fused reward step is unidirectional, non-compat only")
     loss_fn = reward_loss_fused if fused else functools.partial(reward_loss, compat=compat)
 
-    def step(params, features, captions):
-        return _train_step(optimizer, lambda: loss_fn(params, cfg, features, captions, beta=beta))
+    def step(params, features, captions, shard=None):
+        return _train_step(optimizer, lambda: loss_fn(params, cfg, features, captions, beta=beta,
+                                                      shard=shard), shard=shard, mean=False)
 
     return step
 
@@ -147,16 +187,18 @@ def policy_loss_fused(params, cfg: NetConfig, features, captions, caplens,
 
 
 def make_policy_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, fused: bool = False):
-    """``step(params, features, captions) -> loss``; ``fused=True`` runs the
-    LSTM chain through its kernels (unidirectional only)."""
+    """``step(params, features, captions, shard=None) -> loss``;
+    ``fused=True`` runs the LSTM chain through its kernels (unidirectional
+    only). A ``shard``'s loss and gradient are averaged over the ranks."""
     if fused and cfg.bidirectional:
         raise ValueError("fused policy step is unidirectional only")
     loss_fn = policy_loss_fused if fused else policy_loss
 
-    def step(params, features, captions):
+    def step(params, features, captions, shard=None):
         caplens = batch_caption_lens(captions)
         return _train_step(optimizer,
-                           lambda: loss_fn(params, cfg, features, captions, caplens))
+                           lambda: loss_fn(params, cfg, features, captions, caplens),
+                           shard=shard)
 
     return step
 
@@ -242,26 +284,31 @@ def value_compat_loss(vparams, cfg: NetConfig, pparams, rparams, features, capti
 
 def make_value_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, pparams: dict,
                     rparams: dict, compat: bool = False, fused: bool = False):
-    """``step(vparams, features, captions, prefix_len) -> loss`` against the
-    frozen policy ``pparams`` and reward network ``rparams`` (loaded, not
-    trained: trainers.py:140-150). ``compat=True`` takes
+    """``step(vparams, features, captions, prefix_len, shard=None) -> loss``
+    against the frozen policy ``pparams`` and reward network ``rparams``
+    (loaded, not trained: trainers.py:140-150). ``compat=True`` takes
     :func:`value_compat_loss` (Q1). ``fused=True`` prepares the policy's
     bf16 greedy-kernel weights once, here, and runs the rollout and the
-    value encoder through their kernels (unidirectional, non-compat only)."""
+    value encoder through their kernels (unidirectional, non-compat only).
+    A ``shard``'s loss and gradient are averaged over the ranks (the
+    prefix length is the host's, the same on every rank)."""
     if fused and (compat or cfg.bidirectional):
         raise ValueError("fused value step is unidirectional, non-compat only")
     if compat:
-        def compat_step(vparams, features, captions, prefix_len):
+        def compat_step(vparams, features, captions, prefix_len, shard=None):
+            if shard is not None:
+                raise ValueError("the compat value step treats the batch as time: it takes "
+                                 "no shard")
             return _train_step(optimizer, lambda: value_compat_loss(
                 vparams, cfg, pparams, rparams, features, captions, prefix_len))
 
         return compat_step
     greedy_weights = prepare_greedy_weights(pparams) if fused else None
 
-    def step(vparams, features, captions, prefix_len):
+    def step(vparams, features, captions, prefix_len, shard=None):
         return _train_step(optimizer, lambda: value_episode_loss(
             vparams, cfg, pparams, rparams, features, captions, prefix_len, fused=fused,
-            greedy_weights=greedy_weights))
+            greedy_weights=greedy_weights), shard=shard)
 
     return step
 
@@ -294,7 +341,8 @@ def _a2c_loss(values, rewards, log_probs, curr_seq_len, caplen, per_step_mean):
 
 
 def a2c_rollout_loss(a2c_params: dict, cfg: NetConfig, reward_params: dict, features,
-                     captions, curr_seq_len: int, caplen, rng, per_step_mean: bool = False):
+                     captions, curr_seq_len: int, caplen, rng, per_step_mean: bool = False,
+                     row0: int = 0):
     """Loss of one A2C episode batch as an eager scan (the JAX package's XLA
     rollout, ``steps.py:509-610``) -> ``(loss, RolloutStats)``.
 
@@ -305,7 +353,8 @@ def a2c_rollout_loss(a2c_params: dict, cfg: NetConfig, reward_params: dict, feat
     :func:`..ops.sampling.sample_categorical`, JAX's draws), its log-prob,
     the frozen reward of the prefix plus the action (no gradient, Q7), then
     every encoder advances with the placed token. ``caplen``: the batch's
-    largest END position + 1."""
+    largest END position + 1. ``row0``: the rows are ``[row0, row0 + N)`` of
+    a global minibatch, and draw those rows of its noise."""
     pparams, vparams = a2c_params["policy"], a2c_params["value"]
     n, t_max = captions.shape
     dev = features.device
@@ -321,7 +370,7 @@ def a2c_rollout_loss(a2c_params: dict, cfg: NetConfig, reward_params: dict, feat
     values, rewards, log_probs = [], [], []
     for p in range(1, t_max):
         logits = dense(pol_state[0], pparams["head"])
-        action = sample_categorical(step_keys[p - 1], logits.detach())
+        action = sample_categorical(step_keys[p - 1], logits.detach(), row0)
         log_probs.append(log_prob_of(logits, action))
         values.append(value_mod.value_from_state(vparams, cfg, features, val_state)[:, 0])
         token_in = captions[:, p] if p < curr_seq_len else action
@@ -338,7 +387,7 @@ def a2c_rollout_loss(a2c_params: dict, cfg: NetConfig, reward_params: dict, feat
 
 def a2c_rollout_loss_full(a2c_params: dict, cfg: NetConfig, reward_params: dict, features,
                           captions, curr_seq_len: int, caplen, rng,
-                          per_step_mean: bool = False):
+                          per_step_mean: bool = False, row0: int = 0):
     """The full-prefix rollout loss (the JAX package's ``steps.py:613-660``),
     the one a bidirectional A2C step takes: its encoders' backward halves
     have no carried state, so each step re-runs the policy, value and
@@ -351,7 +400,7 @@ def a2c_rollout_loss_full(a2c_params: dict, cfg: NetConfig, reward_params: dict,
     values, rewards, log_probs = [], [], []
     for p in range(1, t_max):
         value, logits = a2c_mod.forward(a2c_params, cfg, features, buf)
-        action = sample_categorical(step_keys[p - 1], logits.detach())
+        action = sample_categorical(step_keys[p - 1], logits.detach(), row0)
         log_probs.append(log_prob_of(logits, action))
         values.append(value[:, 0])
         with torch.no_grad():  # the reward of prefix + the sampled action
@@ -366,7 +415,7 @@ def a2c_rollout_loss_full(a2c_params: dict, cfg: NetConfig, reward_params: dict,
 
 def a2c_rollout_loss_compat(a2c_params: dict, cfg: NetConfig, reward_params: dict, features,
                             captions, curr_seq_len: int, caplen, rng,
-                            per_step_mean: bool = False):
+                            per_step_mean: bool = False, row0: int = 0):
     """The reference-exact rollout loss with batch-as-time statefulness
     (quirk Q1; the JAX ``steps.py:678-746``): the value LSTM's and the
     reward GRU's carries start at zero and thread through every forward of
@@ -386,7 +435,7 @@ def a2c_rollout_loss_compat(a2c_params: dict, cfg: NetConfig, reward_params: dic
     for p in range(1, t_max):
         value, val_carry = value_mod.forward_compat(vparams, cfg, features, buf, val_carry)
         logits = policy_mod.forward(pparams, cfg, features, buf)[:, -1]
-        action = sample_categorical(step_keys[p - 1], logits.detach())
+        action = sample_categorical(step_keys[p - 1], logits.detach(), row0)
         log_probs.append(log_prob_of(logits, action))
         values.append(value[:, 0])
         with torch.no_grad():  # the reward of prefix + the sampled action
@@ -404,7 +453,7 @@ def a2c_rollout_loss_fused(a2c_params: dict, cfg: NetConfig, reward_params: dict
                            captions, curr_seq_len: int, caplen, rng,
                            per_step_mean: bool = False,
                            weight_dtype: torch.dtype = torch.bfloat16,
-                           fuse_reward: bool = True, tape_gates: bool = True):
+                           fuse_reward: bool = True, tape_gates: bool = True, row0: int = 0):
     """:func:`a2c_rollout_loss` with the rollout through
     :func:`..ops.fused_rollout.fused_rollout` (the JAX package's
     ``steps.py:749-818``): the same keys, so the same actions up to the
@@ -412,15 +461,15 @@ def a2c_rollout_loss_fused(a2c_params: dict, cfg: NetConfig, reward_params: dict
     runs inside the rollout (``fuse_reward=True``, the default) or as its
     own kernel (:func:`..ops.fused_rollout.fused_reward_stream`).
     ``tape_gates=False`` keeps no gate tape: the backward recomputes the
-    gates."""
+    gates. ``row0`` as in :func:`a2c_rollout_loss`."""
     if fuse_reward:
         values, log_probs, _, _, rewards = fused_rollout(
             a2c_params, cfg, features, captions, curr_seq_len, rng, weight_dtype=weight_dtype,
-            reward_params=reward_params, tape_gates=tape_gates)
+            reward_params=reward_params, tape_gates=tape_gates, row0=row0)
     else:
         values, log_probs, actions, tokens = fused_rollout(
             a2c_params, cfg, features, captions, curr_seq_len, rng, weight_dtype=weight_dtype,
-            tape_gates=tape_gates)
+            tape_gates=tape_gates, row0=row0)
         rewards = fused_reward_stream(reward_params, cfg, features, captions[:, 0], actions,
                                       tokens, weight_dtype=weight_dtype)
     return _a2c_loss(values, rewards, log_probs, curr_seq_len, caplen, per_step_mean)
@@ -429,10 +478,14 @@ def a2c_rollout_loss_fused(a2c_params: dict, cfg: NetConfig, reward_params: dict
 def make_a2c_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, per_step_mean: bool = False,
                   compat: bool = False, fused: bool = False, fuse_reward: bool = True):
     """``step(a2c_params, reward_params, features, captions, curr_seq_len,
-    rng) -> RolloutStats`` (detached): one A2C update of ``{"policy",
-    "value"}`` against the frozen reward network, plain
-    (``per_step_mean=False``) or curriculum (``True``). ``rng`` is the
-    minibatch's host key. ``fused=True`` runs the rollout through the
+    rng, caplen=None, shard=None) -> RolloutStats`` (detached): one A2C
+    update of ``{"policy", "value"}`` against the frozen reward network,
+    plain (``per_step_mean=False``) or curriculum (``True``). ``rng`` is the
+    minibatch's host key; ``caplen`` (a host int) the minibatch's largest
+    END position + 1, from ``captions`` on the device when None. With a
+    ``shard`` the rows are the rank's, their noise drawn at ``row0 =
+    shard.lo``, and the gradients and stats are averaged over the ranks
+    (``caplen`` must then be the global minibatch's). ``fused=True`` runs the rollout through the
     rollout kernels (:func:`a2c_rollout_loss_fused`), with the reward
     stream fused in or, ``fuse_reward=False``, as its own kernel.
     ``compat=True`` takes :func:`a2c_rollout_loss_compat` (Q1); otherwise a
@@ -448,14 +501,24 @@ def make_a2c_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, per_step_mea
     else:
         rollout = a2c_rollout_loss_full if cfg.bidirectional else a2c_rollout_loss
 
-    def step(a2c_params, reward_params, features, captions, curr_seq_len, rng):
-        caplen = torch.max(batch_caption_lens(captions))
+    def step(a2c_params, reward_params, features, captions, curr_seq_len, rng, caplen=None,
+             shard=None):
+        if caplen is None:
+            if shard is not None:
+                raise ValueError("a sharded A2C step needs the global minibatch's caplen")
+            caplen = torch.max(batch_caption_lens(captions))
+        if shard is not None and compat:
+            raise ValueError("the compat rollout treats the batch as time: it takes no shard")
         optimizer.zero_grad(set_to_none=True)
         loss, stats = rollout(a2c_params, cfg, reward_params, features, captions, curr_seq_len,
-                              caplen, rng, per_step_mean=per_step_mean, **fused_kw)
+                              caplen, rng, per_step_mean=per_step_mean,
+                              row0=0 if shard is None else shard.lo, **fused_kw)
         loss.backward()
+        stats = [x.detach() for x in stats]
+        if shard is not None:
+            stats = reduce_gradients(optimizer, stats, shard)
         optimizer.step()
-        return RolloutStats(*(x.detach() for x in stats))
+        return RolloutStats(*stats)
 
     return step
 
@@ -490,7 +553,11 @@ class BestLossChunk:
     leaf by leaf through ``torch.where`` where the loss is below ``best``.
     The host saves ``best_prev`` once a chunk, when ``improved`` is set.
     ``extras[j]`` is minibatch j's extra step arguments (the value step's
-    prefix length).
+    prefix length). ``shard`` (a :class:`..parallel.collectives.RowShard`)
+    makes the chunk's rows a rank's rows of k global minibatches: each
+    update reduces its gradient and loss over the ranks (divided by them
+    when ``mean``), inside the captured graph too (NCCL collectives
+    capture; gloo's do not, so a gloo rank runs ``graph=False``).
 
     ``graph=True`` (CUDA only) captures the k updates as one CUDA graph,
     once per input shape, and replays it each chunk: the minibatches are
@@ -507,7 +574,7 @@ class BestLossChunk:
     that fails raises."""
 
     def __init__(self, params: dict, optimizer: torch.optim.Optimizer, loss_fn,
-                 graph: bool = False):
+                 graph: bool = False, mean: bool = True):
         self._leaves = _tree_leaves(params)
         self._opt = optimizer
         self._loss_fn = loss_fn
@@ -517,6 +584,7 @@ class BestLossChunk:
         if graph and self.device.type != "cuda":
             raise ValueError("a captured chunk runs on a CUDA device only")
         self.graph = graph
+        self._mean = mean
         self._best = torch.empty((), dtype=torch.float32, device=self.device)
         self._improved = torch.empty((), dtype=torch.bool, device=self.device)
         self._buffers, self._graphs = {}, {}
@@ -529,9 +597,10 @@ class BestLossChunk:
                 torch.where(take, p, bp, out=bp)
             self._improved.logical_or_(take)
 
-    def _update(self, features, captions, extra=()) -> torch.Tensor:
-        return _train_step(self._opt, lambda: self._loss_fn(features, captions, *extra),
-                           self._keep_best)
+    def _update(self, features, captions, extra=(), shard=None) -> torch.Tensor:
+        return _train_step(self._opt, lambda: self._loss_fn(features, captions, *extra,
+                                                            shard=shard),
+                           self._keep_best, shard=shard, mean=self._mean)
 
     def inputs(self, k: int, n: int, feature_dim: int, steps: int) -> tuple:
         """The captured chunk's static ``(features [k, n, F], captions [k, n,
@@ -544,13 +613,13 @@ class BestLossChunk:
         return self._buffers[key]
 
     def __call__(self, best_loss: float, features: torch.Tensor, captions: torch.Tensor,
-                 extras=None):
+                 extras=None, shard=None):
         k = features.shape[0]
         if not self.graph:
             self._best.fill_(best_loss)
             self._improved.zero_()
             losses = torch.stack([self._update(features[j], captions[j],
-                                               () if extras is None else extras[j])
+                                               () if extras is None else extras[j], shard)
                                   for j in range(k)])
             return losses, self.best_prev, self._best, self._improved
         if extras is not None:
@@ -561,9 +630,9 @@ class BestLossChunk:
             feats_buf.copy_(features)
         if captions.data_ptr() != caps_buf.data_ptr():
             caps_buf.copy_(captions)
-        key = tuple(feats_buf.shape) + (caps_buf.shape[2],)
+        key = tuple(feats_buf.shape) + (caps_buf.shape[2], shard)
         if key not in self._graphs:
-            self._graphs[key] = self._capture(feats_buf, caps_buf)
+            self._graphs[key] = self._capture(feats_buf, caps_buf, shard)
         graph, losses = self._graphs[key]
         self._best.fill_(best_loss)
         self._improved.zero_()
@@ -571,7 +640,7 @@ class BestLossChunk:
         BestLossChunk.replays += 1
         return losses, self.best_prev, self._best, self._improved
 
-    def _capture(self, feats_buf: torch.Tensor, caps_buf: torch.Tensor) -> tuple:
+    def _capture(self, feats_buf: torch.Tensor, caps_buf: torch.Tensor, shard=None) -> tuple:
         dev = self.device
         saved = [p.detach().clone() for p in self._leaves]
         saved_state = {id(p): {name: t.clone() for name, t in self._opt.state[p].items()}
@@ -580,7 +649,7 @@ class BestLossChunk:
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self._best.fill_(float("inf"))
-            self._update(feats_buf[0], caps_buf[0])
+            self._update(feats_buf[0], caps_buf[0], shard=shard)
         torch.cuda.current_stream(dev).wait_stream(side)
         with torch.no_grad():  # put the weights and Adam's state back
             for p, q in zip(self._leaves, saved):
@@ -598,7 +667,7 @@ class BestLossChunk:
         BestLossChunk.captures += 1
         with torch.cuda.graph(graph):
             for j in range(feats_buf.shape[0]):
-                losses[j].copy_(self._update(feats_buf[j], caps_buf[j]))
+                losses[j].copy_(self._update(feats_buf[j], caps_buf[j], shard=shard))
         return graph, losses
 
 
@@ -614,7 +683,9 @@ def make_reward_chunk_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, par
         raise ValueError("chunked reward step is unidirectional only")
     loss_fn = reward_loss_fused if fused else reward_loss
     return BestLossChunk(params, optimizer,
-                         lambda f, c: loss_fn(params, cfg, f, c, beta=beta), graph=graph)
+                         lambda f, c, shard=None: loss_fn(params, cfg, f, c, beta=beta,
+                                                          shard=shard),
+                         graph=graph, mean=False)
 
 
 def make_policy_chunk_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, params: dict,
@@ -625,7 +696,8 @@ def make_policy_chunk_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, par
         raise ValueError("chunked policy step is unidirectional only")
     loss_fn = policy_loss_fused if fused else policy_loss
     return BestLossChunk(params, optimizer,
-                         lambda f, c: loss_fn(params, cfg, f, c, batch_caption_lens(c)),
+                         lambda f, c, shard=None: loss_fn(params, cfg, f, c,
+                                                          batch_caption_lens(c)),
                          graph=graph)
 
 
@@ -639,9 +711,9 @@ def make_value_chunk_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, para
     if cfg.bidirectional:
         raise ValueError("chunked value step is unidirectional only")
     greedy_weights = prepare_greedy_weights(pparams) if fused else None
-    return BestLossChunk(params, optimizer, lambda f, c, prefix_len: value_episode_loss(
-        params, cfg, pparams, rparams, f, c, prefix_len, fused=fused,
-        greedy_weights=greedy_weights))
+    return BestLossChunk(params, optimizer, lambda f, c, prefix_len, shard=None:
+                         value_episode_loss(params, cfg, pparams, rparams, f, c, prefix_len,
+                                            fused=fused, greedy_weights=greedy_weights))
 
 
 def make_a2c_chunk_step(cfg: NetConfig, optimizer: torch.optim.Optimizer,
@@ -649,19 +721,22 @@ def make_a2c_chunk_step(cfg: NetConfig, optimizer: torch.optim.Optimizer,
                         fuse_reward: bool = True):
     """Chunked A2C update (the JAX ``make_a2c_chunk_step``): ``chunk(
     a2c_params, reward_params, features [k, N, F], captions [k, N, T], currs,
-    rngs) -> (stats, valid)`` runs k minibatch updates of
+    rngs, caplens=None, shard=None) -> (stats, valid)`` runs k minibatch
+    updates of
     :func:`make_a2c_step` eagerly with no host sync, minibatch j under its
     host key ``rngs[j]`` (drawn by the host with the per-step loop's split
     discipline) at ``curr_seq_len = currs[j]`` (host ints: 1 for plain A2C,
     ``caplen - level`` for the curriculum). A minibatch with ``currs[j] <
     1`` is skipped as the reference skips it (trainers.py:550): no update,
     zero stats, ``valid[j]`` False. ``stats`` is a :class:`RolloutStats`
-    of ``[k]`` device tensors, ``valid`` a host bool array. The trainers'
-    per-step walk is the case k = 1."""
+    of ``[k]`` device tensors, ``valid`` a host bool array. ``caplens[j]``
+    (host ints) and ``shard`` reach :func:`make_a2c_step`'s step. The
+    trainers' per-step walk is the case k = 1."""
     step = make_a2c_step(cfg, optimizer, per_step_mean=per_step_mean, compat=compat,
                          fused=fused, fuse_reward=fuse_reward)
 
-    def chunk(a2c_params, reward_params, features, captions, currs, rngs):
+    def chunk(a2c_params, reward_params, features, captions, currs, rngs, caplens=None,
+              shard=None):
         k = features.shape[0]
         valid = np.zeros(k, dtype=bool)
         zero = torch.zeros((), dtype=torch.float32, device=features.device)
@@ -671,7 +746,8 @@ def make_a2c_chunk_step(cfg: NetConfig, optimizer: torch.optim.Optimizer,
                 stats.append(RolloutStats(zero, zero, zero, zero, zero))
                 continue
             stats.append(step(a2c_params, reward_params, features[j], captions[j],
-                              int(currs[j]), rngs[j]))
+                              int(currs[j]), rngs[j],
+                              None if caplens is None else int(caplens[j]), shard))
             valid[j] = True
         return RolloutStats(*(torch.stack(x) for x in zip(*stats))), valid
 

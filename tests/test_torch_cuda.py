@@ -781,6 +781,31 @@ def test_threefry_kernel_matches_plain(dev):
     assert bool(((noise - want).abs() <= 4 * ulp).all())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("row0", [1, 7, 13])
+def test_noise_and_sample_kernels_at_a_first_row(dev, row0):
+    """With ``row0`` the noise kernel and the sampling kernel draw rows
+    ``[row0, row0 + n)`` of the global draw: the noise bit-equal to the
+    whole draw's rows and its bits to the plain version at ``row0``; the
+    sampled tokens equal to the rows of one whole call."""
+    keys = prng.split(prng.PRNGKey(12), 3)
+    n = N - row0
+    whole = prng.threefry_bits_kernel(keys, (N, CFG.vocab_size), dev)
+    bits = prng.threefry_bits_kernel(keys, (n, CFG.vocab_size), dev, row0=row0)
+    assert torch.equal(bits, whole[:, row0:])
+    want = torch.stack([prng.random_bits(k, (n, CFG.vocab_size), row0=row0) for k in keys])
+    np.testing.assert_array_equal(bits.cpu().numpy().view(np.uint32).astype(np.int64),
+                                  want.numpy())
+    assert torch.equal(prng.gumbel_noise(keys, (n, CFG.vocab_size), dev, row0=row0),
+                       prng.gumbel_noise(keys, (N, CFG.vocab_size), dev)[:, row0:])
+    gw, _, f, s = _setup(dev, torch.bfloat16)
+    key = prng.PRNGKey(4)
+    one = fused_sample_decode(gw, f, s, key, T, temperature=0.7, top_k=5, top_p=0.8)
+    part = fused_sample_decode(gw, f[row0:], s[row0:], key, T, temperature=0.7, top_k=5,
+                               top_p=0.8, row0=row0)
+    assert torch.equal(part, one[row0:])
+
+
 def _rollout_case(dev, wd, curr):
     gen = torch.Generator().manual_seed(7)
     nets = a2c.init(gen, CFG)

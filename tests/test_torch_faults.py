@@ -33,6 +33,7 @@ from image_captioning_through_rl_tpu_torch.data.coco import CocoData, caption_le
 from image_captioning_through_rl_tpu_torch.models import policy as tpolicy
 from image_captioning_through_rl_tpu_torch.models import reward as treward
 from image_captioning_through_rl_tpu_torch.models import value as tvalue
+from image_captioning_through_rl_tpu_torch.parallel import make_mesh
 from image_captioning_through_rl_tpu_torch.train import checkpoint as tckpt
 from image_captioning_through_rl_tpu_torch.train import loops as tloops
 from image_captioning_through_rl_tpu_torch.utils.logging import make_metrics_writer
@@ -103,8 +104,12 @@ def test_server_takes_the_jax_servers_arguments(coco, tmp_path, monkeypatch):
     paths = {f"{k}_network": str(pre / f"{k}Network.ckpt") for k in ("policy", "value")}
     cap = tapi.load_captioner(model, data, paths, device="cpu")
     assert cap.caption(feats) == got[0] and cap.caption(feats, beam_size=5) == got[5]
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        tapi.load_captioner(model, data, paths, mesh=object(), device="cpu")
+    # sharded over a mesh of two CPU entries: the same captions
+    sharded = tapi.load_captioner(model, data, paths, mesh=make_mesh(devices=["cpu"] * 2),
+                                  device="cpu")
+    assert sharded.caption(feats) == got[0] and sharded.caption(feats, beam_size=5) == got[5]
+    assert (sharded.sample_captions(feats, num_samples=2, temperature=0.9, top_k=5, seed=3)
+            == cap.sample_captions(feats, num_samples=2, temperature=0.9, top_k=5, seed=3))
 
 
 def test_server_needs_a_bundle_or_a_vocabulary(capsys):

@@ -27,6 +27,7 @@ def test_port_imports_without_jax():
         "import image_captioning_through_rl_tpu_torch.train.checkpoint\n"
         "import image_captioning_through_rl_tpu_torch.train.optim\n"
         "import image_captioning_through_rl_tpu_torch.data.device\n"
+        "import image_captioning_through_rl_tpu_torch.parallel\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'image_captioning_through_rl_tpu'\n"
         "             or m.startswith('image_captioning_through_rl_tpu.'))\n"

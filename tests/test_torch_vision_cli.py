@@ -48,6 +48,8 @@ from image_captioning_through_rl_tpu_torch.data import pca as tpca
 from image_captioning_through_rl_tpu_torch.data.hdf5 import read_h5
 from image_captioning_through_rl_tpu_torch.models import convert as tconvert
 from image_captioning_through_rl_tpu_torch.models import from_jax_params
+from image_captioning_through_rl_tpu_torch.models import vgg as tvgg
+from image_captioning_through_rl_tpu_torch.parallel import make_mesh
 
 torch.set_num_threads(2)
 
@@ -164,11 +166,32 @@ def test_extract_cli_matches_jax(files, tmp_path, capsys):
 
 
 def test_extract_cli_spmd_and_mesh_raise(files, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        textract_cli.main(["--images_dir", str(files / "images"), "--out_dir", str(tmp_path),
-                           "--spmd", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        tapi.load_feature_extractor(mesh=object(), device="cpu")
+    """``--spmd`` (each batch split over the process's devices: the CPU's
+    one) writes the table one device writes, and an extractor over a mesh
+    of three CPU entries (each padded batch split in three) gives one
+    device's features, within the fc7 tolerance of a batch computed in
+    other shapes; a mesh that spans processes is refused."""
+    common = ["--images_dir", str(files / "images"), "--weights", str(files / "vgg16.pt"),
+              "--batch_size", "2", "--device", "cpu"]
+    textract_cli.main(common + ["--out_dir", str(tmp_path / "one")])
+    textract_cli.main(common + ["--out_dir", str(tmp_path / "spmd"), "--spmd"])
+    name = "val2014_vgg16_fc7.h5"
+    np.testing.assert_array_equal(read_h5(str(tmp_path / "spmd" / name))["features"],
+                                  read_h5(str(tmp_path / "one" / name))["features"])
+    one = tapi.load_feature_extractor(str(files / "vgg16.pt"), str(files / "pca.npz"),
+                                      device="cpu")
+    three = tapi.load_feature_extractor(str(files / "vgg16.pt"), str(files / "pca.npz"),
+                                        mesh=make_mesh(devices=["cpu"] * 3), device="cpu")
+    paths = _paths(files)
+    for batch in (1, 2, 4):
+        np.testing.assert_allclose(three(paths, batch_size=batch), one(paths, batch_size=2),
+                                   rtol=FC7_RTOL, atol=FC7_ATOL)
+
+    class Spanning:
+        spans_processes = True
+
+    with pytest.raises(ValueError, match="one process"):
+        tvgg.extract_features(one.vgg, textract_cli.load_image_batch(paths), mesh=Spanning())
 
 
 def test_build_data_hint_names_the_port(tmp_path, capsys):
@@ -203,8 +226,11 @@ def test_feature_extractor_paths_and_arrays(files, extractors):
     np.testing.assert_array_equal(pixels, jextract_cli.load_image_batch(paths))
     assert by_path.shape == (len(paths), PCA_DIM)
     np.testing.assert_array_equal(by_path, ext(pixels, batch_size=2))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        tapi.FeatureExtractor(ext.vgg, mesh=object(), device="cpu")
+    sharded = tapi.FeatureExtractor(ext.vgg, ext.projection, mesh=make_mesh(devices=["cpu"] * 2),
+                                    device="cpu")
+    assert sharded.device == torch.device("cpu") and sharded.dim == PCA_DIM
+    np.testing.assert_allclose(sharded(pixels, batch_size=2), by_path, rtol=FC7_RTOL,
+                               atol=FC7_ATOL)
 
 
 @functools.lru_cache(maxsize=None)
