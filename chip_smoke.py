@@ -300,12 +300,15 @@ Phases:
      python3 chip_smoke.py --spmd-rank <json>), its .ckpt files and dumps
      bit-equal to the first run's, its reward and policy chunks captured as
      CUDA graphs with the all-reduce inside; then as a world of two ranks
-     on the one card (--device cuda:0: gloo carrying CUDA tensors, 256 rows
-     a rank, each rank in its own directory), every kernel of the path
-     launched on each rank, rank 1 writing nothing, the pretrainers'
-     parameters and losses and the dumps held to the world of one's, one
-     A2C step from the world of one's sub-network files to the same step in
-     this process, by the rule below, and its sharded
+     on the one card (--device cuda:0 with ICRL_SHARE_CARD=1: gloo carrying
+     CUDA tensors, 256 rows a rank, each rank in its own directory), every
+     kernel of the path launched on each rank, rank 1 writing nothing, the
+     pretrainers' parameters and losses and the dumps held to the world of
+     one's, one A2C step from the world of one's sub-network files to the
+     same step in this process, by the rule below, its reduced gradient
+     (Adam's first moment in the .trainstate) within SPMD_GRAD_RTOL of each
+     leaf's norm, and the same step with a planted fault (rank 0 keeping
+     its own rows' gradient) past that bound, and its sharded
      --test_model evaluation of the world of one's model byte-equal to that
      model's dumps; the ms a minibatch of each trainer and the eager
      all-reduces' share in both worlds (two ranks on one card measure no
@@ -574,6 +577,11 @@ COCO_SENTENCES = 414113 + 202654
 SPMD_SPLITS, SPMD_MESHES, SPMD_RAGGED_N = (2, 3), (2, 3), 1000
 SPMD_EPOCHS, SPMD_DEADLINE_S = 2, 420
 SPMD_PARAM_ATOL, SPMD_PARAM_SHARE = 1e-4, 0.01
+# one A2C step's reduced gradient, read back as Adam's first moment (0.1 g
+# after one step) from each run's .trainstate, may part from one process's
+# by at most SPMD_GRAD_RTOL of each leaf's norm; a planted fault (rank 0
+# joins the all-reduce but keeps its own rows' gradient) must part by more
+SPMD_GRAD_RTOL = 1e-2
 SPMD_ADAM_STEPS = {  # (learning rate, Adam steps) of each pretrainer
     "reward": ((1e-4, SPMD_EPOCHS * CLI_TRAINING_SIZE // BATCH),),
     "policy": ((1e-3, SPMD_EPOCHS * CLI_TRAINING_SIZE // BATCH),),
@@ -4904,8 +4912,11 @@ def spmd_rank(spec: dict) -> int:
     SPMD_EPOCHS epochs) with the kernels' counters set to 0 before each and
     read after it, and counts the all-reduces: those made while a CUDA graph
     captures (counted only), and the eager ones (each timed between two
-    device syncs). Writes its record to ``spec["res"]/rank<r>.json`` and its
-    output to ``rank<r>.log`` there."""
+    device syncs). In the run numbered ``spec["keep_local"]`` rank 0 plants
+    a fault, a negative control of the gradient check: it joins each
+    gradient all-reduce but keeps its own rows' gradients. Writes its record
+    to ``spec["res"]/rank<r>.json`` and its output to ``rank<r>.log``
+    there."""
     sys.path.insert(0, ROOT)
     import importlib
 
@@ -4953,10 +4964,25 @@ def spmd_rank(spec: dict) -> int:
     steps.make_a2c_chunk_step = lambda *a, **kw: functools.partial(
         lambda chunk, *b: timed("a2c", chunk, b[2].shape[0], *b), make_a2c_chunk(*a, **kw))
     rank = int(os.environ["RANK"])
+    reduce_gradients, plant = steps.reduce_gradients, {"on": False}
+
+    def keep_local(optimizer, scalars, shard, mean=True):
+        local = [p.grad.clone() for group in optimizer.param_groups for p in group["params"]
+                 if p.grad is not None]
+        out = reduce_gradients(optimizer, scalars, shard, mean)
+        if plant["on"]:
+            with torch.no_grad():
+                for g, mine in zip([p.grad for group in optimizer.param_groups
+                                    for p in group["params"] if p.grad is not None], local):
+                    g.copy_(mine)
+        return out
+
+    steps.reduce_gradients = keep_local
     runs = []
     with open(os.path.join(spec["res"], f"rank{rank}.log"), "a") as log, \
             contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
-        for argv in spec["runs"]:
+        for i, argv in enumerate(spec["runs"]):
+            plant["on"] = rank == 0 and i == spec.get("keep_local")
             np.random.seed(SEED)  # the --training_size draw (numpy's global generator)
             zero_counters(counters)
             ar.update(captured=0, eager=0, seconds=0.0)
@@ -4978,10 +5004,12 @@ def spmd_rank(spec: dict) -> int:
     return 0
 
 
-def spmd_world(size: int, runs: list, cwds: list, res: str) -> list:
+def spmd_world(size: int, runs: list, cwds: list, res: str, keep_local=None) -> list:
     """``size`` ranks of :func:`spmd_rank` (rank r in ``cwds[r]``) under one
     deadline: when a rank fails or the deadline passes every rank is
-    killed, its log's last 40 lines printed and the phase fails. Returns
+    killed, its log's last 40 lines printed and the phase fails. Ranks that
+    name one card (``--device cuda:0``) share it on purpose (ICRL_SHARE_CARD,
+    gloo). ``keep_local``: the run in which rank 0 plants its fault. Returns
     the ranks' records."""
     import socket
 
@@ -4994,10 +5022,11 @@ def spmd_world(size: int, runs: list, cwds: list, res: str) -> list:
         os.makedirs(cwds[rank], exist_ok=True)
         env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
                    WORLD_SIZE=str(size), RANK=str(rank), LOCAL_RANK=str(rank),
-                   NCCL_SOCKET_IFNAME="lo", NCCL_IB_DISABLE="1")
+                   NCCL_SOCKET_IFNAME="lo", NCCL_IB_DISABLE="1", ICRL_SHARE_CARD="1")
         procs.append(subprocess.Popen(
             [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--spmd-rank",
-             json.dumps({"runs": runs, "res": res})], cwd=cwds[rank], env=env,
+             json.dumps({"runs": runs, "res": res, "keep_local": keep_local})],
+            cwd=cwds[rank], env=env,
             stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
     deadline, failed = time.monotonic() + SPMD_DEADLINE_S, None
     try:
@@ -5027,6 +5056,47 @@ def spmd_world(size: int, runs: list, cwds: list, res: str) -> list:
         with open(os.path.join(res, f"rank{rank}.json")) as f:
             records.append(json.load(f))
     return records
+
+
+def a2c_first_moments(d: str, dev) -> dict:
+    """Adam's first moment of each trained leaf in the A2C snapshot that a
+    run wrote in ``d`` (``a2cNetwork.ckpt.trainstate``): 0.1 x the step's
+    gradient after one step. CPU tensors by leaf path."""
+    from image_captioning_through_rl_tpu_torch.train import checkpoint as ckpt
+
+    path = os.path.join(d, "a2cNetwork.ckpt")
+    state = ckpt.load_train_state(path + ".trainstate", ckpt.load_network("a2c", path, dev))
+    opt = state["opt_state"]
+    opt = opt["inner_states"]["train"]["inner_state"] if "inner_states" in opt else opt
+    return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in leaves(opt["0"]["mu"])}
+
+
+def gradients_apart(mine: dict, theirs: dict) -> tuple[float, str]:
+    """The largest ||mine - theirs|| / ||theirs|| over the leaves, and its
+    leaf (a leaf all zeros in ``theirs`` must be so in ``mine``)."""
+    worst = (0.0, "")
+    for k, a in theirs.items():
+        d, norm = float((mine[k] - a).norm()), float(a.norm())
+        worst = max(worst, (d / norm if norm > 0 else (0.0 if d == 0 else float("inf")), k))
+    return worst
+
+
+def sign_flips(p_one: dict, p_two: dict, g_one: dict, g_two: dict) -> tuple[int, int, float]:
+    """What parts two runs' parameters after one Adam step from the same
+    start: the entries apart by more than SPMD_PARAM_ATOL, how many of them
+    have gradients ``g_one``, ``g_two`` of opposite signs (or 0 on one
+    side), and those entries' median |g| over their leaf's RMS."""
+    p_one, p_two = dict(leaves(p_one)), dict(leaves(p_two))
+    past = flipped = 0
+    ratios = []
+    for k, a in g_one.items():
+        apart = (p_two[k] - p_one[k]).abs().cpu() > SPMD_PARAM_ATOL
+        past += int(apart.sum())
+        flipped += int((apart & (torch.sign(a) != torch.sign(g_two[k]))).sum())
+        rms = float(a.pow(2).mean().sqrt())
+        if apart.any() and rms > 0:
+            ratios.append(a[apart].abs() / rms)
+    return past, flipped, float(torch.cat(ratios).median()) if ratios else float("nan")
 
 
 def spmd_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
@@ -5106,7 +5176,7 @@ def spmd_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
     os.makedirs(model_dir)
     model = shutil.copy(os.path.join(one_log, "a2cNetwork.ckpt"), model_dir)
     a2c_pre = {}
-    for side in ("single", "two"):  # each run writes its a2c .ckpt beside its copies
+    for side in ("single", "two", "fault"):  # each run writes its a2c files beside its copies
         a2c_pre[side] = os.path.join(work, f"a2c_pre_{side}")
         os.makedirs(a2c_pre[side])
         for n in nets[:3]:
@@ -5124,8 +5194,8 @@ def spmd_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
         os.chdir(cwd)
 
     # a world of two ranks on the one card (gloo, CUDA tensors): the same
-    # --retrain run, the same A2C step, and a --test_model evaluation of the
-    # world of one's model
+    # --retrain run, the same A2C step, a --test_model evaluation of the
+    # world of one's model, and the A2C step again with rank 0's fault
     two_dirs = [os.path.join(work, f"two_rank{r}") for r in range(2)]
     flags = ["--spmd", "--seed", str(SEED), "--device", "cuda:0"]
     t0 = time.perf_counter()
@@ -5133,8 +5203,10 @@ def spmd_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
                          ["--spmd", *a2c_argv, "--pretrained_path", a2c_pre["two"],
                           "--device", "cuda:0"],
                          [*flags, "--data_dir", bundle, "--test_model", model, "--test_size",
-                          str(CLI_TEST_SIZE), "--pretrained_path", os.path.join(one_dir, "pre")]],
-                     two_dirs, os.path.join(work, "two_res"))
+                          str(CLI_TEST_SIZE), "--pretrained_path", os.path.join(one_dir, "pre")],
+                         ["--spmd", *a2c_argv, "--pretrained_path", a2c_pre["fault"],
+                          "--device", "cuda:0"]],
+                     two_dirs, os.path.join(work, "two_res"), keep_local=3)
     two_s = time.perf_counter() - t0
     if [r["backend"] for r in two] != ["gloo", "gloo"] or os.listdir(two_dirs[1]):
         raise AssertionError(f"the world of two: backends {[r['backend'] for r in two]}, rank "
@@ -5147,11 +5219,10 @@ def spmd_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
     two_log, a2c_log = (os.path.join(two_dirs[0], two[0]["runs"][i]["log_dir"]) for i in (0, 1))
     faults, report = [], []
 
-    def params_apart(kind: str, mine: str, theirs: str, stages,
-                     share_limit: float | None = SPMD_PARAM_SHARE) -> None:
+    def params_apart(kind: str, mine: str, theirs: str, stages) -> None:
         """A network's parameters against the reference run's by the Adam rule
         (SPMD_ADAM_STEPS): every entry within 2 x sum(lr x steps) (and a
-        float's margin), at most ``share_limit`` of them past
+        float's margin), at most SPMD_PARAM_SHARE of them past
         SPMD_PARAM_ATOL."""
         a = dict(leaves(ckpt.load_network(kind, theirs, dev)))
         b = dict(leaves(ckpt.load_network(kind, mine, dev)))
@@ -5160,7 +5231,7 @@ def spmd_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
         bound = 2 * sum(lr * steps for lr, steps in stages) * (1 + 1e-3)
         report.append(f"{kind} max {worst:.3g} (bound {bound:.3g}), {share:.3%} of "
                       f"{diff.numel()} entries past {SPMD_PARAM_ATOL}")
-        if worst > bound or (share_limit is not None and share > share_limit):
+        if worst > bound or share > SPMD_PARAM_SHARE:
             faults.append(f"{kind}: parameters {report[-1]}")
 
     def losses_apart(theirs: str, mine: str, tags) -> float:
@@ -5188,14 +5259,30 @@ def spmd_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
                      SPMD_ADAM_STEPS[kind])
     pre_rel = losses_apart(one_log, two_log, ("Reward", "Policy", "Value"))
     # the A2C step from the same files: its logged stats are those of one
-    # rollout of the same weights on the same noise (row0 on rank 1); its one
-    # Adam step moves each entry by lr g / (|g| + eps), so a gradient entry
-    # whose sign the sums' rounding flips parts the two by up to 2 lr, and the
-    # A2C loss sums terms of both signs over the rows: many of its gradient
-    # entries sit at rounding level (no share is held)
+    # rollout of the same weights on the same noise (row0 on rank 1), and its
+    # reduced gradient is held leaf by leaf (SPMD_GRAD_RTOL). Its one Adam
+    # step moves each entry by lr g / (|g| + eps), about lr whatever g is, so
+    # the parameters' bound alone cannot tell a wrong gradient from a right
+    # one: their share past SPMD_PARAM_ATOL (sign flips) is held too
     params_apart("a2c", os.path.join(a2c_pre["two"], nets[3]),
-                 os.path.join(a2c_pre["single"], nets[3]), ((1e-4, 1),), None)
+                 os.path.join(a2c_pre["single"], nets[3]), ((1e-4, 1),))
     a2c_rel = losses_apart(os.path.join(single, a2c_ref["log_dir"]), a2c_log, ("A2C",))
+
+    mu = {side: a2c_first_moments(a2c_pre[side], dev) for side in ("single", "two", "fault")}
+    grad_rel, grad_leaf = gradients_apart(mu["two"], mu["single"])
+    fault_rel, fault_leaf = gradients_apart(mu["fault"], mu["single"])
+    if grad_rel > SPMD_GRAD_RTOL or not fault_rel > SPMD_GRAD_RTOL:
+        faults.append(f"the A2C step's reduced gradient is {grad_rel:.3g} of {grad_leaf}'s norm "
+                      f"from one process's, the planted fault's {fault_rel:.3g} of "
+                      f"{fault_leaf}'s (bound {SPMD_GRAD_RTOL}: the first within, the second "
+                      f"past)")
+    past, flipped, g_ratio = sign_flips(
+        *(ckpt.load_network("a2c", os.path.join(a2c_pre[side], nets[3]), "cpu")
+          for side in ("single", "two")), mu["single"], mu["two"])
+    report.append(f"a2c gradient within {grad_rel:.3g} of one process's ({grad_leaf}; the "
+                  f"planted fault {fault_rel:.3g}, {fault_leaf}; bound {SPMD_GRAD_RTOL}); of "
+                  f"its {past} entries past {SPMD_PARAM_ATOL}, {flipped} have gradients of "
+                  f"opposite signs, their median |g| {g_ratio:.3g} of their leaf's RMS")
     texts = {}
     for name in dumps:
         for side, d in (("one", one_log), ("two", two_log), ("eval", model_dir)):
@@ -5681,41 +5768,40 @@ def main() -> int:
     # phase 22: a bidirectional model through the CLI and the server, and
     # phase 23: the reference-exact paths, both on phase 21's bundle (which
     # phase 27 reads too)
-    cli_tmp = tempfile.TemporaryDirectory()
-    tmp = cli_tmp.name
-    cli_runs = cli_main_path(dev, card, tmp)
-    bidi_launches = bidirectional_main_path(dev, card, os.path.join(tmp, "bundle"), tmp)
-    ref_launches = reference_exact_main_path(dev, card, os.path.join(tmp, "bundle"), tmp)
-    # phase 24: the trainers' default walk (chunks, graphs, snapshots, resume)
-    chunk_launches, chunk_runs = chunked_main_path(dev, card, os.path.join(tmp, "bundle"),
-                                                   cli_runs["dirs"], tmp)
-    cli_launches = {k: cli_runs["train"][k] + cli_runs["eval"][k] for k in cli_runs["train"]}
+    with tempfile.TemporaryDirectory() as cli_dir:
+        tmp = cli_dir
+        cli_runs = cli_main_path(dev, card, tmp)
+        bidi_launches = bidirectional_main_path(dev, card, os.path.join(tmp, "bundle"), tmp)
+        ref_launches = reference_exact_main_path(dev, card, os.path.join(tmp, "bundle"), tmp)
+        # phase 24: the trainers' default walk (chunks, graphs, snapshots, resume)
+        chunk_launches, chunk_runs = chunked_main_path(dev, card, os.path.join(tmp, "bundle"),
+                                                       cli_runs["dirs"], tmp)
+        cli_launches = {k: cli_runs["train"][k] + cli_runs["eval"][k] for k in cli_runs["train"]}
 
-    # phase 25: kernel 6's tape options (no trainer passes them: their
-    # launches are this phase's), then the visual front end (VGG16, PCA, the
-    # raw-image paths of the Captioner and the server) from phase 5's model
-    t25 = time.perf_counter()
-    tape = tape_variants(dev, card)
-    with tempfile.TemporaryDirectory() as tmp:
-        vision = visual_front_end(dev, card, params, tmp)
-    phase("timing", f"{card} | phase 25: {time.perf_counter() - t25:.1f} s (tape options "
-                    f"{time.perf_counter() - t25 - vision['seconds']:.1f} s, visual front end "
-                    f"{vision['seconds']:.1f} s) | the run so far {time.perf_counter() - T0:.1f} s")
+        # phase 25: kernel 6's tape options (no trainer passes them: their
+        # launches are this phase's), then the visual front end (VGG16, PCA, the
+        # raw-image paths of the Captioner and the server) from phase 5's model
+        t25 = time.perf_counter()
+        tape = tape_variants(dev, card)
+        with tempfile.TemporaryDirectory() as tmp:
+            vision = visual_front_end(dev, card, params, tmp)
+        phase("timing", f"{card} | phase 25: {time.perf_counter() - t25:.1f} s (tape options "
+                        f"{time.perf_counter() - t25 - vision['seconds']:.1f} s, visual front "
+                        f"end {vision['seconds']:.1f} s) | the run so far "
+                        f"{time.perf_counter() - T0:.1f} s")
 
-    # phase 26: the word embeddings (SGNS on the card, the CLI's word-vector
-    # runs, every model kernel at E = 300)
-    with tempfile.TemporaryDirectory() as tmp:
-        emb = embeddings_main_path(dev, card, tmp)
+        # phase 26: the word embeddings (SGNS on the card, the CLI's word-vector
+        # runs, every model kernel at E = 300)
+        with tempfile.TemporaryDirectory() as tmp:
+            emb = embeddings_main_path(dev, card, tmp)
 
-    # phase 27: data parallelism: the noise and sampling kernels at a first
-    # global row, the decodes sharded over entries of the card, and the CLI
-    # with --spmd as a world of one over NCCL and a world of two ranks on
-    # the one card, on phase 21's bundle
-    t27 = time.perf_counter()
-    spmd_times = spmd_kernels(dev, weights, params_dev, card)
-    spmd_launches = spmd_main_path(dev, card, os.path.join(cli_tmp.name, "bundle"),
-                                   cli_tmp.name)
-    cli_tmp.cleanup()
+        # phase 27: data parallelism: the noise and sampling kernels at a first
+        # global row, the decodes sharded over entries of the card, and the CLI
+        # with --spmd as a world of one over NCCL and a world of two ranks on
+        # the one card, on phase 21's bundle
+        t27 = time.perf_counter()
+        spmd_times = spmd_kernels(dev, weights, params_dev, card)
+        spmd_launches = spmd_main_path(dev, card, os.path.join(cli_dir, "bundle"), cli_dir)
     phase("timing", f"{card} | phase 27: {time.perf_counter() - t27:.1f} s | at a first row "
                     f"(CUDA events): noise kernel [{S}, {ROLLOUT_N // 2}, {V}] at row0 = "
                     f"{ROLLOUT_N // 2} {spmd_times['noise_row0_ms']:.4f} ms beside the whole "

@@ -130,7 +130,9 @@ def reduce_gradients(optimizer: torch.optim.Optimizer, scalars: Sequence[torch.T
                      shard: RowShard, mean: bool = True) -> List[torch.Tensor]:
     """Sum every gradient of ``optimizer``'s parameters and the 0-d
     ``scalars`` (the loss, the stats) over the ranks in one flattened
-    bucket, one ``all_reduce`` a step; divided by the ranks for ``mean``
+    bucket, one ``all_reduce`` a step, laid out in the optimiser's leaf
+    order (:func:`..train.optim.adam`'s sorted paths, the same on every
+    rank however its tree was built); divided by the ranks for ``mean``
     (a loss that is a mean over rows: equal shards make the mean of the
     rank means the global mean). Writes the gradients back in place and
     returns the reduced scalars. A parameter without a gradient (the same on

@@ -65,10 +65,8 @@ class GlobalBatcher:
             return None
         return RowShard(block[0], block[1], n, self._data_size)
 
-    def shard(self, *arrays, batch_axis: int = 0):
+    def shard(self, *arrays):
         """Each array's rows of this process (axis 0)."""
-        if batch_axis != 0:
-            raise ValueError("GlobalBatcher shards batch axis 0")
         out = tuple(a[slice(*self.local_rows(a.shape[0]))] for a in arrays)
         return out if len(out) > 1 else out[0]
 

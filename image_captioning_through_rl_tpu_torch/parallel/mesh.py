@@ -10,10 +10,13 @@ is one torch device, so ``make_mesh(devices=["cpu"] * 8)`` stands in for the
 JAX package's eight virtual CPU devices, and ``[cuda:0, cuda:0]`` splits a
 batch over one card.
 
-The process group: NCCL for CUDA tensors, gloo for CPU tensors, and gloo for
-CUDA tensors only where ranks share one card on purpose (NCCL refuses two
-ranks on one device): a rank asks for that by naming the card's index
-(``cuda:0``); plain ``cuda`` is the card ``cuda:LOCAL_RANK`` under NCCL.
+The process group: NCCL for CUDA tensors, gloo for CPU tensors. Each rank
+of a world owns the card ``cuda:LOCAL_RANK`` (``--device cuda``). Ranks
+share one card only on purpose, a check's set-up rather than a way to
+train: with ``ICRL_SHARE_CARD=1`` every rank that names the card's index
+(``cuda:0``) runs on it and the group is gloo carrying CUDA tensors (NCCL
+refuses two ranks on one device). Without that variable, a world of more
+than one rank that names a card's index raises.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 import torch.distributed as dist
 
 _ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
+_ENV_SHARE_CARD = "ICRL_SHARE_CARD"
 TENSOR_PARALLEL = ("tensor parallelism over the vocabulary (a 'model' mesh axis) is not "
                    "ported yet (ROADMAP §1 item 8b)")
 
@@ -48,24 +52,36 @@ def is_main_process() -> bool:
     return world()[0] == 0
 
 
+def _share_card() -> bool:
+    return os.environ.get(_ENV_SHARE_CARD, "0") == "1"
+
+
 def rank_device(device="cuda") -> torch.device:
     """This process's device: ``cuda`` is ``cuda:LOCAL_RANK`` (0 without
-    torchrun); an explicit index is kept (ranks that name one card share
-    it); ``cpu`` is the CPU. A missing CUDA device raises (no rank carries
-    on on the CPU)."""
+    torchrun); ``cpu`` is the CPU. An explicit index is kept in a world of
+    one, and in a larger one only with ``ICRL_SHARE_CARD=1`` (every rank
+    would run on that card): else ``ValueError``. A missing CUDA device
+    raises (no rank carries on on the CPU)."""
     from ..api import resolve_device  # api imports the decodes: resolve at call time
 
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    elif dev.type == "cuda" and int(os.environ.get("WORLD_SIZE", "1")) > 1 and not _share_card():
+        raise ValueError(f"--device {device} in a world of {os.environ['WORLD_SIZE']} ranks "
+                         f"would run every rank on that card: pass --device cuda (each rank "
+                         f"its cuda:LOCAL_RANK), or set {_ENV_SHARE_CARD}=1 to share the card "
+                         f"on purpose (gloo)")
     return resolve_device(dev)
 
 
 def backend_for(device="cuda") -> str:
-    """NCCL for plain ``cuda`` (one card a rank), gloo for the CPU and for
-    a named card that the ranks share."""
+    """gloo for the CPU and for a named card that the ranks share on purpose
+    (``ICRL_SHARE_CARD=1``), NCCL for every other card."""
     dev = torch.device(device)
-    return "nccl" if dev.type == "cuda" and dev.index is None else "gloo"
+    if dev.type != "cuda" or (dev.index is not None and _share_card()):
+        return "gloo"
+    return "nccl"
 
 
 def maybe_init_distributed(device="cuda") -> bool:

@@ -42,9 +42,9 @@ pretrainers' Q12 bookkeeping stays on the device, and on the card the
 reward and policy chunks are one CUDA graph replay each. The value and A2C
 chunks run eagerly; A2C's per-step walk is its chunk of one minibatch, and
 a chunk's stats are read once the next chunk is queued. ``chunk_steps=1``
-or ``device_data=False`` walks one minibatch a dispatch, with the same
-artifacts. Every trainer writes a
-``.trainstate`` snapshot after each epoch (in the JAX package's layout,
+or ``device_data=False`` (the split in host memory,
+:class:`..data.device.HostCocoTables`) walks one minibatch a dispatch, with
+the same artifacts. Every trainer writes a ``.trainstate`` snapshot after each epoch (in the JAX package's layout,
 :func:`.checkpoint.save_train_state`), and ``resume=True`` continues from it
 bit-identically, from either package's snapshot.
 
@@ -87,8 +87,7 @@ import torch
 from .. import END_ID, MAX_SEQ_LEN
 from ..api import resolve_device
 from ..config import DecodeConfig, NetConfig, TrainConfig
-from ..data.coco import (CocoData, decode_captions, epoch_minibatch_indices, get_coco_batch,
-                         get_coco_minibatches)
+from ..data.coco import CocoData, decode_captions, epoch_minibatch_indices, get_coco_batch
 from ..data.device import DeviceCocoTables, HostCocoTables
 from ..decode.beam import beam_search
 from ..decode.beam_compat import beam_search_compat
@@ -220,22 +219,6 @@ class _DeferredBookkeeper:
             self._pending = None
 
 
-def _device_tables(train_data: CocoData, device_data: bool, device: torch.device):
-    """The train split on ``device`` (:class:`..data.device.DeviceCocoTables`)
-    when ``device_data``, else None (minibatches gathered on the host)."""
-    return DeviceCocoTables(train_data, "train", device) if device_data else None
-
-
-def _mesh_io(mesh, train_data: CocoData, device_data: bool = True):
-    """A mesh's input plumbing: ``(batcher, tables)``, the
-    :class:`..parallel.hostbatch.GlobalBatcher` of this rank's rows and the
-    train split, on this rank's device (``device_data``) or in host memory
-    (:class:`..data.device.HostCocoTables`), each gathering this rank's
-    rows."""
-    tables = DeviceCocoTables if device_data else HostCocoTables
-    return GlobalBatcher(mesh), tables(train_data, "train", mesh=mesh)
-
-
 def _sync_load(load_fn, template_fn, multiprocess: bool):
     """A load every rank agrees on. Without ``multiprocess``: ``load_fn()``.
     Else rank 0 alone calls it and broadcasts its verdict on every control
@@ -340,8 +323,7 @@ def _resume_pretrainer(resume: bool, train_state_path: Optional[str], tag: str, 
 
 def _drive_best_loss_training(desc: str, tag: str, kind: str, ckpt_path: str, writer,
                               epochs: int, batch_size: int, rng: np.random.Generator,
-                              train_data: CocoData, params: dict, single_step,
-                              device: torch.device, optimizer: torch.optim.Optimizer, *,
+                              params: dict, single_step, optimizer: torch.optim.Optimizer, *,
                               tables=None, chunk=None, chunk_steps: int = 16,
                               draw_extras=None, train_state_path: Optional[str] = None,
                               start_epoch: int = 0, resume_best: Optional[float] = None,
@@ -402,7 +384,7 @@ def _drive_best_loss_training(desc: str, tag: str, kind: str, ckpt_path: str, wr
             ckpt.save_network(kind, prev, ckpt_path)  # Q12: weights entering
 
     keeper = _DeferredBookkeeper(resolve)
-    use_chunks = chunk is not None and chunk_steps > 1 and tables is not None
+    use_chunks = chunk is not None and chunk_steps > 1 and isinstance(tables, DeviceCocoTables)
     for epoch in range(start_epoch, epochs):
         t0 = time.perf_counter()
         if use_chunks:
@@ -443,14 +425,8 @@ def _drive_best_loss_training(desc: str, tag: str, kind: str, ckpt_path: str, wr
                     minibatch_id += 1
                     i = num
         else:
-            if tables is not None:
-                batches = ((tables.gather(mask), row_shard(len(mask))) for mask in
-                           epoch_minibatch_indices(tables.num_captions, batch_size, rng))
-            else:
-                batches = (((torch.from_numpy(c).to(device), torch.from_numpy(f).to(device)),
-                            None)
-                           for c, f, _ in get_coco_minibatches(train_data, batch_size=batch_size,
-                                                               split="train", rng=rng))
+            batches = ((tables.gather(mask), row_shard(len(mask))) for mask in
+                       epoch_minibatch_indices(tables.num_captions, batch_size, rng))
             minibatch_id = -1
             for minibatch_id, ((captions, features), shard) in enumerate(batches):
                 prev = _clone(params)
@@ -474,12 +450,18 @@ def _start(kind: str, train_data: CocoData, network_paths: Dict[str, str], bidir
 
 
 def _rows_io(mesh, compat: bool, train_data: CocoData, device_data: bool, dev: torch.device):
-    """``(batcher, tables)`` of a trainer: this rank's rows on a mesh; the
-    compat (Q1) steps, which treat the batch as time, gather whole
-    minibatches on every rank (no batcher, no collective)."""
+    """``(batcher, tables)`` of a trainer, the JAX package's ``_mesh_io``:
+    the train split on the run's device (``device_data``,
+    :class:`..data.device.DeviceCocoTables`) or in host memory
+    (:class:`..data.device.HostCocoTables`), and on a mesh the
+    :class:`..parallel.hostbatch.GlobalBatcher` of this rank's rows, which
+    the tables gather. The compat (Q1) steps, which treat the batch as
+    time, gather whole minibatches on every rank (no batcher, no
+    collective)."""
+    tables = DeviceCocoTables if device_data else HostCocoTables
     if mesh is None or compat:
-        return None, _device_tables(train_data, device_data, dev)
-    return _mesh_io(mesh, train_data, device_data)
+        return None, tables(train_data, "train", dev)
+    return GlobalBatcher(mesh), tables(train_data, "train", mesh=mesh)
 
 
 def _init_params(tree: dict, dev: torch.device, mesh) -> dict:
@@ -544,7 +526,7 @@ def train_reward_network(train_data: CocoData, network_paths: Dict[str, str],
     print_green("[Training] Training Reward Network")
     params = _drive_best_loss_training(
         "Training Reward Network", "Reward Network-loss", "reward", ckpt_path, writer, epochs,
-        batch_size, rng, train_data, params, step, dev, opt,
+        batch_size, rng, params, step, opt,
         tables=tables, chunk=chunk, chunk_steps=chunk_steps, train_state_path=state_path,
         start_epoch=start_epoch, resume_best=resume_best, fused_used=fused, batcher=batcher)
     writer.close()
@@ -586,7 +568,7 @@ def train_policy_network(train_data: CocoData, network_paths: Dict[str, str],
     print_green("[Training] Training Policy Network")
     params = _drive_best_loss_training(
         "Training Policy Network", "Policy Network-loss", "policy", ckpt_path, writer, epochs,
-        batch_size, rng, train_data, params, step, dev, opt,
+        batch_size, rng, params, step, opt,
         tables=tables, chunk=chunk, chunk_steps=chunk_steps, train_state_path=state_path,
         start_epoch=start_epoch, resume_best=resume_best, fused_used=fused, batcher=batcher)
     writer.close()
@@ -647,7 +629,7 @@ def train_value_network(train_data: CocoData, network_paths: Dict[str, str],
     print_green("[Training] Training Value Network")
     params = _drive_best_loss_training(
         "Training Value Network", "Value Network-loss", "value", ckpt_path, writer, epochs,
-        batch_size, rng, train_data, params, single_step, dev, opt,
+        batch_size, rng, params, single_step, opt,
         tables=tables, chunk=chunk, chunk_steps=chunk_steps,
         draw_extras=lambda k: [(py_rng.randint(1, MAX_SEQ_LEN),) for _ in range(k)],
         train_state_path=state_path, start_epoch=start_epoch, resume_best=resume_best,
@@ -684,8 +666,7 @@ def _host_curr(captions: np.ndarray, level: Optional[int]) -> int:
 def _drive_a2c_epoch(*, epoch: int, level: Optional[int], train_data: CocoData,
                      batch_size: int, chunk, chunk_steps: int, tables, a2c_params: dict,
                      reward_params: dict, rng: np.random.Generator, key: np.ndarray, keeper,
-                     device: torch.device, batcher: Optional[GlobalBatcher] = None
-                     ) -> np.ndarray:
+                     batcher: Optional[GlobalBatcher] = None) -> np.ndarray:
     """One epoch of (curriculum) A2C minibatch updates, the JAX package's
     walk (``loops.py:1057-1150``): plain A2C (``level`` None) rolls out from
     position 1; a curriculum level teacher-forces ``curr_seq_len = caplen -
@@ -700,16 +681,7 @@ def _drive_a2c_epoch(*, epoch: int, level: Optional[int], train_data: CocoData,
     each minibatch's ``caplen`` comes from the host's global captions and
     the chunk takes the row shard (a ragged minibatch runs whole). Returns
     the carried key."""
-    host_caps = train_data.train_captions
-    if tables is not None:
-        num, gather = tables.num_captions, tables.gather
-    else:
-        caps_all, idxs_all, feats_all, _ = train_data.split("train")
-        num = caps_all.shape[0]
-
-        def gather(mask):
-            return (torch.from_numpy(caps_all[mask]).to(device),
-                    torch.from_numpy(feats_all[idxs_all[mask]]).to(device))
+    host_caps, num = train_data.train_captions, tables.num_captions
     perm = rng.permutation(num)  # the draw of data.coco.epoch_minibatch_indices
     i = minibatch_id = 0
     while i < num:
@@ -723,10 +695,7 @@ def _drive_a2c_epoch(*, epoch: int, level: Optional[int], train_data: CocoData,
             caplens.append(_host_caplen(host_caps[mask[j * n: (j + 1) * n]]))
             currs.append(1 if level is None else caplens[-1] - level)
         shard = None if batcher is None else batcher.row_shard(n)
-        if batcher is None:
-            caps_b, feats_b = gather(mask)
-        else:
-            caps_b, feats_b = tables.gather(mask, k=k)
+        caps_b, feats_b = tables.gather(mask, k=k)
         rows = n if shard is None else shard.rows
         stats, valid = chunk(a2c_params, reward_params, feats_b.view(k, rows, -1),
                              caps_b.long().view(k, rows, -1), currs, subs,
@@ -774,7 +743,6 @@ def _a2c_epochs(desc: str, tags: tuple, level: Optional[int], writer, train_data
     """The epochs ``first_epoch .. epochs - 1`` of one A2C run (or curriculum
     level): after each, the weights go to every save path
     (trainers.py:498; rank 0's) and ``snapshot(epoch, key, best)`` runs."""
-    device = a2c_params["policy"]["embedding"].device
     state = {"best": float("inf") if best is None else best}
     main = is_main_process()
     keeper = _DeferredBookkeeper(_a2c_resolver(desc, tags, writer, state, a2c_params,
@@ -785,7 +753,7 @@ def _a2c_epochs(desc: str, tags: tuple, level: Optional[int], writer, train_data
                                batch_size=batch_size, chunk=chunk, chunk_steps=chunk_steps,
                                tables=tables, a2c_params=a2c_params,
                                reward_params=reward_params, rng=rng, key=key, keeper=keeper,
-                               device=device, batcher=batcher)
+                               batcher=batcher)
         if main:
             ckpt.save_to_paths(a2c_params, save_paths)  # every epoch (trainers.py:498)
         snapshot(epoch, key, state["best"])
@@ -827,7 +795,7 @@ def _a2c_setup(cfg: NetConfig, optimizer, a2c_params: dict, train_data: CocoData
                                       compat=compat, fused=fused, fuse_reward=fuse_reward)
     batcher, tables = _rows_io(mesh, compat, train_data, device_data, device)
     return (fused, chunk, batcher, tables,
-            chunk_steps if tables is not None and not compat else 1)
+            chunk_steps if device_data and not compat else 1)
 
 
 def a2c_training(train_data: CocoData, a2c_params: dict, reward_params: dict,

@@ -14,7 +14,7 @@ import torch
 
 
 def _leaves(tree: dict, path=()):
-    for k, v in tree.items():
+    for k, v in sorted(tree.items()):
         if isinstance(v, dict):
             yield from _leaves(v, path + (k,))
         else:
@@ -24,7 +24,11 @@ def _leaves(tree: dict, path=()):
 def adam(lr: float, params: dict, freeze_embeddings: bool = False) -> torch.optim.Adam:
     """Adam over the leaves of ``params`` (updated in place by ``step()``).
     Trained leaves get ``requires_grad``; with ``freeze_embeddings`` the
-    ``embedding`` tables get none and stay out of the optimiser."""
+    ``embedding`` tables get none and stay out of the optimiser. The leaves
+    are in sorted path order, whatever order the tree's dicts were built
+    in: a data-parallel step reduces the gradients in one bucket laid out
+    in this order, so ranks whose trees came from a checkpoint read on rank
+    0 and a template filled by its broadcast line up."""
     trained = []
     for path, leaf in _leaves(params):
         frozen = freeze_embeddings and "embedding" in path

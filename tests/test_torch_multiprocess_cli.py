@@ -13,7 +13,8 @@ gradient sums run in another order, over a few hundred Adam steps); rank 1's
 directory stays empty. A ``--test_model`` run then names rank 0's model by
 a relative path that only rank 0 can open: rank 0's answer decides, its
 reads reach rank 1 by broadcast, and the dumps equal a single-process
-``--test_model`` run's.
+``--test_model`` run's. An A2C run from sub-networks that rank 0 reads and
+broadcasts reduces the same gradients as one process.
 """
 
 import importlib
@@ -121,6 +122,46 @@ def test_spmd_retrain_and_test_model_in_two_processes(coco, tmp_path, monkeypatc
                                             _argv(coco, "--test_model", ref_model)))
     for name in DUMPS:
         assert (got / name).read_bytes() == (_log_dir(ref) / name).read_bytes(), name
+
+
+def _first_moments(path):
+    """Adam's first moment of each trained leaf in ``path``'s ``.trainstate``."""
+    cfg = NetConfig(vocab_size=V, input_dim=F, wordvec_dim=WIDTH, hidden_dim=WIDTH)
+    template = tckpt.load_network("a2c", str(path), device="cpu", cfg=cfg)
+    mu = tckpt.load_train_state(str(path) + ".trainstate", template)["opt_state"]["0"]["mu"]
+    return {jax.tree_util.keystr(p): np.asarray(x)
+            for p, x in jax.tree_util.tree_flatten_with_path(mu)[0]}
+
+
+def test_spmd_a2c_from_loaded_networks_reduces_one_process_gradient(coco, tmp_path,
+                                                                     monkeypatch):
+    """A2C alone (no ``--retrain``) from the three sub-networks' files: rank
+    0 reads them and broadcasts them into rank 1's freshly built trees. The
+    gradients each step reduces, read back as Adam's first moments from
+    the ``.trainstate``, equal the single process's to 1e-5 of each leaf's
+    norm, and the ``.ckpt`` leaves agree at rtol 1e-4, atol 1e-5. (The
+    ranks' trees were once built in different key orders, and the
+    gradient bucket, laid out in the optimiser's order, summed one rank's
+    leaves into another's.)"""
+    single = tmp_path / "single"
+    _one_process(single, _argv(coco, "--retrain"), monkeypatch)
+    a2c_single = tmp_path / "a2c_single"
+    ranks = [tmp_path / "world" / f"rank{r}" for r in range(2)]
+    for d in (a2c_single, ranks[0]):
+        (d / "pre").mkdir(parents=True)
+        for kind in ("reward", "policy", "value"):
+            shutil.copy(single / "pre" / f"{kind}Network.ckpt", d / "pre")
+    monkeypatch.chdir(a2c_single)
+    tmain.main(tmain.parse_args_with_config(tmain.build_arg_parser(), _argv(coco)))
+    _world(tmp_path, ranks, _argv(coco))
+    assert list(ranks[1].iterdir()) == []
+    want, got = (_first_moments(d / "pre" / "a2cNetwork.ckpt") for d in (a2c_single, ranks[0]))
+    assert sorted(got) == sorted(want) and want
+    for k, a in want.items():
+        assert np.linalg.norm(got[k] - a) <= 1e-5 * np.linalg.norm(a), k
+    for a, b in zip(_leaves(ranks[0] / "pre" / "a2cNetwork.ckpt", "a2c"),
+                    _leaves(a2c_single / "pre" / "a2cNetwork.ckpt", "a2c")):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
 
 
 def test_spmd_with_a_partial_launch_environment_raises(coco, tmp_path, monkeypatch):

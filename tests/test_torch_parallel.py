@@ -315,13 +315,36 @@ def test_launch_environment_all_or_nothing(monkeypatch):
 
 
 def test_backends_and_rank_devices(monkeypatch):
+    monkeypatch.delenv("ICRL_SHARE_CARD", raising=False)
+    monkeypatch.setenv("WORLD_SIZE", "2")
     assert tmesh.backend_for("cuda") == "nccl"
-    assert tmesh.backend_for("cuda:0") == "gloo"  # ranks that share a card, on purpose
+    assert tmesh.backend_for("cuda:0") == "nccl"
     assert tmesh.backend_for("cpu") == "gloo"
     assert tmesh.rank_device("cpu") == torch.device("cpu")
+    # a named card in a world of two: every rank on it, refused unless asked for
+    with pytest.raises(ValueError, match="ICRL_SHARE_CARD=1"):
+        tmesh.rank_device("cuda:0")
+    monkeypatch.setenv("ICRL_SHARE_CARD", "1")
+    assert tmesh.backend_for("cuda:0") == "gloo"  # ranks that share a card, on purpose
+    assert tmesh.backend_for("cuda") == "nccl"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):  # no rank carries on on the CPU
         tmesh.rank_device("cuda")
+
+
+def test_adam_orders_its_leaves_by_path():
+    """The gradient bucket follows the optimiser's leaf order: a tree loaded
+    on rank 0 and a template filled by its broadcast, built in other key
+    orders, give the same order."""
+    from image_captioning_through_rl_tpu_torch.train.optim import adam
+
+    def tree(order):
+        shapes = {"b": {"w": (3, 2), "a": (5,)}, "a": {"z": (4,), "c": (1, 7)}}
+        return {k: {j: torch.zeros(shapes[k][j]) for j in order(shapes[k])} for k in order(shapes)}
+
+    orders = [[tuple(p.shape) for p in adam(1e-3, tree(f)).param_groups[0]["params"]]
+              for f in (sorted, lambda d: sorted(d, reverse=True), list)]
+    assert orders[0] == orders[1] == orders[2] == [(1, 7), (4,), (5,), (3, 2)]
 
 
 def test_without_a_process_group_the_collectives_are_the_identity():
