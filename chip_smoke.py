@@ -314,6 +314,32 @@ Phases:
      all-reduces' share in both worlds (two ranks on one card measure no
      scaling), the noise and sampling kernels' times at a first row beside
      the whole call's, the phase's seconds.
+ 28. tensor parallelism over the vocabulary (ROADMAP §1 item 8b): the noise
+     kernel's column window (a rank's columns [col0, col0 + V / M) of the
+     [16, 512, 1004] draw) at every (rows, columns) block of the worlds
+     below, its bits equal to the plain version's and to the whole draw's
+     columns, its Gumbel noise equal to the whole kernel draw's columns and
+     within the 4-ulp rule of the plain version, timed at [16, 512, 502]
+     from column 502 beside the whole draw; then one process's steps on
+     whole trees (the reference): one fused reward, policy and value step
+     (the chain kernels, bf16 weights; the value step's targets through
+     the greedy kernel) and one plain A2C step, plain and curriculum [4]
+     (the noise kernel), from random COCO-width networks on one minibatch
+     of 512; then the same steps in worlds of (1, 2) and (2, 2) ranks on
+     the one card over gloo (ICRL_SHARE_CARD=1; python3 chip_smoke.py
+     --tp-rank <json>), each rank on its rows and vocab-sharded trees
+     (shard_params with the a2c and reward specs: 502 columns a rank):
+     every rank's window, its launches of the chains, the greedy kernel
+     and the noise kernel (at least one each) and of the rollout kernels
+     (none: the vocab-sharded A2C step runs the plain rollout), the fused
+     rollout's refusal; the gathered parameters by phase 27's Adam rule
+     for one step, A2C's gathered actions by the near-tie rule and its
+     reduced gradient (Adam's first moment) within SPMD_GRAD_RTOL of each
+     leaf's norm, and a planted fault (the head's backward all-reduce left
+     out) past that bound; every rank's gathered results equal to rank
+     0's; ms a step of a rank beside one process's (ranks sharing one card
+     over gloo show correctness, not scaling), the phase's seconds
+     (budget 90 s; 75.8 s on an H100 80GB HBM3 at 700 W, PERF.md).
 
 The last JSON line but two lists every kernel with its launches on its main
 paths, by path (serving for greedy; serving and the evaluation for the beam
@@ -321,7 +347,9 @@ and the x-gate table; the pretrainers for the chains; A2C for the rest; the
 CLI's two runs of phase 21 for every kernel they launch; phase 24's runs as
 ``chunked``; phase 26's word-vector runs at E = 300 as ``embeddings``, the
 noise kernel's SGNS draws included; phase 27's CLI runs in the worlds of
-one and two, every rank summed, as ``spmd``; for the chains also ``runs_by_path``,
+one and two, every rank summed, as ``spmd``; phase 28's steps in its worlds,
+every rank summed, as ``tensor_parallel``, the noise kernel's there under
+its own entry, ``threefry_gumbel_window``; for the chains also ``runs_by_path``,
 the kernel's runs in the traces of phase 21's training run, phase 24 and
 phase 26's runs, graph replays included), its
 largest error against plain, its time and its plain version's, and its
@@ -457,12 +485,25 @@ both signs over the rows, so many gradient entries sit at rounding level
 and their signs may part; no share is held). Its sharded evaluation of the world of one's
 model must write that model's dumps byte for byte.
 
+Tensor parallelism (phase 28): the vocab-sharded steps do one process's
+arithmetic but for the order of some float32 sums: the embedding lookups
+and the gathered tables are exact (a block's rows plus zeros), while the
+log-softmax sums its exponentials block by block and the head's input
+gradient is a sum of the blocks' parts, and cuBLAS sums a [256, 502] block
+in another order than [512, 1004]. So the one-step parameters are held by
+phase 27's Adam rule (within 2 x lr of one process's, at most 1% of entries
+past 1e-4), A2C's actions by the near-tie rule (the noise is the same
+counter for counter) and its reduced gradient within SPMD_GRAD_RTOL of each
+leaf's norm, which a planted fault must pass.
+
 The whole run takes about nine to ten minutes of command time on the H100
 (435-528 s in two calls before phase 25, 462.5 s with it, 529.4-565.6 s
 with phase 26), the build (about 80-110 s), phase 20 (about 30 s), phases 21-23
 (about 130-160 s), phase 24 (about 50-75 s), phase 25 (about 15 s) and
 phase 26 (about 90-100 s) included; with phase 27 (about 50 s), phase 22's
-four minibatches and phase 20's 40188 lines, 614.6-675.2 s (PERF.md).
+four minibatches and phase 20's 40188 lines, 614.6-675.2 s (PERF.md); phase
+28 adds about 76 s, within its 90 s budget, so the whole run stays near
+700-750 s of its 1200 s limit.
 """
 
 from __future__ import annotations
@@ -480,6 +521,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 import urllib.error
 import urllib.request
 
@@ -4929,14 +4971,14 @@ def spmd_rank(spec: dict) -> int:
     inner = collectives.all_reduce_
     cuda = torch.cuda.is_available()  # False only for a rehearsal of the worlds on the CPU
 
-    def counted(t):
+    def counted(t, *args, **kw):  # args: the group, the reduction
         if cuda and torch.cuda.is_current_stream_capturing():
             ar["captured"] += 1
-            return inner(t)
+            return inner(t, *args, **kw)
         if cuda:
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = inner(t)
+        out = inner(t, *args, **kw)
         if cuda:
             torch.cuda.synchronize()
         ar["seconds"] += time.perf_counter() - t0
@@ -5011,6 +5053,15 @@ def spmd_world(size: int, runs: list, cwds: list, res: str, keep_local=None) -> 
     name one card (``--device cuda:0``) share it on purpose (ICRL_SHARE_CARD,
     gloo). ``keep_local``: the run in which rank 0 plants its fault. Returns
     the ranks' records."""
+    return rank_world(size, "--spmd-rank", {"runs": runs, "res": res, "keep_local": keep_local},
+                      cwds, res)
+
+
+def rank_world(size: int, flag: str, spec: dict, cwds: list, res: str) -> list:
+    """``size`` ranks of ``python3 chip_smoke.py <flag> <spec as JSON>`` with
+    torchrun's variables, rank r in ``cwds[r]``, under one deadline (see
+    :func:`spmd_world`); each rank writes ``res/rank<r>.json``. Returns the
+    ranks' records."""
     import socket
 
     with socket.socket() as sock:  # a port the OS chose, on this machine
@@ -5024,8 +5075,7 @@ def spmd_world(size: int, runs: list, cwds: list, res: str, keep_local=None) -> 
                    WORLD_SIZE=str(size), RANK=str(rank), LOCAL_RANK=str(rank),
                    NCCL_SOCKET_IFNAME="lo", NCCL_IB_DISABLE="1", ICRL_SHARE_CARD="1")
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--spmd-rank",
-             json.dumps({"runs": runs, "res": res, "keep_local": keep_local})],
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"), flag, json.dumps(spec)],
             cwd=cwds[rank], env=env,
             stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
     deadline, failed = time.monotonic() + SPMD_DEADLINE_S, None
@@ -5346,6 +5396,412 @@ def spmd_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
     return launches
 
 
+TP_WORLDS = ((1, 2), (2, 2))  # (data, model) meshes of ranks sharing the card
+TP_LR = {"reward": 1e-4, "policy": 1e-3, "value": 1e-3, "a2c": 1e-4}  # the trainers' rates
+TP_CURRICULUM = 4  # the curriculum step's level: curr_seq_len = caplen - 4
+TP_PREFIX = 9  # the value step's prefix length
+TP_KERNELS = ("gru_chain_fwd", "gru_chain_bwd", "lstm_chain_fwd", "lstm_chain_bwd",
+              "greedy_decode", "threefry_gumbel")
+TP_NOT_LAUNCHED = ("rollout_fwd", "rollout_bwd", "reward_stream")
+TP_TIMED_REPS = 3
+
+
+def tp_inputs():
+    """Phase 28's inputs on the host, the same in every process: random
+    COCO-width a2c and reward networks from a seed, and one minibatch of 512
+    captions of a synthetic bundle with their features."""
+    from image_captioning_through_rl_tpu_torch.models import a2c, reward
+
+    cfg = net_cfg()
+    gen = torch.Generator().manual_seed(SEED + 28)
+    nets = {"a2c": a2c.init(gen, cfg), "reward": reward.init(gen, cfg)}
+    data = synthetic_coco(SEED + 28, n_captions=BATCH, n_images=BATCH // 2)
+    feats = torch.from_numpy(data.train_features[data.train_image_idxs])
+    return cfg, nets, feats, torch.from_numpy(data.train_captions).long()
+
+
+def tp_window_check(keys, dev, rows: tuple, cols: tuple) -> float:
+    """The noise kernel's window of rows ``rows`` and columns ``cols`` of
+    the [S, ROLLOUT_N, V] draw: its bits equal to the plain version's and to
+    the whole draw's columns, its Gumbel noise equal to the whole kernel
+    draw's columns bit for bit and within GUMBEL_ULPS of the plain version.
+    Returns the ulps."""
+    from image_captioning_through_rl_tpu_torch.ops import prng
+
+    shape, win = (ROLLOUT_N, V), (rows[1] - rows[0], cols[1] - cols[0])
+    kw = dict(row0=rows[0], col0=cols[0], width=V)
+    whole_bits = prng.threefry_bits_kernel(keys, shape, dev)[:, rows[0]:rows[1], cols[0]:cols[1]]
+    whole = prng.gumbel_noise(keys, shape, dev)[:, rows[0]:rows[1], cols[0]:cols[1]]
+    bits = prng.threefry_bits_kernel(keys, win, dev, **kw)
+    noise = prng.gumbel_noise(keys, win, dev, **kw)
+    plain_bits = torch.stack([prng.random_bits(k, win, dev, **kw) for k in keys])
+    plain = prng.gumbel_noise_plain(keys, win, dev, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(bits, whole_bits) and torch.equal(noise, whole)
+            and torch.equal(bits.to(torch.int64) & 0xFFFFFFFF, plain_bits)):
+        raise AssertionError(f"the noise kernel's window rows {rows} columns {cols}: differs "
+                             f"from the whole draw's or its bits from the plain version's")
+    ulp = torch.from_numpy(np.spacing(np.maximum(plain.abs().cpu().numpy(),
+                                                 np.float32(1.0)))).to(dev)
+    ulps = float(((noise - plain).abs() / ulp).max())
+    if not ulps <= GUMBEL_ULPS:
+        raise AssertionError(f"the noise kernel's window: Gumbel {ulps:.3g} ulps from plain")
+    return ulps
+
+
+def tp_steps(cfg, nets: dict, feats, caps, dev, mesh=None, fault: bool = False) -> dict:
+    """Phase 28's steps from ``nets``: one fused reward, policy and value
+    step (the chain kernels, bf16 weights; the value step's greedy targets
+    through kernel 1 on the gathered policy) and one plain A2C step, plain
+    and curriculum [TP_CURRICULUM] (the noise kernel). With ``mesh`` (a
+    (D, M) world) each runs on vocab-sharded trees (shard_params) and this
+    rank's rows, and its results are gathered over ``model``; without, on
+    whole trees and the whole minibatch in this process. Returns the
+    pretrainers' parameters, A2C's first moments (0.1 g after one Adam
+    step: the reduced gradient) and its first step's actions by run, and
+    with ``fault`` only the plain A2C step's moments, the head's backward
+    all-reduce left out (a planted fault)."""
+    from image_captioning_through_rl_tpu_torch.parallel import (
+        GlobalBatcher, a2c_param_spec, gather_params, reward_param_spec, shard_params)
+    from image_captioning_through_rl_tpu_torch.parallel import sharding
+    from image_captioning_through_rl_tpu_torch.parallel import tensor_parallel as tp
+    from image_captioning_through_rl_tpu_torch.parallel.collectives import gather_blocks
+    from image_captioning_through_rl_tpu_torch.train import optim, steps
+
+    spec = {"a2c": a2c_param_spec, "reward": reward_param_spec}
+
+    def placed(kind: str, part=None):  # a fresh copy of a network on dev
+        tree = _map_tree(nets[kind], lambda t: t.detach().to(dev, copy=True))
+        sp = spec[kind](tree)
+        if part is not None:
+            tree, sp = tree[part], sp[part]
+        return tree if mesh is None else shard_params(mesh, tree, sp)
+
+    n = caps.shape[0]
+    shard = None if mesh is None else GlobalBatcher(mesh).row_shard(n)
+    lo, hi = (0, n) if shard is None else (shard.lo, shard.hi)
+    f, c = feats[lo:hi].to(dev), caps[lo:hi].to(dev)
+    caplen = int(torch.max(steps.batch_caption_lens(caps)))
+    keys = {"plain": prng_key(SEED + 281), "curriculum": prng_key(SEED + 282)}
+    out = {"params": {}, "moments": {}, "actions": {}, "margins": {}}
+
+    def whole(tree):
+        return {k: v.detach().cpu() for k, v in leaves(gather_params(tree))}
+
+    def a2c_step(name: str, timed: bool = False):
+        params, rparams = placed("a2c"), placed("reward")
+        opt = optim.adam(TP_LR["a2c"], params)
+        step = steps.make_a2c_step(cfg, opt, per_step_mean=name == "curriculum")
+        curr = 1 if name == "plain" else caplen - TP_CURRICULUM
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, rparams, f, c, curr, keys[name], caplen=caplen, shard=shard)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if timed:
+            return ms
+        moments = {id(p): opt.state[p]["exp_avg"] for p in steps._tree_leaves(params)}
+        tree = _map_tree(params, lambda p: moments[id(p)])
+        if mesh is not None:
+            tree = sharding._gather_sharded(tree, params.specs, params.vocab)
+        return {k: v.detach().cpu() for k, v in leaves(tree)}
+
+    if fault:
+        copy_back = tp._CopyToModel.backward
+        tp._CopyToModel.backward = staticmethod(lambda ctx, grad: (grad, None))
+        try:
+            return {"moments": a2c_step("plain")}
+        finally:
+            tp._CopyToModel.backward = copy_back
+
+    makers = {
+        "reward": lambda opt: steps.make_reward_step(cfg, opt, fused=True),
+        "policy": lambda opt: steps.make_policy_step(cfg, opt, fused=True),
+        "value": lambda opt: steps.make_value_step(cfg, opt, placed("a2c", "policy"),
+                                                   placed("reward"), fused=True)}
+    for kind in ("reward", "policy", "value"):
+        params = placed("reward") if kind == "reward" else placed("a2c", kind)
+        step = makers[kind](optim.adam(TP_LR[kind], params))
+        extra = (TP_PREFIX,) if kind == "value" else ()
+        step(params, f, c, *extra, shard)
+        out["params"][kind] = whole(params)
+    picks, gaps, sample = [], [], tp.sample
+
+    def recorded(key, logits, vs, row0=0):
+        action = sample(key, logits, vs, row0)
+        picks.append(action)
+        if mesh is None:  # the gap between the two best noisy logits, for the near-tie rule
+            top = torch.topk(prng_gumbel(key, logits, row0) + logits, 2, dim=-1).values
+            gaps.append(top[:, 0] - top[:, 1])
+        return action
+
+    tp.sample = recorded
+    try:
+        for name in ("plain", "curriculum"):
+            picks.clear()
+            gaps.clear()
+            out["moments"][name] = a2c_step(name)
+            acts = torch.stack(picks, dim=1)
+            if mesh is not None:
+                acts = gather_blocks(acts, lo, n, shard.group)
+            else:
+                out["margins"][name] = torch.stack(gaps, dim=1).cpu()
+            out["actions"][name] = acts.cpu()
+    finally:
+        tp.sample = sample
+    return out
+
+
+def prng_key(seed: int):
+    from image_captioning_through_rl_tpu_torch.ops import prng
+
+    return prng.PRNGKey(seed)
+
+
+def prng_gumbel(key, logits, row0: int):
+    from image_captioning_through_rl_tpu_torch.ops import prng
+
+    return prng.gumbel(key, tuple(logits.shape), logits.device, row0)
+
+
+def _map_tree(tree: dict, fn) -> dict:
+    return {k: _map_tree(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def tp_step_ms(cfg, nets: dict, feats, caps, dev, mesh=None) -> dict:
+    """The wall ms of each of phase 28's steps, the median of TP_TIMED_REPS
+    calls after the first (device syncs around each): on this rank's rows of
+    vocab-sharded trees with ``mesh``, else on the whole minibatch."""
+    from image_captioning_through_rl_tpu_torch.parallel import (
+        GlobalBatcher, a2c_param_spec, reward_param_spec, shard_params)
+    from image_captioning_through_rl_tpu_torch.train import optim, steps
+
+    n = caps.shape[0]
+    shard = None if mesh is None else GlobalBatcher(mesh).row_shard(n)
+    lo, hi = (0, n) if shard is None else (shard.lo, shard.hi)
+    f, c = feats[lo:hi].to(dev), caps[lo:hi].to(dev)
+    caplen = int(torch.max(steps.batch_caption_lens(caps)))
+    nets = {k: _map_tree(v, lambda t: t.detach().to(dev, copy=True)) for k, v in nets.items()}
+    if mesh is not None:
+        nets = {"a2c": shard_params(mesh, nets["a2c"], a2c_param_spec(nets["a2c"])),
+                "reward": shard_params(mesh, nets["reward"], reward_param_spec(nets["reward"]))}
+    a2c, rw = nets["a2c"], nets["reward"]
+    calls = {
+        "reward": functools.partial(steps.make_reward_step(
+            cfg, optim.adam(TP_LR["reward"], rw), fused=True), rw, f, c, shard),
+        "policy": functools.partial(steps.make_policy_step(
+            cfg, optim.adam(TP_LR["policy"], a2c["policy"]), fused=True), a2c["policy"], f, c,
+            shard),
+        "value": functools.partial(steps.make_value_step(
+            cfg, optim.adam(TP_LR["value"], a2c["value"]), a2c["policy"], rw, fused=True),
+            a2c["value"], f, c, TP_PREFIX, shard),
+        "a2c": functools.partial(steps.make_a2c_step(cfg, optim.adam(TP_LR["a2c"], a2c)), a2c,
+                                 rw, f, c, 1, prng_key(SEED + 283), caplen=caplen, shard=shard)}
+    out = {}
+    for name, call in calls.items():
+        runs = []
+        for _ in range(TP_TIMED_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            runs.append((time.perf_counter() - t0) * 1e3)
+        out[name] = sorted(runs[1:])[TP_TIMED_REPS // 2]
+    return out
+
+
+def tp_rank(spec: dict) -> int:
+    """One rank of phase 28's worlds: ``python3 chip_smoke.py --tp-rank
+    <json>``, started with torchrun's variables and ICRL_SHARE_CARD=1 by
+    :func:`rank_world` (gloo carrying CUDA tensors on the one card). On the
+    ``(D, M)`` mesh ``spec["shape"]``: its window of the noise kernel, then
+    with the kernels' counters set to 0 :func:`tp_steps` on vocab-sharded
+    trees (the main path), the counters read; the fused rollout's refusal;
+    the planted fault; the steps' ms. Rank 0 saves the gathered results to
+    ``res/rank0.pt``; every rank writes ``res/rank<r>.json`` (its launches,
+    ms and a checksum of the gathered results) and its log."""
+    sys.path.insert(0, ROOT)
+    from image_captioning_through_rl_tpu_torch.ops import prng
+    from image_captioning_through_rl_tpu_torch.parallel import (make_mesh,
+                                                                maybe_init_distributed)
+    from image_captioning_through_rl_tpu_torch.train import optim, steps
+
+    rank = int(os.environ["RANK"])
+    device = spec.get("device", "cuda:0")  # the CPU only for a rehearsal of the worlds
+    with open(os.path.join(spec["res"], f"rank{rank}.log"), "a") as log, \
+            contextlib.redirect_stdout(log), contextlib.redirect_stderr(log):
+        maybe_init_distributed(device)
+        dev = torch.device(device)
+        mesh = make_mesh(tuple(spec["shape"]), ("data", "model"), device=device)
+        d, m = mesh.coords["data"], mesh.coords["model"]
+        rows, cols = ROLLOUT_N // mesh.shape["data"], V // mesh.shape["model"]
+        ulps = tp_window_check(prng.split(prng.PRNGKey(SEED + 28), S), dev,
+                               (d * rows, (d + 1) * rows), (m * cols, (m + 1) * cols))
+        cfg, nets, feats, caps = tp_inputs()
+        counters = kernel_counters()
+        zero_counters(counters)
+        got = tp_steps(cfg, nets, feats, caps, dev, mesh)
+        torch.cuda.synchronize()
+        launches = read_counters(counters)
+        from image_captioning_through_rl_tpu_torch.parallel import a2c_param_spec, shard_params
+
+        a2c = shard_params(mesh, to_device(nets["a2c"], dev), a2c_param_spec(nets["a2c"]))
+        try:
+            steps.make_a2c_step(cfg, optim.adam(TP_LR["a2c"], a2c), fused=True)(
+                a2c, to_device(nets["reward"], dev), feats.to(dev), caps.to(dev), 1,
+                prng_key(SEED + 281))
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        got["fault"] = tp_steps(cfg, nets, feats, caps, dev, mesh, fault=True)["moments"]
+        ms = tp_step_ms(cfg, nets, feats, caps, dev, mesh)
+        checksum = {f"{group}/{name}/{k}": float(v.double().sum())
+                    for group in ("params", "moments") for name, tree in got[group].items()
+                    for k, v in tree.items()}
+        if rank == 0:
+            torch.save({k: got[k] for k in ("params", "moments", "actions", "fault")},
+                       os.path.join(spec["res"], "rank0.pt"))
+        record = {"rank": rank, "coords": mesh.coords, "window_ulps": ulps,
+                  "launches": launches, "refused": refused, "ms": ms, "checksum": checksum,
+                  "backend": torch.distributed.get_backend()}
+    torch.distributed.destroy_process_group()
+    with open(os.path.join(spec["res"], f"rank{rank}.json"), "w") as f:
+        json.dump(record, f)
+    return 0
+
+
+def tp_kernels(dev) -> dict:
+    """Phase 28, first part: the noise kernel's column window in this
+    process, at every (rows, columns) block of both worlds, held as in
+    :func:`tp_window_check`, then timed (CUDA events) at [S, 512, V / 2]
+    from column V / 2 beside the whole [S, 512, V] draw, with both
+    kernels' device time (torch.profiler), the window wrapper's host us a
+    call and the plain window. Returns the times and the worst ulps."""
+    from image_captioning_through_rl_tpu_torch.ops import prng
+
+    keys = prng.split(prng.PRNGKey(SEED + 28), S)
+    ulps = 0.0
+    for d_size, m_size in TP_WORLDS:
+        rows, cols = ROLLOUT_N // d_size, V // m_size
+        for d in range(d_size):
+            for m in range(m_size):
+                ulps = max(ulps, tp_window_check(keys, dev, (d * rows, (d + 1) * rows),
+                                                 (m * cols, (m + 1) * cols)))
+    half = V // 2
+    window = functools.partial(prng.gumbel_noise, keys, (ROLLOUT_N, half), dev, col0=half,
+                               width=V)
+    whole = functools.partial(prng.gumbel_noise, keys, (ROLLOUT_N, V), dev)
+
+    def device_ms(call, iters: int = 10) -> float:
+        ms, counts = device_profile(call, iters, lambda c: c.get("threefry_kernel", 0) >= iters)
+        if per_call(counts, iters).get("threefry_kernel") != 1:
+            raise AssertionError(f"the noise kernel ran {counts}, not once a call")
+        return ms["threefry_kernel"] / iters
+
+    return {"ulps": ulps, "ms": cuda_ms(window, 20), "whole_ms": cuda_ms(whole, 20),
+            "device_ms": device_ms(window), "whole_device_ms": device_ms(whole),
+            "host_us": host_us(window),
+            "plain_ms": cuda_ms(lambda: prng.gumbel_noise_plain(keys, (ROLLOUT_N, half), dev,
+                                                                col0=half, width=V), 3)}
+
+
+def tensor_parallel_main_path(dev, card: str, tmp: str) -> dict:
+    """Phase 28: tensor parallelism over the vocabulary. The noise kernel's
+    window (:func:`tp_kernels`); :func:`tp_steps` in this process on whole
+    trees (the reference); then each world of TP_WORLDS, its ranks on the
+    one card over gloo (ICRL_SHARE_CARD=1), :func:`tp_rank` each: every
+    rank's window, its launches (TP_KERNELS at least once, TP_NOT_LAUNCHED
+    never: the vocab-sharded A2C step runs the plain rollout), the fused
+    rollout's refusal; rank 0's gathered results against the reference (the
+    pretrainers' parameters by phase 27's Adam rule for one step; A2C's
+    actions by the near-tie rule; its first moments, the reduced gradient,
+    within SPMD_GRAD_RTOL of each leaf's norm, and the planted fault past
+    it); every rank's checksum equal to rank 0's; the ms a step of a rank
+    against this process's. Returns the launches by kernel (every rank of
+    both worlds) and the times."""
+    t0 = time.perf_counter()
+    kt = tp_kernels(dev)
+    phase("tensor_parallel", f"noise kernel's column window, every (rows, columns) block of "
+                             f"the worlds {TP_WORLDS} of [{S}, {ROLLOUT_N}, {V}]: bits equal to "
+                             f"the plain version's and to the whole draw's columns, Gumbel "
+                             f"noise equal to the whole kernel draw's columns, within "
+                             f"{kt['ulps']:.3g} ulps of plain (bound {GUMBEL_ULPS})")
+    cfg, nets, feats, caps = tp_inputs()
+    ref = tp_steps(cfg, nets, feats, caps, dev)
+    ref_ms = tp_step_ms(cfg, nets, feats, caps, dev)
+    launches, report, worlds_ms = {}, [], {}
+    for shape in TP_WORLDS:
+        size = shape[0] * shape[1]
+        res = os.path.join(tmp, f"tp_{shape[0]}x{shape[1]}")
+        t1 = time.perf_counter()
+        records = rank_world(size, "--tp-rank", {"shape": list(shape), "res": res},
+                             [os.path.join(res, f"rank{r}") for r in range(size)], res)
+        world_s = time.perf_counter() - t1
+        got = torch.load(os.path.join(res, "rank0.pt"))
+        for r in records:
+            low = {k: r["launches"][k] for k in TP_KERNELS if r["launches"][k] < 1}
+            ran = {k: r["launches"][k] for k in TP_NOT_LAUNCHED if r["launches"][k]}
+            if low or ran or r["backend"] != "gloo":
+                raise AssertionError(f"world {shape} rank {r['rank']}: no launch of {low}, "
+                                     f"launches of {ran} ({r['backend']})")
+            if "no cross-rank combine" not in r["refused"]:
+                raise AssertionError(f"world {shape} rank {r['rank']}: the fused rollout on a "
+                                     f"vocab-sharded tree did not refuse: {r['refused']!r}")
+            if r["checksum"] != records[0]["checksum"]:
+                raise AssertionError(f"world {shape}: rank {r['rank']}'s gathered results "
+                                     f"differ from rank 0's")
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        faults = []
+        for kind in ("reward", "policy", "value"):
+            a, b = ref["params"][kind], got["params"][kind]
+            diff = torch.cat([(a[k] - b[k]).abs().reshape(-1) for k in a])
+            worst, share = float(diff.max()), float((diff > SPMD_PARAM_ATOL).float().mean())
+            bound = 2 * TP_LR[kind] * (1 + 1e-3)
+            report.append(f"{shape} {kind} parameters max {worst:.3g} (bound {bound:.3g}), "
+                          f"{share:.3%} past {SPMD_PARAM_ATOL}")
+            if worst > bound or share > SPMD_PARAM_SHARE:
+                faults.append(report[-1])
+        for name in ("plain", "curriculum"):
+            k_tok, p_tok = got["actions"][name], ref["actions"][name]
+            margins = ref["margins"][name]
+            n_bad, gap, _ = check_rows(
+                f"world {shape} A2C {name} actions", k_tok, p_tok,
+                lambda bad: margins[bad].gather(1, (k_tok[bad] != p_tok[bad]).int().argmax(
+                    dim=1)[:, None])[:, 0])
+            apart, leaf = gradients_apart(got["moments"][name], ref["moments"][name])
+            report.append(f"{shape} A2C {name}: {n_bad} row(s) of actions apart (gap {gap:.3g}), "
+                          f"gradient {apart:.3g} of a leaf's norm ({leaf})")
+            if apart > SPMD_GRAD_RTOL:
+                faults.append(report[-1])
+        fault, fault_leaf = gradients_apart(got["fault"], ref["moments"]["plain"])
+        report.append(f"{shape} planted fault (the head's backward all-reduce left out): "
+                      f"{fault:.3g} ({fault_leaf})")
+        if not fault > SPMD_GRAD_RTOL:
+            faults.append(report[-1] + f" does not pass {SPMD_GRAD_RTOL}")
+        if faults:
+            raise AssertionError(f"world {shape}: " + "; ".join(faults))
+        worlds_ms[shape] = ({r["rank"]: r["ms"] for r in records}, world_s)
+    phase("tensor_parallel", "vocab-sharded steps against one process's on the same inputs "
+                             "(fused reward, policy and value; plain A2C, plain and curriculum "
+                             f"[{TP_CURRICULUM}]): " + "; ".join(report) + " | launches, all "
+                             f"ranks: {launches}")
+    seconds = time.perf_counter() - t0
+    phase("timing", f"{card} | phase 28: {seconds:.1f} s | the noise kernel's window [{S}, "
+                    f"{ROLLOUT_N}, {V // 2}] at col0 = {V // 2}: {kt['ms']:.4f} ms beside the "
+                    f"whole [{S}, {ROLLOUT_N}, {V}] draw's {kt['whole_ms']:.4f} ms (device "
+                    f"{kt['device_ms']:.4f} and {kt['whole_device_ms']:.4f} ms a call, "
+                    f"torch.profiler; the wrapper's host {kt['host_us']:.1f} us a call; plain "
+                    f"window {kt['plain_ms']:.3f} ms) | ms a step, one process: "
+                    + ", ".join(f"{k} {v:.3f}" for k, v in ref_ms.items()) + " | " + " | ".join(
+                        f"world {shape} ({world_s:.1f} s): " + "; ".join(
+                            f"rank {r} " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+                            for r, ms in by_rank.items())
+                        for shape, (by_rank, world_s) in worlds_ms.items())
+          + " | ranks sharing one card over gloo show correctness, not scaling")
+    return {"launches": launches, "kernel": kt, "seconds": seconds}
+
+
 def host_us(fn, iters: int = 200) -> float:
     """Phase 6: the host's microseconds a call of ``fn`` (back-to-back calls
     that queue faster than the card runs them: the host side alone)."""
@@ -5445,6 +5901,10 @@ def bounds() -> dict:
     # rotate and xor, five key injections) and 8 more (each logf counted as
     # one), at the non-tensor float32 rate
     out["threefry_gumbel"] = work(el * fw, el * 126, H100_F32)
+    # the column window (phase 28): half the columns, and per element the
+    # row and column of its counter (a division, a remainder, a multiply-add)
+    el = S * ROLLOUT_N * (V // 2)
+    out["threefry_gumbel_window"] = work(el * fw, el * (126 + 3), H100_F32)
     reward_w = (H * g3 + H * H) * bw + (V * g3 + g3 + H) * fw
     reward_step = 2 * n * H * g3 + 2 * n * H * H + 4 * n * H
     out["reward_stream"] = work(reward_w + 2 * n * H * fw + 3 * S * n * 4, S * reward_step)
@@ -5811,6 +6271,12 @@ def main() -> int:
                     f"{spmd_times['sample_ms']:.4f} ms | the run so far "
                     f"{time.perf_counter() - T0:.1f} s")
 
+    # phase 28: tensor parallelism over the vocabulary: the noise kernel's
+    # column window, then worlds of (1, 2) and (2, 2) ranks on the one card
+    # taking each step on vocab-sharded trees
+    with tempfile.TemporaryDirectory() as tmp:
+        tp_out = tensor_parallel_main_path(dev, card, tmp)
+
     bounds_ = bounds()
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, shape, library_ms=None,
@@ -5891,6 +6357,15 @@ def main() -> int:
         if spmd_launches.get(k["name"]):
             k.setdefault("launches_by_path", {})["spmd"] = spmd_launches[k["name"]]
             k["launches"] += spmd_launches[k["name"]]
+    kt = tp_out["kernel"]  # the noise kernel's column window, a vocab block's draw
+    kernels.append(entry("threefry_gumbel_window", "threefry.cu", "pallas_sample.py:90",
+                         {"tensor_parallel": tp_out["launches"]["threefry_gumbel"]}, kt["ulps"],
+                         kt["ms"], kt["plain_ms"], f"[{S}, {ROLLOUT_N}, {V // 2}] at col0 = "
+                         f"{V // 2} of {V} f32"))
+    for k in kernels:  # phase 28's: every rank of both worlds (the window's entry holds its own)
+        if k["name"] != "threefry_gumbel" and tp_out["launches"].get(k["name"]):
+            k.setdefault("launches_by_path", {})["tensor_parallel"] = tp_out["launches"][k["name"]]
+            k["launches"] += tp_out["launches"][k["name"]]
     for k in kernels:  # phase 26's: the word-vector CLI runs at E = 300 (SGNS draws included)
         if emb["launches"].get(k["name"]):
             k.setdefault("launches_by_path", {})["embeddings"] = emb["launches"][k["name"]]
@@ -5905,6 +6380,13 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--spmd-rank":  # one rank of phase 27's worlds
-        sys.exit(spmd_rank(json.loads(sys.argv[2])))
+    ranks = {"--spmd-rank": spmd_rank, "--tp-rank": tp_rank}  # phases 27 and 28's worlds
+    if len(sys.argv) == 3 and sys.argv[1] in ranks:
+        spec = json.loads(sys.argv[2])
+        try:
+            sys.exit(ranks[sys.argv[1]](spec))
+        except Exception:  # the rank's own log keeps its traceback (its stderr is discarded)
+            with open(os.path.join(spec["res"], f"rank{os.environ['RANK']}.log"), "a") as f:
+                traceback.print_exc(file=f)
+            raise
     sys.exit(main())

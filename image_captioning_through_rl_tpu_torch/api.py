@@ -53,6 +53,7 @@ from .ops import prng
 from .ops.fused_beam import fused_beam_search, prepare_beam_weights
 from .ops.fused_decode import fused_greedy_decode, prepare_greedy_weights
 from .ops.fused_sample import check_counter_space, fused_sample_decode
+from .parallel.sharding import gather_params
 
 
 def resolve_device(device) -> torch.device:
@@ -89,6 +90,7 @@ class Captioner:
                  weight_dtype: torch.dtype | None = None, mesh=None):
         self._mesh = mesh
         self.device = resolve_device(device if mesh is None else mesh.first_device)
+        params = gather_params(params)  # a vocab-sharded tree, once
         policy, value = (params["policy"], params.get("value")) if "policy" in params \
             else (params, None)
 

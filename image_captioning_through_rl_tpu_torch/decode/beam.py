@@ -35,6 +35,7 @@ from ..config import DecodeConfig, NetConfig
 from ..models import policy as policy_mod
 from ..models import value as value_mod
 from ..ops.fused_beam import stable_topk
+from ..parallel.sharding import gather_params
 
 
 def _tree_map(fn, tree):
@@ -91,7 +92,9 @@ def beam_search(policy_params: dict, value_params: dict, cfg: NetConfig,
 
     ``features [N, F]``, ``start_tokens [N]`` -> ``(tokens [N, B, T] int32,
     scores [N, B])``, beam 0 the best-ranked candidate. Top-``B`` choices
-    break ties by the lowest index, as ``lax.top_k`` does."""
+    break ties by the lowest index, as ``lax.top_k`` does. Vocab-sharded
+    trees are gathered first (a collective over their model group)."""
+    policy_params, value_params = gather_params(policy_params), gather_params(value_params)
     per_sample = dcfg.per_sample_beams
     n = features.shape[0]
     b = dcfg.beam_size

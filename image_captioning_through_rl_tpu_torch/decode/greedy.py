@@ -13,6 +13,7 @@ import torch
 
 from ..config import NetConfig
 from ..models import policy as policy_mod
+from ..parallel.sharding import gather_params
 
 
 def greedy_decode(params: dict, cfg: NetConfig, features: torch.Tensor,
@@ -21,7 +22,9 @@ def greedy_decode(params: dict, cfg: NetConfig, features: torch.Tensor,
 
     ``features [N, F]``, ``start_tokens [N]`` -> ``[N, max_len]`` int32
     token ids starting with ``start_tokens``. Ties go to the lowest index
-    (``torch.argmax`` returns the first maximal value)."""
+    (``torch.argmax`` returns the first maximal value). A vocab-sharded
+    tree is gathered first (a collective over its model group)."""
+    params = gather_params(params)
     max_len = max_len or cfg.max_seq_len
     state = policy_mod.init_decode_state(params, cfg, features)
     tok = start_tokens.long()

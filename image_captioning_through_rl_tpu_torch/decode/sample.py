@@ -24,6 +24,7 @@ from ..config import NetConfig
 from ..models import policy as policy_mod
 from ..ops import prng
 from ..ops.sampling import sample_categorical
+from ..parallel.sharding import gather_params
 
 
 def filter_logits(logits: torch.Tensor, top_k: int = 0, top_p=None) -> torch.Tensor:
@@ -59,7 +60,9 @@ def sample_decode(params: dict, cfg: NetConfig, features: torch.Tensor,
     ids starting with ``start_tokens``, the full static length (the text
     decoder trims at <END>). Each step takes ``key, sub = split(key)`` and
     draws from the filtered softmax under ``sub`` (rows ``[row0, row0 + N)``
-    of a global batch's draw with ``row0``)."""
+    of a global batch's draw with ``row0``). A vocab-sharded tree is
+    gathered first (a collective over its model group)."""
+    params = gather_params(params)
     max_len = max_len or cfg.max_seq_len
     state = policy_mod.init_decode_state(params, cfg, features)
     tok = start_tokens.long()

@@ -8,6 +8,9 @@ splits it into per-direction initial states (``lstm_fwd``, ``lstm_bwd``),
 and its head reads ``[fwd_h_t, bwd_h_t]``.
 
   * :func:`forward` — full-sequence teacher forcing.
+  * on a vocab-sharded tree (:class:`..parallel.sharding.Sharded`) the
+    lookups and the head are vocab-parallel
+    (:mod:`..parallel.tensor_parallel`): the logits are the rank's columns;
   * :func:`init_decode_state` + :func:`step` — incremental stepping that
     carries ``(h, c)``, so decode is O(T). It is exact for a bidirectional
     policy too: decoding reads the last position's logits only, and the
@@ -26,6 +29,7 @@ import torch
 from ..config import NetConfig
 from ..ops.linalg import dense
 from ..ops.rnn import LSTMState, bilstm_scan, lstm_cell, lstm_scan
+from ..parallel.tensor_parallel import head, lookup
 from .initializers import embedding_init, linear_init, lstm_init
 
 # the carried decode state: ``(h, c)`` unidirectional, ``(fwd (h, c),
@@ -71,13 +75,13 @@ def init_decode_state(params: dict, cfg: NetConfig, features: torch.Tensor) -> D
 def forward(params: dict, cfg: NetConfig, features: torch.Tensor,
             captions: torch.Tensor) -> torch.Tensor:
     """Teacher-forced forward. ``features [N, F]``, ``captions [N, T]`` -> ``[N, T, V]``."""
-    xs = params["embedding"][captions].transpose(0, 1)  # [T, N, E]
+    xs = lookup(params, captions).transpose(0, 1)  # [T, N, E]
     if cfg.bidirectional:
         init_f, init_b = init_decode_state(params, cfg, features)
         hs, _ = bilstm_scan(params["lstm_fwd"], params["lstm_bwd"], xs, init_f, init_b)
     else:
         hs, _ = lstm_scan(params["lstm"], xs, init_decode_state(params, cfg, features))
-    return dense(hs, params["head"]).transpose(0, 1)
+    return head(params, hs).transpose(0, 1)
 
 
 def step(params: dict, cfg: NetConfig, tokens: torch.Tensor, state: DecodeState
@@ -85,11 +89,11 @@ def step(params: dict, cfg: NetConfig, tokens: torch.Tensor, state: DecodeState
     """Consume one token per sample: ``tokens [N]`` -> ``(logits [N, V], state)``.
     Bidirectional: the forward state advances, and one backward cell from
     the carried backward initial state gives the backward half."""
-    x = params["embedding"][tokens]
+    x = lookup(params, tokens)
     if cfg.bidirectional:
         fwd, bwd_init = state
         new_fwd = lstm_cell(params["lstm_fwd"], x, fwd)
         h_bwd, _ = lstm_cell(params["lstm_bwd"], x, bwd_init)
-        return dense(torch.cat([new_fwd[0], h_bwd], dim=-1), params["head"]), (new_fwd, bwd_init)
+        return head(params, torch.cat([new_fwd[0], h_bwd], dim=-1)), (new_fwd, bwd_init)
     new_state = lstm_cell(params["lstm"], x, state)
-    return dense(new_state[0], params["head"]), new_state
+    return head(params, new_state[0]), new_state

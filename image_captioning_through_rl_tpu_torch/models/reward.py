@@ -9,6 +9,8 @@ the cosine reward and the VSE loss are separate ops
 encoder (``gru_fwd``, ``gru_bwd``) hands ``semantic_embed`` (2H -> H) its
 ``2H`` encoding; it has no incremental step. :func:`forward_compat` is the
 reference's batch-as-time encoding (quirk Q1), with its carried state.
+On a vocab-sharded tree the lookups are vocab-parallel
+(:func:`..parallel.tensor_parallel.lookup`).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from ..config import NetConfig
 from ..ops.linalg import dense
 from ..ops.reward_ops import cosine_embedding_reward
 from ..ops.rnn import column_stream_scan_bidi, flat_stream_scan, gru_cell, gru_scan
+from ..parallel.tensor_parallel import lookup
 from .initializers import gru_init, linear_init
 from .policy import embedding_table
 
@@ -43,7 +46,7 @@ def init(gen: torch.Generator, cfg: NetConfig, pretrained_embeddings=None) -> di
 
 def encode(params: dict, cfg: NetConfig, captions: torch.Tensor) -> torch.Tensor:
     """Per-sample caption encoding (batched mode). ``[N, T] -> [N, H * nd]``."""
-    xs = params["embedding"][captions].transpose(0, 1)  # [T, N, E]
+    xs = lookup(params, captions).transpose(0, 1)  # [T, N, E]
     z = zero_rnn_state(cfg, captions.shape[0], xs.device)
     if cfg.bidirectional:
         hs_f, _ = gru_scan(params["gru_fwd"], xs, z)
@@ -82,7 +85,7 @@ def rnn_step(params: dict, cfg: NetConfig, tokens: torch.Tensor, h: torch.Tensor
     """Advance the (unidirectional) encoder by one token id per sample."""
     if cfg.bidirectional:
         raise ValueError("incremental reward encoding requires unidirectional mode")
-    return gru_cell(params["gru"], params["embedding"][tokens], h)
+    return gru_cell(params["gru"], lookup(params, tokens), h)
 
 
 def compat_zero_state(cfg: NetConfig, device=None):
@@ -100,10 +103,10 @@ def forward_compat(params: dict, cfg: NetConfig, features: torch.Tensor,
     (trainers.py:307, 495)."""
     n, t = captions.shape
     if cfg.bidirectional:
-        xs = params["embedding"][captions].transpose(0, 1)  # [T, N, E]
+        xs = lookup(params, captions).transpose(0, 1)  # [T, N, E]
         rnn_out, new_carry = column_stream_scan_bidi(
             "gru", params["gru_fwd"], params["gru_bwd"], xs, carry)
         return embed_pair(params, cfg, features, rnn_out), new_carry
     stream = captions.t().reshape(-1)
-    outs, new_carry = flat_stream_scan("gru", params["gru"], params["embedding"][stream], carry)
+    outs, new_carry = flat_stream_scan("gru", params["gru"], lookup(params, stream), carry)
     return embed_pair(params, cfg, features, outs[(t - 1) * n:]), new_carry

@@ -10,10 +10,12 @@ the LSTM's time axis at batch 1 with a persistent hidden state, so sample
 ``i`` depends on samples ``< i`` and on earlier calls.
 
 Incremental state: ``(h, c)`` unidirectional; bidirectional ``(fwd (h, c),
-h_bwd_last)``. :func:`encode` reads ``hs[-1]``, whose backward half is the
-reverse scan's state at the last position: one backward cell applied to
-the last token from the zero state, independent of the rest of the prefix.
-So stepping is exact for a bidirectional critic too.
+h_bwd_last)``. On a vocab-sharded tree the lookups are vocab-parallel
+(:func:`..parallel.tensor_parallel.lookup`). :func:`encode` reads
+``hs[-1]``, whose backward half is the reverse scan's state at the last
+position: one backward cell applied to the last token from the zero state,
+independent of the rest of the prefix. So stepping is exact for a
+bidirectional critic too.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 from ..config import NetConfig
 from ..ops.linalg import dense
 from ..ops.rnn import bilstm_scan, column_stream_scan_bidi, flat_stream_scan, lstm_cell, lstm_scan
+from ..parallel.tensor_parallel import lookup
 from .initializers import linear_init, lstm_init
 from .policy import embedding_table
 
@@ -46,7 +49,7 @@ def init(gen: torch.Generator, cfg: NetConfig, pretrained_embeddings=None) -> di
 
 def encode(params: dict, cfg: NetConfig, captions: torch.Tensor) -> torch.Tensor:
     """Per-sample caption encoding. ``[N, T] -> [N, H]``."""
-    xs = params["embedding"][captions].transpose(0, 1)  # [T, N, E]
+    xs = lookup(params, captions).transpose(0, 1)  # [T, N, E]
     z = torch.zeros((captions.shape[0], cfg.hidden_dim), dtype=torch.float32,
                     device=xs.device)
     if cfg.bidirectional:
@@ -89,7 +92,7 @@ def rnn_step_emb(params: dict, cfg: NetConfig, x: torch.Tensor, state):
 
 def rnn_step(params: dict, cfg: NetConfig, tokens: torch.Tensor, state):
     """Advance the encoder by one token id per sample."""
-    return rnn_step_emb(params, cfg, params["embedding"][tokens], state)
+    return rnn_step_emb(params, cfg, lookup(params, tokens), state)
 
 
 def value_from_state(params: dict, cfg: NetConfig, features: torch.Tensor,
@@ -122,11 +125,11 @@ def forward_compat(params: dict, cfg: NetConfig, features: torch.Tensor,
     ``init_hidden()`` (trainers.py:196-197, 495-496, 611-612)."""
     n, t = captions.shape
     if cfg.bidirectional:
-        xs = params["embedding"][captions].transpose(0, 1)  # [T, N, E]
+        xs = lookup(params, captions).transpose(0, 1)  # [T, N, E]
         rnn_out, new_carry = column_stream_scan_bidi(
             "lstm", params["lstm_fwd"], params["lstm_bwd"], xs, carry)
         rnn_out = dense(rnn_out, params["rnn_linear"])
         return value_head(params, cfg, features, rnn_out), new_carry
     stream = captions.t().reshape(-1)  # column-major [T N]
-    outs, new_carry = flat_stream_scan("lstm", params["lstm"], params["embedding"][stream], carry)
+    outs, new_carry = flat_stream_scan("lstm", params["lstm"], lookup(params, stream), carry)
     return value_head(params, cfg, features, outs[(t - 1) * n:]), new_carry

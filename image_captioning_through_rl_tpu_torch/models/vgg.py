@@ -156,7 +156,7 @@ def features_fc7(model: VGG16, images, preprocessed: bool = False,
 
 
 def _mesh_replicas(model: VGG16, projection, mesh) -> list:
-    """``(device, model, projection)`` for each entry of ``mesh``: the
+    """``(device, model, projection)`` for each ``data`` entry of ``mesh``: the
     given model and projection on their own device, a copy on each other
     device (once, however often the device repeats). A mesh that spans
     processes raises ``ValueError``: each process extracts its own file
@@ -167,12 +167,13 @@ def _mesh_replicas(model: VGG16, projection, mesh) -> list:
                          "of sharding a global batch")
     home = next(model.parameters()).device
     copies = {}
-    for d in mesh.local_devices:
+    entries = mesh.entries("data")  # a 2-D mesh replicates over its model axis
+    for d in entries:
         if d not in copies:
             same = d == home
             copies[d] = (model if same else copy.deepcopy(model).to(d),
                          None if projection is None else projection.to(d))
-    return [(d, *copies[d]) for d in mesh.local_devices]
+    return [(d, *copies[d]) for d in entries]
 
 
 def iter_features(model: VGG16, images, batch_size: int = 64, projection=None, loader=None,

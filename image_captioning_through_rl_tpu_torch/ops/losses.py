@@ -50,10 +50,19 @@ def weighted_caption_xe_loss(logits: torch.Tensor, targets: torch.Tensor,
     ``logits [N, T, V]`` for inputs ``captions[:, :-1]``, ``targets [N, T]``
     (``captions[:, 1:]``), ``caption_lens [N]`` (END index + 1 in the
     unshifted caption)."""
-    n, t, _ = logits.shape
     logp = torch.log_softmax(logits, dim=-1)
-    tok_ce = -torch.gather(logp, -1, targets[..., None].long())[..., 0]  # [N, T]
-    pos = torch.arange(t, device=logits.device)[None, :]
+    return weighted_caption_xe_of(torch.gather(logp, -1, targets[..., None].long())[..., 0],
+                                  caption_lens)
+
+
+def weighted_caption_xe_of(target_logp: torch.Tensor, caption_lens: torch.Tensor
+                           ) -> torch.Tensor:
+    """:func:`weighted_caption_xe_loss` from the targets' log-probabilities
+    ``[N, T]`` (a vocab-parallel log-softmax's,
+    :func:`..parallel.tensor_parallel.log_prob`)."""
+    n, t = target_logp.shape
+    tok_ce = -target_logp  # [N, T]
+    pos = torch.arange(t, device=target_logp.device)[None, :]
     mask = (pos < caption_lens[:, None]).to(tok_ce.dtype)
     return torch.sum(tok_ce * mask) / n
 

@@ -41,12 +41,21 @@ prod(shape[1:])``, and the global draw must fit the 32-bit counters. This is
 how a rank or a mesh entry that holds rows ``[lo, hi)`` of a batch draws
 exactly the noise of those rows in the whole batch's draw, as each device of
 a JAX mesh computes its slice of the partitionable draw.
+
+``col0`` and ``width``: a column window. With them a draw of ``shape`` is
+columns ``[col0, col0 + shape[-1])`` of a draw whose last axis is ``width``
+wide (the global vocabulary; by default the shape's own): element ``(..., r,
+c)`` takes the counter of element ``(..., r, col0 + c)`` of the global draw,
+``row * width + col0 + c`` with ``row`` the flat global index over the
+leading axes. A rank that holds columns ``[lo, hi)`` of a vocab-sharded
+head draws exactly its columns of the noise (:mod:`..parallel.tensor_parallel`).
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -118,30 +127,52 @@ def fold_in(key, data: int) -> np.ndarray:
     return np.array(_threefry2x32(k0, k1, 0, int(data) & _MASK), dtype=np.uint32)
 
 
-def _draw_size(shape, row0: int = 0) -> int:
-    """The elements of a draw of ``shape``, after checking that the global
-    draw it is rows ``[row0, row0 + shape[0])`` of fits 32-bit counters."""
-    size = math.prod(shape)
-    if row0 < 0:
-        raise ValueError(f"row0 must be >= 0, got {row0}")
-    total = size + row0 * math.prod(shape[1:])
+class _Window(NamedTuple):
+    """Where a draw of some shape sits in its global draw: ``rows`` flat
+    rows (every axis but the last) of ``cols`` columns, row ``r``'s column
+    ``c`` at counter ``counter0 + r * width + c``."""
+    rows: int
+    cols: int
+    width: int
+    counter0: int
+
+    @property
+    def size(self) -> int:
+        return self.rows * self.cols
+
+
+def _window(shape, row0: int = 0, col0: int = 0, width=None) -> _Window:
+    """The counters of a draw of ``shape`` that is rows ``[row0, row0 +
+    shape[0])`` and columns ``[col0, col0 + shape[-1])`` of a global draw
+    whose last axis is ``width`` wide, after checking that the global draw
+    fits 32-bit counters (a 1-D shape is one column a row)."""
+    shape = tuple(shape) if len(shape) != 1 else (shape[0], 1)
+    cols = shape[-1]
+    width = cols if width is None else int(width)
+    if row0 < 0 or col0 < 0:
+        raise ValueError(f"row0 and col0 must be >= 0, got {row0} and {col0}")
+    if col0 + cols > width:
+        raise ValueError(f"columns [{col0}, {col0 + cols}) do not fit a width of {width}")
+    inner = math.prod(shape[1:-1])
+    rows = math.prod(shape[:-1])
+    total = (row0 * inner + rows) * width
     if total >= 2**32:
         raise ValueError(f"a draw of {total} elements needs 64-bit counters (at most 2**32 - 1)")
-    return size
+    return _Window(rows, cols, width, row0 * inner * width + col0)
 
 
-def _offset(shape, row0: int) -> int:
-    return int(row0) * math.prod(shape[1:])
-
-
-def random_bits(key, shape, device="cpu", row0: int = 0) -> torch.Tensor:
+def random_bits(key, shape, device="cpu", row0: int = 0, col0: int = 0,
+                width=None) -> torch.Tensor:
     """``jax.random.bits(key, shape)`` (uint32) in the plain version: an
     int64 tensor of ``shape`` holding the uint32 values; rows ``[row0, row0
-    + shape[0])`` of the global draw with ``row0``."""
+    + shape[0])`` and columns ``[col0, col0 + shape[-1])`` of a global draw
+    ``width`` wide with ``row0``, ``col0`` and ``width``."""
     k0, k1 = key_words(key)
     shape = tuple(shape)
-    size = _draw_size(shape, row0)
-    lo = torch.arange(size, dtype=torch.int64, device=device) + _offset(shape, row0)
+    w = _window(shape, row0, col0, width)
+    r = torch.arange(w.rows, dtype=torch.int64, device=device)[:, None]
+    c = torch.arange(w.cols, dtype=torch.int64, device=device)[None, :]
+    lo = (w.counter0 + r * w.width + c).reshape(-1)
     y0, y1 = _threefry2x32(k0, k1, torch.zeros_like(lo), lo)
     return (y0 ^ y1).reshape(shape)
 
@@ -155,14 +186,16 @@ def gumbel_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return -torch.log(-torch.log(u))
 
 
-def gumbel_noise_plain(keys, shape, device="cpu", row0: int = 0) -> torch.Tensor:
+def gumbel_noise_plain(keys, shape, device="cpu", row0: int = 0, col0: int = 0,
+                       width=None) -> torch.Tensor:
     """:func:`gumbel_noise` in the plain version, on any device."""
-    return torch.stack([gumbel_from_bits(random_bits(k, shape, device, row0)) for k in keys])
+    return torch.stack([gumbel_from_bits(random_bits(k, shape, device, row0, col0, width))
+                        for k in keys])
 
 
 def _launch_threefry(keys: np.ndarray, shape, device: torch.device, gumbel_out: bool,
-                     row0: int = 0) -> torch.Tensor:
-    plane = _draw_size(shape, row0)
+                     row0: int = 0, col0: int = 0, width=None) -> torch.Tensor:
+    w = _window(shape, row0, col0, width)
     keys = np.ascontiguousarray(keys, dtype=np.uint32)
     out = torch.empty((len(keys), *shape), device=device,
                       dtype=torch.float32 if gumbel_out else torch.int32)
@@ -170,19 +203,22 @@ def _launch_threefry(keys: np.ndarray, shape, device: torch.device, gumbel_out: 
         return out
     lib = load_library()
     with torch.cuda.device(device):
-        err = lib.icrl_threefry(len(keys), keys.ctypes.data_as(ctypes.c_void_p), plane,
-                                _offset(shape, row0), int(gumbel_out), out.data_ptr(),
+        err = lib.icrl_threefry(len(keys), keys.ctypes.data_as(ctypes.c_void_p), w.size,
+                                w.counter0, w.cols, w.width, int(gumbel_out), out.data_ptr(),
                                 torch.cuda.current_stream(device).cuda_stream)
     check_error(lib, "icrl_threefry", err)
     gumbel_noise.launches += 1
     return out
 
 
-def gumbel_noise(keys, shape, device="cuda", row0: int = 0) -> torch.Tensor:
+def gumbel_noise(keys, shape, device="cuda", row0: int = 0, col0: int = 0,
+                 width=None) -> torch.Tensor:
     """One Gumbel draw of ``shape`` per key: ``keys uint32 [S, 2]`` ->
     float32 ``[S, *shape]`` on ``device``; row ``s`` is
     ``jax.random.gumbel(keys[s], shape)`` (with ``row0``, its rows ``[row0,
-    row0 + shape[0])`` of the global draw). On a CUDA device the kernel
+    row0 + shape[0])`` of the global draw; with ``col0`` and ``width``, its
+    columns ``[col0, col0 + shape[-1])`` of a draw ``width`` wide). On a
+    CUDA device the kernel
     (``csrc/threefry.cu``) makes all of them in one launch
     (``gumbel_noise.launches`` counts them); on ``device="cpu"`` the plain
     version runs. A missing CUDA device raises."""
@@ -194,14 +230,15 @@ def gumbel_noise(keys, shape, device="cuda", row0: int = 0) -> torch.Tensor:
     device = resolve_device(device)
     shape = tuple(shape)
     if device.type == "cuda":
-        return _launch_threefry(keys, shape, device, True, row0)
-    return gumbel_noise_plain(keys, shape, device, row0)
+        return _launch_threefry(keys, shape, device, True, row0, col0, width)
+    return gumbel_noise_plain(keys, shape, device, row0, col0, width)
 
 
 gumbel_noise.launches = 0
 
 
-def threefry_bits_kernel(keys, shape, device, row0: int = 0) -> torch.Tensor:
+def threefry_bits_kernel(keys, shape, device, row0: int = 0, col0: int = 0,
+                         width=None) -> torch.Tensor:
     """The kernel's raw bits, ``[S, *shape]`` int32 holding the uint32
     bit patterns, for comparing the kernel with :func:`random_bits` on a
     CUDA device (the training path reads only :func:`gumbel_noise`)."""
@@ -209,17 +246,18 @@ def threefry_bits_kernel(keys, shape, device, row0: int = 0) -> torch.Tensor:
     device = torch.device(device)
     if device.type != "cuda":
         raise RuntimeError("threefry_bits_kernel runs only on a CUDA device")
-    return _launch_threefry(keys, tuple(shape), device, False, row0)
+    return _launch_threefry(keys, tuple(shape), device, False, row0, col0, width)
 
 
-def gumbel(key, shape, device="cuda", row0: int = 0) -> torch.Tensor:
+def gumbel(key, shape, device="cuda", row0: int = 0, col0: int = 0, width=None) -> torch.Tensor:
     """``jax.random.gumbel(key, shape)`` float32 on ``device`` (the card
-    unless the caller asks for the CPU); rows from ``row0`` of the global
-    draw."""
-    return gumbel_noise(np.asarray(key)[None], shape, device, row0)[0]
+    unless the caller asks for the CPU); rows from ``row0`` and columns from
+    ``col0`` of a global draw ``width`` wide."""
+    return gumbel_noise(np.asarray(key)[None], shape, device, row0, col0, width)[0]
 
 
-def categorical(key, logits: torch.Tensor, shape=None, row0: int = 0) -> torch.Tensor:
+def categorical(key, logits: torch.Tensor, shape=None, row0: int = 0, col0: int = 0,
+                width=None) -> torch.Tensor:
     """``jax.random.categorical(key, logits, shape=shape)`` over the last
     axis: the first index of the largest ``gumbel + logits`` (int64).
 
@@ -229,11 +267,14 @@ def categorical(key, logits: torch.Tensor, shape=None, row0: int = 0) -> torch.T
     place, broadcast over the leading axes (the SGNS negatives draw
     ``[B, K]`` from ``[V]`` logits this way). ``row0``: the draw is rows
     ``[row0, row0 + shape[0])`` of the global one (a rank's rows of a
-    batch)."""
+    batch). ``col0`` and ``width``: the logits are columns ``[col0, col0 +
+    V)`` of rows ``width`` wide, their noise that window of the global draw,
+    and the index is the window's (a vocab block's best; the pick over every
+    block is :func:`..parallel.tensor_parallel.sample`)."""
     batch = tuple(logits.shape[:-1])
     shape = batch if shape is None else tuple(shape)
     if shape[len(shape) - len(batch):] != batch:
         raise ValueError(f"categorical: shape {shape} must end with the logits' batch "
                          f"shape {batch}")
-    noise = gumbel(key, (*shape, logits.shape[-1]), logits.device, row0)
+    noise = gumbel(key, (*shape, logits.shape[-1]), logits.device, row0, col0, width)
     return torch.argmax(noise.add_(logits), dim=-1)

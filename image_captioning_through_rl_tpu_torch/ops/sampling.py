@@ -14,11 +14,14 @@ import torch
 from .prng import categorical
 
 
-def sample_categorical(key, logits: torch.Tensor, row0: int = 0) -> torch.Tensor:
+def sample_categorical(key, logits: torch.Tensor, row0: int = 0, col0: int = 0,
+                       width=None) -> torch.Tensor:
     """Token ids ``[N]`` (int64) from unnormalised ``logits [N, V]`` under
     the host key ``key`` (uint32 ``[2]``): ``jax.random.categorical``; with
-    ``row0``, the rows are ``[row0, row0 + N)`` of a larger batch's draw."""
-    return categorical(key, logits, row0=row0)
+    ``row0``, the rows are ``[row0, row0 + N)`` of a larger batch's draw;
+    with ``col0`` and ``width``, the columns ``[col0, col0 + V)`` of rows
+    ``width`` wide, and the index is the window's own."""
+    return categorical(key, logits, row0=row0, col0=col0, width=width)
 
 
 def log_prob_of(logits: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:

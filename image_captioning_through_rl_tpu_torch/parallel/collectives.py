@@ -5,12 +5,16 @@ Gloo carries CUDA tensors for ``all_reduce`` and ``broadcast`` only (no
 every collective here is one of those two: a gather of row blocks is an
 ``all_reduce`` of a zero buffer into which each rank wrote its rows (``x +
 0`` is exact, so the result is the rows bit for bit). Without a process
-group each collective is the identity (a world of one).
+group each collective is the identity (a world of one). ``group``: the
+process group a collective runs over (a mesh axis's,
+:meth:`.mesh.Mesh.group`); None is the whole world.
 
 A :class:`RowShard` is one rank's rows ``[lo, hi)`` of a global batch of
-``n`` rows split over ``size`` ranks; the training steps take it to reduce
-their gradients and losses (:func:`reduce_gradients`) and to gather the
-reward network's embeddings (:func:`gather_rows`, differentiable).
+``n`` rows split over the ``size`` ranks of its ``data`` group; the
+training steps take it to reduce their gradients and losses
+(:func:`reduce_gradients`) and to gather the reward network's embeddings
+(:func:`gather_rows`, differentiable), over that group only: on a 2-D
+mesh the ``model`` ranks of a data block hold the same rows.
 """
 
 from __future__ import annotations
@@ -34,10 +38,11 @@ def comm_device() -> torch.device:
     return torch.device("cpu")
 
 
-def all_reduce_(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over the ranks, in place."""
+def all_reduce_(t: torch.Tensor, group=None, op=None) -> torch.Tensor:
+    """Sum ``t`` over the ranks of ``group`` (or its ``op``, a
+    ``dist.ReduceOp``: MAX, MIN), in place."""
     if active():
-        dist.all_reduce(t)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op, group=group)
     return t
 
 
@@ -79,21 +84,24 @@ def broadcast_tree(tree: dict, src: int = 0) -> dict:
     return tree
 
 
-def gather_blocks(x: torch.Tensor, lo: int, n: int) -> torch.Tensor:
-    """Rows ``[lo, lo + len(x))`` from each rank into ``[n, ...]`` on every
-    rank (no gradient): the ``all_reduce`` of a zero buffer."""
+def gather_blocks(x: torch.Tensor, lo: int, n: int, group=None) -> torch.Tensor:
+    """Rows ``[lo, lo + len(x))`` from each rank of ``group`` into ``[n,
+    ...]`` on every rank (no gradient): the ``all_reduce`` of a zero
+    buffer."""
     buf = x.new_zeros((n,) + tuple(x.shape[1:]))
     buf[lo: lo + x.shape[0]] = x
-    return all_reduce_(buf)
+    return all_reduce_(buf, group)
 
 
 class RowShard(NamedTuple):
     """One rank's rows ``[lo, hi)`` of a global batch of ``n`` rows over
-    ``size`` ranks (equal blocks)."""
+    the ``size`` ranks of ``group`` (equal blocks; the mesh's ``data``
+    group, None for the whole world)."""
     lo: int
     hi: int
     n: int
     size: int
+    group: object = None
 
     @property
     def rows(self) -> int:
@@ -106,20 +114,20 @@ class _GatherRows(torch.autograd.Function):
     rank's block."""
 
     @staticmethod
-    def forward(ctx, x, lo, n):
-        ctx.lo, ctx.hi = lo, lo + x.shape[0]
-        return gather_blocks(x, lo, n)
+    def forward(ctx, x, lo, n, group):
+        ctx.lo, ctx.hi, ctx.group = lo, lo + x.shape[0], group
+        return gather_blocks(x, lo, n, group)
 
     @staticmethod
     def backward(ctx, grad):
-        grad = all_reduce_(grad.contiguous().clone())
-        return grad[ctx.lo: ctx.hi], None, None
+        grad = all_reduce_(grad.contiguous().clone(), ctx.group)
+        return grad[ctx.lo: ctx.hi], None, None, None
 
 
 def gather_rows(x: torch.Tensor, shard: RowShard) -> torch.Tensor:
     """``[shard.n, ...]``: every rank's rows of ``x`` (this rank's ``x`` at
-    ``[shard.lo, shard.hi)``), differentiable."""
-    return _GatherRows.apply(x, shard.lo, shard.n)
+    ``[shard.lo, shard.hi)``) over the shard's group, differentiable."""
+    return _GatherRows.apply(x, shard.lo, shard.n, shard.group)
 
 
 def _param_leaves(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
@@ -129,8 +137,10 @@ def _param_leaves(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
 def reduce_gradients(optimizer: torch.optim.Optimizer, scalars: Sequence[torch.Tensor],
                      shard: RowShard, mean: bool = True) -> List[torch.Tensor]:
     """Sum every gradient of ``optimizer``'s parameters and the 0-d
-    ``scalars`` (the loss, the stats) over the ranks in one flattened
-    bucket, one ``all_reduce`` a step, laid out in the optimiser's leaf
+    ``scalars`` (the loss, the stats) over the ranks of the shard's
+    ``data`` group in one flattened bucket, one ``all_reduce`` a step (on a
+    2-D mesh the ``model`` ranks already hold equal gradients of the
+    replicated leaves, and a vocab block's gradient is its own), laid out in the optimiser's leaf
     order (:func:`..train.optim.adam`'s sorted paths, the same on every
     rank however its tree was built); divided by the ranks for ``mean``
     (a loss that is a mean over rows: equal shards make the mean of the
@@ -141,7 +151,7 @@ def reduce_gradients(optimizer: torch.optim.Optimizer, scalars: Sequence[torch.T
     grads = [p.grad for p in _param_leaves(optimizer) if p.grad is not None]
     flat = torch.cat([g.reshape(-1).to(torch.float32) for g in grads]
                      + [s.reshape(1).to(torch.float32) for s in scalars])
-    all_reduce_(flat)
+    all_reduce_(flat, shard.group)
     if mean and shard.size > 1:
         flat.div_(shard.size)
     parts = torch.split(flat, [g.numel() for g in grads] + [1] * len(scalars))

@@ -7,6 +7,11 @@ of the mesh's ``data`` axis own contiguous, equal blocks, in rank order. A
 batch whose rows do not divide over the data axis (a ragged epoch tail) is
 kept whole on every rank and computed whole there, as the JAX package
 replicates it: every rank then takes the same step with no collective.
+
+On a 2-D ``("data", "model")`` mesh the rows go by the rank's ``data``
+coordinate, so the ``model`` ranks of a data block hold the same rows (the
+JAX ``local_rows`` de-duplicates the model axis' equal slices); a mesh with
+no ``data`` axis gives every rank the whole batch.
 """
 
 from __future__ import annotations
@@ -36,14 +41,18 @@ class GlobalBatcher:
 
     @property
     def _data_size(self) -> int:
-        return int(self.mesh.shape[self.axis])
+        """The data axis' size; 1 on a mesh without one (every rank holds
+        every row)."""
+        return int(self.mesh.shape.get(self.axis, 1))
 
     @property
     def _index(self) -> Optional[int]:
-        """This process's position on the data axis; None when the mesh is
-        one process's (it owns every row)."""
+        """This process's position on the data axis (0 on a mesh without
+        one); None when the mesh is one process's (it owns every row)."""
         if self.mesh.ranks is None:
             return None
+        if self.axis not in self.mesh.shape:
+            return 0
         where = np.argwhere(self.mesh.ranks == world()[0])
         if len(where) != 1:
             raise ValueError("a distributed mesh holds one entry a rank")
@@ -59,11 +68,12 @@ class GlobalBatcher:
 
     def row_shard(self, n: int) -> Optional[RowShard]:
         """The step's :class:`.collectives.RowShard` for a batch of ``n``
-        rows, or None when it is ragged (computed whole on every rank)."""
+        rows over the data group, or None when it is ragged or the mesh has
+        no data axis (computed whole on every rank)."""
         block = equal_blocks(n, self._data_size, self._index or 0)
-        if block is None:
+        if block is None or self.axis not in self.mesh.shape:
             return None
-        return RowShard(block[0], block[1], n, self._data_size)
+        return RowShard(block[0], block[1], n, self._data_size, self.mesh.group(self.axis))
 
     def shard(self, *arrays):
         """Each array's rows of this process (axis 0)."""

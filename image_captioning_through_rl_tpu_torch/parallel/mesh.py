@@ -3,12 +3,19 @@
 
 A :class:`Mesh` is an array of ``torch.device`` entries with a shape and
 axis names, the port's ``jax.sharding.Mesh``. In a distributed world (one
-process per card, launched by ``torchrun``) the ``data`` axis spans the
-ranks, one device each, and :attr:`Mesh.ranks` names the rank that owns
-each entry. In one process it lists local devices, repeats allowed: the CPU
-is one torch device, so ``make_mesh(devices=["cpu"] * 8)`` stands in for the
-JAX package's eight virtual CPU devices, and ``[cuda:0, cuda:0]`` splits a
+process per card, launched by ``torchrun``) the mesh spans the ranks, one
+device each, and :attr:`Mesh.ranks` names the rank that owns each entry.
+In one process it lists local devices, repeats allowed: the CPU is one
+torch device, so ``make_mesh(devices=["cpu"] * 8)`` stands in for the JAX
+package's eight virtual CPU devices, and ``[cuda:0, cuda:0]`` splits a
 batch over one card.
+
+A 2-D ``("data", "model")`` mesh of shape ``(D, M)`` lays the entries out
+in rank order, row-major, as the JAX mesh reshapes its process-major
+devices: rank ``r`` sits at ``(r // M, r % M)``. Each data row of ``M``
+ranks is one ``model`` group, each model column of ``D`` ranks one
+``data`` group (:meth:`Mesh.group`): rows of a batch split over ``data``,
+the vocabulary over ``model`` (:mod:`.tensor_parallel`).
 
 The process group: NCCL for CUDA tensors, gloo for CPU tensors. Each rank
 of a world owns the card ``cuda:LOCAL_RANK`` (``--device cuda``). Ranks
@@ -30,8 +37,6 @@ import torch.distributed as dist
 
 _ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK")
 _ENV_SHARE_CARD = "ICRL_SHARE_CARD"
-TENSOR_PARALLEL = ("tensor parallelism over the vocabulary (a 'model' mesh axis) is not "
-                   "ported yet (ROADMAP §1 item 8b)")
 
 
 def local_device_count() -> int:
@@ -117,11 +122,44 @@ class Mesh:
     ``ranks``: the owning rank of each entry in a distributed world, None
     for a single-process mesh."""
 
-    def __init__(self, devices, axis_names: Sequence[str], ranks=None):
+    def __init__(self, devices, axis_names: Sequence[str], ranks=None, groups=None):
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.ranks = ranks
         self.shape = dict(zip(self.axis_names, devices.shape))
+        self._groups = groups or {}
+
+    @property
+    def coords(self) -> Optional[dict]:
+        """This rank's position on each axis (``{"data": d, "model": m}``)
+        in a distributed world; None on one process's mesh."""
+        if self.ranks is None:
+            return None
+        where = np.argwhere(self.ranks == world()[0])
+        if len(where) != 1:
+            raise ValueError("a distributed mesh holds one entry a rank")
+        return dict(zip(self.axis_names, (int(i) for i in where[0])))
+
+    def group(self, axis: str):
+        """The process group of this rank's ``axis``: the ranks that share
+        its position on every other axis. The whole world's group for an
+        axis that spans it; None without a process group (one process's
+        mesh, or a world of one), where every collective is the identity."""
+        if self.ranks is None or world()[1] == 1:
+            return None
+        if axis not in self.shape:
+            raise ValueError(f"{self} has no '{axis}' axis")
+        return self._groups.get(axis, dist.group.WORLD)
+
+    def entries(self, axis: str) -> list:
+        """One process's entries along ``axis`` (index 0 on every other
+        axis): the devices a batch splits over when ``axis`` is ``data``.
+        An absent axis is one entry, the first."""
+        if axis not in self.shape:
+            return [self.devices.flat[0]]
+        i = self.axis_names.index(axis)
+        index = tuple(slice(None) if a == i else 0 for a in range(self.devices.ndim))
+        return list(self.devices[index])
 
     @property
     def spans_processes(self) -> bool:
@@ -152,8 +190,11 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None, axis_names: Sequence[str]
     (each rank's :func:`rank_device` of ``device``) in a distributed world,
     else this process's cards (the CPU without one when ``device`` is
     ``cpu``). ``shape`` defaults to 1-D over every entry; it must cover
-    them and match ``axis_names`` in rank. A ``model`` axis larger than 1
-    raises ``NotImplementedError`` (ROADMAP §1 item 8b)."""
+    them and match ``axis_names`` in rank. In a world the entries follow
+    the ranks row-major (rank ``r`` of a ``(D, M)`` mesh at ``(r // M, r %
+    M)``), and every rank creates every axis group here, in one order, as
+    ``torch.distributed.new_group`` requires: the groups of an axis that
+    does not span the world."""
     ranks = None
     if devices is None:
         rank, size = world()
@@ -175,9 +216,25 @@ def make_mesh(shape: Optional[Tuple[int, ...]] = None, axis_names: Sequence[str]
         raise ValueError(f"mesh shape {shape} does not cover {len(devices)} devices")
     if len(shape) != len(axis_names):
         raise ValueError("shape and axis_names must have the same rank")
-    if dict(zip(axis_names, shape)).get("model", 1) > 1:
-        raise NotImplementedError(TENSOR_PARALLEL)
     arr = np.empty(len(devices), dtype=object)
     arr[:] = devices
-    return Mesh(arr.reshape(shape), axis_names,
-                None if ranks is None else ranks.reshape(shape))
+    ranks = None if ranks is None else ranks.reshape(shape)
+    return Mesh(arr.reshape(shape), axis_names, ranks,
+                None if ranks is None else _axis_groups(ranks, tuple(axis_names)))
+
+
+def _axis_groups(ranks: np.ndarray, axis_names: tuple) -> dict:
+    """This rank's process group of each axis that does not span the world
+    (a world-wide axis takes the default group). Every rank makes every
+    group, axis by axis, in the order of the other axes' positions."""
+    rank, size = world()
+    groups = {}
+    for i, axis in enumerate(axis_names):
+        if ranks.shape[i] == size:
+            continue
+        lines = np.moveaxis(ranks, i, -1).reshape(-1, ranks.shape[i])
+        for line in lines:
+            g = dist.new_group([int(r) for r in line])
+            if rank in line:
+                groups[axis] = g
+    return groups

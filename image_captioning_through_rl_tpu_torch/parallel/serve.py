@@ -10,8 +10,12 @@ plain versions on the CPU; a bidirectional policy takes the carried eager
 decodes of :mod:`..decode`. The blocks come back to the mesh's first device
 (to every rank, on a mesh that spans processes) and the padded rows are cut
 off. Parameters are committed to the mesh once (:func:`.sharding.replicate`
-passes a committed tree through) and each device's kernel weights are laid
-out once, in the committed tree's cache.
+passes a committed tree through, and gathers a vocab-sharded one) and each
+device's kernel weights are laid out once, in the committed tree's cache.
+On a 2-D ``("data", "model")`` mesh the rows split over ``data`` and the
+parameters are replicated over ``model``, as the JAX package serves: the
+``model`` ranks of a data block decode the same rows, and the blocks are
+gathered over the ``data`` group.
 
 Sampling draws the global batch's noise: block ``j`` starts at global row
 ``lo`` and draws rows ``[lo, hi)`` of each step's ``[N, V]`` draw (the
@@ -54,17 +58,19 @@ def _inputs(mesh: Mesh, features, start_tokens, repeat: int = 1):
     if repeat > 1:  # samples-minor, before the padding
         feats = feats.repeat_interleave(repeat, dim=0)
         start = start.repeat_interleave(repeat, dim=0)
-    feats, n = _pad_to_multiple(feats, mesh.shape["data"])
-    start, _ = _pad_to_multiple(start, mesh.shape["data"])
+    feats, n = _pad_to_multiple(feats, mesh.shape.get("data", 1))
+    start, _ = _pad_to_multiple(start, mesh.shape.get("data", 1))
     return feats, start, n
 
 
 def _blocks(mesh: Mesh, rows: int) -> list:
-    """``(device, lo, hi)`` of each block this process decodes."""
+    """``(device, lo, hi)`` of each block this process decodes: one process
+    decodes a block on each entry of its ``data`` axis."""
     if mesh.spans_processes:
         return [(mesh.first_device, *GlobalBatcher(mesh).local_rows(rows))]
-    b = rows // mesh.shape["data"]
-    return [(d, j * b, (j + 1) * b) for j, d in enumerate(mesh.local_devices)]
+    entries = mesh.entries("data")
+    b = rows // len(entries)
+    return [(d, j * b, (j + 1) * b) for j, d in enumerate(entries)]
 
 
 def _run(mesh: Mesh, rows: int, decode_block, outputs: int = 1):
@@ -79,7 +85,11 @@ def _run(mesh: Mesh, rows: int, decode_block, outputs: int = 1):
     first = mesh.first_device
     if mesh.spans_processes:
         lo = _blocks(mesh, rows)[0][1]
-        joined = tuple(gather_blocks(x.to(first), lo, rows) for x in parts[0])
+        if "data" not in mesh.shape:  # every rank decoded every row
+            joined = tuple(x.to(first) for x in parts[0])
+        else:
+            joined = tuple(gather_blocks(x.to(first), lo, rows, mesh.group("data"))
+                           for x in parts[0])
     else:
         joined = tuple(torch.cat([p[i].to(first) for p in parts]) for i in range(outputs))
     return joined if outputs > 1 else joined[0]

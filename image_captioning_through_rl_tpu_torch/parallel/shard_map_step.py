@@ -39,7 +39,7 @@ def make_shard_map_a2c_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, me
 
     if fused and cfg.bidirectional:
         raise ValueError("fused rollout is unidirectional only")
-    if not mesh.spans_processes and mesh.shape["data"] > 1:
+    if not mesh.spans_processes and len(mesh.local_devices) > 1:
         raise ValueError("the explicit step runs one rank a data entry: launch one process "
                          "per device (torchrun) for a mesh of more than one")
     batcher = GlobalBatcher(mesh)

@@ -9,7 +9,11 @@ A network's file format follows its path's suffix, as in the JAX package:
     tree the bytes equal the JAX package's ``save_pytree``, and its
     ``load_network(kind, path, template=...)`` reads them.
 
-Every write is published atomically. :func:`load_network` checks the tree's
+Every write is published atomically. A vocab-sharded tree
+(:class:`..parallel.sharding.Sharded`) is first gathered over its model
+group (a collective: every rank of the group writes with it), and rank 0
+writes the whole tree: the same bytes as a write of the unsharded tree.
+:func:`load_network` checks the tree's
 keys against the network kind's and, given a config, every shape: the JAX
 package's ``from_bytes`` copies without a shape check; the port raises,
 naming the file and the first leaf that differs. A network's direction
@@ -44,6 +48,8 @@ from ..models import policy as policy_mod
 from ..models import reward as reward_mod
 from ..models import value as value_mod
 from ..models.convert import load_state_dict, network_from_state_dict, network_to_state_dict
+from ..parallel.mesh import is_main_process
+from ..parallel.sharding import gather_params
 from ..utils import msgpack
 from ..utils.io import atomic_write
 
@@ -59,9 +65,21 @@ def _numpy(tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def _whole(params: dict) -> Optional[dict]:
+    """The tree to write: a vocab-sharded one gathered over its model group,
+    None on the ranks that then leave the write to rank 0."""
+    if getattr(params, "vocab", None) is None:
+        return params
+    params = gather_params(params)
+    return params if is_main_process() else None
+
+
 def save_pytree(params: dict, path: str) -> None:
     """``params`` (a tree of tensors) as a native msgpack checkpoint,
     float32, published atomically."""
+    params = _whole(params)
+    if params is None:
+        return
     data = msgpack.packb(_numpy(params))
     with atomic_write(path) as f:
         f.write(data)
@@ -146,6 +164,9 @@ def is_bidirectional(kind: str, params: dict) -> bool:
 def save_network_pt(kind: str, params: dict, path: str) -> None:
     """``params`` of ``kind`` as a reference-layout ``.pt`` state dict (the
     ``_reverse`` keys too for a bidirectional tree), published atomically."""
+    params = _whole(params)
+    if params is None:
+        return
     sd = network_to_state_dict(kind, params, is_bidirectional(kind, params))
     with atomic_write(path) as f:
         torch.save(sd, f)
@@ -262,6 +283,9 @@ def save_train_state(path: str, params: dict, optimizer: torch.optim.Optimizer, 
     host key (uint32 ``[2]``; the pretrainers hold none and pass zeros) and
     ``meta`` (JSON-serialisable; ``version`` and ``key_impl`` appended, as
     the JAX package appends them)."""
+    if getattr(params, "vocab", None) is not None:
+        raise ValueError("a training-state snapshot holds whole trees: a vocab-sharded tree's "
+                         "blocks and their Adam moments are not gathered into one")
     meta = dict(meta, version=_TRAIN_STATE_VERSION, key_impl=None)
     payload = msgpack.OrderedMap([
         ("params", _numpy(params)),

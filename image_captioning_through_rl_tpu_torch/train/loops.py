@@ -99,6 +99,7 @@ from ..ops.fused_decode import prepare_greedy_weights
 from ..ops.prng import PRNGKey, split
 from ..parallel import collectives
 from ..parallel.hostbatch import GlobalBatcher
+from ..parallel.sharding import gather_params
 from ..parallel.mesh import is_main_process
 from ..utils.io import append_results, global_minibatch_number
 from ..utils.logging import make_metrics_writer, print_green, print_red
@@ -136,10 +137,10 @@ def _device(device, mesh=None) -> torch.device:
 
 def _check_mesh(mesh) -> None:
     """A training mesh holds one entry a process: one process per card."""
-    if mesh is not None and not mesh.spans_processes and mesh.shape["data"] > 1:
+    entries = 1 if mesh is None else int(np.prod(list(mesh.shape.values())))
+    if mesh is not None and not mesh.spans_processes and entries > 1:
         raise ValueError(f"a training mesh holds one device a process; {mesh} lists "
-                         f"{mesh.shape['data']} in one: launch one process per card with "
-                         "torchrun")
+                         f"{entries} in one: launch one process per card with torchrun")
 
 
 def _multiprocess(mesh) -> bool:
@@ -1079,8 +1080,11 @@ def test_a2c_network(a2c_params: dict, cfg: NetConfig, test_data: CocoData,
     through its device's beam kernel, or the carried beam of a
     bidirectional model; ``use_fused_kernel`` honoured block by block); the
     faithful mode couples a decode's rows and ignores the mesh. Every rank
-    decodes, rank 0 alone writes the dumps.
+    decodes, rank 0 alone writes the dumps. On a 2-D mesh the rows split
+    over ``data`` and the parameters are replicated over ``model``; a
+    vocab-sharded tree is gathered once, here.
     """
+    a2c_params = gather_params(a2c_params)
     dcfg = dcfg or DecodeConfig(max_seq_len=cfg.max_seq_len)
     faithful = not dcfg.per_sample_beams
     if faithful:

@@ -5,7 +5,9 @@ reference's ``optim.Adam`` at four learning rates. With pretrained word
 vectors the reference freezes the embedding tables; here they are left out
 of the optimiser and need no gradient, so they never move (the JAX
 package zeroes their updates with optax's ``set_to_zero``). On the card the
-optimiser is capturable, so a chunk of steps can run as one CUDA graph.
+optimiser is capturable, so a chunk of steps can run as one CUDA graph. On
+a vocab-sharded tree (:class:`..parallel.sharding.Sharded`) the leaves are
+this rank's blocks, so each block's moments are its own.
 """
 
 from __future__ import annotations

@@ -53,8 +53,22 @@ rows of both directions with the global margin and divisor
 to the loss. The rollout's noise is drawn at ``row0 = lo``, and its
 ``caplen`` is the global minibatch's (``caplen=``, from the host, where every
 rank holds the global minibatch). Without a shard (one device, or a ragged
-minibatch that every rank computes whole) a step runs no collective. The
-compat (Q1) steps treat the batch as time and take no shard.
+minibatch that every rank computes whole) a step runs no gradient
+collective. The compat (Q1) steps treat the batch as time and take no shard.
+
+Tensor parallelism over the vocabulary: every step also runs on a
+vocab-sharded tree (:func:`..parallel.sharding.shard_params`), the
+embedding lookups, the policy head, the XE, A2C's log-softmax and its
+Gumbel-max pick vocab-parallel (:mod:`..parallel.tensor_parallel`; the
+shard's gradient reduction then runs over the ``data`` group only). The
+fused pretrainer steps gather each embedding table over ``model`` before
+the chain kernels, which read rows by token inside the launch; the value
+step's frozen networks are gathered once, when the step is made. The fused
+rollout (kernel 6) picks each step's token over the whole vocabulary
+inside one launch, where no cross-rank combine fits: on a vocab-sharded
+tree it raises, and the plain rollout runs, as the JAX package turns its
+Pallas kernels off on a mesh. Its noise is drawn at the rank's first row
+(``row0``) and first column (``col0``) of the global draw.
 """
 
 from __future__ import annotations
@@ -78,12 +92,16 @@ from ..ops.fused_lstm import fused_lstm_chain
 from ..ops.fused_rollout import fused_reward_stream, fused_rollout
 from ..ops.linalg import dense
 from ..ops.losses import (a2c_losses, visual_semantic_embedding_loss,
-                          visual_semantic_embedding_loss_rows, weighted_caption_xe_loss)
+                          visual_semantic_embedding_loss_rows, weighted_caption_xe_loss,
+                          weighted_caption_xe_of)
 from ..ops.prng import split
 from ..ops.reward_ops import cosine_embedding_reward
 from ..ops.rnn import lstm_cell, lstm_scan
-from ..ops.sampling import log_prob_of, sample_categorical
+from ..ops.sampling import sample_categorical  # noqa: F401 (tp.sample's draw on a whole tree)
+from ..parallel import collectives
+from ..parallel import tensor_parallel as tp
 from ..parallel.collectives import RowShard, gather_rows, reduce_gradients
+from ..parallel.sharding import gather_params
 
 
 def batch_caption_lens(captions: torch.Tensor) -> torch.Tensor:
@@ -141,7 +159,7 @@ def reward_loss_fused(params, cfg: NetConfig, features, captions, beta=0.2,
     """:func:`reward_loss` with the GRU chain through the chain kernels."""
     h0 = torch.zeros((captions.shape[0], cfg.hidden_dim), dtype=torch.float32,
                      device=features.device)
-    hs = fused_gru_chain(params["gru"], params["embedding"], captions, h0,
+    hs = fused_gru_chain(params["gru"], tp.table(params), captions, h0,
                          weight_dtype=weight_dtype)
     ve, se = reward_mod.embed_pair(params, cfg, features, hs[:, -1])
     return _vse(ve, se, beta, shard)
@@ -169,9 +187,18 @@ def make_reward_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, beta=0.2,
 # Policy network (teacher-forced XE)
 # --------------------------------------------------------------------------
 
+def _caption_xe(params, logits, targets, caplens):
+    """The caption XE of the policy's logits (a vocab-sharded head's
+    columns: vocab-parallel)."""
+    vs = tp.vocab_of(params, "head")
+    if vs is None:
+        return weighted_caption_xe_loss(logits, targets, caplens)
+    return weighted_caption_xe_of(tp.log_prob(logits, targets, vs), caplens)
+
+
 def policy_loss(params, cfg: NetConfig, features, captions, caplens):
     logits = policy_mod.forward(params, cfg, features, captions[:, :-1])
-    return weighted_caption_xe_loss(logits, captions[:, 1:], caplens)
+    return _caption_xe(params, logits, captions[:, 1:], caplens)
 
 
 def policy_loss_fused(params, cfg: NetConfig, features, captions, caplens,
@@ -180,10 +207,10 @@ def policy_loss_fused(params, cfg: NetConfig, features, captions, caplens,
     the vocab head and the XE loss stay single large products over the
     N T rows."""
     h0 = dense(features, params["cnn2linear"])
-    hs = fused_lstm_chain(params["lstm"], params["embedding"], captions[:, :-1], h0,
+    hs = fused_lstm_chain(params["lstm"], tp.table(params), captions[:, :-1], h0,
                           torch.zeros_like(h0), weight_dtype=weight_dtype)
-    logits = dense(hs, params["head"])
-    return weighted_caption_xe_loss(logits, captions[:, 1:], caplens)
+    logits = tp.head(params, hs)
+    return _caption_xe(params, logits, captions[:, 1:], caplens)
 
 
 def make_policy_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, fused: bool = False):
@@ -243,11 +270,11 @@ def value_regression_loss(vparams, cfg: NetConfig, features, gen_caps, rewards,
     n = gen_caps.shape[0]
     zeros = torch.zeros((n, cfg.hidden_dim), dtype=torch.float32, device=features.device)
     if fused:
-        hs = fused_lstm_chain(vparams["lstm"], vparams["embedding"], gen_caps, zeros, zeros,
+        hs = fused_lstm_chain(vparams["lstm"], tp.table(vparams), gen_caps, zeros, zeros,
                               weight_dtype=weight_dtype)
         h = hs[:, prefix_len - 1]
     else:
-        xs = vparams["embedding"][gen_caps].transpose(0, 1)  # [T, N, E]
+        xs = tp.lookup(vparams, gen_caps).transpose(0, 1)  # [T, N, E]
         hs, _ = lstm_scan(vparams["lstm"], xs, (zeros, zeros))
         h = hs[prefix_len - 1]
     values = value_mod.value_head(vparams, cfg, features, h)  # [N, 1]
@@ -291,9 +318,11 @@ def make_value_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, pparams: d
     bf16 greedy-kernel weights once, here, and runs the rollout and the
     value encoder through their kernels (unidirectional, non-compat only).
     A ``shard``'s loss and gradient are averaged over the ranks (the
-    prefix length is the host's, the same on every rank)."""
+    prefix length is the host's, the same on every rank). Vocab-sharded
+    frozen networks are gathered here, once (a collective)."""
     if fused and (compat or cfg.bidirectional):
         raise ValueError("fused value step is unidirectional, non-compat only")
+    pparams, rparams = gather_params(pparams), gather_params(rparams)
     if compat:
         def compat_step(vparams, features, captions, prefix_len, shard=None):
             if shard is not None:
@@ -356,11 +385,12 @@ def a2c_rollout_loss(a2c_params: dict, cfg: NetConfig, reward_params: dict, feat
     largest END position + 1. ``row0``: the rows are ``[row0, row0 + N)`` of
     a global minibatch, and draw those rows of its noise."""
     pparams, vparams = a2c_params["policy"], a2c_params["value"]
+    vs = tp.vocab_of(pparams, "head")
     n, t_max = captions.shape
     dev = features.device
     start = captions[:, 0]
     pol_state = policy_mod.init_decode_state(pparams, cfg, features)
-    pol_state = lstm_cell(pparams["lstm"], pparams["embedding"][start], pol_state)
+    pol_state = lstm_cell(pparams["lstm"], tp.lookup(pparams, start), pol_state)
     val_state = value_mod.rnn_step(vparams, cfg, start, value_mod.zero_rnn_state(cfg, n, dev))
     with torch.no_grad():
         rew_state = reward_mod.rnn_step(reward_params, cfg, start,
@@ -369,9 +399,9 @@ def a2c_rollout_loss(a2c_params: dict, cfg: NetConfig, reward_params: dict, feat
     step_keys = split(rng, t_max - 1)
     values, rewards, log_probs = [], [], []
     for p in range(1, t_max):
-        logits = dense(pol_state[0], pparams["head"])
-        action = sample_categorical(step_keys[p - 1], logits.detach(), row0)
-        log_probs.append(log_prob_of(logits, action))
+        logits = tp.head(pparams, pol_state[0])
+        action = tp.sample(step_keys[p - 1], logits.detach(), vs, row0)
+        log_probs.append(tp.log_prob(logits, action, vs))
         values.append(value_mod.value_from_state(vparams, cfg, features, val_state)[:, 0])
         token_in = captions[:, p] if p < curr_seq_len else action
         with torch.no_grad():
@@ -379,7 +409,7 @@ def a2c_rollout_loss(a2c_params: dict, cfg: NetConfig, reward_params: dict, feat
             se = dense(rew_after, reward_params["semantic_embed"])
             rewards.append(cosine_embedding_reward(ve, se))
             rew_state = reward_mod.rnn_step(reward_params, cfg, token_in, rew_state)
-        pol_state = lstm_cell(pparams["lstm"], pparams["embedding"][token_in], pol_state)
+        pol_state = lstm_cell(pparams["lstm"], tp.lookup(pparams, token_in), pol_state)
         val_state = value_mod.rnn_step(vparams, cfg, token_in, val_state)
     return _a2c_loss(torch.stack(values, dim=1), torch.stack(rewards, dim=1),
                      torch.stack(log_probs, dim=1), curr_seq_len, caplen, per_step_mean)
@@ -395,13 +425,14 @@ def a2c_rollout_loss_full(a2c_params: dict, cfg: NetConfig, reward_params: dict,
     (trainers.py:441-459). The same step keys, draws, placed tokens, loss
     and mask as :func:`a2c_rollout_loss`."""
     t_max = captions.shape[1]
+    vs = tp.vocab_of(a2c_params["policy"], "head")
     step_keys = split(rng, t_max - 1)
     buf = captions[:, :1]
     values, rewards, log_probs = [], [], []
     for p in range(1, t_max):
         value, logits = a2c_mod.forward(a2c_params, cfg, features, buf)
-        action = sample_categorical(step_keys[p - 1], logits.detach(), row0)
-        log_probs.append(log_prob_of(logits, action))
+        action = tp.sample(step_keys[p - 1], logits.detach(), vs, row0)
+        log_probs.append(tp.log_prob(logits, action, vs))
         values.append(value[:, 0])
         with torch.no_grad():  # the reward of prefix + the sampled action
             ve, se = reward_mod.forward(reward_params, cfg, features,
@@ -425,6 +456,7 @@ def a2c_rollout_loss_compat(a2c_params: dict, cfg: NetConfig, reward_params: dic
     placed tokens, loss and mask as :func:`a2c_rollout_loss_full`; the
     reward under ``no_grad``."""
     pparams, vparams = a2c_params["policy"], a2c_params["value"]
+    vs = tp.vocab_of(pparams, "head")
     t_max = captions.shape[1]
     dev = features.device
     step_keys = split(rng, t_max - 1)
@@ -435,8 +467,8 @@ def a2c_rollout_loss_compat(a2c_params: dict, cfg: NetConfig, reward_params: dic
     for p in range(1, t_max):
         value, val_carry = value_mod.forward_compat(vparams, cfg, features, buf, val_carry)
         logits = policy_mod.forward(pparams, cfg, features, buf)[:, -1]
-        action = sample_categorical(step_keys[p - 1], logits.detach(), row0)
-        log_probs.append(log_prob_of(logits, action))
+        action = tp.sample(step_keys[p - 1], logits.detach(), vs, row0)
+        log_probs.append(tp.log_prob(logits, action, vs))
         values.append(value[:, 0])
         with torch.no_grad():  # the reward of prefix + the sampled action
             (ve, se), rew_carry = reward_mod.forward_compat(
@@ -447,6 +479,18 @@ def a2c_rollout_loss_compat(a2c_params: dict, cfg: NetConfig, reward_params: dic
         buf = torch.cat([buf, token_in[:, None]], dim=1)
     return _a2c_loss(torch.stack(values, dim=1), torch.stack(rewards, dim=1),
                      torch.stack(log_probs, dim=1), curr_seq_len, caplen, per_step_mean)
+
+
+def check_fused_rollout(a2c_params: dict, reward_params: dict) -> None:
+    """Raise ``ValueError`` for vocab-sharded networks: the rollout kernels
+    pick each step's token over the whole vocabulary inside one launch, and
+    no cross-rank combine fits there."""
+    trees = (a2c_params["policy"], a2c_params["value"], reward_params)
+    if any(getattr(t, "vocab", None) is not None for t in trees):
+        raise ValueError("the fused rollout (kernel 6) picks each step's token over the whole "
+                         "vocabulary inside one launch, where no cross-rank combine fits: a "
+                         "vocab-sharded tree takes the plain rollout (fused=False), as the JAX "
+                         "package turns its Pallas kernels off on a mesh")
 
 
 def a2c_rollout_loss_fused(a2c_params: dict, cfg: NetConfig, reward_params: dict, features,
@@ -461,7 +505,9 @@ def a2c_rollout_loss_fused(a2c_params: dict, cfg: NetConfig, reward_params: dict
     runs inside the rollout (``fuse_reward=True``, the default) or as its
     own kernel (:func:`..ops.fused_rollout.fused_reward_stream`).
     ``tape_gates=False`` keeps no gate tape: the backward recomputes the
-    gates. ``row0`` as in :func:`a2c_rollout_loss`."""
+    gates. ``row0`` as in :func:`a2c_rollout_loss`. A vocab-sharded tree
+    raises ``ValueError`` (:func:`check_fused_rollout`)."""
+    check_fused_rollout(a2c_params, reward_params)
     if fuse_reward:
         values, log_probs, _, _, rewards = fused_rollout(
             a2c_params, cfg, features, captions, curr_seq_len, rng, weight_dtype=weight_dtype,
@@ -490,7 +536,10 @@ def make_a2c_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, per_step_mea
     stream fused in or, ``fuse_reward=False``, as its own kernel.
     ``compat=True`` takes :func:`a2c_rollout_loss_compat` (Q1); otherwise a
     bidirectional config takes :func:`a2c_rollout_loss_full`. Both refuse
-    ``fused=True``."""
+    ``fused=True``, and so does a vocab-sharded tree (the step raises
+    ``ValueError``: :func:`check_fused_rollout`). On a vocab-sharded tree
+    the noise is drawn at ``row0 = shard.lo`` and each rank's first column
+    (``col0``)."""
     if fused and (compat or cfg.bidirectional):
         raise ValueError("fused rollout is unidirectional, non-compat only")
     fused_kw = {"fuse_reward": fuse_reward} if fused else {}
@@ -575,6 +624,11 @@ class BestLossChunk:
 
     def __init__(self, params: dict, optimizer: torch.optim.Optimizer, loss_fn,
                  graph: bool = False, mean: bool = True):
+        if (graph and getattr(params, "vocab", None) is not None and collectives.active()
+                and torch.distributed.get_backend() != "nccl"):
+            raise ValueError("a vocab-sharded chunk combines its logits over the model group "
+                             "inside every update, and gloo's collectives cannot be captured "
+                             "in a CUDA graph: run it with graph=False, or over NCCL")
         self._leaves = _tree_leaves(params)
         self._opt = optimizer
         self._loss_fn = loss_fn
@@ -710,6 +764,7 @@ def make_value_chunk_step(cfg: NetConfig, optimizer: torch.optim.Optimizer, para
     the greedy kernel."""
     if cfg.bidirectional:
         raise ValueError("chunked value step is unidirectional only")
+    pparams, rparams = gather_params(pparams), gather_params(rparams)
     greedy_weights = prepare_greedy_weights(pparams) if fused else None
     return BestLossChunk(params, optimizer, lambda f, c, prefix_len, shard=None:
                          value_episode_loss(params, cfg, pparams, rparams, f, c, prefix_len,

@@ -42,6 +42,7 @@ from image_captioning_through_rl_tpu_torch.ops.fused_sample import fused_sample_
 from image_captioning_through_rl_tpu_torch.ops.sampling import sample_categorical
 from image_captioning_through_rl_tpu_torch.parallel import collectives, hostbatch, mesh as tmesh
 from image_captioning_through_rl_tpu_torch.parallel import sharding
+from image_captioning_through_rl_tpu_torch.train import steps
 
 torch.set_num_threads(1)
 
@@ -241,8 +242,11 @@ def test_make_mesh_checks_like_jax():
         parallel.make_mesh((4,), devices=["cpu"] * 6)
     with pytest.raises(ValueError, match="same rank"):
         parallel.make_mesh((6,), ("data", "model"), devices=["cpu"] * 6)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 8b"):
-        parallel.make_mesh((3, 2), ("data", "model"), devices=["cpu"] * 6)
+    two_d = parallel.make_mesh((3, 2), ("data", "model"), devices=["cuda:0", "cpu"] * 3)
+    assert two_d.shape == {"data": 3, "model": 2} and not two_d.spans_processes
+    assert two_d.entries("data") == [torch.device("cuda:0")] * 3
+    assert two_d.entries("model") == [torch.device("cuda:0"), torch.device("cpu")]
+    assert two_d.coords is None and two_d.group("model") is None
     assert parallel.make_mesh((6, 1), ("data", "model"), devices=["cpu"] * 6).shape == \
         {"data": 6, "model": 1}
     assert parallel.make_mesh(device="cpu").local_devices == [torch.device("cpu")]
@@ -258,8 +262,21 @@ def test_param_specs_are_the_jax_specs(params):
         got = getattr(parallel, name)(from_jax_params(jax.tree.map(np.asarray, tree)))
         assert got == want
     spec = parallel.a2c_param_spec(tp)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 8b"):
+    with pytest.raises(ValueError, match="'model' axis"):
         parallel.shard_params(_cpu_mesh(2), tp, spec)
+    blocks = parallel.shard_params(parallel.make_mesh((2, 2), ("data", "model"),
+                                                      devices=["cpu"] * 4), tp, spec)
+    assert isinstance(blocks, sharding.LocalBlocks) and sorted(blocks) == [0, 1]
+    v = tp["policy"]["embedding"].shape[0]
+    for m, block in blocks.items():
+        lo, hi = m * v // 2, (m + 1) * v // 2
+        assert block.vocab[:4] == (lo, hi, v, 2)
+        torch.testing.assert_close(block["policy"]["embedding"], tp["policy"]["embedding"][lo:hi])
+        torch.testing.assert_close(block["policy"]["head"]["w"], tp["policy"]["head"]["w"][:, lo:hi])
+        torch.testing.assert_close(block["value"]["lstm"]["wi"], tp["value"]["lstm"]["wi"])
+    whole = parallel.gather_params(blocks)
+    for a, b in zip(steps._tree_leaves(whole), steps._tree_leaves(tp)):
+        assert torch.equal(a, b)
     rep = parallel.shard_params(_cpu_mesh(2), tp, sharding._rep(tp))
     assert isinstance(rep, sharding.Replicated)
 
