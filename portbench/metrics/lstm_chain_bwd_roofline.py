@@ -1,0 +1,30 @@
+"""The LSTM chain backward's share of its roofline, in %: the bound of the
+traced epoch's chain backwards (``portbench.counts.chain_bwd`` at each
+minibatch's rows, 16 steps and the kernels' table width) over the device
+time of the kernels a chain backward launches, found by name (the chunks
+replay as CUDA graphs, so no host range holds them)."""
+
+from portbench import counts
+
+# the recurrence, the weight gradients' two products (the input rows read
+# through the tokens) and the bias gradient's column sums
+KERNELS = ("lstm_bwd_kernel",
+           "wgmma_gemm_kernel<true, true, icrl::(anonymous namespace)::TokenStateRows",
+           "wgmma_gemm_kernel<false, false, icrl::(anonymous namespace)::DenseRows, "
+           "icrl::(anonymous namespace)::DenseRows, 1>",
+           "colsum_part_kernel")
+WORK = counts.chain_bwd
+
+
+def read(ctx, out):
+    trace = ctx.tracer.trace if ctx.tracer else None
+    if trace is None:
+        return None
+    ops = trace.named(KERNELS)
+    info = out["trace_info"]
+    seconds = sum(e - s for _, s, e, _ in ops) * 1e-6
+    if seconds <= 0:
+        return None
+    v, e, h, _ = info["shape"]
+    bound = sum(WORK("lstm", n, info["steps"], v, e, h).bound_s() for n in info["minibatches"])
+    return 100.0 * bound / seconds
