@@ -54,6 +54,7 @@ from .ops.fused_beam import fused_beam_search, prepare_beam_weights
 from .ops.fused_decode import fused_greedy_decode, prepare_greedy_weights
 from .ops.fused_sample import check_counter_space, fused_sample_decode
 from .parallel.sharding import gather_params
+from .utils.profiling import annotate
 
 
 def resolve_device(device) -> torch.device:
@@ -131,9 +132,15 @@ class Captioner:
                 "use_fused_kernel": use_fused_kernel}
 
     def _features(self, features) -> torch.Tensor:
-        if not isinstance(features, torch.Tensor):
-            features = torch.from_numpy(np.asarray(features, np.float32))
-        return features.to(self.device, torch.float32).contiguous()
+        with annotate("caption.features_in"):
+            if not isinstance(features, torch.Tensor):
+                features = torch.from_numpy(np.asarray(features, np.float32))
+            return features.to(self.device, torch.float32).contiguous()
+
+    @staticmethod
+    def _tokens_out(toks: torch.Tensor) -> np.ndarray:
+        with annotate("caption.tokens_out"):
+            return toks.cpu().numpy()
 
     def _start(self, rows: int) -> torch.Tensor:
         return torch.full((rows,), START_ID, dtype=torch.int32, device=self.device)
@@ -153,6 +160,14 @@ class Captioner:
         it per slice), in float32 on the device; forcing the kernel then
         raises ``ValueError``."""
         feats = self._features(features)
+        with annotate("caption.search"):
+            toks = self._search(feats, beam_size, use_fused_kernel, faithful_beam)
+        return self._tokens_out(toks)
+
+    def _search(self, feats: torch.Tensor, beam_size: int, use_fused_kernel,
+                faithful_beam: bool) -> torch.Tensor:
+        """:meth:`caption_tokens`' decode, its tokens ``[N, T]`` left on the
+        device."""
         start = self._start(feats.shape[0])
         max_len = self._cfg.max_seq_len
         if beam_size > 0:
@@ -168,35 +183,32 @@ class Captioner:
                 with torch.no_grad():
                     toks, _, _ = beam_search_compat(self._policy, self._value, self._cfg, dcfg,
                                                     feats, start)
-                return toks[:, 0].cpu().numpy()
-            if self._mesh is not None:
+            elif self._mesh is not None:
                 from .parallel.serve import sharded_beam_tokens
 
                 toks, _ = sharded_beam_tokens(self._mesh, *self._mesh_params, self._cfg, dcfg,
                                               feats, start, **self._mesh_kw(use_fused_kernel))
-                return toks[:, 0].cpu().numpy()
-            if self._cfg.bidirectional:
+            elif self._cfg.bidirectional:
                 with torch.no_grad():
                     toks, _ = beam_search(self._policy, self._value, self._cfg, dcfg, feats,
                                           start)
-                return toks[:, 0].cpu().numpy()
-            toks, _ = fused_beam_search(
-                self._beam_w, feats, start, max_len=max_len, beam=beam_size,
-                value_weight=dcfg.value_weight, logprob_weight=dcfg.logprob_weight,
-                use_fused_kernel=use_fused_kernel)
-            return toks[:, 0].cpu().numpy()
+            else:
+                toks, _ = fused_beam_search(
+                    self._beam_w, feats, start, max_len=max_len, beam=beam_size,
+                    value_weight=dcfg.value_weight, logprob_weight=dcfg.logprob_weight,
+                    use_fused_kernel=use_fused_kernel)
+            return toks[:, 0]
         self._check_kernel(use_fused_kernel, "greedy")
         if self._mesh is not None:
             from .parallel.serve import sharded_greedy_tokens
 
             return sharded_greedy_tokens(self._mesh, self._mesh_params[0], self._cfg, feats,
-                                         start, **self._mesh_kw(use_fused_kernel)).cpu().numpy()
+                                         start, **self._mesh_kw(use_fused_kernel))
         if self._cfg.bidirectional:
             with torch.no_grad():
-                return greedy_decode(self._policy, self._cfg, feats, start, max_len).cpu().numpy()
-        toks = fused_greedy_decode(self._greedy_w, feats, start, max_len=max_len,
+                return greedy_decode(self._policy, self._cfg, feats, start, max_len)
+        return fused_greedy_decode(self._greedy_w, feats, start, max_len=max_len,
                                    use_fused_kernel=use_fused_kernel)
-        return toks.cpu().numpy()
 
     def sample_tokens(self, features, temperature: float = 1.0, top_k: int = 0,
                       top_p: float = 1.0, num_samples: int = 1, seed: int = 0,
@@ -226,28 +238,26 @@ class Captioner:
         feats = self._features(features)
         n = feats.shape[0]
         check_counter_space(n * num_samples, self._cfg.vocab_size)  # before the R-fold copy
-        if self._mesh is not None:
-            from .parallel.serve import sharded_sample_tokens
+        key = prng.PRNGKey(seed)
+        kw = dict(temperature=float(temperature), top_k=top_k,
+                  top_p=float(top_p) if top_p < 1.0 else None)
+        with annotate("caption.search"):
+            if self._mesh is not None:
+                from .parallel.serve import sharded_sample_tokens
 
-            toks = sharded_sample_tokens(
-                self._mesh, self._mesh_params[0], self._cfg, feats, self._start(n),
-                prng.PRNGKey(seed), num_samples, temperature=float(temperature), top_k=top_k,
-                top_p=float(top_p) if top_p < 1.0 else None,
-                **self._mesh_kw(use_fused_kernel)).cpu().numpy()
-            return toks
-        if self._cfg.bidirectional:
-            with torch.no_grad():
-                toks = sample_decode_n(
-                    self._policy, self._cfg, feats, self._start(n), prng.PRNGKey(seed),
-                    num_samples, temperature=float(temperature), top_k=top_k,
-                    top_p=float(top_p) if top_p < 1.0 else None).cpu().numpy()
-            return toks[:, 0] if num_samples == 1 else toks
-        tiled = feats.repeat_interleave(num_samples, dim=0)
-        toks = fused_sample_decode(
-            self._greedy_w, tiled, self._start(tiled.shape[0]), prng.PRNGKey(seed),
-            max_len=self._cfg.max_seq_len, temperature=float(temperature), top_k=top_k,
-            top_p=float(top_p) if top_p < 1.0 else None, use_fused_kernel=use_fused_kernel)
-        toks = toks.cpu().numpy().reshape(n, num_samples, -1)
+                toks = sharded_sample_tokens(self._mesh, self._mesh_params[0], self._cfg, feats,
+                                             self._start(n), key, num_samples, **kw,
+                                             **self._mesh_kw(use_fused_kernel))
+            elif self._cfg.bidirectional:
+                with torch.no_grad():
+                    toks = sample_decode_n(self._policy, self._cfg, feats, self._start(n), key,
+                                           num_samples, **kw)
+            else:
+                tiled = feats.repeat_interleave(num_samples, dim=0)
+                toks = fused_sample_decode(self._greedy_w, tiled, self._start(tiled.shape[0]),
+                                           key, max_len=self._cfg.max_seq_len,
+                                           use_fused_kernel=use_fused_kernel, **kw)
+        toks = self._tokens_out(toks).reshape(n, num_samples, -1)
         return toks[:, 0] if num_samples == 1 else toks
 
     def sample_captions(self, features, num_samples: int = 1, **kw) -> List:

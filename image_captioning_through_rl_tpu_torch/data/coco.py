@@ -18,6 +18,7 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 
 from .. import END_ID
+from ..utils.profiling import annotate
 from .hdf5 import read_h5
 
 
@@ -138,21 +139,22 @@ def load_data(base_dir: str, max_train: Optional[int] = None, pca_features: bool
 def decode_captions(captions: np.ndarray, idx_to_word: Dict[int, str]):
     """Token ids -> text. Skips <NULL>, keeps words up to and including
     <END>, then stops."""
-    captions = np.asarray(captions)
-    singleton = captions.ndim == 1
-    if singleton:
-        captions = captions[None]
-    decoded = []
-    for row in captions:
-        words = []
-        for tok in row:
-            word = idx_to_word[int(tok)]
-            if word != "<NULL>":
-                words.append(word)
-            if word == "<END>":
-                break
-        decoded.append(" ".join(words))
-    return decoded[0] if singleton else decoded
+    with annotate("caption.strings"):
+        captions = np.asarray(captions)
+        singleton = captions.ndim == 1
+        if singleton:
+            captions = captions[None]
+        decoded = []
+        for row in captions:
+            words = []
+            for tok in row:
+                word = idx_to_word[int(tok)]
+                if word != "<NULL>":
+                    words.append(word)
+                if word == "<END>":
+                    break
+            decoded.append(" ".join(words))
+        return decoded[0] if singleton else decoded
 
 
 def get_coco_batch(data: CocoData, batch_size: int = 100, split: str = "train",

@@ -112,7 +112,7 @@ def _parse_sample(src: dict, max_samples: int) -> tuple:
 
 class _Pending:
     __slots__ = ("features", "pixels", "beam_size", "sample", "event", "result", "error",
-                 "t_enq")
+                 "t_enq", "t_taken")
 
     def __init__(self, features: Optional[np.ndarray], beam_size: int,
                  sample: Optional[tuple] = None, pixels: Optional[np.ndarray] = None):
@@ -124,6 +124,7 @@ class _Pending:
         self.result: Optional[List[str]] = None
         self.error: Optional[str] = None
         self.t_enq = time.perf_counter()
+        self.t_taken: Optional[float] = None  # when the batcher put it in a batch
 
     @property
     def rows(self) -> int:
@@ -188,6 +189,8 @@ class CaptionServer:
             "requests": 0, "captions": 0, "batches": 0, "errors": 0, "images_extracted": 0,
             "max_batch_rows": 0,
             "latency_ms": collections.deque(maxlen=10_000),
+            "queue_wait_ms": collections.deque(maxlen=10_000),
+            "service_ms": collections.deque(maxlen=10_000),
         }
         server = self
 
@@ -296,8 +299,11 @@ class CaptionServer:
                         server.stats["errors"] += 1
                     else:
                         server.stats["captions"] += len(pending.result)
-                        server.stats["latency_ms"].append(
-                            (time.perf_counter() - pending.t_enq) * 1e3)
+                        now = time.perf_counter()
+                        server.stats["latency_ms"].append((now - pending.t_enq) * 1e3)
+                        server.stats["queue_wait_ms"].append(
+                            (pending.t_taken - pending.t_enq) * 1e3)
+                        server.stats["service_ms"].append((now - pending.t_taken) * 1e3)
                 if pending.error is not None:
                     self._reply(500, {"error": pending.error})
                 else:
@@ -368,12 +374,19 @@ class CaptionServer:
         return out
 
     def snapshot_stats(self) -> dict:
+        """The counters, and the 50th and 95th percentiles of the answered
+        requests' latency (queued to answered), of its queue wait (queued
+        to taken into a batch by the batcher) and of its service time
+        (taken to answered: the rest of the co-batching window, the decode
+        and the answer)."""
         with self._stats_lock:
-            lat = sorted(self.stats["latency_ms"])
-            snap = {k: v for k, v in self.stats.items() if k != "latency_ms"}
-        if lat:
-            snap["latency_p50_ms"] = round(lat[len(lat) // 2], 3)
-            snap["latency_p95_ms"] = round(lat[int(len(lat) * 0.95)], 3)
+            times = {k: sorted(self.stats[k + "_ms"])
+                     for k in ("latency", "queue_wait", "service")}
+            snap = {k: v for k, v in self.stats.items() if not k.endswith("_ms")}
+        for name, ms in times.items():
+            if ms:
+                snap[f"{name}_p50_ms"] = round(ms[len(ms) // 2], 3)
+                snap[f"{name}_p95_ms"] = round(ms[int(len(ms) * 0.95)], 3)
         snap["kernel_launches"] = kernel_launches()
         return snap
 
@@ -388,6 +401,7 @@ class CaptionServer:
                 first = self._queue.get(timeout=0.2)
             except queue.Empty:
                 return []
+        first.t_taken = time.perf_counter()
         group = [first]
         rows = first.rows
         deadline = time.perf_counter() + self._max_wait
@@ -402,6 +416,7 @@ class CaptionServer:
             if rows + nxt.rows > self._max_batch:
                 self._carry = nxt
                 break
+            nxt.t_taken = time.perf_counter()
             group.append(nxt)
             rows += nxt.rows
         return group

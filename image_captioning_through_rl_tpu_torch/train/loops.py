@@ -103,6 +103,7 @@ from ..parallel.sharding import gather_params
 from ..parallel.mesh import is_main_process
 from ..utils.io import append_results, global_minibatch_number
 from ..utils.logging import make_metrics_writer, print_green, print_red
+from ..utils.profiling import annotate
 from . import checkpoint as ckpt
 from . import steps
 from .guard import check_finite
@@ -364,11 +365,13 @@ def _drive_best_loss_training(desc: str, tag: str, kind: str, ckpt_path: str, wr
 
     def snapshot(epoch):
         if train_state_path and main:
-            ckpt.save_train_state(
-                train_state_path, params, optimizer, np.zeros((2,), np.uint32),
-                {"kind": "best_loss", "tag": tag, "epoch_done": epoch + 1, "best": state["best"],
-                 "rng_state": rng.bit_generator.state, "fused": fused_used,
-                 "extra": None if extra_state_fn is None else extra_state_fn()})
+            with annotate("train.snapshot"):
+                ckpt.save_train_state(
+                    train_state_path, params, optimizer, np.zeros((2,), np.uint32),
+                    {"kind": "best_loss", "tag": tag, "epoch_done": epoch + 1,
+                     "best": state["best"], "rng_state": rng.bit_generator.state,
+                     "fused": fused_used,
+                     "extra": None if extra_state_fn is None else extra_state_fn()})
 
     def log(loss, epoch, minibatch_id, dump_tree):
         check_finite(loss, desc, f"epoch {epoch + 1}, minibatch {minibatch_id}",
@@ -381,8 +384,11 @@ def _drive_best_loss_training(desc: str, tag: str, kind: str, ckpt_path: str, wr
         return improved
 
     def resolve(prev, loss_dev, epoch, minibatch_id):
-        if log(float(loss_dev), epoch, minibatch_id, prev) and main:
-            ckpt.save_network(kind, prev, ckpt_path)  # Q12: weights entering
+        with annotate("train.losses"):
+            improved = log(float(loss_dev), epoch, minibatch_id, prev)
+        if improved and main:
+            with annotate("train.save_best"):
+                ckpt.save_network(kind, prev, ckpt_path)  # Q12: weights entering
 
     keeper = _DeferredBookkeeper(resolve)
     use_chunks = chunk is not None and chunk_steps > 1 and isinstance(tables, DeviceCocoTables)
@@ -390,48 +396,59 @@ def _drive_best_loss_training(desc: str, tag: str, kind: str, ckpt_path: str, wr
         t0 = time.perf_counter()
         if use_chunks:
             num = tables.num_captions
-            perm = rng.permutation(num)
+            with annotate("train.permute"):
+                perm = rng.permutation(num)
             i = minibatch_id = 0
             while i < num:
                 k = min(chunk_steps, (num - i) // batch_size)
                 if k >= 1:
-                    mask = perm[i: i + k * batch_size]
-                    feat_dim, steps_t = tables.features.shape[1], tables.captions.shape[1]
-                    shard = row_shard(batch_size)
-                    n = batch_size if shard is None else shard.rows  # this rank's rows
-                    if chunk.graph:  # gather into the captured graph's input buffers
-                        feats_b, caps_b = chunk.inputs(k, n, feat_dim, steps_t)
-                        tables.gather(mask, out=(caps_b.view(-1, steps_t),
-                                                 feats_b.view(-1, feat_dim)), k=k)
-                    else:
-                        caps_b, feats_b = tables.gather(mask, k=k)
-                        feats_b = feats_b.view(k, n, feat_dim)
-                        caps_b = caps_b.view(k, n, steps_t)
-                    extras = None if draw_extras is None else draw_extras(k)
+                    with annotate("train.gather"):
+                        mask = perm[i: i + k * batch_size]
+                        feat_dim, steps_t = tables.features.shape[1], tables.captions.shape[1]
+                        shard = row_shard(batch_size)
+                        n = batch_size if shard is None else shard.rows  # this rank's rows
+                        if chunk.graph:  # gather into the captured graph's input buffers
+                            feats_b, caps_b = chunk.inputs(k, n, feat_dim, steps_t)
+                            tables.gather(mask, out=(caps_b.view(-1, steps_t),
+                                                     feats_b.view(-1, feat_dim)), k=k)
+                        else:
+                            caps_b, feats_b = tables.gather(mask, k=k)
+                            feats_b = feats_b.view(k, n, feat_dim)
+                            caps_b = caps_b.view(k, n, steps_t)
+                        extras = None if draw_extras is None else draw_extras(k)
+                    # the chunk's own spans: train.capture (a new shape) and train.dispatch
                     losses, best_prev, _, improved = chunk(state["best"], feats_b, caps_b,
                                                            extras, shard)
-                    host = torch.cat([losses, improved.reshape(1).to(losses.dtype)]).tolist()
+                    with annotate("train.losses"):
+                        host = torch.cat([losses, improved.reshape(1).to(losses.dtype)]).tolist()
                     if host[-1] and main:
-                        ckpt.save_network(kind, best_prev, ckpt_path)  # Q12, once a chunk
-                    for loss in host[:-1]:
-                        # the post-chunk weights: the entering ones are not kept
-                        log(loss, epoch, minibatch_id, params)
-                        minibatch_id += 1
+                        with annotate("train.save_best"):
+                            ckpt.save_network(kind, best_prev, ckpt_path)  # Q12, once a chunk
+                    with annotate("train.losses"):
+                        for loss in host[:-1]:
+                            # the post-chunk weights: the entering ones are not kept
+                            log(loss, epoch, minibatch_id, params)
+                            minibatch_id += 1
                     i += k * batch_size
                 else:  # ragged tail: one single step
-                    caps_b, feats_b = tables.gather(perm[i:])
-                    prev = _clone(params)
-                    resolve(prev, single_step(params, feats_b, caps_b, row_shard(num - i)), epoch,
-                            minibatch_id)
+                    with annotate("train.gather"):
+                        caps_b, feats_b = tables.gather(perm[i:])
+                    with annotate("train.dispatch"):
+                        prev = _clone(params)
+                        loss = single_step(params, feats_b, caps_b, row_shard(num - i))
+                    resolve(prev, loss, epoch, minibatch_id)
                     minibatch_id += 1
                     i = num
         else:
-            batches = ((tables.gather(mask), row_shard(len(mask))) for mask in
-                       epoch_minibatch_indices(tables.num_captions, batch_size, rng))
+            with annotate("train.permute"):
+                masks = list(epoch_minibatch_indices(tables.num_captions, batch_size, rng))
             minibatch_id = -1
-            for minibatch_id, ((captions, features), shard) in enumerate(batches):
-                prev = _clone(params)
-                loss = single_step(params, features, captions.long(), shard)
+            for minibatch_id, mask in enumerate(masks):
+                with annotate("train.gather"):
+                    captions, features = tables.gather(mask)
+                with annotate("train.dispatch"):
+                    prev = _clone(params)
+                    loss = single_step(params, features, captions.long(), row_shard(len(mask)))
                 keeper.push(prev, loss, epoch, minibatch_id)
             keeper.flush()
             minibatch_id += 1
@@ -683,24 +700,27 @@ def _drive_a2c_epoch(*, epoch: int, level: Optional[int], train_data: CocoData,
     the chunk takes the row shard (a ragged minibatch runs whole). Returns
     the carried key."""
     host_caps, num = train_data.train_captions, tables.num_captions
-    perm = rng.permutation(num)  # the draw of data.coco.epoch_minibatch_indices
+    with annotate("train.permute"):
+        perm = rng.permutation(num)  # the draw of data.coco.epoch_minibatch_indices
     i = minibatch_id = 0
     while i < num:
-        k = max(1, min(chunk_steps, (num - i) // batch_size))
-        mask = perm[i: i + k * batch_size]
-        n = len(mask) // k
-        subs, currs, caplens = [], [], []
-        for j in range(k):
-            key, sub = split(key)
-            subs.append(sub)
-            caplens.append(_host_caplen(host_caps[mask[j * n: (j + 1) * n]]))
-            currs.append(1 if level is None else caplens[-1] - level)
-        shard = None if batcher is None else batcher.row_shard(n)
-        caps_b, feats_b = tables.gather(mask, k=k)
-        rows = n if shard is None else shard.rows
-        stats, valid = chunk(a2c_params, reward_params, feats_b.view(k, rows, -1),
-                             caps_b.long().view(k, rows, -1), currs, subs,
-                             None if batcher is None else caplens, shard)
+        with annotate("train.gather"):
+            k = max(1, min(chunk_steps, (num - i) // batch_size))
+            mask = perm[i: i + k * batch_size]
+            n = len(mask) // k
+            subs, currs, caplens = [], [], []
+            for j in range(k):
+                key, sub = split(key)
+                subs.append(sub)
+                caplens.append(_host_caplen(host_caps[mask[j * n: (j + 1) * n]]))
+                currs.append(1 if level is None else caplens[-1] - level)
+            shard = None if batcher is None else batcher.row_shard(n)
+            caps_b, feats_b = tables.gather(mask, k=k)
+            rows = n if shard is None else shard.rows
+        with annotate("train.dispatch"):
+            stats, valid = chunk(a2c_params, reward_params, feats_b.view(k, rows, -1),
+                                 caps_b.long().view(k, rows, -1), currs, subs,
+                                 None if batcher is None else caplens, shard)
         keeper.push(stats, valid, epoch, minibatch_id)
         minibatch_id += k
         i += len(mask)
@@ -718,20 +738,21 @@ def _a2c_resolver(desc: str, tags: tuple, writer, state: dict, a2c_params: dict,
     reward, mean advantage)."""
 
     def resolve(stats, valid, epoch, first_id):
-        host = torch.stack(list(stats)).cpu().numpy()  # [5, k], one copy
-        for j in np.flatnonzero(valid):
-            loss = float(host[0, j])
-            minibatch_id = first_id + int(j)
-            check_finite(loss, desc, f"epoch {epoch + 1}, minibatch {minibatch_id}",
-                         dump=lambda path: ckpt.save_pytree(a2c_params, path),
-                         dump_path=str(save_paths[0]) + ".diverged"
-                         if save_paths and main else None)
-            state["best"] = min(state["best"], loss)
-            n = global_minibatch_number(epoch, minibatch_id, batch_size)
-            rec = steps.RolloutStats(*host[:, j])
-            writer.add_scalar(tags[0], loss, n)
-            writer.add_scalar(tags[1], float(rec.mean_reward), n)
-            writer.add_scalar(tags[2], float(rec.mean_advantage), n)
+        with annotate("train.losses"):
+            host = torch.stack(list(stats)).cpu().numpy()  # [5, k], one copy
+            for j in np.flatnonzero(valid):
+                loss = float(host[0, j])
+                minibatch_id = first_id + int(j)
+                check_finite(loss, desc, f"epoch {epoch + 1}, minibatch {minibatch_id}",
+                             dump=lambda path: ckpt.save_pytree(a2c_params, path),
+                             dump_path=str(save_paths[0]) + ".diverged"
+                             if save_paths and main else None)
+                state["best"] = min(state["best"], loss)
+                n = global_minibatch_number(epoch, minibatch_id, batch_size)
+                rec = steps.RolloutStats(*host[:, j])
+                writer.add_scalar(tags[0], loss, n)
+                writer.add_scalar(tags[1], float(rec.mean_reward), n)
+                writer.add_scalar(tags[2], float(rec.mean_advantage), n)
 
     return resolve
 
@@ -755,9 +776,10 @@ def _a2c_epochs(desc: str, tags: tuple, level: Optional[int], writer, train_data
                                tables=tables, a2c_params=a2c_params,
                                reward_params=reward_params, rng=rng, key=key, keeper=keeper,
                                batcher=batcher)
-        if main:
-            ckpt.save_to_paths(a2c_params, save_paths)  # every epoch (trainers.py:498)
-        snapshot(epoch, key, state["best"])
+        with annotate("train.snapshot"):
+            if main:
+                ckpt.save_to_paths(a2c_params, save_paths)  # every epoch (trainers.py:498)
+            snapshot(epoch, key, state["best"])
         print(f"{desc} ({epoch + 1}/{epochs}): {time.perf_counter() - t0:.1f} s, best loss "
               f"{state['best']}", flush=True)
     return key

@@ -102,6 +102,7 @@ from ..parallel import collectives
 from ..parallel import tensor_parallel as tp
 from ..parallel.collectives import RowShard, gather_rows, reduce_gradients
 from ..parallel.sharding import gather_params
+from ..utils.profiling import annotate
 
 
 def batch_caption_lens(captions: torch.Tensor) -> torch.Tensor:
@@ -668,13 +669,18 @@ class BestLossChunk:
 
     def __call__(self, best_loss: float, features: torch.Tensor, captions: torch.Tensor,
                  extras=None, shard=None):
+        """The chunk's k updates: ``(losses [k], best_prev, best, improved)``
+        on the device. Its host phases are two sibling spans: a new
+        shape's capture (``train.capture``) and the updates or the replay
+        (``train.dispatch``)."""
         k = features.shape[0]
         if not self.graph:
-            self._best.fill_(best_loss)
-            self._improved.zero_()
-            losses = torch.stack([self._update(features[j], captions[j],
-                                               () if extras is None else extras[j], shard)
-                                  for j in range(k)])
+            with annotate("train.dispatch"):
+                self._best.fill_(best_loss)
+                self._improved.zero_()
+                losses = torch.stack([self._update(features[j], captions[j],
+                                                   () if extras is None else extras[j], shard)
+                                      for j in range(k)])
             return losses, self.best_prev, self._best, self._improved
         if extras is not None:
             raise ValueError("a captured chunk takes no per-minibatch extras")
@@ -686,11 +692,13 @@ class BestLossChunk:
             caps_buf.copy_(captions)
         key = tuple(feats_buf.shape) + (caps_buf.shape[2], shard)
         if key not in self._graphs:
-            self._graphs[key] = self._capture(feats_buf, caps_buf, shard)
+            with annotate("train.capture"):
+                self._graphs[key] = self._capture(feats_buf, caps_buf, shard)
         graph, losses = self._graphs[key]
-        self._best.fill_(best_loss)
-        self._improved.zero_()
-        graph.replay()
+        with annotate("train.dispatch"):
+            self._best.fill_(best_loss)
+            self._improved.zero_()
+            graph.replay()
         BestLossChunk.replays += 1
         return losses, self.best_prev, self._best, self._improved
 

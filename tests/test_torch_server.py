@@ -142,6 +142,45 @@ def test_healthz_and_stats(server):
                                         "fused_sample_decode": 0, "token_gate_table": 0}
 
 
+def test_stats_split_latency_into_queue_wait_and_service(models, monkeypatch):
+    """``/stats`` splits each answered request's latency into its queue
+    wait (queued to taken into a batch) and its service time (taken to
+    answered): a request held in the queue while the batcher is kept from
+    draining shows the hold as queue wait, not as service."""
+    import threading
+    import time
+
+    _, _, tcap = models
+    go = threading.Event()
+    srv = server_mod.CaptionServer(tcap, port=0, max_wait_ms=1, max_batch=8)
+    real_drain = srv._drain
+
+    def held_drain():
+        go.wait(timeout=30)
+        return real_drain()
+
+    monkeypatch.setattr(srv, "_drain", held_drain)
+    hold_s = 0.3
+    srv.start()
+    try:
+        answer = []
+        client = threading.Thread(target=lambda: answer.append(
+            _post_json(srv, {"features": _feats(3, 4).tolist()})))
+        client.start()
+        time.sleep(hold_s)
+        go.set()
+        client.join(timeout=60)
+        assert not client.is_alive() and len(answer[0]) == 3
+        stats = srv.snapshot_stats()
+    finally:
+        srv.stop()
+    assert stats["requests"] == 1 and stats["errors"] == 0
+    wait, service, latency = (stats[f"{k}_p50_ms"] for k in ("queue_wait", "service", "latency"))
+    assert stats["queue_wait_p95_ms"] == wait and stats["service_p95_ms"] == service
+    assert wait >= 0.8 * hold_s * 1e3 and service < wait
+    assert wait + service == pytest.approx(latency, abs=0.01)
+
+
 def test_main_serves_from_pt_and_vocab(models, tmp_path):
     """``server.main --model a2c.pt --vocab vocab.json --device cpu``: load
     the reference-layout checkpoint, warm up, serve."""
