@@ -136,25 +136,108 @@ def load_data(base_dir: str, max_train: Optional[int] = None, pca_features: bool
     return data
 
 
+# id(idx_to_word) -> (idx_to_word, a copy of it, its table or None). The
+# entry holds the dict itself, so its id is not reused while the entry lives.
+_TABLES: Dict[int, tuple] = {}
+_TABLES_MAX = 4
+
+
+def _build_table(idx_to_word: dict):
+    """``(V, piece, is_null, is_end)`` for the whole-array decode, or None
+    where the keys are not ``0..V-1``, a word is not a ``str`` or holds a
+    newline. ``piece`` lists, for a word ``i``: ``" " + word`` at ``i``, the
+    word alone (a row's first) at ``V + 1 + i``; ``""`` (a dropped token) at
+    ``V`` and ``2V + 1``; and the row end ``"\\n"`` at ``2V + 2``."""
+    words = [idx_to_word.get(i) for i in range(len(idx_to_word))]
+    if not all(type(w) is str and "\n" not in w for w in words):
+        return None
+    piece = np.array([" " + w for w in words] + [""] + words + ["", "\n"], dtype=object)
+    is_null = np.array([w == "<NULL>" for w in words], dtype=bool)
+    is_end = np.array([w == "<END>" for w in words], dtype=bool)
+    return len(words), piece, is_null, is_end
+
+
+def _vocab_table(idx_to_word):
+    """The cached table of ``idx_to_word``, rebuilt whenever the dict no
+    longer equals the copy taken with it (a vocabulary changed in place)."""
+    if type(idx_to_word) is not dict:
+        return None
+    entry = _TABLES.get(id(idx_to_word))
+    if entry is not None and entry[1] == idx_to_word:
+        return entry[2]
+    table = _build_table(idx_to_word)
+    if len(_TABLES) >= _TABLES_MAX:
+        _TABLES.clear()
+    _TABLES[id(idx_to_word)] = (idx_to_word, dict(idx_to_word), table)
+    return table
+
+
+def _decode_table(captions: np.ndarray, vocab: int, piece: np.ndarray, is_null: np.ndarray,
+                  is_end: np.ndarray) -> list:
+    """Whole-array decode of an ``[N, T]`` grid of ids in ``[0, V)``: every
+    ``<NULL>`` and every column past a row's first ``<END>`` is dropped, a
+    row's first kept word is taken without its space, and one ``"".join``
+    over the grid, each row closed by a newline, is split into the rows."""
+    n, t = captions.shape
+    captions = captions.astype(np.intp, copy=False)
+    end = is_end[captions]
+    stop = np.where(end.any(1), end.argmax(1), t)
+    drop = (np.arange(t) > stop[:, None]) | is_null[captions]
+    idx = np.empty((n, t + 1), np.intp)
+    idx[:, :t] = np.where(drop, vocab, captions)
+    idx[np.arange(n), (~drop).argmax(1)] += vocab + 1
+    idx[:, t] = 2 * vocab + 2
+    text = "".join(piece[idx.ravel()].tolist()).split("\n")
+    text.pop()
+    return text
+
+
+def _decode_loop(captions: np.ndarray, idx_to_word) -> list:
+    """Token by token, for the inputs the table cannot take."""
+    decoded = []
+    for row in captions:
+        words = []
+        for tok in row:
+            word = idx_to_word[int(tok)]
+            if word != "<NULL>":
+                words.append(word)
+            if word == "<END>":
+                break
+        decoded.append(" ".join(words))
+    return decoded
+
+
 def decode_captions(captions: np.ndarray, idx_to_word: Dict[int, str]):
     """Token ids -> text. Skips <NULL>, keeps words up to and including
-    <END>, then stops."""
+    <END>, then stops; a 1-D row gives one string.
+
+    A grid of integer ids in ``[0, V)`` over a ``dict`` whose keys are
+    ``0..V-1`` and whose words are strings without a newline decodes as
+    whole arrays over a per-vocabulary table, cached for the last few dicts
+    and rebuilt when one changes; ``decode_captions.fast_calls`` counts
+    those calls. Every other input (other keys or words, ids not of an
+    integer dtype or out of range, an empty grid) takes the token-by-token
+    loop, which raises ``KeyError`` at the first unknown id it reaches;
+    ``decode_captions.fallback_calls`` counts those."""
     with annotate("caption.strings"):
         captions = np.asarray(captions)
         singleton = captions.ndim == 1
         if singleton:
             captions = captions[None]
-        decoded = []
-        for row in captions:
-            words = []
-            for tok in row:
-                word = idx_to_word[int(tok)]
-                if word != "<NULL>":
-                    words.append(word)
-                if word == "<END>":
-                    break
-            decoded.append(" ".join(words))
+        table = _vocab_table(idx_to_word)
+        if (table is not None and captions.ndim == 2 and captions.size
+                and captions.dtype.kind in "iu"
+                and captions.min() >= 0 and captions.max() < table[0]):
+            decode_captions.fast_calls += 1
+            decoded = _decode_table(captions, *table)
+        else:
+            decode_captions.fallback_calls += 1
+            decoded = _decode_loop(captions, idx_to_word)
         return decoded[0] if singleton else decoded
+
+
+decode_captions.fast_calls = 0
+decode_captions.fallback_calls = 0
 
 
 def get_coco_batch(data: CocoData, batch_size: int = 100, split: str = "train",

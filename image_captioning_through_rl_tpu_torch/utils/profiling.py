@@ -10,7 +10,10 @@ range over it):
 
 - ``caption.features_in``, ``caption.search``, ``caption.tokens_out``
   (:class:`..api.Captioner`) and ``caption.strings``
-  (:func:`..data.coco.decode_captions`);
+  (:func:`..data.coco.decode_captions`, whose counters
+  ``decode_captions.fast_calls`` and ``decode_captions.fallback_calls``
+  say how many calls decoded over the vocabulary's cached table and how
+  many token by token);
 - ``train.permute``, ``train.gather``, ``train.dispatch``, ``train.losses``,
   ``train.save_best``, ``train.snapshot`` (:mod:`..train.loops`), and
   ``train.capture`` and ``train.dispatch`` (:class:`..train.steps.BestLossChunk`).
