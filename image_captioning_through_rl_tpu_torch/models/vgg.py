@@ -29,6 +29,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..utils.profiling import annotate
 from .initializers import linear_init
 
 # channels per convolution; "M" a 2x2 max-pool (configuration D)
@@ -193,7 +194,14 @@ def iter_features(model: VGG16, images, batch_size: int = 64, projection=None, l
     ``mesh`` (one process's :class:`..parallel.mesh.Mesh`) splits each
     padded batch into equal row blocks over its ``data`` entries, each on
     its device's copy of the model (the batch rounded up to a multiple of
-    the entries), and joins the blocks on the model's device."""
+    the entries), and joins the blocks on the model's device.
+
+    Each batch's host phases are three sibling spans
+    (:func:`..utils.profiling.annotate`): ``extract.pixels_in`` (the slice,
+    decoded by ``loader`` where one is given, padded and copied to the
+    device), ``extract.stack`` (the stack's and the projection's launches)
+    and ``extract.features_out`` (the block read back, which waits on the
+    device)."""
     replicas = None
     if mesh is not None:
         replicas = _mesh_replicas(model, projection, mesh)
@@ -203,17 +211,25 @@ def iter_features(model: VGG16, images, batch_size: int = 64, projection=None, l
         return iter(())
     dev = next(model.parameters()).device
 
-    def fc7(batch: np.ndarray) -> torch.Tensor:
+    def pixels_in(batch: np.ndarray):
         if replicas is None:
-            feats = features_fc7(model, torch.from_numpy(batch).to(dev, non_blocking=True),
-                                 compute_dtype=compute_dtype)
+            return torch.from_numpy(batch).to(dev, non_blocking=True)
+        return [torch.from_numpy(block).to(d, non_blocking=True)
+                for block, (d, _, _) in zip(np.split(batch, len(replicas)), replicas)]
+
+    def stack(x) -> torch.Tensor:
+        if replicas is None:
+            feats = features_fc7(model, x, compute_dtype=compute_dtype)
             return feats if projection is None else projection.apply(feats)
         parts = []
-        for block, (d, m, proj) in zip(np.split(batch, len(replicas)), replicas):
-            f = features_fc7(m, torch.from_numpy(block).to(d, non_blocking=True),
-                             compute_dtype=compute_dtype)
+        for block, (_, m, proj) in zip(x, replicas):
+            f = features_fc7(m, block, compute_dtype=compute_dtype)
             parts.append((f if proj is None else proj.apply(f)).to(dev))
         return torch.cat(parts)
+
+    def features_out(f: torch.Tensor, real: int) -> np.ndarray:
+        with annotate("extract.features_out"):
+            return f[:real].cpu().numpy()
 
     def blocks():
         pending = []
@@ -221,17 +237,20 @@ def iter_features(model: VGG16, images, batch_size: int = 64, projection=None, l
         if progress is not None:
             starts = progress(starts)
         for i in starts:
-            chunk = images[i:i + batch_size]
-            batch = np.asarray(chunk if loader is None else loader(chunk))
-            real = batch.shape[0]
-            if real < batch_size:
-                batch = np.concatenate([batch, np.repeat(batch[-1:], batch_size - real, axis=0)])
-            pending.append((fc7(batch), real))
+            with annotate("extract.pixels_in"):
+                chunk = images[i:i + batch_size]
+                batch = np.asarray(chunk if loader is None else loader(chunk))
+                real = batch.shape[0]
+                if real < batch_size:
+                    batch = np.concatenate([batch,
+                                            np.repeat(batch[-1:], batch_size - real, axis=0)])
+                x = pixels_in(batch)
+            with annotate("extract.stack"):
+                pending.append((stack(x), real))
             if len(pending) > PIPELINE_DEPTH:
-                f, r = pending.pop(0)
-                yield f[:r].cpu().numpy()
+                yield features_out(*pending.pop(0))
         for f, r in pending:
-            yield f[:r].cpu().numpy()
+            yield features_out(f, r)
 
     return blocks()
 
@@ -247,7 +266,8 @@ def extract_features(model: VGG16, images, batch_size: int = 64, projection=None
     if not blocks:
         dim = projection.dim if projection is not None else FC7_DIM
         return np.zeros((0, dim), np.float32)
-    return np.concatenate(blocks, axis=0)
+    with annotate("extract.features_out"):
+        return np.concatenate(blocks, axis=0)
 
 
 def print_progress(desc: str):

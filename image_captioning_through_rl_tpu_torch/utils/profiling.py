@@ -16,7 +16,13 @@ range over it):
   many token by token);
 - ``train.permute``, ``train.gather``, ``train.dispatch``, ``train.losses``,
   ``train.save_best``, ``train.snapshot`` (:mod:`..train.loops`), and
-  ``train.capture`` and ``train.dispatch`` (:class:`..train.steps.BestLossChunk`).
+  ``train.capture`` and ``train.dispatch`` (:class:`..train.steps.BestLossChunk`);
+- ``extract.pixels_in``, ``extract.stack``, ``extract.features_out``
+  (:func:`..models.vgg.iter_features`, the last also around
+  :func:`..models.vgg.extract_features`' join of the blocks; the visual
+  front end that :class:`..api.FeatureExtractor` and
+  :meth:`..api.Captioner.caption_images` call, outside every ``caption.*``
+  span).
 """
 
 from __future__ import annotations
