@@ -22,7 +22,10 @@ range over it):
   :func:`..models.vgg.extract_features`' join of the blocks; the visual
   front end that :class:`..api.FeatureExtractor` and
   :meth:`..api.Captioner.caption_images` call, outside every ``caption.*``
-  span).
+  span; its counters ``iter_features.pinned_batches`` and
+  ``iter_features.pageable_batches`` say how many batches went to a card
+  through page-locked memory on a copy stream and how many were handed
+  over as the host's own array).
 """
 
 from __future__ import annotations

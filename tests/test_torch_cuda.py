@@ -85,6 +85,15 @@ beam kernel once a decode group; against the plain beam on the same bf16
 weights its real and url dumps are byte-identical and a generated line may
 part only at a near-tie of the plain beam (the COCO-width run of 40504
 draws is ``chip_smoke.py`` phase 20's).
+
+VGG16's pixels (``models/vgg.iter_features`` on a bf16 stack with He-normal
+weights, so fc7 is not zero): staged in page-locked memory and copied on a
+side stream, each block read back into page-locked memory under an event
+of its own, every batch's features equal, bit for bit, those of the same
+padded batch copied from the host's own array (also on a mesh of the card
+twice, block by block), over calls of several batches with a ragged last,
+two calls back to back and two interleaved; each batch counts as pinned,
+and a traced call copies no pixels from pageable memory.
 """
 
 import os
@@ -103,6 +112,8 @@ from image_captioning_through_rl_tpu_torch.models.initializers import (
     gru_init,
     lstm_init,
 )
+from image_captioning_through_rl_tpu_torch.models import vgg as tvgg
+from image_captioning_through_rl_tpu_torch.parallel import make_mesh
 from image_captioning_through_rl_tpu_torch.ops import fused_beam as fb
 from image_captioning_through_rl_tpu_torch.ops import fused_decode as fd
 from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
@@ -1496,3 +1507,101 @@ def test_captured_chunk_replays_call_no_wrapper(dev):
     assert torch.equal(l_graph, l_eager)
     for (_, a), (_, b) in zip(ckpt._leaves(p_graph), ckpt._leaves(p_eager), strict=True):
         assert torch.equal(a.detach(), b.detach())
+
+
+# ---- VGG16's pixels: pinned staging on a copy stream ----
+
+VGG_BATCH = 16
+
+
+def _vgg_bf16(dev):
+    """A bf16 VGG16 on the card with He-normal weights and zero biases."""
+    model = tvgg.VGG16(device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, (2.0 / p[0].numel()) ** 0.5, generator=gen)
+    return tvgg.cast_params(model, torch.bfloat16)
+
+
+def _vgg_pixels(n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 256, (n, 224, 224, 3)).astype(np.float32)
+    x *= rng.uniform(0.2, 1.0, (n, 1, 1, 1))  # a contrast each, so rows part
+    return x.astype(np.uint8)
+
+
+def _pageable_features(model, pixels, replicas):
+    """Each padded batch copied from the host's own array, through
+    ``features_fc7`` in ``replicas`` row blocks, cut to its rows."""
+    dev = next(model.parameters()).device
+    out = []
+    for i in range(0, len(pixels), VGG_BATCH):
+        rows = pixels[i:i + VGG_BATCH]
+        padded = np.concatenate([rows, np.repeat(rows[-1:], VGG_BATCH - len(rows), axis=0)])
+        feats = [tvgg.features_fc7(model, torch.from_numpy(block).to(dev),
+                                   compute_dtype=torch.bfloat16)
+                 for block in np.split(padded, replicas)]
+        out.append(torch.cat(feats)[:len(rows)].cpu().numpy())
+    return np.concatenate(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_vgg_pinned_pixels_match_pageable_copies_bit_for_bit(dev, replicas):
+    """Calls of 8 and 3 batches (the last ragged) back to back, then
+    interleaved batch by batch: every row equals the pageable copy's, and
+    every batch counts as pinned."""
+    model = _vgg_bf16(dev)
+    card = next(model.parameters()).device
+    mesh = make_mesh(devices=[card] * 2) if replicas == 2 else None
+    a, b = _vgg_pixels(8 * VGG_BATCH - 5, 1), _vgg_pixels(2 * VGG_BATCH + 1, 2)
+    want_a, want_b = (_pageable_features(model, x, replicas) for x in (a, b))
+    assert float(np.abs(want_a).max()) > 0 and not np.array_equal(want_a[0], want_a[1])
+
+    def table(x):
+        return tvgg.extract_features(model, x, batch_size=VGG_BATCH,
+                                     compute_dtype=torch.bfloat16, mesh=mesh)
+
+    pinned, pageable = tvgg.iter_features.pinned_batches, tvgg.iter_features.pageable_batches
+    got_a, got_b = table(a), table(b)
+    np.testing.assert_array_equal(got_a, want_a)
+    np.testing.assert_array_equal(got_b, want_b)
+    assert tvgg.iter_features.pinned_batches - pinned == 8 + 3
+    assert tvgg.iter_features.pageable_batches == pageable
+    its = {k: tvgg.iter_features(model, x, batch_size=VGG_BATCH,
+                                 compute_dtype=torch.bfloat16, mesh=mesh)
+           for k, x in enumerate((a, b))}
+    mixed = {0: [], 1: []}
+    while its:
+        for k in list(its):
+            block = next(its[k], None)
+            if block is None:
+                del its[k]
+            else:
+                mixed[k].append(block)
+    np.testing.assert_array_equal(np.concatenate(mixed[0]), want_a)
+    np.testing.assert_array_equal(np.concatenate(mixed[1]), want_b)
+
+
+@pytest.mark.cuda
+def test_vgg_traced_call_copies_no_pageable_pixels(dev):
+    """After a first call (which makes the normalisation's constants), a
+    traced call's host-to-device copies are all from pinned memory."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = _vgg_bf16(dev)
+    pixels = _vgg_pixels(3 * VGG_BATCH - 2, 3)
+    tvgg.extract_features(model, pixels, batch_size=VGG_BATCH, compute_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        tvgg.extract_features(model, pixels, batch_size=VGG_BATCH,
+                              compute_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+    copies = [e.name() for e in prof.profiler.kineto_results.events()
+              if "Memcpy HtoD" in e.name()]
+    assert not any("Pageable" in c for c in copies), copies
+    assert sum("Pinned" in c for c in copies) == 3, copies
