@@ -53,6 +53,7 @@ from .ops import prng
 from .ops.fused_beam import fused_beam_search, prepare_beam_weights
 from .ops.fused_decode import fused_greedy_decode, prepare_greedy_weights
 from .ops.fused_sample import check_counter_space, fused_sample_decode
+from .ops.kernel_build import kernel_weight_dtype, refuse_forced_kernel, runs_kernel
 from .parallel.sharding import gather_params
 from .utils.profiling import annotate
 
@@ -73,8 +74,10 @@ class Captioner:
     ``params``: a2c ``{"policy", "value"}`` or policy-only parameters in
     the JAX layout. ``weight_dtype``: the kernels' weight type; the default
     is bf16 on CUDA (the TPU kernels' type) and f32 on the CPU, where the
-    plain versions then equal the JAX package's float32 decode. The
-    weights are cast and laid out for the kernels once, here. ``device``
+    plain versions then equal the JAX package's float32 decode
+    (:func:`.ops.kernel_build.kernel_weight_dtype`). The weights are cast
+    and laid out for the kernels once, here (on a mesh, once per device by
+    :mod:`.parallel.serve`). ``device``
     is the card unless the caller asks for ``"cpu"``; a missing CUDA
     device raises. A bidirectional ``cfg`` keeps the float32 weights as
     they are, on the device, for the eager decodes (another
@@ -106,12 +109,11 @@ class Captioner:
                 raise ValueError(f"weight_dtype={weight_dtype}: a bidirectional model decodes "
                                  "in float32 (no decode kernel serves it)")
             self.weight_dtype = torch.float32
-            self._greedy_w = self._beam_w = None
         else:
-            if weight_dtype is None:
-                weight_dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
-            self.weight_dtype = weight_dtype
-            self._greedy_w = prepare_greedy_weights(self._policy, weight_dtype)
+            self.weight_dtype = kernel_weight_dtype(self.device, weight_dtype)
+        self._greedy_w = self._beam_w = None
+        if not cfg.bidirectional and mesh is None:
+            self._greedy_w = prepare_greedy_weights(self._policy, self.weight_dtype)
             self._beam_w = (prepare_beam_weights(self._greedy_w, self._value)
                             if value is not None else None)
         self._cfg = cfg
@@ -145,10 +147,13 @@ class Captioner:
     def _start(self, rows: int) -> torch.Tensor:
         return torch.full((rows,), START_ID, dtype=torch.int32, device=self.device)
 
-    def _check_kernel(self, use_fused_kernel, what: str) -> None:
-        if use_fused_kernel and self._cfg.bidirectional:
-            raise ValueError(f"use_fused_kernel=True cannot be honored: the fused {what} "
-                             "kernel is unidirectional only")
+    def _check_kernel(self, use_fused_kernel, faithful: bool = False) -> None:
+        """A kernel forced for a bidirectional model or the faithful beam,
+        which no kernel serves, raises ``ValueError``."""
+        if faithful or self._cfg.bidirectional:
+            refuse_forced_kernel(use_fused_kernel, "use_fused_kernel=True",
+                                 "in faithful (batch-mean Q2) mode" if faithful
+                                 else "with a bidirectional model")
 
     def caption_tokens(self, features, beam_size: int = 0, use_fused_kernel=None,
                        faithful_beam: bool = False) -> np.ndarray:
@@ -161,54 +166,65 @@ class Captioner:
         raises ``ValueError``."""
         feats = self._features(features)
         with annotate("caption.search"):
-            toks = self._search(feats, beam_size, use_fused_kernel, faithful_beam)
+            start = self._start(feats.shape[0])
+            if beam_size > 0:
+                dcfg = DecodeConfig(beam_size=beam_size, max_seq_len=self._cfg.max_seq_len,
+                                    per_sample_beams=not faithful_beam)
+                toks = self._beam_tokens(feats, start, dcfg, use_fused_kernel)
+            else:
+                toks = self._greedy_tokens(feats, start, use_fused_kernel)
         return self._tokens_out(toks)
 
-    def _search(self, feats: torch.Tensor, beam_size: int, use_fused_kernel,
-                faithful_beam: bool) -> torch.Tensor:
-        """:meth:`caption_tokens`' decode, its tokens ``[N, T]`` left on the
-        device."""
-        start = self._start(feats.shape[0])
-        max_len = self._cfg.max_seq_len
-        if beam_size > 0:
-            if self._value is None:
-                raise ValueError("beam search needs a value network (pass a2c params)")
-            if use_fused_kernel and faithful_beam:
-                raise ValueError("use_fused_kernel=True cannot be honored: the fused beam "
-                                 "kernel is unidirectional and non-faithful only")
-            self._check_kernel(use_fused_kernel, "beam")
-            dcfg = DecodeConfig(beam_size=beam_size, max_seq_len=max_len,
-                                per_sample_beams=not faithful_beam)
-            if faithful_beam:
-                with torch.no_grad():
-                    toks, _, _ = beam_search_compat(self._policy, self._value, self._cfg, dcfg,
-                                                    feats, start)
-            elif self._mesh is not None:
-                from .parallel.serve import sharded_beam_tokens
-
-                toks, _ = sharded_beam_tokens(self._mesh, *self._mesh_params, self._cfg, dcfg,
-                                              feats, start, **self._mesh_kw(use_fused_kernel))
-            elif self._cfg.bidirectional:
-                with torch.no_grad():
-                    toks, _ = beam_search(self._policy, self._value, self._cfg, dcfg, feats,
-                                          start)
-            else:
-                toks, _ = fused_beam_search(
-                    self._beam_w, feats, start, max_len=max_len, beam=beam_size,
-                    value_weight=dcfg.value_weight, logprob_weight=dcfg.logprob_weight,
-                    use_fused_kernel=use_fused_kernel)
-            return toks[:, 0]
-        self._check_kernel(use_fused_kernel, "greedy")
+    def _greedy_tokens(self, feats: torch.Tensor, start: torch.Tensor,
+                       use_fused_kernel) -> torch.Tensor:
+        self._check_kernel(use_fused_kernel)
         if self._mesh is not None:
             from .parallel.serve import sharded_greedy_tokens
 
             return sharded_greedy_tokens(self._mesh, self._mesh_params[0], self._cfg, feats,
                                          start, **self._mesh_kw(use_fused_kernel))
+        max_len = self._cfg.max_seq_len
         if self._cfg.bidirectional:
             with torch.no_grad():
                 return greedy_decode(self._policy, self._cfg, feats, start, max_len)
         return fused_greedy_decode(self._greedy_w, feats, start, max_len=max_len,
                                    use_fused_kernel=use_fused_kernel)
+
+    def _check_beam(self, dcfg: DecodeConfig, use_fused_kernel) -> None:
+        """The beam's refusals, before any work: no value network or a kernel
+        forced in a mode no kernel serves (``ValueError``), a kernel forced
+        on the CPU (``RuntimeError``)."""
+        if self._value is None:
+            raise ValueError("beam search needs a value network (pass a2c params)")
+        self._check_kernel(use_fused_kernel, faithful=not dcfg.per_sample_beams)
+        runs_kernel(use_fused_kernel, self._policy["embedding"], "beam")
+
+    def _beam_tokens(self, feats: torch.Tensor, start: torch.Tensor, dcfg: DecodeConfig,
+                     use_fused_kernel) -> torch.Tensor:
+        """The one beam route outside the mesh layer: beam 0's tokens
+        ``[N, T]``, left on the device, for the rows ``feats [N, F]`` from
+        ``start [N]`` under ``dcfg`` (its weights, length and faithful mode).
+        :meth:`caption_tokens` and the evaluation
+        (:func:`.train.loops.test_a2c_network`) decode through it."""
+        self._check_beam(dcfg, use_fused_kernel)
+        if not dcfg.per_sample_beams:
+            with torch.no_grad():
+                toks, _, _ = beam_search_compat(self._policy, self._value, self._cfg, dcfg,
+                                                feats, start)
+        elif self._mesh is not None:
+            from .parallel.serve import sharded_beam_tokens
+
+            toks, _ = sharded_beam_tokens(self._mesh, *self._mesh_params, self._cfg, dcfg,
+                                          feats, start, **self._mesh_kw(use_fused_kernel))
+        elif self._cfg.bidirectional:
+            with torch.no_grad():
+                toks, _ = beam_search(self._policy, self._value, self._cfg, dcfg, feats, start)
+        else:
+            toks, _ = fused_beam_search(
+                self._beam_w, feats, start, max_len=dcfg.max_seq_len, beam=dcfg.beam_size,
+                value_weight=dcfg.value_weight, logprob_weight=dcfg.logprob_weight,
+                use_fused_kernel=use_fused_kernel)
+        return toks[:, 0]
 
     def sample_tokens(self, features, temperature: float = 1.0, top_k: int = 0,
                       top_p: float = 1.0, num_samples: int = 1, seed: int = 0,
@@ -234,7 +250,7 @@ class Captioner:
         if temperature == 0:
             toks = self.caption_tokens(features, use_fused_kernel=use_fused_kernel)
             return np.repeat(toks[:, None, :], num_samples, axis=1) if num_samples > 1 else toks
-        self._check_kernel(use_fused_kernel, "sampling")
+        self._check_kernel(use_fused_kernel)
         feats = self._features(features)
         n = feats.shape[0]
         check_counter_space(n * num_samples, self._cfg.vocab_size)  # before the R-fold copy

@@ -43,7 +43,7 @@ from .fused_decode import (
 )
 from .fused_lstm import (_CHAIN_RING, _SLICE_UNITS, CHAIN_ROWS, SMEM_PER_BLOCK, SMEM_PER_SM,
                          SMEM_RESERVED, _chain_smem)
-from .kernel_build import check_error, load_library
+from .kernel_build import check_error, load_library, runs_kernel
 from .padding import pad_dim, pad_gates, pad_split_rows
 
 MAX_BEAM = 8  # the kernel's bound (icrl_beam_max_beam in csrc/beam_search.cu)
@@ -431,13 +431,8 @@ def fused_beam_search(weights: BeamWeights, features: torch.Tensor,
         raise ValueError(f"beam must be in [1, {MAX_BEAM}], got {beam}")
     args = (weights, features, start_tokens, max_len, beam, value_weight, logprob_weight)
     check_clock(clock, beam_clock_slots(max_len), features, use_fused_kernel)
-    if use_fused_kernel is False:
-        return beam_search_plain(*args)
-    if features.is_cuda:
+    if runs_kernel(use_fused_kernel, features, "beam"):
         return _launch_beam(*args, clock=clock)
-    if use_fused_kernel:
-        raise RuntimeError("use_fused_kernel=True needs CUDA tensors: the beam kernel "
-                           "runs only on a CUDA device")
     return beam_search_plain(*args)
 
 

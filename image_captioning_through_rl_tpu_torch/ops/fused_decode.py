@@ -30,7 +30,7 @@ from typing import NamedTuple
 import torch
 
 from .. import MAX_SEQ_LEN
-from .kernel_build import check_error, load_library
+from .kernel_build import check_error, load_library, runs_kernel
 from .linalg import matmul
 from .padding import NEG, needs_padding, pad8, pad_dim, pad_gates, pad_split_rows
 
@@ -533,15 +533,10 @@ def fused_greedy_decode(weights: GreedyWeights, features: torch.Tensor,
     count, then the cell tiles' (what ``DECODE_TILE_COST`` balances).
     """
     check_clock(clock, decode_clock_slots(max_len), features, use_fused_kernel)
-    if use_fused_kernel is False:
-        return greedy_decode_plain(weights, features, start_tokens, max_len)
-    if features.is_cuda:
+    if runs_kernel(use_fused_kernel, features, "greedy"):
         out = launch_decode(weights, features, start_tokens, max_len, PICK_ARGMAX, clock=clock)
         fused_greedy_decode.launches += 1
         return out
-    if use_fused_kernel:
-        raise RuntimeError("use_fused_kernel=True needs CUDA tensors: the greedy kernel "
-                           "runs only on a CUDA device")
     return greedy_decode_plain(weights, features, start_tokens, max_len)
 
 

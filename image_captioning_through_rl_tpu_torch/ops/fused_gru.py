@@ -33,7 +33,7 @@ from .fused_lstm import (
     padded_chain,
     plan_args,
 )
-from .kernel_build import check_error, load_library
+from .kernel_build import check_error, load_library, runs_kernel
 
 
 def gru_chain_plan(n: int, hidden: int, weight_dtype: torch.dtype, sm_count: int,
@@ -198,11 +198,8 @@ def fused_gru_chain(gru_params: dict, embedding: torch.Tensor, tokens: torch.Ten
     :func:`gru_chain_plain`. ``use_fused_kernel=False`` forces the plain
     version; ``True`` on CPU tensors raises. ``fused_gru_chain.fwd_launches``
     and ``.bwd_launches`` count kernel launches of each direction."""
-    if use_fused_kernel is False or (not h0.is_cuda and not use_fused_kernel):
+    if not runs_kernel(use_fused_kernel, h0, "GRU chain"):
         return gru_chain_plain(gru_params, embedding, tokens, h0, weight_dtype)
-    if not h0.is_cuda:
-        raise RuntimeError("use_fused_kernel=True needs CUDA tensors: the GRU chain kernels "
-                           "run only on a CUDA device")
     _check_chain_inputs("fused_gru_chain", gru_params, embedding, tokens, (h0,), 3, weight_dtype)
 
     def kernel(p, emb, tok, h):

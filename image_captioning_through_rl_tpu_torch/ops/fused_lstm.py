@@ -35,7 +35,7 @@ import functools
 import torch
 
 from .fused_decode import round_to, token_gate_table, wmatmul
-from .kernel_build import check_error, load_library
+from .kernel_build import check_error, load_library, runs_kernel
 from .linalg import matmul
 from .padding import needs_padding, pad8, pad_cell, pad_dim
 
@@ -380,11 +380,8 @@ def fused_lstm_chain(lstm_params: dict, embedding: torch.Tensor, tokens: torch.T
     :func:`lstm_chain_plain`. ``use_fused_kernel=False`` forces the plain
     version; ``True`` on CPU tensors raises. ``fused_lstm_chain.fwd_launches``
     and ``.bwd_launches`` count kernel launches of each direction."""
-    if use_fused_kernel is False or (not h0.is_cuda and not use_fused_kernel):
+    if not runs_kernel(use_fused_kernel, h0, "LSTM chain"):
         return lstm_chain_plain(lstm_params, embedding, tokens, h0, c0, weight_dtype)
-    if not h0.is_cuda:
-        raise RuntimeError("use_fused_kernel=True needs CUDA tensors: the LSTM chain kernels "
-                           "run only on a CUDA device")
     _check_chain_inputs("fused_lstm_chain", lstm_params, embedding, tokens, (h0, c0), 4,
                         weight_dtype)
 

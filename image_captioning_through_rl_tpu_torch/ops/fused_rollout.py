@@ -71,7 +71,7 @@ from .fused_decode import (assert_tokens, check_tile_widths, round_to, token_gat
 from .fused_lstm import (_CHAIN_RING, _SLICE_UNITS, CHAIN_ROWS, CHAIN_THREADS, SMEM_PER_BLOCK,
                          SMEM_PER_SM, SMEM_RESERVED, _chain_smem, chain_plan, embedding_grad,
                          lstm_chain_backward_plain)
-from .kernel_build import check_error, load_library
+from .kernel_build import check_error, load_library, runs_kernel
 from .linalg import dense
 from .padding import needs_padding, pad8, pad_cell, pad_dim, pad_split_rows
 from .prng import gumbel_noise, split
@@ -260,14 +260,11 @@ def reward_stream(rw: RewardWeights, act_sm: torch.Tensor, tok_sm: torch.Tensor,
     :func:`rollout_clock_slots` on the card, filled as
     :func:`rollout_forward_kernel` fills its own (S + 1 passes: the last
     one takes the last step's reward)."""
-    if use_fused_kernel is False or (not rw.xg.is_cuda and not use_fused_kernel):
-        if clock is not None:
-            raise ValueError("clock profiles the kernel: the plain version takes none")
-        return reward_stream_plain(rw, act_sm, tok_sm)
-    if not rw.xg.is_cuda:
-        raise RuntimeError("use_fused_kernel=True needs CUDA tensors: the reward stream kernel "
-                           "runs only on a CUDA device")
-    return _launch_reward_stream(rw, act_sm, tok_sm, clock)
+    if runs_kernel(use_fused_kernel, rw.xg, "reward stream"):
+        return _launch_reward_stream(rw, act_sm, tok_sm, clock)
+    if clock is not None:
+        raise ValueError("clock profiles the kernel: the plain version takes none")
+    return reward_stream_plain(rw, act_sm, tok_sm)
 
 
 def fused_reward_stream(reward_params: dict, cfg, features: torch.Tensor,
@@ -1138,11 +1135,8 @@ def rollout_from_noise(a2c_params: dict, cfg, features: torch.Tensor, captions: 
     teach_sm = captions[:, 1:].t().to(torch.int32).contiguous()
     reward = None if reward_params is None else prepare_reward_weights(
         reward_params, features, start, weight_dtype)
-    if use_fused_kernel is False or (not features.is_cuda and not use_fused_kernel):
+    if not runs_kernel(use_fused_kernel, features, "rollout"):
         fn = _RolloutPlain
-    elif not features.is_cuda:
-        raise RuntimeError("use_fused_kernel=True needs CUDA tensors: the rollout kernels run "
-                           "only on a CUDA device")
     else:
         _check_tape_options(variant, weight_dtype)
         fn = _RolloutKernel

@@ -57,6 +57,7 @@ from .fused_decode import (
     round_to,
     wmatmul,
 )
+from .kernel_build import runs_kernel
 from .linalg import matmul
 
 # the longest row (or survivor list) the kernel's filtered pick holds in a
@@ -240,15 +241,10 @@ def fused_sample_decode(weights: GreedyWeights, features: torch.Tensor,
         raise ValueError(f"temperature must be positive, got {temperature} (0 is greedy)")
     check_clock(clock, decode_clock_slots(max_len), features, use_fused_kernel)
     args = (weights, features, start_tokens, key, max_len, temperature, top_k, top_p)
-    if use_fused_kernel is False:
-        return sample_decode_plain(*args, row0=row0)
-    if features.is_cuda:
+    if runs_kernel(use_fused_kernel, features, "sampling"):
         out = _launch_sample(*args, clock=clock, row0=row0)
         fused_sample_decode.launches += 1
         return out
-    if use_fused_kernel:
-        raise RuntimeError("use_fused_kernel=True needs CUDA tensors: the sampling kernel "
-                           "runs only on a CUDA device")
     return sample_decode_plain(*args, row0=row0)
 
 

@@ -1,4 +1,6 @@
-"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+"""Build and load the port's CUDA kernels (``csrc/*.cu``), and the rules
+every kernel wrapper routes by (:func:`runs_kernel`,
+:func:`refuse_forced_kernel`, :func:`kernel_weight_dtype`).
 
 The sources compile with ``nvcc`` for ``sm_90a``, one process per source,
 all started together, and link into one shared library with a plain C
@@ -22,6 +24,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -132,6 +136,42 @@ def load_library() -> ctypes.CDLL:
         fn.restype = restype
         fn.argtypes = argtypes
     return lib
+
+
+def runs_kernel(use_fused_kernel, tensor, kernel: str) -> bool:
+    """The port's one routing rule: whether a wrapper's call runs its
+    kernel (True) or its plain version. ``use_fused_kernel=False`` runs the
+    plain version; otherwise a CUDA ``tensor`` runs the kernel, and a CPU
+    one the plain version, but ``True`` raises there (``RuntimeError``;
+    ``kernel`` names the kernel in the message). Nothing falls back."""
+    if use_fused_kernel is False:
+        return False
+    if tensor.is_cuda:
+        return True
+    if use_fused_kernel:
+        raise RuntimeError(f"use_fused_kernel=True needs CUDA tensors: the {kernel} kernel "
+                           "runs only on a CUDA device")
+    return False
+
+
+def refuse_forced_kernel(forced, what: str, why: str) -> None:
+    """A kernel forced (``forced`` true) in a mode that no kernel serves
+    raises ``ValueError`` rather than quietly running another program (the
+    JAX package's rule). ``what`` names the forcing flag, ``why`` the
+    mode."""
+    if forced:
+        raise ValueError(f"{what} was explicitly forced but cannot be honored {why} — the "
+                         "fused kernels are unidirectional, non-faithful and non-compat; "
+                         "drop the force flag or the conflicting mode")
+
+
+def kernel_weight_dtype(device, weight_dtype=None):
+    """The kernels' weight type: ``weight_dtype`` if given, else bf16 on a
+    CUDA device (the TPU kernels' type) and float32 elsewhere, where the
+    plain versions then equal the JAX package's float32 decode."""
+    if weight_dtype is not None:
+        return weight_dtype
+    return torch.bfloat16 if torch.device(device).type == "cuda" else torch.float32
 
 
 def check_error(lib: ctypes.CDLL, name: str, err: int) -> None:

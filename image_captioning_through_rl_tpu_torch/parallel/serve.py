@@ -38,6 +38,7 @@ from ..decode.sample import sample_decode
 from ..ops.fused_beam import fused_beam_search, prepare_beam_weights
 from ..ops.fused_decode import fused_greedy_decode, prepare_greedy_weights
 from ..ops.fused_sample import check_counter_space, fused_sample_decode
+from ..ops.kernel_build import kernel_weight_dtype
 from .collectives import gather_blocks
 from .hostbatch import GlobalBatcher
 from .mesh import Mesh
@@ -95,21 +96,15 @@ def _run(mesh: Mesh, rows: int, decode_block, outputs: int = 1):
     return joined if outputs > 1 else joined[0]
 
 
-def _weight_dtype(device: torch.device, weight_dtype) -> torch.dtype:
-    if weight_dtype is not None:
-        return weight_dtype
-    return torch.bfloat16 if device.type == "cuda" else torch.float32
-
-
 def _greedy_weights(policy: Replicated, device: torch.device, weight_dtype):
-    key = ("greedy", device, _weight_dtype(device, weight_dtype))
+    key = ("greedy", device, kernel_weight_dtype(device, weight_dtype))
     if key not in policy.cache:
         policy.cache[key] = prepare_greedy_weights(policy[device], key[2])
     return policy.cache[key]
 
 
 def _beam_weights(policy: Replicated, value: Replicated, device: torch.device, weight_dtype):
-    key = ("beam", device, _weight_dtype(device, weight_dtype), id(policy))
+    key = ("beam", device, kernel_weight_dtype(device, weight_dtype), id(policy))
     if key not in value.cache:
         value.cache[key] = prepare_beam_weights(
             _greedy_weights(policy, device, weight_dtype), value[device])

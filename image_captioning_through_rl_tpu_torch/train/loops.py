@@ -65,9 +65,10 @@ all-reduce inside; gloo's collectives do not capture, so a gloo rank runs
 them eagerly.
 
 The evaluation half: ``load_a2c_models`` loads a finished model, and
-``test_a2c_network`` decodes random val draws with the value-guided beam
-(``csrc/beam_search.cu`` on the card; a bidirectional model's carried eager
-beam, :func:`..decode.beam.beam_search`; the faithful mode's Q1-stateful
+``test_a2c_network`` decodes random val draws with the value-guided beam,
+through the :class:`..api.Captioner`'s beam route (``csrc/beam_search.cu``
+on the card; a bidirectional model's carried eager beam,
+:func:`..decode.beam.beam_search`; the faithful mode's Q1-stateful
 :func:`..decode.beam_compat.beam_search_compat`) and dumps the real and
 generated captions and the image urls, which :mod:`..metrics` scores. It draws
 ``data_size`` val samples *with replacement* (quirk Q8) and walks them in
@@ -85,21 +86,17 @@ import numpy as np
 import torch
 
 from .. import END_ID, MAX_SEQ_LEN
-from ..api import resolve_device
+from ..api import Captioner, resolve_device
 from ..config import DecodeConfig, NetConfig, TrainConfig
 from ..data.coco import CocoData, decode_captions, epoch_minibatch_indices, get_coco_batch
 from ..data.device import DeviceCocoTables, HostCocoTables
-from ..decode.beam import beam_search
-from ..decode.beam_compat import beam_search_compat
 from ..models import policy as policy_mod
 from ..models import reward as reward_mod
 from ..models import value as value_mod
-from ..ops.fused_beam import fused_beam_search, prepare_beam_weights
-from ..ops.fused_decode import prepare_greedy_weights
+from ..ops.kernel_build import refuse_forced_kernel
 from ..ops.prng import PRNGKey, split
 from ..parallel import collectives
 from ..parallel.hostbatch import GlobalBatcher
-from ..parallel.sharding import gather_params
 from ..parallel.mesh import is_main_process
 from ..utils.io import append_results, global_minibatch_number
 from ..utils.logging import make_metrics_writer, print_green, print_red
@@ -156,23 +153,14 @@ def _capturable(device: torch.device) -> bool:
     return not collectives.active() or torch.distributed.get_backend() == "nccl"
 
 
-def _forced_fused_conflict(flag, what: str, why: str) -> None:
-    """An explicitly forced fused path that cannot run raises rather than
-    quietly running another program (the JAX package's rule)."""
-    if flag:
-        raise ValueError(f"{what} was explicitly forced but cannot be honored {why} — the "
-                         "fused kernels are unidirectional and non-compat; drop the force "
-                         "flag or the conflicting mode")
-
-
 def _use_fused(fused_chain: Optional[bool], device: torch.device, cfg: NetConfig,
                what: str = "fused_chain", compat: bool = False) -> bool:
     """The fused steps run on a CUDA device unless ``fused_chain`` says
     otherwise; never for a bidirectional ``cfg`` or the compat (Q1) steps
     (forcing them raises)."""
     if cfg.bidirectional or compat:
-        _forced_fused_conflict(fused_chain, what, "with a bidirectional model"
-                               if cfg.bidirectional else "with compat_batch_as_time")
+        refuse_forced_kernel(fused_chain, what, "with a bidirectional model"
+                             if cfg.bidirectional else "with compat_batch_as_time")
         return False
     return device.type == "cuda" if fused_chain is None else bool(fused_chain)
 
@@ -1080,14 +1068,17 @@ def test_a2c_network(a2c_params: dict, cfg: NetConfig, test_data: CocoData,
     ``compat_dump=True`` reproduces quirk Q13 (each slice written with
     ``"\\n".join`` and no trailing newline, so slice boundaries merge).
 
-    On ``device`` (the card unless the caller asks for the CPU; a missing
-    CUDA device raises) the weights are prepared once: bf16 on the card,
-    where the beam runs the kernel (:func:`..ops.fused_beam.fused_beam_search`),
-    float32 on the CPU, where it runs the plain version.
-    ``use_fused_kernel=False`` runs the plain version; ``True`` on the CPU
-    raises. A bidirectional model runs the carried beam
-    (:func:`..decode.beam.beam_search`) in float32 on ``device``, as the
-    JAX package routes it, and refuses ``use_fused_kernel=True``.
+    The beam decodes through one :class:`..api.Captioner` over
+    ``a2c_params`` on ``device`` (the card unless the caller asks for the
+    CPU; a missing CUDA device raises), under ``dcfg`` and from the draws'
+    own start tokens, and every refusal is raised before a dump is opened.
+    Its weights are prepared once: bf16 on the card, where the beam runs
+    the kernel (:func:`..ops.fused_beam.fused_beam_search`), float32 on the
+    CPU, where it runs the plain version. ``use_fused_kernel=False`` runs
+    the plain version; ``True`` on the CPU raises. A bidirectional model
+    runs the carried beam (:func:`..decode.beam.beam_search`) in float32
+    on ``device``, as the JAX package routes it, and refuses
+    ``use_fused_kernel=True``.
 
     The faithful mode (``dcfg.per_sample_beams=False``) is the reference's
     own eval: the Q2 batch-mean beam with the Q1-stateful critic
@@ -1106,47 +1097,12 @@ def test_a2c_network(a2c_params: dict, cfg: NetConfig, test_data: CocoData,
     over ``data`` and the parameters are replicated over ``model``; a
     vocab-sharded tree is gathered once, here.
     """
-    a2c_params = gather_params(a2c_params)
     dcfg = dcfg or DecodeConfig(max_seq_len=cfg.max_seq_len)
     faithful = not dcfg.per_sample_beams
-    if faithful:
-        _forced_fused_conflict(use_fused_kernel, "use_fused_kernel=True",
-                               "in faithful (batch-mean Q2) mode")
-    if cfg.bidirectional:
-        _forced_fused_conflict(use_fused_kernel, "use_fused_kernel=True",
-                               "with a bidirectional model")
-    dev = _device(device, mesh)
-    if use_fused_kernel and dev.type != "cuda":
-        raise RuntimeError("use_fused_kernel=True needs a CUDA device: the beam kernel runs "
-                           "only on the card")
-    if mesh is not None and not faithful:
-        from ..parallel.serve import sharded_beam_tokens
-        from ..parallel.sharding import replicate
-
-        pp, vp = (replicate(mesh, a2c_params[k]) for k in ("policy", "value"))
-
-        def decode(features, start):
-            return sharded_beam_tokens(mesh, pp, vp, cfg, dcfg, features, start,
-                                       use_fused_kernel=use_fused_kernel)
-    elif faithful or cfg.bidirectional:
-        pparams, vparams = (ckpt.to_device(a2c_params[k], dev) for k in ("policy", "value"))
-        beam_fn = beam_search_compat if faithful else beam_search
-
-        def decode(features, start):
-            with torch.no_grad():  # the compat beam's carry starts at zero per call
-                return beam_fn(pparams, vparams, cfg, dcfg, features, start)[:2]
-    else:
-        wd = torch.bfloat16 if dev.type == "cuda" else torch.float32
-        weights = prepare_beam_weights(
-            prepare_greedy_weights(ckpt.to_device(a2c_params["policy"], dev), wd),
-            ckpt.to_device(a2c_params["value"], dev))
-
-        def decode(features, start):
-            return fused_beam_search(
-                weights, features, start, max_len=dcfg.max_seq_len, beam=dcfg.beam_size,
-                value_weight=dcfg.value_weight, logprob_weight=dcfg.logprob_weight,
-                use_fused_kernel=use_fused_kernel)
-
+    cap = Captioner(a2c_params, cfg, test_data.idx_to_word,
+                    device="cuda" if device is None else device, mesh=mesh)
+    cap._check_beam(dcfg, use_fused_kernel)  # every refusal before a dump is opened
+    dev = cap.device
     rng = np.random.default_rng(seed + 5)
     captions_all, features_all, urls_all = get_coco_batch(
         test_data, batch_size=data_size, split="val", rng=rng)
@@ -1183,10 +1139,11 @@ def test_a2c_network(a2c_params: dict, cfg: NetConfig, test_data: CocoData,
                     [features_real, np.repeat(features_real[-1:], pad, axis=0)], axis=0)
                 captions_real = np.concatenate(
                     [captions_real, np.repeat(captions_real[-1:], pad, axis=0)], axis=0)
-            toks, _ = decode(
+            toks = cap._beam_tokens(  # beam 0, the most likely
                 torch.from_numpy(np.ascontiguousarray(features_real, np.float32)).to(dev),
-                torch.from_numpy(captions_real[:, 0].astype(np.int32)).to(dev))
-            gen_all = toks[:n_real, 0].cpu().numpy()  # most likely = beam 0
+                torch.from_numpy(captions_real[:, 0].astype(np.int32)).to(dev), dcfg,
+                use_fused_kernel)
+            gen_all = toks[:n_real].cpu().numpy()
             # write per original slice, the reference's cadence
             off = 0
             for caps_s, _, urls_s in batch:

@@ -28,6 +28,8 @@ from image_captioning_through_rl_tpu_torch.decode import (
     greedy_decode_full_prefix,
 )
 from image_captioning_through_rl_tpu_torch.models import from_jax_params
+from image_captioning_through_rl_tpu_torch.models import reward as treward
+from image_captioning_through_rl_tpu_torch.ops import prng as tprng
 from image_captioning_through_rl_tpu_torch.ops.fused_beam import (
     beam_search_plain,
     fused_beam_search,
@@ -38,6 +40,21 @@ from image_captioning_through_rl_tpu_torch.ops.fused_decode import (
     fused_greedy_decode,
     greedy_decode_plain,
     prepare_greedy_weights,
+)
+from image_captioning_through_rl_tpu_torch.ops.fused_gru import fused_gru_chain, gru_chain_plain
+from image_captioning_through_rl_tpu_torch.ops.fused_lstm import fused_lstm_chain, lstm_chain_plain
+from image_captioning_through_rl_tpu_torch.ops.fused_rollout import (
+    prepare_reward_weights,
+    prepare_rollout_weights,
+    reward_stream,
+    reward_stream_plain,
+    rollout_forward_plain,
+    rollout_from_noise,
+    start_states,
+)
+from image_captioning_through_rl_tpu_torch.ops.fused_sample import (
+    fused_sample_decode,
+    sample_decode_plain,
 )
 
 torch.set_num_threads(1)
@@ -139,21 +156,80 @@ def test_margins_report_the_plain_decisions(params):
     assert bgaps.shape == (9, T - 1) and bool((bgaps >= 0).all())
 
 
-def test_routing_and_unported_modes(params):
-    _, tp = params
+def _routed(kind, tp):
+    """``(wrapper, plain)`` for one kernel wrapper on CPU tensors:
+    ``wrapper(use_fused_kernel)`` and the plain version's result, each a
+    tuple of tensors."""
     feats, start = _feats(4)
     f, s = torch.from_numpy(feats), torch.from_numpy(start)
+    gen = torch.Generator().manual_seed(5)
+    toks = torch.randint(3, KW["vocab_size"], (4, T), generator=gen, dtype=torch.int32)
+    h = torch.randn(4, KW["hidden_dim"], generator=gen)
     gw = prepare_greedy_weights(tp["policy"], torch.float32)
-    bw = prepare_beam_weights(gw, tp["value"])
+    rp = treward.init(torch.Generator().manual_seed(1), TCFG)
+    if kind == "greedy":
+        return (lambda uf: (fused_greedy_decode(gw, f, s, T, use_fused_kernel=uf),),
+                lambda: (greedy_decode_plain(gw, f, s, T),))
+    if kind == "beam":
+        bw = prepare_beam_weights(gw, tp["value"])
+        return (lambda uf: fused_beam_search(bw, f, s, T, BEAM, use_fused_kernel=uf),
+                lambda: beam_search_plain(bw, f, s, T, BEAM))
+    if kind == "sampling":
+        key = tprng.PRNGKey(3)
+        return (lambda uf: (fused_sample_decode(gw, f, s, key, T, temperature=0.9,
+                                                use_fused_kernel=uf),),
+                lambda: (sample_decode_plain(gw, f, s, key, T, temperature=0.9),))
+    if kind == "lstm_chain":
+        args = (tp["policy"]["lstm"], tp["policy"]["embedding"], toks, h, -h)
+        return (lambda uf: (fused_lstm_chain(*args, use_fused_kernel=uf),),
+                lambda: (lstm_chain_plain(*args),))
+    if kind == "gru_chain":
+        args = (rp["gru"], rp["embedding"], toks, h)
+        return (lambda uf: (fused_gru_chain(*args, use_fused_kernel=uf),),
+                lambda: (gru_chain_plain(*args),))
+    if kind == "reward_stream":
+        rw = prepare_reward_weights(rp, f, s.long(), torch.float32)
+        act, tok = toks.t().contiguous(), toks.flip(1).t().contiguous()
+        return (lambda uf: (reward_stream(rw, act, tok, uf),),
+                lambda: (reward_stream_plain(rw, act, tok),))
+    caps = torch.cat([s[:, None], toks[:, 1:]], 1).long()
+    noise = -torch.log(-torch.log(torch.rand(T - 1, 4, KW["vocab_size"], generator=gen)))
+
+    def plain():
+        states = start_states(tp, TCFG, f, caps[:, 0])
+        values, logp, _, tape = rollout_forward_plain(
+            3, caps[:, 1:].t().to(torch.int32).contiguous(), noise, None, f, *states,
+            prepare_rollout_weights(tp, torch.float32))
+        return values.t(), logp.t(), tape.act.t(), tape.tok.t()
+
+    return (lambda uf: rollout_from_noise(tp, TCFG, f, caps, 3, noise,
+                                          weight_dtype=torch.float32, use_fused_kernel=uf),
+            plain)
+
+
+@pytest.mark.parametrize("kind", ["greedy", "beam", "sampling", "lstm_chain", "gru_chain",
+                                  "reward_stream", "rollout"])
+def test_routing_and_unported_modes(params, kind):
+    """Each kernel wrapper routes by the one rule: on CPU tensors ``None``
+    and ``False`` give the plain version's result, ``True`` raises
+    ``RuntimeError`` instead of falling back."""
+    _, tp = params
+    wrapper, plain = _routed(kind, tp)
+    want = plain()
+    with torch.no_grad():
+        for uf in (None, False):
+            got = wrapper(uf)
+            assert len(got) == len(want)
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), uf
     with pytest.raises(RuntimeError, match="CUDA"):
-        fused_greedy_decode(gw, f, s, T, use_fused_kernel=True)
-    with pytest.raises(RuntimeError, match="CUDA"):
-        fused_beam_search(bw, f, s, T, BEAM, use_fused_kernel=True)
-    np.testing.assert_array_equal(
-        fused_greedy_decode(gw, f, s, T, use_fused_kernel=False).numpy(),
-        greedy_decode_plain(gw, f, s, T).numpy())
-    with pytest.raises(ValueError, match="beam"):
-        fused_beam_search(bw, f, s, T, beam=9)
+        wrapper(True)
+    if kind == "beam":
+        feats, start = _feats(4)
+        bw = prepare_beam_weights(prepare_greedy_weights(tp["policy"], torch.float32),
+                                  tp["value"])
+        with pytest.raises(ValueError, match="beam"):
+            fused_beam_search(bw, torch.from_numpy(feats), torch.from_numpy(start), T, beam=9)
 
 
 def test_bf16_kernel_width_check():

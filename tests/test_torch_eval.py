@@ -41,6 +41,7 @@ from image_captioning_through_rl_tpu_torch.metrics import (
 )
 from image_captioning_through_rl_tpu_torch.metrics.postprocess import post_process_data as tpost
 from image_captioning_through_rl_tpu_torch.models import from_jax_params
+from image_captioning_through_rl_tpu_torch.parallel import make_mesh
 from image_captioning_through_rl_tpu_torch.train.loops import load_a2c_models as tload
 from image_captioning_through_rl_tpu_torch.train.loops import test_a2c_network as teval
 
@@ -185,6 +186,48 @@ def _leaves(tree, path=()):
             yield from _leaves(tree[k], path + (k,))
         else:
             yield "/".join(path + (k,)), np.asarray(tree[k])
+
+
+def test_dumps_on_a_mesh_equal_the_unsharded_run(small, tmp_path):
+    """The evaluation on a mesh of two CPU entries (each group's beam
+    sharded over the ``data`` axis) writes dumps byte-identical to the
+    unsharded run's."""
+    _, tdata, _, tp = small
+    cfg = tconfig.NetConfig(**SMALL)
+    one, two = _paths(str(tmp_path / "one")), _paths(str(tmp_path / "two"))
+    kw = dict(data_size=300, eval_superbatch=2, seed=3, device="cpu",
+              dcfg=tconfig.DecodeConfig(beam_size=5))
+    teval(tp, cfg, tdata, one, **kw)
+    teval(tp, cfg, tdata, two, mesh=make_mesh(devices=["cpu"] * 2), **kw)
+    for key in DUMPS:
+        assert _read(two[key]) == _read(one[key]), key
+
+
+def test_the_beam_runs_through_the_api_name(small, tmp_path, monkeypatch):
+    """``Captioner.caption_tokens(beam_size=...)`` and the evaluation's
+    dumps both reach the beam wrapper through ``api.fused_beam_search``, the
+    name the benchmark's calibration replaces to plant its faults."""
+    _, tdata, _, tp = small
+    cfg = tconfig.NetConfig(**SMALL)
+    word = 7
+    orig, calls = tapi.fused_beam_search, []
+
+    def altered(*args, **kw):
+        toks, scores = orig(*args, **kw)
+        calls.append(toks.shape[0])
+        return torch.full_like(toks, word), scores
+
+    monkeypatch.setattr(tapi, "fused_beam_search", altered)
+    cap = tapi.Captioner(tp, cfg, tdata.idx_to_word, device="cpu")
+    feats = np.asarray(tdata.val_features[:6])
+    assert (cap.caption_tokens(feats, beam_size=5) == word).all()
+    assert calls == [6]
+    p = _paths(str(tmp_path))
+    teval(tp, cfg, tdata, p, data_size=300, eval_superbatch=2, seed=3, device="cpu",
+          dcfg=tconfig.DecodeConfig(beam_size=5))
+    assert calls == [6, 254, 254]
+    gen = _read(p["generated_captions_path"]).decode().splitlines()
+    assert len(gen) == 298 and set(gen) == {" ".join([f"w{word}"] * cfg.max_seq_len)}
 
 
 def test_load_a2c_models_matches_jax(small, tmp_path):
