@@ -242,7 +242,12 @@ Phases:
      (counted under its own name), its forward and backward ms (CUDA
      events) and the peak device memory of one forward and backward beside
      the default tape's. No trainer passes the options, so these launches
-     are this phase's. (b) A random-weight torchvision-layout VGG16 .pt and
+     are this phase's. (b) The convolution epilogue (bias, ReLU and 2x2
+     pool over a channels-last output) at VGG16's 13 convolution outputs,
+     batch 64, bf16: each equal to its plain version bit for bit, and one
+     stack's pass timed (kernel, plain, bound); its launches are counted
+     over the main path below, 13 a stack batch. A
+     random-weight torchvision-layout VGG16 .pt and
      a PCA to 512 fitted on the card: FeatureExtractor at batch 64, float32
      (TF32 off) and bf16, against the same module on the CPU (VGG_F32_REL,
      VGG_BF16_MEAN_REL) and two calls bit-equal; caption_images (greedy,
@@ -3382,7 +3387,9 @@ def reference_exact_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
     --self_test with every stage PASS; one faithful Captioner request. No
     model kernel of the port launches on these paths (the JAX package runs
     them all in XLA), except the policy pretrainer's LSTM chain in the CLI
-    run (the policy has no compat mode; it trains as in every run); the
+    run (the policy has no compat mode; it trains as in every run) and the
+    x-gate tables that an ``api.Captioner``'s constructor lays out (the
+    evaluation, the CLI run and verify_reference build one or more); the
     threefry noise kernel makes each A2C draw's noise. Returns the kernels'
     launches over the phase."""
     from image_captioning_through_rl_tpu_torch.api import Captioner
@@ -3457,10 +3464,14 @@ def reference_exact_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
     draws = {"streams": 0, "beams": 0, "eval": 0, "cli": (T - 1) * minibatches,
              "bidi_steps": T - 1, "verify": 0, "captioner": 0}
     cli_kernels = {"lstm_chain_fwd": policy_steps, "lstm_chain_bwd": policy_steps}
+    # the runs that build an api.Captioner (the evaluation's, the CLI's and
+    # verify_reference's) lay out its x-gate tables in its constructor, which
+    # the faithful decodes never read: token_gates, not a decode kernel
+    builds_captioner = ("eval", "cli", "verify")
     bad = {run: {k: v for k, v in got.items()
                  if v != (draws[run] if k == "threefry_gumbel" else
                           cli_kernels.get(k, 0) if run == "cli" else 0)
-                 and not (run == "cli" and k == "token_gates")}
+                 and not (run in builds_captioner and k == "token_gates")}
            for run, got in launches.items()}
     if any(bad.values()):
         raise AssertionError(f"phase 23's launches differ from one noise launch a draw {draws} "
@@ -3468,9 +3479,11 @@ def reference_exact_main_path(dev, card: str, bundle: str, tmp: str) -> dict:
                              f"{launches})")
     phase("compat", f"no model kernel of the port launched on the reference-exact paths "
                     f"({', '.join(sorted(launches))}), but the policy pretrainer's LSTM chain "
-                    f"in the CLI run ({cli_kernels}, then {replays} graph replays; its x-gate "
-                    f"tables {launches['cli']['token_gates']}); threefry_gumbel once a draw: "
-                    f"{draws}")
+                    f"in the CLI run ({cli_kernels}, then {replays} graph replays), and the "
+                    f"x-gate tables of the Captioners that the evaluation, the CLI run and "
+                    f"verify_reference build ("
+                    + ", ".join(f"{r} {launches[r]['token_gates']}" for r in builds_captioner)
+                    + f"); threefry_gumbel once a draw: {draws}")
     phase("timing", f"{card} | reference-exact paths, float32, COCO width | faithful eval "
                     f"{ev_s['card'] / 2:.3f} s a 127-row slice on the card, {ev_s['cpu']:.3f} s "
                     f"on the CPU | compat CLI run {train_s:.3f} s: " + ", ".join(
@@ -4092,8 +4105,62 @@ VGG_F32_REL, VGG_BF16_MEAN_REL = 1e-4, 0.1
 VGG_BATCH, VGG_IMAGES, PCA_FIT_IMAGES = 64, 3, 576
 
 
+def vgg_epilogue_shapes() -> list:
+    """``(channels, height = width, pool)`` of each of VGG16's 13 convolution
+    outputs (configuration D at 224), in the stack's order."""
+    from image_captioning_through_rl_tpu_torch.models import vgg
+
+    out, hw = [], vgg.IMAGE_SIZE
+    for k, c in enumerate(vgg.CFG):
+        if c == "M":
+            hw //= 2
+        else:
+            out.append((c, hw, k + 1 < len(vgg.CFG) and vgg.CFG[k + 1] == "M"))
+    return out
+
+
+def conv_epilogue_timing(dev, card: str) -> dict:
+    """Phase 25b: the convolution epilogue (``ops/fused_conv_epilogue``:
+    bias, ReLU and, closing a block, the 2x2 pool) over VGG16's 13
+    convolution outputs at the batch of 64 in bf16 (seeded values,
+    channels-last, a bias of both signs each): each equal to the plain
+    version bit for bit (the largest difference over the 13 returned), then
+    the 13 as one stack's pass (CUDA events), kernel and plain, beside the
+    bound. The kernel's launches are counted on the main path
+    (:func:`visual_front_end`), not here."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_conv_epilogue import fused_conv_epilogue
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    cases = [(torch.randn((VGG_BATCH, c, hw, hw), generator=gen, device=dev).to(torch.bfloat16)
+              .contiguous(memory_format=torch.channels_last),
+              (0.5 * torch.randn((c,), generator=gen, device=dev)).to(torch.bfloat16), pool)
+             for c, hw, pool in vgg_epilogue_shapes()]
+    err = 0.0
+    for y, b, pool in cases:
+        got, want = (fused_conv_epilogue(y, b, pool, use_fused_kernel=k) for k in (None, False))
+        err = max(err, float((got.float() - want.float()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"conv epilogue {tuple(y.shape)} pool={pool}: the kernel "
+                                 f"differs from the plain version by up to {err:.3g}")
+
+    def stack_pass(use_fused_kernel):
+        for y, b, pool in cases:
+            fused_conv_epilogue(y, b, pool, use_fused_kernel)
+
+    ms = cuda_ms(lambda: stack_pass(None), 10)
+    plain_ms = cuda_ms(lambda: stack_pass(False), 3)
+    bound = bounds()["conv_epilogue"]
+    phase("timing", f"{card} | conv epilogue, VGG16's 13 convolution outputs at N = "
+                    f"{VGG_BATCH} bf16 (a stack's pass): kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.3f} ms, bound {bound[0]:.4f} ms ({bound[1]}); each output "
+                    f"equal to the plain version bit for bit (largest difference {err:g})")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "max_abs_err": err}
+
+
 def visual_front_end(dev, card: str, params: dict, tmp: str) -> dict:
-    """Phase 25b: a random-weight torchvision-layout VGG16 ``.pt`` and a PCA
+    """Phase 25b: the convolution epilogue (:func:`conv_epilogue_timing`); a
+    random-weight torchvision-layout VGG16 ``.pt`` and a PCA
     to F = 512 fitted on the card (576 random images); ``FeatureExtractor``
     at batch 64, float32 (TF32 off) and bf16, against the same module on the
     CPU (float32) and two calls bit-equal; ``caption_images`` (greedy and
@@ -4109,6 +4176,7 @@ def visual_front_end(dev, card: str, params: dict, tmp: str) -> dict:
     from image_captioning_through_rl_tpu_torch.data.pca import fit_pca
     from image_captioning_through_rl_tpu_torch.models import vgg
     from image_captioning_through_rl_tpu_torch.ops.fused_beam import fused_beam_search
+    from image_captioning_through_rl_tpu_torch.ops.fused_conv_epilogue import fused_conv_epilogue
     from image_captioning_through_rl_tpu_torch.ops.fused_decode import fused_greedy_decode
     from image_captioning_through_rl_tpu_torch.ops.fused_sample import fused_sample_decode
 
@@ -4129,7 +4197,28 @@ def visual_front_end(dev, card: str, params: dict, tmp: str) -> dict:
     cpu = api.load_feature_extractor(weights, device="cpu")
     px = rng.integers(0, 256, (VGG_BATCH, 256, 320, 3), dtype=np.uint8)  # resized on the card
     want = cpu(px, batch_size=VGG_BATCH)
-    out = {}
+    out = {"epilogue": conv_epilogue_timing(dev, card) if dev.type == "cuda" else None}
+    for label, ext in (("float32", ext32), ("bf16", ext16)):  # timed apart from the main path
+        batch = torch.from_numpy(px).to(dev)
+        ms = cuda_ms(lambda: vgg.features_fc7(ext.vgg, batch, compute_dtype=ext.compute_dtype),
+                     5)
+        out[label] = {"ms": ms, "images_s": VGG_BATCH / ms * 1e3}
+    # the convolution epilogue's launches on the main path from here on
+    # (FeatureExtractor's calls, caption_images / sample_images and the image
+    # server): 13 a stack batch, each batch one that iter_features pinned
+    fused_conv_epilogue.launches = 0
+    pinned0 = vgg.iter_features.pinned_batches
+
+    def epilogue_launches() -> dict:
+        n, batches = fused_conv_epilogue.launches, vgg.iter_features.pinned_batches - pinned0
+        if dev.type == "cuda" and (batches < 1 or n != len(vgg.CONV_IDXS) * batches):
+            raise AssertionError(f"the convolution epilogue launched {n} times over {batches} "
+                                 f"stack batches of the main path, not {len(vgg.CONV_IDXS)} a "
+                                 f"batch")
+        phase("vision", f"convolution epilogue: {n} launches over {batches} stack batches of "
+                        f"the main path ({len(vgg.CONV_IDXS)} a batch)")
+        return {"vision": n, "batches": batches}
+
     for label, ext in (("float32", ext32), ("bf16", ext16)):
         got, again = ext(px, batch_size=VGG_BATCH), ext(px, batch_size=VGG_BATCH)
         rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
@@ -4141,11 +4230,7 @@ def visual_front_end(dev, card: str, params: dict, tmp: str) -> dict:
             raise AssertionError(f"FeatureExtractor {label} on the card vs the CPU: relative "
                                  f"{rel:.3g}, mean relative {mean_rel:.3g}, two calls equal "
                                  f"{np.array_equal(got, again)}")
-        batch = torch.from_numpy(px).to(dev)
-        ms = cuda_ms(lambda: vgg.features_fc7(ext.vgg, batch, compute_dtype=ext.compute_dtype),
-                     5)
-        out[label] = {"rel": rel, "mean_rel": mean_rel, "ms": ms,
-                      "images_s": VGG_BATCH / ms * 1e3}
+        out[label].update(rel=rel, mean_rel=mean_rel)
     del ext16, cpu
     ext32 = api.load_feature_extractor(weights, pca, device=dev)
     phase("vision", f"FeatureExtractor at batch {VGG_BATCH} ([{VGG_BATCH}, 256, 320, 3] uint8 "
@@ -4178,6 +4263,7 @@ def visual_front_end(dev, card: str, params: dict, tmp: str) -> dict:
         print("PIL does not import on this machine: the image server's base64 route and the "
               "path route are not run (the array routes above are)", flush=True)
         out["server"] = None
+        out["epilogue_launches"] = epilogue_launches()
         out["seconds"] = time.perf_counter() - t_phase
         return out
     paths, blobs = [], []
@@ -4223,6 +4309,7 @@ def visual_front_end(dev, card: str, params: dict, tmp: str) -> dict:
     if stats["errors"] or stats["images_extracted"] < 3 * VGG_IMAGES:
         raise AssertionError(f"image server stats {stats}")
     out["server"] = {"latency_ms": sorted(lat)[len(lat) // 2], "stats": stats}
+    out["epilogue_launches"] = epilogue_launches()
     out["seconds"] = time.perf_counter() - t_phase
     phase("vision", f"server.main --vgg_weights --pca --device cuda: greedy, beam-{BEAM} and "
                     f"sampled images_b64 requests ({VGG_IMAGES} PNGs) equal to "
@@ -5907,6 +5994,11 @@ def bounds() -> dict:
     out["threefry_gumbel_window"] = work(el * fw, el * (126 + 3), H100_F32)
     reward_w = (H * g3 + H * H) * bw + (V * g3 + g3 + H) * fw
     reward_step = 2 * n * H * g3 + 2 * n * H * H + 4 * n * H
+    # VGG16's 13 convolution epilogues at the batch of 64 in bf16 (phase 25b):
+    # each convolution's output read once, each epilogue's written once (a
+    # pooled one a quarter the size)
+    out["conv_epilogue"] = work(sum(VGG_BATCH * c * hw * hw * (1 + (0.25 if pool else 1.0))
+                                    for c, hw, pool in vgg_epilogue_shapes()) * bw, 0.0)
     out["reward_stream"] = work(reward_w + 2 * n * H * fw + 3 * S * n * 4, S * reward_step)
     policy_value_w = 2 * lstm_w + head_w + ((F + H) * H + H) * bw
     grads = (2 * (V * E + (E + H) * g4 + g4) + H * V + V + (F + H) * H + 2 * H + 1) * fw
@@ -6372,6 +6464,16 @@ def main() -> int:
             k["launches"] += emb["launches"][k["name"]]
         if k["name"] in CHAIN_RUNS:
             k["runs_by_path"]["embeddings"] = emb["runs"][k["name"]]
+    ep = vision["epilogue"]  # VGG16's convolution epilogue (phase 25b), no TPU kernel's
+    ep_runs = vision["epilogue_launches"]
+    kernels.append({"name": "conv_epilogue", "route": "cuda",
+                    "source": "image_captioning_through_rl_tpu_torch/csrc/conv_epilogue.cu",
+                    "replaces": None, "launches": ep_runs["vision"],
+                    "launches_by_path": {"vision": ep_runs["vision"]},
+                    "max_abs_err": ep["max_abs_err"],
+                    "ms": ep["ms"], "plain_ms": ep["plain_ms"], "bound_ms": ep["bound_ms"],
+                    "bound_by": ep["bound_by"], "library_ms": None,
+                    "shape": f"VGG16's 13 convolution outputs, N={VGG_BATCH} bf16"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,

@@ -11,11 +11,20 @@ torchvision-layout ``.pt`` loads as it is (:func:`.convert.vgg_from_state_dict`)
 The JAX package works in NHWC; its fc6 reads the NCHW flatten, which is this
 module's own, so its weights carry over unpermuted (:func:`.convert.vgg_from_jax`).
 
-There is no hand-written kernel here: the JAX package runs the stack in XLA,
-and the port runs it through ``torch.nn.functional.conv2d`` (cuDNN on the
-card), ``max_pool2d`` and ``linear``. A float32 stack on the card turns
-TF32 off first (cuDNN's convolutions use TF32 by default, which keeps about
-three decimal digits), so float32 is float32 on every device.
+The JAX package runs the stack in XLA. The port runs its convolutions
+through ``torch.nn.functional.conv2d`` (cuDNN on the card) and fc6 and fc7
+through ``linear``. On the CPU the stack is ``self.features`` as it stands.
+On a card it is channels-last: the convolution weights are put in
+``torch.channels_last`` once, at the stack's first batch there
+(:func:`card_layout`), :func:`preprocess` hands over channels-last pixels,
+each convolution runs without its bias, so that cuDNN's NHWC kernels read
+and write NHWC with no transposes, and one hand-written pass adds the bias,
+applies the ReLU and, where the convolution closes a block, the 2x2 pool
+(:func:`..ops.fused_conv_epilogue.fused_conv_epilogue`, 13 launches a
+batch). Shapes, state-dict keys and fc6's NCHW flatten are the same on
+both. A float32 stack on the card turns TF32 off first (cuDNN's
+convolutions use TF32 by default, which keeps about three decimal digits),
+so float32 is float32 on every device.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..ops.fused_conv_epilogue import fused_conv_epilogue
 from ..utils.profiling import annotate
 from .initializers import linear_init
 
@@ -38,6 +48,8 @@ CFG: List = [64, 64, "M", 128, 128, "M", 256, 256, 256, "M",
              512, 512, 512, "M", 512, 512, 512, "M"]
 # the nn.Sequential indices of the 13 convolutions (torchvision's)
 CONV_IDXS = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+# ... and of the five pools, each two after the convolution that closes a block
+POOL_IDXS = (4, 9, 16, 23, 30)
 FC7_DIM, IMAGE_SIZE = 4096, 224
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -49,9 +61,10 @@ PIPELINE_DEPTH = 4
 
 
 class VGG16(nn.Module):
-    """The stack up to fc7 (post-ReLU), in NCHW, on ``device``, without
-    gradients. Its weights are uninitialised until :meth:`init` or a state
-    dict fills them."""
+    """The stack up to fc7 (post-ReLU), on ``device``, without gradients;
+    NCHW shapes, channels-last memory on a card (:meth:`channels_last_stack`).
+    Its weights are uninitialised until :meth:`init` or a state dict fills
+    them."""
 
     def __init__(self, device=None):
         super().__init__()
@@ -96,11 +109,28 @@ class VGG16(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Preprocessed images ``[N, 3, 224, 224]`` -> fc7 ``[N, 4096]`` in
-        the module's type."""
+        the module's type: on a card through :meth:`channels_last_stack`, on
+        the CPU through ``self.features``."""
         with torch.no_grad():
             _no_tf32(x)
-            x = self.features(x)
+            x = self.channels_last_stack(x) if x.is_cuda else self.features(x)
             return self.classifier(torch.flatten(x, 1))
+
+    def channels_last_stack(self, x: torch.Tensor) -> torch.Tensor:
+        """The 13 convolutions and 5 pools of ``self.features`` in
+        channels-last memory: each convolution without its bias, then its
+        bias, ReLU and (closing a block) 2x2 pool in one
+        :func:`..ops.fused_conv_epilogue.fused_conv_epilogue` (the kernel on
+        a card, its plain version on the CPU), on the weights
+        :func:`card_layout` lays out. ``[N, 3, 224, 224]`` -> channels-last
+        ``[N, 512, 7, 7]``."""
+        card_layout(self)
+        x = x.contiguous(memory_format=torch.channels_last)
+        for i in CONV_IDXS:
+            conv = self.features[i]
+            x = F.conv2d(x, conv.weight, None, padding=1)
+            x = fused_conv_epilogue(x, conv.bias, i + 2 in POOL_IDXS)
+        return x
 
 
 def init(gen: torch.Generator, device=None) -> VGG16:
@@ -116,6 +146,20 @@ def _no_tf32(x: torch.Tensor) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def card_layout(model: VGG16) -> VGG16:
+    """``model`` with its 13 convolution weights in ``torch.channels_last``
+    where it lies on a CUDA device (what cuDNN's NHWC kernels read); on any
+    other device, or laid out already, as it is. :meth:`VGG16.channels_last_stack`
+    calls it, so the weights are laid out once, at a model's first batch on
+    a card, however the model got there; a cast (``Module.to(dtype)``) or
+    a copy (``copy.deepcopy``) keeps the layout. Values, shapes and
+    state-dict keys do not change."""
+    w = model.features[CONV_IDXS[-1]].weight
+    if w.is_cuda and not w.is_contiguous(memory_format=torch.channels_last):
+        model.to(memory_format=torch.channels_last)
+    return model
+
+
 def cast_params(model: VGG16, dtype: torch.dtype) -> VGG16:
     """The model's weights in ``dtype`` (for example ``torch.bfloat16``),
     cast once, not per batch."""
@@ -127,7 +171,9 @@ def preprocess(images, size: int = IMAGE_SIZE, device=None) -> torch.Tensor:
     ``[N, 3, size, size]`` float32 on ``device`` (the images' own for a
     tensor, else the CPU): a bilinear resize that antialiases when it
     shrinks (``jax.image.resize(..., "bilinear")``'s), skipped where the
-    images are ``size`` already, then ImageNet's mean and std."""
+    images are ``size`` already, then ImageNet's mean and std. Contiguous
+    in channels-last memory on a CUDA device (the NHWC pixels' own order:
+    no copy where no resize runs), in NCHW elsewhere."""
     if not isinstance(images, torch.Tensor):
         images = torch.from_numpy(np.ascontiguousarray(images))
     if device is not None:
@@ -140,7 +186,8 @@ def preprocess(images, size: int = IMAGE_SIZE, device=None) -> torch.Tensor:
         x = F.interpolate(x, size=(size, size), mode="bilinear", align_corners=False,
                           antialias=True)
     mean, std = _imagenet_stats(x.device, x.dtype)
-    return ((x - mean) / std).contiguous()
+    layout = torch.channels_last if x.is_cuda else torch.contiguous_format
+    return ((x - mean) / std).contiguous(memory_format=layout)
 
 
 @functools.lru_cache(maxsize=None)

@@ -55,6 +55,7 @@ _SIGNATURES = {
     "icrl_rollout_fwd": (_I, [_I] * 15 + [_P] * 31 + [_I] + [_P] * 10),
     "icrl_rollout_bwd_workspace_floats": (ctypes.c_size_t, [_I] * 11),
     "icrl_rollout_bwd": (_I, [_I] * 15 + [_P] * 5 + [_I] + [_P] * 35 + [_I, _P]),
+    "icrl_conv_epilogue": (_I, [_I] * 6 + [_P] * 4),
     "icrl_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -94,6 +94,16 @@ padded batch copied from the host's own array (also on a mesh of the card
 twice, block by block), over calls of several batches with a ragged last,
 two calls back to back and two interleaved; each batch counts as pinned,
 and a traced call copies no pixels from pageable memory.
+
+VGG16's convolution epilogue (``ops/fused_conv_epilogue``: bias, ReLU and
+2x2 pool over a channels-last convolution output): the kernel equal to its
+plain version bit for bit at each block's shape, bf16 and float32, pooled
+and not, and on an odd batch; NCHW input, C % 8, odd sizes under a pool and
+a view off 16-byte alignment refused. The channels-last stack on the
+card: 13 epilogue launches a batch; bf16 fc7 against the CPU's NCHW
+float32 stack within the image cell's ``feature_gap`` (0.2), float32 (TF32
+off) within 1e-4 of each row's norm; a traced stack runs no cuDNN
+transpose, no PyTorch elementwise kernel and no other pool.
 """
 
 import os
@@ -1591,6 +1601,8 @@ def test_vgg_pinned_pixels_match_pageable_copies_bit_for_bit(dev, replicas):
 def test_vgg_traced_call_copies_no_pageable_pixels(dev):
     """After a first call (which makes the normalisation's constants), a
     traced call's host-to-device copies are all from pinned memory."""
+    import time
+
     from torch.profiler import ProfilerActivity, profile
 
     model = _vgg_bf16(dev)
@@ -1598,6 +1610,7 @@ def test_vgg_traced_call_copies_no_pageable_pixels(dev):
     tvgg.extract_features(model, pixels, batch_size=VGG_BATCH, compute_dtype=torch.bfloat16)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)  # the tracer takes effect some time after the window opens
         tvgg.extract_features(model, pixels, batch_size=VGG_BATCH,
                               compute_dtype=torch.bfloat16)
         torch.cuda.synchronize()
@@ -1605,3 +1618,183 @@ def test_vgg_traced_call_copies_no_pageable_pixels(dev):
               if "Memcpy HtoD" in e.name()]
     assert not any("Pageable" in c for c in copies), copies
     assert sum("Pinned" in c for c in copies) == 3, copies
+
+
+# ---- VGG16's convolution epilogue: bias, ReLU and pool over channels-last ----
+
+# (channels, height = width) of each block's convolutions (configuration D)
+VGG_BLOCKS = ((64, 224), (128, 112), (256, 56), (512, 28), (512, 14))
+CL = torch.channels_last
+
+
+def _conv_output(dev, dtype, c, hw, n=2, seed=0):
+    """A real convolution's output: ``F.conv2d`` without bias of a random
+    channels-last input, as the stack hands it to the epilogue, and a bias
+    of both signs."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, c, hw, hw), generator=gen, device=dev).to(dtype)
+    w = torch.randn((c, c, 3, 3), generator=gen, device=dev) * (2.0 / (9 * c)) ** 0.5
+    y = torch.nn.functional.conv2d(x.contiguous(memory_format=CL),
+                                   w.to(dtype).contiguous(memory_format=CL), None, padding=1)
+    return y, (0.5 * torch.randn((c,), generator=gen, device=dev)).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("block", range(len(VGG_BLOCKS)))
+def test_conv_epilogue_matches_plain_bit_for_bit(dev, block, dtype, pool):
+    """At each block's shape, pooled and not: the kernel's output equals the
+    plain version's (PyTorch's add, ReLU and pool) bit for bit, is
+    channels-last, leaves its input alone, and is one launch."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_conv_epilogue import fused_conv_epilogue
+
+    tvgg._no_tf32(torch.empty((), device=dev))
+    c, hw = VGG_BLOCKS[block]
+    y, b = _conv_output(dev, dtype, c, hw, seed=block)
+    assert y.is_contiguous(memory_format=CL)
+    before = y.clone()
+    launches = fused_conv_epilogue.launches
+    got = fused_conv_epilogue(y, b, pool)
+    assert fused_conv_epilogue.launches - launches == 1
+    want = fused_conv_epilogue(y, b, pool, use_fused_kernel=False)
+    assert fused_conv_epilogue.launches - launches == 1
+    assert got.shape == want.shape == ((2, c, hw // 2, hw // 2) if pool else (2, c, hw, hw))
+    assert got.is_contiguous(memory_format=CL) and got.dtype == dtype
+    assert torch.equal(got, want)
+    assert torch.equal(y, before)
+    assert 0 < int((got > 0).sum()) < got.numel()  # the bias and ReLU both show
+    assert torch.equal(fused_conv_epilogue(y, b, pool), got)
+
+
+@pytest.mark.cuda
+def test_conv_epilogue_ragged_and_offset_inputs(dev):
+    """An odd batch: equal to the plain version bit for bit. A view that
+    starts off the kernel's 16-byte loads, input or bias: refused, with no
+    launch."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_conv_epilogue import fused_conv_epilogue
+
+    y, b = _conv_output(dev, torch.bfloat16, 64, 6, n=3)
+    for pool in (False, True):
+        assert torch.equal(fused_conv_epilogue(y, b, pool),
+                           fused_conv_epilogue(y, b, pool, use_fused_kernel=False))
+    flat = torch.empty(y.numel() + 1, dtype=y.dtype, device=dev)
+    view = flat[1:].as_strided(y.shape, y.stride())
+    view.copy_(y)
+    assert view.data_ptr() % 16 and view.is_contiguous(memory_format=CL)
+    bias = torch.empty(b.numel() + 1, dtype=b.dtype, device=dev)[1:]
+    bias.copy_(b)
+    launches = fused_conv_epilogue.launches
+    for args in ((view, b), (y, bias)):
+        with pytest.raises(ValueError, match="16-byte boundary"):
+            fused_conv_epilogue(*args, True)
+    assert fused_conv_epilogue.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["nchw", "channels_12", "odd_h", "odd_w"])
+def test_conv_epilogue_refusals_on_the_card(dev, case):
+    from image_captioning_through_rl_tpu_torch.ops.fused_conv_epilogue import fused_conv_epilogue
+
+    c, h, w = {"channels_12": (12, 8, 8), "odd_h": (16, 7, 8), "odd_w": (16, 8, 9)}.get(
+        case, (16, 8, 8))
+    b = torch.zeros((c,), dtype=torch.bfloat16, device=dev)
+    y = torch.zeros((2, c, h, w), dtype=torch.bfloat16, device=dev).contiguous(memory_format=CL)
+    if case == "nchw":
+        y = y.contiguous()
+    launches = fused_conv_epilogue.launches
+    with pytest.raises(ValueError):
+        fused_conv_epilogue(y, b, True)
+    assert fused_conv_epilogue.launches == launches
+
+
+def _vgg_cpu_and_card(dev, dtype):
+    """One He-normal VGG16 (biases of both signs) in float32 on the CPU, and
+    the same weights placed on the card as ``api.FeatureExtractor`` places
+    them, in ``dtype``."""
+    import copy
+
+    model = tvgg.VGG16(device="cpu")
+    gen = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            std = 0.05 if name.endswith("bias") else (2.0 / p[0].numel()) ** 0.5
+            p.normal_(0.0, std, generator=gen)
+    card = tvgg.card_layout(copy.deepcopy(model).to(dev))
+    if dtype != torch.float32:
+        card = tvgg.cast_params(card, dtype)
+    return model, card
+
+
+def _row_gap(got, want) -> float:
+    got, want = torch.as_tensor(got, dtype=torch.float32), torch.as_tensor(want)
+    return float((torch.linalg.vector_norm(got - want, dim=1)
+                  / torch.linalg.vector_norm(want, dim=1)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_vgg_channels_last_stack_against_the_cpu_stack(dev, dtype):
+    """The card's channels-last stack (weights channels-last, pixels
+    channels-last, 13 epilogue launches a batch) against the CPU's NCHW
+    ``self.features`` in float32: bf16 within the image cell's
+    ``feature_gap`` (0.2), float32 (TF32 off) within 1e-4 of each row's norm
+    (``tests/test_torch_vgg_reference.py``'s bound)."""
+    from image_captioning_through_rl_tpu_torch.ops.fused_conv_epilogue import fused_conv_epilogue
+
+    cpu, card = _vgg_cpu_and_card(dev, dtype)
+    assert all(card.features[i].weight.is_contiguous(memory_format=CL) for i in tvgg.CONV_IDXS)
+    pixels = _vgg_pixels(4, 11)
+    assert tvgg.preprocess(pixels, device=dev).is_contiguous(memory_format=CL)
+    want = tvgg.features_fc7(cpu, pixels)
+    assert not cpu.features[0].weight.is_cuda and cpu.features[2].weight.is_contiguous()
+    launches = fused_conv_epilogue.launches
+    compute = None if dtype == torch.float32 else dtype
+    got = tvgg.features_fc7(card, pixels, compute_dtype=compute).cpu()
+    assert fused_conv_epilogue.launches - launches == len(tvgg.CONV_IDXS)
+    assert float(want.abs().max()) > 0 and not torch.equal(want[0], want[1])
+    gap = _row_gap(got, want)
+    if dtype == torch.float32:
+        assert gap <= 1e-4, gap
+    else:
+        assert 1e-4 < gap <= 0.2, gap
+
+
+@pytest.mark.cuda
+def test_vgg_extraction_launches_13_epilogues_a_batch(dev):
+    from image_captioning_through_rl_tpu_torch.ops.fused_conv_epilogue import fused_conv_epilogue
+
+    model = _vgg_bf16(dev)
+    launches = fused_conv_epilogue.launches
+    tvgg.extract_features(model, _vgg_pixels(3 * VGG_BATCH - 2, 4), batch_size=VGG_BATCH,
+                          compute_dtype=torch.bfloat16)
+    assert fused_conv_epilogue.launches - launches == 3 * len(tvgg.CONV_IDXS)
+
+
+@pytest.mark.cuda
+def test_vgg_traced_stack_has_no_transposes_bias_adds_or_nchw_pools(dev):
+    """A traced bf16 stack: cuDNN's NHWC convolutions read and write NHWC
+    (no ``nchwToNhwc`` / ``nhwcToNchw``), no PyTorch elementwise kernel adds
+    a bias or applies a ReLU to the feature maps, no NCHW pool runs; 13
+    ``conv_epilogue_kernel``s. Prints the convolutions' kernels."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    model = _vgg_bf16(dev)
+    x = tvgg.preprocess(_vgg_pixels(VGG_BATCH, 5), device=dev).to(torch.bfloat16)
+    model(x)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)  # the tracer takes effect some time after the window opens
+        model.channels_last_stack(x)
+        torch.cuda.synchronize()
+    counts = {e.key: e.count for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA}
+    names = sorted(counts)
+    assert sum(c for k, c in counts.items() if "conv_epilogue_kernel" in k) == len(
+        tvgg.CONV_IDXS), counts
+    banned = ("nchwToNhwc", "nhwcToNchw", "max_pool_forward_nchw", "elementwise_kernel",
+              "max_pool")
+    assert not [k for k in names if any(b in k for b in banned)], names
+    print("convolution kernels:", {k: c for k, c in counts.items() if "conv_epilogue" not in k})

@@ -64,6 +64,18 @@ def test_conv_stack_matches_jax_at_32():
     np.testing.assert_allclose(got.numpy(), want, rtol=FC7_RTOL, atol=FC7_ATOL)
 
 
+def test_channels_last_stack_matches_jax_at_32():
+    """The card's route (convolutions without their bias, then the bias,
+    ReLU and pool epilogue; its plain version here) in channels-last memory."""
+    x = np.random.default_rng(1).standard_normal((2, 32, 32, 3)).astype(np.float32)
+    want = np.asarray(jvgg._conv_stack(_jax_vgg(), jnp.asarray(x), precision="highest"))
+    got = _port_vgg().channels_last_stack(torch.from_numpy(x).permute(0, 3, 1, 2))
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    got = got.permute(0, 2, 3, 1)
+    assert got.shape == want.shape == (2, 1, 1, 512)
+    np.testing.assert_allclose(got.numpy(), want, rtol=FC7_RTOL, atol=FC7_ATOL)
+
+
 @functools.lru_cache(maxsize=None)
 def _images_224():
     return np.random.default_rng(2).integers(0, 256, (2, 224, 224, 3), dtype=np.uint8)
