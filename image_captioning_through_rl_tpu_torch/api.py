@@ -23,8 +23,9 @@ plain version. :func:`evaluate_captions` scores caption pairs
 arguments (a ``.ckpt`` or ``.pt`` model, the bundle for the vocabulary, the
 sub-network paths); :func:`load_captioner_pt` builds one from a
 reference-layout ``.pt`` and ``coco2014_vocab.json`` alone. Raw images
-go through the visual front end, :class:`FeatureExtractor` (VGG16 fc7 and an
-optional PCA, :func:`load_feature_extractor`), then the same decodes:
+go through the visual front end, :class:`FeatureExtractor` (a backbone of
+:data:`BACKBONES`, VGG16's fc7 or CLIP ViT-L/14@336px's image embedding, and
+an optional PCA, :func:`load_feature_extractor`), then the same decodes:
 :meth:`Captioner.caption_images` and :meth:`Captioner.sample_images`.
 ``mesh=`` (:mod:`.parallel`) shards each batch over a mesh's ``data`` axis:
 the captioner through :mod:`.parallel.serve` (each entry's rows through its
@@ -290,7 +291,7 @@ class Captioner:
 
     def caption_images(self, images, extractor: "FeatureExtractor", batch_size: int = 64,
                        **kw) -> List[str]:
-        """Caption raw images end to end: pixels -> VGG16 fc7 (-> PCA) ->
+        """Caption raw images end to end: pixels -> the backbone (-> PCA) ->
         :meth:`caption`. ``images``: file paths or an ``[N, H, W, 3]`` uint8
         array; ``extractor`` the visual front end
         (:func:`load_feature_extractor`)."""
@@ -312,80 +313,115 @@ class Captioner:
         return feats
 
 
+# the visual front ends :func:`load_feature_extractor` builds, by name
+BACKBONES = ("vgg16", "clip-vit-l14-336")
+
+
 class FeatureExtractor:
-    """The visual front end: VGG16 fc7 features, optionally PCA-reduced to
-    the bundle's compact dimension (the live counterpart of the bundle's
-    ``*_vgg16_fc7[_pca].h5`` tables).
+    """The visual front end: a backbone's image features, optionally
+    PCA-reduced to the captioning model's input dimension (the live
+    counterpart of the bundle's ``*_vgg16_fc7[_pca].h5`` tables).
 
-    ``vgg``: a :class:`.models.vgg.VGG16` (moved to ``device``, the card
-    unless the caller asks for ``"cpu"``); ``projection`` a
-    :class:`.data.pca.PCAProjection` or None. ``compute_dtype``
-    (``torch.bfloat16``) runs the stack with weights and activations in that
-    type, the weights cast once, here; float32 (None) runs in float32 on
-    every device (TF32 off). ``images`` of a call: file paths (decoded on
-    the host: the shorter side to 256, a centre crop of 224,
-    :func:`.cli.extract.load_image_batch`) or an ``[N, H, W, 3]`` array.
-    ``mesh`` (one process's devices) splits each batch over its ``data``
-    entries (:func:`.models.vgg.iter_features`); ``device`` is then the
-    mesh's first device."""
+    ``model``: the backbone, a :class:`.models.vgg.VGG16` (fc7, 4096-d) or a
+    :class:`.models.vit.VisionTransformer` (CLIP's image embedding, 768-d
+    at ViT-L/14@336px), moved to ``device``, the card unless the caller asks
+    for ``"cpu"``; ``vgg`` is the same module under its first name.
+    ``projection`` a :class:`.data.pca.PCAProjection` or None.
+    ``compute_dtype`` (``torch.bfloat16``) runs the stack with weights and
+    activations in that type, the weights cast once, here; float32 (None)
+    runs in float32 on every device (TF32 off). ``images`` of a call: file
+    paths (decoded on the host by :meth:`load_images`) or an ``[N, H, W,
+    3]`` array. ``mesh`` (one process's devices) splits each batch over
+    its ``data`` entries (:func:`.models.vgg.iter_features`); ``device`` is
+    then the mesh's first device."""
 
-    def __init__(self, vgg, projection=None, compute_dtype: torch.dtype | None = None,
+    def __init__(self, model, projection=None, compute_dtype: torch.dtype | None = None,
                  mesh=None, device="cuda"):
-        from .models import vgg as vgg_mod
-
         self.mesh = mesh
         self.device = resolve_device(device if mesh is None else mesh.first_device)
-        vgg = vgg.to(self.device).eval()
+        model = model.to(self.device).eval()
         if compute_dtype is not None:
-            vgg = vgg_mod.cast_params(vgg, compute_dtype)
-        self.vgg = vgg
+            model = model.to(compute_dtype)  # cast once, not per batch
+        self.model = model
         self.projection = projection.to(self.device) if projection is not None else None
         self.compute_dtype = compute_dtype
 
     @property
-    def dim(self) -> int:
-        """The output feature dimension (the PCA's components, or fc7's
-        4096)."""
-        from .models.vgg import FC7_DIM
+    def vgg(self):
+        return self.model
 
-        return self.projection.dim if self.projection is not None else FC7_DIM
+    @property
+    def backbone(self) -> str:
+        """The backbone's name, one of :data:`BACKBONES`."""
+        return self.model.backbone
+
+    @property
+    def image_size(self) -> int:
+        """The side of the square images the backbone reads."""
+        return self.model.image_size
+
+    @property
+    def dim(self) -> int:
+        """The output feature dimension (the PCA's components, or the
+        backbone's own: fc7's 4096, CLIP's embedding width)."""
+        return self.projection.dim if self.projection is not None else self.model.feature_dim
+
+    def load_images(self, paths) -> np.ndarray:
+        """Image files (paths or file objects) decoded on the host at the
+        backbone's geometry (:func:`.cli.extract.load_image_batch`): VGG16's
+        shorter side to 256 and a centre crop of 224 (bilinear); CLIP's
+        shorter side to its image size and a centre crop of it (bicubic)."""
+        from .cli.extract import load_image_batch
+
+        if self.backbone == "vgg16":
+            return load_image_batch(paths)
+        return load_image_batch(paths, resize=self.image_size, crop=self.image_size,
+                                resample="bicubic")
 
     def __call__(self, images, batch_size: int = 64, progress=None) -> np.ndarray:
         from .models import vgg as vgg_mod
 
         loader = None
         if len(images) and isinstance(images[0], str):
-            from .cli.extract import load_image_batch
-
-            loader = load_image_batch
-        return vgg_mod.extract_features(self.vgg, images, batch_size=batch_size,
+            loader = self.load_images
+        return vgg_mod.extract_features(self.model, images, batch_size=batch_size,
                                         projection=self.projection, loader=loader,
                                         progress=progress, compute_dtype=self.compute_dtype,
                                         mesh=self.mesh)
 
 
 def load_feature_extractor(weights: str = "", pca: str = "", bf16: bool = False, mesh=None,
-                           device="cuda") -> FeatureExtractor:
-    """A :class:`FeatureExtractor` from files, as the JAX package's: VGG16
-    weights (a torchvision-layout ``.pt`` state dict or a native ``.ckpt``;
-    empty: random weights, with a warning on stderr, for pipeline testing)
-    and an optional fitted PCA projection ``.npz`` (``cli/extract`` writes
-    one). ``bf16`` runs the stack in bfloat16. ``mesh``: each batch split
-    over one process's devices (:class:`FeatureExtractor`)."""
+                           device="cuda", backbone: str = "vgg16") -> FeatureExtractor:
+    """A :class:`FeatureExtractor` from files, as the JAX package's, for a
+    backbone of :data:`BACKBONES`. Its weights: VGG16's a torchvision-layout
+    ``.pt`` state dict or a native ``.ckpt``; CLIP's a ``transformers``
+    state dict saved by ``torch.save`` (``CLIPVisionModelWithProjection``
+    or ``CLIPModel``; another CLIP ViT than L/14@336px runs at its own
+    sizes, :func:`.models.convert.clip_vision_from_state_dict`); empty:
+    random weights, with a warning on stderr, for pipeline testing. An
+    optional fitted PCA projection ``.npz`` (``cli/extract`` writes one).
+    ``bf16`` runs the stack in bfloat16. ``mesh``: each batch split over
+    one process's devices (:class:`FeatureExtractor`)."""
     from .models import vgg as vgg_mod
-    from .models.convert import load_vgg_ckpt, vgg_from_state_dict
+    from .models import vit
+    from .models.convert import clip_vision_from_state_dict, load_vgg_ckpt, vgg_from_state_dict
 
+    if backbone not in BACKBONES:
+        raise ValueError(f"unknown backbone {backbone!r} (expected one of {BACKBONES})")
     dev = resolve_device(device if mesh is None else mesh.first_device)
-    if weights.endswith(".pt"):
-        model = vgg_from_state_dict(load_state_dict(weights), device=dev)
-    elif weights:
-        model = load_vgg_ckpt(weights, device=dev)
-    else:
+    if not weights:
         import sys
 
-        print("[FeatureExtractor] WARNING: random VGG16 weights (pipeline testing only)",
+        name, init = ("VGG16", vgg_mod.init) if backbone == "vgg16" else ("CLIP ViT", vit.init)
+        print(f"[FeatureExtractor] WARNING: random {name} weights (pipeline testing only)",
               file=sys.stderr)
-        model = vgg_mod.init(torch.Generator().manual_seed(0)).to(dev)
+        model = init(torch.Generator().manual_seed(0)).to(dev)
+    elif backbone != "vgg16":
+        model = clip_vision_from_state_dict(load_state_dict(weights), device=dev)
+    elif weights.endswith(".pt"):
+        model = vgg_from_state_dict(load_state_dict(weights), device=dev)
+    else:
+        model = load_vgg_ckpt(weights, device=dev)
     projection = None
     if pca:
         from .data.pca import PCAProjection

@@ -1,6 +1,7 @@
 """Caption image files end to end from the command line (counterpart of the
-JAX ``cli/caption.py``, with its flags): raw JPEG/PNG -> VGG16 fc7 (-> PCA)
--> the trained policy (greedy, value-guided beam, the faithful beam or
+JAX ``cli/caption.py``, with its flags): raw JPEG/PNG -> VGG16 fc7, or with
+``--backbone clip-vit-l14-336`` CLIP ViT-L/14@336px's image embedding (->
+PCA) -> the trained policy (greedy, value-guided beam, the faithful beam or
 sampled) -> caption text:
 
     python -m image_captioning_through_rl_tpu_torch.cli.caption \\
@@ -27,6 +28,8 @@ import sys
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from ..api import BACKBONES
+
     ap = argparse.ArgumentParser(description="Caption image files (pixels -> features -> text)")
     ap.add_argument("images", nargs="*", help="image files to caption")
     ap.add_argument("--images_dir", default="", help="caption every image in this directory")
@@ -37,14 +40,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="policy checkpoint (default: sibling of --model)")
     ap.add_argument("--value_model", default="",
                     help="value checkpoint (default: sibling of --model)")
+    ap.add_argument("--backbone", default="vgg16", choices=BACKBONES,
+                    help="the visual front end: VGG16 fc7, or CLIP ViT-L/14@336px's image "
+                         "embedding")
     ap.add_argument("--vgg_weights", default="",
-                    help="VGG16 weights (.pt torchvision layout or .ckpt); empty = random "
-                         "(pipeline testing only)")
+                    help="the backbone's weights: VGG16's .pt (torchvision layout) or .ckpt, "
+                         "CLIP's transformers state dict; empty = random (pipeline testing "
+                         "only)")
     ap.add_argument("--pca", default="",
                     help="fitted PCA projection .npz (cli/extract); required for models "
                          "trained on _pca features")
     ap.add_argument("--vgg_bf16", action="store_true",
-                    help="run the VGG16 stack in bfloat16 (features drift at bf16 rounding "
+                    help="run the backbone in bfloat16 (features drift at bf16 rounding "
                          "level)")
     ap.add_argument("--beam_size", type=int, default=0,
                     help="0 = greedy; >0 = value-guided beam search")
@@ -99,7 +106,7 @@ def main(argv=None) -> None:
                   if os.path.isdir(args.vocab) else args.vocab)
     word_to_idx, idx_to_word = load_vocab(vocab_path)
     extractor = load_feature_extractor(args.vgg_weights, args.pca, bf16=args.vgg_bf16,
-                                       device=device)
+                                       device=device, backbone=args.backbone)
     cfg = NetConfig.for_vocab(word_to_idx, bidirectional=args.bidirectional,
                               input_dim=extractor.dim)
 

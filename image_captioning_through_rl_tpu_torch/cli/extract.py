@@ -1,5 +1,6 @@
 """Feature-extraction CLI: raw images -> VGG16 fc7 ``.h5`` feature tables
-(counterpart of the JAX ``cli/extract.py``, with its flags).
+(counterpart of the JAX ``cli/extract.py``, with its flags), or CLIP
+ViT-L/14@336px image embeddings (``--backbone clip-vit-l14-336``).
 
 Writes what the data loader reads (``{split}2014_vgg16_fc7[_pca].h5`` with a
 ``features`` dataset), each published atomically:
@@ -9,7 +10,11 @@ Writes what the data loader reads (``{split}2014_vgg16_fc7[_pca].h5`` with a
         --weights vgg16.pt --pca_components 512
 
 ``--weights`` takes a torchvision-layout VGG16 ``.pt`` state dict or a native
-``.ckpt``; without it the weights are random (pipeline testing only).
+``.ckpt`` (with ``--backbone clip-vit-l14-336``: a ``transformers`` CLIP
+state dict, and the tables and the projection are named
+``{split}2014_clip_vit_l14_336[_pca].h5`` and ``clip_vit_l14_336_pca.npz``,
+which the bundle's loader does not read); without it the weights are
+random (pipeline testing only).
 Images are read with PIL in file-name order; ``--file_list`` pins the order
 (to match a ``*_urls.txt``). The stack runs on the card (``--device cuda``,
 the default) or, asked, the CPU. Without ``--pca_components`` (or with
@@ -41,15 +46,20 @@ def list_images(images_dir: str, file_list: str | None) -> List[str]:
                   if n.lower().endswith(exts))
 
 
-def load_image_batch(paths: List[str], resize: int = 256, crop: int = 224) -> np.ndarray:
-    """Decode on the host with the VGG evaluation geometry: the shorter side
-    to ``resize`` (aspect kept, PIL's BILINEAR, as torchvision's pretrained
-    pipeline; Pillow's default filter differs), then a centre ``crop x
-    crop`` -> uint8 ``[N, crop, crop, 3]``. The normalisation runs on the
-    device (:func:`..models.vgg.preprocess`, whose resize is skipped at
-    224)."""
+def load_image_batch(paths: List[str], resize: int = 256, crop: int = 224,
+                     resample: str = "bilinear") -> np.ndarray:
+    """Decode on the host: the shorter side to ``resize`` (aspect kept, the
+    longer side rounded to the nearest pixel), then a centre ``crop x
+    crop`` (its offset rounded down) -> uint8 ``[N, crop, crop, 3]``.
+    ``resample`` is PIL's filter: ``"bilinear"`` is VGG's evaluation
+    geometry as torchvision's pretrained pipeline decodes it (Pillow's
+    default filter differs); CLIP's transform is ``"bicubic"`` at ``resize
+    = crop = 336``. The normalisation runs on the device
+    (:func:`..models.vgg.preprocess`, :func:`..models.vit.preprocess`, whose
+    resizes are skipped at the backbone's size)."""
     from PIL import Image  # the CLI's and the image server's dependency only
 
+    filt = {"bilinear": Image.BILINEAR, "bicubic": Image.BICUBIC}[resample]
     out = np.zeros((len(paths), crop, crop, 3), np.uint8)
     for i, p in enumerate(paths):
         with Image.open(p) as im:
@@ -57,25 +67,31 @@ def load_image_batch(paths: List[str], resize: int = 256, crop: int = 224) -> np
             w, h = im.size
             scale = resize / min(w, h)
             nw, nh = max(crop, round(w * scale)), max(crop, round(h * scale))
-            im = im.resize((nw, nh), resample=Image.BILINEAR)
+            im = im.resize((nw, nh), resample=filt)
             left, top = (nw - crop) // 2, (nh - crop) // 2
             out[i] = np.asarray(im.crop((left, top, left + crop, top + crop)), np.uint8)
     return out
 
 
 def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description="Extract VGG16 fc7 features")
+    from ..api import BACKBONES
+
+    ap = argparse.ArgumentParser(description="Extract VGG16 fc7 (or CLIP image) features")
     ap.add_argument("--images_dir", required=True)
     ap.add_argument("--split", default="val", choices=["train", "val"])
     ap.add_argument("--out_dir", default=os.path.join("datasets", "coco_captioning"))
-    ap.add_argument("--weights", default="", help="VGG16 weights (.pt torchvision layout or .ckpt)")
+    ap.add_argument("--weights", default="", help="VGG16 weights (.pt torchvision layout or "
+                    ".ckpt), or the --backbone's")
+    ap.add_argument("--backbone", default="vgg16", choices=BACKBONES,
+                    help="the visual front end: VGG16 fc7, or CLIP ViT-L/14@336px's image "
+                         "embedding (weights in the transformers layout)")
     ap.add_argument("--file_list", default="", help="newline list of filenames fixing image order")
     ap.add_argument("--batch_size", type=int, default=64)
     ap.add_argument("--pca_components", type=int, default=0,
                     help="also write the _pca variant with this many components")
     ap.add_argument("--pca_from", default="", help="reuse a fitted projection (.npz)")
     ap.add_argument("--bf16", action="store_true",
-                    help="run the VGG16 stack in bfloat16 (fc7 values drift at bf16 rounding "
+                    help="run the stack in bfloat16 (fc7 values drift at bf16 rounding "
                          "level; fit and apply PCA on the same type's features)")
     ap.add_argument("--spmd", action="store_true",
                     help="shard each batch over all of this process's cards")
@@ -103,19 +119,20 @@ def main(argv=None) -> None:
         mesh = make_mesh(device=args.device)
         print_green(f"[Extract] SPMD: each batch split over {mesh}")
     extractor = load_feature_extractor(weights=args.weights, bf16=args.bf16, device=device,
-                                       mesh=mesh)
+                                       mesh=mesh, backbone=args.backbone)
     if args.weights:
-        print_green(f"[Extract] loaded VGG16 weights from {args.weights}")
+        print_green(f"[Extract] loaded {args.backbone} weights from {args.weights}")
     paths = list_images(args.images_dir, args.file_list or None)
     print_green(f"[Extract] {len(paths)} images from {args.images_dir}")
 
-    kwargs = dict(batch_size=args.batch_size, loader=load_image_batch,
+    kwargs = dict(batch_size=args.batch_size, loader=extractor.load_images,
                   progress=vgg.print_progress("Extracting"),
                   compute_dtype=extractor.compute_dtype, mesh=mesh)
     os.makedirs(args.out_dir, exist_ok=True)
-    raw_path = os.path.join(args.out_dir, f"{args.split}2014_vgg16_fc7.h5")
-    pca_path = os.path.join(args.out_dir, f"{args.split}2014_vgg16_fc7_pca.h5")
-    npz_path = os.path.join(args.out_dir, "vgg16_fc7_pca.npz")
+    tag = "vgg16_fc7" if args.backbone == "vgg16" else args.backbone.replace("-", "_")
+    raw_path = os.path.join(args.out_dir, f"{args.split}2014_{tag}.h5")
+    pca_path = os.path.join(args.out_dir, f"{args.split}2014_{tag}_pca.h5")
+    npz_path = os.path.join(args.out_dir, f"{tag}_pca.npz")
 
     fitting = bool(args.pca_components) and not args.pca_from
     if fitting and os.path.exists(npz_path) and not args.pca_refit:
@@ -127,7 +144,7 @@ def main(argv=None) -> None:
             "--pca_refit to deliberately refit and overwrite it (or delete the npz by hand)")
 
     if fitting:
-        feats = vgg.extract_features(extractor.vgg, paths, **kwargs)
+        feats = vgg.extract_features(extractor.model, paths, **kwargs)
         write_h5(raw_path, {"features": feats})
         print_green(f"[Extract] wrote {raw_path}")
         proj = fit_pca(torch_on(feats, device), k=args.pca_components)
@@ -136,7 +153,7 @@ def main(argv=None) -> None:
         print_green(f"[Extract] wrote {pca_path}")
         return
     proj = PCAProjection.load(args.pca_from, device) if args.pca_from else None
-    shapes = {"raw": (raw_path, vgg.FC7_DIM)}
+    shapes = {"raw": (raw_path, extractor.dim)}
     if proj is not None:
         shapes["pca"] = (pca_path, proj.dim)
     import contextlib
@@ -145,7 +162,7 @@ def main(argv=None) -> None:
         writers = {k: stack.enter_context(H5Writer(path, {"features": ((len(paths), dim), "f4")}))
                    for k, (path, dim) in shapes.items()}
         row = 0
-        for block in vgg.iter_features(extractor.vgg, paths, **kwargs):
+        for block in vgg.iter_features(extractor.model, paths, **kwargs):
             writers["raw"].write("features", row, block)
             if proj is not None:
                 writers["pca"].write("features", row,

@@ -2,13 +2,16 @@
 
 Each is a set of plain functions over a parameter dict in the JAX
 package's layout, plus the reward network (the learned VSE reward), and
-VGG16, the visual front end (an ``nn.Module`` in torchvision's layout).
+the visual front ends: VGG16 (an ``nn.Module`` in torchvision's layout) and
+CLIP's ViT image tower (``vit``, in OpenAI CLIP's layout).
 """
 
-from . import a2c, policy, reward, value, vgg
+from . import a2c, policy, reward, value, vgg, vit
 from .convert import (
     a2c_from_state_dict,
     a2c_to_state_dict,
+    clip_vision_from_state_dict,
+    clip_vision_to_state_dict,
     from_jax_params,
     load_state_dict,
     network_from_state_dict,
@@ -30,6 +33,7 @@ __all__ = [
     "reward",
     "value",
     "vgg",
+    "vit",
     "from_jax_params",
     "load_state_dict",
     "policy_from_state_dict",
@@ -45,4 +49,6 @@ __all__ = [
     "vgg_from_state_dict",
     "vgg_from_jax",
     "vgg_to_jax",
+    "clip_vision_from_state_dict",
+    "clip_vision_to_state_dict",
 ]

@@ -26,6 +26,7 @@ of the port's two checkpoint formats; the other, native ``.ckpt``, is
 
 from __future__ import annotations
 
+import math
 from typing import Mapping
 
 import numpy as np
@@ -315,3 +316,81 @@ def load_vgg_ckpt(path: str, device=None):
     if not all(f"conv{k}" in tree for k in range(13)) or "fc6" not in tree or "fc7" not in tree:
         raise ValueError(f"{path}: not a VGG16 checkpoint (keys {sorted(tree)[:6]} ...)")
     return vgg_from_jax(tree, device)
+
+
+# ---- CLIP's ViT image tower (models/vit.py) ----
+
+_HF_VISION = "vision_model."
+# (transformers' name under encoder.layers.{i}., the port's under
+# transformer.resblocks.{i}.), for the keys that carry over as they are
+_HF_BLOCK = (("layer_norm1", "ln_1"), ("self_attn.out_proj", "attn.out_proj"),
+             ("layer_norm2", "ln_2"), ("mlp.fc1", "mlp.c_fc"), ("mlp.fc2", "mlp.c_proj"))
+_HF_TOP = (("embeddings.patch_embedding.weight", "conv1.weight"),
+           ("embeddings.class_embedding", "class_embedding"),
+           ("embeddings.position_embedding.weight", "positional_embedding"),
+           ("pre_layrnorm.weight", "ln_pre.weight"), ("pre_layrnorm.bias", "ln_pre.bias"),
+           ("post_layernorm.weight", "ln_post.weight"), ("post_layernorm.bias", "ln_post.bias"))
+
+
+def clip_vision_from_state_dict(sd: Mapping, heads: int | None = None, device=None):
+    """A ``transformers`` ``CLIPVisionModelWithProjection`` (or ``CLIPModel``)
+    state dict -> a :class:`.vit.VisionTransformer` in float32 on
+    ``device``. The layout: ``vision_model.embeddings.{patch_embedding.weight
+    [W, 3, P, P], class_embedding [W], position_embedding.weight [T, W]}``,
+    ``vision_model.pre_layrnorm.*`` (sic), per layer
+    ``vision_model.encoder.layers.{i}.{layer_norm1, self_attn.{q,k,v,out}_proj,
+    layer_norm2, mlp.fc1, mlp.fc2}.*``, ``vision_model.post_layernorm.*`` and
+    ``visual_projection.weight [out, W]``. q, k and v are fused into one
+    in-projection (rows q, k, v), the projection is transposed, any other
+    key (the text tower, ``position_ids``) is dropped. The sizes come from
+    the shapes; ``heads`` (not in a state dict) defaults to ``W / 64``, as
+    in every CLIP tower."""
+    from .vit import VisionTransformer
+
+    def get(key):
+        if key not in sd:
+            raise ValueError(f"clip_vision_from_state_dict: not a CLIP vision state dict "
+                             f"(missing {key!r})")
+        return _t(sd[key])
+
+    patch = get(_HF_VISION + "embeddings.patch_embedding.weight")
+    pos = get(_HF_VISION + "embeddings.position_embedding.weight")
+    proj = get("visual_projection.weight")
+    layers = 0
+    while f"{_HF_VISION}encoder.layers.{layers}.layer_norm1.weight" in sd:
+        layers += 1
+    width, p = patch.shape[0], patch.shape[-1]
+    grid = math.isqrt(pos.shape[0] - 1)
+    hidden = get(f"{_HF_VISION}encoder.layers.0.mlp.fc1.weight").shape[0]
+    model = VisionTransformer(image_size=grid * p, patch=p, width=width, layers=layers,
+                              heads=heads, mlp=hidden, output_dim=proj.shape[0], device=device)
+    out = {mine: get(_HF_VISION + theirs) for theirs, mine in _HF_TOP}
+    out["proj"] = proj.T.contiguous()
+    for i in range(layers):
+        src, dst = f"{_HF_VISION}encoder.layers.{i}.", f"transformer.resblocks.{i}."
+        for part in ("weight", "bias"):
+            out[f"{dst}attn.in_proj_{part}"] = torch.cat(
+                [get(f"{src}self_attn.{c}_proj.{part}") for c in "qkv"])
+            for theirs, mine in _HF_BLOCK:
+                out[f"{dst}{mine}.{part}"] = get(f"{src}{theirs}.{part}")
+    model.load_state_dict(out, strict=True)
+    return model
+
+
+def clip_vision_to_state_dict(model) -> dict:
+    """A :class:`.vit.VisionTransformer` -> the ``transformers`` layout that
+    :func:`clip_vision_from_state_dict` reads (float32 CPU tensors; no
+    ``position_ids``)."""
+    sd = {k: _host(v) for k, v in model.state_dict().items()}
+    out = {_HF_VISION + theirs: sd[mine] for theirs, mine in _HF_TOP}
+    out["visual_projection.weight"] = sd["proj"].T.contiguous()
+    w = model.width
+    for i in range(len(model.transformer.resblocks)):
+        src, dst = f"transformer.resblocks.{i}.", f"{_HF_VISION}encoder.layers.{i}."
+        for part in ("weight", "bias"):
+            fused = sd[f"{src}attn.in_proj_{part}"]
+            for k, c in enumerate("qkv"):
+                out[f"{dst}self_attn.{c}_proj.{part}"] = fused[k * w:(k + 1) * w].clone()
+            for theirs, mine in _HF_BLOCK:
+                out[f"{dst}{theirs}.{part}"] = sd[f"{src}{mine}.{part}"]
+    return out

@@ -10,6 +10,9 @@ are torchvision's (``features.{i}.*`` for the 13 convolutions at their
 torchvision-layout ``.pt`` loads as it is (:func:`.convert.vgg_from_state_dict`).
 The JAX package works in NHWC; its fc6 reads the NCHW flatten, which is this
 module's own, so its weights carry over unpermuted (:func:`.convert.vgg_from_jax`).
+The extraction loop here (:func:`iter_features`, :func:`extract_features`)
+serves every backbone: VGG16, and CLIP's image tower (:mod:`.vit`), which
+brings its own preprocessing and stack.
 
 The JAX package runs the stack in XLA. The port runs its convolutions
 through ``torch.nn.functional.conv2d`` (cuDNN on the card) and fc6 and fc7
@@ -65,6 +68,8 @@ class VGG16(nn.Module):
     NCHW shapes, channels-last memory on a card (:meth:`channels_last_stack`).
     Its weights are uninitialised until :meth:`init` or a state dict fills
     them."""
+
+    backbone, feature_dim, image_size = "vgg16", FC7_DIM, IMAGE_SIZE
 
     def __init__(self, device=None):
         super().__init__()
@@ -274,10 +279,23 @@ def _mesh_replicas(model: VGG16, projection, mesh) -> list:
     return [(d, *copies[d]) for d in entries]
 
 
+def _stack(model, x, compute_dtype: torch.dtype | None) -> torch.Tensor:
+    """A backbone's features of a batch of pixels: its own ``extract`` where
+    it has one (:meth:`.vit.VisionTransformer.extract`), else VGG16's
+    :func:`features_fc7`."""
+    extract = getattr(model, "extract", None)
+    if extract is None:
+        return features_fc7(model, x, compute_dtype=compute_dtype)
+    return extract(x, compute_dtype=compute_dtype)
+
+
 def iter_features(model: VGG16, images, batch_size: int = 64, projection=None, loader=None,
                   progress=None, compute_dtype: torch.dtype | None = None, mesh=None):
     """Feature blocks (numpy float32, one a batch, in input order), without
-    holding the whole table: ``images`` is ``[N, H, W, 3]`` or, with
+    holding the whole table: ``model`` is the backbone (VGG16 through
+    :func:`features_fc7`, or a module with an ``extract(pixels,
+    compute_dtype)`` method of its own: :mod:`.vit`'s CLIP tower), whose
+    own preprocessing normalises the pixels; ``images`` is ``[N, H, W, 3]`` or, with
     ``loader``, any sequence whose slices ``loader`` turns into such an
     array (file paths: :func:`..cli.extract.load_image_batch`). The last
     batch is padded to ``batch_size`` by repeating its last item (one batch
@@ -304,7 +322,8 @@ def iter_features(model: VGG16, images, batch_size: int = 64, projection=None, l
     (:func:`..utils.profiling.annotate`): ``extract.pixels_in`` (the slice,
     decoded by ``loader`` where one is given, padded, and its copy to the
     device launched), ``extract.stack`` (the stack's and the projection's
-    launches) and ``extract.features_out`` (the block read back, which
+    launches; the CLIP tower's ``vit.*`` spans nest inside it) and
+    ``extract.features_out`` (the block read back, which
     waits on the device; on a card also, right after the stack, the
     launch of that copy)."""
     replicas = None
@@ -333,11 +352,11 @@ def iter_features(model: VGG16, images, batch_size: int = 64, projection=None, l
 
     def stack(x) -> torch.Tensor:
         if replicas is None:
-            feats = features_fc7(model, x, compute_dtype=compute_dtype)
+            feats = _stack(model, x, compute_dtype)
             return feats if projection is None else projection.apply(feats)
         parts = []
         for block, (_, m, proj) in zip(x, replicas):
-            f = features_fc7(m, block, compute_dtype=compute_dtype)
+            f = _stack(m, block, compute_dtype)
             parts.append((f if proj is None else proj.apply(f)).to(dev))
         return torch.cat(parts)
 
@@ -387,12 +406,14 @@ def extract_features(model: VGG16, images, batch_size: int = 64, projection=None
                      progress=None, compute_dtype: torch.dtype | None = None,
                      mesh=None) -> np.ndarray:
     """:func:`iter_features` as one ``[N, dim]`` float32 array (``dim`` the
-    projection's components, else 4096; an empty input gives ``[0, dim]``)."""
+    projection's components, else the backbone's ``feature_dim``, VGG16's
+    4096; an empty input gives ``[0, dim]``)."""
     blocks = list(iter_features(model, images, batch_size=batch_size, projection=projection,
                                 loader=loader, progress=progress, compute_dtype=compute_dtype,
                                 mesh=mesh))
     if not blocks:
-        dim = projection.dim if projection is not None else FC7_DIM
+        dim = projection.dim if projection is not None else getattr(model, "feature_dim",
+                                                                    FC7_DIM)
         return np.zeros((0, dim), np.float32)
     with annotate("extract.features_out"):
         return np.concatenate(blocks, axis=0)

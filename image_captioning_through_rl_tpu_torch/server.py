@@ -12,8 +12,9 @@ Endpoints:
   * ``POST /caption`` — JSON ``{"features": [[...]], "beam_size": 0}`` or
     ``{"images_b64": [...]}`` (base64 JPEG/PNG files, with a server started
     with ``--vgg_weights``: decoded on the handler thread, one co-batched
-    VGG16 forward a batch on the batcher thread, padded to an extraction
-    bucket), or
+    forward of the backbone (VGG16, or CLIP's tower with ``--backbone
+    clip-vit-l14-336``) a batch on the batcher thread, padded to an
+    extraction bucket), or
     raw little-endian float32 rows as ``application/octet-stream`` with
     the beam size in ``X-Beam-Size`` -> ``{"captions": [...]}``. Sampling
     rides the same endpoint: JSON ``"sample": {"temperature": 0.8,
@@ -41,7 +42,8 @@ reference-layout ``.pt`` alone. ``--vgg_weights`` (a torchvision-layout
 the process's cards (:mod:`.parallel`), each card running its rows through
 its own kernels, as the JAX server's ``--spmd`` shards over its chips.
 ``--vgg_bf16`` and ``--extract_batch`` turn on the raw-image endpoint, as in
-the JAX server. The console script
+the JAX server; ``--backbone`` picks the front end that ``--vgg_weights``
+holds. The console script
 ``image-caption-server-torch`` runs it.
 """
 
@@ -117,7 +119,7 @@ class _Pending:
     def __init__(self, features: Optional[np.ndarray], beam_size: int,
                  sample: Optional[tuple] = None, pixels: Optional[np.ndarray] = None):
         self.features = features
-        self.pixels = pixels  # uint8 [N, 224, 224, 3] awaiting extraction
+        self.pixels = pixels  # uint8 [N, S, S, 3] awaiting extraction (S the backbone's)
         self.beam_size = beam_size
         self.sample = sample  # (temperature, top_k, top_p, num_samples, seed) or None
         self.event = threading.Event()
@@ -315,7 +317,9 @@ class CaptionServer:
 
     def _decode_images(self, req: dict) -> np.ndarray:
         """A request's ``images_b64`` decoded on the handler thread (the
-        host's work) -> uint8 ``[N, 224, 224, 3]``, with the JAX server's
+        host's work) at the backbone's geometry
+        (:meth:`.api.FeatureExtractor.load_images`) -> uint8 ``[N, S, S,
+        3]``, with the JAX server's
         400s: both ``features`` and ``images_b64``, no extractor, an empty
         list, more images than the per-request limit (``max_batch``: the
         body cap does not bound the decoded pixels)."""
@@ -327,18 +331,16 @@ class CaptionServer:
         import base64
         import io
 
-        from .cli.extract import load_image_batch
-
         blobs = req["images_b64"]
         if not isinstance(blobs, list) or not blobs:
             raise ValueError("images_b64 must be a non-empty list")
         if len(blobs) > self._max_batch:
             raise ValueError(f"{len(blobs)} images exceed the per-request limit of "
                              f"{self._max_batch}")
-        return load_image_batch([io.BytesIO(base64.b64decode(b)) for b in blobs])
+        return self._extractor.load_images([io.BytesIO(base64.b64decode(b)) for b in blobs])
 
     def _extract(self, group: List[_Pending]) -> List[_Pending]:
-        """One co-batched VGG16 forward for the group's image requests,
+        """One co-batched forward of the backbone for the group's image requests,
         padded to an extraction bucket; their features filled in. Returns
         the requests that can decode (an extraction error answers its image
         requests)."""
@@ -479,8 +481,8 @@ class CaptionServer:
         sampling config (the wire format's ``"sample"`` objects, e.g.
         ``{"top_k": 40, "num_samples": 3}``), before traffic, so the first
         real requests pay neither the kernels' build nor the allocator's
-        first growth. With a feature extractor, one VGG16 forward of random
-        pixels per extraction bucket too (``image_buckets``, default all;
+        first growth. With a feature extractor, one forward of random pixels
+        at the backbone's image size per extraction bucket too (``image_buckets``, default all;
         ``[]`` skips them). Call before or after :meth:`start`."""
         rng = np.random.default_rng(0)
         buckets = list(self._buckets) if buckets is None else buckets
@@ -489,7 +491,8 @@ class CaptionServer:
         started = bool(self._threads) and self._threads[0].is_alive()
         if self._extractor is not None:
             for eb in list(self._extract_buckets) if image_buckets is None else image_buckets:
-                px = rng.integers(0, 255, size=(eb, 224, 224, 3)).astype(np.uint8)
+                size = self._extractor.image_size
+                px = rng.integers(0, 255, size=(eb, size, size, 3)).astype(np.uint8)
                 if started:
                     p = _Pending(None, 0, pixels=px)
                     self._queue.put(p)
@@ -554,7 +557,7 @@ def main(argv=None, block: bool = True):
     :class:`CaptionServer` instead of parking the main thread."""
     import argparse
 
-    from .api import load_captioner, load_captioner_pt
+    from .api import BACKBONES, load_captioner, load_captioner_pt
 
     ap = argparse.ArgumentParser(description="Caption serving over HTTP")
     ap.add_argument("--model", required=True,
@@ -589,8 +592,12 @@ def main(argv=None, block: bool = True):
                     help="largest accepted num_samples per request (a sampled batch is "
                          "bucket * num_samples rows)")
     ap.add_argument("--vgg_weights", default="",
-                    help="VGG16 weights (.pt torchvision layout or .ckpt); turns on the "
-                         "raw-image endpoint (POST /caption with images_b64)")
+                    help="the backbone's weights (VGG16: .pt torchvision layout or .ckpt; "
+                         "CLIP: a transformers state dict); turns on the raw-image endpoint "
+                         "(POST /caption with images_b64)")
+    ap.add_argument("--backbone", default="vgg16", choices=BACKBONES,
+                    help="the raw-image endpoint's front end: VGG16 fc7, or CLIP "
+                         "ViT-L/14@336px's image embedding")
     ap.add_argument("--pca", default="",
                     help="fitted PCA projection .npz mapping fc7 to the model's input dim "
                          "(cli/extract writes one)")
@@ -637,7 +644,8 @@ def main(argv=None, block: bool = True):
         from .api import load_feature_extractor
 
         extractor = load_feature_extractor(weights=args.vgg_weights, pca=args.pca,
-                                           bf16=args.vgg_bf16, device=args.device, mesh=mesh)
+                                           bf16=args.vgg_bf16, device=args.device, mesh=mesh,
+                                           backbone=args.backbone)
     srv = CaptionServer(cap, host=args.host, port=args.port, max_batch=args.max_batch,
                         max_wait_ms=args.max_wait_ms, extractor=extractor,
                         extract_batch=args.extract_batch, max_body_mb=args.max_body_mb,

@@ -5,8 +5,8 @@ Perfetto or ``chrome://tracing``) into a directory. It serves the CLI's
 own timeline.
 
 The program's spans, each a phase of host work, siblings and never nested
-(a trace's reader names an idle stretch of the device by the outermost
-range over it):
+but for ``vit.*`` inside ``extract.stack`` (a trace's reader names an idle
+stretch of the device by the outermost range over it):
 
 - ``caption.features_in``, ``caption.search``, ``caption.tokens_out``
   (:class:`..api.Captioner`) and ``caption.strings``
@@ -25,7 +25,12 @@ range over it):
   span; its counters ``iter_features.pinned_batches`` and
   ``iter_features.pageable_batches`` say how many batches went to a card
   through page-locked memory on a copy stream and how many were handed
-  over as the host's own array).
+  over as the host's own array);
+- ``vit.attention`` and ``vit.mlp`` (:class:`..models.vit.ResidualBlock`,
+  one of each a block, 48 a batch of the CLIP ViT-L/14 tower, each nested
+  in its batch's ``extract.stack``): the head split, the attention call
+  and the head merge, without the in- and out-projections; ``c_fc``, the
+  activation and ``c_proj``, without the residual add.
 """
 
 from __future__ import annotations

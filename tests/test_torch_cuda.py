@@ -1798,3 +1798,106 @@ def test_vgg_traced_stack_has_no_transposes_bias_adds_or_nchw_pools(dev):
               "max_pool")
     assert not [k for k in names if any(b in k for b in banned)], names
     print("convolution kernels:", {k: c for k, c in counts.items() if "conv_epilogue" not in k})
+
+
+# ---- CLIP's ViT-L/14@336px tower (models/vit.py) ----
+
+VIT_IMAGES = 8
+
+
+def _vit_weights(dev, layers=24):
+    """The CLIP cell's seeded weights (``portbench/reference/vit.py``, plain
+    PyTorch) in the ``transformers`` layout, on the card."""
+    from portbench.reference import vit as ref_vit
+
+    return ref_vit.draw_weights(2**31 + 41, dev, layers=layers)
+
+
+def _vit_pixels(n, seed):
+    return np.random.default_rng(seed).integers(0, 256, (n, 336, 336, 3), dtype=np.uint8)
+
+
+@pytest.mark.cuda
+def test_vit_bf16_tower_against_the_float32_path(dev):
+    """At the published widths on 8 images: the float32 tower on the card
+    (math attention, TF32 off) within 1e-4 of each row's norm of the plain
+    reference (sums of up to 4096 terms in another order); the bf16 tower
+    (weights cast once, FlashAttention) within 5e-2 of the float32 path
+    (48 residual additions each rounded to bf16's 2^-9: ~1.4%), and apart
+    from it (the bf16 rounding shows)."""
+    from image_captioning_through_rl_tpu_torch.models import convert, vit
+    from portbench.reference import vit as ref_vit
+
+    sd = _vit_weights(dev)
+    pixels = _vit_pixels(VIT_IMAGES, 1)
+    f32 = convert.clip_vision_from_state_dict(sd, device=dev)
+    got32 = vit.features(f32, pixels)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    want = ref_vit.embedding_table(sd, pixels, dev)
+    assert _row_gap(got32.cpu(), want.cpu()) <= 1e-4
+    bf16 = f32.to(torch.bfloat16)
+    got16 = vit.features(bf16, pixels, compute_dtype=torch.bfloat16)
+    assert got16.dtype == torch.float32 and got16.shape == (VIT_IMAGES, 768)
+    gap = _row_gap(got16.cpu(), got32.cpu())
+    assert 1e-3 < gap <= 5e-2, gap
+    assert torch.equal(vit.features(bf16, pixels, compute_dtype=torch.bfloat16), got16)
+
+
+@pytest.mark.cuda
+def test_vit_attention_forces_flash(dev):
+    """A bf16 call runs FlashAttention and no math-path softmax or batched
+    product; a bf16 head width flash cannot take (512, past its 256) raises
+    rather than running another backend; float32 on the card takes the math
+    backend."""
+    import time
+
+    from torch.nn.attention import SDPBackend
+    from torch.profiler import ProfilerActivity, profile
+
+    from image_captioning_through_rl_tpu_torch.models import vit
+
+    qkv = torch.randn(2, 577, 3 * 1024, device=dev, dtype=torch.bfloat16)
+    assert vit.attention_backend(qkv) == SDPBackend.FLASH_ATTENTION
+    assert vit.attention_backend(qkv.float()) == SDPBackend.MATH
+    vit.attention(qkv, 16)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)  # the tracer takes effect some time after the window opens
+        out = vit.attention(qkv, 16)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert any("flash" in k.lower() for k in names), names
+    assert not [k for k in names if "softmax" in k.lower() or "gemm" in k.lower()], names
+    want = vit.attention(qkv.float(), 16)
+    torch.testing.assert_close(out.float(), want, rtol=2e-2, atol=2e-2)
+    with pytest.raises(RuntimeError):
+        vit.attention(torch.randn(2, 9, 3 * 512, device=dev, dtype=torch.bfloat16), 1)
+
+
+@pytest.mark.cuda
+def test_vgg_features_unchanged_by_the_backbone_rule(dev):
+    """VGG16 through the extraction loop that now serves every backbone:
+    each row of a ragged three-batch call with a projection equals, bit for
+    bit, the pageable batch-by-batch ``features_fc7`` and ``apply`` that the
+    loop ran for VGG16 alone, with 13 epilogue launches a batch."""
+    from image_captioning_through_rl_tpu_torch.data.pca import PCAProjection
+    from image_captioning_through_rl_tpu_torch.ops.fused_conv_epilogue import fused_conv_epilogue
+
+    model = _vgg_bf16(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    comps, _ = torch.linalg.qr(torch.randn(4096, 64, generator=gen, device=dev))
+    proj = PCAProjection(torch.rand(4096, generator=gen, device=dev), comps.contiguous())
+    pixels = _vgg_pixels(3 * VGG_BATCH - 5, 8)
+    want = []
+    for i in range(0, len(pixels), VGG_BATCH):
+        rows = pixels[i:i + VGG_BATCH]
+        padded = np.concatenate([rows, np.repeat(rows[-1:], VGG_BATCH - len(rows), axis=0)])
+        f = tvgg.features_fc7(model, torch.from_numpy(padded).to(dev),
+                              compute_dtype=torch.bfloat16)
+        want.append(proj.apply(f)[:len(rows)].cpu().numpy())
+    launches = fused_conv_epilogue.launches
+    got = tvgg.extract_features(model, pixels, batch_size=VGG_BATCH, projection=proj,
+                                compute_dtype=torch.bfloat16)
+    assert fused_conv_epilogue.launches - launches == 3 * len(tvgg.CONV_IDXS)
+    np.testing.assert_array_equal(got, np.concatenate(want))
